@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``models/base.py`` for inference:
 ``from_quantized`` (llama, 4-bit on the card, ``gptq`` checkpoint format) and
-``generate`` (greedy or temperature sampling, ``num_beams=1``).
+``generate`` (greedy, temperature sampling, or beam search).
 """
 
 from __future__ import annotations
@@ -64,7 +64,8 @@ class GPTQModel:
     def generate(self, input_ids, max_new_tokens: int = 128, temperature: float = 0.0,
                  num_beams: int = 1, eos_token_id: Optional[int] = None,
                  min_new_tokens: int = 0, seed: int = 0, pad_token_id: int = 0,
-                 kv_quant: bool = False, num_return_sequences: int = 1,
+                 kv_quant: bool = False, length_penalty: float = 1.0,
+                 early_stopping=False, num_return_sequences: int = 1,
                  phased: bool = True) -> np.ndarray:
         """Returns ``[B * num_return_sequences, T_in + max_new_tokens]`` token
         ids (see :func:`autogptq_tpu_torch.utils.generation.generate`)."""
@@ -74,6 +75,7 @@ class GPTQModel:
             self, input_ids, max_new_tokens=max_new_tokens, temperature=temperature,
             num_beams=num_beams, eos_token_id=eos_token_id, min_new_tokens=min_new_tokens,
             seed=seed, pad_token_id=pad_token_id, kv_quant=kv_quant,
+            length_penalty=length_penalty, early_stopping=early_stopping,
             num_return_sequences=num_return_sequences, phased=phased,
         )
 

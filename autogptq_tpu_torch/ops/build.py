@@ -9,7 +9,8 @@ stream and return ``cudaGetLastError()``; the Python wrappers raise when the
 code is not 0. Nothing is compiled when this module is imported, and a build
 or launch failure raises: there is no fallback to the plain versions.
 
-``launches`` counts, per kernel, the wrapper calls that launched it.
+``launches`` counts, per kernel, the wrapper calls that launched it (keyed by
+the wrapper's kernel name, not the library's).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("w4a16_gemm", "flash_decode")
+KERNELS = ("w4a16_gemm", "flash_decode", "paged_attn", "page_ops")
 
 launches: collections.Counter = collections.Counter()
 

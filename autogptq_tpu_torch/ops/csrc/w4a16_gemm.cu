@@ -32,8 +32,9 @@
 //    bias and casts once to the activation type. No float atomics, so results are
 //    deterministic.
 //  * Prefill regime (M > 16): a tiled SIMT kernel. A 32 x 64 weight tile is dequantized
-//    into shared memory as bf16 next to a 64 x 32 f32 tile of x; each of 256 threads
-//    accumulates a 4 x 4 block of outputs in f32. Tensor cores (mma.sync / wgmma) and TMA
+//    into shared memory as f32 next to a 64 x 32 f32 tile of x; each of 256 threads
+//    accumulates a 4 x 4 block of outputs in f32. The weight is never rounded below f32, so
+//    an f32 model computes at f32 in both regimes. Tensor cores (mma.sync / wgmma) and TMA
 //    are later work.
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
@@ -191,7 +192,7 @@ w4a16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                      const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                      T* __restrict__ out, int M, int K, int N, int gs) {
     __shared__ __align__(16) float xs[PF_BK][PF_BM];
-    __shared__ __align__(16) __nv_bfloat16 ws[PF_BK][PF_BN];
+    __shared__ __align__(16) float ws[PF_BK][PF_BN];
     const int m0 = blockIdx.y * PF_BM;
     const int n0 = blockIdx.x * PF_BN;
     const int tx = threadIdx.x % 16;  // 4 output columns each
@@ -228,10 +229,10 @@ w4a16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                 const float zb = MAGIC + (float)zeros[(int64_t)g * N + n];
 #pragma unroll
                 for (int j = 0; j < 8; ++j)
-                    ws[r * 8 + j][c] = __float2bfloat16_rn(nibble_minus_zero(w, j, zb) * s);
+                    ws[r * 8 + j][c] = nibble_minus_zero(w, j, zb) * s;
             } else {
 #pragma unroll
-                for (int j = 0; j < 8; ++j) ws[r * 8 + j][c] = __float2bfloat16_rn(0.0f);
+                for (int j = 0; j < 8; ++j) ws[r * 8 + j][c] = 0.0f;
             }
         }
         __syncthreads();
@@ -239,9 +240,8 @@ w4a16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
         for (int kk = 0; kk < PF_BK; ++kk) {
             const float4 a4 = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
             const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-            float b[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = __bfloat162float(ws[kk][tx * 4 + j]);
+            const float4 b4 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
+            const float b[4] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll

@@ -8,21 +8,37 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 2. Builds every kernel of the port from ``autogptq_tpu_torch/ops/csrc`` with
    ``nvcc`` for ``sm_90a``, all sources at once, and prints the build times.
 3. K1 (w4a16 GEMM) against its plain PyTorch version at the Llama-2-7B
-   projection shapes, M in {1, 16, 128}, plus a desc_act and a bias case: the
+   projection shapes, M in {1, 4, 16, 128} (4 is the beam path's decode), plus
+   a desc_act and a bias case: the
    error against the stated tolerance, the kernel's, the plain version's and
    ``torch.matmul``'s (on a pre-dequantized bf16 weight) times, and the bound.
 4. K2 (flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2 with a
    left-padded row, and GQA, with the same measurements (the library call is
    ``scaled_dot_product_attention``).
-5. The main path: writes a random 4-bit g128 Llama-2-7B checkpoint (all 32
+5. K7 (paged attention) against ``paged_attention_mh_ref`` at the beam-4
+   Llama-2-7B shape (bf16 and int8 pools), GQA and unequal lengths; K8a
+   (page row write) and K8b (page copy, a src naming another copy's dst)
+   bit-equal against ``write_token_pages`` / ``copy_pages`` on bf16, int8
+   and 4-D scale pools, and refusing an id outside the pool without writing.
+   Library yardsticks: ``scaled_dot_product_attention`` over the same live
+   K/V laid out contiguously, ``index_put_``, and ``index_select`` +
+   ``index_copy_``.
+6. The main path: writes a random 4-bit g128 Llama-2-7B checkpoint (all 32
    layers), loads it with ``AutoGPTQForCausalLM.from_quantized`` on the
    default device and greedy-decodes 512 tokens from a 16-token prompt at
    batch 1, with the launch counts set to 0 just before and read just after;
    then a batch-2 left-padded run of 16 tokens.
-6. The port on the card against the port on the CPU: a 2-layer, full-width
-   cut of the same checkpoint, prefill and one decode step, bf16 kernels on
-   the card against the f32 plain versions on the CPU.
-7. Prints one JSON line of kernel measurements, the card's line, and last
+7. The beam path on the same model: ``generate(num_beams=4)`` of 512 tokens
+   over the paged bf16 cache (counts set to 0 just before, read just after),
+   repeated to check that it reproduces its tokens, then a 64-token run over
+   the int8 paged cache. A profile of a short greedy and a short beam-4
+   generate gives device time by kernel family.
+8. The port on the card against the port on the CPU: a 2-layer, full-width
+   cut of the same checkpoint, prefill and one decode step, and one paged
+   beam-4 decode step, bf16 kernels on the card against the f32 plain
+   versions on the CPU.
+9. Writes every measurement to ``build/chip_smoke.json`` and prints one
+   JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -42,9 +58,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-# K1: the kernel and its plain version both accumulate in f32 and round once to
-# bf16; the prefill kernel also rounds the dequantized weight to bf16 (2^-9
-# relative). Allowed: 1% of the largest output.
+# K1: the kernel and its plain version both dequantize and accumulate in f32
+# and round once to bf16 (2^-9 relative). Allowed: 1% of the largest output.
 K1_REL_TOL = 1e-2
 # K2: both sides are f32 on the same bf16 inputs and differ only in summation
 # order and in exp; outputs are averages of values of order one.
@@ -52,6 +67,14 @@ K2_ABS_TOL = 1e-4
 # Card (bf16 activations, bf16 KV cache, kernels) against CPU (f32, plain
 # versions) after 2 full-width layers: relative Frobenius error of the logits.
 E2E_REL_TOL = 5e-2
+# K7: as K2, both sides f32 on the same inputs (int8 codes and f32 scales
+# dequantized alike), differing only in summation order and exp.
+K7_ABS_TOL = 1e-4
+BEAMS = 4
+PAGE = 16
+QUANT_NEW_TOKENS = 64
+BEAM_PROFILE_TOKENS = 17
+AUTOGPTQ_BEAM4_A100 = 91.30   # BASELINE.md: llama-7b gptq-int4, beam 4, 1x A100-40G
 SPIN_CYCLES = 1_000_000       # about 0.5 ms of GPU clock before each timed call
 NEW_TOKENS = 512
 PROFILE_TOKENS = 33
@@ -125,7 +148,7 @@ def phase_k1(torch, np, timer) -> list:
     rng = np.random.default_rng(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(name, k, n, m, False, False)
-             for m in (1, 16, 128) for name, (k, n, _) in LAYER_SHAPES.items()]
+             for m in (1, BEAMS, 16, 128) for name, (k, n, _) in LAYER_SHAPES.items()]
     cases += [("qkvo+desc_act", 4096, 4096, 1, True, False),
               ("gate_up+bias", 4096, 11008, 16, False, True)]
     rows = []
@@ -206,8 +229,197 @@ def phase_k2(torch, timer) -> list:
     return rows
 
 
-def phase_main_path(torch, np, ckpt_dir: str) -> dict:
-    """Returns the launch counts of the 512-token run."""
+def _live_kv(pool, scales, tables, layer, lengths, ps, rep, dtype):
+    """The live K or V of each row, gathered from its pages into a contiguous
+    [B, H, S, D] tensor (int8 dequantized), for the library yardstick."""
+    wl = -(-int(lengths.max()) // ps)
+    idx = tables[:, :wl].long()
+    g = pool[layer][idx]                                    # [B, wl, Hkv, ps, D]
+    if scales is not None:
+        g = g.float() * (scales[layer][idx] / 127.5)[..., None]
+    b, _, hkv, _, d = g.shape
+    g = g.to(dtype).permute(0, 2, 1, 3, 4).reshape(b, hkv, wl * ps, d)
+    return g.repeat_interleave(rep, dim=1).contiguous()
+
+
+def phase_k7(torch, timer) -> list:
+    import torch.nn.functional as F
+
+    from autogptq_tpu_torch.ops import paged_attn as pam
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, h, d, ps, width, layers, layer = BEAMS, 32, 128, PAGE, 40, 2, 1
+    n_pages = 2 + BEAMS * 33           # null page, one prompt page, 33 own pages per beam
+    full = 33 * ps                     # 528 live slots: 16 prompt + 512 new
+    cases = [("beam4 bf16", 32, torch.bfloat16, [full] * b),
+             ("beam4 int8", 32, torch.int8, [full] * b),
+             ("GQA 32/8", 8, torch.bfloat16, [full] * b),
+             ("unequal lengths", 32, torch.bfloat16, [full, 300, 77, 1])]
+    rows = []
+    for name, hkv, kv_dtype, lens in cases:
+        rep = h // hkv
+        q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+        shape = (layers, n_pages, hkv, ps, d)
+        ks = vs = None
+        if kv_dtype == torch.int8:
+            kp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            vp = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            ks = torch.rand(shape[:-1], generator=gen, device="cuda") * 4 + 0.1
+            vs = torch.rand(shape[:-1], generator=gen, device="cuda") * 4 + 0.1
+        else:
+            kp = torch.randn(shape, generator=gen, device="cuda", dtype=kv_dtype)
+            vp = torch.randn(shape, generator=gen, device="cuda", dtype=kv_dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        # each row's live pages are distinct pages of the pool; dead entries name the null page
+        live_pages = -(-full // ps)
+        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * live_pages] + 1
+        tables = torch.zeros((b, width), dtype=torch.int32, device="cuda")
+        tables[:, :live_pages] = perm.reshape(b, live_pages).to(torch.int32)
+        scale = d ** -0.5
+        args = (q, kp, vp, lengths, tables, ks, vs)
+        o = pam.paged_attention_mh(*args, sm_scale=scale, layer=layer)
+        ref = pam.paged_attention_mh_ref(*args, sm_scale=scale, layer=layer)
+        torch.cuda.synchronize()
+        err = (o - ref).abs().max().item()
+        check(bool(torch.isfinite(o).all()), f"K7 {name}: non-finite output")
+        check(err <= K7_ABS_TOL, f"K7 {name}: max |kernel - plain| = {err:.3e} > {K7_ABS_TOL}")
+        kl = _live_kv(kp, ks, tables, layer, lengths, ps, rep, torch.bfloat16)
+        vl = _live_kv(vp, vs, tables, layer, lengths, ps, rep, torch.bfloat16)
+        mask = (torch.arange(kl.shape[2], device="cuda")[None] < lengths[:, None])[:, None, None]
+        q4 = q[:, :, None, :]
+        ms = timer.ms(lambda: pam.paged_attention_mh(*args, sm_scale=scale, layer=layer))
+        plain_ms = timer.ms(lambda: pam.paged_attention_mh_ref(*args, sm_scale=scale,
+                                                               layer=layer))
+        lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q4, kl, vl, attn_mask=mask,
+                                                                 scale=scale))
+        live = sum(lens)
+        kv_bytes = 2 * live * hkv * d * kp.element_size()
+        if ks is not None:
+            kv_bytes += 2 * live * hkv * 4
+        table_bytes = sum(-(-n // ps) for n in lens) * 4
+        b_ms, b_by = bound_ms(kv_bytes + table_bytes + nbytes(q, o, lengths), 4.0 * live * h * d)
+        rows.append(dict(case=name, B=b, H=h, Hkv=hkv, D=d, page_size=ps, pages=n_pages,
+                         width=width, lengths=lens, kv_dtype=str(kv_dtype), max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=b_by))
+        print(f"K7 {name:15s} B={b} H={h} Hkv={hkv} D={d} ps={ps} lengths={lens}  err {err:.3e} "
+              f"(tol {K7_ABS_TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+              f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del kp, vp, ks, vs, kl, vl
+    return rows
+
+
+def phase_k8(torch, timer) -> tuple:
+    """K8a and K8b at the beam-4 Llama-2-7B pool shape, all 32 layers."""
+    from autogptq_tpu_torch.ops import paged_attn as pam
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    layers, hkv, d, b = 32, 32, 128, BEAMS
+    n_pages = 2 + BEAMS * 33
+    cases = [("bf16 K/V", torch.bfloat16, 5), ("int8 K/V", torch.int8, 5),
+             ("f32 scales 4-D", torch.float32, 4)]
+
+    def rand(shape, dtype):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=dtype)
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    write_rows, copy_rows = [], []
+    for name, dtype, rank in cases:
+        tail = (d,) if rank == 5 else ()
+        kp = rand((layers, n_pages, hkv, PAGE) + tail, dtype)
+        vp = rand(kp.shape, dtype)
+        rk, rv = rand((b, hkv) + tail, dtype), rand((b, hkv) + tail, dtype)
+        layer = layers - 1
+        page_of = torch.tensor([2, 35, 68, 101], dtype=torch.int32, device="cuda")
+        off = torch.tensor([0, 5, 15, 9], dtype=torch.int32, device="cuda")
+        want_k = pam.write_token_pages(kp.clone(), layer, page_of, off, rk)
+        want_v = pam.write_token_pages(vp.clone(), layer, page_of, off, rv)
+        pam.write_token_pages_kernel(kp, vp, layer, page_of, off, rk, rv)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, want_k) and torch.equal(vp, want_v),
+              f"K8a {name}: pools differ from write_token_pages")
+        del want_k, want_v
+        li = torch.full((b, 1), layer, device="cuda")
+        pi, hi, oi = page_of.long()[:, None], torch.arange(hkv, device="cuda")[None], \
+            off.long()[:, None]
+        ms = timer.ms(lambda: pam.write_token_pages_kernel(kp, vp, layer, page_of, off, rk, rv,
+                                                           check=False))
+        plain_ms = timer.ms(lambda: (pam.write_token_pages(kp, layer, page_of, off, rk),
+                                     pam.write_token_pages(vp, layer, page_of, off, rv)))
+        lib_ms = timer.ms(lambda: (kp.index_put_((li, pi, hi, oi), rk),
+                                   vp.index_put_((li, pi, hi, oi), rv)))
+        b_ms, b_by = bound_ms(2 * nbytes(rk, rv) + nbytes(page_of, off), 0.0)
+        write_rows.append(dict(case=name, rows=list(rk.shape), pool=list(kp.shape),
+                               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by))
+        print(f"K8a {name:14s} rows {list(rk.shape)} into {list(kp.shape)} {dtype}: bit-equal  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  index_put_ {lib_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+        # src[1] is dst[0] and src[2] is dst[1]: every read must see the pool
+        # before any copy; src[3] == dst[3] copies a page onto itself
+        src = torch.tensor([2, 35, 68, 101], dtype=torch.int32, device="cuda")
+        dst = torch.tensor([35, 68, 120, 101], dtype=torch.int32, device="cuda")
+        want_k = pam.copy_pages(kp.clone(), src, dst)
+        want_v = pam.copy_pages(vp.clone(), src, dst)
+        pam.copy_pages_pair(kp, vp, src, dst)
+        torch.cuda.synchronize()
+        check(torch.equal(kp, want_k) and torch.equal(vp, want_v),
+              f"K8b {name}: pools differ from copy_pages")
+        del want_k, want_v
+        si, di = src.long(), dst.long()
+        ms = timer.ms(lambda: pam.copy_pages_pair(kp, vp, src, dst, check=False))
+        wrapper_ms = timer.ms(lambda: pam.copy_pages_pair(kp, vp, src, dst))
+        plain_ms = timer.ms(lambda: (pam.copy_pages(kp, src, dst), pam.copy_pages(vp, src, dst)))
+        lib_ms = timer.ms(lambda: (kp.index_copy_(1, di, kp.index_select(1, si)),
+                                   vp.index_copy_(1, di, vp.index_select(1, si))))
+        page_bytes = kp[0, 0].numel() * kp.element_size()
+        b_ms, b_by = bound_ms(2 * 2 * layers * src.numel() * page_bytes + nbytes(src, dst), 0.0)
+        copy_rows.append(dict(case=name, pages=src.numel(), pool=list(kp.shape),
+                              max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        print(f"K8b {name:14s} {src.numel()} pages x {layers} layers x 2 pools of "
+              f"{list(kp.shape)} {dtype}, src aliasing dst: bit-equal  kernel {ms:.4f} ms "
+              f"(check=True, waiting for the id flag: {wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
+              f"index_select+index_copy_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if dtype == torch.bfloat16:
+            refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst)
+        del kp, vp
+        torch.cuda.empty_cache()
+    return write_rows, copy_rows
+
+
+def refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst) -> None:
+    """K8a with a page id past the pool and K8b with a negative src and with a
+    repeated dst raise ValueError and leave both pools as they were."""
+    n_pages = kp.shape[1]
+    bad_page = page_of.clone()
+    bad_page[2] = n_pages
+    bad_src = src.clone()
+    bad_src[1] = -1
+    dup_dst = dst.clone()
+    dup_dst[3] = dst[0]
+    want_k, want_v = kp.clone(), vp.clone()
+    calls = (("K8a page id past the pool", lambda: pam.write_token_pages_kernel(
+                 kp, vp, layer, bad_page, off, rk, rv)),
+             ("K8b negative src", lambda: pam.copy_pages_pair(kp, vp, bad_src, dst)),
+             ("K8b repeated dst", lambda: pam.copy_pages_pair(kp, vp, src, dup_dst)))
+    for what, call in calls:
+        try:
+            call()
+        except ValueError:
+            pass
+        else:
+            raise SmokeFailure(f"{what}: no ValueError")
+        check(torch.equal(kp, want_k) and torch.equal(vp, want_v), f"{what}: pools changed")
+    print("K8a/K8b bad ids: a page id past the pool, a negative src and a repeated dst each "
+          "raise ValueError and leave the pools unchanged", flush=True)
+
+
+def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
+    """Returns the launch counts of the 512-token run and the loaded model."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.ops import build
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
@@ -260,50 +472,117 @@ def phase_main_path(torch, np, ckpt_dir: str) -> dict:
     check(counts2.get("w4a16_gemm", 0) >= 7 * layers * 16, f"batch-2 K1 launches {counts2}")
     print(f"batch 2, left-padded prompts of {PROMPT_LEN} and 9 tokens, 16 new tokens: "
           f"shape {out2.shape}, launches {counts2}", flush=True)
-    profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS)
-    del model
-    torch.cuda.empty_cache()
-    return counts
+    profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
+                     PROFILE_TOKENS)
+    return counts, model
 
 
-def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float) -> None:
-    """Device time by kernel family over a short batch-1 generate, from
+def phase_beam(torch, np, model) -> dict:
+    """Beam search on the main-path model; returns the launch counts and the
+    numbers of the 512-token run."""
+    from autogptq_tpu_torch.ops import build
+
+    layers = model.cfg.num_layers
+    vocab = model.cfg.vocab_size
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
+    gen_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    steps = NEW_TOKENS - 1
+    need = {"w4a16_gemm": 7 * layers * steps, "paged_attention_mh": layers * steps,
+            "write_token_pages": layers * steps, "copy_pages_pair": steps}
+    check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"beam output shape {out.shape}")
+    check(bool(((out[:, PROMPT_LEN:] >= 0) & (out[:, PROMPT_LEN:] < vocab)).all()),
+          "beam token ids out of range")
+    for name, n in need.items():
+        check(counts.get(name, 0) >= n, f"beam: {name} launched {counts.get(name, 0)} times, "
+                                         f"need >= {n}")
+    t0 = time.perf_counter()
+    again = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
+    again_s = time.perf_counter() - t0
+    check(np.array_equal(out, again), "beam search does not reproduce its tokens")
+    seq_tok_s = NEW_TOKENS / gen_s
+    print(f"beam path: Llama-2-7B 4-bit g128, {layers} layers (full depth), batch 1, "
+          f"{PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens, num_beams={BEAMS}, paged bf16 "
+          f"cache (page {PAGE}): generate {gen_s:.3f} s = {seq_tok_s:.2f} seq-tok/s = "
+          f"{BEAMS * seq_tok_s:.2f} beam-tok/s (repeat: {again_s:.3f} s, same tokens); "
+          f"AutoGPTQ gptq-int4 beam 4 on 1x A100-40G: {AUTOGPTQ_BEAM4_A100} tok/s (that "
+          f"card's number, BASELINE.md); peak device memory {peak / 2**30:.2f} GiB, "
+          f"launches {counts}", flush=True)
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    outq = model.generate(prompt, max_new_tokens=QUANT_NEW_TOKENS, num_beams=BEAMS,
+                          kv_quant=True)
+    q_s = time.perf_counter() - t0
+    counts_q = dict(build.launches)
+    qsteps = QUANT_NEW_TOKENS - 1
+    need_q = {"paged_attention_mh": layers * qsteps, "write_token_pages": 2 * layers * qsteps,
+              "copy_pages_pair": 2 * qsteps}
+    check(outq.shape == (1, PROMPT_LEN + QUANT_NEW_TOKENS), f"int8 beam output shape {outq.shape}")
+    check(bool(((outq[:, PROMPT_LEN:] >= 0) & (outq[:, PROMPT_LEN:] < vocab)).all()),
+          "int8 beam token ids out of range")
+    for name, n in need_q.items():
+        check(counts_q.get(name, 0) >= n, f"int8 beam: {name} launched "
+                                          f"{counts_q.get(name, 0)} times, need >= {n}")
+    print(f"beam path, int8 paged cache (kv_quant=True): {QUANT_NEW_TOKENS} new tokens, "
+          f"num_beams={BEAMS}: generate {q_s:.3f} s = {QUANT_NEW_TOKENS / q_s:.2f} seq-tok/s, "
+          f"launches {counts_q}", flush=True)
+    profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+                     f"beam-{BEAMS} generate", BEAM_PROFILE_TOKENS, num_beams=BEAMS)
+    return dict(counts=counts, gen_s=gen_s, repeat_s=again_s, seq_tok_s=seq_tok_s,
+                beam_tok_s=BEAMS * seq_tok_s, peak_bytes=peak, int8_new_tokens=QUANT_NEW_TOKENS,
+                int8_gen_s=q_s, int8_counts=counts_q)
+
+
+FAMILIES = (("K1 w4a16_gemm", ("w4a16", "splitk_reduce")), ("K2 flash_decode", ("flash_decode",)),
+            ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
+            ("K8b move_pages", ("move_pages",)))
+
+
+def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
+                     tokens: int, **gen_kwargs) -> None:
+    """Device time by kernel family over a short generate, from
     torch.profiler's CUDA kernel events. The profiler slows the host, so the
     busy share is also given against the unprofiled 512-token run's wall time
     per token (an estimate: that run's windows are longer)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.generate(prompt, max_new_tokens=PROFILE_TOKENS)
+    model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.generate(prompt, max_new_tokens=PROFILE_TOKENS)
+        model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
         wall_us = (time.perf_counter() - t0) * 1e6
-    families = {"K1 w4a16_gemm": 0.0, "K2 flash_decode": 0.0, "other": 0.0}
+    families = dict.fromkeys([name for name, _ in FAMILIES] + ["other"], 0.0)
     kernels = 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         kernels += 1
         us = evt.time_range.elapsed_us()
-        if "w4a16" in evt.name or "splitk_reduce" in evt.name:
-            families["K1 w4a16_gemm"] += us
-        elif "flash_decode" in evt.name:
-            families["K2 flash_decode"] += us
-        else:
-            families["other"] += us
+        family = next((name for name, keys in FAMILIES if any(k in evt.name for k in keys)),
+                      "other")
+        families[family] += us
     if not kernels:
-        print("profile: torch.profiler recorded no CUDA kernel events; device busy share "
-              "not measured", flush=True)
+        print(f"profile, {label}: torch.profiler recorded no CUDA kernel events; device busy "
+              "share not measured", flush=True)
         return
     busy = sum(families.values())
-    device_ms = busy / PROFILE_TOKENS / 1e3
-    print(f"profile, batch-1 generate of {PROFILE_TOKENS} tokens (prefill included): "
+    device_ms = busy / tokens / 1e3
+    print(f"profile, {label} of {tokens} tokens (prefill included): "
           f"device {device_ms:.3f} ms/token ("
-          + ", ".join(f"{k} {v / PROFILE_TOKENS / 1e3:.3f}" for k, v in families.items())
-          + f"), {kernels / PROFILE_TOKENS:.0f} kernels/token; host clock "
-          f"{wall_us / PROFILE_TOKENS / 1e3:.3f} ms/token under the profiler (device busy "
+          + ", ".join(f"{k} {v / tokens / 1e3:.3f}" for k, v in families.items())
+          + f"), {kernels / tokens:.0f} kernels/token; host clock "
+          f"{wall_us / tokens / 1e3:.3f} ms/token under the profiler (device busy "
           f"{100 * busy / wall_us:.1f}%), {unprofiled_ms_per_token:.3f} ms/token unprofiled "
           f"(device busy about {100 * device_ms / unprofiled_ms_per_token:.1f}%)", flush=True)
 
@@ -311,6 +590,8 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float) -> No
 def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.models.arch import KVCache, forward
+    from autogptq_tpu_torch.ops.paged_attn import check_page_errors
+    from autogptq_tpu_torch.utils.generation import beam_paged_prefill, paged_decode_step
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
 
     cfg = dict(LLAMA2_7B, num_hidden_layers=2)
@@ -324,10 +605,17 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
             cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=dtype, device=device)
             pre, cache = forward(model.params, tokens.to(device), model.cfg, cache=cache)
             dec, _ = forward(model.params, nxt.to(device), model.cfg, cache=cache)
-        results[device] = (pre.float().cpu(), dec.float().cpu())
-        del model, cache
+            mask = torch.ones_like(tokens, dtype=torch.int32)
+            _, pcache = beam_paged_prefill(model.params, tokens.to(device), mask.to(device),
+                                           model.cfg, BEAMS, 4, dtype)
+            beam_tok = torch.tensor([1234, 99, 5000, 31999], dtype=torch.int32, device=device)
+            step = paged_decode_step(model.params, model.cfg, pcache, beam_tok, pcache.plen,
+                                     dtype)
+            check_page_errors(device)
+        results[device] = (pre.float().cpu(), dec.float().cpu(), step.float().cpu())
+        del model, cache, pcache
     rows = {}
-    for i, name in enumerate(("prefill", "decode")):
+    for i, name in enumerate(("prefill", "decode", "paged beam-4 step")):
         card, cpu = results["cuda"][i], results["cpu"][i]
         check(bool(torch.isfinite(card).all()), f"card {name} logits are not finite")
         rel = ((card - cpu).norm() / cpu.norm()).item()
@@ -338,6 +626,7 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
     print(f"card (bf16, kernels) vs CPU (f32, plain), 2 full-width layers: "
           + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
                       for k, v in rows.items()) + f" (tol {E2E_REL_TOL})", flush=True)
+    return rows
 
 
 def layer_sum(rows: list, key: str, m: int = 1) -> float:
@@ -372,19 +661,34 @@ def main() -> int:
     timer = Timer(torch)
     k1_rows = phase_k1(torch, np, timer)
     k2_rows = phase_k2(torch, timer)
+    k7_rows = phase_k7(torch, timer)
+    k8a_rows, k8b_rows = phase_k8(torch, timer)
     del timer
     torch.cuda.empty_cache()
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches = phase_main_path(torch, np, os.path.join(work, "llama2-7b-random-g128"))
+        launches, model = phase_main_path(torch, np, os.path.join(work, "llama2-7b-random-g128"))
+        beam = phase_beam(torch, np, model)
+        del model
+        torch.cuda.empty_cache()
         shutil.rmtree(work, ignore_errors=True)
-        phase_cpu_vs_card(torch, np, os.path.join(work, "llama2-7b-random-g128-2layers"))
+        cpu_vs_card = phase_cpu_vs_card(torch, np,
+                                        os.path.join(work, "llama2-7b-random-g128-2layers"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    k2_main = k2_rows[0]
+    k2_main, k7_main, k8a_main, k8b_main = k2_rows[0], k7_rows[0], k8a_rows[0], k8b_rows[0]
+    beam_launches = beam["counts"]
+
+    def entry(name, source, replaces, counted, rows, main_row, at):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=counted.get(name, 0),
+                    max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"],
+                    plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+                    bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], at=at)
+
     kernels = [
         dict(name="w4a16_gemm", route="cuda", source="autogptq_tpu_torch/ops/csrc/w4a16_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:487",
@@ -396,16 +700,30 @@ def main() -> int:
                        else "operations"),
              library_ms=layer_sum(k1_rows, "library_ms"),
              at="one Llama-2-7B decoder layer's 7 projections at M=1, g128"),
-        dict(name="flash_decode", route="cuda",
-             source="autogptq_tpu_torch/ops/csrc/flash_decode.cu",
-             replaces="autogptq_tpu/ops/pallas/flash_decode.py:62",
-             launches=launches.get("flash_decode", 0),
-             max_abs_err=max(r["max_abs_err"] for r in k2_rows),
-             ms=k2_main["ms"], plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
-             bound_by=k2_main["bound_by"], library_ms=k2_main["library_ms"],
-             at="one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
+        entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
+              "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
+              "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
+        entry("paged_attention_mh", "autogptq_tpu_torch/ops/csrc/paged_attn.cu",
+              "autogptq_tpu/ops/pallas/paged_attn.py:45", beam_launches, k7_rows, k7_main,
+              "one layer, beam 4: B=4, H=Hkv=32, D=128, page 16, 528 live slots per row, "
+              "bf16 pools; launches from the 512-token beam-4 run"),
+        entry("write_token_pages", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
+              "autogptq_tpu/ops/pallas/paged_attn.py:252", beam_launches, k8a_rows, k8a_main,
+              "one layer, both pools, rows [4, 32, 128] bf16; launches from the 512-token "
+              "beam-4 run"),
+        entry("copy_pages_pair", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
+              "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows, k8b_main,
+              "4 pages x 32 layers x 2 bf16 pools (one beam-4 step), check=False as on the "
+              "beam path; launches from the 512-token beam-4 run"),
     ]
-    print(f"elapsed {time.perf_counter() - t_start:.1f} s", flush=True)
+    elapsed = time.perf_counter() - t_start
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
+                       k1=k1_rows, k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows,
+                       main_path=launches, beam=beam, cpu_vs_card=cpu_vs_card,
+                       kernels=kernels, elapsed_s=elapsed), f, indent=1)
+    print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

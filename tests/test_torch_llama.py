@@ -95,8 +95,8 @@ def test_sampling_is_seeded(models):
 
 def test_unported_options_raise(models, ckpt):
     port, _ = models
-    with pytest.raises(NotImplementedError, match="beam"):
-        port.generate(_prompts(), max_new_tokens=2, num_beams=2)
+    with pytest.raises(NotImplementedError, match="beam-sample"):
+        port.generate(_prompts(), max_new_tokens=2, num_beams=2, temperature=0.5)
     with pytest.raises(NotImplementedError, match="int8"):
         port.generate(_prompts(), max_new_tokens=2, kv_quant=True)
     cache = arch.KVCache.create(port.cfg, 1, 4, dtype=torch.float32, device="cpu")
@@ -125,7 +125,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import autogptq_tpu_torch, autogptq_tpu_torch.models.base, "
         "autogptq_tpu_torch.utils.generation, autogptq_tpu_torch.utils.convert, "
         "autogptq_tpu_torch.utils.random_checkpoint, autogptq_tpu_torch.ops.gemm, "
-        "autogptq_tpu_torch.ops.flash_decode, autogptq_tpu_torch.ops.build\n"
+        "autogptq_tpu_torch.ops.flash_decode, autogptq_tpu_torch.ops.paged_attn, "
+        "autogptq_tpu_torch.ops.build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'autogptq_tpu'))\n"
         "assert not bad, bad\n"
