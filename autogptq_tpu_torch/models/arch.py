@@ -116,11 +116,15 @@ class KVCache:
 def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache],
               positions: torch.Tensor, cfg: ArchConfig,
               attn_mask: Optional[torch.Tensor] = None,
-              decode_bounds: Optional[tuple] = None) -> torch.Tensor:
+              decode_bounds: Optional[tuple] = None,
+              capture: Optional[dict] = None) -> torch.Tensor:
     """Self-attention of one block; writes this step's K/V into ``cache``.
-    ``decode_bounds = (lo, hi)`` (int32 [B]) selects the K2 decode path."""
+    ``decode_bounds = (lo, hi)`` (int32 [B]) selects the K2 decode path.
+    ``capture`` (calibration, cache-less) records the input of every linear."""
     b, t, _ = x.shape
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if capture is not None:
+        capture["q_proj"] = capture["k_proj"] = capture["v_proj"] = x
     q = apply_linear(bp["q_proj"], x).view(b, t, h, d)
     k = apply_linear(bp["k_proj"], x).view(b, t, hkv, d)
     v = apply_linear(bp["v_proj"], x).view(b, t, hkv, d)
@@ -158,23 +162,42 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhrts,bshd->bthrd", probs, values.float())
-    return apply_linear(bp["o_proj"], out.reshape(b, t, h * d).to(x.dtype))
+    out = out.reshape(b, t, h * d).to(x.dtype)
+    if capture is not None:
+        capture["o_proj"] = out
+    return apply_linear(bp["o_proj"], out)
 
 
-def mlp(bp: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(bp: dict, x: torch.Tensor, capture: Optional[dict] = None) -> torch.Tensor:
     gate = apply_linear(bp["gate_proj"], x)
     up = apply_linear(bp["up_proj"], x)
-    return apply_linear(bp["down_proj"], F.silu(gate) * up)
+    h = F.silu(gate) * up
+    if capture is not None:
+        capture["gate_proj"] = capture["up_proj"] = x
+        capture["down_proj"] = h
+    return apply_linear(bp["down_proj"], h)
 
 
 def block_forward(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache],
                   positions: torch.Tensor, cfg: ArchConfig,
                   attn_mask: Optional[torch.Tensor] = None,
-                  decode_bounds: Optional[tuple] = None) -> torch.Tensor:
+                  decode_bounds: Optional[tuple] = None,
+                  capture: Optional[dict] = None) -> torch.Tensor:
+    """One decoder block. With ``capture`` a dict, the input of every linear
+    is recorded under its block-relative path (``attn.q_proj``,
+    ``mlp.down_proj``, ...): the calibration pass of ``quantize``, which runs
+    cache-less on a left-padded batch (``positions`` and ``attn_mask`` [B, T])."""
+    attn_cap = {} if capture is not None else None
+    mlp_cap = {} if capture is not None else None
     h = rms_norm(x, bp["input_norm"]["weight"], cfg.norm_eps)
-    x = x + attention(bp["attn"], h, layer_idx, cache, positions, cfg, attn_mask, decode_bounds)
+    x = x + attention(bp["attn"], h, layer_idx, cache, positions, cfg, attn_mask, decode_bounds,
+                      attn_cap)
     h2 = rms_norm(x, bp["post_norm"]["weight"], cfg.norm_eps)
-    return x + mlp(bp["mlp"], h2)
+    x = x + mlp(bp["mlp"], h2, mlp_cap)
+    if capture is not None:
+        capture.update({f"attn.{k}": v for k, v in attn_cap.items()})
+        capture.update({f"mlp.{k}": v for k, v in mlp_cap.items()})
+    return x
 
 
 def embed(params: dict, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

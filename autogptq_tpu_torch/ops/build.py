@@ -2,8 +2,8 @@
 
 Every ``ops/csrc/<name>.cu`` is compiled on first use into
 ``build/autogptq_tpu_torch/lib<name>-<digest>.so`` at the root of the checkout
-(``<digest>`` hashes the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded). Each source exports plain C entry
+(``<digest>`` hashes the source, the ``*.cuh`` headers beside it and the flags,
+so an edited source is rebuilt and a stale library is never loaded). Each source exports plain C entry
 points that take raw device pointers and the CUDA stream, launch on that
 stream and return ``cudaGetLastError()``; the Python wrappers raise when the
 code is not 0. Nothing is compiled when this module is imported, and a build
@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("w4a16_gemm", "flash_decode", "paged_attn", "page_ops")
+KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "flash_decode", "paged_attn", "page_ops")
 
 launches: collections.Counter = collections.Counter()
 
@@ -48,6 +48,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared templates: any edit rebuilds
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

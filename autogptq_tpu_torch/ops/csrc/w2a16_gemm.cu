@@ -1,0 +1,12 @@
+// K5: w2a16 dequant-matmul for Hopper (sm_90a), y[M,N] = x[M,K] @ ((q - z) * s)[K,N] (+ bias),
+// for 2-bit codes: int32 [K/16, N] words, 16 K rows per word.
+//
+// Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_k2i32 (_matmul_k2i32),
+// _kernel_kquad (_matmul_kquad) and the 2-bit class of the planar _kernel. Their eighth-split
+// and half-split word orders serve the TPU's compiler and are not carried over: the words are
+// GPTQ's own. The kernels, their layout, bound and design are in wna16_gemm.cuh; the bound is
+// a quarter byte per weight plus 3 bytes per group and column.
+
+#include "wna16_gemm.cuh"
+
+WNA16_DEFINE_ENTRY(w2a16_gemm, 2)

@@ -1,15 +1,24 @@
-"""K1: the w4a16 dequant-matmul, ``y = x @ ((q - z) * s) (+ bias)``.
+"""K1, K4 and K5: the wNa16 dequant-matmuls, ``y = x @ ((q - z) * s) (+ bias)``.
 
-Replaces the TPU kernel ``autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32``. The
-CUDA source is ``csrc/w4a16_gemm.cu`` (its header note gives the design and
-the bound). ``w4a16_matmul`` launches it for CUDA tensors and runs the plain
-version, ``w4a16_matmul_ref``, for CPU tensors; nothing else picks between
-them.
+One CUDA template (``csrc/wna16_gemm.cuh``, whose header note gives the design
+and the bound) is built into three libraries:
 
-Weight layout (see ``quantlinear.from_packed``): ``qweight`` int32 [K/8, N]
-GPTQ words of the group-sorted rows, ``scales`` fp16 [G, N], ``zeros`` uint8
-[G, N] effective zero points, ``kperm`` int64 [K] or None (desc_act: sorted
-row k reads ``x[..., kperm[k]]``).
+* K1 ``w4a16_gemm`` (4-bit codes, and 3-bit codes kept in nibbles) replaces the
+  TPU kernels ``autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32``, ``_kernel_ki32``
+  and the nibble part of ``_kernel_kpair``;
+* K4 ``w8a16_gemm`` (8-bit codes) replaces the planar ``_kernel`` and the
+  ``koct`` variant of ``_kernel_kpair``;
+* K5 ``w2a16_gemm`` (2-bit codes) replaces ``_kernel_k2i32``, ``_kernel_kquad``
+  and the 2-bit class of the planar ``_kernel``.
+
+``w4a16_matmul`` / ``w8a16_matmul`` / ``w2a16_matmul`` launch them for CUDA
+tensors and run the plain versions (``*_matmul_ref``) for CPU tensors; nothing
+else picks between them.
+
+Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
+per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
+``scales`` fp16 [G, N], ``zeros`` uint8 [G, N] effective zero points,
+``kperm`` int64 [K] or None (desc_act: sorted row k reads ``x[..., kperm[k]]``).
 """
 
 from __future__ import annotations
@@ -21,19 +30,18 @@ import torch
 
 from . import build
 
-NAME = "w4a16_gemm"
+KERNEL_NAMES = {4: "w4a16_gemm", 8: "w8a16_gemm", 2: "w2a16_gemm"}   # storage bits -> kernel
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 DECODE_MAX_M = 16       # rows at or below this take the split-K GEMV kernel
 DECODE_THREADS = 128    # decode block size, 4 output columns per thread
 MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 512 * 4 B
 
-_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
 
-
-def unpack_int4(qweight: torch.Tensor) -> torch.Tensor:
-    """int32 [K/8, N] words -> int32 codes [K, N] (row 8r+j in bits 4j..4j+3)."""
-    shifts = _SHIFTS.to(qweight.device)
-    codes = (qweight.unsqueeze(1) >> shifts[None, :, None]) & 15
+def unpack_words(qweight: torch.Tensor, bits: int) -> torch.Tensor:
+    """int32 [K/P, N] words -> int32 codes [K, N] (row P*r+j in bits
+    ``bits*j .. bits*j + bits - 1``), for bits in {2, 4, 8}."""
+    shifts = torch.arange(0, 32, bits, dtype=torch.int32, device=qweight.device)
+    codes = (qweight.unsqueeze(1) >> shifts[None, :, None]) & ((1 << bits) - 1)
     return codes.reshape(-1, qweight.shape[1])
 
 
@@ -56,25 +64,27 @@ def dequantize_codes(codes: torch.Tensor, scales: torch.Tensor, zeros: torch.Ten
     return w.to(dtype)
 
 
-def w4a16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+def wna16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                      zeros: torch.Tensor, kperm: Optional[torch.Tensor],
-                     bias: Optional[torch.Tensor], group_size: int) -> torch.Tensor:
-    """Plain version of K1: f32 dequantized weight, f32 product, one cast."""
+                     bias: Optional[torch.Tensor], group_size: int, bits: int) -> torch.Tensor:
+    """Plain version of K1/K4/K5: unpack, f32 dequantized weight, f32 product,
+    one cast."""
     if kperm is not None:
         x2d = x2d.index_select(1, kperm)
-    w = dequantize_codes(unpack_int4(qweight), scales, zeros, group_size)
+    w = dequantize_codes(unpack_words(qweight, bits), scales, zeros, group_size)
     y = x2d.float() @ w
     if bias is not None:
         y = y + bias.float()
     return y.to(x2d.dtype)
 
 
-def split_k(k: int, n: int, gs: int, sms: int) -> tuple[int, int]:
+def split_k(k: int, n: int, gs: int, sms: int, pack: int = 8) -> tuple[int, int]:
     """(K rows per split, number of splits) for the decode kernel: enough
-    blocks for about two per SM, whole groups per split where a group fits."""
+    blocks for about two per SM, whole groups per split where a group fits,
+    whole words (``pack`` rows) otherwise."""
     col_blocks = -(-(n // 4) // DECODE_THREADS)
     want = max(1, -(-2 * sms // col_blocks))
-    step = gs if gs <= MAX_KCHUNK else 8
+    step = gs if gs <= MAX_KCHUNK else pack
     kc = -(-k // want)
     kc = -(-kc // step) * step
     kc = min(kc, MAX_KCHUNK // step * step)
@@ -85,29 +95,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _lib():
-    lib = build.load(NAME)
-    fn = lib.w4a16_gemm
+def _lib(name: str):
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size) -> int:
+def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits) -> int:
     dev = x2d.device
+    pack = 32 // bits
+    kernel = KERNEL_NAMES[bits]
     if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.dtype not in DTYPE_CODES:
         raise ValueError(f"x must be a contiguous 2-D f32/f16/bf16 tensor, got "
                          f"{tuple(x2d.shape)} {x2d.dtype}")
     m, k = x2d.shape
     kw, n = qweight.shape
     gs = k if group_size == -1 else group_size
-    if qweight.dtype != torch.int32 or kw * 8 != k:
-        raise ValueError(f"qweight must be int32 [K/8, N] = [{k // 8}, N], got "
+    if qweight.dtype != torch.int32 or kw * pack != k:
+        raise ValueError(f"qweight must be int32 [K/{pack}, N] = [{k // pack}, N], got "
                          f"{tuple(qweight.shape)} {qweight.dtype}")
-    if k % 8 or n % 4 or gs % 8:
-        raise NotImplementedError(f"K1 needs K % 8 == 0, N % 4 == 0 and group size % 8 == 0 "
-                                  f"(K={k}, N={n}, group size={gs})")
+    if k % pack or n % 4 or gs % pack:
+        raise NotImplementedError(f"{kernel} needs K % {pack} == 0, N % 4 == 0 and group size "
+                                  f"% {pack} == 0 (K={k}, N={n}, group size={gs})")
     g = -(-k // gs)
     if scales.dtype != torch.float16 or tuple(scales.shape) != (g, n):
         raise ValueError(f"scales must be fp16 [{g}, {n}], got {tuple(scales.shape)} {scales.dtype}")
@@ -128,17 +139,21 @@ def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size) -> int
     return gs
 
 
-def w4a16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                  zeros: torch.Tensor, kperm: Optional[torch.Tensor],
-                 bias: Optional[torch.Tensor], group_size: int) -> torch.Tensor:
-    """``x2d [M, K] @ W -> [M, N]`` in ``x2d``'s dtype. A CPU tensor takes the
-    plain version; a CUDA tensor launches K1 or raises."""
+                 bias: Optional[torch.Tensor], group_size: int, bits: int) -> torch.Tensor:
+    """``x2d [M, K] @ W -> [M, N]`` in ``x2d``'s dtype for ``bits``-bit words
+    (2, 4 or 8). A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel of that width or raises."""
+    if bits not in KERNEL_NAMES:
+        raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if x2d.device.type == "cpu":
-        return w4a16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size)
+        return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, bits)
+    name = KERNEL_NAMES[bits]
     if x2d.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or, through its plain version, on the CPU; "
+        raise ValueError(f"{name} runs on CUDA or, through its plain version, on the CPU; "
                          f"got a tensor on {x2d.device}")
-    gs = _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size)
+    gs = _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits)
     m, k = x2d.shape
     n = qweight.shape[1]
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
@@ -147,16 +162,51 @@ def w4a16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     kc, splits, partial = 0, 0, None
     if m <= DECODE_MAX_M:
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-        kc, splits = split_k(k, n, gs, sms)
+        kc, splits = split_k(k, n, gs, sms, 32 // bits)
         if splits > 1:
             partial = torch.empty((splits, m, n), dtype=torch.float32, device=x2d.device)
-    fn = _lib()
+    fn = _lib(name)
     code = fn(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros), _ptr(bias),
               _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n, gs, kc, splits,
               ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
-    build.check(NAME, code)
-    build.launches[NAME] += 1
+    build.check(name, code)
+    build.launches[name] += 1
     return out
 
 
-__all__ = ["w4a16_matmul", "w4a16_matmul_ref", "dequantize_codes", "unpack_int4", "split_k"]
+def w4a16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """K1: 4-bit words (3-bit codes ride in nibbles)."""
+    return wna16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size, 4)
+
+
+def w8a16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """K4: 8-bit words, int32 [K/4, N]."""
+    return wna16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size, 8)
+
+
+def w2a16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """K5: 2-bit words, int32 [K/16, N]."""
+    return wna16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size, 2)
+
+
+def w4a16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """Plain version of K1."""
+    return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, 4)
+
+
+def w8a16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """Plain version of K4."""
+    return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, 8)
+
+
+def w2a16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
+    """Plain version of K5."""
+    return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, 2)
+
+
+__all__ = [
+    "KERNEL_NAMES", "wna16_matmul", "wna16_matmul_ref",
+    "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
+    "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
+    "split_k",
+]

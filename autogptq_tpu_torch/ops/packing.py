@@ -172,8 +172,45 @@ def dequantize(
     return (s * (w_q - z)).astype(dtype)
 
 
+def quantize_weight_rtn(
+    w: np.ndarray, scales: np.ndarray, zeros: np.ndarray, g_idx: np.ndarray, bits: int
+) -> np.ndarray:
+    """Round ``w[K, N]`` to the integer grid given per-group params:
+    ``intweight = clip(rint(w / scale + zero), 0, 2^bits - 1)``, in float64."""
+    maxq = (1 << bits) - 1
+    s = scales.astype(np.float64)[g_idx]
+    z = zeros.astype(np.float64)[g_idx]
+    q = np.rint(w.astype(np.float64) / s + z)
+    return np.clip(q, 0, maxq).astype(np.uint32)
+
+
+def pack_layer(
+    w: np.ndarray,
+    scales: np.ndarray,
+    zeros: np.ndarray,
+    g_idx: np.ndarray | None,
+    bits: int,
+    group_size: int,
+) -> dict:
+    """Full layer pack: fp weights ``w[K, N]`` + solver outputs -> checkpoint
+    tensors. ``scales``/``zeros`` are [G, N]; returns a dict of np arrays."""
+    k, n = w.shape
+    if g_idx is None:
+        gs = group_size if group_size != -1 else k
+        g_idx = (np.arange(k) // gs).astype(np.int32)
+    intweight = quantize_weight_rtn(w, scales, zeros, g_idx, bits)
+    return {
+        "qweight": pack_qweight(intweight, bits),
+        "qzeros": pack_qzeros(np.rint(zeros).astype(np.int64), bits),
+        "scales": scales.astype(np.float16),
+        "g_idx": np.asarray(g_idx, dtype=np.int32),
+    }
+
+
 __all__ = [
     "SUPPORTED_BITS",
+    "quantize_weight_rtn",
+    "pack_layer",
     "pack_qweight",
     "unpack_qweight",
     "pack_qzeros",

@@ -5,16 +5,20 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
 * :class:`PackedQuantLinear` holds a layer's GPTQ checkpoint tensors
   (``qweight`` / ``qzeros`` / ``scales`` / ``g_idx``) as NumPy arrays.
 * :class:`QuantLinear` is the runtime layout that :func:`from_packed` builds
-  once at load. It keeps GPTQ's own K-packed words: a checkpoint without
-  desc_act needs no repack, and K1 reads 8 consecutive K rows per 32-bit
-  word. With desc_act (a non-trivial ``g_idx``) the rows are sorted into
-  group order once at load and ``kperm`` maps each sorted row to its
+  once at load. It keeps GPTQ's own K-packed words, ``32 / storage bits``
+  consecutive K rows per 32-bit word: a 2-, 4- or 8-bit checkpoint without
+  desc_act needs no repack. 3-bit codes are unpacked from GPTQ's 32-in-3-words
+  interleave and stored in nibbles (storage bits 4), as the JAX package
+  stores them. With desc_act (a non-trivial ``g_idx``) the rows are sorted
+  into group order once at load and ``kperm`` maps each sorted row to its
   activation column (the TPU layouts of the JAX package are not carried
   over). Scales stay fp16 ``[G, N]`` as on disk; zero points become the
-  effective uint8 ``[G, N]``.
-* :func:`matmul` runs K1 (``ops/gemm.py``) for a CUDA tensor and its plain
-  version for a CPU tensor. Only 4-bit layers run on the card; the plain
-  CPU path also takes 2/3/8-bit layers, stored as uint8 codes ``[K, N]``.
+  effective uint8 ``[G, N]`` (for 3 bits up to 8, never re-masked).
+* :func:`matmul` runs the kernel of the storage width (``ops/gemm.py``: K1
+  for 3 and 4 bits, K4 for 8, K5 for 2) for a CUDA tensor and its plain
+  version for a CPU tensor.
+* :func:`pack_from_solver` turns the GPTQ solver's outputs into checkpoint
+  tensors.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ class PackedQuantLinear:
 class QuantLinear:
     """Runtime layout. Rows are in group-sorted order when ``kperm`` is set."""
 
-    qweight: torch.Tensor          # 4-bit: int32 [K/8, N] words; other bits: uint8 codes [K, N]
+    qweight: torch.Tensor          # int32 [K * storage_bits / 32, N] words
     scales: torch.Tensor           # fp16  [G, N]
     zeros: torch.Tensor            # uint8 [G, N] effective zero points
     kperm: Optional[torch.Tensor]  # int64 [K]: sorted row k reads activation column kperm[k]
@@ -56,6 +60,13 @@ class QuantLinear:
     group_size: int = -1
     in_features: int = 0
     out_features: int = 0
+
+
+STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
+
+
+def storage_bits(bits: int) -> int:
+    return STORAGE_BITS[bits]
 
 
 def _to_numpy(a) -> np.ndarray:
@@ -78,33 +89,38 @@ def group_order(g_idx: np.ndarray, k: int, group_size: int, groups: int) -> Opti
     return np.argsort(g_idx, kind="stable").astype(np.int64)
 
 
+def check_card_shape(bits: int, k: int, n: int, group_size: int) -> None:
+    """Raise for a layer shape that the kernel of ``bits`` does not take."""
+    pack = 32 // storage_bits(bits)
+    gs = group_size if group_size != -1 else k
+    if k % pack or n % 4 or gs % pack:
+        raise NotImplementedError(
+            f"{gemm.KERNEL_NAMES[storage_bits(bits)]} needs K % {pack} == 0, N % 4 == 0 and "
+            f"group size % {pack} == 0 for {bits}-bit layers (K={k}, N={n}, group size={gs}); "
+            f"other shapes wait for ROADMAP Queue 2, {'K5' if bits == 2 else 'K4'}")
+
+
 def from_packed(packed: PackedQuantLinear, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> QuantLinear:
     """Build the runtime layout on ``device`` from checkpoint tensors."""
     device = torch.device(device)
     bits = packed.bits
+    sbits = storage_bits(bits)
     k, n = packed.in_features, packed.out_features
     if device.type == "cuda":
-        gs = packed.group_size if packed.group_size != -1 else k
-        if bits != 4:
-            raise NotImplementedError(
-                f"{bits}-bit layers have no CUDA kernel yet (ROADMAP Queue 2, K4/K5); "
-                "only the plain CPU path (device='cpu') runs them")
-        if k % 8 or n % 4 or gs % 8:
-            raise NotImplementedError(f"K1 needs K % 8 == 0, N % 4 == 0 and group size % 8 == 0 "
-                                      f"(K={k}, N={n}, group size={gs})")
+        check_card_shape(bits, k, n, packed.group_size)
     qweight = np.ascontiguousarray(_to_numpy(packed.qweight))
     scales = np.ascontiguousarray(_to_numpy(packed.scales).astype(np.float16))
     zeros = packing.unpack_qzeros(_to_numpy(packed.qzeros), bits)[:, :n].astype(np.uint8)
     kperm = group_order(_to_numpy(packed.g_idx), k, packed.group_size, scales.shape[0])
 
-    if bits == 4 and kperm is None:
+    if bits == sbits and kperm is None:
         weight = qweight
     else:
         codes = packing.unpack_qweight(qweight, bits)[:k]
         if kperm is not None:
             codes = codes[kperm]
-        weight = packing.pack_qweight(codes, 4) if bits == 4 else codes.astype(np.uint8)
+        weight = packing.pack_qweight(codes, sbits)
     bias = None if packed.bias is None else torch.as_tensor(_to_numpy(packed.bias)).to(device, dtype)
     return QuantLinear(
         qweight=torch.from_numpy(np.ascontiguousarray(weight)).to(device),
@@ -121,9 +137,7 @@ def from_packed(packed: PackedQuantLinear, device="cuda",
 
 def codes(ql: QuantLinear) -> torch.Tensor:
     """Integer codes [K, N] of the stored (sorted) rows."""
-    if ql.bits == 4:
-        return gemm.unpack_int4(ql.qweight)
-    return ql.qweight.to(torch.int32)
+    return gemm.unpack_words(ql.qweight, storage_bits(ql.bits))
 
 
 def dequantize(ql: QuantLinear, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -143,41 +157,75 @@ def logical_weight(ql: QuantLinear, dtype: torch.dtype = torch.float32) -> torch
     return out
 
 
-def matmul_plain(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
-    """Plain ``y = x @ dequant(W) (+ bias)`` for any bit width: f32 weight and
-    product, one cast to ``x``'s dtype. Counterpart of the JAX ``matmul_xla``."""
-    if ql.bits == 4:
-        y = gemm.w4a16_matmul_ref(x.reshape(-1, ql.in_features), ql.qweight, ql.scales,
-                                  ql.zeros, ql.kperm, _bias(ql, x), ql.group_size)
-        return y.reshape(*x.shape[:-1], ql.out_features)
-    if ql.kperm is not None:
-        x = x.index_select(-1, ql.kperm)
-    y = x.float() @ dequantize(ql)
-    if ql.bias is not None:
-        y = y + ql.bias.float()
-    return y.to(x.dtype)
-
-
 def _bias(ql: QuantLinear, x: torch.Tensor) -> Optional[torch.Tensor]:
     return None if ql.bias is None else ql.bias.to(x.dtype)
 
 
+def matmul_plain(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """Plain ``y = x @ dequant(W) (+ bias)`` for any bit width: f32 weight and
+    product, one cast to ``x``'s dtype. Counterpart of the JAX ``matmul_xla``."""
+    y = gemm.wna16_matmul_ref(x.reshape(-1, ql.in_features), ql.qweight, ql.scales, ql.zeros,
+                              ql.kperm, _bias(ql, x), ql.group_size, storage_bits(ql.bits))
+    return y.reshape(*x.shape[:-1], ql.out_features)
+
+
 def matmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """Quantized ``y = x @ dequant(W) (+ bias)``, ``x [..., K] -> [..., N]``.
-    A CUDA tensor launches K1 or raises; a CPU tensor takes the plain path."""
-    if x.device.type == "cpu":
-        return matmul_plain(x, ql)
-    if ql.bits != 4:
-        raise NotImplementedError(f"{ql.bits}-bit layers have no CUDA kernel yet (ROADMAP K4/K5)")
-    y = gemm.w4a16_matmul(x.reshape(-1, ql.in_features).contiguous(), ql.qweight, ql.scales,
-                          ql.zeros, ql.kperm, _bias(ql, x), ql.group_size)
+    A CUDA tensor launches K1 (3/4-bit), K4 (8-bit) or K5 (2-bit) or raises; a
+    CPU tensor takes the plain path."""
+    y = gemm.wna16_matmul(x.reshape(-1, ql.in_features).contiguous(), ql.qweight, ql.scales,
+                          ql.zeros, ql.kperm, _bias(ql, x), ql.group_size,
+                          storage_bits(ql.bits))
     return y.reshape(*x.shape[:-1], ql.out_features)
+
+
+def solver_codes(w: torch.Tensor, scales16: torch.Tensor, zero: torch.Tensor,
+                 g_idx: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint8 codes [K, N] of fake-quantized weights ``w [N, K]``:
+    ``clip(rint(w / scale + zero), 0, 2^bits - 1)`` in float64 on ``w``'s
+    device, the arithmetic of ``packing.quantize_weight_rtn`` (IEEE division
+    and round-half-even on both sides, so the codes are the same bits)."""
+    g = g_idx.long()
+    s = scales16.double()[g]                 # [K, N]
+    z = zero.double()[g]
+    q = torch.round(w.t().double() / s + z)
+    return q.clamp_(0, (1 << bits) - 1).to(torch.uint8)
+
+
+def pack_from_solver(w, scale, zero, g_idx, bits: int, group_size: int,
+                     bias: Optional[np.ndarray] = None) -> PackedQuantLinear:
+    """Pack GPTQ solver outputs (``w [N, K]`` fake-quantized weights, ``scale``
+    and ``zero`` [G, N], ``g_idx`` [K]; tensors or arrays) into the checkpoint
+    layout. Scales are rounded to fp16 and zeros to integers *before*
+    ``intweight = clip(rint(w / scale + zero))``: the order decides codes. The
+    codes are computed where ``w`` lies (:func:`solver_codes`); the words are
+    packed on the host by ``ops/packing.py``, bit for bit what
+    ``packing.pack_layer`` gives for the same inputs."""
+    w = torch.as_tensor(w)
+    dev = w.device
+    n, k = w.shape
+    scales16 = torch.as_tensor(scale).to(dev).to(torch.float16)
+    zero_int = torch.round(torch.as_tensor(zero).to(dev).float())
+    g_idx_t = torch.as_tensor(g_idx).to(dev)
+    codes = solver_codes(w, scales16, zero_int, g_idx_t, bits).cpu().numpy()
+    return PackedQuantLinear(
+        qweight=packing.pack_qweight(codes, bits),
+        qzeros=packing.pack_qzeros(zero_int.cpu().numpy().astype(np.int64), bits),
+        scales=scales16.cpu().numpy(),
+        g_idx=g_idx_t.cpu().numpy().astype(np.int32),
+        bias=None if bias is None else np.asarray(bias),
+        bits=bits, group_size=group_size, in_features=k, out_features=n)
 
 
 __all__ = [
     "PackedQuantLinear",
     "QuantLinear",
     "from_packed",
+    "pack_from_solver",
+    "solver_codes",
+    "check_card_shape",
+    "storage_bits",
+    "codes",
     "group_order",
     "dequantize",
     "logical_weight",

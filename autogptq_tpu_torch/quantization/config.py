@@ -55,6 +55,9 @@ class BaseQuantizeConfig:
     checkpoint_format: str = CHECKPOINT_FORMAT.GPTQ
     model_name_or_path: Optional[str] = None
     model_file_base_name: Optional[str] = None
+    # MSE grid search of the group ranges: an extension that the checkpoint
+    # schema lacks, so to_dict leaves it out.
+    mse: bool = False
     lm_head: bool = False
 
     def __post_init__(self):

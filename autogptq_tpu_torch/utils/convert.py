@@ -6,14 +6,15 @@ params dict. The tree's nodes are recognised by their fields, so this module
 imports nothing from the JAX package:
 
 * a dense linear (``kernel``, ``bias``) is copied;
-* a quantized linear in the ``kb32`` or ``ki32`` layout is unpacked with the
-  port's copy of ``ki32_unpack_np`` (pack granularity 1024 rows for kb32, the
-  group size for ki32), stripped of its K/N padding and repacked into the
-  port's layout, keeping ``kperm``;
+* a quantized linear in the ``kb32``, ``ki32``, ``kpair``, ``k2i32``,
+  ``kquad``, ``koct`` or ``planar`` layout is unpacked with the port's copy of
+  that layout's ``*_unpack_np`` (pack granularity 1024 rows for kb32, the
+  group size for ki32, k2i32 and kquad), stripped of its K/N padding and
+  repacked into the port's words, keeping ``kperm``;
 * dicts and lists are walked; any other array (norm weights, embeddings) is
   copied.
 
-Other quantized layouts raise.
+Other quantized layouts (``kb32l``) raise.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from ..models.arch import DenseLinear
 from ..ops import packing
-from ..ops.quantlinear import QuantLinear
+from ..ops.quantlinear import STORAGE_BITS, QuantLinear
 
 _QUANT_FIELDS = ("wp", "scales", "zeros", "kperm", "layout", "group_size", "in_features",
                  "out_features", "bits")
@@ -45,24 +46,94 @@ def ki32_unpack_np(wp: np.ndarray, gs: int) -> np.ndarray:
     return out.reshape(k, n)
 
 
-def _quant_linear(node, device, dtype) -> QuantLinear:
-    layout = node.layout
-    k, n = node.in_features, node.out_features
+def kpair_unpack_np(wp: np.ndarray) -> np.ndarray:
+    """Codes [K, N] of a JAX kpair byte array [K/2, N]: byte k' holds row 2k'
+    in its low nibble and row 2k'+1 in its high one."""
+    k2, n = wp.shape
+    out = np.empty((k2 * 2, n), dtype=np.uint8)
+    out[0::2] = wp & np.uint8(0xF)
+    out[1::2] = wp >> np.uint8(4)
+    return out
+
+
+def k2i32_unpack_np(wp: np.ndarray, gs: int) -> np.ndarray:
+    """Codes [K, N] of a JAX k2i32 word array [K/16, N]: within each block of
+    ``gs`` rows, bits 2m..2m+1 of word j hold row m*gs/8 + 2j and bits
+    16+2m..17+2m row m*gs/8 + 2j + 1."""
+    k16, n = wp.shape
+    k = k16 * 16
+    w = wp.astype(np.uint32).reshape(k // gs, gs // 16, n)
+    e = gs // 8
+    out = np.empty((k // gs, gs, n), np.uint8)
+    for m in range(8):
+        pair = w >> np.uint32(2 * m)
+        out[:, m * e + 0:(m + 1) * e:2] = (pair & np.uint32(3)).astype(np.uint8)
+        out[:, m * e + 1:(m + 1) * e:2] = ((pair >> np.uint32(16)) & np.uint32(3)).astype(np.uint8)
+    return out.reshape(k, n)
+
+
+def kquad_unpack_np(wp: np.ndarray, gs: int) -> np.ndarray:
+    """Codes [K, N] of a JAX kquad byte array [K/4, N]: within each block of
+    ``gs`` rows, byte j holds rows 2j and 2j+1 of the first half in bits 0..3
+    and rows 2j and 2j+1 of the second half in bits 4..7."""
+    k4, n = wp.shape
+    k = k4 * 4
+    b4 = wp.reshape(k // gs, gs // 4, n)
+    first = np.empty((k // gs, gs // 2, n), np.uint8)
+    second = np.empty_like(first)
+    first[:, 0::2] = b4 & np.uint8(3)
+    first[:, 1::2] = (b4 >> np.uint8(2)) & np.uint8(3)
+    second[:, 0::2] = (b4 >> np.uint8(4)) & np.uint8(3)
+    second[:, 1::2] = b4 >> np.uint8(6)
+    return np.concatenate([first, second], axis=1).reshape(k, n)
+
+
+_PLANES = {2: 4, 3: 2, 4: 2, 8: 1}     # logical columns per planar byte
+
+
+def plane_unpack_np(wp: np.ndarray, bits: int) -> np.ndarray:
+    """Codes [K, N] of a JAX planar byte array [K, N / planes]: plane p of
+    every byte holds column ``p * N / planes + c``."""
+    sbits = STORAGE_BITS[bits]
+    mask = np.uint8((1 << sbits) - 1)
+    return np.concatenate([(wp >> np.uint8(sbits * p)) & mask for p in range(_PLANES[bits])],
+                          axis=1)
+
+
+def _codes(node) -> np.ndarray:
+    """Integer codes [K_padded, N_padded] of a JAX runtime layout."""
     wp = np.asarray(node.wp)
+    layout = node.layout
+    gs = node.group_size
     if layout == "kb32":
-        granularity = 1024
-    elif layout == "ki32":
-        granularity = node.group_size if node.group_size != -1 else wp.shape[0] * 8
-    else:
-        raise NotImplementedError(f"JAX runtime layout {layout!r} has no converter "
-                                  "(only kb32 and ki32 are carried across)")
+        return ki32_unpack_np(wp, 1024)
+    if layout == "ki32":
+        return ki32_unpack_np(wp, gs if gs != -1 else wp.shape[0] * 8)
+    if layout == "kpair":
+        return kpair_unpack_np(wp)
+    if layout == "k2i32":
+        return k2i32_unpack_np(wp, gs if gs != -1 else wp.shape[0] * 16)
+    if layout == "kquad":
+        return kquad_unpack_np(wp, gs if gs != -1 else wp.shape[0] * 4)
+    if layout == "koct":
+        return wp
+    if layout == "planar":
+        return plane_unpack_np(wp, node.bits)
+    raise NotImplementedError(f"JAX runtime layout {layout!r} has no converter")
+
+
+def _quant_linear(node, device, dtype) -> QuantLinear:
+    k, n = node.in_features, node.out_features
     gs = node.group_size if node.group_size != -1 else k
     g = -(-k // gs)
-    codes = ki32_unpack_np(wp, granularity)[:k, :n]
-    scales = np.asarray(node.scales)[:g, 0, :n].astype(np.float16)
-    zeros = np.asarray(node.zeros)[:g, 0, :n].astype(np.uint8)
+    codes = _codes(node)[:k, :n]
+    # scales/zeros are [G, planes, C] with column p * C + c in plane p
+    scales = np.asarray(node.scales)
+    scales = scales.reshape(scales.shape[0], -1)[:g, :n].astype(np.float16)
+    zeros = np.asarray(node.zeros)
+    zeros = zeros.reshape(zeros.shape[0], -1)[:g, :n].astype(np.uint8)
     kperm = None if node.kperm is None else np.asarray(node.kperm)[:k].astype(np.int64)
-    weight = packing.pack_qweight(codes, 4) if node.bits == 4 else codes
+    weight = packing.pack_qweight(codes, STORAGE_BITS[node.bits])
     bias = None if node.bias is None else torch.tensor(np.asarray(node.bias, np.float32)).to(device, dtype)
     return QuantLinear(
         qweight=torch.from_numpy(np.ascontiguousarray(weight)).to(device),
@@ -94,4 +165,5 @@ def params_from_jax(tree, device="cuda", dtype: torch.dtype = torch.bfloat16):
     return torch.tensor(np.asarray(tree, np.float32)).to(device, dtype)
 
 
-__all__ = ["params_from_jax", "ki32_unpack_np"]
+__all__ = ["params_from_jax", "ki32_unpack_np", "kpair_unpack_np", "k2i32_unpack_np",
+           "kquad_unpack_np", "plane_unpack_np"]

@@ -3,7 +3,8 @@
 The port's counterpart of the JAX package's ``utils/hf_io.py``. Tensors are
 read lazily through ``safetensors.safe_open(..., framework="pt")``, so host
 memory holds about one tensor at a time and bf16 tensors need no NumPy bf16
-type. Only local directories are read.
+type. Only local directories are read. ``save_safetensors`` writes NumPy
+tensors as one file or, above ``max_shard_size``, as shards with an index.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import torch
 
 SAFE_INDEX = "model.safetensors.index.json"
@@ -83,4 +85,41 @@ def open_tensors(model_dir: str, basename: str | None = None) -> LazyTensors:
     return LazyTensors(find_checkpoint_files(model_dir, basename))
 
 
-__all__ = ["find_checkpoint_files", "load_hf_config", "open_tensors", "LazyTensors"]
+def save_safetensors(tensors: dict[str, np.ndarray], path: str,
+                     metadata: dict[str, str] | None = None,
+                     max_shard_size: int | None = None) -> None:
+    """Write NumPy tensors to ``path``; when ``max_shard_size`` (bytes) is
+    given and exceeded, to ``<base>-0000i-of-0000n.safetensors`` shards listed
+    in ``<base>.safetensors.index.json`` (named after the target so a loader
+    that probes the base name finds a sharded save)."""
+    from safetensors.numpy import save_file
+
+    # save_file serializes the raw buffer, so every tensor must be C-contiguous
+    tensors = {k: np.ascontiguousarray(v) for k, v in tensors.items()}
+    dirname = os.path.dirname(path) or "."
+    os.makedirs(dirname, exist_ok=True)
+    total = sum(t.nbytes for t in tensors.values())
+    if max_shard_size is None or total <= max_shard_size:
+        save_file(tensors, path, metadata=metadata)
+        return
+
+    shards: list[dict[str, np.ndarray]] = [{}]
+    sizes = [0]
+    for name, t in tensors.items():
+        if sizes[-1] + t.nbytes > max_shard_size and shards[-1]:
+            shards.append({})
+            sizes.append(0)
+        shards[-1][name] = t
+        sizes[-1] += t.nbytes
+    base = os.path.basename(path).replace(".safetensors", "")
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        fname = f"{base}-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(shard, os.path.join(dirname, fname), metadata=metadata)
+        weight_map.update({name: fname for name in shard})
+    with open(os.path.join(dirname, f"{base}.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+
+
+__all__ = ["find_checkpoint_files", "load_hf_config", "open_tensors", "LazyTensors",
+           "save_safetensors"]

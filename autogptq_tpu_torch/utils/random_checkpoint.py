@@ -1,4 +1,6 @@
-"""Write a GPTQ checkpoint of random weights, made from a NumPy seed.
+"""Write checkpoints of random weights, made from a NumPy seed: a GPTQ one
+(``write_random_checkpoint``) and an unquantized fp16 one
+(``write_random_fp_checkpoint``).
 
 The port's counterpart of ``bench.py``'s random weights, written to
 disk in the GPTQ checkpoint format so that both packages' ``from_quantized``
@@ -87,6 +89,63 @@ def random_quant_tensors(rng: np.random.Generator, k: int, n: int, bits: int = 4
     }
 
 
+def _write_config(out_dir: str, config: dict, weight_map: dict) -> None:
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f, indent=1)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+
+
+def _top_tensors(config: dict, seed: int) -> dict:
+    """Embedding, final norm and head, drawn from ``[seed, 0]``."""
+    h, vocab = config["hidden_size"], config["vocab_size"]
+    rng = np.random.default_rng([seed, 0])
+    top = {
+        "model.embed_tokens.weight": rng.standard_normal((vocab, h), np.float32).astype(np.float16),
+        "model.norm.weight": (1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16),
+    }
+    if not config.get("tie_word_embeddings", False):
+        top["lm_head.weight"] = (rng.standard_normal((vocab, h), np.float32)
+                                 / np.sqrt(h)).astype(np.float16)
+    return top
+
+
+def write_random_fp_checkpoint(out_dir: str, config: dict, seed: int = 0) -> str:
+    """Write an unquantized fp16 llama checkpoint of random weights into
+    ``out_dir``: the input of ``from_pretrained`` / ``quantize``. One
+    safetensors file per decoder layer (layer ``i`` drawn from
+    ``[seed, i + 1]``) plus one for the embedding, final norm and head, so a
+    cut to a few layers is cheap and has the full model's first layers.
+    Linear weights are ``N(0, 1 / K)``, so activations stay of order one."""
+    from safetensors.numpy import save_file
+
+    os.makedirs(out_dir, exist_ok=True)
+    layers = config["num_hidden_layers"]
+    h = config["hidden_size"]
+    n_files = layers + 1
+    weight_map = {}
+
+    def save(idx: int, tensors: dict) -> None:
+        name = f"model-{idx + 1:05d}-of-{n_files:05d}.safetensors"
+        save_file(tensors, os.path.join(out_dir, name))
+        weight_map.update({key: name for key in tensors})
+
+    save(layers, _top_tensors(config, seed))
+    for i in range(layers):
+        rng = np.random.default_rng([seed, i + 1])
+        prefix = f"model.layers.{i}"
+        tensors = {}
+        for name, (k, n) in linear_shapes(config).items():
+            w = rng.standard_normal((n, k), np.float32) / np.float32(np.sqrt(k))
+            tensors[f"{prefix}.{name}.weight"] = w.astype(np.float16)
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{prefix}.{norm}.weight"] = (
+                1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16)
+        save(i, tensors)
+    _write_config(out_dir, config, weight_map)
+    return out_dir
+
+
 def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_size: int = 128,
                             desc_act: bool = False, seed: int = 0) -> str:
     """Write the checkpoint into ``out_dir`` (created if missing); returns it."""
@@ -95,7 +154,6 @@ def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_siz
     os.makedirs(out_dir, exist_ok=True)
     layers = config["num_hidden_layers"]
     h = config["hidden_size"]
-    vocab = config["vocab_size"]
     shapes = linear_shapes(config)
     n_files = layers + 1
     weight_map = {}
@@ -105,16 +163,7 @@ def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_siz
         save_file(tensors, os.path.join(out_dir, name))
         weight_map.update({key: name for key in tensors})
 
-    rng = np.random.default_rng([seed, 0])
-    top = {
-        "model.embed_tokens.weight": rng.standard_normal((vocab, h), np.float32).astype(np.float16),
-        "model.norm.weight": (1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16),
-    }
-    if not config.get("tie_word_embeddings", False):
-        top["lm_head.weight"] = (rng.standard_normal((vocab, h), np.float32)
-                                 / np.sqrt(h)).astype(np.float16)
-    save(layers, top)
-    del top
+    save(layers, _top_tensors(config, seed))
 
     for i in range(layers):
         rng = np.random.default_rng([seed, i + 1])
@@ -128,13 +177,11 @@ def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_siz
                 1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16)
         save(i, tensors)
 
-    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
-        json.dump({"metadata": {}, "weight_map": weight_map}, f, indent=1)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
+    _write_config(out_dir, config, weight_map)
     BaseQuantizeConfig(bits=bits, group_size=group_size, desc_act=desc_act,
                        sym=False).save_pretrained(out_dir)
     return out_dir
 
 
-__all__ = ["LLAMA2_7B", "linear_shapes", "random_quant_tensors", "write_random_checkpoint"]
+__all__ = ["LLAMA2_7B", "linear_shapes", "random_quant_tensors", "write_random_checkpoint",
+           "write_random_fp_checkpoint"]

@@ -37,7 +37,22 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    cut of the same checkpoint, prefill and one decode step, and one paged
    beam-4 decode step, bf16 kernels on the card against the f32 plain
    versions on the CPU.
-9. Writes every measurement to ``build/chip_smoke.json`` and prints one
+9. K4 (w8a16 GEMM), K5 (w2a16 GEMM) and K1 at the shape classes of the TPU's
+   ``ki32`` and ``kpair`` kernels (3-bit codes in nibbles, one group, group
+   sizes 16 and 64, K = 11008) against their plain versions at the three
+   Llama-2-7B shapes, M in {1, 4, 16, 17, 128}, bf16 (timed) and f32, one
+   desc_act case per kernel.
+10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
+   full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
+   equal tokens, launch counts (K5, K1, K4) set to 0 before and read after.
+11. Quantize on the card at full width: a random fp16 2-layer checkpoint,
+   ``from_pretrained``, ``quantize`` with 64 calibration sequences of 256
+   tokens for 4-bit g128, 4-bit g128 desc_act, 2-, 3- and 8-bit; seconds per
+   layer by phase, the solver loss, GPTQ against round-to-nearest on every
+   solve's own Hessian, ``save_quantized`` -> ``from_quantized`` with logits
+   bit-equal to the in-memory model's, and the logit error against the fp
+   model, which must fall from 2 to 8 bits.
+12. Writes every measurement to ``build/chip_smoke.json`` and prints one
    JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -70,6 +85,14 @@ E2E_REL_TOL = 5e-2
 # K7: as K2, both sides f32 on the same inputs (int8 codes and f32 scales
 # dequantized alike), differing only in summation order and exp.
 K7_ABS_TOL = 1e-4
+# K1/K4/K5 with f32 activations: f32 weights and accumulation on both sides,
+# summation order only (K up to 11008 terms of order one).
+F32_ABS_TOL = 1e-4
+OTHER_WIDTH_LAYERS = 8        # depth of the 2-, 3- and 8-bit generate runs
+OTHER_WIDTH_TOKENS = 64
+QUANT_LAYERS = 2              # depth of the model quantized on the card
+CALIB_SEQS, CALIB_LEN, CALIB_BATCH = 64, 256, 16
+KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
 BEAMS = 4
 PAGE = 16
 QUANT_NEW_TOKENS = 64
@@ -179,6 +202,239 @@ def phase_k1(torch, np, timer) -> list:
               f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms"
               f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rows
+
+def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype):
+    from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
+
+    t = random_quant_tensors(rng, k, n, bits, gs, desc_act)
+    return qlin.from_packed(qlin.PackedQuantLinear(
+        qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+        bias=None, bits=bits, group_size=gs, in_features=k, out_features=n), device="cuda",
+        dtype=dtype)
+
+
+def phase_wna16(torch, np, timer) -> list:
+    """K4, K5 and K1's other shape classes against their plain versions."""
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = {name: (k, n) for name, (k, n, _) in LAYER_SHAPES.items()}
+    layers = [(bits, name, 128, False) for bits in (8, 2, 3) for name in shapes]
+    layers += [(8, "down", 128, True), (2, "down", 128, True), (3, "qkvo", 128, True)]
+    # K1 at the classes of the TPU's ki32 (one group, any K % 8 == 0) and kpair (any group
+    # size 8 divides) kernels
+    layers += [(4, "qkvo", -1, False), (4, "down", -1, False), (4, "qkvo", 16, False),
+               (4, "gate_up", 64, False), (4, "down", 64, True), (3, "down", -1, False)]
+    # K5 at the class of the TPU's kquad kernel (group sizes below 128), K4 at a small group
+    layers += [(2, "qkvo", 64, False), (2, "down", 32, True), (8, "qkvo", 32, False)]
+    rows = []
+    for bits, name, gs, desc_act in layers:
+        k, n = shapes[name]
+        kernel = KERNEL_OF_BITS[bits]
+        layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
+        w = qlin.logical_weight(layer, torch.bfloat16)
+        case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
+        for m in (1, BEAMS, 16, 17, 128):
+            x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            before = build.launches[kernel]
+            y = qlin.matmul(x, layer)
+            check(build.launches[kernel] == before + 1, f"{case} M={m}: {kernel} not launched")
+            ref = qlin.matmul_plain(x, layer)
+            y32 = qlin.matmul(x.float(), layer)
+            ref32 = qlin.matmul_plain(x.float(), layer)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err32 = (y32 - ref32).abs().max().item()
+            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(y32).all()),
+                  f"{case} M={m}: non-finite output")
+            check(err <= K1_REL_TOL * scale, f"{case} M={m} bf16: max |kernel - plain| = "
+                                             f"{err:.3e} > {K1_REL_TOL} * {scale:.3e}")
+            check(err32 <= F32_ABS_TOL * max(1.0, scale),
+                  f"{case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            ms = timer.ms(lambda: qlin.matmul(x, layer), iters=10)
+            plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=5, warmup=1)
+            lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=10)
+            b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
+                                         layer.kperm), 2.0 * m * k * n)
+            rows.append(dict(kernel=kernel, bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
+                             desc_act=desc_act, max_abs_err=err, max_abs_ref=scale,
+                             max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            print(f"{kernel} {case:26s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
+                  f"{K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
+                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del layer, w
+    return rows
+
+
+def phase_other_widths(torch, np, work: str) -> dict:
+    """2-, 3- and 8-bit checkpoints generate through K5, K1 and K4."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
+
+    cfg = dict(LLAMA2_7B, num_hidden_layers=OTHER_WIDTH_LAYERS)
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    out = {}
+    for bits in (2, 3, 8):
+        path = os.path.join(work, f"llama2-7b-random-{bits}bit-g128")
+        write_random_checkpoint(path, cfg, bits=bits, group_size=128, seed=bits)
+        model = AutoGPTQForCausalLM.from_quantized(path)
+        model.generate(prompt, max_new_tokens=4)
+        torch.cuda.synchronize()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        first = model.generate(prompt, max_new_tokens=OTHER_WIDTH_TOKENS)
+        gen_s = time.perf_counter() - t0
+        counts = dict(build.launches)
+        t0 = time.perf_counter()
+        again = model.generate(prompt, max_new_tokens=OTHER_WIDTH_TOKENS)
+        again_s = time.perf_counter() - t0
+        kernel = KERNEL_OF_BITS[bits]
+        need = 7 * OTHER_WIDTH_LAYERS * (OTHER_WIDTH_TOKENS - 1)
+        new = first[:, PROMPT_LEN:]
+        check(first.shape == (1, PROMPT_LEN + OTHER_WIDTH_TOKENS), f"{bits}-bit output shape")
+        check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), f"{bits}-bit ids out of range")
+        check(np.array_equal(first, again), f"{bits}-bit greedy decode does not repeat its tokens")
+        check(counts.get(kernel, 0) >= need,
+              f"{bits}-bit: {kernel} launched {counts.get(kernel, 0)} times, need >= {need}")
+        others = set(KERNEL_OF_BITS.values()) - {kernel}
+        check(not any(counts.get(o, 0) for o in others), f"{bits}-bit run launched {counts}")
+        tok_s = OTHER_WIDTH_TOKENS / gen_s
+        out[bits] = dict(counts=counts, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
+                         layers=OTHER_WIDTH_LAYERS)
+        print(f"{bits}-bit g128, Llama-2-7B widths, {OTHER_WIDTH_LAYERS} of 32 layers, batch 1, "
+              f"{PROMPT_LEN}-token prompt, {OTHER_WIDTH_TOKENS} new tokens greedy, twice with "
+              f"equal tokens: {gen_s:.3f} s = {tok_s:.2f} tok/s at this depth (repeat "
+              f"{again_s:.3f} s), launches {counts}",
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+        shutil.rmtree(path, ignore_errors=True)
+    return out
+
+
+def rtn_objective(torch, w, h, cfg) -> float:
+    """``tr(E H E^T)`` of round-to-nearest on ``w [N, K]`` with per-group
+    ranges from the same search the solver uses; ``H = 2/n X^T X``, so this is
+    ``2/n |X (W - W_rtn)^T|^2`` on the calibration inputs."""
+    from autogptq_tpu_torch.quantization.quantizer import find_params, quantize_rtn
+
+    n, k = w.shape
+    gs = cfg.group_size if cfg.group_size != -1 else k
+    rows = w.float().reshape(n * (k // gs), gs)
+    scale, zero = find_params(rows, cfg.quantizer())
+    q = quantize_rtn(rows, scale[:, None], zero[:, None], cfg.maxq).reshape(n, k)
+    return objective(torch, q - w.float(), h)
+
+
+def objective(torch, e, h) -> float:
+    return float(((e @ h.float()) * e).sum())
+
+
+def phase_quantize(torch, np, work: str) -> dict:
+    """quantize -> save_quantized -> from_quantized on the card, full width."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM, BaseQuantizeConfig
+    from autogptq_tpu_torch.models import base
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.quantization.gptq import full_fp32_matmul
+    from autogptq_tpu_torch.utils.data import random_calibration_examples
+    from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_fp_checkpoint
+
+    cfg = dict(LLAMA2_7B, num_hidden_layers=QUANT_LAYERS)
+    fp_dir = os.path.join(work, "llama2-7b-random-fp16-2layers")
+    t0 = time.perf_counter()
+    write_random_fp_checkpoint(fp_dir, cfg, seed=0)
+    print(f"quantize: random fp16 checkpoint, Llama-2-7B widths, {QUANT_LAYERS} layers, written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    examples = random_calibration_examples(cfg["vocab_size"], n=CALIB_SEQS, seqlen=CALIB_LEN,
+                                           seed=0)
+    tokens = (np.arange(24) * 37 % cfg["vocab_size"])[None]      # M = 24: the tile kernel
+    fp = AutoGPTQForCausalLM.from_pretrained(fp_dir, dtype=torch.float16)
+    check(fp.device.type == "cuda", "from_pretrained did not default to the card")
+    fp_logits = fp.forward(tokens)
+    del fp
+
+    # hold every solve against round-to-nearest on the Hessian it was given
+    solves = []
+    real_solver = base.gptq_quantize
+
+    def solver(w, h, gcfg):
+        res = real_solver(w, h, gcfg)
+        with full_fp32_matmul():
+            solves.append((objective(torch, res.qweight - w.float(), h),
+                           rtn_objective(torch, w, h, gcfg)))
+        return res
+
+    out = {}
+    configs = [("4-bit g128", dict(bits=4)), ("4-bit g128 desc_act", dict(bits=4, desc_act=True)),
+               ("2-bit g128", dict(bits=2)), ("3-bit g128", dict(bits=3)),
+               ("8-bit g128", dict(bits=8))]
+    base.gptq_quantize = solver
+    try:
+        for label, kw in configs:
+            qc = BaseQuantizeConfig(group_size=128, sym=True, **dict(dict(desc_act=False), **kw))
+            model = AutoGPTQForCausalLM.from_pretrained(fp_dir, qc, dtype=torch.float16)
+            del solves[:]
+            build.launches.clear()
+            torch.cuda.reset_peak_memory_stats()
+            model.quantize(examples, batch_size=CALIB_BATCH)
+            counts = dict(build.launches)
+            peak = torch.cuda.max_memory_allocated()
+            stats = model.quantize_stats
+            losses = list(stats["losses"].values())
+            kernel = KERNEL_OF_BITS[qc.bits]
+            check(len(losses) == 7 * QUANT_LAYERS and bool(np.all(np.isfinite(losses))),
+                  f"quantize {label}: solver losses {losses}")
+            check(counts.get(kernel, 0) >= 7 * QUANT_LAYERS * (CALIB_SEQS // CALIB_BATCH),
+                  f"quantize {label}: the re-forward launched {counts}")
+            check(len(solves) == 4 * QUANT_LAYERS, f"quantize {label}: {len(solves)} solves")
+            for i, (gptq_obj, rtn_obj) in enumerate(solves):
+                check(gptq_obj < rtn_obj, f"quantize {label}: solve {i} does not beat "
+                                          f"round-to-nearest ({gptq_obj:.4e} >= {rtn_obj:.4e})")
+            ratio = float(np.mean([g / r for g, r in solves]))
+
+            q_dir = os.path.join(work, "quantized")
+            t0 = time.perf_counter()
+            model.save_quantized(q_dir)
+            save_s = time.perf_counter() - t0
+            name = f"gptq_model-{qc.bits}bit-128g.safetensors"
+            check(os.path.isfile(os.path.join(q_dir, name)), f"quantize {label}: no {name}")
+            logits = model.forward(tokens)
+            reloaded = AutoGPTQForCausalLM.from_quantized(q_dir, dtype=torch.float16)
+            check(torch.equal(reloaded.forward(tokens), logits),
+                  f"quantize {label}: reloaded logits differ from the in-memory model's")
+            gen = reloaded.generate(tokens[:, :PROMPT_LEN], max_new_tokens=8)
+            check(gen.shape == (1, PROMPT_LEN + 8), f"quantize {label}: generate shape")
+            check(bool(torch.isfinite(logits).all()), f"quantize {label}: non-finite logits")
+            rel = ((logits - fp_logits).norm() / fp_logits.norm()).item()
+            per_layer = {k: v / QUANT_LAYERS for k, v in stats["phases"].items()}
+            out[label] = dict(bits=qc.bits, desc_act=qc.desc_act, seconds=stats["seconds"],
+                              s_per_layer=per_layer, mean_loss=float(np.mean(losses)),
+                              gptq_over_rtn=ratio, rel_logit_err=rel, launches=counts,
+                              save_s=save_s, peak_bytes=peak)
+            print(f"quantize {label}: {stats['seconds']:.1f} s for {QUANT_LAYERS} layers = "
+                  f"{stats['seconds'] / QUANT_LAYERS:.1f} s/layer ("
+                  + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_layer.items()))
+                  + f"); mean solver loss {np.mean(losses):.4f}; GPTQ / round-to-nearest "
+                  f"objective {ratio:.3f} (below 1 on all {len(solves)} solves); saved in "
+                  f"{save_s:.1f} s, reloaded logits bit-equal; relative logit error against the "
+                  f"fp16 model {rel:.4f}; peak device memory {peak / 2**30:.2f} GiB; launches "
+                  f"{counts}", flush=True)
+            del model, reloaded
+            torch.cuda.empty_cache()
+            shutil.rmtree(q_dir, ignore_errors=True)
+    finally:
+        base.gptq_quantize = real_solver
+    errs = [out[f"{b}-bit g128"]["rel_logit_err"] for b in (2, 3, 4, 8)]
+    check(all(a > b for a, b in zip(errs, errs[1:])),
+          f"logit error against the fp model does not fall from 2 to 8 bits: {errs}")
+    shutil.rmtree(fp_dir, ignore_errors=True)
+    return out
 
 
 def phase_k2(torch, timer) -> list:
@@ -542,7 +798,8 @@ def phase_beam(torch, np, model) -> dict:
                 int8_gen_s=q_s, int8_counts=counts_q)
 
 
-FAMILIES = (("K1 w4a16_gemm", ("w4a16", "splitk_reduce")), ("K2 flash_decode", ("flash_decode",)),
+# K1, K4 and K5 are one template (wna16_*_kernel<BITS, ...>); the profiled model is 4-bit
+FAMILIES = (("K1 w4a16_gemm", ("wna16", "splitk_reduce")), ("K2 flash_decode", ("flash_decode",)),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
 
@@ -660,6 +917,7 @@ def main() -> int:
 
     timer = Timer(torch)
     k1_rows = phase_k1(torch, np, timer)
+    wna_rows = phase_wna16(torch, np, timer)
     k2_rows = phase_k2(torch, timer)
     k7_rows = phase_k7(torch, timer)
     k8a_rows, k8b_rows = phase_k8(torch, timer)
@@ -676,6 +934,9 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         cpu_vs_card = phase_cpu_vs_card(torch, np,
                                         os.path.join(work, "llama2-7b-random-g128-2layers"))
+        shutil.rmtree(work, ignore_errors=True)
+        widths = phase_other_widths(torch, np, work)
+        quantize = phase_quantize(torch, np, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -689,17 +950,29 @@ def main() -> int:
                     plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
                     bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], at=at)
 
+    def gemm_entry(name, replaces, counted, rows, at):
+        """One decoder layer's 7 projections at M = 1, g128."""
+        main_rows = [r for r in rows if r["M"] == 1]
+        return dict(name=name, route="cuda", source=f"autogptq_tpu_torch/ops/csrc/{name}.cu",
+                    replaces=replaces, launches=counted.get(name, 0),
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=layer_sum(rows, "ms"), plain_ms=layer_sum(rows, "plain_ms"),
+                    bound_ms=layer_sum(rows, "bound_ms"),
+                    bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
+                              else "operations"),
+                    library_ms=layer_sum(rows, "library_ms"), at=at)
+
+    def width_rows(bits):
+        return [r for r in wna_rows if r["bits"] == bits and r["group_size"] == 128
+                and not r["desc_act"]]
+
+    at = "one Llama-2-7B decoder layer's 7 projections at M=1, g128"
     kernels = [
-        dict(name="w4a16_gemm", route="cuda", source="autogptq_tpu_torch/ops/csrc/w4a16_gemm.cu",
-             replaces="autogptq_tpu/ops/pallas/gemm.py:487",
-             launches=launches.get("w4a16_gemm", 0),
-             max_abs_err=max(r["max_abs_err"] for r in k1_rows),
-             ms=layer_sum(k1_rows, "ms"), plain_ms=layer_sum(k1_rows, "plain_ms"),
-             bound_ms=layer_sum(k1_rows, "bound_ms"),
-             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in k1_rows if r["M"] == 1)
-                       else "operations"),
-             library_ms=layer_sum(k1_rows, "library_ms"),
-             at="one Llama-2-7B decoder layer's 7 projections at M=1, g128"),
+        gemm_entry("w4a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows, at),
+        gemm_entry("w8a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
+                   width_rows(8), at + "; launches from the 64-token 8-bit greedy run at 8 layers"),
+        gemm_entry("w2a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:1061", widths[2]["counts"],
+                   width_rows(2), at + "; launches from the 64-token 2-bit greedy run at 8 layers"),
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
@@ -720,7 +993,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
-                       k1=k1_rows, k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows,
+                       k1=k1_rows, wna16=wna_rows, other_widths=widths, quantize=quantize,
+                       k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows,
                        main_path=launches, beam=beam, cpu_vs_card=cpu_vs_card,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)

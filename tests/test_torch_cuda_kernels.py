@@ -1,5 +1,7 @@
-"""K1 (w4a16 GEMM), K2 (flash-decode), K7 (paged attention), K8a (page row
-write) and K8b (page copy) on the card against their plain PyTorch versions.
+"""K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K2
+(flash-decode), K7 (paged attention), K8a (page row write) and K8b (page
+copy) on the card against their plain PyTorch versions, and a tiny model
+quantized on the card.
 Marked ``cuda``: without a CUDA device every test skips
 (the ``card`` fixture decides, so every worker collects the same tests). On
 the card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q``."""
@@ -25,14 +27,138 @@ def card():
     return torch.device("cuda")
 
 
-def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16):
+def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16, bits=4):
     rng = np.random.default_rng(seed)
-    t = random_quant_tensors(rng, k, n, 4, gs, desc_act)
+    t = random_quant_tensors(rng, k, n, bits, gs, desc_act)
     b = rng.standard_normal(n).astype(np.float32) if bias else None
     return qlin.from_packed(qlin.PackedQuantLinear(
         qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
-        bias=b, bits=4, group_size=gs, in_features=k, out_features=n), device="cuda",
+        bias=b, bits=bits, group_size=gs, in_features=k, out_features=n), device="cuda",
         dtype=dtype)
+
+
+KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 70])
+@pytest.mark.parametrize("k, n, gs, desc_act, bias", [
+    (4096, 4096, 128, False, False),
+    (11008, 4096, 128, True, False),
+    (1024, 544, 32, False, True),
+    (2048, 512, -1, False, False),
+    (1024, 256, 16, True, True),
+])
+def test_k4_k5_and_3bit_match_plain(card, bits, m, k, n, gs, desc_act, bias):
+    """Both regimes (GEMV for M <= 16, tile kernel above) of K5 (2-bit), K4
+    (8-bit) and K1 carrying 3-bit codes in nibbles."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, bias, bits=bits)
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=torch.bfloat16)
+    name = KERNEL_OF_BITS[bits]
+    before = build.launches[name]
+    y = qlin.matmul(x, layer)
+    assert build.launches[name] == before + 1
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    # f32 dequantization and accumulation on both sides, one bf16 rounding:
+    # 1% of the largest output
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [5, 17, 70])
+@pytest.mark.parametrize("gs, desc_act", [(64, True), (-1, False), (16, False)])
+def test_wna16_f32_activations(card, bits, m, gs, desc_act):
+    """f32 activations keep f32 weights in both regimes: 1e-4 against the
+    plain version (the calibration re-forward of quantize runs here)."""
+    layer = _layer(bits + m, 1024, 256, gs, desc_act, bias=True, dtype=torch.float32, bits=bits)
+    x = torch.randn((m, 1024), generator=torch.Generator(card).manual_seed(m), device=card)
+    torch.testing.assert_close(qlin.matmul(x, layer), qlin.matmul_plain(x, layer),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits, stored, effective", [(3, 7, 8), (8, 255, 0)])
+def test_extreme_zero_points_on_the_card(card, bits, stored, effective):
+    """A 3-bit effective zero of 8 (it fits no nibble) and an 8-bit stored 255
+    that wraps to 0 go through the kernels as through the plain versions."""
+    from autogptq_tpu_torch.ops import packing
+
+    rng = np.random.default_rng(bits)
+    t = random_quant_tensors(rng, 256, 128, bits, 32)
+    t["qzeros"] = packing.pack_qzeros(np.full((8, 128), stored + 1, np.int64), bits)
+    layer = qlin.from_packed(qlin.PackedQuantLinear(
+        qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+        bias=None, bits=bits, group_size=32, in_features=256, out_features=128),
+        device="cuda", dtype=torch.float32)
+    assert int(layer.zeros.min()) == int(layer.zeros.max()) == effective
+    for m in (3, 40):
+        x = torch.randn((m, 256), generator=torch.Generator(card).manual_seed(m), device=card)
+        torch.testing.assert_close(qlin.matmul(x, layer), qlin.matmul_plain(x, layer),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 8])
+def test_k4_k5_edge_cases(card, bits):
+    layer = _layer(1, 256, 128, 32, bits=bits)
+    assert qlin.matmul(torch.zeros((0, 256), device=card, dtype=torch.bfloat16),
+                       layer).shape == (0, 128)
+    x = torch.randn((2, 256), device=card, dtype=torch.bfloat16)
+    wrapper = {2: qlin.gemm.w2a16_matmul, 8: qlin.gemm.w8a16_matmul}[bits]
+    with pytest.raises(ValueError, match="scales"):
+        wrapper(x, layer.qweight, layer.scales.float(), layer.zeros, None, None, 32)
+    with pytest.raises(ValueError, match="qweight"):
+        wrapper(x, layer.qweight[:-1], layer.scales, layer.zeros, None, None, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(x.t().contiguous().t(), layer.qweight, layer.scales, layer.zeros, None, None, 32)
+    with pytest.raises(NotImplementedError, match="group size"):
+        wrapper(x, layer.qweight, layer.scales[:1].repeat(128, 1).contiguous(),
+                layer.zeros[:1].repeat(128, 1).contiguous(), None, None, 2)
+    with pytest.raises(ValueError, match="bias"):
+        wrapper(x, layer.qweight, layer.scales, layer.zeros, None,
+                torch.zeros(128, device=card), 32)
+
+
+@pytest.mark.parametrize("bits, desc_act", [(4, True), (2, False), (3, False), (8, False)])
+def test_tiny_model_quantized_on_the_card(card, tmp_path, bits, desc_act):
+    """quantize on the card (Hessians, solver and the re-forward through the
+    kernels in f32) gives the codes of the same run on the CPU, up to weights
+    on rounding edges, and the saved checkpoint reloads bit for bit."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM, BaseQuantizeConfig
+    from autogptq_tpu_torch.ops import packing
+    from autogptq_tpu_torch.utils.data import random_calibration_examples
+    from autogptq_tpu_torch.utils.random_checkpoint import write_random_fp_checkpoint
+
+    cfg = dict(model_type="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+               rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu")
+    fp = write_random_fp_checkpoint(str(tmp_path / "fp"), cfg, seed=1)
+    examples = random_calibration_examples(512, n=16, seqlen=64, seed=2)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        model = AutoGPTQForCausalLM.from_pretrained(
+            fp, BaseQuantizeConfig(bits=bits, group_size=64, desc_act=desc_act, sym=False),
+            device=dev, dtype=torch.float32)
+        before = build.launches[KERNEL_OF_BITS[bits]]
+        model.quantize(examples, batch_size=4)
+        if dev == "cuda":      # the re-forward ran through the kernel
+            assert build.launches[KERNEL_OF_BITS[bits]] > before
+        models[dev] = model
+    card_model, cpu_model = models["cuda"], models["cpu"]
+    key = "0.attn.q_proj"      # nothing quantized precedes it
+    a = packing.unpack_qweight(card_model.packed_layers[key].qweight, bits)
+    b = packing.unpack_qweight(cpu_model.packed_layers[key].qweight, bits)
+    assert np.mean(a == b) >= 0.99
+    loss_card = np.mean(list(card_model.quantize_stats["losses"].values()))
+    loss_cpu = np.mean(list(cpu_model.quantize_stats["losses"].values()))
+    assert np.isfinite(loss_card) and abs(loss_card - loss_cpu) <= 0.05 * loss_cpu
+    card_model.save_quantized(str(tmp_path / "q"))
+    reloaded = AutoGPTQForCausalLM.from_quantized(str(tmp_path / "q"), device="cuda",
+                                                  dtype=torch.float32)
+    tokens = np.arange(1, 21)[None]
+    assert torch.equal(reloaded.forward(tokens), card_model.forward(tokens))
+    out = reloaded.generate([list(range(1, 9))], max_new_tokens=8)
+    assert out.shape == (1, 16) and ((out >= 0) & (out < 512)).all()
 
 
 @pytest.mark.parametrize("m", [1, 3, 16, 17, 70])

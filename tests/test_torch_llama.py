@@ -4,6 +4,7 @@ vocab 512, desc_act, group 32) loaded by both packages' from_quantized in
 f32, compared on logits and on greedy tokens."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -93,7 +94,7 @@ def test_sampling_is_seeded(models):
     assert r.shape == (3, 7 + 3)
 
 
-def test_unported_options_raise(models, ckpt):
+def test_unported_options_raise(models, ckpt, tmp_path):
     port, _ = models
     with pytest.raises(NotImplementedError, match="beam-sample"):
         port.generate(_prompts(), max_new_tokens=2, num_beams=2, temperature=0.5)
@@ -108,6 +109,38 @@ def test_unported_options_raise(models, ckpt):
     with pytest.raises(NotImplementedError, match="rope_scaling"):
         get_family("llama").arch_fn(dict(TINY, rope_scaling={"type": "linear", "factor": 2.0}))
     assert hf_io.find_checkpoint_files(ckpt)[0].endswith(".safetensors")
+    # the options of the quantize path that wait in the ROADMAP
+    with pytest.raises(RuntimeError, match="already quantized"):
+        port.quantize([{"input_ids": [1, 2, 3]}])
+    from autogptq_tpu_torch import BaseQuantizeConfig, GPTQModel
+
+    def unquantized(**kw):
+        return GPTQModel(port.params, port.cfg, port.spec, BaseQuantizeConfig(bits=4, **kw),
+                         port.device, port.dtype, quantized=False)
+
+    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
+        unquantized().quantize([{"input_ids": [1, 2, 3]}], checkpoint_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="lm_head"):
+        unquantized(lm_head=True).quantize([{"input_ids": [1, 2, 3]}])
+    with pytest.raises(NotImplementedError, match="packed layers"):
+        port.save_quantized(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="push_to_hub"):
+        port.push_to_hub("someone/some-model")
+    for fmt, extra in (("marlin", {}), ("gemm", {"quant_method": "awq"})):
+        other = tmp_path / fmt
+        other.mkdir()
+        (other / "config.json").write_text(json.dumps(TINY))
+        (other / "quantize_config.json").write_text(json.dumps(
+            dict(bits=4, group_size=32, checkpoint_format=fmt, **extra)))
+        with pytest.raises(NotImplementedError, match="AWQ and Marlin"):
+            AutoGPTQForCausalLM.from_quantized(str(other), device="cpu")
+    # a group size that 8 does not divide has no kernel on the card
+    from autogptq_tpu_torch.ops.quantlinear import check_card_shape
+
+    with pytest.raises(NotImplementedError, match="Queue 2, K4"):
+        check_card_shape(4, 128, 128, 12)
+    for bits in (2, 3, 4, 8):
+        check_card_shape(bits, 4096, 11008, 128)
 
 
 def test_from_quantized_defaults_to_the_card(ckpt):
@@ -124,6 +157,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import autogptq_tpu_torch, autogptq_tpu_torch.models.base, "
         "autogptq_tpu_torch.utils.generation, autogptq_tpu_torch.utils.convert, "
+        "autogptq_tpu_torch.utils.data, autogptq_tpu_torch.quantization.gptq, "
         "autogptq_tpu_torch.utils.random_checkpoint, autogptq_tpu_torch.ops.gemm, "
         "autogptq_tpu_torch.ops.flash_decode, autogptq_tpu_torch.ops.paged_attn, "
         "autogptq_tpu_torch.ops.build\n"

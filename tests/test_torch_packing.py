@@ -51,3 +51,59 @@ def test_golden_vectors(bits):
 
     y = tqlin.matmul(torch.from_numpy(x), layer).numpy()
     np.testing.assert_allclose(y, golden[f"y_{bits}"], rtol=3e-5, atol=2e-4)
+
+
+def _solver_outputs(bits, k=96, n=64, gs=32, seed=0):
+    """Fake-quantized weights [K, N] with per-group params, as the solver
+    leaves them, some of them on rounding edges (code + 0.5)."""
+    rng = np.random.default_rng(seed)
+    g = k // gs
+    scales = (rng.random((g, n)) * 0.05 + 0.01).astype(np.float32)
+    zeros = rng.integers(0, 2 ** bits, size=(g, n)).astype(np.float32)
+    g_idx = rng.permutation(np.arange(k) // gs).astype(np.int32)
+    q = rng.integers(0, 2 ** bits, size=(k, n)).astype(np.float32)
+    q[::7] += 0.5
+    q[3] = 1000.0                      # clips to maxq
+    w = (scales[g_idx] * (q - zeros[g_idx])).astype(np.float32)
+    return w, scales, zeros, g_idx
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_pack_layer_and_rtn_bit_exact(bits):
+    w, scales, zeros, g_idx = _solver_outputs(bits)
+    np.testing.assert_array_equal(
+        tpacking.quantize_weight_rtn(w, scales, zeros, g_idx, bits),
+        jpacking.quantize_weight_rtn(w, scales, zeros, g_idx, bits))
+    for gi in (g_idx, None):
+        got = tpacking.pack_layer(w, scales, zeros, gi, bits, 32)
+        want = jpacking.pack_layer(w, scales, zeros, gi, bits, 32)
+        assert sorted(got) == sorted(want)
+        for name in want:
+            assert got[name].dtype == want[name].dtype, name
+            np.testing.assert_array_equal(got[name], want[name])
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_pack_from_solver_bit_exact(bits):
+    """The port computes the codes with torch in float64 (on the card during
+    quantize) and packs on the host; the JAX package does both in NumPy."""
+    import jax.numpy as jnp
+    import torch
+    from autogptq_tpu.ops import quantlinear as jqlin
+
+    w, scales, zeros, g_idx = _solver_outputs(bits, seed=bits)
+    zeros = zeros + np.float32(1e-3)          # the solver's zeros are rounded by the pack
+    bias = np.arange(w.shape[1], dtype=np.float32)
+    want = jqlin.pack_from_solver(np.ascontiguousarray(w.T), scales, zeros, g_idx, bits, 32, bias)
+    for conv in (np.asarray, torch.from_numpy):
+        got = tqlin.pack_from_solver(conv(np.ascontiguousarray(w.T)), conv(scales), conv(zeros),
+                                     conv(g_idx), bits, 32, bias)
+        for name in ("qweight", "qzeros", "scales", "g_idx", "bias"):
+            a, b = getattr(got, name), np.asarray(getattr(want, name))
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b)
+        assert (got.in_features, got.out_features) == (96, 64)
+    layer = tqlin.from_packed(got, device="cpu", dtype=torch.float32)
+    np.testing.assert_array_equal(
+        tqlin.logical_weight(layer).numpy(),
+        np.asarray(jqlin.logical_weight(jqlin.from_packed(want), jnp.float32)))

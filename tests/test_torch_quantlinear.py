@@ -1,6 +1,7 @@
 """The port's quantized linear (autogptq_tpu_torch.ops.quantlinear / gemm)
-against the JAX package's: dequantized weights exactly, the plain matmul
-against matmul_xla, and the kb32 Pallas kernel in interpret mode. Inputs are
+against the JAX package's at 2, 3, 4 and 8 bits: dequantized weights exactly,
+the plain matmul against matmul_xla, the kb32 Pallas kernel in interpret mode,
+and every JAX runtime layout carried across by params_from_jax. Inputs are
 made with NumPy from a seed and handed to both."""
 
 import numpy as np
@@ -8,9 +9,11 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from autogptq_tpu.ops import packing as jpacking
 from autogptq_tpu.ops import quantlinear as jqlin
 from autogptq_tpu.ops.pallas import gemm as jgemm
 from autogptq_tpu_torch.ops import gemm as tgemm
+from autogptq_tpu_torch.ops import packing as tpacking
 from autogptq_tpu_torch.ops import quantlinear as tqlin
 from autogptq_tpu_torch.utils.convert import params_from_jax
 from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
@@ -33,12 +36,59 @@ def _layers(seed, k, n, bits=4, gs=32, desc_act=False, bias=False):
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
-@pytest.mark.parametrize("gs, desc_act", [(32, False), (32, True), (-1, False)])
+@pytest.mark.parametrize("gs, desc_act", [(32, False), (32, True), (-1, False), (64, False),
+                                          (64, True), (128, False), (128, True)])
 def test_logical_weight_exact(bits, gs, desc_act):
     jl, tl, _ = _layers(bits, 256, 128, bits, gs, desc_act)
     want = np.asarray(jqlin.logical_weight(jl, jnp.float32))
     got = tqlin.logical_weight(tl, torch.float32).numpy()
     np.testing.assert_array_equal(got, want)
+    assert tl.qweight.shape == (256 * tqlin.storage_bits(bits) // 32, 128)
+    assert int(tqlin.codes(tl).max()) < 2 ** bits
+
+
+def _with_stored_zero(t, bits, stored):
+    """The layer's tensors with the stored zero point of (group 0, column 0)
+    set to ``stored``."""
+    raw = (tpacking.unpack_qzeros(t["qzeros"], bits).astype(np.int64) - 1) % (1 << bits)
+    raw[0, 0] = stored
+    return dict(t, qzeros=tpacking.pack_qzeros(raw + 1, bits))
+
+
+@pytest.mark.parametrize("bits, stored, effective", [(3, 7, 8), (8, 255, 0), (2, 3, 0),
+                                                     (4, 15, 0)])
+def test_extreme_zero_points(bits, stored, effective):
+    """A stored 3-bit zero of 7 is the effective zero 8 (not re-masked: it
+    fits no nibble, so it lives in the uint8 zeros); a stored 8-bit 255 wraps
+    to 0, as every power-of-two width's top value does."""
+    _, _, t = _layers(bits, 128, 64, bits, 32)
+    t = _with_stored_zero(t, bits, stored)
+    fields = dict(bits=bits, group_size=32, in_features=128, out_features=64)
+    jl = jqlin.from_packed(jqlin.PackedQuantLinear(
+        qweight=jnp.asarray(t["qweight"]), qzeros=jnp.asarray(t["qzeros"]),
+        scales=jnp.asarray(t["scales"]), g_idx=jnp.asarray(t["g_idx"]), bias=None, **fields))
+    tl = tqlin.from_packed(tqlin.PackedQuantLinear(
+        qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+        bias=None, **fields), device="cpu", dtype=torch.float32)
+    assert int(tl.zeros[0, 0]) == effective and tl.zeros.dtype == torch.uint8
+    np.testing.assert_array_equal(tqlin.logical_weight(tl).numpy(),
+                                  np.asarray(jqlin.logical_weight(jl, jnp.float32)))
+    x = np.random.default_rng(0).standard_normal((3, 128)).astype(np.float32)
+    np.testing.assert_allclose(tqlin.matmul(torch.from_numpy(x), tl).numpy(),
+                               np.asarray(jqlin.matmul_xla(jnp.asarray(x), jl)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+@pytest.mark.parametrize("gs, desc_act", [(32, True), (128, False), (-1, False)])
+def test_matmul_matches_xla_other_widths(bits, gs, desc_act):
+    """f32 on both sides, the same dequantized weight: summation order only."""
+    jl, tl, _ = _layers(bits + 20, 256, 128, bits, gs, desc_act, bias=True)
+    x = np.random.default_rng(bits).standard_normal((5, 256)).astype(np.float32)
+    want = np.asarray(jqlin.matmul_xla(jnp.asarray(x), jl))
+    got = tqlin.matmul(torch.from_numpy(x), tl).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, tqlin.matmul_plain(torch.from_numpy(x), tl).numpy())
 
 
 @pytest.mark.parametrize("desc_act", [False, True])
@@ -89,31 +139,94 @@ def test_params_from_jax_matches_from_packed(layout_k, desc_act):
         assert torch.equal(conv.kperm, tl.kperm)
 
 
-def test_wrapper_takes_plain_version_on_cpu():
-    _, tl, _ = _layers(6, 256, 128, 4, 32, desc_act=True, bias=True)
-    x = torch.randn(5, 256, generator=torch.Generator().manual_seed(0))
-    got = tgemm.w4a16_matmul(x, tl.qweight, tl.scales, tl.zeros, tl.kperm, tl.bias,
-                             tl.group_size)
-    want = tgemm.w4a16_matmul_ref(x, tl.qweight, tl.scales, tl.zeros, tl.kperm, tl.bias,
-                                  tl.group_size)
-    assert torch.equal(got, want)
+@pytest.mark.parametrize("layout, bits, k, gs, desc_act", [
+    ("kpair", 4, 256, 16, False),        # a group size that 32 does not divide
+    ("kpair", 3, 256, 16, True),
+    ("k2i32", 2, 256, 128, False),
+    ("k2i32", 2, 256, 128, True),
+    ("kquad", 2, 256, 32, True),
+    ("planar", 8, 256, 32, True),
+    ("planar", 8, 256, -1, False),
+    ("planar", 2, 256, 2, False),        # the 2-bit rest class: a group size 4 does not divide
+    ("koct", 8, 256, 64, False),
+])
+def test_params_from_jax_other_layouts(layout, bits, k, gs, desc_act):
+    """Every JAX runtime layout the other widths produce carries across: the
+    converted layer dequantizes to the JAX layer's logical weight exactly."""
+    rng = np.random.default_rng(k + bits)
+    n = 128
+    g = 1 if gs == -1 else k // gs
+    codes = rng.integers(0, 2 ** bits, size=(k, n)).astype(np.uint32)
+    zeros = rng.integers(1, 2 ** bits, size=(g, n))
+    g_idx = (np.arange(k) // (k if gs == -1 else gs)).astype(np.int32)
+    if desc_act:
+        g_idx = rng.permutation(g_idx).astype(np.int32)
+    qweight = jpacking.pack_qweight(codes, bits)
+    jl = jqlin.from_packed(jqlin.PackedQuantLinear(
+        qweight=jnp.asarray(qweight), qzeros=jnp.asarray(jpacking.pack_qzeros(zeros, bits)),
+        scales=jnp.asarray((rng.random((g, n)) * 0.05 + 0.01).astype(np.float16)),
+        g_idx=jnp.asarray(g_idx), bias=None, bits=bits, group_size=gs, in_features=k,
+        out_features=n), layout=None if layout != "koct" else "koct")
+    assert jl.layout == layout
+    conv = params_from_jax({"layer": jl}, device="cpu", dtype=torch.float32)["layer"]
+    assert conv.qweight.dtype == torch.int32 and conv.zeros.dtype == torch.uint8
+    np.testing.assert_array_equal(tqlin.logical_weight(conv).numpy(),
+                                  np.asarray(jqlin.logical_weight(jl, jnp.float32)))
 
 
-def test_cuda_refuses_layers_without_a_kernel():
+def test_params_from_jax_carries_an_unquantized_node():
+    from autogptq_tpu.models.arch import DenseLinear as JaxDense
+    from autogptq_tpu_torch.models.arch import DenseLinear, apply_linear
+
     rng = np.random.default_rng(0)
-    t = random_quant_tensors(rng, 256, 128, 3, 32)
+    kernel = rng.standard_normal((16, 8)).astype(np.float32)
+    bias = rng.standard_normal(8).astype(np.float32)
+    tree = {"lin": JaxDense(kernel=jnp.asarray(kernel), bias=jnp.asarray(bias)),
+            "norm": {"weight": jnp.ones(16)}, "layers": [JaxDense(kernel=jnp.asarray(kernel),
+                                                                   bias=None)]}
+    conv = params_from_jax(tree, device="cpu", dtype=torch.float32)
+    assert isinstance(conv["lin"], DenseLinear) and conv["layers"][0].bias is None
+    x = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    np.testing.assert_allclose(apply_linear(conv["lin"], x).numpy(),
+                               x.numpy() @ kernel + bias, rtol=1e-6, atol=1e-6)
+    assert conv["norm"]["weight"].shape == (16,)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_wrapper_takes_plain_version_on_cpu(bits):
+    _, tl, _ = _layers(6, 256, 128, bits, 32, desc_act=True, bias=True)
+    x = torch.randn(5, 256, generator=torch.Generator().manual_seed(0))
+    wrapper = {2: tgemm.w2a16_matmul, 4: tgemm.w4a16_matmul, 8: tgemm.w8a16_matmul}[bits]
+    plain = {2: tgemm.w2a16_matmul_ref, 4: tgemm.w4a16_matmul_ref,
+             8: tgemm.w8a16_matmul_ref}[bits]
+    args = (x, tl.qweight, tl.scales, tl.zeros, tl.kperm, tl.bias, tl.group_size)
+    assert torch.equal(wrapper(*args), plain(*args))
+    assert tgemm.wna16_matmul(x[:0], *args[1:], bits).shape == (0, 128)
+
+
+@pytest.mark.parametrize("bits, k, gs, word", [(4, 256, 12, "w4a16_gemm"), (3, 250, -1, "w4a16_gemm"),
+                                               (2, 256, 8, "w2a16_gemm"), (8, 250, -1, "w8a16_gemm")])
+def test_cuda_refuses_layers_without_a_kernel(bits, k, gs, word):
+    """On the card a shape outside the kernels' class (K or the group size not
+    a whole number of words) raises before anything is moved or launched; on
+    the CPU the plain version takes any shape."""
     packed = tqlin.PackedQuantLinear(
-        qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
-        bias=None, bits=3, group_size=32, in_features=256, out_features=128)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
+        qweight=np.zeros((1, 128), np.int32), qzeros=np.zeros((1, 1), np.int32),
+        scales=np.ones((1, 128), np.float16), g_idx=np.zeros(k, np.int32), bias=None, bits=bits,
+        group_size=gs, in_features=k, out_features=128)
+    with pytest.raises(NotImplementedError, match=f"{word} needs.*Queue 2, K[45]"):
         tqlin.from_packed(packed, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 2, K[45]"):
+        tqlin.check_card_shape(bits, k, 130, -1 if gs == -1 else 32)
 
 
+@pytest.mark.parametrize("pack", [8, 16, 4])
 @pytest.mark.parametrize("k, n, gs", [(4096, 4096, 128), (4096, 11008, 128),
-                                      (11008, 4096, 128), (4096, 4096, 4096), (256, 128, 32)])
-def test_split_k_covers_k(k, n, gs):
-    kc, splits = tgemm.split_k(k, n, gs, 132)
-    assert kc % 8 == 0 and kc <= tgemm.MAX_KCHUNK
+                                      (11008, 4096, 128), (4096, 4096, 4096), (256, 128, 32),
+                                      (11008, 4096, 11008), (4096, 4096, 16), (4096, 4096, 64)])
+def test_split_k_covers_k(k, n, gs, pack):
+    kc, splits = tgemm.split_k(k, n, gs, 132, pack)
+    assert kc % pack == 0 and kc <= tgemm.MAX_KCHUNK
     assert (splits - 1) * kc < k <= splits * kc
     if gs <= tgemm.MAX_KCHUNK:
         assert kc % gs == 0
