@@ -10,7 +10,11 @@ The KV cache is the JAX package's stacked ``[L, B, S, Hkv, D]`` pair, written
 in place (the port mutates where JAX returns a new array). Decode steps
 (``t == 1`` with a cache) attend through K2 (``ops/flash_decode.py``) over the
 slots ``[lo, hi)`` of the layer; prefill attention is plain tensor code that
-mirrors the JAX einsum path. What the llama path does not need is refused:
+mirrors the JAX einsum path, and so is every step of a block that holds an
+adaption prompt (``attn.adaption``, ``utils/peft.py``). Adapter nodes in
+place of a linear (LoRA, AdaLoRA) are dispatched by :func:`apply_linear`. The
+cache-less forward runs under autograd: training calls :func:`forward` and
+``loss.backward()``. What the llama path does not need is refused:
 alibi, MLA, MoE and softcaps belong to other families, which
 ``registry.get_family`` rejects; rope scaling and sliding windows are rejected
 when the llama configuration is built; an int8 cache when the cache is
@@ -24,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops import quantlinear as qlin
 from ..ops.flash_decode import flash_decode
@@ -55,6 +60,15 @@ class DenseLinear:
 
 
 def apply_linear(p, x: torch.Tensor) -> torch.Tensor:
+    # adapter nodes (utils/peft.py, which imports this module) by duck typing
+    if hasattr(p, "lora_e"):
+        from ..utils.peft import apply_adalora
+
+        return apply_adalora(p, x)
+    if hasattr(p, "lora_a"):
+        from ..utils.peft import apply_lora
+
+        return apply_lora(p, x)
     if isinstance(p, qlin.QuantLinear):
         return qlin.matmul(x, p)
     y = x @ p.kernel.to(x.dtype)
@@ -138,7 +152,7 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
                              f"{t} tokens at slot {start}")
         cache.k[layer_idx, :, start:start + t] = k.to(cache.k.dtype)
         cache.v[layer_idx, :, start:start + t] = v.to(cache.v.dtype)
-        if decode_bounds is not None:
+        if decode_bounds is not None and "adaption" not in bp:
             lo, hi = decode_bounds
             of = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, lo, hi,
                               layer=layer_idx, sm_scale=scale)
@@ -152,17 +166,32 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
         s = t
         q_slot = torch.arange(t, device=x.device)
 
-    # causality in cache-slot space (uniform across rows under left padding)
-    mask = (torch.arange(s, device=x.device)[None, :] <= q_slot[:, None])[None]   # [1, T, S]
-    if attn_mask is not None:
-        mask = mask & attn_mask[:, None, :s].bool()                               # [B, T, S]
-    rep = h // hkv
-    qh = q.reshape(b, t, hkv, rep, d)
-    logits = torch.einsum("bthrd,bshd->bhrts", qh.float(), keys.float()) * scale
-    logits = torch.where(mask[:, None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhrts,bshd->bthrd", probs, values.float())
-    out = out.reshape(b, t, h * d).to(x.dtype)
+    # the "attention" range lets a profile attribute these kernels, and through
+    # their sequence numbers those of their backward
+    with record_function("attention"):
+        # causality in cache-slot space (uniform across rows under left padding)
+        mask = (torch.arange(s, device=x.device)[None, :] <= q_slot[:, None])[None]   # [1, T, S]
+        if attn_mask is not None:
+            mask = mask & attn_mask[:, None, :s].bool()                               # [B, T, S]
+        rep = h // hkv
+        qh = q.reshape(b, t, hkv, rep, d)
+        logits = torch.einsum("bthrd,bshd->bhrts", qh.float(), keys.float()) * scale
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhrts,bshd->bthrd", probs, values.float())
+        if "adaption" in bp:
+            # adaption prompt (LLaMA-Adapter): the prompt rows through the frozen
+            # k/v projections, no RoPE on their keys, a softmax of their own over
+            # the prompt, scaled by the zero-initialized gate
+            ad = bp["adaption"]
+            plen = ad.prompt.shape[0]
+            pr = ad.prompt[None].to(x.dtype)
+            kp = apply_linear(bp["k_proj"], pr).view(1, plen, hkv, d)
+            vp = apply_linear(bp["v_proj"], pr).view(1, plen, hkv, d)
+            ascore = torch.einsum("bthrd,xphd->bhrtp", qh.float(), kp.float()) * scale
+            aprobs = torch.softmax(ascore, dim=-1) * ad.gate.float()
+            out = out + torch.einsum("bhrtp,xphd->bthrd", aprobs, vp.float())
+        out = out.reshape(b, t, h * d).to(x.dtype)
     if capture is not None:
         capture["o_proj"] = out
     return apply_linear(bp["o_proj"], out)

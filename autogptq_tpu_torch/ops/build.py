@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "flash_decode", "paged_attn", "page_ops")
+KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "flash_decode", "paged_attn",
+           "page_ops")
 
 launches: collections.Counter = collections.Counter()
 

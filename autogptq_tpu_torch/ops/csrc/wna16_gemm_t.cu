@@ -1,0 +1,17 @@
+// K10: dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T for Hopper (sm_90a), one library with an
+// entry point per storage width: w4a16_gemm_t (4-bit codes, and 3-bit codes kept in nibbles;
+// the width of the TPU kernels it replaces), w8a16_gemm_t and w2a16_gemm_t.
+//
+// Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32_t (_matmul_kb32_t),
+// _kernel_ki32_t (_matmul_ki32_t) and _kernel_kpair_t (_matmul_kpair_t). The kernel, its
+// layout, bound and design are in wna16_gemm_t.cuh.
+
+#include "wna16_gemm_t.cuh"
+
+WNA16_T_DEFINE_ENTRY(w4a16_gemm_t, 4)
+WNA16_T_DEFINE_ENTRY(w8a16_gemm_t, 8)
+WNA16_T_DEFINE_ENTRY(w2a16_gemm_t, 2)
+
+extern "C" const char* wna16_gemm_t_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -15,6 +15,13 @@ and the bound) is built into three libraries:
 tensors and run the plain versions (``*_matmul_ref``) for CPU tensors; nothing
 else picks between them.
 
+K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
+is one library, ``wna16_gemm_t``, with an entry point per storage width; it
+replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
+``_kernel_kpair_t`` behind ``matmul_t_pallas``. ``w4a16_matmul_t`` /
+``w8a16_matmul_t`` / ``w2a16_matmul_t`` launch it for CUDA tensors and run
+``wna16_matmul_t_ref`` for CPU tensors.
+
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
 ``scales`` fp16 [G, N], ``zeros`` uint8 [G, N] effective zero points,
@@ -31,6 +38,8 @@ import torch
 from . import build
 
 KERNEL_NAMES = {4: "w4a16_gemm", 8: "w8a16_gemm", 2: "w2a16_gemm"}   # storage bits -> kernel
+T_KERNEL = "wna16_gemm_t"      # K10's library and launch-count key
+T_ENTRIES = {4: "w4a16_gemm_t", 8: "w8a16_gemm_t", 2: "w2a16_gemm_t"}   # storage bits -> entry
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 DECODE_MAX_M = 16       # rows at or below this take the split-K GEMV kernel
 DECODE_THREADS = 128    # decode block size, 4 output columns per thread
@@ -103,15 +112,25 @@ def _lib(name: str):
     return fn
 
 
-def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits) -> int:
+def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits,
+                    transpose: bool = False) -> int:
+    """Raise on what the kernels do not take. ``x2d`` is the activation
+    ``[M, K]``, or with ``transpose`` the cotangent ``g [M, N]`` of K10, whose
+    K comes from ``qweight``. Returns the group size in rows."""
     dev = x2d.device
     pack = 32 // bits
-    kernel = KERNEL_NAMES[bits]
+    kernel = T_KERNEL if transpose else KERNEL_NAMES[bits]
+    what = "g" if transpose else "x"
     if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.dtype not in DTYPE_CODES:
-        raise ValueError(f"x must be a contiguous 2-D f32/f16/bf16 tensor, got "
+        raise ValueError(f"{what} must be a contiguous 2-D f32/f16/bf16 tensor, got "
                          f"{tuple(x2d.shape)} {x2d.dtype}")
-    m, k = x2d.shape
     kw, n = qweight.shape
+    if transpose:
+        k = kw * pack
+        if x2d.shape[1] != n:
+            raise ValueError(f"g must be [M, N] = [M, {n}], got {tuple(x2d.shape)}")
+    else:
+        k = x2d.shape[1]
     gs = k if group_size == -1 else group_size
     if qweight.dtype != torch.int32 or kw * pack != k:
         raise ValueError(f"qweight must be int32 [K/{pack}, N] = [{k // pack}, N], got "
@@ -174,6 +193,60 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def wna16_matmul_t_ref(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                       zeros: torch.Tensor, kperm: Optional[torch.Tensor], group_size: int,
+                       bits: int) -> torch.Tensor:
+    """Plain version of K10: unpack, f32 dequantized weight, f32 product
+    ``g @ W^T`` (the JAX ``matmul_t`` fallback, ``quantlinear.py:733-742``),
+    ``kperm`` undone by a store (a permutation, so the JAX scatter-add at
+    ``:743-748`` adds into distinct columns), one cast to ``g``'s dtype."""
+    w = dequantize_codes(unpack_words(qweight, bits), scales, zeros, group_size)
+    dxs = g2d.float() @ w.t()
+    if kperm is None:
+        return dxs.to(g2d.dtype)
+    dx = torch.empty_like(dxs)
+    dx[:, kperm] = dxs
+    return dx.to(g2d.dtype)
+
+
+def _lib_t(bits: int):
+    fn = getattr(build.load(T_KERNEL), T_ENTRIES[bits])
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                   zeros: torch.Tensor, kperm: Optional[torch.Tensor], group_size: int,
+                   bits: int) -> torch.Tensor:
+    """K10: ``dx = g2d [M, N] @ W^T -> [M, K]`` in ``g2d``'s dtype for
+    ``bits``-bit words (2, 4 or 8), with ``kperm`` undone (dx column
+    ``kperm[k]`` takes sorted row ``k``; ``kperm`` must be a permutation, as
+    ``quantlinear.group_order`` makes it). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if bits not in T_ENTRIES:
+        raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
+    if g2d.device.type == "cpu":
+        return wna16_matmul_t_ref(g2d, qweight, scales, zeros, kperm, group_size, bits)
+    if g2d.device.type != "cuda":
+        raise ValueError(f"{T_KERNEL} runs on CUDA or, through its plain version, on the CPU; "
+                         f"got a tensor on {g2d.device}")
+    gs = _check_operands(g2d, qweight, scales, zeros, kperm, None, group_size, bits,
+                         transpose=True)
+    m, n = g2d.shape
+    k = qweight.shape[0] * (32 // bits)
+    dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
+    if m == 0:
+        return dx
+    code = _lib_t(bits)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                        _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, gs,
+                        ctypes.c_void_p(torch.cuda.current_stream(g2d.device).cuda_stream))
+    build.check(T_KERNEL, code)
+    build.launches[T_KERNEL] += 1
+    return dx
+
+
 def w4a16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
     """K1: 4-bit words (3-bit codes ride in nibbles)."""
     return wna16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size, 4)
@@ -204,8 +277,24 @@ def w2a16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size) -> to
     return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, 2)
 
 
+def w4a16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size) -> torch.Tensor:
+    """K10 for 4-bit words (3-bit codes ride in nibbles)."""
+    return wna16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, 4)
+
+
+def w8a16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size) -> torch.Tensor:
+    """K10 for 8-bit words."""
+    return wna16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, 8)
+
+
+def w2a16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size) -> torch.Tensor:
+    """K10 for 2-bit words."""
+    return wna16_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, 2)
+
+
 __all__ = [
-    "KERNEL_NAMES", "wna16_matmul", "wna16_matmul_ref",
+    "KERNEL_NAMES", "T_KERNEL", "wna16_matmul", "wna16_matmul_ref", "wna16_matmul_t",
+    "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k",

@@ -16,7 +16,10 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
   effective uint8 ``[G, N]`` (for 3 bits up to 8, never re-masked).
 * :func:`matmul` runs the kernel of the storage width (``ops/gemm.py``: K1
   for 3 and 4 bits, K4 for 8, K5 for 2) for a CUDA tensor and its plain
-  version for a CPU tensor.
+  version for a CPU tensor. It is differentiable in ``x`` on both routes
+  through :class:`QuantMatmul`, whose backward is :func:`matmul_t` (K10 on
+  the card); the weights get no gradient, as the JAX custom VJP gives them
+  zero cotangents.
 * :func:`pack_from_solver` turns the GPTQ solver's outputs into checkpoint
   tensors.
 """
@@ -169,14 +172,43 @@ def matmul_plain(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], ql.out_features)
 
 
+def matmul_t(g: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+    """Cotangent of ``y = matmul(x, ql)``: ``dx = g @ dequant(W)^T``,
+    ``g [..., N] -> [..., K]`` in ``g``'s dtype, ``kperm`` undone. A CUDA
+    tensor launches K10 or raises; a CPU tensor takes its plain version.
+    Counterpart of the JAX ``matmul_t``."""
+    dx = gemm.wna16_matmul_t(g.reshape(-1, ql.out_features).contiguous(), ql.qweight,
+                             ql.scales, ql.zeros, ql.kperm, ql.group_size,
+                             storage_bits(ql.bits))
+    return dx.reshape(*g.shape[:-1], ql.in_features)
+
+
+class QuantMatmul(torch.autograd.Function):
+    """``y = x @ dequant(W) (+ bias)`` with ``dx = g @ dequant(W)^T``: the
+    counterpart of the JAX ``_matmul_vjp``. The layer is passed as a Python
+    object, so its integer words, scales, zeros and bias get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+        ctx.ql = ql
+        y = gemm.wna16_matmul(x.reshape(-1, ql.in_features).contiguous(), ql.qweight,
+                              ql.scales, ql.zeros, ql.kperm, _bias(ql, x), ql.group_size,
+                              storage_bits(ql.bits))
+        return y.reshape(*x.shape[:-1], ql.out_features)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        return matmul_t(g, ctx.ql), None
+
+
 def matmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """Quantized ``y = x @ dequant(W) (+ bias)``, ``x [..., K] -> [..., N]``.
     A CUDA tensor launches K1 (3/4-bit), K4 (8-bit) or K5 (2-bit) or raises; a
-    CPU tensor takes the plain path."""
-    y = gemm.wna16_matmul(x.reshape(-1, ql.in_features).contiguous(), ql.qweight, ql.scales,
-                          ql.zeros, ql.kperm, _bias(ql, x), ql.group_size,
-                          storage_bits(ql.bits))
-    return y.reshape(*x.shape[:-1], ql.out_features)
+    CPU tensor takes the plain path. Differentiable in ``x`` on both routes
+    (:class:`QuantMatmul`)."""
+    return QuantMatmul.apply(x, ql)
 
 
 def solver_codes(w: torch.Tensor, scales16: torch.Tensor, zero: torch.Tensor,
@@ -231,4 +263,6 @@ __all__ = [
     "logical_weight",
     "matmul",
     "matmul_plain",
+    "matmul_t",
+    "QuantMatmul",
 ]

@@ -11,6 +11,11 @@ imports nothing from the JAX package:
   that layout's ``*_unpack_np`` (pack granularity 1024 rows for kb32, the
   group size for ki32, k2i32 and kquad), stripped of its K/N padding and
   repacked into the port's words, keeping ``kperm``;
+* the adapter nodes of the JAX ``utils/peft.py`` become the port's
+  (``utils/peft.py``): an AdaLoRA node (``lora_e``, with ``rank_mask`` and
+  ``scaling``), a LoRA node (``lora_a``, ``lora_b``, ``scaling``), each with
+  its ``base`` carried across, and an adaption prompt (``prompt``, ``gate``);
+  their tensors stay f32, the trainable ones with ``requires_grad=True``;
 * dicts and lists are walked; any other array (norm weights, embeddings) is
   copied.
 
@@ -25,6 +30,7 @@ import torch
 from ..models.arch import DenseLinear
 from ..ops import packing
 from ..ops.quantlinear import STORAGE_BITS, QuantLinear
+from . import peft
 
 _QUANT_FIELDS = ("wp", "scales", "zeros", "kperm", "layout", "group_size", "in_features",
                  "out_features", "bits")
@@ -148,12 +154,29 @@ def _quant_linear(node, device, dtype) -> QuantLinear:
     )
 
 
+def _adapter(a, device, trainable: bool = True) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device).requires_grad_(trainable)
+
+
 def params_from_jax(tree, device="cuda", dtype: torch.dtype = torch.bfloat16):
     """The port's params for a JAX params tree (see the module docstring)."""
     if isinstance(tree, dict):
         return {key: params_from_jax(val, device, dtype) for key, val in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(val, device, dtype) for val in tree]
+    if hasattr(tree, "lora_e"):
+        return peft.AdaLoraLinear(
+            base=params_from_jax(tree.base, device, dtype), lora_a=_adapter(tree.lora_a, device),
+            lora_e=_adapter(tree.lora_e, device), lora_b=_adapter(tree.lora_b, device),
+            rank_mask=_adapter(tree.rank_mask, device, trainable=False),
+            scaling=float(tree.scaling))
+    if hasattr(tree, "lora_a"):
+        return peft.LoraLinear(
+            base=params_from_jax(tree.base, device, dtype), lora_a=_adapter(tree.lora_a, device),
+            lora_b=_adapter(tree.lora_b, device), scaling=float(tree.scaling))
+    if hasattr(tree, "prompt") and hasattr(tree, "gate"):
+        return peft.AdaptionPrompt(prompt=_adapter(tree.prompt, device),
+                                   gate=_adapter(tree.gate, device))
     if all(hasattr(tree, f) for f in _QUANT_FIELDS):
         return _quant_linear(tree, device, dtype)
     if hasattr(tree, "kernel"):

@@ -272,8 +272,9 @@ def _generate_beam(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
                    num_return_sequences: int = 1) -> torch.Tensor:
     """Beam search over the contiguous KV cache: after every step the whole
     cache is reordered to the chosen parents (``index_select``); decode
-    attention is K2. ``generate`` takes the paged path; this one is its
-    oracle in the tests. Returns ``[B, num_return_sequences,
+    attention is K2. ``generate`` takes the paged path, and this one for a
+    model with an adaption prompt; it is also the paged path's oracle in the
+    tests. Returns ``[B, num_return_sequences,
     max_new_tokens]``."""
     if kv_quant:
         raise NotImplementedError("the contiguous int8 KV cache is not ported yet (ROADMAP "
@@ -548,7 +549,11 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     tokens = torch.from_numpy(ids).to(dev)
     mask_t = torch.from_numpy(mask).to(dev)
     if num_beams > 1:
-        new = _generate_beam_paged(
+        # the paged decode step has no adaption-prompt branch: such models
+        # take the contiguous cache, as in the JAX package
+        adaption = any("adaption" in b.get("attn", {}) for b in model.params["layers"])
+        beam = _generate_beam if adaption else _generate_beam_paged
+        new = beam(
             model.params, tokens, mask_t, model.cfg, max_new_tokens, min_new_tokens,
             eos_token_id, num_beams, model.dtype, kv_quant=kv_quant,
             length_penalty=float(length_penalty), early_stopping=early_stopping,

@@ -8,7 +8,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 2. Builds every kernel of the port from ``autogptq_tpu_torch/ops/csrc`` with
    ``nvcc`` for ``sm_90a``, all sources at once, and prints the build times.
 3. K1 (w4a16 GEMM) against its plain PyTorch version at the Llama-2-7B
-   projection shapes, M in {1, 4, 16, 128} (4 is the beam path's decode), plus
+   projection shapes, M in {1, 4, 16, 128, 2048} (4 is the beam path's decode,
+   2048 a training step's 4 x 512 batch), plus
    a desc_act and a bias case: the
    error against the stated tolerance, the kernel's, the plain version's and
    ``torch.matmul``'s (on a pre-dequantized bf16 weight) times, and the bound.
@@ -52,7 +53,28 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    solve's own Hessian, ``save_quantized`` -> ``from_quantized`` with logits
    bit-equal to the in-memory model's, and the logit error against the fp
    model, which must fall from 2 to 8 bits.
-12. Writes every measurement to ``build/chip_smoke.json`` and prints one
+12. K10 (``wna16_gemm_t``, the backward ``dx = g @ dequant(W)^T``) against
+   ``wna16_matmul_t_ref`` at the three Llama-2-7B projection shapes, M in
+   {10 (an adaption prompt's rows), 17, 128, 2048 (a 4 x 512 batch)}, 2-, 3-,
+   4- and 8-bit g128 plus a desc_act and a group-size-32 case, bf16 (timed)
+   and f32; ``torch.matmul(g, W_bf16.T)`` on a pre-dequantized weight is the
+   library yardstick.
+13. Training on the main-path model (full depth and width, 4-bit g128):
+   ``utils.peft.get_gptq_peft_model`` with LoRA at the example's defaults (r 16,
+   alpha 32, q_proj and v_proj), 8 ``torch.optim.AdamW`` steps at lr 1e-3 on
+   one random batch of 4 x 512 tokens (one row left-padded, labels -100 on the
+   pads, the example's masked loss); the loss of every step, seconds per step,
+   tokens/s, peak memory, K1 and K10 launches per step (counts set to 0 just
+   before each step and read just after), a profile of one more step (K1, K10,
+   attention, other), ``save_adapter`` and a 16-token greedy ``generate`` with
+   the adapters in place, twice with equal tokens.
+14. Adapter gradients on the card against the CPU: the 2-layer full-width cut
+   of step 8, batch 1 x 64, LoRA, AdaLoRA and an adaption prompt with every
+   adapter tensor drawn from a seed; one backward on the card (bf16, K1 and
+   K10, K10 launches counted) and one on the CPU (f32, plain versions),
+   relative Frobenius error of every adapter gradient, and the same with f32
+   activations on the card; then one AdamW step of each kind on the card.
+15. Writes every measurement to ``build/chip_smoke.json`` and prints one
    JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -88,6 +110,22 @@ K7_ABS_TOL = 1e-4
 # K1/K4/K5 with f32 activations: f32 weights and accumulation on both sides,
 # summation order only (K up to 11008 terms of order one).
 F32_ABS_TOL = 1e-4
+# K10: as K1, f32 weights and accumulation on both sides, one rounding to bf16;
+# with f32 cotangents F32_ABS_TOL.
+K10_REL_TOL = 1e-2
+# Adapter gradients, card (bf16 activations, kernels) against CPU (f32, plain),
+# 2 full-width layers: relative Frobenius error of each adapter tensor's
+# gradient, the logits' bound E2E_REL_TOL.
+GRAD_REL_TOL = 5e-2
+# The same with f32 activations on the card: f32 everywhere (K1/K10 dequantize
+# and accumulate in f32, TF32 off), so summation order only.
+GRAD_F32_REL_TOL = 1e-3
+TRAIN_BATCH, TRAIN_LEN, TRAIN_PAD = 4, 512, 64   # one row left-padded by TRAIN_PAD
+TRAIN_STEPS, TRAIN_LR, TRAIN_RANK = 8, 1e-3, 16  # the example's r and alpha = 2 r
+TRAIN_M = TRAIN_BATCH * TRAIN_LEN                # rows of every projection in a step
+GRAD_LEN = 64                                    # tokens of the card-vs-CPU gradient batch
+ADAPTER_STD = 0.02                               # adapter tensors drawn for that check
+TRAIN_NEW_TOKENS = 16
 OTHER_WIDTH_LAYERS = 8        # depth of the 2-, 3- and 8-bit generate runs
 OTHER_WIDTH_TOKENS = 64
 QUANT_LAYERS = 2              # depth of the model quantized on the card
@@ -171,7 +209,7 @@ def phase_k1(torch, np, timer) -> list:
     rng = np.random.default_rng(1)
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [(name, k, n, m, False, False)
-             for m in (1, BEAMS, 16, 128) for name, (k, n, _) in LAYER_SHAPES.items()]
+             for m in (1, BEAMS, 16, 128, TRAIN_M) for name, (k, n, _) in LAYER_SHAPES.items()]
     cases += [("qkvo+desc_act", 4096, 4096, 1, True, False),
               ("gate_up+bias", 4096, 11008, 16, False, True)]
     rows = []
@@ -269,6 +307,335 @@ def phase_wna16(torch, np, timer) -> list:
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
     return rows
+
+
+def phase_k10(torch, np, timer) -> list:
+    """K10 against its plain version at the shapes of a training step."""
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    shapes = {name: (k, n) for name, (k, n, _) in LAYER_SHAPES.items()}
+    layers = [(bits, name, 128, False) for bits in (4, 2, 3, 8) for name in shapes]
+    layers += [(4, "down", 128, True), (4, "qkvo", 32, False)]
+    rows = []
+    for bits, name, gs, desc_act in layers:
+        k, n = shapes[name]
+        layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
+        w = qlin.logical_weight(layer, torch.bfloat16)
+        case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
+        for m in (10, 17, 128, TRAIN_M):
+            g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
+            before = build.launches[gemm.T_KERNEL]
+            dx = qlin.matmul_t(g, layer)
+            check(build.launches[gemm.T_KERNEL] == before + 1, f"K10 {case} M={m}: not launched")
+            ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
+                                          layer.kperm, gs, qlin.storage_bits(bits))
+            dx32 = qlin.matmul_t(g.float(), layer)
+            ref32 = gemm.wna16_matmul_t_ref(g.float(), layer.qweight, layer.scales, layer.zeros,
+                                            layer.kperm, gs, qlin.storage_bits(bits))
+            torch.cuda.synchronize()
+            err = (dx.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err32 = (dx32 - ref32).abs().max().item()
+            check(dx.shape == (m, k) and bool(torch.isfinite(dx).all())
+                  and bool(torch.isfinite(dx32).all()), f"K10 {case} M={m}: bad output")
+            check(err <= K10_REL_TOL * scale, f"K10 {case} M={m} bf16: max |kernel - plain| = "
+                                              f"{err:.3e} > {K10_REL_TOL} * {scale:.3e}")
+            check(err32 <= F32_ABS_TOL * max(1.0, scale),
+                  f"K10 {case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            iters = 5 if m == TRAIN_M else 10
+            ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=iters, warmup=1)
+            plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(
+                g, layer.qweight, layer.scales, layer.zeros, layer.kperm, gs,
+                qlin.storage_bits(bits)), iters=3, warmup=1)
+            lib_ms = timer.ms(lambda: torch.matmul(g, w.t()), iters=iters, warmup=1)
+            b_ms, b_by = bound_ms(nbytes(g, dx, layer.qweight, layer.scales, layer.zeros,
+                                         layer.kperm), 2.0 * m * k * n)
+            rows.append(dict(bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
+                             desc_act=desc_act, max_abs_err=err, max_abs_ref=scale,
+                             max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             tflops=2.0 * m * k * n / ms / 1e9))
+            print(f"K10 {case:24s} K={k:5d} N={n:5d} M={m:4d}  bf16 err {err:.3e} (tol "
+                  f"{K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
+                  f"{ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} "
+                  f"ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del layer, w
+    return rows
+
+
+def boundary_cost(torch, np) -> dict:
+    """Host microseconds per call of ``quantlinear.matmul`` (through the
+    autograd Function) and of the K1 wrapper it calls, at M = 1 under
+    inference_mode, on a 256 x 256 layer whose device time stays below the
+    host's: the cost of the autograd boundary on the host-bound decode path."""
+    from autogptq_tpu_torch.ops import gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    layer = _random_layer(qlin, np.random.default_rng(11), 256, 256, 4, 128, False,
+                          torch.bfloat16)
+    x = torch.randn((1, 1, 256), device="cuda", dtype=torch.bfloat16)
+
+    def wrapper():
+        gemm.wna16_matmul(x.reshape(-1, 256), layer.qweight, layer.scales, layer.zeros, None,
+                          None, 128, 4)
+
+    calls, us = 2000, {"matmul": [], "wrapper": []}
+    with torch.inference_mode():
+        for name, fn in (("matmul", lambda: qlin.matmul(x, layer)), ("wrapper", wrapper)) * 2:
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            us[name].append((time.perf_counter() - t0) / calls * 1e6)
+    out = {k: min(v) for k, v in us.items()}
+    print(f"host cost per call at M=1 under inference_mode (256 x 256 layer, best of two runs of "
+          f"{calls}): quantlinear.matmul through the autograd Function {out['matmul']:.2f} us, "
+          f"the K1 wrapper alone {out['wrapper']:.2f} us", flush=True)
+    return out
+
+
+def masked_loss(torch, logits, labels):
+    """The masked causal-LM loss of examples/peft/peft_lora_clm_instruction_tuning.py:
+    next-token NLL averaged over the labels that are not -100."""
+    lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    tgt = labels[:, 1:].clamp_min(0)
+    nll = -lp.gather(-1, tgt[..., None])[..., 0]
+    m = (labels[:, 1:] != -100).float()
+    return (nll * m).sum() / m.sum().clamp_min(1)
+
+
+def phase_train(torch, np, model, work: str) -> dict:
+    """LoRA training on the full-depth model: 8 AdamW steps, a profiled
+    step, save_adapter and generate with the adapters in place."""
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.utils import peft
+
+    cfg = model.cfg
+    layers = cfg.num_layers
+    pcfg = peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK,
+                               target_modules=("attn.q_proj", "attn.v_proj"))
+    peft.get_gptq_peft_model(model, pcfg, seed=0)
+    trainable = peft.trainable_tensors(peft.split_lora_params(model.params)[0])
+    check(len(trainable) == 4 * layers, f"{len(trainable)} trainable tensors")
+    opt = torch.optim.AdamW(trainable, lr=TRAIN_LR)
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN))
+    mask = np.ones_like(tokens)
+    mask[1, :TRAIN_PAD] = 0
+    tokens[1, :TRAIN_PAD] = 0
+    labels = np.where(mask == 1, tokens, -100)
+    tokens_t = torch.from_numpy(tokens).cuda()
+    mask_t = torch.from_numpy(mask).to(torch.int32).cuda()
+    labels_t = torch.from_numpy(labels).cuda()
+
+    def step():
+        logits, _ = arch.forward(model.params, tokens_t, cfg, attn_mask=mask_t, dtype=model.dtype)
+        loss = masked_loss(torch, logits, labels_t)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, counts = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        build.launches.clear()
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        counts.append(dict(build.launches))
+        print(f"train step {i + 1}: loss {losses[-1]:.6f}, {seconds[-1]:.3f} s, launches "
+              f"{counts[-1]}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(np.all(np.isfinite(losses))), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    for c in counts:
+        check(c.get("w4a16_gemm", 0) >= 7 * layers, f"a training step launched K1 {c}")
+        check(c.get(gemm.T_KERNEL, 0) >= 7 * (layers - 1), f"a training step launched K10 {c}")
+    steady = float(np.median(seconds[1:]))
+    tok_s = TRAIN_BATCH * TRAIN_LEN / steady
+    print(f"train: LoRA r={TRAIN_RANK} alpha={2 * TRAIN_RANK} on q_proj and v_proj, Llama-2-7B "
+          f"4-bit g128, {layers} layers (full depth), batch {TRAIN_BATCH} x {TRAIN_LEN} tokens "
+          f"(row 1 left-padded by {TRAIN_PAD}), AdamW lr {TRAIN_LR}: loss {losses[0]:.6f} -> "
+          f"{losses[-1]:.6f}; {steady:.3f} s/step (median of steps 2-{TRAIN_STEPS}; step 1 "
+          f"{seconds[0]:.3f} s) = {tok_s:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches per step {counts[-1]}", flush=True)
+    split = profile_train_step(torch, step)
+
+    adapter_dir = os.path.join(work, "adapter")
+    peft.save_adapter(model, adapter_dir)
+    from safetensors import safe_open
+
+    with safe_open(os.path.join(adapter_dir, "adapter_model.safetensors"), framework="np") as f:
+        names = list(f.keys())
+        a0 = f.get_tensor("base_model.model.model.layers.0.self_attn.q_proj.lora_A.weight")
+    check(len(names) == 4 * layers and a0.shape == (TRAIN_RANK, cfg.hidden_size),
+          f"save_adapter wrote {len(names)} tensors, lora_A {a0.shape}")
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    build.launches.clear()
+    first = model.generate(prompt, max_new_tokens=TRAIN_NEW_TOKENS)
+    gen_counts = dict(build.launches)
+    again = model.generate(prompt, max_new_tokens=TRAIN_NEW_TOKENS)
+    check(first.shape == (1, PROMPT_LEN + TRAIN_NEW_TOKENS), f"generate shape {first.shape}")
+    check(np.array_equal(first, again), "generate with adapters does not repeat its tokens")
+    check(gen_counts.get("w4a16_gemm", 0) > 0 and gen_counts.get("flash_decode", 0) > 0,
+          f"generate with adapters launched {gen_counts}")
+    print(f"save_adapter: {len(names)} tensors; generate with the trained adapters, "
+          f"{TRAIN_NEW_TOKENS} greedy tokens, twice with equal tokens: "
+          f"{first[0, PROMPT_LEN:].tolist()}, launches {gen_counts}", flush=True)
+    return dict(losses=losses, seconds=seconds, s_per_step=steady, tokens_per_s=tok_s,
+                peak_bytes=peak, launches_per_step=counts[-1], profile=split,
+                generate_launches=gen_counts, adapter_tensors=len(names))
+
+
+def profile_train_step(torch, step) -> dict:
+    """Device time of one training step by family from torch.profiler's
+    kernel events: K1, K10 by kernel name; attention, the kernels launched by
+    the ops inside ``arch.attention``'s "attention" range and by their
+    backward nodes (matched on sequence number); the rest is other."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+
+    def family(name):
+        if any(k in name for k in K10_KEYS):
+            return "K10"
+        if any(k in name for k in K1_KEYS):
+            return "K1"
+        return None
+
+    split = dict(K1=0.0, K10=0.0, attention=0.0, other=0.0)
+    kernels = 0
+    for evt in events:
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        kernels += 1
+        split[family(evt.name) or "other"] += evt.time_range.elapsed_us() / 1e3
+
+    def walk(evt):
+        yield evt
+        for child in evt.cpu_children:
+            yield from walk(child)
+
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [e for e in cpu if e.name == "attention"]
+    fwd = {(d.thread, d.sequence_nr) for r in ranges for d in walk(r) if d.sequence_nr >= 0}
+    roots = ranges + [e for e in cpu if e.name.startswith("autograd::engine::evaluate_function")
+                      and (e.fwd_thread, e.sequence_nr) in fwd]
+    attention = sum(k.duration for r in roots for d in walk(r) for k in d.kernels
+                    if family(k.name) is None) / 1e3
+    busy = sum(split.values())
+    if not kernels:
+        print("profile, training step: torch.profiler recorded no CUDA kernel events; device "
+              "split not measured", flush=True)
+        return {}
+    if ranges:
+        split["attention"] = attention
+        split["other"] -= attention
+    print(f"profile, one training step (loss {loss:.6f}): device {busy:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" if (k != "attention" or ranges) else f"{k} not measured"
+                      for k, v in split.items())
+          + f"), {kernels} kernels; host clock {wall_ms:.1f} ms under the profiler (device busy "
+          f"{100 * busy / wall_ms:.1f}%)", flush=True)
+    return dict(device_ms=busy, wall_ms=wall_ms, kernels=kernels,
+                attention_measured=bool(ranges), **{f"{k}_ms": v for k, v in split.items()})
+
+
+def _draw_adapters(torch, np, tensors, seed) -> None:
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(torch.from_numpy(np.asarray(rng.standard_normal(t.shape) * ADAPTER_STD,
+                                                np.float32)))
+
+
+def phase_grads(torch, np, ckpt_dir: str) -> dict:
+    """Adapter gradients of the three kinds, card (bf16, and f32) against CPU
+    (f32), on a 2-layer full-width cut; one AdamW step of each kind on the card."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.utils import peft
+    from autogptq_tpu_torch.utils.hf_io import load_hf_config
+
+    kinds = {"LoRA": peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK),
+             "AdaLoRA": peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK, adalora=True),
+             "adaption prompt": peft.AdaptionPromptConfig(adapter_len=10, adapter_layers=2)}
+    vocab = load_hf_config(ckpt_dir)["vocab_size"]
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(1, vocab, (1, GRAD_LEN)))
+    runs = (("card bf16", "cuda", torch.bfloat16), ("card f32", "cuda", torch.float32),
+            ("cpu", "cpu", torch.float32))
+    grads = {kind: {} for kind in kinds}
+    out = {kind: {} for kind in kinds}
+    for run, device, dtype in runs:
+        model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=dtype)
+        base = model.params
+        toks = tokens.to(device)
+        for i, (kind, pcfg) in enumerate(kinds.items()):
+            model.params = base
+            peft.get_gptq_peft_model(model, pcfg, seed=0)
+            leaves = peft.trainable_tensors(peft.split_lora_params(model.params)[0])
+            _draw_adapters(torch, np, leaves, seed=20 + i)
+            loss = masked_loss(torch, arch.forward(model.params, toks, model.cfg, dtype=dtype)[0],
+                               toks)
+            build.launches.clear()
+            loss.backward()
+            grads[kind][run] = [t.grad.float().cpu() for t in leaves]
+            if device == "cpu":
+                continue
+            torch.cuda.synchronize()
+            counts = dict(build.launches)
+            check(counts.get(gemm.T_KERNEL, 0) > 0,
+                  f"{kind} backward on the card ({run}) launched {counts}")
+            out[kind][f"{run} backward_launches"] = counts
+            if dtype != torch.bfloat16:
+                continue
+            torch.optim.AdamW(leaves, lr=TRAIN_LR).step()
+            with torch.no_grad():
+                after = masked_loss(torch, arch.forward(model.params, toks, model.cfg,
+                                                        dtype=dtype)[0], toks).item()
+            check(np.isfinite(loss.item()) and np.isfinite(after),
+                  f"{kind}: loss {loss.item()} -> {after} after one step")
+            out[kind].update(loss=loss.item(), loss_after_step=after)
+        del model, base
+        torch.cuda.empty_cache()
+    for kind in kinds:
+        cpu = grads[kind]["cpu"]
+        errs = {}
+        for run, tol in (("card bf16", GRAD_REL_TOL), ("card f32", GRAD_F32_REL_TOL)):
+            rels = [((a - b).norm() / b.norm()).item() for a, b in zip(grads[kind][run], cpu)]
+            check(all(np.isfinite(rels)) and max(rels) <= tol,
+                  f"{kind}: {run} vs CPU adapter gradient relative error {max(rels):.3e} > {tol}")
+            errs[run] = (max(rels), float(np.median(rels)),
+                         list(cpu[int(np.argmax(rels))].shape))
+            out[kind][f"{run} max_rel_err"], out[kind][f"{run} median_rel_err"], \
+                out[kind][f"{run} worst_shape"] = errs[run]
+        out[kind]["tensors"] = len(cpu)
+        print(f"{kind} gradients vs the CPU (f32, plain), 2 full-width layers, 1 x {GRAD_LEN} "
+              f"tokens, {len(cpu)} adapter tensors: card bf16 (K1 + K10, K10 launched "
+              f"{out[kind]['card bf16 backward_launches'][gemm.T_KERNEL]} times in the backward) "
+              f"relative error max {errs['card bf16'][0]:.3e} (a tensor of shape "
+              f"{errs['card bf16'][2]}) median {errs['card bf16'][1]:.3e} "
+              f"(tol {GRAD_REL_TOL}); card f32 max {errs['card f32'][0]:.3e} median "
+              f"{errs['card f32'][1]:.3e} (tol {GRAD_F32_REL_TOL}); one AdamW step on the card: "
+              f"loss {out[kind]['loss']:.6f} -> {out[kind]['loss_after_step']:.6f}", flush=True)
+    return out
 
 
 def phase_other_widths(torch, np, work: str) -> dict:
@@ -798,8 +1165,11 @@ def phase_beam(torch, np, model) -> dict:
                 int8_gen_s=q_s, int8_counts=counts_q)
 
 
-# K1, K4 and K5 are one template (wna16_*_kernel<BITS, ...>); the profiled model is 4-bit
-FAMILIES = (("K1 w4a16_gemm", ("wna16", "splitk_reduce")), ("K2 flash_decode", ("flash_decode",)),
+# K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...>); the profiled
+# model is 4-bit. K10 is wna16_t_kernel<BITS, ...>.
+K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce")
+K10_KEYS = ("wna16_t_kernel",)
+FAMILIES = (("K1 w4a16_gemm", K1_KEYS), ("K2 flash_decode", ("flash_decode",)),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
 
@@ -822,7 +1192,7 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
     families = dict.fromkeys([name for name, _ in FAMILIES] + ["other"], 0.0)
     kernels = 0
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         kernels += 1
         us = evt.time_range.elapsed_us()
@@ -915,30 +1285,45 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()), flush=True)
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return result
+
     timer = Timer(torch)
-    k1_rows = phase_k1(torch, np, timer)
-    wna_rows = phase_wna16(torch, np, timer)
-    k2_rows = phase_k2(torch, timer)
-    k7_rows = phase_k7(torch, timer)
-    k8a_rows, k8b_rows = phase_k8(torch, timer)
+    k1_rows = timed("K1", phase_k1, torch, np, timer)
+    wna_rows = timed("K4/K5/K1 classes", phase_wna16, torch, np, timer)
+    k2_rows = timed("K2", phase_k2, torch, timer)
+    k7_rows = timed("K7", phase_k7, torch, timer)
+    k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
+    k10_rows = timed("K10", phase_k10, torch, np, timer)
+    boundary = boundary_cost(torch, np)
     del timer
     torch.cuda.empty_cache()
 
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches, model = phase_main_path(torch, np, os.path.join(work, "llama2-7b-random-g128"))
-        beam = phase_beam(torch, np, model)
+        launches, model = timed("main path", phase_main_path, torch, np,
+                                os.path.join(work, "llama2-7b-random-g128"))
+        beam = timed("beam", phase_beam, torch, np, model)
+        train = timed("train", phase_train, torch, np, model, work)
         del model
         torch.cuda.empty_cache()
         shutil.rmtree(work, ignore_errors=True)
-        cpu_vs_card = phase_cpu_vs_card(torch, np,
-                                        os.path.join(work, "llama2-7b-random-g128-2layers"))
+        cut_dir = os.path.join(work, "llama2-7b-random-g128-2layers")
+        cpu_vs_card = timed("card vs CPU", phase_cpu_vs_card, torch, np, cut_dir)
+        grads = timed("gradients", phase_grads, torch, np, cut_dir)
         shutil.rmtree(work, ignore_errors=True)
-        widths = phase_other_widths(torch, np, work)
-        quantize = phase_quantize(torch, np, work)
+        widths = timed("other widths", phase_other_widths, torch, np, work)
+        quantize = timed("quantize", phase_quantize, torch, np, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
+          flush=True)
 
     k2_main, k7_main, k8a_main, k8b_main = k2_rows[0], k7_rows[0], k8a_rows[0], k8b_rows[0]
     beam_launches = beam["counts"]
@@ -950,17 +1335,17 @@ def main() -> int:
                     plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
                     bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], at=at)
 
-    def gemm_entry(name, replaces, counted, rows, at):
-        """One decoder layer's 7 projections at M = 1, g128."""
-        main_rows = [r for r in rows if r["M"] == 1]
+    def gemm_entry(name, replaces, counted, rows, at, m=1, err_rows=None):
+        """One decoder layer's 7 projections at M = m, g128."""
+        main_rows = [r for r in rows if r["M"] == m]
         return dict(name=name, route="cuda", source=f"autogptq_tpu_torch/ops/csrc/{name}.cu",
                     replaces=replaces, launches=counted.get(name, 0),
-                    max_abs_err=max(r["max_abs_err"] for r in rows),
-                    ms=layer_sum(rows, "ms"), plain_ms=layer_sum(rows, "plain_ms"),
-                    bound_ms=layer_sum(rows, "bound_ms"),
+                    max_abs_err=max(r["max_abs_err"] for r in (err_rows or rows)),
+                    ms=layer_sum(rows, "ms", m), plain_ms=layer_sum(rows, "plain_ms", m),
+                    bound_ms=layer_sum(rows, "bound_ms", m),
                     bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
                               else "operations"),
-                    library_ms=layer_sum(rows, "library_ms"), at=at)
+                    library_ms=layer_sum(rows, "library_ms", m), at=at)
 
     def width_rows(bits):
         return [r for r in wna_rows if r["bits"] == bits and r["group_size"] == 128
@@ -973,6 +1358,14 @@ def main() -> int:
                    width_rows(8), at + "; launches from the 64-token 8-bit greedy run at 8 layers"),
         gemm_entry("w2a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:1061", widths[2]["counts"],
                    width_rows(2), at + "; launches from the 64-token 2-bit greedy run at 8 layers"),
+        gemm_entry("wna16_gemm_t", "autogptq_tpu/ops/pallas/gemm.py:844",
+                   train["launches_per_step"],
+                   [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
+                    and not r["desc_act"]],
+                   f"one Llama-2-7B decoder layer's 7 projections at M={TRAIN_M} (a "
+                   f"{TRAIN_BATCH} x {TRAIN_LEN} batch), 4-bit g128, bf16 cotangents; launches "
+                   f"from one LoRA training step at full depth; max_abs_err over every K10 case",
+                   m=TRAIN_M, err_rows=k10_rows),
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
@@ -994,8 +1387,9 @@ def main() -> int:
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
                        k1=k1_rows, wna16=wna_rows, other_widths=widths, quantize=quantize,
-                       k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows,
-                       main_path=launches, beam=beam, cpu_vs_card=cpu_vs_card,
+                       k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
+                       main_path=launches, beam=beam, train=train, grads=grads,
+                       cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
-"""K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K2
-(flash-decode), K7 (paged attention), K8a (page row write) and K8b (page
-copy) on the card against their plain PyTorch versions, and a tiny model
-quantized on the card.
+"""K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K10
+(their backward, wna16_gemm_t), K2 (flash-decode), K7 (paged attention), K8a
+(page row write) and K8b (page copy) on the card against their plain PyTorch
+versions, a tiny model quantized on the card, and gradients through the
+quantized matmul on the card against the CPU's.
 Marked ``cuda``: without a CUDA device every test skips
 (the ``card`` fixture decides, so every worker collects the same tests). On
 the card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q``."""
@@ -391,3 +392,79 @@ def test_tiny_model_paged_beam_step_card_matches_cpu(card, tmp_path, kv_quant):
                                  kv_quant=kv_quant)
             assert out.shape == (2, 39) and ((out >= 0) & (out < 512)).all()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4, atol=1e-4)
+
+
+K10_SHAPES = [(4096, 4096, 128, False), (4096, 11008, 128, False), (11008, 4096, 128, True),
+              (1024, 544, 32, False)]
+# M = 10 (an adaption prompt's rows), 17, 128; the training shape M = 2048 at
+# one projection here (chip_smoke.py holds it at all three)
+K10_CASES = ([(bits, m) + shape for bits in (2, 3, 4, 8) for m in (10, 17, 128)
+              for shape in K10_SHAPES] + [(4, 2048, 4096, 4096, 128, False)])
+
+
+@pytest.mark.parametrize("bits, m, k, n, gs, desc_act", K10_CASES)
+def test_k10_matches_plain(card, bits, m, k, n, gs, desc_act):
+    """K10 against wna16_matmul_t_ref at the Llama-2-7B projection shapes:
+    bf16 to 1% of the largest output (f32 weights and accumulation on both
+    sides, one bf16 rounding), f32 to 1e-4 (summation order only)."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, bits=bits)
+    sbits = qlin.storage_bits(bits)
+    args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, gs)
+    for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
+        g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
+                        dtype=dtype)
+        before = build.launches["wna16_gemm_t"]
+        dx = qlin.gemm.wna16_matmul_t(g, *args, sbits)
+        assert build.launches["wna16_gemm_t"] == before + 1
+        ref = qlin.gemm.wna16_matmul_t_ref(g, *args, sbits)
+        torch.cuda.synchronize()
+        assert dx.shape == (m, k) and dx.dtype == dtype
+        err = (dx.float() - ref.float()).abs().max()
+        scale = ref.float().abs().max()
+        assert err <= (1e-2 * scale if tol is None else tol * max(1.0, float(scale)))
+
+
+@pytest.mark.parametrize("desc_act", [False, True])
+@pytest.mark.parametrize("bits", [3, 4])
+def test_grad_through_matmul_card_matches_cpu(card, desc_act, bits):
+    """torch.autograd.grad through quantlinear.matmul on the card (K1 forward,
+    K10 backward) equals the CPU's (plain versions), in f32."""
+    rng = np.random.default_rng(bits)
+    t = random_quant_tensors(rng, 1024, 512, bits, 64, desc_act)
+    packed = qlin.PackedQuantLinear(
+        qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+        bias=rng.standard_normal(512).astype(np.float32), bits=bits, group_size=64,
+        in_features=1024, out_features=512)
+    x = rng.standard_normal((3, 40, 1024)).astype(np.float32)
+    cot = rng.standard_normal((3, 40, 512)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        layer = qlin.from_packed(packed, device=dev, dtype=torch.float32)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        before = build.launches["wna16_gemm_t"]
+        (dx,) = torch.autograd.grad((qlin.matmul(xt, layer) * torch.from_numpy(cot).to(dev)).sum(),
+                                    xt)
+        assert build.launches["wna16_gemm_t"] == before + (dev == "cuda")
+        grads[dev] = dx.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-5, atol=1e-4)
+
+
+def test_k10_refuses_operands_and_launches_nothing(card):
+    layer = _layer(2, 1024, 512, 64)
+    g = torch.randn((8, 512), device=card, dtype=torch.bfloat16)
+    args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, 64, 4)
+    before = build.launches["wna16_gemm_t"]
+    with pytest.raises(ValueError, match="g must be"):
+        qlin.gemm.wna16_matmul_t(g[:, :256].contiguous(), *args)
+    with pytest.raises(ValueError, match="f32/f16/bf16"):
+        qlin.gemm.wna16_matmul_t(g.to(torch.int32), *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        qlin.gemm.wna16_matmul_t(torch.randn((512, 8), device=card).t(), *args)
+    with pytest.raises(ValueError, match="scales"):
+        qlin.gemm.wna16_matmul_t(g, layer.qweight, layer.scales.float(), layer.zeros, None, 64,
+                                 4)
+    with pytest.raises(ValueError, match="kperm"):
+        qlin.gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
+                                 torch.arange(1024, device=card, dtype=torch.int32), 64, 4)
+    assert build.launches["wna16_gemm_t"] == before
+    assert qlin.gemm.wna16_matmul_t(g[:0], *args).shape == (0, 1024)
