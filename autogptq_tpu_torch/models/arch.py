@@ -1,5 +1,5 @@
 """The Llama decoder in PyTorch: the port's counterpart of the JAX package's
-``models/arch.py``, llama path only.
+``models/arch.py``, llama path and Mixtral's sparse MoE MLP (:func:`moe_mlp`).
 
 Parameters are a plain dict (``embed_tokens``, ``final_norm``, ``lm_head``,
 ``layers``: one dict per block with ``input_norm``, ``post_norm``, ``attn``
@@ -15,7 +15,7 @@ adaption prompt (``attn.adaption``, ``utils/peft.py``). Adapter nodes in
 place of a linear (LoRA, AdaLoRA) are dispatched by :func:`apply_linear`. The
 cache-less forward runs under autograd: training calls :func:`forward` and
 ``loss.backward()``. What the llama path does not need is refused:
-alibi, MLA, MoE and softcaps belong to other families, which
+alibi, MLA and softcaps belong to other families, which
 ``registry.get_family`` rejects; rope scaling and sliding windows are rejected
 when the llama configuration is built; an int8 cache when the cache is
 created.
@@ -51,6 +51,8 @@ class ArchConfig:
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    moe_num_experts: int = 0                  # > 0: Mixtral-style MoE MLP
+    moe_top_k: int = 2
 
 
 @dataclass
@@ -197,7 +199,10 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     return apply_linear(bp["o_proj"], out)
 
 
-def mlp(bp: dict, x: torch.Tensor, capture: Optional[dict] = None) -> torch.Tensor:
+def mlp(bp: dict, x: torch.Tensor, cfg: ArchConfig,
+        capture: Optional[dict] = None) -> torch.Tensor:
+    if cfg.moe_num_experts > 0:
+        return moe_mlp(bp, x, cfg, capture)
     gate = apply_linear(bp["gate_proj"], x)
     up = apply_linear(bp["up_proj"], x)
     h = F.silu(gate) * up
@@ -205,6 +210,69 @@ def mlp(bp: dict, x: torch.Tensor, capture: Optional[dict] = None) -> torch.Tens
         capture["gate_proj"] = capture["up_proj"] = x
         capture["down_proj"] = h
     return apply_linear(bp["down_proj"], h)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest, equal values in
+    ascending index order (a stable sort, so ties route alike on every
+    device)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _routed_ok(st: dict) -> bool:
+    """K9 takes 4-bit storage (3- and 4-bit layers); 2- and 8-bit stacks take
+    the dense path, as the JAX package's ``supported_routed`` sends them."""
+    return all(isinstance(st[p], qlin.StackedQuantLinear) and qlin.storage_bits(st[p].bits) == 4
+               for p in ("gate_proj", "up_proj", "down_proj"))
+
+
+def moe_mlp(bp: dict, x: torch.Tensor, cfg: ArchConfig,
+            capture: Optional[dict] = None) -> torch.Tensor:
+    """Mixtral-style sparse MoE with top-k routing, route for route the JAX
+    ``moe_mlp``: router logits in f32, top-k, a softmax over the k logits and
+    a dense ``combine [B, T, E]``. With stacked experts
+    (``params.stack_moe_experts``) and at most E pairs of (token, expert), the
+    routed path runs each pair's gate, up and down through
+    :func:`~autogptq_tpu_torch.ops.quantlinear.matmul_routed` (K9 on the card,
+    which reads the selection on the device: no sync); with more pairs, the
+    dense path applies every expert (``matmul_stacked``) and combines. An
+    expert list runs the per-expert masked loop, whose ``capture`` records
+    each expert's inputs multiplied by its routed mask (calibration)."""
+    b, t, hdim = x.shape
+    e, k = cfg.moe_num_experts, cfg.moe_top_k
+    weights, sel = top_k(apply_linear(bp["router"], x).float(), k)
+    weights = torch.softmax(weights, dim=-1)                                   # [B, T, k]
+    combine = torch.zeros((b, t, e), dtype=torch.float32, device=x.device)
+    combine.scatter_add_(-1, sel, weights)
+
+    if "experts_stacked" in bp:
+        st = bp["experts_stacked"]
+        if capture is None and b * t * k <= e and _routed_ok(st):
+            sel_flat = sel.reshape(-1).to(torch.int32)
+            xt = x.reshape(b * t, hdim).repeat_interleave(k, dim=0)
+            gate = qlin.matmul_routed(xt, st["gate_proj"], sel_flat, check=False)
+            up = qlin.matmul_routed(xt, st["up_proj"], sel_flat, check=False)
+            y = qlin.matmul_routed(F.silu(gate) * up, st["down_proj"], sel_flat, check=False)
+            out = y.float() * weights.reshape(-1)[:, None]
+            return out.reshape(b, t, k, hdim).sum(dim=2).to(x.dtype)
+        h = F.silu(qlin.matmul_stacked(x, st["gate_proj"])) * qlin.matmul_stacked(x, st["up_proj"])
+        down = st["down_proj"]
+        y = torch.stack([qlin.matmul(h[i], down.expert(i)) for i in range(e)])
+        return torch.einsum("ebth,bte->bth", y.float(), combine).to(x.dtype)
+
+    out = torch.zeros_like(x, dtype=torch.float32)
+    for i in range(e):
+        ep = bp["experts"][i]
+        if capture is not None:
+            # the Hessians see only the tokens routed to this expert
+            routed = (combine[..., i] > 0).to(x.dtype)[..., None]
+            capture[f"experts.{i}.gate_proj"] = capture[f"experts.{i}.up_proj"] = x * routed
+        h = F.silu(apply_linear(ep["gate_proj"], x)) * apply_linear(ep["up_proj"], x)
+        if capture is not None:
+            capture[f"experts.{i}.down_proj"] = h * routed
+        out = out + apply_linear(ep["down_proj"], h).float() * combine[..., i][..., None]
+    return out.to(x.dtype)
 
 
 def block_forward(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache],
@@ -222,7 +290,7 @@ def block_forward(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVC
     x = x + attention(bp["attn"], h, layer_idx, cache, positions, cfg, attn_mask, decode_bounds,
                       attn_cap)
     h2 = rms_norm(x, bp["post_norm"]["weight"], cfg.norm_eps)
-    x = x + mlp(bp["mlp"], h2, mlp_cap)
+    x = x + mlp(bp["mlp"], h2, cfg, mlp_cap)
     if capture is not None:
         capture.update({f"attn.{k}": v for k, v in attn_cap.items()})
         capture.update({f"mlp.{k}": v for k, v in mlp_cap.items()})
@@ -294,6 +362,8 @@ __all__ = [
     "apply_rope",
     "attention",
     "mlp",
+    "moe_mlp",
+    "top_k",
     "block_forward",
     "embed",
     "unembed",

@@ -108,6 +108,13 @@ def _share_hessian(a: torch.Tensor, b: torch.Tensor) -> bool:
             and torch.equal(a, b))
 
 
+def _copy_section(v):
+    """A block section's dict copied down to its lists of expert dicts."""
+    if not isinstance(v, dict):
+        return v
+    return {k: [dict(e) for e in x] if isinstance(x, list) else x for k, x in v.items()}
+
+
 class GPTQModel:
     """A causal LM whose linear layers are, or are about to be, GPTQ-quantized."""
 
@@ -137,7 +144,7 @@ class GPTQModel:
         safetensors) onto ``device``, ready for :meth:`quantize`."""
         dev = resolve_device(device)
         hf_cfg = hf_io.load_hf_config(model_dir)
-        spec = get_family(hf_cfg["model_type"])
+        spec = get_family(hf_cfg["model_type"], hf_cfg)
         cfg = spec.arch_fn(hf_cfg)
         tensors = hf_io.open_tensors(model_dir)
         params = params_lib.build_fp_params(tensors, spec, cfg, dtype=dtype, device=dev)
@@ -152,7 +159,7 @@ class GPTQModel:
         ``quantize_config.json``, safetensors) onto ``device``."""
         dev = resolve_device(device)
         hf_cfg = hf_io.load_hf_config(model_dir)
-        spec = get_family(hf_cfg["model_type"])
+        spec = get_family(hf_cfg["model_type"], hf_cfg)
         cfg = spec.arch_fn(hf_cfg)
         qc = BaseQuantizeConfig.from_pretrained(model_dir)
         if qc.checkpoint_format != "gptq":
@@ -225,8 +232,8 @@ class GPTQModel:
         t_start = time.perf_counter()
 
         for li, block in enumerate(self.params["layers"]):
-            # a copy whose sections we mutate as sublists quantize
-            block = {k: dict(v) if isinstance(v, dict) else v for k, v in block.items()}
+            # a copy whose sections (and expert lists) we mutate as sublists quantize
+            block = {k: _copy_section(v) for k, v in block.items()}
             for sublist in quant_sublists:
                 hs: dict = {}
                 with timer.phase("hessian"):

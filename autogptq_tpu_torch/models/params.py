@@ -9,7 +9,12 @@ Counterpart of the JAX package's ``models/params.py`` for the llama spec:
   as runtime ``QuantLinear``s (unfused), norms, embeddings and the head dense
   in the model dtype (``from_quantized``);
 * :func:`flatten_quantized_params`: quantized params plus the packed layers of
-  ``quantize`` -> the checkpoint's tensor dict (``save_quantized``).
+  ``quantize`` -> the checkpoint's tensor dict (``save_quantized``);
+* :func:`stack_moe_experts`: a Mixtral block's expert list -> stacked experts
+  (``mlp.experts_stacked``), the layout of the routed decode path.
+
+Mixtral's experts are the list ``mlp.experts[e].{gate,up,down}_proj`` (numeric
+path components index lists) and its router the dense ``mlp.router``.
 """
 
 from __future__ import annotations
@@ -190,5 +195,31 @@ def flatten_quantized_params(params: dict, packed_layers: dict, spec: FamilySpec
     return out
 
 
+EXPERT_PROJS = ("gate_proj", "up_proj", "down_proj")
+
+
+def stack_moe_experts(params: dict) -> dict:
+    """Params in which every block's list of quantized experts becomes
+    ``mlp.experts_stacked`` (one :class:`~autogptq_tpu_torch.ops.quantlinear.StackedQuantLinear`
+    per projection), the JAX ``stack_moe_experts``. Experts with desc_act
+    raise ValueError. Layers are stacked one at a time and each layer's list
+    is popped from the input's MLP dict at once, so the device holds about one
+    copy of the experts, not two: the input params are consumed, and the
+    returned ones are to be used."""
+    out = dict(params)
+    layers = []
+    for block in params["layers"]:
+        mlp = block.get("mlp")
+        experts = mlp.get("experts") if isinstance(mlp, dict) else None
+        if experts and all(isinstance(ex.get(p), qlin.QuantLinear)
+                           for ex in experts for p in EXPERT_PROJS):
+            stacked = {p: qlin.stack_experts([ex[p] for ex in experts]) for p in EXPERT_PROJS}
+            del mlp["experts"], experts
+            block = dict(block, mlp=dict(mlp, experts_stacked=stacked))
+        layers.append(block)
+    out["layers"] = layers
+    return out
+
+
 __all__ = ["build_fp_params", "build_quantized_params", "flatten_quantized_params",
-           "get_in", "set_in_block"]
+           "get_in", "set_in_block", "stack_moe_experts"]

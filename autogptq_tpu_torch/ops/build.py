@@ -11,6 +11,11 @@ or launch failure raises: there is no fallback to the plain versions.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (keyed by
 the wrapper's kernel name, not the library's).
+
+A kernel that refuses bad ids on the card (K8a/K8b's page ids, K9's expert
+ids) writes nothing for them and ORs a bit into an int32 flag on the device
+(:func:`error_flag`); :func:`take_error_bits` reads and clears it when the
+host chooses, so no launch waits for the card.
 """
 
 from __future__ import annotations
@@ -31,10 +36,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "flash_decode", "paged_attn",
-           "page_ops")
+KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_routed_gemm",
+           "flash_decode", "paged_attn", "page_ops")
 
 launches: collections.Counter = collections.Counter()
+_flags: dict = {}       # (library, device) -> int32 [1] error flag on the card
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -101,6 +107,41 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _cuda_key(device):
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def error_flag(name: str, device):
+    """The int32 ``[1]`` flag on ``device`` into which library ``name``'s
+    kernels OR the bits of the bad ids they refused; zero when created."""
+    import torch
+
+    key = (name, _cuda_key(device))
+    flag = _flags.get(key)
+    if flag is None:
+        flag = _flags[key] = torch.zeros(1, dtype=torch.int32, device=key[1])
+    return flag
+
+
+def take_error_bits(name: str, device) -> int:
+    """The bits library ``name``'s kernels set on ``device`` since the last
+    call, with the flag cleared; 0 off the card or before any launch. Reading
+    the flag waits for the card."""
+    device = _cuda_key(device)
+    flag = _flags.get((name, device)) if device.type == "cuda" else None
+    if flag is None:
+        return 0
+    bits = int(flag.item())
+    if bits:
+        flag.zero_()
+    return bits
+
+
 def check(name: str, code: int) -> None:
     """Raise if a C entry point of kernel ``name`` returned a CUDA error."""
     if code != 0:
@@ -108,4 +149,5 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {code}: {msg}")
 
 
-__all__ = ["BUILD_DIR", "KERNELS", "build", "check", "launches", "library_path", "load"]
+__all__ = ["BUILD_DIR", "KERNELS", "build", "check", "error_flag", "launches", "library_path",
+           "load", "take_error_bits"]

@@ -1,0 +1,183 @@
+// K9: routed-expert w4a16 dequant-GEMV for Hopper (sm_90a), the MoE top-k decode product
+//   y[p, :] = x[p, :] @ ((q - z) * s)  of expert sel[p],  p < P,
+// for 4-bit codes (3-bit codes ride in nibbles), f32 accumulation, output in x's dtype
+// (f32, f16 or bf16).
+//
+// Replaces the TPU kernel autogptq_tpu/ops/pallas/gemm.py:_kernel_routed_kb32 (reached
+// through _matmul_routed_kb32 / matmul_routed_pallas), which the JAX package's
+// models/arch.py:moe_mlp runs for every gate/up/down projection of a decode step when
+// pairs = tokens * top_k <= experts. That kernel gets the selection by scalar prefetch; here
+// each block reads sel[p] from device memory itself, so no routing decision ever goes to the
+// host (no sync per layer).
+//
+// Layout (ops/quantlinear.py:StackedQuantLinear): the per-expert runtime layout of K1
+// stacked on a leading expert axis,
+//   qweight int32 [E, K/8, N]  GPTQ's K-packed words, row 8*r+j of column n in bits 4j..4j+3
+//   scales  fp16  [E, G, N]
+//   zeros   uint8 [E, G, N]    effective zero points
+//   sel     int32 [P]          expert of each pair
+//
+// Bound on the H100 (3.35 TB/s HBM): the bytes of the experts the pairs select, K*N/2 B of
+// words plus 3*G*N B of scales and zeros each. Mixtral-8x7B decode at P = 2 (one token,
+// top-2) reads 2 x (29.4 + 1.4) MB per 4096x14336 projection: 0.0184 ms per call, and
+// 0.0550 ms for a layer's gate, up and down. The arithmetic (2*P*K*N) is far below that.
+//
+// Design (a routed copy of wna16_decode_kernel in wna16_gemm.cuh, whose helpers it reuses):
+//  * Grid (ceil(N/4/128), splits, P). Block z is pair p: it reads e = sel[p], offsets
+//    qweight, scales and zeros by expert e's stride and stages x[p, k-chunk] in shared
+//    memory as f32. Each thread owns 4 adjacent columns and reads one 16-byte int4
+//    (8 K-rows x 4 columns) per word row, so a warp reads 512 contiguous bytes; the codes
+//    become (q - z) by the 2^23 bit trick (code_minus_zero) and each group's scale is
+//    folded in once.
+//  * Split K as K1 does (ops/gemm.py:split_k): a pair has only 28 column blocks at
+//    N = 14336 and 8 at N = 4096, too few for 132 SMs. Each split writes f32 partial sums to
+//    [splits, P, N]; routed_reduce_kernel adds them in a fixed order and casts once, so
+//    results are deterministic and there are no float atomics.
+//  * A bad expert id (sel[p] < 0 or >= E): the pair's blocks write nothing, the reduce skips
+//    its row, and one thread sets bit ERR_BAD_EXPERT of the device flag *err, which the host
+//    reads when it chooses (ops/gemm.py:check_routed_errors), as K8a/K8b do for page ids.
+// The entry point returns cudaGetLastError() and the Python wrapper raises when it is
+// non-zero.
+
+#include "wna16_gemm.cuh"
+
+namespace {
+
+constexpr int ERR_BAD_EXPERT = 1;
+
+template <typename T>
+__global__ void __launch_bounds__(DEC_THREADS)
+routed_decode_kernel(const T* __restrict__ x, const int32_t* __restrict__ sel,
+                     const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+                     const uint8_t* __restrict__ zeros, T* __restrict__ out,
+                     float* __restrict__ partial, int* __restrict__ err, int E, int P, int K,
+                     int N, int gs, int kc) {
+    constexpr int BITS = 4;
+    constexpr int PK = 32 / BITS;  // codes per word
+    extern __shared__ float xs[];  // [kc]
+    const int p = blockIdx.z;
+    const int e = sel[p];
+    if (e < 0 || e >= E) {         // uniform over the block: nobody reaches the barrier
+        if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) atomicOr(err, ERR_BAD_EXPERT);
+        return;
+    }
+    const int G = (K + gs - 1) / gs;
+    const int32_t* qw = qweight + (int64_t)e * (K / PK) * N;
+    const __half* sc = scales + (int64_t)e * G * N;
+    const uint8_t* zr = zeros + (int64_t)e * G * N;
+
+    const int split = blockIdx.y;
+    const int k0 = split * kc;
+    const int k1 = min(K, k0 + kc);
+    const int klen = k1 - k0;
+    for (int kk = threadIdx.x; kk < kc; kk += DEC_THREADS)
+        xs[kk] = kk < klen ? to_f32(x[(int64_t)p * K + k0 + kk]) : 0.0f;
+    __syncthreads();
+
+    const int n = 4 * (blockIdx.x * DEC_THREADS + threadIdx.x);
+    if (n >= N) return;
+
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int g_first = k0 / gs;
+    const int g_last = (k1 - 1) / gs;
+    for (int g = g_first; g <= g_last; ++g) {
+        const int ka = max(k0, g * gs);
+        const int kb = min(k1, (g + 1) * gs);
+        const uint2 sraw = *reinterpret_cast<const uint2*>(sc + (int64_t)g * N + n);
+        const uint32_t zraw = *reinterpret_cast<const uint32_t*>(zr + (int64_t)g * N + n);
+        const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
+        const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
+        const float s[4] = {__low2float(s01), __high2float(s01), __low2float(s23), __high2float(s23)};
+        float zb[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) zb[c] = MAGIC + (float)((zraw >> (8 * c)) & 0xFFu);
+
+        float gacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int kw = ka / PK; kw < kb / PK; ++kw) {
+            const int4 wv = __ldg(reinterpret_cast<const int4*>(qw + (int64_t)kw * N + n));
+            const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+            const float* xk = xs + (kw * PK - k0);
+#pragma unroll
+            for (int j = 0; j < PK; ++j) {
+                const float xv = xk[j];
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    gacc[c] = fmaf(xv, code_minus_zero<BITS>(w[c], j, zb[c]), gacc[c]);
+            }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c] = fmaf(gacc[c], s[c], acc[c]);
+    }
+
+    if (partial != nullptr) {
+        *reinterpret_cast<float4*>(partial + ((int64_t)split * P + p) * N + n) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+        return;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[(int64_t)p * N + n + c] = from_f32<T>(acc[c]);
+}
+
+// Adds the splits of every valid pair's row in a fixed order and casts once; rows of pairs
+// with a bad expert id are left as they were.
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+routed_reduce_kernel(const float* __restrict__ partial, const int32_t* __restrict__ sel,
+                     T* __restrict__ out, int E, int P, int N, int splits) {
+    const int64_t i = (int64_t)blockIdx.x * RED_THREADS + threadIdx.x;
+    const int64_t total = (int64_t)P * N;
+    if (i >= total) return;
+    const int e = sel[i / N];
+    if (e < 0 || e >= E) return;
+    float v = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) v += partial[sp * total + i];
+    out[i] = from_f32<T>(v);
+}
+
+template <typename T>
+cudaError_t launch_routed(const void* x, const int32_t* sel, const int32_t* qweight,
+                          const __half* scales, const uint8_t* zeros, void* out, float* partial,
+                          int* err, int E, int P, int K, int N, int gs, int kc, int splits,
+                          cudaStream_t stream) {
+    const dim3 grid((N / 4 + DEC_THREADS - 1) / DEC_THREADS, splits, P);
+    const size_t smem = sizeof(float) * kc;
+    float* part = splits > 1 ? partial : nullptr;
+    routed_decode_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
+        static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), part, err,
+        E, P, K, N, gs, kc);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return e;
+    const int64_t total = (int64_t)P * N;
+    const unsigned blocks = (unsigned)((total + RED_THREADS - 1) / RED_THREADS);
+    routed_reduce_kernel<T><<<blocks, RED_THREADS, 0, stream>>>(
+        partial, sel, static_cast<T*>(out), E, P, N, splits);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int w4a16_routed_gemm(const void* x, const int32_t* sel, const int32_t* qweight,
+                                 const void* scales, const uint8_t* zeros, void* out,
+                                 float* partial, int* err, int dtype, int E, int P, int K, int N,
+                                 int gs, int kc, int splits, void* stream) {
+    if (E <= 0 || P <= 0 || P > 65535 || K <= 0 || N <= 0 || K % 8 != 0 || N % 4 != 0 ||
+        gs <= 0 || gs % 8 != 0 || kc <= 0 || kc % 8 != 0 || splits <= 0 ||
+        (splits > 1 && partial == nullptr) || err == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F32:
+            return (int)launch_routed<float>(x, sel, qweight, s, zeros, out, partial, err, E, P, K, N, gs, kc, splits, st);
+        case DT_F16:
+            return (int)launch_routed<__half>(x, sel, qweight, s, zeros, out, partial, err, E, P, K, N, gs, kc, splits, st);
+        case DT_BF16:
+            return (int)launch_routed<__nv_bfloat16>(x, sel, qweight, s, zeros, out, partial, err, E, P, K, N, gs, kc, splits, st);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+extern "C" const char* w4a16_routed_gemm_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -22,6 +22,12 @@ replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 ``w8a16_matmul_t`` / ``w2a16_matmul_t`` launch it for CUDA tensors and run
 ``wna16_matmul_t_ref`` for CPU tensors.
 
+K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
+(``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
+``_kernel_routed_kb32`` behind ``matmul_routed_pallas``.
+``wna16_routed_matmul`` launches it for CUDA tensors and runs
+``wna16_routed_matmul_ref`` for CPU tensors.
+
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
 ``scales`` fp16 [G, N], ``zeros`` uint8 [G, N] effective zero points,
@@ -247,6 +253,108 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     return dx
 
 
+def wna16_routed_matmul_ref(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Tensor,
+                            scales: torch.Tensor, zeros: torch.Tensor, group_size: int,
+                            bits: int = 4) -> torch.Tensor:
+    """Plain version of K9: row p is ``x2d[p] @ dequant(W[sel[p]])``, with an
+    f32 dequantized weight per selected expert, an f32 product and one cast
+    to ``x2d``'s dtype (the JAX ``matmul_routed`` XLA fallback). An expert id
+    outside ``[0, E)`` raises ValueError."""
+    e = qweight.shape[0]
+    ids = sel.long().cpu()
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= e):
+        raise ValueError(f"expert ids must lie in [0, {e}), got {ids.tolist()}")
+    y = torch.empty((x2d.shape[0], qweight.shape[2]), dtype=torch.float32, device=x2d.device)
+    for ex in torch.unique(ids).tolist():
+        rows = (ids == ex).nonzero()[:, 0].to(x2d.device)
+        w = dequantize_codes(unpack_words(qweight[ex], bits), scales[ex], zeros[ex], group_size)
+        y[rows] = x2d[rows].float() @ w
+    return y.to(x2d.dtype)
+
+
+ROUTED_KERNEL = "w4a16_routed_gemm"     # K9's library and launch-count key
+
+
+def check_routed_errors(device) -> None:
+    """Raise ValueError if a K9 launch on ``device`` since the last check was
+    given an expert id outside the stack; such a pair wrote nothing. Reading
+    the flag waits for the card, so ``moe_mlp`` never does and ``generate``
+    checks once per call. On the CPU the plain version raises at once and
+    this does nothing."""
+    if build.take_error_bits(ROUTED_KERNEL, device):
+        raise ValueError(f"{ROUTED_KERNEL}: an expert id outside the stack was given; the "
+                         "pairs that named it wrote nothing")
+
+
+def _lib_routed():
+    fn = getattr(build.load(ROUTED_KERNEL), ROUTED_KERNEL)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def wna16_routed_matmul(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Tensor,
+                        scales: torch.Tensor, zeros: torch.Tensor, group_size: int,
+                        bits: int = 4, check: bool = True,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K9: ``x2d [P, K]``, ``sel`` int32 ``[P]`` and a stack of 4-bit
+    experts (``qweight`` int32 ``[E, K/8, N]``, ``scales`` fp16 ``[E, G, N]``,
+    ``zeros`` uint8 ``[E, G, N]``) -> ``[P, N]`` in ``x2d``'s dtype, row p
+    ``x2d[p] @ dequant(W[sel[p]])``. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises. The kernel reads ``sel`` on the
+    card; a pair naming an expert outside the stack writes nothing and sets
+    a device flag, which ``check=True`` reads at once (a wait for the card)
+    and ``check=False`` leaves to :func:`check_routed_errors`. ``out``, a
+    contiguous ``[P, N]`` tensor of ``x2d``'s dtype on the card, is written in
+    place of a new one (the rows of such pairs keep what they held)."""
+    if bits != 4:
+        raise ValueError(f"{ROUTED_KERNEL} takes 4-bit words (3-bit codes in nibbles), "
+                         f"got bits={bits}")
+    if x2d.device.type == "cpu":
+        return wna16_routed_matmul_ref(x2d, sel, qweight, scales, zeros, group_size, bits)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"{ROUTED_KERNEL} runs on CUDA or, through its plain version, on the "
+                         f"CPU; got a tensor on {x2d.device}")
+    if qweight.dim() != 3 or scales.dim() != 3 or zeros.dim() != 3 or not (
+            qweight.shape[0] == scales.shape[0] == zeros.shape[0]):
+        raise ValueError(f"qweight, scales and zeros must be stacked [E, ...] tensors, got "
+                         f"{tuple(qweight.shape)}, {tuple(scales.shape)}, {tuple(zeros.shape)}")
+    gs = _check_operands(x2d, qweight[0], scales[0], zeros[0], None, None, group_size, bits)
+    for name, t in (("qweight", qweight), ("scales", scales), ("zeros", zeros)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    p, k = x2d.shape
+    e, _, n = qweight.shape
+    if sel.dtype != torch.int32 or tuple(sel.shape) != (p,) or sel.device != x2d.device \
+            or not sel.is_contiguous():
+        raise ValueError(f"sel must be a contiguous int32 [{p}] tensor on {x2d.device}, got "
+                         f"{tuple(sel.shape)} {sel.dtype} on {sel.device}")
+    if out is None:
+        out = torch.empty((p, n), dtype=x2d.dtype, device=x2d.device)
+    elif (out.dtype != x2d.dtype or tuple(out.shape) != (p, n) or out.device != x2d.device
+          or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {x2d.dtype} [{p}, {n}] tensor on "
+                         f"{x2d.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
+    if p == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    kc, splits = split_k(k, n, gs, sms)
+    partial = None
+    if splits > 1:
+        partial = torch.empty((splits, p, n), dtype=torch.float32, device=x2d.device)
+    flag = build.error_flag(ROUTED_KERNEL, x2d.device)
+    code = _lib_routed()(_ptr(x2d), _ptr(sel), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                         _ptr(out), _ptr(partial), _ptr(flag), DTYPE_CODES[x2d.dtype], e, p, k,
+                         n, gs, kc, splits,
+                         ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
+    build.check(ROUTED_KERNEL, code)
+    build.launches[ROUTED_KERNEL] += 1
+    if check:
+        check_routed_errors(x2d.device)
+    return out
+
+
 def w4a16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size) -> torch.Tensor:
     """K1: 4-bit words (3-bit codes ride in nibbles)."""
     return wna16_matmul(x2d, qweight, scales, zeros, kperm, bias, group_size, 4)
@@ -297,5 +405,6 @@ __all__ = [
     "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
-    "split_k",
+    "split_k", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
+    "check_routed_errors",
 ]

@@ -258,41 +258,14 @@ def paged_attention_mh(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
     return out
 
 
-_err_flags: dict = {}
-
-
-def _device_key(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
-def _err_flag(device: torch.device) -> torch.Tensor:
-    """The int32 flag on ``device`` that K8a and K8b set when they refuse bad
-    ids (the bits of ``_ERR_MESSAGES``)."""
-    device = _device_key(device)
-    flag = _err_flags.get(device)
-    if flag is None:
-        flag = _err_flags[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return flag
-
-
 def check_page_errors(device) -> None:
     """Raise ValueError if a K8a or K8b launch on ``device`` since the last
     check was given a bad id (a write target outside the pool, a page id
     outside it, a repeated ``dst``); such a launch wrote nothing. Reading the
     flag waits for the card, so the beam path checks once per generate. On
     the CPU the plain versions raise at once and this does nothing."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return
-    flag = _err_flags.get(_device_key(device))
-    if flag is None:
-        return
-    bits = int(flag.item())
+    bits = build.take_error_bits(PAGE_OPS, device)
     if bits:
-        flag.zero_()
         raise ValueError("; ".join(msg for bit, msg in _ERR_MESSAGES if bits & bit))
 
 
@@ -346,7 +319,7 @@ def write_token_pages_kernel(k_pool: torch.Tensor, v_pool: torch.Tensor, layer: 
     code = _page_fn("write_token_rows")(
         _ptr(k_pool), _ptr(v_pool), _ptr(krows), _ptr(vrows), _ptr(page_of), _ptr(off),
         b, k_pool.shape[1], hkv, k_pool.shape[3], row_bytes, layer, unit,
-        _ptr(_err_flag(k_pool.device)), _stream(k_pool))
+        _ptr(build.error_flag(PAGE_OPS, k_pool.device)), _stream(k_pool))
     build.check(PAGE_OPS, code)
     build.launches["write_token_pages"] += 1
     if check:
@@ -381,7 +354,8 @@ def copy_pages_pair(k_pool: torch.Tensor, v_pool: torch.Tensor, src: torch.Tenso
     unit = _unit(page_bytes, k_pool, v_pool, k_scr, v_scr)
     code = _page_fn("copy_pages")(
         _ptr(k_pool), _ptr(v_pool), _ptr(k_scr), _ptr(v_scr), _ptr(src), _ptr(dst), n_layers,
-        n_pages, n, page_bytes, unit, _ptr(_err_flag(k_pool.device)), _stream(k_pool))
+        n_pages, n, page_bytes, unit, _ptr(build.error_flag(PAGE_OPS, k_pool.device)),
+        _stream(k_pool))
     build.check(PAGE_OPS, code)
     build.launches["copy_pages_pair"] += 1
     if check:

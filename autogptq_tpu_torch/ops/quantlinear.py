@@ -20,6 +20,10 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
   through :class:`QuantMatmul`, whose backward is :func:`matmul_t` (K10 on
   the card); the weights get no gradient, as the JAX custom VJP gives them
   zero cotangents.
+* :class:`StackedQuantLinear` (:func:`stack_experts`) holds an MoE block's
+  experts on a leading axis; :func:`matmul_stacked` applies every expert
+  (dense prefill) and :func:`matmul_routed` one expert per row (K9 on the
+  card, the top-k decode product).
 * :func:`pack_from_solver` turns the GPTQ solver's outputs into checkpoint
   tensors.
 """
@@ -211,6 +215,69 @@ def matmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     return QuantMatmul.apply(x, ql)
 
 
+@dataclass
+class StackedQuantLinear:
+    """E experts' runtime layouts on a leading expert axis (MoE), each with
+    the trivial row order. Counterpart of the JAX ``StackedQuantLinear``."""
+
+    qweight: torch.Tensor          # int32 [E, K * storage_bits / 32, N]
+    scales: torch.Tensor           # fp16  [E, G, N]
+    zeros: torch.Tensor            # uint8 [E, G, N]
+    bias: Optional[torch.Tensor]   # [E, N] or None
+    bits: int = 4
+    group_size: int = -1
+    in_features: int = 0
+    out_features: int = 0
+
+    @property
+    def num_experts(self) -> int:
+        return self.qweight.shape[0]
+
+    def expert(self, e: int) -> QuantLinear:
+        """Expert ``e`` as a :class:`QuantLinear` of views into the stack."""
+        return QuantLinear(
+            qweight=self.qweight[e], scales=self.scales[e], zeros=self.zeros[e], kperm=None,
+            bias=None if self.bias is None else self.bias[e], bits=self.bits,
+            group_size=self.group_size, in_features=self.in_features,
+            out_features=self.out_features)
+
+
+def stack_experts(qls: list[QuantLinear]) -> StackedQuantLinear:
+    """Stack per-expert layers of identical shape; desc_act (``kperm``) raises."""
+    if any(q.kperm is not None for q in qls):
+        raise ValueError("stacked experts require trivial g_idx (no desc_act)")
+    first = qls[0]
+    return StackedQuantLinear(
+        qweight=torch.stack([q.qweight for q in qls]),
+        scales=torch.stack([q.scales for q in qls]),
+        zeros=torch.stack([q.zeros for q in qls]),
+        bias=None if first.bias is None else torch.stack([q.bias for q in qls]),
+        bits=first.bits, group_size=first.group_size, in_features=first.in_features,
+        out_features=first.out_features)
+
+
+def matmul_stacked(x: torch.Tensor, sql: StackedQuantLinear) -> torch.Tensor:
+    """Dense MoE execution: every expert applied to the same ``x``, one
+    :func:`matmul` per expert (K1, K4 or K5 on the card). Returns
+    ``[E, ..., N]``."""
+    return torch.stack([matmul(x, sql.expert(e)) for e in range(sql.num_experts)])
+
+
+def matmul_routed(x: torch.Tensor, sql: StackedQuantLinear, sel: torch.Tensor,
+                  check: bool = True) -> torch.Tensor:
+    """Sparse MoE decode execution: row p of the result is
+    ``x[p] @ dequant(W[sel[p]])`` (``x [P, K]``, ``sel`` int32 ``[P]`` ->
+    ``[P, N]`` in ``x``'s dtype), plus the gathered bias. A CUDA tensor
+    launches K9, which reads only the selected experts' words; a CPU tensor
+    takes its plain version. 4-bit storage only (3- and 4-bit layers);
+    ``check`` as in :func:`~autogptq_tpu_torch.ops.gemm.wna16_routed_matmul`."""
+    y = gemm.wna16_routed_matmul(x.contiguous(), sel, sql.qweight, sql.scales, sql.zeros,
+                                 sql.group_size, storage_bits(sql.bits), check=check)
+    if sql.bias is not None:
+        y = y + sql.bias[sel.long()].to(y.dtype)
+    return y
+
+
 def solver_codes(w: torch.Tensor, scales16: torch.Tensor, zero: torch.Tensor,
                  g_idx: torch.Tensor, bits: int) -> torch.Tensor:
     """uint8 codes [K, N] of fake-quantized weights ``w [N, K]``:
@@ -265,4 +332,8 @@ __all__ = [
     "matmul_plain",
     "matmul_t",
     "QuantMatmul",
+    "StackedQuantLinear",
+    "stack_experts",
+    "matmul_stacked",
+    "matmul_routed",
 ]

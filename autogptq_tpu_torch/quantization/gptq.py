@@ -73,7 +73,9 @@ def full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = before
 
 
-def hessian_init(columns: int, device="cpu") -> tuple[torch.Tensor, int]:
+def hessian_init(columns: int, device) -> tuple[torch.Tensor, int]:
+    """A zero ``[columns, columns]`` f32 Hessian on ``device`` (no default:
+    the caller names where the calibration runs) and a sample count of 0."""
     return torch.zeros((columns, columns), dtype=torch.float32, device=device), 0
 
 

@@ -11,6 +11,9 @@ imports nothing from the JAX package:
   that layout's ``*_unpack_np`` (pack granularity 1024 rows for kb32, the
   group size for ki32, k2i32 and kquad), stripped of its K/N padding and
   repacked into the port's words, keeping ``kperm``;
+* a stacked expert node (``StackedQuantLinear``: ``num_experts``, words with
+  a leading expert axis) is carried across expert by expert as above and
+  stacked into the port's ``StackedQuantLinear``;
 * the adapter nodes of the JAX ``utils/peft.py`` become the port's
   (``utils/peft.py``): an AdaLoRA node (``lora_e``, with ``rank_mask`` and
   ``scaling``), a LoRA node (``lora_a``, ``lora_b``, ``scaling``), each with
@@ -24,12 +27,14 @@ Other quantized layouts (``kb32l``) raise.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from ..models.arch import DenseLinear
 from ..ops import packing
-from ..ops.quantlinear import STORAGE_BITS, QuantLinear
+from ..ops.quantlinear import STORAGE_BITS, QuantLinear, StackedQuantLinear, stack_experts
 from . import peft
 
 _QUANT_FIELDS = ("wp", "scales", "zeros", "kperm", "layout", "group_size", "in_features",
@@ -154,6 +159,21 @@ def _quant_linear(node, device, dtype) -> QuantLinear:
     )
 
 
+def _stacked(node, device, dtype) -> StackedQuantLinear:
+    """A JAX ``StackedQuantLinear``: each expert's words, scales and zeros
+    through :func:`_quant_linear`, then stacked."""
+    wp, scales, zeros = np.asarray(node.wp), np.asarray(node.scales), np.asarray(node.zeros)
+    fields = dict(kperm=None, bias=None, layout=node.layout, group_size=node.group_size,
+                  in_features=node.in_features, out_features=node.out_features, bits=node.bits)
+    sql = stack_experts([
+        _quant_linear(SimpleNamespace(wp=wp[e], scales=scales[e], zeros=zeros[e], **fields),
+                      device, dtype)
+        for e in range(wp.shape[0])])
+    if node.bias is not None:
+        sql.bias = torch.tensor(np.asarray(node.bias, np.float32)).to(device, dtype)
+    return sql
+
+
 def _adapter(a, device, trainable: bool = True) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=device).requires_grad_(trainable)
 
@@ -177,6 +197,8 @@ def params_from_jax(tree, device="cuda", dtype: torch.dtype = torch.bfloat16):
     if hasattr(tree, "prompt") and hasattr(tree, "gate"):
         return peft.AdaptionPrompt(prompt=_adapter(tree.prompt, device),
                                    gate=_adapter(tree.gate, device))
+    if hasattr(tree, "num_experts") and hasattr(tree, "wp") and np.ndim(tree.wp) == 3:
+        return _stacked(tree, device, dtype)
     if all(hasattr(tree, f) for f in _QUANT_FIELDS):
         return _quant_linear(tree, device, dtype)
     if hasattr(tree, "kernel"):

@@ -10,7 +10,7 @@ only the live slots ``[lo, hi)`` of each row and K7 only each row's live
 pages, so ``phased`` is accepted and ignored.
 
 Beam search follows HF ``BeamSearchScorer`` as the JAX package does. Its
-top-k selections go through :func:`_top_k`, a stable sort, so that equal
+top-k selections go through ``arch.top_k``, a stable sort, so that equal
 scores (the done pool holds many ``NEG_INF``) resolve to the lower index as
 ``jax.lax.top_k`` does; ``torch.topk`` promises no order for ties.
 """
@@ -25,11 +25,13 @@ import torch
 
 from ..models import arch
 from ..models.arch import KVCache
+from ..ops.gemm import check_routed_errors
 from ..ops.paged_attn import (check_page_errors, copy_pages_pair, paged_attention_mh,
                                write_token_pages_kernel)
 
 NEG_INF = -1e30
 PAGE_SIZE = 16
+_top_k = arch.top_k
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -105,13 +107,6 @@ def _generate_greedy(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg
 
 
 # ---------------------------------------------------------------- beam search
-
-def _top_k(x: torch.Tensor, k: int):
-    """``jax.lax.top_k`` along the last axis: the k largest, equal values in
-    ascending index order."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
 
 def _take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``take_along_axis(a [b, n, m], idx [b, j, None], axis=1)`` -> [b, j, m]."""
@@ -466,7 +461,7 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
                                 layer=idx)
         x = x + arch.apply_linear(ap["o_proj"], of.reshape(bk, 1, h * d).to(x.dtype))
         h2 = arch.rms_norm(x, bp["post_norm"]["weight"], cfg.norm_eps)
-        x = x + arch.mlp(bp["mlp"], h2)
+        x = x + arch.mlp(bp["mlp"], h2, cfg)
     return arch.unembed(params, x, cfg)[:, -1]
 
 
@@ -558,6 +553,7 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
             eos_token_id, num_beams, model.dtype, kv_quant=kv_quant,
             length_penalty=float(length_penalty), early_stopping=early_stopping,
             num_return_sequences=num_return_sequences).cpu().numpy()
+        check_routed_errors(dev)
         b, r, m = new.shape
         ids = np.repeat(ids, r, axis=0)
         new = new.reshape(b * r, m)
@@ -579,8 +575,9 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     new = _generate_greedy(
         model.params, tokens, mask_t, model.cfg, max_new_tokens, min_new_tokens, eos_token_id,
         float(temperature or 0.0), model.dtype, generator, pad_token_id=pad_token_id,
-    )
-    return np.concatenate([ids, new.cpu().numpy()], axis=1)
+    ).cpu().numpy()
+    check_routed_errors(dev)
+    return np.concatenate([ids, new], axis=1)
 
 
 __all__ = ["PagedBeamCache", "beam_paged_prefill", "generate", "paged_decode_step"]

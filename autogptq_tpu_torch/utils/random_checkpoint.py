@@ -6,13 +6,15 @@ The port's counterpart of ``bench.py``'s random weights, written to
 disk in the GPTQ checkpoint format so that both packages' ``from_quantized``
 load it and nothing has to be downloaded:
 
-* ``config.json`` (an HF llama config) and ``quantize_config.json``;
+* ``config.json`` (an HF llama or Mixtral config) and ``quantize_config.json``;
 * one safetensors shard per decoder layer plus one for the embedding, final
   norm and head, listed in ``model.safetensors.index.json``;
 * per quantized linear: random ``qweight`` words (every bit pattern is a
   valid code word), fp16 ``scales``, random zero points packed into
   ``qzeros``, and ``g_idx`` (a random permutation of the groups' rows when
-  ``desc_act``).
+  ``desc_act``);
+* for Mixtral, every expert's ``w1`` / ``w2`` / ``w3`` quantized as above and
+  the fp16 router ``block_sparse_moe.gate.weight`` ``[E, H]``.
 
 Layer ``i`` draws from ``np.random.default_rng([seed, i + 1])`` and the
 top-level tensors from ``[seed, 0]``, so a checkpoint cut to fewer layers has
@@ -49,23 +51,62 @@ LLAMA2_7B = {
     "torch_dtype": "float16",
 }
 
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json)
+MIXTRAL_8X7B = {
+    "model_type": "mixtral",
+    "architectures": ["MixtralForCausalLM"],
+    "vocab_size": 32000,
+    "hidden_size": 4096,
+    "intermediate_size": 14336,
+    "num_hidden_layers": 32,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 8,
+    "num_local_experts": 8,
+    "num_experts_per_tok": 2,
+    "max_position_embeddings": 32768,
+    "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6,
+    "sliding_window": None,
+    "hidden_act": "silu",
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+
 
 def linear_shapes(cfg: dict) -> dict[str, tuple[int, int]]:
-    """HF block-relative linear name -> (in_features K, out_features N)."""
+    """HF block-relative linear name -> (in_features K, out_features N) of
+    every quantized linear (Mixtral: the experts' ``w1``/``w2``/``w3`` in
+    place of the MLP; its router is not quantized)."""
     h = cfg["hidden_size"]
     heads = cfg["num_attention_heads"]
     kv = cfg.get("num_key_value_heads", heads) or heads
     d = cfg.get("head_dim") or h // heads
     inter = cfg["intermediate_size"]
-    return {
+    shapes = {
         "self_attn.q_proj": (h, heads * d),
         "self_attn.k_proj": (h, kv * d),
         "self_attn.v_proj": (h, kv * d),
         "self_attn.o_proj": (heads * d, h),
-        "mlp.gate_proj": (h, inter),
-        "mlp.up_proj": (h, inter),
-        "mlp.down_proj": (inter, h),
     }
+    if cfg.get("model_type") == "mixtral":
+        for e in range(cfg.get("num_local_experts", 8)):
+            prefix = f"block_sparse_moe.experts.{e}"
+            shapes.update({f"{prefix}.w1": (h, inter), f"{prefix}.w2": (inter, h),
+                           f"{prefix}.w3": (h, inter)})
+        return shapes
+    shapes.update({"mlp.gate_proj": (h, inter), "mlp.up_proj": (h, inter),
+                   "mlp.down_proj": (inter, h)})
+    return shapes
+
+
+def _router(config: dict, rng: np.random.Generator, prefix: str) -> dict:
+    """Mixtral's fp16 router ``[E, H]``, ``N(0, 1 / H)`` (logits of order
+    one); nothing for other families."""
+    if config.get("model_type") != "mixtral":
+        return {}
+    h = config["hidden_size"]
+    w = rng.standard_normal((config.get("num_local_experts", 8), h), np.float32) / np.sqrt(h)
+    return {f"{prefix}.block_sparse_moe.gate.weight": w.astype(np.float16)}
 
 
 def random_quant_tensors(rng: np.random.Generator, k: int, n: int, bits: int = 4,
@@ -111,7 +152,7 @@ def _top_tensors(config: dict, seed: int) -> dict:
 
 
 def write_random_fp_checkpoint(out_dir: str, config: dict, seed: int = 0) -> str:
-    """Write an unquantized fp16 llama checkpoint of random weights into
+    """Write an unquantized fp16 checkpoint of random weights into
     ``out_dir``: the input of ``from_pretrained`` / ``quantize``. One
     safetensors file per decoder layer (layer ``i`` drawn from
     ``[seed, i + 1]``) plus one for the embedding, final norm and head, so a
@@ -138,6 +179,7 @@ def write_random_fp_checkpoint(out_dir: str, config: dict, seed: int = 0) -> str
         for name, (k, n) in linear_shapes(config).items():
             w = rng.standard_normal((n, k), np.float32) / np.float32(np.sqrt(k))
             tensors[f"{prefix}.{name}.weight"] = w.astype(np.float16)
+        tensors.update(_router(config, rng, prefix))
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"{prefix}.{norm}.weight"] = (
                 1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16)
@@ -172,6 +214,7 @@ def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_siz
         for name, (k, n) in shapes.items():
             for key, val in random_quant_tensors(rng, k, n, bits, group_size, desc_act).items():
                 tensors[f"{prefix}.{name}.{key}"] = val
+        tensors.update(_router(config, rng, prefix))
         for norm in ("input_layernorm", "post_attention_layernorm"):
             tensors[f"{prefix}.{norm}.weight"] = (
                 1.0 + 0.1 * rng.standard_normal(h, np.float32)).astype(np.float16)
@@ -183,5 +226,5 @@ def write_random_checkpoint(out_dir: str, config: dict, bits: int = 4, group_siz
     return out_dir
 
 
-__all__ = ["LLAMA2_7B", "linear_shapes", "random_quant_tensors", "write_random_checkpoint",
+__all__ = ["LLAMA2_7B", "MIXTRAL_8X7B", "linear_shapes", "random_quant_tensors", "write_random_checkpoint",
            "write_random_fp_checkpoint"]

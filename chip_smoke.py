@@ -74,7 +74,25 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    K10, K10 launches counted) and one on the CPU (f32, plain versions),
    relative Frobenius error of every adapter gradient, and the same with f32
    activations on the card; then one AdamW step of each kind on the card.
-15. Writes every measurement to ``build/chip_smoke.json`` and prints one
+15. K9 (``w4a16_routed_gemm``, the routed-expert GEMV of MoE decode) against
+   ``wna16_routed_matmul_ref`` at Mixtral-8x7B's expert shapes (4096 x 14336 and
+   14336 x 4096, g128, 8 stacked experts), P in {1, 2, 8} pairs (8 with repeated
+   experts), bf16 (timed) and f32; P ``torch.matmul`` calls on pre-dequantized
+   bf16 experts are the library yardstick; a pair naming expert -1 or E writes
+   nothing, sets the flag and ``check=True`` raises.
+16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint (all 32
+   layers, about 24.6 GB) under ``build/chip_smoke/``, ``from_quantized`` on the
+   default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
+   decode of 128 tokens from a 16-token prompt twice (equal tokens; launch
+   counts set to 0 just before the first and read just after: K9 96, K2 32,
+   K1 128 per decode token), a profile by kernel family, and 64 tokens of
+   beam 4 over the paged bf16 cache (K9 at P = 8, K7, K8a, K8b).
+17. Mixtral card against CPU on a 2-layer full-width cut, f32 on both sides
+   (logits of a prefill and of a routed decode step), the share of the
+   CPU's routing choices that an f32 and a bf16 card run make, and one
+   layer's ``moe_mlp`` on the card in f32, routed (K9) and dense stacked
+   against the expert list (K1).
+18. Writes every measurement to ``build/chip_smoke.json`` and prints one
    JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -140,6 +158,22 @@ SPIN_CYCLES = 1_000_000       # about 0.5 ms of GPU clock before each timed call
 NEW_TOKENS = 512
 PROFILE_TOKENS = 33
 PROMPT_LEN = 16
+# K9 against its plain version: f32 to F32_ABS_TOL, bf16 to 1% of the largest output
+# (one rounding on both sides). Mixtral card against CPU, both f32 (a bf16 router can rank
+# two near-equal experts otherwise: a different result, no kernel wrong): relative
+# Frobenius error of the logits. One layer's moe_mlp, routed (K9) against the expert
+# list (K1) and the dense stacked path (K1), f32 on the card.
+MIXTRAL_E2E_F32_REL_TOL = 1e-3
+MOE_F32_ABS_TOL = 1e-4
+MIXTRAL_LAYERS = 32           # depth of the Mixtral-8x7B path (full)
+MIXTRAL_NEW_TOKENS = 128
+MIXTRAL_BEAM_TOKENS = 64
+MIXTRAL_PROFILE_TOKENS = 17
+K9_SELS = {1: [3], 2: [1, 6], 8: [0, 7, 7, 2, 0, 5, 1, 7]}   # P = 8: beam 4, repeats
+MIXTRAL_SHAPES = {        # Mixtral-8x7B expert projection: (K, N, K9 calls per layer)
+    "gate_up": (4096, 14336, 2),
+    "down": (14336, 4096, 1),
+}
 LAYER_SHAPES = {          # Llama-2-7B projection: (K, N, calls per decoder layer)
     "qkvo": (4096, 4096, 4),
     "gate_up": (4096, 11008, 2),
@@ -364,6 +398,91 @@ def phase_k10(torch, np, timer) -> list:
                   f"ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
     return rows
+
+
+def phase_k9(torch, np, timer) -> list:
+    """K9 against its plain version at Mixtral-8x7B's expert shapes, E = 8."""
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for name, (k, n, _) in MIXTRAL_SHAPES.items():
+        sql = qlin.stack_experts([_random_layer(qlin, rng, k, n, 4, 128, False, torch.bfloat16)
+                                  for _ in range(8)])
+        dense = [qlin.logical_weight(sql.expert(e), torch.bfloat16) for e in range(8)]
+        per_expert = nbytes(sql.qweight[0], sql.scales[0], sql.zeros[0])
+        for p, ids in K9_SELS.items():
+            sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
+            x = torch.randn((p, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            before = build.launches[gemm.ROUTED_KERNEL]
+            y = qlin.matmul_routed(x, sql, sel)
+            check(build.launches[gemm.ROUTED_KERNEL] == before + 1, f"K9 {name} P={p}: not launched")
+            ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, 128)
+            y32 = qlin.matmul_routed(x.float(), sql, sel)
+            ref32 = gemm.wna16_routed_matmul_ref(x.float(), sel, sql.qweight, sql.scales,
+                                                 sql.zeros, 128)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err32 = (y32 - ref32).abs().max().item()
+            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(y32).all()),
+                  f"K9 {name} P={p}: non-finite output")
+            check(err <= K1_REL_TOL * scale, f"K9 {name} P={p} bf16: max |kernel - plain| = "
+                                             f"{err:.3e} > {K1_REL_TOL} * {scale:.3e}")
+            check(err32 <= F32_ABS_TOL * max(1.0, scale),
+                  f"K9 {name} P={p} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            ms = timer.ms(lambda: qlin.matmul_routed(x, sql, sel, check=False))
+            plain_ms = timer.ms(lambda: gemm.wna16_routed_matmul_ref(
+                x, sel, sql.qweight, sql.scales, sql.zeros, 128), iters=5, warmup=1)
+            # no single PyTorch call computes a routed product without a gather: P
+            # torch.matmul calls on pre-dequantized bf16 experts, timed only
+            lib_ms = timer.ms(lambda: [torch.matmul(x[i], dense[e]) for i, e in enumerate(ids)])
+            # the least the card could move: each selected expert once, x, y and sel
+            b_ms, b_by = bound_ms(len(set(ids)) * per_expert + nbytes(x, y, sel),
+                                  2.0 * p * k * n)
+            rows.append(dict(case=name, K=k, N=n, P=p, sel=ids, max_abs_err=err,
+                             max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            print(f"K9 {name:8s} K={k:5d} N={n:5d} E=8 P={p} sel={ids}  bf16 err {err:.3e} "
+                  f"(tol {K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {p} x torch.matmul "
+                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if name == "gate_up":
+            refuse_bad_experts(torch, gemm, sql, gen)
+        del sql, dense
+        torch.cuda.empty_cache()
+    return rows
+
+
+def refuse_bad_experts(torch, gemm, sql, gen) -> None:
+    """A pair naming expert -1 or E writes nothing and sets the flag; the good
+    pairs of the same launch are right; check=True raises ValueError."""
+    x = torch.randn((3, sql.in_features), generator=gen, device="cuda", dtype=torch.bfloat16)
+    for bad in (-1, sql.num_experts):
+        sel = torch.tensor([2, bad, 6], dtype=torch.int32, device="cuda")
+        out = torch.full((3, sql.out_features), 7.0, device="cuda", dtype=torch.bfloat16)
+        gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 128, check=False,
+                                 out=out)
+        torch.cuda.synchronize()
+        check(bool((out[1] == 7.0).all()), f"K9 expert id {bad}: its row was written")
+        good = torch.tensor([0, 2], device="cuda")
+        ref = gemm.wna16_routed_matmul_ref(x[good], sel[good], sql.qweight, sql.scales,
+                                           sql.zeros, 128)
+        check((out[good].float() - ref.float()).abs().max().item()
+              <= K1_REL_TOL * ref.float().abs().max().item(),
+              f"K9 expert id {bad}: the good pairs of the launch are wrong")
+        for what, call in (("flag", lambda: gemm.check_routed_errors("cuda")),
+                           ("check=True", lambda: gemm.wna16_routed_matmul(
+                               x, sel, sql.qweight, sql.scales, sql.zeros, 128))):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise SmokeFailure(f"K9 expert id {bad}: {what} raised no ValueError")
+    print("K9 bad expert ids (-1 and E): the pair's row is left as it was, the other pairs of "
+          "the launch are right, the flag is set and check=True raises ValueError", flush=True)
 
 
 def boundary_cost(torch, np) -> dict:
@@ -1169,7 +1288,10 @@ def phase_beam(torch, np, model) -> dict:
 # model is 4-bit. K10 is wna16_t_kernel<BITS, ...>.
 K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce")
 K10_KEYS = ("wna16_t_kernel",)
-FAMILIES = (("K1 w4a16_gemm", K1_KEYS), ("K2 flash_decode", ("flash_decode",)),
+# K9 is routed_{decode,reduce}_kernel<T>.
+FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
+            ("K9 w4a16_routed_gemm", ("routed_decode", "routed_reduce")),
+            ("K2 flash_decode", ("flash_decode",)),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
 
@@ -1202,7 +1324,7 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
     if not kernels:
         print(f"profile, {label}: torch.profiler recorded no CUDA kernel events; device busy "
               "share not measured", flush=True)
-        return
+        return {}
     busy = sum(families.values())
     device_ms = busy / tokens / 1e3
     print(f"profile, {label} of {tokens} tokens (prefill included): "
@@ -1212,6 +1334,9 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
           f"{wall_us / tokens / 1e3:.3f} ms/token under the profiler (device busy "
           f"{100 * busy / wall_us:.1f}%), {unprofiled_ms_per_token:.3f} ms/token unprofiled "
           f"(device busy about {100 * device_ms / unprofiled_ms_per_token:.1f}%)", flush=True)
+    return dict(device_ms_per_token=device_ms, kernels_per_token=kernels / tokens,
+                wall_ms_per_token=wall_us / tokens / 1e3,
+                **{f"{k} ms_per_token": v / tokens / 1e3 for k, v in families.items()})
 
 
 def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
@@ -1256,9 +1381,208 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
     return rows
 
 
+def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
+    """The Mixtral-8x7B path: write the random 4-bit g128 checkpoint,
+    ``from_quantized`` on the default device, ``stack_moe_experts``, greedy
+    decode twice, a profile, beam 4 over the paged bf16 cache."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import params as params_lib
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.utils.random_checkpoint import MIXTRAL_8X7B, write_random_checkpoint
+
+    cfg = dict(MIXTRAL_8X7B, num_hidden_layers=MIXTRAL_LAYERS)
+    layers, new_tokens = MIXTRAL_LAYERS, MIXTRAL_NEW_TOKENS
+    t0 = time.perf_counter()
+    write_random_checkpoint(ckpt_dir, cfg, bits=4, group_size=128, seed=0)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoGPTQForCausalLM.from_quantized(ckpt_dir)
+    model.params = params_lib.stack_moe_experts(model.params)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(model.device.type == "cuda", "from_quantized did not default to the card")
+    check(all("experts_stacked" in b["mlp"] and "experts" not in b["mlp"]
+              for b in model.params["layers"]), "stack_moe_experts left an expert list")
+    resident = torch.cuda.memory_allocated()
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    warm = model.generate(prompt, max_new_tokens=4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=new_tokens)
+    gen_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = model.generate(prompt, max_new_tokens=new_tokens)
+    again_s = time.perf_counter() - t0
+    steps = new_tokens - 1
+    # prefill: 16 tokens x top-2 = 32 pairs > 8 experts, the dense path (24 K1 per layer);
+    # every decode step: 2 pairs, routed, 3 K9 per layer; attention's 4 projections on K1
+    want = {"w4a16_routed_gemm": 3 * layers * steps, "flash_decode": layers * steps,
+            "w4a16_gemm": (4 + 24) * layers + 4 * layers * steps}
+    new = out[:, PROMPT_LEN:]
+    check(out.shape == (1, PROMPT_LEN + new_tokens), f"Mixtral output shape {out.shape}")
+    check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), "Mixtral token ids out of range")
+    check(np.array_equal(out, again), "Mixtral greedy decode does not repeat its tokens")
+    check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "Mixtral greedy decode is not "
+                                                         "deterministic")
+    for name, n in want.items():
+        check(counts.get(name, 0) == n, f"Mixtral greedy: {name} launched "
+                                        f"{counts.get(name, 0)} times, want {n}")
+    tok_s = new_tokens / gen_s
+    print(f"Mixtral-8x7B 4-bit g128, {layers} layers, 8 experts top-2, batch 1, {PROMPT_LEN}-token "
+          f"prompt, {new_tokens} new tokens greedy, twice with equal tokens: checkpoint written "
+          f"in {write_s:.1f} s, from_quantized + stack_moe_experts {load_s:.1f} s (peak "
+          f"{load_peak / 2**30:.2f} GiB, resident {resident / 2**30:.2f} GiB), generate "
+          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches per decode token: K9 "
+          f"{counts.get('w4a16_routed_gemm', 0) / steps:.0f}, K2 "
+          f"{counts.get('flash_decode', 0) / steps:.0f}, "
+          f"K1 {4 * layers}; launches {counts}", flush=True)
+    profile = profile_generate(torch, model, prompt, 1e3 * gen_s / new_tokens,
+                               "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS)
+
+    build.launches.clear()
+    t0 = time.perf_counter()
+    outb = model.generate(prompt, max_new_tokens=MIXTRAL_BEAM_TOKENS, num_beams=BEAMS)
+    beam_s = time.perf_counter() - t0
+    beam_counts = dict(build.launches)
+    bsteps = MIXTRAL_BEAM_TOKENS - 1
+    need = {"w4a16_routed_gemm": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps,
+            "write_token_pages": layers * bsteps, "copy_pages_pair": bsteps}
+    check(outb.shape == (1, PROMPT_LEN + MIXTRAL_BEAM_TOKENS), f"Mixtral beam shape {outb.shape}")
+    check(bool(((outb[:, PROMPT_LEN:] >= 0) & (outb[:, PROMPT_LEN:] < cfg["vocab_size"])).all()),
+          "Mixtral beam token ids out of range")
+    for name, n in need.items():
+        check(beam_counts.get(name, 0) >= n, f"Mixtral beam: {name} launched "
+                                             f"{beam_counts.get(name, 0)} times, need >= {n}")
+    print(f"Mixtral beam {BEAMS} (8 pairs per step, K9 at P = 8), paged bf16 cache, "
+          f"{MIXTRAL_BEAM_TOKENS} new tokens: {beam_s:.3f} s = "
+          f"{MIXTRAL_BEAM_TOKENS / beam_s:.2f} seq-tok/s, launches {beam_counts}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(layers=layers, write_s=write_s, load_s=load_s, load_peak_bytes=load_peak,
+                resident_bytes=resident, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
+                peak_bytes=peak, counts=counts, tokens=new[0].tolist(), profile=profile,
+                beam_s=beam_s, beam_counts=beam_counts)
+
+
+def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
+    """A 2-layer full-width Mixtral cut: card (f32) against CPU (f32, plain
+    versions) on a prefill and one routed decode step; the share of routing
+    choices a bf16 card run shares with the CPU; one layer's moe_mlp on the
+    card, routed (K9) and dense stacked against the expert list (K1), f32."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.models import params as params_lib
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.utils.random_checkpoint import MIXTRAL_8X7B, write_random_checkpoint
+
+    write_random_checkpoint(ckpt_dir, dict(MIXTRAL_8X7B, num_hidden_layers=2), bits=4,
+                            group_size=128, seed=0)
+    tokens = torch.from_numpy((np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int64))
+    nxt = torch.tensor([[1234]])
+    results, routes, moe = {}, {}, {}
+    real_top_k = arch.top_k
+    for run, device, dtype in (("card f32", "cuda", torch.float32),
+                               ("card bf16", "cuda", torch.bfloat16),
+                               ("cpu", "cpu", torch.float32)):
+        model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=dtype)
+        if run == "card f32":
+            moe = moe_layer_check(torch, arch, params_lib, build, model)
+        model.params = params_lib.stack_moe_experts(model.params)
+        chosen = []
+
+        def recording_top_k(x, k):
+            vals, idx = real_top_k(x, k)
+            chosen.append(idx.reshape(-1, k).sort(dim=-1).values.cpu())
+            return vals, idx
+
+        arch.top_k = recording_top_k
+        try:
+            with torch.inference_mode():
+                cache = arch.KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=dtype,
+                                            device=device)
+                pre, cache = arch.forward(model.params, tokens.to(device), model.cfg, cache=cache)
+                build.launches.clear()
+                dec, _ = arch.forward(model.params, nxt.to(device), model.cfg, cache=cache)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    check(build.launches["w4a16_routed_gemm"] == 3 * 2,
+                          f"{run}: the decode step launched {dict(build.launches)}")
+        finally:
+            arch.top_k = real_top_k
+        results[run] = (pre.float().cpu(), dec.float().cpu())
+        routes[run] = torch.cat(chosen)
+        del model, cache
+        torch.cuda.empty_cache()
+    rows = {}
+    for i, name in enumerate(("prefill", "routed decode step")):
+        card, cpu = results["card f32"][i], results["cpu"][i]
+        check(bool(torch.isfinite(card).all()), f"Mixtral card {name} logits are not finite")
+        rel = ((card - cpu).norm() / cpu.norm()).item()
+        bf16 = results["card bf16"][i]
+        rows[name] = dict(rel_err=rel, max_abs_err=(card - cpu).abs().max().item(),
+                          bf16_rel_err=((bf16 - cpu).norm() / cpu.norm()).item())
+        check(rel <= MIXTRAL_E2E_F32_REL_TOL, f"Mixtral {name} logits: card f32 vs CPU relative "
+                                              f"error {rel:.3e} > {MIXTRAL_E2E_F32_REL_TOL}")
+    shared = {run: (routes[run] == routes["cpu"]).all(dim=-1).float().mean().item()
+              for run in ("card f32", "card bf16")}
+    print(f"Mixtral card (f32, kernels) vs CPU (f32, plain), 2 full-width layers: "
+          + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
+                      for k, v in rows.items())
+          + f" (tol {MIXTRAL_E2E_F32_REL_TOL}); of the CPU's routing choices on "
+          f"{routes['cpu'].shape[0]} (layer, token) pairs the f32 card run shares "
+          f"{100 * shared['card f32']:.1f}%, a bf16 card run {100 * shared['card bf16']:.1f}% "
+          f"(logits rel err "
+          + ", ".join(f"{k} {v['bf16_rel_err']:.3e}" for k, v in rows.items()) + ")", flush=True)
+    return dict(rows=rows, routes_shared=shared, routes=int(routes["cpu"].shape[0]),
+                moe_mlp=moe)
+
+
+def moe_layer_check(torch, arch, params_lib, build, model) -> dict:
+    """Layer 0's moe_mlp on the card in f32: routed (K9, decode shapes) and
+    dense stacked (a 16-token prefill) against the expert list (K1)."""
+    bp = model.params["layers"][0]["mlp"]
+    stacked = params_lib.stack_moe_experts({"layers": [{"mlp": dict(bp)}]})["layers"][0]["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for what, shape in (("routed P=2", (1, 1)), ("routed P=8", (4, 1)), ("dense", (1, 16))):
+        x = torch.randn(shape + (model.cfg.hidden_size,), generator=gen, device="cuda")
+        with torch.inference_mode():
+            build.launches.clear()
+            got = arch.moe_mlp(stacked, x, model.cfg)
+            counts = dict(build.launches)
+            want = arch.moe_mlp(bp, x, model.cfg)
+        torch.cuda.synchronize()
+        routed = what.startswith("routed")
+        check(counts.get("w4a16_routed_gemm", 0) == (3 if routed else 0)
+              and counts.get("w4a16_gemm", 0) == (0 if routed else 24),
+              f"moe_mlp {what}: launched {counts}")
+        err = (got - want).abs().max().item()
+        check(err <= MOE_F32_ABS_TOL, f"moe_mlp {what}: max |stacked - list| = {err:.3e} > "
+                                      f"{MOE_F32_ABS_TOL}")
+        out[what] = dict(max_abs_err=err, max_abs_ref=want.abs().max().item(), launches=counts)
+    print("one layer's moe_mlp on the card, f32, against the expert list (K1): "
+          + ", ".join(f"{k} (launches {v['launches']}) max abs err {v['max_abs_err']:.3e}"
+                      for k, v in out.items()) + f" (tol {MOE_F32_ABS_TOL})", flush=True)
+    return out
+
+
 def layer_sum(rows: list, key: str, m: int = 1) -> float:
     by = {r["case"]: r for r in rows if r["M"] == m}
     return sum(by[name][key] * calls for name, (_, _, calls) in LAYER_SHAPES.items())
+
+
+def mixtral_layer_sum(rows: list, key: str, p: int = 2) -> float:
+    return sum(r[key] * MIXTRAL_SHAPES[r["case"]][2] for r in rows if r["P"] == p)
 
 
 def main() -> int:
@@ -1300,6 +1624,7 @@ def main() -> int:
     k7_rows = timed("K7", phase_k7, torch, timer)
     k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
+    k9_rows = timed("K9", phase_k9, torch, np, timer)
     boundary = boundary_cost(torch, np)
     del timer
     torch.cuda.empty_cache()
@@ -1320,6 +1645,11 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         widths = timed("other widths", phase_other_widths, torch, np, work)
         quantize = timed("quantize", phase_quantize, torch, np, work)
+        shutil.rmtree(work, ignore_errors=True)
+        mixtral = timed("Mixtral", phase_mixtral, torch, np,
+                        os.path.join(work, "mixtral-8x7b-random-g128"))
+        mixtral_cut = timed("Mixtral card vs CPU", phase_mixtral_cpu_vs_card, torch, np,
+                            os.path.join(work, "mixtral-8x7b-random-g128-2layers"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
@@ -1381,12 +1711,26 @@ def main() -> int:
               "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows, k8b_main,
               "4 pages x 32 layers x 2 bf16 pools (one beam-4 step), check=False as on the "
               "beam path; launches from the 512-token beam-4 run"),
+        dict(name="w4a16_routed_gemm", route="cuda",
+             source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
+             replaces="autogptq_tpu/ops/pallas/gemm.py:894",
+             launches=mixtral["counts"].get("w4a16_routed_gemm", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k9_rows),
+             **{key: mixtral_layer_sum(k9_rows, key) for key in
+                ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in k9_rows if r["P"] == 2)
+                       else "operations"),
+             at=f"one Mixtral-8x7B layer's 3 expert projections at P=2 (batch-1 decode, top-2 of "
+                f"8), g128, bf16; library: 2 torch.matmul per call on pre-dequantized bf16 "
+                f"experts; launches from the {MIXTRAL_NEW_TOKENS}-token greedy run at "
+                f"{MIXTRAL_LAYERS} layers; max_abs_err over every K9 case"),
     ]
     elapsed = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
-                       k1=k1_rows, wna16=wna_rows, other_widths=widths, quantize=quantize,
+                       k1=k1_rows, k9=k9_rows, mixtral=mixtral, mixtral_cut=mixtral_cut,
+                       wna16=wna_rows, other_widths=widths, quantize=quantize,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        main_path=launches, beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,

@@ -468,3 +468,99 @@ def test_k10_refuses_operands_and_launches_nothing(card):
                                  torch.arange(1024, device=card, dtype=torch.int32), 64, 4)
     assert build.launches["wna16_gemm_t"] == before
     assert qlin.gemm.wna16_matmul_t(g[:0], *args).shape == (0, 1024)
+
+
+@pytest.fixture(scope="module")
+def expert_stacks():
+    """Stacks of 8 random 4-bit experts, keyed by (K, N, group size): Mixtral's
+    4096 x 14336 and 14336 x 4096 at g128, and 1024 x 1000 at g32 (N % 512 != 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return {(k, n, gs): qlin.stack_experts([_layer(7 * e + k, k, n, gs) for e in range(8)])
+            for k, n, gs in ((4096, 14336, 128), (14336, 4096, 128), (1024, 1000, 32))}
+
+
+K9_SELS = {1: [5], 2: [3, 6], 8: [0, 7, 7, 2, 0, 5, 1, 7]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 2, 8])
+@pytest.mark.parametrize("shape", [(4096, 14336, 128), (14336, 4096, 128), (1024, 1000, 32)])
+def test_k9_matches_plain(card, expert_stacks, dtype, p, shape):
+    """K9 (routed-expert GEMV) at the decode pair counts of Mixtral (P = 2 at
+    batch 1, P = 8 at beam 4, with repeated experts)."""
+    from autogptq_tpu_torch.ops import gemm
+
+    sql = expert_stacks[shape]
+    k = shape[0]
+    x = torch.randn((p, k), generator=torch.Generator(card).manual_seed(p + k), device=card,
+                    dtype=dtype)
+    sel = torch.tensor(K9_SELS[p], dtype=torch.int32, device=card)
+    before = build.launches[gemm.ROUTED_KERNEL]
+    y = qlin.matmul_routed(x, sql, sel)
+    assert build.launches[gemm.ROUTED_KERNEL] == before + 1
+    ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros,
+                                       sql.group_size)
+    torch.cuda.synchronize()
+    assert y.shape == (p, shape[1]) and y.dtype == dtype
+    if dtype == torch.float32:
+        # f32 weights and accumulation on both sides: summation order only
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    else:
+        # one bf16 rounding on both sides: 1% of the largest output
+        assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
+def test_k9_bad_expert_ids_write_nothing_and_raise(card, expert_stacks):
+    from autogptq_tpu_torch.ops import gemm
+
+    sql = expert_stacks[(1024, 1000, 32)]
+    x = torch.randn((3, 1024), generator=torch.Generator(card).manual_seed(9), device=card)
+    for bad in (-1, 8):
+        sel = torch.tensor([2, bad, 6], dtype=torch.int32, device=card)
+        out = torch.full((3, 1000), 7.0, device=card)
+        gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 32, check=False,
+                                 out=out)
+        torch.cuda.synchronize()
+        assert bool((out[1] == 7.0).all())
+        good = torch.tensor([0, 2], device=card)
+        ref = gemm.wna16_routed_matmul_ref(x[good], sel[good], sql.qweight, sql.scales,
+                                           sql.zeros, 32)
+        torch.testing.assert_close(out[good], ref, rtol=1e-5, atol=1e-4)
+        with pytest.raises(ValueError, match="expert id"):
+            gemm.check_routed_errors(card)
+        gemm.check_routed_errors(card)          # the flag was cleared
+        with pytest.raises(ValueError, match="expert id"):
+            gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 32)
+    with pytest.raises(ValueError, match="sel must be"):
+        gemm.wna16_routed_matmul(x, torch.tensor([1, 2, 3], device=card), sql.qweight,
+                                 sql.scales, sql.zeros, 32)
+
+
+def test_tiny_mixtral_card_matches_cpu(card, tmp_path):
+    """A tiny random Mixtral on the card (f32, K9 for routed decode, K1 for
+    the dense prefill) against the CPU's plain versions: logits and greedy
+    and beam-4 tokens."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import params as params_lib
+
+    cfg = dict(model_type="mixtral", vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+               num_local_experts=8, num_experts_per_tok=2, rms_norm_eps=1e-5, rope_theta=1e6,
+               hidden_act="silu", tie_word_embeddings=False, sliding_window=None)
+    path = write_random_checkpoint(str(tmp_path), cfg, bits=4, group_size=32, seed=2)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = AutoGPTQForCausalLM.from_quantized(path, device=dev, dtype=torch.float32)
+        m.params = params_lib.stack_moe_experts(m.params)
+        models[dev] = m
+    tokens = np.random.default_rng(0).integers(1, 512, size=(2, 12))
+    torch.testing.assert_close(models["cuda"].forward(tokens).cpu(), models["cpu"].forward(tokens),
+                               rtol=1e-4, atol=1e-4)
+    prompt = tokens[:1, :6]
+    build.launches.clear()
+    got = models["cuda"].generate(prompt, max_new_tokens=8)
+    assert build.launches["w4a16_routed_gemm"] == 3 * 2 * 7
+    np.testing.assert_array_equal(got, models["cpu"].generate(prompt, max_new_tokens=8))
+    np.testing.assert_array_equal(models["cuda"].generate(prompt, max_new_tokens=6, num_beams=4),
+                                  models["cpu"].generate(prompt, max_new_tokens=6, num_beams=4))

@@ -30,7 +30,7 @@ def _problem(seed, n=24, k=128, batches=2, dead=()):
 
 def _hessians(xs, k):
     jh, jn = jg.hessian_init(k)
-    th, tn = tg.hessian_init(k)
+    th, tn = tg.hessian_init(k, device="cpu")
     for x in xs:
         jh, jn = jg.hessian_update(jh, jn, jnp.asarray(x))
         th, tn = tg.hessian_update(th, tn, torch.from_numpy(x))
