@@ -153,10 +153,14 @@ class GPTQModel:
         return cls(params, cfg, spec, qc, dev, dtype, quantized=False)
 
     @classmethod
-    def from_quantized(cls, model_dir: str, device="cuda",
-                       dtype: torch.dtype = torch.bfloat16) -> "GPTQModel":
+    def from_quantized(cls, model_dir: str, device="cuda", dtype: torch.dtype = torch.bfloat16,
+                       layout: Optional[str] = None) -> "GPTQModel":
         """Load a local GPTQ checkpoint directory (``config.json``,
-        ``quantize_config.json``, safetensors) onto ``device``."""
+        ``quantize_config.json``, safetensors) onto ``device``. ``layout``
+        ``"kb32l"`` loads every quantized linear into the tile-contiguous
+        layout of K6 (3- and 4-bit checkpoints whose group size divides 256),
+        as the JAX package's ``from_packed(layout="kb32l")``; the default keeps
+        GPTQ's words (K1/K4/K5)."""
         dev = resolve_device(device)
         hf_cfg = hf_io.load_hf_config(model_dir)
         spec = get_family(hf_cfg["model_type"], hf_cfg)
@@ -169,7 +173,7 @@ class GPTQModel:
         qc.model_name_or_path = model_dir
         tensors = hf_io.open_tensors(model_dir, qc.model_file_base_name)
         params = params_lib.build_quantized_params(
-            tensors, spec, cfg, qc.bits, qc.group_size, dtype=dtype, device=dev)
+            tensors, spec, cfg, qc.bits, qc.group_size, dtype=dtype, device=dev, layout=layout)
         return cls(params, cfg, spec, qc, dev, dtype)
 
     # ------------------------------------------------------------------

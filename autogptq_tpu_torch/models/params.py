@@ -19,7 +19,7 @@ path components index lists) and its router the dense ``mlp.router``.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -113,8 +113,9 @@ def build_fp_params(tensors, spec: FamilySpec, cfg: ArchConfig,
 
 def build_quantized_params(tensors, spec: FamilySpec, cfg: ArchConfig, bits: int,
                            group_size: int, dtype: torch.dtype = torch.bfloat16,
-                           device="cuda") -> dict:
-    """``tensors`` maps checkpoint names to CPU tensors or arrays."""
+                           device="cuda", layout: Optional[str] = None) -> dict:
+    """``tensors`` maps checkpoint names to CPU tensors or arrays; ``layout``
+    is every quantized linear's runtime layout (``quantlinear.from_packed``)."""
     quant_paths = {p for sub in spec.quant_layers for p in sub}
     if spec.lm_head is not None and f"{spec.lm_head}.qweight" in tensors:
         raise NotImplementedError("a quantized lm_head is not ported yet (ROADMAP Queue 1, "
@@ -143,7 +144,8 @@ def build_quantized_params(tensors, spec: FamilySpec, cfg: ArchConfig, bits: int
                     in_features=k,
                     out_features=qweight.shape[1],
                 )
-                set_in_block(block, our, qlin.from_packed(packed, device=device, dtype=dtype))
+                set_in_block(block, our, qlin.from_packed(packed, device=device, dtype=dtype,
+                                                          layout=layout))
             else:
                 set_in_block(block, our, _dense_named(tensors, base, device, dtype))
         _norms(tensors, spec, prefix, block, device, dtype)

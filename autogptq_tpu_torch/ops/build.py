@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_routed_gemm",
-           "flash_decode", "paged_attn", "page_ops")
+           "w4a16_kb32l_gemm", "flash_decode", "paged_attn", "page_ops")
 
 launches: collections.Counter = collections.Counter()
 _flags: dict = {}       # (library, device) -> int32 [1] error flag on the card

@@ -41,7 +41,9 @@
 //    into shared memory as f32 next to a 64 x 32 f32 tile of x; each of 256 threads
 //    accumulates a 4 x 4 block of outputs in f32. The weight is never rounded below f32, so
 //    an f32 model computes at f32 in both regimes. Tensor cores (mma.sync / wgmma) and TMA
-//    are later work.
+//    are later work. The kernel takes the word address as a functor (GptqWords here,
+//    Kb32lWords of kb32l_tile.cuh for K6) and the row stride of scales and zeros, so K6's
+//    tile regime is this kernel over the tile-contiguous words.
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
@@ -195,12 +197,21 @@ splitk_reduce_kernel(const float* __restrict__ partial, const T* __restrict__ bi
     out[i] = from_f32<T>(v);
 }
 
-template <int BITS, typename T>
+// GPTQ's K-packed words [K/P, N]: word row kw of column n.
+struct GptqWords {
+    int n;     // row stride in words
+    __device__ __forceinline__ int64_t operator()(int kw, int col) const {
+        return (int64_t)kw * n + col;
+    }
+};
+
+// Words are read at words(kw, n); scales and zeros are [G, ldsz] (ldsz >= N).
+template <int BITS, typename T, typename Words>
 __global__ void __launch_bounds__(PF_THREADS)
 wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                      const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                      const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
-                     T* __restrict__ out, int M, int K, int N, int gs) {
+                     T* __restrict__ out, int M, int K, int N, int gs, Words words, int ldsz) {
     constexpr int P = 32 / BITS;   // codes per word
     __shared__ __align__(16) float xs[PF_BK][PF_BM];
     __shared__ __align__(16) float ws[PF_BK][PF_BN];
@@ -234,10 +245,10 @@ wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             const int kw = kt / P + r;
             const int n = n0 + c;
             if (kw < kwords && n < N) {
-                const uint32_t w = (uint32_t)qweight[(int64_t)kw * N + n];
+                const uint32_t w = (uint32_t)qweight[words(kw, n)];
                 const int g = (kw * P) / gs;
-                const float s = __half2float(scales[(int64_t)g * N + n]);
-                const float zb = MAGIC + (float)zeros[(int64_t)g * N + n];
+                const float s = __half2float(scales[(int64_t)g * ldsz + n]);
+                const float zb = MAGIC + (float)zeros[(int64_t)g * ldsz + n];
 #pragma unroll
                 for (int j = 0; j < P; ++j)
                     ws[r * P + j][c] = code_minus_zero<BITS>(w, j, zb) * s;
@@ -311,9 +322,9 @@ cudaError_t launch(const void* x, const int64_t* kperm, const int32_t* qweight,
     if (M <= 16)
         return launch_decode<BITS, T, 16>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
     const dim3 grid((N + PF_BN - 1) / PF_BN, (M + PF_BM - 1) / PF_BM);
-    wna16_prefill_kernel<BITS, T><<<grid, PF_THREADS, 0, stream>>>(
+    wna16_prefill_kernel<BITS, T, GptqWords><<<grid, PF_THREADS, 0, stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), M, K, N, gs);
+        static_cast<T*>(out), M, K, N, gs, GptqWords{N}, N);
     return cudaGetLastError();
 }
 

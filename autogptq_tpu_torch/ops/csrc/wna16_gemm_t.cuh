@@ -13,7 +13,11 @@
 // Weight layout: as the forward kernels (wna16_gemm.cuh), GPTQ's own K-packed words with
 // P = 32 / BITS codes per word, fp16 scales [G, N], uint8 effective zeros [G, N], and kperm
 // int64 [K] or null. kperm is a permutation (ops/quantlinear.py:group_order), so sorted row k
-// of the product is dx column kperm[k]: a plain store, no scatter-add and no atomics.
+// of the product is dx column kperm[k]: a plain store, no scatter-add and no atomics. The
+// kernel reads words through an address functor and scales and zeros with a row stride, so
+// it also runs over the tile-contiguous kb32l words of K6 (kb32l_tile.cuh: Kb32lWords,
+// scales and zeros [G_pad, N_pad]); that entry replaces the backward of the JAX kb32l layout,
+// which has no transpose kernel of its own (the JAX package dequantizes it through XLA).
 //
 // Bound on the H100: at the training shape (M = 2048 rows of a 4 x 512 batch) the kernel is
 // bound by operations, 2*M*K*N flops: a 4096x4096 projection takes at least 0.0695 ms at
@@ -40,6 +44,7 @@
 
 #pragma once
 
+#include "kb32l_tile.cuh"
 #include "wna16_gemm.cuh"
 
 namespace {
@@ -50,12 +55,12 @@ constexpr int T_BN = 32;        // N, the reduction, per shared-memory stage
 constexpr int T_PAD = 4;        // keeps rows 16-byte aligned for float4 reads
 constexpr int T_THREADS = 256;
 
-template <int BITS, typename T>
+template <int BITS, typename T, typename Words>
 __global__ void __launch_bounds__(T_THREADS)
 wna16_t_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
                const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                const uint8_t* __restrict__ zeros, T* __restrict__ dx, int M, int K, int N,
-               int gs) {
+               int gs, Words words, int ldsz) {
     constexpr int P = 32 / BITS;       // codes per word
     constexpr int WR = T_BK / P;       // word rows per K tile
     __shared__ __align__(16) float gsm[T_BN][T_BM + T_PAD];
@@ -86,10 +91,10 @@ wna16_t_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
             const int kw = kw0 + r;
             const int n = nt + c;
             if (kw < kwords && n < N) {
-                const uint32_t w = (uint32_t)qweight[(int64_t)kw * N + n];
+                const uint32_t w = (uint32_t)qweight[words(kw, n)];
                 const int grp = (kw * P) / gs;
-                const float s = __half2float(scales[(int64_t)grp * N + n]);
-                const float zb = MAGIC + (float)zeros[(int64_t)grp * N + n];
+                const float s = __half2float(scales[(int64_t)grp * ldsz + n]);
+                const float zb = MAGIC + (float)zeros[(int64_t)grp * ldsz + n];
 #pragma unroll
                 for (int j = 0; j < P; ++j) wsm[c][r * P + j] = code_minus_zero<BITS>(w, j, zb) * s;
             } else {
@@ -124,15 +129,36 @@ wna16_t_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
     }
 }
 
-template <int BITS, typename T>
+template <int BITS, typename T, typename Words>
 cudaError_t launch_t(const void* g, const int64_t* kperm, const int32_t* qweight,
                      const __half* scales, const uint8_t* zeros, void* dx, int M, int K, int N,
-                     int gs, cudaStream_t stream) {
+                     int gs, Words words, int ldsz, cudaStream_t stream) {
     const dim3 grid((K + T_BK - 1) / T_BK, (M + T_BM - 1) / T_BM);
-    wna16_t_kernel<BITS, T><<<grid, T_THREADS, 0, stream>>>(
+    wna16_t_kernel<BITS, T, Words><<<grid, T_THREADS, 0, stream>>>(
         static_cast<const T*>(g), kperm, qweight, scales, zeros, static_cast<T*>(dx), M, K, N,
-        gs);
+        gs, words, ldsz);
     return cudaGetLastError();
+}
+
+template <int BITS, typename Words>
+int launch_t_dtype(const void* g, const int64_t* kperm, const int32_t* qweight,
+                   const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
+                   int N, int gs, Words words, int ldsz, void* stream) {
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F32:
+            return (int)launch_t<BITS, float>(g, kperm, qweight, s, zeros, dx, M, K, N, gs,
+                                              words, ldsz, st);
+        case DT_F16:
+            return (int)launch_t<BITS, __half>(g, kperm, qweight, s, zeros, dx, M, K, N, gs,
+                                               words, ldsz, st);
+        case DT_BF16:
+            return (int)launch_t<BITS, __nv_bfloat16>(g, kperm, qweight, s, zeros, dx, M, K, N,
+                                                      gs, words, ldsz, st);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 template <int BITS>
@@ -143,19 +169,21 @@ int wna16_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,
     if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % P != 0 ||
         (M + T_BM - 1) / T_BM > 65535)
         return (int)cudaErrorInvalidValue;
-    const __half* s = static_cast<const __half*>(scales);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case DT_F32:
-            return (int)launch_t<BITS, float>(g, kperm, qweight, s, zeros, dx, M, K, N, gs, st);
-        case DT_F16:
-            return (int)launch_t<BITS, __half>(g, kperm, qweight, s, zeros, dx, M, K, N, gs, st);
-        case DT_BF16:
-            return (int)launch_t<BITS, __nv_bfloat16>(g, kperm, qweight, s, zeros, dx, M, K, N,
-                                                      gs, st);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return launch_t_dtype<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
+                                GptqWords{N}, N, stream);
+}
+
+// K10 over K6's kb32l words: 4-bit storage, n_pad the padded width of scales and zeros.
+int kb32l_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,
+                 const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
+                 int N, int n_pad, int gs, void* stream) {
+    if (M <= 0 || K <= 0 || N <= 0 || gs < 32 || KB32L_KB % gs != 0 || gs % 32 != 0 ||
+        K % gs != 0 || n_pad % KB32L_BN != 0 || n_pad < N || n_pad - N >= KB32L_BN ||
+        (M + T_BM - 1) / T_BM > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int nbk = (K + KB32L_KB - 1) / KB32L_KB;
+    return launch_t_dtype<4>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
+                             Kb32lWords{nbk}, n_pad, stream);
 }
 
 }  // namespace

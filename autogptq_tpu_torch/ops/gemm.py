@@ -28,10 +28,21 @@ K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 ``wna16_routed_matmul`` launches it for CUDA tensors and runs
 ``wna16_routed_matmul_ref`` for CPU tensors.
 
+K6, K1's function over the tile-contiguous ``kb32l`` words
+(``csrc/w4a16_kb32l_gemm.cu``, address in ``csrc/kb32l_tile.cuh``), replaces
+the TPU kernels ``_matmul_kb32l`` and ``_kernel_kb32l_manual``.
+``w4a16_kb32l_matmul`` launches it for CUDA tensors and runs
+``w4a16_kb32l_matmul_ref`` for CPU tensors; ``wna16_matmul_t`` takes the same
+words for K10.
+
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
 ``scales`` fp16 [G, N], ``zeros`` uint8 [G, N] effective zero points,
 ``kperm`` int64 [K] or None (desc_act: sorted row k reads ``x[..., kperm[k]]``).
+The kb32l layout (``quantlinear.kb32l_pack``) keeps the 4-bit words of K rows
+padded to ``KB32L_KB`` and columns padded to ``KB32L_BN`` as tiles
+``qweight`` int32 [N_pad/128 * K_pad/256, 32, 128], column tile first, with
+``scales`` and ``zeros`` [K_pad/gs, N_pad] zero on the padding.
 """
 
 from __future__ import annotations
@@ -50,6 +61,14 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 DECODE_MAX_M = 16       # rows at or below this take the split-K GEMV kernel
 DECODE_THREADS = 128    # decode block size, 4 output columns per thread
 MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 512 * 4 B
+
+
+KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
+KB32L_T_ENTRY = "w4a16_kb32l_gemm_t"  # K10's entry over kb32l words (library T_KERNEL)
+KB32L_KB = 256          # K rows per tile (csrc/kb32l_tile.cuh)
+KB32L_BN = 128          # columns per tile
+KB32L_NBUF = 4          # K6's ring of shared-memory stages
+KB32L_X_SMEM = 32768    # bytes of f32 x a K6 decode block may stage: bounds its K run
 
 
 def unpack_words(qweight: torch.Tensor, bits: int) -> torch.Tensor:
@@ -223,16 +242,53 @@ def _lib_t(bits: int):
     return fn
 
 
+def _lib_t_kb32l():
+    fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k) -> torch.Tensor:
+    """K10 over kb32l words (see :func:`wna16_matmul_t`)."""
+    n = g2d.shape[1]
+    if g2d.device.type == "cpu":
+        gs = k if group_size == -1 else group_size
+        words, s, z = kb32l_as_gptq(qweight, scales, zeros, k, n, gs)
+        return wna16_matmul_t_ref(g2d, words, s, z, kperm, gs, 4)
+    if g2d.device.type != "cuda":
+        raise ValueError(f"{T_KERNEL} runs on CUDA or, through its plain version, on the CPU; "
+                         f"got a tensor on {g2d.device}")
+    gs = _check_kb32l(g2d, qweight, scales, zeros, kperm, None, group_size, k, n,
+                      transpose=True)
+    m = g2d.shape[0]
+    dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
+    if m == 0:
+        return dx
+    code = _lib_t_kb32l()(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                          _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, scales.shape[1], gs,
+                          ctypes.c_void_p(torch.cuda.current_stream(g2d.device).cuda_stream))
+    build.check(T_KERNEL, code)
+    build.launches[T_KERNEL] += 1
+    return dx
+
+
 def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                    zeros: torch.Tensor, kperm: Optional[torch.Tensor], group_size: int,
-                   bits: int) -> torch.Tensor:
+                   bits: int, k: Optional[int] = None) -> torch.Tensor:
     """K10: ``dx = g2d [M, N] @ W^T -> [M, K]`` in ``g2d``'s dtype for
     ``bits``-bit words (2, 4 or 8), with ``kperm`` undone (dx column
     ``kperm[k]`` takes sorted row ``k``; ``kperm`` must be a permutation, as
-    ``quantlinear.group_order`` makes it). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    ``quantlinear.group_order`` makes it). 3-D ``qweight`` is K6's kb32l
+    tiles (4-bit), whose padding hides K: ``k`` gives it. A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     if bits not in T_ENTRIES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
+    if qweight.dim() == 3:
+        if bits != 4 or k is None:
+            raise ValueError(f"kb32l words hold 4-bit codes and need k, got bits={bits}, k={k}")
+        return _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k)
     if g2d.device.type == "cpu":
         return wna16_matmul_t_ref(g2d, qweight, scales, zeros, kperm, group_size, bits)
     if g2d.device.type != "cuda":
@@ -251,6 +307,158 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     build.check(T_KERNEL, code)
     build.launches[T_KERNEL] += 1
     return dx
+
+
+def kb32l_delinearize(qweight: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """kb32l tiles ``[N_pad/128 * K_pad/256, 32, 128]`` -> the GPTQ words
+    ``[K/8, N]`` they hold (tile ``(j, kb)`` is word rows ``32 kb..`` of
+    columns ``128 j..``), padding cut."""
+    nbn = -(-n // KB32L_BN)
+    nbk = qweight.shape[0] // nbn
+    words = qweight.reshape(nbn, nbk * qweight.shape[1], KB32L_BN).permute(1, 0, 2)
+    return words.reshape(nbk * qweight.shape[1], nbn * KB32L_BN)[:k // 8, :n]
+
+
+def kb32l_as_gptq(qweight, scales, zeros, k: int, n: int, gs: int):
+    """GPTQ words ``[K/8, N]``, scales and zeros ``[G, N]`` of kb32l operands
+    (views where the padding allows)."""
+    g = k // gs
+    return kb32l_delinearize(qweight, k, n), scales[:g, :n], zeros[:g, :n]
+
+
+def kb32l_shape_ok(k: int, gs: int) -> bool:
+    """The kb32l rule of the JAX package (``quantlinear.py:380-390``): a group
+    size dividing 256, a multiple of 32, dividing K, so every tile holds
+    whole groups and no word straddles two."""
+    return gs <= KB32L_KB and KB32L_KB % gs == 0 and gs % 32 == 0 and k % gs == 0
+
+
+def w4a16_kb32l_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                           zeros: torch.Tensor, kperm: Optional[torch.Tensor],
+                           bias: Optional[torch.Tensor], group_size: int,
+                           n: int) -> torch.Tensor:
+    """Plain version of K6: de-linearize the kb32l tiles, then K1's plain
+    version (the JAX ``matmul_xla`` of a kb32l node, ``dequantize_xla``'s
+    de-linearize at ``quantlinear.py:575-583``)."""
+    k = x2d.shape[1]
+    gs = k if group_size == -1 else group_size
+    words, s, z = kb32l_as_gptq(qweight, scales, zeros, k, n, gs)
+    return wna16_matmul_ref(x2d, words, s, z, kperm, bias, gs, 4)
+
+
+def kb32l_plan(k: int, n: int, m: int, group_size: int, sms: int) -> dict:
+    """K6's launch at ``m`` rows: for the decode regime (``m <= 16``) tiles
+    per K split and splits, enough blocks for about two per SM (as
+    :func:`split_k` sizes K1) with the f32 x stage of a block within
+    ``KB32L_X_SMEM``; the blocks, a stage's and a block's shared-memory bytes."""
+    gs = k if group_size == -1 else group_size
+    nbk = -(-k // KB32L_KB)
+    nbn = -(-n // KB32L_BN)
+    stage = KB32L_KB * KB32L_BN // 2 + (KB32L_KB // gs) * KB32L_BN * 3
+    if m > DECODE_MAX_M:
+        return dict(regime="tile", nbk=nbk, nbn=nbn, tiles_per_split=0, splits=0,
+                    blocks=-(-n // 64) * -(-m // 64), stage_bytes=stage, smem_bytes=0)
+    mt = 1 << (m - 1).bit_length()
+    cap = max(1, KB32L_X_SMEM // (mt * KB32L_KB * 4))
+    want = max(1, -(-2 * sms // nbn))
+    tps = min(cap, -(-nbk // want))
+    splits = -(-nbk // tps)
+    return dict(regime="decode", nbk=nbk, nbn=nbn, tiles_per_split=tps, splits=splits,
+                blocks=nbn * splits, stage_bytes=stage,
+                smem_bytes=KB32L_NBUF * stage + 4 * mt * tps * KB32L_KB)
+
+
+def _check_kb32l(x2d, qweight, scales, zeros, kperm, bias, group_size, k, n,
+                 transpose: bool = False) -> int:
+    """Raise on kb32l operands K6 (or, with ``transpose``, K10) does not
+    take; ``x2d`` is ``x [M, K]`` or the cotangent ``g [M, N]``. Returns the
+    group size in rows."""
+    what = "g" if transpose else "x"
+    if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.dtype not in DTYPE_CODES:
+        raise ValueError(f"{what} must be a contiguous 2-D f32/f16/bf16 tensor, got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    if x2d.shape[1] != (n if transpose else k):
+        raise ValueError(f"{what} must be [M, {n if transpose else k}], got {tuple(x2d.shape)}")
+    gs = k if group_size == -1 else group_size
+    if not kb32l_shape_ok(k, gs):
+        raise NotImplementedError(f"kb32l needs a group size dividing {KB32L_KB}, a multiple "
+                                  f"of 32 and dividing K (K={k}, group size={gs})")
+    nbk, nbn = -(-k // KB32L_KB), -(-n // KB32L_BN)
+    g_pad, n_pad = nbk * KB32L_KB // gs, nbn * KB32L_BN
+    if qweight.dtype != torch.int32 or tuple(qweight.shape) != (nbn * nbk, KB32L_KB // 8,
+                                                                 KB32L_BN):
+        raise ValueError(f"qweight must be int32 kb32l tiles [{nbn * nbk}, {KB32L_KB // 8}, "
+                         f"{KB32L_BN}], got {tuple(qweight.shape)} {qweight.dtype}")
+    if scales.dtype != torch.float16 or tuple(scales.shape) != (g_pad, n_pad):
+        raise ValueError(f"scales must be fp16 [{g_pad}, {n_pad}], got {tuple(scales.shape)} "
+                         f"{scales.dtype}")
+    if zeros.dtype != torch.uint8 or tuple(zeros.shape) != (g_pad, n_pad):
+        raise ValueError(f"zeros must be uint8 [{g_pad}, {n_pad}], got {tuple(zeros.shape)} "
+                         f"{zeros.dtype}")
+    if kperm is not None and (kperm.dtype != torch.int64 or tuple(kperm.shape) != (k,)):
+        raise ValueError(f"kperm must be int64 [{k}], got {tuple(kperm.shape)} {kperm.dtype}")
+    if bias is not None and (bias.dtype != x2d.dtype or tuple(bias.shape) != (n,)):
+        raise ValueError(f"bias must be {x2d.dtype} [{n}], got {tuple(bias.shape)} {bias.dtype}")
+    for name, t in (("qweight", qweight), ("scales", scales), ("zeros", zeros),
+                    ("kperm", kperm), ("bias", bias)):
+        if t is None:
+            continue
+        if t.device != x2d.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {x2d.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return gs
+
+
+def _lib_kb32l():
+    fn = getattr(build.load(KB32L_KERNEL), KB32L_KERNEL)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kb32l_blocks_per_sm(dtype: torch.dtype, m: int, group_size: int, tiles_per_split: int) -> int:
+    """How many K6 decode blocks fit on one SM at once (the CUDA occupancy
+    calculator over the kernel's registers and shared memory)."""
+    fn = getattr(build.load(KB32L_KERNEL), "w4a16_kb32l_gemm_occupancy")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    build.check(KB32L_KERNEL, fn(DTYPE_CODES[dtype], m, group_size, tiles_per_split,
+                                 ctypes.byref(blocks)))
+    return blocks.value
+
+
+def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                       zeros: torch.Tensor, kperm: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor], group_size: int, n: int) -> torch.Tensor:
+    """K6: ``x2d [M, K] @ W -> [M, n]`` in ``x2d``'s dtype over kb32l words
+    (4-bit storage: 3- and 4-bit layers). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    if x2d.device.type == "cpu":
+        return w4a16_kb32l_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, n)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"{KB32L_KERNEL} runs on CUDA or, through its plain version, on the "
+                         f"CPU; got a tensor on {x2d.device}")
+    m, k = x2d.shape
+    gs = _check_kb32l(x2d, qweight, scales, zeros, kperm, bias, group_size, k, n)
+    out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
+    if m == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    plan = kb32l_plan(k, n, m, gs, sms)
+    partial = None
+    if plan["splits"] > 1:
+        partial = torch.empty((plan["splits"], m, n), dtype=torch.float32, device=x2d.device)
+    code = _lib_kb32l()(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                        _ptr(bias), _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n,
+                        scales.shape[1], gs, plan["tiles_per_split"], plan["splits"],
+                        ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
+    build.check(KB32L_KERNEL, code)
+    build.launches[KB32L_KERNEL] += 1
+    return out
 
 
 def wna16_routed_matmul_ref(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Tensor,
@@ -406,5 +614,7 @@ __all__ = [
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
-    "check_routed_errors",
+    "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
+    "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
+    "w4a16_kb32l_matmul", "w4a16_kb32l_matmul_ref",
 ]

@@ -14,16 +14,22 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
   activation column (the TPU layouts of the JAX package are not carried
   over). Scales stay fp16 ``[G, N]`` as on disk; zero points become the
   effective uint8 ``[G, N]`` (for 3 bits up to 8, never re-masked).
-* :func:`matmul` runs the kernel of the storage width (``ops/gemm.py``: K1
-  for 3 and 4 bits, K4 for 8, K5 for 2) for a CUDA tensor and its plain
-  version for a CPU tensor. It is differentiable in ``x`` on both routes
-  through :class:`QuantMatmul`, whose backward is :func:`matmul_t` (K10 on
-  the card); the weights get no gradient, as the JAX custom VJP gives them
-  zero cotangents.
+* ``from_packed(..., layout="kb32l")`` builds the tile-contiguous layout
+  instead (:func:`kb32l_pack`, 3- and 4-bit layers, the JAX package's kb32l
+  shape rule): the same 4-bit words cut into contiguous 256-row by
+  128-column tiles, column tile first, which K6 streams through a
+  multi-stage async-copy ring.
+* :func:`matmul` runs the kernel of the layout and storage width
+  (``ops/gemm.py``: K1 for 3 and 4 bits, K4 for 8, K5 for 2, K6 for kb32l)
+  for a CUDA tensor and its plain version for a CPU tensor. It is
+  differentiable in ``x`` on both routes through :class:`QuantMatmul`, whose
+  backward is :func:`matmul_t` (K10 on the card); the weights get no
+  gradient, as the JAX custom VJP gives them zero cotangents.
 * :class:`StackedQuantLinear` (:func:`stack_experts`) holds an MoE block's
   experts on a leading axis; :func:`matmul_stacked` applies every expert
   (dense prefill) and :func:`matmul_routed` one expert per row (K9 on the
-  card, the top-k decode product).
+  card, the top-k decode product; differentiable in ``x`` through
+  :class:`RoutedMatmul`, K10 per selected expert on the card).
 * :func:`pack_from_solver` turns the GPTQ solver's outputs into checkpoint
   tensors.
 """
@@ -56,7 +62,9 @@ class PackedQuantLinear:
 
 @dataclass
 class QuantLinear:
-    """Runtime layout. Rows are in group-sorted order when ``kperm`` is set."""
+    """Runtime layout. Rows are in group-sorted order when ``kperm`` is set.
+    With ``layout == "kb32l"`` the words are tiles ``[N_pad/128 * K_pad/256,
+    32, 128]`` and scales and zeros ``[K_pad/gs, N_pad]`` (:func:`kb32l_pack`)."""
 
     qweight: torch.Tensor          # int32 [K * storage_bits / 32, N] words
     scales: torch.Tensor           # fp16  [G, N]
@@ -67,6 +75,7 @@ class QuantLinear:
     group_size: int = -1
     in_features: int = 0
     out_features: int = 0
+    layout: str = "gptq"           # "gptq" (K1/K4/K5) or "kb32l" (K6)
 
 
 STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
@@ -107,14 +116,57 @@ def check_card_shape(bits: int, k: int, n: int, group_size: int) -> None:
             f"other shapes wait for ROADMAP Queue 2, {'K5' if bits == 2 else 'K4'}")
 
 
-def from_packed(packed: PackedQuantLinear, device="cuda",
-                dtype: torch.dtype = torch.bfloat16) -> QuantLinear:
-    """Build the runtime layout on ``device`` from checkpoint tensors."""
+def check_kb32l_shape(bits: int, k: int, group_size: int) -> None:
+    """Raise ValueError for a layer the kb32l layout does not take: the JAX
+    package's rule (``autogptq_tpu/ops/quantlinear.py:380-390``), 3- and 4-bit
+    codes only."""
+    gs = group_size if group_size != -1 else k
+    if bits not in (3, 4):
+        raise ValueError(f"kb32l holds 3- and 4-bit codes, got bits={bits}")
+    if not gemm.kb32l_shape_ok(k, gs):
+        raise ValueError(f"kb32l requires group_size | 256, group_size % 32 == 0 and "
+                         f"group-aligned K (got K={k}, gs={gs})")
+
+
+def kb32l_pack(words: torch.Tensor, scales: torch.Tensor, zeros: torch.Tensor, k: int,
+               group_size: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kb32l layout of 4-bit GPTQ words ``[K/8, N]`` of the sorted rows with
+    fp16 scales and uint8 zeros ``[G, N]``, on their device: K padded to 256
+    rows and N to 128 columns with zero words, scales and zeros, the words cut
+    into ``[32, 128]`` tiles, tile ``(j, kb)`` at ``j * K_pad/256 + kb``.
+    Returns ``(words [N_pad/128 * K_pad/256, 32, 128], scales [K_pad/gs,
+    N_pad], zeros [K_pad/gs, N_pad])``."""
+    n = words.shape[1]
+    gs = group_size if group_size != -1 else k
+    kb, bn = gemm.KB32L_KB, gemm.KB32L_BN
+    k_pad, n_pad = -(-k // kb) * kb, -(-n // bn) * bn
+
+    def pad(a, rows):
+        out = a.new_zeros((rows, n_pad))
+        out[:a.shape[0], :n] = a
+        return out
+
+    tiles = pad(words, k_pad // 8).view(k_pad // 8, n_pad // bn, bn).permute(1, 0, 2)
+    return (tiles.contiguous().view(-1, kb // 8, bn), pad(scales, k_pad // gs),
+            pad(zeros, k_pad // gs))
+
+
+def from_packed(packed: PackedQuantLinear, device="cuda", dtype: torch.dtype = torch.bfloat16,
+                layout: Optional[str] = None) -> QuantLinear:
+    """Build the runtime layout on ``device`` from checkpoint tensors.
+    ``layout`` None or ``"gptq"`` keeps GPTQ's K-packed words (K1/K4/K5);
+    ``"kb32l"`` builds the tile-contiguous layout of K6, the counterpart of
+    the JAX ``from_packed(layout="kb32l")``. Any other value raises."""
     device = torch.device(device)
+    layout = layout or "gptq"
+    if layout not in ("gptq", "kb32l"):
+        raise ValueError(f"layout must be 'gptq' or 'kb32l', got {layout!r}")
     bits = packed.bits
     sbits = storage_bits(bits)
     k, n = packed.in_features, packed.out_features
-    if device.type == "cuda":
+    if layout == "kb32l":
+        check_kb32l_shape(bits, k, packed.group_size)
+    elif device.type == "cuda":
         check_card_shape(bits, k, n, packed.group_size)
     qweight = np.ascontiguousarray(_to_numpy(packed.qweight))
     scales = np.ascontiguousarray(_to_numpy(packed.scales).astype(np.float16))
@@ -128,29 +180,46 @@ def from_packed(packed: PackedQuantLinear, device="cuda",
         if kperm is not None:
             codes = codes[kperm]
         weight = packing.pack_qweight(codes, sbits)
+    weight = torch.from_numpy(np.ascontiguousarray(weight)).to(device)
+    scales = torch.from_numpy(scales).to(device)
+    zeros = torch.from_numpy(np.ascontiguousarray(zeros)).to(device)
+    if layout == "kb32l":
+        weight, scales, zeros = kb32l_pack(weight, scales, zeros, k, packed.group_size)
     bias = None if packed.bias is None else torch.as_tensor(_to_numpy(packed.bias)).to(device, dtype)
     return QuantLinear(
-        qweight=torch.from_numpy(np.ascontiguousarray(weight)).to(device),
-        scales=torch.from_numpy(scales).to(device),
-        zeros=torch.from_numpy(np.ascontiguousarray(zeros)).to(device),
+        qweight=weight,
+        scales=scales,
+        zeros=zeros,
         kperm=None if kperm is None else torch.from_numpy(kperm).to(device),
         bias=bias,
         bits=bits,
         group_size=packed.group_size,
         in_features=k,
         out_features=n,
+        layout=layout,
     )
+
+
+def gptq_tensors(ql: QuantLinear) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GPTQ words ``[K/P, N]``, scales and zeros ``[G, N]`` of either layout
+    (kb32l's de-linearized, padding cut)."""
+    if ql.layout != "kb32l":
+        return ql.qweight, ql.scales, ql.zeros
+    k = ql.in_features
+    return gemm.kb32l_as_gptq(ql.qweight, ql.scales, ql.zeros, k, ql.out_features,
+                              ql.group_size if ql.group_size != -1 else k)
 
 
 def codes(ql: QuantLinear) -> torch.Tensor:
     """Integer codes [K, N] of the stored (sorted) rows."""
-    return gemm.unpack_words(ql.qweight, storage_bits(ql.bits))
+    return gemm.unpack_words(gptq_tensors(ql)[0], storage_bits(ql.bits))
 
 
 def dequantize(ql: QuantLinear, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Dense ``[K, N]`` weight in stored (group-sorted) row order; pair it with
     ``x[..., kperm]``. Counterpart of the JAX ``dequantize_xla``."""
-    return gemm.dequantize_codes(codes(ql), ql.scales, ql.zeros, ql.group_size, dtype)
+    _, scales, zeros = gptq_tensors(ql)
+    return gemm.dequantize_codes(codes(ql), scales, zeros, ql.group_size, dtype)
 
 
 def logical_weight(ql: QuantLinear, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -169,10 +238,16 @@ def _bias(ql: QuantLinear, x: torch.Tensor) -> Optional[torch.Tensor]:
 
 
 def matmul_plain(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
-    """Plain ``y = x @ dequant(W) (+ bias)`` for any bit width: f32 weight and
-    product, one cast to ``x``'s dtype. Counterpart of the JAX ``matmul_xla``."""
-    y = gemm.wna16_matmul_ref(x.reshape(-1, ql.in_features), ql.qweight, ql.scales, ql.zeros,
-                              ql.kperm, _bias(ql, x), ql.group_size, storage_bits(ql.bits))
+    """Plain ``y = x @ dequant(W) (+ bias)`` for any bit width and layout: f32
+    weight and product, one cast to ``x``'s dtype. Counterpart of the JAX
+    ``matmul_xla``."""
+    x2d = x.reshape(-1, ql.in_features)
+    if ql.layout == "kb32l":
+        y = gemm.w4a16_kb32l_matmul_ref(x2d, ql.qweight, ql.scales, ql.zeros, ql.kperm,
+                                        _bias(ql, x), ql.group_size, ql.out_features)
+    else:
+        y = gemm.wna16_matmul_ref(x2d, ql.qweight, ql.scales, ql.zeros, ql.kperm,
+                                  _bias(ql, x), ql.group_size, storage_bits(ql.bits))
     return y.reshape(*x.shape[:-1], ql.out_features)
 
 
@@ -183,7 +258,7 @@ def matmul_t(g: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     Counterpart of the JAX ``matmul_t``."""
     dx = gemm.wna16_matmul_t(g.reshape(-1, ql.out_features).contiguous(), ql.qweight,
                              ql.scales, ql.zeros, ql.kperm, ql.group_size,
-                             storage_bits(ql.bits))
+                             storage_bits(ql.bits), k=ql.in_features)
     return dx.reshape(*g.shape[:-1], ql.in_features)
 
 
@@ -195,9 +270,13 @@ class QuantMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
         ctx.ql = ql
-        y = gemm.wna16_matmul(x.reshape(-1, ql.in_features).contiguous(), ql.qweight,
-                              ql.scales, ql.zeros, ql.kperm, _bias(ql, x), ql.group_size,
-                              storage_bits(ql.bits))
+        x2d = x.reshape(-1, ql.in_features).contiguous()
+        if ql.layout == "kb32l":
+            y = gemm.w4a16_kb32l_matmul(x2d, ql.qweight, ql.scales, ql.zeros, ql.kperm,
+                                        _bias(ql, x), ql.group_size, ql.out_features)
+        else:
+            y = gemm.wna16_matmul(x2d, ql.qweight, ql.scales, ql.zeros, ql.kperm, _bias(ql, x),
+                                  ql.group_size, storage_bits(ql.bits))
         return y.reshape(*x.shape[:-1], ql.out_features)
 
     @staticmethod
@@ -209,9 +288,9 @@ class QuantMatmul(torch.autograd.Function):
 
 def matmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
     """Quantized ``y = x @ dequant(W) (+ bias)``, ``x [..., K] -> [..., N]``.
-    A CUDA tensor launches K1 (3/4-bit), K4 (8-bit) or K5 (2-bit) or raises; a
-    CPU tensor takes the plain path. Differentiable in ``x`` on both routes
-    (:class:`QuantMatmul`)."""
+    A CUDA tensor launches K1 (3/4-bit), K4 (8-bit), K5 (2-bit) or K6 (the
+    kb32l layout) or raises; a CPU tensor takes the plain path.
+    Differentiable in ``x`` on both routes (:class:`QuantMatmul`)."""
     return QuantMatmul.apply(x, ql)
 
 
@@ -243,7 +322,13 @@ class StackedQuantLinear:
 
 
 def stack_experts(qls: list[QuantLinear]) -> StackedQuantLinear:
-    """Stack per-expert layers of identical shape; desc_act (``kperm``) raises."""
+    """Stack per-expert layers of identical shape; desc_act (``kperm``) raises,
+    and so do kb32l layers: K9 reads GPTQ words, and no JAX load path stacks
+    kb32l."""
+    if any(q.layout != "gptq" for q in qls):
+        raise NotImplementedError("stacked experts in the kb32l layout are not ported (K9 reads "
+                                  "GPTQ words; ROADMAP Queue 2, K6): load MoE checkpoints "
+                                  "without layout='kb32l'")
     if any(q.kperm is not None for q in qls):
         raise ValueError("stacked experts require trivial g_idx (no desc_act)")
     first = qls[0]
@@ -263,16 +348,53 @@ def matmul_stacked(x: torch.Tensor, sql: StackedQuantLinear) -> torch.Tensor:
     return torch.stack([matmul(x, sql.expert(e)) for e in range(sql.num_experts)])
 
 
+def matmul_routed_t(g: torch.Tensor, sql: StackedQuantLinear, sel: torch.Tensor) -> torch.Tensor:
+    """Cotangent of the routed product: row p of ``dx`` is
+    ``g[p] @ dequant(W[sel[p]])^T`` (``g [P, N] -> [P, K]`` in ``g``'s dtype):
+    :func:`matmul_t` on the rows of each distinct expert, K10 on the card and
+    its plain version on the CPU. Finding the distinct experts waits for the
+    card once."""
+    dx = torch.empty((g.shape[0], sql.in_features), dtype=g.dtype, device=g.device)
+    ids = sel.long()
+    for e in torch.unique(ids).tolist():
+        if not 0 <= e < sql.num_experts:
+            raise ValueError(f"expert ids must lie in [0, {sql.num_experts}), got {e}")
+        rows = (ids == e).nonzero()[:, 0]
+        dx[rows] = matmul_t(g[rows], sql.expert(e))
+    return dx
+
+
+class RoutedMatmul(torch.autograd.Function):
+    """``y[p] = x[p] @ dequant(W[sel[p]])`` with ``dx = matmul_routed_t``:
+    the gradient of the JAX routed XLA path (``quantlinear.py:1040-1053``).
+    The stack is passed as a Python object, so the experts get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, sql: StackedQuantLinear, sel: torch.Tensor,
+                check: bool) -> torch.Tensor:
+        ctx.sql = sql
+        ctx.save_for_backward(sel)
+        return gemm.wna16_routed_matmul(x.contiguous(), sel, sql.qweight, sql.scales, sql.zeros,
+                                        sql.group_size, storage_bits(sql.bits), check=check)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (sel,) = ctx.saved_tensors
+        return matmul_routed_t(g.contiguous(), ctx.sql, sel), None, None, None
+
+
 def matmul_routed(x: torch.Tensor, sql: StackedQuantLinear, sel: torch.Tensor,
                   check: bool = True) -> torch.Tensor:
     """Sparse MoE decode execution: row p of the result is
     ``x[p] @ dequant(W[sel[p]])`` (``x [P, K]``, ``sel`` int32 ``[P]`` ->
     ``[P, N]`` in ``x``'s dtype), plus the gathered bias. A CUDA tensor
     launches K9, which reads only the selected experts' words; a CPU tensor
-    takes its plain version. 4-bit storage only (3- and 4-bit layers);
+    takes its plain version. Differentiable in ``x`` on both routes
+    (:class:`RoutedMatmul`). 4-bit storage only (3- and 4-bit layers);
     ``check`` as in :func:`~autogptq_tpu_torch.ops.gemm.wna16_routed_matmul`."""
-    y = gemm.wna16_routed_matmul(x.contiguous(), sel, sql.qweight, sql.scales, sql.zeros,
-                                 sql.group_size, storage_bits(sql.bits), check=check)
+    y = RoutedMatmul.apply(x, sql, sel, check)
     if sql.bias is not None:
         y = y + sql.bias[sel.long()].to(y.dtype)
     return y
@@ -323,6 +445,9 @@ __all__ = [
     "pack_from_solver",
     "solver_codes",
     "check_card_shape",
+    "check_kb32l_shape",
+    "kb32l_pack",
+    "gptq_tensors",
     "storage_bits",
     "codes",
     "group_order",
@@ -336,4 +461,6 @@ __all__ = [
     "stack_experts",
     "matmul_stacked",
     "matmul_routed",
+    "matmul_routed_t",
+    "RoutedMatmul",
 ]

@@ -6,11 +6,13 @@ params dict. The tree's nodes are recognised by their fields, so this module
 imports nothing from the JAX package:
 
 * a dense linear (``kernel``, ``bias``) is copied;
-* a quantized linear in the ``kb32``, ``ki32``, ``kpair``, ``k2i32``,
-  ``kquad``, ``koct`` or ``planar`` layout is unpacked with the port's copy of
-  that layout's ``*_unpack_np`` (pack granularity 1024 rows for kb32, the
-  group size for ki32, k2i32 and kquad), stripped of its K/N padding and
-  repacked into the port's words, keeping ``kperm``;
+* a quantized linear in the ``kb32``, ``kb32l``, ``ki32``, ``kpair``,
+  ``k2i32``, ``kquad``, ``koct`` or ``planar`` layout is unpacked with the
+  port's copy of that layout's ``*_unpack_np`` (pack granularity 1024 rows for
+  kb32 and kb32l, whose tiles are first de-linearized, the group size for
+  ki32, k2i32 and kquad), stripped of its K/N padding and repacked into the
+  port's words, keeping ``kperm``; a kb32l node becomes a port kb32l node
+  (``quantlinear.kb32l_pack``), every other one GPTQ words;
 * a stacked expert node (``StackedQuantLinear``: ``num_experts``, words with
   a leading expert axis) is carried across expert by expert as above and
   stacked into the port's ``StackedQuantLinear``;
@@ -21,8 +23,6 @@ imports nothing from the JAX package:
   their tensors stay f32, the trainable ones with ``requires_grad=True``;
 * dicts and lists are walked; any other array (norm weights, embeddings) is
   copied.
-
-Other quantized layouts (``kb32l``) raise.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import torch
 
 from ..models.arch import DenseLinear
 from ..ops import packing
-from ..ops.quantlinear import STORAGE_BITS, QuantLinear, StackedQuantLinear, stack_experts
+from ..ops.quantlinear import (STORAGE_BITS, QuantLinear, StackedQuantLinear, kb32l_pack,
+                               stack_experts)
 from . import peft
 
 _QUANT_FIELDS = ("wp", "scales", "zeros", "kperm", "layout", "group_size", "in_features",
@@ -118,6 +119,11 @@ def _codes(node) -> np.ndarray:
     gs = node.group_size
     if layout == "kb32":
         return ki32_unpack_np(wp, 1024)
+    if layout == "kb32l":
+        nbn = node.n_pad // wp.shape[2]
+        nbk = wp.shape[0] // nbn
+        words = wp.reshape(nbn, nbk * wp.shape[1], wp.shape[2]).transpose(1, 0, 2)
+        return ki32_unpack_np(words.reshape(nbk * wp.shape[1], node.n_pad), 1024)
     if layout == "ki32":
         return ki32_unpack_np(wp, gs if gs != -1 else wp.shape[0] * 8)
     if layout == "kpair":
@@ -144,18 +150,24 @@ def _quant_linear(node, device, dtype) -> QuantLinear:
     zeros = np.asarray(node.zeros)
     zeros = zeros.reshape(zeros.shape[0], -1)[:g, :n].astype(np.uint8)
     kperm = None if node.kperm is None else np.asarray(node.kperm)[:k].astype(np.int64)
-    weight = packing.pack_qweight(codes, STORAGE_BITS[node.bits])
+    weight = torch.from_numpy(packing.pack_qweight(codes, STORAGE_BITS[node.bits])).to(device)
+    scales = torch.from_numpy(np.ascontiguousarray(scales)).to(device)
+    zeros = torch.from_numpy(np.ascontiguousarray(zeros)).to(device)
+    layout = "kb32l" if node.layout == "kb32l" else "gptq"
+    if layout == "kb32l":
+        weight, scales, zeros = kb32l_pack(weight, scales, zeros, k, node.group_size)
     bias = None if node.bias is None else torch.tensor(np.asarray(node.bias, np.float32)).to(device, dtype)
     return QuantLinear(
-        qweight=torch.from_numpy(np.ascontiguousarray(weight)).to(device),
-        scales=torch.from_numpy(np.ascontiguousarray(scales)).to(device),
-        zeros=torch.from_numpy(np.ascontiguousarray(zeros)).to(device),
+        qweight=weight,
+        scales=scales,
+        zeros=zeros,
         kperm=None if kperm is None else torch.from_numpy(kperm).to(device),
         bias=bias,
         bits=node.bits,
         group_size=node.group_size,
         in_features=k,
         out_features=n,
+        layout=layout,
     )
 
 

@@ -46,7 +46,7 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
    full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
    equal tokens, launch counts (K5, K1, K4) set to 0 before and read after.
-11. Quantize on the card at full width: a random fp16 2-layer checkpoint,
+11. Quantize on the card at full width: a random fp16 1-layer checkpoint,
    ``from_pretrained``, ``quantize`` with 64 calibration sequences of 256
    tokens for 4-bit g128, 4-bit g128 desc_act, 2-, 3- and 8-bit; seconds per
    layer by phase, the solver loss, GPTQ against round-to-nearest on every
@@ -92,7 +92,23 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    CPU's routing choices that an f32 and a bf16 card run make, and one
    layer's ``moe_mlp`` on the card in f32, routed (K9) and dense stacked
    against the expert list (K1).
-18. Writes every measurement to ``build/chip_smoke.json`` and prints one
+18. K6 (``w4a16_kb32l_gemm``, K1's function over the tile-contiguous kb32l
+   words, a cp.async ring in the decode regime) against its plain version at
+   the Llama-2-7B projection shapes, M in {1, 4, 16} (decode) and {128, 2048}
+   (tile), 4-bit g128 bf16, plus 3-bit, desc_act, bias, N = 1312 and f32 and
+   f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout, the
+   plain version and ``torch.matmul``; the decode plan (stages, tile bytes,
+   blocks, blocks per SM, weight bytes in flight per SM) and ptxas' registers
+   and spills. K10 over kb32l words at M = 64 and 2048.
+19. The kb32l path: the main path's checkpoint loaded again with
+   ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
+   model; 512 greedy tokens twice (counts set to 0 just before the first and
+   read just after: K6 7 x 32 per token, no K1); the share of tokens equal to
+   the main path's; a profile; a batch-2 generate whose 32-row prefill runs
+   K6's tile regime. On the 2-layer cut, kb32l in f32 on the card against
+   the CPU. On the 2-layer Mixtral cut, ``dx`` through a layer's routed
+   ``moe_mlp`` (K9 forward, K10 backward) on the card against the CPU.
+20. Writes every measurement to ``build/chip_smoke.json`` and prints one
    JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -146,7 +162,7 @@ ADAPTER_STD = 0.02                               # adapter tensors drawn for tha
 TRAIN_NEW_TOKENS = 16
 OTHER_WIDTH_LAYERS = 8        # depth of the 2-, 3- and 8-bit generate runs
 OTHER_WIDTH_TOKENS = 64
-QUANT_LAYERS = 2              # depth of the model quantized on the card
+QUANT_LAYERS = 1              # depth of the model quantized on the card (widths full)
 CALIB_SEQS, CALIB_LEN, CALIB_BATCH = 64, 256, 16
 KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
 BEAMS = 4
@@ -165,6 +181,16 @@ PROMPT_LEN = 16
 # list (K1) and the dense stacked path (K1), f32 on the card.
 MIXTRAL_E2E_F32_REL_TOL = 1e-3
 MOE_F32_ABS_TOL = 1e-4
+# K6 with f32 activations against its plain version: f32 weights and accumulation on both
+# sides, summation order only: 1e-5 of the largest output (bf16/f16: K1_REL_TOL).
+K6_F32_REL_TOL = 1e-5
+# The kb32l model against the GPTQ-layout model, both bf16 on the card: the same function
+# summed in another order, rounded to bf16 at every layer; relative Frobenius error.
+KB32L_E2E_REL_TOL = 5e-2
+# The kb32l model, f32 on the card (K6, K2) against f32 on the CPU (plain), 2 layers; and
+# dx through a Mixtral layer's routed moe_mlp, f32 on both sides (K9 + K10 against plain).
+KB32L_CUT_F32_REL_TOL = 1e-4
+ROUTED_GRAD_F32_REL_TOL = 1e-4
 MIXTRAL_LAYERS = 32           # depth of the Mixtral-8x7B path (full)
 MIXTRAL_NEW_TOKENS = 128
 MIXTRAL_BEAM_TOKENS = 64
@@ -275,14 +301,115 @@ def phase_k1(torch, np, timer) -> list:
               f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rows
 
-def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype):
+def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype, layout=None):
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
 
     t = random_quant_tensors(rng, k, n, bits, gs, desc_act)
     return qlin.from_packed(qlin.PackedQuantLinear(
         qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
         bias=None, bits=bits, group_size=gs, in_features=k, out_features=n), device="cuda",
-        dtype=dtype)
+        dtype=dtype, layout=layout)
+
+
+def ptxas_report(name: str, key: str) -> list:
+    """Registers and spill bytes that ptxas reported in kernel ``name``'s build
+    log for each entry function whose mangled name contains ``key``."""
+    import re
+
+    from autogptq_tpu_torch.ops import build
+
+    out, fn, spills = [], None, None
+    for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, spills = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None and key in fn:
+            out.append(dict(function=fn, registers=int(m.group(1)),
+                            spill_stores=spills[0] if spills else None,
+                            spill_loads=spills[1] if spills else None))
+            fn = None
+    return out
+
+
+def phase_k6(torch, np, timer) -> dict:
+    """K6 against its plain version, timed beside K1 on the same weights in
+    the GPTQ layout, the plain version and torch.matmul; the decode plan."""
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+    from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
+
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (case, K, N, M, bits, desc_act, bias, dtype)
+    cases = [(name, k, n, m, 4, False, False, bf16)
+             for m in (1, BEAMS, 16, 128, TRAIN_M) for name, (k, n, _) in LAYER_SHAPES.items()]
+    cases += [("qkvo 3-bit", 4096, 4096, 1, 3, False, False, bf16),
+              ("down+desc_act", 11008, 4096, 1, 4, True, False, bf16),
+              ("gate_up+bias", 4096, 11008, 1, 4, False, True, bf16),
+              ("N=1312", 4096, 1312, 1, 4, False, False, bf16)]
+    cases += [(f"{name} {tag}", k, n, 1, 4, False, False, dt) for tag, dt in (("f32", f32),
+                                                                             ("f16", f16))
+              for name, (k, n, _) in LAYER_SHAPES.items()]
+    rows = []
+    for name, k, n, m, bits, desc_act, with_bias, dtype in cases:
+        t = random_quant_tensors(rng, k, n, bits, 128, desc_act)
+        packed = qlin.PackedQuantLinear(
+            qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+            bias=rng.standard_normal(n).astype(np.float32) if with_bias else None, bits=bits,
+            group_size=128, in_features=k, out_features=n)
+        layer = qlin.from_packed(packed, device="cuda", dtype=dtype, layout="kb32l")
+        gptq = qlin.from_packed(packed, device="cuda", dtype=dtype)
+        x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
+        before = dict(build.launches)
+        y = qlin.matmul(x, layer)
+        check(build.launches[gemm.KB32L_KERNEL] == before.get(gemm.KB32L_KERNEL, 0) + 1
+              and build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0),
+              f"K6 {name} M={m}: launched {dict(build.launches)}")
+        ref = qlin.matmul_plain(x, layer)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = (K6_F32_REL_TOL if dtype == f32 else K1_REL_TOL) * scale
+        check(y.shape == (m, n) and bool(torch.isfinite(y).all()), f"K6 {name} M={m}: bad output")
+        check(err <= tol, f"K6 {name} M={m} {dtype}: max |kernel - plain| = {err:.3e} > {tol:.3e}")
+        check(torch.equal(qlin.matmul(x, layer), y), f"K6 {name} M={m}: not deterministic")
+        w = qlin.logical_weight(layer, dtype)
+        iters = 5 if m == TRAIN_M else 20
+        ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
+        k1_ms = timer.ms(lambda: qlin.matmul(x, gptq), iters=iters)
+        plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 5), warmup=1)
+        lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=iters)
+        b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
+                                     layer.kperm, layer.bias), 2.0 * m * k * n)
+        plan = gemm.kb32l_plan(k, n, m, 128, sms)
+        if plan["regime"] == "decode":
+            per_sm = gemm.kb32l_blocks_per_sm(dtype, m, 128, plan["tiles_per_split"])
+            resident = min(per_sm, -(-plan["blocks"] // sms))
+            plan.update(nbuf=gemm.KB32L_NBUF, blocks_per_sm=per_sm,
+                        weight_bytes_in_flight_per_sm=resident * min(
+                            gemm.KB32L_NBUF, plan["tiles_per_split"]) * plan["stage_bytes"])
+        rows.append(dict(case=name, K=k, N=n, M=m, bits=bits, desc_act=desc_act,
+                         bias=with_bias, dtype=str(dtype), max_abs_err=err, max_abs_ref=scale,
+                         tol=tol, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, plan=plan))
+        print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} err {err:.3e} "
+              f"(tol {tol:.3e})  kernel {ms:.4f} ms  K1 {k1_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plan {plan}",
+              flush=True)
+        del layer, gptq, w
+    ptxas = ptxas_report(gemm.KB32L_KERNEL, "kb32l")
+    print("K6 ptxas: " + "; ".join(f"{r['function']}: {r['registers']} registers, spill "
+                                   f"{r['spill_stores']}/{r['spill_loads']} B"
+                                   for r in ptxas), flush=True)
+    return dict(rows=rows, ptxas=ptxas)
 
 
 def phase_wna16(torch, np, timer) -> list:
@@ -397,6 +524,42 @@ def phase_k10(torch, np, timer) -> list:
                   f"{ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} "
                   f"ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
+    # K10 over K6's kb32l words (a backward through a kb32l layer)
+    k, n = shapes["gate_up"]
+    layer = _random_layer(qlin, rng, k, n, 4, 128, False, torch.bfloat16, layout="kb32l")
+    words, s, z = qlin.gptq_tensors(layer)
+    w = qlin.logical_weight(layer, torch.bfloat16)
+    for m in (64, TRAIN_M):
+        g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
+        before = build.launches[gemm.T_KERNEL]
+        dx = qlin.matmul_t(g, layer)
+        check(build.launches[gemm.T_KERNEL] == before + 1, f"K10 kb32l M={m}: not launched")
+        ref = gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4)
+        dx32 = qlin.matmul_t(g.float(), layer)
+        ref32 = gemm.wna16_matmul_t_ref(g.float(), words, s, z, None, 128, 4)
+        torch.cuda.synchronize()
+        err = (dx.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        err32 = (dx32 - ref32).abs().max().item()
+        check(dx.shape == (m, k) and bool(torch.isfinite(dx).all()), f"K10 kb32l M={m}: bad output")
+        check(err <= K10_REL_TOL * scale, f"K10 kb32l M={m} bf16: max |kernel - plain| = "
+                                          f"{err:.3e} > {K10_REL_TOL} * {scale:.3e}")
+        check(err32 <= F32_ABS_TOL * max(1.0, scale),
+              f"K10 kb32l M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+        ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=5, warmup=1)
+        plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4),
+                            iters=3, warmup=1)
+        lib_ms = timer.ms(lambda: torch.matmul(g, w.t()), iters=5, warmup=1)
+        b_ms, b_by = bound_ms(nbytes(g, dx, layer.qweight, layer.scales, layer.zeros),
+                              2.0 * m * k * n)
+        rows.append(dict(bits=4, case="gate_up kb32l", K=k, N=n, M=m, group_size=128,
+                         desc_act=False, layout="kb32l", max_abs_err=err, max_abs_ref=scale,
+                         max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, tflops=2.0 * m * k * n / ms / 1e9))
+        print(f"K10 4-bit gate_up g128 kb32l    K={k:5d} N={n:5d} M={m:4d}  bf16 err {err:.3e} "
+              f"(tol {K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
     return rows
 
 
@@ -832,7 +995,7 @@ def phase_quantize(torch, np, work: str) -> dict:
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_fp_checkpoint
 
     cfg = dict(LLAMA2_7B, num_hidden_layers=QUANT_LAYERS)
-    fp_dir = os.path.join(work, "llama2-7b-random-fp16-2layers")
+    fp_dir = os.path.join(work, f"llama2-7b-random-fp16-{QUANT_LAYERS}layers")
     t0 = time.perf_counter()
     write_random_fp_checkpoint(fp_dir, cfg, seed=0)
     print(f"quantize: random fp16 checkpoint, Llama-2-7B widths, {QUANT_LAYERS} layers, written "
@@ -1161,7 +1324,8 @@ def refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst) ->
 
 
 def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
-    """Returns the launch counts of the 512-token run and the loaded model."""
+    """Returns the launch counts of the 512-token run, the loaded model and
+    the run's tokens."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.ops import build
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
@@ -1216,7 +1380,132 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
           f"shape {out2.shape}, launches {counts2}", flush=True)
     profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
                      PROFILE_TOKENS)
-    return counts, model
+    return counts, model, out
+
+
+def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
+    """The main path's checkpoint loaded into the kb32l layout (K6): prefill
+    logits against the GPTQ-layout model, 512 greedy tokens twice with the
+    launch counts, a profile, and a batch-2 generate (K6's tile regime)."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, layout="kb32l")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    quant = [node for block in model.params["layers"] for sec in ("attn", "mlp")
+             for node in block[sec].values() if isinstance(node, qlin.QuantLinear)]
+    check(len(quant) == 7 * layers and all(q.layout == "kb32l" for q in quant),
+          "from_quantized(layout='kb32l') left a layer in another layout")
+    prompt = main_out[:, :PROMPT_LEN]
+    want = gptq_model.forward(prompt).float()
+    got = model.forward(prompt).float()
+    prefill_rel = ((got - want).norm() / want.norm()).item()
+    check(bool(torch.isfinite(got).all()) and prefill_rel <= KB32L_E2E_REL_TOL,
+          f"kb32l prefill logits vs the GPTQ layout: relative error {prefill_rel:.3e} > "
+          f"{KB32L_E2E_REL_TOL}")
+    warm = model.generate(prompt, max_new_tokens=4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=NEW_TOKENS)
+    gen_s = time.perf_counter() - t0
+    counts = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = model.generate(prompt, max_new_tokens=NEW_TOKENS)
+    again_s = time.perf_counter() - t0
+    steps = NEW_TOKENS - 1
+    # the 16-token prefill (M = 16) and every decode step (M = 1): 7 K6 launches per layer
+    want_counts = {gemm.KB32L_KERNEL: 7 * layers * (steps + 1), "flash_decode": layers * steps}
+    new = out[:, PROMPT_LEN:]
+    check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"kb32l output shape {out.shape}")
+    check(bool(((new >= 0) & (new < vocab)).all()), "kb32l token ids out of range")
+    check(np.array_equal(out, again), "kb32l greedy decode does not repeat its tokens")
+    check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "kb32l greedy decode is not "
+                                                         "deterministic")
+    for name, n in want_counts.items():
+        check(counts.get(name, 0) == n, f"kb32l greedy: {name} launched {counts.get(name, 0)} "
+                                        f"times, want {n}")
+    check(counts.get("w4a16_gemm", 0) == 0, f"kb32l greedy launched K1: {counts}")
+    same = float((new == main_out[:, PROMPT_LEN:]).mean())
+    agree = int(np.argmin(new[0] == main_out[0, PROMPT_LEN:])) if same < 1 else NEW_TOKENS
+    tok_s = NEW_TOKENS / gen_s
+    print(f"kb32l path: Llama-2-7B 4-bit g128 from_quantized(layout='kb32l'), {layers} layers, "
+          f"batch 1, {PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens greedy, twice with equal "
+          f"tokens: loaded in {load_s:.1f} s (peak {load_peak / 2**30:.2f} GiB), prefill logits "
+          f"vs the GPTQ layout rel err {prefill_rel:.3e} (tol {KB32L_E2E_REL_TOL}), generate "
+          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches per decode token: K6 "
+          f"{(counts.get(gemm.KB32L_KERNEL, 0) - 7 * layers) / steps:.0f}, K2 "
+          f"{counts.get('flash_decode', 0) / steps:.0f}, K1 0; {100 * same:.1f}% of the tokens "
+          f"equal to the main path's (the first {agree} in a row); launches {counts}", flush=True)
+    profile = profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+                               "kb32l batch-1 generate", PROFILE_TOKENS, families=KB32L_FAMILIES)
+
+    prompts = [np.arange(PROMPT_LEN) % 1000 + 1, np.arange(PROMPT_LEN) + 100]
+    build.launches.clear()
+    out2 = model.generate(prompts, max_new_tokens=16)
+    counts2 = dict(build.launches)
+    check(out2.shape == (2, PROMPT_LEN + 16), f"kb32l batch-2 output shape {out2.shape}")
+    check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
+    check(counts2.get(gemm.KB32L_KERNEL, 0) == 7 * layers * 16
+          and counts2.get("w4a16_gemm", 0) == 0, f"kb32l batch-2 launches {counts2}")
+    print(f"kb32l batch 2, two {PROMPT_LEN}-token prompts (a {2 * PROMPT_LEN}-row prefill: K6's "
+          f"tile regime), 16 new tokens: shape {out2.shape}, launches {counts2}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, load_peak_bytes=load_peak, prefill_rel_err=prefill_rel,
+                gen_s=gen_s, repeat_s=again_s, tok_s=tok_s, peak_bytes=peak, counts=counts,
+                share_equal_to_main=same, leading_equal_tokens=agree, profile=profile,
+                batch2_counts=counts2)
+
+
+def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
+    """The 2-layer full-width cut loaded with layout='kb32l' in f32, card (K6,
+    K2) against CPU (plain versions): logits of a prefill and a decode step."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models.arch import KVCache, forward
+    from autogptq_tpu_torch.ops import build, gemm
+
+    tokens = torch.from_numpy((np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int64))
+    nxt = torch.tensor([[1234]])
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=torch.float32,
+                                                   layout="kb32l")
+        build.launches.clear()
+        with torch.inference_mode():
+            cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=torch.float32,
+                                   device=device)
+            pre, cache = forward(model.params, tokens.to(device), model.cfg, cache=cache)
+            dec, _ = forward(model.params, nxt.to(device), model.cfg, cache=cache)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            check(build.launches[gemm.KB32L_KERNEL] == 2 * 7 * 2 and
+                  build.launches["w4a16_gemm"] == 0, f"kb32l cut launched {dict(build.launches)}")
+        results[device] = (pre.float().cpu(), dec.float().cpu())
+        del model, cache
+    rows = {}
+    for i, name in enumerate(("prefill", "decode")):
+        card, cpu = results["cuda"][i], results["cpu"][i]
+        rel = ((card - cpu).norm() / cpu.norm()).item()
+        rows[name] = dict(rel_err=rel, max_abs_err=(card - cpu).abs().max().item())
+        check(bool(torch.isfinite(card).all()) and rel <= KB32L_CUT_F32_REL_TOL,
+              f"kb32l {name} logits: card f32 vs CPU relative error {rel:.3e} > "
+              f"{KB32L_CUT_F32_REL_TOL}")
+    print("kb32l card (f32, K6) vs CPU (f32, plain), 2 full-width layers: "
+          + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
+                      for k, v in rows.items()) + f" (tol {KB32L_CUT_F32_REL_TOL})", flush=True)
+    return rows
 
 
 def phase_beam(torch, np, model) -> dict:
@@ -1294,10 +1583,15 @@ FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
             ("K2 flash_decode", ("flash_decode",)),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
+# K6 is kb32l_decode_kernel<T, MT>, K1's splitk_reduce_kernel<T> and, above 16 rows,
+# wna16_prefill_kernel<4, T, Kb32lWords>: in a model loaded with layout="kb32l" K1 never
+# launches (the kb32l path checks it), so K1's names count as K6 there.
+KB32L_FAMILIES = (("K6 w4a16_kb32l_gemm", ("kb32l", "Kb32l") + K1_KEYS),
+                  ("K2 flash_decode", ("flash_decode",)))
 
 
 def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
-                     tokens: int, **gen_kwargs) -> None:
+                     tokens: int, families=FAMILIES, **gen_kwargs) -> None:
     """Device time by kernel family over a short generate, from
     torch.profiler's CUDA kernel events. The profiler slows the host, so the
     busy share is also given against the unprofiled 512-token run's wall time
@@ -1311,32 +1605,32 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
         t0 = time.perf_counter()
         model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
         wall_us = (time.perf_counter() - t0) * 1e6
-    families = dict.fromkeys([name for name, _ in FAMILIES] + ["other"], 0.0)
+    sums = dict.fromkeys([name for name, _ in families] + ["other"], 0.0)
     kernels = 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         kernels += 1
         us = evt.time_range.elapsed_us()
-        family = next((name for name, keys in FAMILIES if any(k in evt.name for k in keys)),
+        family = next((name for name, keys in families if any(k in evt.name for k in keys)),
                       "other")
-        families[family] += us
+        sums[family] += us
     if not kernels:
         print(f"profile, {label}: torch.profiler recorded no CUDA kernel events; device busy "
               "share not measured", flush=True)
         return {}
-    busy = sum(families.values())
+    busy = sum(sums.values())
     device_ms = busy / tokens / 1e3
     print(f"profile, {label} of {tokens} tokens (prefill included): "
           f"device {device_ms:.3f} ms/token ("
-          + ", ".join(f"{k} {v / tokens / 1e3:.3f}" for k, v in families.items())
+          + ", ".join(f"{k} {v / tokens / 1e3:.3f}" for k, v in sums.items())
           + f"), {kernels / tokens:.0f} kernels/token; host clock "
           f"{wall_us / tokens / 1e3:.3f} ms/token under the profiler (device busy "
           f"{100 * busy / wall_us:.1f}%), {unprofiled_ms_per_token:.3f} ms/token unprofiled "
           f"(device busy about {100 * device_ms / unprofiled_ms_per_token:.1f}%)", flush=True)
     return dict(device_ms_per_token=device_ms, kernels_per_token=kernels / tokens,
                 wall_ms_per_token=wall_us / tokens / 1e3,
-                **{f"{k} ms_per_token": v / tokens / 1e3 for k, v in families.items()})
+                **{f"{k} ms_per_token": v / tokens / 1e3 for k, v in sums.items()})
 
 
 def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
@@ -1489,8 +1783,11 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                             group_size=128, seed=0)
     tokens = torch.from_numpy((np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int64))
     nxt = torch.tensor([[1234]])
-    results, routes, moe = {}, {}, {}
+    results, routes, moe, dxs = {}, {}, {}, {}
     real_top_k = arch.top_k
+    grad_rng = np.random.default_rng(14)
+    grad_x = grad_rng.standard_normal((4, 1, MIXTRAL_8X7B["hidden_size"])).astype(np.float32)
+    grad_cot = grad_rng.standard_normal(grad_x.shape).astype(np.float32)
     for run, device, dtype in (("card f32", "cuda", torch.float32),
                                ("card bf16", "cuda", torch.bfloat16),
                                ("cpu", "cpu", torch.float32)):
@@ -1498,6 +1795,8 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
         if run == "card f32":
             moe = moe_layer_check(torch, arch, params_lib, build, model)
         model.params = params_lib.stack_moe_experts(model.params)
+        if dtype == torch.float32:
+            dxs[run] = routed_grad(torch, arch, build, model, grad_x, grad_cot)
         chosen = []
 
         def recording_top_k(x, k):
@@ -1535,6 +1834,14 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                                               f"error {rel:.3e} > {MIXTRAL_E2E_F32_REL_TOL}")
     shared = {run: (routes[run] == routes["cpu"]).all(dim=-1).float().mean().item()
               for run in ("card f32", "card bf16")}
+    card_dx, cpu_dx = dxs["card f32"][0], dxs["cpu"][0]
+    grad_rel = ((card_dx - cpu_dx).norm() / cpu_dx.norm()).item()
+    check(bool(torch.isfinite(card_dx).all()) and grad_rel <= ROUTED_GRAD_F32_REL_TOL,
+          f"dx through the routed moe_mlp: card f32 vs CPU relative error {grad_rel:.3e} > "
+          f"{ROUTED_GRAD_F32_REL_TOL}")
+    print(f"dx through layer 0's routed moe_mlp (4 tokens x top-2 = 8 pairs of 8 experts), card "
+          f"f32 (K9 forward, K10 per selected expert backward; launches {dxs['card f32'][1]}) vs "
+          f"CPU f32: relative error {grad_rel:.3e} (tol {ROUTED_GRAD_F32_REL_TOL})", flush=True)
     print(f"Mixtral card (f32, kernels) vs CPU (f32, plain), 2 full-width layers: "
           + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
                       for k, v in rows.items())
@@ -1544,7 +1851,25 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
           f"(logits rel err "
           + ", ".join(f"{k} {v['bf16_rel_err']:.3e}" for k, v in rows.items()) + ")", flush=True)
     return dict(rows=rows, routes_shared=shared, routes=int(routes["cpu"].shape[0]),
-                moe_mlp=moe)
+                moe_mlp=moe, routed_grad=dict(rel_err=grad_rel, launches=dxs["card f32"][1]))
+
+
+def routed_grad(torch, arch, build, model, x, cot) -> tuple:
+    """dx of sum(moe_mlp(x) * cot) through layer 0's stacked experts on the
+    model's device; on the card the routed route must launch K9 (3) and K10."""
+    from autogptq_tpu_torch.ops import gemm
+
+    dev = model.device
+    xt = torch.from_numpy(x).to(dev).requires_grad_()
+    build.launches.clear()
+    y = arch.moe_mlp(model.params["layers"][0]["mlp"], xt, model.cfg)
+    (dx,) = torch.autograd.grad((y * torch.from_numpy(cot).to(dev)).sum(), xt)
+    counts = dict(build.launches)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        check(counts.get(gemm.ROUTED_KERNEL, 0) == 3 and counts.get(gemm.T_KERNEL, 0) >= 3,
+              f"routed moe_mlp gradient on the card launched {counts}")
+    return dx.detach().float().cpu(), counts
 
 
 def moe_layer_check(torch, arch, params_lib, build, model) -> dict:
@@ -1625,6 +1950,7 @@ def main() -> int:
     k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
     k9_rows = timed("K9", phase_k9, torch, np, timer)
+    k6 = timed("K6", phase_k6, torch, np, timer)
     boundary = boundary_cost(torch, np)
     del timer
     torch.cuda.empty_cache()
@@ -1632,8 +1958,9 @@ def main() -> int:
     work = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     try:
-        launches, model = timed("main path", phase_main_path, torch, np,
-                                os.path.join(work, "llama2-7b-random-g128"))
+        ckpt = os.path.join(work, "llama2-7b-random-g128")
+        launches, model, main_out = timed("main path", phase_main_path, torch, np, ckpt)
+        kb32l = timed("kb32l path", phase_kb32l_path, torch, np, ckpt, model, main_out)
         beam = timed("beam", phase_beam, torch, np, model)
         train = timed("train", phase_train, torch, np, model, work)
         del model
@@ -1641,6 +1968,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         cut_dir = os.path.join(work, "llama2-7b-random-g128-2layers")
         cpu_vs_card = timed("card vs CPU", phase_cpu_vs_card, torch, np, cut_dir)
+        kb32l_cut = timed("kb32l card vs CPU", phase_kb32l_cut, torch, np, cut_dir)
         grads = timed("gradients", phase_grads, torch, np, cut_dir)
         shutil.rmtree(work, ignore_errors=True)
         widths = timed("other widths", phase_other_widths, torch, np, work)
@@ -1711,6 +2039,12 @@ def main() -> int:
               "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows, k8b_main,
               "4 pages x 32 layers x 2 bf16 pools (one beam-4 step), check=False as on the "
               "beam path; launches from the 512-token beam-4 run"),
+        gemm_entry("w4a16_kb32l_gemm", "autogptq_tpu/ops/pallas/gemm.py:692", kb32l["counts"],
+                   [r for r in k6["rows"] if r["case"] in LAYER_SHAPES], at + "; the same "
+                   f"function over the tile-contiguous kb32l words, a cp.async ring at M <= 16 "
+                   f"(replaces _kernel_kb32l_manual :692 and _matmul_kb32l :635); launches from "
+                   f"the {NEW_TOKENS}-token greedy run of the model loaded with layout='kb32l'; "
+                   f"max_abs_err over every K6 case", err_rows=k6["rows"]),
         dict(name="w4a16_routed_gemm", route="cuda",
              source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:894",
@@ -1729,7 +2063,8 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
-                       k1=k1_rows, k9=k9_rows, mixtral=mixtral, mixtral_cut=mixtral_cut,
+                       k1=k1_rows, k9=k9_rows, k6=k6, kb32l=kb32l, kb32l_cut=kb32l_cut,
+                       mixtral=mixtral, mixtral_cut=mixtral_cut,
                        wna16=wna_rows, other_widths=widths, quantize=quantize,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        main_path=launches, beam=beam, train=train, grads=grads,

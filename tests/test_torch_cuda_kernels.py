@@ -1,8 +1,10 @@
-"""K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K10
-(their backward, wna16_gemm_t), K2 (flash-decode), K7 (paged attention), K8a
-(page row write) and K8b (page copy) on the card against their plain PyTorch
-versions, a tiny model quantized on the card, and gradients through the
-quantized matmul on the card against the CPU's.
+"""K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K6
+(w4a16 over the tile-contiguous kb32l words), K10 (their backward,
+wna16_gemm_t, also over kb32l words), K2 (flash-decode), K7 (paged
+attention), K8a (page row write), K8b (page copy) and K9 (routed experts) on
+the card against their plain PyTorch versions, a tiny model quantized on the
+card, and gradients through the quantized and the routed matmul on the card
+against the CPU's.
 Marked ``cuda``: without a CUDA device every test skips
 (the ``card`` fixture decides, so every worker collects the same tests). On
 the card: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q``."""
@@ -28,14 +30,15 @@ def card():
     return torch.device("cuda")
 
 
-def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16, bits=4):
+def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16, bits=4,
+           layout=None):
     rng = np.random.default_rng(seed)
     t = random_quant_tensors(rng, k, n, bits, gs, desc_act)
     b = rng.standard_normal(n).astype(np.float32) if bias else None
     return qlin.from_packed(qlin.PackedQuantLinear(
         qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
         bias=b, bits=bits, group_size=gs, in_features=k, out_features=n), device="cuda",
-        dtype=dtype)
+        dtype=dtype, layout=layout)
 
 
 KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
@@ -564,3 +567,132 @@ def test_tiny_mixtral_card_matches_cpu(card, tmp_path):
     np.testing.assert_array_equal(got, models["cpu"].generate(prompt, max_new_tokens=8))
     np.testing.assert_array_equal(models["cuda"].generate(prompt, max_new_tokens=6, num_beams=4),
                                   models["cpu"].generate(prompt, max_new_tokens=6, num_beams=4))
+
+
+# (K, N, group size, bits, desc_act, bias): Llama-2-7B's projections (down with desc_act,
+# 43 K tiles: a K split longer than the ring), N = 1312 padded to 1408, group sizes 32 and
+# 256, 3-bit codes
+K6_SHAPES = [(4096, 4096, 128, 4, False, False), (4096, 11008, 128, 4, False, True),
+             (11008, 4096, 128, 4, True, False), (1024, 1312, 32, 4, False, True),
+             (2048, 1312, 256, 3, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 17, 64])
+@pytest.mark.parametrize("k, n, gs, bits, desc_act, bias", K6_SHAPES)
+def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
+    """K6 in both regimes (the pipelined GEMV at M <= 16, the tile kernel
+    above) against its plain version: f32 to 1e-5 of the largest output
+    (summation order only), f16/bf16 to 1% (one rounding on both sides)."""
+    layer = _layer(k + n + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    assert build.launches["w4a16_kb32l_gemm"] == before.get("w4a16_kb32l_gemm", 0) + 1
+    assert build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0)
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
+    scale = ref.float().abs().max()
+    tol = 1e-5 * max(1.0, float(scale)) if dtype == torch.float32 else 1e-2 * scale
+    assert (y.float() - ref.float()).abs().max() <= tol
+    torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
+
+
+def test_k6_refuses_operands_and_launches_nothing(card):
+    layer = _layer(3, 1024, 256, 64, layout="kb32l")
+    from autogptq_tpu_torch.ops import gemm
+
+    x = torch.randn((4, 1024), device=card, dtype=torch.bfloat16)
+    args = (layer.qweight, layer.scales, layer.zeros, None, None, 64, 256)
+    before = build.launches["w4a16_kb32l_gemm"]
+    with pytest.raises(ValueError, match="f32/f16/bf16"):
+        gemm.w4a16_kb32l_matmul(x.to(torch.int32), *args)
+    with pytest.raises(ValueError, match="qweight"):     # K comes from x: 512 rows, 2 tiles
+        gemm.w4a16_kb32l_matmul(x[:, :512].contiguous(), *args)
+    with pytest.raises(ValueError, match="qweight"):
+        gemm.w4a16_kb32l_matmul(x, layer.qweight[:2].contiguous(), *args[1:])
+    with pytest.raises(ValueError, match="scales"):
+        gemm.w4a16_kb32l_matmul(x, layer.qweight, layer.scales.float(), *args[2:])
+    with pytest.raises(NotImplementedError, match="kb32l"):
+        gemm.w4a16_kb32l_matmul(x, *args[:5], 96, 256)
+    assert build.launches["w4a16_kb32l_gemm"] == before
+    assert gemm.w4a16_kb32l_matmul(x[:0], *args).shape == (0, 256)
+
+
+@pytest.mark.parametrize("m", [10, 64, 2048])
+@pytest.mark.parametrize("k, n, gs, bits, desc_act, bias", K6_SHAPES[1:])
+def test_k10_over_kb32l_matches_plain(card, m, k, n, gs, bits, desc_act, bias):
+    """K10 reading K6's kb32l words against its plain version, bf16 to 1% and
+    f32 to 1e-4 (as test_k10_matches_plain), and a backward through a kb32l
+    layer launches it."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, False, bits=bits, layout="kb32l")
+    for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
+        g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
+                        dtype=dtype)
+        before = build.launches["wna16_gemm_t"]
+        dx = qlin.matmul_t(g, layer)
+        assert build.launches["wna16_gemm_t"] == before + 1
+        ref = qlin.gemm.wna16_matmul_t_ref(g, *qlin.gptq_tensors(layer), layer.kperm, gs, 4)
+        torch.cuda.synchronize()
+        assert dx.shape == (m, k) and dx.dtype == dtype
+        err = (dx.float() - ref.float()).abs().max()
+        scale = ref.float().abs().max()
+        assert err <= (1e-2 * scale if tol is None else tol * max(1.0, float(scale)))
+    x = torch.randn((3, k), device=card, requires_grad=True)
+    before = build.launches["wna16_gemm_t"]
+    qlin.matmul(x, layer).float().sum().backward()
+    assert build.launches["wna16_gemm_t"] == before + 1 and x.grad is not None
+
+
+@pytest.mark.parametrize("p", [2, 8])
+def test_routed_gradient_card_matches_cpu(card, p):
+    """dx through quantlinear.matmul_routed on the card (K9 forward, K10 per
+    selected expert backward) equals the CPU's (plain versions), in f32."""
+    rng = np.random.default_rng(p)
+    packs = []
+    for _ in range(8):
+        t = random_quant_tensors(rng, 1024, 512, 4, 64, False)
+        packs.append(qlin.PackedQuantLinear(
+            qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+            bias=None, bits=4, group_size=64, in_features=1024, out_features=512))
+    sel = np.array(K9_SELS[p], np.int32)
+    x = rng.standard_normal((p, 1024)).astype(np.float32)
+    cot = rng.standard_normal((p, 512)).astype(np.float32)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        sql = qlin.stack_experts([qlin.from_packed(pk, device=dev, dtype=torch.float32)
+                                  for pk in packs])
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        before = dict(build.launches)
+        y = qlin.matmul_routed(xt, sql, torch.from_numpy(sel).to(dev))
+        (dx,) = torch.autograd.grad((y * torch.from_numpy(cot).to(dev)).sum(), xt)
+        if dev == "cuda":
+            assert build.launches["w4a16_routed_gemm"] == before.get("w4a16_routed_gemm", 0) + 1
+            assert build.launches["wna16_gemm_t"] == before.get("wna16_gemm_t", 0) + len(set(sel))
+        grads[dev] = dx.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=1e-5, atol=1e-4)
+
+
+def test_tiny_llama_kb32l_card_matches_cpu(card, tmp_path):
+    """A tiny random Llama loaded with layout="kb32l" on the card (f32, K6) against
+    the CPU (plain versions): logits and greedy tokens; no K1 launch."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+
+    cfg = dict(model_type="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+               rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu",
+               tie_word_embeddings=False)
+    path = write_random_checkpoint(str(tmp_path), cfg, bits=4, group_size=64, desc_act=True,
+                                   seed=6)
+    models = {dev: AutoGPTQForCausalLM.from_quantized(path, device=dev, dtype=torch.float32,
+                                                      layout="kb32l") for dev in ("cuda", "cpu")}
+    tokens = np.random.default_rng(0).integers(1, 512, size=(2, 12))
+    torch.testing.assert_close(models["cuda"].forward(tokens).cpu(), models["cpu"].forward(tokens),
+                               rtol=1e-4, atol=1e-4)
+    prompt = tokens[:1, :6]
+    build.launches.clear()
+    got = models["cuda"].generate(prompt, max_new_tokens=8)
+    assert build.launches["w4a16_kb32l_gemm"] == 7 * 2 * 8 and build.launches["w4a16_gemm"] == 0
+    np.testing.assert_array_equal(got, models["cpu"].generate(prompt, max_new_tokens=8))

@@ -4,6 +4,10 @@
   ``quantlinear.matmul_routed``) against the JAX ``matmul_routed``: its real TPU
   kernel in interpret mode, which dots in bf16 (2e-2 relative, as
   ``tests/test_moe_routed.py`` holds it), and its XLA fallback (1e-5).
+* The routed product's input gradient (``quantlinear.RoutedMatmul``: K10 per
+  selected expert on the card, its plain version here) against ``jax.grad``
+  of the JAX routed XLA path (1e-5), and through ``arch.moe_mlp``'s routed
+  route against the JAX ``moe_mlp`` (1e-4).
 * ``stack_experts`` refuses desc_act; ``params_from_jax`` of a JAX
   ``StackedQuantLinear`` is bit-equal to the port's own stack.
 * ``arch.moe_mlp`` on its three routes (routed, dense stacked, expert list)
@@ -17,6 +21,7 @@
   calibration token reaches (zero Hessians, solved as dead columns).
 """
 
+import dataclasses
 import json
 import os
 
@@ -25,6 +30,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from jax import grad as jax_grad
 from autogptq_tpu import AutoGPTQForCausalLM as JaxAuto
 from autogptq_tpu import BaseQuantizeConfig as JaxConfig
 from autogptq_tpu.models import arch as jarch
@@ -80,6 +86,45 @@ def test_k9_plain_matches_jax_matmul_routed(backend, rtol):
     want = np.asarray(jqlin.matmul_routed(jnp.asarray(x), jax, jnp.asarray(sel), backend=backend))
     # interpret mode dots in bf16: 2e-2 of the largest output; XLA is f32 throughout
     np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+def test_routed_gradient_matches_jax_grad():
+    """dx of the routed product, a repeated expert and a bias included,
+    against jax.grad of the JAX XLA routed path (f32 on both sides)."""
+    port, jax = _stacks(8, 4, 256, 192, 64)
+    rng = np.random.default_rng(9)
+    bias = rng.standard_normal((4, 192)).astype(np.float32)
+    port.bias = torch.from_numpy(bias)
+    jax = dataclasses.replace(jax, bias=jnp.asarray(bias))
+    sel = np.array([3, 1, 3, 0, 2], np.int32)
+    x = (rng.standard_normal((5, 256)) * 0.1).astype(np.float32)
+    cot = rng.standard_normal((5, 192)).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = qlin.matmul_routed(xt, port, torch.from_numpy(sel))
+    assert y.grad_fn is not None
+    (dx,) = torch.autograd.grad((y * torch.from_numpy(cot)).sum(), xt)
+    want = jax_grad(lambda xx: jnp.sum(jqlin.matmul_routed(xx, jax, jnp.asarray(sel),
+                                                           backend="xla") * cot))(jnp.asarray(x))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for row, e in enumerate(sel):       # row p is g[p] @ W[sel[p]]^T of its own expert
+        w = qlin.logical_weight(port.expert(int(e)))
+        torch.testing.assert_close(dx[row], torch.from_numpy(cot[row]) @ w.t(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_moe_mlp_routed_gradient_matches_jax():
+    """dx through arch.moe_mlp's routed route (2 tokens x top-2 = 4 pairs of 8
+    experts) against jax.grad of the JAX moe_mlp on its XLA backend."""
+    port, jax, cfg, jcfg = _moe_block(11)
+    x = np.random.default_rng(12).standard_normal((2, 1, 128)).astype(np.float32)
+    cot = np.random.default_rng(13).standard_normal((2, 1, 128)).astype(np.float32)
+    block = _stacked_block(port)
+    xt = torch.from_numpy(x).requires_grad_()
+    (dx,) = torch.autograd.grad((arch.moe_mlp(block, xt, cfg) * torch.from_numpy(cot)).sum(), xt)
+    jblock = jparams.stack_moe_experts({"layers": [{"mlp": jax}]})["layers"][0]["mlp"]
+    want = jax_grad(lambda xx: jnp.sum(jarch.moe_mlp(jblock, xx, jcfg, backend="xla") * cot))(
+        jnp.asarray(x))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_k9_plain_refuses_bad_expert_ids():
