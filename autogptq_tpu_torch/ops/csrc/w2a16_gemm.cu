@@ -7,6 +7,7 @@
 // GPTQ's own. The kernels, their layout, bound and design are in wna16_gemm.cuh; the bound is
 // a quarter byte per weight plus 3 bytes per group and column.
 
-#include "wna16_gemm.cuh"
+#include "wna16_mma.cuh"
 
 WNA16_DEFINE_ENTRY(w2a16_gemm, 2)
+WNA16_MMA_DEFINE_ENTRY(w2a16_gemm, 2)

@@ -39,13 +39,14 @@
 //    scale is folded in once there. The four warps' partial sums meet in shared memory and
 //    are added in a fixed order; splits write f32 partials that K1's splitk_reduce_kernel
 //    adds in a fixed order, with the bias and one cast. No float atomics: deterministic.
-//  * Tile regime (M > 16): K1's SIMT tile kernel (wna16_prefill_kernel) with the word address
-//    of kb32l_tile.cuh. Tensor cores and TMA are later work.
+//  * Tile regime (M > 16): K1's tile kernels with the word address of kb32l_tile.cuh: the
+//    tensor-core kernel (wna16_mma.cuh, entry w4a16_kb32l_gemm_mma) for bf16 and f16
+//    activations, the SIMT kernel (wna16_prefill_kernel) for f32 (ops/gemm.py:tile_kernel).
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
 #include "kb32l_tile.cuh"
-#include "wna16_gemm.cuh"
+#include "wna16_mma.cuh"
 
 namespace {
 
@@ -60,20 +61,6 @@ __host__ __device__ __forceinline__ int stage_bytes(int gs) {
 
 __host__ __forceinline__ size_t decode_smem(int mt, int gs, int tps) {
     return (size_t)K6_NBUF * stage_bytes(gs) + sizeof(float) * mt * tps * KB32L_KB;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy tile (j, kb) with its scales and zeros into a stage: 1024 16-byte chunks of words,
@@ -346,6 +333,18 @@ extern "C" int w4a16_kb32l_gemm_occupancy(int dtype, int M, int gs, int tps, int
 #undef K6_OCC_MT
 #undef K6_OCC
     return (int)err;
+}
+
+// The tensor-core tile kernel of wna16_mma.cuh over kb32l words, bf16 or f16 activations.
+extern "C" int w4a16_kb32l_gemm_mma(const void* x, const int64_t* kperm, const int32_t* qweight,
+                                    const void* scales, const uint8_t* zeros, const void* bias,
+                                    void* out, int dtype, int M, int K, int N, int n_pad, int gs,
+                                    void* stream) {
+    if (!valid_shape(M, K, N, n_pad, gs) || (M + MMA_BM - 1) / MMA_BM > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int nbk = (K + KB32L_KB - 1) / KB32L_KB;
+    return launch_mma_dtype<4>(x, kperm, qweight, scales, zeros, bias, out, dtype, M, K, N, gs,
+                               Kb32lWords{nbk}, n_pad, stream);
 }
 
 extern "C" const char* w4a16_kb32l_gemm_error_string(int code) {

@@ -28,7 +28,8 @@
 //    memory as f32. Each thread owns 4 adjacent columns and reads one 16-byte int4
 //    (8 K-rows x 4 columns) per word row, so a warp reads 512 contiguous bytes; the codes
 //    become (q - z) by the 2^23 bit trick (code_minus_zero) and each group's scale is
-//    folded in once.
+//    folded in once. A group size that 8 does not divide (a rest class) takes the STRADDLE
+//    instance, which looks the group up per code as K1's decode regime does.
 //  * Split K as K1 does (ops/gemm.py:split_k): a pair has only 28 column blocks at
 //    N = 14336 and 8 at N = 4096, too few for 132 SMs. Each split writes f32 partial sums to
 //    [splits, P, N]; routed_reduce_kernel adds them in a fixed order and casts once, so
@@ -45,7 +46,7 @@ namespace {
 
 constexpr int ERR_BAD_EXPERT = 1;
 
-template <typename T>
+template <typename T, bool STRADDLE>
 __global__ void __launch_bounds__(DEC_THREADS)
 routed_decode_kernel(const T* __restrict__ x, const int32_t* __restrict__ sel,
                      const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
@@ -78,35 +79,61 @@ routed_decode_kernel(const T* __restrict__ x, const int32_t* __restrict__ sel,
     if (n >= N) return;
 
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const int g_first = k0 / gs;
-    const int g_last = (k1 - 1) / gs;
-    for (int g = g_first; g <= g_last; ++g) {
-        const int ka = max(k0, g * gs);
-        const int kb = min(k1, (g + 1) * gs);
-        const uint2 sraw = *reinterpret_cast<const uint2*>(sc + (int64_t)g * N + n);
-        const uint32_t zraw = *reinterpret_cast<const uint32_t*>(zr + (int64_t)g * N + n);
-        const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
-        const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
-        const float s[4] = {__low2float(s01), __high2float(s01), __low2float(s23), __high2float(s23)};
-        float zb[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) zb[c] = MAGIC + (float)((zraw >> (8 * c)) & 0xFFu);
-
-        float gacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int kw = ka / PK; kw < kb / PK; ++kw) {
+    if constexpr (STRADDLE) {
+        // gs % 8 != 0: the group of each code (wna16_decode_kernel's STRADDLE instance)
+        int gcur = -1;
+        float s[4], zb[4];
+        for (int kw = k0 / PK; kw < k1 / PK; ++kw) {
             const int4 wv = __ldg(reinterpret_cast<const int4*>(qw + (int64_t)kw * N + n));
             const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
             const float* xk = xs + (kw * PK - k0);
 #pragma unroll
             for (int j = 0; j < PK; ++j) {
-                const float xv = xk[j];
+                const int g = (kw * PK + j) / gs;
+                if (g != gcur) {
+                    gcur = g;
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        s[c] = __half2float(sc[(int64_t)g * N + n + c]);
+                        zb[c] = MAGIC + (float)zr[(int64_t)g * N + n + c];
+                    }
+                }
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
-                    gacc[c] = fmaf(xv, code_minus_zero<BITS>(w[c], j, zb[c]), gacc[c]);
+                    acc[c] = fmaf(xk[j], code_minus_zero<BITS>(w[c], j, zb[c]) * s[c], acc[c]);
             }
         }
+    } else {
+        const int g_first = k0 / gs;
+        const int g_last = (k1 - 1) / gs;
+        for (int g = g_first; g <= g_last; ++g) {
+            const int ka = max(k0, g * gs);
+            const int kb = min(k1, (g + 1) * gs);
+            const uint2 sraw = *reinterpret_cast<const uint2*>(sc + (int64_t)g * N + n);
+            const uint32_t zraw = *reinterpret_cast<const uint32_t*>(zr + (int64_t)g * N + n);
+            const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
+            const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
+            const float s[4] = {__low2float(s01), __high2float(s01), __low2float(s23), __high2float(s23)};
+            float zb[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[c] = fmaf(gacc[c], s[c], acc[c]);
+            for (int c = 0; c < 4; ++c) zb[c] = MAGIC + (float)((zraw >> (8 * c)) & 0xFFu);
+
+            float gacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            for (int kw = ka / PK; kw < kb / PK; ++kw) {
+                const int4 wv = __ldg(reinterpret_cast<const int4*>(qw + (int64_t)kw * N + n));
+                const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+                const float* xk = xs + (kw * PK - k0);
+#pragma unroll
+                for (int j = 0; j < PK; ++j) {
+                    const float xv = xk[j];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        gacc[c] = fmaf(xv, code_minus_zero<BITS>(w[c], j, zb[c]), gacc[c]);
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[c] = fmaf(gacc[c], s[c], acc[c]);
+        }
     }
 
     if (partial != nullptr) {
@@ -142,9 +169,14 @@ cudaError_t launch_routed(const void* x, const int32_t* sel, const int32_t* qwei
     const dim3 grid((N / 4 + DEC_THREADS - 1) / DEC_THREADS, splits, P);
     const size_t smem = sizeof(float) * kc;
     float* part = splits > 1 ? partial : nullptr;
-    routed_decode_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
-        static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), part, err,
-        E, P, K, N, gs, kc);
+    if (gs % 8 == 0)
+        routed_decode_kernel<T, false><<<grid, DEC_THREADS, smem, stream>>>(
+            static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), part,
+            err, E, P, K, N, gs, kc);
+    else   // a rest-class layer: the per-code group instance
+        routed_decode_kernel<T, true><<<grid, DEC_THREADS, smem, stream>>>(
+            static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), part,
+            err, E, P, K, N, gs, kc);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess || splits == 1) return e;
     const int64_t total = (int64_t)P * N;
@@ -161,7 +193,7 @@ extern "C" int w4a16_routed_gemm(const void* x, const int32_t* sel, const int32_
                                  float* partial, int* err, int dtype, int E, int P, int K, int N,
                                  int gs, int kc, int splits, void* stream) {
     if (E <= 0 || P <= 0 || P > 65535 || K <= 0 || N <= 0 || K % 8 != 0 || N % 4 != 0 ||
-        gs <= 0 || gs % 8 != 0 || kc <= 0 || kc % 8 != 0 || splits <= 0 ||
+        gs <= 0 || kc <= 0 || kc % 8 != 0 || splits <= 0 ||
         (splits > 1 && partial == nullptr) || err == nullptr)
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);

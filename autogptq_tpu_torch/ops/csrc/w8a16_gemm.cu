@@ -7,6 +7,7 @@
 // the uint8 array. The kernels, their layout, bound and design are in wna16_gemm.cuh; the
 // bound is one byte per weight.
 
-#include "wna16_gemm.cuh"
+#include "wna16_mma.cuh"
 
 WNA16_DEFINE_ENTRY(w8a16_gemm, 8)
+WNA16_MMA_DEFINE_ENTRY(w8a16_gemm, 8)

@@ -17,7 +17,10 @@
 //                           (stored & 7) + 1, up to 8, which is why it lives in a byte
 //   kperm   int64 [K]       optional (desc_act): rows were sorted by group at load, so the
 //                           kernel reads x[m, kperm[k]] for sorted row k
-// Group g covers sorted rows [g*gs, (g+1)*gs); gs % P == 0 so no word straddles two groups.
+// Group g covers sorted rows [g*gs, min(K, (g+1)*gs)), G = ceil(K / gs): the last group may be
+// partial (gs = 100, K = 4096 gives 41 groups), as in the plain version. Any group size is taken;
+// where P does not divide it (a "rest class": 3/4-bit gs % 8, 2-bit gs % 16, 8-bit gs % 4), a
+// word may hold codes of two groups or more and the group is looked up per code.
 //
 // Bound on the H100 (3.35 TB/s HBM): at M <= 16 the kernel is bound by the bytes of the
 // quantized weight, BITS/8 B per weight plus fp16 scales and uint8 zeros per group and
@@ -31,19 +34,24 @@
 //    0x4B000000 | q is 2^23 + q, and subtracting 2^23 + z is exact (q, z < 256). The M rows
 //    accumulate x * (q - z) per group in f32 registers and fold the scale in once per group.
 //    x[:, k-chunk] (gathered through kperm) is staged in shared memory as f32; all threads
-//    of a warp read the same element, which shared memory broadcasts.
+//    of a warp read the same element, which shared memory broadcasts. A rest-class layer takes
+//    the STRADDLE instance, which looks the group up per code, g = (P*kw + j) / gs, and scales
+//    each code before it accumulates; the launch picks it by the layer's static group size, so
+//    every other layer keeps the per-group instance.
 //  * Split K: Llama's N = 4096 gives only 8 column blocks of 512 columns, far too few for
 //    132 SMs, so blockIdx.y splits K into chunks. Each split writes its f32 partial sums to
 //    a workspace [splits, M, N]; a second kernel adds the splits in a fixed order, adds the
 //    bias and casts once to the activation type. No float atomics, so results are
-//    deterministic.
-//  * Tile regime (M > 16): a tiled SIMT kernel. A 32 x 64 weight tile is dequantized
-//    into shared memory as f32 next to a 64 x 32 f32 tile of x; each of 256 threads
-//    accumulates a 4 x 4 block of outputs in f32. The weight is never rounded below f32, so
-//    an f32 model computes at f32 in both regimes. Tensor cores (mma.sync / wgmma) and TMA
-//    are later work. The kernel takes the word address as a functor (GptqWords here,
-//    Kb32lWords of kb32l_tile.cuh for K6) and the row stride of scales and zeros, so K6's
-//    tile regime is this kernel over the tile-contiguous words.
+//    deterministic (the STRADDLE instance too: its splits are whole words).
+//  * Tile regime (M > 16), SIMT: a 32 x 64 weight tile is dequantized into shared memory as
+//    f32 next to a 64 x 32 f32 tile of x; each of 256 threads accumulates a 4 x 4 block of
+//    outputs in f32. The weight is never rounded below f32, so an f32 model computes at f32
+//    in both regimes. It takes f32 activations and group sizes that 16 does not divide (the
+//    rest classes per code, as the decode regime); bf16 and f16 activations with 16 | gs take
+//    the tensor-core kernel of wna16_mma.cuh instead (ops/gemm.py:tile_kernel decides). The
+//    kernel takes the word address as a functor (GptqWords here, Kb32lWords of
+//    kb32l_tile.cuh for K6) and the row stride of scales and zeros, so K6's tile regime is
+//    this kernel over the tile-contiguous words.
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
@@ -83,7 +91,7 @@ __device__ __forceinline__ float code_minus_zero(uint32_t w, int j, float zb) {
     return __uint_as_float(0x4B000000u | ((w >> (BITS * j)) & ((1u << BITS) - 1u))) - zb;
 }
 
-template <int BITS, typename T, int MT>
+template <int BITS, typename T, int MT, bool STRADDLE>
 __global__ void __launch_bounds__(DEC_THREADS)
 wna16_decode_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                     const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
@@ -118,47 +126,81 @@ wna16_decode_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[m][c] = 0.0f;
 
-    const int g_first = k0 / gs;
-    const int g_last = (k1 - 1) / gs;
-    for (int g = g_first; g <= g_last; ++g) {
-        const int ka = max(k0, g * gs);
-        const int kb = min(k1, (g + 1) * gs);
-        const uint2 sraw = *reinterpret_cast<const uint2*>(scales + (int64_t)g * N + n);
-        const uint32_t zraw = *reinterpret_cast<const uint32_t*>(zeros + (int64_t)g * N + n);
-        const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
-        const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
-        const float s[4] = {__low2float(s01), __high2float(s01), __low2float(s23), __high2float(s23)};
-        float zb[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) zb[c] = MAGIC + (float)((zraw >> (8 * c)) & 0xFFu);
-
-        float gacc[MT][4];
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) gacc[m][c] = 0.0f;
-
-        for (int kw = ka / P; kw < kb / P; ++kw) {
+    if constexpr (STRADDLE) {
+        // gs % P != 0: a word may hold codes of two groups or more, so the group is looked up
+        // per code (g = (P*kw + j) / gs) and each code is scaled before it accumulates. Splits
+        // are whole words (kc % P == 0, ops/gemm.py:split_k).
+        int gcur = -1;
+        float s[4], zb[4];
+        for (int kw = k0 / P; kw < k1 / P; ++kw) {
             const int4 wv = __ldg(reinterpret_cast<const int4*>(qweight + (int64_t)kw * N + n));
             const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
             const float* xk = xs + (kw * P - k0);
 #pragma unroll
             for (int j = 0; j < P; ++j) {
+                const int g = (kw * P + j) / gs;
+                if (g != gcur) {
+                    gcur = g;
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) {
+                        s[c] = __half2float(scales[(int64_t)g * N + n + c]);
+                        zb[c] = MAGIC + (float)zeros[(int64_t)g * N + n + c];
+                    }
+                }
                 float d[4];
 #pragma unroll
-                for (int c = 0; c < 4; ++c) d[c] = code_minus_zero<BITS>(w[c], j, zb[c]);
+                for (int c = 0; c < 4; ++c) d[c] = code_minus_zero<BITS>(w[c], j, zb[c]) * s[c];
 #pragma unroll
                 for (int m = 0; m < MT; ++m) {
                     const float xv = xk[m * kc + j];
 #pragma unroll
-                    for (int c = 0; c < 4; ++c) gacc[m][c] = fmaf(xv, d[c], gacc[m][c]);
+                    for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv, d[c], acc[m][c]);
                 }
             }
         }
+    } else {
+        const int g_first = k0 / gs;
+        const int g_last = (k1 - 1) / gs;
+        for (int g = g_first; g <= g_last; ++g) {
+            const int ka = max(k0, g * gs);
+            const int kb = min(k1, (g + 1) * gs);
+            const uint2 sraw = *reinterpret_cast<const uint2*>(scales + (int64_t)g * N + n);
+            const uint32_t zraw = *reinterpret_cast<const uint32_t*>(zeros + (int64_t)g * N + n);
+            const __half2 s01 = *reinterpret_cast<const __half2*>(&sraw.x);
+            const __half2 s23 = *reinterpret_cast<const __half2*>(&sraw.y);
+            const float s[4] = {__low2float(s01), __high2float(s01), __low2float(s23), __high2float(s23)};
+            float zb[4];
 #pragma unroll
-        for (int m = 0; m < MT; ++m)
+            for (int c = 0; c < 4; ++c) zb[c] = MAGIC + (float)((zraw >> (8 * c)) & 0xFFu);
+
+            float gacc[MT][4];
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(gacc[m][c], s[c], acc[m][c]);
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) gacc[m][c] = 0.0f;
+
+            for (int kw = ka / P; kw < kb / P; ++kw) {
+                const int4 wv = __ldg(reinterpret_cast<const int4*>(qweight + (int64_t)kw * N + n));
+                const uint32_t w[4] = {(uint32_t)wv.x, (uint32_t)wv.y, (uint32_t)wv.z, (uint32_t)wv.w};
+                const float* xk = xs + (kw * P - k0);
+#pragma unroll
+                for (int j = 0; j < P; ++j) {
+                    float d[4];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) d[c] = code_minus_zero<BITS>(w[c], j, zb[c]);
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) {
+                        const float xv = xk[m * kc + j];
+#pragma unroll
+                        for (int c = 0; c < 4; ++c) gacc[m][c] = fmaf(xv, d[c], gacc[m][c]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(gacc[m][c], s[c], acc[m][c]);
+        }
     }
 
     if (partial != nullptr) {
@@ -246,12 +288,22 @@ wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             const int n = n0 + c;
             if (kw < kwords && n < N) {
                 const uint32_t w = (uint32_t)qweight[words(kw, n)];
-                const int g = (kw * P) / gs;
-                const float s = __half2float(scales[(int64_t)g * ldsz + n]);
-                const float zb = MAGIC + (float)zeros[(int64_t)g * ldsz + n];
+                if (gs % P == 0) {   // the word lies in one group
+                    const int g = (kw * P) / gs;
+                    const float s = __half2float(scales[(int64_t)g * ldsz + n]);
+                    const float zb = MAGIC + (float)zeros[(int64_t)g * ldsz + n];
 #pragma unroll
-                for (int j = 0; j < P; ++j)
-                    ws[r * P + j][c] = code_minus_zero<BITS>(w, j, zb) * s;
+                    for (int j = 0; j < P; ++j)
+                        ws[r * P + j][c] = code_minus_zero<BITS>(w, j, zb) * s;
+                } else {             // rest class: the group of each code
+#pragma unroll
+                    for (int j = 0; j < P; ++j) {
+                        const int g = (kw * P + j) / gs;
+                        const float s = __half2float(scales[(int64_t)g * ldsz + n]);
+                        const float zb = MAGIC + (float)zeros[(int64_t)g * ldsz + n];
+                        ws[r * P + j][c] = code_minus_zero<BITS>(w, j, zb) * s;
+                    }
+                }
             } else {
 #pragma unroll
                 for (int j = 0; j < P; ++j) ws[r * P + j][c] = 0.0f;
@@ -294,9 +346,14 @@ cudaError_t launch_decode(const void* x, const int64_t* kperm, const int32_t* qw
     const dim3 grid((N / 4 + DEC_THREADS - 1) / DEC_THREADS, splits);
     const size_t smem = sizeof(float) * MT * kc;
     float* part = splits > 1 ? partial : nullptr;
-    wna16_decode_kernel<BITS, T, MT><<<grid, DEC_THREADS, smem, stream>>>(
-        static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), part, M, K, N, gs, kc);
+    if (gs % (32 / BITS) == 0)
+        wna16_decode_kernel<BITS, T, MT, false><<<grid, DEC_THREADS, smem, stream>>>(
+            static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+            static_cast<T*>(out), part, M, K, N, gs, kc);
+    else   // a rest-class layer: the per-code group instance
+        wna16_decode_kernel<BITS, T, MT, true><<<grid, DEC_THREADS, smem, stream>>>(
+            static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+            static_cast<T*>(out), part, M, K, N, gs, kc);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return err;
     const int64_t total = (int64_t)M * N;
@@ -333,7 +390,7 @@ int wna16_gemm(const void* x, const int64_t* kperm, const int32_t* qweight, cons
          const uint8_t* zeros, const void* bias, void* out, float* partial, int dtype, int M,
          int K, int N, int gs, int kc, int splits, void* stream) {
     constexpr int P = 32 / BITS;
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % P != 0 ||
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
         (M <= 16 && (kc <= 0 || kc % P != 0 || splits <= 0 || (splits > 1 && partial == nullptr))))
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);

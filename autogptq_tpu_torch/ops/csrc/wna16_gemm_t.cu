@@ -1,7 +1,8 @@
 // K10: dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T for Hopper (sm_90a), one library with an
 // entry point per storage width: w4a16_gemm_t (4-bit codes, and 3-bit codes kept in nibbles;
 // the width of the TPU kernels it replaces), w8a16_gemm_t and w2a16_gemm_t, and
-// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words.
+// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words; each has a tensor-core twin,
+// NAME_mma (wna16_mma.cuh), for bf16 and f16 cotangents.
 //
 // Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32_t (_matmul_kb32_t),
 // _kernel_ki32_t (_matmul_ki32_t) and _kernel_kpair_t (_matmul_kpair_t). The kernel, its
@@ -18,6 +19,14 @@ extern "C" int w4a16_kb32l_gemm_t(const void* g, const int64_t* kperm, const int
                                   const void* scales, const uint8_t* zeros, void* dx, int dtype,
                                   int M, int K, int N, int n_pad, int gs, void* stream) {
     return kb32l_gemm_t(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, n_pad, gs, stream);
+}
+
+extern "C" int w4a16_kb32l_gemm_t_mma(const void* g, const int64_t* kperm,
+                                      const int32_t* qweight, const void* scales,
+                                      const uint8_t* zeros, void* dx, int dtype, int M, int K,
+                                      int N, int n_pad, int gs, void* stream) {
+    return kb32l_gemm_t_mma(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, n_pad, gs,
+                            stream);
 }
 
 extern "C" const char* wna16_gemm_t_error_string(int code) {

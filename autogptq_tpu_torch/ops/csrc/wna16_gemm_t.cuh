@@ -29,7 +29,8 @@
 // exchanged. Each block owns a 64 x 64 tile of dx (64 rows of M, 64 sorted K rows) and loops
 // over N in chunks of 32: the g chunk is staged in shared memory as f32, the weight chunk is
 // dequantized into shared memory as f32 with the 0x4B000000 | q trick and the group's scale
-// and zero (gs % P == 0, so a word never straddles two groups), and each of 256 threads
+// and zero (looked up per code where P does not divide gs, so a word may straddle groups:
+// the rest classes), and each of 256 threads
 // accumulates a 4 x 4 block of dx in f32 registers. The result is written once, through
 // kperm, rounded once to g's dtype. No split over N across blocks and no atomics, so the
 // result is deterministic, like K1's.
@@ -39,13 +40,17 @@
 // purpose from the JAX kernels, which dot in bf16 even for f32 cotangents
 // (dot_dtype=jnp.bfloat16 at gemm.py:1452; tests/test_matmul_vjp.py allows 2e-2 for that).
 //
-// A SIMT kernel, simple first: mma.sync / wgmma and TMA are later work. Every entry point
-// returns cudaGetLastError() and the Python wrapper raises when it is non-zero.
+// This SIMT kernel takes f32 cotangents and group sizes that 16 does not divide. bf16 and f16
+// cotangents with 16 | gs take the tensor-core K10 of wna16_mma.cuh (wna16_t_mma_kernel:
+// mma.sync with the scaled weight rounded to the cotangent's type, the JAX kernels' own
+// rounding), exported beside it as NAME_mma; ops/gemm.py:tile_kernel decides. wgmma and TMA
+// are not used. Every entry point returns cudaGetLastError() and the Python wrapper raises
+// when it is non-zero.
 
 #pragma once
 
 #include "kb32l_tile.cuh"
-#include "wna16_gemm.cuh"
+#include "wna16_mma.cuh"
 
 namespace {
 
@@ -92,11 +97,22 @@ wna16_t_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
             const int n = nt + c;
             if (kw < kwords && n < N) {
                 const uint32_t w = (uint32_t)qweight[words(kw, n)];
-                const int grp = (kw * P) / gs;
-                const float s = __half2float(scales[(int64_t)grp * ldsz + n]);
-                const float zb = MAGIC + (float)zeros[(int64_t)grp * ldsz + n];
+                if (gs % P == 0) {   // the word lies in one group
+                    const int grp = (kw * P) / gs;
+                    const float s = __half2float(scales[(int64_t)grp * ldsz + n]);
+                    const float zb = MAGIC + (float)zeros[(int64_t)grp * ldsz + n];
 #pragma unroll
-                for (int j = 0; j < P; ++j) wsm[c][r * P + j] = code_minus_zero<BITS>(w, j, zb) * s;
+                    for (int j = 0; j < P; ++j)
+                        wsm[c][r * P + j] = code_minus_zero<BITS>(w, j, zb) * s;
+                } else {             // rest class: the group of each code
+#pragma unroll
+                    for (int j = 0; j < P; ++j) {
+                        const int grp = (kw * P + j) / gs;
+                        const float s = __half2float(scales[(int64_t)grp * ldsz + n]);
+                        const float zb = MAGIC + (float)zeros[(int64_t)grp * ldsz + n];
+                        wsm[c][r * P + j] = code_minus_zero<BITS>(w, j, zb) * s;
+                    }
+                }
             } else {
 #pragma unroll
                 for (int j = 0; j < P; ++j) wsm[c][r * P + j] = 0.0f;
@@ -166,7 +182,7 @@ int wna16_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,
                  const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
                  int N, int gs, void* stream) {
     constexpr int P = 32 / BITS;
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % P != 0 ||
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
         (M + T_BM - 1) / T_BM > 65535)
         return (int)cudaErrorInvalidValue;
     return launch_t_dtype<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
@@ -186,13 +202,46 @@ int kb32l_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,
                              Kb32lWords{nbk}, n_pad, stream);
 }
 
+// The tensor-core K10 (wna16_mma.cuh) over GPTQ words, bf16 or f16 cotangents, 16 | gs.
+template <int BITS>
+int wna16_gemm_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight,
+                     const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
+                     int N, int gs, void* stream) {
+    constexpr int P = 32 / BITS;
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % 16 != 0 ||
+        (M + MMA_BM - 1) / MMA_BM > 65535)
+        return (int)cudaErrorInvalidValue;
+    return launch_t_mma_dtype<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
+                                    GptqWords{N}, N, stream);
+}
+
+// The tensor-core K10 over K6's kb32l words.
+int kb32l_gemm_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight,
+                     const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
+                     int N, int n_pad, int gs, void* stream) {
+    if (M <= 0 || K <= 0 || N <= 0 || gs < 32 || KB32L_KB % gs != 0 || gs % 32 != 0 ||
+        K % gs != 0 || n_pad % KB32L_BN != 0 || n_pad < N || n_pad - N >= KB32L_BN ||
+        (M + MMA_BM - 1) / MMA_BM > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int nbk = (K + KB32L_KB - 1) / KB32L_KB;
+    return launch_t_mma_dtype<4>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
+                                 Kb32lWords{nbk}, n_pad, stream);
+}
+
 }  // namespace
 
-// Exports `int NAME(...)` for BITS-bit codes.
+// Exports `int NAME(...)` (the SIMT kernel) and `int NAME_mma(...)` (the tensor-core kernel)
+// for BITS-bit codes.
 #define WNA16_T_DEFINE_ENTRY(NAME, BITS)                                                        \
     extern "C" int NAME(const void* g, const int64_t* kperm, const int32_t* qweight,            \
                         const void* scales, const uint8_t* zeros, void* dx, int dtype, int M,   \
                         int K, int N, int gs, void* stream) {                                   \
         return wna16_gemm_t<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,     \
                                   stream);                                                      \
+    }                                                                                           \
+    extern "C" int NAME##_mma(const void* g, const int64_t* kperm, const int32_t* qweight,      \
+                              const void* scales, const uint8_t* zeros, void* dx, int dtype,    \
+                              int M, int K, int N, int gs, void* stream) {                      \
+        return wna16_gemm_t_mma<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs, \
+                                      stream);                                                  \
     }

@@ -15,12 +15,20 @@ and the bound) is built into three libraries:
 tensors and run the plain versions (``*_matmul_ref``) for CPU tensors; nothing
 else picks between them.
 
+Each library holds two tile kernels for M > 16 (``csrc/wna16_mma.cuh`` beside
+the SIMT ones): :func:`tile_kernel` routes bf16 and f16 activations whose group
+size 16 divides to the tensor-core kernel (entry ``<name>_mma``, launch count
+``<name>_mma``), and f32 activations, M <= 16 (the split-K GEMV) and the other
+group sizes to the SIMT kernels (launch count ``<name>``). The choice is static,
+by dtype and shape; a launch that fails raises, whichever kernel it was.
+
 K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
 is one library, ``wna16_gemm_t``, with an entry point per storage width; it
 replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 ``_kernel_kpair_t`` behind ``matmul_t_pallas``. ``w4a16_matmul_t`` /
 ``w8a16_matmul_t`` / ``w2a16_matmul_t`` launch it for CUDA tensors and run
-``wna16_matmul_t_ref`` for CPU tensors.
+``wna16_matmul_t_ref`` for CPU tensors; :func:`tile_kernel` routes it the same
+way (launch counts ``wna16_gemm_t`` and ``wna16_gemm_t_mma``).
 
 K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 (``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
@@ -61,6 +69,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 DECODE_MAX_M = 16       # rows at or below this take the split-K GEMV kernel
 DECODE_THREADS = 128    # decode block size, 4 output columns per thread
 MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 512 * 4 B
+MMA_SUFFIX = "_mma"     # entry point and launch-count key of a library's tensor-core kernel
+MMA_DTYPES = (torch.float16, torch.bfloat16)
+MMA_K = 16              # depth of one mma.sync step: the group size must be a multiple
 
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
@@ -112,13 +123,32 @@ def wna16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Ten
     return y.to(x2d.dtype)
 
 
+def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
+    """The kernel a product of ``m`` rows with group size ``gs`` (in rows:
+    ``K`` for one group) takes on the card, for K1/K4/K5/K6 and K10 alike:
+    ``"mma"``, the tensor-core tile kernel, for bf16 and f16 at ``m > 16``
+    with ``16 | gs``; ``"simt"`` otherwise: the split-K GEMV at ``m <= 16``,
+    the SIMT tile kernel for f32 (the f32 model path and ``quantize``'s
+    re-forward) and for group sizes 16 does not divide. ``kernel`` ("mma"
+    or "simt") names one instead, to time both on the same operands; the
+    tensor-core kernel raises for operands it does not take."""
+    if kernel is not None:
+        if kernel not in ("mma", "simt"):
+            raise ValueError(f"kernel must be 'mma', 'simt' or None, got {kernel!r}")
+        return kernel
+    if m > DECODE_MAX_M and dtype in MMA_DTYPES and gs % MMA_K == 0:
+        return "mma"
+    return "simt"
+
+
 def split_k(k: int, n: int, gs: int, sms: int, pack: int = 8) -> tuple[int, int]:
     """(K rows per split, number of splits) for the decode kernel: enough
-    blocks for about two per SM, whole groups per split where a group fits,
-    whole words (``pack`` rows) otherwise."""
+    blocks for about two per SM, whole groups per split where a group fits
+    and is whole words, whole words (``pack`` rows) otherwise (a rest-class
+    group size, which the kernel looks up per code)."""
     col_blocks = -(-(n // 4) // DECODE_THREADS)
     want = max(1, -(-2 * sms // col_blocks))
-    step = gs if gs <= MAX_KCHUNK else pack
+    step = gs if gs <= MAX_KCHUNK and gs % pack == 0 else pack
     kc = -(-k // want)
     kc = -(-kc // step) * step
     kc = min(kc, MAX_KCHUNK // step * step)
@@ -135,6 +165,20 @@ def _lib(name: str):
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_mma(name: str):
+    """Library ``name``'s tensor-core forward ``<name>_mma(x, kperm, qweight,
+    scales, zeros, bias, out, dtype, M, K, N, gs, stream)``."""
+    fn = getattr(build.load(name), name + MMA_SUFFIX)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits,
@@ -160,9 +204,9 @@ def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits,
     if qweight.dtype != torch.int32 or kw * pack != k:
         raise ValueError(f"qweight must be int32 [K/{pack}, N] = [{k // pack}, N], got "
                          f"{tuple(qweight.shape)} {qweight.dtype}")
-    if k % pack or n % 4 or gs % pack:
-        raise NotImplementedError(f"{kernel} needs K % {pack} == 0, N % 4 == 0 and group size "
-                                  f"% {pack} == 0 (K={k}, N={n}, group size={gs})")
+    if k % pack or n % 4 or gs <= 0:
+        raise NotImplementedError(f"{kernel} needs K % {pack} == 0, N % 4 == 0 and a positive "
+                                  f"group size (K={k}, N={n}, group size={gs})")
     g = -(-k // gs)
     if scales.dtype != torch.float16 or tuple(scales.shape) != (g, n):
         raise ValueError(f"scales must be fp16 [{g}, {n}], got {tuple(scales.shape)} {scales.dtype}")
@@ -185,10 +229,12 @@ def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits,
 
 def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                  zeros: torch.Tensor, kperm: Optional[torch.Tensor],
-                 bias: Optional[torch.Tensor], group_size: int, bits: int) -> torch.Tensor:
+                 bias: Optional[torch.Tensor], group_size: int, bits: int,
+                 kernel: Optional[str] = None) -> torch.Tensor:
     """``x2d [M, K] @ W -> [M, N]`` in ``x2d``'s dtype for ``bits``-bit words
     (2, 4 or 8). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel of that width or raises."""
+    the kernel of that width that :func:`tile_kernel` names (``kernel``
+    passed on to it), or raises."""
     if bits not in KERNEL_NAMES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if x2d.device.type == "cpu":
@@ -203,6 +249,13 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
+    if tile_kernel(x2d.dtype, m, gs, kernel) == "mma":
+        code = _lib_mma(name)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                              _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype], m, k, n, gs,
+                              _stream(x2d))
+        build.check(name, code)
+        build.launches[name + MMA_SUFFIX] += 1
+        return out
     kc, splits, partial = 0, 0, None
     if m <= DECODE_MAX_M:
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
@@ -212,7 +265,7 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     fn = _lib(name)
     code = fn(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros), _ptr(bias),
               _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n, gs, kc, splits,
-              ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
+              _stream(x2d))
     build.check(name, code)
     build.launches[name] += 1
     return out
@@ -234,23 +287,25 @@ def wna16_matmul_t_ref(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     return dx.to(g2d.dtype)
 
 
-def _lib_t(bits: int):
-    fn = getattr(build.load(T_KERNEL), T_ENTRIES[bits])
+def _lib_t(bits: int, route: str = "simt"):
+    entry = T_ENTRIES[bits] + (MMA_SUFFIX if route == "mma" else "")
+    fn = getattr(build.load(T_KERNEL), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _lib_t_kb32l():
-    fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY)
+def _lib_t_kb32l(route: str = "simt"):
+    fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY + (MMA_SUFFIX if route == "mma" else ""))
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k) -> torch.Tensor:
+def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
+                    kernel=None) -> torch.Tensor:
     """K10 over kb32l words (see :func:`wna16_matmul_t`)."""
     n = g2d.shape[1]
     if g2d.device.type == "cpu":
@@ -266,29 +321,32 @@ def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k) -> torch.
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    code = _lib_t_kb32l()(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
-                          _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, scales.shape[1], gs,
-                          ctypes.c_void_p(torch.cuda.current_stream(g2d.device).cuda_stream))
+    route = tile_kernel(g2d.dtype, m, gs, kernel)
+    code = _lib_t_kb32l(route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                               _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n,
+                               scales.shape[1], gs, _stream(g2d))
     build.check(T_KERNEL, code)
-    build.launches[T_KERNEL] += 1
+    build.launches[T_KERNEL + (MMA_SUFFIX if route == "mma" else "")] += 1
     return dx
 
 
 def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                    zeros: torch.Tensor, kperm: Optional[torch.Tensor], group_size: int,
-                   bits: int, k: Optional[int] = None) -> torch.Tensor:
+                   bits: int, k: Optional[int] = None,
+                   kernel: Optional[str] = None) -> torch.Tensor:
     """K10: ``dx = g2d [M, N] @ W^T -> [M, K]`` in ``g2d``'s dtype for
     ``bits``-bit words (2, 4 or 8), with ``kperm`` undone (dx column
     ``kperm[k]`` takes sorted row ``k``; ``kperm`` must be a permutation, as
     ``quantlinear.group_order`` makes it). 3-D ``qweight`` is K6's kb32l
     tiles (4-bit), whose padding hides K: ``k`` gives it. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel or raises."""
+    the plain version; a CUDA tensor launches the kernel :func:`tile_kernel`
+    names (``kernel`` passed on to it), or raises."""
     if bits not in T_ENTRIES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if qweight.dim() == 3:
         if bits != 4 or k is None:
             raise ValueError(f"kb32l words hold 4-bit codes and need k, got bits={bits}, k={k}")
-        return _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k)
+        return _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k, kernel)
     if g2d.device.type == "cpu":
         return wna16_matmul_t_ref(g2d, qweight, scales, zeros, kperm, group_size, bits)
     if g2d.device.type != "cuda":
@@ -301,11 +359,12 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    code = _lib_t(bits)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
-                        _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, gs,
-                        ctypes.c_void_p(torch.cuda.current_stream(g2d.device).cuda_stream))
+    route = tile_kernel(g2d.dtype, m, gs, kernel)
+    code = _lib_t(bits, route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                               _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, gs,
+                               _stream(g2d))
     build.check(T_KERNEL, code)
-    build.launches[T_KERNEL] += 1
+    build.launches[T_KERNEL + (MMA_SUFFIX if route == "mma" else "")] += 1
     return dx
 
 
@@ -418,6 +477,14 @@ def _lib_kb32l():
     return fn
 
 
+def _lib_kb32l_mma():
+    fn = getattr(build.load(KB32L_KERNEL), KB32L_KERNEL + MMA_SUFFIX)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def kb32l_blocks_per_sm(dtype: torch.dtype, m: int, group_size: int, tiles_per_split: int) -> int:
     """How many K6 decode blocks fit on one SM at once (the CUDA occupancy
     calculator over the kernel's registers and shared memory)."""
@@ -433,10 +500,13 @@ def kb32l_blocks_per_sm(dtype: torch.dtype, m: int, group_size: int, tiles_per_s
 
 def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                        zeros: torch.Tensor, kperm: Optional[torch.Tensor],
-                       bias: Optional[torch.Tensor], group_size: int, n: int) -> torch.Tensor:
+                       bias: Optional[torch.Tensor], group_size: int, n: int,
+                       kernel: Optional[str] = None) -> torch.Tensor:
     """K6: ``x2d [M, K] @ W -> [M, n]`` in ``x2d``'s dtype over kb32l words
     (4-bit storage: 3- and 4-bit layers). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel :func:`tile_kernel` names
+    (``kernel`` passed on to it: the tensor-core tile kernel, or the GEMV or
+    the SIMT tile kernel), or raises."""
     if x2d.device.type == "cpu":
         return w4a16_kb32l_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, n)
     if x2d.device.type != "cuda":
@@ -447,6 +517,13 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
+    if tile_kernel(x2d.dtype, m, gs, kernel) == "mma":
+        code = _lib_kb32l_mma()(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                                _ptr(zeros), _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype], m, k,
+                                n, scales.shape[1], gs, _stream(x2d))
+        build.check(KB32L_KERNEL, code)
+        build.launches[KB32L_KERNEL + MMA_SUFFIX] += 1
+        return out
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
     plan = kb32l_plan(k, n, m, gs, sms)
     partial = None
@@ -455,7 +532,7 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     code = _lib_kb32l()(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
                         _ptr(bias), _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n,
                         scales.shape[1], gs, plan["tiles_per_split"], plan["splits"],
-                        ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
+                        _stream(x2d))
     build.check(KB32L_KERNEL, code)
     build.launches[KB32L_KERNEL] += 1
     return out
@@ -555,7 +632,7 @@ def wna16_routed_matmul(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Ten
     code = _lib_routed()(_ptr(x2d), _ptr(sel), _ptr(qweight), _ptr(scales), _ptr(zeros),
                          _ptr(out), _ptr(partial), _ptr(flag), DTYPE_CODES[x2d.dtype], e, p, k,
                          n, gs, kc, splits,
-                         ctypes.c_void_p(torch.cuda.current_stream(x2d.device).cuda_stream))
+                         _stream(x2d))
     build.check(ROUTED_KERNEL, code)
     build.launches[ROUTED_KERNEL] += 1
     if check:
@@ -613,7 +690,7 @@ __all__ = [
     "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
-    "split_k", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
+    "split_k", "tile_kernel", "MMA_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
     "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
     "w4a16_kb32l_matmul", "w4a16_kb32l_matmul_ref",

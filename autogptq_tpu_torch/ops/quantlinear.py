@@ -106,14 +106,19 @@ def group_order(g_idx: np.ndarray, k: int, group_size: int, groups: int) -> Opti
 
 
 def check_card_shape(bits: int, k: int, n: int, group_size: int) -> None:
-    """Raise for a layer shape that the kernel of ``bits`` does not take."""
-    pack = 32 // storage_bits(bits)
+    """Raise for a layer shape that the kernels of ``bits`` do not take: only
+    what no GPTQ checkpoint can hold. ``qweight`` is ``[K*bits/32, N]`` and
+    ``qzeros`` ``[G, N*bits/32]``, so ``K*bits % 32 == 0`` and
+    ``N*bits % 32 == 0`` in every checkpoint, and with them ``K % (32 /
+    storage bits) == 0`` and ``N % 4 == 0``, which the kernels need. Every
+    positive group size is taken (or -1, one group): one that the codes per
+    word do not divide, and a partial last group, are looked up per code."""
     gs = group_size if group_size != -1 else k
-    if k % pack or n % 4 or gs % pack:
+    if (k * bits) % 32 or (n * bits) % 32 or gs <= 0:
         raise NotImplementedError(
-            f"{gemm.KERNEL_NAMES[storage_bits(bits)]} needs K % {pack} == 0, N % 4 == 0 and "
-            f"group size % {pack} == 0 for {bits}-bit layers (K={k}, N={n}, group size={gs}); "
-            f"other shapes wait for ROADMAP Queue 2, {'K5' if bits == 2 else 'K4'}")
+            f"{gemm.KERNEL_NAMES[storage_bits(bits)]} takes {bits}-bit layers whose K*{bits} "
+            f"and N*{bits} are whole 32-bit words, as in every GPTQ checkpoint, and a positive "
+            f"group size (K={k}, N={n}, group size={gs})")
 
 
 def check_kb32l_shape(bits: int, k: int, group_size: int) -> None:

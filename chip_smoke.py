@@ -13,6 +13,9 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    a desc_act and a bias case: the
    error against the stated tolerance, the kernel's, the plain version's and
    ``torch.matmul``'s (on a pre-dequantized bf16 weight) times, and the bound.
+   At M = 128 and 2048 (bf16) the tensor-core tile kernel runs, and the SIMT
+   tile kernel is held and timed beside it on the same weights; ptxas'
+   registers, spills and shared memory of every tensor-core instance.
 4. K2 (flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2 with a
    left-padded row, and GQA, with the same measurements (the library call is
    ``scaled_dot_product_attention``).
@@ -42,10 +45,13 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    ``ki32`` and ``kpair`` kernels (3-bit codes in nibbles, one group, group
    sizes 16 and 64, K = 11008) against their plain versions at the three
    Llama-2-7B shapes, M in {1, 4, 16, 17, 128}, bf16 (timed) and f32, one
-   desc_act case per kernel.
+   desc_act case per kernel. The rest classes (group sizes the codes per word
+   do not divide, a partial last group) at full width, one layer per storage
+   width, through the GEMV (M = 1), the SIMT tile kernel and K10 (M = 128).
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
    full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
-   equal tokens, launch counts (K5, K1, K4) set to 0 before and read after.
+   equal tokens, launch counts (K5, K1, K4) set to 0 before and read after;
+   a batch-2 run whose 32-row prefill takes each width's tensor-core kernel.
 11. Quantize on the card at full width: a random fp16 1-layer checkpoint,
    ``from_pretrained``, ``quantize`` with 64 calibration sequences of 256
    tokens for 4-bit g128, 4-bit g128 desc_act, 2-, 3- and 8-bit; seconds per
@@ -58,16 +64,18 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    {10 (an adaption prompt's rows), 17, 128, 2048 (a 4 x 512 batch)}, 2-, 3-,
    4- and 8-bit g128 plus a desc_act and a group-size-32 case, bf16 (timed)
    and f32; ``torch.matmul(g, W_bf16.T)`` on a pre-dequantized weight is the
-   library yardstick.
+   library yardstick. bf16 above 16 rows takes the tensor-core K10; the
+   4-bit rows at M = 128 and 2048 also hold and time the SIMT K10.
 13. Training on the main-path model (full depth and width, 4-bit g128):
    ``utils.peft.get_gptq_peft_model`` with LoRA at the example's defaults (r 16,
    alpha 32, q_proj and v_proj), 8 ``torch.optim.AdamW`` steps at lr 1e-3 on
    one random batch of 4 x 512 tokens (one row left-padded, labels -100 on the
    pads, the example's masked loss); the loss of every step, seconds per step,
    tokens/s, peak memory, K1 and K10 launches per step (counts set to 0 just
-   before each step and read just after), a profile of one more step (K1, K10,
-   attention, other), ``save_adapter`` and a 16-token greedy ``generate`` with
-   the adapters in place, twice with equal tokens.
+   before each step and read just after: the tensor-core kernels only), a
+   profile of one more step (K1, K10, attention, other, and by kernel
+   instance), ``save_adapter`` and a 16-token greedy ``generate`` with the
+   adapters in place, twice with equal tokens.
 14. Adapter gradients on the card against the CPU: the 2-layer full-width cut
    of step 8, batch 1 x 64, LoRA, AdaLoRA and an adaption prompt with every
    adapter tensor drawn from a seed; one backward on the card (bf16, K1 and
@@ -207,6 +215,9 @@ LAYER_SHAPES = {          # Llama-2-7B projection: (K, N, calls per decoder laye
 }
 
 
+MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the tensor-core tile kernels
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -262,7 +273,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def simt_matmul(gemm, qlin, x, layer):
+    """``qlin.matmul(x, layer)`` through the layer's SIMT kernels (GEMV or SIMT
+    tile kernel) whatever ``gemm.tile_kernel`` would pick: the tensor-core
+    kernel's yardstick on the same weights."""
+    if layer.layout == "kb32l":
+        return gemm.w4a16_kb32l_matmul(x, layer.qweight, layer.scales, layer.zeros, layer.kperm,
+                                       layer.bias, layer.group_size, layer.out_features,
+                                       kernel="simt")
+    return gemm.wna16_matmul(x, layer.qweight, layer.scales, layer.zeros, layer.kperm,
+                             layer.bias, layer.group_size, qlin.storage_bits(layer.bits),
+                             kernel="simt")
+
+
 def phase_k1(torch, np, timer) -> list:
+    """K1 against its plain version at the Llama-2-7B shapes; at M > 16 the
+    tensor-core tile kernel (bf16) and the SIMT tile kernel on the same
+    weights, each held to K1_REL_TOL and timed."""
+    from autogptq_tpu_torch.ops import gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
 
@@ -288,17 +316,32 @@ def phase_k1(torch, np, timer) -> list:
         check(bool(torch.isfinite(y).all()), f"K1 {name} M={m}: non-finite output")
         check(err <= K1_REL_TOL * scale, f"K1 {name} M={m}: max |kernel - plain| = {err:.3e} "
                                          f"> {K1_REL_TOL} * {scale:.3e}")
+        route = gemm.tile_kernel(x.dtype, m, 128)
+        iters = 5 if m == TRAIN_M else 20
+        simt = {}
+        if route == "mma":     # the SIMT tile kernel on the same weights
+            ys = simt_matmul(gemm, qlin, x, layer)
+            torch.cuda.synchronize()
+            serr = (ys.float() - ref.float()).abs().max().item()
+            check(serr <= K1_REL_TOL * scale, f"K1 SIMT {name} M={m}: max |kernel - plain| = "
+                                              f"{serr:.3e} > {K1_REL_TOL} * {scale:.3e}")
+            simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
+                lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         w = qlin.logical_weight(layer, torch.bfloat16)
-        ms = timer.ms(lambda: qlin.matmul(x, layer))
-        plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer))
-        lib_ms = timer.ms(lambda: torch.matmul(x, w))
+        ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
+        plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 10))
+        lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=iters)
         b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
                                      layer.kperm, layer.bias), 2.0 * m * k * n)
-        rows.append(dict(case=name, K=k, N=n, M=m, max_abs_err=err, max_abs_ref=scale, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"K1 {name:14s} K={k:5d} N={n:5d} M={m:3d}  err {err:.3e} (tol {K1_REL_TOL * scale:.3e})"
-              f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms"
-              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        rows.append(dict(case=name, K=k, N=n, M=m, route=route, max_abs_err=err,
+                         max_abs_ref=scale, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, **simt))
+        print(f"K1 {name:14s} K={k:5d} N={n:5d} M={m:4d} {route:4s}  err {err:.3e} (tol "
+              f"{K1_REL_TOL * scale:.3e})  kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} "
+              f"TFLOP/s)" + (f"  SIMT tile {simt['simt_ms']:.4f} ms (err "
+                             f"{simt['simt_max_abs_err']:.3e})" if simt else "")
+              + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by})", flush=True)
     return rows
 
 def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype, layout=None):
@@ -318,7 +361,7 @@ def ptxas_report(name: str, key: str) -> list:
 
     from autogptq_tpu_torch.ops import build
 
-    out, fn, spills = [], None, None
+    out, fn, spills, smem = [], None, None, None
     for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -330,9 +373,11 @@ def ptxas_report(name: str, key: str) -> list:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None and key in fn:
+            smem = re.search(r"(\d+) bytes smem", line)
             out.append(dict(function=fn, registers=int(m.group(1)),
                             spill_stores=spills[0] if spills else None,
-                            spill_loads=spills[1] if spills else None))
+                            spill_loads=spills[1] if spills else None,
+                            smem=int(smem.group(1)) if smem else 0))
             fn = None
     return out
 
@@ -370,8 +415,11 @@ def phase_k6(torch, np, timer) -> dict:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
         before = dict(build.launches)
         y = qlin.matmul(x, layer)
-        check(build.launches[gemm.KB32L_KERNEL] == before.get(gemm.KB32L_KERNEL, 0) + 1
-              and build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0),
+        key = gemm.KB32L_KERNEL + (gemm.MMA_SUFFIX if gemm.tile_kernel(dtype, m, 128) == "mma"
+                                   else "")
+        check(build.launches[key] == before.get(key, 0) + 1
+              and build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0)
+              and build.launches["w4a16_gemm_mma"] == before.get("w4a16_gemm_mma", 0),
               f"K6 {name} M={m}: launched {dict(build.launches)}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
@@ -383,6 +431,16 @@ def phase_k6(torch, np, timer) -> dict:
         check(torch.equal(qlin.matmul(x, layer), y), f"K6 {name} M={m}: not deterministic")
         w = qlin.logical_weight(layer, dtype)
         iters = 5 if m == TRAIN_M else 20
+        route = gemm.tile_kernel(dtype, m, 128)
+        simt = {}
+        if route == "mma":     # K6's SIMT tile kernel on the same words
+            ys = simt_matmul(gemm, qlin, x, layer)
+            torch.cuda.synchronize()
+            serr = (ys.float() - ref.float()).abs().max().item()
+            check(serr <= tol, f"K6 SIMT {name} M={m}: max |kernel - plain| = {serr:.3e} > "
+                               f"{tol:.3e}")
+            simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
+                lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
         k1_ms = timer.ms(lambda: qlin.matmul(x, gptq), iters=iters)
         plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 5), warmup=1)
@@ -397,11 +455,13 @@ def phase_k6(torch, np, timer) -> dict:
                         weight_bytes_in_flight_per_sm=resident * min(
                             gemm.KB32L_NBUF, plan["tiles_per_split"]) * plan["stage_bytes"])
         rows.append(dict(case=name, K=k, N=n, M=m, bits=bits, desc_act=desc_act,
-                         bias=with_bias, dtype=str(dtype), max_abs_err=err, max_abs_ref=scale,
-                         tol=tol, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, plan=plan))
-        print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} err {err:.3e} "
-              f"(tol {tol:.3e})  kernel {ms:.4f} ms  K1 {k1_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                         bias=with_bias, dtype=str(dtype), route=route, max_abs_err=err,
+                         max_abs_ref=scale, tol=tol, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plan=plan, **simt))
+        print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} {route:4s} err "
+              f"{err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms"
+              + (f"  SIMT tile {simt['simt_ms']:.4f} ms" if simt else "")
+              + f"  K1 {k1_ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plan {plan}",
               flush=True)
         del layer, gptq, w
@@ -414,7 +474,7 @@ def phase_k6(torch, np, timer) -> dict:
 
 def phase_wna16(torch, np, timer) -> list:
     """K4, K5 and K1's other shape classes against their plain versions."""
-    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
     rng = np.random.default_rng(3)
@@ -437,9 +497,11 @@ def phase_wna16(torch, np, timer) -> list:
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
         for m in (1, BEAMS, 16, 17, 128):
             x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-            before = build.launches[kernel]
+            key = kernel + ("_mma" if gemm.tile_kernel(x.dtype, m, k if gs == -1 else gs) == "mma"
+                            else "")
+            before = build.launches[key]
             y = qlin.matmul(x, layer)
-            check(build.launches[kernel] == before + 1, f"{case} M={m}: {kernel} not launched")
+            check(build.launches[key] == before + 1, f"{case} M={m}: {key} not launched")
             ref = qlin.matmul_plain(x, layer)
             y32 = qlin.matmul(x.float(), layer)
             ref32 = qlin.matmul_plain(x.float(), layer)
@@ -458,11 +520,11 @@ def phase_wna16(torch, np, timer) -> list:
             lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=10)
             b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
                                          layer.kperm), 2.0 * m * k * n)
-            rows.append(dict(kernel=kernel, bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
+            rows.append(dict(kernel=key, bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
                              desc_act=desc_act, max_abs_err=err, max_abs_ref=scale,
                              max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-            print(f"{kernel} {case:26s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
+            print(f"{key} {case:26s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
                   f"{K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
                   f"{ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
@@ -470,8 +532,124 @@ def phase_wna16(torch, np, timer) -> list:
     return rows
 
 
+# Rest-class layers at Llama-2-7B widths, one per storage width: group sizes that the codes
+# per word do not divide (a word straddles groups), 4-bit gs 100 and 3-bit gs 12 with a
+# partial last group, 4-bit gs 172 with desc_act. (bits, projection, group size, desc_act)
+REST_LAYERS = ((4, "qkvo", 100, False), (3, "qkvo", 12, False), (2, "qkvo", 24, False),
+               (8, "qkvo", 6, False), (4, "down", 172, True))
+
+
+def phase_rest(torch, np, timer) -> list:
+    """The rest classes on the card: each layer once through the decode
+    regime (M = 1, the per-code group GEMV) and once through the tile regime
+    (M = 128, the SIMT tile kernel: 16 divides none of these group sizes),
+    and K10 at M = 128, bf16 (timed) and f32, against the plain versions."""
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {name: (k, n) for name, (k, n, _) in LAYER_SHAPES.items()}
+    rows = []
+    for bits, name, gs, desc_act in REST_LAYERS:
+        k, n = shapes[name]
+        kernel = KERNEL_OF_BITS[bits]
+        layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
+        w = qlin.logical_weight(layer, torch.bfloat16)
+        case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
+        for m, what in ((1, "forward"), (128, "forward"), (128, "K10")):
+            x = torch.randn((m, n if what == "K10" else k), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            key = gemm.T_KERNEL if what == "K10" else kernel
+            if what == "K10":
+                def run(v):
+                    return qlin.matmul_t(v, layer)
+
+                def plain(v):
+                    return gemm.wna16_matmul_t_ref(v, layer.qweight, layer.scales, layer.zeros,
+                                                   layer.kperm, gs, qlin.storage_bits(bits))
+
+                def lib():
+                    return torch.matmul(x, w.t())
+            else:
+                def run(v):
+                    return qlin.matmul(v, layer)
+
+                def plain(v):
+                    return qlin.matmul_plain(v, layer)
+
+                def lib():
+                    return torch.matmul(x, w)
+            before = dict(build.launches)
+            y = run(x)
+            check(build.launches[key] == before.get(key, 0) + 1
+                  and build.launches[key + "_mma"] == before.get(key + "_mma", 0),
+                  f"rest class {case} {what} M={m}: launched {dict(build.launches)}")
+            ref = plain(x)
+            y32, ref32 = run(x.float()), plain(x.float())
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err32 = (y32 - ref32).abs().max().item()
+            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(y32).all()),
+                  f"rest class {case} {what} M={m}: non-finite output")
+            tol = K10_REL_TOL if what == "K10" else K1_REL_TOL
+            check(err <= tol * scale, f"rest class {case} {what} M={m} bf16: max |kernel - "
+                                      f"plain| = {err:.3e} > {tol} * {scale:.3e}")
+            check(err32 <= F32_ABS_TOL * max(1.0, scale), f"rest class {case} {what} M={m} f32: "
+                                                          f"{err32:.3e} > {F32_ABS_TOL}")
+            ms = timer.ms(lambda: run(x), iters=10)
+            plain_ms = timer.ms(lambda: plain(x), iters=3, warmup=1)
+            lib_ms = timer.ms(lib, iters=10)
+            b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
+                                         layer.kperm), 2.0 * m * k * n)
+            rows.append(dict(kernel=key, bits=bits, case=name, what=what, K=k, N=n, M=m,
+                             group_size=gs, desc_act=desc_act, max_abs_err=err,
+                             max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            print(f"rest class {key} {case:22s} {what:7s} K={k:5d} N={n:5d} M={m:3d}  bf16 err "
+                  f"{err:.3e} (tol {tol * scale:.3e})  f32 err {err32:.3e} (tol "
+                  f"{F32_ABS_TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul "
+                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        del layer, w
+    return rows
+
+
+# Dynamic shared memory of the tensor-core kernels (csrc/wna16_mma.cuh): forward 4 stages of
+# an x tile [128][72] halves, 64/P word rows of 128 words and 4 group rows of fp16 scales and
+# uint8 zeros; K10 4 stages of a g tile [128][72], 128/P word rows of 64 words and 8 group
+# rows, plus two sets of hi and lo B tiles [128][72].
+def mma_smem_bytes(bits: int, transpose: bool) -> int:
+    p = 32 // bits
+    if transpose:
+        return 4 * (128 * 72 * 2 + (128 // p) * 64 * 4 + 8 * 64 * 3) + 2 * 2 * 128 * 72 * 2
+    return 4 * (128 * 72 * 2 + (64 // p) * 128 * 4 + 4 * 128 * 3)
+
+
+def mma_ptxas() -> list:
+    """ptxas' registers, spills and static shared memory of every tensor-core
+    kernel instance, with its dynamic shared memory."""
+    out = []
+    for name, bits in (("w4a16_gemm", 4), ("w8a16_gemm", 8), ("w2a16_gemm", 2),
+                       ("w4a16_kb32l_gemm", 4), ("wna16_gemm_t", None)):
+        for r in ptxas_report(name, "mma_kernel"):
+            b = bits
+            if b is None:   # K10's library holds the three widths: ILi<BITS>E in the name
+                b = next(x for x in (2, 4, 8) if f"ILi{x}E" in r["function"])
+            r.update(library=name, dynamic_smem_bytes=mma_smem_bytes(b, "t_mma" in r["function"]))
+            out.append(r)
+    for r in out:
+        print(f"ptxas {r['library']}: {r['function'][:70]}: {r['registers']} registers, spill "
+              f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B, dynamic "
+              f"smem {r['dynamic_smem_bytes']} B", flush=True)
+    return out
+
+
 def phase_k10(torch, np, timer) -> list:
-    """K10 against its plain version at the shapes of a training step."""
+    """K10 against its plain version at the shapes of a training step; at
+    M = 128 and 2048 the SIMT kernel beside the tensor-core one (bf16) on the
+    same weights for the 4-bit rows (g128, desc_act, g32), both held to
+    K10_REL_TOL and timed."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -488,9 +666,11 @@ def phase_k10(torch, np, timer) -> list:
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
         for m in (10, 17, 128, TRAIN_M):
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-            before = build.launches[gemm.T_KERNEL]
+            route = gemm.tile_kernel(g.dtype, m, gs)
+            key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
+            before = build.launches[key]
             dx = qlin.matmul_t(g, layer)
-            check(build.launches[gemm.T_KERNEL] == before + 1, f"K10 {case} M={m}: not launched")
+            check(build.launches[key] == before + 1, f"K10 {case} M={m}: {key} not launched")
             ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                           layer.kperm, gs, qlin.storage_bits(bits))
             dx32 = qlin.matmul_t(g.float(), layer)
@@ -507,6 +687,19 @@ def phase_k10(torch, np, timer) -> list:
             check(err32 <= F32_ABS_TOL * max(1.0, scale),
                   f"K10 {case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
             iters = 5 if m == TRAIN_M else 10
+            simt = {}
+            if route == "mma" and bits == 4 and m >= 128:   # the SIMT kernel, same weights
+                def simt_t():
+                    return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
+                                               layer.kperm, gs, 4, kernel="simt")
+                dxs = simt_t()
+                torch.cuda.synchronize()
+                serr = (dxs.float() - ref.float()).abs().max().item()
+                check(serr <= K10_REL_TOL * scale, f"K10 SIMT {case} M={m}: max |kernel - "
+                                                   f"plain| = {serr:.3e} > {K10_REL_TOL} * "
+                                                   f"{scale:.3e}")
+                simt = dict(simt_max_abs_err=serr,
+                            simt_ms=timer.ms(simt_t, iters=iters, warmup=1))
             ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=iters, warmup=1)
             plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(
                 g, layer.qweight, layer.scales, layer.zeros, layer.kperm, gs,
@@ -515,14 +708,17 @@ def phase_k10(torch, np, timer) -> list:
             b_ms, b_by = bound_ms(nbytes(g, dx, layer.qweight, layer.scales, layer.zeros,
                                          layer.kperm), 2.0 * m * k * n)
             rows.append(dict(bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
-                             desc_act=desc_act, max_abs_err=err, max_abs_ref=scale,
+                             desc_act=desc_act, route=route, max_abs_err=err, max_abs_ref=scale,
                              max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=b_by,
-                             tflops=2.0 * m * k * n / ms / 1e9))
-            print(f"K10 {case:24s} K={k:5d} N={n:5d} M={m:4d}  bf16 err {err:.3e} (tol "
-                  f"{K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
-                  f"{ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s)  plain {plain_ms:.4f} "
-                  f"ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+                             tflops=2.0 * m * k * n / ms / 1e9, **simt))
+            print(f"K10 {case:24s} K={k:5d} N={n:5d} M={m:4d} {route:4s}  bf16 err {err:.3e} "
+                  f"(tol {K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
+                  f"kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s)"
+                  + (f"  SIMT {simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
+                     if simt else "")
+                  + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+                    f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
     # K10 over K6's kb32l words (a backward through a kb32l layer)
     k, n = shapes["gate_up"]
@@ -531,9 +727,11 @@ def phase_k10(torch, np, timer) -> list:
     w = qlin.logical_weight(layer, torch.bfloat16)
     for m in (64, TRAIN_M):
         g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        before = build.launches[gemm.T_KERNEL]
+        route = gemm.tile_kernel(g.dtype, m, 128)
+        key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
+        before = build.launches[key]
         dx = qlin.matmul_t(g, layer)
-        check(build.launches[gemm.T_KERNEL] == before + 1, f"K10 kb32l M={m}: not launched")
+        check(build.launches[key] == before + 1, f"K10 kb32l M={m}: {key} not launched")
         ref = gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4)
         dx32 = qlin.matmul_t(g.float(), layer)
         ref32 = gemm.wna16_matmul_t_ref(g.float(), words, s, z, None, 128, 4)
@@ -553,7 +751,8 @@ def phase_k10(torch, np, timer) -> list:
         b_ms, b_by = bound_ms(nbytes(g, dx, layer.qweight, layer.scales, layer.zeros),
                               2.0 * m * k * n)
         rows.append(dict(bits=4, case="gate_up kb32l", K=k, N=n, M=m, group_size=128,
-                         desc_act=False, layout="kb32l", max_abs_err=err, max_abs_ref=scale,
+                         desc_act=False, layout="kb32l", route=route, max_abs_err=err,
+                         max_abs_ref=scale,
                          max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, tflops=2.0 * m * k * n / ms / 1e9))
         print(f"K10 4-bit gate_up g128 kb32l    K={k:5d} N={n:5d} M={m:4d}  bf16 err {err:.3e} "
@@ -740,9 +939,12 @@ def phase_train(torch, np, model, work: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(bool(np.all(np.isfinite(losses))), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    # every projection is a bf16 product of 2048 rows: the tensor-core kernels, no SIMT tile
     for c in counts:
-        check(c.get("w4a16_gemm", 0) >= 7 * layers, f"a training step launched K1 {c}")
-        check(c.get(gemm.T_KERNEL, 0) >= 7 * (layers - 1), f"a training step launched K10 {c}")
+        check(c.get("w4a16_gemm_mma", 0) == 7 * layers and not c.get("w4a16_gemm", 0),
+              f"a training step launched K1 {c}")
+        check(c.get(gemm.T_KERNEL + gemm.MMA_SUFFIX, 0) >= 7 * (layers - 1)
+              and not c.get(gemm.T_KERNEL, 0), f"a training step launched K10 {c}")
     steady = float(np.median(seconds[1:]))
     tok_s = TRAIN_BATCH * TRAIN_LEN / steady
     print(f"train: LoRA r={TRAIN_RANK} alpha={2 * TRAIN_RANK} on q_proj and v_proj, Llama-2-7B "
@@ -752,6 +954,11 @@ def phase_train(torch, np, model, work: str) -> dict:
           f"{seconds[0]:.3f} s) = {tok_s:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches per step {counts[-1]}", flush=True)
     split = profile_train_step(torch, step)
+    check(not split or ("K1 tensor-core tile" in split["instances"]
+                        and "K10 tensor-core" in split["instances"]
+                        and "K1 SIMT tile" not in split["instances"]
+                        and "K10 SIMT" not in split["instances"]),
+          f"the profiled training step ran {split.get('instances')}")
 
     adapter_dir = os.path.join(work, "adapter")
     peft.save_adapter(model, adapter_dir)
@@ -781,9 +988,10 @@ def phase_train(torch, np, model, work: str) -> dict:
 
 def profile_train_step(torch, step) -> dict:
     """Device time of one training step by family from torch.profiler's
-    kernel events: K1, K10 by kernel name; attention, the kernels launched by
-    the ops inside ``arch.attention``'s "attention" range and by their
-    backward nodes (matched on sequence number); the rest is other."""
+    kernel events: K1, K10 by kernel name, each split by kernel instance
+    (tensor-core tile kernel, SIMT tile kernel, GEMV); attention, the kernels
+    launched by the ops inside ``arch.attention``'s "attention" range and by
+    their backward nodes (matched on sequence number); the rest is other."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -803,12 +1011,19 @@ def profile_train_step(torch, step) -> dict:
         return None
 
     split = dict(K1=0.0, K10=0.0, attention=0.0, other=0.0)
+    instances: dict = {}      # kernel instance (KERNEL_INSTANCES) -> [launches, ms]
     kernels = 0
     for evt in events:
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         kernels += 1
-        split[family(evt.name) or "other"] += evt.time_range.elapsed_us() / 1e3
+        ms = evt.time_range.elapsed_us() / 1e3
+        split[family(evt.name) or "other"] += ms
+        inst = next((label for label, key in KERNEL_INSTANCES if key in evt.name), None)
+        if inst is not None:
+            instances.setdefault(inst, [0, 0.0])
+            instances[inst][0] += 1
+            instances[inst][1] += ms
 
     def walk(evt):
         yield evt
@@ -834,9 +1049,12 @@ def profile_train_step(torch, step) -> dict:
           + ", ".join(f"{k} {v:.1f}" if (k != "attention" or ranges) else f"{k} not measured"
                       for k, v in split.items())
           + f"), {kernels} kernels; host clock {wall_ms:.1f} ms under the profiler (device busy "
-          f"{100 * busy / wall_ms:.1f}%)", flush=True)
+          f"{100 * busy / wall_ms:.1f}%); by kernel instance: "
+          + ", ".join(f"{k} {n} launches {v:.1f} ms" for k, (n, v) in instances.items()),
+          flush=True)
     return dict(device_ms=busy, wall_ms=wall_ms, kernels=kernels,
-                attention_measured=bool(ranges), **{f"{k}_ms": v for k, v in split.items()})
+                attention_measured=bool(ranges), instances=instances,
+                **{f"{k}_ms": v for k, v in split.items()})
 
 
 def _draw_adapters(torch, np, tensors, seed) -> None:
@@ -883,8 +1101,8 @@ def phase_grads(torch, np, ckpt_dir: str) -> dict:
                 continue
             torch.cuda.synchronize()
             counts = dict(build.launches)
-            check(counts.get(gemm.T_KERNEL, 0) > 0,
-                  f"{kind} backward on the card ({run}) launched {counts}")
+            key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if dtype == torch.bfloat16 else "")
+            check(counts.get(key, 0) > 0, f"{kind} backward on the card ({run}) launched {counts}")
             out[kind][f"{run} backward_launches"] = counts
             if dtype != torch.bfloat16:
                 continue
@@ -911,7 +1129,7 @@ def phase_grads(torch, np, ckpt_dir: str) -> dict:
         out[kind]["tensors"] = len(cpu)
         print(f"{kind} gradients vs the CPU (f32, plain), 2 full-width layers, 1 x {GRAD_LEN} "
               f"tokens, {len(cpu)} adapter tensors: card bf16 (K1 + K10, K10 launched "
-              f"{out[kind]['card bf16 backward_launches'][gemm.T_KERNEL]} times in the backward) "
+              f"{out[kind]['card bf16 backward_launches']} in the backward) "
               f"relative error max {errs['card bf16'][0]:.3e} (a tensor of shape "
               f"{errs['card bf16'][2]}) median {errs['card bf16'][1]:.3e} "
               f"(tol {GRAD_REL_TOL}); card f32 max {errs['card f32'][0]:.3e} median "
@@ -954,13 +1172,21 @@ def phase_other_widths(torch, np, work: str) -> dict:
         others = set(KERNEL_OF_BITS.values()) - {kernel}
         check(not any(counts.get(o, 0) for o in others), f"{bits}-bit run launched {counts}")
         tok_s = OTHER_WIDTH_TOKENS / gen_s
+        # two prompts: a 32-row prefill through the width's tensor-core tile kernel
+        build.launches.clear()
+        out2 = model.generate([prompt[0], prompt[0][::-1].copy()], max_new_tokens=4)
+        counts2 = dict(build.launches)
+        check(out2.shape == (2, PROMPT_LEN + 4), f"{bits}-bit batch-2 output shape {out2.shape}")
+        check(counts2.get(kernel + "_mma", 0) == 7 * OTHER_WIDTH_LAYERS
+              and counts2.get(kernel, 0) == 7 * OTHER_WIDTH_LAYERS * 3,
+              f"{bits}-bit batch-2 launches {counts2}")
         out[bits] = dict(counts=counts, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
-                         layers=OTHER_WIDTH_LAYERS)
+                         layers=OTHER_WIDTH_LAYERS, batch2_counts=counts2)
         print(f"{bits}-bit g128, Llama-2-7B widths, {OTHER_WIDTH_LAYERS} of 32 layers, batch 1, "
               f"{PROMPT_LEN}-token prompt, {OTHER_WIDTH_TOKENS} new tokens greedy, twice with "
               f"equal tokens: {gen_s:.3f} s = {tok_s:.2f} tok/s at this depth (repeat "
-              f"{again_s:.3f} s), launches {counts}",
-              flush=True)
+              f"{again_s:.3f} s), launches {counts}; batch 2 (a {2 * PROMPT_LEN}-row prefill), 4 "
+              f"new tokens: launches {counts2}", flush=True)
         del model
         torch.cuda.empty_cache()
         shutil.rmtree(path, ignore_errors=True)
@@ -1375,12 +1601,15 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
     check(out2.shape == (2, PROMPT_LEN + 16), f"batch-2 output shape {out2.shape}")
     check(bool((out2[1, :PROMPT_LEN - 9] == 0).all()), "batch-2 row 1 is not left-padded")
     check(bool(((out2 >= 0) & (out2 < cfg["vocab_size"])).all()), "batch-2 token ids out of range")
-    check(counts2.get("w4a16_gemm", 0) >= 7 * layers * 16, f"batch-2 K1 launches {counts2}")
-    print(f"batch 2, left-padded prompts of {PROMPT_LEN} and 9 tokens, 16 new tokens: "
-          f"shape {out2.shape}, launches {counts2}", flush=True)
+    # the 32-row prefill takes K1's tensor-core tile kernel, the 15 decode steps its GEMV
+    check(counts2.get("w4a16_gemm_mma", 0) == 7 * layers
+          and counts2.get("w4a16_gemm", 0) == 7 * layers * 15, f"batch-2 K1 launches {counts2}")
+    print(f"batch 2, left-padded prompts of {PROMPT_LEN} and 9 tokens (a {2 * PROMPT_LEN}-row "
+          f"prefill: K1's tensor-core tile kernel), 16 new tokens: shape {out2.shape}, launches "
+          f"{counts2}", flush=True)
     profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
                      PROFILE_TOKENS)
-    return counts, model, out
+    return counts, model, out, counts2
 
 
 def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
@@ -1457,10 +1686,13 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     counts2 = dict(build.launches)
     check(out2.shape == (2, PROMPT_LEN + 16), f"kb32l batch-2 output shape {out2.shape}")
     check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
-    check(counts2.get(gemm.KB32L_KERNEL, 0) == 7 * layers * 16
-          and counts2.get("w4a16_gemm", 0) == 0, f"kb32l batch-2 launches {counts2}")
+    check(counts2.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
+          and counts2.get(gemm.KB32L_KERNEL, 0) == 7 * layers * 15
+          and not counts2.get("w4a16_gemm", 0) and not counts2.get("w4a16_gemm_mma", 0),
+          f"kb32l batch-2 launches {counts2}")
     print(f"kb32l batch 2, two {PROMPT_LEN}-token prompts (a {2 * PROMPT_LEN}-row prefill: K6's "
-          f"tile regime), 16 new tokens: shape {out2.shape}, launches {counts2}", flush=True)
+          f"tile regime, the tensor-core kernel), 16 new tokens: shape {out2.shape}, launches "
+          f"{counts2}", flush=True)
     del model
     torch.cuda.empty_cache()
     return dict(load_s=load_s, load_peak_bytes=load_peak, prefill_rel_err=prefill_rel,
@@ -1573,10 +1805,15 @@ def phase_beam(torch, np, model) -> dict:
                 int8_gen_s=q_s, int8_counts=counts_q)
 
 
-# K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...>); the profiled
-# model is 4-bit. K10 is wna16_t_kernel<BITS, ...>.
-K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce")
-K10_KEYS = ("wna16_t_kernel",)
+# K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...> and the tensor-core
+# wna16_mma_kernel<BITS, ...>); the profiled model is 4-bit. K10 is wna16_t_kernel<BITS, ...>
+# and the tensor-core wna16_t_mma_kernel<BITS, ...>.
+K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce", "wna16_mma_kernel")
+K10_KEYS = ("wna16_t_kernel", "wna16_t_mma_kernel")
+KERNEL_INSTANCES = (("K1 tensor-core tile", "wna16_mma_kernel"),
+                    ("K1 SIMT tile", "wna16_prefill_kernel"),
+                    ("K1 GEMV", "wna16_decode_kernel"), ("K1 split-K reduce", "splitk_reduce"),
+                    ("K10 tensor-core", "wna16_t_mma_kernel"), ("K10 SIMT", "wna16_t_kernel"))
 # K9 is routed_{decode,reduce}_kernel<T>.
 FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
             ("K9 w4a16_routed_gemm", ("routed_decode", "routed_reduce")),
@@ -1945,6 +2182,8 @@ def main() -> int:
     timer = Timer(torch)
     k1_rows = timed("K1", phase_k1, torch, np, timer)
     wna_rows = timed("K4/K5/K1 classes", phase_wna16, torch, np, timer)
+    rest_rows = timed("rest classes", phase_rest, torch, np, timer)
+    ptxas = mma_ptxas()
     k2_rows = timed("K2", phase_k2, torch, timer)
     k7_rows = timed("K7", phase_k7, torch, timer)
     k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
@@ -1959,7 +2198,8 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         ckpt = os.path.join(work, "llama2-7b-random-g128")
-        launches, model, main_out = timed("main path", phase_main_path, torch, np, ckpt)
+        launches, model, main_out, batch2_launches = timed("main path", phase_main_path, torch,
+                                                           np, ckpt)
         kb32l = timed("kb32l path", phase_kb32l_path, torch, np, ckpt, model, main_out)
         beam = timed("beam", phase_beam, torch, np, model)
         train = timed("train", phase_train, torch, np, model, work)
@@ -1993,17 +2233,23 @@ def main() -> int:
                     plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
                     bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], at=at)
 
-    def gemm_entry(name, replaces, counted, rows, at, m=1, err_rows=None):
-        """One decoder layer's 7 projections at M = m, g128."""
+    def gemm_entry(name, replaces, counted, rows, at, m=1, err_rows=None, source=None,
+                   ms_key="ms", errs=None):
+        """One decoder layer's 7 projections at M = m, g128 (the kernel's time
+        under ``ms_key``; its errors ``errs``, else those of ``err_rows``)."""
         main_rows = [r for r in rows if r["M"] == m]
-        return dict(name=name, route="cuda", source=f"autogptq_tpu_torch/ops/csrc/{name}.cu",
-                    replaces=replaces, launches=counted.get(name, 0),
-                    max_abs_err=max(r["max_abs_err"] for r in (err_rows or rows)),
-                    ms=layer_sum(rows, "ms", m), plain_ms=layer_sum(rows, "plain_ms", m),
+        errs = errs or [r["max_abs_err"] for r in (err_rows or rows)]
+        return dict(name=name, route="cuda",
+                    source=source or f"autogptq_tpu_torch/ops/csrc/{name}.cu",
+                    replaces=replaces, launches=counted.get(name, 0), max_abs_err=max(errs),
+                    ms=layer_sum(rows, ms_key, m), plain_ms=layer_sum(rows, "plain_ms", m),
                     bound_ms=layer_sum(rows, "bound_ms", m),
                     bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
                               else "operations"),
                     library_ms=layer_sum(rows, "library_ms", m), at=at)
+
+    k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
+                and not r["desc_act"]]
 
     def width_rows(bits):
         return [r for r in wna_rows if r["bits"] == bits and r["group_size"] == 128
@@ -2011,19 +2257,57 @@ def main() -> int:
 
     at = "one Llama-2-7B decoder layer's 7 projections at M=1, g128"
     kernels = [
-        gemm_entry("w4a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows, at),
+        gemm_entry("w4a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows, at,
+                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "simt"]
+                   + [r["simt_max_abs_err"] for r in k1_rows if "simt_ms" in r]),
         gemm_entry("w8a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
-                   width_rows(8), at + "; launches from the 64-token 8-bit greedy run at 8 layers"),
+                   width_rows(8), at + "; launches from the 64-token 8-bit greedy run at 8 layers",
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w8a16_gemm"]),
         gemm_entry("w2a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:1061", widths[2]["counts"],
-                   width_rows(2), at + "; launches from the 64-token 2-bit greedy run at 8 layers"),
+                   width_rows(2), at + "; launches from the 64-token 2-bit greedy run at 8 layers",
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w2a16_gemm"]),
         gemm_entry("wna16_gemm_t", "autogptq_tpu/ops/pallas/gemm.py:844",
-                   train["launches_per_step"],
-                   [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
-                    and not r["desc_act"]],
-                   f"one Llama-2-7B decoder layer's 7 projections at M={TRAIN_M} (a "
-                   f"{TRAIN_BATCH} x {TRAIN_LEN} batch), 4-bit g128, bf16 cotangents; launches "
-                   f"from one LoRA training step at full depth; max_abs_err over every K10 case",
-                   m=TRAIN_M, err_rows=k10_rows),
+                   grads["LoRA"]["card f32 backward_launches"], k10_g128,
+                   f"the SIMT kernel: one Llama-2-7B decoder layer's 7 projections at M="
+                   f"{TRAIN_M}, 4-bit g128, bf16 cotangents, timed beside the tensor-core kernel "
+                   f"on the same weights (it runs f32 cotangents, M <= 16 and group sizes 16 "
+                   f"does not divide); launches from the f32 LoRA backward of the 2-layer "
+                   f"gradient check; max_abs_err over every SIMT K10 case",
+                   m=TRAIN_M, ms_key="simt_ms",
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "simt"]
+                   + [r["simt_max_abs_err"] for r in k10_rows if "simt_ms" in r]),
+        gemm_entry("wna16_gemm_t_mma", "autogptq_tpu/ops/pallas/gemm.py:811",
+                   train["launches_per_step"], k10_g128,
+                   f"the tensor-core K10: one Llama-2-7B decoder layer's 7 projections at M="
+                   f"{TRAIN_M} (a {TRAIN_BATCH} x {TRAIN_LEN} batch), 4-bit g128, bf16 "
+                   f"cotangents; launches from one LoRA training step at full depth; "
+                   f"max_abs_err over every tensor-core K10 case", m=TRAIN_M, source=MMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "mma"]),
+        gemm_entry("w4a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:487", train["launches_per_step"],
+                   k1_rows, f"K1's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
+                   f"projections at M={TRAIN_M}, g128, bf16 (replaces the prefill regime of "
+                   f"_kernel_kb32 :487); launches from one LoRA training step at full depth; "
+                   f"max_abs_err over every K1 case it ran", m=TRAIN_M, source=MMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "mma"]),
+        gemm_entry("w8a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["batch2_counts"],
+                   width_rows(8), "K4's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
+                   "projections at M=128, g128, bf16; launches from the 8-bit batch-2 run's "
+                   "32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w8a16_gemm_mma"]),
+        gemm_entry("w2a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:1061",
+                   widths[2]["batch2_counts"], width_rows(2), "K5's tensor-core tile kernel: one "
+                   "Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; launches from "
+                   "the 2-bit batch-2 run's 32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w2a16_gemm_mma"]),
+        gemm_entry("w4a16_kb32l_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:635",
+                   kb32l["batch2_counts"], [r for r in k6["rows"] if r["case"] in LAYER_SHAPES],
+                   f"K6's tile regime, the tensor-core kernel over kb32l words: one Llama-2-7B "
+                   f"decoder layer's 7 projections at M={TRAIN_M}, g128, bf16 (replaces "
+                   f"_matmul_kb32l :635, _kernel_kb32 with lin=True); launches from the kb32l "
+                   f"batch-2 run's 32-row prefill", m=TRAIN_M, source=MMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "mma"]),
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
@@ -2044,7 +2328,9 @@ def main() -> int:
                    f"function over the tile-contiguous kb32l words, a cp.async ring at M <= 16 "
                    f"(replaces _kernel_kb32l_manual :692 and _matmul_kb32l :635); launches from "
                    f"the {NEW_TOKENS}-token greedy run of the model loaded with layout='kb32l'; "
-                   f"max_abs_err over every K6 case", err_rows=k6["rows"]),
+                   f"max_abs_err over every K6 case of the GEMV and the SIMT tile kernel",
+                   errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "simt"]
+                   + [r["simt_max_abs_err"] for r in k6["rows"] if "simt_ms" in r]),
         dict(name="w4a16_routed_gemm", route="cuda",
              source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:894",
@@ -2059,13 +2345,16 @@ def main() -> int:
                 f"experts; launches from the {MIXTRAL_NEW_TOKENS}-token greedy run at "
                 f"{MIXTRAL_LAYERS} layers; max_abs_err over every K9 case"),
     ]
+    for e in kernels:   # every kernel of the line ran on its path
+        check(e["launches"] > 0, f"{e['name']} was launched no time on its path: {e['at']}")
     elapsed = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
                        k1=k1_rows, k9=k9_rows, k6=k6, kb32l=kb32l, kb32l_cut=kb32l_cut,
                        mixtral=mixtral, mixtral_cut=mixtral_cut,
-                       wna16=wna_rows, other_widths=widths, quantize=quantize,
+                       wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas, other_widths=widths,
+                       quantize=quantize, main_batch2=batch2_launches,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        main_path=launches, beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,

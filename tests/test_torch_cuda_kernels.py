@@ -44,6 +44,13 @@ def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16,
 KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
 
 
+def _key(name, dtype, m, k, gs):
+    """The launch-count key of library ``name`` for a product of ``m`` rows:
+    its tensor-core kernel's or its SIMT kernels' (``gemm.tile_kernel``)."""
+    route = qlin.gemm.tile_kernel(dtype, m, k if gs == -1 else gs)
+    return name + (qlin.gemm.MMA_SUFFIX if route == "mma" else "")
+
+
 @pytest.mark.parametrize("bits", [2, 3, 8])
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 70])
 @pytest.mark.parametrize("k, n, gs, desc_act, bias", [
@@ -59,7 +66,7 @@ def test_k4_k5_and_3bit_match_plain(card, bits, m, k, n, gs, desc_act, bias):
     layer = _layer(m + k + bits, k, n, gs, desc_act, bias, bits=bits)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=torch.bfloat16)
-    name = KERNEL_OF_BITS[bits]
+    name = _key(KERNEL_OF_BITS[bits], x.dtype, m, k, gs)
     before = build.launches[name]
     y = qlin.matmul(x, layer)
     assert build.launches[name] == before + 1
@@ -115,9 +122,9 @@ def test_k4_k5_edge_cases(card, bits):
         wrapper(x, layer.qweight[:-1], layer.scales, layer.zeros, None, None, 32)
     with pytest.raises(ValueError, match="contiguous"):
         wrapper(x.t().contiguous().t(), layer.qweight, layer.scales, layer.zeros, None, None, 32)
-    with pytest.raises(NotImplementedError, match="group size"):
+    with pytest.raises(NotImplementedError, match="group size"):   # every size > 0 is taken
         wrapper(x, layer.qweight, layer.scales[:1].repeat(128, 1).contiguous(),
-                layer.zeros[:1].repeat(128, 1).contiguous(), None, None, 2)
+                layer.zeros[:1].repeat(128, 1).contiguous(), None, None, 0)
     with pytest.raises(ValueError, match="bias"):
         wrapper(x, layer.qweight, layer.scales, layer.zeros, None,
                 torch.zeros(128, device=card), 32)
@@ -176,9 +183,10 @@ def test_k1_matches_plain(card, m, k, n, gs, desc_act, bias):
     layer = _layer(m + k, k, n, gs, desc_act, bias)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=torch.bfloat16)
-    before = build.launches["w4a16_gemm"]
+    name = _key("w4a16_gemm", x.dtype, m, k, gs)
+    before = build.launches[name]
     y = qlin.matmul(x, layer)
-    assert build.launches["w4a16_gemm"] == before + 1
+    assert build.launches[name] == before + 1
     ref = qlin.matmul_plain(x, layer)
     torch.cuda.synchronize()
     # f32 dequantization and accumulation on both sides, one bf16 rounding:
@@ -416,9 +424,10 @@ def test_k10_matches_plain(card, bits, m, k, n, gs, desc_act):
     for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
         g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
                         dtype=dtype)
-        before = build.launches["wna16_gemm_t"]
+        name = _key("wna16_gemm_t", dtype, m, k, gs)
+        before = build.launches[name]
         dx = qlin.gemm.wna16_matmul_t(g, *args, sbits)
-        assert build.launches["wna16_gemm_t"] == before + 1
+        assert build.launches[name] == before + 1
         ref = qlin.gemm.wna16_matmul_t_ref(g, *args, sbits)
         torch.cuda.synchronize()
         assert dx.shape == (m, k) and dx.dtype == dtype
@@ -587,10 +596,12 @@ def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
     layer = _layer(k + n + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
+    name = _key("w4a16_kb32l_gemm", dtype, m, k, gs)
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
-    assert build.launches["w4a16_kb32l_gemm"] == before.get("w4a16_kb32l_gemm", 0) + 1
+    assert build.launches[name] == before.get(name, 0) + 1
     assert build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0)
+    assert build.launches["w4a16_gemm_mma"] == before.get("w4a16_gemm_mma", 0)
     ref = qlin.matmul_plain(x, layer)
     torch.cuda.synchronize()
     assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
@@ -631,9 +642,10 @@ def test_k10_over_kb32l_matches_plain(card, m, k, n, gs, bits, desc_act, bias):
     for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
         g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
                         dtype=dtype)
-        before = build.launches["wna16_gemm_t"]
+        name = _key("wna16_gemm_t", dtype, m, k, gs)
+        before = build.launches[name]
         dx = qlin.matmul_t(g, layer)
-        assert build.launches["wna16_gemm_t"] == before + 1
+        assert build.launches[name] == before + 1
         ref = qlin.gemm.wna16_matmul_t_ref(g, *qlin.gptq_tensors(layer), layer.kperm, gs, 4)
         torch.cuda.synchronize()
         assert dx.shape == (m, k) and dx.dtype == dtype
@@ -696,3 +708,158 @@ def test_tiny_llama_kb32l_card_matches_cpu(card, tmp_path):
     got = models["cuda"].generate(prompt, max_new_tokens=8)
     assert build.launches["w4a16_kb32l_gemm"] == 7 * 2 * 8 and build.launches["w4a16_gemm"] == 0
     np.testing.assert_array_equal(got, models["cpu"].generate(prompt, max_new_tokens=8))
+
+
+# The tensor-core tile kernels (csrc/wna16_mma.cuh): (K, N, group size, desc_act, bias), N not
+# a multiple of the 128-column block tile (544, 1056), K not a multiple of the 128-row dx tile
+# (1056), group sizes 16, 32, 128 and one group (-1).
+MMA_SHAPES = [(1024, 544, 16, False, False), (1024, 1056, 32, True, True),
+              (2048, 4096, 128, False, True), (1056, 544, -1, False, False),
+              (4096, 4096, 128, True, False)]
+MMA_DTYPES = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 70, 129, 2048])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k, n, gs, desc_act, bias", MMA_SHAPES)
+def test_mma_tile_kernel_matches_plain(card, dtype, m, bits, k, n, gs, desc_act, bias):
+    """K1/K4/K5's tensor-core tile kernel against the plain version: f32
+    accumulation of the exact (q - z) and the f32 scale fold against the f32
+    product, one rounding on both sides: 1% of the largest output (K1_REL_TOL)."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, bias, dtype, bits)
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    name = KERNEL_OF_BITS[bits] + qlin.gemm.MMA_SUFFIX
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    assert build.launches[name] == before.get(name, 0) + 1
+    assert build.launches[KERNEL_OF_BITS[bits]] == before.get(KERNEL_OF_BITS[bits], 0)
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 70, 129, 2048])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k, n, gs, desc_act", [s[:4] for s in MMA_SHAPES])
+def test_mma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
+    """K10's tensor-core kernel against wna16_matmul_t_ref: the scaled weight
+    rounded once to the cotangent's type (the JAX kernels' rounding), f32
+    accumulation: 1% of the largest output (K10_REL_TOL)."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, bits=bits)
+    sbits = qlin.storage_bits(bits)
+    args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, gs)
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    dx = qlin.gemm.wna16_matmul_t(g, *args, sbits)
+    assert build.launches["wna16_gemm_t_mma"] == before.get("wna16_gemm_t_mma", 0) + 1
+    assert build.launches["wna16_gemm_t"] == before.get("wna16_gemm_t", 0)
+    ref = qlin.gemm.wna16_matmul_t_ref(g, *args, sbits)
+    torch.cuda.synchronize()
+    assert dx.shape == (m, k) and dx.dtype == dtype and bool(torch.isfinite(dx).all())
+    assert (dx.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 129, 2048])
+@pytest.mark.parametrize("k, n, gs, bits, desc_act, bias", [K6_SHAPES[0], K6_SHAPES[3],
+                                                            K6_SHAPES[4]])
+def test_mma_over_kb32l_words_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
+    """K6's tile regime and K10 over kb32l words take the tensor-core kernels
+    (Kb32lWords address, scales and zeros of the padded width)."""
+    layer = _layer(m + k + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    dx = qlin.matmul_t(g, layer)
+    assert build.launches["w4a16_kb32l_gemm_mma"] == before.get("w4a16_kb32l_gemm_mma", 0) + 1
+    assert build.launches["wna16_gemm_t_mma"] == before.get("wna16_gemm_t_mma", 0) + 1
+    ref = qlin.matmul_plain(x, layer)
+    ref_t = qlin.gemm.wna16_matmul_t_ref(g, *qlin.gptq_tensors(layer), layer.kperm, gs, 4)
+    torch.cuda.synchronize()
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert (dx.float() - ref_t.float()).abs().max() <= 1e-2 * ref_t.float().abs().max()
+
+
+def test_f32_stays_on_the_simt_tile_kernels(card):
+    """f32 activations and cotangents at M > 16 take the SIMT kernels (f32
+    weights), as does a group size that 16 does not divide; their counters
+    say so."""
+    for bits in (2, 4, 8):
+        name = KERNEL_OF_BITS[bits]
+        for dtype, gs, route in ((torch.float32, 32, ""), (torch.bfloat16, 24, ""),
+                                 (torch.bfloat16, 32, "_mma")):
+            layer = _layer(bits, 768, 256, gs, dtype=dtype, bits=bits)
+            before = dict(build.launches)
+            qlin.matmul(torch.randn((64, 768), device=card, dtype=dtype), layer)
+            qlin.matmul_t(torch.randn((64, 256), device=card, dtype=dtype), layer)
+            assert build.launches[name + route] == before.get(name + route, 0) + 1
+            assert build.launches["wna16_gemm_t" + route] == \
+                before.get("wna16_gemm_t" + route, 0) + 1
+            other = "_mma" if route == "" else ""
+            assert build.launches[name + other] == before.get(name + other, 0)
+            assert build.launches["wna16_gemm_t" + other] == before.get("wna16_gemm_t" + other, 0)
+
+
+# The rest classes: group sizes that the codes per word do not divide (a word straddles
+# groups), and a partial last group (gs 100, K 4096: 41 groups). (bits, K, N, gs, desc_act)
+REST_CASES = [(4, 1024, 256, 4, False), (4, 1032, 256, 12, True), (4, 4096, 512, 100, False),
+              (3, 1056, 256, 12, False), (2, 1024, 256, 8, False), (2, 1056, 256, 24, True),
+              (8, 1024, 256, 2, False), (8, 1020, 256, 6, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 70])
+@pytest.mark.parametrize("bits, k, n, gs, desc_act", REST_CASES)
+def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
+    """Both regimes of K1/K4/K5 (the per-code group GEMV at M <= 16, the SIMT
+    tile kernel above) and K10 at the rest classes, against the plain
+    versions: f32 to 1e-4, bf16 to 1% of the largest output."""
+    layer = _layer(m + k + bits + gs, k, n, gs, desc_act, True, dtype, bits)
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    dx = qlin.matmul_t(g, layer)
+    assert build.launches[KERNEL_OF_BITS[bits]] == before.get(KERNEL_OF_BITS[bits], 0) + 1
+    assert build.launches["wna16_gemm_t"] == before.get("wna16_gemm_t", 0) + 1
+    ref = qlin.matmul_plain(x, layer)
+    ref_t = qlin.gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
+                                         layer.kperm, gs, qlin.storage_bits(bits))
+    torch.cuda.synchronize()
+    for got, want in ((y, ref), (dx, ref_t)):
+        scale = float(want.float().abs().max())
+        tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 1e-2 * scale
+        assert bool(torch.isfinite(got).all()) and (got.float() - want.float()).abs().max() <= tol
+    torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
+
+
+@pytest.mark.parametrize("gs", [12, 100])
+def test_k9_rest_classes_match_plain(card, gs):
+    """K9's per-code group instance (4-bit, gs % 8 != 0) against its plain version."""
+    from autogptq_tpu_torch.ops import gemm
+
+    rng = np.random.default_rng(gs)
+    qls = []
+    for _ in range(4):
+        t = random_quant_tensors(rng, 1200, 512, 4, gs, False)
+        qls.append(qlin.from_packed(qlin.PackedQuantLinear(
+            qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+            bias=None, bits=4, group_size=gs, in_features=1200, out_features=512),
+            device="cuda", dtype=torch.float32))
+    sql = qlin.stack_experts(qls)
+    sel = torch.tensor([3, 0, 3], dtype=torch.int32, device=card)
+    x = torch.randn((3, 1200), generator=torch.Generator(card).manual_seed(gs), device=card)
+    y = gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
+    ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)

@@ -134,11 +134,13 @@ def test_unported_options_raise(models, ckpt, tmp_path):
             dict(bits=4, group_size=32, checkpoint_format=fmt, **extra)))
         with pytest.raises(NotImplementedError, match="AWQ and Marlin"):
             AutoGPTQForCausalLM.from_quantized(str(other), device="cpu")
-    # a group size that 8 does not divide has no kernel on the card
+    # the card takes every group size (12: words straddle groups) and refuses
+    # only a K that no checkpoint's words can hold
     from autogptq_tpu_torch.ops.quantlinear import check_card_shape
 
-    with pytest.raises(NotImplementedError, match="Queue 2, K4"):
-        check_card_shape(4, 128, 128, 12)
+    check_card_shape(4, 128, 128, 12)
+    with pytest.raises(NotImplementedError, match="whole 32-bit words"):
+        check_card_shape(4, 132, 128, 12)
     for bits in (2, 3, 4, 8):
         check_card_shape(bits, 4096, 11008, 128)
 

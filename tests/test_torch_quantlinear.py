@@ -204,20 +204,22 @@ def test_wrapper_takes_plain_version_on_cpu(bits):
     assert tgemm.wna16_matmul(x[:0], *args[1:], bits).shape == (0, 128)
 
 
-@pytest.mark.parametrize("bits, k, gs, word", [(4, 256, 12, "w4a16_gemm"), (3, 250, -1, "w4a16_gemm"),
-                                               (2, 256, 8, "w2a16_gemm"), (8, 250, -1, "w8a16_gemm")])
+@pytest.mark.parametrize("bits, k, gs, word", [(4, 252, 12, "w4a16_gemm"), (3, 250, -1, "w4a16_gemm"),
+                                               (2, 248, 8, "w2a16_gemm"), (8, 250, -1, "w8a16_gemm")])
 def test_cuda_refuses_layers_without_a_kernel(bits, k, gs, word):
-    """On the card a shape outside the kernels' class (K or the group size not
-    a whole number of words) raises before anything is moved or launched; on
-    the CPU the plain version takes any shape."""
+    """On the card a shape that no GPTQ checkpoint can hold (K or N not a
+    whole number of 32-bit words at ``bits``) raises before anything is moved
+    or launched; every group size is taken. On the CPU the plain version takes
+    any shape."""
     packed = tqlin.PackedQuantLinear(
         qweight=np.zeros((1, 128), np.int32), qzeros=np.zeros((1, 1), np.int32),
         scales=np.ones((1, 128), np.float16), g_idx=np.zeros(k, np.int32), bias=None, bits=bits,
         group_size=gs, in_features=k, out_features=128)
-    with pytest.raises(NotImplementedError, match=f"{word} needs.*Queue 2, K[45]"):
+    with pytest.raises(NotImplementedError, match=f"{word} takes {bits}-bit layers.*whole 32-bit"):
         tqlin.from_packed(packed, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue 2, K[45]"):
+    with pytest.raises(NotImplementedError, match="whole 32-bit words"):
         tqlin.check_card_shape(bits, k, 130, -1 if gs == -1 else 32)
+    tqlin.check_card_shape(bits, 32 * k, 128, gs)   # the same group size, whole words
 
 
 @pytest.mark.parametrize("pack", [8, 16, 4])
