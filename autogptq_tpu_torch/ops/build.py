@@ -16,6 +16,10 @@ A kernel that refuses bad ids on the card (K8a/K8b's page ids, K9's expert
 ids) writes nothing for them and ORs a bit into an int32 flag on the device
 (:func:`error_flag`); :func:`take_error_bits` reads and clears it when the
 host chooses, so no launch waits for the card.
+
+The split-KV attention kernels (K2, K7) keep their partials and ticket
+counters in persistent per-device buffers (:func:`split_scratch`), so a call
+allocates no scratch and launches one kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_rout
 
 launches: collections.Counter = collections.Counter()
 _flags: dict = {}       # (library, device) -> int32 [1] error flag on the card
+_scratch: dict = {}     # (library, device) -> (f32 partials, int32 ticket counters)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -128,6 +133,25 @@ def error_flag(name: str, device):
     return flag
 
 
+def split_scratch(name: str, device, floats: int, rows: int):
+    """The f32 partials workspace (at least ``floats``) and the int32 ticket
+    counters (at least ``rows``) of library ``name`` on ``device``. Both
+    persist and only grow; counters are zero when created and every launch
+    leaves them at zero, so launches on one stream may share them."""
+    import torch
+
+    key = (name, _cuda_key(device))
+    ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=key[1])
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(max(rows, 2 * (0 if counters is None else counters.numel())),
+                               dtype=torch.int32, device=key[1])
+    _scratch[key] = (ws, counters)
+    return ws, counters
+
+
 def take_error_bits(name: str, device) -> int:
     """The bits library ``name``'s kernels set on ``device`` since the last
     call, with the flag cleared; 0 off the card or before any launch. Reading
@@ -150,4 +174,4 @@ def check(name: str, code: int) -> None:
 
 
 __all__ = ["BUILD_DIR", "KERNELS", "build", "check", "error_flag", "launches", "library_path",
-           "load", "take_error_bits"]
+           "load", "split_scratch", "take_error_bits"]

@@ -9,246 +9,161 @@
 //   v_cache  [L, B, S, Hkv, D]
 //   lo, hi   int32 [B]           first attendable slot (left padding) and exclusive end
 //   out      f32 [B, H, D]
-// Query head h attends KV head h / rep (GQA, rep = H / Hkv). Scores, softmax and the
-// weighted sum are f32. hi is clamped to S; a row with hi <= lo has nothing to attend and
-// gets zeros, never NaN.
+//   ws       f32 [B * Hkv, n_split, rep, D + 2]   partials (unused when n_split == 1)
+//   counters int32 [B * Hkv]     tickets, 0 before and after every launch
+// Query head h attends KV head h / rep (GQA, rep = H / Hkv). Scores, softmax and the weighted
+// sum are f32. hi is clamped to S; a row with hi <= lo has nothing to attend and gets zeros,
+// never NaN.
 //
 // Bound on the H100 (3.35 TB/s HBM): the K and V bytes of the live slots, 2 * (hi - lo) *
 // Hkv * D * sizeof(T) per row; for Llama-2-7B at a 528-slot window one layer reads 8.65 MB.
 //
-// Design: one block per (row, KV head) with 8 warps. The rep query heads of the group live
-// in registers, D / 32 elements per lane, pre-multiplied by the softmax scale. Each warp
-// walks its own positions, 4 at a time: it loads 4 K and 4 V vectors (one contiguous
-// D-element vector per position, coalesced across the warp), reduces the 4 x rep dot
-// products with warp shuffles, and updates a running max, denominator and weighted sum
-// (online softmax) once per 4 positions. The 8 warps' partial states are merged in shared
-// memory at the end. Only the live slots [lo, hi) are read. Splitting the positions of one
-// row across blocks (split-KV with a combine step) is later work: at B = 1 and Hkv = 32
-// this kernel runs 32 blocks on 132 SMs.
+// Design: split-KV in one launch (split_kv.cuh). The TPU kernel walks a row's slots in order
+// along a sequential grid axis, carrying its running softmax in VMEM; here the row's slots are
+// cut into n_split chunks of `chunk` slots that run in parallel, grid (B * Hkv, n_split), and
+// the block drawing a (row, KV head)'s last ticket merges the chunks' partials. The plan comes
+// from the shapes alone (ops/flash_decode.py:split_plan), so the grid is fixed for a cache
+// capacity: at B = 1, Hkv = 32 and 528 slots, 17 chunks of 32 slots, 544 blocks of 4 warps
+// (the unsplit kernel ran 32 blocks on 132 SMs).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "split_kv.cuh"
 
 namespace {
 
+using namespace splitkv;
+
 enum DType { DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2 };
 
-constexpr int FD_THREADS = 256;
-constexpr int FD_WARPS = FD_THREADS / 32;
-constexpr int FD_POS = 4;          // positions per warp iteration
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Load E consecutive elements of T (16-byte aligned groups) and widen them to f32.
-template <typename T, int E>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&o)[E]) {
-    constexpr int BYTES = (int)sizeof(T) * E;
-    if constexpr (BYTES % 16 == 0) {
-#pragma unroll
-        for (int c = 0; c < BYTES / 16; ++c) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(reinterpret_cast<const char*>(p) + 16 * c);
-            const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 16 / (int)sizeof(T); ++e) o[c * (16 / (int)sizeof(T)) + e] = to_f32(t[e]);
-        }
-    } else if constexpr (BYTES == 8) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(t[e]);
-    } else if constexpr (BYTES == 4) {
-        const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-        const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(t[e]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(p[e]);
-    }
-}
-
 template <typename T, int D, int REP>
-__global__ void __launch_bounds__(FD_THREADS)
+__global__ void __launch_bounds__(THREADS, (min_blocks<REP, D / 32>()))
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
                     const T* __restrict__ v_cache, const int32_t* __restrict__ lo_p,
                     const int32_t* __restrict__ hi_p, float* __restrict__ out,
-                    int B, int S, int Hkv, int layer, float scale) {
+                    float* __restrict__ ws, int* __restrict__ counters, int B, int S, int Hkv,
+                    int layer, float scale, int chunk, int n_split) {
     constexpr int E = D / 32;
-    __shared__ float sm_m[FD_WARPS][REP];
-    __shared__ float sm_l[FD_WARPS][REP];
-    __shared__ float sm_acc[FD_WARPS][REP][D];
+    constexpr int PB = batch_positions<T, E, REP>();
+    __shared__ Shared<REP, D> sm;
 
-    const int b = blockIdx.x / Hkv;
-    const int kvh = blockIdx.x - b * Hkv;
-    const int H = Hkv * REP;
+    const int bh = blockIdx.x;
+    const int split = blockIdx.y;
+    const int b = bh / Hkv;
+    const int kvh = bh - b * Hkv;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int lo = max(lo_p[b], 0);
     const int hi = min(hi_p[b], S);
+    // The row's live chunks [first, first + n_live): the others exit at once. A row with
+    // nothing to attend is one (empty) chunk, 0, which writes its zeros.
+    const int first = hi > lo ? lo / chunk : 0;
+    const int n_live = hi > lo ? (hi - 1) / chunk - first + 1 : 1;
+    if (split < first || split >= first + n_live) return;
+    const int c0 = split * chunk;
+    const int s_lo = max(lo, c0);
+    const int s_hi = min(hi, c0 + chunk);
 
     float qr[REP][E];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        load_vec<T, E>(q + ((int64_t)b * H + kvh * REP + r) * D + lane * E, qr[r]);
-#pragma unroll
-        for (int e = 0; e < E; ++e) qr[r][e] *= scale;
-    }
-    float m[REP], l[REP], acc[REP][E];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        m[r] = NEG_INF;
-        l[r] = 0.0f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
-    }
+    if (s_lo < s_hi)   // a chunk with no live position loads nothing
+        load_queries<T, E, REP>(q + ((int64_t)b * Hkv + kvh) * REP * D, lane, scale, qr);
+    WarpState<REP, E> st;
+    st.init();
 
     const int64_t pos_stride = (int64_t)Hkv * D;
     const int64_t base = (((int64_t)layer * B + b) * S) * pos_stride + (int64_t)kvh * D + lane * E;
     const T* kb = k_cache + base;
     const T* vb = v_cache + base;
+    const float no_scale[PB] = {};
 
-    for (int s0 = lo + warp * FD_POS; s0 < hi; s0 += FD_WARPS * FD_POS) {
-        float kv[FD_POS][E], vv[FD_POS][E];
+    for (int s0 = c0 + warp * PB; s0 < s_hi; s0 += WARPS * PB) {
+        if (s0 + PB <= s_lo) continue;
+        Packed<T, E> kv[PB], vv[PB];
+        unsigned valid = 0;
 #pragma unroll
-        for (int p = 0; p < FD_POS; ++p) {
-            if (s0 + p < hi) {
-                load_vec<T, E>(kb + (int64_t)(s0 + p) * pos_stride, kv[p]);
-                load_vec<T, E>(vb + (int64_t)(s0 + p) * pos_stride, vv[p]);
+        for (int p = 0; p < PB; ++p) {
+            const int s = s0 + p;
+            if (s >= s_lo && s < s_hi) {
+                valid |= 1u << p;
+                load_packed<T, E>(kb + s * pos_stride, kv[p]);
+                load_packed<T, E>(vb + s * pos_stride, vv[p]);
             } else {
-#pragma unroll
-                for (int e = 0; e < E; ++e) kv[p][e] = vv[p][e] = 0.0f;
+                zero_packed(kv[p]);
+                zero_packed(vv[p]);
             }
         }
-        float sc[REP][FD_POS];
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-            for (int p = 0; p < FD_POS; ++p) {
-                float d = 0.0f;
-#pragma unroll
-                for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kv[p][e], d);
-                sc[r][p] = d;
-            }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int r = 0; r < REP; ++r)
-#pragma unroll
-                for (int p = 0; p < FD_POS; ++p)
-                    sc[r][p] += __shfl_xor_sync(0xffffffffu, sc[r][p], off);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-            float mx = m[r];
-#pragma unroll
-            for (int p = 0; p < FD_POS; ++p)
-                if (s0 + p < hi) mx = fmaxf(mx, sc[r][p]);
-            const float alpha = expf(m[r] - mx);
-            float pw[FD_POS];
-            float psum = 0.0f;
-#pragma unroll
-            for (int p = 0; p < FD_POS; ++p) {
-                pw[p] = (s0 + p < hi) ? expf(sc[r][p] - mx) : 0.0f;
-                psum += pw[p];
-            }
-            l[r] = l[r] * alpha + psum;
-#pragma unroll
-            for (int e = 0; e < E; ++e) {
-                float a = acc[r][e] * alpha;
-#pragma unroll
-                for (int p = 0; p < FD_POS; ++p) a = fmaf(pw[p], vv[p][e], a);
-                acc[r][e] = a;
-            }
-            m[r] = mx;
-        }
+        attend_batch<T, E, REP, PB, false>(qr, kv, vv, no_scale, no_scale, valid, st);
     }
-
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        if (lane == 0) {
-            sm_m[warp][r] = m[r];
-            sm_l[warp][r] = l[r];
-        }
-#pragma unroll
-        for (int e = 0; e < E; ++e) sm_acc[warp][r][lane * E + e] = acc[r][e];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < REP * D; i += FD_THREADS) {
-        const int r = i / D;
-        const int d = i - r * D;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int w = 0; w < FD_WARPS; ++w) mx = fmaxf(mx, sm_m[w][r]);
-        float den = 0.0f, num = 0.0f;
-#pragma unroll
-        for (int w = 0; w < FD_WARPS; ++w) {
-            const float f = expf(sm_m[w][r] - mx);
-            den = fmaf(sm_l[w][r], f, den);
-            num = fmaf(sm_acc[w][r][d], f, num);
-        }
-        out[((int64_t)b * H + kvh * REP + r) * D + d] = num / fmaxf(den, 1e-30f);
-    }
+    finish<REP, D>(sm, st, out + ((int64_t)b * Hkv + kvh) * REP * D,
+                   ws + (int64_t)bh * n_split * REP * (D + 2), counters + bh, split - first,
+                   n_live);
 }
 
+struct Args {
+    const void* q;
+    const void* k;
+    const void* v;
+    const int32_t* lo;
+    const int32_t* hi;
+    float* out;
+    float* ws;
+    int* counters;
+    int B, S, Hkv, layer;
+    float scale;
+    int chunk, n_split;
+    cudaStream_t stream;
+};
+
 template <typename T, int D, int REP>
-cudaError_t launch3(const void* q, const void* k, const void* v, const int32_t* lo,
-                    const int32_t* hi, float* out, int B, int S, int Hkv, int layer, float scale,
-                    cudaStream_t stream) {
-    flash_decode_kernel<T, D, REP><<<B * Hkv, FD_THREADS, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lo, hi, out,
-        B, S, Hkv, layer, scale);
+cudaError_t launch3(const Args& a) {
+    flash_decode_kernel<T, D, REP><<<dim3(a.B * a.Hkv, a.n_split), THREADS, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        a.lo, a.hi, a.out, a.ws, a.counters, a.B, a.S, a.Hkv, a.layer, a.scale, a.chunk,
+        a.n_split);
     return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch2(int rep, const void* q, const void* k, const void* v, const int32_t* lo,
-                    const int32_t* hi, float* out, int B, int S, int Hkv, int layer, float scale,
-                    cudaStream_t stream) {
+cudaError_t launch2(int rep, const Args& a) {
     switch (rep) {
-        case 1: return launch3<T, D, 1>(q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
-        case 2: return launch3<T, D, 2>(q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
-        case 4: return launch3<T, D, 4>(q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
+        case 1: return launch3<T, D, 1>(a);
+        case 2: return launch3<T, D, 2>(a);
+        case 4: return launch3<T, D, 4>(a);
         case 8:
-            if constexpr (D <= 128)
-                return launch3<T, D, 8>(q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
+            if constexpr (D <= 128) return launch3<T, D, 8>(a);
             return cudaErrorInvalidValue;
         default: return cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
-cudaError_t launch1(int d, int rep, const void* q, const void* k, const void* v,
-                    const int32_t* lo, const int32_t* hi, float* out, int B, int S, int Hkv,
-                    int layer, float scale, cudaStream_t stream) {
+cudaError_t launch1(int d, int rep, const Args& a) {
     switch (d) {
-        case 64: return launch2<T, 64>(rep, q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
-        case 128: return launch2<T, 128>(rep, q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
-        case 256: return launch2<T, 256>(rep, q, k, v, lo, hi, out, B, S, Hkv, layer, scale, stream);
+        case 64: return launch2<T, 64>(rep, a);
+        case 128: return launch2<T, 128>(rep, a);
+        case 256: return launch2<T, 256>(rep, a);
         default: return cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
+// The arguments up to `stream` are the unsplit kernel's; `ws`, `counters`, `chunk` and
+// `n_split` carry the split plan and its persistent buffers.
 extern "C" int flash_decode(const void* q, const void* k_cache, const void* v_cache,
                             const int32_t* lo, const int32_t* hi, float* out, int dtype, int B,
                             int S, int Hkv, int D, int rep, int layer, float sm_scale,
-                            void* stream) {
+                            void* stream, float* ws, int* counters, int chunk, int n_split) {
     if (B <= 0 || S <= 0 || Hkv <= 0 || layer < 0) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (chunk <= 0 || chunk % CHUNK_UNIT || n_split != (S + chunk - 1) / chunk
+        || n_split > MAX_SPLITS)
+        return (int)cudaErrorInvalidValue;
+    if (n_split > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
+    Args a{q, k_cache, v_cache, lo, hi, out, ws, counters, B, S, Hkv, layer, sm_scale, chunk,
+           n_split, static_cast<cudaStream_t>(stream)};
     switch (dtype) {
-        case DT_F32:
-            return (int)launch1<float>(D, rep, q, k_cache, v_cache, lo, hi, out, B, S, Hkv, layer, sm_scale, st);
-        case DT_F16:
-            return (int)launch1<__half>(D, rep, q, k_cache, v_cache, lo, hi, out, B, S, Hkv, layer, sm_scale, st);
-        case DT_BF16:
-            return (int)launch1<__nv_bfloat16>(D, rep, q, k_cache, v_cache, lo, hi, out, B, S, Hkv, layer, sm_scale, st);
-        default:
-            return (int)cudaErrorInvalidValue;
+        case DT_F32: return (int)launch1<float>(D, rep, a);
+        case DT_F16: return (int)launch1<__half>(D, rep, a);
+        case DT_BF16: return (int)launch1<__nv_bfloat16>(D, rep, a);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 

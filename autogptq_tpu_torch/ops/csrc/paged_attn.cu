@@ -20,197 +20,94 @@
 //
 // Design. The TPU kernel computes q[H, D] @ page[Hkv * ps, D]^T densely with a block-diagonal
 // head mask, spending Hkv times the FLOPs to buy one large DMA per page, and walks the whole
-// table width it is given. Neither carries over: here one block per (row, KV head) with 8
-// warps keeps the rep query heads of its group in registers (D / 32 elements per lane,
-// pre-multiplied by the softmax scale), reads its row's table entries itself, and walks only
-// the live positions. Each warp takes 4 positions at a time: it loads 4 K and 4 V vectors
-// (each a contiguous D-element slab of one page, coalesced across the warp), reduces the
-// 4 x rep dot products with warp shuffles and updates a running max, denominator and weighted
-// sum (online softmax). int8 scales fold into the score and into the softmax weight. The 8
-// warps' partial states are merged in shared memory at the end. Splitting a row's positions
-// across blocks (split-KV) is later work: at beam 4 and Hkv = 32 this launches 128 blocks on
-// 132 SMs.
+// table width it is given along a sequential grid axis. None of that carries over: here a
+// row's positions [0, W * ps) are cut into n_split chunks of `chunk` positions, a whole number
+// of pages (plan from the shapes alone: ops/paged_attn.py:split_plan), that run in parallel,
+// grid (B * Hkv, n_split), and the block drawing a (row, KV head)'s last ticket merges the
+// chunks' partials in the same launch (split_kv.cuh). A block reads only the live positions
+// [0, lengths[b]) of its chunk. A warp's batch of 8 positions reads each page id it touches
+// once (lane i reads the batch's i-th page id, shuffled to its positions), then issues all
+// its K and V loads (each a contiguous D-element slab of one page, coalesced across the
+// warp) and, for int8 pools, the per-position scales, before its first FMA; the scales fold
+// into the score and into the softmax weight, times the f32 reciprocal of 127.5 (within an
+// ulp of the plain version's division). At beam 4 and Hkv = 32 with 40-page tables of 16
+// slots: 5 chunks of 128 positions, 640 blocks of 4 warps (the unsplit kernel ran 128).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "split_kv.cuh"
 
 namespace {
 
+using namespace splitkv;
+
 enum DType { DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2, DT_I8 = 3 };
 
-constexpr int PA_THREADS = 256;
-constexpr int PA_WARPS = PA_THREADS / 32;
-constexpr int PA_POS = 4;          // positions per warp iteration
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
-
-// Load E consecutive elements of T and widen them to f32, with the widest aligned access.
-template <typename T, int E>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&o)[E]) {
-    constexpr int BYTES = (int)sizeof(T) * E;
-    if constexpr (BYTES % 16 == 0) {
-#pragma unroll
-        for (int c = 0; c < BYTES / 16; ++c) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(reinterpret_cast<const char*>(p) + 16 * c);
-            const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 16 / (int)sizeof(T); ++e) o[c * (16 / (int)sizeof(T)) + e] = to_f32(t[e]);
-        }
-    } else if constexpr (BYTES == 8) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(p);
-        const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(t[e]);
-    } else if constexpr (BYTES == 4) {
-        const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-        const T* t = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(t[e]);
-    } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) o[e] = to_f32(p[e]);
-    }
-}
-
 template <typename TQ, typename TKV, int D, int REP>
-__global__ void __launch_bounds__(PA_THREADS)
+__global__ void __launch_bounds__(THREADS, (min_blocks<REP, D / 32>()))
 paged_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                        const TKV* __restrict__ v_pool, const float* __restrict__ k_scales,
                        const float* __restrict__ v_scales, const int32_t* __restrict__ lengths,
                        const int32_t* __restrict__ tables, float* __restrict__ out,
-                       int P, int Hkv, int ps, int W, float scale) {
+                       float* __restrict__ ws, int* __restrict__ counters, int P, int Hkv,
+                       int ps, int W, float scale, int chunk, int n_split) {
     constexpr int E = D / 32;
+    constexpr int PB = batch_positions<TKV, E, REP>();
     constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
-    __shared__ float sm_m[PA_WARPS][REP];
-    __shared__ float sm_l[PA_WARPS][REP];
-    __shared__ float sm_acc[PA_WARPS][REP][D];
+    __shared__ Shared<REP, D> sm;
 
-    const int b = blockIdx.x / Hkv;
-    const int kvh = blockIdx.x - b * Hkv;
-    const int H = Hkv * REP;
+    const int bh = blockIdx.x;
+    const int split = blockIdx.y;
+    const int b = bh / Hkv;
+    const int kvh = bh - b * Hkv;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int len = min(max(lengths[b], 0), W * ps);
+    // The row's live chunks [0, n_live): the others exit at once. A row of length 0 is one
+    // (empty) chunk, 0, which writes its zeros.
+    const int n_live = len > 0 ? (len - 1) / chunk + 1 : 1;
+    if (split >= n_live) return;
+    const int c0 = split * chunk;
+    const int s_hi = min(len, c0 + chunk);
     const int32_t* trow = tables + (int64_t)b * W;
 
     float qr[REP][E];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        load_vec<TQ, E>(q + ((int64_t)b * H + kvh * REP + r) * D + lane * E, qr[r]);
-#pragma unroll
-        for (int e = 0; e < E; ++e) qr[r][e] *= scale;
-    }
-    float m[REP], l[REP], acc[REP][E];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        m[r] = NEG_INF;
-        l[r] = 0.0f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[r][e] = 0.0f;
-    }
+    if (c0 < s_hi)   // a chunk with no live position loads nothing
+        load_queries<TQ, E, REP>(q + ((int64_t)b * Hkv + kvh) * REP * D, lane, scale, qr);
+    WarpState<REP, E> st;
+    st.init();
 
-    for (int s0 = warp * PA_POS; s0 < len; s0 += PA_WARPS * PA_POS) {
-        float kv[PA_POS][E], vv[PA_POS][E];
-        float ksc[PA_POS], vsc[PA_POS];
+    for (int s0 = c0 + warp * PB; s0 < s_hi; s0 += WARPS * PB) {
+        // lane i < PB reads the id of the i-th page the batch touches
+        const int pg0 = s0 / ps;
+        int my_pg = 0;
+        if (lane < PB && (pg0 + lane) * ps < s_hi)
+            my_pg = min(max(__ldg(trow + pg0 + lane), 0), P - 1);
+        Packed<TKV, E> kv[PB], vv[PB];
+        float ksc[PB], vsc[PB];
+        unsigned valid = 0;
 #pragma unroll
-        for (int p = 0; p < PA_POS; ++p) {
+        for (int p = 0; p < PB; ++p) {
             const int s = s0 + p;
+            const int j = s / ps;
+            const int pg = __shfl_sync(FULL, my_pg, j - pg0);
             ksc[p] = vsc[p] = 1.0f;
-            if (s < len) {
-                const int pg = min(max(trow[s / ps], 0), P - 1);
-                const int64_t slot = ((int64_t)pg * Hkv + kvh) * ps + (s % ps);
-                load_vec<TKV, E>(k_pool + slot * D + lane * E, kv[p]);
-                load_vec<TKV, E>(v_pool + slot * D + lane * E, vv[p]);
-                if constexpr (QUANT) {
-                    ksc[p] = k_scales[slot] / 127.5f;
-                    vsc[p] = v_scales[slot] / 127.5f;
+            if (s < s_hi) {
+                valid |= 1u << p;
+                const int64_t slot = ((int64_t)pg * Hkv + kvh) * ps + (s - j * ps);
+                load_packed<TKV, E>(k_pool + slot * D + lane * E, kv[p]);
+                load_packed<TKV, E>(v_pool + slot * D + lane * E, vv[p]);
+                if constexpr (QUANT) {   // a multiply: an IEEE divide here cost 16% of K7
+                    ksc[p] = __ldg(k_scales + slot) * (1.0f / 127.5f);
+                    vsc[p] = __ldg(v_scales + slot) * (1.0f / 127.5f);
                 }
             } else {
-#pragma unroll
-                for (int e = 0; e < E; ++e) kv[p][e] = vv[p][e] = 0.0f;
+                zero_packed(kv[p]);
+                zero_packed(vv[p]);
             }
         }
-        float sc[REP][PA_POS];
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-            for (int p = 0; p < PA_POS; ++p) {
-                float d = 0.0f;
-#pragma unroll
-                for (int e = 0; e < E; ++e) d = fmaf(qr[r][e], kv[p][e], d);
-                sc[r][p] = d;
-            }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-            for (int r = 0; r < REP; ++r)
-#pragma unroll
-                for (int p = 0; p < PA_POS; ++p)
-                    sc[r][p] += __shfl_xor_sync(0xffffffffu, sc[r][p], off);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-            if constexpr (QUANT) {
-#pragma unroll
-                for (int p = 0; p < PA_POS; ++p) sc[r][p] *= ksc[p];
-            }
-            float mx = m[r];
-#pragma unroll
-            for (int p = 0; p < PA_POS; ++p)
-                if (s0 + p < len) mx = fmaxf(mx, sc[r][p]);
-            const float alpha = expf(m[r] - mx);
-            float pw[PA_POS];
-            float psum = 0.0f;
-#pragma unroll
-            for (int p = 0; p < PA_POS; ++p) {
-                pw[p] = (s0 + p < len) ? expf(sc[r][p] - mx) : 0.0f;
-                psum += pw[p];
-                if constexpr (QUANT) pw[p] *= vsc[p];
-            }
-            l[r] = l[r] * alpha + psum;
-#pragma unroll
-            for (int e = 0; e < E; ++e) {
-                float a = acc[r][e] * alpha;
-#pragma unroll
-                for (int p = 0; p < PA_POS; ++p) a = fmaf(pw[p], vv[p][e], a);
-                acc[r][e] = a;
-            }
-            m[r] = mx;
-        }
+        attend_batch<TKV, E, REP, PB, QUANT>(qr, kv, vv, ksc, vsc, valid, st);
     }
-
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-        if (lane == 0) {
-            sm_m[warp][r] = m[r];
-            sm_l[warp][r] = l[r];
-        }
-#pragma unroll
-        for (int e = 0; e < E; ++e) sm_acc[warp][r][lane * E + e] = acc[r][e];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < REP * D; i += PA_THREADS) {
-        const int r = i / D;
-        const int d = i - r * D;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int w = 0; w < PA_WARPS; ++w) mx = fmaxf(mx, sm_m[w][r]);
-        float den = 0.0f, num = 0.0f;
-#pragma unroll
-        for (int w = 0; w < PA_WARPS; ++w) {
-            const float f = expf(sm_m[w][r] - mx);
-            den = fmaf(sm_l[w][r], f, den);
-            num = fmaf(sm_acc[w][r][d], f, num);
-        }
-        out[((int64_t)b * H + kvh * REP + r) * D + d] = num / fmaxf(den, 1e-30f);
-    }
+    finish<REP, D>(sm, st, out + ((int64_t)b * Hkv + kvh) * REP * D,
+                   ws + (int64_t)bh * n_split * REP * (D + 2), counters + bh, split, n_live);
 }
 
 struct Args {
@@ -222,16 +119,20 @@ struct Args {
     const int32_t* lengths;
     const int32_t* tables;
     float* out;
+    float* ws;
+    int* counters;
     int B, P, Hkv, ps, W;
     float scale;
+    int chunk, n_split;
     cudaStream_t stream;
 };
 
 template <typename TQ, typename TKV, int D, int REP>
 cudaError_t launch4(const Args& a) {
-    paged_attention_kernel<TQ, TKV, D, REP><<<a.B * a.Hkv, PA_THREADS, 0, a.stream>>>(
+    paged_attention_kernel<TQ, TKV, D, REP><<<dim3(a.B * a.Hkv, a.n_split), THREADS, 0, a.stream>>>(
         static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
-        a.ks, a.vs, a.lengths, a.tables, a.out, a.P, a.Hkv, a.ps, a.W, a.scale);
+        a.ks, a.vs, a.lengths, a.tables, a.out, a.ws, a.counters, a.P, a.Hkv, a.ps, a.W, a.scale,
+        a.chunk, a.n_split);
     return cudaGetLastError();
 }
 
@@ -267,13 +168,21 @@ cudaError_t launch1(int kv_dtype, int q_dtype, int d, int rep, const Args& a) {
 
 }  // namespace
 
+// The arguments up to `stream` are the unsplit kernel's; `ws`, `counters`, `chunk` and
+// `n_split` carry the split plan and its persistent buffers.
 extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                const float* k_scales, const float* v_scales,
                                const int32_t* lengths, const int32_t* tables, float* out,
                                int q_dtype, int kv_dtype, int B, int L, int P, int Hkv, int ps,
-                               int D, int rep, int W, int layer, float sm_scale, void* stream) {
+                               int D, int rep, int W, int layer, float sm_scale, void* stream,
+                               float* ws, int* counters, int chunk, int n_split) {
     if (B <= 0 || L <= 0 || P <= 0 || Hkv <= 0 || ps <= 0 || W <= 0 || layer < 0 || layer >= L)
         return (int)cudaErrorInvalidValue;
+    const int64_t positions = (int64_t)W * ps;
+    if (positions > 0x7fffffff || chunk <= 0 || chunk % CHUNK_UNIT || chunk % ps
+        || n_split != (positions + chunk - 1) / chunk || n_split > MAX_SPLITS)
+        return (int)cudaErrorInvalidValue;
+    if (n_split > 1 && (ws == nullptr || counters == nullptr)) return (int)cudaErrorInvalidValue;
     if (kv_dtype == DT_I8 && (k_scales == nullptr || v_scales == nullptr))
         return (int)cudaErrorInvalidValue;
     const int64_t layer_slots = (int64_t)layer * P * Hkv * ps;
@@ -293,6 +202,10 @@ extern "C" int paged_attention(const void* q, const void* k_pool, const void* v_
     a.ps = ps;
     a.W = W;
     a.scale = sm_scale;
+    a.ws = ws;
+    a.counters = counters;
+    a.chunk = chunk;
+    a.n_split = n_split;
     a.stream = static_cast<cudaStream_t>(stream);
     switch (q_dtype) {
         case DT_F32: return (int)launch1<float>(kv_dtype, q_dtype, D, rep, a);

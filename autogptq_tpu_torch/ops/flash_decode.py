@@ -10,6 +10,11 @@ Semantics: query row ``b`` (one token, ``H`` heads) attends cache slots
 ``h // (H // Hkv)``; all math is f32 and the result is f32 ``[B, H, D]``. A
 row with nothing to attend (``hi <= lo``) yields zeros, as the TPU kernel
 does.
+
+K2 is split-KV attention in one launch: :func:`split_plan` cuts the ``S``
+slots of a row into chunks from the shapes alone, the chunks run as separate
+blocks, and the last block of each (row, KV head) merges their partials as
+:func:`merge_partials` does.
 """
 
 from __future__ import annotations
@@ -25,7 +30,44 @@ NEG_INF = -1e30
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (64, 128, 256)
 REPS = (1, 2, 4, 8)
-MAX_REP_TIMES_D = 1024    # the kernel's shared merge buffer holds 8 warps x rep x D floats
+MAX_REP_TIMES_D = 1024    # a lane holds rep x D / 32 query and rep x D / 32 sum floats
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+CHUNK_UNIT = 32           # csrc/split_kv.cuh: 4 warps x a batch of 8 positions each
+TARGET_BLOCKS = 4 * SMS   # 4 blocks of 4 warps per SM, each warp with a batch of loads in flight
+MAX_SPLITS = 32           # csrc/split_kv.cuh: the partials the last block merges at most
+
+
+def chunk_plan(rows: int, positions: int, unit: int) -> tuple[int, int]:
+    """``(C, n_split)`` for ``rows`` (row, KV head) pairs of ``positions``
+    slots: ``C`` a multiple of ``unit``, as short as makes ``rows * n_split``
+    reach ``TARGET_BLOCKS`` (never below ``unit``), one chunk per row when
+    the rows alone reach it, and long enough for ``n_split = ceil(positions
+    / C)`` to stay within ``MAX_SPLITS``."""
+    want = -(-TARGET_BLOCKS // rows)
+    units = -(-positions // unit)
+    per_chunk = max(units // want if want > 1 else units, -(-units // MAX_SPLITS), 1)
+    c = unit * per_chunk
+    return c, -(-positions // c)
+
+
+def split_plan(b: int, hkv: int, s: int) -> tuple[int, int]:
+    """K2's split of a row's ``s`` cache slots: ``(C, n_split)``, chunk ``c``
+    covering slots ``[c * C, (c + 1) * C)``. Shapes only: the live bounds
+    stay on the card, so the grid is fixed for a cache capacity."""
+    return chunk_plan(b * hkv, s, CHUNK_UNIT)
+
+
+def merge_partials(m: torch.Tensor, denom: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernels' combine step. Chunk ``c``'s partial is
+    its max score ``m[..., c]``, its sum of ``exp(score - m)``
+    ``denom[..., c]`` and its sum of ``exp(score - m) * v`` ``acc[..., c, :]``
+    (an empty chunk: ``-1e30``, 0, 0). Returns the attention ``[..., D]``,
+    zeros where every chunk is empty."""
+    mx = m.amax(dim=-1, keepdim=True)
+    f = torch.exp(m - mx)
+    den = (denom * f).sum(dim=-1)
+    num = (acc * f[..., None]).sum(dim=-2)
+    return num / den.clamp_min(1e-30)[..., None]
 
 
 def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -52,8 +94,8 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
 def _lib():
     fn = build.load(NAME).flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -91,7 +133,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  lo: torch.Tensor, hi: torch.Tensor, *, layer: int,
                  sm_scale: float) -> torch.Tensor:
     """Decode attention, ``[B, H, D]`` f32. A CPU tensor takes the plain
-    version; a CUDA tensor launches K2 or raises."""
+    version; a CUDA tensor launches K2 (one launch) or raises."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, lo, hi, layer=layer, sm_scale=sm_scale)
     if q.device.type != "cuda":
@@ -100,16 +142,20 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     rep = _check_operands(q, k_cache, v_cache, lo, hi, layer)
     b, h, d = q.shape
     _, _, s, hkv, _ = k_cache.shape
+    chunk, n_split = split_plan(b, hkv, s)
+    ws, counters = build.split_scratch(NAME, q.device, b * hkv * n_split * rep * (d + 2), b * hkv)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     fn = _lib()
     code = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_cache.data_ptr()),
               ctypes.c_void_p(v_cache.data_ptr()), ctypes.c_void_p(lo.data_ptr()),
               ctypes.c_void_p(hi.data_ptr()), ctypes.c_void_p(out.data_ptr()),
               DTYPE_CODES[q.dtype], b, s, hkv, d, rep, layer, float(sm_scale),
-              ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+              ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+              ctypes.c_void_p(ws.data_ptr()), ctypes.c_void_p(counters.data_ptr()), chunk,
+              n_split)
     build.check(NAME, code)
     build.launches[NAME] += 1
     return out
 
 
-__all__ = ["flash_decode", "flash_decode_ref"]
+__all__ = ["chunk_plan", "flash_decode", "flash_decode_ref", "merge_partials", "split_plan"]

@@ -14,6 +14,8 @@ Three kernels, each with its plain version in this module:
 
 * K7 ``paged_attention_mh`` (``csrc/paged_attn.cu``; plain:
   ``paged_attention_mh_ref``) replaces ``paged_attn.py:paged_attention_mh``;
+  it is split-KV attention in one launch, its chunks whole pages
+  (:func:`split_plan`), combined as ``flash_decode.merge_partials`` does;
 * K8a ``write_token_pages_kernel`` (``csrc/page_ops.cu``; plain:
   ``write_token_pages``) replaces ``paged_attn.py:write_token_pages_kernel``;
 * K8b ``copy_pages_pair`` (``csrc/page_ops.cu``; plain: ``copy_pages``)
@@ -29,11 +31,13 @@ plain version runs on the card.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from . import build
+from .flash_decode import CHUNK_UNIT, chunk_plan
 
 ATTN = "paged_attn"
 PAGE_OPS = "page_ops"
@@ -42,7 +46,15 @@ FLOAT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 INT8_CODE = 3
 HEAD_DIMS = (64, 128, 256)
 REPS = (1, 2, 4, 8)
-MAX_REP_TIMES_D = 1024    # the kernel's shared merge buffer holds 8 warps x rep x D floats
+MAX_REP_TIMES_D = 1024    # a lane holds rep x D / 32 query and rep x D / 32 sum floats
+
+
+def split_plan(b: int, hkv: int, w: int, ps: int) -> tuple[int, int]:
+    """K7's split of a row's ``w * ps`` table positions: ``(C, n_split)``,
+    ``C`` a whole number of pages, chunk ``c`` covering positions
+    ``[c * C, (c + 1) * C)``. Shapes only: the lengths stay on the card, so
+    the grid is fixed for a table width."""
+    return chunk_plan(b * hkv, w * ps, math.lcm(CHUNK_UNIT, ps))
 
 
 def _layer_pools(k_pages, v_pages, k_scales, v_scales, layer):
@@ -193,7 +205,7 @@ def _attn_fn():
     fn = build.load(ATTN).paged_attention
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -206,7 +218,7 @@ def paged_attention_mh(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
     """Decode attention of one query token per row over page tables, ``[B, H,
     D]`` f32. ``q`` is ``[B, H, D]``; query head ``h`` reads KV head
     ``h // (H // Hkv)``. A CPU tensor takes the plain version; a CUDA tensor
-    launches K7 or raises. K7 reads only each row's live pages
+    launches K7 (one launch) or raises. K7 reads only each row's live pages
     ``ceil(lengths[b] / ps)`` (at most ``W``), so the table need not be cut to
     a window first."""
     if q.dim() != 3:
@@ -245,14 +257,18 @@ def paged_attention_mh(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
     stacked = k_pages.dim() == 5
     n_layers = k_pages.shape[0] if stacked else 1
     n_pages = k_pages.shape[-4]
+    w = tables.shape[1]
+    chunk, n_split = split_plan(b, hkv, w, ps)
+    ws, counters = build.split_scratch(ATTN, q.device, b * hkv * n_split * rep * (d + 2), b * hkv)
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     null = ctypes.c_void_p(0)
     code = _attn_fn()(
         _ptr(q), _ptr(k_pages), _ptr(v_pages),
         null if k_scales is None else _ptr(k_scales), null if v_scales is None else _ptr(v_scales),
         _ptr(lengths), _ptr(tables), _ptr(out),
-        FLOAT_CODES[q.dtype], kv_code, b, n_layers, n_pages, hkv, ps, d, rep, tables.shape[1],
-        layer if stacked else 0, float(sm_scale), _stream(q))
+        FLOAT_CODES[q.dtype], kv_code, b, n_layers, n_pages, hkv, ps, d, rep, w,
+        layer if stacked else 0, float(sm_scale), _stream(q), _ptr(ws), _ptr(counters), chunk,
+        n_split)
     build.check(ATTN, code)
     build.launches["paged_attention_mh"] += 1
     return out
@@ -369,6 +385,7 @@ __all__ = [
     "copy_pages_pair",
     "paged_attention_mh",
     "paged_attention_mh_ref",
+    "split_plan",
     "write_token_pages",
     "write_token_pages_kernel",
 ]

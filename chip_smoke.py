@@ -16,11 +16,16 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    At M = 128 and 2048 (bf16) the tensor-core tile kernel runs, and the SIMT
    tile kernel is held and timed beside it on the same weights; ptxas'
    registers, spills and shared memory of every tensor-core instance.
-4. K2 (flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2 with a
-   left-padded row, and GQA, with the same measurements (the library call is
-   ``scaled_dot_product_attention``).
-5. K7 (paged attention) against ``paged_attention_mh_ref`` at the beam-4
-   Llama-2-7B shape (bf16 and int8 pools), GQA and unequal lengths; K8a
+4. K2 (split-KV flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2
+   with a left-padded row, and GQA at 528 slots, a window sweep (17, 64, 272
+   and 528 live slots, MHA and GQA) and Mixtral-8x7B's decode shape (8 KV
+   heads, 144 slots), each case called twice with bit-equal results, with the
+   same measurements (the library call is ``scaled_dot_product_attention``)
+   and the split plan.
+5. K7 (split-KV paged attention) against ``paged_attention_mh_ref`` at the
+   beam-4 Llama-2-7B shape (bf16 and int8 pools), GQA, unequal lengths and a
+   length sweep (bf16 and int8), as K2; ptxas' registers and spills of every
+   K2 and K7 instance (a spill fails the run); K8a
    (page row write) and K8b (page copy, a src naming another copy's dst)
    bit-equal against ``write_token_pages`` / ``copy_pages`` on bf16, int8
    and 4-D scale pools, and refusing an id outside the pool without writing.
@@ -116,8 +121,9 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    K6's tile regime. On the 2-layer cut, kb32l in f32 on the card against
    the CPU. On the 2-layer Mixtral cut, ``dx`` through a layer's routed
    ``moe_mlp`` (K9 forward, K10 backward) on the card against the CPU.
-20. Writes every measurement to ``build/chip_smoke.json`` and prints one
-   JSON line of kernel measurements, the card's line, and last
+20. Estimates K2's and K7's device time per token over a 512-token run from
+   the sweeps, writes every measurement to ``build/chip_smoke.json`` and
+   prints one JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -1312,18 +1318,28 @@ def phase_quantize(torch, np, work: str) -> dict:
     return out
 
 
+K2_WINDOWS = (17, 64, 272, 528)   # live slots swept: a 512-token run attends 17 .. 527
+
+
 def phase_k2(torch, timer) -> list:
+    """K2 against its plain version at 528 slots (B1 MHA, B2 left-padded,
+    GQA), over the window sweep (MHA and GQA) and at Mixtral-8x7B's decode
+    shape; each case twice with bit-equal results, timed beside SDPA."""
     import torch.nn.functional as F
 
     from autogptq_tpu_torch.ops import flash_decode as fdm
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     s, d, layers, layer = 528, 128, 2, 1
-    cases = [("B1 MHA", 1, 32, 32, [0], [s]),
-             ("B2 left-pad", 2, 32, 32, [0, 7], [s, s]),
-             ("B1 GQA 32/8", 1, 32, 8, [0], [s])]
+    mixtral_s = PROMPT_LEN + MIXTRAL_NEW_TOKENS
+    cases = [("B1 MHA", 1, 32, 32, s, [0], [s]),
+             ("B2 left-pad", 2, 32, 32, s, [0, 7], [s, s]),
+             ("B1 GQA 32/8", 1, 32, 8, s, [0], [s])]
+    cases += [(f"{kind} window {w}", 1, 32, hkv, s, [0], [w])
+              for kind, hkv in (("B1 MHA", 32), ("B1 GQA 32/8", 8)) for w in K2_WINDOWS]
+    cases.append(("Mixtral B1 32/8", 1, 32, 8, mixtral_s, [0], [mixtral_s]))
     rows = []
-    for name, b, h, hkv, lo_l, hi_l in cases:
+    for name, b, h, hkv, s, lo_l, hi_l in cases:
         q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
         kc = torch.randn((layers, b, s, hkv, d), generator=gen, device="cuda",
                          dtype=torch.bfloat16)
@@ -1332,11 +1348,13 @@ def phase_k2(torch, timer) -> list:
         hi = torch.tensor(hi_l, dtype=torch.int32, device="cuda")
         scale = d ** -0.5
         o = fdm.flash_decode(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
+        again = fdm.flash_decode(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
         ref = fdm.flash_decode_ref(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
         torch.cuda.synchronize()
         err = (o - ref).abs().max().item()
         check(bool(torch.isfinite(o).all()), f"K2 {name}: non-finite output")
         check(err <= K2_ABS_TOL, f"K2 {name}: max |kernel - plain| = {err:.3e} > {K2_ABS_TOL}")
+        check(torch.equal(o, again), f"K2 {name}: two calls on the same inputs differ")
         rep = h // hkv
         kl = kc[layer].permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
         vl = vc[layer].permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
@@ -1351,12 +1369,15 @@ def phase_k2(torch, timer) -> list:
         live = sum(max(0, min(e, s) - a) for a, e in zip(lo_l, hi_l))
         kv_bytes = 2 * live * hkv * d * kc.element_size()
         b_ms, b_by = bound_ms(kv_bytes + nbytes(q, o, lo, hi), 4.0 * live * h * d)
+        chunk, n_split = fdm.split_plan(b, hkv, s)
         rows.append(dict(case=name, B=b, H=h, Hkv=hkv, S=s, D=d, live_slots=live,
+                         chunk=chunk, n_split=n_split, blocks=b * hkv * n_split,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by))
-        print(f"K2 {name:12s} B={b} H={h} Hkv={hkv} S={s} D={d}  err {err:.3e} (tol {K2_ABS_TOL})"
-              f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms"
-              f"  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"K2 {name:22s} B={b} H={h} Hkv={hkv} S={s} D={d} live={live:4d}  plan "
+              f"{n_split} x {chunk} slots ({b * hkv * n_split} blocks)  err {err:.3e} (tol "
+              f"{K2_ABS_TOL}), repeat bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rows
 
 
@@ -1373,7 +1394,13 @@ def _live_kv(pool, scales, tables, layer, lengths, ps, rep, dtype):
     return g.repeat_interleave(rep, dim=1).contiguous()
 
 
+K7_LENGTHS = (17, 64, 272, 528)   # live slots per row swept, as K2_WINDOWS
+
+
 def phase_k7(torch, timer) -> list:
+    """K7 against its plain version at the beam-4 Llama-2-7B shape (bf16 and
+    int8 pools, GQA, unequal lengths) and over the length sweep (bf16 and
+    int8); each case twice with bit-equal results, timed beside SDPA."""
     import torch.nn.functional as F
 
     from autogptq_tpu_torch.ops import paged_attn as pam
@@ -1386,6 +1413,8 @@ def phase_k7(torch, timer) -> list:
              ("beam4 int8", 32, torch.int8, [full] * b),
              ("GQA 32/8", 8, torch.bfloat16, [full] * b),
              ("unequal lengths", 32, torch.bfloat16, [full, 300, 77, 1])]
+    cases += [(f"beam4 {tag} length {n}", 32, dt, [n] * b)
+              for tag, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)) for n in K7_LENGTHS]
     rows = []
     for name, hkv, kv_dtype, lens in cases:
         rep = h // hkv
@@ -1409,11 +1438,13 @@ def phase_k7(torch, timer) -> list:
         scale = d ** -0.5
         args = (q, kp, vp, lengths, tables, ks, vs)
         o = pam.paged_attention_mh(*args, sm_scale=scale, layer=layer)
+        again = pam.paged_attention_mh(*args, sm_scale=scale, layer=layer)
         ref = pam.paged_attention_mh_ref(*args, sm_scale=scale, layer=layer)
         torch.cuda.synchronize()
         err = (o - ref).abs().max().item()
         check(bool(torch.isfinite(o).all()), f"K7 {name}: non-finite output")
         check(err <= K7_ABS_TOL, f"K7 {name}: max |kernel - plain| = {err:.3e} > {K7_ABS_TOL}")
+        check(torch.equal(o, again), f"K7 {name}: two calls on the same inputs differ")
         kl = _live_kv(kp, ks, tables, layer, lengths, ps, rep, torch.bfloat16)
         vl = _live_kv(vp, vs, tables, layer, lengths, ps, rep, torch.bfloat16)
         mask = (torch.arange(kl.shape[2], device="cuda")[None] < lengths[:, None])[:, None, None]
@@ -1429,15 +1460,49 @@ def phase_k7(torch, timer) -> list:
             kv_bytes += 2 * live * hkv * 4
         table_bytes = sum(-(-n // ps) for n in lens) * 4
         b_ms, b_by = bound_ms(kv_bytes + table_bytes + nbytes(q, o, lengths), 4.0 * live * h * d)
+        chunk, n_split = pam.split_plan(b, hkv, width, ps)
         rows.append(dict(case=name, B=b, H=h, Hkv=hkv, D=d, page_size=ps, pages=n_pages,
-                         width=width, lengths=lens, kv_dtype=str(kv_dtype), max_abs_err=err,
+                         width=width, lengths=lens, kv_dtype=str(kv_dtype), chunk=chunk,
+                         n_split=n_split, blocks=b * hkv * n_split, max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                          bound_by=b_by))
-        print(f"K7 {name:15s} B={b} H={h} Hkv={hkv} D={d} ps={ps} lengths={lens}  err {err:.3e} "
-              f"(tol {K7_ABS_TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
-              f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"K7 {name:22s} B={b} H={h} Hkv={hkv} D={d} ps={ps} lengths={lens}  plan "
+              f"{n_split} x {chunk} slots ({b * hkv * n_split} blocks)  err {err:.3e} (tol "
+              f"{K7_ABS_TOL}), repeat bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
         del kp, vp, ks, vs, kl, vl
     return rows
+
+
+def attention_ptxas() -> list:
+    """ptxas' registers, spills and shared memory of every K2 and K7
+    instance; a spill fails the run."""
+    rows = (ptxas_report("flash_decode", "flash_decode_kernel")
+            + ptxas_report("paged_attn", "paged_attention_kernel"))
+    check(len(rows) > 0, "no K2/K7 entry in the ptxas logs")
+    for lib, key in (("K2", "flash_decode_kernel"), ("K7", "paged_attention_kernel")):
+        mine = [r for r in rows if key in r["function"]]
+        stores = max(r["spill_stores"] or 0 for r in mine)
+        loads = max(r["spill_loads"] or 0 for r in mine)
+        print(f"{lib} ptxas: {len(mine)} instances, {min(r['registers'] for r in mine)}-"
+              f"{max(r['registers'] for r in mine)} registers, spill bytes {stores}/{loads} at "
+              f"most, static shared memory {min(r['smem'] for r in mine)}-"
+              f"{max(r['smem'] for r in mine)} B", flush=True)
+    spilled = [(r["function"], r["registers"], r["spill_stores"], r["spill_loads"])
+               for r in rows if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"K2/K7 instances spill registers: {spilled}")
+    return rows
+
+
+def decode_ms_per_token(np, rows, prefix, layers) -> float:
+    """A kernel's device ms per token over a run of NEW_TOKENS from a
+    PROMPT_LEN prompt: the sweep rows' times (``prefix``), interpolated
+    linearly over the windows PROMPT_LEN + 1 .. PROMPT_LEN + NEW_TOKENS - 1
+    that its decode steps attend, times ``layers``."""
+    pts = sorted((r["live_slots"] if "live_slots" in r else r["lengths"][0], r["ms"])
+                 for r in rows if r["case"].startswith(prefix))
+    windows = np.arange(PROMPT_LEN + 1, PROMPT_LEN + NEW_TOKENS)
+    return float(np.interp(windows, [p[0] for p in pts], [p[1] for p in pts]).mean() * layers)
 
 
 def phase_k8(torch, timer) -> tuple:
@@ -2186,6 +2251,7 @@ def main() -> int:
     ptxas = mma_ptxas()
     k2_rows = timed("K2", phase_k2, torch, timer)
     k7_rows = timed("K7", phase_k7, torch, timer)
+    attn_ptxas = attention_ptxas()
     k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
     k9_rows = timed("K9", phase_k9, torch, np, timer)
@@ -2225,6 +2291,32 @@ def main() -> int:
 
     k2_main, k7_main, k8a_main, k8b_main = k2_rows[0], k7_rows[0], k8a_rows[0], k8b_rows[0]
     beam_launches = beam["counts"]
+    from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B
+
+    layers = LLAMA2_7B["num_hidden_layers"]
+    full_run = dict(k2_ms_per_token=decode_ms_per_token(np, k2_rows, "B1 MHA window", layers),
+                    k7_ms_per_step=decode_ms_per_token(np, k7_rows, "beam4 bf16 length", layers),
+                    k7_int8_ms_per_step=decode_ms_per_token(np, k7_rows, "beam4 int8 length",
+                                                            layers))
+    print(f"K2/K7 device time over a {NEW_TOKENS}-token run from a {PROMPT_LEN}-token prompt "
+          f"(the sweeps interpolated over windows {PROMPT_LEN + 1}..{PROMPT_LEN + NEW_TOKENS - 1},"
+          f" x {layers} layers): K2 {full_run['k2_ms_per_token']:.4f} ms per greedy token, K7 "
+          f"{full_run['k7_ms_per_step']:.4f} ms per beam-4 step (int8 pools "
+          f"{full_run['k7_int8_ms_per_step']:.4f})", flush=True)
+    at_full = [r for r in k2_rows if r["case"] in ("B1 MHA", "B2 left-pad", "B1 GQA 32/8")]
+    print("against SDPA at 528 slots: " + ", ".join(
+        f"K2 {r['case']} {r['ms']:.4f} / {r['library_ms']:.4f} ms" for r in at_full) + ", "
+          + ", ".join(f"K7 {r['case']} {r['ms']:.4f} / {r['library_ms']:.4f} ms"
+                      for r in k7_rows[:4]), flush=True)
+    decode_m = {m: dict(k1_ms=layer_sum(k1_rows, "ms", m),
+                        k1_library_ms=layer_sum(k1_rows, "library_ms", m),
+                        k6_ms=layer_sum(k6["rows"], "ms", m),
+                        k6_library_ms=layer_sum(k6["rows"], "library_ms", m))
+                for m in (1, BEAMS, 16)}
+    print("one Llama-2-7B layer's 7 projections, 4-bit g128 bf16, decode regime: " + "; ".join(
+        f"M = {m}: K1 {v['k1_ms']:.4f} ms, torch.matmul {v['k1_library_ms']:.4f} ms (K1 phase); "
+        f"K6 {v['k6_ms']:.4f} ms, torch.matmul {v['k6_library_ms']:.4f} ms (K6 phase)"
+        for m, v in decode_m.items()), flush=True)
 
     def entry(name, source, replaces, counted, rows, main_row, at):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2356,6 +2448,8 @@ def main() -> int:
                        wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas, other_widths=widths,
                        quantize=quantize, main_batch2=batch2_launches,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
+                       attention_ptxas=attn_ptxas, attention_full_run=full_run,
+                       decode_layer_ms=decode_m,
                        main_path=launches, beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)

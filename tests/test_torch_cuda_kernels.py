@@ -304,6 +304,97 @@ def test_k7_refuses_unsupported(card):
         pam.paged_attention_mh(q, kp, kp, lengths, tables, sm_scale=0.1, layer=1)
 
 
+def _k2_inputs(card, dtype, b, h, hkv, d, s, seed):
+    gen = torch.Generator(card).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=gen, device=card).to(dtype)
+    kc = torch.randn((2, b, s, hkv, d), generator=gen, device=card).to(dtype)
+    vc = torch.randn((2, b, s, hkv, d), generator=gen, device=card).to(dtype)
+    return q, kc, vc
+
+
+def _k2_twice(q, kc, vc, lo, hi, d):
+    """Two K2 calls: each launches once, and the second is bit-equal to the first."""
+    outs = []
+    for _ in range(2):
+        before = build.launches["flash_decode"]
+        outs.append(fdm.flash_decode(q, kc, vc, lo, hi, layer=1, sm_scale=d ** -0.5))
+        assert build.launches["flash_decode"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("b, h, hkv, d, s", [(1, 32, 32, 128, 528), (2, 32, 8, 128, 144),
+                                             (1, 8, 2, 256, 300)])
+def test_k2_split_windows_on_chunk_edges(card, dtype, b, h, hkv, d, s):
+    chunk, n_split = fdm.split_plan(b, hkv, s)
+    assert n_split > 1
+    q, kc, vc = _k2_inputs(card, dtype, b, h, hkv, d, s, s + d)
+    for window in (chunk, chunk + 1, s):
+        lo = torch.tensor([0, 3][:b], dtype=torch.int32, device=card)
+        hi = torch.full((b,), window, dtype=torch.int32, device=card)
+        o = _k2_twice(q, kc, vc, lo, hi, d)
+        ref = fdm.flash_decode_ref(q, kc, vc, lo, hi, layer=1, sm_scale=d ** -0.5)
+        assert torch.isfinite(o).all()
+        torch.testing.assert_close(o, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32, torch.int8])
+def test_k7_split_lengths_on_chunk_edges(card, dtype):
+    b, h, hkv, d, ps, w, n_pages = 4, 32, 32, 128, 16, 40, 170
+    chunk, n_split = pam.split_plan(b, hkv, w, ps)
+    assert n_split > 1
+    gen = torch.Generator(card).manual_seed(17)
+    act = torch.float32 if dtype == torch.float32 else \
+        (torch.float16 if dtype == torch.float16 else torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=card).to(act)
+    shape = (2, n_pages, hkv, ps, d)
+    ks = vs = None
+    if dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=gen, device=card) + 0.1
+        vs = torch.rand(shape[:-1], generator=gen, device=card) + 0.1
+    else:
+        kp = torch.randn(shape, generator=gen, device=card).to(dtype)
+        vp = torch.randn(shape, generator=gen, device=card).to(dtype)
+    tables = torch.randperm(n_pages, generator=gen, device=card)[:b * w].reshape(b, w)
+    tables = tables.to(torch.int32).contiguous()
+    for lens in ([chunk] * b, [chunk + 1] * b, [w * ps] * b, [w * ps, chunk + 1, 1, 0]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+        outs = []
+        for _ in range(2):
+            before = build.launches["paged_attention_mh"]
+            outs.append(pam.paged_attention_mh(q, kp, vp, lengths, tables, ks, vs,
+                                               sm_scale=d ** -0.5, layer=1))
+            assert build.launches["paged_attention_mh"] == before + 1
+        ref = pam.paged_attention_mh_ref(q, kp, vp, lengths, tables, ks, vs, sm_scale=d ** -0.5,
+                                         layer=1)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        assert torch.isfinite(outs[0]).all()
+        torch.testing.assert_close(outs[0], ref, rtol=0, atol=1e-4)
+
+
+def test_split_counters_reset_between_shapes(card):
+    """Calls at other shapes on one stream, an empty row, a live range that
+    starts past the first chunks and all-empty chunks among them, leave every
+    result right: each launch resets its tickets."""
+    shapes = [(1, 32, 32, 128, 528, [0], [528]), (3, 32, 8, 128, 144, [0, 5, 9], [144, 9, 144]),
+              (1, 32, 32, 128, 528, [0], [17]), (2, 8, 2, 64, 1000, [0, 0], [1000, 0]),
+              (1, 32, 32, 128, 528, [100], [300]), (1, 32, 32, 128, 528, [0], [528])]
+    for i, (b, h, hkv, d, s, lo_l, hi_l) in enumerate(shapes):
+        q, kc, vc = _k2_inputs(card, torch.bfloat16, b, h, hkv, d, s, i)
+        lo = torch.tensor(lo_l, dtype=torch.int32, device=card)
+        hi = torch.tensor(hi_l, dtype=torch.int32, device=card)
+        o = _k2_twice(q, kc, vc, lo, hi, d)
+        ref = fdm.flash_decode_ref(q, kc, vc, lo, hi, layer=1, sm_scale=d ** -0.5)
+        torch.testing.assert_close(o, ref, rtol=0, atol=1e-4)
+    _, counters = build.split_scratch("flash_decode", card, 0, 0)
+    assert int(counters.abs().sum()) == 0
+
+
 def _pools(card, dtype, rank, seed, n_layers=3, n_pages=12, hkv=4, ps=16, d=128):
     gen = torch.Generator(card).manual_seed(seed)
     shape = (n_layers, n_pages, hkv, ps) + ((d,) if rank == 5 else ())
