@@ -17,9 +17,10 @@ ids) writes nothing for them and ORs a bit into an int32 flag on the device
 (:func:`error_flag`); :func:`take_error_bits` reads and clears it when the
 host chooses, so no launch waits for the card.
 
-The split-KV attention kernels (K2, K7) keep their partials and ticket
-counters in persistent per-device buffers (:func:`split_scratch`), so a call
-allocates no scratch and launches one kernel.
+The split-KV attention kernels (K2, K7) and the tensor-core decode GEMV
+(K1/K4/K5 at M <= 16) keep their partials and ticket counters in persistent
+per-device buffers (:func:`split_scratch`), so a call allocates no scratch and
+launches one kernel.
 """
 
 from __future__ import annotations

@@ -4,10 +4,12 @@
 // Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_k2i32 (_matmul_k2i32),
 // _kernel_kquad (_matmul_kquad) and the 2-bit class of the planar _kernel. Their eighth-split
 // and half-split word orders serve the TPU's compiler and are not carried over: the words are
-// GPTQ's own. The kernels, their layout, bound and design are in wna16_gemm.cuh; the bound is
+// GPTQ's own. The kernels, their layout, bound and design are in wna16_gemm.cuh, wna16_mma.cuh
+// and wna16_gemv.cuh (the tensor-core decode GEMV for bf16/f16); the bound is
 // a quarter byte per weight plus 3 bytes per group and column.
 
-#include "wna16_mma.cuh"
+#include "wna16_gemv.cuh"
 
 WNA16_DEFINE_ENTRY(w2a16_gemm, 2)
 WNA16_MMA_DEFINE_ENTRY(w2a16_gemm, 2)
+WNA16_GEMV_DEFINE_ENTRY(w2a16_gemm, 2)

@@ -27,7 +27,10 @@
 // column. The arithmetic (2*M*K*N) only overtakes the bytes far above the decode regime.
 //
 // Design:
-//  * Decode regime (M <= 16): each thread owns 4 adjacent output columns and reads one
+//  * Decode regime (M <= 16), the SIMT GEMV: it serves f32 activations and the group sizes 16
+//    does not divide; bf16 and f16 activations with 16 | gs take the tensor-core GEMV of
+//    wna16_gemv.cuh instead (ops/gemm.py:route), one launch per call with its split-K
+//    combine folded in. Each thread owns 4 adjacent output columns and reads one
 //    16-byte int4 (4 words = P K-rows x 4 columns) per P K-rows, so a warp reads 512
 //    contiguous bytes of a weight row. The group's scale and zero are loaded once per group.
 //    A code becomes (q - z) without an int->float conversion: the float with bit pattern

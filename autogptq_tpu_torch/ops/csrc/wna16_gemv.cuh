@@ -1,0 +1,541 @@
+// Tensor-core decode GEMV of the wNa16 dequant-matmuls for Hopper (sm_90a), bf16 and f16
+// activations, M <= 16 rows, 16 | group size, BITS in {2, 4, 8} (3-bit codes ride in nibbles):
+//   wna16_gemv_kernel   y[M,N] = x[M,K] @ ((q - z) * s)[K,N] (+ bias)   K1, K4, K5
+// w4a16_gemm.cu, w8a16_gemm.cu and w2a16_gemm.cu instantiate it beside their SIMT and tile
+// kernels and export it as NAME_gemv; ops/gemm.py:route sends a product here when the
+// activations are bf16 or f16, M <= 16 and 16 divides the group size. f32 activations and the
+// other group sizes keep the SIMT GEMV of wna16_gemm.cuh (its per-code group instance too).
+//
+// It replaces the decode regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
+// _kernel_kb32 (:487, entry _matmul_kb32 :559), _kernel_ki32 (:414), _kernel_kpair (:255), the
+// planar _kernel (:46, _matmul_planar :1479) and _kernel_k2i32 (:1061), which stream the packed
+// words through VMEM and dot each dequantized tile on the MXU.
+//
+// Bound on the H100 (3.35 TB/s HBM): the bytes of the weight, BITS/8 B per weight plus fp16
+// scales and uint8 zeros per group and column; one Llama-2-7B layer's 7 projections at 4-bit
+// g128 move 106 MB, 0.0317 ms. The arithmetic, 2*M*K*N, is far below the tensor cores' rate.
+//
+// Design:
+//  * Tensor cores do the products: mma.sync.m16n8k16 with f32 accumulators, the weight as the
+//    16-row operand A (16 output columns x 16 K rows) and x as the 8-column operand B (8 rows
+//    of M; a second MMA for rows 8-15 when M > 8). A warp owns 16 output columns: A row g is
+//    column 2g of its tile and row g + 8 column 2g + 1, so a thread's two columns are adjacent
+//    words and one 8-byte shared load reads both.
+//  * Codes become A fragments with about one instruction per code. Inside a 16-row step the K
+//    rows may be given to the MMA in any order, as long as x's B fragment uses the same order.
+//    Thread t of a quad takes four codes of each of its columns from one word, two pairs whose
+//    codes sit 16 bits apart (codes j and j + P/2 of a word of P codes), so a shift and one
+//    LOP3 put both codes of a pair into the two halves of a register, under the exponent of
+//    2^7 (bf16: 128 + q) or 2^10 (f16: 1024 + q); one packed subtraction of (that + z) leaves
+//    q - z, exact in bf16 and f16. The K order this implies (perm_slot below) is applied to x
+//    when it is staged, so ldmatrix loads B fragments in the same order. bf16 cannot hold
+//    128 + q for 8-bit codes (q >= 128 needs a ninth bit), so that instance takes the 2^23
+//    route of wna16_gemm.cuh in f32 (byte_perm builds 2^23 + q, one subtraction, one cvt
+//    packs two values). Each group's product accumulates into its own fragment and is folded
+//    in once per group, acc += s[g, n] * part, with the f32 scale: the same arithmetic as the
+//    tile kernel of wna16_mma.cuh, and 16 | gs keeps a step inside one group.
+//  * A deep weight stream: a 4-stage cp.async ring of word tiles. A stage holds 16 word rows
+//    (512 / BITS K rows) of the block's 64 columns, 4 KB of words at every width, rows padded
+//    by 16 words so the 8-byte loads of a warp hit distinct banks, and the fp16 scales and
+//    uint8 zeros of the groups the stage touches. Three stages are in flight while one is
+//    consumed (one barrier per stage). x[:, the block's K chunk] is staged once per block in
+//    the activation type while the first stages fly: copied by cp.async ahead of them and put
+//    in slot order in place, or gathered through kperm (desc_act) by register loads.
+//  * One launch per call: the grid is (column tiles of 64, K splits), planned on the host from
+//    shapes alone (ops/gemm.py:gemv_plan: about 4 blocks per SM, at most 32 splits, the f32
+//    workspace within a quarter of the weight's bytes). Each split writes its f32 partial
+//    [M, 64] into the persistent workspace (ops/build.py:split_scratch), fences and takes a
+//    ticket from its column tile's counter; the block that draws the last ticket adds the
+//    partials in split order (results are bit-equal from call to call), adds the bias, casts
+//    once and sets the counter back to 0. One split writes the output itself. Two launches
+//    that share the workspace must not overlap, which one stream guarantees.
+// Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
+// non-zero.
+
+#pragma once
+
+#include <type_traits>
+
+#include "wna16_mma.cuh"
+
+namespace {
+
+constexpr int GV_WARPS = 4;
+constexpr int GV_THREADS = 32 * GV_WARPS;
+constexpr int GV_BN = 16 * GV_WARPS;      // output columns per block, 16 per warp
+constexpr int GV_LDW = GV_BN + 16;        // words per staged word row: 320 B, 64 mod 128
+constexpr int GV_WROWS = 16;              // word rows per stage: 4 KB of words at every width
+constexpr int GV_STAGES = 4;
+constexpr int GV_MAX_SPLITS = 32;         // partials the last block adds, at most
+constexpr int GV_XPAD = 8;                // halves of padding per staged x row
+constexpr int GV_SMEM_LIMIT = 200 * 1024; // dynamic shared memory a block may ask for
+
+template <int BITS> struct GvStage {      // byte offsets within one stage
+    static constexpr int P = 32 / BITS;
+    static constexpr int BK = GV_WROWS * P;           // K rows per stage
+    static constexpr int GROUPS = BK / 16;            // group rows a stage can touch (16 | gs)
+    static constexpr int W = 0;                                   // i32 [GV_WROWS][GV_LDW]
+    static constexpr int S = W + GV_WROWS * GV_LDW * 4;           // f16 [GROUPS][GV_BN]
+    static constexpr int Z = S + GROUPS * GV_BN * 2;              // u8  [GROUPS][GV_BN]
+    static constexpr int BYTES = (Z + GROUPS * GV_BN + 15) / 16 * 16;
+};
+
+__host__ __device__ constexpr int gv_x_bytes(int mt, int kc) { return mt * (kc + GV_XPAD) * 2; }
+
+template <int BITS>
+__host__ __device__ constexpr int gv_smem_bytes(int mt, int kc) {
+    return GV_STAGES * GvStage<BITS>::BYTES + gv_x_bytes(mt, kc);
+}
+
+// The K row (within a 16-row step) that MMA slot s (0..15) of every fragment stands for. Slot
+// s belongs to thread t = (s % 8) / 2 of a quad, pair e = s / 8 (register a0/a1 or a2/a3) and
+// half h = s % 2. Thread t reads word row t / (P/4) of the step, code u = t % (P/4) onwards:
+// pair e holds codes j = u + e * P/4 (low half) and j + P/2 (high half), 16 bits apart.
+template <int BITS>
+__host__ __device__ constexpr int perm_slot(int s) {
+    constexpr int P = 32 / BITS;
+    constexpr int Q = P / 4;                  // threads of a quad that share a word
+    const int t = (s % 8) / 2;
+    return (t / Q) * P + t % Q + (s / 8) * Q + (s % 2) * (P / 2);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t sub2(uint32_t a, uint32_t b) {
+    if constexpr (std::is_same<T, __half>::value) {
+        const __half2 r = __hsub2(*reinterpret_cast<const __half2*>(&a),
+                                  *reinterpret_cast<const __half2*>(&b));
+        return *reinterpret_cast<const uint32_t*>(&r);
+    } else {
+        const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                         *reinterpret_cast<const __nv_bfloat162*>(&b));
+        return *reinterpret_cast<const uint32_t*>(&r);
+    }
+}
+
+// Codes of one word into the two registers of a thread's column: e = 0 (slots 2t, 2t+1) and
+// e = 1 (slots 2t+8, 2t+9), each (q - z) for codes (j, j + P/2), j = sh / BITS + e * P/4.
+template <int BITS, typename T, bool F32 = (BITS == 8 && std::is_same<T, __nv_bfloat16>::value)>
+struct GvCodes {
+    static constexpr uint32_t MASK = ((1u << BITS) - 1u) * 0x00010001u;
+    static constexpr uint32_t BIAS = std::is_same<T, __half>::value ? 0x64006400u : 0x43004300u;
+    using Zero = uint32_t;            // (bias + z) in both halves
+    static __device__ __forceinline__ Zero zero(uint32_t z) { return BIAS | z | (z << 16); }
+    // (v & MASK) | BIAS in one LOP3: the compiler, given two immediates, splits it in two
+    static __device__ __forceinline__ uint32_t biased(uint32_t v) {
+        uint32_t r;
+        asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(v), "n"(MASK), "r"(BIAS));
+        return r;
+    }
+    static __device__ __forceinline__ void pairs(uint32_t w, int sh, Zero zz, uint32_t& e0,
+                                                 uint32_t& e1) {
+        e0 = sub2<T>(biased(w >> sh), zz);
+        e1 = sub2<T>(biased(w >> (sh + 8)), zz);
+    }
+};
+
+// 8-bit codes, bf16: 2^23 + q in f32 (byte_perm puts the byte under the exponent byte 0x4B),
+// minus 2^23 + z, exact; one cvt rounds the (exact, |q - z| <= 255) pair to bf16.
+template <typename T>
+struct GvCodes<8, T, true> {
+    using Zero = float;               // 2^23 + z
+    static __device__ __forceinline__ Zero zero(uint32_t z) { return MAGIC + (float)z; }
+    static __device__ __forceinline__ float code(uint32_t w, int byte_sel, float zb) {
+        return __uint_as_float(__byte_perm(w, 0x4B000000u, byte_sel)) - zb;
+    }
+    static __device__ __forceinline__ void pairs(uint32_t w, int, Zero zb, uint32_t& e0,
+                                                 uint32_t& e1) {
+        e0 = Mma<T>::pack(code(w, 0x7440, zb), code(w, 0x7442, zb));
+        e1 = Mma<T>::pack(code(w, 0x7441, zb), code(w, 0x7443, zb));
+    }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t bits16(T v) {
+    return *reinterpret_cast<const unsigned short*>(&v);
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_u32(p)));
+}
+
+template <int BITS, typename T, int MT>
+__global__ void __launch_bounds__(GV_THREADS, 4)
+wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
+                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int M, int K, int N, int gs, int kc, int splits, int gather) {
+    using L = GvStage<BITS>;
+    using C = GvCodes<BITS, T>;
+    constexpr int P = L::P;
+    constexpr int BK = L::BK;
+    constexpr int NT = MT / 8;               // MMAs per A fragment: rows 0-7, 8-15
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int last_block;
+    T* const xs = reinterpret_cast<T*>(smem + GV_STAGES * L::BYTES);   // [MT][kc + GV_XPAD]
+    const int ldx = kc + GV_XPAD;
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int n0 = blockIdx.x * GV_BN;
+    const int split = blockIdx.y;
+    const int k0 = split * kc;
+    const int k1 = min(K, k0 + kc);
+    const int G = (K + gs - 1) / gs;
+    const int kwords = K / P;
+    const int ntiles = (k1 - k0 + BK - 1) / BK;
+
+    auto fetch = [&](int tile, unsigned char* st) {
+        const int kt = k0 + tile * BK;
+        int32_t* wsm = reinterpret_cast<int32_t*>(st + L::W);
+        for (int c = tid; c < GV_WROWS * (GV_BN / 4); c += GV_THREADS) {
+            const int r = c / (GV_BN / 4), q = c % (GV_BN / 4);
+            const int kw = kt / P + r, n = n0 + 4 * q;
+            const bool ok = kw < kwords && n < N;
+            cp_async16_zfill(wsm + r * GV_LDW + 4 * q,
+                             ok ? qweight + (int64_t)kw * N + n : qweight, ok);
+        }
+        const int g0 = kt / gs;
+        const int ng = min(G - 1, (min(kt + BK, k1) - 1) / gs) - g0 + 1;   // <= L::GROUPS
+        __half* ss = reinterpret_cast<__half*>(st + L::S);
+        uint8_t* zs = st + L::Z;
+        for (int c = tid; c < ng * (GV_BN / 2 + GV_BN / 4); c += GV_THREADS) {
+            if (c < ng * (GV_BN / 2)) {              // scales, 2 columns per copy
+                const int r = c / (GV_BN / 2), q = c % (GV_BN / 2);
+                const int n = n0 + 2 * q;
+                const bool ok = n < N;
+                cp_async4_zfill(ss + r * GV_BN + 2 * q,
+                                ok ? scales + (int64_t)(g0 + r) * N + n : scales, ok);
+            } else {                                 // zeros, 4 columns per copy
+                const int c2 = c - ng * (GV_BN / 2);
+                const int r = c2 / (GV_BN / 4), q = c2 % (GV_BN / 4);
+                const int n = n0 + 4 * q;
+                const bool ok = n < N;
+                cp_async4_zfill(zs + r * GV_BN + 4 * q,
+                                ok ? zeros + (int64_t)(g0 + r) * N + n : zeros, ok);
+            }
+        }
+    };
+
+    // x[:, k0 .. k0 + kc) in slot order (rows past K zero). Rows M .. MT-1 are left as they are:
+    // they feed only output rows that are never written. Without kperm the rows are copied as
+    // they are by cp.async, one commit group ahead of the weight stages, and each 16-row step is
+    // then put in slot order in place; with kperm each step's sorted rows are gathered by
+    // register loads, the step's indices read once for four rows of x.
+    const int nsteps = kc / 16;
+    auto store_x = [&](int m, int step, const T (&v)[16]) {
+        uint32_t* dst = reinterpret_cast<uint32_t*>(xs + m * ldx + 16 * step);
+#pragma unroll
+        for (int s = 0; s < 16; s += 2)
+            dst[s / 2] = bits16(v[perm_slot<BITS>(s)]) | (bits16(v[perm_slot<BITS>(s + 1)]) << 16);
+    };
+    if (!gather) {                               // K % 8 == 0, x 16-byte aligned
+        for (int c = tid; c < M * (kc / 8); c += GV_THREADS) {
+            const int m = c / (kc / 8), q = c - m * (kc / 8);
+            const int k = k0 + 8 * q;
+            cp_async16_zfill(xs + m * ldx + 8 * q, k < K ? x + (int64_t)m * K + k : x, k < K);
+        }
+    }
+    cp_async_commit();
+
+#pragma unroll
+    for (int s = 0; s < GV_STAGES - 1; ++s) {
+        if (s < ntiles) fetch(s, smem + s * L::BYTES);
+        cp_async_commit();   // one group per stage, empty past the end: wait counts alike
+    }
+    if (!gather) {
+        cp_async_wait<GV_STAGES - 1>();          // x has landed; the weight stages may still fly
+        __syncthreads();
+        for (int it = tid; it < M * nsteps; it += GV_THREADS) {
+            const int m = it / nsteps, step = it - m * nsteps;
+            const uint4* src = reinterpret_cast<const uint4*>(xs + m * ldx + 16 * step);
+            const uint4 raw[2] = {src[0], src[1]};
+            T v[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i) v[i] = reinterpret_cast<const T*>(raw)[i];
+            store_x(m, step, v);                 // this thread's own 32 bytes: in place
+        }
+    } else {
+        const int mq = (M + 3) / 4;
+        for (int it = tid; it < nsteps * mq; it += GV_THREADS) {
+            const int step = it / mq, m0 = 4 * (it - step * mq);
+            const int kb = k0 + 16 * step;
+            int src[16];
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+                src[i] = kb + i < K ? (kperm != nullptr ? (int)kperm[kb + i] : kb + i) : -1;
+            T v[4][16];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int i = 0; i < 16; ++i)
+                    v[r][i] = m0 + r < M && src[i] >= 0 ? x[(int64_t)(m0 + r) * K + src[i]]
+                                                        : from_f32<T>(0.0f);
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                if (m0 + r < M) store_x(m0 + r, step, v[r]);
+        }
+    }
+
+    const int g8 = lane >> 2;                    // A rows g8, g8 + 8: columns wcol, wcol + 1
+    const int t = lane & 3;
+    const int wcol = (tid >> 5) * 16 + 2 * g8;   // within the block's 64 columns
+    const int wrow = t / (P / 4);                // word row within a 16-row step
+    const int sh = BITS * (t % (P / 4));         // the thread's first code in that word
+    // ldmatrix rows: lane l addresses row l % 8 (+ 8 for the x4's matrices 2, 3) of x, slots
+    // 8 * ((l / 8) % 2) onwards of the step
+    const int xrow = (lane & 7) + (MT == 16 ? 8 * ((lane >> 4) & 1) : 0);
+    const T* xl = xs + xrow * ldx + 8 * ((lane >> 3) & 1);
+
+    // part[0] takes the even steps and part[1] the odd ones, two independent MMA chains
+    float acc[NT][4], part[2][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = part[0][j][c] = part[1][j][c] = 0.0f;
+
+    typename C::Zero zz0 = {}, zz1 = {};
+    auto zeros_of = [&](const uint8_t* zrow) {   // the group's zeros of columns wcol, wcol + 1
+        const uint32_t z2 = *reinterpret_cast<const uint16_t*>(zrow + wcol);
+        zz0 = C::zero(z2 & 0xFFu);
+        zz1 = C::zero(z2 >> 8);
+    };
+    auto step = [&](const uint32_t* wp, const T* xp, float (&p)[NT][4]) {
+        const uint2 w = *reinterpret_cast<const uint2*>(wp);
+        uint32_t a[4];
+        C::pairs(w.x, sh, zz0, a[0], a[2]);
+        C::pairs(w.y, sh, zz1, a[1], a[3]);
+        uint32_t b[4];
+        if constexpr (MT == 16)
+            ldmatrix_x4(b, xp);
+        else
+            ldmatrix_x2(b, xp);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) Mma<T>::run(p[j], a, b[2 * j], b[2 * j + 1]);
+    };
+    auto fold = [&](const __half* srow) {        // the group ends: fold its scale in
+        const __half2 s2 = *reinterpret_cast<const __half2*>(srow + wcol);
+        const float s0 = __low2float(s2), s1 = __high2float(s2);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+            acc[j][0] = fmaf(part[0][j][0] + part[1][j][0], s0, acc[j][0]);
+            acc[j][1] = fmaf(part[0][j][1] + part[1][j][1], s0, acc[j][1]);
+            acc[j][2] = fmaf(part[0][j][2] + part[1][j][2], s1, acc[j][2]);
+            acc[j][3] = fmaf(part[0][j][3] + part[1][j][3], s1, acc[j][3]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[0][j][c] = part[1][j][c] = 0.0f;
+        }
+    };
+
+    const int gsteps = gs / 16;
+    int gcur = k0 / gs;                          // the group of the current step
+    int left = gsteps - (k0 % gs) / 16;          // its steps still to come
+    bool fresh = true;                           // its zeros are still to be read
+    for (int tile = 0; tile < ntiles; ++tile) {
+        cp_async_wait<GV_STAGES - 2>();          // this thread's copies of the tile have landed
+        __syncthreads();                         // everyone's have, the previous stage is free
+        const int nxt = tile + GV_STAGES - 1;
+        if (nxt < ntiles) fetch(nxt, smem + (nxt % GV_STAGES) * L::BYTES);
+        cp_async_commit();
+
+        const unsigned char* st = smem + (tile % GV_STAGES) * L::BYTES;
+        const uint32_t* wp = reinterpret_cast<const uint32_t*>(st + L::W) + wrow * GV_LDW + wcol;
+        const __half* ss = reinterpret_cast<const __half*>(st + L::S);
+        const uint8_t* zs = st + L::Z;
+        const int kt = k0 + tile * BK;
+        const T* xp = xl + (kt - k0);
+        const int grow0 = gcur - kt / gs;        // the current group's row in the stage
+        if (left >= BK / 16 && kt + BK <= k1) {  // the whole stage lies in the current group
+            if (fresh) zeros_of(zs + grow0 * GV_BN);
+            fresh = false;
+#pragma unroll
+            for (int ks = 0; ks < BK / 16; ++ks)
+                step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
+            left -= BK / 16;
+            if (left == 0 || kt + BK >= k1) fold(ss + grow0 * GV_BN);
+            if (left == 0) {
+                ++gcur;
+                left = gsteps;
+                fresh = true;
+            }
+            continue;
+        }
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks) {   // a group starts or the split ends inside
+            const int k16 = kt + 16 * ks;
+            if (k16 >= k1) break;                // uniform over the block
+            const int grow = gcur - kt / gs;
+            if (fresh) zeros_of(zs + grow * GV_BN);
+            fresh = false;
+            step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
+            if (--left == 0 || k16 + 16 >= k1) fold(ss + grow * GV_BN);
+            if (left == 0) {
+                ++gcur;
+                left = gsteps;
+                fresh = true;
+            }
+        }
+    }
+    cp_async_wait<0>();
+
+    // acc[j][h] is row 8j + 2t + h of column wcol, acc[j][2 + h] of column wcol + 1
+    const int n = n0 + wcol;                     // N % 4 == 0: n < N means n + 1 < N
+    if (splits == 1) {
+        if (n < N) {
+            const float b0 = bias != nullptr ? to_f32(bias[n]) : 0.0f;
+            const float b1 = bias != nullptr ? to_f32(bias[n + 1]) : 0.0f;
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int m = 8 * j + 2 * t + h;
+                    if (m < M) store2(out + (int64_t)m * N + n, acc[j][h] + b0, acc[j][2 + h] + b1);
+                }
+        }
+        return;
+    }
+    if (n < N) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int m = 8 * j + 2 * t + h;
+                if (m < M)
+                    *reinterpret_cast<float2*>(ws + ((int64_t)split * M + m) * N + n) =
+                        make_float2(acc[j][h], acc[j][2 + h]);
+            }
+    }
+    // The ticket: after the barrier, one acquire-release add by thread 0 publishes the block's
+    // partial (release covers the writes the barrier ordered before it) and, for the last
+    // block, makes every other split's partial visible to the reads after the next barrier.
+    __syncthreads();
+    if (tid == 0) {
+        int ticket;
+        asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                     : "=r"(ticket) : "l"(counters + blockIdx.x) : "memory");
+        last_block = ticket == splits - 1;
+        if (last_block) counters[blockIdx.x] = 0;   // every split of the tile has its ticket
+    }
+    __syncthreads();
+    if (!last_block) return;
+    // The partials of the column tile in split order (through L2), the bias, one cast.
+    constexpr int UNROLL = 8;
+    for (int i = tid; i < M * (GV_BN / 2); i += GV_THREADS) {
+        const int m = i / (GV_BN / 2);
+        const int nn = n0 + 2 * (i % (GV_BN / 2));
+        if (nn >= N) continue;
+        const float* p = ws + (int64_t)m * N + nn;
+        const int64_t stride = (int64_t)M * N;
+        float v0 = 0.0f, v1 = 0.0f;
+        for (int s0 = 0; s0 < splits; s0 += UNROLL) {
+            float2 pv[UNROLL];
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u)
+                pv[u] = __ldcg(reinterpret_cast<const float2*>(p + min(s0 + u, splits - 1) * stride));
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u)
+                if (s0 + u < splits) {
+                    v0 += pv[u].x;
+                    v1 += pv[u].y;
+                }
+        }
+        if (bias != nullptr) {
+            v0 += to_f32(bias[nn]);
+            v1 += to_f32(bias[nn + 1]);
+        }
+        store2(out + (int64_t)m * N + nn, v0, v1);
+    }
+}
+
+template <int BITS, typename T, int MT>
+cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
+                        const __half* scales, const uint8_t* zeros, const void* bias, void* out,
+                        float* ws, int* counters, int M, int K, int N, int gs, int kc, int splits,
+                        cudaStream_t stream) {
+    static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT>, GV_SMEM_LIMIT);
+    if (attr != cudaSuccess) return attr;
+    const int gather = kperm != nullptr || K % 8 != 0 ||
+                       (reinterpret_cast<uintptr_t>(x) & 15) != 0;
+    const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
+    wna16_gemv_kernel<BITS, T, MT><<<grid, GV_THREADS, gv_smem_bytes<BITS>(MT, kc), stream>>>(
+        static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+        static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits, gather);
+    return cudaGetLastError();
+}
+
+template <int BITS, typename T>
+cudaError_t launch_gemv_rows(const void* x, const int64_t* kperm, const int32_t* qweight,
+                             const __half* scales, const uint8_t* zeros, const void* bias,
+                             void* out, float* ws, int* counters, int M, int K, int N, int gs,
+                             int kc, int splits, cudaStream_t stream) {
+    if (M <= 8)
+        return launch_gemv<BITS, T, 8>(x, kperm, qweight, scales, zeros, bias, out, ws, counters,
+                                       M, K, N, gs, kc, splits, stream);
+    return launch_gemv<BITS, T, 16>(x, kperm, qweight, scales, zeros, bias, out, ws, counters,
+                                    M, K, N, gs, kc, splits, stream);
+}
+
+// The GEMV over GPTQ words [K/P, N] (K1, K4, K5): kc K rows per split, splits of them.
+template <int BITS>
+int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
+                    const void* scales, const uint8_t* zeros, const void* bias, void* out,
+                    float* ws, int* counters, int dtype, int M, int K, int N, int gs, int kc,
+                    int splits, void* stream) {
+    constexpr int P = 32 / BITS;
+    if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
+        gs % 16 != 0 || kc <= 0 || kc % 16 != 0 || splits <= 0 || splits > GV_MAX_SPLITS ||
+        (int64_t)(splits - 1) * kc >= K || (int64_t)splits * kc < K ||
+        (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+        gv_smem_bytes<BITS>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F16:
+            return (int)launch_gemv_rows<BITS, __half>(x, kperm, qweight, s, zeros, bias, out, ws,
+                                                       counters, M, K, N, gs, kc, splits, st);
+        case DT_BF16:
+            return (int)launch_gemv_rows<BITS, __nv_bfloat16>(x, kperm, qweight, s, zeros, bias,
+                                                              out, ws, counters, M, K, N, gs, kc,
+                                                              splits, st);
+        default:   // f32 activations take the SIMT GEMV
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Blocks of the GEMV one SM holds at once (the CUDA occupancy calculator over its registers
+// and shared memory) for `dtype`, M rows and a K chunk of kc rows.
+template <int BITS>
+int wna16_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
+    const int mt = M <= 8 ? 8 : 16;
+    const size_t smem = gv_smem_bytes<BITS>(mt, kc);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (dtype == DT_BF16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, wna16_gemv_kernel<BITS, __nv_bfloat16, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, wna16_gemv_kernel<BITS, __nv_bfloat16, 16>, GV_THREADS, smem);
+    else if (dtype == DT_F16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, wna16_gemv_kernel<BITS, __half, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, wna16_gemv_kernel<BITS, __half, 16>, GV_THREADS, smem);
+    return (int)err;
+}
+
+}  // namespace
+
+// Exports `int NAME_gemv(...)`, the tensor-core decode GEMV over GPTQ words of BITS-bit codes,
+// and `int NAME_gemv_occupancy(dtype, M, kc, int* blocks)`.
+#define WNA16_GEMV_DEFINE_ENTRY(NAME, BITS)                                                     \
+    extern "C" int NAME##_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,     \
+                               const void* scales, const uint8_t* zeros, const void* bias,      \
+                               void* out, float* ws, int* counters, int dtype, int M, int K,    \
+                               int N, int gs, int kc, int splits, void* stream) {               \
+        return wna16_gemm_gemv<BITS>(x, kperm, qweight, scales, zeros, bias, out, ws, counters, \
+                                     dtype, M, K, N, gs, kc, splits, stream);                   \
+    }                                                                                           \
+    extern "C" int NAME##_gemv_occupancy(int dtype, int M, int kc, int* blocks) {               \
+        return wna16_gemv_occupancy<BITS>(dtype, M, kc, blocks);                                \
+    }

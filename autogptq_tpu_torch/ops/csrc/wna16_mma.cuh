@@ -4,8 +4,9 @@
 //   wna16_t_mma_kernel  dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T           K10
 // Each library instantiates them beside its SIMT kernels (wna16_gemm.cuh, wna16_gemm_t.cuh,
 // w4a16_kb32l_gemm.cu) and exports them as NAME_mma; ops/gemm.py:tile_kernel routes a product
-// here when the activations are bf16 or f16, M > 16 and 16 divides the group size. f32
-// activations, M <= 16 and the other group sizes stay on the SIMT kernels.
+// here when the activations are bf16 or f16, M > 16 and 16 divides the group size. At M <= 16
+// the same products take the tensor-core decode GEMV of wna16_gemv.cuh (K1/K4/K5) or K6's
+// ring; f32 activations and the other group sizes stay on the SIMT kernels.
 //
 // They replace the prefill regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487; _matmul_kb32 :559, and _matmul_kb32l :635 with lin=True), _kernel_ki32,

@@ -15,12 +15,15 @@ and the bound) is built into three libraries:
 tensors and run the plain versions (``*_matmul_ref``) for CPU tensors; nothing
 else picks between them.
 
-Each library holds two tile kernels for M > 16 (``csrc/wna16_mma.cuh`` beside
-the SIMT ones): :func:`tile_kernel` routes bf16 and f16 activations whose group
-size 16 divides to the tensor-core kernel (entry ``<name>_mma``, launch count
-``<name>_mma``), and f32 activations, M <= 16 (the split-K GEMV) and the other
-group sizes to the SIMT kernels (launch count ``<name>``). The choice is static,
-by dtype and shape; a launch that fails raises, whichever kernel it was.
+Each library holds three kernels besides its SIMT ones (``csrc/wna16_gemm.cuh``:
+the split-K GEMV at M <= 16, the tile kernel above): :func:`route` sends bf16
+and f16 activations whose group size 16 divides to the tensor-core decode GEMV
+at M <= 16 (``csrc/wna16_gemv.cuh``, entry and launch count ``<name>_gemv``,
+one launch per call, its split-K combine folded into the last block, planned by
+:func:`gemv_plan`) and to the tensor-core tile kernel above (``csrc/wna16_mma.cuh``,
+``<name>_mma``; :func:`tile_kernel`), and f32 activations and the other group
+sizes to the SIMT kernels (launch count ``<name>``). The choice is static, by
+dtype and shape; a launch that fails raises, whichever kernel it was.
 
 K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
 is one library, ``wna16_gemm_t``, with an entry point per storage width; it
@@ -55,7 +58,10 @@ padded to ``KB32L_KB`` and columns padded to ``KB32L_BN`` as tiles
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -72,6 +78,15 @@ MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 51
 MMA_SUFFIX = "_mma"     # entry point and launch-count key of a library's tensor-core kernel
 MMA_DTYPES = (torch.float16, torch.bfloat16)
 MMA_K = 16              # depth of one mma.sync step: the group size must be a multiple
+GEMV_SUFFIX = "_gemv"   # entry point and launch-count key of a library's tensor-core GEMV
+GEMV_BN = 64            # output columns per GEMV block (4 warps of 16)
+GEMV_STAGES = 4         # its cp.async ring: 3 stages in flight while one is consumed
+GEMV_STAGE_WORDS = 16   # word rows per stage (512 / bits K rows: 4 KB of words)
+GEMV_BLOCKS_PER_SM = 4  # the plan's aim, in one wave
+GEMV_MAX_SPLITS = 32    # partials the last block adds, at most
+GEMV_WS_SHARE = 0.25    # f32 partials at most this share of the weight's bytes
+GEMV_X_SMEM = 32768     # bytes of a block's staged x [8 or 16, K chunk] the plan aims under
+GEMV_SMEM_LIMIT = 200 * 1024   # dynamic shared memory a GEMV block may take (csrc)
 
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
@@ -125,13 +140,14 @@ def wna16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Ten
 
 def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
     """The kernel a product of ``m`` rows with group size ``gs`` (in rows:
-    ``K`` for one group) takes on the card, for K1/K4/K5/K6 and K10 alike:
-    ``"mma"``, the tensor-core tile kernel, for bf16 and f16 at ``m > 16``
-    with ``16 | gs``; ``"simt"`` otherwise: the split-K GEMV at ``m <= 16``,
-    the SIMT tile kernel for f32 (the f32 model path and ``quantize``'s
-    re-forward) and for group sizes 16 does not divide. ``kernel`` ("mma"
-    or "simt") names one instead, to time both on the same operands; the
-    tensor-core kernel raises for operands it does not take."""
+    ``K`` for one group) takes on the card, for K6 and K10, and for K1/K4/K5
+    above 16 rows (:func:`route`): ``"mma"``, the tensor-core tile kernel,
+    for bf16 and f16 at ``m > 16`` with ``16 | gs``; ``"simt"`` otherwise:
+    the split-K GEMV at ``m <= 16``, the SIMT tile kernel for f32 (the f32
+    model path and ``quantize``'s re-forward) and for group sizes 16 does not
+    divide. ``kernel`` ("mma" or "simt") names one instead, to time both on
+    the same operands; the tensor-core kernel raises for operands it does not
+    take."""
     if kernel is not None:
         if kernel not in ("mma", "simt"):
             raise ValueError(f"kernel must be 'mma', 'simt' or None, got {kernel!r}")
@@ -139,6 +155,99 @@ def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = Non
     if m > DECODE_MAX_M and dtype in MMA_DTYPES and gs % MMA_K == 0:
         return "mma"
     return "simt"
+
+
+_forced = [None]    # the kernel every wna16_matmul call takes inside forced_kernel
+
+
+@contextlib.contextmanager
+def forced_kernel(kernel: Optional[str]):
+    """Inside, every :func:`wna16_matmul` call without its own ``kernel``
+    takes ``kernel`` ("gemv", "mma", "simt" or None), so that a whole path
+    (a model's ``generate``) can be run through another kernel on the same
+    weights, as chip_smoke.py does to hold the decode GEMV against the SIMT
+    one."""
+    _check_kernel(kernel)
+    before = _forced[0]
+    _forced[0] = kernel
+    try:
+        yield
+    finally:
+        _forced[0] = before
+
+
+def _check_kernel(kernel: Optional[str]) -> None:
+    if kernel not in (None, "gemv", "mma", "simt"):
+        raise ValueError(f"kernel must be 'gemv', 'mma', 'simt' or None, got {kernel!r}")
+
+
+def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
+    """The kernel K1/K4/K5's forward takes on the card for ``m`` rows with
+    group size ``gs`` (in rows: ``K`` for one group): ``"gemv"``, the
+    tensor-core decode GEMV, for bf16 and f16 at ``m <= 16`` with ``16 | gs``;
+    above 16 rows :func:`tile_kernel`'s choice (``"mma"`` or ``"simt"``); f32
+    and the group sizes 16 does not divide take ``"simt"`` at any ``m``.
+    ``kernel`` names one instead (the tensor-core kernels raise for operands
+    they do not take). K6 and K10 keep :func:`tile_kernel`."""
+    _check_kernel(kernel)
+    if kernel is not None:
+        return kernel
+    if m <= DECODE_MAX_M and dtype in MMA_DTYPES and gs % MMA_K == 0:
+        return "gemv"
+    return tile_kernel(dtype, m, gs)
+
+
+STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
+
+
+def storage_bits(bits: int) -> int:
+    """Bits a code takes in the words: 3-bit codes ride in nibbles."""
+    return STORAGE_BITS[bits]
+
+
+def gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> dict:
+    """The tensor-core GEMV's launch, from shapes alone (no value on the card,
+    so the grid is fixed for a given layer and row count): column tiles of
+    ``GEMV_BN``; K in ``splits`` chunks of ``kc`` rows, a whole number of
+    stages and, where that fits the staged x, of groups; blocks for at most
+    about ``GEMV_BLOCKS_PER_SM`` per SM, at most ``GEMV_MAX_SPLITS`` splits,
+    and f32 partials ``[splits, m, n]`` within ``GEMV_WS_SHARE`` of the
+    weight's bytes (so they stay in L2). ``bits`` is the code width (3 rides in
+    nibbles). Also the stage's K rows, the blocks, the shared-memory, weight
+    and workspace bytes."""
+    return dict(_gemv_plan(k, n, m, group_size, bits, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> dict:
+    sb = storage_bits(bits)
+    gs = k if group_size == -1 else group_size
+    bk = GEMV_STAGE_WORDS * 32 // sb                     # K rows per stage
+    mt = 8 if m <= 8 else 16
+    col_blocks = -(-n // GEMV_BN)
+    weight_bytes = k * n * sb // 8 + 3 * -(-k // gs) * n
+    kc_max = max(bk, GEMV_X_SMEM // (2 * mt) // bk * bk)
+    unit = math.lcm(gs, bk)
+    if unit > kc_max:               # a group longer than the x stage: whole stages
+        unit = bk
+    cap = max(1, int(GEMV_WS_SHARE * weight_bytes // (4 * m * n)))
+    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // col_blocks, GEMV_MAX_SPLITS, cap))
+    kc = -(-k // want // unit) * unit
+    kc = min(kc, max(unit, kc_max // unit * unit))
+    splits = -(-k // kc)
+    if splits > min(cap, GEMV_MAX_SPLITS):   # the x stage grows rather than the workspace
+        kc = -(-k // min(cap, GEMV_MAX_SPLITS) // unit) * unit
+        splits = -(-k // kc)
+    stage_bytes = GEMV_STAGE_WORDS * (GEMV_BN + 16) * 4 + (bk // 16) * GEMV_BN * 3
+    stage_bytes = -(-stage_bytes // 16) * 16
+    smem = GEMV_STAGES * stage_bytes + mt * (kc + 8) * 2
+    if smem > GEMV_SMEM_LIMIT:
+        raise NotImplementedError(f"the decode GEMV's plan for K={k}, N={n}, M={m}, group size "
+                                  f"{gs} needs {smem} B of shared memory per block")
+    return dict(kc=kc, splits=splits, col_blocks=col_blocks, blocks=col_blocks * splits,
+                stage_k=bk, stage_word_bytes=GEMV_STAGE_WORDS * GEMV_BN * 4,
+                smem_bytes=smem, weight_bytes=weight_bytes,
+                workspace_bytes=4 * m * n * splits if splits > 1 else 0)
 
 
 def split_k(k: int, n: int, gs: int, sms: int, pack: int = 8) -> tuple[int, int]:
@@ -175,6 +284,31 @@ def _lib_mma(name: str):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib_gemv(name: str):
+    """Library ``name``'s tensor-core decode GEMV ``<name>_gemv(x, kperm,
+    qweight, scales, zeros, bias, out, ws, counters, dtype, M, K, N, gs, kc,
+    splits, stream)``."""
+    fn = getattr(build.load(name), name + GEMV_SUFFIX)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int) -> int:
+    """How many GEMV blocks of ``bits``-bit codes (3 in nibbles) one SM holds
+    at once for ``m`` rows and a K chunk of ``kc`` rows (the CUDA occupancy
+    calculator over the kernel's registers and shared memory)."""
+    name = KERNEL_NAMES[storage_bits(bits)]
+    fn = getattr(build.load(name), name + GEMV_SUFFIX + "_occupancy")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    build.check(name, fn(DTYPE_CODES[dtype], m, kc, ctypes.byref(blocks)))
+    return blocks.value
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -233,8 +367,8 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                  kernel: Optional[str] = None) -> torch.Tensor:
     """``x2d [M, K] @ W -> [M, N]`` in ``x2d``'s dtype for ``bits``-bit words
     (2, 4 or 8). A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel of that width that :func:`tile_kernel` names (``kernel``
-    passed on to it), or raises."""
+    the kernel of that width that :func:`route` names (``kernel``, or the one
+    :func:`forced_kernel` sets, passed on to it), or raises."""
     if bits not in KERNEL_NAMES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if x2d.device.type == "cpu":
@@ -249,7 +383,20 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
-    if tile_kernel(x2d.dtype, m, gs, kernel) == "mma":
+    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0])
+    if chosen == "gemv":
+        sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+        plan = gemv_plan(k, n, m, gs, bits, sms)
+        ws, counters = build.split_scratch(name + GEMV_SUFFIX, x2d.device,
+                                           plan["splits"] * m * n, plan["col_blocks"])
+        code = _lib_gemv(name)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                               _ptr(bias), _ptr(out), _ptr(ws), _ptr(counters),
+                               DTYPE_CODES[x2d.dtype], m, k, n, gs, plan["kc"], plan["splits"],
+                               _stream(x2d))
+        build.check(name, code)
+        build.launches[name + GEMV_SUFFIX] += 1
+        return out
+    if chosen == "mma":
         code = _lib_mma(name)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
                               _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype], m, k, n, gs,
                               _stream(x2d))
@@ -690,7 +837,8 @@ __all__ = [
     "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
-    "split_k", "tile_kernel", "MMA_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
+    "split_k", "tile_kernel", "route", "gemv_plan", "gemv_blocks_per_sm", "forced_kernel",
+    "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
     "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
     "w4a16_kb32l_matmul", "w4a16_kb32l_matmul_ref",

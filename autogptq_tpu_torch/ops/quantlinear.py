@@ -78,11 +78,8 @@ class QuantLinear:
     layout: str = "gptq"           # "gptq" (K1/K4/K5) or "kb32l" (K6)
 
 
-STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
-
-
-def storage_bits(bits: int) -> int:
-    return STORAGE_BITS[bits]
+STORAGE_BITS = gemm.STORAGE_BITS
+storage_bits = gemm.storage_bits
 
 
 def _to_numpy(a) -> np.ndarray:

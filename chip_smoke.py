@@ -13,9 +13,12 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    a desc_act and a bias case: the
    error against the stated tolerance, the kernel's, the plain version's and
    ``torch.matmul``'s (on a pre-dequantized bf16 weight) times, and the bound.
-   At M = 128 and 2048 (bf16) the tensor-core tile kernel runs, and the SIMT
-   tile kernel is held and timed beside it on the same weights; ptxas'
-   registers, spills and shared memory of every tensor-core instance.
+   At M <= 16 (bf16) the tensor-core decode GEMV runs (bit-equal on a second
+   call, with its plan and weight bytes in flight per SM) and the SIMT GEMV is
+   held and timed beside it on the same weights (``kernel="simt"``); at M = 128
+   and 2048 the tensor-core tile kernel beside the SIMT tile kernel; ptxas'
+   registers, spills and shared memory of every tensor-core instance (a spill
+   in a GEMV instance fails the run).
 4. K2 (split-KV flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2
    with a left-padded row, and GQA at 528 slots, a window sweep (17, 64, 272
    and 528 live slots, MHA and GQA) and Mixtral-8x7B's decode shape (8 KV
@@ -35,22 +38,29 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 6. The main path: writes a random 4-bit g128 Llama-2-7B checkpoint (all 32
    layers), loads it with ``AutoGPTQForCausalLM.from_quantized`` on the
    default device and greedy-decodes 512 tokens from a 16-token prompt at
-   batch 1, with the launch counts set to 0 just before and read just after;
-   then a batch-2 left-padded run of 16 tokens.
+   batch 1, with the launch counts set to 0 just before and read just after
+   (exactly 224 ``w4a16_gemm_gemv`` per token, no SIMT GEMV); then a batch-2
+   left-padded run of 16 tokens. A profile of a short generate, and of the
+   same generate with every quantized matmul forced through the SIMT kernels
+   (``gemm.forced_kernel``): the new route must launch one kernel per K1 call
+   and take less device time per token; the SIMT route's kernels and reduces
+   are reported beside.
 7. The beam path on the same model: ``generate(num_beams=4)`` of 512 tokens
    over the paged bf16 cache (counts set to 0 just before, read just after),
    repeated to check that it reproduces its tokens, then a 64-token run over
-   the int8 paged cache. A profile of a short greedy and a short beam-4
-   generate gives device time by kernel family.
+   the int8 paged cache (224 GEMV launches per step in both). A profile of a
+   short beam-4 generate, through both routes as for greedy.
 8. The port on the card against the port on the CPU: a 2-layer, full-width
    cut of the same checkpoint, prefill and one decode step, and one paged
-   beam-4 decode step, bf16 kernels on the card against the f32 plain
-   versions on the CPU.
+   beam-4 decode step, bf16 kernels (the tensor-core GEMV) and f32 kernels
+   (the SIMT GEMV) on the card against the f32 plain versions on the CPU.
 9. K4 (w8a16 GEMM), K5 (w2a16 GEMM) and K1 at the shape classes of the TPU's
    ``ki32`` and ``kpair`` kernels (3-bit codes in nibbles, one group, group
    sizes 16 and 64, K = 11008) against their plain versions at the three
    Llama-2-7B shapes, M in {1, 4, 16, 17, 128}, bf16 (timed) and f32, one
-   desc_act case per kernel. The rest classes (group sizes the codes per word
+   desc_act case with a bias per width; at M <= 16 the tensor-core GEMV,
+   bit-equal on a second call, timed beside the SIMT GEMV. The rest classes
+   (group sizes the codes per word
    do not divide, a partial last group) at full width, one layer per storage
    width, through the GEMV (M = 1), the SIMT tile kernel and K10 (M = 128).
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
@@ -98,8 +108,9 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
    decode of 128 tokens from a 16-token prompt twice (equal tokens; launch
    counts set to 0 just before the first and read just after: K9 96, K2 32,
-   K1 128 per decode token), a profile by kernel family, and 64 tokens of
-   beam 4 over the paged bf16 cache (K9 at P = 8, K7, K8a, K8b).
+   K1's GEMV 128 per decode token), a profile by kernel family through both
+   routes, and 64 tokens of beam 4 over the paged bf16 cache (K9 at P = 8, K7,
+   K8a, K8b).
 17. Mixtral card against CPU on a 2-layer full-width cut, f32 on both sides
    (logits of a prefill and of a routed decode step), the share of the
    CPU's routing choices that an f32 and a bf16 card run make, and one
@@ -109,7 +120,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    words, a cp.async ring in the decode regime) against its plain version at
    the Llama-2-7B projection shapes, M in {1, 4, 16} (decode) and {128, 2048}
    (tile), 4-bit g128 bf16, plus 3-bit, desc_act, bias, N = 1312 and f32 and
-   f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout, the
+   f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout (its
+   tensor-core GEMV and, at M <= 16, its SIMT GEMV), the
    plain version and ``torch.matmul``; the decode plan (stages, tile bytes,
    blocks, blocks per SM, weight bytes in flight per SM) and ptxas' registers
    and spills. K10 over kb32l words at M = 64 and 2048.
@@ -152,6 +164,9 @@ K2_ABS_TOL = 1e-4
 # Card (bf16 activations, bf16 KV cache, kernels) against CPU (f32, plain
 # versions) after 2 full-width layers: relative Frobenius error of the logits.
 E2E_REL_TOL = 5e-2
+# The same with f32 activations on the card: f32 weights and accumulation on both sides (the
+# SIMT GEMV and tile kernel), summation order only.
+E2E_F32_REL_TOL = 1e-3
 # K7: as K2, both sides f32 on the same inputs (int8 codes and f32 scales
 # dequantized alike), differing only in summation order and exp.
 K7_ABS_TOL = 1e-4
@@ -222,6 +237,8 @@ LAYER_SHAPES = {          # Llama-2-7B projection: (K, N, calls per decoder laye
 
 
 MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the tensor-core tile kernels
+GEMV_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_gemv.cuh"  # the tensor-core decode GEMV
+ROUTE_SUFFIX = {"gemv": "_gemv", "mma": "_mma", "simt": ""}  # launch-count key by gemm.route
 
 
 class SmokeFailure(RuntimeError):
@@ -281,8 +298,8 @@ def nbytes(*tensors) -> int:
 
 def simt_matmul(gemm, qlin, x, layer):
     """``qlin.matmul(x, layer)`` through the layer's SIMT kernels (GEMV or SIMT
-    tile kernel) whatever ``gemm.tile_kernel`` would pick: the tensor-core
-    kernel's yardstick on the same weights."""
+    tile kernel) whatever ``gemm.route`` would pick: the tensor-core kernels'
+    yardstick on the same weights."""
     if layer.layout == "kb32l":
         return gemm.w4a16_kb32l_matmul(x, layer.qweight, layer.scales, layer.zeros, layer.kperm,
                                        layer.bias, layer.group_size, layer.out_features,
@@ -292,10 +309,27 @@ def simt_matmul(gemm, qlin, x, layer):
                              kernel="simt")
 
 
+def gemv_plan_of(torch, gemm, dtype, k, n, m, gs, bits) -> dict:
+    """The decode GEMV's plan with its blocks per SM (the occupancy
+    calculator) and the weight bytes in flight per SM: the blocks resident
+    on an SM times the stages in flight per block (three of the ring's four,
+    or all of a shorter split) times a stage's bytes of words."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = gemm.gemv_plan(k, n, m, gs, bits, sms)
+    per_sm = gemm.gemv_blocks_per_sm(dtype, m, bits, plan["kc"])
+    resident = min(per_sm, -(-plan["blocks"] // sms))
+    stages = min(gemm.GEMV_STAGES - 1, -(-plan["kc"] // plan["stage_k"]))
+    plan.update(blocks_per_sm=per_sm,
+                weight_bytes_in_flight_per_sm=resident * stages * plan["stage_word_bytes"])
+    return plan
+
+
 def phase_k1(torch, np, timer) -> list:
-    """K1 against its plain version at the Llama-2-7B shapes; at M > 16 the
-    tensor-core tile kernel (bf16) and the SIMT tile kernel on the same
-    weights, each held to K1_REL_TOL and timed."""
+    """K1 against its plain version at the Llama-2-7B shapes; at M <= 16 the
+    tensor-core decode GEMV and at M > 16 the tensor-core tile kernel (bf16),
+    each beside the SIMT GEMV or SIMT tile kernel on the same weights, each
+    held to K1_REL_TOL and timed; the GEMV also bit-equal on a second call,
+    with its plan."""
     from autogptq_tpu_torch.ops import gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
@@ -322,10 +356,10 @@ def phase_k1(torch, np, timer) -> list:
         check(bool(torch.isfinite(y).all()), f"K1 {name} M={m}: non-finite output")
         check(err <= K1_REL_TOL * scale, f"K1 {name} M={m}: max |kernel - plain| = {err:.3e} "
                                          f"> {K1_REL_TOL} * {scale:.3e}")
-        route = gemm.tile_kernel(x.dtype, m, 128)
+        route = gemm.route(x.dtype, m, 128)
         iters = 5 if m == TRAIN_M else 20
         simt = {}
-        if route == "mma":     # the SIMT tile kernel on the same weights
+        if route in ("mma", "gemv"):   # the SIMT GEMV or tile kernel on the same weights
             ys = simt_matmul(gemm, qlin, x, layer)
             torch.cuda.synchronize()
             serr = (ys.float() - ref.float()).abs().max().item()
@@ -333,6 +367,10 @@ def phase_k1(torch, np, timer) -> list:
                                               f"{serr:.3e} > {K1_REL_TOL} * {scale:.3e}")
             simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
                 lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
+        if route == "gemv":
+            check(torch.equal(qlin.matmul(x, layer), y), f"K1 GEMV {name} M={m}: a second call "
+                                                         "differs")
+            simt["plan"] = gemv_plan_of(torch, gemm, x.dtype, k, n, m, 128, 4)
         w = qlin.logical_weight(layer, torch.bfloat16)
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
         plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 10))
@@ -344,20 +382,21 @@ def phase_k1(torch, np, timer) -> list:
                          bound_ms=b_ms, bound_by=b_by, **simt))
         print(f"K1 {name:14s} K={k:5d} N={n:5d} M={m:4d} {route:4s}  err {err:.3e} (tol "
               f"{K1_REL_TOL * scale:.3e})  kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.1f} "
-              f"TFLOP/s)" + (f"  SIMT tile {simt['simt_ms']:.4f} ms (err "
-                             f"{simt['simt_max_abs_err']:.3e})" if simt else "")
+              f"TFLOP/s)" + (f"  SIMT {'GEMV' if route == 'gemv' else 'tile'} "
+                             f"{simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
+                             if simt else "")
               + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
-                f"({b_by})", flush=True)
+                f"({b_by})" + (f"  plan {simt['plan']}" if "plan" in simt else ""), flush=True)
     return rows
 
-def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype, layout=None):
+def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype, layout=None, bias=False):
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
 
     t = random_quant_tensors(rng, k, n, bits, gs, desc_act)
     return qlin.from_packed(qlin.PackedQuantLinear(
         qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
-        bias=None, bits=bits, group_size=gs, in_features=k, out_features=n), device="cuda",
-        dtype=dtype, layout=layout)
+        bias=rng.standard_normal(n).astype("float32") if bias else None, bits=bits,
+        group_size=gs, in_features=k, out_features=n), device="cuda", dtype=dtype, layout=layout)
 
 
 def ptxas_report(name: str, key: str) -> list:
@@ -424,8 +463,8 @@ def phase_k6(torch, np, timer) -> dict:
         key = gemm.KB32L_KERNEL + (gemm.MMA_SUFFIX if gemm.tile_kernel(dtype, m, 128) == "mma"
                                    else "")
         check(build.launches[key] == before.get(key, 0) + 1
-              and build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0)
-              and build.launches["w4a16_gemm_mma"] == before.get("w4a16_gemm_mma", 0),
+              and all(build.launches[k1] == before.get(k1, 0)
+                      for k1 in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv")),
               f"K6 {name} M={m}: launched {dict(build.launches)}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
@@ -449,6 +488,8 @@ def phase_k6(torch, np, timer) -> dict:
                 lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
         k1_ms = timer.ms(lambda: qlin.matmul(x, gptq), iters=iters)
+        if gemm.route(dtype, m, 128) == "gemv":   # K1's SIMT GEMV on the same words
+            simt["k1_simt_ms"] = timer.ms(lambda: simt_matmul(gemm, qlin, x, gptq), iters=iters)
         plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 5), warmup=1)
         lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=iters)
         b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
@@ -466,8 +507,10 @@ def phase_k6(torch, np, timer) -> dict:
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plan=plan, **simt))
         print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} {route:4s} err "
               f"{err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms"
-              + (f"  SIMT tile {simt['simt_ms']:.4f} ms" if simt else "")
-              + f"  K1 {k1_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              + (f"  SIMT tile {simt['simt_ms']:.4f} ms" if "simt_ms" in simt else "")
+              + f"  K1 {k1_ms:.4f} ms"
+              + (f" (SIMT GEMV {simt['k1_simt_ms']:.4f} ms)" if "k1_simt_ms" in simt else "")
+              + f"  plain {plain_ms:.4f} ms  "
               f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plan {plan}",
               flush=True)
         del layer, gptq, w
@@ -479,35 +522,45 @@ def phase_k6(torch, np, timer) -> dict:
 
 
 def phase_wna16(torch, np, timer) -> list:
-    """K4, K5 and K1's other shape classes against their plain versions."""
+    """K4, K5 and K1's other shape classes against their plain versions; at
+    M <= 16 (bf16, 16 | gs) the tensor-core decode GEMV, bit-equal on a
+    second call and timed beside the SIMT GEMV on the same weights."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
     rng = np.random.default_rng(3)
     gen = torch.Generator(device="cuda").manual_seed(3)
     shapes = {name: (k, n) for name, (k, n, _) in LAYER_SHAPES.items()}
-    layers = [(bits, name, 128, False) for bits in (8, 2, 3) for name in shapes]
-    layers += [(8, "down", 128, True), (2, "down", 128, True), (3, "qkvo", 128, True)]
+    # (bits, projection, group size, desc_act, bias)
+    layers = [(bits, name, 128, False, False) for bits in (8, 2, 3) for name in shapes]
+    layers += [(8, "down", 128, True, True), (2, "down", 128, True, True),
+               (3, "qkvo", 128, True, True)]
     # K1 at the classes of the TPU's ki32 (one group, any K % 8 == 0) and kpair (any group
     # size 8 divides) kernels
-    layers += [(4, "qkvo", -1, False), (4, "down", -1, False), (4, "qkvo", 16, False),
-               (4, "gate_up", 64, False), (4, "down", 64, True), (3, "down", -1, False)]
+    layers += [(4, "qkvo", -1, False, False), (4, "down", -1, False, False),
+               (4, "qkvo", 16, False, False), (4, "gate_up", 64, False, False),
+               (4, "down", 64, True, False), (3, "down", -1, False, False)]
     # K5 at the class of the TPU's kquad kernel (group sizes below 128), K4 at a small group
-    layers += [(2, "qkvo", 64, False), (2, "down", 32, True), (8, "qkvo", 32, False)]
+    layers += [(2, "qkvo", 64, False, False), (2, "down", 32, True, False),
+               (8, "qkvo", 32, False, False)]
     rows = []
-    for bits, name, gs, desc_act in layers:
+    for bits, name, gs, desc_act, with_bias in layers:
         k, n = shapes[name]
         kernel = KERNEL_OF_BITS[bits]
-        layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
+        layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16,
+                              bias=with_bias)
         w = qlin.logical_weight(layer, torch.bfloat16)
-        case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
+        case = (f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
+                + ("+bias" if with_bias else ""))
         for m in (1, BEAMS, 16, 17, 128):
             x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-            key = kernel + ("_mma" if gemm.tile_kernel(x.dtype, m, k if gs == -1 else gs) == "mma"
-                            else "")
-            before = build.launches[key]
+            route = gemm.route(x.dtype, m, k if gs == -1 else gs)
+            key = kernel + ROUTE_SUFFIX[route]
+            before = dict(build.launches)
             y = qlin.matmul(x, layer)
-            check(build.launches[key] == before + 1, f"{case} M={m}: {key} not launched")
+            check(build.launches[key] == before.get(key, 0) + 1
+                  and (key == kernel or build.launches[kernel] == before.get(kernel, 0)),
+                  f"{case} M={m}: launched {dict(build.launches)}, want one {key}")
             ref = qlin.matmul_plain(x, layer)
             y32 = qlin.matmul(x.float(), layer)
             ref32 = qlin.matmul_plain(x.float(), layer)
@@ -521,18 +574,30 @@ def phase_wna16(torch, np, timer) -> list:
                                              f"{err:.3e} > {K1_REL_TOL} * {scale:.3e}")
             check(err32 <= F32_ABS_TOL * max(1.0, scale),
                   f"{case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            simt = {}
+            if route == "gemv":    # bit-equal again, and the SIMT GEMV on the same weights
+                check(torch.equal(qlin.matmul(x, layer), y), f"{case} M={m}: the GEMV's second "
+                                                             "call differs")
+                ys = simt_matmul(gemm, qlin, x, layer)
+                torch.cuda.synchronize()
+                serr = (ys.float() - ref.float()).abs().max().item()
+                check(serr <= K1_REL_TOL * scale, f"{case} M={m} SIMT GEMV: max |kernel - plain| "
+                                                  f"= {serr:.3e} > {K1_REL_TOL} * {scale:.3e}")
+                simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
+                    lambda: simt_matmul(gemm, qlin, x, layer), iters=10))
             ms = timer.ms(lambda: qlin.matmul(x, layer), iters=10)
             plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=5, warmup=1)
             lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=10)
             b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
-                                         layer.kperm), 2.0 * m * k * n)
+                                         layer.kperm, layer.bias), 2.0 * m * k * n)
             rows.append(dict(kernel=key, bits=bits, case=name, K=k, N=n, M=m, group_size=gs,
-                             desc_act=desc_act, max_abs_err=err, max_abs_ref=scale,
-                             max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-            print(f"{key} {case:26s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
+                             desc_act=desc_act, bias=with_bias, max_abs_err=err,
+                             max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **simt))
+            print(f"{key} {case:31s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
                   f"{K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
-                  f"{ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+                  f"{ms:.4f} ms" + (f"  SIMT GEMV {simt['simt_ms']:.4f} ms" if simt else "")
+                  + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
     return rows
@@ -589,7 +654,8 @@ def phase_rest(torch, np, timer) -> list:
             before = dict(build.launches)
             y = run(x)
             check(build.launches[key] == before.get(key, 0) + 1
-                  and build.launches[key + "_mma"] == before.get(key + "_mma", 0),
+                  and build.launches[key + "_mma"] == before.get(key + "_mma", 0)
+                  and build.launches[key + "_gemv"] == before.get(key + "_gemv", 0),
                   f"rest class {case} {what} M={m}: launched {dict(build.launches)}")
             ref = plain(x)
             y32, ref32 = run(x.float()), plain(x.float())
@@ -648,6 +714,23 @@ def mma_ptxas() -> list:
         print(f"ptxas {r['library']}: {r['function'][:70]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B, dynamic "
               f"smem {r['dynamic_smem_bytes']} B", flush=True)
+    return out
+
+
+def gemv_ptxas() -> list:
+    """ptxas' registers and spills of every tensor-core GEMV instance (bits x
+    activation type x 8 or 16 rows); a spill fails the run."""
+    out = []
+    for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm"):
+        for r in ptxas_report(name, "wna16_gemv_kernel"):
+            r.update(library=name)
+            out.append(r)
+    check(len(out) == 12, f"{len(out)} GEMV instances in the ptxas logs, want 12")
+    for r in out:
+        print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
+              f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"{r['function']} spills {r['spill_stores']}/{r['spill_loads']} B")
     return out
 
 
@@ -947,8 +1030,8 @@ def phase_train(torch, np, model, work: str) -> dict:
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
     # every projection is a bf16 product of 2048 rows: the tensor-core kernels, no SIMT tile
     for c in counts:
-        check(c.get("w4a16_gemm_mma", 0) == 7 * layers and not c.get("w4a16_gemm", 0),
-              f"a training step launched K1 {c}")
+        check(c.get("w4a16_gemm_mma", 0) == 7 * layers and not c.get("w4a16_gemm", 0)
+              and not c.get("w4a16_gemm_gemv", 0), f"a training step launched K1 {c}")
         check(c.get(gemm.T_KERNEL + gemm.MMA_SUFFIX, 0) >= 7 * (layers - 1)
               and not c.get(gemm.T_KERNEL, 0), f"a training step launched K10 {c}")
     steady = float(np.median(seconds[1:]))
@@ -982,14 +1065,61 @@ def phase_train(torch, np, model, work: str) -> dict:
     again = model.generate(prompt, max_new_tokens=TRAIN_NEW_TOKENS)
     check(first.shape == (1, PROMPT_LEN + TRAIN_NEW_TOKENS), f"generate shape {first.shape}")
     check(np.array_equal(first, again), "generate with adapters does not repeat its tokens")
-    check(gen_counts.get("w4a16_gemm", 0) > 0 and gen_counts.get("flash_decode", 0) > 0,
-          f"generate with adapters launched {gen_counts}")
+    check(gen_counts.get("w4a16_gemm_gemv", 0) > 0 and not gen_counts.get("w4a16_gemm", 0)
+          and gen_counts.get("flash_decode", 0) > 0, f"generate with adapters launched {gen_counts}")
     print(f"save_adapter: {len(names)} tensors; generate with the trained adapters, "
           f"{TRAIN_NEW_TOKENS} greedy tokens, twice with equal tokens: "
           f"{first[0, PROMPT_LEN:].tolist()}, launches {gen_counts}", flush=True)
     return dict(losses=losses, seconds=seconds, s_per_step=steady, tokens_per_s=tok_s,
                 peak_bytes=peak, launches_per_step=counts[-1], profile=split,
                 generate_launches=gen_counts, adapter_tensors=len(names))
+
+
+# torch.profiler on the H100 drops the kernel records of the first launches of a profiling
+# session, and more of them in each later session of a process (each profile below reports
+# the launches it recorded with no kernel). A burst of tiny kernels opens every session to
+# take that loss, and only the kernels that start inside the profiled function's range are
+# counted. Records also go missing inside the range with their launch records (4 of 7392
+# GEMV kernels in one greedy profile, 1521 of 70878 kernels in another), so a count read
+# from a profile is held only where a loss cannot make it pass: no split-K reduce, and never
+# more kernels than the wrappers launched.
+PROFILER_WARMUP_LAUNCHES = 512
+PROFILER_WINDOW = "chip_smoke.profiled"
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profiled(torch, fn) -> dict:
+    """``fn()`` under torch.profiler, after :data:`PROFILER_WARMUP_LAUNCHES`
+    tiny kernels and a synchronize. Returns its result, the profiler's events,
+    the CUDA kernel events that start inside ``fn``'s range, the host clock of
+    ``fn`` in microseconds, and the kernel launches the profiler recorded with
+    no kernel, inside that range and before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        x = torch.zeros(1, device="cuda")
+        for _ in range(PROFILER_WARMUP_LAUNCHES):
+            x.add_(1)
+        torch.cuda.synchronize()
+        with record_function(PROFILER_WINDOW):
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    window = next(e.time_range for e in events
+                  if e.name == PROFILER_WINDOW and e.device_type == DeviceType.CPU)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    recorded = {e.id for e in device}
+    lost = [e.time_range.start for e in events if e.device_type == DeviceType.CPU
+            and e.name in LAUNCH_CALLS and e.id not in recorded]
+    return dict(result=result, events=events, wall_us=wall_us,
+                kernels=[e for e in device if window.start <= e.time_range.start <= window.end],
+                lost_inside=sum(window.start <= t <= window.end for t in lost),
+                lost_before=sum(t < window.start for t in lost))
 
 
 def profile_train_step(torch, step) -> dict:
@@ -999,15 +1129,9 @@ def profile_train_step(torch, step) -> dict:
     launched by the ops inside ``arch.attention``'s "attention" range and by
     their backward nodes (matched on sequence number); the rest is other."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss = step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
+    run = profiled(torch, step)
+    loss, events, wall_ms = run["result"], run["events"], run["wall_us"] / 1e3
 
     def family(name):
         if any(k in name for k in K10_KEYS):
@@ -1019,9 +1143,7 @@ def profile_train_step(torch, step) -> dict:
     split = dict(K1=0.0, K10=0.0, attention=0.0, other=0.0)
     instances: dict = {}      # kernel instance (KERNEL_INSTANCES) -> [launches, ms]
     kernels = 0
-    for evt in events:
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-            continue
+    for evt in run["kernels"]:
         kernels += 1
         ms = evt.time_range.elapsed_us() / 1e3
         split[family(evt.name) or "other"] += ms
@@ -1168,15 +1290,18 @@ def phase_other_widths(torch, np, work: str) -> dict:
         again = model.generate(prompt, max_new_tokens=OTHER_WIDTH_TOKENS)
         again_s = time.perf_counter() - t0
         kernel = KERNEL_OF_BITS[bits]
-        need = 7 * OTHER_WIDTH_LAYERS * (OTHER_WIDTH_TOKENS - 1)
+        # the 16-row prefill and every decode step: the tensor-core GEMV, no SIMT GEMV
+        need = 7 * OTHER_WIDTH_LAYERS * OTHER_WIDTH_TOKENS
         new = first[:, PROMPT_LEN:]
         check(first.shape == (1, PROMPT_LEN + OTHER_WIDTH_TOKENS), f"{bits}-bit output shape")
         check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), f"{bits}-bit ids out of range")
         check(np.array_equal(first, again), f"{bits}-bit greedy decode does not repeat its tokens")
-        check(counts.get(kernel, 0) >= need,
-              f"{bits}-bit: {kernel} launched {counts.get(kernel, 0)} times, need >= {need}")
+        check(counts.get(kernel + "_gemv", 0) == need and not counts.get(kernel, 0),
+              f"{bits}-bit: {kernel}_gemv launched {counts.get(kernel + '_gemv', 0)} times, want "
+              f"{need}, and {kernel} {counts.get(kernel, 0)}, want 0")
         others = set(KERNEL_OF_BITS.values()) - {kernel}
-        check(not any(counts.get(o, 0) for o in others), f"{bits}-bit run launched {counts}")
+        check(not any(counts.get(o + suffix, 0) for o in others for suffix in ROUTE_SUFFIX.values()),
+              f"{bits}-bit run launched {counts}")
         tok_s = OTHER_WIDTH_TOKENS / gen_s
         # two prompts: a 32-row prefill through the width's tensor-core tile kernel
         build.launches.clear()
@@ -1184,8 +1309,8 @@ def phase_other_widths(torch, np, work: str) -> dict:
         counts2 = dict(build.launches)
         check(out2.shape == (2, PROMPT_LEN + 4), f"{bits}-bit batch-2 output shape {out2.shape}")
         check(counts2.get(kernel + "_mma", 0) == 7 * OTHER_WIDTH_LAYERS
-              and counts2.get(kernel, 0) == 7 * OTHER_WIDTH_LAYERS * 3,
-              f"{bits}-bit batch-2 launches {counts2}")
+              and counts2.get(kernel + "_gemv", 0) == 7 * OTHER_WIDTH_LAYERS * 3
+              and not counts2.get(kernel, 0), f"{bits}-bit batch-2 launches {counts2}")
         out[bits] = dict(counts=counts, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
                          layers=OTHER_WIDTH_LAYERS, batch2_counts=counts2)
         print(f"{bits}-bit g128, Llama-2-7B widths, {OTHER_WIDTH_LAYERS} of 32 layers, batch 1, "
@@ -1618,7 +1743,8 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
     """Returns the launch counts of the 512-token run, the loaded model and
     the run's tokens."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
-    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
 
     cfg = LLAMA2_7B
@@ -1643,14 +1769,15 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
     peak = torch.cuda.max_memory_allocated()
 
     layers = cfg["num_hidden_layers"]
-    need_k1 = 7 * layers * (NEW_TOKENS - 1)
+    need_k1 = 7 * layers * NEW_TOKENS       # the 16-row prefill and 511 decode steps
     need_k2 = layers * (NEW_TOKENS - 1)
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"output shape {out.shape}")
     check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), "token ids out of range")
     check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "greedy decode is not deterministic")
-    check(counts.get("w4a16_gemm", 0) >= need_k1,
-          f"K1 launched {counts.get('w4a16_gemm', 0)} times, need >= {need_k1}")
+    check(counts.get("w4a16_gemm_gemv", 0) == need_k1 and not counts.get("w4a16_gemm", 0),
+          f"K1's GEMV launched {counts.get('w4a16_gemm_gemv', 0)} times, want {need_k1}, and the "
+          f"SIMT GEMV {counts.get('w4a16_gemm', 0)}, want 0")
     check(counts.get("flash_decode", 0) >= need_k2,
           f"K2 launched {counts.get('flash_decode', 0)} times, need >= {need_k2}")
     tok_s = NEW_TOKENS / gen_s
@@ -1668,13 +1795,29 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
     check(bool(((out2 >= 0) & (out2 < cfg["vocab_size"])).all()), "batch-2 token ids out of range")
     # the 32-row prefill takes K1's tensor-core tile kernel, the 15 decode steps its GEMV
     check(counts2.get("w4a16_gemm_mma", 0) == 7 * layers
-          and counts2.get("w4a16_gemm", 0) == 7 * layers * 15, f"batch-2 K1 launches {counts2}")
+          and counts2.get("w4a16_gemm_gemv", 0) == 7 * layers * 15
+          and not counts2.get("w4a16_gemm", 0), f"batch-2 K1 launches {counts2}")
     print(f"batch 2, left-padded prompts of {PROMPT_LEN} and 9 tokens (a {2 * PROMPT_LEN}-row "
           f"prefill: K1's tensor-core tile kernel), 16 new tokens: shape {out2.shape}, launches "
           f"{counts2}", flush=True)
-    profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
-                     PROFILE_TOKENS)
-    return counts, model, out, counts2
+    routes = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
+                            PROFILE_TOKENS)
+    # the SIMT route launches a split-K reduce after every GEMV whose plan splits K; the new
+    # route folds it into the GEMV's last block, so a token launches that many fewer kernels
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    quant = [node for block in model.params["layers"] for sec in ("attn", "mlp")
+             for node in block[sec].values() if isinstance(node, qlin.QuantLinear)]
+    folded = sum(gemm.split_k(q.in_features, q.out_features,
+                              q.group_size if q.group_size > 0 else q.in_features, sms,
+                              32 // q.bits)[1] > 1 for q in quant)
+    check(folded == len(quant) == 7 * layers,
+          f"{folded} of {len(quant)} projections split K on the SIMT route, want {7 * layers}")
+    print(f"folded split-K reduces: {folded} per greedy token (every projection's SIMT plan "
+          f"splits K), so the GEMV route launches {folded} fewer kernels per token; the profiles "
+          f"recorded {routes['simt'].get('kernels_per_token', float('nan')):.1f} and "
+          f"{routes['gemv'].get('kernels_per_token', float('nan')):.1f}", flush=True)
+    routes["folded_per_token"] = folded
+    return counts, model, out, counts2, routes
 
 
 def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
@@ -1729,7 +1872,8 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     for name, n in want_counts.items():
         check(counts.get(name, 0) == n, f"kb32l greedy: {name} launched {counts.get(name, 0)} "
                                         f"times, want {n}")
-    check(counts.get("w4a16_gemm", 0) == 0, f"kb32l greedy launched K1: {counts}")
+    check(not any(counts.get("w4a16_gemm" + suffix, 0) for suffix in ROUTE_SUFFIX.values()),
+          f"kb32l greedy launched K1: {counts}")
     same = float((new == main_out[:, PROMPT_LEN:]).mean())
     agree = int(np.argmin(new[0] == main_out[0, PROMPT_LEN:])) if same < 1 else NEW_TOKENS
     tok_s = NEW_TOKENS / gen_s
@@ -1753,7 +1897,7 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
     check(counts2.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
           and counts2.get(gemm.KB32L_KERNEL, 0) == 7 * layers * 15
-          and not counts2.get("w4a16_gemm", 0) and not counts2.get("w4a16_gemm_mma", 0),
+          and not any(counts2.get("w4a16_gemm" + suffix, 0) for suffix in ROUTE_SUFFIX.values()),
           f"kb32l batch-2 launches {counts2}")
     print(f"kb32l batch 2, two {PROMPT_LEN}-token prompts (a {2 * PROMPT_LEN}-row prefill: K6's "
           f"tile regime, the tensor-core kernel), 16 new tokens: shape {out2.shape}, launches "
@@ -1788,7 +1932,8 @@ def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
         if device == "cuda":
             torch.cuda.synchronize()
             check(build.launches[gemm.KB32L_KERNEL] == 2 * 7 * 2 and
-                  build.launches["w4a16_gemm"] == 0, f"kb32l cut launched {dict(build.launches)}")
+                  not any(build.launches["w4a16_gemm" + suffix] for suffix in ROUTE_SUFFIX.values()),
+                  f"kb32l cut launched {dict(build.launches)}")
         results[device] = (pre.float().cpu(), dec.float().cpu())
         del model, cache
     rows = {}
@@ -1824,8 +1969,12 @@ def phase_beam(torch, np, model) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     steps = NEW_TOKENS - 1
-    need = {"w4a16_gemm": 7 * layers * steps, "paged_attention_mh": layers * steps,
-            "write_token_pages": layers * steps, "copy_pages_pair": steps}
+    need = {"paged_attention_mh": layers * steps, "write_token_pages": layers * steps,
+            "copy_pages_pair": steps}
+    # the 16-row prefill and every 4-row beam step: K1's tensor-core GEMV, no SIMT GEMV
+    check(counts.get("w4a16_gemm_gemv", 0) == 7 * layers * NEW_TOKENS
+          and not counts.get("w4a16_gemm", 0), f"beam: K1 launches {counts}, want "
+                                              f"{7 * layers * NEW_TOKENS} w4a16_gemm_gemv")
     check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"beam output shape {out.shape}")
     check(bool(((out[:, PROMPT_LEN:] >= 0) & (out[:, PROMPT_LEN:] < vocab)).all()),
           "beam token ids out of range")
@@ -1854,6 +2003,8 @@ def phase_beam(torch, np, model) -> dict:
     qsteps = QUANT_NEW_TOKENS - 1
     need_q = {"paged_attention_mh": layers * qsteps, "write_token_pages": 2 * layers * qsteps,
               "copy_pages_pair": 2 * qsteps}
+    check(counts_q.get("w4a16_gemm_gemv", 0) == 7 * layers * QUANT_NEW_TOKENS
+          and not counts_q.get("w4a16_gemm", 0), f"int8 beam: K1 launches {counts_q}")
     check(outq.shape == (1, PROMPT_LEN + QUANT_NEW_TOKENS), f"int8 beam output shape {outq.shape}")
     check(bool(((outq[:, PROMPT_LEN:] >= 0) & (outq[:, PROMPT_LEN:] < vocab)).all()),
           "int8 beam token ids out of range")
@@ -1863,19 +2014,21 @@ def phase_beam(torch, np, model) -> dict:
     print(f"beam path, int8 paged cache (kv_quant=True): {QUANT_NEW_TOKENS} new tokens, "
           f"num_beams={BEAMS}: generate {q_s:.3f} s = {QUANT_NEW_TOKENS / q_s:.2f} seq-tok/s, "
           f"launches {counts_q}", flush=True)
-    profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
-                     f"beam-{BEAMS} generate", BEAM_PROFILE_TOKENS, num_beams=BEAMS)
+    routes = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+                            f"beam-{BEAMS} generate", BEAM_PROFILE_TOKENS, num_beams=BEAMS)
     return dict(counts=counts, gen_s=gen_s, repeat_s=again_s, seq_tok_s=seq_tok_s,
                 beam_tok_s=BEAMS * seq_tok_s, peak_bytes=peak, int8_new_tokens=QUANT_NEW_TOKENS,
-                int8_gen_s=q_s, int8_counts=counts_q)
+                int8_gen_s=q_s, int8_counts=counts_q, profiles=routes)
 
 
 # K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...> and the tensor-core
 # wna16_mma_kernel<BITS, ...>); the profiled model is 4-bit. K10 is wna16_t_kernel<BITS, ...>
 # and the tensor-core wna16_t_mma_kernel<BITS, ...>.
-K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce", "wna16_mma_kernel")
+K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce", "wna16_mma_kernel",
+           "wna16_gemv_kernel")
 K10_KEYS = ("wna16_t_kernel", "wna16_t_mma_kernel")
-KERNEL_INSTANCES = (("K1 tensor-core tile", "wna16_mma_kernel"),
+KERNEL_INSTANCES = (("K1 tensor-core GEMV", "wna16_gemv_kernel"),
+                    ("K1 tensor-core tile", "wna16_mma_kernel"),
                     ("K1 SIMT tile", "wna16_prefill_kernel"),
                     ("K1 GEMV", "wna16_decode_kernel"), ("K1 split-K reduce", "splitk_reduce"),
                     ("K10 tensor-core", "wna16_t_mma_kernel"), ("K10 SIMT", "wna16_t_kernel"))
@@ -1898,25 +2051,24 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
     torch.profiler's CUDA kernel events. The profiler slows the host, so the
     busy share is also given against the unprofiled 512-token run's wall time
     per token (an estimate: that run's windows are longer)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from autogptq_tpu_torch.ops import build
 
     model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    build.launches.clear()
+    run = profiled(torch, lambda: model.generate(prompt, max_new_tokens=tokens, **gen_kwargs))
+    wall_us = run["wall_us"]
     sums = dict.fromkeys([name for name, _ in families] + ["other"], 0.0)
-    kernels = 0
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
-            continue
+    counts = dict.fromkeys(sums, 0)
+    kernels = reduces = 0
+    for evt in run["kernels"]:
         kernels += 1
+        reduces += "splitk_reduce" in evt.name
         us = evt.time_range.elapsed_us()
         family = next((name for name, keys in families if any(k in evt.name for k in keys)),
                       "other")
         sums[family] += us
+        counts[family] += 1
     if not kernels:
         print(f"profile, {label}: torch.profiler recorded no CUDA kernel events; device busy "
               "share not measured", flush=True)
@@ -1929,15 +2081,66 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
           + f"), {kernels / tokens:.0f} kernels/token; host clock "
           f"{wall_us / tokens / 1e3:.3f} ms/token under the profiler (device busy "
           f"{100 * busy / wall_us:.1f}%), {unprofiled_ms_per_token:.3f} ms/token unprofiled "
-          f"(device busy about {100 * device_ms / unprofiled_ms_per_token:.1f}%)", flush=True)
+          f"(device busy about {100 * device_ms / unprofiled_ms_per_token:.1f}%); launches with "
+          f"no kernel record: {run['lost_inside']} in the generate, {run['lost_before']} in the "
+          f"warm-up", flush=True)
     return dict(device_ms_per_token=device_ms, kernels_per_token=kernels / tokens,
+                kernels=kernels, splitk_reduces=reduces, tokens=tokens, family_kernels=counts,
+                launches=dict(build.launches), lost_inside=run["lost_inside"],
+                lost_before=run["lost_before"],
                 wall_ms_per_token=wall_us / tokens / 1e3,
                 **{f"{k} ms_per_token": v / tokens / 1e3 for k, v in sums.items()})
 
 
-def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
+def compare_routes(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
+                   tokens: int, **gen_kwargs) -> dict:
+    """The profile of a short generate as the model runs it (K1/K4/K5 through
+    the tensor-core GEMV), then the same generate with every quantized matmul
+    forced through the SIMT kernels (``gemm.forced_kernel``). The new route's
+    profile must hold no split-K reduce and at most one K1 kernel per call (the
+    wrappers' count), and the new route must take less device time per token.
+    The totals and the SIMT route's reduces are reported beside: the profiler
+    drops records (see PROFILER_WARMUP_LAUNCHES), so they are not held."""
+    from autogptq_tpu_torch.ops import gemm
+
+    new = profile_generate(torch, model, prompt, unprofiled_ms_per_token, label, tokens,
+                           **gen_kwargs)
+    with gemm.forced_kernel("simt"):
+        old = profile_generate(torch, model, prompt, unprofiled_ms_per_token,
+                               label + ", SIMT route", tokens, **gen_kwargs)
+    if not new or not old:
+        return dict(gemv=new, simt=old)
+    k1 = "K1 w4a16_gemm"
+
+    def calls(p):   # K1 wrapper calls in the profiled generate
+        return sum(n for key, n in p["launches"].items() if key.startswith("w4a16_gemm"))
+
+    check(new["splitk_reduces"] == 0 and 0 < new["family_kernels"][k1] <= calls(new),
+          f"{label}: {new['family_kernels'][k1]} K1 kernels and {new['splitk_reduces']} reduces "
+          f"for {calls(new)} calls ({new['launches']})")
+    folded = old["kernels"] - old["splitk_reduces"] - new["kernels"]
+    check(new["device_ms_per_token"] < old["device_ms_per_token"],
+          f"{label}: device {new['device_ms_per_token']:.3f} ms/token, SIMT route "
+          f"{old['device_ms_per_token']:.3f}")
+    print(f"{label}: {new['kernels_per_token']:.1f} kernels/token, {new['kernels']} in all "
+          f"({old['kernels_per_token']:.1f} through the SIMT route, {old['kernels']} in all, of "
+          f"which {old['splitk_reduces']} split-K reduces; difference {folded} after the "
+          f"reduces; K1: "
+          f"{calls(new)} calls, {new['family_kernels'][k1]} kernels; SIMT route {calls(old)} "
+          f"calls, {old['family_kernels'][k1]} kernels), device "
+          f"{new['device_ms_per_token']:.3f} ms/token (SIMT route "
+          f"{old['device_ms_per_token']:.3f})", flush=True)
+    return dict(gemv=new, simt=old)
+
+
+def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
+    """A 2-layer full-width cut: prefill, one decode step and one paged
+    beam-4 step on the card in bf16 (K1 through the tensor-core GEMV and tile
+    kernel) and in f32 (the SIMT GEMV and tile kernel, no GEMV launch)
+    against the plain versions in f32 on the CPU."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.models.arch import KVCache, forward
+    from autogptq_tpu_torch.ops import build
     from autogptq_tpu_torch.ops.paged_attn import check_page_errors
     from autogptq_tpu_torch.utils.generation import beam_paged_prefill, paged_decode_step
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
@@ -1946,9 +2149,12 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
     write_random_checkpoint(ckpt_dir, cfg, bits=4, group_size=128, seed=0)
     tokens = torch.from_numpy((np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int64))
     nxt = torch.tensor([[1234]])
-    results = {}
-    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+    results, launches = {}, {}
+    runs = (("card bf16", "cuda", torch.bfloat16), ("card f32", "cuda", torch.float32),
+            ("cpu", "cpu", torch.float32))
+    for run, device, dtype in runs:
         model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=dtype)
+        build.launches.clear()
         with torch.inference_mode():
             cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=dtype, device=device)
             pre, cache = forward(model.params, tokens.to(device), model.cfg, cache=cache)
@@ -1960,21 +2166,30 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> None:
             step = paged_decode_step(model.params, model.cfg, pcache, beam_tok, pcache.plen,
                                      dtype)
             check_page_errors(device)
-        results[device] = (pre.float().cpu(), dec.float().cpu(), step.float().cpu())
+        launches[run] = dict(build.launches)
+        results[run] = (pre.float().cpu(), dec.float().cpu(), step.float().cpu())
         del model, cache, pcache
+    # 2 layers x 7 projections in four forwards of at most 16 rows (the 16-token prefill,
+    # a decode step, the beam prefill, a 4-row beam step): the GEMV in bf16, the SIMT GEMV in f32
+    check(launches["card bf16"].get("w4a16_gemm_gemv", 0) == 4 * 14
+          and not launches["card bf16"].get("w4a16_gemm", 0)
+          and launches["card f32"].get("w4a16_gemm", 0) == 4 * 14
+          and not launches["card f32"].get("w4a16_gemm_gemv", 0),
+          f"card vs CPU: K1 launches {launches}")
     rows = {}
-    for i, name in enumerate(("prefill", "decode", "paged beam-4 step")):
-        card, cpu = results["cuda"][i], results["cpu"][i]
-        check(bool(torch.isfinite(card).all()), f"card {name} logits are not finite")
-        rel = ((card - cpu).norm() / cpu.norm()).item()
-        rows[name] = dict(rel_err=rel, max_abs_err=(card - cpu).abs().max().item(),
-                          max_abs_ref=cpu.abs().max().item())
-        check(rel <= E2E_REL_TOL, f"{name} logits: card vs CPU relative error {rel:.3e} "
-                                  f"> {E2E_REL_TOL}")
-    print(f"card (bf16, kernels) vs CPU (f32, plain), 2 full-width layers: "
-          + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
-                      for k, v in rows.items()) + f" (tol {E2E_REL_TOL})", flush=True)
-    return rows
+    for run, tol in (("card bf16", E2E_REL_TOL), ("card f32", E2E_F32_REL_TOL)):
+        for i, name in enumerate(("prefill", "decode", "paged beam-4 step")):
+            card, cpu = results[run][i], results["cpu"][i]
+            check(bool(torch.isfinite(card).all()), f"{run} {name} logits are not finite")
+            rel = ((card - cpu).norm() / cpu.norm()).item()
+            rows[f"{run} {name}"] = dict(rel_err=rel, max_abs_err=(card - cpu).abs().max().item(),
+                                         max_abs_ref=cpu.abs().max().item(), tol=tol)
+            check(rel <= tol, f"{run} {name} logits: card vs CPU relative error {rel:.3e} > {tol}")
+    print("card (bf16: tensor-core GEMV; f32: SIMT GEMV) vs CPU (f32, plain), 2 full-width "
+          "layers: " + ", ".join(f"{k} rel err {v['rel_err']:.3e} (tol {v['tol']}) max abs "
+                                 f"{v['max_abs_err']:.3e}" for k, v in rows.items())
+          + f"; launches {launches['card bf16']} / {launches['card f32']}", flush=True)
+    return dict(rows=rows, launches=launches)
 
 
 def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
@@ -2022,7 +2237,7 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     # prefill: 16 tokens x top-2 = 32 pairs > 8 experts, the dense path (24 K1 per layer);
     # every decode step: 2 pairs, routed, 3 K9 per layer; attention's 4 projections on K1
     want = {"w4a16_routed_gemm": 3 * layers * steps, "flash_decode": layers * steps,
-            "w4a16_gemm": (4 + 24) * layers + 4 * layers * steps}
+            "w4a16_gemm_gemv": (4 + 24) * layers + 4 * layers * steps, "w4a16_gemm": 0}
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + new_tokens), f"Mixtral output shape {out.shape}")
     check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), "Mixtral token ids out of range")
@@ -2042,8 +2257,8 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
           f"{counts.get('w4a16_routed_gemm', 0) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, "
           f"K1 {4 * layers}; launches {counts}", flush=True)
-    profile = profile_generate(torch, model, prompt, 1e3 * gen_s / new_tokens,
-                               "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS)
+    profile = compare_routes(torch, model, prompt, 1e3 * gen_s / new_tokens,
+                             "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS)
 
     build.launches.clear()
     t0 = time.perf_counter()
@@ -2191,8 +2406,8 @@ def moe_layer_check(torch, arch, params_lib, build, model) -> dict:
         torch.cuda.synchronize()
         routed = what.startswith("routed")
         check(counts.get("w4a16_routed_gemm", 0) == (3 if routed else 0)
-              and counts.get("w4a16_gemm", 0) == (0 if routed else 24),
-              f"moe_mlp {what}: launched {counts}")
+              and counts.get("w4a16_gemm", 0) == (0 if routed else 24)
+              and not counts.get("w4a16_gemm_gemv", 0), f"moe_mlp {what}: launched {counts}")
         err = (got - want).abs().max().item()
         check(err <= MOE_F32_ABS_TOL, f"moe_mlp {what}: max |stacked - list| = {err:.3e} > "
                                       f"{MOE_F32_ABS_TOL}")
@@ -2249,6 +2464,7 @@ def main() -> int:
     wna_rows = timed("K4/K5/K1 classes", phase_wna16, torch, np, timer)
     rest_rows = timed("rest classes", phase_rest, torch, np, timer)
     ptxas = mma_ptxas()
+    gemv_regs = gemv_ptxas()
     k2_rows = timed("K2", phase_k2, torch, timer)
     k7_rows = timed("K7", phase_k7, torch, timer)
     attn_ptxas = attention_ptxas()
@@ -2264,8 +2480,8 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         ckpt = os.path.join(work, "llama2-7b-random-g128")
-        launches, model, main_out, batch2_launches = timed("main path", phase_main_path, torch,
-                                                           np, ckpt)
+        launches, model, main_out, batch2_launches, main_routes = timed(
+            "main path", phase_main_path, torch, np, ckpt)
         kb32l = timed("kb32l path", phase_kb32l_path, torch, np, ckpt, model, main_out)
         beam = timed("beam", phase_beam, torch, np, model)
         train = timed("train", phase_train, torch, np, model, work)
@@ -2308,15 +2524,33 @@ def main() -> int:
         f"K2 {r['case']} {r['ms']:.4f} / {r['library_ms']:.4f} ms" for r in at_full) + ", "
           + ", ".join(f"K7 {r['case']} {r['ms']:.4f} / {r['library_ms']:.4f} ms"
                       for r in k7_rows[:4]), flush=True)
+    def width_rows(bits):
+        return [r for r in wna_rows if r["bits"] == bits and r["group_size"] == 128
+                and not r["desc_act"]]
+
+    k6_bf16 = [r for r in k6["rows"] if r["case"] in LAYER_SHAPES]
     decode_m = {m: dict(k1_ms=layer_sum(k1_rows, "ms", m),
+                        k1_simt_ms=layer_sum(k1_rows, "simt_ms", m),
                         k1_library_ms=layer_sum(k1_rows, "library_ms", m),
-                        k6_ms=layer_sum(k6["rows"], "ms", m),
-                        k6_library_ms=layer_sum(k6["rows"], "library_ms", m))
+                        k1_bound_ms=layer_sum(k1_rows, "bound_ms", m),
+                        k6_ms=layer_sum(k6_bf16, "ms", m),
+                        k6_k1_ms=layer_sum(k6_bf16, "k1_ms", m),
+                        k6_k1_simt_ms=layer_sum(k6_bf16, "k1_simt_ms", m),
+                        k6_library_ms=layer_sum(k6_bf16, "library_ms", m))
                 for m in (1, BEAMS, 16)}
+    decode_m.update({f"{bits}-bit M=1": dict(
+        gemv_ms=layer_sum(width_rows(bits), "ms"), simt_ms=layer_sum(width_rows(bits), "simt_ms"),
+        library_ms=layer_sum(width_rows(bits), "library_ms"),
+        bound_ms=layer_sum(width_rows(bits), "bound_ms")) for bits in (2, 3, 8)})
     print("one Llama-2-7B layer's 7 projections, 4-bit g128 bf16, decode regime: " + "; ".join(
-        f"M = {m}: K1 {v['k1_ms']:.4f} ms, torch.matmul {v['k1_library_ms']:.4f} ms (K1 phase); "
-        f"K6 {v['k6_ms']:.4f} ms, torch.matmul {v['k6_library_ms']:.4f} ms (K6 phase)"
-        for m, v in decode_m.items()), flush=True)
+        f"M = {m}: K1's GEMV {v['k1_ms']:.4f} ms, the SIMT GEMV {v['k1_simt_ms']:.4f} ms, "
+        f"torch.matmul {v['k1_library_ms']:.4f} ms, bound {v['k1_bound_ms']:.4f} ms (K1 phase); "
+        f"K6 {v['k6_ms']:.4f} ms, K1's GEMV {v['k6_k1_ms']:.4f} ms, the SIMT GEMV "
+        f"{v['k6_k1_simt_ms']:.4f} ms, torch.matmul {v['k6_library_ms']:.4f} ms (K6 phase)"
+        for m, v in decode_m.items() if isinstance(m, int)) + "; at M = 1, g128: " + "; ".join(
+        f"{m}: the GEMV {v['gemv_ms']:.4f} ms, the SIMT GEMV {v['simt_ms']:.4f} ms, torch.matmul "
+        f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+        for m, v in decode_m.items() if not isinstance(m, int)), flush=True)
 
     def entry(name, source, replaces, counted, rows, main_row, at):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2343,23 +2577,47 @@ def main() -> int:
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
                 and not r["desc_act"]]
 
-    def width_rows(bits):
-        return [r for r in wna_rows if r["bits"] == bits and r["group_size"] == 128
-                and not r["desc_act"]]
-
     at = "one Llama-2-7B decoder layer's 7 projections at M=1, g128"
+    simt_at = (at + "; the SIMT kernels (split-K GEMV, with its reduce, and SIMT tile kernel) "
+               "of the library, timed beside the tensor-core GEMV on the same weights (they "
+               "run f32 activations and the group sizes 16 does not divide); launches from ")
     kernels = [
-        gemm_entry("w4a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows, at,
+        gemm_entry("w4a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows,
+                   at + f"; K1's tensor-core decode GEMV, bf16 (replaces the decode regime of "
+                   f"_kernel_kb32 :487, _kernel_ki32 :414 and _kernel_kpair :255); launches from "
+                   f"the {NEW_TOKENS}-token greedy run; max_abs_err over every K1 GEMV case",
+                   source=GEMV_SOURCE,
+                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "gemv"]
+                   + [r["max_abs_err"] for r in wna_rows if r["kernel"] == "w4a16_gemm_gemv"]),
+        gemm_entry("w8a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
+                   width_rows(8), at + "; K4's tensor-core decode GEMV, bf16 (replaces the "
+                   "decode regime of the planar _kernel :46); launches from the 64-token 8-bit "
+                   "greedy run at 8 layers", source=GEMV_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w8a16_gemm_gemv"]),
+        gemm_entry("w2a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:1061", widths[2]["counts"],
+                   width_rows(2), at + "; K5's tensor-core decode GEMV, bf16 (replaces the "
+                   "decode regime of _kernel_k2i32 :1061); launches from the 64-token 2-bit "
+                   "greedy run at 8 layers", source=GEMV_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w2a16_gemm_gemv"]),
+        gemm_entry("w4a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:487",
+                   cpu_vs_card["launches"]["card f32"], k1_rows,
+                   simt_at + "the f32 forwards of the 2-layer card-vs-CPU cut", ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "simt"]
                    + [r["simt_max_abs_err"] for r in k1_rows if "simt_ms" in r]),
-        gemm_entry("w8a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
-                   width_rows(8), at + "; launches from the 64-token 8-bit greedy run at 8 layers",
+        gemm_entry("w8a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:46",
+                   quantize["8-bit g128"]["launches"], width_rows(8),
+                   simt_at + "the f32 re-forward of quantize at 8 bits", ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in wna_rows + rest_rows
-                         if r["kernel"] == "w8a16_gemm"]),
-        gemm_entry("w2a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:1061", widths[2]["counts"],
-                   width_rows(2), at + "; launches from the 64-token 2-bit greedy run at 8 layers",
+                         if r["kernel"] == "w8a16_gemm"]
+                   + [r["simt_max_abs_err"] for r in wna_rows
+                      if "simt_ms" in r and r["bits"] == 8]),
+        gemm_entry("w2a16_gemm", "autogptq_tpu/ops/pallas/gemm.py:1061",
+                   quantize["2-bit g128"]["launches"], width_rows(2),
+                   simt_at + "the f32 re-forward of quantize at 2 bits", ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in wna_rows + rest_rows
-                         if r["kernel"] == "w2a16_gemm"]),
+                         if r["kernel"] == "w2a16_gemm"]
+                   + [r["simt_max_abs_err"] for r in wna_rows
+                      if "simt_ms" in r and r["bits"] == 2]),
         gemm_entry("wna16_gemm_t", "autogptq_tpu/ops/pallas/gemm.py:844",
                    grads["LoRA"]["card f32 backward_launches"], k10_g128,
                    f"the SIMT kernel: one Llama-2-7B decoder layer's 7 projections at M="
@@ -2450,7 +2708,8 @@ def main() -> int:
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
                        decode_layer_ms=decode_m,
-                       main_path=launches, beam=beam, train=train, grads=grads,
+                       main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
+                       beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)

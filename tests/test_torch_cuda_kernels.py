@@ -46,9 +46,15 @@ KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_g
 
 def _key(name, dtype, m, k, gs):
     """The launch-count key of library ``name`` for a product of ``m`` rows:
-    its tensor-core kernel's or its SIMT kernels' (``gemm.tile_kernel``)."""
-    route = qlin.gemm.tile_kernel(dtype, m, k if gs == -1 else gs)
-    return name + (qlin.gemm.MMA_SUFFIX if route == "mma" else "")
+    its tensor-core GEMV's (K1/K4/K5 forward, ``gemm.route``), its
+    tensor-core tile kernel's or its SIMT kernels' (``gemm.tile_kernel`` for
+    K6 and K10)."""
+    gs = k if gs == -1 else gs
+    if name in KERNEL_OF_BITS.values():
+        route = qlin.gemm.route(dtype, m, gs)
+    else:
+        route = qlin.gemm.tile_kernel(dtype, m, gs)
+    return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
 
 
 @pytest.mark.parametrize("bits", [2, 3, 8])
@@ -691,8 +697,8 @@ def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
     assert build.launches[name] == before.get(name, 0) + 1
-    assert build.launches["w4a16_gemm"] == before.get("w4a16_gemm", 0)
-    assert build.launches["w4a16_gemm_mma"] == before.get("w4a16_gemm_mma", 0)
+    for other in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv"):
+        assert build.launches[other] == before.get(other, 0)
     ref = qlin.matmul_plain(x, layer)
     torch.cuda.synchronize()
     assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
@@ -954,3 +960,96 @@ def test_k9_rest_classes_match_plain(card, gs):
     y = gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
     ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+
+
+# The tensor-core decode GEMV (csrc/wna16_gemv.cuh). (K, N, group size, desc_act, bias):
+# group sizes 32, 64, 128 and one group (-1), N = 1312 (not a whole number of 64-column
+# tiles) and Mixtral-8x7B's k/v projection (N = 1024: 32 splits of one stage each).
+GEMV_SHAPES = [(4096, 4096, 128, False, False), (11008, 4096, 128, True, True),
+               (1024, 1312, 32, True, True), (2048, 1024, 64, False, True),
+               (4096, 1024, 128, False, False), (1056, 544, -1, False, True)]
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 9, 16])
+def test_gemv_matches_plain(card, dtype, bits, m):
+    """K1/K4/K5's tensor-core GEMV against the plain version at every shape
+    of GEMV_SHAPES: one launch of ``<name>_gemv`` and no SIMT GEMV, 1% of the
+    largest output (f32 accumulation of the exact q - z and one rounding on
+    both sides), and bit-equal on a second call (the split order is fixed)."""
+    name = KERNEL_OF_BITS[bits]
+    for i, (k, n, gs, desc_act, bias) in enumerate(GEMV_SHAPES):
+        if k % (32 // qlin.storage_bits(bits)):
+            continue
+        layer = _layer(m + k + n + bits + i, k, n, gs, desc_act, bias, dtype, bits)
+        x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m + i), device=card,
+                        dtype=dtype)
+        before = dict(build.launches)
+        y = qlin.matmul(x, layer)
+        assert build.launches[name + "_gemv"] == before.get(name + "_gemv", 0) + 1
+        assert build.launches[name] == before.get(name, 0)
+        ref = qlin.matmul_plain(x, layer)
+        again = qlin.matmul(x, layer)
+        torch.cuda.synchronize()
+        assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
+        assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max(), (k, n, gs)
+        assert torch.equal(y, again), (k, n, gs)
+
+
+def test_gemv_counters_reset_between_shapes(card):
+    """Layers of other shapes, widths and row counts back to back on one
+    stream share the workspace and the ticket counters: every result stays
+    right, the first layer's is bit-equal when it comes again, and every
+    counter is back at 0."""
+    cases = [(4, 4096, 4096, 128, 1), (4, 1024, 1312, 32, 16), (8, 2048, 1024, 64, 5),
+             (2, 4096, 1024, 128, 3), (3, 11008, 4096, 128, 9), (4, 4096, 4096, 128, 1)]
+    first = None
+    for i, (bits, k, n, gs, m) in enumerate(cases):
+        layer = _layer(bits + k + n, k, n, gs, bias=True, bits=bits)
+        x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(k + m), device=card,
+                        dtype=torch.bfloat16)
+        y = qlin.matmul(x, layer)
+        ref = qlin.matmul_plain(x, layer)
+        torch.cuda.synchronize()
+        assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+        if i == 0:
+            first = y
+        elif i == len(cases) - 1:
+            assert torch.equal(y, first)
+    for bits in (2, 4, 8):
+        _, counters = build.split_scratch(KERNEL_OF_BITS[bits] + "_gemv", card, 0, 0)
+        assert int(counters.abs().sum()) == 0
+
+
+def test_f32_and_rest_classes_take_the_simt_gemv(card):
+    """At M <= 16, f32 activations and group sizes 16 does not divide launch
+    the SIMT GEMV (its per-code group instance for the latter) and no
+    ``_gemv`` kernel; ``kernel="simt"`` forces it for bf16 with 16 | gs, and
+    ``gemm.forced_kernel`` does so for every call inside it."""
+    for bits in (2, 4, 8):
+        name = KERNEL_OF_BITS[bits]
+        for dtype, gs in ((torch.float32, 32), (torch.bfloat16, 24), (torch.float16, 100)):
+            layer = _layer(bits + gs, 1200, 256, gs, dtype=dtype, bits=bits)
+            x = torch.randn((4, 1200), device=card, dtype=dtype)
+            before = dict(build.launches)
+            y = qlin.matmul(x, layer)
+            assert build.launches[name] == before.get(name, 0) + 1
+            assert build.launches[name + "_gemv"] == before.get(name + "_gemv", 0)
+            ref = qlin.matmul_plain(x, layer)
+            tol = 1e-4 * max(1.0, float(ref.abs().max())) if dtype == torch.float32 \
+                else 1e-2 * float(ref.float().abs().max())
+            assert (y.float() - ref.float()).abs().max() <= tol
+        layer = _layer(bits, 1024, 256, 64, bits=bits)
+        x = torch.randn((3, 1024), device=card, dtype=torch.bfloat16)
+        before = dict(build.launches)
+        ys = qlin.gemm.wna16_matmul(x, layer.qweight, layer.scales, layer.zeros, None, None, 64,
+                                    qlin.storage_bits(bits), kernel="simt")
+        with qlin.gemm.forced_kernel("simt"):
+            yf = qlin.matmul(x, layer)
+        yg = qlin.matmul(x, layer)
+        assert build.launches[name] == before.get(name, 0) + 2
+        assert build.launches[name + "_gemv"] == before.get(name + "_gemv", 0) + 1
+        torch.cuda.synchronize()
+        assert torch.equal(ys, yf)
+        assert (ys.float() - yg.float()).abs().max() <= 1e-2 * ys.float().abs().max()
