@@ -18,12 +18,17 @@
 //
 // Bound on the H100 (3.35 TB/s HBM): at M <= 16 the bytes of the weight, K*N/2 B of words plus
 // 3*K*N/gs B of scales and zeros: 0.0317 ms for one Llama-2-7B layer's 7 projections at g128.
-// By reading K1's GEMV (wna16_gemm.cuh; not measured), a thread there has one 16-byte __ldg
-// in flight per loop step, about 4 KB per SM, while about 25 KB per SM must be in flight to
-// cover the DRAM latency at that rate.
 //
 // Design:
-//  * Decode regime (M <= 16), kb32l_decode_kernel: the grid is (column tile, K split), with
+//  * Decode regime (M <= 16) for bf16 and f16 activations, kb32l_gemv_kernel (entry and launch
+//    count w4a16_kb32l_gemm_gemv): K1's tensor-core GEMV (wna16_gemv.cuh) with the word address
+//    of kb32l_tile.cuh and the scales' row stride N_pad, planned by ops/gemm.py:gemv_plan on the
+//    true K and N (the tiles' padding is never read). One launch per call: the split-K combine
+//    is folded into the last block of each column tile. Every kb32l group size (32, 64, 128,
+//    256) is a multiple of 16, so every bf16/f16 product at M <= 16 takes it.
+//  * Decode regime for f32 activations, kb32l_decode_kernel (the ring, launch count
+//    w4a16_kb32l_gemm, also what kernel="simt" names at M <= 16): the grid is (column tile, K
+//    split), with
 //    enough splits for about two blocks per SM (ops/gemm.py:kb32l_plan). Each block streams
 //    its run of tiles through a ring of NBUF = 4 shared-memory stages. A stage holds a tile's
 //    words (16 KB) and its 256/gs rows of scales and zeros, filled with cp.async.cg 16-byte
@@ -46,7 +51,7 @@
 // non-zero.
 
 #include "kb32l_tile.cuh"
-#include "wna16_mma.cuh"
+#include "wna16_gemv.cuh"
 
 namespace {
 
@@ -265,6 +270,47 @@ cudaError_t launch_kb32l(const void* x, const int64_t* kperm, const int32_t* qwe
     return cudaGetLastError();
 }
 
+// The tensor-core GEMV over kb32l tiles (bf16, f16; M <= 16).
+template <typename T, int MT>
+__global__ void __launch_bounds__(GV_THREADS, 4)
+kb32l_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
+                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int M, int K, int N, int n_pad, int gs, int kc, int splits, int gather) {
+    gemv_block<4, T, MT, Kb32lWords, false>(x, kperm, qweight, scales, zeros, bias, out, ws,
+                                            counters, nullptr, nullptr, M, K, N, gs, kc, splits,
+                                            gather, Kb32lWords{(K + KB32L_KB - 1) / KB32L_KB},
+                                            n_pad, 1, MT);
+}
+
+template <typename T, int MT>
+cudaError_t launch_kb32l_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
+                              const __half* scales, const uint8_t* zeros, const void* bias,
+                              void* out, float* ws, int* counters, int M, int K, int N, int n_pad,
+                              int gs, int kc, int splits, cudaStream_t stream) {
+    static const cudaError_t attr = allow_smem(kb32l_gemv_kernel<T, MT>, GV_SMEM_LIMIT);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
+    kb32l_gemv_kernel<T, MT><<<grid, GV_THREADS, gv_smem_bytes<4>(MT, kc), stream>>>(
+        static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+        static_cast<T*>(out), ws, counters, M, K, N, n_pad, gs, kc, splits,
+        gv_gather(x, kperm, K));
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_kb32l_gemv_rows(const void* x, const int64_t* kperm, const int32_t* qweight,
+                                   const __half* scales, const uint8_t* zeros, const void* bias,
+                                   void* out, float* ws, int* counters, int M, int K, int N,
+                                   int n_pad, int gs, int kc, int splits, cudaStream_t stream) {
+    if (M <= 8)
+        return launch_kb32l_gemv<T, 8>(x, kperm, qweight, scales, zeros, bias, out, ws, counters,
+                                       M, K, N, n_pad, gs, kc, splits, stream);
+    return launch_kb32l_gemv<T, 16>(x, kperm, qweight, scales, zeros, bias, out, ws, counters, M,
+                                    K, N, n_pad, gs, kc, splits, stream);
+}
+
 int mt_of(int M) { return M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : M <= 8 ? 8 : 16; }
 
 bool valid_shape(int M, int K, int N, int n_pad, int gs) {
@@ -332,6 +378,52 @@ extern "C" int w4a16_kb32l_gemm_occupancy(int dtype, int M, int gs, int tps, int
     }
 #undef K6_OCC_MT
 #undef K6_OCC
+    return (int)err;
+}
+
+// The tensor-core GEMV over kb32l words (bf16, f16; M <= 16): kc K rows per split, splits of
+// them (ops/gemm.py:gemv_plan on the true K and N), the f32 partials in ws [splits, M, N] and
+// one ticket counter per 64-column tile in counters when splits > 1.
+extern "C" int w4a16_kb32l_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
+                                     const void* scales, const uint8_t* zeros, const void* bias,
+                                     void* out, float* ws, int* counters, int dtype, int M, int K,
+                                     int N, int n_pad, int gs, int kc, int splits, void* stream) {
+    if (!valid_shape(M, K, N, n_pad, gs) || M > 16 || N % 4 != 0 ||
+        !gv_plan_ok(K, gs, kc, splits, ws, counters) ||
+        gv_smem_bytes<4>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F16:
+            return (int)launch_kb32l_gemv_rows<__half>(x, kperm, qweight, s, zeros, bias, out, ws,
+                                                       counters, M, K, N, n_pad, gs, kc, splits,
+                                                       st);
+        case DT_BF16:
+            return (int)launch_kb32l_gemv_rows<__nv_bfloat16>(x, kperm, qweight, s, zeros, bias,
+                                                              out, ws, counters, M, K, N, n_pad,
+                                                              gs, kc, splits, st);
+        default:   // f32 activations take the ring
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Blocks of the kb32l GEMV one SM holds at once for `dtype`, M rows and a K chunk of kc rows.
+extern "C" int w4a16_kb32l_gemm_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
+    if (M <= 0 || M > 16 || kc <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+    const int mt = M <= 8 ? 8 : 16;
+    const size_t smem = gv_smem_bytes<4>(mt, kc);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (dtype == DT_BF16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, kb32l_gemv_kernel<__nv_bfloat16, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, kb32l_gemv_kernel<__nv_bfloat16, 16>, GV_THREADS, smem);
+    else if (dtype == DT_F16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, kb32l_gemv_kernel<__half, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, kb32l_gemv_kernel<__half, 16>, GV_THREADS, smem);
     return (int)err;
 }
 

@@ -17,12 +17,25 @@
 //   zeros   uint8 [E, G, N]    effective zero points
 //   sel     int32 [P]          expert of each pair
 //
-// Bound on the H100 (3.35 TB/s HBM): the bytes of the experts the pairs select, K*N/2 B of
-// words plus 3*G*N B of scales and zeros each. Mixtral-8x7B decode at P = 2 (one token,
-// top-2) reads 2 x (29.4 + 1.4) MB per 4096x14336 projection: 0.0184 ms per call, and
-// 0.0550 ms for a layer's gate, up and down. The arithmetic (2*P*K*N) is far below that.
+// Bound on the H100 (3.35 TB/s HBM): the bytes of the experts the pairs select, each counted
+// once, K*N/2 B of words plus 3*G*N B of scales and zeros each. Mixtral-8x7B decode at P = 2
+// (one token, top-2) reads 2 x (29.4 + 1.4) MB per 4096x14336 projection: 0.0184 ms per call,
+// and 0.0550 ms for a layer's gate, up and down. The arithmetic (2*P*K*N) is far below that.
 //
-// Design (a routed copy of wna16_decode_kernel in wna16_gemm.cuh, whose helpers it reuses):
+// Two kernels, chosen on the host by dtype, group size and P (ops/gemm.py:routed_route):
+//  * bf16/f16 with 16 | gs and P <= 16: routed_gemv_kernel (entry and launch count
+//    w4a16_routed_gemm_gemv), the tensor-core GEMV of wna16_gemv.cuh, expert-major. Its grid is
+//    (column tiles of 64, K splits, min(P, E) expert slices), planned from shapes alone
+//    (ops/gemm.py:routed_plan); slice z serves the z-th distinct expert the pairs chose and
+//    gathers the x rows of the pairs that chose it into its MMA operand, so each selected
+//    expert streams once per call however many pairs chose it, and a slice beyond the distinct
+//    experts exits before its first copy. One
+//    launch per call: the last block of each (expert, column tile) adds the splits' partials in
+//    split order (bit-equal from call to call) and writes its pairs' rows.
+//  * f32, the group sizes 16 does not divide, and P > 16: routed_decode_kernel below with
+//    routed_reduce_kernel (launch count w4a16_routed_gemm; also what kernel="simt" names).
+//
+// Design of routed_decode_kernel (a routed copy of wna16_decode_kernel in wna16_gemm.cuh):
 //  * Grid (ceil(N/4/128), splits, P). Block z is pair p: it reads e = sel[p], offsets
 //    qweight, scales and zeros by expert e's stride and stages x[p, k-chunk] in shared
 //    memory as f32. Each thread owns 4 adjacent columns and reads one 16-byte int4
@@ -34,17 +47,15 @@
 //    N = 14336 and 8 at N = 4096, too few for 132 SMs. Each split writes f32 partial sums to
 //    [splits, P, N]; routed_reduce_kernel adds them in a fixed order and casts once, so
 //    results are deterministic and there are no float atomics.
-//  * A bad expert id (sel[p] < 0 or >= E): the pair's blocks write nothing, the reduce skips
-//    its row, and one thread sets bit ERR_BAD_EXPERT of the device flag *err, which the host
+//  * A bad expert id (sel[p] < 0 or >= E), in both kernels: the pair's row of out is not
+//    written, and one thread sets bit ERR_BAD_EXPERT of the device flag *err, which the host
 //    reads when it chooses (ops/gemm.py:check_routed_errors), as K8a/K8b do for page ids.
 // The entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
-#include "wna16_gemm.cuh"
+#include "wna16_gemv.cuh"
 
 namespace {
-
-constexpr int ERR_BAD_EXPERT = 1;
 
 template <typename T, bool STRADDLE>
 __global__ void __launch_bounds__(DEC_THREADS)
@@ -186,7 +197,95 @@ cudaError_t launch_routed(const void* x, const int32_t* sel, const int32_t* qwei
     return cudaGetLastError();
 }
 
+// The expert-major tensor-core GEMV (bf16, f16; 16 | gs; P <= 16): grid (column tiles, splits,
+// min(P, E) expert slices); the x stage holds the P rows.
+template <typename T, int MT>
+__global__ void __launch_bounds__(GV_THREADS, 4)
+routed_gemv_kernel(const T* __restrict__ x, const int32_t* __restrict__ sel,
+                   const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+                   const uint8_t* __restrict__ zeros, T* __restrict__ out, float* __restrict__ ws,
+                   int* __restrict__ counters, int* __restrict__ err, int E, int P, int K, int N,
+                   int gs, int kc, int splits, int gather) {
+    gemv_block<4, T, MT, GptqWords, true>(x, nullptr, qweight, scales, zeros, nullptr, out, ws,
+                                          counters, sel, err, P, K, N, gs, kc, splits, gather,
+                                          GptqWords{N}, N, E, P);
+}
+
+template <typename T, int MT>
+cudaError_t launch_routed_gemv(const void* x, const int32_t* sel, const int32_t* qweight,
+                               const __half* scales, const uint8_t* zeros, void* out, float* ws,
+                               int* counters, int* err, int E, int P, int K, int N, int gs,
+                               int kc, int splits, cudaStream_t stream) {
+    static const cudaError_t attr = allow_smem(routed_gemv_kernel<T, MT>, GV_SMEM_LIMIT);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((N + GV_BN - 1) / GV_BN, splits, P < E ? P : E);
+    routed_gemv_kernel<T, MT><<<grid, GV_THREADS, gv_smem_bytes<4>(P, kc), stream>>>(
+        static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), ws,
+        counters, err, E, P, K, N, gs, kc, splits, gv_gather(x, nullptr, K));
+    return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_routed_gemv_rows(const void* x, const int32_t* sel, const int32_t* qweight,
+                                    const __half* scales, const uint8_t* zeros, void* out,
+                                    float* ws, int* counters, int* err, int E, int P, int K,
+                                    int N, int gs, int kc, int splits, cudaStream_t stream) {
+    // a block takes the pairs that chose its expert: at most P of them
+    if (P <= 8)
+        return launch_routed_gemv<T, 8>(x, sel, qweight, scales, zeros, out, ws, counters, err,
+                                        E, P, K, N, gs, kc, splits, stream);
+    return launch_routed_gemv<T, 16>(x, sel, qweight, scales, zeros, out, ws, counters, err, E, P,
+                                     K, N, gs, kc, splits, stream);
+}
+
 }  // namespace
+
+// The expert-major tensor-core GEMV: x [P, K] bf16/f16, sel int32 [P], a stack of E experts
+// (qweight [E, K/8, N], scales [E, G, N], zeros [E, G, N]), out [P, N]; kc K rows per split,
+// splits of them (ops/gemm.py:routed_plan), the f32 partials in ws [splits, P, N] and one ticket
+// counter per (expert slice, 64-column tile) in counters when splits > 1.
+extern "C" int w4a16_routed_gemm_gemv(const void* x, const int32_t* sel, const int32_t* qweight,
+                                      const void* scales, const uint8_t* zeros, void* out,
+                                      float* ws, int* counters, int* err, int dtype, int E, int P,
+                                      int K, int N, int gs, int kc, int splits, void* stream) {
+    if (E <= 0 || E > 65535 || P <= 0 || P > 16 || K <= 0 || N <= 0 || K % 8 != 0 ||
+        N % 4 != 0 || !gv_plan_ok(K, gs, kc, splits, ws, counters) || err == nullptr ||
+        gv_smem_bytes<4>(P, kc) > GV_SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F16:
+            return (int)launch_routed_gemv_rows<__half>(x, sel, qweight, s, zeros, out, ws,
+                                                        counters, err, E, P, K, N, gs, kc, splits,
+                                                        st);
+        case DT_BF16:
+            return (int)launch_routed_gemv_rows<__nv_bfloat16>(x, sel, qweight, s, zeros, out, ws,
+                                                               counters, err, E, P, K, N, gs, kc,
+                                                               splits, st);
+        default:   // f32 activations take routed_decode_kernel
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Blocks of the routed GEMV one SM holds at once for `dtype`, P pairs and a K chunk of kc rows.
+extern "C" int w4a16_routed_gemm_gemv_occupancy(int dtype, int P, int kc, int* blocks) {
+    if (P <= 0 || P > 16 || kc <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+    const int mt = P <= 8 ? 8 : 16;
+    const size_t smem = gv_smem_bytes<4>(P, kc);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (dtype == DT_BF16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, routed_gemv_kernel<__nv_bfloat16, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, routed_gemv_kernel<__nv_bfloat16, 16>, GV_THREADS, smem);
+    else if (dtype == DT_F16)
+        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, routed_gemv_kernel<__half, 8>, GV_THREADS, smem)
+                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                            blocks, routed_gemv_kernel<__half, 16>, GV_THREADS, smem);
+    return (int)err;
+}
 
 extern "C" int w4a16_routed_gemm(const void* x, const int32_t* sel, const int32_t* qweight,
                                  const void* scales, const uint8_t* zeros, void* out,

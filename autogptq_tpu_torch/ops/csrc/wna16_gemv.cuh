@@ -1,15 +1,21 @@
 // Tensor-core decode GEMV of the wNa16 dequant-matmuls for Hopper (sm_90a), bf16 and f16
-// activations, M <= 16 rows, 16 | group size, BITS in {2, 4, 8} (3-bit codes ride in nibbles):
-//   wna16_gemv_kernel   y[M,N] = x[M,K] @ ((q - z) * s)[K,N] (+ bias)   K1, K4, K5
-// w4a16_gemm.cu, w8a16_gemm.cu and w2a16_gemm.cu instantiate it beside their SIMT and tile
+// activations, M <= 16 rows, 16 | group size, BITS in {2, 4, 8} (3-bit codes ride in nibbles).
+// One block body (gemv_block), three kernels that differ only in where the words lie and which
+// rows of x a block takes:
+//   wna16_gemv_kernel   y[M,N] = x[M,K] @ ((q - z) * s)[K,N] (+ bias)   K1, K4, K5: GPTQ words
+//   kb32l_gemv_kernel   the same over the kb32l tiles of kb32l_tile.cuh  K6 (w4a16_kb32l_gemm.cu)
+//   routed_gemv_kernel  y[p] = x[p] @ W[sel[p]], a stack of E experts    K9 (w4a16_routed_gemm.cu)
+// w4a16_gemm.cu, w8a16_gemm.cu and w2a16_gemm.cu instantiate the first beside their SIMT and tile
 // kernels and export it as NAME_gemv; ops/gemm.py:route sends a product here when the
 // activations are bf16 or f16, M <= 16 and 16 divides the group size. f32 activations and the
 // other group sizes keep the SIMT GEMV of wna16_gemm.cuh (its per-code group instance too).
+// K6 and K9 route the same way (gemm.kb32l_route, gemm.routed_route) to their SIMT kernels.
 //
 // It replaces the decode regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487, entry _matmul_kb32 :559), _kernel_ki32 (:414), _kernel_kpair (:255), the
 // planar _kernel (:46, _matmul_planar :1479) and _kernel_k2i32 (:1061), which stream the packed
-// words through VMEM and dot each dequantized tile on the MXU.
+// words through VMEM and dot each dequantized tile on the MXU; _kernel_kb32l_manual (:692, the
+// kb32l decode ring) and _kernel_routed_kb32 (:894, the routed experts of MoE decode).
 //
 // Bound on the H100 (3.35 TB/s HBM): the bytes of the weight, BITS/8 B per weight plus fp16
 // scales and uint8 zeros per group and column; one Llama-2-7B layer's 7 projections at 4-bit
@@ -49,6 +55,24 @@
 //    partials in split order (results are bit-equal from call to call), adds the bias, casts
 //    once and sets the counter back to 0. One split writes the output itself. Two launches
 //    that share the workspace must not overlap, which one stream guarantees.
+//  * kb32l (K6): the word address is a template parameter (Words: GptqWords [K/P, N] rows, or
+//    Kb32lWords, tile (n/128, kw/32) at (kw%32)*128 + n%128), the scales' and zeros' row stride
+//    an argument (N, or N_pad). A stage's 16 word rows of 64 columns lie inside one 32 x 128
+//    tile (splits start on whole stages), so its copies are 16 runs of 256 B of one 16 KB span.
+//    The plan is gemv_plan's on the true K and N: words of rows past K and columns past N are
+//    not read (the copies zero-fill them), so the tiles' padding costs no bytes.
+//  * Routed (K9), expert-major: the grid is (column tiles, K splits, min(P, E) expert slices),
+//    planned from shapes alone (gemm.routed_plan). Each warp reads sel[0..P) (P <= 16); slice z
+//    serves the z-th distinct valid expert in order of first appearance (a match and two
+//    ballots: the compact list of the selected experts, built in the launch) and takes the
+//    pairs that chose it, in pair order, as the block's rows of x (gathered into the B operand)
+//    and of out. A slice beyond the distinct experts exits before its first copy. So each
+//    selected expert's words, scales and zeros stream once per call however many pairs chose
+//    it, and at P <= E every block works when the pairs' experts differ. The x stage holds P
+//    rows (ldmatrix reads clamp to them), which keeps the block within 4 per SM. Partials are
+//    indexed by pair and the tickets by (slice, column tile). A pair whose id lies outside
+//    [0, E) is served by no block (its row of out keeps what it held) and one warp of the grid
+//    sets ERR_BAD_EXPERT in the device flag *err (ops/gemm.py:check_routed_errors reads it).
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
@@ -69,6 +93,7 @@ constexpr int GV_STAGES = 4;
 constexpr int GV_MAX_SPLITS = 32;         // partials the last block adds, at most
 constexpr int GV_XPAD = 8;                // halves of padding per staged x row
 constexpr int GV_SMEM_LIMIT = 200 * 1024; // dynamic shared memory a block may ask for
+constexpr int ERR_BAD_EXPERT = 1;         // K9's device-flag bit: a pair named no expert
 
 template <int BITS> struct GvStage {      // byte offsets within one stage
     static constexpr int P = 32 / BITS;
@@ -160,13 +185,19 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
                  : "r"(smem_u32(p)));
 }
 
-template <int BITS, typename T, int MT>
-__global__ void __launch_bounds__(GV_THREADS, 4)
-wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
-                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
-                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
-                  T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                  int M, int K, int N, int gs, int kc, int splits, int gather) {
+// One block of the GEMV. Words addresses word row kw of column n (words(kw, n), in words from
+// qweight); scales and zeros are [G, ldsz]. M is the number of rows of x and out; the x stage
+// holds xrows <= MT of them. ROUTED: the operands are a stack of E experts ([E, K/P, N] words,
+// [E, G, N] scales and zeros); slice z (blockIdx.z) serves the z-th distinct expert of
+// sel[0..M) and takes the rows p with sel[p] equal to it (M <= 16: a warp's ballot).
+template <int BITS, typename T, int MT, typename Words, bool ROUTED>
+__device__ __forceinline__ void gemv_block(
+    const T* __restrict__ x, const int64_t* __restrict__ kperm,
+    const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+    const uint8_t* __restrict__ zeros, const T* __restrict__ bias, T* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ counters, const int32_t* __restrict__ sel,
+    int* __restrict__ err, int M, int K, int N, int gs, int kc, int splits, int gather,
+    Words words, int ldsz, int E, int xrows) {
     using L = GvStage<BITS>;
     using C = GvCodes<BITS, T>;
     constexpr int P = L::P;
@@ -174,6 +205,7 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     constexpr int NT = MT / 8;               // MMAs per A fragment: rows 0-7, 8-15
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int last_block;
+    __shared__ int pair_of[ROUTED ? MT : 1]; // ROUTED: the row of x and out of each block row
     T* const xs = reinterpret_cast<T*>(smem + GV_STAGES * L::BYTES);   // [MT][kc + GV_XPAD]
     const int ldx = kc + GV_XPAD;
     const int tid = threadIdx.x;
@@ -185,6 +217,39 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     const int G = (K + gs - 1) / gs;
     const int kwords = K / P;
     const int ntiles = (k1 - k0 + BK - 1) / BK;
+    int rows = M;                            // rows of x this block multiplies
+    int* ticket_ctr = counters + blockIdx.x;
+    if constexpr (ROUTED) {
+        const unsigned all = 0xFFFFFFFFu;
+        const int s = lane < M ? sel[lane] : -1;
+        const bool ok = lane < M && s >= 0 && s < E;
+        if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid < 32) {   // one warp
+            const unsigned bad = __ballot_sync(all, lane < M && !ok);
+            if (bad != 0u && lane == 0) atomicOr(err, ERR_BAD_EXPERT);
+        }
+        // the first pair of each distinct valid expert, and the one of this slice's
+        const unsigned same = __match_any_sync(all, ok ? s : -1 - lane);
+        const bool first = ok && __ffs(same) - 1 == lane;
+        const unsigned firsts = __ballot_sync(all, first);
+        const unsigned mine = __ballot_sync(
+            all, first && __popc(firsts & ((1u << lane) - 1u)) == (int)blockIdx.z);
+        if (mine == 0u) return;              // every warp holds the same masks: uniform
+        const int e = __shfl_sync(all, s, __ffs(mine) - 1);
+        const unsigned chose = __ballot_sync(all, ok && s == e);
+        rows = __popc(chose);
+        if (tid < 32 && ((chose >> lane) & 1u)) pair_of[__popc(chose & ((1u << lane) - 1u))] = lane;
+        __syncthreads();
+        qweight += (int64_t)e * kwords * N;
+        scales += (int64_t)e * G * ldsz;
+        zeros += (int64_t)e * G * ldsz;
+        ticket_ctr += blockIdx.z * gridDim.x;
+    }
+    auto row = [&](int m) -> int {           // block row m's row of x and out
+        if constexpr (ROUTED)
+            return pair_of[m];
+        else
+            return m;
+    };
 
     auto fetch = [&](int tile, unsigned char* st) {
         const int kt = k0 + tile * BK;
@@ -193,8 +258,8 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             const int r = c / (GV_BN / 4), q = c % (GV_BN / 4);
             const int kw = kt / P + r, n = n0 + 4 * q;
             const bool ok = kw < kwords && n < N;
-            cp_async16_zfill(wsm + r * GV_LDW + 4 * q,
-                             ok ? qweight + (int64_t)kw * N + n : qweight, ok);
+            cp_async16_zfill(wsm + r * GV_LDW + 4 * q, ok ? qweight + words(kw, n) : qweight,
+                             ok);
         }
         const int g0 = kt / gs;
         const int ng = min(G - 1, (min(kt + BK, k1) - 1) / gs) - g0 + 1;   // <= L::GROUPS
@@ -206,23 +271,23 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                 const int n = n0 + 2 * q;
                 const bool ok = n < N;
                 cp_async4_zfill(ss + r * GV_BN + 2 * q,
-                                ok ? scales + (int64_t)(g0 + r) * N + n : scales, ok);
+                                ok ? scales + (int64_t)(g0 + r) * ldsz + n : scales, ok);
             } else {                                 // zeros, 4 columns per copy
                 const int c2 = c - ng * (GV_BN / 2);
                 const int r = c2 / (GV_BN / 4), q = c2 % (GV_BN / 4);
                 const int n = n0 + 4 * q;
                 const bool ok = n < N;
                 cp_async4_zfill(zs + r * GV_BN + 4 * q,
-                                ok ? zeros + (int64_t)(g0 + r) * N + n : zeros, ok);
+                                ok ? zeros + (int64_t)(g0 + r) * ldsz + n : zeros, ok);
             }
         }
     };
 
-    // x[:, k0 .. k0 + kc) in slot order (rows past K zero). Rows M .. MT-1 are left as they are:
-    // they feed only output rows that are never written. Without kperm the rows are copied as
-    // they are by cp.async, one commit group ahead of the weight stages, and each 16-row step is
-    // then put in slot order in place; with kperm each step's sorted rows are gathered by
-    // register loads, the step's indices read once for four rows of x.
+    // x[row(m), k0 .. k0 + kc) in slot order (rows past K zero). Rows past `rows` are left as
+    // they are: they feed only output rows that are never written. Without kperm the rows are
+    // copied as they are by cp.async, one commit group ahead of the weight stages, and each
+    // 16-row step is then put in slot order in place; with kperm each step's sorted rows are
+    // gathered by register loads, the step's indices read once for four rows of x.
     const int nsteps = kc / 16;
     auto store_x = [&](int m, int step, const T (&v)[16]) {
         uint32_t* dst = reinterpret_cast<uint32_t*>(xs + m * ldx + 16 * step);
@@ -231,10 +296,11 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             dst[s / 2] = bits16(v[perm_slot<BITS>(s)]) | (bits16(v[perm_slot<BITS>(s + 1)]) << 16);
     };
     if (!gather) {                               // K % 8 == 0, x 16-byte aligned
-        for (int c = tid; c < M * (kc / 8); c += GV_THREADS) {
+        for (int c = tid; c < rows * (kc / 8); c += GV_THREADS) {
             const int m = c / (kc / 8), q = c - m * (kc / 8);
             const int k = k0 + 8 * q;
-            cp_async16_zfill(xs + m * ldx + 8 * q, k < K ? x + (int64_t)m * K + k : x, k < K);
+            cp_async16_zfill(xs + m * ldx + 8 * q, k < K ? x + (int64_t)row(m) * K + k : x,
+                             k < K);
         }
     }
     cp_async_commit();
@@ -247,7 +313,7 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     if (!gather) {
         cp_async_wait<GV_STAGES - 1>();          // x has landed; the weight stages may still fly
         __syncthreads();
-        for (int it = tid; it < M * nsteps; it += GV_THREADS) {
+        for (int it = tid; it < rows * nsteps; it += GV_THREADS) {
             const int m = it / nsteps, step = it - m * nsteps;
             const uint4* src = reinterpret_cast<const uint4*>(xs + m * ldx + 16 * step);
             const uint4 raw[2] = {src[0], src[1]};
@@ -257,7 +323,7 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             store_x(m, step, v);                 // this thread's own 32 bytes: in place
         }
     } else {
-        const int mq = (M + 3) / 4;
+        const int mq = (rows + 3) / 4;
         for (int it = tid; it < nsteps * mq; it += GV_THREADS) {
             const int step = it / mq, m0 = 4 * (it - step * mq);
             const int kb = k0 + 16 * step;
@@ -270,11 +336,11 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             for (int r = 0; r < 4; ++r)
 #pragma unroll
                 for (int i = 0; i < 16; ++i)
-                    v[r][i] = m0 + r < M && src[i] >= 0 ? x[(int64_t)(m0 + r) * K + src[i]]
-                                                        : from_f32<T>(0.0f);
+                    v[r][i] = m0 + r < rows && src[i] >= 0
+                                  ? x[(int64_t)row(m0 + r) * K + src[i]] : from_f32<T>(0.0f);
 #pragma unroll
             for (int r = 0; r < 4; ++r)
-                if (m0 + r < M) store_x(m0 + r, step, v[r]);
+                if (m0 + r < rows) store_x(m0 + r, step, v[r]);
         }
     }
 
@@ -285,7 +351,7 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     const int sh = BITS * (t % (P / 4));         // the thread's first code in that word
     // ldmatrix rows: lane l addresses row l % 8 (+ 8 for the x4's matrices 2, 3) of x, slots
     // 8 * ((l / 8) % 2) onwards of the step
-    const int xrow = (lane & 7) + (MT == 16 ? 8 * ((lane >> 4) & 1) : 0);
+    const int xrow = min((lane & 7) + (MT == 16 ? 8 * ((lane >> 4) & 1) : 0), xrows - 1);
     const T* xl = xs + xrow * ldx + 8 * ((lane >> 3) & 1);
 
     // part[0] takes the even steps and part[1] the odd ones, two independent MMA chains
@@ -390,7 +456,8 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
 #pragma unroll
                 for (int h = 0; h < 2; ++h) {
                     const int m = 8 * j + 2 * t + h;
-                    if (m < M) store2(out + (int64_t)m * N + n, acc[j][h] + b0, acc[j][2 + h] + b1);
+                    if (m < rows)
+                        store2(out + (int64_t)row(m) * N + n, acc[j][h] + b0, acc[j][2 + h] + b1);
                 }
         }
         return;
@@ -401,8 +468,8 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
                 const int m = 8 * j + 2 * t + h;
-                if (m < M)
-                    *reinterpret_cast<float2*>(ws + ((int64_t)split * M + m) * N + n) =
+                if (m < rows)
+                    *reinterpret_cast<float2*>(ws + ((int64_t)split * M + row(m)) * N + n) =
                         make_float2(acc[j][h], acc[j][2 + h]);
             }
     }
@@ -413,16 +480,16 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     if (tid == 0) {
         int ticket;
         asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
-                     : "=r"(ticket) : "l"(counters + blockIdx.x) : "memory");
+                     : "=r"(ticket) : "l"(ticket_ctr) : "memory");
         last_block = ticket == splits - 1;
-        if (last_block) counters[blockIdx.x] = 0;   // every split of the tile has its ticket
+        if (last_block) *ticket_ctr = 0;         // every split of the tile has its ticket
     }
     __syncthreads();
     if (!last_block) return;
     // The partials of the column tile in split order (through L2), the bias, one cast.
     constexpr int UNROLL = 8;
-    for (int i = tid; i < M * (GV_BN / 2); i += GV_THREADS) {
-        const int m = i / (GV_BN / 2);
+    for (int i = tid; i < rows * (GV_BN / 2); i += GV_THREADS) {
+        const int m = row(i / (GV_BN / 2));
         const int nn = n0 + 2 * (i % (GV_BN / 2));
         if (nn >= N) continue;
         const float* p = ws + (int64_t)m * N + nn;
@@ -448,6 +515,31 @@ wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     }
 }
 
+// K1/K4/K5: GPTQ words [K/P, N], scales and zeros [G, N].
+template <int BITS, typename T, int MT>
+__global__ void __launch_bounds__(GV_THREADS, 4)
+wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
+                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
+                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
+                  T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int M, int K, int N, int gs, int kc, int splits, int gather) {
+    gemv_block<BITS, T, MT, GptqWords, false>(x, kperm, qweight, scales, zeros, bias, out, ws,
+                                              counters, nullptr, nullptr, M, K, N, gs, kc, splits,
+                                              gather, GptqWords{N}, N, 1, MT);
+}
+
+// Whether x must be gathered by register loads (kperm, or rows not in 16-byte copies).
+inline int gv_gather(const void* x, const int64_t* kperm, int K) {
+    return kperm != nullptr || K % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0;
+}
+
+// The checks every GEMV entry makes on its plan: kc rows per split, splits of them cover K once.
+inline bool gv_plan_ok(int K, int gs, int kc, int splits, const float* ws, const int* counters) {
+    return gs > 0 && gs % 16 == 0 && kc > 0 && kc % 16 == 0 && splits > 0 &&
+           splits <= GV_MAX_SPLITS && (int64_t)(splits - 1) * kc < K && (int64_t)splits * kc >= K &&
+           (splits == 1 || (ws != nullptr && counters != nullptr));
+}
+
 template <int BITS, typename T, int MT>
 cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                         const __half* scales, const uint8_t* zeros, const void* bias, void* out,
@@ -455,12 +547,10 @@ cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qwei
                         cudaStream_t stream) {
     static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT>, GV_SMEM_LIMIT);
     if (attr != cudaSuccess) return attr;
-    const int gather = kperm != nullptr || K % 8 != 0 ||
-                       (reinterpret_cast<uintptr_t>(x) & 15) != 0;
     const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
     wna16_gemv_kernel<BITS, T, MT><<<grid, GV_THREADS, gv_smem_bytes<BITS>(MT, kc), stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits, gather);
+        static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits, gv_gather(x, kperm, K));
     return cudaGetLastError();
 }
 
@@ -483,10 +573,8 @@ int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                     float* ws, int* counters, int dtype, int M, int K, int N, int gs, int kc,
                     int splits, void* stream) {
     constexpr int P = 32 / BITS;
-    if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
-        gs % 16 != 0 || kc <= 0 || kc % 16 != 0 || splits <= 0 || splits > GV_MAX_SPLITS ||
-        (int64_t)(splits - 1) * kc >= K || (int64_t)splits * kc < K ||
-        (splits > 1 && (ws == nullptr || counters == nullptr)) ||
+    if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 ||
+        !gv_plan_ok(K, gs, kc, splits, ws, counters) ||
         gv_smem_bytes<BITS>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT)
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);

@@ -37,14 +37,19 @@ K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 (``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
 ``_kernel_routed_kb32`` behind ``matmul_routed_pallas``.
 ``wna16_routed_matmul`` launches it for CUDA tensors and runs
-``wna16_routed_matmul_ref`` for CPU tensors.
+``wna16_routed_matmul_ref`` for CPU tensors. :func:`routed_route` sends bf16
+and f16 pairs whose group size 16 divides to the expert-major tensor-core GEMV
+(``<name>_gemv``, planned by :func:`routed_plan`: each selected expert streams
+once per call), the rest to the SIMT routed kernel and its reduce.
 
 K6, K1's function over the tile-contiguous ``kb32l`` words
 (``csrc/w4a16_kb32l_gemm.cu``, address in ``csrc/kb32l_tile.cuh``), replaces
 the TPU kernels ``_matmul_kb32l`` and ``_kernel_kb32l_manual``.
 ``w4a16_kb32l_matmul`` launches it for CUDA tensors and runs
 ``w4a16_kb32l_matmul_ref`` for CPU tensors; ``wna16_matmul_t`` takes the same
-words for K10.
+words for K10. It routes as K1 does (:func:`route`): the tensor-core GEMV over
+the kb32l tiles at M <= 16 for bf16 and f16 (``<name>_gemv``), the cp.async
+ring (``<name>``) for f32, the tile kernels above 16 rows.
 
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
@@ -93,8 +98,9 @@ KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
 KB32L_T_ENTRY = "w4a16_kb32l_gemm_t"  # K10's entry over kb32l words (library T_KERNEL)
 KB32L_KB = 256          # K rows per tile (csrc/kb32l_tile.cuh)
 KB32L_BN = 128          # columns per tile
-KB32L_NBUF = 4          # K6's ring of shared-memory stages
-KB32L_X_SMEM = 32768    # bytes of f32 x a K6 decode block may stage: bounds its K run
+KB32L_NBUF = 4          # K6's ring of shared-memory stages (f32 activations)
+KB32L_X_SMEM = 32768    # bytes of f32 x a K6 ring block may stage: bounds its K run
+ROUTED_GEMV_MAX_P = 16  # pairs the routed GEMV takes: its block's MMA operand holds 16 rows
 
 
 def unpack_words(qweight: torch.Tensor, bits: int) -> torch.Tensor:
@@ -140,10 +146,10 @@ def wna16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Ten
 
 def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
     """The kernel a product of ``m`` rows with group size ``gs`` (in rows:
-    ``K`` for one group) takes on the card, for K6 and K10, and for K1/K4/K5
+    ``K`` for one group) takes on the card, for K10, and for K1/K4/K5 and K6
     above 16 rows (:func:`route`): ``"mma"``, the tensor-core tile kernel,
     for bf16 and f16 at ``m > 16`` with ``16 | gs``; ``"simt"`` otherwise:
-    the split-K GEMV at ``m <= 16``, the SIMT tile kernel for f32 (the f32
+    K10's SIMT kernel at ``m <= 16``, the SIMT tile kernel for f32 (the f32
     model path and ``quantize``'s re-forward) and for group sizes 16 does not
     divide. ``kernel`` ("mma" or "simt") names one instead, to time both on
     the same operands; the tensor-core kernel raises for operands it does not
@@ -157,16 +163,17 @@ def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = Non
     return "simt"
 
 
-_forced = [None]    # the kernel every wna16_matmul call takes inside forced_kernel
+_forced = [None]    # the kernel every wrapper call takes inside forced_kernel
 
 
 @contextlib.contextmanager
 def forced_kernel(kernel: Optional[str]):
-    """Inside, every :func:`wna16_matmul` call without its own ``kernel``
-    takes ``kernel`` ("gemv", "mma", "simt" or None), so that a whole path
-    (a model's ``generate``) can be run through another kernel on the same
-    weights, as chip_smoke.py does to hold the decode GEMV against the SIMT
-    one."""
+    """Inside, every :func:`wna16_matmul`, :func:`w4a16_kb32l_matmul` and
+    :func:`wna16_routed_matmul` call without its own ``kernel`` takes
+    ``kernel`` ("gemv", "mma", "simt" or None), so that a whole path (a
+    model's ``generate``) can be run through another kernel on the same
+    weights, as chip_smoke.py does to hold the decode GEMVs against the SIMT
+    kernels and K6's ring."""
     _check_kernel(kernel)
     before = _forced[0]
     _forced[0] = kernel
@@ -188,7 +195,8 @@ def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> 
     above 16 rows :func:`tile_kernel`'s choice (``"mma"`` or ``"simt"``); f32
     and the group sizes 16 does not divide take ``"simt"`` at any ``m``.
     ``kernel`` names one instead (the tensor-core kernels raise for operands
-    they do not take). K6 and K10 keep :func:`tile_kernel`."""
+    they do not take). K6 routes the same way (its "simt" at ``m <= 16`` is
+    its cp.async ring); K10 keeps :func:`tile_kernel`."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
@@ -214,24 +222,44 @@ def gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> d
     and f32 partials ``[splits, m, n]`` within ``GEMV_WS_SHARE`` of the
     weight's bytes (so they stay in L2). ``bits`` is the code width (3 rides in
     nibbles). Also the stage's K rows, the blocks, the shared-memory, weight
-    and workspace bytes."""
+    and workspace bytes. K6 takes the plan of its true K and N: the kb32l
+    tiles' padding is never read."""
     return dict(_gemv_plan(k, n, m, group_size, bits, sms))
 
 
+def routed_plan(k: int, n: int, p: int, e: int, group_size: int, bits: int, sms: int) -> dict:
+    """K9's tensor-core GEMV launch for ``p`` pairs over a stack of ``e``
+    experts, from shapes alone (never from ``sel``'s values, so the grid is
+    the same for any selection): :func:`gemv_plan`'s column tiles and K
+    splits, sized for ``min(p, e)`` expert slices (at most that many distinct
+    experts: their blocks and the bytes they stream), over a grid of
+    ``(col_blocks, splits, min(p, e))`` (``blocks``; a slice beyond the
+    distinct experts exits at once); an x stage of ``p`` rows; f32 partials
+    ``[splits, p, n]`` (one row per pair) and ``min(p, e) * col_blocks``
+    ticket counters."""
+    if not 0 < p <= ROUTED_GEMV_MAX_P:
+        raise ValueError(f"the routed GEMV takes 1 to {ROUTED_GEMV_MAX_P} pairs, got {p}")
+    slices = min(p, e)
+    plan = dict(_gemv_plan(k, n, p, group_size, bits, sms, slices, p))
+    plan.update(slices=slices, counters=slices * plan["col_blocks"])
+    return plan
+
+
 @functools.lru_cache(maxsize=None)
-def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> dict:
+def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int,
+               active: int = 1, xrows: Optional[int] = None) -> dict:
     sb = storage_bits(bits)
     gs = k if group_size == -1 else group_size
     bk = GEMV_STAGE_WORDS * 32 // sb                     # K rows per stage
     mt = 8 if m <= 8 else 16
     col_blocks = -(-n // GEMV_BN)
-    weight_bytes = k * n * sb // 8 + 3 * -(-k // gs) * n
+    weight_bytes = active * (k * n * sb // 8 + 3 * -(-k // gs) * n)
     kc_max = max(bk, GEMV_X_SMEM // (2 * mt) // bk * bk)
     unit = math.lcm(gs, bk)
     if unit > kc_max:               # a group longer than the x stage: whole stages
         unit = bk
     cap = max(1, int(GEMV_WS_SHARE * weight_bytes // (4 * m * n)))
-    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // col_blocks, GEMV_MAX_SPLITS, cap))
+    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // (col_blocks * active), GEMV_MAX_SPLITS, cap))
     kc = -(-k // want // unit) * unit
     kc = min(kc, max(unit, kc_max // unit * unit))
     splits = -(-k // kc)
@@ -240,11 +268,11 @@ def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> 
         splits = -(-k // kc)
     stage_bytes = GEMV_STAGE_WORDS * (GEMV_BN + 16) * 4 + (bk // 16) * GEMV_BN * 3
     stage_bytes = -(-stage_bytes // 16) * 16
-    smem = GEMV_STAGES * stage_bytes + mt * (kc + 8) * 2
+    smem = GEMV_STAGES * stage_bytes + (xrows or mt) * (kc + 8) * 2
     if smem > GEMV_SMEM_LIMIT:
         raise NotImplementedError(f"the decode GEMV's plan for K={k}, N={n}, M={m}, group size "
                                   f"{gs} needs {smem} B of shared memory per block")
-    return dict(kc=kc, splits=splits, col_blocks=col_blocks, blocks=col_blocks * splits,
+    return dict(kc=kc, splits=splits, col_blocks=col_blocks, blocks=col_blocks * splits * active,
                 stage_k=bk, stage_word_bytes=GEMV_STAGE_WORDS * GEMV_BN * 4,
                 smem_bytes=smem, weight_bytes=weight_bytes,
                 workspace_bytes=4 * m * n * splits if splits > 1 else 0)
@@ -297,11 +325,14 @@ def _lib_gemv(name: str):
     return fn
 
 
-def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int) -> int:
+def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int,
+                       library: Optional[str] = None) -> int:
     """How many GEMV blocks of ``bits``-bit codes (3 in nibbles) one SM holds
     at once for ``m`` rows and a K chunk of ``kc`` rows (the CUDA occupancy
-    calculator over the kernel's registers and shared memory)."""
-    name = KERNEL_NAMES[storage_bits(bits)]
+    calculator over the kernel's registers and shared memory); ``library``
+    names K6's or K9's GEMV (``KB32L_KERNEL``, ``ROUTED_KERNEL``) in place of
+    K1/K4/K5's."""
+    name = library or KERNEL_NAMES[storage_bits(bits)]
     fn = getattr(build.load(name), name + GEMV_SUFFIX + "_occupancy")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -553,8 +584,9 @@ def w4a16_kb32l_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: tor
 
 
 def kb32l_plan(k: int, n: int, m: int, group_size: int, sms: int) -> dict:
-    """K6's launch at ``m`` rows: for the decode regime (``m <= 16``) tiles
-    per K split and splits, enough blocks for about two per SM (as
+    """K6's ring launch at ``m`` rows (the f32 decode regime and what
+    ``kernel="simt"`` names at ``m <= 16``; bf16/f16 take :func:`gemv_plan`):
+    tiles per K split and splits, enough blocks for about two per SM (as
     :func:`split_k` sizes K1) with the f32 x stage of a block within
     ``KB32L_X_SMEM``; the blocks, a stage's and a block's shared-memory bytes."""
     gs = k if group_size == -1 else group_size
@@ -624,6 +656,17 @@ def _lib_kb32l():
     return fn
 
 
+def _lib_kb32l_gemv():
+    """K6's tensor-core GEMV ``w4a16_kb32l_gemm_gemv(x, kperm, qweight, scales,
+    zeros, bias, out, ws, counters, dtype, M, K, N, n_pad, gs, kc, splits,
+    stream)``."""
+    fn = getattr(build.load(KB32L_KERNEL), KB32L_KERNEL + GEMV_SUFFIX)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _lib_kb32l_mma():
     fn = getattr(build.load(KB32L_KERNEL), KB32L_KERNEL + MMA_SUFFIX)
     if fn.argtypes is None:
@@ -651,9 +694,10 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
                        kernel: Optional[str] = None) -> torch.Tensor:
     """K6: ``x2d [M, K] @ W -> [M, n]`` in ``x2d``'s dtype over kb32l words
     (4-bit storage: 3- and 4-bit layers). A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel :func:`tile_kernel` names
-    (``kernel`` passed on to it: the tensor-core tile kernel, or the GEMV or
-    the SIMT tile kernel), or raises."""
+    version; a CUDA tensor launches the kernel :func:`route` names (``kernel``,
+    or the one :func:`forced_kernel` sets, passed on to it: the tensor-core
+    GEMV or tile kernel, or the ring at ``m <= 16`` and the SIMT tile kernel
+    above), or raises."""
     if x2d.device.type == "cpu":
         return w4a16_kb32l_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, n)
     if x2d.device.type != "cuda":
@@ -664,7 +708,20 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
-    if tile_kernel(x2d.dtype, m, gs, kernel) == "mma":
+    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0])
+    if chosen == "gemv":
+        sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+        plan = gemv_plan(k, n, m, gs, 4, sms)
+        ws, counters = build.split_scratch(KB32L_KERNEL + GEMV_SUFFIX, x2d.device,
+                                           plan["splits"] * m * n, plan["col_blocks"])
+        code = _lib_kb32l_gemv()(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                                 _ptr(zeros), _ptr(bias), _ptr(out), _ptr(ws), _ptr(counters),
+                                 DTYPE_CODES[x2d.dtype], m, k, n, scales.shape[1], gs,
+                                 plan["kc"], plan["splits"], _stream(x2d))
+        build.check(KB32L_KERNEL, code)
+        build.launches[KB32L_KERNEL + GEMV_SUFFIX] += 1
+        return out
+    if chosen == "mma":
         code = _lib_kb32l_mma()(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
                                 _ptr(zeros), _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype], m, k,
                                 n, scales.shape[1], gs, _stream(x2d))
@@ -685,20 +742,37 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     return out
 
 
+def routed_slices(sel, e: int) -> list[tuple[Optional[int], list[int]]]:
+    """The plain model of the routed GEMV's expert-major assignment, one
+    ``(expert, pairs)`` per slice of its grid (``min(P, e)`` of them): slice
+    z serves the z-th distinct expert of ``sel`` in order of first appearance
+    and takes, in pair order, the pairs that chose it; a slice beyond the
+    distinct experts is ``(None, [])`` and does nothing; a pair whose id lies
+    outside ``[0, e)`` is served by no slice. ``sel`` is any sequence of ints
+    (a tensor's values are read on the host)."""
+    ids = [int(v) for v in (sel.tolist() if isinstance(sel, torch.Tensor) else sel)]
+    experts = list(dict.fromkeys(s for s in ids if 0 <= s < e))
+    return [(experts[z], [p for p, s in enumerate(ids) if s == experts[z]])
+            if z < len(experts) else (None, []) for z in range(min(len(ids), e))]
+
+
 def wna16_routed_matmul_ref(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Tensor,
                             scales: torch.Tensor, zeros: torch.Tensor, group_size: int,
                             bits: int = 4) -> torch.Tensor:
     """Plain version of K9: row p is ``x2d[p] @ dequant(W[sel[p]])``, with an
-    f32 dequantized weight per selected expert, an f32 product and one cast
-    to ``x2d``'s dtype (the JAX ``matmul_routed`` XLA fallback). An expert id
-    outside ``[0, E)`` raises ValueError."""
+    f32 dequantized weight per selected expert (the slices of
+    :func:`routed_slices`), an f32 product and one cast to ``x2d``'s dtype
+    (the JAX ``matmul_routed`` XLA fallback). An expert id outside ``[0, E)``
+    raises ValueError."""
     e = qweight.shape[0]
     ids = sel.long().cpu()
     if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= e):
         raise ValueError(f"expert ids must lie in [0, {e}), got {ids.tolist()}")
     y = torch.empty((x2d.shape[0], qweight.shape[2]), dtype=torch.float32, device=x2d.device)
-    for ex in torch.unique(ids).tolist():
-        rows = (ids == ex).nonzero()[:, 0].to(x2d.device)
+    for ex, pairs in routed_slices(ids, e):
+        if ex is None:
+            continue
+        rows = torch.tensor(pairs, device=x2d.device)
         w = dequantize_codes(unpack_words(qweight[ex], bits), scales[ex], zeros[ex], group_size)
         y[rows] = x2d[rows].float() @ w
     return y.to(x2d.dtype)
@@ -718,6 +792,22 @@ def check_routed_errors(device) -> None:
                          "pairs that named it wrote nothing")
 
 
+def routed_route(dtype: torch.dtype, p: int, gs: int, kernel: Optional[str] = None) -> str:
+    """The kernel K9 takes on the card for ``p`` pairs with group size ``gs``
+    (in rows): ``"gemv"``, the expert-major tensor-core GEMV, for bf16 and
+    f16 with ``16 | gs`` (at most ``ROUTED_GEMV_MAX_P`` pairs: the routed path
+    sends at most E, 8 for Mixtral); ``"simt"``, the SIMT routed kernel and
+    its reduce, for f32, the group sizes 16 does not divide and more pairs.
+    ``kernel`` ("gemv" or "simt") names one instead."""
+    if kernel not in (None, "gemv", "simt"):
+        raise ValueError(f"{ROUTED_KERNEL} has the kernels 'gemv' and 'simt', got {kernel!r}")
+    if kernel is not None:
+        return kernel
+    if dtype in MMA_DTYPES and gs % MMA_K == 0 and p <= ROUTED_GEMV_MAX_P:
+        return "gemv"
+    return "simt"
+
+
 def _lib_routed():
     fn = getattr(build.load(ROUTED_KERNEL), ROUTED_KERNEL)
     if fn.argtypes is None:
@@ -726,20 +816,34 @@ def _lib_routed():
     return fn
 
 
+def _lib_routed_gemv():
+    """K9's tensor-core GEMV ``w4a16_routed_gemm_gemv(x, sel, qweight, scales,
+    zeros, out, ws, counters, err, dtype, E, P, K, N, gs, kc, splits,
+    stream)``."""
+    fn = getattr(build.load(ROUTED_KERNEL), ROUTED_KERNEL + GEMV_SUFFIX)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def wna16_routed_matmul(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Tensor,
                         scales: torch.Tensor, zeros: torch.Tensor, group_size: int,
                         bits: int = 4, check: bool = True,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        kernel: Optional[str] = None) -> torch.Tensor:
     """K9: ``x2d [P, K]``, ``sel`` int32 ``[P]`` and a stack of 4-bit
     experts (``qweight`` int32 ``[E, K/8, N]``, ``scales`` fp16 ``[E, G, N]``,
     ``zeros`` uint8 ``[E, G, N]``) -> ``[P, N]`` in ``x2d``'s dtype, row p
     ``x2d[p] @ dequant(W[sel[p]])``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises. The kernel reads ``sel`` on the
-    card; a pair naming an expert outside the stack writes nothing and sets
-    a device flag, which ``check=True`` reads at once (a wait for the card)
-    and ``check=False`` leaves to :func:`check_routed_errors`. ``out``, a
-    contiguous ``[P, N]`` tensor of ``x2d``'s dtype on the card, is written in
-    place of a new one (the rows of such pairs keep what they held)."""
+    CUDA tensor launches the kernel :func:`routed_route` names (``kernel``, or
+    the one :func:`forced_kernel` sets, passed on to it) or raises. The
+    kernels read ``sel`` on the card; a pair naming an expert outside the
+    stack writes nothing and sets a device flag, which ``check=True`` reads at
+    once (a wait for the card) and ``check=False`` leaves to
+    :func:`check_routed_errors`. ``out``, a contiguous ``[P, N]`` tensor of
+    ``x2d``'s dtype on the card, is written in place of a new one (the rows of
+    such pairs keep what they held)."""
     if bits != 4:
         raise ValueError(f"{ROUTED_KERNEL} takes 4-bit words (3-bit codes in nibbles), "
                          f"got bits={bits}")
@@ -771,11 +875,24 @@ def wna16_routed_matmul(x2d: torch.Tensor, sel: torch.Tensor, qweight: torch.Ten
     if p == 0:
         return out
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    flag = build.error_flag(ROUTED_KERNEL, x2d.device)
+    if routed_route(x2d.dtype, p, gs, kernel if kernel is not None else _forced[0]) == "gemv":
+        plan = routed_plan(k, n, p, e, gs, bits, sms)
+        ws, counters = build.split_scratch(ROUTED_KERNEL + GEMV_SUFFIX, x2d.device,
+                                           plan["splits"] * p * n, plan["counters"])
+        code = _lib_routed_gemv()(_ptr(x2d), _ptr(sel), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                                  _ptr(out), _ptr(ws), _ptr(counters), _ptr(flag),
+                                  DTYPE_CODES[x2d.dtype], e, p, k, n, gs, plan["kc"],
+                                  plan["splits"], _stream(x2d))
+        build.check(ROUTED_KERNEL, code)
+        build.launches[ROUTED_KERNEL + GEMV_SUFFIX] += 1
+        if check:
+            check_routed_errors(x2d.device)
+        return out
     kc, splits = split_k(k, n, gs, sms)
     partial = None
     if splits > 1:
         partial = torch.empty((splits, p, n), dtype=torch.float32, device=x2d.device)
-    flag = build.error_flag(ROUTED_KERNEL, x2d.device)
     code = _lib_routed()(_ptr(x2d), _ptr(sel), _ptr(qweight), _ptr(scales), _ptr(zeros),
                          _ptr(out), _ptr(partial), _ptr(flag), DTYPE_CODES[x2d.dtype], e, p, k,
                          n, gs, kc, splits,
@@ -838,7 +955,8 @@ __all__ = [
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k", "tile_kernel", "route", "gemv_plan", "gemv_blocks_per_sm", "forced_kernel",
-    "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul", "wna16_routed_matmul_ref",
+    "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul",
+    "wna16_routed_matmul_ref", "routed_route", "routed_plan", "routed_slices",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
     "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
     "w4a16_kb32l_matmul", "w4a16_kb32l_matmul_ref",

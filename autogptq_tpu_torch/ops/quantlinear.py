@@ -17,8 +17,8 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
 * ``from_packed(..., layout="kb32l")`` builds the tile-contiguous layout
   instead (:func:`kb32l_pack`, 3- and 4-bit layers, the JAX package's kb32l
   shape rule): the same 4-bit words cut into contiguous 256-row by
-  128-column tiles, column tile first, which K6 streams through a
-  multi-stage async-copy ring.
+  128-column tiles, column tile first, which K6 streams through K1's
+  tensor-core decode GEMV (bf16/f16) or a multi-stage async-copy ring (f32).
 * :func:`matmul` runs the kernel of the layout and storage width
   (``ops/gemm.py``: K1 for 3 and 4 bits, K4 for 8, K5 for 2, K6 for kb32l)
   for a CUDA tensor and its plain version for a CPU tensor. It is

@@ -19,6 +19,11 @@ substitution, each into its own ``w4a16_gemm`` / ``w8a16_gemm`` library under
   (one dependent chain of MMAs) in place of two;
 * ``3 stages``: a ring of 3 stages in place of 4.
 
+``as is`` and ``stream only`` are also built for K6 (the same kernel over the kb32l
+tiles) and K9 (over a routed stack of experts) and timed on one Llama-2-7B layer in both
+layouts (the same weights) at M = 1 and 16 and on one Mixtral-8x7B layer at P = 1, 2
+and 8: whether the contiguous tiles stream faster than GPTQ's rows under one kernel.
+
 Each is timed two ways at 4-bit g128 (and ``as is`` also at 8-bit), bf16: one call
 of each Llama-2-7B projection with the L2 cache flushed before it (CUDA events, as
 ``chip_smoke.py`` times kernels), and back to back over the 7 projections of 8
@@ -65,9 +70,9 @@ def variants(src: str) -> dict:
         }""")
 
     def nox(text):
-        text = sub(text, "for (int c = tid; c < M * (kc / 8); c += GV_THREADS) {",
+        text = sub(text, "for (int c = tid; c < rows * (kc / 8); c += GV_THREADS) {",
                    "for (int c = tid; c < 0; c += GV_THREADS) {")
-        return sub(text, "for (int it = tid; it < M * nsteps; it += GV_THREADS) {",
+        return sub(text, "for (int it = tid; it < rows * nsteps; it += GV_THREADS) {",
                    "for (int it = tid; it < 0; it += GV_THREADS) {")
 
     def nocombine(text):
@@ -87,8 +92,12 @@ def variants(src: str) -> dict:
     }
 
 
+LAYOUT_VARIANTS = ("as is", "stream only")   # also built for K6 (kb32l) and K9 (routed)
+
+
 def build_variants(build) -> dict:
-    """Compile each variant's w4a16_gemm and w8a16_gemm (all at once); their CDLLs."""
+    """Compile each variant's w4a16_gemm and w8a16_gemm, and for LAYOUT_VARIANTS
+    also w4a16_kb32l_gemm and w4a16_routed_gemm (all at once); their CDLLs."""
     out_dir = os.path.join(ROOT, "build", "chip_gemv_probe")
     shutil.rmtree(out_dir, ignore_errors=True)
     src = (build.CSRC / "wna16_gemv.cuh").read_text()
@@ -98,7 +107,10 @@ def build_variants(build) -> dict:
         shutil.copytree(build.CSRC, d)
         with open(os.path.join(d, "wna16_gemv.cuh"), "w") as f:
             f.write(text)
-        for lib in ("w4a16_gemm", "w8a16_gemm"):
+        libs = ("w4a16_gemm", "w8a16_gemm")
+        if name in LAYOUT_VARIANTS:
+            libs += ("w4a16_kb32l_gemm", "w4a16_routed_gemm")
+        for lib in libs:
             so = os.path.join(d, f"lib{lib}.so")
             cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")]
             procs[(name, lib)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -132,13 +144,16 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}; device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build(("w4a16_gemm", "w8a16_gemm"))
+    build.build(("w4a16_gemm", "w8a16_gemm", "w4a16_kb32l_gemm", "w4a16_routed_gemm"))
     libs = build_variants(build)
     columns = {name: bn for name, (_, bn) in
                variants((build.CSRC / "wna16_gemv.cuh").read_text()).items()}
     print(f"variants built in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    shipped = {lib: build.load(lib) for lib in ("w4a16_kb32l_gemm", "w4a16_routed_gemm")}
+
     def use(name):   # route the wrappers' libraries (and the plan's column tile) to a variant
+        build._libs.update(shipped)
         for lib, cdll in libs[name].items():
             build._libs[lib] = cdll
         gemm.GEMV_BN = columns[name]
@@ -245,6 +260,44 @@ def main() -> int:
     out["clean_flush_layer_ms"] = clean
     print("4-bit M=1 per layer, L2 flushed by a read (clean lines): " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in clean.items()), flush=True)
+    # The same kernel over other words: K6's kb32l tiles against K1's GPTQ rows (the same
+    # weights, from one seed), and K9's routed stack of Mixtral-8x7B's experts, as shipped and
+    # streaming only (which says whether the contiguous tiles stream faster than the rows)
+    layouts = {}
+    for layout in ("gptq", "kb32l"):
+        layouts[layout] = {case: cs._random_layer(qlin, np.random.default_rng(i), k, n, 4, 128,
+                                                  False, torch.bfloat16, layout=layout)
+                           for i, (case, (k, n, _)) in enumerate(cs.LAYER_SHAPES.items())}
+    experts = {case: qlin.stack_experts([cs._random_layer(qlin, rng, k, n, 4, 128, False,
+                                                          torch.bfloat16) for _ in range(8)])
+               for case, (k, n, _) in cs.MIXTRAL_SHAPES.items()}
+    rx = {(p, k): torch.randn((p, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+          for p in cs.K9_SELS for k in (4096, 14336)}
+    out["layouts"] = []
+    for name in LAYOUT_VARIANTS:
+        use(name)
+        for layout, stack in layouts.items():
+            for m in (1, 16):
+                calls = {case: timer.ms(lambda: qlin.matmul(xs[(m, layer.in_features)], layer),
+                                        iters=10) for case, layer in stack.items()}
+                out["layouts"].append(dict(variant=name, layout=layout, M=m, calls_ms=calls,
+                                           layer_flushed_ms=layer_of(calls)))
+                print(f"{name:12s} {layout:5s} M={m:2d}: per call (L2 flushed) " + ", ".join(
+                    f"{c} {v:.4f}" for c, v in calls.items())
+                    + f"; layer {layer_of(calls):.4f} ms", flush=True)
+        for p, ids in cs.K9_SELS.items():
+            sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
+            calls = {case: timer.ms(lambda: qlin.matmul_routed(rx[(p, sql.in_features)], sql, sel,
+                                                               check=False), iters=10)
+                     for case, sql in experts.items()}
+            layer = sum(v * cs.MIXTRAL_SHAPES[c][2] for c, v in calls.items())
+            out["layouts"].append(dict(variant=name, layout="routed", P=p, calls_ms=calls,
+                                       layer_flushed_ms=layer))
+            print(f"{name:12s} routed P={p}: per call (L2 flushed) " + ", ".join(
+                f"{c} {v:.4f}" for c, v in calls.items()) + f"; Mixtral layer {layer:.4f} ms",
+                flush=True)
+    del layouts, experts
+    torch.cuda.empty_cache()
     use("as is")
     for bits in (4, 8):
         for m in ROWS:

@@ -76,7 +76,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    model, which must fall from 2 to 8 bits.
 12. K10 (``wna16_gemm_t``, the backward ``dx = g @ dequant(W)^T``) against
    ``wna16_matmul_t_ref`` at the three Llama-2-7B projection shapes, M in
-   {10 (an adaption prompt's rows), 17, 128, 2048 (a 4 x 512 batch)}, 2-, 3-,
+   {10 (an adaption prompt's rows), 16 (the SIMT K10 at a decode-sized batch),
+   17, 128, 2048 (a 4 x 512 batch)}, 2-, 3-,
    4- and 8-bit g128 plus a desc_act and a group-size-32 case, bf16 (timed)
    and f32; ``torch.matmul(g, W_bf16.T)`` on a pre-dequantized weight is the
    library yardstick. bf16 above 16 rows takes the tensor-core K10; the
@@ -100,39 +101,46 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 15. K9 (``w4a16_routed_gemm``, the routed-expert GEMV of MoE decode) against
    ``wna16_routed_matmul_ref`` at Mixtral-8x7B's expert shapes (4096 x 14336 and
    14336 x 4096, g128, 8 stacked experts), P in {1, 2, 8} pairs (8 with repeated
-   experts), bf16 (timed) and f32; P ``torch.matmul`` calls on pre-dequantized
-   bf16 experts are the library yardstick; a pair naming expert -1 or E writes
-   nothing, sets the flag and ``check=True`` raises.
+   experts): bf16 through the expert-major tensor-core GEMV (``_gemv``; bit-equal
+   on a second call, its plan), timed beside the SIMT routed kernel on the same
+   operands and beside the GEMV over a stack of the selected experts alone
+   (what the expert slices that exit at once cost); f32 through the SIMT
+   kernel; P ``torch.matmul`` calls on pre-dequantized bf16 experts are the
+   library yardstick; a pair naming expert -1 or E writes nothing, sets the flag
+   and ``check=True`` raises, through both kernels.
 16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint (all 32
    layers, about 24.6 GB) under ``build/chip_smoke/``, ``from_quantized`` on the
    default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
    decode of 128 tokens from a 16-token prompt twice (equal tokens; launch
-   counts set to 0 just before the first and read just after: K9 96, K2 32,
-   K1's GEMV 128 per decode token), a profile by kernel family through both
-   routes, and 64 tokens of beam 4 over the paged bf16 cache (K9 at P = 8, K7,
-   K8a, K8b).
+   counts set to 0 just before the first and read just after: K9's GEMV 96, no
+   SIMT routed kernel, K2 32, K1's GEMV 128 per decode token), a profile by
+   kernel family through both routes (no reduce, at most one K1 and one K9
+   kernel per call on the new one), and 64 tokens of beam 4 over the paged bf16
+   cache (K9's GEMV at P = 8, K7, K8a, K8b).
 17. Mixtral card against CPU on a 2-layer full-width cut, f32 on both sides
    (logits of a prefill and of a routed decode step), the share of the
    CPU's routing choices that an f32 and a bf16 card run make, and one
    layer's ``moe_mlp`` on the card in f32, routed (K9) and dense stacked
    against the expert list (K1).
 18. K6 (``w4a16_kb32l_gemm``, K1's function over the tile-contiguous kb32l
-   words, a cp.async ring in the decode regime) against its plain version at
-   the Llama-2-7B projection shapes, M in {1, 4, 16} (decode) and {128, 2048}
-   (tile), 4-bit g128 bf16, plus 3-bit, desc_act, bias, N = 1312 and f32 and
-   f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout (its
-   tensor-core GEMV and, at M <= 16, its SIMT GEMV), the
-   plain version and ``torch.matmul``; the decode plan (stages, tile bytes,
-   blocks, blocks per SM, weight bytes in flight per SM) and ptxas' registers
-   and spills. K10 over kb32l words at M = 64 and 2048.
+   words) against its plain version at the Llama-2-7B projection shapes, M in
+   {1, 4, 16} (decode: the tensor-core GEMV over the kb32l tiles, bit-equal on a
+   second call, beside its cp.async ring on the same words) and {128, 2048}
+   (tile), 4-bit g128 bf16, plus 3-bit, desc_act, bias, N = 1312 and f32 (the
+   ring) and f16 at M = 1; timed beside K1 on the same weights in the GPTQ
+   layout (its tensor-core GEMV and, at M <= 16, its SIMT GEMV), the plain
+   version and ``torch.matmul``; both decode plans (blocks, blocks per SM,
+   weight bytes in flight per SM) and ptxas' registers and spills. K10 over
+   kb32l words at M = 64 and 2048.
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
    model; 512 greedy tokens twice (counts set to 0 just before the first and
-   read just after: K6 7 x 32 per token, no K1); the share of tokens equal to
-   the main path's; a profile; a batch-2 generate whose 32-row prefill runs
-   K6's tile regime. On the 2-layer cut, kb32l in f32 on the card against
-   the CPU. On the 2-layer Mixtral cut, ``dx`` through a layer's routed
-   ``moe_mlp`` (K9 forward, K10 backward) on the card against the CPU.
+   read just after: K6's GEMV 7 x 32 per token, no ring, no K1); the share of
+   tokens equal to the main path's; a profile through both routes (the ring's
+   beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
+   the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
+   the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
+   SIMT kernel forward in f32, K10 backward) on the card against the CPU.
 20. Estimates K2's and K7's device time per token over a 512-token run from
    the sweeps, writes every measurement to ``build/chip_smoke.json`` and
    prints one JSON line of kernel measurements, the card's line, and last
@@ -309,14 +317,16 @@ def simt_matmul(gemm, qlin, x, layer):
                              kernel="simt")
 
 
-def gemv_plan_of(torch, gemm, dtype, k, n, m, gs, bits) -> dict:
+def gemv_plan_of(torch, gemm, dtype, k, n, m, gs, bits, library=None, experts=None) -> dict:
     """The decode GEMV's plan with its blocks per SM (the occupancy
     calculator) and the weight bytes in flight per SM: the blocks resident
     on an SM times the stages in flight per block (three of the ring's four,
-    or all of a shorter split) times a stage's bytes of words."""
+    or all of a shorter split) times a stage's bytes of words. ``library``
+    names K6's or K9's GEMV; ``experts`` (K9) the stack's E, ``m`` its P."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = gemm.gemv_plan(k, n, m, gs, bits, sms)
-    per_sm = gemm.gemv_blocks_per_sm(dtype, m, bits, plan["kc"])
+    plan = (gemm.gemv_plan(k, n, m, gs, bits, sms) if experts is None
+            else gemm.routed_plan(k, n, m, experts, gs, bits, sms))
+    per_sm = gemm.gemv_blocks_per_sm(dtype, m, bits, plan["kc"], library)
     resident = min(per_sm, -(-plan["blocks"] // sms))
     stages = min(gemm.GEMV_STAGES - 1, -(-plan["kc"] // plan["stage_k"]))
     plan.update(blocks_per_sm=per_sm,
@@ -429,7 +439,10 @@ def ptxas_report(name: str, key: str) -> list:
 
 def phase_k6(torch, np, timer) -> dict:
     """K6 against its plain version, timed beside K1 on the same weights in
-    the GPTQ layout, the plain version and torch.matmul; the decode plan."""
+    the GPTQ layout, the plain version and torch.matmul; at M <= 16 (bf16,
+    f16) its tensor-core GEMV over the kb32l tiles beside its cp.async ring
+    (``kernel="simt"``) on the same words, bit-equal on a second call, with
+    both plans; f32 takes the ring."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
@@ -460,9 +473,10 @@ def phase_k6(torch, np, timer) -> dict:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
         before = dict(build.launches)
         y = qlin.matmul(x, layer)
-        key = gemm.KB32L_KERNEL + (gemm.MMA_SUFFIX if gemm.tile_kernel(dtype, m, 128) == "mma"
-                                   else "")
-        check(build.launches[key] == before.get(key, 0) + 1
+        route = gemm.route(dtype, m, 128)
+        keys = [gemm.KB32L_KERNEL + suffix for suffix in ROUTE_SUFFIX.values()]
+        key = gemm.KB32L_KERNEL + ROUTE_SUFFIX[route]
+        check(all(build.launches[k6] == before.get(k6, 0) + (k6 == key) for k6 in keys)
               and all(build.launches[k1] == before.get(k1, 0)
                       for k1 in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv")),
               f"K6 {name} M={m}: launched {dict(build.launches)}")
@@ -476,14 +490,13 @@ def phase_k6(torch, np, timer) -> dict:
         check(torch.equal(qlin.matmul(x, layer), y), f"K6 {name} M={m}: not deterministic")
         w = qlin.logical_weight(layer, dtype)
         iters = 5 if m == TRAIN_M else 20
-        route = gemm.tile_kernel(dtype, m, 128)
         simt = {}
-        if route == "mma":     # K6's SIMT tile kernel on the same words
+        if route in ("mma", "gemv"):   # K6's ring or SIMT tile kernel on the same words
             ys = simt_matmul(gemm, qlin, x, layer)
             torch.cuda.synchronize()
             serr = (ys.float() - ref.float()).abs().max().item()
-            check(serr <= tol, f"K6 SIMT {name} M={m}: max |kernel - plain| = {serr:.3e} > "
-                               f"{tol:.3e}")
+            check(serr <= tol, f"K6 {'ring' if route == 'gemv' else 'SIMT'} {name} M={m}: max "
+                               f"|kernel - plain| = {serr:.3e} > {tol:.3e}")
             simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
                 lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
@@ -494,25 +507,32 @@ def phase_k6(torch, np, timer) -> dict:
         lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=iters)
         b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
                                      layer.kperm, layer.bias), 2.0 * m * k * n)
-        plan = gemm.kb32l_plan(k, n, m, 128, sms)
+        plan = gemm.kb32l_plan(k, n, m, 128, sms)   # the ring's (f32, or kernel="simt")
         if plan["regime"] == "decode":
             per_sm = gemm.kb32l_blocks_per_sm(dtype, m, 128, plan["tiles_per_split"])
             resident = min(per_sm, -(-plan["blocks"] // sms))
             plan.update(nbuf=gemm.KB32L_NBUF, blocks_per_sm=per_sm,
                         weight_bytes_in_flight_per_sm=resident * min(
                             gemm.KB32L_NBUF, plan["tiles_per_split"]) * plan["stage_bytes"])
+        if route == "gemv":
+            check(torch.equal(qlin.matmul(x, layer), y), f"K6 GEMV {name} M={m}: a second "
+                                                         "call differs")
+            simt["gemv_plan"] = gemv_plan_of(torch, gemm, dtype, k, n, m, 128, bits,
+                                             library=gemm.KB32L_KERNEL)
         rows.append(dict(case=name, K=k, N=n, M=m, bits=bits, desc_act=desc_act,
                          bias=with_bias, dtype=str(dtype), route=route, max_abs_err=err,
                          max_abs_ref=scale, tol=tol, ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, plan=plan, **simt))
         print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} {route:4s} err "
               f"{err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms"
-              + (f"  SIMT tile {simt['simt_ms']:.4f} ms" if "simt_ms" in simt else "")
+              + (f"  {'ring' if route == 'gemv' else 'SIMT tile'} {simt['simt_ms']:.4f} ms"
+                 if "simt_ms" in simt else "")
               + f"  K1 {k1_ms:.4f} ms"
               + (f" (SIMT GEMV {simt['k1_simt_ms']:.4f} ms)" if "k1_simt_ms" in simt else "")
               + f"  plain {plain_ms:.4f} ms  "
-              f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plan {plan}",
-              flush=True)
+              f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+              + (f"GEMV plan {simt['gemv_plan']}  ring " if "gemv_plan" in simt else "")
+              + f"plan {plan}", flush=True)
         del layer, gptq, w
     ptxas = ptxas_report(gemm.KB32L_KERNEL, "kb32l")
     print("K6 ptxas: " + "; ".join(f"{r['function']}: {r['registers']} registers, spill "
@@ -719,13 +739,17 @@ def mma_ptxas() -> list:
 
 def gemv_ptxas() -> list:
     """ptxas' registers and spills of every tensor-core GEMV instance (bits x
-    activation type x 8 or 16 rows); a spill fails the run."""
+    activation type x 8 or 16 rows over GPTQ words; K6's over kb32l tiles and
+    K9's routed one, activation type x 8 or 16 rows); a spill fails the run."""
     out = []
-    for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm"):
-        for r in ptxas_report(name, "wna16_gemv_kernel"):
+    for name, key in (("w4a16_gemm", "wna16_gemv_kernel"), ("w8a16_gemm", "wna16_gemv_kernel"),
+                      ("w2a16_gemm", "wna16_gemv_kernel"),
+                      ("w4a16_kb32l_gemm", "kb32l_gemv_kernel"),
+                      ("w4a16_routed_gemm", "routed_gemv_kernel")):
+        for r in ptxas_report(name, key):
             r.update(library=name)
             out.append(r)
-    check(len(out) == 12, f"{len(out)} GEMV instances in the ptxas logs, want 12")
+    check(len(out) == 20, f"{len(out)} GEMV instances in the ptxas logs, want 20")
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
@@ -753,7 +777,7 @@ def phase_k10(torch, np, timer) -> list:
         layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
         w = qlin.logical_weight(layer, torch.bfloat16)
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
-        for m in (10, 17, 128, TRAIN_M):
+        for m in (10, 16, 17, 128, TRAIN_M):
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
             route = gemm.tile_kernel(g.dtype, m, gs)
             key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
@@ -852,7 +876,12 @@ def phase_k10(torch, np, timer) -> list:
 
 
 def phase_k9(torch, np, timer) -> list:
-    """K9 against its plain version at Mixtral-8x7B's expert shapes, E = 8."""
+    """K9 against its plain version at Mixtral-8x7B's expert shapes, E = 8:
+    bf16 through the expert-major tensor-core GEMV (bit-equal on a second
+    call, with its plan), held and timed beside the SIMT routed kernel
+    (``kernel="simt"``) on the same operands; f32 through the SIMT kernel. At
+    every P the GEMV also over a stack of only the selected experts: the time
+    the expert slices that exit at once cost (none at P <= 2)."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -867,24 +896,50 @@ def phase_k9(torch, np, timer) -> list:
         for p, ids in K9_SELS.items():
             sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
             x = torch.randn((p, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-            before = build.launches[gemm.ROUTED_KERNEL]
+            key = gemm.ROUTED_KERNEL + gemm.GEMV_SUFFIX
+            before = dict(build.launches)
             y = qlin.matmul_routed(x, sql, sel)
-            check(build.launches[gemm.ROUTED_KERNEL] == before + 1, f"K9 {name} P={p}: not launched")
+            check(build.launches[key] == before.get(key, 0) + 1
+                  and build.launches[gemm.ROUTED_KERNEL] == before.get(gemm.ROUTED_KERNEL, 0),
+                  f"K9 {name} P={p}: launched {dict(build.launches)}")
             ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, 128)
+
+            def simt():
+                return gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 128,
+                                                check=False, kernel="simt")
+            ys = simt()
             y32 = qlin.matmul_routed(x.float(), sql, sel)
             ref32 = gemm.wna16_routed_matmul_ref(x.float(), sel, sql.qweight, sql.scales,
                                                  sql.zeros, 128)
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
+            serr = (ys.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             err32 = (y32 - ref32).abs().max().item()
             check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(y32).all()),
                   f"K9 {name} P={p}: non-finite output")
-            check(err <= K1_REL_TOL * scale, f"K9 {name} P={p} bf16: max |kernel - plain| = "
-                                             f"{err:.3e} > {K1_REL_TOL} * {scale:.3e}")
+            check(err <= K1_REL_TOL * scale and serr <= K1_REL_TOL * scale,
+                  f"K9 {name} P={p} bf16: max |kernel - plain| = {err:.3e} (SIMT {serr:.3e}) > "
+                  f"{K1_REL_TOL} * {scale:.3e}")
             check(err32 <= F32_ABS_TOL * max(1.0, scale),
                   f"K9 {name} P={p} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            check(torch.equal(qlin.matmul_routed(x, sql, sel), y), f"K9 GEMV {name} P={p}: a "
+                                                                   "second call differs")
             ms = timer.ms(lambda: qlin.matmul_routed(x, sql, sel, check=False))
+            simt_ms = timer.ms(simt)
+            # the same work over a stack of the selected experts alone: no slice exits at once
+            distinct = sorted(set(ids))
+            own = qlin.StackedQuantLinear(
+                qweight=sql.qweight[distinct].contiguous(),
+                scales=sql.scales[distinct].contiguous(),
+                zeros=sql.zeros[distinct].contiguous(), bias=None, bits=4, group_size=128,
+                in_features=k, out_features=n)
+            own_sel = torch.tensor([distinct.index(i) for i in ids], dtype=torch.int32,
+                                   device="cuda")
+            check(torch.equal(qlin.matmul_routed(x, own, own_sel), y),
+                  f"K9 GEMV {name} P={p}: the selected experts' own stack differs")
+            own_ms = timer.ms(lambda: qlin.matmul_routed(x, own, own_sel, check=False))
+            del own
             plain_ms = timer.ms(lambda: gemm.wna16_routed_matmul_ref(
                 x, sel, sql.qweight, sql.scales, sql.zeros, 128), iters=5, warmup=1)
             # no single PyTorch call computes a routed product without a gather: P
@@ -893,13 +948,18 @@ def phase_k9(torch, np, timer) -> list:
             # the least the card could move: each selected expert once, x, y and sel
             b_ms, b_by = bound_ms(len(set(ids)) * per_expert + nbytes(x, y, sel),
                                   2.0 * p * k * n)
+            plan = gemv_plan_of(torch, gemm, torch.bfloat16, k, n, p, 128, 4,
+                                library=gemm.ROUTED_KERNEL, experts=8)
             rows.append(dict(case=name, K=k, N=n, P=p, sel=ids, max_abs_err=err,
-                             max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                             simt_max_abs_err=serr, max_abs_ref=scale, max_abs_err_f32=err32,
+                             ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by, plan=plan, selected_only_ms=own_ms))
             print(f"K9 {name:8s} K={k:5d} N={n:5d} E=8 P={p} sel={ids}  bf16 err {err:.3e} "
-                  f"(tol {K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
-                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  {p} x torch.matmul "
-                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"(SIMT {serr:.3e}; tol {K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol "
+                  f"{F32_ABS_TOL})  GEMV {ms:.4f} ms (over the selected experts' own stack "
+                  f"{own_ms:.4f} ms)  SIMT {simt_ms:.4f} ms  plain {plain_ms:.4f} ms  {p} x "
+                  f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  plan {plan}",
+                  flush=True)
         if name == "gate_up":
             refuse_bad_experts(torch, gemm, sql, gen)
         del sql, dense
@@ -909,31 +969,36 @@ def phase_k9(torch, np, timer) -> list:
 
 def refuse_bad_experts(torch, gemm, sql, gen) -> None:
     """A pair naming expert -1 or E writes nothing and sets the flag; the good
-    pairs of the same launch are right; check=True raises ValueError."""
+    pairs of the same launch are right; check=True raises ValueError: through
+    the routed GEMV and the SIMT routed kernel."""
     x = torch.randn((3, sql.in_features), generator=gen, device="cuda", dtype=torch.bfloat16)
-    for bad in (-1, sql.num_experts):
+    for bad, kernel in ((-1, None), (sql.num_experts, None), (-1, "simt"),
+                        (sql.num_experts, "simt")):
         sel = torch.tensor([2, bad, 6], dtype=torch.int32, device="cuda")
         out = torch.full((3, sql.out_features), 7.0, device="cuda", dtype=torch.bfloat16)
         gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 128, check=False,
-                                 out=out)
+                                 out=out, kernel=kernel)
         torch.cuda.synchronize()
-        check(bool((out[1] == 7.0).all()), f"K9 expert id {bad}: its row was written")
+        check(bool((out[1] == 7.0).all()),
+              f"K9 {kernel or 'GEMV'} expert id {bad}: its row was written")
         good = torch.tensor([0, 2], device="cuda")
         ref = gemm.wna16_routed_matmul_ref(x[good], sel[good], sql.qweight, sql.scales,
                                            sql.zeros, 128)
         check((out[good].float() - ref.float()).abs().max().item()
               <= K1_REL_TOL * ref.float().abs().max().item(),
-              f"K9 expert id {bad}: the good pairs of the launch are wrong")
+              f"K9 {kernel or 'GEMV'} expert id {bad}: the good pairs of the launch are wrong")
         for what, call in (("flag", lambda: gemm.check_routed_errors("cuda")),
                            ("check=True", lambda: gemm.wna16_routed_matmul(
-                               x, sel, sql.qweight, sql.scales, sql.zeros, 128))):
+                               x, sel, sql.qweight, sql.scales, sql.zeros, 128, kernel=kernel))):
             try:
                 call()
             except ValueError:
                 continue
-            raise SmokeFailure(f"K9 expert id {bad}: {what} raised no ValueError")
-    print("K9 bad expert ids (-1 and E): the pair's row is left as it was, the other pairs of "
-          "the launch are right, the flag is set and check=True raises ValueError", flush=True)
+            raise SmokeFailure(f"K9 {kernel or 'GEMV'} expert id {bad}: {what} raised no "
+                               "ValueError")
+    print("K9 bad expert ids (-1 and E), routed GEMV and SIMT routed kernel: the pair's row is "
+          "left as it was, the other pairs of the launch are right, the flag is set and "
+          "check=True raises ValueError", flush=True)
 
 
 def boundary_cost(torch, np) -> dict:
@@ -1861,8 +1926,11 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     again = model.generate(prompt, max_new_tokens=NEW_TOKENS)
     again_s = time.perf_counter() - t0
     steps = NEW_TOKENS - 1
-    # the 16-token prefill (M = 16) and every decode step (M = 1): 7 K6 launches per layer
-    want_counts = {gemm.KB32L_KERNEL: 7 * layers * (steps + 1), "flash_decode": layers * steps}
+    # the 16-token prefill (M = 16) and every decode step (M = 1): 7 launches per layer of
+    # K6's tensor-core GEMV, none of its ring (so no split-K reduce either)
+    gemv_key = gemm.KB32L_KERNEL + gemm.GEMV_SUFFIX
+    want_counts = {gemv_key: 7 * layers * (steps + 1), gemm.KB32L_KERNEL: 0,
+                   "flash_decode": layers * steps}
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"kb32l output shape {out.shape}")
     check(bool(((new >= 0) & (new < vocab)).all()), "kb32l token ids out of range")
@@ -1882,12 +1950,14 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
           f"tokens: loaded in {load_s:.1f} s (peak {load_peak / 2**30:.2f} GiB), prefill logits "
           f"vs the GPTQ layout rel err {prefill_rel:.3e} (tol {KB32L_E2E_REL_TOL}), generate "
           f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches per decode token: K6 "
-          f"{(counts.get(gemm.KB32L_KERNEL, 0) - 7 * layers) / steps:.0f}, K2 "
+          f"{peak / 2**30:.2f} GiB; launches per decode token: K6's GEMV "
+          f"{(counts.get(gemv_key, 0) - 7 * layers) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, K1 0; {100 * same:.1f}% of the tokens "
           f"equal to the main path's (the first {agree} in a row); launches {counts}", flush=True)
-    profile = profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
-                               "kb32l batch-1 generate", PROFILE_TOKENS, families=KB32L_FAMILIES)
+    profile = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+                             "kb32l batch-1 generate", PROFILE_TOKENS,
+                             checked=(("K6 w4a16_kb32l_gemm", gemm.KB32L_KERNEL),),
+                             families=KB32L_FAMILIES)
 
     prompts = [np.arange(PROMPT_LEN) % 1000 + 1, np.arange(PROMPT_LEN) + 100]
     build.launches.clear()
@@ -1896,11 +1966,13 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     check(out2.shape == (2, PROMPT_LEN + 16), f"kb32l batch-2 output shape {out2.shape}")
     check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
     check(counts2.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
-          and counts2.get(gemm.KB32L_KERNEL, 0) == 7 * layers * 15
+          and counts2.get(gemv_key, 0) == 7 * layers * 15
+          and not counts2.get(gemm.KB32L_KERNEL, 0)
           and not any(counts2.get("w4a16_gemm" + suffix, 0) for suffix in ROUTE_SUFFIX.values()),
           f"kb32l batch-2 launches {counts2}")
     print(f"kb32l batch 2, two {PROMPT_LEN}-token prompts (a {2 * PROMPT_LEN}-row prefill: K6's "
-          f"tile regime, the tensor-core kernel), 16 new tokens: shape {out2.shape}, launches "
+          f"tile regime, the tensor-core kernel; 2-row decode steps: its GEMV), 16 new tokens: "
+          f"shape {out2.shape}, launches "
           f"{counts2}", flush=True)
     del model
     torch.cuda.empty_cache()
@@ -1931,7 +2003,10 @@ def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
             dec, _ = forward(model.params, nxt.to(device), model.cfg, cache=cache)
         if device == "cuda":
             torch.cuda.synchronize()
+            card_launches = dict(build.launches)
+            # f32 takes K6's ring in both forwards (prefill M = 16, decode M = 1)
             check(build.launches[gemm.KB32L_KERNEL] == 2 * 7 * 2 and
+                  not build.launches[gemm.KB32L_KERNEL + gemm.GEMV_SUFFIX] and
                   not any(build.launches["w4a16_gemm" + suffix] for suffix in ROUTE_SUFFIX.values()),
                   f"kb32l cut launched {dict(build.launches)}")
         results[device] = (pre.float().cpu(), dec.float().cpu())
@@ -1944,9 +2019,10 @@ def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
         check(bool(torch.isfinite(card).all()) and rel <= KB32L_CUT_F32_REL_TOL,
               f"kb32l {name} logits: card f32 vs CPU relative error {rel:.3e} > "
               f"{KB32L_CUT_F32_REL_TOL}")
-    print("kb32l card (f32, K6) vs CPU (f32, plain), 2 full-width layers: "
+    print("kb32l card (f32, K6's ring) vs CPU (f32, plain), 2 full-width layers: "
           + ", ".join(f"{k} rel err {v['rel_err']:.3e} max abs {v['max_abs_err']:.3e}"
                       for k, v in rows.items()) + f" (tol {KB32L_CUT_F32_REL_TOL})", flush=True)
+    rows["card launches"] = card_launches
     return rows
 
 
@@ -2032,17 +2108,21 @@ KERNEL_INSTANCES = (("K1 tensor-core GEMV", "wna16_gemv_kernel"),
                     ("K1 SIMT tile", "wna16_prefill_kernel"),
                     ("K1 GEMV", "wna16_decode_kernel"), ("K1 split-K reduce", "splitk_reduce"),
                     ("K10 tensor-core", "wna16_t_mma_kernel"), ("K10 SIMT", "wna16_t_kernel"))
-# K9 is routed_{decode,reduce}_kernel<T>.
+# K9 is routed_gemv_kernel<T, MT> (the tensor-core GEMV) or routed_{decode,reduce}_kernel<T>.
 FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
-            ("K9 w4a16_routed_gemm", ("routed_decode", "routed_reduce")),
+            ("K9 w4a16_routed_gemm", ("routed_gemv", "routed_decode", "routed_reduce")),
             ("K2 flash_decode", ("flash_decode",)),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
-# K6 is kb32l_decode_kernel<T, MT>, K1's splitk_reduce_kernel<T> and, above 16 rows,
+# K6 is kb32l_gemv_kernel<T, MT> (bf16/f16 at M <= 16), kb32l_decode_kernel<T, MT> with K1's
+# splitk_reduce_kernel<T> (the ring) and, above 16 rows, wna16_mma_kernel<4, T, Kb32lWords> or
 # wna16_prefill_kernel<4, T, Kb32lWords>: in a model loaded with layout="kb32l" K1 never
 # launches (the kb32l path checks it), so K1's names count as K6 there.
 KB32L_FAMILIES = (("K6 w4a16_kb32l_gemm", ("kb32l", "Kb32l") + K1_KEYS),
                   ("K2 flash_decode", ("flash_decode",)))
+
+
+REDUCE_KERNELS = ("splitk_reduce", "routed_reduce")   # the SIMT kernels' split-K reduces
 
 
 def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
@@ -2063,7 +2143,7 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
     kernels = reduces = 0
     for evt in run["kernels"]:
         kernels += 1
-        reduces += "splitk_reduce" in evt.name
+        reduces += any(r in evt.name for r in REDUCE_KERNELS)
         us = evt.time_range.elapsed_us()
         family = next((name for name, keys in families if any(k in evt.name for k in keys)),
                       "other")
@@ -2093,31 +2173,36 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
 
 
 def compare_routes(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
-                   tokens: int, **gen_kwargs) -> dict:
-    """The profile of a short generate as the model runs it (K1/K4/K5 through
-    the tensor-core GEMV), then the same generate with every quantized matmul
-    forced through the SIMT kernels (``gemm.forced_kernel``). The new route's
-    profile must hold no split-K reduce and at most one K1 kernel per call (the
+                   tokens: int, checked=(("K1 w4a16_gemm", "w4a16_gemm"),), families=FAMILIES,
+                   **gen_kwargs) -> dict:
+    """The profile of a short generate as the model runs it (K1/K4/K5, K6 and
+    K9 through their tensor-core GEMVs), then the same generate with every
+    quantized matmul forced through the SIMT kernels (``gemm.forced_kernel``:
+    K6's ring, the SIMT routed kernel). The new route's profile must hold no
+    split-K reduce and, for each (family, launch-count key prefix) of
+    ``checked``, at most one of the family's kernels per wrapper call (the
     wrappers' count), and the new route must take less device time per token.
     The totals and the SIMT route's reduces are reported beside: the profiler
     drops records (see PROFILER_WARMUP_LAUNCHES), so they are not held."""
     from autogptq_tpu_torch.ops import gemm
 
     new = profile_generate(torch, model, prompt, unprofiled_ms_per_token, label, tokens,
-                           **gen_kwargs)
+                           families=families, **gen_kwargs)
     with gemm.forced_kernel("simt"):
         old = profile_generate(torch, model, prompt, unprofiled_ms_per_token,
-                               label + ", SIMT route", tokens, **gen_kwargs)
+                               label + ", SIMT route", tokens, families=families, **gen_kwargs)
     if not new or not old:
         return dict(gemv=new, simt=old)
-    k1 = "K1 w4a16_gemm"
 
-    def calls(p):   # K1 wrapper calls in the profiled generate
-        return sum(n for key, n in p["launches"].items() if key.startswith("w4a16_gemm"))
+    def calls(p, prefix):   # wrapper calls of a family in the profiled generate
+        return sum(n for key, n in p["launches"].items() if key.startswith(prefix))
 
-    check(new["splitk_reduces"] == 0 and 0 < new["family_kernels"][k1] <= calls(new),
-          f"{label}: {new['family_kernels'][k1]} K1 kernels and {new['splitk_reduces']} reduces "
-          f"for {calls(new)} calls ({new['launches']})")
+    for family, prefix in checked:
+        check(new["splitk_reduces"] == 0
+              and 0 < new["family_kernels"][family] <= calls(new, prefix),
+              f"{label}: {new['family_kernels'][family]} {family} kernels and "
+              f"{new['splitk_reduces']} reduces for {calls(new, prefix)} calls "
+              f"({new['launches']})")
     folded = old["kernels"] - old["splitk_reduces"] - new["kernels"]
     check(new["device_ms_per_token"] < old["device_ms_per_token"],
           f"{label}: device {new['device_ms_per_token']:.3f} ms/token, SIMT route "
@@ -2125,9 +2210,10 @@ def compare_routes(torch, model, prompt, unprofiled_ms_per_token: float, label: 
     print(f"{label}: {new['kernels_per_token']:.1f} kernels/token, {new['kernels']} in all "
           f"({old['kernels_per_token']:.1f} through the SIMT route, {old['kernels']} in all, of "
           f"which {old['splitk_reduces']} split-K reduces; difference {folded} after the "
-          f"reduces; K1: "
-          f"{calls(new)} calls, {new['family_kernels'][k1]} kernels; SIMT route {calls(old)} "
-          f"calls, {old['family_kernels'][k1]} kernels), device "
+          f"reduces; " + "; ".join(
+              f"{family}: {calls(new, prefix)} calls, {new['family_kernels'][family]} kernels; "
+              f"SIMT route {calls(old, prefix)} calls, {old['family_kernels'][family]} kernels"
+              for family, prefix in checked) + "), device "
           f"{new['device_ms_per_token']:.3f} ms/token (SIMT route "
           f"{old['device_ms_per_token']:.3f})", flush=True)
     return dict(gemv=new, simt=old)
@@ -2235,8 +2321,10 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     again_s = time.perf_counter() - t0
     steps = new_tokens - 1
     # prefill: 16 tokens x top-2 = 32 pairs > 8 experts, the dense path (24 K1 per layer);
-    # every decode step: 2 pairs, routed, 3 K9 per layer; attention's 4 projections on K1
-    want = {"w4a16_routed_gemm": 3 * layers * steps, "flash_decode": layers * steps,
+    # every decode step: 2 pairs, routed, 3 of K9's tensor-core GEMV per layer and no SIMT
+    # routed kernel (so no routed reduce); attention's 4 projections on K1
+    want = {"w4a16_routed_gemm_gemv": 3 * layers * steps, "w4a16_routed_gemm": 0,
+            "flash_decode": layers * steps,
             "w4a16_gemm_gemv": (4 + 24) * layers + 4 * layers * steps, "w4a16_gemm": 0}
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + new_tokens), f"Mixtral output shape {out.shape}")
@@ -2253,12 +2341,14 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
           f"in {write_s:.1f} s, from_quantized + stack_moe_experts {load_s:.1f} s (peak "
           f"{load_peak / 2**30:.2f} GiB, resident {resident / 2**30:.2f} GiB), generate "
           f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches per decode token: K9 "
-          f"{counts.get('w4a16_routed_gemm', 0) / steps:.0f}, K2 "
+          f"{peak / 2**30:.2f} GiB; launches per decode token: K9's GEMV "
+          f"{counts.get('w4a16_routed_gemm_gemv', 0) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, "
           f"K1 {4 * layers}; launches {counts}", flush=True)
     profile = compare_routes(torch, model, prompt, 1e3 * gen_s / new_tokens,
-                             "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS)
+                             "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS,
+                             checked=(("K1 w4a16_gemm", "w4a16_gemm"),
+                                      ("K9 w4a16_routed_gemm", "w4a16_routed_gemm")))
 
     build.launches.clear()
     t0 = time.perf_counter()
@@ -2266,7 +2356,7 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     beam_s = time.perf_counter() - t0
     beam_counts = dict(build.launches)
     bsteps = MIXTRAL_BEAM_TOKENS - 1
-    need = {"w4a16_routed_gemm": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps,
+    need = {"w4a16_routed_gemm_gemv": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps,
             "write_token_pages": layers * bsteps, "copy_pages_pair": bsteps}
     check(outb.shape == (1, PROMPT_LEN + MIXTRAL_BEAM_TOKENS), f"Mixtral beam shape {outb.shape}")
     check(bool(((outb[:, PROMPT_LEN:] >= 0) & (outb[:, PROMPT_LEN:] < cfg["vocab_size"])).all()),
@@ -2274,7 +2364,9 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     for name, n in need.items():
         check(beam_counts.get(name, 0) >= n, f"Mixtral beam: {name} launched "
                                              f"{beam_counts.get(name, 0)} times, need >= {n}")
-    print(f"Mixtral beam {BEAMS} (8 pairs per step, K9 at P = 8), paged bf16 cache, "
+    check(not beam_counts.get("w4a16_routed_gemm", 0), f"Mixtral beam launched the SIMT routed "
+                                                       f"kernel: {beam_counts}")
+    print(f"Mixtral beam {BEAMS} (8 pairs per step, K9's GEMV at P = 8), paged bf16 cache, "
           f"{MIXTRAL_BEAM_TOKENS} new tokens: {beam_s:.3f} s = "
           f"{MIXTRAL_BEAM_TOKENS / beam_s:.2f} seq-tok/s, launches {beam_counts}", flush=True)
     del model
@@ -2329,9 +2421,12 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                 pre, cache = arch.forward(model.params, tokens.to(device), model.cfg, cache=cache)
                 build.launches.clear()
                 dec, _ = arch.forward(model.params, nxt.to(device), model.cfg, cache=cache)
-                if device == "cuda":
+                if device == "cuda":   # f32: the SIMT routed kernel; bf16: the routed GEMV
                     torch.cuda.synchronize()
-                    check(build.launches["w4a16_routed_gemm"] == 3 * 2,
+                    key, other = "w4a16_routed_gemm", "w4a16_routed_gemm_gemv"
+                    if dtype == torch.bfloat16:
+                        key, other = other, key
+                    check(build.launches[key] == 3 * 2 and not build.launches[other],
                           f"{run}: the decode step launched {dict(build.launches)}")
         finally:
             arch.top_k = real_top_k
@@ -2534,6 +2629,7 @@ def main() -> int:
                         k1_library_ms=layer_sum(k1_rows, "library_ms", m),
                         k1_bound_ms=layer_sum(k1_rows, "bound_ms", m),
                         k6_ms=layer_sum(k6_bf16, "ms", m),
+                        k6_ring_ms=layer_sum(k6_bf16, "simt_ms", m),
                         k6_k1_ms=layer_sum(k6_bf16, "k1_ms", m),
                         k6_k1_simt_ms=layer_sum(k6_bf16, "k1_simt_ms", m),
                         k6_library_ms=layer_sum(k6_bf16, "library_ms", m))
@@ -2545,7 +2641,9 @@ def main() -> int:
     print("one Llama-2-7B layer's 7 projections, 4-bit g128 bf16, decode regime: " + "; ".join(
         f"M = {m}: K1's GEMV {v['k1_ms']:.4f} ms, the SIMT GEMV {v['k1_simt_ms']:.4f} ms, "
         f"torch.matmul {v['k1_library_ms']:.4f} ms, bound {v['k1_bound_ms']:.4f} ms (K1 phase); "
-        f"K6 {v['k6_ms']:.4f} ms, K1's GEMV {v['k6_k1_ms']:.4f} ms, the SIMT GEMV "
+        f"K6's GEMV {v['k6_ms']:.4f} ms ({100 * v['k6_ms'] / v['k6_k1_ms'] - 100:+.1f}% against "
+        f"K1's), K6's ring {v['k6_ring_ms']:.4f} ms, K1's GEMV {v['k6_k1_ms']:.4f} ms, the SIMT "
+        f"GEMV "
         f"{v['k6_k1_simt_ms']:.4f} ms, torch.matmul {v['k6_library_ms']:.4f} ms (K6 phase)"
         for m, v in decode_m.items() if isinstance(m, int)) + "; at M = 1, g128: " + "; ".join(
         f"{m}: the GEMV {v['gemv_ms']:.4f} ms, the SIMT GEMV {v['simt_ms']:.4f} ms, torch.matmul "
@@ -2576,6 +2674,19 @@ def main() -> int:
 
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
                 and not r["desc_act"]]
+    k10_m16 = {key: layer_sum(k10_g128, key, 16) for key in ("ms", "library_ms", "bound_ms")}
+    print(f"K10's SIMT kernel at M = 16 (bf16 cotangents, 4-bit g128), one Llama-2-7B layer's 7 "
+          f"projections: {k10_m16['ms']:.4f} ms, torch.matmul {k10_m16['library_ms']:.4f} ms, "
+          f"bound {k10_m16['bound_ms']:.4f} ms", flush=True)
+    k9_layer = {p: {key: mixtral_layer_sum(k9_rows, key, p) for key in
+                    ("ms", "selected_only_ms", "simt_ms", "bound_ms", "library_ms")}
+                for p in K9_SELS}
+    print("one Mixtral-8x7B layer's gate, up and down, bf16: " + "; ".join(
+        f"P = {p}: K9's GEMV {v['ms']:.4f} ms (over a stack of the selected experts alone "
+        f"{v['selected_only_ms']:.4f} ms), the SIMT routed kernel {v['simt_ms']:.4f} ms, "
+        f"{p} x torch.matmul "
+        f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms" for p, v in k9_layer.items()),
+        flush=True)
 
     at = "one Llama-2-7B decoder layer's 7 projections at M=1, g128"
     simt_at = (at + "; the SIMT kernels (split-K GEMV, with its reduce, and SIMT tile kernel) "
@@ -2673,27 +2784,50 @@ def main() -> int:
               "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows, k8b_main,
               "4 pages x 32 layers x 2 bf16 pools (one beam-4 step), check=False as on the "
               "beam path; launches from the 512-token beam-4 run"),
-        gemm_entry("w4a16_kb32l_gemm", "autogptq_tpu/ops/pallas/gemm.py:692", kb32l["counts"],
-                   [r for r in k6["rows"] if r["case"] in LAYER_SHAPES], at + "; the same "
-                   f"function over the tile-contiguous kb32l words, a cp.async ring at M <= 16 "
-                   f"(replaces _kernel_kb32l_manual :692 and _matmul_kb32l :635); launches from "
-                   f"the {NEW_TOKENS}-token greedy run of the model loaded with layout='kb32l'; "
-                   f"max_abs_err over every K6 case of the GEMV and the SIMT tile kernel",
+        gemm_entry("w4a16_kb32l_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:692",
+                   kb32l["counts"], k6_bf16, at + "; K6's tensor-core GEMV over the "
+                   f"tile-contiguous kb32l words, bf16 (replaces _kernel_kb32l_manual :692); "
+                   f"launches from the {NEW_TOKENS}-token greedy run of the model loaded with "
+                   f"layout='kb32l'; max_abs_err over every K6 GEMV case",
+                   source="autogptq_tpu_torch/ops/csrc/w4a16_kb32l_gemm.cu",
+                   errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "gemv"]),
+        gemm_entry("w4a16_kb32l_gemm", "autogptq_tpu/ops/pallas/gemm.py:692",
+                   kb32l_cut["card launches"], k6_bf16, at + "; K6's cp.async ring over the "
+                   f"kb32l words (f32 activations, and its SIMT tile kernel above 16 rows), timed "
+                   f"on the bf16 operands beside the GEMV (kernel='simt'); launches from the f32 "
+                   f"forwards of the kb32l 2-layer card-vs-CPU cut; max_abs_err over every K6 "
+                   f"case of the ring and the SIMT tile kernel", ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "simt"]
                    + [r["simt_max_abs_err"] for r in k6["rows"] if "simt_ms" in r]),
-        dict(name="w4a16_routed_gemm", route="cuda",
+        dict(name="w4a16_routed_gemm_gemv", route="cuda",
              source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:894",
-             launches=mixtral["counts"].get("w4a16_routed_gemm", 0),
+             launches=mixtral["counts"].get("w4a16_routed_gemm_gemv", 0),
              max_abs_err=max(r["max_abs_err"] for r in k9_rows),
              **{key: mixtral_layer_sum(k9_rows, key) for key in
                 ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in k9_rows if r["P"] == 2)
                        else "operations"),
-             at=f"one Mixtral-8x7B layer's 3 expert projections at P=2 (batch-1 decode, top-2 of "
-                f"8), g128, bf16; library: 2 torch.matmul per call on pre-dequantized bf16 "
-                f"experts; launches from the {MIXTRAL_NEW_TOKENS}-token greedy run at "
-                f"{MIXTRAL_LAYERS} layers; max_abs_err over every K9 case"),
+             at=f"K9's expert-major tensor-core GEMV: one Mixtral-8x7B layer's 3 expert "
+                f"projections at P=2 (batch-1 decode, top-2 of 8), g128, bf16; library: 2 "
+                f"torch.matmul per call on pre-dequantized bf16 experts; launches from the "
+                f"{MIXTRAL_NEW_TOKENS}-token greedy run at {MIXTRAL_LAYERS} layers; max_abs_err "
+                f"over every K9 GEMV case"),
+        dict(name="w4a16_routed_gemm", route="cuda",
+             source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
+             replaces="autogptq_tpu/ops/pallas/gemm.py:894",
+             launches=mixtral_cut["routed_grad"]["launches"].get("w4a16_routed_gemm", 0),
+             max_abs_err=max(r["simt_max_abs_err"] for r in k9_rows),
+             ms=mixtral_layer_sum(k9_rows, "simt_ms"),
+             **{key: mixtral_layer_sum(k9_rows, key) for key in
+                ("plain_ms", "bound_ms", "library_ms")},
+             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in k9_rows if r["P"] == 2)
+                       else "operations"),
+             at=f"K9's SIMT routed kernel and its reduce (f32 activations, the group sizes 16 "
+                f"does not divide): one Mixtral-8x7B layer's 3 expert projections at P=2, g128, "
+                f"bf16, timed beside the GEMV on the same operands (kernel='simt'); launches "
+                f"from the f32 routed moe_mlp gradient check of the 2-layer Mixtral cut; "
+                f"max_abs_err over every K9 case it ran in bf16"),
     ]
     for e in kernels:   # every kernel of the line ran on its path
         check(e["launches"] > 0, f"{e['name']} was launched no time on its path: {e['at']}")
@@ -2707,7 +2841,7 @@ def main() -> int:
                        quantize=quantize, main_batch2=batch2_launches,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
-                       decode_layer_ms=decode_m,
+                       decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
                        beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,

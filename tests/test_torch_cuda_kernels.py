@@ -46,11 +46,11 @@ KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_g
 
 def _key(name, dtype, m, k, gs):
     """The launch-count key of library ``name`` for a product of ``m`` rows:
-    its tensor-core GEMV's (K1/K4/K5 forward, ``gemm.route``), its
+    its tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``), its
     tensor-core tile kernel's or its SIMT kernels' (``gemm.tile_kernel`` for
-    K6 and K10)."""
+    K10)."""
     gs = k if gs == -1 else gs
-    if name in KERNEL_OF_BITS.values():
+    if name in KERNEL_OF_BITS.values() or name == qlin.gemm.KB32L_KERNEL:
         route = qlin.gemm.route(dtype, m, gs)
     else:
         route = qlin.gemm.tile_kernel(dtype, m, gs)
@@ -592,12 +592,14 @@ def expert_stacks():
 K9_SELS = {1: [5], 2: [3, 6], 8: [0, 7, 7, 2, 0, 5, 1, 7]}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("p", [1, 2, 8])
 @pytest.mark.parametrize("shape", [(4096, 14336, 128), (14336, 4096, 128), (1024, 1000, 32)])
 def test_k9_matches_plain(card, expert_stacks, dtype, p, shape):
-    """K9 (routed-expert GEMV) at the decode pair counts of Mixtral (P = 2 at
-    batch 1, P = 8 at beam 4, with repeated experts)."""
+    """K9 at the decode pair counts of Mixtral (P = 2 at batch 1, P = 8 at
+    beam 4, with repeated experts): bf16 and f16 through the expert-major
+    tensor-core GEMV (one launch, no SIMT routed kernel, bit-equal on a second
+    call), f32 through the SIMT routed kernel."""
     from autogptq_tpu_torch.ops import gemm
 
     sql = expert_stacks[shape]
@@ -605,19 +607,55 @@ def test_k9_matches_plain(card, expert_stacks, dtype, p, shape):
     x = torch.randn((p, k), generator=torch.Generator(card).manual_seed(p + k), device=card,
                     dtype=dtype)
     sel = torch.tensor(K9_SELS[p], dtype=torch.int32, device=card)
-    before = build.launches[gemm.ROUTED_KERNEL]
+    key = gemm.ROUTED_KERNEL + ("" if dtype == torch.float32 else gemm.GEMV_SUFFIX)
+    other = gemm.ROUTED_KERNEL + (gemm.GEMV_SUFFIX if dtype == torch.float32 else "")
+    before = dict(build.launches)
     y = qlin.matmul_routed(x, sql, sel)
-    assert build.launches[gemm.ROUTED_KERNEL] == before + 1
+    assert build.launches[key] == before.get(key, 0) + 1
+    assert build.launches[other] == before.get(other, 0)
     ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros,
                                        sql.group_size)
+    again = qlin.matmul_routed(x, sql, sel)
     torch.cuda.synchronize()
     assert y.shape == (p, shape[1]) and y.dtype == dtype
+    assert torch.equal(y, again)
     if dtype == torch.float32:
         # f32 weights and accumulation on both sides: summation order only
         torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
     else:
-        # one bf16 rounding on both sides: 1% of the largest output
+        # one bf16/f16 rounding on both sides: 1% of the largest output
         assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bits, gs", [(4, 64), (3, 32)])
+@pytest.mark.parametrize("sel", [[5], [3, 3], [0, 7, 7, 2, 0, 5, 1, 7], [6] * 8,
+                                 [1, 4, 1, 0, 2, 3, 7, 6, 5, 4, 4, 1]])
+def test_k9_gemv_serves_each_pair_once(card, dtype, bits, gs, sel):
+    """The expert-major routed GEMV against the plain version at 1 to 12
+    pairs: repeated experts, every pair on one expert (8 rows of one slice),
+    more than 8 pairs (16-row operands), 3-bit codes in nibbles; bit-equal on
+    a second call and its counters back at 0."""
+    from autogptq_tpu_torch.ops import gemm
+
+    sql = qlin.stack_experts([_layer(11 * e + bits, 1056, 544, gs, dtype=dtype, bits=bits)
+                              for e in range(8)])
+    p = len(sel)
+    x = torch.randn((p, 1056), generator=torch.Generator(card).manual_seed(p), device=card,
+                    dtype=dtype)
+    s = torch.tensor(sel, dtype=torch.int32, device=card)
+    before = dict(build.launches)
+    y = gemm.wna16_routed_matmul(x, s, sql.qweight, sql.scales, sql.zeros, gs)
+    again = gemm.wna16_routed_matmul(x, s, sql.qweight, sql.scales, sql.zeros, gs)
+    assert build.launches["w4a16_routed_gemm_gemv"] == before.get("w4a16_routed_gemm_gemv", 0) + 2
+    assert build.launches["w4a16_routed_gemm"] == before.get("w4a16_routed_gemm", 0)
+    ref = gemm.wna16_routed_matmul_ref(x, s, sql.qweight, sql.scales, sql.zeros, gs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(y, again)
+    _, counters = build.split_scratch("w4a16_routed_gemm_gemv", card, 0, 0)
+    assert int(counters.abs().sum()) == 0
 
 
 def test_k9_bad_expert_ids_write_nothing_and_raise(card, expert_stacks):
@@ -644,6 +682,47 @@ def test_k9_bad_expert_ids_write_nothing_and_raise(card, expert_stacks):
     with pytest.raises(ValueError, match="sel must be"):
         gemm.wna16_routed_matmul(x, torch.tensor([1, 2, 3], device=card), sql.qweight,
                                  sql.scales, sql.zeros, 32)
+
+
+def test_k9_gemv_bad_expert_ids_leave_rows_and_set_the_flag(card, expert_stacks):
+    """The routed GEMV serves no pair whose id lies outside the stack: its row
+    keeps what it held, the other pairs of the launch are right, the flag is
+    set (check=True raises); kernel="simt" and forced_kernel("simt") name the
+    SIMT routed kernel on the same operands."""
+    from autogptq_tpu_torch.ops import gemm
+
+    sql = expert_stacks[(1024, 1000, 32)]
+    x = torch.randn((4, 1024), generator=torch.Generator(card).manual_seed(9), device=card,
+                    dtype=torch.bfloat16)
+    for bad in (-1, 8, 1 << 20):
+        sel = torch.tensor([2, bad, 6, 2], dtype=torch.int32, device=card)
+        out = torch.full((4, 1000), 7.0, device=card, dtype=torch.bfloat16)
+        before = build.launches["w4a16_routed_gemm_gemv"]
+        gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 32, check=False,
+                                 out=out)
+        assert build.launches["w4a16_routed_gemm_gemv"] == before + 1
+        torch.cuda.synchronize()
+        assert bool((out[1] == 7.0).all())
+        good = torch.tensor([0, 2, 3], device=card)
+        ref = gemm.wna16_routed_matmul_ref(x[good], sel[good], sql.qweight, sql.scales,
+                                           sql.zeros, 32)
+        assert (out[good].float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+        with pytest.raises(ValueError, match="expert id"):
+            gemm.check_routed_errors(card)
+        gemm.check_routed_errors(card)
+        with pytest.raises(ValueError, match="expert id"):
+            gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 32)
+    sel = torch.tensor([2, 5, 6, 2], dtype=torch.int32, device=card)
+    before = dict(build.launches)
+    ys = gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, 32, kernel="simt")
+    with gemm.forced_kernel("simt"):
+        yf = qlin.matmul_routed(x, sql, sel)
+    yg = qlin.matmul_routed(x, sql, sel)
+    assert build.launches["w4a16_routed_gemm"] == before.get("w4a16_routed_gemm", 0) + 2
+    assert build.launches["w4a16_routed_gemm_gemv"] == before.get("w4a16_routed_gemm_gemv", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ys, yf)
+    assert (ys.float() - yg.float()).abs().max() <= 1e-2 * ys.float().abs().max()
 
 
 def test_tiny_mixtral_card_matches_cpu(card, tmp_path):
@@ -680,16 +759,18 @@ def test_tiny_mixtral_card_matches_cpu(card, tmp_path):
 # 256, 3-bit codes
 K6_SHAPES = [(4096, 4096, 128, 4, False, False), (4096, 11008, 128, 4, False, True),
              (11008, 4096, 128, 4, True, False), (1024, 1312, 32, 4, False, True),
-             (2048, 1312, 256, 3, True, True)]
+             (2048, 1312, 256, 3, True, True), (1312, 1312, 32, 3, True, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 17, 64])
 @pytest.mark.parametrize("k, n, gs, bits, desc_act, bias", K6_SHAPES)
 def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
-    """K6 in both regimes (the pipelined GEMV at M <= 16, the tile kernel
-    above) against its plain version: f32 to 1e-5 of the largest output
-    (summation order only), f16/bf16 to 1% (one rounding on both sides)."""
+    """K6 in both regimes against its plain version (at M <= 16 the
+    tensor-core GEMV over the kb32l tiles for f16/bf16, the cp.async ring
+    for f32; the tile kernels above): f32 to 1e-5 of the largest output
+    (summation order only), f16/bf16 to 1% (one rounding on both sides).
+    The last shape's K (1312) is not a whole number of 256-row tiles."""
     layer = _layer(k + n + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
@@ -699,6 +780,8 @@ def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
     assert build.launches[name] == before.get(name, 0) + 1
     for other in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv"):
         assert build.launches[other] == before.get(other, 0)
+    if dtype != torch.float32 and m <= 16:    # no ring launch beside the GEMV
+        assert build.launches["w4a16_kb32l_gemm"] == before.get("w4a16_kb32l_gemm", 0)
     ref = qlin.matmul_plain(x, layer)
     torch.cuda.synchronize()
     assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
@@ -727,6 +810,42 @@ def test_k6_refuses_operands_and_launches_nothing(card):
         gemm.w4a16_kb32l_matmul(x, *args[:5], 96, 256)
     assert build.launches["w4a16_kb32l_gemm"] == before
     assert gemm.w4a16_kb32l_matmul(x[:0], *args).shape == (0, 256)
+
+
+def test_k6_gemv_ring_and_counters(card):
+    """At M <= 16 bf16 takes the GEMV over the kb32l tiles and f32 the ring;
+    kernel="simt" and forced_kernel("simt") name the ring on bf16 operands;
+    layers of other shapes back to back leave the GEMV's counters at 0 and
+    repeat the first result bit for bit."""
+    from autogptq_tpu_torch.ops import gemm
+
+    layer = _layer(4, 4096, 1312, 128, bias=True, layout="kb32l")
+    x = torch.randn((5, 4096), generator=torch.Generator(card).manual_seed(4), device=card,
+                    dtype=torch.bfloat16)
+    before = dict(build.launches)
+    yg = qlin.matmul(x, layer)
+    ys = gemm.w4a16_kb32l_matmul(x, layer.qweight, layer.scales, layer.zeros, None, layer.bias,
+                                 128, 1312, kernel="simt")
+    with gemm.forced_kernel("simt"):
+        yf = qlin.matmul(x, layer)
+    assert build.launches["w4a16_kb32l_gemm_gemv"] == before.get("w4a16_kb32l_gemm_gemv", 0) + 1
+    assert build.launches["w4a16_kb32l_gemm"] == before.get("w4a16_kb32l_gemm", 0) + 2
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, yf)
+    for y in (yg, ys):
+        assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    first = yg
+    for k, n, gs, m in ((1024, 1312, 32, 16), (1312, 1312, 32, 3), (11008, 4096, 128, 1)):
+        other = _layer(k + m, k, n, gs, layout="kb32l")
+        xo = torch.randn((m, k), device=card, dtype=torch.bfloat16)
+        yo = qlin.matmul(xo, other)
+        ro = qlin.matmul_plain(xo, other)
+        torch.cuda.synchronize()
+        assert (yo.float() - ro.float()).abs().max() <= 1e-2 * ro.float().abs().max()
+    assert torch.equal(qlin.matmul(x, layer), first)
+    _, counters = build.split_scratch("w4a16_kb32l_gemm_gemv", card, 0, 0)
+    assert int(counters.abs().sum()) == 0
 
 
 @pytest.mark.parametrize("m", [10, 64, 2048])
@@ -804,7 +923,47 @@ def test_tiny_llama_kb32l_card_matches_cpu(card, tmp_path):
     build.launches.clear()
     got = models["cuda"].generate(prompt, max_new_tokens=8)
     assert build.launches["w4a16_kb32l_gemm"] == 7 * 2 * 8 and build.launches["w4a16_gemm"] == 0
+    assert build.launches["w4a16_kb32l_gemm_gemv"] == 0     # f32 takes the ring
     np.testing.assert_array_equal(got, models["cpu"].generate(prompt, max_new_tokens=8))
+
+
+def test_bf16_kb32l_and_mixtral_paths_take_the_gemvs(card, tmp_path):
+    """bf16 greedy decode of a tiny kb32l Llama and a tiny Mixtral on the
+    card: exact launch counts of K6's and K9's tensor-core GEMVs, no K6 ring
+    and no SIMT routed kernel (so no split-K reduce of either), and the tokens
+    of the same models forced through those SIMT kernels."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import params as params_lib
+
+    llama = dict(model_type="llama", vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                 rms_norm_eps=1e-5, rope_theta=10000.0, hidden_act="silu",
+                 tie_word_embeddings=False)
+    mixtral = dict(llama, model_type="mixtral", num_local_experts=8, num_experts_per_tok=2,
+                   rope_theta=1e6, sliding_window=None)
+    prompt = np.random.default_rng(0).integers(1, 512, size=(1, 6))
+    for cfg, kw, key, simt in ((llama, dict(layout="kb32l"), "w4a16_kb32l_gemm_gemv",
+                                "w4a16_kb32l_gemm"),
+                               (mixtral, {}, "w4a16_routed_gemm_gemv", "w4a16_routed_gemm")):
+        path = write_random_checkpoint(str(tmp_path / cfg["model_type"]), cfg, bits=4,
+                                       group_size=64, seed=3)
+        model = AutoGPTQForCausalLM.from_quantized(path, device="cuda", dtype=torch.bfloat16,
+                                                   **kw)
+        if cfg is mixtral:
+            model.params = params_lib.stack_moe_experts(model.params)
+        build.launches.clear()
+        got = model.generate(prompt, max_new_tokens=8)
+        # kb32l: 7 projections x 2 layers for the prefill and each of 7 decode steps; Mixtral:
+        # gate, up and down x 2 layers per decode step (the 12-pair prefill is dense)
+        want = 7 * 2 * 8 if cfg is llama else 3 * 2 * 7
+        assert build.launches[key] == want and build.launches[simt] == 0, dict(build.launches)
+        with qlin.gemm.forced_kernel("simt"):
+            build.launches.clear()
+            forced = model.generate(prompt, max_new_tokens=8)
+            assert build.launches[simt] == want and build.launches[key] == 0
+        assert got.shape == forced.shape == (1, 14)
+        # bf16 sums in another order may flip a near tie: the first decoded token must agree
+        np.testing.assert_array_equal(got[:, :7], forced[:, :7])
 
 
 # The tensor-core tile kernels (csrc/wna16_mma.cuh): (K, N, group size, desc_act, bias), N not

@@ -1,9 +1,9 @@
 """The host side of K1/K4/K5's tensor-core decode GEMV (autogptq_tpu_torch.ops.gemm):
-its launch plan from shapes alone (``gemv_plan``), the static route that picks it
-(``route``, ``forced_kernel``), and the plain version the kernel is held to on the
-card, against the JAX package's ``quantlinear.matmul_xla`` at the GEMV's row counts
-(inputs made with NumPy from a seed and handed to both). The kernel itself runs only
-on the card: ``tests/test_torch_cuda_kernels.py``."""
+its launch plan from shapes alone (``gemv_plan``, which K6 and K9 share), the static
+route that picks it (``route``, ``forced_kernel``), and the plain version the kernel is
+held to on the card, against the JAX package's ``quantlinear.matmul_xla`` at the GEMV's
+row counts (inputs made with NumPy from a seed and handed to both). The kernel itself
+runs only on the card: ``tests/test_torch_cuda_kernels.py``."""
 
 import inspect
 
@@ -130,6 +130,24 @@ def test_route_names_a_kernel_and_forced_kernel_restores():
                 raise RuntimeError
         assert gemm._forced[0] == "simt"
     assert gemm._forced[0] is None
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+def test_k6_and_k9_take_the_gemv_plan(m):
+    """K6's GEMV over kb32l tiles is planned as K1's on the same true K and N
+    (the tiles' padding adds nothing), and K9's routed GEMV with one active
+    expert is K1's plan too (its x stage holds P rows, not 8 or 16); with
+    min(P, E) active experts it takes as many
+    splits as the blocks of that many experts allow, never more than one
+    expert's."""
+    for k, n in LLAMA + MIXTRAL:
+        dense = gemm.gemv_plan(k, n, m, 128, 4, SMS)
+        routed = gemm.routed_plan(k, n, m, 1, 128, 4, SMS)
+        assert {key: routed[key] for key in dense if key != "smem_bytes"} == {
+            key: v for key, v in dense.items() if key != "smem_bytes"}
+        wide = gemm.routed_plan(k, n, m, 8, 128, 4, SMS)
+        assert wide["splits"] <= dense["splits"] and wide["kc"] >= dense["kc"]
+        assert wide["blocks"] == min(m, 8) * wide["col_blocks"] * wide["splits"]
 
 
 def _layers(seed, k, n, bits, gs, desc_act):

@@ -12,6 +12,11 @@ JAX package's kb32l layout, in f32.
   ``stack_experts`` refuses kb32l layers.
 * ``params_from_jax`` carries a JAX kb32l node across as a port kb32l node.
 * ``dx`` through a desc_act kb32l layer against ``jax.grad`` (1e-4).
+* K6's decode GEMV on the host: its plan on the true K and N (K not a whole
+  number of tiles, N = 1312) covers K once, each stage inside one tile, the
+  padding never read; the plain version at the GEMV's 1, 4 and 16 rows against
+  the JAX ``matmul_xla`` (1e-5); the route (the GEMV for bf16/f16, the ring
+  for f32).
 * A tiny random Llama checkpoint (2 layers, desc_act, g32) loaded with
   ``from_quantized(layout="kb32l")`` against the JAX model whose quantized
   layers are rebuilt with the JAX ``from_packed(layout="kb32l")``: logits
@@ -33,6 +38,7 @@ from autogptq_tpu.ops.pallas import gemm as jgemm
 from autogptq_tpu_torch import AutoGPTQForCausalLM
 from autogptq_tpu_torch.models import arch
 from autogptq_tpu_torch.models.registry import get_family
+from autogptq_tpu_torch.ops import build, gemm
 from autogptq_tpu_torch.ops import quantlinear as qlin
 from autogptq_tpu_torch.utils import hf_io
 from autogptq_tpu_torch.utils.convert import params_from_jax
@@ -153,6 +159,88 @@ def test_grad_through_desc_act_kb32l_matches_jax_grad():
     want = jax.grad(lambda xx: jnp.sum(jqlin.matmul(xx, ref, backend="xla") * cot))(
         jnp.asarray(x))
     np.testing.assert_allclose(dx.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+# K6's decode GEMV (csrc/wna16_gemv.cuh over the kb32l address) is planned by gemm.gemv_plan
+# on the true K and N: (K, N, group size) of Llama-2-7B's projections, N = 1312 (1408 padded)
+# and K = 1312, 1056 (not a whole number of 256-row tiles)
+GEMV_CASES = [(4096, 4096, 128), (4096, 11008, 128), (11008, 4096, 128), (1024, 1312, 32),
+              (1312, 1312, 32), (1056, 544, 32), (2048, 1312, 256)]
+
+
+def _gemv_stage_words(tiles, k, n, plan):
+    """The words the GEMV's stages copy, as the kernel addresses them (word row
+    kw of column n at tile (n / 128, kw / 32), offset (kw % 32) * 128 + n %
+    128; a copy of a row past K or a column past N is zero-filled, not read),
+    put back as [K_pad / 8, N] rows; and whether every (stage, 64-column
+    tile) copies from one kb32l tile."""
+    nbk = -(-k // 256)
+    flat = tiles.reshape(-1)
+    nb = plan["col_blocks"]
+    wrows = plan["stage_k"] // 8
+    out = torch.zeros((plan["splits"] * plan["kc"] // 8, nb * gemm.GEMV_BN), dtype=torch.int32)
+    one_tile = True
+    cols = torch.arange(nb * gemm.GEMV_BN)[None, :]
+    for split in range(plan["splits"]):
+        k1 = min(k, (split + 1) * plan["kc"])
+        for kt in range(split * plan["kc"], k1, plan["stage_k"]):   # the split's stages
+            kws = torch.arange(kt // 8, kt // 8 + wrows)[:, None]
+            addr = (cols // 128 * nbk + kws // 32) * 4096 + kws % 32 * 128 + cols % 128
+            ok = (kws < k // 8) & (cols < n)
+            tile = torch.where(ok, addr // 4096, -1).view(wrows, nb, gemm.GEMV_BN)
+            big = torch.where(tile < 0, 1 << 30, tile).amin(dim=(0, 2))
+            one_tile &= bool(((tile == big[None, :, None]) | (tile < 0)).all())
+            out[kt // 8:kt // 8 + wrows] = torch.where(ok, flat[addr.clamp(max=flat.numel() - 1)],
+                                                       0)
+    return out[:, :n], one_tile
+
+
+@pytest.mark.parametrize("k, n, gs", GEMV_CASES)
+def test_kb32l_gemv_plan_reads_the_true_k_and_n(k, n, gs):
+    """The plan of the true K and N covers K once and N with 64-column tiles
+    (none of them wholly in the padding); every stage's copies lie inside one
+    32 x 128 kb32l tile; the words they gather are the GPTQ words, the tiles'
+    padding (rows past K, columns past N) never read."""
+    p, _ = _packed(k + n, k, n, gs)
+    port = qlin.from_packed(p, device="cpu", dtype=torch.float32, layout="kb32l")
+    gptq = qlin.from_packed(p, device="cpu", dtype=torch.float32)
+    for m in (1, 4, 16):
+        plan = gemm.gemv_plan(k, n, m, gs, 4, 132)
+        assert (plan["splits"] - 1) * plan["kc"] < k <= plan["splits"] * plan["kc"]
+        assert plan["col_blocks"] == -(-n // gemm.GEMV_BN) and plan["kc"] % 256 in (0, 128)
+        assert plan["weight_bytes"] == k * n // 2 + 3 * (k // gs) * n
+        words, one_tile = _gemv_stage_words(port.qweight, k, n, plan)
+        assert one_tile
+        assert torch.equal(words[:k // 8], gptq.qweight) and not words[k // 8:].any()
+
+
+@pytest.mark.parametrize("k, n, gs, bits, desc_act",
+                         [(1312, 1312, 32, 4, False), (1056, 544, 32, 3, True)] + CASES[1:3])
+def test_kb32l_plain_matches_jax_xla_at_gemv_rows(k, n, gs, bits, desc_act):
+    """The plain K6 that the GEMV is held to on the card, at the GEMV's row
+    counts (1, 4 and 16) against the JAX package's ``matmul_xla`` of its kb32l
+    node (f32, 1e-5), including K not a whole number of 256-row tiles and
+    N = 1312; a CPU tensor launches nothing."""
+    p, j = _packed(k * bits + n, k, n, gs, bits, desc_act, bias=True)
+    port = qlin.from_packed(p, device="cpu", dtype=torch.float32, layout="kb32l")
+    ref = jqlin.from_packed(j, layout="kb32l")
+    for m in (1, 4, 16):
+        x = _x(m, k, seed=m + k)
+        before = dict(build.launches)
+        got = qlin.matmul(torch.from_numpy(x), port).numpy()
+        assert dict(build.launches) == before
+        _close(got, np.asarray(jqlin.matmul_xla(jnp.asarray(x), ref)), 1e-5)
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128, 256])
+def test_kb32l_route_takes_the_gemv_for_bf16_and_the_ring_for_f32(gs):
+    """Every kb32l group size is a multiple of 16: bf16 and f16 take the GEMV at
+    M <= 16, f32 the ring ("simt"); above 16 rows the tile kernels."""
+    for m in (1, 4, 16):
+        assert gemm.route(torch.bfloat16, m, gs) == gemm.route(torch.float16, m, gs) == "gemv"
+        assert gemm.route(torch.float32, m, gs) == "simt"
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        assert gemm.route(dtype, 17, gs) == gemm.tile_kernel(dtype, 17, gs)
 
 
 @pytest.fixture(scope="module")
