@@ -19,10 +19,18 @@ alibi, MLA and softcaps belong to other families, which
 ``registry.get_family`` rejects; rope scaling and sliding windows are rejected
 when the llama configuration is built; an int8 cache when the cache is
 created.
+
+:data:`FUSE_NORM` (``AUTOGPTQ_TPU_FUSE_NORM``, default ``"0"`` as in the JAX
+package) fuses each decode step's RMS norms into the quantized q/k/v and
+gate/up projections that follow them (``quantlinear.matmul(prenorm=)``: K1's
+fused prologue on the card), in :func:`block_forward`'s dense-MLP decode steps
+and the paged beam step.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -34,6 +42,11 @@ from ..ops import quantlinear as qlin
 from ..ops.flash_decode import flash_decode
 
 NEG_INF = -1e30
+
+# Fused norm+matmul for the decode step (the JAX package's switch, models/arch.py:152): "0" =
+# off, anything else = the RMS norm feeding each quantized q/k/v/gate/up runs inside K1's
+# kernel where gemm.prenorm_eligible admits it, unfused elsewhere. Read at every call.
+FUSE_NORM = os.environ.get("AUTOGPTQ_TPU_FUSE_NORM", "0")
 
 
 @dataclass(frozen=True)
@@ -85,6 +98,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
+def _prenorm_linear(node, x: torch.Tensor, norm: dict, cfg: ArchConfig) -> torch.Tensor:
+    """``apply_linear(node, rms_norm(x))`` with the norm fused into a
+    quantized layer's kernel (``quantlinear.matmul(prenorm=)``); an adapter or
+    dense node takes the unfused norm. The port's families scale by ``w``,
+    never ``1 + w``."""
+    if isinstance(node, qlin.QuantLinear):
+        return qlin.matmul(x, node, prenorm=(norm["weight"], cfg.norm_eps, False))
+    return apply_linear(node, rms_norm(x, norm["weight"], cfg.norm_eps))
+
+
 def _rope_freqs(cfg: ArchConfig, positions: torch.Tensor, rotary_dim: int):
     exponents = torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=positions.device)
     inv_freq = 1.0 / (cfg.rope_theta ** (exponents / rotary_dim))
@@ -133,17 +156,21 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
               positions: torch.Tensor, cfg: ArchConfig,
               attn_mask: Optional[torch.Tensor] = None,
               decode_bounds: Optional[tuple] = None,
-              capture: Optional[dict] = None) -> torch.Tensor:
+              capture: Optional[dict] = None, prenorm: Optional[dict] = None) -> torch.Tensor:
     """Self-attention of one block; writes this step's K/V into ``cache``.
     ``decode_bounds = (lo, hi)`` (int32 [B]) selects the K2 decode path.
-    ``capture`` (calibration, cache-less) records the input of every linear."""
+    ``capture`` (calibration, cache-less) records the input of every linear.
+    ``prenorm`` (the input norm's params, :data:`FUSE_NORM`): ``x`` arrives
+    raw and the norm fuses into q/k/v."""
     b, t, _ = x.shape
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if capture is not None:
         capture["q_proj"] = capture["k_proj"] = capture["v_proj"] = x
-    q = apply_linear(bp["q_proj"], x).view(b, t, h, d)
-    k = apply_linear(bp["k_proj"], x).view(b, t, hkv, d)
-    v = apply_linear(bp["v_proj"], x).view(b, t, hkv, d)
+    lin = (apply_linear if prenorm is None
+           else functools.partial(_prenorm_linear, norm=prenorm, cfg=cfg))
+    q = lin(bp["q_proj"], x).view(b, t, h, d)
+    k = lin(bp["k_proj"], x).view(b, t, hkv, d)
+    v = lin(bp["v_proj"], x).view(b, t, hkv, d)
     q, k = apply_rope(q, k, positions, cfg)
     scale = d ** -0.5
 
@@ -200,11 +227,18 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
 
 
 def mlp(bp: dict, x: torch.Tensor, cfg: ArchConfig,
-        capture: Optional[dict] = None) -> torch.Tensor:
+        capture: Optional[dict] = None, prenorm: Optional[dict] = None) -> torch.Tensor:
+    """``prenorm`` (the post-attention norm's params, :data:`FUSE_NORM`):
+    ``x`` arrives raw and the norm fuses into gate/up; a MoE block refuses it
+    (its router needs the normed hidden), as the JAX ``mlp`` asserts."""
     if cfg.moe_num_experts > 0:
+        if prenorm is not None:
+            raise ValueError("a MoE block takes no fused norm: its router needs the normed input")
         return moe_mlp(bp, x, cfg, capture)
-    gate = apply_linear(bp["gate_proj"], x)
-    up = apply_linear(bp["up_proj"], x)
+    lin = (apply_linear if prenorm is None
+           else functools.partial(_prenorm_linear, norm=prenorm, cfg=cfg))
+    gate = lin(bp["gate_proj"], x)
+    up = lin(bp["up_proj"], x)
     h = F.silu(gate) * up
     if capture is not None:
         capture["gate_proj"] = capture["up_proj"] = x
@@ -283,9 +317,21 @@ def block_forward(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVC
     """One decoder block. With ``capture`` a dict, the input of every linear
     is recorded under its block-relative path (``attn.q_proj``,
     ``mlp.down_proj``, ...): the calibration pass of ``quantize``, which runs
-    cache-less on a left-padded batch (``positions`` and ``attn_mask`` [B, T])."""
+    cache-less on a left-padded batch (``positions`` and ``attn_mask`` [B, T]).
+
+    With :data:`FUSE_NORM` on, a one-token step with a cache and no capture
+    of a dense-MLP block passes the raw ``x`` and the norms' params to
+    ``attention`` and ``mlp``, which fuse each norm into the projections after
+    it (the JAX gate, ``models/arch.py:1184-1193``; the port's blocks are all
+    sequential pre-norm RMS blocks, so a MoE block stays unfused)."""
     attn_cap = {} if capture is not None else None
     mlp_cap = {} if capture is not None else None
+    fuse_norm = (FUSE_NORM != "0" and capture is None and cache is not None
+                 and x.shape[1] == 1 and cfg.moe_num_experts == 0)
+    if fuse_norm:
+        x = x + attention(bp["attn"], x, layer_idx, cache, positions, cfg, attn_mask,
+                          decode_bounds, prenorm=bp["input_norm"])
+        return x + mlp(bp["mlp"], x, cfg, prenorm=bp["post_norm"])
     h = rms_norm(x, bp["input_norm"]["weight"], cfg.norm_eps)
     x = x + attention(bp["attn"], h, layer_idx, cache, positions, cfg, attn_mask, decode_bounds,
                       attn_cap)
@@ -359,6 +405,7 @@ __all__ = [
     "cache_shapes",
     "apply_linear",
     "rms_norm",
+    "FUSE_NORM",
     "apply_rope",
     "attention",
     "mlp",

@@ -266,7 +266,7 @@ cudaError_t launch_kb32l(const void* x, const int64_t* kperm, const int32_t* qwe
     const dim3 grid((N + PF_BN - 1) / PF_BN, (M + PF_BM - 1) / PF_BM);
     wna16_prefill_kernel<4, T, Kb32lWords><<<grid, PF_THREADS, 0, stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), M, K, N, gs, Kb32lWords{nbk}, n_pad);
+        static_cast<T*>(out), M, K, N, gs, Kb32lWords{nbk}, n_pad, Prenorm{});
     return cudaGetLastError();
 }
 

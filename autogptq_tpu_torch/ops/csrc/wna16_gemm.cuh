@@ -94,19 +94,146 @@ __device__ __forceinline__ float code_minus_zero(uint32_t w, int j, float zb) {
     return __uint_as_float(0x4B000000u | ((w >> (BITS * j)) & ((1u << BITS) - 1u))) - zb;
 }
 
-template <int BITS, typename T, int MT, bool STRADDLE>
+// ---- the fused RMS-norm prologue (K1's PRENORM instances) -------------------------------------
+//
+// Replaces autogptq_tpu/ops/pallas/gemm.py:_prenorm_x (:332) inside _kernel_kb32 and
+// _kernel_ki32, reached with norm_w= through _matmul_kb32 / _matmul_ki32 (matmul_pallas'
+// prenorm=): the product takes x_n = to_act(f32(x) * rstd * f32(w)) (1 + w with plus_one) in
+// place of x, rstd = rsqrt(mean(x^2) + eps) over the row's full K in f32, the value the
+// unfused arch.rms_norm would feed it. Each block reduces the squares of its own rows (at most
+// 31: ops/gemm.py:prenorm_eligible) from global memory or L2, never from its K chunk's stage
+// alone, with every thread of the block on every row and one fixed order (so every block of
+// a launch, and every call, gets the same rstd); the norm weight is staged beside x (the GEMV
+// and the tensor-core tile kernel copy it with x's cp.async; the SIMT kernels read it where
+// they stage x). It adds M * K activation bytes per block, read from L2, to the weight stream
+// of the product.
+
+constexpr int PN_MAX_ROWS = 32;   // rows of x a prologue takes (the fused route's M < 32)
+
+struct Prenorm {
+    const void* w;   // norm weight [K] of type wdt (DT_F32, DT_F16 or DT_BF16)
+    int wdt;
+    float eps;
+    int plus_one;    // the norm scales by 1 + w
+};
+
+// Element i of a norm weight of type wdt at base (global or shared memory), as the norm scales.
+__device__ __forceinline__ float prenorm_weight_at(const void* base, int wdt, int64_t i,
+                                                   int plus_one) {
+    float w;
+    if (wdt == DT_F32)
+        w = static_cast<const float*>(base)[i];
+    else if (wdt == DT_F16)
+        w = __half2float(static_cast<const __half*>(base)[i]);
+    else
+        w = __bfloat162float(static_cast<const __nv_bfloat16*>(base)[i]);
+    return plus_one ? 1.0f + w : w;
+}
+
+__device__ __forceinline__ float prenorm_weight(const Prenorm& p, int64_t k) {
+    return prenorm_weight_at(p.w, p.wdt, k, p.plus_one);
+}
+
+// Bytes of one norm weight element.
+__host__ __device__ constexpr int prenorm_wsize(int wdt) { return wdt == DT_F32 ? 4 : 2; }
+
+// x_n of one element: f32, times rstd, times the weight, one rounding to T (arch.rms_norm).
+template <typename T>
+__device__ __forceinline__ T prenorm_apply(T v, float rstd, float w) {
+    return from_f32<T>(to_f32(v) * rstd * w);
+}
+
+// Sum of squares of the 16-byte run v of T values, in element order.
+template <typename T>
+__device__ __forceinline__ float sumsq16(const uint4& v) {
+    const T* e = reinterpret_cast<const T*>(&v);
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) s = fmaf(to_f32(e[i]), to_f32(e[i]), s);
+    return s;
+}
+
+// rstd[i] = rsqrt(mean(x[i, 0:K]^2) + eps) for the rows i < rows <= MAXR of x (row stride K),
+// by the whole block: each thread sums the squares of its 16-byte runs of a row, four rows at a
+// time with four runs of each in flight (one trip to L2 for up to 4 rows of 4096 bf16 at 128
+// threads), then the warps' sums of a row are added in warp order. red holds
+// MAXR * (blockDim.x / 32) floats. Ends with a barrier: rstd is then visible to the block.
+template <typename T, int MAXR>
+__device__ __forceinline__ void prenorm_rstd(const T* __restrict__ x, int K, int rows, float eps,
+                                             float* rstd, float* red) {
+    constexpr int VEC = 16 / (int)sizeof(T);
+    constexpr int RG = 4, U = 4;              // rows per group, runs in flight per row
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x;
+    const int warps = nt >> 5;
+    const bool vec = K % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    for (int i0 = 0; i0 < rows; i0 += RG) {
+        float s[RG];
+#pragma unroll
+        for (int g = 0; g < RG; ++g) s[g] = 0.0f;
+        if (vec) {
+            const int runs = K / VEC;
+            for (int c0 = tid; c0 < runs; c0 += U * nt) {
+                uint4 v[RG][U];
+#pragma unroll
+                for (int g = 0; g < RG; ++g)
+#pragma unroll
+                    for (int u = 0; u < U; ++u) {
+                        const int c = c0 + u * nt;
+                        v[g][u] = i0 + g < rows && c < runs
+                                      ? *reinterpret_cast<const uint4*>(x + (int64_t)(i0 + g) * K +
+                                                                        (int64_t)c * VEC)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+                    }
+#pragma unroll
+                for (int g = 0; g < RG; ++g)
+#pragma unroll
+                    for (int u = 0; u < U; ++u) s[g] += sumsq16<T>(v[g][u]);
+            }
+        } else {
+            for (int k = tid; k < K; k += nt) {
+#pragma unroll
+                for (int g = 0; g < RG; ++g)
+                    if (i0 + g < rows) {
+                        const float v = to_f32(x[(int64_t)(i0 + g) * K + k]);
+                        s[g] = fmaf(v, v, s[g]);
+                    }
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < RG; ++g) {
+            if (i0 + g < rows) {             // uniform over the block
+                float t = s[g];
+#pragma unroll
+                for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xFFFFFFFFu, t, o);
+                if (lane == 0) red[(i0 + g) * warps + warp] = t;
+            }
+        }
+    }
+    __syncthreads();
+    if (tid < rows) {
+        float t = 0.0f;
+        for (int w = 0; w < warps; ++w) t += red[tid * warps + w];
+        rstd[tid] = rsqrtf(t / (float)K + eps);
+    }
+    __syncthreads();
+}
+
+template <int BITS, typename T, int MT, bool STRADDLE, bool PRENORM = false>
 __global__ void __launch_bounds__(DEC_THREADS)
 wna16_decode_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                     const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                     const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                     T* __restrict__ out, float* __restrict__ partial,
-                    int M, int K, int N, int gs, int kc) {
+                    int M, int K, int N, int gs, int kc, Prenorm pn) {
     constexpr int P = 32 / BITS;   // codes per word
     extern __shared__ float xs[];  // [MT][kc]
+    __shared__ float rstd[PRENORM ? MT : 1];
+    __shared__ float red[PRENORM ? MT * (DEC_THREADS / 32) : 1];
     const int split = blockIdx.y;
     const int k0 = split * kc;
     const int k1 = min(K, k0 + kc);
     const int klen = k1 - k0;
+    if constexpr (PRENORM) prenorm_rstd<T, MT>(x, K, M, pn.eps, rstd, red);
     for (int i = threadIdx.x; i < MT * kc; i += DEC_THREADS) {
         const int m = i / kc;
         const int kk = i - m * kc;
@@ -114,7 +241,10 @@ wna16_decode_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
         if (m < M && kk < klen) {
             const int k = k0 + kk;
             const int64_t src = kperm != nullptr ? kperm[k] : (int64_t)k;
-            v = to_f32(x[(int64_t)m * K + src]);
+            if constexpr (PRENORM)
+                v = to_f32(prenorm_apply(x[(int64_t)m * K + src], rstd[m], prenorm_weight(pn, src)));
+            else
+                v = to_f32(x[(int64_t)m * K + src]);
         }
         xs[i] = v;
     }
@@ -251,17 +381,24 @@ struct GptqWords {
 };
 
 // Words are read at words(kw, n); scales and zeros are [G, ldsz] (ldsz >= N).
-template <int BITS, typename T, typename Words>
+// PRENORM: the fused RMS-norm prologue, for M < PN_MAX_ROWS (one row block).
+template <int BITS, typename T, typename Words, bool PRENORM = false>
 __global__ void __launch_bounds__(PF_THREADS)
 wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                      const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                      const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
-                     T* __restrict__ out, int M, int K, int N, int gs, Words words, int ldsz) {
+                     T* __restrict__ out, int M, int K, int N, int gs, Words words, int ldsz,
+                     Prenorm pn) {
     constexpr int P = 32 / BITS;   // codes per word
     __shared__ __align__(16) float xs[PF_BK][PF_BM];
     __shared__ __align__(16) float ws[PF_BK][PF_BN];
+    __shared__ float rstd[PRENORM ? PN_MAX_ROWS : 1];
+    __shared__ float red[PRENORM ? PN_MAX_ROWS * (PF_THREADS / 32) : 1];
     const int m0 = blockIdx.y * PF_BM;
     const int n0 = blockIdx.x * PF_BN;
+    if constexpr (PRENORM)
+        prenorm_rstd<T, PN_MAX_ROWS>(x + (int64_t)m0 * K, K, min(M - m0, PN_MAX_ROWS), pn.eps,
+                                     rstd, red);
     const int tx = threadIdx.x % 16;  // 4 output columns each
     const int ty = threadIdx.x / 16;  // 4 output rows each
     float acc[4][4];
@@ -280,7 +417,11 @@ wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
             float v = 0.0f;
             if (m < M && k < K) {
                 const int64_t src = kperm != nullptr ? kperm[k] : (int64_t)k;
-                v = to_f32(x[(int64_t)m * K + src]);
+                if constexpr (PRENORM)
+                    v = to_f32(prenorm_apply(x[(int64_t)m * K + src], rstd[mm],
+                                             prenorm_weight(pn, src)));
+                else
+                    v = to_f32(x[(int64_t)m * K + src]);
             }
             xs[kk][mm] = v;
         }
@@ -341,22 +482,24 @@ wna16_prefill_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     }
 }
 
-template <int BITS, typename T, int MT>
+template <int BITS, typename T, int MT, bool PRENORM>
 cudaError_t launch_decode(const void* x, const int64_t* kperm, const int32_t* qweight,
                           const __half* scales, const uint8_t* zeros, const void* bias, void* out,
                           float* partial, int M, int K, int N, int gs, int kc, int splits,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, Prenorm pn) {
     const dim3 grid((N / 4 + DEC_THREADS - 1) / DEC_THREADS, splits);
     const size_t smem = sizeof(float) * MT * kc;
     float* part = splits > 1 ? partial : nullptr;
     if (gs % (32 / BITS) == 0)
-        wna16_decode_kernel<BITS, T, MT, false><<<grid, DEC_THREADS, smem, stream>>>(
+        wna16_decode_kernel<BITS, T, MT, false, PRENORM><<<grid, DEC_THREADS, smem, stream>>>(
             static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-            static_cast<T*>(out), part, M, K, N, gs, kc);
-    else   // a rest-class layer: the per-code group instance
+            static_cast<T*>(out), part, M, K, N, gs, kc, pn);
+    else if constexpr (!PRENORM)   // a rest-class layer: the per-code group instance
         wna16_decode_kernel<BITS, T, MT, true><<<grid, DEC_THREADS, smem, stream>>>(
             static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-            static_cast<T*>(out), part, M, K, N, gs, kc);
+            static_cast<T*>(out), part, M, K, N, gs, kc, pn);
+    else                           // the prologue takes whole words per group (32 | gs)
+        return cudaErrorInvalidValue;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || splits == 1) return err;
     const int64_t total = (int64_t)M * N;
@@ -366,45 +509,51 @@ cudaError_t launch_decode(const void* x, const int64_t* kperm, const int32_t* qw
     return cudaGetLastError();
 }
 
-template <int BITS, typename T>
+template <int BITS, typename T, bool PRENORM>
 cudaError_t launch(const void* x, const int64_t* kperm, const int32_t* qweight,
                    const __half* scales, const uint8_t* zeros, const void* bias, void* out,
                    float* partial, int M, int K, int N, int gs, int kc, int splits,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, Prenorm pn) {
     if (M <= 1)
-        return launch_decode<BITS, T, 1>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
+        return launch_decode<BITS, T, 1, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream, pn);
     if (M <= 2)
-        return launch_decode<BITS, T, 2>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
+        return launch_decode<BITS, T, 2, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream, pn);
     if (M <= 4)
-        return launch_decode<BITS, T, 4>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
+        return launch_decode<BITS, T, 4, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream, pn);
     if (M <= 8)
-        return launch_decode<BITS, T, 8>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
+        return launch_decode<BITS, T, 8, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream, pn);
     if (M <= 16)
-        return launch_decode<BITS, T, 16>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream);
+        return launch_decode<BITS, T, 16, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, partial, M, K, N, gs, kc, splits, stream, pn);
     const dim3 grid((N + PF_BN - 1) / PF_BN, (M + PF_BM - 1) / PF_BM);
-    wna16_prefill_kernel<BITS, T, GptqWords><<<grid, PF_THREADS, 0, stream>>>(
+    wna16_prefill_kernel<BITS, T, GptqWords, PRENORM><<<grid, PF_THREADS, 0, stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), M, K, N, gs, GptqWords{N}, N);
+        static_cast<T*>(out), M, K, N, gs, GptqWords{N}, N, pn);
     return cudaGetLastError();
 }
 
-template <int BITS>
+// The checks of a fused-prologue entry: a norm weight of a known type and M < PN_MAX_ROWS.
+inline bool prenorm_ok(int M, const Prenorm& pn) {
+    return M < PN_MAX_ROWS && pn.w != nullptr && pn.wdt >= DT_F32 && pn.wdt <= DT_BF16;
+}
+
+template <int BITS, bool PRENORM = false>
 int wna16_gemm(const void* x, const int64_t* kperm, const int32_t* qweight, const void* scales,
          const uint8_t* zeros, const void* bias, void* out, float* partial, int dtype, int M,
-         int K, int N, int gs, int kc, int splits, void* stream) {
+         int K, int N, int gs, int kc, int splits, void* stream, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
     if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
-        (M <= 16 && (kc <= 0 || kc % P != 0 || splits <= 0 || (splits > 1 && partial == nullptr))))
+        (M <= 16 && (kc <= 0 || kc % P != 0 || splits <= 0 || (splits > 1 && partial == nullptr))) ||
+        (PRENORM && !prenorm_ok(M, pn)))
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case DT_F32:
-            return (int)launch<BITS, float>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st);
+            return (int)launch<BITS, float, PRENORM>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st, pn);
         case DT_F16:
-            return (int)launch<BITS, __half>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st);
+            return (int)launch<BITS, __half, PRENORM>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st, pn);
         case DT_BF16:
-            return (int)launch<BITS, __nv_bfloat16>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st);
+            return (int)launch<BITS, __nv_bfloat16, PRENORM>(x, kperm, qweight, s, zeros, bias, out, partial, M, K, N, gs, kc, splits, st, pn);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -423,4 +572,17 @@ int wna16_gemm(const void* x, const int64_t* kperm, const int32_t* qweight, cons
     }                                                                                           \
     extern "C" const char* NAME##_error_string(int code) {                                      \
         return cudaGetErrorString(static_cast<cudaError_t>(code));                              \
+    }
+
+// Exports `int NAME_norm(...)`: NAME's SIMT kernels with the fused RMS-norm prologue (M < 32),
+// the arguments of NAME and the norm weight, its dtype code, eps and plus_one before the stream.
+#define WNA16_NORM_DEFINE_ENTRY(NAME, BITS)                                                     \
+    extern "C" int NAME##_norm(const void* x, const int64_t* kperm, const int32_t* qweight,     \
+                               const void* scales, const uint8_t* zeros, const void* bias,      \
+                               void* out, float* partial, int dtype, int M, int K, int N,       \
+                               int gs, int kc, int splits, const void* nw, int nw_dtype,        \
+                               float eps, int plus_one, void* stream) {                         \
+        return wna16_gemm<BITS, true>(x, kperm, qweight, scales, zeros, bias, out, partial,     \
+                                      dtype, M, K, N, gs, kc, splits, stream,                   \
+                                      Prenorm{nw, nw_dtype, eps, plus_one});                    \
     }

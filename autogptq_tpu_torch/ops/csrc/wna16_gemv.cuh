@@ -190,14 +190,20 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
 // holds xrows <= MT of them. ROUTED: the operands are a stack of E experts ([E, K/P, N] words,
 // [E, G, N] scales and zeros); slice z (blockIdx.z) serves the z-th distinct expert of
 // sel[0..M) and takes the rows p with sel[p] equal to it (M <= 16: a warp's ballot).
-template <int BITS, typename T, int MT, typename Words, bool ROUTED>
+// PRENORM (not with ROUTED): the fused RMS-norm prologue of wna16_gemm.cuh. The block reduces
+// x[m, 0:K]^2 of its M rows from L2 while its first weight stages fly, then normalizes its
+// staged K chunk as it puts it in slot order, each element rounded once to T; the chunk's norm
+// weight is copied with x into kc * 4 bytes after the x stage (gathered x reads it from global
+// memory by column).
+template <int BITS, typename T, int MT, typename Words, bool ROUTED, bool PRENORM = false>
 __device__ __forceinline__ void gemv_block(
     const T* __restrict__ x, const int64_t* __restrict__ kperm,
     const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
     const uint8_t* __restrict__ zeros, const T* __restrict__ bias, T* __restrict__ out,
     float* __restrict__ ws, int* __restrict__ counters, const int32_t* __restrict__ sel,
     int* __restrict__ err, int M, int K, int N, int gs, int kc, int splits, int gather,
-    Words words, int ldsz, int E, int xrows) {
+    Words words, int ldsz, int E, int xrows, Prenorm pn = Prenorm{}) {
+    static_assert(!(PRENORM && ROUTED), "the prologue takes rows 0..M of x");
     using L = GvStage<BITS>;
     using C = GvCodes<BITS, T>;
     constexpr int P = L::P;
@@ -206,6 +212,8 @@ __device__ __forceinline__ void gemv_block(
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ int last_block;
     __shared__ int pair_of[ROUTED ? MT : 1]; // ROUTED: the row of x and out of each block row
+    __shared__ float rstd[PRENORM ? MT : 1];  // PRENORM: 1 / rms of each row of x
+    __shared__ float red[PRENORM ? MT * GV_WARPS : 1];
     T* const xs = reinterpret_cast<T*>(smem + GV_STAGES * L::BYTES);   // [MT][kc + GV_XPAD]
     const int ldx = kc + GV_XPAD;
     const int tid = threadIdx.x;
@@ -295,12 +303,22 @@ __device__ __forceinline__ void gemv_block(
         for (int s = 0; s < 16; s += 2)
             dst[s / 2] = bits16(v[perm_slot<BITS>(s)]) | (bits16(v[perm_slot<BITS>(s + 1)]) << 16);
     };
+    // PRENORM: the chunk's norm weight [kc] of type pn.wdt, after the x stage
+    unsigned char* const nws = reinterpret_cast<unsigned char*>(xs) + gv_x_bytes(MT, kc);
     if (!gather) {                               // K % 8 == 0, x 16-byte aligned
         for (int c = tid; c < rows * (kc / 8); c += GV_THREADS) {
             const int m = c / (kc / 8), q = c - m * (kc / 8);
             const int k = k0 + 8 * q;
             cp_async16_zfill(xs + m * ldx + 8 * q, k < K ? x + (int64_t)row(m) * K + k : x,
                              k < K);
+        }
+        if constexpr (PRENORM) {                 // pn.w 16-byte aligned too (gv_gather)
+            const int wsz = prenorm_wsize(pn.wdt), per = 16 / wsz;
+            const unsigned char* w = static_cast<const unsigned char*>(pn.w);
+            for (int c = tid; c < kc / per; c += GV_THREADS) {
+                const int k = k0 + c * per;      // K % 8 == 0: a copy lies inside K or past it
+                cp_async16_zfill(nws + c * 16, k < K ? w + (int64_t)k * wsz : w, k < K);
+            }
         }
     }
     cp_async_commit();
@@ -310,6 +328,17 @@ __device__ __forceinline__ void gemv_block(
         if (s < ntiles) fetch(s, smem + s * L::BYTES);
         cp_async_commit();   // one group per stage, empty past the end: wait counts alike
     }
+    if constexpr (PRENORM) prenorm_rstd<T, MT>(x, K, rows, pn.eps, rstd, red);
+    // x_n of row m, K rows kb.. of a step (past K: left as staged, zero)
+    auto normalize = [&](int m, int kb, T (&v)[16]) {
+        if constexpr (PRENORM) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+                if (kb + i < K)
+                    v[i] = prenorm_apply(v[i], rstd[m],
+                                         prenorm_weight_at(nws, pn.wdt, kb + i - k0, pn.plus_one));
+        }
+    };
     if (!gather) {
         cp_async_wait<GV_STAGES - 1>();          // x has landed; the weight stages may still fly
         __syncthreads();
@@ -320,6 +349,7 @@ __device__ __forceinline__ void gemv_block(
             T v[16];
 #pragma unroll
             for (int i = 0; i < 16; ++i) v[i] = reinterpret_cast<const T*>(raw)[i];
+            normalize(m, k0 + 16 * step, v);
             store_x(m, step, v);                 // this thread's own 32 bytes: in place
         }
     } else {
@@ -335,9 +365,14 @@ __device__ __forceinline__ void gemv_block(
 #pragma unroll
             for (int r = 0; r < 4; ++r)
 #pragma unroll
-                for (int i = 0; i < 16; ++i)
+                for (int i = 0; i < 16; ++i) {
                     v[r][i] = m0 + r < rows && src[i] >= 0
                                   ? x[(int64_t)row(m0 + r) * K + src[i]] : from_f32<T>(0.0f);
+                    if constexpr (PRENORM)   // the norm weight of x's own column
+                        if (m0 + r < rows && src[i] >= 0)
+                            v[r][i] = prenorm_apply(v[r][i], rstd[m0 + r],
+                                                    prenorm_weight(pn, src[i]));
+                }
 #pragma unroll
             for (int r = 0; r < 4; ++r)
                 if (m0 + r < rows) store_x(m0 + r, step, v[r]);
@@ -515,22 +550,32 @@ __device__ __forceinline__ void gemv_block(
     }
 }
 
-// K1/K4/K5: GPTQ words [K/P, N], scales and zeros [G, N].
-template <int BITS, typename T, int MT>
+// K1/K4/K5: GPTQ words [K/P, N], scales and zeros [G, N]; PRENORM (K1 only) with the fused
+// RMS-norm prologue.
+template <int BITS, typename T, int MT, bool PRENORM = false>
 __global__ void __launch_bounds__(GV_THREADS, 4)
 wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                   const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                   const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                   T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
-                  int M, int K, int N, int gs, int kc, int splits, int gather) {
-    gemv_block<BITS, T, MT, GptqWords, false>(x, kperm, qweight, scales, zeros, bias, out, ws,
-                                              counters, nullptr, nullptr, M, K, N, gs, kc, splits,
-                                              gather, GptqWords{N}, N, 1, MT);
+                  int M, int K, int N, int gs, int kc, int splits, int gather, Prenorm pn) {
+    gemv_block<BITS, T, MT, GptqWords, false, PRENORM>(x, kperm, qweight, scales, zeros, bias,
+                                                       out, ws, counters, nullptr, nullptr, M, K,
+                                                       N, gs, kc, splits, gather, GptqWords{N},
+                                                       N, 1, MT, pn);
 }
 
-// Whether x must be gathered by register loads (kperm, or rows not in 16-byte copies).
-inline int gv_gather(const void* x, const int64_t* kperm, int K) {
-    return kperm != nullptr || K % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0;
+// Whether x must be gathered by register loads (kperm, or rows not in 16-byte copies; with the
+// fused prologue also a norm weight that is not 16-byte aligned).
+inline int gv_gather(const void* x, const int64_t* kperm, int K, const void* nw = nullptr) {
+    return kperm != nullptr || K % 8 != 0 || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+           (reinterpret_cast<uintptr_t>(nw) & 15) != 0;
+}
+
+// Dynamic shared memory of a GEMV block; the fused prologue adds its chunk of norm weight.
+template <int BITS, bool PRENORM>
+constexpr int gv_block_smem(int mt, int kc) {
+    return gv_smem_bytes<BITS>(mt, kc) + (PRENORM ? kc * 4 : 0);
 }
 
 // The checks every GEMV entry makes on its plan: kc rows per split, splits of them cover K once.
@@ -540,53 +585,59 @@ inline bool gv_plan_ok(int K, int gs, int kc, int splits, const float* ws, const
            (splits == 1 || (ws != nullptr && counters != nullptr));
 }
 
-template <int BITS, typename T, int MT>
+template <int BITS, typename T, int MT, bool PRENORM>
 cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                         const __half* scales, const uint8_t* zeros, const void* bias, void* out,
                         float* ws, int* counters, int M, int K, int N, int gs, int kc, int splits,
-                        cudaStream_t stream) {
-    static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT>, GV_SMEM_LIMIT);
+                        cudaStream_t stream, Prenorm pn) {
+    static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT, PRENORM>,
+                                               GV_SMEM_LIMIT);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
-    wna16_gemv_kernel<BITS, T, MT><<<grid, GV_THREADS, gv_smem_bytes<BITS>(MT, kc), stream>>>(
-        static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits, gv_gather(x, kperm, K));
+    wna16_gemv_kernel<BITS, T, MT, PRENORM>
+        <<<grid, GV_THREADS, gv_block_smem<BITS, PRENORM>(MT, kc), stream>>>(
+            static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+            static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits,
+            gv_gather(x, kperm, K, PRENORM ? pn.w : nullptr), pn);
     return cudaGetLastError();
 }
 
-template <int BITS, typename T>
+template <int BITS, typename T, bool PRENORM>
 cudaError_t launch_gemv_rows(const void* x, const int64_t* kperm, const int32_t* qweight,
                              const __half* scales, const uint8_t* zeros, const void* bias,
                              void* out, float* ws, int* counters, int M, int K, int N, int gs,
-                             int kc, int splits, cudaStream_t stream) {
+                             int kc, int splits, cudaStream_t stream, Prenorm pn) {
     if (M <= 8)
-        return launch_gemv<BITS, T, 8>(x, kperm, qweight, scales, zeros, bias, out, ws, counters,
-                                       M, K, N, gs, kc, splits, stream);
-    return launch_gemv<BITS, T, 16>(x, kperm, qweight, scales, zeros, bias, out, ws, counters,
-                                    M, K, N, gs, kc, splits, stream);
+        return launch_gemv<BITS, T, 8, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, ws,
+                                                counters, M, K, N, gs, kc, splits, stream, pn);
+    return launch_gemv<BITS, T, 16, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, ws,
+                                             counters, M, K, N, gs, kc, splits, stream, pn);
 }
 
-// The GEMV over GPTQ words [K/P, N] (K1, K4, K5): kc K rows per split, splits of them.
-template <int BITS>
+// The GEMV over GPTQ words [K/P, N] (K1, K4, K5): kc K rows per split, splits of them;
+// PRENORM with the fused RMS-norm prologue.
+template <int BITS, bool PRENORM = false>
 int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                     const void* scales, const uint8_t* zeros, const void* bias, void* out,
                     float* ws, int* counters, int dtype, int M, int K, int N, int gs, int kc,
-                    int splits, void* stream) {
+                    int splits, void* stream, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
     if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 ||
         !gv_plan_ok(K, gs, kc, splits, ws, counters) ||
-        gv_smem_bytes<BITS>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT)
+        gv_block_smem<BITS, PRENORM>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT ||
+        (PRENORM && !prenorm_ok(M, pn)))
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case DT_F16:
-            return (int)launch_gemv_rows<BITS, __half>(x, kperm, qweight, s, zeros, bias, out, ws,
-                                                       counters, M, K, N, gs, kc, splits, st);
+            return (int)launch_gemv_rows<BITS, __half, PRENORM>(
+                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
+                pn);
         case DT_BF16:
-            return (int)launch_gemv_rows<BITS, __nv_bfloat16>(x, kperm, qweight, s, zeros, bias,
-                                                              out, ws, counters, M, K, N, gs, kc,
-                                                              splits, st);
+            return (int)launch_gemv_rows<BITS, __nv_bfloat16, PRENORM>(
+                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
+                pn);
         default:   // f32 activations take the SIMT GEMV
             return (int)cudaErrorInvalidValue;
     }
@@ -626,4 +677,19 @@ int wna16_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
     }                                                                                           \
     extern "C" int NAME##_gemv_occupancy(int dtype, int M, int kc, int* blocks) {               \
         return wna16_gemv_occupancy<BITS>(dtype, M, kc, blocks);                                \
+    }
+
+// Exports `int NAME_gemv_norm(...)`: the tensor-core decode GEMV with the fused RMS-norm
+// prologue, the arguments of NAME_gemv and the norm weight, its dtype code, eps and plus_one
+// before the stream.
+#define WNA16_GEMV_NORM_DEFINE_ENTRY(NAME, BITS)                                                \
+    extern "C" int NAME##_gemv_norm(const void* x, const int64_t* kperm,                        \
+                                    const int32_t* qweight, const void* scales,                 \
+                                    const uint8_t* zeros, const void* bias, void* out,          \
+                                    float* ws, int* counters, int dtype, int M, int K, int N,   \
+                                    int gs, int kc, int splits, const void* nw, int nw_dtype,   \
+                                    float eps, int plus_one, void* stream) {                    \
+        return wna16_gemm_gemv<BITS, true>(x, kperm, qweight, scales, zeros, bias, out, ws,     \
+                                           counters, dtype, M, K, N, gs, kc, splits, stream,    \
+                                           Prenorm{nw, nw_dtype, eps, plus_one});               \
     }

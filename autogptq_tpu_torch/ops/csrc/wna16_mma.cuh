@@ -185,17 +185,27 @@ template <int BITS> struct FwStage {   // byte offsets within one stage
     static_assert(BYTES % 16 == 0, "stages must stay 16-byte aligned");
 };
 
-template <int BITS, typename T, typename Words>
+constexpr int FW_NW_BYTES = FW_BK * 4;  // PRENORM: a K tile's norm weight (at most f32)
+
+// PRENORM: the fused RMS-norm prologue of wna16_gemm.cuh (M < PN_MAX_ROWS, one row block). Each
+// K tile's norm weight rides in a slot of its own beside the stages (copied with the tile), and
+// once the tile has landed its rows of x are normalized in place, each element rounded once to
+// T, before a second barrier lets the MMAs read them; gathered x (kperm, or x or the weight
+// not 16-byte aligned) is normalized as it is stored.
+template <int BITS, typename T, typename Words, bool PRENORM = false>
 __global__ void __launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)
 wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                  T* __restrict__ out, int M, int K, int N, int gs, Words words, int ldsz,
-                 int gather) {
+                 int gather, Prenorm pn) {
     using L = FwStage<BITS>;
     constexpr int P = L::P;
     constexpr int WROWS = FW_BK / P;        // word rows per K tile
     extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ float rstd[PRENORM ? PN_MAX_ROWS : 1];
+    __shared__ float red[PRENORM ? PN_MAX_ROWS * (MMA_THREADS / 32) : 1];
+    unsigned char* const nws = smem + FW_STAGES * L::BYTES;   // PRENORM: [FW_STAGES][FW_NW_BYTES]
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int wm = (tid >> 5) / MMA_WARPS_N;   // warp row: output rows 64 wm ..
@@ -217,12 +227,25 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                 const bool ok = m < M && k < K;
                 cp_async16_zfill(xs + r * MMA_LD + q * 8, ok ? x + (int64_t)m * K + k : x, ok);
             }
+            if constexpr (PRENORM) {                 // the tile's norm weight, 16 bytes a copy
+                const int wsz = prenorm_wsize(pn.wdt), per = 16 / wsz;
+                const unsigned char* w = static_cast<const unsigned char*>(pn.w);
+                unsigned char* dst = nws + (tile % FW_STAGES) * FW_NW_BYTES;
+                for (int c = tid; c < FW_BK / per; c += MMA_THREADS) {
+                    const int k = kt + c * per;      // K % 8 == 0: a copy lies inside K or past it
+                    cp_async16_zfill(dst + c * 16, k < K ? w + (int64_t)k * wsz : w, k < K);
+                }
+            }
         } else {
             for (int i = tid; i < MMA_BM * FW_BK; i += MMA_THREADS) {
                 const int r = i / FW_BK, kk = i % FW_BK;
                 const int m = m0 + r, k = kt + kk;
                 T v = from_f32<T>(0.0f);
-                if (m < M && k < K) v = x[(int64_t)m * K + (kperm != nullptr ? kperm[k] : k)];
+                if (m < M && k < K) {
+                    const int64_t c = kperm != nullptr ? kperm[k] : (int64_t)k;
+                    v = x[(int64_t)m * K + c];
+                    if constexpr (PRENORM) v = prenorm_apply(v, rstd[r], prenorm_weight(pn, c));
+                }
                 xs[r * MMA_LD + kk] = v;
             }
         }
@@ -263,6 +286,9 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
 #pragma unroll
             for (int c = 0; c < 4; ++c) acc[i][j][c] = part[i][j][c] = 0.0f;
 
+    if constexpr (PRENORM)
+        prenorm_rstd<T, PN_MAX_ROWS>(x + (int64_t)m0 * K, K, min(M - m0, PN_MAX_ROWS), pn.eps,
+                                     rstd, red);
 #pragma unroll
     for (int s = 0; s < FW_STAGES - 1; ++s) {
         if (s < ntiles) fetch(s, smem + s * L::BYTES);
@@ -279,6 +305,26 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
         cp_async_commit();
 
         const unsigned char* st = smem + (t % FW_STAGES) * L::BYTES;
+        if constexpr (PRENORM) {
+            if (!gather) {   // the tile's rows of x normalized in place (rows past M stay zero)
+                T* xn = reinterpret_cast<T*>(smem + (t % FW_STAGES) * L::BYTES + L::X);
+                const unsigned char* wsl = nws + (t % FW_STAGES) * FW_NW_BYTES;
+                const int rows = min(M - m0, PN_MAX_ROWS);
+                for (int c = tid; c < rows * (FW_BK / 8); c += MMA_THREADS) {
+                    const int r = c / (FW_BK / 8), q = c % (FW_BK / 8);
+                    if (t * FW_BK + 8 * q >= K) continue;
+                    uint4* p = reinterpret_cast<uint4*>(xn + r * MMA_LD + 8 * q);
+                    uint4 raw = *p;
+                    T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+                    for (int e = 0; e < 8; ++e)
+                        v[e] = prenorm_apply(v[e], rstd[r],
+                                             prenorm_weight_at(wsl, pn.wdt, 8 * q + e, pn.plus_one));
+                    *p = raw;
+                }
+                __syncthreads();
+            }
+        }
         const T* xs = reinterpret_cast<const T*>(st + L::X);
         const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + L::W);
         const __half* ss = reinterpret_cast<const __half*>(st + L::S);
@@ -355,52 +401,56 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     }
 }
 
-template <int BITS, typename T, typename Words>
+template <int BITS, typename T, typename Words, bool PRENORM = false>
 cudaError_t launch_mma(const void* x, const int64_t* kperm, const int32_t* qweight,
                        const __half* scales, const uint8_t* zeros, const void* bias, void* out,
-                       int M, int K, int N, int gs, Words words, int ldsz, cudaStream_t stream) {
-    constexpr int smem = FW_STAGES * FwStage<BITS>::BYTES;
+                       int M, int K, int N, int gs, Words words, int ldsz, cudaStream_t stream,
+                       Prenorm pn = Prenorm{}) {
+    constexpr int smem = FW_STAGES * (FwStage<BITS>::BYTES + (PRENORM ? FW_NW_BYTES : 0));
     // function-local static: the attribute is set once per instantiation, thread-safely
-    static const cudaError_t attr = allow_smem(wna16_mma_kernel<BITS, T, Words>, smem);
+    static const cudaError_t attr = allow_smem(wna16_mma_kernel<BITS, T, Words, PRENORM>, smem);
     if (attr != cudaSuccess) return attr;
     const int gather = kperm != nullptr || K % 8 != 0 ||
-                       (reinterpret_cast<uintptr_t>(x) & 15) != 0;
+                       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+                       (PRENORM && (reinterpret_cast<uintptr_t>(pn.w) & 15) != 0);
     const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-    wna16_mma_kernel<BITS, T, Words><<<grid, MMA_THREADS, smem, stream>>>(
+    wna16_mma_kernel<BITS, T, Words, PRENORM><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-        static_cast<T*>(out), M, K, N, gs, words, ldsz, gather);
+        static_cast<T*>(out), M, K, N, gs, words, ldsz, gather, pn);
     return cudaGetLastError();
 }
 
-template <int BITS, typename Words>
+template <int BITS, typename Words, bool PRENORM = false>
 int launch_mma_dtype(const void* x, const int64_t* kperm, const int32_t* qweight,
                      const void* scales, const uint8_t* zeros, const void* bias, void* out,
-                     int dtype, int M, int K, int N, int gs, Words words, int ldsz, void* stream) {
+                     int dtype, int M, int K, int N, int gs, Words words, int ldsz, void* stream,
+                     Prenorm pn = Prenorm{}) {
     const __half* s = static_cast<const __half*>(scales);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case DT_F16:
-            return (int)launch_mma<BITS, __half>(x, kperm, qweight, s, zeros, bias, out, M, K, N,
-                                                 gs, words, ldsz, st);
+            return (int)launch_mma<BITS, __half, Words, PRENORM>(
+                x, kperm, qweight, s, zeros, bias, out, M, K, N, gs, words, ldsz, st, pn);
         case DT_BF16:
-            return (int)launch_mma<BITS, __nv_bfloat16>(x, kperm, qweight, s, zeros, bias, out,
-                                                        M, K, N, gs, words, ldsz, st);
+            return (int)launch_mma<BITS, __nv_bfloat16, Words, PRENORM>(
+                x, kperm, qweight, s, zeros, bias, out, M, K, N, gs, words, ldsz, st, pn);
         default:   // f32 activations take the SIMT kernels
             return (int)cudaErrorInvalidValue;
     }
 }
 
-// The forward over GPTQ words [K/P, N] (K1, K4, K5).
-template <int BITS>
+// The forward over GPTQ words [K/P, N] (K1, K4, K5); PRENORM with the fused RMS-norm prologue.
+template <int BITS, bool PRENORM = false>
 int wna16_gemm_mma(const void* x, const int64_t* kperm, const int32_t* qweight,
                    const void* scales, const uint8_t* zeros, const void* bias, void* out,
-                   int dtype, int M, int K, int N, int gs, void* stream) {
+                   int dtype, int M, int K, int N, int gs, void* stream, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
     if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % 16 != 0 ||
-        (M + MMA_BM - 1) / MMA_BM > 65535)
+        (M + MMA_BM - 1) / MMA_BM > 65535 || (PRENORM && !prenorm_ok(M, pn)))
         return (int)cudaErrorInvalidValue;
-    return launch_mma_dtype<BITS>(x, kperm, qweight, scales, zeros, bias, out, dtype, M, K, N,
-                                  gs, GptqWords{N}, N, stream);
+    return launch_mma_dtype<BITS, GptqWords, PRENORM>(x, kperm, qweight, scales, zeros, bias,
+                                                      out, dtype, M, K, N, gs, GptqWords{N}, N,
+                                                      stream, pn);
 }
 
 // ---- backward (K10): dx = g @ dequant(W)^T -------------------------------------------------
@@ -662,4 +712,18 @@ int launch_t_mma_dtype(const void* g, const int64_t* kperm, const int32_t* qweig
                               void* out, int dtype, int M, int K, int N, int gs, void* stream) { \
         return wna16_gemm_mma<BITS>(x, kperm, qweight, scales, zeros, bias, out, dtype, M, K,   \
                                     N, gs, stream);                                             \
+    }
+
+// Exports `int NAME_mma_norm(...)`: the tensor-core forward with the fused RMS-norm prologue
+// (M < 32), the arguments of NAME_mma and the norm weight, its dtype code, eps and plus_one
+// before the stream.
+#define WNA16_MMA_NORM_DEFINE_ENTRY(NAME, BITS)                                                 \
+    extern "C" int NAME##_mma_norm(const void* x, const int64_t* kperm, const int32_t* qweight, \
+                                   const void* scales, const uint8_t* zeros, const void* bias,  \
+                                   void* out, int dtype, int M, int K, int N, int gs,           \
+                                   const void* nw, int nw_dtype, float eps, int plus_one,       \
+                                   void* stream) {                                              \
+        return wna16_gemm_mma<BITS, true>(x, kperm, qweight, scales, zeros, bias, out, dtype,   \
+                                          M, K, N, gs, stream,                                  \
+                                          Prenorm{nw, nw_dtype, eps, plus_one});                \
     }

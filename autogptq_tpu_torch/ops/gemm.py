@@ -42,6 +42,17 @@ and f16 pairs whose group size 16 divides to the expert-major tensor-core GEMV
 (``<name>_gemv``, planned by :func:`routed_plan`: each selected expert streams
 once per call), the rest to the SIMT routed kernel and its reduce.
 
+K1's fused RMS-norm prologue (``csrc/wna16_gemm.cuh``, the ``PRENORM``
+instances of its GEMVs and tile kernels, in ``w4a16_gemm`` only) replaces the
+TPU prologue ``_prenorm_x`` that ``_kernel_kb32`` and ``_kernel_ki32`` run for
+``matmul_pallas(prenorm=)``: ``wna16_matmul(..., prenorm=(w, eps, plus_one))``
+multiplies ``rms_apply(x, w, eps, plus_one)`` by the weight. A call
+:func:`prenorm_eligible` admits launches the fused instance of the kernel
+:func:`route` names (launch counts ``w4a16_gemm_gemv_norm``,
+``w4a16_gemm_mma_norm``, ``w4a16_gemm_norm``); any other call applies
+:func:`rms_apply` and then the usual kernel, the JAX package's unfused branch;
+a CPU tensor takes :func:`rms_apply` and the plain version.
+
 K6, K1's function over the tile-contiguous ``kb32l`` words
 (``csrc/w4a16_kb32l_gemm.cu``, address in ``csrc/kb32l_tile.cuh``), replaces
 the TPU kernels ``_matmul_kb32l`` and ``_kernel_kb32l_manual``.
@@ -92,6 +103,8 @@ GEMV_MAX_SPLITS = 32    # partials the last block adds, at most
 GEMV_WS_SHARE = 0.25    # f32 partials at most this share of the weight's bytes
 GEMV_X_SMEM = 32768     # bytes of a block's staged x [8 or 16, K chunk] the plan aims under
 GEMV_SMEM_LIMIT = 200 * 1024   # dynamic shared memory a GEMV block may take (csrc)
+NORM_SUFFIX = "_norm"   # entry point and launch-count key of a kernel's fused RMS-norm prologue
+PRENORM_MAX_M = 32      # the fused prologue takes fewer rows than this (the JAX kernel's assert)
 
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
@@ -142,6 +155,37 @@ def wna16_matmul_ref(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Ten
     if bias is not None:
         y = y + bias.float()
     return y.to(x2d.dtype)
+
+
+def rms_apply(x: torch.Tensor, w: torch.Tensor, eps: float, plus_one: bool) -> torch.Tensor:
+    """The unfused RMS norm of a prenorm request (the JAX ``rms_apply``,
+    ``autogptq_tpu/ops/pallas/gemm.py:1583``): f32 statistics over the last
+    axis, ``1 + w`` when ``plus_one``, one cast to ``x``'s dtype; the same
+    operations as ``models.arch.rms_norm``."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    wf = w.float()
+    if plus_one:
+        wf = 1.0 + wf
+    return (xf * torch.rsqrt(var + eps) * wf).to(x.dtype)
+
+
+def prenorm_eligible(m: int, k: int, group_size: int, bits: int,
+                     kperm: Optional[torch.Tensor] = None, layout: str = "gptq",
+                     norm_len: Optional[int] = None) -> bool:
+    """Whether a product of ``m`` rows takes K1's fused RMS-norm prologue on
+    the card: the JAX rule of ``matmul_pallas`` (``gemm.py:1612-1620``: a
+    kb32 or ki32 layer, no kperm, fewer than 32 rows, a norm weight of K) with
+    its layout choice (``quantlinear.from_packed``, ``quantlinear.py:312-341``:
+    4-bit storage, so 3- and 4-bit codes, a group size that is a multiple of
+    32 and divides K, K % 8 == 0) in the port's terms; kb32l layers are not
+    eligible. ``bits`` is the code width or the storage width. (Where the JAX
+    kb32 layout pads K to 1024 it unfuses too; the port's words are never
+    padded, so that case has no counterpart.)"""
+    gs = k if group_size == -1 else group_size
+    return (STORAGE_BITS.get(bits) == 4 and gs > 0 and gs % 32 == 0 and k % gs == 0
+            and k % 8 == 0 and kperm is None and layout != "kb32l" and m < PRENORM_MAX_M
+            and (k if norm_len is None else norm_len) == k)
 
 
 def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
@@ -296,33 +340,43 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _lib(name: str):
-    fn = getattr(build.load(name), name)
+# the fused prologue's arguments before the stream: the norm weight, its dtype code, eps, plus_one
+NORM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+
+
+def _bind(name: str, entry: str, argtypes: list):
+    fn = getattr(build.load(name), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def _lib_mma(name: str):
+def _lib(name: str, norm: bool = False):
+    """Library ``name``'s SIMT kernels ``<name>(x, kperm, qweight, scales,
+    zeros, bias, out, partial, dtype, M, K, N, gs, kc, splits, stream)``;
+    ``norm``: ``<name>_norm``, with :data:`NORM_ARGTYPES` before the stream."""
+    tail = NORM_ARGTYPES if norm else []
+    return _bind(name, name + (NORM_SUFFIX if norm else ""),
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p])
+
+
+def _lib_mma(name: str, norm: bool = False):
     """Library ``name``'s tensor-core forward ``<name>_mma(x, kperm, qweight,
-    scales, zeros, bias, out, dtype, M, K, N, gs, stream)``."""
-    fn = getattr(build.load(name), name + MMA_SUFFIX)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    scales, zeros, bias, out, dtype, M, K, N, gs, stream)``; ``norm``:
+    ``<name>_mma_norm``."""
+    tail = NORM_ARGTYPES if norm else []
+    return _bind(name, name + MMA_SUFFIX + (NORM_SUFFIX if norm else ""),
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + tail + [ctypes.c_void_p])
 
 
-def _lib_gemv(name: str):
+def _lib_gemv(name: str, norm: bool = False):
     """Library ``name``'s tensor-core decode GEMV ``<name>_gemv(x, kperm,
     qweight, scales, zeros, bias, out, ws, counters, dtype, M, K, N, gs, kc,
-    splits, stream)``."""
-    fn = getattr(build.load(name), name + GEMV_SUFFIX)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    splits, stream)``; ``norm``: ``<name>_gemv_norm``."""
+    tail = NORM_ARGTYPES if norm else []
+    return _bind(name, name + GEMV_SUFFIX + (NORM_SUFFIX if norm else ""),
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p])
 
 
 def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int,
@@ -392,47 +446,71 @@ def _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits,
     return gs
 
 
+def _check_norm(w: torch.Tensor, k: int, dev) -> None:
+    if (w.dim() != 1 or w.shape[0] != k or w.dtype not in DTYPE_CODES or w.device != dev
+            or not w.is_contiguous()):
+        raise ValueError(f"the norm weight must be a contiguous f32/f16/bf16 [{k}] tensor on "
+                         f"{dev}, got {tuple(w.shape)} {w.dtype} on {w.device}")
+
+
 def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
                  zeros: torch.Tensor, kperm: Optional[torch.Tensor],
                  bias: Optional[torch.Tensor], group_size: int, bits: int,
-                 kernel: Optional[str] = None) -> torch.Tensor:
+                 kernel: Optional[str] = None, prenorm: Optional[tuple] = None) -> torch.Tensor:
     """``x2d [M, K] @ W -> [M, N]`` in ``x2d``'s dtype for ``bits``-bit words
     (2, 4 or 8). A CPU tensor takes the plain version; a CUDA tensor launches
     the kernel of that width that :func:`route` names (``kernel``, or the one
-    :func:`forced_kernel` sets, passed on to it), or raises."""
+    :func:`forced_kernel` sets, passed on to it), or raises.
+
+    ``prenorm=(w, eps, plus_one)`` multiplies ``rms_apply(x2d, w, eps,
+    plus_one)`` instead (the JAX ``matmul_pallas(prenorm=)``): on the card a
+    call :func:`prenorm_eligible` admits launches that kernel's fused
+    instance (key ``<name>[_gemv|_mma]_norm``), any other applies
+    :func:`rms_apply` first; on the CPU :func:`rms_apply` and the plain
+    version."""
     if bits not in KERNEL_NAMES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if x2d.device.type == "cpu":
+        if prenorm is not None:
+            x2d = rms_apply(x2d, *prenorm)
         return wna16_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, bits)
     name = KERNEL_NAMES[bits]
     if x2d.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or, through its plain version, on the CPU; "
                          f"got a tensor on {x2d.device}")
+    if prenorm is not None and not prenorm_eligible(x2d.shape[0], x2d.shape[-1], group_size,
+                                                    bits, kperm, norm_len=prenorm[0].shape[-1]):
+        x2d, prenorm = rms_apply(x2d, *prenorm), None     # the JAX package's unfused branch
     gs = _check_operands(x2d, qweight, scales, zeros, kperm, bias, group_size, bits)
     m, k = x2d.shape
     n = qweight.shape[1]
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
+    norm, suffix, extra = prenorm is not None, "", ()
+    if norm:
+        w, eps, plus_one = prenorm
+        _check_norm(w, k, x2d.device)
+        suffix, extra = NORM_SUFFIX, (_ptr(w), DTYPE_CODES[w.dtype], float(eps), int(plus_one))
     chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0])
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
         plan = gemv_plan(k, n, m, gs, bits, sms)
         ws, counters = build.split_scratch(name + GEMV_SUFFIX, x2d.device,
                                            plan["splits"] * m * n, plan["col_blocks"])
-        code = _lib_gemv(name)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
-                               _ptr(bias), _ptr(out), _ptr(ws), _ptr(counters),
-                               DTYPE_CODES[x2d.dtype], m, k, n, gs, plan["kc"], plan["splits"],
-                               _stream(x2d))
+        code = _lib_gemv(name, norm)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                                     _ptr(zeros), _ptr(bias), _ptr(out), _ptr(ws),
+                                     _ptr(counters), DTYPE_CODES[x2d.dtype], m, k, n, gs,
+                                     plan["kc"], plan["splits"], *extra, _stream(x2d))
         build.check(name, code)
-        build.launches[name + GEMV_SUFFIX] += 1
+        build.launches[name + GEMV_SUFFIX + suffix] += 1
         return out
     if chosen == "mma":
-        code = _lib_mma(name)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
-                              _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype], m, k, n, gs,
-                              _stream(x2d))
+        code = _lib_mma(name, norm)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
+                                    _ptr(zeros), _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype],
+                                    m, k, n, gs, *extra, _stream(x2d))
         build.check(name, code)
-        build.launches[name + MMA_SUFFIX] += 1
+        build.launches[name + MMA_SUFFIX + suffix] += 1
         return out
     kc, splits, partial = 0, 0, None
     if m <= DECODE_MAX_M:
@@ -440,12 +518,11 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         kc, splits = split_k(k, n, gs, sms, 32 // bits)
         if splits > 1:
             partial = torch.empty((splits, m, n), dtype=torch.float32, device=x2d.device)
-    fn = _lib(name)
-    code = fn(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros), _ptr(bias),
-              _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n, gs, kc, splits,
-              _stream(x2d))
+    code = _lib(name, norm)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros),
+                            _ptr(bias), _ptr(out), _ptr(partial), DTYPE_CODES[x2d.dtype], m, k, n,
+                            gs, kc, splits, *extra, _stream(x2d))
     build.check(name, code)
-    build.launches[name] += 1
+    build.launches[name + suffix] += 1
     return out
 
 
@@ -955,7 +1032,7 @@ __all__ = [
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k", "tile_kernel", "route", "gemv_plan", "gemv_blocks_per_sm", "forced_kernel",
-    "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "ROUTED_KERNEL", "wna16_routed_matmul",
+    "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "NORM_SUFFIX", "rms_apply", "prenorm_eligible", "ROUTED_KERNEL", "wna16_routed_matmul",
     "wna16_routed_matmul_ref", "routed_route", "routed_plan", "routed_slices",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
     "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",

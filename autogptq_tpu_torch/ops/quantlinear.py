@@ -24,7 +24,9 @@ Counterpart of the JAX package's ``ops/quantlinear.py``.
   for a CUDA tensor and its plain version for a CPU tensor. It is
   differentiable in ``x`` on both routes through :class:`QuantMatmul`, whose
   backward is :func:`matmul_t` (K10 on the card); the weights get no
-  gradient, as the JAX custom VJP gives them zero cotangents.
+  gradient, as the JAX custom VJP gives them zero cotangents. With
+  ``prenorm=`` it applies an RMS norm first, fused into K1's kernels where
+  eligible (inference only, outside :class:`QuantMatmul`).
 * :class:`StackedQuantLinear` (:func:`stack_experts`) holds an MoE block's
   experts on a leading axis; :func:`matmul_stacked` applies every expert
   (dense prefill) and :func:`matmul_routed` one expert per row (K9 on the
@@ -288,12 +290,32 @@ class QuantMatmul(torch.autograd.Function):
         return matmul_t(g, ctx.ql), None
 
 
-def matmul(x: torch.Tensor, ql: QuantLinear) -> torch.Tensor:
+def matmul(x: torch.Tensor, ql: QuantLinear, prenorm: Optional[tuple] = None) -> torch.Tensor:
     """Quantized ``y = x @ dequant(W) (+ bias)``, ``x [..., K] -> [..., N]``.
     A CUDA tensor launches K1 (3/4-bit), K4 (8-bit), K5 (2-bit) or K6 (the
     kb32l layout) or raises; a CPU tensor takes the plain path.
-    Differentiable in ``x`` on both routes (:class:`QuantMatmul`)."""
-    return QuantMatmul.apply(x, ql)
+    Differentiable in ``x`` on both routes (:class:`QuantMatmul`).
+
+    ``prenorm=(weight, eps, plus_one)`` applies an RMS norm to ``x`` first,
+    fused into K1's kernels where ``gemm.prenorm_eligible`` admits the call
+    (``gemm.wna16_matmul(prenorm=)``), else unfused (``gemm.rms_apply``; a
+    kb32l layer always). Inference only, as in the JAX package, whose prenorm
+    path lies outside its custom VJP: with grad mode on, an ``x`` or a norm
+    weight that requires grad raises rather than lose its gradient."""
+    if prenorm is None:
+        return QuantMatmul.apply(x, ql)
+    if torch.is_grad_enabled() and (x.requires_grad or prenorm[0].requires_grad):
+        raise RuntimeError("the fused-norm matmul (prenorm=) is inference-only: it has no "
+                           "gradient; run it under torch.no_grad() or without prenorm")
+    x2d = x.reshape(-1, ql.in_features).contiguous()
+    if ql.layout == "kb32l":
+        y = gemm.w4a16_kb32l_matmul(gemm.rms_apply(x2d, *prenorm), ql.qweight, ql.scales,
+                                    ql.zeros, ql.kperm, _bias(ql, x), ql.group_size,
+                                    ql.out_features)
+    else:
+        y = gemm.wna16_matmul(x2d, ql.qweight, ql.scales, ql.zeros, ql.kperm, _bias(ql, x),
+                              ql.group_size, storage_bits(ql.bits), prenorm=prenorm)
+    return y.reshape(*x.shape[:-1], ql.out_features)
 
 
 @dataclass

@@ -17,6 +17,7 @@ scores (the done pool holds many ``NEG_INF``) resolve to the lower index as
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -439,12 +440,19 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
     off = (pos % ps).to(torch.int32)
     lengths = (pos + 1).to(torch.int32)
     x = arch.embed(params, cur_tok[:, None], dtype)
+    # Fused norm+matmul (arch.FUSE_NORM), the JAX _fwd_step's branch: q/k/v take the input
+    # norm and gate/up the post-attention norm as a prenorm; a MoE block stays unfused, as
+    # arch.block_forward keeps it.
+    fuse_norm = arch.FUSE_NORM != "0" and cfg.moe_num_experts == 0
     for idx, bp in enumerate(params["layers"]):
         ap = bp["attn"]
-        hn = arch.rms_norm(x, bp["input_norm"]["weight"], cfg.norm_eps)
-        q = arch.apply_linear(ap["q_proj"], hn).view(bk, 1, h, d)
-        kk = arch.apply_linear(ap["k_proj"], hn).view(bk, 1, hkv, d)
-        vv = arch.apply_linear(ap["v_proj"], hn).view(bk, 1, hkv, d)
+        if fuse_norm:
+            hn, lin = x, functools.partial(arch._prenorm_linear, norm=bp["input_norm"], cfg=cfg)
+        else:
+            hn, lin = arch.rms_norm(x, bp["input_norm"]["weight"], cfg.norm_eps), arch.apply_linear
+        q = lin(ap["q_proj"], hn).view(bk, 1, h, d)
+        kk = lin(ap["k_proj"], hn).view(bk, 1, hkv, d)
+        vv = lin(ap["v_proj"], hn).view(bk, 1, hkv, d)
         q, kk = arch.apply_rope(q, kk, pos[:, None], cfg)
         if cache.k_scale is not None:
             kq, ks = _quant(kk[:, 0])
@@ -460,8 +468,11 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
                                 cache.tables, cache.k_scale, cache.v_scale, sm_scale=scale,
                                 layer=idx)
         x = x + arch.apply_linear(ap["o_proj"], of.reshape(bk, 1, h * d).to(x.dtype))
-        h2 = arch.rms_norm(x, bp["post_norm"]["weight"], cfg.norm_eps)
-        x = x + arch.mlp(bp["mlp"], h2, cfg)
+        if fuse_norm:
+            x = x + arch.mlp(bp["mlp"], x, cfg, prenorm=bp["post_norm"])
+        else:
+            x = x + arch.mlp(bp["mlp"], arch.rms_norm(x, bp["post_norm"]["weight"],
+                                                      cfg.norm_eps), cfg)
     return arch.unembed(params, x, cfg)[:, -1]
 
 

@@ -18,7 +18,14 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    held and timed beside it on the same weights (``kernel="simt"``); at M = 128
    and 2048 the tensor-core tile kernel beside the SIMT tile kernel; ptxas'
    registers, spills and shared memory of every tensor-core instance (a spill
-   in a GEMV instance fails the run).
+   in a GEMV instance fails the run). K1's fused RMS-norm prologue on
+   one layer's q/k/v and gate/up: each route (the tensor-core GEMV at M = 1, 4,
+   16 in bf16 and f16, the SIMT GEMV in f32, the tensor-core and SIMT tile
+   kernels at M = 24, a 3-bit and a ``plus_one`` case) against ``rms_apply``
+   and the plain matmul, one launch of its own key, bit-equal on a second call,
+   timed beside the same kernel alone, the unfused pair, the plain version and
+   ``F.rms_norm`` + ``torch.matmul``; ptxas' registers and spills of its 24
+   instances.
 4. K2 (split-KV flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2
    with a left-padded row, and GQA at 528 slots, a window sweep (17, 64, 272
    and 528 live slots, MHA and GQA) and Mixtral-8x7B's decode shape (8 KV
@@ -46,14 +53,24 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    and take less device time per token; the SIMT route's kernels and reduces
    are reported beside.
 7. The beam path on the same model: ``generate(num_beams=4)`` of 512 tokens
-   over the paged bf16 cache (counts set to 0 just before, read just after),
-   repeated to check that it reproduces its tokens, then a 64-token run over
+   over the paged bf16 cache (counts set to 0 just before, read just after;
+   its tokens repeat in the 64-token runs below), then a 64-token run over
    the int8 paged cache (224 GEMV launches per step in both). A profile of a
-   short beam-4 generate, through both routes as for greedy.
+   short beam-4 generate, through both routes as for greedy. Then the same
+   model with ``arch.FUSE_NORM = "1"`` (``AUTOGPTQ_TPU_FUSE_NORM``; put back
+   after): 512 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
+   ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
+   norm's), a profiled 33-token window, the tokens equal to the default run's;
+   greedy and beam-4 runs of 64 tokens with the switch off, on, on and off
+   (host time in turns; each repeats its tokens; the beam's fused tokens
+   against its unfused ones); a bf16 batch of 24 prompts whose decode steps
+   take the tile kernel's prologue.
 8. The port on the card against the port on the CPU: a 2-layer, full-width
    cut of the same checkpoint, prefill and one decode step, and one paged
    beam-4 decode step, bf16 kernels (the tensor-core GEMV) and f32 kernels
-   (the SIMT GEMV) on the card against the f32 plain versions on the CPU.
+   (the SIMT GEMV) on the card against the f32 plain versions on the CPU; and
+   with the switch on, a decode step's logits and greedy tokens at batch 1 and
+   24 (the SIMT kernels' prologue) against the CPU.
 9. K4 (w8a16 GEMM), K5 (w2a16 GEMM) and K1 at the shape classes of the TPU's
    ``ki32`` and ``kpair`` kernels (3-bit codes in nibbles, one group, group
    sizes 16 and 64, K = 11008) against their plain versions at the three
@@ -111,8 +128,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint (all 32
    layers, about 24.6 GB) under ``build/chip_smoke/``, ``from_quantized`` on the
    default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
-   decode of 128 tokens from a 16-token prompt twice (equal tokens; launch
-   counts set to 0 just before the first and read just after: K9's GEMV 96, no
+   decode of 128 tokens from a 16-token prompt, then 32 again (equal to the
+   first 32; launch counts set to 0 just before the first and read just after: K9's GEMV 96, no
    SIMT routed kernel, K2 32, K1's GEMV 128 per decode token), a profile by
    kernel family through both routes (no reduce, at most one K1 and one K9
    kernel per call on the new one), and 64 tokens of beam 4 over the paged bf16
@@ -134,10 +151,10 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    kb32l words at M = 64 and 2048.
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
-   model; 512 greedy tokens twice (counts set to 0 just before the first and
-   read just after: K6's GEMV 7 x 32 per token, no ring, no K1); the share of
-   tokens equal to the main path's; a profile through both routes (the ring's
-   beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
+   model; 512 greedy tokens (counts set to 0 just before and read just after:
+   K6's GEMV 7 x 32 per token, no ring, no K1), then 128 again, equal to the
+   first 128; the share of tokens equal to the main path's; a profile of 17
+   tokens through both routes (the ring's beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
    the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
    SIMT kernel forward in f32, K10 backward) on the card against the CPU.
@@ -243,6 +260,23 @@ LAYER_SHAPES = {          # Llama-2-7B projection: (K, N, calls per decoder laye
     "down": (11008, 4096, 1),
 }
 
+
+# K1's fused RMS-norm prologue: the projections that follow a norm in a Llama-2-7B
+# layer, (K, N, calls per decoder layer); Llama-2-7B's eps. Against the plain version (the
+# unfused norm, then the f32-weight plain matmul): bf16/f16 K1_REL_TOL of the largest output,
+# f32 PRENORM_F32_REL_TOL of it (f32 weights and accumulation on both sides: summation order,
+# and the order of the norm's sum of squares, only). The f32 2-layer cut with the switch on,
+# card against CPU: E2E_F32_REL_TOL on the logits, tokens equal.
+PRENORM_SHAPES = {"qkv": (4096, 4096, 3), "gate_up": (4096, 11008, 2)}
+PRENORM_EPS = 1e-5
+PRENORM_F32_REL_TOL = 1e-5
+NORM_KEY = {"gemv": "w4a16_gemm_gemv_norm", "mma": "w4a16_gemm_mma_norm", "simt": "w4a16_gemm_norm"}
+FUSED_AB_TOKENS = 64          # greedy and beam-4 runs off, on, on, off: host time in turns
+FUSED_BATCH, FUSED_BATCH_TOKENS = 24, 8   # a bf16 batch whose decode steps take the mma prologue
+FUSED_CUT_TOKENS = 4          # f32 cut with the switch on: greedy tokens at batch 1 and 24
+REPEAT_TOKENS = 128           # the kb32l path's repeat, held to its 512-token run's first tokens
+MIXTRAL_REPEAT_TOKENS = 32    # the Mixtral path's repeat, likewise
+KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
 
 MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the tensor-core tile kernels
 GEMV_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_gemv.cuh"  # the tensor-core decode GEMV
@@ -398,6 +432,111 @@ def phase_k1(torch, np, timer) -> list:
               + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
                 f"({b_by})" + (f"  plan {simt['plan']}" if "plan" in simt else ""), flush=True)
     return rows
+
+def phase_prenorm(torch, np, timer) -> list:
+    """K1's fused RMS-norm prologue against its plain version (``rms_apply``,
+    then the plain matmul with f32 weights) on one Llama-2-7B layer's q/k/v and
+    gate/up, g128: each route once (the tensor-core GEMV at M = 1, 4, 16 in bf16
+    and f16, the SIMT GEMV at M = 1 in f32, the tensor-core tile kernel at M = 24
+    in bf16, the SIMT tile kernel at M = 24 in f32, a 3-bit and a ``plus_one``
+    case), one launch of its own key, bit-equal on a second call; timed beside
+    the same kernel without the prologue, the unfused pair (``rms_apply`` + the
+    kernel), the plain version and the library (``F.rms_norm`` + ``torch.matmul``
+    on a pre-dequantized weight of the activation type)."""
+    import torch.nn.functional as F
+
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    layers = {(bits, proj): _random_layer(qlin, rng, k, n, bits, 128, False, bf16)
+              for bits in (4, 3) for proj, (k, n, _) in PRENORM_SHAPES.items()}
+    # (case, M, bits, dtype, plus_one)
+    cases = [(f"M={m} {tag}", m, 4, dt, False) for m in (1, BEAMS, 16)
+             for tag, dt in (("bf16", bf16), ("f16", f16))]
+    cases += [("M=1 f32", 1, 4, f32, False), ("M=24 bf16", 24, 4, bf16, False),
+              ("M=24 f32", 24, 4, f32, False), ("M=1 bf16 3-bit", 1, 3, bf16, False),
+              (f"M={BEAMS} bf16 plus_one", BEAMS, 4, bf16, True)]
+    rows = []
+    for case, m, bits, dtype, plus_one in cases:
+        for proj, (k, n, _) in PRENORM_SHAPES.items():
+            layer = layers[bits, proj]
+            x = 4.0 * torch.randn((m, k), generator=gen, device="cuda", dtype=f32)
+            x = x.to(dtype)
+            w = (1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")).to(dtype)
+            pn = (w, PRENORM_EPS, plus_one)
+            route = gemm.route(dtype, m, 128)
+            key = NORM_KEY[route]
+            check(gemm.prenorm_eligible(m, k, 128, bits), f"prenorm {case} {proj}: not eligible")
+            before = dict(build.launches)
+            y = qlin.matmul(x, layer, prenorm=pn)
+            launched = {kk: v - before.get(kk, 0) for kk, v in build.launches.items()
+                        if v != before.get(kk, 0)}
+            check(launched == {key: 1}, f"prenorm {case} {proj}: launched {launched}, want "
+                                        f"{{{key!r}: 1}}")
+            xn = gemm.rms_apply(x, *pn)
+            ref = qlin.matmul_plain(xn, layer)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            tol = (PRENORM_F32_REL_TOL if dtype == f32 else K1_REL_TOL) * scale
+            check(y.shape == (m, n) and bool(torch.isfinite(y).all()),
+                  f"prenorm {case} {proj}: bad output")
+            check(err <= tol, f"prenorm {case} {proj}: max |kernel - plain| = {err:.3e} > "
+                              f"{tol:.3e}")
+            check(torch.equal(qlin.matmul(x, layer, prenorm=pn), y),
+                  f"prenorm {case} {proj}: a second call differs")
+            wl = qlin.logical_weight(layer, dtype)
+            wlib = (1.0 + w.float()).to(dtype) if plus_one else w
+            ms = timer.ms(lambda: qlin.matmul(x, layer, prenorm=pn))
+            kernel_ms = timer.ms(lambda: qlin.matmul(xn, layer))
+            unfused_ms = timer.ms(lambda: qlin.matmul(gemm.rms_apply(x, *pn), layer))
+            plain_ms = timer.ms(lambda: qlin.matmul_plain(gemm.rms_apply(x, *pn), layer),
+                                iters=5, warmup=1)
+            lib_ms = timer.ms(lambda: torch.matmul(F.rms_norm(x, (k,), wlib, PRENORM_EPS), wl))
+            b_ms, b_by = bound_ms(nbytes(x, y, w, layer.qweight, layer.scales, layer.zeros),
+                                  2.0 * m * k * n)
+            rows.append(dict(case=case, proj=proj, K=k, N=n, M=m, bits=bits, dtype=str(dtype),
+                             plus_one=plus_one, route=route, key=key, max_abs_err=err,
+                             max_abs_ref=scale, tol=tol, ms=ms, kernel_ms=kernel_ms,
+                             unfused_ms=unfused_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by))
+            print(f"prenorm {case:20s} {proj:7s} K={k:5d} N={n:5d} {route:4s} err {err:.3e} "
+                  f"(tol {tol:.3e})  fused {ms:.4f} ms  kernel alone {kernel_ms:.4f} ms  "
+                  f"unfused (rms_apply + kernel) {unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"F.rms_norm + torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+    del layers
+    return rows
+
+
+def prenorm_layer(rows: list, case: str, key: str) -> float:
+    """One Llama-2-7B layer's q/k/v and gate/up (``PRENORM_SHAPES``) of a case."""
+    return sum(r[key] * PRENORM_SHAPES[r["proj"]][2] for r in rows if r["case"] == case)
+
+
+def prenorm_ptxas() -> list:
+    """ptxas' registers and spills of every fused-prologue instance (the PRENORM
+    template flag, the last template argument: ``Lb1EE`` in the mangled name) in
+    K1's library: 4 tensor-core GEMVs, 2 tensor-core tile kernels, 15 SIMT GEMVs
+    and 3 SIMT tile kernels; a spill in a GEMV instance fails the run."""
+    out = [dict(r, library="w4a16_gemm") for r in ptxas_report("w4a16_gemm", "Lb1EE")]
+    kinds = {kind: [r for r in out if kind in r["function"]] for kind in
+             ("wna16_gemv_kernel", "wna16_mma_kernel", "wna16_decode_kernel",
+              "wna16_prefill_kernel")}
+    check([len(v) for v in kinds.values()] == [4, 2, 15, 3] and len(out) == 24,
+          f"fused-prologue instances in the ptxas log: { {k: len(v) for k, v in kinds.items()} }"
+          f", {len(out)} in all; want 4, 2, 15, 3")
+    for r in out:
+        print(f"ptxas prenorm {r['function'][:90]}: {r['registers']} registers, spill "
+              f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
+    for r in kinds["wna16_gemv_kernel"]:
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"{r['function']} spills {r['spill_stores']}/{r['spill_loads']} B")
+    return out
+
 
 def _random_layer(qlin, rng, k, n, bits, gs, desc_act, dtype, layout=None, bias=False):
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
@@ -728,7 +867,9 @@ def mma_ptxas() -> list:
             b = bits
             if b is None:   # K10's library holds the three widths: ILi<BITS>E in the name
                 b = next(x for x in (2, 4, 8) if f"ILi{x}E" in r["function"])
-            r.update(library=name, dynamic_smem_bytes=mma_smem_bytes(b, "t_mma" in r["function"]))
+            # a fused-prologue instance (Lb1EE) adds a K tile's norm weight per stage
+            r.update(library=name, dynamic_smem_bytes=mma_smem_bytes(b, "t_mma" in r["function"])
+                     + (4 * 64 * 4 if "Lb1EE" in r["function"] else 0))
             out.append(r)
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:70]}: {r['registers']} registers, spill "
@@ -749,7 +890,8 @@ def gemv_ptxas() -> list:
         for r in ptxas_report(name, key):
             r.update(library=name)
             out.append(r)
-    check(len(out) == 20, f"{len(out)} GEMV instances in the ptxas logs, want 20")
+    # 20 plus K1's 4 fused-prologue instances
+    check(len(out) == 24, f"{len(out)} GEMV instances in the ptxas logs, want 24")
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
@@ -1881,7 +2023,7 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
           f"splits K), so the GEMV route launches {folded} fewer kernels per token; the profiles "
           f"recorded {routes['simt'].get('kernels_per_token', float('nan')):.1f} and "
           f"{routes['gemv'].get('kernels_per_token', float('nan')):.1f}", flush=True)
-    routes["folded_per_token"] = folded
+    routes.update(folded_per_token=folded, tok_s=tok_s)
     return counts, model, out, counts2, routes
 
 
@@ -1923,7 +2065,7 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     counts = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    again = model.generate(prompt, max_new_tokens=NEW_TOKENS)
+    again = model.generate(prompt, max_new_tokens=REPEAT_TOKENS)
     again_s = time.perf_counter() - t0
     steps = NEW_TOKENS - 1
     # the 16-token prefill (M = 16) and every decode step (M = 1): 7 launches per layer of
@@ -1934,7 +2076,8 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"kb32l output shape {out.shape}")
     check(bool(((new >= 0) & (new < vocab)).all()), "kb32l token ids out of range")
-    check(np.array_equal(out, again), "kb32l greedy decode does not repeat its tokens")
+    check(np.array_equal(out[:, :PROMPT_LEN + REPEAT_TOKENS], again),
+          "kb32l greedy decode does not repeat its tokens")
     check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "kb32l greedy decode is not "
                                                          "deterministic")
     for name, n in want_counts.items():
@@ -1946,16 +2089,16 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     agree = int(np.argmin(new[0] == main_out[0, PROMPT_LEN:])) if same < 1 else NEW_TOKENS
     tok_s = NEW_TOKENS / gen_s
     print(f"kb32l path: Llama-2-7B 4-bit g128 from_quantized(layout='kb32l'), {layers} layers, "
-          f"batch 1, {PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens greedy, twice with equal "
-          f"tokens: loaded in {load_s:.1f} s (peak {load_peak / 2**30:.2f} GiB), prefill logits "
+          f"batch 1, {PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens greedy (repeated over "
+          f"{REPEAT_TOKENS}, equal tokens): loaded in {load_s:.1f} s (peak {load_peak / 2**30:.2f} GiB), prefill logits "
           f"vs the GPTQ layout rel err {prefill_rel:.3e} (tol {KB32L_E2E_REL_TOL}), generate "
-          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches per decode token: K6's GEMV "
+          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat of {REPEAT_TOKENS}: {again_s:.3f} s), "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches per decode token: K6's GEMV "
           f"{(counts.get(gemv_key, 0) - 7 * layers) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, K1 0; {100 * same:.1f}% of the tokens "
           f"equal to the main path's (the first {agree} in a row); launches {counts}", flush=True)
     profile = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
-                             "kb32l batch-1 generate", PROFILE_TOKENS,
+                             "kb32l batch-1 generate", KB32L_PROFILE_TOKENS,
                              checked=(("K6 w4a16_kb32l_gemm", gemm.KB32L_KERNEL),),
                              families=KB32L_FAMILIES)
 
@@ -2057,15 +2200,12 @@ def phase_beam(torch, np, model) -> dict:
     for name, n in need.items():
         check(counts.get(name, 0) >= n, f"beam: {name} launched {counts.get(name, 0)} times, "
                                          f"need >= {n}")
-    t0 = time.perf_counter()
-    again = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
-    again_s = time.perf_counter() - t0
-    check(np.array_equal(out, again), "beam search does not reproduce its tokens")
     seq_tok_s = NEW_TOKENS / gen_s
     print(f"beam path: Llama-2-7B 4-bit g128, {layers} layers (full depth), batch 1, "
           f"{PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens, num_beams={BEAMS}, paged bf16 "
           f"cache (page {PAGE}): generate {gen_s:.3f} s = {seq_tok_s:.2f} seq-tok/s = "
-          f"{BEAMS * seq_tok_s:.2f} beam-tok/s (repeat: {again_s:.3f} s, same tokens); "
+          f"{BEAMS * seq_tok_s:.2f} beam-tok/s (repeated over {FUSED_AB_TOKENS} tokens in the "
+          f"fused-norm phase); "
           f"AutoGPTQ gptq-int4 beam 4 on 1x A100-40G: {AUTOGPTQ_BEAM4_A100} tok/s (that "
           f"card's number, BASELINE.md); peak device memory {peak / 2**30:.2f} GiB, "
           f"launches {counts}", flush=True)
@@ -2092,9 +2232,199 @@ def phase_beam(torch, np, model) -> dict:
           f"launches {counts_q}", flush=True)
     routes = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
                             f"beam-{BEAMS} generate", BEAM_PROFILE_TOKENS, num_beams=BEAMS)
-    return dict(counts=counts, gen_s=gen_s, repeat_s=again_s, seq_tok_s=seq_tok_s,
+    return dict(counts=counts, gen_s=gen_s, seq_tok_s=seq_tok_s,
                 beam_tok_s=BEAMS * seq_tok_s, peak_bytes=peak, int8_new_tokens=QUANT_NEW_TOKENS,
                 int8_gen_s=q_s, int8_counts=counts_q, profiles=routes)
+
+
+def phase_fused_norm(torch, np, model, main_out) -> dict:
+    """The main path's model with the switch on (``arch.FUSE_NORM = "1"``, put
+    back after): 512 greedy tokens (counts set to 0 just before and read just
+    after: 160 ``w4a16_gemm_gemv_norm`` and 64 ``w4a16_gemm_gemv`` per decode
+    token, no ``rms_norm`` but the final norm's, no unfused fallback), a profiled
+    33-token window, tokens equal to the default run's; greedy and beam-4 runs of
+    64 tokens with the switch off, on, on and off (host time in turns; each
+    repeats its tokens; beam 4 holds the same counts per step and compares its
+    tokens with the switch off); a bf16 batch of 24 prompts whose decode steps
+    take the tensor-core tile kernel's prologue (``w4a16_gemm_mma_norm``)."""
+    import collections
+
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.ops import build, gemm
+
+    layers = model.cfg.num_layers
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    rng = np.random.default_rng(24)
+    prompts = [rng.integers(1, 32000, size=n).astype(np.int32)
+               for n in rng.integers(4, PROMPT_LEN + 1, size=FUSED_BATCH)]
+    norms = collections.Counter()
+    rms_norm, rms_apply = arch.rms_norm, gemm.rms_apply
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            norms[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def run(tokens, fused, **kw):   # (tokens, seconds, launches, norm calls)
+        arch.FUSE_NORM = "1" if fused else "0"
+        build.launches.clear()
+        norms.clear()
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=tokens, **kw)
+        return out, time.perf_counter() - t0, dict(build.launches), dict(norms)
+
+    turns = (False, True, True, False)
+    arch.rms_norm, gemm.rms_apply = counted("rms_norm", rms_norm), counted("rms_apply", rms_apply)
+    try:
+        arch.FUSE_NORM = "1"
+        warm = model.generate(prompt, max_new_tokens=4)
+        out, gen_s, counts, norm_calls = run(NEW_TOKENS, True)
+        profile = profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+                                   "batch-1 generate, fused norm", PROFILE_TOKENS)
+        ab = [run(FUSED_AB_TOKENS, fused) for fused in turns]
+        model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
+        beam_ab = [run(FUSED_AB_TOKENS, fused, num_beams=BEAMS) for fused in turns]
+        arch.FUSE_NORM = "1"
+        beam_profile = profile_generate(torch, model, prompt,
+                                        1e3 * (beam_ab[1][1] + beam_ab[2][1]) / 2 / FUSED_AB_TOKENS,
+                                        f"beam-{BEAMS} generate, fused norm",
+                                        BEAM_PROFILE_TOKENS, num_beams=BEAMS)
+        build.launches.clear()
+        batch = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
+        batch_counts = dict(build.launches)
+        arch.FUSE_NORM = "0"
+        batch_ref = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
+    finally:
+        arch.FUSE_NORM = "0"
+        arch.rms_norm, gemm.rms_apply = rms_norm, rms_apply
+
+    def k1_counts(c):
+        return {k: v for k, v in c.items() if k.startswith("w4a16_gemm")}
+
+    def want(steps, fused, unfused):   # K1 launches of a run of `steps` one-token steps
+        return {fused: 5 * layers * steps, unfused: 7 * layers + 2 * layers * steps}
+
+    vocab = model.cfg.vocab_size
+    check(out.shape == (1, PROMPT_LEN + NEW_TOKENS) and bool(
+        ((out[:, PROMPT_LEN:] >= 0) & (out[:, PROMPT_LEN:] < vocab)).all()),
+        f"fused greedy output {out.shape}")
+    check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "fused greedy is not deterministic")
+    steps = NEW_TOKENS - 1
+    check(k1_counts(counts) == want(steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv"),
+          f"fused greedy: K1 launches {k1_counts(counts)}, want "
+          f"{want(steps, 'w4a16_gemm_gemv_norm', 'w4a16_gemm_gemv')}")
+    # the prefill's 2 norms per layer and the final one, then one final norm per step
+    check(norm_calls == {"rms_norm": 2 * layers + 1 + steps},
+          f"fused greedy: norm calls {norm_calls}, want rms_norm {2 * layers + 1 + steps}")
+    same = int((out[0, PROMPT_LEN:] == main_out[0, PROMPT_LEN:]).sum())
+    diff = np.nonzero(out[0, PROMPT_LEN:] != main_out[0, PROMPT_LEN:])[0]
+    tok_s = NEW_TOKENS / gen_s
+    print(f"fused norm (AUTOGPTQ_TPU_FUSE_NORM=1), greedy: {NEW_TOKENS} tokens in {gen_s:.3f} s "
+          f"= {tok_s:.2f} tok/s; per decode token {5 * layers} w4a16_gemm_gemv_norm, "
+          f"{2 * layers} w4a16_gemm_gemv, 1 rms_norm (the final norm); {same} of {NEW_TOKENS} "
+          f"tokens equal to the default run's (first difference at "
+          f"{int(diff[0]) if len(diff) else None}); launches {counts}", flush=True)
+
+    ab_steps = FUSED_AB_TOKENS - 1
+    n_ab = PROMPT_LEN + FUSED_AB_TOKENS
+    for label, runs, kw in (("greedy", ab, {}), (f"beam {BEAMS}", beam_ab, {"num_beams": BEAMS})):
+        check(np.array_equal(runs[0][0], runs[3][0]) and np.array_equal(runs[1][0], runs[2][0]),
+              f"fused-norm turns, {label}: a run does not repeat its tokens")
+        check(runs[1][0].shape == (1, n_ab) and bool(
+            ((runs[1][0][:, PROMPT_LEN:] >= 0) & (runs[1][0][:, PROMPT_LEN:] < vocab)).all()),
+            f"fused-norm turns, {label}: output {runs[1][0].shape}")
+        check(k1_counts(runs[1][2]) == want(ab_steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv")
+              and k1_counts(runs[0][2]) == {"w4a16_gemm_gemv": 7 * layers * FUSED_AB_TOKENS},
+              f"fused-norm turns, {label}: K1 launches {runs[1][2]} / {runs[0][2]}")
+        check(runs[1][3] == {"rms_norm": 2 * layers + 1 + ab_steps},
+              f"fused-norm turns, {label}: norm calls {runs[1][3]}")
+    check(np.array_equal(ab[1][0], out[:, :n_ab]) and np.array_equal(ab[0][0], main_out[:, :n_ab]),
+          "fused-norm turns, greedy: the 64-token runs are not the 512-token runs' first tokens")
+    off_s, on_s = (ab[0][1] + ab[3][1]) / 2, (ab[1][1] + ab[2][1]) / 2
+    boff_s, bon_s = (beam_ab[0][1] + beam_ab[3][1]) / 2, (beam_ab[1][1] + beam_ab[2][1]) / 2
+    beam_same = int((beam_ab[1][0][0, PROMPT_LEN:] == beam_ab[0][0][0, PROMPT_LEN:]).sum())
+    print(f"fused norm in turns (off, on, on, off; {FUSED_AB_TOKENS} tokens each, every run repeats "
+          f"its tokens): greedy {1e3 * off_s / FUSED_AB_TOKENS:.3f} ms/token off, "
+          f"{1e3 * on_s / FUSED_AB_TOKENS:.3f} on ({[round(r[1], 3) for r in ab]} s); beam {BEAMS} "
+          f"{BEAMS * FUSED_AB_TOKENS / boff_s:.2f} beam-tok/s off, "
+          f"{BEAMS * FUSED_AB_TOKENS / bon_s:.2f} on ({[round(r[1], 3) for r in beam_ab]} s), "
+          f"per step {5 * layers} w4a16_gemm_gemv_norm, {2 * layers} w4a16_gemm_gemv, 1 rms_norm; "
+          f"{beam_same} of {FUSED_AB_TOKENS} beam tokens equal to the unfused beam's; launches "
+          f"{beam_ab[1][2]}", flush=True)
+    bsteps = FUSED_BATCH_TOKENS - 1
+    check(k1_counts(batch_counts) == want(bsteps, "w4a16_gemm_mma_norm", "w4a16_gemm_mma"),
+          f"fused batch {FUSED_BATCH}: K1 launches {k1_counts(batch_counts)}")
+    batch_same = int((batch[:, -FUSED_BATCH_TOKENS:] == batch_ref[:, -FUSED_BATCH_TOKENS:]).sum())
+    print(f"fused norm, bf16 batch of {FUSED_BATCH} prompts, {FUSED_BATCH_TOKENS} new tokens "
+          f"(decode steps of {FUSED_BATCH} rows: the tensor-core tile kernel's prologue): "
+          f"{batch_same} of {batch_ref[:, -FUSED_BATCH_TOKENS:].size} tokens equal to the "
+          f"unfused run's; launches {batch_counts}", flush=True)
+    return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls,
+                tokens_equal=same, first_difference=int(diff[0]) if len(diff) else None,
+                profile=profile, greedy_turns_s=[r[1] for r in ab],
+                greedy_ms_per_token_off=1e3 * off_s / FUSED_AB_TOKENS,
+                greedy_ms_per_token_on=1e3 * on_s / FUSED_AB_TOKENS,
+                beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
+                beam_tok_s_off=BEAMS * FUSED_AB_TOKENS / boff_s,
+                beam_tok_s_on=BEAMS * FUSED_AB_TOKENS / bon_s, beam_tokens_equal=beam_same,
+                beam_profile=beam_profile, batch_counts=batch_counts,
+                batch_tokens_equal=batch_same)
+
+
+def phase_fused_cut(torch, np, cut_dir: str) -> dict:
+    """The f32 2-layer full-width cut with the switch on, card against CPU: the
+    logits of a decode step (1e-3 relative) and the greedy tokens at batch 1 and
+    at batch 24 (equal), through the f32 SIMT kernels' prologue on the card (the
+    SIMT GEMV at one row, the SIMT tile kernel at 24) and the plain versions on
+    the CPU."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.models.arch import KVCache, forward
+    from autogptq_tpu_torch.ops import build
+
+    tokens = (np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int32)
+    rng = np.random.default_rng(25)
+    prompts = [rng.integers(1, 32000, size=n).astype(np.int32)
+               for n in rng.integers(4, PROMPT_LEN + 1, size=FUSED_BATCH)]
+    res, launches = {}, {}
+    arch.FUSE_NORM = "1"
+    try:
+        for run, device in (("card", "cuda"), ("cpu", "cpu")):
+            model = AutoGPTQForCausalLM.from_quantized(cut_dir, device=device,
+                                                       dtype=torch.float32)
+            build.launches.clear()
+            with torch.inference_mode():
+                cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=torch.float32,
+                                       device=device)
+                _, cache = forward(model.params, torch.from_numpy(tokens).long().to(device),
+                                   model.cfg, cache=cache)
+                dec, _ = forward(model.params, torch.tensor([[1234]], device=device), model.cfg,
+                                 cache=cache)
+            one = model.generate(tokens, max_new_tokens=FUSED_CUT_TOKENS)
+            many = model.generate(prompts, max_new_tokens=FUSED_CUT_TOKENS)
+            launches[run] = dict(build.launches)
+            res[run] = (dec.float().cpu(), one, many)
+            del model, cache
+    finally:
+        arch.FUSE_NORM = "0"
+    steps = 1 + 2 * (FUSED_CUT_TOKENS - 1)      # one-token steps: M = 1 and M = 24
+    card = launches["card"]
+    check(card.get("w4a16_gemm_norm", 0) == 5 * 2 * steps
+          and not any(card.get(k, 0) for k in ("w4a16_gemm_gemv_norm", "w4a16_gemm_mma_norm",
+                                               "w4a16_gemm_gemv", "w4a16_gemm_mma")),
+          f"fused cut: card launches {card}, want {5 * 2 * steps} w4a16_gemm_norm")
+    rel = ((res["card"][0] - res["cpu"][0]).norm() / res["cpu"][0].norm()).item()
+    check(bool(torch.isfinite(res["card"][0]).all()) and rel <= E2E_F32_REL_TOL,
+          f"fused cut: decode logits card vs CPU relative error {rel:.3e} > {E2E_F32_REL_TOL}")
+    check(np.array_equal(res["card"][1], res["cpu"][1]), "fused cut: batch-1 tokens differ "
+                                                         "from the CPU's")
+    check(np.array_equal(res["card"][2], res["cpu"][2]), f"fused cut: batch-{FUSED_BATCH} "
+                                                         "tokens differ from the CPU's")
+    print(f"fused norm, f32 2-layer cut, card (the SIMT kernels' prologue) vs CPU (plain): "
+          f"decode logits rel err {rel:.3e} (tol {E2E_F32_REL_TOL}); {FUSED_CUT_TOKENS} greedy "
+          f"tokens at batch 1 and {FUSED_BATCH} equal; card launches {card}", flush=True)
+    return dict(rel_err=rel, launches=launches)
 
 
 # K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...> and the tensor-core
@@ -2317,7 +2647,7 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     counts = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    again = model.generate(prompt, max_new_tokens=new_tokens)
+    again = model.generate(prompt, max_new_tokens=MIXTRAL_REPEAT_TOKENS)
     again_s = time.perf_counter() - t0
     steps = new_tokens - 1
     # prefill: 16 tokens x top-2 = 32 pairs > 8 experts, the dense path (24 K1 per layer);
@@ -2329,7 +2659,8 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     new = out[:, PROMPT_LEN:]
     check(out.shape == (1, PROMPT_LEN + new_tokens), f"Mixtral output shape {out.shape}")
     check(bool(((new >= 0) & (new < cfg["vocab_size"])).all()), "Mixtral token ids out of range")
-    check(np.array_equal(out, again), "Mixtral greedy decode does not repeat its tokens")
+    check(np.array_equal(out[:, :PROMPT_LEN + MIXTRAL_REPEAT_TOKENS], again),
+          "Mixtral greedy decode does not repeat its tokens")
     check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "Mixtral greedy decode is not "
                                                          "deterministic")
     for name, n in want.items():
@@ -2337,11 +2668,12 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
                                         f"{counts.get(name, 0)} times, want {n}")
     tok_s = new_tokens / gen_s
     print(f"Mixtral-8x7B 4-bit g128, {layers} layers, 8 experts top-2, batch 1, {PROMPT_LEN}-token "
-          f"prompt, {new_tokens} new tokens greedy, twice with equal tokens: checkpoint written "
+          f"prompt, {new_tokens} new tokens greedy (repeated over {MIXTRAL_REPEAT_TOKENS}, equal "
+          f"tokens): checkpoint written "
           f"in {write_s:.1f} s, from_quantized + stack_moe_experts {load_s:.1f} s (peak "
           f"{load_peak / 2**30:.2f} GiB, resident {resident / 2**30:.2f} GiB), generate "
-          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat {again_s:.3f} s), peak device memory "
-          f"{peak / 2**30:.2f} GiB; launches per decode token: K9's GEMV "
+          f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat of {MIXTRAL_REPEAT_TOKENS}: {again_s:.3f} "
+          f"s), peak device memory {peak / 2**30:.2f} GiB; launches per decode token: K9's GEMV "
           f"{counts.get('w4a16_routed_gemm_gemv', 0) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, "
           f"K1 {4 * layers}; launches {counts}", flush=True)
@@ -2556,10 +2888,12 @@ def main() -> int:
 
     timer = Timer(torch)
     k1_rows = timed("K1", phase_k1, torch, np, timer)
+    prenorm_rows = timed("K1 prologue", phase_prenorm, torch, np, timer)
     wna_rows = timed("K4/K5/K1 classes", phase_wna16, torch, np, timer)
     rest_rows = timed("rest classes", phase_rest, torch, np, timer)
     ptxas = mma_ptxas()
     gemv_regs = gemv_ptxas()
+    prenorm_regs = prenorm_ptxas()
     k2_rows = timed("K2", phase_k2, torch, timer)
     k7_rows = timed("K7", phase_k7, torch, timer)
     attn_ptxas = attention_ptxas()
@@ -2579,12 +2913,14 @@ def main() -> int:
             "main path", phase_main_path, torch, np, ckpt)
         kb32l = timed("kb32l path", phase_kb32l_path, torch, np, ckpt, model, main_out)
         beam = timed("beam", phase_beam, torch, np, model)
+        fused = timed("fused norm", phase_fused_norm, torch, np, model, main_out)
         train = timed("train", phase_train, torch, np, model, work)
         del model
         torch.cuda.empty_cache()
         shutil.rmtree(work, ignore_errors=True)
         cut_dir = os.path.join(work, "llama2-7b-random-g128-2layers")
         cpu_vs_card = timed("card vs CPU", phase_cpu_vs_card, torch, np, cut_dir)
+        fused_cut = timed("fused norm card vs CPU", phase_fused_cut, torch, np, cut_dir)
         kb32l_cut = timed("kb32l card vs CPU", phase_kb32l_cut, torch, np, cut_dir)
         grads = timed("gradients", phase_grads, torch, np, cut_dir)
         shutil.rmtree(work, ignore_errors=True)
@@ -2671,6 +3007,42 @@ def main() -> int:
                     bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
                               else "operations"),
                     library_ms=layer_sum(rows, "library_ms", m), at=at)
+
+    prenorm_m = {case: {key: prenorm_layer(prenorm_rows, case, key) for key in
+                        ("ms", "kernel_ms", "unfused_ms", "plain_ms", "library_ms", "bound_ms")}
+                 for case in dict.fromkeys(r["case"] for r in prenorm_rows)}
+    print("K1's fused RMS-norm prologue, one Llama-2-7B layer's q/k/v and gate/up, g128: " + "; ".join(
+        f"{case}: fused {v['ms']:.4f} ms, the same kernel alone {v['kernel_ms']:.4f} ms "
+        f"({1e3 * (v['ms'] - v['kernel_ms']):+.1f} us), unfused pair {v['unfused_ms']:.4f} ms, "
+        f"plain {v['plain_ms']:.4f} ms, F.rms_norm + torch.matmul {v['library_ms']:.4f} ms, "
+        f"bound {v['bound_ms']:.4f} ms" for case, v in prenorm_m.items()), flush=True)
+    main_prof, fused_prof = main_routes.get("gemv") or {}, fused["profile"] or {}
+    beam_prof = beam["profiles"].get("gemv") or {}
+    print(f"fused norm against the default, same run: greedy {fused['tok_s']:.2f} tok/s (default "
+          f"{main_routes['tok_s']:.2f}; in turns {fused['greedy_ms_per_token_on']:.3f} against "
+          f"{fused['greedy_ms_per_token_off']:.3f} ms/token), "
+          f"{fused_prof.get('kernels_per_token', float('nan')):.1f} kernels/token (default "
+          f"{main_prof.get('kernels_per_token', float('nan')):.1f}), device "
+          f"{fused_prof.get('device_ms_per_token', float('nan')):.3f} ms/token (default "
+          f"{main_prof.get('device_ms_per_token', float('nan')):.3f}); beam {BEAMS} "
+          f"{(fused['beam_profile'] or {}).get('kernels_per_token', float('nan')):.1f} "
+          f"kernels/step (default {beam_prof.get('kernels_per_token', float('nan')):.1f}), "
+          f"device {(fused['beam_profile'] or {}).get('device_ms_per_token', float('nan')):.3f} "
+          f"ms/step (default {beam_prof.get('device_ms_per_token', float('nan')):.3f})",
+          flush=True)
+
+    def prenorm_entry(name, source, counted, case, at):
+        rows = [r for r in prenorm_rows if r["case"] == case]
+        return dict(name=name, route="cuda", source=source,
+                    replaces="autogptq_tpu/ops/pallas/gemm.py:332", launches=counted.get(name, 0),
+                    max_abs_err=max(r["max_abs_err"] for r in prenorm_rows
+                                    if NORM_KEY[r["route"]] == name),
+                    **{key: prenorm_m[case][key] for key in
+                       ("ms", "plain_ms", "bound_ms", "library_ms")},
+                    bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                              else "operations"),
+                    at=at + "; library: F.rms_norm + torch.matmul on a pre-dequantized weight of "
+                    "the activation type; max_abs_err over every case of this kernel")
 
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
                 and not r["desc_act"]]
@@ -2828,6 +3200,21 @@ def main() -> int:
                 f"bf16, timed beside the GEMV on the same operands (kernel='simt'); launches "
                 f"from the f32 routed moe_mlp gradient check of the 2-layer Mixtral cut; "
                 f"max_abs_err over every K9 case it ran in bf16"),
+        prenorm_entry("w4a16_gemm_gemv_norm", GEMV_SOURCE, fused["counts"], "M=1 bf16",
+                      "K1's fused RMS-norm prologue (replaces _prenorm_x :332 inside _kernel_kb32 "
+                      ":487 and _kernel_ki32 :349) in the tensor-core decode GEMV: one Llama-2-7B "
+                      "layer's q/k/v and gate/up at M=1, g128, bf16; launches from the "
+                      f"{NEW_TOKENS}-token greedy run with AUTOGPTQ_TPU_FUSE_NORM=1"),
+        prenorm_entry("w4a16_gemm_mma_norm", MMA_SOURCE, fused["batch_counts"], "M=24 bf16",
+                      "K1's fused RMS-norm prologue in the tensor-core tile kernel: one "
+                      "Llama-2-7B layer's q/k/v and gate/up at M=24, g128, bf16; launches from "
+                      f"the bf16 batch-{FUSED_BATCH} greedy run with the switch on"),
+        prenorm_entry("w4a16_gemm_norm", "autogptq_tpu_torch/ops/csrc/wna16_gemm.cuh",
+                      fused_cut["launches"]["card"], "M=1 f32",
+                      "K1's fused RMS-norm prologue in the SIMT GEMV (f32 activations; the SIMT "
+                      "tile kernel above 16 rows): one Llama-2-7B layer's q/k/v and gate/up at "
+                      "M=1, g128, f32; launches from the f32 2-layer card-vs-CPU cut with the "
+                      "switch on (batch 1 and 24)"),
     ]
     for e in kernels:   # every kernel of the line ran on its path
         check(e["launches"] > 0, f"{e['name']} was launched no time on its path: {e['at']}")
@@ -2845,6 +3232,8 @@ def main() -> int:
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
                        beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
+                       prenorm=prenorm_rows, prenorm_layer_ms=prenorm_m,
+                       prenorm_ptxas=prenorm_regs, fused=fused, fused_cut=fused_cut,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

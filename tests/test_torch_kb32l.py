@@ -173,25 +173,29 @@ def _gemv_stage_words(tiles, k, n, plan):
     kw of column n at tile (n / 128, kw / 32), offset (kw % 32) * 128 + n %
     128; a copy of a row past K or a column past N is zero-filled, not read),
     put back as [K_pad / 8, N] rows; and whether every (stage, 64-column
-    tile) copies from one kb32l tile."""
+    tile) copies from one kb32l tile. Every stage of every split is addressed
+    at once: stage j of split s starts at K row s * kc + j * stage_k, while
+    that lies below the split's end."""
     nbk = -(-k // 256)
     flat = tiles.reshape(-1)
     nb = plan["col_blocks"]
     wrows = plan["stage_k"] // 8
-    out = torch.zeros((plan["splits"] * plan["kc"] // 8, nb * gemm.GEMV_BN), dtype=torch.int32)
-    one_tile = True
-    cols = torch.arange(nb * gemm.GEMV_BN)[None, :]
-    for split in range(plan["splits"]):
-        k1 = min(k, (split + 1) * plan["kc"])
-        for kt in range(split * plan["kc"], k1, plan["stage_k"]):   # the split's stages
-            kws = torch.arange(kt // 8, kt // 8 + wrows)[:, None]
-            addr = (cols // 128 * nbk + kws // 32) * 4096 + kws % 32 * 128 + cols % 128
-            ok = (kws < k // 8) & (cols < n)
-            tile = torch.where(ok, addr // 4096, -1).view(wrows, nb, gemm.GEMV_BN)
-            big = torch.where(tile < 0, 1 << 30, tile).amin(dim=(0, 2))
-            one_tile &= bool(((tile == big[None, :, None]) | (tile < 0)).all())
-            out[kt // 8:kt // 8 + wrows] = torch.where(ok, flat[addr.clamp(max=flat.numel() - 1)],
-                                                       0)
+    kc, splits = plan["kc"], plan["splits"]
+    starts = (torch.arange(splits)[:, None] * kc
+              + torch.arange(-(-kc // plan["stage_k"]))[None, :] * plan["stage_k"])
+    ends = torch.clamp(torch.arange(1, splits + 1) * kc, max=k)[:, None]
+    kt = starts[starts < ends]                                       # [stages]
+    kws = ((kt // 8)[:, None] + torch.arange(wrows)[None, :]).to(torch.int32)   # [stages, wrows]
+    cols = torch.arange(nb * gemm.GEMV_BN, dtype=torch.int32)
+    tile = (cols // 128 * nbk)[None, None, :] + (kws // 32)[:, :, None]
+    addr = tile * 4096 + (kws % 32 * 128)[:, :, None] + (cols % 128)[None, None, :]
+    ok = (kws < k // 8)[:, :, None] & (cols < n)[None, None, :]
+    tile = torch.where(ok, tile, -1).view(-1, wrows, nb, gemm.GEMV_BN)
+    big = torch.where(tile < 0, 1 << 30, tile).amin(dim=(1, 3))
+    one_tile = bool(((tile == big[:, None, :, None]) | (tile < 0)).all())
+    out = torch.zeros((splits * kc // 8, nb * gemm.GEMV_BN), dtype=torch.int32)
+    out[kws.reshape(-1).long()] = torch.where(ok, flat[addr.clamp(max=flat.numel() - 1)],
+                                              0).reshape(-1, nb * gemm.GEMV_BN)
     return out[:, :n], one_tile
 
 

@@ -187,3 +187,29 @@ def test_sources_import_no_jax():
                 for mod in mods:
                     assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "autogptq_tpu"), \
                         f"{name} imports {mod}"
+
+
+def test_chip_smoke_imports_no_jax():
+    """The card's smoke run imports the port only (its source-path strings name the JAX
+    package's kernels, its imports never do)."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    mods += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "autogptq_tpu_torch.ops" in mods
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "flax", "autogptq_tpu")]
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point that places tensors defaults to the card and, without
+    one, raises rather than run on the CPU unasked."""
+    import inspect
+
+    from autogptq_tpu_torch.models.base import GPTQModel
+    from autogptq_tpu_torch.ops import quantlinear
+
+    for fn in (GPTQModel.from_pretrained, GPTQModel.from_quantized, quantlinear.from_packed,
+               arch.KVCache.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GPTQModel.from_pretrained(REPO)
