@@ -40,11 +40,11 @@
 // purpose from the JAX kernels, which dot in bf16 even for f32 cotangents
 // (dot_dtype=jnp.bfloat16 at gemm.py:1452; tests/test_matmul_vjp.py allows 2e-2 for that).
 //
-// This SIMT kernel takes f32 cotangents and group sizes that 16 does not divide. bf16 and f16
-// cotangents with 16 | gs take the tensor-core K10 of wna16_mma.cuh (wna16_t_mma_kernel:
-// mma.sync with the scaled weight rounded to the cotangent's type, the JAX kernels' own
-// rounding), exported beside it as NAME_mma; ops/gemm.py:tile_kernel decides. wgmma and TMA
-// are not used. Every entry point returns cudaGetLastError() and the Python wrapper raises
+// This SIMT kernel takes f32 cotangents (and bf16/f16 ones only where a caller names it:
+// kernel="simt"). bf16 and f16 cotangents take the tensor-core K10 of wna16_mma.cuh
+// (wna16_t_mma_kernel: mma.sync with the scaled weight as a hi/lo pair of the cotangent's
+// type) at every M and group size, its ANY_GS instance for the group sizes 16 does not divide,
+// exported beside it as NAME_mma; ops/gemm.py:tile_kernel decides. wgmma and TMA are not used. Every entry point returns cudaGetLastError() and the Python wrapper raises
 // when it is non-zero.
 
 #pragma once
@@ -202,15 +202,20 @@ int kb32l_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,
                              Kb32lWords{nbk}, n_pad, stream);
 }
 
-// The tensor-core K10 (wna16_mma.cuh) over GPTQ words, bf16 or f16 cotangents, 16 | gs.
+// The tensor-core K10 (wna16_mma.cuh) over GPTQ words, bf16 or f16 cotangents, any M; a group
+// size that 16 does not divide takes its ANY_GS instance.
 template <int BITS>
 int wna16_gemm_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight,
                      const void* scales, const uint8_t* zeros, void* dx, int dtype, int M, int K,
                      int N, int gs, void* stream) {
     constexpr int P = 32 / BITS;
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % 16 != 0 ||
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
         (M + MMA_BM - 1) / MMA_BM > 65535)
         return (int)cudaErrorInvalidValue;
+    if (gs % 16 != 0)
+        return launch_t_mma_dtype<BITS, GptqWords, true>(g, kperm, qweight, scales, zeros, dx,
+                                                         dtype, M, K, N, gs, GptqWords{N}, N,
+                                                         stream);
     return launch_t_mma_dtype<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs,
                                     GptqWords{N}, N, stream);
 }

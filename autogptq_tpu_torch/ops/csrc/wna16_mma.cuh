@@ -3,10 +3,12 @@
 //   wna16_mma_kernel    y[M,N]  = x[M,K] @ ((q - z) * s)[K,N] (+ bias)   K1, K4, K5, K6
 //   wna16_t_mma_kernel  dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T           K10
 // Each library instantiates them beside its SIMT kernels (wna16_gemm.cuh, wna16_gemm_t.cuh,
-// w4a16_kb32l_gemm.cu) and exports them as NAME_mma; ops/gemm.py:tile_kernel routes a product
-// here when the activations are bf16 or f16, M > 16 and 16 divides the group size. At M <= 16
-// the same products take the tensor-core decode GEMV of wna16_gemv.cuh (K1/K4/K5) or K6's
-// ring; f32 activations and the other group sizes stay on the SIMT kernels.
+// w4a16_kb32l_gemm.cu) and exports them as NAME_mma; ops/gemm.py:tile_kernel routes bf16 and
+// f16 products here at any group size: K10 at every M, the forward above 16 rows (at M <= 16
+// it takes the tensor-core decode GEMV of wna16_gemv.cuh where 16 divides the group size, the
+// SIMT GEMV of wna16_gemm.cuh otherwise, and K6 its own GEMV or ring: ops/gemm.py:route). f32
+// activations stay on the SIMT kernels. Each kernel has two instances per library and type: the
+// one of the group sizes 16 divides, and ANY_GS for the others (the "rest classes").
 //
 // They replace the prefill regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487; _matmul_kb32 :559, and _matmul_kb32l :635 with lin=True), _kernel_ki32,
@@ -32,16 +34,21 @@
 //    unscaled weight. Each group's product accumulates in a second fragment, folded into the
 //    output once per group as acc += s[g, n] * part (16 | gs: a step never spans two
 //    groups). The only rounding left is the f32 accumulation, as in the SIMT kernel, which
-//    holds an f32 weight; finer than the JAX kernels' bf16 weight.
+//    holds an f32 weight; finer than the JAX kernels' bf16 weight. ANY_GS keeps that
+//    arithmetic: a step that spans groups runs one MMA per group it touches, each with q - z
+//    of that group's rows and 0 for the others, and folds a group's scale in once its last row
+//    has gone in (about 16/gs of the steps take two MMAs at gs >= 16; up to ceil(15/gs) + 1
+//    below); a stage holds the floor(63/gs) + 2 groups a 64-row K tile can touch (33 at gs 2).
 //  * desc_act: with kperm (or a K or x that is not 16-byte aligned) x is gathered inside the
 //    kernel, by register loads and stores to shared memory, no separate index_select pass.
 //  * Backward (K10): the same block and warp tiles over (M, K), N reduced in steps of 64 with
-//    a 4-stage ring of g [128 x 64] tiles, words and the (at most 8) groups of the block's 128
-//    K rows. The scale varies along the reduction, so it cannot be folded after the MMA: each
-//    stage's words are dequantized once per block into a shared B tile [128 K x 64 N] of
-//    w = (q - z) * s, stored K-major with N contiguous, which is mma.sync's column-major B:
-//    ldmatrix.x4 without .trans gives two 8-column fragments. A thread writes column pairs,
-//    so a warp's stores fill 32 banks. w goes in as a pair of the activation type, hi =
+//    a 4-stage ring of g [128 x 64] tiles, words and the groups of the block's 128 K rows (at
+//    most 8 at 16 | gs; ANY_GS floor(127/gs) + 2, each code's group looked up as the dequant
+//    walks a word's rows). The scale varies along the reduction, so it cannot be folded
+//    after the MMA: each stage's words are dequantized once per block into a shared B tile
+//    [128 K x 64 N] of w = (q - z) * s, stored K-major with N contiguous, which is mma.sync's
+//    column-major B: ldmatrix.x4 without .trans gives two 8-column fragments. A thread
+//    writes column pairs, so a warp's stores fill 32 banks. w goes in as a pair of the activation type, hi =
 //    round(w) and lo = round(w - hi), two MMAs each, so dx keeps the f32 weight's precision
 //    as the SIMT kernel does (rounding w once to bf16 moved a 32-layer LoRA run off its
 //    descent: chip_mma_probe.py, PERF.md). There are two sets of B tiles: tile t+1 is
@@ -173,7 +180,14 @@ static_assert(KB32L_BN % MMA_BN == 0, "a block's words must lie in one kb32l col
 
 constexpr int FW_BK = 64;          // K rows per stage
 constexpr int FW_STAGES = 4;
-constexpr int FW_GROUPS = FW_BK / 16;   // group rows a K tile's 16-row steps can touch
+constexpr int FW_GROUPS = FW_BK / 16;   // 16 | gs: group rows a K tile's 16-row steps can touch
+// Dynamic shared memory an ANY_GS block may take: the card's 227 KB opt-in less room for the
+// kernels' static arrays (ops/gemm.py:MMA_SMEM_LIMIT).
+constexpr int MMA_SMEM_LIMIT = 226 * 1024;
+
+// ANY_GS: the group rows a stage holds for `rows` K rows, every group that rows at any offset
+// can touch (ops/gemm.py:mma_stage_groups).
+__host__ __device__ constexpr int stage_groups(int gs, int rows) { return (rows - 1) / gs + 2; }
 
 template <int BITS> struct FwStage {   // byte offsets within one stage
     static constexpr int P = 32 / BITS;
@@ -183,6 +197,11 @@ template <int BITS> struct FwStage {   // byte offsets within one stage
     static constexpr int Z = S + FW_GROUPS * MMA_BN * 2;          // u8  [FW_GROUPS][MMA_BN]
     static constexpr int BYTES = Z + FW_GROUPS * MMA_BN;
     static_assert(BYTES % 16 == 0, "stages must stay 16-byte aligned");
+    // ANY_GS: ng group rows of scales and zeros in place of FW_GROUPS
+    static __host__ __device__ constexpr int z_at(int ng) { return S + ng * MMA_BN * 2; }
+    static __host__ __device__ constexpr int bytes(int ng) {
+        return (z_at(ng) + ng * MMA_BN + 15) / 16 * 16;
+    }
 };
 
 constexpr int FW_NW_BYTES = FW_BK * 4;  // PRENORM: a K tile's norm weight (at most f32)
@@ -192,16 +211,27 @@ constexpr int FW_NW_BYTES = FW_BK * 4;  // PRENORM: a K tile's norm weight (at m
 // once the tile has landed its rows of x are normalized in place, each element rounded once to
 // T, before a second barrier lets the MMAs read them; gathered x (kperm, or x or the weight
 // not 16-byte aligned) is normalized as it is stored.
-template <int BITS, typename T, typename Words, bool PRENORM = false>
+// ANY_GS: any group size (the instance of the group sizes 16 does not divide). A 16-row step
+// may span groups: it runs one MMA per group it touches, each taking q - z with that group's
+// zero for its own rows and exactly 0 for the others (so a word straddling groups gives each
+// code its own group's zero), and folds the group's scale in as soon as the group's last row
+// (or K's) has gone in. Group boundaries are K rows, the same for every thread, so the loop
+// stays uniform. A stage holds stage_groups(gs, FW_BK) group rows.
+template <int BITS, typename T, typename Words, bool PRENORM = false, bool ANY_GS = false>
 __global__ void __launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)
 wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                  const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                  const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                  T* __restrict__ out, int M, int K, int N, int gs, Words words, int ldsz,
                  int gather, Prenorm pn) {
+    static_assert(!(PRENORM && ANY_GS), "the fused prologue takes 32 | gs only");
     using L = FwStage<BITS>;
     constexpr int P = L::P;
     constexpr int WROWS = FW_BK / P;        // word rows per K tile
+    // group rows per stage, the offset of its zeros and a stage's bytes
+    const int ngroups = ANY_GS ? stage_groups(gs, FW_BK) : FW_GROUPS;
+    const int zoff = ANY_GS ? L::z_at(ngroups) : L::Z;
+    const int sbytes = ANY_GS ? L::bytes(ngroups) : L::BYTES;
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float rstd[PRENORM ? PN_MAX_ROWS : 1];
     __shared__ float red[PRENORM ? PN_MAX_ROWS * (MMA_THREADS / 32) : 1];
@@ -258,16 +288,16 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
         }
         const int g0 = kt / gs;
         __half* ss = reinterpret_cast<__half*>(st + L::S);
-        uint8_t* zs = st + L::Z;
-        for (int c = tid; c < FW_GROUPS * (MMA_BN / 2 + MMA_BN / 4); c += MMA_THREADS) {
-            if (c < FW_GROUPS * (MMA_BN / 2)) {   // scales, 2 columns per copy
+        uint8_t* zs = st + zoff;
+        for (int c = tid; c < ngroups * (MMA_BN / 2 + MMA_BN / 4); c += MMA_THREADS) {
+            if (c < ngroups * (MMA_BN / 2)) {     // scales, 2 columns per copy
                 const int r = c / (MMA_BN / 2), q = c % (MMA_BN / 2);
                 const int g = g0 + r, n = n0 + 2 * q;
                 const bool ok = g < G && n < N;
                 cp_async4_zfill(ss + r * MMA_BN + 2 * q,
                                 ok ? scales + (int64_t)g * ldsz + n : scales, ok);
             } else {                               // zeros, 4 columns per copy
-                const int c2 = c - FW_GROUPS * (MMA_BN / 2);
+                const int c2 = c - ngroups * (MMA_BN / 2);
                 const int r = c2 / (MMA_BN / 4), q = c2 % (MMA_BN / 4);
                 const int g = g0 + r, n = n0 + 4 * q;
                 const bool ok = g < G && n < N;
@@ -291,23 +321,23 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                                      rstd, red);
 #pragma unroll
     for (int s = 0; s < FW_STAGES - 1; ++s) {
-        if (s < ntiles) fetch(s, smem + s * L::BYTES);
+        if (s < ntiles) fetch(s, smem + s * sbytes);
         cp_async_commit();   // one group per stage, empty past the end: wait counts alike
     }
-    const int gsteps = gs / 16;   // 16-row steps per group
-    int gcur = 0;                 // the group of the current step
-    int left = gsteps;            // its steps still to come
+    [[maybe_unused]] const int gsteps = gs / 16;   // 16 | gs: 16-row steps per group
+    [[maybe_unused]] int gcur = 0;                 // the group of the current step
+    [[maybe_unused]] int left = gsteps;            // its steps still to come
     for (int t = 0; t < ntiles; ++t) {
         cp_async_wait<FW_STAGES - 2>();   // this thread's copies of tile t have landed
         __syncthreads();                  // everyone's have, and tile t-1's stage is free
         const int nxt = t + FW_STAGES - 1;
-        if (nxt < ntiles) fetch(nxt, smem + (nxt % FW_STAGES) * L::BYTES);
+        if (nxt < ntiles) fetch(nxt, smem + (nxt % FW_STAGES) * sbytes);
         cp_async_commit();
 
-        const unsigned char* st = smem + (t % FW_STAGES) * L::BYTES;
+        const unsigned char* st = smem + (t % FW_STAGES) * sbytes;
         if constexpr (PRENORM) {
             if (!gather) {   // the tile's rows of x normalized in place (rows past M stay zero)
-                T* xn = reinterpret_cast<T*>(smem + (t % FW_STAGES) * L::BYTES + L::X);
+                T* xn = reinterpret_cast<T*>(smem + (t % FW_STAGES) * sbytes + L::X);
                 const unsigned char* wsl = nws + (t % FW_STAGES) * FW_NW_BYTES;
                 const int rows = min(M - m0, PN_MAX_ROWS);
                 for (int c = tid; c < rows * (FW_BK / 8); c += MMA_THREADS) {
@@ -328,53 +358,105 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
         const T* xs = reinterpret_cast<const T*>(st + L::X);
         const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + L::W);
         const __half* ss = reinterpret_cast<const __half*>(st + L::S);
-        const uint8_t* zs = st + L::Z;
+        const uint8_t* zs = st + zoff;
         const int kt = t * FW_BK;
         const int g0 = kt / gs;
 #pragma unroll
         for (int ks = 0; ks < FW_BK / 16; ++ks) {
             const int k = kt + ks * 16;
             if (k >= K) break;                      // uniform over the block
-            const int grow = gcur - g0;             // this step's group row in the stage
-            uint32_t a[4][4];
+            if constexpr (ANY_GS) {
+                uint32_t a[4][4];
 #pragma unroll
-            for (int mt = 0; mt < 4; ++mt)
-                ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + (lane & 15)) * MMA_LD + ks * 16 +
-                                       (lane >> 4) * 8);
-            const int r0 = ks * 16 + 2 * (lane & 3);   // K rows r0, r0+1, r0+8, r0+9 of the tile
+                for (int mt = 0; mt < 4; ++mt)
+                    ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + (lane & 15)) * MMA_LD +
+                                           ks * 16 + (lane >> 4) * 8);
+                const int r0 = ks * 16 + 2 * (lane & 3);   // K rows r0, r0+1, r0+8, r0+9
+                const int kend = min(k + 16, K);
+                for (int g = k / gs; g * gs < kend; ++g) {  // each group the step touches
+                    const int grow = g - g0;
+                    const int lo = g * gs, hi = min(lo + gs, K);   // its K rows [lo, hi)
+                    const unsigned span = (unsigned)(hi - lo);
+                    const bool in0 = (unsigned)(kt + r0 - lo) < span;
+                    const bool in1 = (unsigned)(kt + r0 + 1 - lo) < span;
+                    const bool in8 = (unsigned)(kt + r0 + 8 - lo) < span;
+                    const bool in9 = (unsigned)(kt + r0 + 9 - lo) < span;
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-                const int col = wn * 32 + nt * 8 + (lane >> 2);
-                const float zb = MAGIC + (float)zs[grow * MMA_BN + col];
-                const uint32_t w0 = ws[(r0 / P) * MMA_BN + col];
-                const uint32_t w1 = ws[((r0 + 8) / P) * MMA_BN + col];
-                const uint32_t b0 = Mma<T>::pack(code_minus_zero<BITS>(w0, r0 % P, zb),
-                                                 code_minus_zero<BITS>(w0, (r0 + 1) % P, zb));
-                const uint32_t b1 = Mma<T>::pack(code_minus_zero<BITS>(w1, (r0 + 8) % P, zb),
-                                                 code_minus_zero<BITS>(w1, (r0 + 9) % P, zb));
+                    for (int nt = 0; nt < 4; ++nt) {
+                        const int col = wn * 32 + nt * 8 + (lane >> 2);
+                        const float zb = MAGIC + (float)zs[grow * MMA_BN + col];
+                        const uint32_t w0 = ws[(r0 / P) * MMA_BN + col];
+                        const uint32_t w1 = ws[((r0 + 8) / P) * MMA_BN + col];
+                        const uint32_t b0 = Mma<T>::pack(
+                            in0 ? code_minus_zero<BITS>(w0, r0 % P, zb) : 0.0f,
+                            in1 ? code_minus_zero<BITS>(w0, (r0 + 1) % P, zb) : 0.0f);
+                        const uint32_t b1 = Mma<T>::pack(
+                            in8 ? code_minus_zero<BITS>(w1, (r0 + 8) % P, zb) : 0.0f,
+                            in9 ? code_minus_zero<BITS>(w1, (r0 + 9) % P, zb) : 0.0f);
 #pragma unroll
-                for (int mt = 0; mt < 4; ++mt) Mma<T>::run(part[mt][nt], a[mt], b0, b1);
-            }
-            if (--left == 0 || k + 16 >= K) {       // the group ends: fold its scale in
+                        for (int mt = 0; mt < 4; ++mt) Mma<T>::run(part[mt][nt], a[mt], b0, b1);
+                    }
+                    if (hi <= k + 16) {             // the group ends in this step: fold its scale
 #pragma unroll
-                for (int nt = 0; nt < 4; ++nt) {
-                    const int col = wn * 32 + nt * 8 + 2 * (lane & 3);
-                    const __half2 s2 = *reinterpret_cast<const __half2*>(ss + grow * MMA_BN + col);
-                    const float s0 = __low2float(s2), s1 = __high2float(s2);
+                        for (int nt = 0; nt < 4; ++nt) {
+                            const int col = wn * 32 + nt * 8 + 2 * (lane & 3);
+                            const __half2 s2 =
+                                *reinterpret_cast<const __half2*>(ss + grow * MMA_BN + col);
+                            const float s0 = __low2float(s2), s1 = __high2float(s2);
 #pragma unroll
-                    for (int mt = 0; mt < 4; ++mt) {
-                        acc[mt][nt][0] = fmaf(part[mt][nt][0], s0, acc[mt][nt][0]);
-                        acc[mt][nt][1] = fmaf(part[mt][nt][1], s1, acc[mt][nt][1]);
-                        acc[mt][nt][2] = fmaf(part[mt][nt][2], s0, acc[mt][nt][2]);
-                        acc[mt][nt][3] = fmaf(part[mt][nt][3], s1, acc[mt][nt][3]);
+                            for (int mt = 0; mt < 4; ++mt) {
+                                acc[mt][nt][0] = fmaf(part[mt][nt][0], s0, acc[mt][nt][0]);
+                                acc[mt][nt][1] = fmaf(part[mt][nt][1], s1, acc[mt][nt][1]);
+                                acc[mt][nt][2] = fmaf(part[mt][nt][2], s0, acc[mt][nt][2]);
+                                acc[mt][nt][3] = fmaf(part[mt][nt][3], s1, acc[mt][nt][3]);
 #pragma unroll
-                        for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.0f;
+                                for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.0f;
+                            }
+                        }
                     }
                 }
-            }
-            if (left == 0) {
-                ++gcur;
-                left = gsteps;
+            } else {
+                const int grow = gcur - g0;             // this step's group row in the stage
+                uint32_t a[4][4];
+#pragma unroll
+                for (int mt = 0; mt < 4; ++mt)
+                    ldmatrix_x4(a[mt], xs + (wm * 64 + mt * 16 + (lane & 15)) * MMA_LD + ks * 16 +
+                                           (lane >> 4) * 8);
+                const int r0 = ks * 16 + 2 * (lane & 3);   // K rows r0, r0+1, r0+8, r0+9 of the tile
+#pragma unroll
+                for (int nt = 0; nt < 4; ++nt) {
+                    const int col = wn * 32 + nt * 8 + (lane >> 2);
+                    const float zb = MAGIC + (float)zs[grow * MMA_BN + col];
+                    const uint32_t w0 = ws[(r0 / P) * MMA_BN + col];
+                    const uint32_t w1 = ws[((r0 + 8) / P) * MMA_BN + col];
+                    const uint32_t b0 = Mma<T>::pack(code_minus_zero<BITS>(w0, r0 % P, zb),
+                                                     code_minus_zero<BITS>(w0, (r0 + 1) % P, zb));
+                    const uint32_t b1 = Mma<T>::pack(code_minus_zero<BITS>(w1, (r0 + 8) % P, zb),
+                                                     code_minus_zero<BITS>(w1, (r0 + 9) % P, zb));
+#pragma unroll
+                    for (int mt = 0; mt < 4; ++mt) Mma<T>::run(part[mt][nt], a[mt], b0, b1);
+                }
+                if (--left == 0 || k + 16 >= K) {       // the group ends: fold its scale in
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+                        const int col = wn * 32 + nt * 8 + 2 * (lane & 3);
+                        const __half2 s2 = *reinterpret_cast<const __half2*>(ss + grow * MMA_BN + col);
+                        const float s0 = __low2float(s2), s1 = __high2float(s2);
+#pragma unroll
+                        for (int mt = 0; mt < 4; ++mt) {
+                            acc[mt][nt][0] = fmaf(part[mt][nt][0], s0, acc[mt][nt][0]);
+                            acc[mt][nt][1] = fmaf(part[mt][nt][1], s1, acc[mt][nt][1]);
+                            acc[mt][nt][2] = fmaf(part[mt][nt][2], s0, acc[mt][nt][2]);
+                            acc[mt][nt][3] = fmaf(part[mt][nt][3], s1, acc[mt][nt][3]);
+#pragma unroll
+                            for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.0f;
+                        }
+                    }
+                }
+                if (left == 0) {
+                    ++gcur;
+                    left = gsteps;
+                }
             }
         }
     }
@@ -401,26 +483,30 @@ wna16_mma_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
     }
 }
 
-template <int BITS, typename T, typename Words, bool PRENORM = false>
+template <int BITS, typename T, typename Words, bool PRENORM = false, bool ANY_GS = false>
 cudaError_t launch_mma(const void* x, const int64_t* kperm, const int32_t* qweight,
                        const __half* scales, const uint8_t* zeros, const void* bias, void* out,
                        int M, int K, int N, int gs, Words words, int ldsz, cudaStream_t stream,
                        Prenorm pn = Prenorm{}) {
-    constexpr int smem = FW_STAGES * (FwStage<BITS>::BYTES + (PRENORM ? FW_NW_BYTES : 0));
+    constexpr int fixed = FW_STAGES * (FwStage<BITS>::BYTES + (PRENORM ? FW_NW_BYTES : 0));
+    // ANY_GS: the stage grows with the groups a K tile touches (ops/gemm.py:mma_smem_bytes)
+    const int smem = ANY_GS ? FW_STAGES * FwStage<BITS>::bytes(stage_groups(gs, FW_BK)) : fixed;
+    if (smem > MMA_SMEM_LIMIT) return cudaErrorInvalidValue;
     // function-local static: the attribute is set once per instantiation, thread-safely
-    static const cudaError_t attr = allow_smem(wna16_mma_kernel<BITS, T, Words, PRENORM>, smem);
+    static const cudaError_t attr = allow_smem(wna16_mma_kernel<BITS, T, Words, PRENORM, ANY_GS>,
+                                               ANY_GS ? MMA_SMEM_LIMIT : fixed);
     if (attr != cudaSuccess) return attr;
     const int gather = kperm != nullptr || K % 8 != 0 ||
                        (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
                        (PRENORM && (reinterpret_cast<uintptr_t>(pn.w) & 15) != 0);
     const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-    wna16_mma_kernel<BITS, T, Words, PRENORM><<<grid, MMA_THREADS, smem, stream>>>(
+    wna16_mma_kernel<BITS, T, Words, PRENORM, ANY_GS><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
         static_cast<T*>(out), M, K, N, gs, words, ldsz, gather, pn);
     return cudaGetLastError();
 }
 
-template <int BITS, typename Words, bool PRENORM = false>
+template <int BITS, typename Words, bool PRENORM = false, bool ANY_GS = false>
 int launch_mma_dtype(const void* x, const int64_t* kperm, const int32_t* qweight,
                      const void* scales, const uint8_t* zeros, const void* bias, void* out,
                      int dtype, int M, int K, int N, int gs, Words words, int ldsz, void* stream,
@@ -429,25 +515,32 @@ int launch_mma_dtype(const void* x, const int64_t* kperm, const int32_t* qweight
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case DT_F16:
-            return (int)launch_mma<BITS, __half, Words, PRENORM>(
+            return (int)launch_mma<BITS, __half, Words, PRENORM, ANY_GS>(
                 x, kperm, qweight, s, zeros, bias, out, M, K, N, gs, words, ldsz, st, pn);
         case DT_BF16:
-            return (int)launch_mma<BITS, __nv_bfloat16, Words, PRENORM>(
+            return (int)launch_mma<BITS, __nv_bfloat16, Words, PRENORM, ANY_GS>(
                 x, kperm, qweight, s, zeros, bias, out, M, K, N, gs, words, ldsz, st, pn);
         default:   // f32 activations take the SIMT kernels
             return (int)cudaErrorInvalidValue;
     }
 }
 
-// The forward over GPTQ words [K/P, N] (K1, K4, K5); PRENORM with the fused RMS-norm prologue.
+// The forward over GPTQ words [K/P, N] (K1, K4, K5); PRENORM with the fused RMS-norm prologue
+// (32 | gs). A group size that 16 does not divide takes the ANY_GS instance.
 template <int BITS, bool PRENORM = false>
 int wna16_gemm_mma(const void* x, const int64_t* kperm, const int32_t* qweight,
                    const void* scales, const uint8_t* zeros, const void* bias, void* out,
                    int dtype, int M, int K, int N, int gs, void* stream, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 || gs % 16 != 0 ||
-        (M + MMA_BM - 1) / MMA_BM > 65535 || (PRENORM && !prenorm_ok(M, pn)))
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 || gs <= 0 ||
+        (M + MMA_BM - 1) / MMA_BM > 65535 || (PRENORM && (!prenorm_ok(M, pn) || gs % 16 != 0)))
         return (int)cudaErrorInvalidValue;
+    if constexpr (!PRENORM) {
+        if (gs % 16 != 0)
+            return launch_mma_dtype<BITS, GptqWords, false, true>(
+                x, kperm, qweight, scales, zeros, bias, out, dtype, M, K, N, gs, GptqWords{N}, N,
+                stream);
+    }
     return launch_mma_dtype<BITS, GptqWords, PRENORM>(x, kperm, qweight, scales, zeros, bias,
                                                       out, dtype, M, K, N, gs, GptqWords{N}, N,
                                                       stream, pn);
@@ -472,9 +565,17 @@ template <int BITS> struct TmStage {      // byte offsets within one stage
     static constexpr int BYTES = Z + TM_GROUPS * TM_BR;
     static constexpr int B_TILE = MMA_BN * MMA_LD * 2;            // T   [MMA_BN K][MMA_LD]
     static_assert(BYTES % 16 == 0, "stages must stay 16-byte aligned");
+    // ANY_GS: ng group rows of scales and zeros in place of TM_GROUPS
+    static __host__ __device__ constexpr int z_at(int ng) { return S + ng * TM_BR * 2; }
+    static __host__ __device__ constexpr int bytes(int ng) {
+        return (z_at(ng) + ng * TM_BR + 15) / 16 * 16;
+    }
 };
 
-template <int BITS, typename T, typename Words>
+// ANY_GS: any group size (the instance of the group sizes 16 does not divide). The dequant
+// looks up the group of each code, not of each word (a word may straddle groups), and a stage
+// holds stage_groups(gs, MMA_BN) group rows.
+template <int BITS, typename T, typename Words, bool ANY_GS = false>
 __global__ void __launch_bounds__(MMA_THREADS, MMA_BLOCKS_PER_SM)
 wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
                    const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
@@ -483,10 +584,14 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
     using L = TmStage<BITS>;
     constexpr int P = L::P;
     constexpr int WROWS = MMA_BN / P;       // word rows of the block's MMA_BN K rows
+    // group rows per stage, the offset of its zeros and a stage's bytes
+    const int ngroups = ANY_GS ? stage_groups(gs, MMA_BN) : TM_GROUPS;
+    const int zoff = ANY_GS ? L::z_at(ngroups) : L::Z;
+    const int sbytes = ANY_GS ? L::bytes(ngroups) : L::BYTES;
     extern __shared__ __align__(16) unsigned char smem[];
     // the dequantized B tiles [2][TM_SPLIT][MMA_BN][MMA_LD]: tile t+1 is dequantized while
     // tile t's MMAs run
-    T* const bts = reinterpret_cast<T*>(smem + TM_STAGES * L::BYTES);
+    T* const bts = reinterpret_cast<T*>(smem + TM_STAGES * sbytes);
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int wm = (tid >> 5) / MMA_WARPS_N;   // warp row: dx rows 64 wm ..
@@ -523,16 +628,16 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
             cp_async16_zfill(ws + r * TM_BR + q * 4, ok ? qweight + words(kw, n) : qweight, ok);
         }
         __half* ss = reinterpret_cast<__half*>(st + L::S);
-        uint8_t* zs = st + L::Z;
-        for (int c = tid; c < TM_GROUPS * (TM_BR / 2 + TM_BR / 4); c += MMA_THREADS) {
-            if (c < TM_GROUPS * (TM_BR / 2)) {
+        uint8_t* zs = st + zoff;
+        for (int c = tid; c < ngroups * (TM_BR / 2 + TM_BR / 4); c += MMA_THREADS) {
+            if (c < ngroups * (TM_BR / 2)) {
                 const int r = c / (TM_BR / 2), q = c % (TM_BR / 2);
                 const int grp = g_lo + r, n = nt + 2 * q;
                 const bool ok = grp < G && n < N;
                 cp_async4_zfill(ss + r * TM_BR + 2 * q,
                                 ok ? scales + (int64_t)grp * ldsz + n : scales, ok);
             } else {
-                const int c2 = c - TM_GROUPS * (TM_BR / 2);
+                const int c2 = c - ngroups * (TM_BR / 2);
                 const int r = c2 / (TM_BR / 4), q = c2 % (TM_BR / 4);
                 const int grp = g_lo + r, n = nt + 4 * q;
                 const bool ok = grp < G && n < N;
@@ -544,35 +649,70 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
 
     // Dequantize part `part` of tile `tile`'s words into B tile `bt`: word row r, column
     // pair cp -> B rows P*r .. P*r+P-1, columns 2cp, 2cp+1 (16 | gs and P | 16, so a word
-    // lies in one group). A thread's word pairs are dealt out over the TM_BR / 16 parts.
+    // lies in one group; ANY_GS moves to the next group at each code that starts one). A
+    // thread's word pairs are dealt out over the TM_BR / 16 parts.
     constexpr int ITERS = WROWS * (TM_BR / 2) / MMA_THREADS;   // word pairs per thread
     static_assert(ITERS * MMA_THREADS == WROWS * (TM_BR / 2), "whole word pairs per thread");
     auto dequant = [&](int tile, T* bt, int part) {
-        const unsigned char* st = smem + (tile % TM_STAGES) * L::BYTES;
+        const unsigned char* st = smem + (tile % TM_STAGES) * sbytes;
         const uint32_t* ws = reinterpret_cast<const uint32_t*>(st + L::W);
         const __half* ss = reinterpret_cast<const __half*>(st + L::S);
-        const uint8_t* zs = st + L::Z;
+        const uint8_t* zs = st + zoff;
 #pragma unroll
         for (int it = part; it < ITERS; it += TM_BR / 16) {
             const int i = tid + it * MMA_THREADS;
             const int r = i / (TM_BR / 2), cp = i % (TM_BR / 2);
-            const int grow = (k0 + r * P) / gs - g_lo;
-            const uint2 w = *reinterpret_cast<const uint2*>(ws + r * TM_BR + 2 * cp);
-            const __half2 s2 = *reinterpret_cast<const __half2*>(ss + grow * TM_BR + 2 * cp);
-            const float s0 = __low2float(s2), s1 = __high2float(s2);
-            const float zb0 = MAGIC + (float)zs[grow * TM_BR + 2 * cp];
-            const float zb1 = MAGIC + (float)zs[grow * TM_BR + 2 * cp + 1];
+            if constexpr (ANY_GS) {   // the group of each code, from the word's first row on
+                const uint2 w = *reinterpret_cast<const uint2*>(ws + r * TM_BR + 2 * cp);
+                int grow = (k0 + r * P) / gs - g_lo;
+                int left = gs - (k0 + r * P) % gs;   // rows of that group from the word's first
+                float s0, s1, zb0, zb1;
+                auto group = [&]() {
+                    const __half2 s2 = *reinterpret_cast<const __half2*>(ss + grow * TM_BR + 2 * cp);
+                    s0 = __low2float(s2);
+                    s1 = __high2float(s2);
+                    zb0 = MAGIC + (float)zs[grow * TM_BR + 2 * cp];
+                    zb1 = MAGIC + (float)zs[grow * TM_BR + 2 * cp + 1];
+                };
+                group();
 #pragma unroll
-            for (int j = 0; j < P; ++j) {
-                const float v0 = code_minus_zero<BITS>(w.x, j, zb0) * s0;
-                const float v1 = code_minus_zero<BITS>(w.y, j, zb1) * s1;
-                const uint32_t hi = Mma<T>::pack(v0, v1);
-                T* dst = bt + (r * P + j) * MMA_LD + 2 * cp;
-                *reinterpret_cast<uint32_t*>(dst) = hi;
-                if constexpr (TM_SPLIT == 2) {
-                    const float2 h = Mma<T>::unpack(hi);
-                    *reinterpret_cast<uint32_t*>(dst + MMA_BN * MMA_LD) =
-                        Mma<T>::pack(v0 - h.x, v1 - h.y);
+                for (int j = 0; j < P; ++j) {
+                    if (left == 0) {             // code j starts the next group
+                        ++grow;
+                        left = gs;
+                        group();
+                    }
+                    --left;
+                    const float v0 = code_minus_zero<BITS>(w.x, j, zb0) * s0;
+                    const float v1 = code_minus_zero<BITS>(w.y, j, zb1) * s1;
+                    const uint32_t hi = Mma<T>::pack(v0, v1);
+                    T* dst = bt + (r * P + j) * MMA_LD + 2 * cp;
+                    *reinterpret_cast<uint32_t*>(dst) = hi;
+                    if constexpr (TM_SPLIT == 2) {
+                        const float2 h = Mma<T>::unpack(hi);
+                        *reinterpret_cast<uint32_t*>(dst + MMA_BN * MMA_LD) =
+                            Mma<T>::pack(v0 - h.x, v1 - h.y);
+                    }
+                }
+            } else {
+                const int grow = (k0 + r * P) / gs - g_lo;
+                const uint2 w = *reinterpret_cast<const uint2*>(ws + r * TM_BR + 2 * cp);
+                const __half2 s2 = *reinterpret_cast<const __half2*>(ss + grow * TM_BR + 2 * cp);
+                const float s0 = __low2float(s2), s1 = __high2float(s2);
+                const float zb0 = MAGIC + (float)zs[grow * TM_BR + 2 * cp];
+                const float zb1 = MAGIC + (float)zs[grow * TM_BR + 2 * cp + 1];
+#pragma unroll
+                for (int j = 0; j < P; ++j) {
+                    const float v0 = code_minus_zero<BITS>(w.x, j, zb0) * s0;
+                    const float v1 = code_minus_zero<BITS>(w.y, j, zb1) * s1;
+                    const uint32_t hi = Mma<T>::pack(v0, v1);
+                    T* dst = bt + (r * P + j) * MMA_LD + 2 * cp;
+                    *reinterpret_cast<uint32_t*>(dst) = hi;
+                    if constexpr (TM_SPLIT == 2) {
+                        const float2 h = Mma<T>::unpack(hi);
+                        *reinterpret_cast<uint32_t*>(dst + MMA_BN * MMA_LD) =
+                            Mma<T>::pack(v0 - h.x, v1 - h.y);
+                    }
                 }
             }
         }
@@ -588,7 +728,7 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
 
 #pragma unroll
     for (int s = 0; s < TM_STAGES - 1; ++s) {
-        if (s < ntiles) fetch(s, smem + s * L::BYTES);
+        if (s < ntiles) fetch(s, smem + s * sbytes);
         cp_async_commit();
     }
     cp_async_wait<TM_STAGES - 2>();
@@ -619,9 +759,9 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
         cp_async_wait<TM_STAGES - 3>();
         __syncthreads();
         const int nxt = t + TM_STAGES - 1;
-        if (nxt < ntiles) fetch(nxt, smem + (nxt % TM_STAGES) * L::BYTES);
+        if (nxt < ntiles) fetch(nxt, smem + (nxt % TM_STAGES) * sbytes);
         cp_async_commit();
-        const T* gsm = reinterpret_cast<const T*>(smem + (t % TM_STAGES) * L::BYTES + L::X);
+        const T* gsm = reinterpret_cast<const T*>(smem + (t % TM_STAGES) * sbytes + L::X);
         const T* bt = bts + (t & 1) * (TM_SPLIT * MMA_BN * MMA_LD);
         load(0, gsm, bt, 0);
 #pragma unroll
@@ -670,22 +810,29 @@ wna16_t_mma_kernel(const T* __restrict__ g, const int64_t* __restrict__ kperm,
     }
 }
 
-template <int BITS, typename T, typename Words>
+template <int BITS, typename T, typename Words, bool ANY_GS = false>
 cudaError_t launch_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight,
                          const __half* scales, const uint8_t* zeros, void* dx, int M, int K,
                          int N, int gs, Words words, int ldsz, cudaStream_t stream) {
-    constexpr int smem = TM_STAGES * TmStage<BITS>::BYTES + 2 * TM_SPLIT * TmStage<BITS>::B_TILE;
-    static const cudaError_t attr = allow_smem(wna16_t_mma_kernel<BITS, T, Words>, smem);
+    using L = TmStage<BITS>;
+    constexpr int fixed = TM_STAGES * L::BYTES + 2 * TM_SPLIT * L::B_TILE;
+    // ANY_GS: the stage grows with the groups a block's K rows touch (ops/gemm.py:mma_smem_bytes)
+    const int smem = ANY_GS ? TM_STAGES * L::bytes(stage_groups(gs, MMA_BN)) +
+                                  2 * TM_SPLIT * L::B_TILE
+                            : fixed;
+    if (smem > MMA_SMEM_LIMIT) return cudaErrorInvalidValue;
+    static const cudaError_t attr = allow_smem(wna16_t_mma_kernel<BITS, T, Words, ANY_GS>,
+                                               ANY_GS ? MMA_SMEM_LIMIT : fixed);
     if (attr != cudaSuccess) return attr;
     const int gather = N % 8 != 0 || (reinterpret_cast<uintptr_t>(g) & 15) != 0;
     const dim3 grid((K + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-    wna16_t_mma_kernel<BITS, T, Words><<<grid, MMA_THREADS, smem, stream>>>(
+    wna16_t_mma_kernel<BITS, T, Words, ANY_GS><<<grid, MMA_THREADS, smem, stream>>>(
         static_cast<const T*>(g), kperm, qweight, scales, zeros, static_cast<T*>(dx), M, K, N,
         gs, words, ldsz, gather);
     return cudaGetLastError();
 }
 
-template <int BITS, typename Words>
+template <int BITS, typename Words, bool ANY_GS = false>
 int launch_t_mma_dtype(const void* g, const int64_t* kperm, const int32_t* qweight,
                        const void* scales, const uint8_t* zeros, void* dx, int dtype, int M,
                        int K, int N, int gs, Words words, int ldsz, void* stream) {
@@ -693,11 +840,11 @@ int launch_t_mma_dtype(const void* g, const int64_t* kperm, const int32_t* qweig
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case DT_F16:
-            return (int)launch_t_mma<BITS, __half>(g, kperm, qweight, s, zeros, dx, M, K, N, gs,
-                                                   words, ldsz, st);
+            return (int)launch_t_mma<BITS, __half, Words, ANY_GS>(g, kperm, qweight, s, zeros, dx,
+                                                                  M, K, N, gs, words, ldsz, st);
         case DT_BF16:
-            return (int)launch_t_mma<BITS, __nv_bfloat16>(g, kperm, qweight, s, zeros, dx, M, K,
-                                                          N, gs, words, ldsz, st);
+            return (int)launch_t_mma<BITS, __nv_bfloat16, Words, ANY_GS>(
+                g, kperm, qweight, s, zeros, dx, M, K, N, gs, words, ldsz, st);
         default:   // f32 cotangents take the SIMT kernel
             return (int)cudaErrorInvalidValue;
     }

@@ -17,21 +17,25 @@ else picks between them.
 
 Each library holds three kernels besides its SIMT ones (``csrc/wna16_gemm.cuh``:
 the split-K GEMV at M <= 16, the tile kernel above): :func:`route` sends bf16
-and f16 activations whose group size 16 divides to the tensor-core decode GEMV
-at M <= 16 (``csrc/wna16_gemv.cuh``, entry and launch count ``<name>_gemv``,
+and f16 activations at M <= 16 whose group size 16 divides to the tensor-core
+decode GEMV (``csrc/wna16_gemv.cuh``, entry and launch count ``<name>_gemv``,
 one launch per call, its split-K combine folded into the last block, planned by
-:func:`gemv_plan`) and to the tensor-core tile kernel above (``csrc/wna16_mma.cuh``,
-``<name>_mma``; :func:`tile_kernel`), and f32 activations and the other group
-sizes to the SIMT kernels (launch count ``<name>``). The choice is static, by
-dtype and shape; a launch that fails raises, whichever kernel it was.
+:func:`gemv_plan`) and the other group sizes to the SIMT GEMV; above 16 rows
+bf16 and f16 at any group size take the tensor-core tile kernel
+(``csrc/wna16_mma.cuh``, ``<name>_mma``; :func:`tile_kernel`; its ``ANY_GS``
+instance where 16 does not divide the group size, whose stage
+:func:`mma_smem_bytes` sizes), and f32 activations take the SIMT kernels at
+any M (launch count ``<name>``). The choice is static, by dtype and shape; a
+launch that fails raises, whichever kernel it was.
 
 K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
 is one library, ``wna16_gemm_t``, with an entry point per storage width; it
 replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 ``_kernel_kpair_t`` behind ``matmul_t_pallas``. ``w4a16_matmul_t`` /
 ``w8a16_matmul_t`` / ``w2a16_matmul_t`` launch it for CUDA tensors and run
-``wna16_matmul_t_ref`` for CPU tensors; :func:`tile_kernel` routes it the same
-way (launch counts ``wna16_gemm_t`` and ``wna16_gemm_t_mma``).
+``wna16_matmul_t_ref`` for CPU tensors; :func:`tile_kernel` routes it: bf16
+and f16 cotangents to the tensor-core K10 at every M and group size (launch
+count ``wna16_gemm_t_mma``), f32 to the SIMT kernel (``wna16_gemm_t``).
 
 K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 (``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
@@ -93,7 +97,10 @@ DECODE_THREADS = 128    # decode block size, 4 output columns per thread
 MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 512 * 4 B
 MMA_SUFFIX = "_mma"     # entry point and launch-count key of a library's tensor-core kernel
 MMA_DTYPES = (torch.float16, torch.bfloat16)
-MMA_K = 16              # depth of one mma.sync step: the group size must be a multiple
+MMA_K = 16              # depth of one mma.sync step (the GEMVs need 16 | gs)
+MMA_FW_ROWS = 64        # K rows of a tensor-core forward stage (csrc/wna16_mma.cuh: FW_BK)
+MMA_T_ROWS = 128        # K rows of a tensor-core K10 block (MMA_BN)
+MMA_SMEM_LIMIT = 226 * 1024   # dynamic shared memory a tile-kernel block may take (csrc)
 GEMV_SUFFIX = "_gemv"   # entry point and launch-count key of a library's tensor-core GEMV
 GEMV_BN = 64            # output columns per GEMV block (4 warps of 16)
 GEMV_STAGES = 4         # its cp.async ring: 3 stages in flight while one is consumed
@@ -188,23 +195,56 @@ def prenorm_eligible(m: int, k: int, group_size: int, bits: int,
             and (k if norm_len is None else norm_len) == k)
 
 
-def tile_kernel(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
-    """The kernel a product of ``m`` rows with group size ``gs`` (in rows:
-    ``K`` for one group) takes on the card, for K10, and for K1/K4/K5 and K6
-    above 16 rows (:func:`route`): ``"mma"``, the tensor-core tile kernel,
-    for bf16 and f16 at ``m > 16`` with ``16 | gs``; ``"simt"`` otherwise:
-    K10's SIMT kernel at ``m <= 16``, the SIMT tile kernel for f32 (the f32
-    model path and ``quantize``'s re-forward) and for group sizes 16 does not
-    divide. ``kernel`` ("mma" or "simt") names one instead, to time both on
-    the same operands; the tensor-core kernel raises for operands it does not
-    take."""
+def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None) -> str:
+    """The tile kernel a product in ``dtype`` takes on the card: K10's at every
+    row count, K1/K4/K5's and K6's above 16 rows (:func:`route` decides below):
+    ``"mma"``, the tensor-core tile kernel, for bf16 and f16 at any group size
+    (its ``ANY_GS`` instance where 16 does not divide it); ``"simt"``, the
+    SIMT kernels, for f32 (the f32 model path and ``quantize``'s re-forward).
+    ``kernel`` ("mma" or "simt") names one instead, to time both on the same
+    operands; the tensor-core kernel raises for operands it does not take."""
     if kernel is not None:
         if kernel not in ("mma", "simt"):
             raise ValueError(f"kernel must be 'mma', 'simt' or None, got {kernel!r}")
         return kernel
-    if m > DECODE_MAX_M and dtype in MMA_DTYPES and gs % MMA_K == 0:
-        return "mma"
-    return "simt"
+    return "mma" if dtype in MMA_DTYPES else "simt"
+
+
+def mma_stage_groups(gs: int, rows: int) -> int:
+    """Group rows of scales and zeros a tensor-core stage holds for ``rows``
+    consecutive K rows at group size ``gs`` (the ``ANY_GS`` instances): every
+    group such rows can touch at any offset, ``(rows - 1) // gs + 2`` (33 for
+    a 64-row forward tile at gs 2). ``csrc/wna16_mma.cuh:stage_groups`` is the
+    same rule."""
+    return (rows - 1) // gs + 2
+
+
+def mma_smem_bytes(bits: int, gs: int, transpose: bool = False) -> int:
+    """Dynamic shared memory of one tensor-core tile-kernel block for
+    ``bits``-bit storage (2, 4 or 8) at group size ``gs``: the forward's 4
+    stages of an x tile [128][72] halves, ``64 / P`` word rows of 128 words and
+    the scales and zeros of its group rows; with ``transpose`` K10's 4 stages
+    of a g tile [128][72], ``128 / P`` word rows of 64 words and its group
+    rows, plus two hi/lo pairs of B tiles [128][72]. The group rows are fixed
+    where 16 divides ``gs`` (4 and 8: the tiles hold whole 16-row steps of one
+    group each), else :func:`mma_stage_groups`. Raises NotImplementedError
+    above :data:`MMA_SMEM_LIMIT` (K10 at gs 1): the wrappers never launch
+    another kernel instead."""
+    p = 32 // bits
+    x_tile = 128 * 72 * 2
+    if transpose:
+        ng = 8 if gs % MMA_K == 0 else mma_stage_groups(gs, MMA_T_ROWS)
+        stage = x_tile + (MMA_T_ROWS // p) * 64 * 4 + ng * 64 * 3
+        smem = 4 * (-(-stage // 16) * 16) + 2 * 2 * x_tile
+    else:
+        ng = 4 if gs % MMA_K == 0 else mma_stage_groups(gs, MMA_FW_ROWS)
+        stage = x_tile + (MMA_FW_ROWS // p) * 128 * 4 + ng * 128 * 3
+        smem = 4 * (-(-stage // 16) * 16)
+    if smem > MMA_SMEM_LIMIT:
+        raise NotImplementedError(
+            f"the tensor-core {'K10' if transpose else 'tile kernel'} at group size {gs} stages "
+            f"{ng} groups per block: {smem} B of shared memory, above {MMA_SMEM_LIMIT}")
+    return smem
 
 
 _forced = [None]    # the kernel every wrapper call takes inside forced_kernel
@@ -212,12 +252,14 @@ _forced = [None]    # the kernel every wrapper call takes inside forced_kernel
 
 @contextlib.contextmanager
 def forced_kernel(kernel: Optional[str]):
-    """Inside, every :func:`wna16_matmul`, :func:`w4a16_kb32l_matmul` and
-    :func:`wna16_routed_matmul` call without its own ``kernel`` takes
-    ``kernel`` ("gemv", "mma", "simt" or None), so that a whole path (a
-    model's ``generate``) can be run through another kernel on the same
-    weights, as chip_smoke.py does to hold the decode GEMVs against the SIMT
-    kernels and K6's ring."""
+    """Inside, every :func:`wna16_matmul`, :func:`w4a16_kb32l_matmul`,
+    :func:`wna16_routed_matmul` and :func:`wna16_matmul_t` (K10, also over
+    kb32l words) call without its own ``kernel`` takes ``kernel`` ("gemv",
+    "mma", "simt" or None; K10 takes "mma" and "simt" and keeps its own rule
+    under "gemv", which names no K10 kernel), so that a whole path (a model's
+    ``generate``, a training step) can be run through another kernel on the
+    same weights, as chip_smoke.py does to hold the tensor-core kernels against
+    the SIMT kernels and K6's ring."""
     _check_kernel(kernel)
     before = _forced[0]
     _forced[0] = kernel
@@ -234,19 +276,21 @@ def _check_kernel(kernel: Optional[str]) -> None:
 
 def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
     """The kernel K1/K4/K5's forward takes on the card for ``m`` rows with
-    group size ``gs`` (in rows: ``K`` for one group): ``"gemv"``, the
-    tensor-core decode GEMV, for bf16 and f16 at ``m <= 16`` with ``16 | gs``;
-    above 16 rows :func:`tile_kernel`'s choice (``"mma"`` or ``"simt"``); f32
-    and the group sizes 16 does not divide take ``"simt"`` at any ``m``.
-    ``kernel`` names one instead (the tensor-core kernels raise for operands
-    they do not take). K6 routes the same way (its "simt" at ``m <= 16`` is
-    its cp.async ring); K10 keeps :func:`tile_kernel`."""
+    group size ``gs`` (in rows: ``K`` for one group): at ``m <= 16``
+    ``"gemv"``, the tensor-core decode GEMV, for bf16 and f16 with ``16 | gs``,
+    else ``"simt"`` (the SIMT GEMV: f32, and the group sizes 16 does not
+    divide through its per-code group instance); above 16 rows
+    :func:`tile_kernel`'s choice (``"mma"`` for bf16 and f16 at any group
+    size, ``"simt"`` for f32). ``kernel`` names one instead (the tensor-core
+    kernels raise for operands they do not take). K6 routes the same way (its
+    "simt" at ``m <= 16`` is its cp.async ring); K10 takes :func:`tile_kernel`
+    at every ``m``."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
-    if m <= DECODE_MAX_M and dtype in MMA_DTYPES and gs % MMA_K == 0:
-        return "gemv"
-    return tile_kernel(dtype, m, gs)
+    if m <= DECODE_MAX_M:
+        return "gemv" if dtype in MMA_DTYPES and gs % MMA_K == 0 else "simt"
+    return tile_kernel(dtype)
 
 
 STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
@@ -506,6 +550,7 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         build.launches[name + GEMV_SUFFIX + suffix] += 1
         return out
     if chosen == "mma":
+        mma_smem_bytes(bits, gs)
         code = _lib_mma(name, norm)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
                                     _ptr(zeros), _ptr(bias), _ptr(out), DTYPE_CODES[x2d.dtype],
                                     m, k, n, gs, *extra, _stream(x2d))
@@ -542,6 +587,14 @@ def wna16_matmul_t_ref(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     return dx.to(g2d.dtype)
 
 
+def _t_kernel(kernel: Optional[str]) -> Optional[str]:
+    """K10's kernel for a call: its own ``kernel``, else the one
+    :func:`forced_kernel` sets where that names a K10 kernel ("mma", "simt")."""
+    if kernel is not None:
+        return kernel
+    return _forced[0] if _forced[0] in ("mma", "simt") else None
+
+
 def _lib_t(bits: int, route: str = "simt"):
     entry = T_ENTRIES[bits] + (MMA_SUFFIX if route == "mma" else "")
     fn = getattr(build.load(T_KERNEL), entry)
@@ -576,7 +629,7 @@ def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = tile_kernel(g2d.dtype, m, gs, kernel)
+    route = tile_kernel(g2d.dtype, _t_kernel(kernel))
     code = _lib_t_kb32l(route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
                                _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n,
                                scales.shape[1], gs, _stream(g2d))
@@ -595,7 +648,8 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     ``quantlinear.group_order`` makes it). 3-D ``qweight`` is K6's kb32l
     tiles (4-bit), whose padding hides K: ``k`` gives it. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel :func:`tile_kernel`
-    names (``kernel`` passed on to it), or raises."""
+    names (``kernel``, or the one :func:`forced_kernel` sets, passed on to
+    it), or raises."""
     if bits not in T_ENTRIES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if qweight.dim() == 3:
@@ -614,7 +668,9 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = tile_kernel(g2d.dtype, m, gs, kernel)
+    route = tile_kernel(g2d.dtype, _t_kernel(kernel))
+    if route == "mma":
+        mma_smem_bytes(bits, gs, transpose=True)
     code = _lib_t(bits, route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
                                _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, gs,
                                _stream(g2d))
@@ -1031,7 +1087,8 @@ __all__ = [
     "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
-    "split_k", "tile_kernel", "route", "gemv_plan", "gemv_blocks_per_sm", "forced_kernel",
+    "split_k", "tile_kernel", "mma_stage_groups", "mma_smem_bytes", "route", "gemv_plan",
+    "gemv_blocks_per_sm", "forced_kernel",
     "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "NORM_SUFFIX", "rms_apply", "prenorm_eligible", "ROUTED_KERNEL", "wna16_routed_matmul",
     "wna16_routed_matmul_ref", "routed_route", "routed_plan", "routed_slices",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",

@@ -182,7 +182,7 @@ def main() -> int:
     for label, lib, route in (("as is", "as is", None), ("K10 unsplit", "K10 unsplit", None),
                               ("SIMT kernels", "as is", "simt")):
         use(lib)
-        gemm.tile_kernel = plan if route is None else (lambda d, m, gs, kernel=None: route)
+        gemm.tile_kernel = plan if route is None else (lambda d, kernel=None: route)
         model = AutoGPTQForCausalLM.from_quantized(path)
         peft.get_gptq_peft_model(model, peft.GPTQLoraConfig(
             r=cs.TRAIN_RANK, lora_alpha=2 * cs.TRAIN_RANK,

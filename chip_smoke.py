@@ -61,10 +61,10 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    after): 512 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
    ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
    norm's), a profiled 33-token window, the tokens equal to the default run's;
-   greedy and beam-4 runs of 64 tokens with the switch off, on, on and off
-   (host time in turns; each repeats its tokens; the beam's fused tokens
-   against its unfused ones); a bf16 batch of 24 prompts whose decode steps
-   take the tile kernel's prologue.
+   beam-4 runs of 64 tokens with the switch off, on, on and off (host time in
+   turns; each repeats its tokens; the fused tokens against the unfused ones);
+   a bf16 batch of 24 prompts whose decode steps take the tile kernel's
+   prologue.
 8. The port on the card against the port on the CPU: a 2-layer, full-width
    cut of the same checkpoint, prefill and one decode step, and one paged
    beam-4 decode step, bf16 kernels (the tensor-core GEMV) and f32 kernels
@@ -77,13 +77,24 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    Llama-2-7B shapes, M in {1, 4, 16, 17, 128}, bf16 (timed) and f32, one
    desc_act case with a bias per width; at M <= 16 the tensor-core GEMV,
    bit-equal on a second call, timed beside the SIMT GEMV. The rest classes
-   (group sizes the codes per word
-   do not divide, a partial last group) at full width, one layer per storage
-   width, through the GEMV (M = 1), the SIMT tile kernel and K10 (M = 128).
+   (group sizes 16 does not divide, words straddling groups, a partial last
+   group) at full width, one layer per storage width, through the per-code
+   SIMT GEMV (M = 1), the tensor-core tile kernel's ANY_GS instance (M = 128)
+   and the tensor-core K10's (M = 16 and 128), bf16 (each bit-equal on a
+   second call and faster than the SIMT kernel timed beside it on the same
+   weights, but the desc_act g172 forward) and f32 (the SIMT kernels); ptxas'
+   registers and spills of every tensor-core instance, the 12 ANY_GS ones too.
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
    full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
    equal tokens, launch counts (K5, K1, K4) set to 0 before and read after;
    a batch-2 run whose 32-row prefill takes each width's tensor-core kernel.
+   Then the rest-class path: an 8-layer 4-bit group-size-100 checkpoint at
+   full width, a batch-2 greedy generate of 16 tokens (its 32-row prefill
+   through the tensor-core tile kernel, exactly 7 x 8 launches; its prefill
+   logits within 5e-2 of the SIMT route's, ``gemm.forced_kernel("simt")``),
+   and two LoRA steps of 4 x 512 tokens through the tensor-core kernels only
+   (step 1's loss and adapter gradients within 5e-2 of the SIMT route's; a
+   profiled step through each route).
 11. Quantize on the card at full width: a random fp16 1-layer checkpoint,
    ``from_pretrained``, ``quantize`` with 64 calibration sequences of 256
    tokens for 4-bit g128, 4-bit g128 desc_act, 2-, 3- and 8-bit; seconds per
@@ -93,12 +104,11 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    model, which must fall from 2 to 8 bits.
 12. K10 (``wna16_gemm_t``, the backward ``dx = g @ dequant(W)^T``) against
    ``wna16_matmul_t_ref`` at the three Llama-2-7B projection shapes, M in
-   {10 (an adaption prompt's rows), 16 (the SIMT K10 at a decode-sized batch),
-   17, 128, 2048 (a 4 x 512 batch)}, 2-, 3-,
-   4- and 8-bit g128 plus a desc_act and a group-size-32 case, bf16 (timed)
-   and f32; ``torch.matmul(g, W_bf16.T)`` on a pre-dequantized weight is the
-   library yardstick. bf16 above 16 rows takes the tensor-core K10; the
-   4-bit rows at M = 128 and 2048 also hold and time the SIMT K10.
+   {10 (an adaption prompt's rows), 16 (a decode-sized batch), 17, 128, 2048
+   (a 4 x 512 batch)}, 2-, 3-, 4- and 8-bit g128 plus a desc_act and a
+   group-size-32 case, bf16 (timed) and f32; ``torch.matmul(g, W_bf16.T)`` on a
+   pre-dequantized weight is the library yardstick. bf16 takes the tensor-core
+   K10 at every M; the 4-bit rows also hold and time the SIMT K10.
 13. Training on the main-path model (full depth and width, 4-bit g128):
    ``utils.peft.get_gptq_peft_model`` with LoRA at the example's defaults (r 16,
    alpha 32, q_proj and v_proj), 8 ``torch.optim.AdamW`` steps at lr 1e-3 on
@@ -216,6 +226,7 @@ ADAPTER_STD = 0.02                               # adapter tensors drawn for tha
 TRAIN_NEW_TOKENS = 16
 OTHER_WIDTH_LAYERS = 8        # depth of the 2-, 3- and 8-bit generate runs
 OTHER_WIDTH_TOKENS = 64
+REST_PATH_GROUP_SIZE = 100    # the rest-class path's group size: 16 does not divide it
 QUANT_LAYERS = 1              # depth of the model quantized on the card (widths full)
 CALIB_SEQS, CALIB_LEN, CALIB_BATCH = 64, 256, 16
 KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
@@ -271,10 +282,10 @@ PRENORM_SHAPES = {"qkv": (4096, 4096, 3), "gate_up": (4096, 11008, 2)}
 PRENORM_EPS = 1e-5
 PRENORM_F32_REL_TOL = 1e-5
 NORM_KEY = {"gemv": "w4a16_gemm_gemv_norm", "mma": "w4a16_gemm_mma_norm", "simt": "w4a16_gemm_norm"}
-FUSED_AB_TOKENS = 64          # greedy and beam-4 runs off, on, on, off: host time in turns
+FUSED_AB_TOKENS = 64          # beam-4 runs off, on, on, off: host time in turns
 FUSED_BATCH, FUSED_BATCH_TOKENS = 24, 8   # a bf16 batch whose decode steps take the mma prologue
 FUSED_CUT_TOKENS = 4          # f32 cut with the switch on: greedy tokens at batch 1 and 24
-REPEAT_TOKENS = 128           # the kb32l path's repeat, held to its 512-token run's first tokens
+REPEAT_TOKENS = 64            # the kb32l path's repeat, held to its 512-token run's first tokens
 MIXTRAL_REPEAT_TOKENS = 32    # the Mixtral path's repeat, likewise
 KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
 
@@ -517,12 +528,22 @@ def prenorm_layer(rows: list, case: str, key: str) -> float:
     return sum(r[key] * PRENORM_SHAPES[r["proj"]][2] for r in rows if r["case"] == case)
 
 
+def template_flags(function: str) -> list:
+    """The bool template arguments of a mangled kernel name (``Lb<0|1>E``), in order."""
+    import re
+
+    return [f == "1" for f in re.findall(r"Lb([01])E", function)]
+
+
 def prenorm_ptxas() -> list:
     """ptxas' registers and spills of every fused-prologue instance (the PRENORM
-    template flag, the last template argument: ``Lb1EE`` in the mangled name) in
-    K1's library: 4 tensor-core GEMVs, 2 tensor-core tile kernels, 15 SIMT GEMVs
-    and 3 SIMT tile kernels; a spill in a GEMV instance fails the run."""
-    out = [dict(r, library="w4a16_gemm") for r in ptxas_report("w4a16_gemm", "Lb1EE")]
+    template flag: the last bool template argument, the first of the tensor-core
+    tile kernel's PRENORM and ANY_GS) in K1's library: 4 tensor-core GEMVs, 2
+    tensor-core tile kernels, 15 SIMT GEMVs and 3 SIMT tile kernels; a spill in a
+    GEMV instance fails the run."""
+    out = [dict(r, library="w4a16_gemm") for r in ptxas_report("w4a16_gemm", "")
+           if template_flags(r["function"])
+           and template_flags(r["function"])[0 if "wna16_mma_kernel" in r["function"] else -1]]
     kinds = {kind: [r for r in out if kind in r["function"]] for kind in
              ("wna16_gemv_kernel", "wna16_mma_kernel", "wna16_decode_kernel",
               "wna16_prefill_kernel")}
@@ -770,10 +791,15 @@ REST_LAYERS = ((4, "qkvo", 100, False), (3, "qkvo", 12, False), (2, "qkvo", 24, 
 
 
 def phase_rest(torch, np, timer) -> list:
-    """The rest classes on the card: each layer once through the decode
-    regime (M = 1, the per-code group GEMV) and once through the tile regime
-    (M = 128, the SIMT tile kernel: 16 divides none of these group sizes),
-    and K10 at M = 128, bf16 (timed) and f32, against the plain versions."""
+    """The rest classes on the card: each layer through the decode regime
+    (M = 1, the per-code group GEMV), the tile regime (M = 128 and a training
+    step's 2048, the tensor-core tile kernel's ANY_GS instance in bf16) and
+    K10 at M = 16, 128 and 2048 (the tensor-core K10's ANY_GS instance in
+    bf16), bf16 (timed) and f32
+    (the SIMT kernels), against the plain versions; each tensor-core case
+    bit-equal on a second call and timed beside the SIMT kernel on the same
+    weights (``kernel="simt"``), which it must beat but in the desc_act g172
+    forward (its in-kernel gather of x; recorded)."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -784,40 +810,54 @@ def phase_rest(torch, np, timer) -> list:
     for bits, name, gs, desc_act in REST_LAYERS:
         k, n = shapes[name]
         kernel = KERNEL_OF_BITS[bits]
+        sbits = qlin.storage_bits(bits)
         layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
         w = qlin.logical_weight(layer, torch.bfloat16)
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
-        for m, what in ((1, "forward"), (128, "forward"), (128, "K10")):
+        for m, what in ((1, "forward"), (128, "forward"), (TRAIN_M, "forward"), (16, "K10"),
+                        (128, "K10"), (TRAIN_M, "K10")):
             x = torch.randn((m, n if what == "K10" else k), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
-            key = gemm.T_KERNEL if what == "K10" else kernel
             if what == "K10":
-                def run(v):
-                    return qlin.matmul_t(v, layer)
+                key = gemm.T_KERNEL + ROUTE_SUFFIX[gemm.tile_kernel(x.dtype)]
+
+                def run(v, kern=None):
+                    return gemm.wna16_matmul_t(v, layer.qweight, layer.scales, layer.zeros,
+                                               layer.kperm, gs, sbits, kernel=kern)
 
                 def plain(v):
                     return gemm.wna16_matmul_t_ref(v, layer.qweight, layer.scales, layer.zeros,
-                                                   layer.kperm, gs, qlin.storage_bits(bits))
+                                                   layer.kperm, gs, sbits)
 
                 def lib():
                     return torch.matmul(x, w.t())
             else:
-                def run(v):
-                    return qlin.matmul(v, layer)
+                key = kernel + ROUTE_SUFFIX[gemm.route(x.dtype, m, gs)]
+
+                def run(v, kern=None):
+                    return gemm.wna16_matmul(v, layer.qweight, layer.scales, layer.zeros,
+                                             layer.kperm, None, gs, sbits, kernel=kern)
 
                 def plain(v):
                     return qlin.matmul_plain(v, layer)
 
                 def lib():
                     return torch.matmul(x, w)
+            base = gemm.T_KERNEL if what == "K10" else kernel
+            keys = [base + suffix for suffix in ROUTE_SUFFIX.values()]
+            tensor_cores = key.endswith(gemm.MMA_SUFFIX)
+            check(tensor_cores == (m > 16 or what == "K10"),
+                  f"rest class {case} {what} M={m}: bf16 routes to {key}")
             before = dict(build.launches)
             y = run(x)
-            check(build.launches[key] == before.get(key, 0) + 1
-                  and build.launches[key + "_mma"] == before.get(key + "_mma", 0)
-                  and build.launches[key + "_gemv"] == before.get(key + "_gemv", 0),
-                  f"rest class {case} {what} M={m}: launched {dict(build.launches)}")
+            check(all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
+                  f"rest class {case} {what} M={m}: launched {dict(build.launches)}, want one {key}")
             ref = plain(x)
+            before = dict(build.launches)
             y32, ref32 = run(x.float()), plain(x.float())
+            check(all(build.launches[c] == before.get(c, 0) + (c == base) for c in keys),
+                  f"rest class {case} {what} M={m} f32: launched {dict(build.launches)}, want "
+                  f"one {base}")
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
@@ -829,37 +869,49 @@ def phase_rest(torch, np, timer) -> list:
                                       f"plain| = {err:.3e} > {tol} * {scale:.3e}")
             check(err32 <= F32_ABS_TOL * max(1.0, scale), f"rest class {case} {what} M={m} f32: "
                                                           f"{err32:.3e} > {F32_ABS_TOL}")
-            ms = timer.ms(lambda: run(x), iters=10)
+            iters = 5 if m == TRAIN_M else 10
+            ms = timer.ms(lambda: run(x), iters=iters)
+            simt = {}
+            if tensor_cores:   # bit-equal again, and the SIMT kernel on the same weights
+                check(torch.equal(run(x), y), f"rest class {case} {what} M={m}: a second call "
+                                              "differs")
+                ys = run(x, "simt")
+                torch.cuda.synchronize()
+                serr = (ys.float() - ref.float()).abs().max().item()
+                check(serr <= tol * scale, f"rest class {case} {what} M={m} SIMT: max |kernel - "
+                                           f"plain| = {serr:.3e} > {tol} * {scale:.3e}")
+                simt = dict(simt_max_abs_err=serr,
+                            simt_ms=timer.ms(lambda: run(x, "simt"), iters=iters, warmup=1))
+                check(ms < simt["simt_ms"] or (desc_act and what == "forward"),
+                      f"rest class {case} {what} M={m}: the tensor-core kernel {ms:.4f} ms is "
+                      f"not faster than the SIMT kernel's {simt['simt_ms']:.4f} ms")
             plain_ms = timer.ms(lambda: plain(x), iters=3, warmup=1)
-            lib_ms = timer.ms(lib, iters=10)
+            lib_ms = timer.ms(lib, iters=iters)
             b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
                                          layer.kperm), 2.0 * m * k * n)
             rows.append(dict(kernel=key, bits=bits, case=name, what=what, K=k, N=n, M=m,
                              group_size=gs, desc_act=desc_act, max_abs_err=err,
                              max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **simt))
             print(f"rest class {key} {case:22s} {what:7s} K={k:5d} N={n:5d} M={m:3d}  bf16 err "
                   f"{err:.3e} (tol {tol * scale:.3e})  f32 err {err32:.3e} (tol "
-                  f"{F32_ABS_TOL})  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul "
-                  f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+                  f"{F32_ABS_TOL})  kernel {ms:.4f} ms"
+                  + (f"  SIMT {simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
+                     if simt else "")
+                  + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+                    f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
     return rows
 
 
-# Dynamic shared memory of the tensor-core kernels (csrc/wna16_mma.cuh): forward 4 stages of
-# an x tile [128][72] halves, 64/P word rows of 128 words and 4 group rows of fp16 scales and
-# uint8 zeros; K10 4 stages of a g tile [128][72], 128/P word rows of 64 words and 8 group
-# rows, plus two sets of hi and lo B tiles [128][72].
-def mma_smem_bytes(bits: int, transpose: bool) -> int:
-    p = 32 // bits
-    if transpose:
-        return 4 * (128 * 72 * 2 + (128 // p) * 64 * 4 + 8 * 64 * 3) + 2 * 2 * 128 * 72 * 2
-    return 4 * (128 * 72 * 2 + (64 // p) * 128 * 4 + 4 * 128 * 3)
-
-
 def mma_ptxas() -> list:
     """ptxas' registers, spills and static shared memory of every tensor-core
-    kernel instance, with its dynamic shared memory."""
+    kernel instance, with its dynamic shared memory (``gemm.mma_smem_bytes``;
+    for an ANY_GS instance, the rest-class layers' group sizes of its width).
+    The template's bool arguments tell the instances apart (``Lb<0|1>E`` in the
+    mangled name): the forward's PRENORM and ANY_GS, K10's ANY_GS."""
+    from autogptq_tpu_torch.ops import gemm
+
     out = []
     for name, bits in (("w4a16_gemm", 4), ("w8a16_gemm", 8), ("w2a16_gemm", 2),
                        ("w4a16_kb32l_gemm", 4), ("wna16_gemm_t", None)):
@@ -867,14 +919,25 @@ def mma_ptxas() -> list:
             b = bits
             if b is None:   # K10's library holds the three widths: ILi<BITS>E in the name
                 b = next(x for x in (2, 4, 8) if f"ILi{x}E" in r["function"])
-            # a fused-prologue instance (Lb1EE) adds a K tile's norm weight per stage
-            r.update(library=name, dynamic_smem_bytes=mma_smem_bytes(b, "t_mma" in r["function"])
-                     + (4 * 64 * 4 if "Lb1EE" in r["function"] else 0))
+            transpose = "t_mma" in r["function"]
+            flags = template_flags(r["function"])
+            prenorm = not transpose and bool(flags) and flags[0]
+            any_gs = len(flags) > (0 if transpose else 1) and flags[-1]
+            # a fused-prologue instance adds a K tile's norm weight per stage
+            smem = {gs: gemm.mma_smem_bytes(b, gs, transpose)
+                    for gs in ([g for bb, _, g, _ in REST_LAYERS if gemm.storage_bits(bb) == b]
+                               if any_gs else [128])}
+            r.update(library=name, bits=b, prenorm=prenorm, any_gs=any_gs,
+                     dynamic_smem_bytes={gs: v + (4 * 64 * 4 if prenorm else 0)
+                                         for gs, v in smem.items()})
             out.append(r)
     for r in out:
-        print(f"ptxas {r['library']}: {r['function'][:70]}: {r['registers']} registers, spill "
-              f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B, dynamic "
-              f"smem {r['dynamic_smem_bytes']} B", flush=True)
+        print(f"ptxas {r['library']}: {r['function'][:70]}{' ANY_GS' if r['any_gs'] else ''}: "
+              f"{r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B, static "
+              f"smem {r['smem']} B, dynamic smem by group size {r['dynamic_smem_bytes']} B",
+              flush=True)
+    check(sum(r["any_gs"] for r in out) == 12, "want 12 ANY_GS instances: 2 types x (3 forward "
+                                               "libraries + K10's 3 widths)")
     return out
 
 
@@ -901,10 +964,11 @@ def gemv_ptxas() -> list:
 
 
 def phase_k10(torch, np, timer) -> list:
-    """K10 against its plain version at the shapes of a training step; at
-    M = 128 and 2048 the SIMT kernel beside the tensor-core one (bf16) on the
-    same weights for the 4-bit rows (g128, desc_act, g32), both held to
-    K10_REL_TOL and timed."""
+    """K10 against its plain version at the shapes of a training step; bf16
+    takes the tensor-core kernel at every M (10 and 16 too), f32 the SIMT
+    kernel; for the 4-bit rows (g128, desc_act, g32) the SIMT kernel beside
+    the tensor-core one on the same weights, both held to K10_REL_TOL and
+    timed."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -921,11 +985,12 @@ def phase_k10(torch, np, timer) -> list:
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
         for m in (10, 16, 17, 128, TRAIN_M):
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-            route = gemm.tile_kernel(g.dtype, m, gs)
+            route = gemm.tile_kernel(g.dtype)
             key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
             before = build.launches[key]
             dx = qlin.matmul_t(g, layer)
-            check(build.launches[key] == before + 1, f"K10 {case} M={m}: {key} not launched")
+            check(route == "mma" and build.launches[key] == before + 1,
+                  f"K10 {case} M={m}: {key} not launched")
             ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                           layer.kperm, gs, qlin.storage_bits(bits))
             dx32 = qlin.matmul_t(g.float(), layer)
@@ -943,7 +1008,7 @@ def phase_k10(torch, np, timer) -> list:
                   f"K10 {case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
             iters = 5 if m == TRAIN_M else 10
             simt = {}
-            if route == "mma" and bits == 4 and m >= 128:   # the SIMT kernel, same weights
+            if bits == 4:   # the SIMT kernel on the same weights
                 def simt_t():
                     return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
                                                layer.kperm, gs, 4, kernel="simt")
@@ -956,6 +1021,10 @@ def phase_k10(torch, np, timer) -> list:
                 simt = dict(simt_max_abs_err=serr,
                             simt_ms=timer.ms(simt_t, iters=iters, warmup=1))
             ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=iters, warmup=1)
+            if m <= 16 and bits == 4 and name == "qkvo" and gs == 128 and not desc_act:
+                check(ms < simt["simt_ms"], f"K10 {case} M={m}: the tensor-core kernel {ms:.4f} "
+                                            f"ms is not faster than the SIMT kernel's "
+                                            f"{simt['simt_ms']:.4f} ms")
             plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(
                 g, layer.qweight, layer.scales, layer.zeros, layer.kperm, gs,
                 qlin.storage_bits(bits)), iters=3, warmup=1)
@@ -982,7 +1051,7 @@ def phase_k10(torch, np, timer) -> list:
     w = qlin.logical_weight(layer, torch.bfloat16)
     for m in (64, TRAIN_M):
         g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        route = gemm.tile_kernel(g.dtype, m, 128)
+        route = gemm.tile_kernel(g.dtype)
         key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
         before = build.launches[key]
         dx = qlin.matmul_t(g, layer)
@@ -1529,6 +1598,188 @@ def phase_other_widths(torch, np, work: str) -> dict:
         torch.cuda.empty_cache()
         shutil.rmtree(path, ignore_errors=True)
     return out
+
+
+def _rel_err(a, b) -> float:
+    """Relative Frobenius error of ``a`` against ``b`` (0 where both are 0)."""
+    d, ref = (a.float() - b.float()).norm().item(), b.float().norm().item()
+    return d / ref if ref else d
+
+
+def phase_rest_path(torch, np, work: str) -> dict:
+    """The rest classes at full width: an 8-layer Llama-2-7B checkpoint at 4-bit
+    group size 100 (groups of 100 over K = 4096 with a last one of 96, over
+    11008 a last one of 8; 12.5 words of 8 codes per group, so words straddle
+    groups), ``from_quantized`` on the card (bf16).
+
+    * A batch-2 greedy generate of 16 tokens: its 32-row prefill through the
+      tensor-core tile kernel's ANY_GS instance (exactly 7 x 8
+      ``w4a16_gemm_mma``), its decode steps through the rest-class SIMT GEMV;
+      the prefill logits against the same model forced through the SIMT
+      kernels (``gemm.forced_kernel("simt")``) within E2E_REL_TOL, and the
+      tokens of both routes compared.
+    * Two LoRA steps as ``phase_train`` takes them (r 16 on q/v, B = 0 at
+      start, 4 x 512 tokens): the forward through ``w4a16_gemm_mma``, the
+      backward through ``wna16_gemm_t_mma`` at M = 2048 (exact counts, no SIMT
+      tile kernel or SIMT K10); step 1's loss within GRAD_REL_TOL of the SIMT
+      route's on the same weights; its adapter gradients against the SIMT
+      route's (bf16) and against the same model's in f32 (the SIMT kernels),
+      reported and not held: through 8 random layers at this batch the bf16
+      gradients of both routes lie far from the f32 ones, so the difference
+      of the two routes measures bf16 rounding, not the kernels; a profiled
+      step through each route (device ms by family).
+    * The held gradient check, on the checkpoint's first 2 layers (the cut and
+      batch of ``phase_grads``, 1 x 64 tokens, every adapter tensor drawn):
+      the LoRA gradients of the tensor-core route (bf16) against the SIMT
+      route's in f32 on the same weights within GRAD_REL_TOL, and against the
+      SIMT route's in bf16, reported."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.utils import peft
+    from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
+
+    layers, gs = OTHER_WIDTH_LAYERS, REST_PATH_GROUP_SIZE
+    cfg = dict(LLAMA2_7B, num_hidden_layers=layers)
+    path = os.path.join(work, f"llama2-7b-random-g{gs}")
+    write_random_checkpoint(path, cfg, bits=4, group_size=gs, seed=gs)
+    model = AutoGPTQForCausalLM.from_quantized(path)
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    prompts = [prompt[0], prompt[0][::-1].copy()]
+    tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
+
+    def run(forced):   # (batch-2 prefill logits, 16 generated tokens, launches)
+        with gemm.forced_kernel(forced), torch.inference_mode():
+            logits, _ = arch.forward(model.params, tokens, model.cfg, dtype=model.dtype)
+            build.launches.clear()
+            out = model.generate(prompts, max_new_tokens=16)
+        return logits.float(), out, dict(build.launches)
+
+    logits, out, counts = run(None)
+    logits_simt, out_simt, counts_simt = run("simt")
+    rel = _rel_err(logits, logits_simt)
+    check(bool(torch.isfinite(logits).all()) and rel <= E2E_REL_TOL,
+          f"g{gs} path: prefill logits against the SIMT route, relative error {rel:.3e} > "
+          f"{E2E_REL_TOL}")
+    check(out.shape == (2, PROMPT_LEN + 16) and bool(((out >= 0) & (out < cfg["vocab_size"])).all()),
+          f"g{gs} path: output {out.shape}")
+    want = {"w4a16_gemm_mma": 7 * layers, "w4a16_gemm": 7 * layers * 15}
+    check({k: v for k, v in counts.items() if k.startswith("w4a16")} == want,
+          f"g{gs} path: K1 launches {counts}, want {want}")
+    same = int((out[:, PROMPT_LEN:] == out_simt[:, PROMPT_LEN:]).sum())
+    print(f"rest-class path: Llama-2-7B widths, {layers} layers, 4-bit g{gs}: batch-2 prefill "
+          f"logits (the tensor-core tile kernel) against the SIMT route's: relative error "
+          f"{rel:.3e} (tol {E2E_REL_TOL}); {same} of {out[:, PROMPT_LEN:].size} greedy tokens "
+          f"equal to the SIMT route's; launches {counts} (SIMT route {counts_simt})", flush=True)
+
+    pcfg = peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK,
+                               target_modules=("attn.q_proj", "attn.v_proj"))
+    peft.get_gptq_peft_model(model, pcfg, seed=0)
+    trainable = peft.trainable_tensors(peft.split_lora_params(model.params)[0])
+    opt = torch.optim.AdamW(trainable, lr=TRAIN_LR)
+    rng = np.random.default_rng(4)
+    batch = torch.from_numpy(rng.integers(1, cfg["vocab_size"], (TRAIN_BATCH, TRAIN_LEN))).cuda()
+
+    def fwd_bwd(m=model):
+        logits, _ = arch.forward(m.params, batch, m.cfg, dtype=m.dtype)
+        loss = masked_loss(torch, logits, batch)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss.item()
+
+    # step 1's loss and gradients through the SIMT route, the same model in f32 (the same
+    # weights and adapters), and last the tensor-core route, whose gradients the step applies
+    m32 = AutoGPTQForCausalLM.from_quantized(path, dtype=torch.float32)
+    shutil.rmtree(path, ignore_errors=True)
+    peft.get_gptq_peft_model(m32, pcfg, seed=0)
+    t32 = peft.trainable_tensors(peft.split_lora_params(m32.params)[0])
+    check(all(torch.equal(a, b) for a, b in zip(t32, trainable)), "f32 adapters differ")
+    losses, launches, grads = {}, {}, {}
+    for route, m, leaves in (("simt", model, trainable), ("f32", m32, t32),
+                             (None, model, trainable)):
+        build.launches.clear()
+        with gemm.forced_kernel(route if route != "f32" else None):
+            losses[route] = fwd_bwd(m)
+        torch.cuda.synchronize()
+        launches[route] = dict(build.launches)
+        grads[route] = [t.grad.float().clone() for t in leaves]
+    del m32, t32
+    rels = [_rel_err(a, b) for a, b in zip(grads[None], grads["simt"])]
+    rels32 = {route: [_rel_err(a, b) for a, b in zip(grads[route], grads["f32"])]
+              for route in (None, "simt")}
+    loss_rel = abs(losses[None] - losses["simt"]) / abs(losses["simt"])
+    check(np.isfinite(losses[None]) and loss_rel <= GRAD_REL_TOL,
+          f"g{gs} path: step 1 loss {losses[None]} (SIMT route {losses['simt']})")
+    want_step = {"w4a16_gemm_mma": 7 * layers, "wna16_gemm_t_mma": 7 * layers - 3}
+    want_simt = {"w4a16_gemm": 7 * layers, "wna16_gemm_t": 7 * layers - 3}
+    check(launches[None] == want_step and launches["simt"] == want_simt,
+          f"g{gs} path: a training step launched {launches[None]} (want {want_step}), the SIMT "
+          f"route {launches['simt']} (want {want_simt})")
+    opt.step()
+    step2 = fwd_bwd()
+    opt.step()
+    check(np.isfinite(step2), f"g{gs} path: step 2 loss {step2}")
+    profiles = {}
+    for route in (None, "simt"):
+        with gemm.forced_kernel(route):
+            profiles[route or "mma"] = profile_train_step(torch, fwd_bwd)
+    print(f"rest-class path, LoRA r={TRAIN_RANK} on q_proj and v_proj, batch {TRAIN_BATCH} x "
+          f"{TRAIN_LEN}: step 1 loss {losses[None]:.6f} (SIMT route {losses['simt']:.6f}, "
+          f"relative {loss_rel:.3e}, tol {GRAD_REL_TOL}; f32 {losses['f32']:.6f}); adapter "
+          f"gradients (reported, not held; the A tensors' are 0 on every route while B = 0), "
+          f"relative error max / median over {len(rels)} tensors: tensor-core against SIMT "
+          f"route {max(rels):.3e} / {float(np.median(rels)):.3e}, tensor-core against f32 "
+          f"{max(rels32[None]):.3e} / {float(np.median(rels32[None])):.3e}, SIMT route against "
+          f"f32 {max(rels32['simt']):.3e} / {float(np.median(rels32['simt'])):.3e}; step 2 loss "
+          f"{step2:.6f}; launches per step {launches[None]} (SIMT route {launches['simt']})",
+          flush=True)
+    del model, opt, trainable, grads
+    torch.cuda.empty_cache()
+
+    cut = os.path.join(work, f"llama2-7b-random-g{gs}-2layers")   # the same first 2 layers
+    write_random_checkpoint(cut, dict(cfg, num_hidden_layers=2), bits=4, group_size=gs, seed=gs)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg["vocab_size"], (1, GRAD_LEN)))
+    cut_grads, cut_launches = {}, {}
+    for label, dtype, route in (("mma", torch.bfloat16, None), ("simt", torch.bfloat16, "simt"),
+                                ("simt f32", torch.float32, None)):
+        cm = AutoGPTQForCausalLM.from_quantized(cut, dtype=dtype)
+        peft.get_gptq_peft_model(cm, peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK),
+                                 seed=0)
+        leaves = peft.trainable_tensors(peft.split_lora_params(cm.params)[0])
+        _draw_adapters(torch, np, leaves, seed=20)
+        build.launches.clear()
+        with gemm.forced_kernel(route):
+            masked_loss(torch, arch.forward(cm.params, toks.cuda(), cm.cfg, dtype=dtype)[0],
+                        toks.cuda()).backward()
+        torch.cuda.synchronize()
+        cut_launches[label] = dict(build.launches)
+        cut_grads[label] = [t.grad.float() for t in leaves]
+        del cm, leaves
+    shutil.rmtree(cut, ignore_errors=True)
+    cut_rel = [_rel_err(a, b) for a, b in zip(cut_grads["mma"], cut_grads["simt f32"])]
+    cut_rel_bf16 = [_rel_err(a, b) for a, b in zip(cut_grads["mma"], cut_grads["simt"])]
+    check(cut_launches["mma"].get("wna16_gemm_t_mma", 0) > 0
+          and not cut_launches["mma"].get("wna16_gemm_t", 0)
+          and not cut_launches["mma"].get("w4a16_gemm", 0)
+          and not cut_launches["simt f32"].get("wna16_gemm_t_mma", 0),
+          f"g{gs} 2-layer cut: launches {cut_launches}")
+    check(all(np.isfinite(cut_rel)) and max(cut_rel) <= GRAD_REL_TOL,
+          f"g{gs} 2-layer cut: LoRA gradients of the tensor-core route against the SIMT route's "
+          f"in f32, relative error {max(cut_rel):.3e} > {GRAD_REL_TOL}")
+    print(f"rest-class path, 2-layer cut (the first 2 layers), 1 x {GRAD_LEN} tokens, LoRA with "
+          f"every adapter drawn: gradients of the tensor-core route (bf16) against the SIMT "
+          f"route's in f32: relative error max {max(cut_rel):.3e}, median "
+          f"{float(np.median(cut_rel)):.3e} (tol {GRAD_REL_TOL}); against the SIMT route's in "
+          f"bf16 max {max(cut_rel_bf16):.3e}, median {float(np.median(cut_rel_bf16)):.3e}; "
+          f"launches {cut_launches}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(layers=layers, group_size=gs, prefill_rel_err=rel, tokens_equal=same,
+                counts=counts, simt_counts=counts_simt, losses=losses, step2_loss=step2,
+                loss_rel_err=loss_rel, grad_rel_errs=rels,
+                grad_rel_errs_f32={"mma": rels32[None], "simt": rels32["simt"]},
+                step_launches=launches,
+                profiles=profiles, cut_grad_rel_errs=cut_rel,
+                cut_grad_rel_errs_bf16=cut_rel_bf16, cut_launches=cut_launches)
 
 
 def rtn_objective(torch, w, h, cfg) -> float:
@@ -2242,11 +2493,11 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     back after): 512 greedy tokens (counts set to 0 just before and read just
     after: 160 ``w4a16_gemm_gemv_norm`` and 64 ``w4a16_gemm_gemv`` per decode
     token, no ``rms_norm`` but the final norm's, no unfused fallback), a profiled
-    33-token window, tokens equal to the default run's; greedy and beam-4 runs of
-    64 tokens with the switch off, on, on and off (host time in turns; each
-    repeats its tokens; beam 4 holds the same counts per step and compares its
-    tokens with the switch off); a bf16 batch of 24 prompts whose decode steps
-    take the tensor-core tile kernel's prologue (``w4a16_gemm_mma_norm``)."""
+    33-token window, tokens equal to the default run's; beam-4 runs of 64 tokens
+    with the switch off, on, on and off (host time in turns; each repeats its
+    tokens; the same counts per step as greedy; its tokens compared with the
+    switch off); a bf16 batch of 24 prompts whose decode steps take the
+    tensor-core tile kernel's prologue (``w4a16_gemm_mma_norm``)."""
     import collections
 
     from autogptq_tpu_torch.models import arch
@@ -2282,7 +2533,6 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         out, gen_s, counts, norm_calls = run(NEW_TOKENS, True)
         profile = profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
                                    "batch-1 generate, fused norm", PROFILE_TOKENS)
-        ab = [run(FUSED_AB_TOKENS, fused) for fused in turns]
         model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
         beam_ab = [run(FUSED_AB_TOKENS, fused, num_beams=BEAMS) for fused in turns]
         arch.FUSE_NORM = "1"
@@ -2328,25 +2578,21 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
 
     ab_steps = FUSED_AB_TOKENS - 1
     n_ab = PROMPT_LEN + FUSED_AB_TOKENS
-    for label, runs, kw in (("greedy", ab, {}), (f"beam {BEAMS}", beam_ab, {"num_beams": BEAMS})):
-        check(np.array_equal(runs[0][0], runs[3][0]) and np.array_equal(runs[1][0], runs[2][0]),
-              f"fused-norm turns, {label}: a run does not repeat its tokens")
-        check(runs[1][0].shape == (1, n_ab) and bool(
-            ((runs[1][0][:, PROMPT_LEN:] >= 0) & (runs[1][0][:, PROMPT_LEN:] < vocab)).all()),
-            f"fused-norm turns, {label}: output {runs[1][0].shape}")
-        check(k1_counts(runs[1][2]) == want(ab_steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv")
-              and k1_counts(runs[0][2]) == {"w4a16_gemm_gemv": 7 * layers * FUSED_AB_TOKENS},
-              f"fused-norm turns, {label}: K1 launches {runs[1][2]} / {runs[0][2]}")
-        check(runs[1][3] == {"rms_norm": 2 * layers + 1 + ab_steps},
-              f"fused-norm turns, {label}: norm calls {runs[1][3]}")
-    check(np.array_equal(ab[1][0], out[:, :n_ab]) and np.array_equal(ab[0][0], main_out[:, :n_ab]),
-          "fused-norm turns, greedy: the 64-token runs are not the 512-token runs' first tokens")
-    off_s, on_s = (ab[0][1] + ab[3][1]) / 2, (ab[1][1] + ab[2][1]) / 2
+    runs = beam_ab
+    check(np.array_equal(runs[0][0], runs[3][0]) and np.array_equal(runs[1][0], runs[2][0]),
+          f"fused-norm turns, beam {BEAMS}: a run does not repeat its tokens")
+    check(runs[1][0].shape == (1, n_ab) and bool(
+        ((runs[1][0][:, PROMPT_LEN:] >= 0) & (runs[1][0][:, PROMPT_LEN:] < vocab)).all()),
+        f"fused-norm turns, beam {BEAMS}: output {runs[1][0].shape}")
+    check(k1_counts(runs[1][2]) == want(ab_steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv")
+          and k1_counts(runs[0][2]) == {"w4a16_gemm_gemv": 7 * layers * FUSED_AB_TOKENS},
+          f"fused-norm turns, beam {BEAMS}: K1 launches {runs[1][2]} / {runs[0][2]}")
+    check(runs[1][3] == {"rms_norm": 2 * layers + 1 + ab_steps},
+          f"fused-norm turns, beam {BEAMS}: norm calls {runs[1][3]}")
     boff_s, bon_s = (beam_ab[0][1] + beam_ab[3][1]) / 2, (beam_ab[1][1] + beam_ab[2][1]) / 2
     beam_same = int((beam_ab[1][0][0, PROMPT_LEN:] == beam_ab[0][0][0, PROMPT_LEN:]).sum())
     print(f"fused norm in turns (off, on, on, off; {FUSED_AB_TOKENS} tokens each, every run repeats "
-          f"its tokens): greedy {1e3 * off_s / FUSED_AB_TOKENS:.3f} ms/token off, "
-          f"{1e3 * on_s / FUSED_AB_TOKENS:.3f} on ({[round(r[1], 3) for r in ab]} s); beam {BEAMS} "
+          f"its tokens): beam {BEAMS} "
           f"{BEAMS * FUSED_AB_TOKENS / boff_s:.2f} beam-tok/s off, "
           f"{BEAMS * FUSED_AB_TOKENS / bon_s:.2f} on ({[round(r[1], 3) for r in beam_ab]} s), "
           f"per step {5 * layers} w4a16_gemm_gemv_norm, {2 * layers} w4a16_gemm_gemv, 1 rms_norm; "
@@ -2362,10 +2608,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"unfused run's; launches {batch_counts}", flush=True)
     return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls,
                 tokens_equal=same, first_difference=int(diff[0]) if len(diff) else None,
-                profile=profile, greedy_turns_s=[r[1] for r in ab],
-                greedy_ms_per_token_off=1e3 * off_s / FUSED_AB_TOKENS,
-                greedy_ms_per_token_on=1e3 * on_s / FUSED_AB_TOKENS,
-                beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
+                profile=profile, beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
                 beam_tok_s_off=BEAMS * FUSED_AB_TOKENS / boff_s,
                 beam_tok_s_on=BEAMS * FUSED_AB_TOKENS / bon_s, beam_tokens_equal=beam_same,
                 beam_profile=beam_profile, batch_counts=batch_counts,
@@ -2925,6 +3168,7 @@ def main() -> int:
         grads = timed("gradients", phase_grads, torch, np, cut_dir)
         shutil.rmtree(work, ignore_errors=True)
         widths = timed("other widths", phase_other_widths, torch, np, work)
+        rest_path = timed("rest-class path", phase_rest_path, torch, np, work)
         quantize = timed("quantize", phase_quantize, torch, np, work)
         shutil.rmtree(work, ignore_errors=True)
         mixtral = timed("Mixtral", phase_mixtral, torch, np,
@@ -3019,8 +3263,7 @@ def main() -> int:
     main_prof, fused_prof = main_routes.get("gemv") or {}, fused["profile"] or {}
     beam_prof = beam["profiles"].get("gemv") or {}
     print(f"fused norm against the default, same run: greedy {fused['tok_s']:.2f} tok/s (default "
-          f"{main_routes['tok_s']:.2f}; in turns {fused['greedy_ms_per_token_on']:.3f} against "
-          f"{fused['greedy_ms_per_token_off']:.3f} ms/token), "
+          f"{main_routes['tok_s']:.2f}), "
           f"{fused_prof.get('kernels_per_token', float('nan')):.1f} kernels/token (default "
           f"{main_prof.get('kernels_per_token', float('nan')):.1f}), device "
           f"{fused_prof.get('device_ms_per_token', float('nan')):.3f} ms/token (default "
@@ -3046,10 +3289,12 @@ def main() -> int:
 
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
                 and not r["desc_act"]]
-    k10_m16 = {key: layer_sum(k10_g128, key, 16) for key in ("ms", "library_ms", "bound_ms")}
-    print(f"K10's SIMT kernel at M = 16 (bf16 cotangents, 4-bit g128), one Llama-2-7B layer's 7 "
-          f"projections: {k10_m16['ms']:.4f} ms, torch.matmul {k10_m16['library_ms']:.4f} ms, "
-          f"bound {k10_m16['bound_ms']:.4f} ms", flush=True)
+    k10_m16 = {key: layer_sum(k10_g128, key, 16)
+               for key in ("ms", "simt_ms", "library_ms", "bound_ms")}
+    print(f"K10 at M = 16 (bf16 cotangents, 4-bit g128), one Llama-2-7B layer's 7 projections: "
+          f"the tensor-core kernel {k10_m16['ms']:.4f} ms, the SIMT kernel "
+          f"{k10_m16['simt_ms']:.4f} ms, torch.matmul {k10_m16['library_ms']:.4f} ms, bound "
+          f"{k10_m16['bound_ms']:.4f} ms", flush=True)
     k9_layer = {p: {key: mixtral_layer_sum(k9_rows, key, p) for key in
                     ("ms", "selected_only_ms", "simt_ms", "bound_ms", "library_ms")}
                 for p in K9_SELS}
@@ -3063,7 +3308,8 @@ def main() -> int:
     at = "one Llama-2-7B decoder layer's 7 projections at M=1, g128"
     simt_at = (at + "; the SIMT kernels (split-K GEMV, with its reduce, and SIMT tile kernel) "
                "of the library, timed beside the tensor-core GEMV on the same weights (they "
-               "run f32 activations and the group sizes 16 does not divide); launches from ")
+               "run f32 activations, and at M <= 16 the group sizes 16 does not divide); "
+               "launches from ")
     kernels = [
         gemm_entry("w4a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows,
                    at + f"; K1's tensor-core decode GEMV, bf16 (replaces the decode regime of "
@@ -3105,9 +3351,9 @@ def main() -> int:
                    grads["LoRA"]["card f32 backward_launches"], k10_g128,
                    f"the SIMT kernel: one Llama-2-7B decoder layer's 7 projections at M="
                    f"{TRAIN_M}, 4-bit g128, bf16 cotangents, timed beside the tensor-core kernel "
-                   f"on the same weights (it runs f32 cotangents, M <= 16 and group sizes 16 "
-                   f"does not divide); launches from the f32 LoRA backward of the 2-layer "
-                   f"gradient check; max_abs_err over every SIMT K10 case",
+                   f"on the same weights (it runs f32 cotangents); launches from the f32 LoRA "
+                   f"backward of the 2-layer gradient check; max_abs_err over every SIMT K10 "
+                   f"case",
                    m=TRAIN_M, ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "simt"]
                    + [r["simt_max_abs_err"] for r in k10_rows if "simt_ms" in r]),
@@ -3117,23 +3363,27 @@ def main() -> int:
                    f"{TRAIN_M} (a {TRAIN_BATCH} x {TRAIN_LEN} batch), 4-bit g128, bf16 "
                    f"cotangents; launches from one LoRA training step at full depth; "
                    f"max_abs_err over every tensor-core K10 case", m=TRAIN_M, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "mma"]),
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "mma"]
+                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_mma"]),
         gemm_entry("w4a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:487", train["launches_per_step"],
                    k1_rows, f"K1's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
                    f"projections at M={TRAIN_M}, g128, bf16 (replaces the prefill regime of "
                    f"_kernel_kb32 :487); launches from one LoRA training step at full depth; "
                    f"max_abs_err over every K1 case it ran", m=TRAIN_M, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "mma"]),
+                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "mma"]
+                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "w4a16_gemm_mma"]),
         gemm_entry("w8a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["batch2_counts"],
                    width_rows(8), "K4's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
                    "projections at M=128, g128, bf16; launches from the 8-bit batch-2 run's "
                    "32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w8a16_gemm_mma"]),
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w8a16_gemm_mma"]),
         gemm_entry("w2a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:1061",
                    widths[2]["batch2_counts"], width_rows(2), "K5's tensor-core tile kernel: one "
                    "Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; launches from "
                    "the 2-bit batch-2 run's 32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in wna_rows if r["kernel"] == "w2a16_gemm_mma"]),
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w2a16_gemm_mma"]),
         gemm_entry("w4a16_kb32l_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:635",
                    kb32l["batch2_counts"], [r for r in k6["rows"] if r["case"] in LAYER_SHAPES],
                    f"K6's tile regime, the tensor-core kernel over kb32l words: one Llama-2-7B "
@@ -3234,6 +3484,7 @@ def main() -> int:
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        prenorm=prenorm_rows, prenorm_layer_ms=prenorm_m,
                        prenorm_ptxas=prenorm_regs, fused=fused, fused_cut=fused_cut,
+                       rest_path=rest_path,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

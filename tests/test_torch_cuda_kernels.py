@@ -53,7 +53,7 @@ def _key(name, dtype, m, k, gs):
     if name in KERNEL_OF_BITS.values() or name == qlin.gemm.KB32L_KERNEL:
         route = qlin.gemm.route(dtype, m, gs)
     else:
-        route = qlin.gemm.tile_kernel(dtype, m, gs)
+        route = qlin.gemm.tile_kernel(dtype)
     return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
 
 
@@ -999,13 +999,13 @@ def test_mma_tile_kernel_matches_plain(card, dtype, m, bits, k, n, gs, desc_act,
 
 
 @pytest.mark.parametrize("dtype", MMA_DTYPES)
-@pytest.mark.parametrize("m", [17, 70, 129, 2048])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 70, 129, 2048])
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("k, n, gs, desc_act", [s[:4] for s in MMA_SHAPES])
 def test_mma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
-    """K10's tensor-core kernel against wna16_matmul_t_ref: the scaled weight
-    rounded once to the cotangent's type (the JAX kernels' rounding), f32
-    accumulation: 1% of the largest output (K10_REL_TOL)."""
+    """K10's tensor-core kernel at every M (1, 4 and 16 too) against
+    wna16_matmul_t_ref: the scaled weight as a hi/lo pair of the cotangent's
+    type, f32 accumulation: 1% of the largest output (K10_REL_TOL)."""
     layer = _layer(m + k + bits, k, n, gs, desc_act, bits=bits)
     sbits = qlin.storage_bits(bits)
     args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, gs)
@@ -1047,11 +1047,11 @@ def test_mma_over_kb32l_words_matches_plain(card, dtype, m, k, n, gs, bits, desc
 
 def test_f32_stays_on_the_simt_tile_kernels(card):
     """f32 activations and cotangents at M > 16 take the SIMT kernels (f32
-    weights), as does a group size that 16 does not divide; their counters
-    say so."""
+    weights); bf16 takes the tensor-core kernels, also at a group size that
+    16 does not divide; their counters say so."""
     for bits in (2, 4, 8):
         name = KERNEL_OF_BITS[bits]
-        for dtype, gs, route in ((torch.float32, 32, ""), (torch.bfloat16, 24, ""),
+        for dtype, gs, route in ((torch.float32, 32, ""), (torch.bfloat16, 24, "_mma"),
                                  (torch.bfloat16, 32, "_mma")):
             layer = _layer(bits, 768, 256, gs, dtype=dtype, bits=bits)
             before = dict(build.launches)
@@ -1076,19 +1076,28 @@ REST_CASES = [(4, 1024, 256, 4, False), (4, 1032, 256, 12, True), (4, 4096, 512,
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 70])
 @pytest.mark.parametrize("bits, k, n, gs, desc_act", REST_CASES)
 def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
-    """Both regimes of K1/K4/K5 (the per-code group GEMV at M <= 16, the SIMT
-    tile kernel above) and K10 at the rest classes, against the plain
-    versions: f32 to 1e-4, bf16 to 1% of the largest output."""
+    """K1/K4/K5 (the per-code group GEMV at M <= 16; above, the tensor-core
+    tile kernel's ANY_GS instance in bf16, the SIMT tile kernel in f32) and
+    K10 (the tensor-core ANY_GS instance in bf16 at every M, the SIMT kernel
+    in f32) at the rest classes, against the plain versions: f32 to 1e-4,
+    bf16 to 1% of the largest output, each bit-equal on a second call; in
+    bf16 the SIMT kernels on the same weights (``gemm.forced_kernel("simt")``)
+    within 1% of the largest output of the tensor-core kernels'."""
     layer = _layer(m + k + bits + gs, k, n, gs, desc_act, True, dtype, bits)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
     g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
                     dtype=dtype)
+    name = KERNEL_OF_BITS[bits]
+    fwd = _key(name, dtype, m, k, gs)
+    k10 = _key("wna16_gemm_t", dtype, m, k, gs)
+    assert fwd == name + ("_mma" if dtype == torch.bfloat16 and m > 16 else "")
+    assert k10 == "wna16_gemm_t" + ("_mma" if dtype == torch.bfloat16 else "")
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
     dx = qlin.matmul_t(g, layer)
-    assert build.launches[KERNEL_OF_BITS[bits]] == before.get(KERNEL_OF_BITS[bits], 0) + 1
-    assert build.launches["wna16_gemm_t"] == before.get("wna16_gemm_t", 0) + 1
+    for key in {name, name + "_mma", name + "_gemv", "wna16_gemm_t", "wna16_gemm_t_mma"}:
+        assert build.launches[key] == before.get(key, 0) + (key in (fwd, k10)), key
     ref = qlin.matmul_plain(x, layer)
     ref_t = qlin.gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                          layer.kperm, gs, qlin.storage_bits(bits))
@@ -1098,6 +1107,12 @@ def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
         tol = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 1e-2 * scale
         assert bool(torch.isfinite(got).all()) and (got.float() - want.float()).abs().max() <= tol
     torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
+    torch.testing.assert_close(qlin.matmul_t(g, layer), dx, rtol=0, atol=0)
+    if dtype == torch.bfloat16:
+        with qlin.gemm.forced_kernel("simt"):
+            ys, dxs = qlin.matmul(x, layer), qlin.matmul_t(g, layer)
+        for got, simt in ((y, ys), (dx, dxs)):
+            assert (got.float() - simt.float()).abs().max() <= 1e-2 * got.float().abs().max()
 
 
 @pytest.mark.parametrize("gs", [12, 100])

@@ -95,19 +95,21 @@ def test_route_takes_the_gemv(dtype, m, gs):
 
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
 def test_route_keeps_the_simt_kernels_for_f32_and_rest_classes(m):
-    """f32 activations at any row count, and the group sizes 16 does not
-    divide (a word straddling groups, or 8 | gs alone) in every dtype."""
+    """f32 activations at any row count, and at M <= 16 the group sizes 16
+    does not divide (a word straddling groups, or 8 | gs alone) in every
+    dtype; above 16 rows those take the tensor-core tile kernel in bf16/f16."""
     assert gemm.route(torch.float32, m, 128) == "simt"
     for gs in (4, 8, 24, 100, 172):
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
-            assert gemm.route(dtype, m, gs) == "simt"
+            want = "mma" if m > 16 and dtype != torch.float32 else "simt"
+            assert gemm.route(dtype, m, gs) == want
 
 
 @pytest.mark.parametrize("m", [17, 32, 2048])
 def test_route_above_16_rows_is_the_tile_kernels(m):
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for gs in (16, 32, 128, 100):
-            assert gemm.route(dtype, m, gs) == gemm.tile_kernel(dtype, m, gs)
+            assert gemm.route(dtype, m, gs) == gemm.tile_kernel(dtype)
 
 
 def test_route_names_a_kernel_and_forced_kernel_restores():

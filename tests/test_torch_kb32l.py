@@ -244,7 +244,7 @@ def test_kb32l_route_takes_the_gemv_for_bf16_and_the_ring_for_f32(gs):
         assert gemm.route(torch.bfloat16, m, gs) == gemm.route(torch.float16, m, gs) == "gemv"
         assert gemm.route(torch.float32, m, gs) == "simt"
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        assert gemm.route(dtype, 17, gs) == gemm.tile_kernel(dtype, 17, gs)
+        assert gemm.route(dtype, 17, gs) == gemm.tile_kernel(dtype)
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,8 @@ planar. The same packed words, made from a seed with NumPy through the port's
 ``ops/packing.py``, go through ``from_packed`` and ``matmul`` of both packages
 (the plain version here; the card's kernels are held to it by the ``cuda``
 tests). Also: the card's shape check takes these layers, and the static
-choice between the tensor-core and the SIMT tile kernels."""
+choice between the tensor-core and the SIMT tile kernels (the tensor cores
+for bf16/f16 at every group size)."""
 
 import numpy as np
 import pytest
@@ -95,19 +96,25 @@ def test_card_shape_check_takes_rest_classes(bits, k, n, gs, desc_act, layout):
     (torch.bfloat16, 17, 128, "mma"), (torch.float16, 2048, 16, "mma"),
     (torch.bfloat16, 64, 4096, "mma"), (torch.float16, 129, 32, "mma"),
     (torch.float32, 2048, 128, "simt"), (torch.float32, 17, 16, "simt"),
-    (torch.bfloat16, 16, 128, "simt"), (torch.float16, 1, 128, "simt"),
-    (torch.bfloat16, 2048, 24, "simt"), (torch.float16, 70, 100, "simt"),
-    (torch.bfloat16, 70, 12, "simt")])
+    (torch.bfloat16, 16, 128, "mma"), (torch.float16, 1, 128, "mma"),
+    (torch.bfloat16, 2048, 24, "mma"), (torch.float16, 70, 100, "mma"),
+    (torch.bfloat16, 70, 12, "mma"), (torch.bfloat16, 1, 24, "mma"),
+    (torch.float16, 16, 6, "mma"), (torch.bfloat16, 4, 172, "mma"),
+    (torch.float32, 1, 128, "simt"), (torch.float32, 16, 100, "simt"),
+    (torch.float32, 70, 12, "simt")])
 def test_tile_kernel_plan(dtype, m, gs, route):
-    """Tensor cores for bf16/f16 at M > 16 with 16 | gs; the SIMT kernels for
-    f32, for M <= 16 (the GEMV) and for group sizes 16 does not divide."""
-    assert tgemm.tile_kernel(dtype, m, gs) == route
+    """K10 takes the tensor cores for bf16/f16 at every M and group size and
+    the SIMT kernel for f32; K1/K4/K5's forward takes the same tile kernel
+    above 16 rows (at M <= 16 :func:`route` sends it to a GEMV)."""
+    assert tgemm.tile_kernel(dtype) == route
+    if m > tgemm.DECODE_MAX_M:
+        assert tgemm.route(dtype, m, gs) == route
 
 
 def test_tile_kernel_override():
     """``kernel`` names a tile kernel whatever the plan (chip_smoke.py times
     both on the same weights); anything else raises."""
-    assert tgemm.tile_kernel(torch.bfloat16, 2048, 128, "simt") == "simt"
-    assert tgemm.tile_kernel(torch.float32, 17, 24, "mma") == "mma"
+    assert tgemm.tile_kernel(torch.bfloat16, "simt") == "simt"
+    assert tgemm.tile_kernel(torch.float32, "mma") == "mma"
     with pytest.raises(ValueError, match="kernel must be"):
-        tgemm.tile_kernel(torch.bfloat16, 2048, 128, "wgmma")
+        tgemm.tile_kernel(torch.bfloat16, "wgmma")
