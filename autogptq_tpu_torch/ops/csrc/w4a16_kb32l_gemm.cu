@@ -408,9 +408,12 @@ extern "C" int w4a16_kb32l_gemm_gemv(const void* x, const int64_t* kperm, const 
     }
 }
 
-// Blocks of the kb32l GEMV one SM holds at once for `dtype`, M rows and a K chunk of kc rows.
-extern "C" int w4a16_kb32l_gemm_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
-    if (M <= 0 || M > 16 || kc <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+// Blocks of the kb32l GEMV one SM holds at once for `dtype`, M rows and a K chunk of kc rows
+// (gs, the group size, as K1's occupancy entry takes it: kb32l's are multiples of 32, so its
+// stage never grows with it).
+extern "C" int w4a16_kb32l_gemm_gemv_occupancy(int dtype, int M, int kc, int gs, int* blocks) {
+    if (M <= 0 || M > 16 || kc <= 0 || gs <= 0 || gs % 16 != 0 || blocks == nullptr)
+        return (int)cudaErrorInvalidValue;
     const int mt = M <= 8 ? 8 : 16;
     const size_t smem = gv_smem_bytes<4>(mt, kc);
     cudaError_t err = cudaErrorInvalidValue;

@@ -23,7 +23,8 @@
 // and 0.0550 ms for a layer's gate, up and down. The arithmetic (2*P*K*N) is far below that.
 //
 // Two kernels, chosen on the host by dtype, group size and P (ops/gemm.py:routed_route):
-//  * bf16/f16 with 16 | gs and P <= 16: routed_gemv_kernel (entry and launch count
+//  * bf16/f16 with P <= 16 and a group size of 16 or more (the ANY_GS instance, gemv_block's
+//    masked MMA sets, where 16 does not divide it): routed_gemv_kernel (entry and launch count
 //    w4a16_routed_gemm_gemv), the tensor-core GEMV of wna16_gemv.cuh, expert-major. Its grid is
 //    (column tiles of 64, K splits, min(P, E) expert slices), planned from shapes alone
 //    (ops/gemm.py:routed_plan); slice z serves the z-th distinct expert the pairs chose and
@@ -32,8 +33,9 @@
 //    experts exits before its first copy. One
 //    launch per call: the last block of each (expert, column tile) adds the splits' partials in
 //    split order (bit-equal from call to call) and writes its pairs' rows.
-//  * f32, the group sizes 16 does not divide, and P > 16: routed_decode_kernel below with
-//    routed_reduce_kernel (launch count w4a16_routed_gemm; also what kernel="simt" names).
+//  * f32, group sizes below 16 (every 16-row step of the GEMV spans groups there, and its
+//    masked sets were slower than this kernel: PERF.md) and P > 16: routed_decode_kernel below
+//    with routed_reduce_kernel (launch count w4a16_routed_gemm; also what kernel="simt" names).
 //
 // Design of routed_decode_kernel (a routed copy of wna16_decode_kernel in wna16_gemm.cuh):
 //  * Grid (ceil(N/4/128), splits, P). Block z is pair p: it reads e = sel[p], offsets
@@ -197,29 +199,30 @@ cudaError_t launch_routed(const void* x, const int32_t* sel, const int32_t* qwei
     return cudaGetLastError();
 }
 
-// The expert-major tensor-core GEMV (bf16, f16; 16 | gs; P <= 16): grid (column tiles, splits,
-// min(P, E) expert slices); the x stage holds the P rows.
-template <typename T, int MT>
+// The expert-major tensor-core GEMV (bf16, f16; P <= 16): grid (column tiles, splits,
+// min(P, E) expert slices); the x stage holds the P rows. ANY_GS for the group sizes 16 does
+// not divide (gemv_block's masked MMA sets).
+template <typename T, int MT, bool ANY_GS>
 __global__ void __launch_bounds__(GV_THREADS, 4)
 routed_gemv_kernel(const T* __restrict__ x, const int32_t* __restrict__ sel,
                    const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                    const uint8_t* __restrict__ zeros, T* __restrict__ out, float* __restrict__ ws,
                    int* __restrict__ counters, int* __restrict__ err, int E, int P, int K, int N,
                    int gs, int kc, int splits, int gather) {
-    gemv_block<4, T, MT, GptqWords, true>(x, nullptr, qweight, scales, zeros, nullptr, out, ws,
-                                          counters, sel, err, P, K, N, gs, kc, splits, gather,
-                                          GptqWords{N}, N, E, P);
+    gemv_block<4, T, MT, GptqWords, true, false, ANY_GS>(
+        x, nullptr, qweight, scales, zeros, nullptr, out, ws, counters, sel, err, P, K, N, gs, kc,
+        splits, gather, GptqWords{N}, N, E, P);
 }
 
-template <typename T, int MT>
+template <typename T, int MT, bool ANY_GS>
 cudaError_t launch_routed_gemv(const void* x, const int32_t* sel, const int32_t* qweight,
                                const __half* scales, const uint8_t* zeros, void* out, float* ws,
                                int* counters, int* err, int E, int P, int K, int N, int gs,
                                int kc, int splits, cudaStream_t stream) {
-    static const cudaError_t attr = allow_smem(routed_gemv_kernel<T, MT>, GV_SMEM_LIMIT);
+    static const cudaError_t attr = allow_smem(routed_gemv_kernel<T, MT, ANY_GS>, GV_SMEM_LIMIT);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + GV_BN - 1) / GV_BN, splits, P < E ? P : E);
-    routed_gemv_kernel<T, MT><<<grid, GV_THREADS, gv_smem_bytes<4>(P, kc), stream>>>(
+    routed_gemv_kernel<T, MT, ANY_GS><<<grid, GV_THREADS, gv_smem_bytes<4>(P, kc, gs), stream>>>(
         static_cast<const T*>(x), sel, qweight, scales, zeros, static_cast<T*>(out), ws,
         counters, err, E, P, K, N, gs, kc, splits, gv_gather(x, nullptr, K));
     return cudaGetLastError();
@@ -231,11 +234,19 @@ cudaError_t launch_routed_gemv_rows(const void* x, const int32_t* sel, const int
                                     float* ws, int* counters, int* err, int E, int P, int K,
                                     int N, int gs, int kc, int splits, cudaStream_t stream) {
     // a block takes the pairs that chose its expert: at most P of them
+    if (gs % 16 != 0) {
+        if (P <= 8)
+            return launch_routed_gemv<T, 8, true>(x, sel, qweight, scales, zeros, out, ws,
+                                                  counters, err, E, P, K, N, gs, kc, splits,
+                                                  stream);
+        return launch_routed_gemv<T, 16, true>(x, sel, qweight, scales, zeros, out, ws, counters,
+                                               err, E, P, K, N, gs, kc, splits, stream);
+    }
     if (P <= 8)
-        return launch_routed_gemv<T, 8>(x, sel, qweight, scales, zeros, out, ws, counters, err,
-                                        E, P, K, N, gs, kc, splits, stream);
-    return launch_routed_gemv<T, 16>(x, sel, qweight, scales, zeros, out, ws, counters, err, E, P,
-                                     K, N, gs, kc, splits, stream);
+        return launch_routed_gemv<T, 8, false>(x, sel, qweight, scales, zeros, out, ws, counters,
+                                               err, E, P, K, N, gs, kc, splits, stream);
+    return launch_routed_gemv<T, 16, false>(x, sel, qweight, scales, zeros, out, ws, counters,
+                                            err, E, P, K, N, gs, kc, splits, stream);
 }
 
 }  // namespace
@@ -250,7 +261,7 @@ extern "C" int w4a16_routed_gemm_gemv(const void* x, const int32_t* sel, const i
                                       int K, int N, int gs, int kc, int splits, void* stream) {
     if (E <= 0 || E > 65535 || P <= 0 || P > 16 || K <= 0 || N <= 0 || K % 8 != 0 ||
         N % 4 != 0 || !gv_plan_ok(K, gs, kc, splits, ws, counters) || err == nullptr ||
-        gv_smem_bytes<4>(P, kc) > GV_SMEM_LIMIT)
+        gv_smem_bytes<4>(P, kc, gs) > GV_SMEM_LIMIT)
         return (int)cudaErrorInvalidValue;
     const __half* s = static_cast<const __half*>(scales);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -268,22 +279,28 @@ extern "C" int w4a16_routed_gemm_gemv(const void* x, const int32_t* sel, const i
     }
 }
 
-// Blocks of the routed GEMV one SM holds at once for `dtype`, P pairs and a K chunk of kc rows.
-extern "C" int w4a16_routed_gemm_gemv_occupancy(int dtype, int P, int kc, int* blocks) {
-    if (P <= 0 || P > 16 || kc <= 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
-    const int mt = P <= 8 ? 8 : 16;
-    const size_t smem = gv_smem_bytes<4>(P, kc);
+// Blocks of the routed GEMV one SM holds at once for `dtype`, P pairs, a K chunk of kc rows and
+// group size gs.
+extern "C" int w4a16_routed_gemm_gemv_occupancy(int dtype, int P, int kc, int gs, int* blocks) {
+    if (P <= 0 || P > 16 || kc <= 0 || gs <= 0 || blocks == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = gv_smem_bytes<4>(P, kc, gs);
+    auto occ = [&](auto kernel) {
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, GV_THREADS, smem);
+    };
+    const bool any = gs % 16 != 0, m8 = P <= 8;
     cudaError_t err = cudaErrorInvalidValue;
-    if (dtype == DT_BF16)
-        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, routed_gemv_kernel<__nv_bfloat16, 8>, GV_THREADS, smem)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, routed_gemv_kernel<__nv_bfloat16, 16>, GV_THREADS, smem);
-    else if (dtype == DT_F16)
-        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, routed_gemv_kernel<__half, 8>, GV_THREADS, smem)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, routed_gemv_kernel<__half, 16>, GV_THREADS, smem);
+    if (dtype == DT_BF16) {
+        using B = __nv_bfloat16;
+        err = any ? (m8 ? occ(routed_gemv_kernel<B, 8, true>) : occ(routed_gemv_kernel<B, 16, true>))
+                  : (m8 ? occ(routed_gemv_kernel<B, 8, false>)
+                        : occ(routed_gemv_kernel<B, 16, false>));
+    } else if (dtype == DT_F16) {
+        using H = __half;
+        err = any ? (m8 ? occ(routed_gemv_kernel<H, 8, true>) : occ(routed_gemv_kernel<H, 16, true>))
+                  : (m8 ? occ(routed_gemv_kernel<H, 8, false>)
+                        : occ(routed_gemv_kernel<H, 16, false>));
+    }
     return (int)err;
 }
 

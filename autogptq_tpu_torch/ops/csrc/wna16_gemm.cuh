@@ -27,18 +27,20 @@
 // column. The arithmetic (2*M*K*N) only overtakes the bytes far above the decode regime.
 //
 // Design:
-//  * Decode regime (M <= 16), the SIMT GEMV: it serves f32 activations and the group sizes 16
-//    does not divide; bf16 and f16 activations with 16 | gs take the tensor-core GEMV of
-//    wna16_gemv.cuh instead (ops/gemm.py:route), one launch per call with its split-K
-//    combine folded in. Each thread owns 4 adjacent output columns and reads one
-//    16-byte int4 (4 words = P K-rows x 4 columns) per P K-rows, so a warp reads 512
-//    contiguous bytes of a weight row. The group's scale and zero are loaded once per group.
+//  * Decode regime (M <= 16), the SIMT GEMV: it serves f32 activations, and bf16 and f16
+//    ones at group sizes below 16 (and kernel="simt"); bf16 and f16 activations at a group
+//    size of 16 or more take the tensor-core GEMV of wna16_gemv.cuh instead
+//    (ops/gemm.py:route), one launch per call with its split-K combine folded in. Below 16
+//    rows per group every 16-row step of that GEMV spans groups and its exact masked MMA sets
+//    cost more than this kernel's call (PERF.md). Each thread owns 4 adjacent output columns
+//    and reads one 16-byte int4 (4 words = P K-rows x 4 columns) per P K-rows, so a warp reads
+//    512 contiguous bytes of a weight row. The group's scale and zero are loaded once per group.
 //    A code becomes (q - z) without an int->float conversion: the float with bit pattern
 //    0x4B000000 | q is 2^23 + q, and subtracting 2^23 + z is exact (q, z < 256). The M rows
 //    accumulate x * (q - z) per group in f32 registers and fold the scale in once per group.
 //    x[:, k-chunk] (gathered through kperm) is staged in shared memory as f32; all threads
-//    of a warp read the same element, which shared memory broadcasts. A rest-class layer takes
-//    the STRADDLE instance, which looks the group up per code, g = (P*kw + j) / gs, and scales
+//    of a warp read the same element, which shared memory broadcasts. A rest-class layer (f32,
+//    or bf16/f16 below gs 16) takes the STRADDLE instance, which looks the group up per code, g = (P*kw + j) / gs, and scales
 //    each code before it accumulates; the launch picks it by the layer's static group size, so
 //    every other layer keeps the per-group instance.
 //  * Split K: Llama's N = 4096 gives only 8 column blocks of 512 columns, far too few for

@@ -1,12 +1,13 @@
 // K10: dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T for Hopper (sm_90a), one library with an
 // entry point per storage width: w4a16_gemm_t (4-bit codes, and 3-bit codes kept in nibbles;
 // the width of the TPU kernels it replaces), w8a16_gemm_t and w2a16_gemm_t, and
-// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words; each has a tensor-core twin,
-// NAME_mma (wna16_mma.cuh), for bf16 and f16 cotangents.
+// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words; each has two tensor-core twins for
+// bf16 and f16 cotangents, NAME_mma (wna16_mma.cuh, above 16 rows) and NAME_gemv
+// (wna16_gemv_t.cuh, the split-N decode regime at M <= 16).
 //
 // Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32_t (_matmul_kb32_t),
-// _kernel_ki32_t (_matmul_ki32_t) and _kernel_kpair_t (_matmul_kpair_t). The kernel, its
-// layout, bound and design are in wna16_gemm_t.cuh.
+// _kernel_ki32_t (_matmul_ki32_t) and _kernel_kpair_t (_matmul_kpair_t). The kernels, their
+// layout, bound and design are in wna16_gemm_t.cuh, wna16_mma.cuh and wna16_gemv_t.cuh.
 
 #include "wna16_gemm_t.cuh"
 
@@ -27,6 +28,15 @@ extern "C" int w4a16_kb32l_gemm_t_mma(const void* g, const int64_t* kperm,
                                       int N, int n_pad, int gs, void* stream) {
     return kb32l_gemm_t_mma(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, n_pad, gs,
                             stream);
+}
+
+extern "C" int w4a16_kb32l_gemm_t_gemv(const void* g, const int64_t* kperm,
+                                       const int32_t* qweight, const void* scales,
+                                       const uint8_t* zeros, void* dx, float* ws, int* counters,
+                                       int dtype, int M, int K, int N, int n_pad, int gs, int nc,
+                                       int splits, void* stream) {
+    return kb32l_gemm_t_gemv(g, kperm, qweight, scales, zeros, dx, ws, counters, dtype, M, K, N,
+                             n_pad, gs, nc, splits, stream);
 }
 
 extern "C" const char* wna16_gemm_t_error_string(int code) {

@@ -41,15 +41,18 @@
 // (dot_dtype=jnp.bfloat16 at gemm.py:1452; tests/test_matmul_vjp.py allows 2e-2 for that).
 //
 // This SIMT kernel takes f32 cotangents (and bf16/f16 ones only where a caller names it:
-// kernel="simt"). bf16 and f16 cotangents take the tensor-core K10 of wna16_mma.cuh
-// (wna16_t_mma_kernel: mma.sync with the scaled weight as a hi/lo pair of the cotangent's
-// type) at every M and group size, its ANY_GS instance for the group sizes 16 does not divide,
-// exported beside it as NAME_mma; ops/gemm.py:tile_kernel decides. wgmma and TMA are not used. Every entry point returns cudaGetLastError() and the Python wrapper raises
-// when it is non-zero.
+// kernel="simt"). bf16 and f16 cotangents take the tensor cores at every group size: above 16
+// rows the tile K10 of wna16_mma.cuh (wna16_t_mma_kernel: mma.sync with the scaled weight as a
+// hi/lo pair of the cotangent's type; its ANY_GS instance for the group sizes 16 does not
+// divide), exported beside it as NAME_mma; at M <= 16 the split-N decode regime of
+// wna16_gemv_t.cuh (the same hi/lo pair), exported as NAME_gemv (and w4a16_kb32l_gemm_t_gemv);
+// ops/gemm.py:t_route decides by dtype and rows. wgmma and TMA are not used. Every entry
+// point returns cudaGetLastError() and the Python wrapper raises when it is non-zero.
 
 #pragma once
 
 #include "kb32l_tile.cuh"
+#include "wna16_gemv_t.cuh"
 #include "wna16_mma.cuh"
 
 namespace {
@@ -233,9 +236,35 @@ int kb32l_gemm_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight
                                  Kb32lWords{nbk}, n_pad, stream);
 }
 
+// K10's decode regime (wna16_gemv_t.cuh) over GPTQ words, bf16 or f16 cotangents, M <= 16, any
+// group size: nc N columns per split, splits of them (ops/gemm.py:t_gemv_plan), the f32 partials
+// in ws [splits, M, K] and one ticket counter per K tile in counters when splits > 1.
+template <int BITS>
+int wna16_gemm_t_gemv(const void* g, const int64_t* kperm, const int32_t* qweight,
+                      const void* scales, const uint8_t* zeros, void* dx, float* ws,
+                      int* counters, int dtype, int M, int K, int N, int gs, int nc, int splits,
+                      void* stream) {
+    return launch_t_gemv_dtype<BITS>(g, kperm, qweight, scales, zeros, dx, ws, counters, dtype,
+                                     M, K, N, gs, nc, splits, GptqWords{N}, N, stream);
+}
+
+// K10's decode regime over K6's kb32l words.
+int kb32l_gemm_t_gemv(const void* g, const int64_t* kperm, const int32_t* qweight,
+                      const void* scales, const uint8_t* zeros, void* dx, float* ws, int* counters,
+                      int dtype, int M, int K, int N, int n_pad, int gs, int nc, int splits,
+                      void* stream) {
+    if (K <= 0 || gs < 32 || KB32L_KB % gs != 0 || gs % 32 != 0 || K % gs != 0 ||
+        n_pad % KB32L_BN != 0 || n_pad < N || n_pad - N >= KB32L_BN)
+        return (int)cudaErrorInvalidValue;
+    const int nbk = (K + KB32L_KB - 1) / KB32L_KB;
+    return launch_t_gemv_dtype<4>(g, kperm, qweight, scales, zeros, dx, ws, counters, dtype, M, K,
+                                  N, gs, nc, splits, Kb32lWords{nbk}, n_pad, stream);
+}
+
 }  // namespace
 
-// Exports `int NAME(...)` (the SIMT kernel) and `int NAME_mma(...)` (the tensor-core kernel)
+// Exports `int NAME(...)` (the SIMT kernel), `int NAME_mma(...)` (the tensor-core tile kernel)
+// and `int NAME_gemv(...)` (the decode regime: ws, counters after dx, nc and splits after gs)
 // for BITS-bit codes.
 #define WNA16_T_DEFINE_ENTRY(NAME, BITS)                                                        \
     extern "C" int NAME(const void* g, const int64_t* kperm, const int32_t* qweight,            \
@@ -249,4 +278,11 @@ int kb32l_gemm_t_mma(const void* g, const int64_t* kperm, const int32_t* qweight
                               int M, int K, int N, int gs, void* stream) {                      \
         return wna16_gemm_t_mma<BITS>(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N, gs, \
                                       stream);                                                  \
+    }                                                                                           \
+    extern "C" int NAME##_gemv(const void* g, const int64_t* kperm, const int32_t* qweight,     \
+                               const void* scales, const uint8_t* zeros, void* dx, float* ws,   \
+                               int* counters, int dtype, int M, int K, int N, int gs, int nc,   \
+                               int splits, void* stream) {                                      \
+        return wna16_gemm_t_gemv<BITS>(g, kperm, qweight, scales, zeros, dx, ws, counters,      \
+                                       dtype, M, K, N, gs, nc, splits, stream);                 \
     }

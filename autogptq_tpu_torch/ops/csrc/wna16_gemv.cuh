@@ -1,5 +1,5 @@
 // Tensor-core decode GEMV of the wNa16 dequant-matmuls for Hopper (sm_90a), bf16 and f16
-// activations, M <= 16 rows, 16 | group size, BITS in {2, 4, 8} (3-bit codes ride in nibbles).
+// activations, M <= 16 rows, every group size, BITS in {2, 4, 8} (3-bit codes ride in nibbles).
 // One block body (gemv_block), three kernels that differ only in where the words lie and which
 // rows of x a block takes:
 //   wna16_gemv_kernel   y[M,N] = x[M,K] @ ((q - z) * s)[K,N] (+ bias)   K1, K4, K5: GPTQ words
@@ -7,9 +7,9 @@
 //   routed_gemv_kernel  y[p] = x[p] @ W[sel[p]], a stack of E experts    K9 (w4a16_routed_gemm.cu)
 // w4a16_gemm.cu, w8a16_gemm.cu and w2a16_gemm.cu instantiate the first beside their SIMT and tile
 // kernels and export it as NAME_gemv; ops/gemm.py:route sends a product here when the
-// activations are bf16 or f16, M <= 16 and 16 divides the group size. f32 activations and the
-// other group sizes keep the SIMT GEMV of wna16_gemm.cuh (its per-code group instance too).
-// K6 and K9 route the same way (gemm.kb32l_route, gemm.routed_route) to their SIMT kernels.
+// activations are bf16 or f16, M <= 16 and the group size is 16 rows or more (the ANY_GS
+// instance where 16 does not divide it). f32 activations and group sizes below 16 keep the
+// SIMT GEMV of wna16_gemm.cuh. K6 and K9 route the same way (gemm.route, gemm.routed_route).
 //
 // It replaces the decode regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487, entry _matmul_kb32 :559), _kernel_ki32 (:414), _kernel_kpair (:255), the
@@ -40,6 +40,23 @@
 //    packs two values). Each group's product accumulates into its own fragment and is folded
 //    in once per group, acc += s[g, n] * part, with the f32 scale: the same arithmetic as the
 //    tile kernel of wna16_mma.cuh, and 16 | gs keeps a step inside one group.
+//  * The group sizes 16 does not divide (the rest classes; ANY_GS, a separate instance, so the
+//    16 | gs ones keep their code and registers): a step inside one group runs as above. The
+//    stage holds each K row's group row (a byte per row), so every slot of a step that spans
+//    groups finds its own group's zero, and a word straddling groups is right. Such a step
+//    stays exact: its codes are decoded once, each slot with its own group's zero, and it runs
+//    one MMA set per group it touches, x of the slots of other groups' rows masked to 0 (the
+//    mask follows perm_slot, ge[lo] & ~ge[hi] from a table of 17 x 4); a set whose group ends
+//    in the step folds in, acc += s[g, n] * (d + the group's earlier part), and a last set
+//    whose group goes on becomes its first part. From gs 16 on about 16/gs of the steps span
+//    two groups. Below gs 16 every step does, with up to ceil(15/gs) + 1 sets, and the sets
+//    cost more than the SIMT GEMV's whole call (PERF.md: 3-bit gs 12, 8-bit gs 6), so
+//    ops/gemm.py:route keeps those group sizes on the SIMT GEMV; the kernel still takes them
+//    when asked (kernel="gemv"). A group cut by a split is folded in each split with the same
+//    scale (linear, so the combine stays bit-equal). A stage holds (BK - 1) / gs + 2 group
+//    rows (GvStage::groups, ops/gemm.py:_gemv_plan). Each step's words and x fragments are
+//    read one step ahead, and the step loop stays rolled with one accumulator chain: its body
+//    is large.
 //  * A deep weight stream: a 4-stage cp.async ring of word tiles. A stage holds 16 word rows
 //    (512 / BITS K rows) of the block's 64 columns, 4 KB of words at every width, rows padded
 //    by 16 words so the 8-byte loads of a warp hit distinct banks, and the fp16 scales and
@@ -103,13 +120,29 @@ template <int BITS> struct GvStage {      // byte offsets within one stage
     static constexpr int S = W + GV_WROWS * GV_LDW * 4;           // f16 [GROUPS][GV_BN]
     static constexpr int Z = S + GROUPS * GV_BN * 2;              // u8  [GROUPS][GV_BN]
     static constexpr int BYTES = (Z + GROUPS * GV_BN + 15) / 16 * 16;
+    // ANY_GS: ng group rows of scales and zeros in place of GROUPS, then each K row's group
+    // row in the stage, u8 [BK]
+    static __host__ __device__ constexpr int z_at(int ng) { return S + ng * GV_BN * 2; }
+    static __host__ __device__ constexpr int ix_at(int ng) { return z_at(ng) + ng * GV_BN; }
+    static __host__ __device__ constexpr int bytes(int ng) {
+        return (ix_at(ng) + BK + 15) / 16 * 16;
+    }
+    // the group rows a stage holds at group size gs: BK / 16 where 16 divides gs, else every
+    // group BK rows at any offset can touch (wna16_mma.cuh:stage_groups)
+    static __host__ __device__ constexpr int groups(int gs) {
+        return gs % 16 == 0 ? GROUPS : stage_groups(gs, BK);
+    }
+    static __host__ __device__ constexpr int stage_bytes(int gs) {
+        return gs % 16 == 0 ? BYTES : bytes(groups(gs));
+    }
 };
 
 __host__ __device__ constexpr int gv_x_bytes(int mt, int kc) { return mt * (kc + GV_XPAD) * 2; }
 
+// Dynamic shared memory of the ring and the x stage at group size gs (ops/gemm.py:_gemv_plan).
 template <int BITS>
-__host__ __device__ constexpr int gv_smem_bytes(int mt, int kc) {
-    return GV_STAGES * GvStage<BITS>::BYTES + gv_x_bytes(mt, kc);
+__host__ __device__ constexpr int gv_smem_bytes(int mt, int kc, int gs = 16) {
+    return GV_STAGES * GvStage<BITS>::stage_bytes(gs) + gv_x_bytes(mt, kc);
 }
 
 // The K row (within a 16-row step) that MMA slot s (0..15) of every fragment stands for. Slot
@@ -156,6 +189,18 @@ struct GvCodes {
         e0 = sub2<T>(biased(w >> sh), zz);
         e1 = sub2<T>(biased(w >> (sh + 8)), zz);
     }
+    // ANY_GS: the thread's four slots with their own groups' zeros; z_s holds slot s's
+    // zeros of columns wcol (low byte) and wcol + 1
+    static __device__ __forceinline__ void slot_pairs(uint2 w, int sh, uint32_t z0, uint32_t z1,
+                                                      uint32_t z8, uint32_t z9,
+                                                      uint32_t (&a)[4]) {
+        // (bias + z) of a pair's low and high slot in the two halves: column wcol's bytes
+        // (selector 0x6420: z_lo.b0, 0, z_hi.b0, 0) or wcol + 1's (0x6521)
+        a[0] = sub2<T>(biased(w.x >> sh), BIAS | __byte_perm(z0, z1, 0x6420));
+        a[2] = sub2<T>(biased(w.x >> (sh + 8)), BIAS | __byte_perm(z8, z9, 0x6420));
+        a[1] = sub2<T>(biased(w.y >> sh), BIAS | __byte_perm(z0, z1, 0x6521));
+        a[3] = sub2<T>(biased(w.y >> (sh + 8)), BIAS | __byte_perm(z8, z9, 0x6521));
+    }
 };
 
 // 8-bit codes, bf16: 2^23 + q in f32 (byte_perm puts the byte under the exponent byte 0x4B),
@@ -171,6 +216,17 @@ struct GvCodes<8, T, true> {
                                                  uint32_t& e1) {
         e0 = Mma<T>::pack(code(w, 0x7440, zb), code(w, 0x7442, zb));
         e1 = Mma<T>::pack(code(w, 0x7441, zb), code(w, 0x7443, zb));
+    }
+    static __device__ __forceinline__ void slot_pairs(uint2 w, int, uint32_t z0, uint32_t z1,
+                                                      uint32_t z8, uint32_t z9,
+                                                      uint32_t (&a)[4]) {
+        auto zb = [](uint32_t z, int c) {           // 2^23 + z of column c's byte
+            return __uint_as_float(__byte_perm(z, 0x4B000000u, 0x7440 + c));
+        };
+        a[0] = Mma<T>::pack(code(w.x, 0x7440, zb(z0, 0)), code(w.x, 0x7442, zb(z1, 0)));
+        a[2] = Mma<T>::pack(code(w.x, 0x7441, zb(z8, 0)), code(w.x, 0x7443, zb(z9, 0)));
+        a[1] = Mma<T>::pack(code(w.y, 0x7440, zb(z0, 1)), code(w.y, 0x7442, zb(z1, 1)));
+        a[3] = Mma<T>::pack(code(w.y, 0x7441, zb(z8, 1)), code(w.y, 0x7443, zb(z9, 1)));
     }
 };
 
@@ -195,7 +251,15 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
 // staged K chunk as it puts it in slot order, each element rounded once to T; the chunk's norm
 // weight is copied with x into kc * 4 bytes after the x stage (gathered x reads it from global
 // memory by column).
-template <int BITS, typename T, int MT, typename Words, bool ROUTED, bool PRENORM = false>
+// ANY_GS (not with PRENORM): any group size, the instance of the group sizes 16 does not
+// divide. A 16-row step that spans groups runs one MMA set per group it touches: each takes
+// q - z with that group's zero for the step's slots whose K row (perm_slot) lies in the group
+// and exactly 0 for the others, so a word straddling groups gives each code its own group's
+// zero, and a group's scale is folded in once its last row, or the split's, has gone in. The
+// step's words and x fragments are read once for all its sets; group boundaries are K rows,
+// the same for every thread, so the loop stays uniform. A stage holds GvStage::groups(gs).
+template <int BITS, typename T, int MT, typename Words, bool ROUTED, bool PRENORM = false,
+          bool ANY_GS = false>
 __device__ __forceinline__ void gemv_block(
     const T* __restrict__ x, const int64_t* __restrict__ kperm,
     const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
@@ -204,6 +268,7 @@ __device__ __forceinline__ void gemv_block(
     int* __restrict__ err, int M, int K, int N, int gs, int kc, int splits, int gather,
     Words words, int ldsz, int E, int xrows, Prenorm pn = Prenorm{}) {
     static_assert(!(PRENORM && ROUTED), "the prologue takes rows 0..M of x");
+    static_assert(!(PRENORM && ANY_GS), "the fused prologue takes 32 | gs only");
     using L = GvStage<BITS>;
     using C = GvCodes<BITS, T>;
     constexpr int P = L::P;
@@ -214,7 +279,15 @@ __device__ __forceinline__ void gemv_block(
     __shared__ int pair_of[ROUTED ? MT : 1]; // ROUTED: the row of x and out of each block row
     __shared__ float rstd[PRENORM ? MT : 1];  // PRENORM: 1 / rms of each row of x
     __shared__ float red[PRENORM ? MT * GV_WARPS : 1];
-    T* const xs = reinterpret_cast<T*>(smem + GV_STAGES * L::BYTES);   // [MT][kc + GV_XPAD]
+    // ANY_GS: [r][t] the slots of quad thread t whose K row within a step is r or more (pair
+    // e = 0 in .x, e = 1 in .y), r = 0..16: the mask of rows [lo, hi) is ge[lo] & ~ge[hi]
+    __shared__ uint2 ge_mask[ANY_GS ? 17 * 4 : 1];
+    // group rows per stage, the offset of its zeros and a stage's bytes
+    const int ngroups = ANY_GS ? L::groups(gs) : L::GROUPS;
+    const int zoff = ANY_GS ? L::z_at(ngroups) : L::Z;
+    [[maybe_unused]] const int ixoff = L::ix_at(ngroups);   // ANY_GS: the rows' group rows
+    const int sbytes = ANY_GS ? L::bytes(ngroups) : L::BYTES;
+    T* const xs = reinterpret_cast<T*>(smem + GV_STAGES * sbytes);   // [MT][kc + GV_XPAD]
     const int ldx = kc + GV_XPAD;
     const int tid = threadIdx.x;
     const int lane = tid & 31;
@@ -259,6 +332,8 @@ __device__ __forceinline__ void gemv_block(
             return m;
     };
 
+    // ANY_GS: scales and zeros in 16-byte copies (rows of 16-column multiples)
+    [[maybe_unused]] const bool wide = ldsz % 16 == 0 && N % 16 == 0;
     auto fetch = [&](int tile, unsigned char* st) {
         const int kt = k0 + tile * BK;
         int32_t* wsm = reinterpret_cast<int32_t*>(st + L::W);
@@ -270,9 +345,29 @@ __device__ __forceinline__ void gemv_block(
                              ok);
         }
         const int g0 = kt / gs;
-        const int ng = min(G - 1, (min(kt + BK, k1) - 1) / gs) - g0 + 1;   // <= L::GROUPS
+        const int ng = min(G - 1, (min(kt + BK, k1) - 1) / gs) - g0 + 1;   // <= ngroups
         __half* ss = reinterpret_cast<__half*>(st + L::S);
-        uint8_t* zs = st + L::Z;
+        uint8_t* zs = st + zoff;
+        if constexpr (ANY_GS) {
+            uint8_t* ix = st + ixoff;                // each K row's group row (rows past the
+            for (int r = tid; r < BK; r += GV_THREADS)   // split take its last one's)
+                ix[r] = (uint8_t)(min(kt + r, k1 - 1) / gs - g0);
+            if (wide) {                              // many short group rows: 16-byte copies
+                for (int c = tid; c < ng * (GV_BN / 8 + GV_BN / 16); c += GV_THREADS) {
+                    const bool sc = c < ng * (GV_BN / 8);
+                    const int c2 = sc ? c : c - ng * (GV_BN / 8);
+                    const int per = sc ? GV_BN / 8 : GV_BN / 16, cols = sc ? 8 : 16;
+                    const int r = c2 / per, n = n0 + cols * (c2 % per);
+                    const bool ok = n < N;
+                    const int64_t at = (int64_t)(g0 + r) * ldsz + n;
+                    if (sc)
+                        cp_async16_zfill(ss + r * GV_BN + (n - n0), ok ? scales + at : scales, ok);
+                    else
+                        cp_async16_zfill(zs + r * GV_BN + (n - n0), ok ? zeros + at : zeros, ok);
+                }
+                return;
+            }
+        }
         for (int c = tid; c < ng * (GV_BN / 2 + GV_BN / 4); c += GV_THREADS) {
             if (c < ng * (GV_BN / 2)) {              // scales, 2 columns per copy
                 const int r = c / (GV_BN / 2), q = c % (GV_BN / 2);
@@ -325,7 +420,7 @@ __device__ __forceinline__ void gemv_block(
 
 #pragma unroll
     for (int s = 0; s < GV_STAGES - 1; ++s) {
-        if (s < ntiles) fetch(s, smem + s * L::BYTES);
+        if (s < ntiles) fetch(s, smem + s * sbytes);
         cp_async_commit();   // one group per stage, empty past the end: wait counts alike
     }
     if constexpr (PRENORM) prenorm_rstd<T, MT>(x, K, rows, pn.eps, rstd, red);
@@ -429,52 +524,182 @@ __device__ __forceinline__ void gemv_block(
         }
     };
 
-    const int gsteps = gs / 16;
-    int gcur = k0 / gs;                          // the group of the current step
-    int left = gsteps - (k0 % gs) / 16;          // its steps still to come
-    bool fresh = true;                           // its zeros are still to be read
-    for (int tile = 0; tile < ntiles; ++tile) {
-        cp_async_wait<GV_STAGES - 2>();          // this thread's copies of the tile have landed
-        __syncthreads();                         // everyone's have, the previous stage is free
-        const int nxt = tile + GV_STAGES - 1;
-        if (nxt < ntiles) fetch(nxt, smem + (nxt % GV_STAGES) * L::BYTES);
-        cp_async_commit();
+    if constexpr (!ANY_GS) {
+        const int gsteps = gs / 16;
+        int gcur = k0 / gs;                          // the group of the current step
+        int left = gsteps - (k0 % gs) / 16;          // its steps still to come
+        bool fresh = true;                           // its zeros are still to be read
+        for (int tile = 0; tile < ntiles; ++tile) {
+            cp_async_wait<GV_STAGES - 2>();      // this thread's copies of the tile have landed
+            __syncthreads();                     // everyone's have, the previous stage is free
+            const int nxt = tile + GV_STAGES - 1;
+            if (nxt < ntiles) fetch(nxt, smem + (nxt % GV_STAGES) * L::BYTES);
+            cp_async_commit();
 
-        const unsigned char* st = smem + (tile % GV_STAGES) * L::BYTES;
-        const uint32_t* wp = reinterpret_cast<const uint32_t*>(st + L::W) + wrow * GV_LDW + wcol;
-        const __half* ss = reinterpret_cast<const __half*>(st + L::S);
-        const uint8_t* zs = st + L::Z;
-        const int kt = k0 + tile * BK;
-        const T* xp = xl + (kt - k0);
-        const int grow0 = gcur - kt / gs;        // the current group's row in the stage
-        if (left >= BK / 16 && kt + BK <= k1) {  // the whole stage lies in the current group
-            if (fresh) zeros_of(zs + grow0 * GV_BN);
-            fresh = false;
+            const unsigned char* st = smem + (tile % GV_STAGES) * L::BYTES;
+            const uint32_t* wp =
+                reinterpret_cast<const uint32_t*>(st + L::W) + wrow * GV_LDW + wcol;
+            const __half* ss = reinterpret_cast<const __half*>(st + L::S);
+            const uint8_t* zs = st + L::Z;
+            const int kt = k0 + tile * BK;
+            const T* xp = xl + (kt - k0);
+            const int grow0 = gcur - kt / gs;        // the current group's row in the stage
+            if (left >= BK / 16 && kt + BK <= k1) {  // the whole stage lies in the current group
+                if (fresh) zeros_of(zs + grow0 * GV_BN);
+                fresh = false;
 #pragma unroll
-            for (int ks = 0; ks < BK / 16; ++ks)
-                step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
-            left -= BK / 16;
-            if (left == 0 || kt + BK >= k1) fold(ss + grow0 * GV_BN);
-            if (left == 0) {
-                ++gcur;
-                left = gsteps;
-                fresh = true;
+                for (int ks = 0; ks < BK / 16; ++ks)
+                    step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
+                left -= BK / 16;
+                if (left == 0 || kt + BK >= k1) fold(ss + grow0 * GV_BN);
+                if (left == 0) {
+                    ++gcur;
+                    left = gsteps;
+                    fresh = true;
+                }
+                continue;
             }
-            continue;
-        }
 #pragma unroll
-        for (int ks = 0; ks < BK / 16; ++ks) {   // a group starts or the split ends inside
-            const int k16 = kt + 16 * ks;
-            if (k16 >= k1) break;                // uniform over the block
-            const int grow = gcur - kt / gs;
-            if (fresh) zeros_of(zs + grow * GV_BN);
-            fresh = false;
-            step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
-            if (--left == 0 || k16 + 16 >= k1) fold(ss + grow * GV_BN);
-            if (left == 0) {
-                ++gcur;
-                left = gsteps;
-                fresh = true;
+            for (int ks = 0; ks < BK / 16; ++ks) {   // a group starts or the split ends inside
+                const int k16 = kt + 16 * ks;
+                if (k16 >= k1) break;                // uniform over the block
+                const int grow = gcur - kt / gs;
+                if (fresh) zeros_of(zs + grow * GV_BN);
+                fresh = false;
+                step(wp + (ks * 16 / P) * GV_LDW, xp + 16 * ks, part[ks & 1]);
+                if (--left == 0 || k16 + 16 >= k1) fold(ss + grow * GV_BN);
+                if (left == 0) {
+                    ++gcur;
+                    left = gsteps;
+                    fresh = true;
+                }
+            }
+        }
+    } else {
+        for (int i = tid; i < 17 * 4; i += GV_THREADS) {   // read after the loop's first barrier
+            const int r = i / 4, q = i % 4;
+            auto from = [&](int slot, uint32_t bits) {
+                return perm_slot<BITS>(slot) >= r ? bits : 0u;
+            };
+            ge_mask[i] = make_uint2(from(2 * q, 0xFFFFu) | from(2 * q + 1, 0xFFFF0000u),
+                                    from(2 * q + 8, 0xFFFFu) | from(2 * q + 9, 0xFFFF0000u));
+        }
+        // the K rows (within a step) of the thread's slots: pair e = 0 holds slots 2t, 2t + 1
+        // (low, high half), e = 1 slots 2t + 8, 2t + 9
+        const int r0 = perm_slot<BITS>(2 * t), r1 = perm_slot<BITS>(2 * t + 1);
+        const int r8 = perm_slot<BITS>(2 * t + 8), r9 = perm_slot<BITS>(2 * t + 9);
+        int gcur = k0 / gs;                          // the current group: K rows [glo, ghi)
+        int glo = gcur * gs, ghi = min(glo + gs, K);
+        bool fresh = true;                           // its zeros are still to be read
+        bool live = false;                           // part[0] holds some of its product
+        auto next_group = [&]() {
+            ++gcur;
+            glo = ghi;
+            ghi = min(ghi + gs, K);
+            fresh = true;
+        };
+        for (int tile = 0; tile < ntiles; ++tile) {
+            cp_async_wait<GV_STAGES - 2>();
+            __syncthreads();
+            const int nxt = tile + GV_STAGES - 1;
+            if (nxt < ntiles) fetch(nxt, smem + (nxt % GV_STAGES) * sbytes);
+            cp_async_commit();
+
+            const unsigned char* st = smem + (tile % GV_STAGES) * sbytes;
+            const uint32_t* wp =
+                reinterpret_cast<const uint32_t*>(st + L::W) + wrow * GV_LDW + wcol;
+            const __half* ss = reinterpret_cast<const __half*>(st + L::S);
+            const uint8_t* zs = st + zoff;
+            const int kt = k0 + tile * BK;
+            const int g0 = kt / gs;                  // the stage's first group row
+            const T* xp = xl + (kt - k0);
+            // each step's words and x fragments are read one step ahead
+            auto load = [&](int ks, uint2& w, uint32_t (&b)[4]) {
+                w = *reinterpret_cast<const uint2*>(wp + (ks * 16 / P) * GV_LDW);
+                if constexpr (MT == 16)
+                    ldmatrix_x4(b, xp + 16 * ks);
+                else
+                    ldmatrix_x2(b, xp + 16 * ks);
+            };
+            uint2 wn;
+            uint32_t bn[4];
+            load(0, wn, bn);
+            const int nst = (min(kt + BK, k1) - kt + 15) / 16;   // the tile's steps
+            // The loops stay rolled and the products go into one chain, part[0]: the body
+            // is large, and unrolled copies of it overflow the instruction cache.
+#pragma unroll 1
+            for (int ks = 0; ks < nst; ++ks) {
+                const int k16 = kt + 16 * ks;
+                const uint2 w = wn;
+                const uint32_t b[4] = {bn[0], bn[1], bn[2], bn[3]};
+                if (ks + 1 < nst) load(ks + 1, wn, bn);
+                uint32_t a[4];
+                if (k16 + 16 <= ghi) {               // the step lies in the current group
+                    if (fresh) zeros_of(zs + (gcur - g0) * GV_BN);
+                    fresh = false;
+                    C::pairs(w.x, sh, zz0, a[0], a[2]);
+                    C::pairs(w.y, sh, zz1, a[1], a[3]);
+#pragma unroll
+                    for (int j = 0; j < NT; ++j)
+                        Mma<T>::run(part[0][j], a, b[2 * j], b[2 * j + 1]);
+                    live = true;
+                    if (k16 + 16 == ghi || k16 + 16 >= k1) {   // the group or the split ends
+                        fold(ss + (gcur - g0) * GV_BN);
+                        live = false;
+                    }
+                    if (k16 + 16 == ghi) next_group();
+                    continue;
+                }
+                // The step spans groups (or K ends inside it), exact: its codes are decoded
+                // once, each slot with its own group's zero (the stage holds each row's group
+                // row in ix; q - z in the MMA, as above), then one MMA set per group: x with the
+                // slots of other groups' rows masked to 0 (the mask follows perm_slot,
+                // ge[lo] & ~ge[hi]). A set whose group ends in the step (or the split does)
+                // multiplies from a zero accumulator and folds in at once, with the group's
+                // earlier part if any; a last set whose group goes on becomes its first part.
+                const uint8_t* ix = st + ixoff + (k16 - kt);
+                const int rs[4] = {r0, r1, r8, r9};
+                uint32_t z2[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    z2[i] = *reinterpret_cast<const uint16_t*>(zs + ix[rs[i]] * GV_BN + wcol);
+                fresh = true;                        // the fast path reloads its group's zeros
+                C::slot_pairs(w, sh, z2[0], z2[1], z2[2], z2[3], a);
+                const int kend = min(k16 + 16, k1);
+#pragma unroll 1
+                for (;;) {
+                    const uint2 m_lo = ge_mask[max(glo - k16, 0) * 4 + t];
+                    const uint2 m_hi = ge_mask[min(ghi - k16, 16) * 4 + t];
+                    const uint32_t m0 = m_lo.x & ~m_hi.x, m8 = m_lo.y & ~m_hi.y;
+                    const bool ends = ghi <= k16 + 16;   // the group's last row is in the step
+                    if (ends || k16 + 16 >= k1) {
+                        const __half2 s2 =
+                            *reinterpret_cast<const __half2*>(ss + (gcur - g0) * GV_BN + wcol);
+                        const float s0 = __low2float(s2), s1 = __high2float(s2);
+#pragma unroll
+                        for (int j = 0; j < NT; ++j) {
+                            float d[4];
+                            Mma<T>::run0(d, a, b[2 * j] & m0, b[2 * j + 1] & m8);
+#pragma unroll
+                            for (int c = 0; c < 4; ++c) {
+                                if (live) d[c] += part[0][j][c];
+                                acc[j][c] = fmaf(d[c], c < 2 ? s0 : s1, acc[j][c]);
+                                part[0][j][c] = 0.0f;
+                            }
+                        }
+                        live = false;
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < NT; ++j)
+                            Mma<T>::run(part[0][j], a, b[2 * j] & m0, b[2 * j + 1] & m8);
+                        live = true;
+                    }
+                    if (!ends) break;
+                    ++gcur;
+                    glo = ghi;
+                    ghi = min(ghi + gs, K);
+                    if (glo >= kend) break;
+                }
             }
         }
     }
@@ -551,18 +776,17 @@ __device__ __forceinline__ void gemv_block(
 }
 
 // K1/K4/K5: GPTQ words [K/P, N], scales and zeros [G, N]; PRENORM (K1 only) with the fused
-// RMS-norm prologue.
-template <int BITS, typename T, int MT, bool PRENORM = false>
+// RMS-norm prologue; ANY_GS for the group sizes 16 does not divide.
+template <int BITS, typename T, int MT, bool PRENORM = false, bool ANY_GS = false>
 __global__ void __launch_bounds__(GV_THREADS, 4)
 wna16_gemv_kernel(const T* __restrict__ x, const int64_t* __restrict__ kperm,
                   const int32_t* __restrict__ qweight, const __half* __restrict__ scales,
                   const uint8_t* __restrict__ zeros, const T* __restrict__ bias,
                   T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
                   int M, int K, int N, int gs, int kc, int splits, int gather, Prenorm pn) {
-    gemv_block<BITS, T, MT, GptqWords, false, PRENORM>(x, kperm, qweight, scales, zeros, bias,
-                                                       out, ws, counters, nullptr, nullptr, M, K,
-                                                       N, gs, kc, splits, gather, GptqWords{N},
-                                                       N, 1, MT, pn);
+    gemv_block<BITS, T, MT, GptqWords, false, PRENORM, ANY_GS>(
+        x, kperm, qweight, scales, zeros, bias, out, ws, counters, nullptr, nullptr, M, K, N, gs,
+        kc, splits, gather, GptqWords{N}, N, 1, MT, pn);
 }
 
 // Whether x must be gathered by register loads (kperm, or rows not in 16-byte copies; with the
@@ -572,50 +796,76 @@ inline int gv_gather(const void* x, const int64_t* kperm, int K, const void* nw 
            (reinterpret_cast<uintptr_t>(nw) & 15) != 0;
 }
 
-// Dynamic shared memory of a GEMV block; the fused prologue adds its chunk of norm weight.
+// Dynamic shared memory of a GEMV block at group size gs; the fused prologue adds its chunk of
+// norm weight.
 template <int BITS, bool PRENORM>
-constexpr int gv_block_smem(int mt, int kc) {
-    return gv_smem_bytes<BITS>(mt, kc) + (PRENORM ? kc * 4 : 0);
+constexpr int gv_block_smem(int mt, int kc, int gs) {
+    return gv_smem_bytes<BITS>(mt, kc, gs) + (PRENORM ? kc * 4 : 0);
 }
 
-// The checks every GEMV entry makes on its plan: kc rows per split, splits of them cover K once.
+// The checks every GEMV entry makes on its plan: kc rows per split (whole 16-row steps), splits
+// of them cover K once.
 inline bool gv_plan_ok(int K, int gs, int kc, int splits, const float* ws, const int* counters) {
-    return gs > 0 && gs % 16 == 0 && kc > 0 && kc % 16 == 0 && splits > 0 &&
+    return gs > 0 && kc > 0 && kc % 16 == 0 && splits > 0 &&
            splits <= GV_MAX_SPLITS && (int64_t)(splits - 1) * kc < K && (int64_t)splits * kc >= K &&
            (splits == 1 || (ws != nullptr && counters != nullptr));
 }
 
-template <int BITS, typename T, int MT, bool PRENORM>
+template <int BITS, typename T, int MT, bool PRENORM, bool ANY_GS>
 cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                         const __half* scales, const uint8_t* zeros, const void* bias, void* out,
                         float* ws, int* counters, int M, int K, int N, int gs, int kc, int splits,
                         cudaStream_t stream, Prenorm pn) {
-    static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT, PRENORM>,
+    static const cudaError_t attr = allow_smem(wna16_gemv_kernel<BITS, T, MT, PRENORM, ANY_GS>,
                                                GV_SMEM_LIMIT);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
-    wna16_gemv_kernel<BITS, T, MT, PRENORM>
-        <<<grid, GV_THREADS, gv_block_smem<BITS, PRENORM>(MT, kc), stream>>>(
+    wna16_gemv_kernel<BITS, T, MT, PRENORM, ANY_GS>
+        <<<grid, GV_THREADS, gv_block_smem<BITS, PRENORM>(MT, kc, gs), stream>>>(
             static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
             static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits,
             gv_gather(x, kperm, K, PRENORM ? pn.w : nullptr), pn);
     return cudaGetLastError();
 }
 
-template <int BITS, typename T, bool PRENORM>
+template <int BITS, typename T, bool PRENORM, bool ANY_GS>
 cudaError_t launch_gemv_rows(const void* x, const int64_t* kperm, const int32_t* qweight,
                              const __half* scales, const uint8_t* zeros, const void* bias,
                              void* out, float* ws, int* counters, int M, int K, int N, int gs,
                              int kc, int splits, cudaStream_t stream, Prenorm pn) {
     if (M <= 8)
-        return launch_gemv<BITS, T, 8, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, ws,
-                                                counters, M, K, N, gs, kc, splits, stream, pn);
-    return launch_gemv<BITS, T, 16, PRENORM>(x, kperm, qweight, scales, zeros, bias, out, ws,
-                                             counters, M, K, N, gs, kc, splits, stream, pn);
+        return launch_gemv<BITS, T, 8, PRENORM, ANY_GS>(x, kperm, qweight, scales, zeros, bias,
+                                                        out, ws, counters, M, K, N, gs, kc,
+                                                        splits, stream, pn);
+    return launch_gemv<BITS, T, 16, PRENORM, ANY_GS>(x, kperm, qweight, scales, zeros, bias, out,
+                                                     ws, counters, M, K, N, gs, kc, splits,
+                                                     stream, pn);
+}
+
+template <int BITS, bool PRENORM, bool ANY_GS>
+int launch_gemv_dtype(const void* x, const int64_t* kperm, const int32_t* qweight,
+                      const void* scales, const uint8_t* zeros, const void* bias, void* out,
+                      float* ws, int* counters, int dtype, int M, int K, int N, int gs, int kc,
+                      int splits, void* stream, Prenorm pn) {
+    const __half* s = static_cast<const __half*>(scales);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F16:
+            return (int)launch_gemv_rows<BITS, __half, PRENORM, ANY_GS>(
+                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
+                pn);
+        case DT_BF16:
+            return (int)launch_gemv_rows<BITS, __nv_bfloat16, PRENORM, ANY_GS>(
+                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
+                pn);
+        default:   // f32 activations take the SIMT GEMV
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 // The GEMV over GPTQ words [K/P, N] (K1, K4, K5): kc K rows per split, splits of them;
-// PRENORM with the fused RMS-norm prologue.
+// PRENORM with the fused RMS-norm prologue (16 | gs). A group size that 16 does not divide takes
+// the ANY_GS instance.
 template <int BITS, bool PRENORM = false>
 int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
                     const void* scales, const uint8_t* zeros, const void* bias, void* out,
@@ -624,49 +874,51 @@ int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
     constexpr int P = 32 / BITS;
     if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 ||
         !gv_plan_ok(K, gs, kc, splits, ws, counters) ||
-        gv_block_smem<BITS, PRENORM>(M <= 8 ? 8 : 16, kc) > GV_SMEM_LIMIT ||
-        (PRENORM && !prenorm_ok(M, pn)))
+        gv_block_smem<BITS, PRENORM>(M <= 8 ? 8 : 16, kc, gs) > GV_SMEM_LIMIT ||
+        (PRENORM && (!prenorm_ok(M, pn) || gs % 16 != 0)))
         return (int)cudaErrorInvalidValue;
-    const __half* s = static_cast<const __half*>(scales);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (dtype) {
-        case DT_F16:
-            return (int)launch_gemv_rows<BITS, __half, PRENORM>(
-                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
-                pn);
-        case DT_BF16:
-            return (int)launch_gemv_rows<BITS, __nv_bfloat16, PRENORM>(
-                x, kperm, qweight, s, zeros, bias, out, ws, counters, M, K, N, gs, kc, splits, st,
-                pn);
-        default:   // f32 activations take the SIMT GEMV
-            return (int)cudaErrorInvalidValue;
+    if constexpr (!PRENORM) {
+        if (gs % 16 != 0)
+            return launch_gemv_dtype<BITS, false, true>(x, kperm, qweight, scales, zeros, bias,
+                                                        out, ws, counters, dtype, M, K, N, gs, kc,
+                                                        splits, stream, pn);
     }
+    return launch_gemv_dtype<BITS, PRENORM, false>(x, kperm, qweight, scales, zeros, bias, out, ws,
+                                                   counters, dtype, M, K, N, gs, kc, splits,
+                                                   stream, pn);
 }
 
 // Blocks of the GEMV one SM holds at once (the CUDA occupancy calculator over its registers
-// and shared memory) for `dtype`, M rows and a K chunk of kc rows.
+// and shared memory) for `dtype`, M rows, a K chunk of kc rows and group size gs (the ANY_GS
+// instance and its stage where 16 does not divide gs).
 template <int BITS>
-int wna16_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
-    const int mt = M <= 8 ? 8 : 16;
-    const size_t smem = gv_smem_bytes<BITS>(mt, kc);
+int wna16_gemv_occupancy(int dtype, int M, int kc, int gs, int* blocks) {
+    if (M <= 0 || M > 16 || kc <= 0 || gs <= 0 || blocks == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = gv_smem_bytes<BITS>(M <= 8 ? 8 : 16, kc, gs);
+    auto occ = [&](auto kernel) {
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, GV_THREADS, smem);
+    };
+    const bool any = gs % 16 != 0, m8 = M <= 8;
     cudaError_t err = cudaErrorInvalidValue;
-    if (dtype == DT_BF16)
-        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, wna16_gemv_kernel<BITS, __nv_bfloat16, 8>, GV_THREADS, smem)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, wna16_gemv_kernel<BITS, __nv_bfloat16, 16>, GV_THREADS, smem);
-    else if (dtype == DT_F16)
-        err = mt == 8 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, wna16_gemv_kernel<BITS, __half, 8>, GV_THREADS, smem)
-                      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                            blocks, wna16_gemv_kernel<BITS, __half, 16>, GV_THREADS, smem);
+    if (dtype == DT_BF16) {
+        using B = __nv_bfloat16;
+        err = any ? (m8 ? occ(wna16_gemv_kernel<BITS, B, 8, false, true>)
+                        : occ(wna16_gemv_kernel<BITS, B, 16, false, true>))
+                  : (m8 ? occ(wna16_gemv_kernel<BITS, B, 8>) : occ(wna16_gemv_kernel<BITS, B, 16>));
+    } else if (dtype == DT_F16) {
+        using H = __half;
+        err = any ? (m8 ? occ(wna16_gemv_kernel<BITS, H, 8, false, true>)
+                        : occ(wna16_gemv_kernel<BITS, H, 16, false, true>))
+                  : (m8 ? occ(wna16_gemv_kernel<BITS, H, 8>) : occ(wna16_gemv_kernel<BITS, H, 16>));
+    }
     return (int)err;
 }
 
 }  // namespace
 
 // Exports `int NAME_gemv(...)`, the tensor-core decode GEMV over GPTQ words of BITS-bit codes,
-// and `int NAME_gemv_occupancy(dtype, M, kc, int* blocks)`.
+// and `int NAME_gemv_occupancy(dtype, M, kc, gs, int* blocks)`.
 #define WNA16_GEMV_DEFINE_ENTRY(NAME, BITS)                                                     \
     extern "C" int NAME##_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,     \
                                const void* scales, const uint8_t* zeros, const void* bias,      \
@@ -675,8 +927,8 @@ int wna16_gemv_occupancy(int dtype, int M, int kc, int* blocks) {
         return wna16_gemm_gemv<BITS>(x, kperm, qweight, scales, zeros, bias, out, ws, counters, \
                                      dtype, M, K, N, gs, kc, splits, stream);                   \
     }                                                                                           \
-    extern "C" int NAME##_gemv_occupancy(int dtype, int M, int kc, int* blocks) {               \
-        return wna16_gemv_occupancy<BITS>(dtype, M, kc, blocks);                                \
+    extern "C" int NAME##_gemv_occupancy(int dtype, int M, int kc, int gs, int* blocks) {       \
+        return wna16_gemv_occupancy<BITS>(dtype, M, kc, gs, blocks);                            \
     }
 
 // Exports `int NAME_gemv_norm(...)`: the tensor-core decode GEMV with the fused RMS-norm

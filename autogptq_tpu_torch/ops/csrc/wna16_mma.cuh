@@ -4,11 +4,12 @@
 //   wna16_t_mma_kernel  dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T           K10
 // Each library instantiates them beside its SIMT kernels (wna16_gemm.cuh, wna16_gemm_t.cuh,
 // w4a16_kb32l_gemm.cu) and exports them as NAME_mma; ops/gemm.py:tile_kernel routes bf16 and
-// f16 products here at any group size: K10 at every M, the forward above 16 rows (at M <= 16
-// it takes the tensor-core decode GEMV of wna16_gemv.cuh where 16 divides the group size, the
-// SIMT GEMV of wna16_gemm.cuh otherwise, and K6 its own GEMV or ring: ops/gemm.py:route). f32
-// activations stay on the SIMT kernels. Each kernel has two instances per library and type: the
-// one of the group sizes 16 divides, and ANY_GS for the others (the "rest classes").
+// f16 products here at any group size above 16 rows (at M <= 16 the forward takes the
+// tensor-core decode GEMV of wna16_gemv.cuh from gs 16 on and the SIMT GEMV below, K6 its GEMV
+// over kb32l words, ops/gemm.py:route, and K10 its split-N decode regime of wna16_gemv_t.cuh,
+// ops/gemm.py:t_route; kernel="mma" still names the tile kernels there). f32 activations stay on the SIMT kernels. Each kernel has two instances per
+// library and type: the one of the group sizes 16 divides, and ANY_GS for the others (the
+// "rest classes").
 //
 // They replace the prefill regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487; _matmul_kb32 :559, and _matmul_kb32l :635 with lin=True), _kernel_ki32,
@@ -122,6 +123,15 @@ template <> struct Mma<__nv_bfloat16> {
             : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
     }
+    // d = A * B, from a zero accumulator
+    static __device__ __forceinline__ void run0(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                uint32_t b1) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+            "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+    }
     static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
         __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
         return *reinterpret_cast<uint32_t*>(&v);
@@ -139,6 +149,15 @@ template <> struct Mma<__half> {
             "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
             : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+    }
+    // d = A * B, from a zero accumulator
+    static __device__ __forceinline__ void run0(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                                uint32_t b1) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+            "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+            : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
     }
     static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
         __half2 v = __floats2half2_rn(lo, hi);

@@ -17,13 +17,14 @@ else picks between them.
 
 Each library holds three kernels besides its SIMT ones (``csrc/wna16_gemm.cuh``:
 the split-K GEMV at M <= 16, the tile kernel above): :func:`route` sends bf16
-and f16 activations at M <= 16 whose group size 16 divides to the tensor-core
-decode GEMV (``csrc/wna16_gemv.cuh``, entry and launch count ``<name>_gemv``,
-one launch per call, its split-K combine folded into the last block, planned by
-:func:`gemv_plan`) and the other group sizes to the SIMT GEMV; above 16 rows
-bf16 and f16 at any group size take the tensor-core tile kernel
-(``csrc/wna16_mma.cuh``, ``<name>_mma``; :func:`tile_kernel`; its ``ANY_GS``
-instance where 16 does not divide the group size, whose stage
+and f16 activations at M <= 16 to the tensor-core decode GEMV
+(``csrc/wna16_gemv.cuh``, entry and launch count ``<name>_gemv``, one launch
+per call, its split-K combine folded into the last block, planned by
+:func:`gemv_plan`; its ``ANY_GS`` instance where 16 does not divide a group
+size of 16 rows or more), and below 16 rows per group to the SIMT GEMV; above
+16 rows bf16 and f16 at any group size take the tensor-core tile
+kernel (``csrc/wna16_mma.cuh``, ``<name>_mma``; :func:`tile_kernel`; its
+``ANY_GS`` instance where 16 does not divide the group size, whose stage
 :func:`mma_smem_bytes` sizes), and f32 activations take the SIMT kernels at
 any M (launch count ``<name>``). The choice is static, by dtype and shape; a
 launch that fails raises, whichever kernel it was.
@@ -33,18 +34,23 @@ is one library, ``wna16_gemm_t``, with an entry point per storage width; it
 replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 ``_kernel_kpair_t`` behind ``matmul_t_pallas``. ``w4a16_matmul_t`` /
 ``w8a16_matmul_t`` / ``w2a16_matmul_t`` launch it for CUDA tensors and run
-``wna16_matmul_t_ref`` for CPU tensors; :func:`tile_kernel` routes it: bf16
-and f16 cotangents to the tensor-core K10 at every M and group size (launch
-count ``wna16_gemm_t_mma``), f32 to the SIMT kernel (``wna16_gemm_t``).
+``wna16_matmul_t_ref`` for CPU tensors; :func:`t_route` routes it: bf16 and
+f16 cotangents of at most 16 rows to K10's decode regime
+(``csrc/wna16_gemv_t.cuh``, split N, launch count ``wna16_gemm_t_gemv``,
+planned by :func:`t_gemv_plan`), above 16 rows to the tensor-core tile K10
+(``wna16_gemm_t_mma``), at every group size; f32 to the SIMT kernel
+(``wna16_gemm_t``).
 
 K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 (``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
 ``_kernel_routed_kb32`` behind ``matmul_routed_pallas``.
 ``wna16_routed_matmul`` launches it for CUDA tensors and runs
 ``wna16_routed_matmul_ref`` for CPU tensors. :func:`routed_route` sends bf16
-and f16 pairs whose group size 16 divides to the expert-major tensor-core GEMV
+and f16 pairs (at most 16) to the expert-major tensor-core GEMV
 (``<name>_gemv``, planned by :func:`routed_plan`: each selected expert streams
-once per call), the rest to the SIMT routed kernel and its reduce.
+once per call; its ``ANY_GS`` instance where 16 does not divide a group size
+of 16 rows or more), f32, more pairs and group sizes below 16 to the SIMT
+routed kernel and its reduce.
 
 K1's fused RMS-norm prologue (``csrc/wna16_gemm.cuh``, the ``PRENORM``
 instances of its GEMVs and tile kernels, in ``w4a16_gemm`` only) replaces the
@@ -97,7 +103,7 @@ DECODE_THREADS = 128    # decode block size, 4 output columns per thread
 MAX_KCHUNK = 512        # K rows per split: bounds the shared x stage at 16 * 512 * 4 B
 MMA_SUFFIX = "_mma"     # entry point and launch-count key of a library's tensor-core kernel
 MMA_DTYPES = (torch.float16, torch.bfloat16)
-MMA_K = 16              # depth of one mma.sync step (the GEMVs need 16 | gs)
+MMA_K = 16              # depth of one mma.sync step (16 | gs: no step spans two groups)
 MMA_FW_ROWS = 64        # K rows of a tensor-core forward stage (csrc/wna16_mma.cuh: FW_BK)
 MMA_T_ROWS = 128        # K rows of a tensor-core K10 block (MMA_BN)
 MMA_SMEM_LIMIT = 226 * 1024   # dynamic shared memory a tile-kernel block may take (csrc)
@@ -110,6 +116,8 @@ GEMV_MAX_SPLITS = 32    # partials the last block adds, at most
 GEMV_WS_SHARE = 0.25    # f32 partials at most this share of the weight's bytes
 GEMV_X_SMEM = 32768     # bytes of a block's staged x [8 or 16, K chunk] the plan aims under
 GEMV_SMEM_LIMIT = 200 * 1024   # dynamic shared memory a GEMV block may take (csrc)
+T_GEMV_WORD_ROWS = 8    # K10's decode regime: word rows (8 * P output K rows) per block
+T_GEMV_BN = 128         # its N (the reduction) per stage
 NORM_SUFFIX = "_norm"   # entry point and launch-count key of a kernel's fused RMS-norm prologue
 PRENORM_MAX_M = 32      # the fused prologue takes fewer rows than this (the JAX kernel's assert)
 
@@ -196,18 +204,35 @@ def prenorm_eligible(m: int, k: int, group_size: int, bits: int,
 
 
 def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None) -> str:
-    """The tile kernel a product in ``dtype`` takes on the card: K10's at every
-    row count, K1/K4/K5's and K6's above 16 rows (:func:`route` decides below):
-    ``"mma"``, the tensor-core tile kernel, for bf16 and f16 at any group size
-    (its ``ANY_GS`` instance where 16 does not divide it); ``"simt"``, the
-    SIMT kernels, for f32 (the f32 model path and ``quantize``'s re-forward).
-    ``kernel`` ("mma" or "simt") names one instead, to time both on the same
-    operands; the tensor-core kernel raises for operands it does not take."""
+    """The tile kernel a product in ``dtype`` takes on the card: K1/K4/K5's
+    and K6's above 16 rows (:func:`route` decides below), K10's above 16 rows
+    (:func:`t_route`): ``"mma"``, the tensor-core tile kernel, for bf16 and
+    f16 at any group size (its ``ANY_GS`` instance where 16 does not divide
+    it); ``"simt"``, the SIMT kernels, for f32 (the f32 model path and
+    ``quantize``'s re-forward). ``kernel`` ("mma" or "simt") names one
+    instead, to time both on the same operands; the tensor-core kernel raises
+    for operands it does not take."""
     if kernel is not None:
         if kernel not in ("mma", "simt"):
             raise ValueError(f"kernel must be 'mma', 'simt' or None, got {kernel!r}")
         return kernel
     return "mma" if dtype in MMA_DTYPES else "simt"
+
+
+def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None) -> str:
+    """The kernel K10 takes on the card for a cotangent of ``m`` rows in
+    ``dtype``: ``"gemv"``, its split-N decode regime
+    (``csrc/wna16_gemv_t.cuh``, :func:`t_gemv_plan`), for bf16 and f16 at
+    ``m <= 16`` and any group size; above 16 rows :func:`tile_kernel`'s
+    choice (``"mma"`` for bf16 and f16, ``"simt"`` for f32, which takes the
+    SIMT K10 at every ``m``). ``kernel`` ("gemv", "mma" or "simt") names one
+    instead; the decode regime raises above 16 rows."""
+    _check_kernel(kernel)
+    if kernel is not None:
+        return kernel
+    if dtype in MMA_DTYPES and m <= DECODE_MAX_M:
+        return "gemv"
+    return tile_kernel(dtype)
 
 
 def mma_stage_groups(gs: int, rows: int) -> int:
@@ -255,11 +280,10 @@ def forced_kernel(kernel: Optional[str]):
     """Inside, every :func:`wna16_matmul`, :func:`w4a16_kb32l_matmul`,
     :func:`wna16_routed_matmul` and :func:`wna16_matmul_t` (K10, also over
     kb32l words) call without its own ``kernel`` takes ``kernel`` ("gemv",
-    "mma", "simt" or None; K10 takes "mma" and "simt" and keeps its own rule
-    under "gemv", which names no K10 kernel), so that a whole path (a model's
-    ``generate``, a training step) can be run through another kernel on the
-    same weights, as chip_smoke.py does to hold the tensor-core kernels against
-    the SIMT kernels and K6's ring."""
+    "mma", "simt" or None; K10 takes "gemv", its decode regime, too), so that
+    a whole path (a model's ``generate``, a training step) can be run through
+    another kernel on the same weights, as chip_smoke.py does to hold the
+    tensor-core kernels against the SIMT kernels and K6's ring."""
     _check_kernel(kernel)
     before = _forced[0]
     _forced[0] = kernel
@@ -277,19 +301,21 @@ def _check_kernel(kernel: Optional[str]) -> None:
 def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
     """The kernel K1/K4/K5's forward takes on the card for ``m`` rows with
     group size ``gs`` (in rows: ``K`` for one group): at ``m <= 16``
-    ``"gemv"``, the tensor-core decode GEMV, for bf16 and f16 with ``16 | gs``,
-    else ``"simt"`` (the SIMT GEMV: f32, and the group sizes 16 does not
-    divide through its per-code group instance); above 16 rows
-    :func:`tile_kernel`'s choice (``"mma"`` for bf16 and f16 at any group
-    size, ``"simt"`` for f32). ``kernel`` names one instead (the tensor-core
-    kernels raise for operands they do not take). K6 routes the same way (its
-    "simt" at ``m <= 16`` is its cp.async ring); K10 takes :func:`tile_kernel`
-    at every ``m``."""
+    ``"gemv"``, the tensor-core decode GEMV, for bf16 and f16 at a group size
+    of 16 rows or more (its ``ANY_GS`` instance where 16 does not divide
+    ``gs``), and ``"simt"``, the SIMT GEMV, for f32 and for group sizes below
+    16 (there every 16-row step spans groups, and the GEMV's exact masked MMA
+    sets, one per group, were slower than the SIMT GEMV on the H100:
+    PERF.md); above 16 rows :func:`tile_kernel`'s choice (``"mma"`` for bf16
+    and f16 at any group size, ``"simt"`` for f32). ``kernel`` names one
+    instead (the tensor-core kernels raise for operands they do not take). K6
+    routes the same way (its "simt" at ``m <= 16`` is its cp.async ring); K10
+    takes :func:`t_route`."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
     if m <= DECODE_MAX_M:
-        return "gemv" if dtype in MMA_DTYPES and gs % MMA_K == 0 else "simt"
+        return "gemv" if dtype in MMA_DTYPES and gs >= MMA_K else "simt"
     return tile_kernel(dtype)
 
 
@@ -305,13 +331,18 @@ def gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> d
     """The tensor-core GEMV's launch, from shapes alone (no value on the card,
     so the grid is fixed for a given layer and row count): column tiles of
     ``GEMV_BN``; K in ``splits`` chunks of ``kc`` rows, a whole number of
-    stages and, where that fits the staged x, of groups; blocks for at most
+    stages and, where 16 divides the group size and that fits the staged x, of
+    groups (the ``ANY_GS`` instance folds a group a split cuts in each of its
+    splits, so its splits are whole stages alone); blocks for at most
     about ``GEMV_BLOCKS_PER_SM`` per SM, at most ``GEMV_MAX_SPLITS`` splits,
     and f32 partials ``[splits, m, n]`` within ``GEMV_WS_SHARE`` of the
     weight's bytes (so they stay in L2). ``bits`` is the code width (3 rides in
-    nibbles). Also the stage's K rows, the blocks, the shared-memory, weight
-    and workspace bytes. K6 takes the plan of its true K and N: the kb32l
-    tiles' padding is never read."""
+    nibbles). Also the stage's K rows and group rows (``bk / 16`` where 16
+    divides the group size, else :func:`mma_stage_groups` of the stage, the
+    ``ANY_GS`` instance's), the blocks, the shared-memory, weight and
+    workspace bytes; NotImplementedError above :data:`GEMV_SMEM_LIMIT` (2-bit
+    codes at group size 1), where the wrappers launch nothing. K6 takes the
+    plan of its true K and N: the kb32l tiles' padding is never read."""
     return dict(_gemv_plan(k, n, m, group_size, bits, sms))
 
 
@@ -344,8 +375,8 @@ def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int,
     weight_bytes = active * (k * n * sb // 8 + 3 * -(-k // gs) * n)
     kc_max = max(bk, GEMV_X_SMEM // (2 * mt) // bk * bk)
     unit = math.lcm(gs, bk)
-    if unit > kc_max:               # a group longer than the x stage: whole stages
-        unit = bk
+    if unit > kc_max or gs % MMA_K:  # a group longer than the x stage, or the ANY_GS instance
+        unit = bk                    # (a group cut by a split folds in each): whole stages
     cap = max(1, int(GEMV_WS_SHARE * weight_bytes // (4 * m * n)))
     want = max(1, min(GEMV_BLOCKS_PER_SM * sms // (col_blocks * active), GEMV_MAX_SPLITS, cap))
     kc = -(-k // want // unit) * unit
@@ -354,14 +385,17 @@ def _gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int,
     if splits > min(cap, GEMV_MAX_SPLITS):   # the x stage grows rather than the workspace
         kc = -(-k // min(cap, GEMV_MAX_SPLITS) // unit) * unit
         splits = -(-k // kc)
-    stage_bytes = GEMV_STAGE_WORDS * (GEMV_BN + 16) * 4 + (bk // 16) * GEMV_BN * 3
+    groups = bk // 16 if gs % MMA_K == 0 else mma_stage_groups(gs, bk)
+    stage_bytes = GEMV_STAGE_WORDS * (GEMV_BN + 16) * 4 + groups * GEMV_BN * 3
+    if gs % MMA_K:                  # ANY_GS: each K row's group row, one byte per row
+        stage_bytes += bk
     stage_bytes = -(-stage_bytes // 16) * 16
     smem = GEMV_STAGES * stage_bytes + (xrows or mt) * (kc + 8) * 2
     if smem > GEMV_SMEM_LIMIT:
         raise NotImplementedError(f"the decode GEMV's plan for K={k}, N={n}, M={m}, group size "
                                   f"{gs} needs {smem} B of shared memory per block")
     return dict(kc=kc, splits=splits, col_blocks=col_blocks, blocks=col_blocks * splits * active,
-                stage_k=bk, stage_word_bytes=GEMV_STAGE_WORDS * GEMV_BN * 4,
+                stage_k=bk, stage_groups=groups, stage_word_bytes=GEMV_STAGE_WORDS * GEMV_BN * 4,
                 smem_bytes=smem, weight_bytes=weight_bytes,
                 workspace_bytes=4 * m * n * splits if splits > 1 else 0)
 
@@ -424,19 +458,20 @@ def _lib_gemv(name: str, norm: bool = False):
 
 
 def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int,
-                       library: Optional[str] = None) -> int:
+                       library: Optional[str] = None, group_size: int = 128) -> int:
     """How many GEMV blocks of ``bits``-bit codes (3 in nibbles) one SM holds
-    at once for ``m`` rows and a K chunk of ``kc`` rows (the CUDA occupancy
-    calculator over the kernel's registers and shared memory); ``library``
-    names K6's or K9's GEMV (``KB32L_KERNEL``, ``ROUTED_KERNEL``) in place of
-    K1/K4/K5's."""
+    at once for ``m`` rows, a K chunk of ``kc`` rows and ``group_size`` (the
+    ``ANY_GS`` instance and its larger stage where 16 does not divide it; the
+    CUDA occupancy calculator over the kernel's registers and shared memory);
+    ``library`` names K6's or K9's GEMV (``KB32L_KERNEL``, ``ROUTED_KERNEL``)
+    in place of K1/K4/K5's."""
     name = library or KERNEL_NAMES[storage_bits(bits)]
     fn = getattr(build.load(name), name + GEMV_SUFFIX + "_occupancy")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    build.check(name, fn(DTYPE_CODES[dtype], m, kc, ctypes.byref(blocks)))
+    build.check(name, fn(DTYPE_CODES[dtype], m, kc, group_size, ctypes.byref(blocks)))
     return blocks.value
 
 
@@ -587,29 +622,97 @@ def wna16_matmul_t_ref(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     return dx.to(g2d.dtype)
 
 
+def t_gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> dict:
+    """K10's decode regime's launch (``csrc/wna16_gemv_t.cuh``), from shapes
+    alone: blocks of ``T_GEMV_WORD_ROWS`` word rows (``kt`` = 8 * P output K
+    rows each, ``k_tiles`` of them); N in ``splits`` chunks of ``nc`` columns,
+    a whole number of ``T_GEMV_BN``-column stages; about ``GEMV_BLOCKS_PER_SM``
+    blocks per SM, at most ``GEMV_MAX_SPLITS`` splits, and the f32 partials
+    ``[splits, m, k]`` within ``GEMV_WS_SHARE`` of the weight's bytes. ``bits``
+    is the code width (3 rides in nibbles). Also the stage's group rows
+    (:func:`mma_stage_groups` of a block's K rows), the blocks, the
+    shared-memory, weight and workspace bytes; NotImplementedError above
+    :data:`GEMV_SMEM_LIMIT` (2-bit codes at group size 1)."""
+    return dict(_t_gemv_plan(k, n, m, group_size, bits, sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _t_gemv_plan(k: int, n: int, m: int, group_size: int, bits: int, sms: int) -> dict:
+    sb = storage_bits(bits)
+    gs = k if group_size == -1 else group_size
+    kt = T_GEMV_WORD_ROWS * 32 // sb
+    k_tiles = -(-k // kt)
+    mt = 8 if m <= 8 else 16
+    weight_bytes = k * n * sb // 8 + 3 * -(-k // gs) * n
+    cap = max(1, int(GEMV_WS_SHARE * weight_bytes // (4 * m * k)))
+    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // k_tiles, GEMV_MAX_SPLITS, cap))
+    nc = -(-n // want // T_GEMV_BN) * T_GEMV_BN
+    splits = -(-n // nc)
+    groups = mma_stage_groups(gs, kt)
+    ld = T_GEMV_BN + 16
+    stage = T_GEMV_WORD_ROWS * ld * 4 + mt * ld * 2 + groups * T_GEMV_BN * 3
+    smem = max(GEMV_STAGES * (-(-stage // 16) * 16), 4 * mt * (kt + 4) * 4)
+    if smem > GEMV_SMEM_LIMIT:
+        raise NotImplementedError(f"K10's decode regime for K={k}, N={n}, M={m}, group size {gs} "
+                                  f"needs {smem} B of shared memory per block")
+    return dict(kt=kt, k_tiles=k_tiles, nc=nc, splits=splits, blocks=k_tiles * splits,
+                stage_n=T_GEMV_BN, stage_groups=groups, smem_bytes=smem,
+                weight_bytes=weight_bytes, workspace_bytes=4 * m * k * splits if splits > 1 else 0)
+
+
 def _t_kernel(kernel: Optional[str]) -> Optional[str]:
     """K10's kernel for a call: its own ``kernel``, else the one
-    :func:`forced_kernel` sets where that names a K10 kernel ("mma", "simt")."""
-    if kernel is not None:
-        return kernel
-    return _forced[0] if _forced[0] in ("mma", "simt") else None
+    :func:`forced_kernel` sets."""
+    return kernel if kernel is not None else _forced[0]
 
 
 def _lib_t(bits: int, route: str = "simt"):
-    entry = T_ENTRIES[bits] + (MMA_SUFFIX if route == "mma" else "")
-    fn = getattr(build.load(T_KERNEL), entry)
+    """K10's entry of ``bits``-bit storage on ``route``: ``<entry>`` (SIMT) and
+    ``<entry>_mma`` ``(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N,
+    gs, stream)``, ``<entry>_gemv`` with ``ws, counters`` after ``dx`` and
+    ``nc, splits`` after ``gs``."""
+    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX}[route]
+    fn = getattr(build.load(T_KERNEL), T_ENTRIES[bits] + suffix)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ptrs = 8 if route == "gemv" else 6
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * (7 if route == "gemv" else 5)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def _lib_t_kb32l(route: str = "simt"):
-    fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY + (MMA_SUFFIX if route == "mma" else ""))
+    """K10's entry over kb32l words: as :func:`_lib_t`'s with ``n_pad`` before
+    ``gs``."""
+    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX}[route]
+    fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY + suffix)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ptrs = 8 if route == "gemv" else 6
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * (8 if route == "gemv" else 6)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_t(route: str, entry, g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs, bits,
+              *n_pad) -> None:
+    """Launch K10 on ``route`` (``entry`` from :func:`_lib_t` or
+    :func:`_lib_t_kb32l`, whose ``n_pad`` follows ``n``) and count it."""
+    tail = ()
+    if route == "gemv":
+        sms = torch.cuda.get_device_properties(g2d.device).multi_processor_count
+        plan = t_gemv_plan(k, n, m, gs, bits, sms)
+        ws, counters = build.split_scratch(T_KERNEL + GEMV_SUFFIX, g2d.device,
+                                           plan["splits"] * m * k, plan["k_tiles"])
+        tail = (_ptr(ws), _ptr(counters))
+    elif route == "mma":
+        mma_smem_bytes(bits, gs, transpose=True)
+    args = [_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales), _ptr(zeros), _ptr(dx), *tail,
+            DTYPE_CODES[g2d.dtype], m, k, n, *n_pad, gs]
+    if route == "gemv":
+        args += [plan["nc"], plan["splits"]]
+    build.check(T_KERNEL, entry(*args, _stream(g2d)))
+    build.launches[T_KERNEL + {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX}[route]] += 1
 
 
 def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
@@ -629,12 +732,9 @@ def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = tile_kernel(g2d.dtype, _t_kernel(kernel))
-    code = _lib_t_kb32l(route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
-                               _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n,
-                               scales.shape[1], gs, _stream(g2d))
-    build.check(T_KERNEL, code)
-    build.launches[T_KERNEL + (MMA_SUFFIX if route == "mma" else "")] += 1
+    route = t_route(g2d.dtype, m, _t_kernel(kernel))
+    _launch_t(route, _lib_t_kb32l(route), g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs, 4,
+              scales.shape[1])
     return dx
 
 
@@ -647,9 +747,9 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     ``kperm[k]`` takes sorted row ``k``; ``kperm`` must be a permutation, as
     ``quantlinear.group_order`` makes it). 3-D ``qweight`` is K6's kb32l
     tiles (4-bit), whose padding hides K: ``k`` gives it. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel :func:`tile_kernel`
-    names (``kernel``, or the one :func:`forced_kernel` sets, passed on to
-    it), or raises."""
+    the plain version; a CUDA tensor launches the kernel :func:`t_route`
+    names for its row count (``kernel``, or the one :func:`forced_kernel`
+    sets, passed on to it), or raises."""
     if bits not in T_ENTRIES:
         raise ValueError(f"words hold 2-, 4- or 8-bit codes, got bits={bits}")
     if qweight.dim() == 3:
@@ -668,14 +768,9 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = tile_kernel(g2d.dtype, _t_kernel(kernel))
-    if route == "mma":
-        mma_smem_bytes(bits, gs, transpose=True)
-    code = _lib_t(bits, route)(_ptr(g2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
-                               _ptr(zeros), _ptr(dx), DTYPE_CODES[g2d.dtype], m, k, n, gs,
-                               _stream(g2d))
-    build.check(T_KERNEL, code)
-    build.launches[T_KERNEL + (MMA_SUFFIX if route == "mma" else "")] += 1
+    route = t_route(g2d.dtype, m, _t_kernel(kernel))
+    _launch_t(route, _lib_t(bits, route), g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs,
+              bits)
     return dx
 
 
@@ -928,15 +1023,16 @@ def check_routed_errors(device) -> None:
 def routed_route(dtype: torch.dtype, p: int, gs: int, kernel: Optional[str] = None) -> str:
     """The kernel K9 takes on the card for ``p`` pairs with group size ``gs``
     (in rows): ``"gemv"``, the expert-major tensor-core GEMV, for bf16 and
-    f16 with ``16 | gs`` (at most ``ROUTED_GEMV_MAX_P`` pairs: the routed path
-    sends at most E, 8 for Mixtral); ``"simt"``, the SIMT routed kernel and
-    its reduce, for f32, the group sizes 16 does not divide and more pairs.
-    ``kernel`` ("gemv" or "simt") names one instead."""
+    f16 at a group size of 16 rows or more (its ``ANY_GS`` instance where 16
+    does not divide ``gs``) and at most ``ROUTED_GEMV_MAX_P`` pairs (the
+    routed path sends at most E, 8 for Mixtral); ``"simt"``, the SIMT routed
+    kernel and its reduce, for f32, group sizes below 16 (as :func:`route`)
+    and more pairs. ``kernel`` ("gemv" or "simt") names one instead."""
     if kernel not in (None, "gemv", "simt"):
         raise ValueError(f"{ROUTED_KERNEL} has the kernels 'gemv' and 'simt', got {kernel!r}")
     if kernel is not None:
         return kernel
-    if dtype in MMA_DTYPES and gs % MMA_K == 0 and p <= ROUTED_GEMV_MAX_P:
+    if dtype in MMA_DTYPES and gs >= MMA_K and p <= ROUTED_GEMV_MAX_P:
         return "gemv"
     return "simt"
 
@@ -1087,7 +1183,8 @@ __all__ = [
     "wna16_matmul_t_ref", "w4a16_matmul_t", "w8a16_matmul_t", "w2a16_matmul_t",
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
-    "split_k", "tile_kernel", "mma_stage_groups", "mma_smem_bytes", "route", "gemv_plan",
+    "split_k", "tile_kernel", "t_route", "mma_stage_groups", "mma_smem_bytes", "route",
+    "gemv_plan", "t_gemv_plan",
     "gemv_blocks_per_sm", "forced_kernel",
     "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "NORM_SUFFIX", "rms_apply", "prenorm_eligible", "ROUTED_KERNEL", "wna16_routed_matmul",
     "wna16_routed_matmul_ref", "routed_route", "routed_plan", "routed_slices",

@@ -86,8 +86,8 @@ def variants(src: str) -> dict:
         "no x stage": (nox(src), 64),
         "no combine": (nocombine(src), 64),
         "stream only": (stream, 64),
-        "one MMA chain": (sub(src, "part[ks & 1]);\n            left -= BK / 16;",
-                              "part[0]);\n            left -= BK / 16;"), 64),
+        "one MMA chain": (sub(src, "part[ks & 1]);\n                left -= BK / 16;",
+                              "part[0]);\n                left -= BK / 16;"), 64),
         "3 stages": (sub(src, "constexpr int GV_STAGES = 4;", "constexpr int GV_STAGES = 3;"), 64),
     }
 

@@ -61,7 +61,7 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    after): 512 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
    ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
    norm's), a profiled 33-token window, the tokens equal to the default run's;
-   beam-4 runs of 64 tokens with the switch off, on, on and off (host time in
+   beam-4 runs of 48 tokens with the switch off, on, on and off (host time in
    turns; each repeats its tokens; the fused tokens against the unfused ones);
    a bf16 batch of 24 prompts whose decode steps take the tile kernel's
    prologue.
@@ -78,23 +78,30 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    desc_act case with a bias per width; at M <= 16 the tensor-core GEMV,
    bit-equal on a second call, timed beside the SIMT GEMV. The rest classes
    (group sizes 16 does not divide, words straddling groups, a partial last
-   group) at full width, one layer per storage width, through the per-code
-   SIMT GEMV (M = 1), the tensor-core tile kernel's ANY_GS instance (M = 128)
-   and the tensor-core K10's (M = 16 and 128), bf16 (each bit-equal on a
-   second call and faster than the SIMT kernel timed beside it on the same
-   weights, but the desc_act g172 forward) and f32 (the SIMT kernels); ptxas'
-   registers and spills of every tensor-core instance, the 12 ANY_GS ones too.
+   group) at full width, one layer per storage width, through the tensor-core
+   GEMV's ANY_GS instance (M = 1, 4 and 16), the tensor-core tile kernel's
+   (M = 128 and 2048), K10's decode regime (M = 16) and the tensor-core K10's
+   ANY_GS instance (M = 128 and 2048), bf16 (each bit-equal on a second call
+   and faster than the kernel it replaced, timed beside it on the same
+   weights: the SIMT kernel, the tile K10 at M = 16; but the desc_act g172
+   forward at M >= 4) and f32 (the SIMT kernels); ptxas' registers and spills
+   of every tensor-core instance, the 12 ANY_GS ones too; K9 at 4-bit gs 12
+   and 100 (Mixtral's gate/up shape, P = 2 and 8) through the routed GEMV's
+   ANY_GS instance beside the SIMT routed kernel.
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
    full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
    equal tokens, launch counts (K5, K1, K4) set to 0 before and read after;
    a batch-2 run whose 32-row prefill takes each width's tensor-core kernel.
    Then the rest-class path: an 8-layer 4-bit group-size-100 checkpoint at
    full width, a batch-2 greedy generate of 16 tokens (its 32-row prefill
-   through the tensor-core tile kernel, exactly 7 x 8 launches; its prefill
-   logits within 5e-2 of the SIMT route's, ``gemm.forced_kernel("simt")``),
-   and two LoRA steps of 4 x 512 tokens through the tensor-core kernels only
-   (step 1's loss and adapter gradients within 5e-2 of the SIMT route's; a
-   profiled step through each route).
+   through the tensor-core tile kernel, exactly 7 x 8 launches, its decode
+   steps through the tensor-core GEMV, exactly 7 x 8 x 15; its prefill and
+   first decode logits within 5e-2 of the SIMT route's,
+   ``gemm.forced_kernel("simt")``), two LoRA steps of 4 x 512 tokens through
+   the tensor-core kernels only (step 1's loss and adapter gradients within
+   5e-2 of the SIMT route's; a profiled step through each route) and one of
+   1 x 16 tokens through the GEMV and K10's decode regime (exact counts, its
+   loss within 5e-2 of the SIMT route's).
 11. Quantize on the card at full width: a random fp16 1-layer checkpoint,
    ``from_pretrained``, ``quantize`` with 64 calibration sequences of 256
    tokens for 4-bit g128, 4-bit g128 desc_act, 2-, 3- and 8-bit; seconds per
@@ -107,8 +114,10 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    {10 (an adaption prompt's rows), 16 (a decode-sized batch), 17, 128, 2048
    (a 4 x 512 batch)}, 2-, 3-, 4- and 8-bit g128 plus a desc_act and a
    group-size-32 case, bf16 (timed) and f32; ``torch.matmul(g, W_bf16.T)`` on a
-   pre-dequantized weight is the library yardstick. bf16 takes the tensor-core
-   K10 at every M; the 4-bit rows also hold and time the SIMT K10.
+   pre-dequantized weight is the library yardstick. bf16 takes K10's split-N
+   decode regime at M = 10 and 16 (bit-equal on a second call, with its
+   plan) and the tensor-core tile K10 above; the 4-bit rows also hold and
+   time the SIMT K10 and, at M <= 16, the tile K10, both slower.
 13. Training on the main-path model (full depth and width, 4-bit g128):
    ``utils.peft.get_gptq_peft_model`` with LoRA at the example's defaults (r 16,
    alpha 32, q_proj and v_proj), 8 ``torch.optim.AdamW`` steps at lr 1e-3 on
@@ -138,8 +147,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint (all 32
    layers, about 24.6 GB) under ``build/chip_smoke/``, ``from_quantized`` on the
    default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
-   decode of 128 tokens from a 16-token prompt, then 32 again (equal to the
-   first 32; launch counts set to 0 just before the first and read just after: K9's GEMV 96, no
+   decode of 128 tokens from a 16-token prompt, then 16 again (equal to the
+   first 16; launch counts set to 0 just before the first and read just after: K9's GEMV 96, no
    SIMT routed kernel, K2 32, K1's GEMV 128 per decode token), a profile by
    kernel family through both routes (no reduce, at most one K1 and one K9
    kernel per call on the new one), and 64 tokens of beam 4 over the paged bf16
@@ -162,8 +171,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
    model; 512 greedy tokens (counts set to 0 just before and read just after:
-   K6's GEMV 7 x 32 per token, no ring, no K1), then 128 again, equal to the
-   first 128; the share of tokens equal to the main path's; a profile of 17
+   K6's GEMV 7 x 32 per token, no ring, no K1), then 32 again, equal to the
+   first 32; the share of tokens equal to the main path's; a profile of 17
    tokens through both routes (the ring's beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
    the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
@@ -282,11 +291,11 @@ PRENORM_SHAPES = {"qkv": (4096, 4096, 3), "gate_up": (4096, 11008, 2)}
 PRENORM_EPS = 1e-5
 PRENORM_F32_REL_TOL = 1e-5
 NORM_KEY = {"gemv": "w4a16_gemm_gemv_norm", "mma": "w4a16_gemm_mma_norm", "simt": "w4a16_gemm_norm"}
-FUSED_AB_TOKENS = 64          # beam-4 runs off, on, on, off: host time in turns
+FUSED_AB_TOKENS = 48          # beam-4 runs off, on, on, off: host time in turns
 FUSED_BATCH, FUSED_BATCH_TOKENS = 24, 8   # a bf16 batch whose decode steps take the mma prologue
 FUSED_CUT_TOKENS = 4          # f32 cut with the switch on: greedy tokens at batch 1 and 24
-REPEAT_TOKENS = 64            # the kb32l path's repeat, held to its 512-token run's first tokens
-MIXTRAL_REPEAT_TOKENS = 32    # the Mixtral path's repeat, likewise
+REPEAT_TOKENS = 32            # the kb32l path's repeat, held to its 512-token run's first tokens
+MIXTRAL_REPEAT_TOKENS = 16    # the Mixtral path's repeat, likewise
 KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
 
 MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the tensor-core tile kernels
@@ -792,21 +801,27 @@ REST_LAYERS = ((4, "qkvo", 100, False), (3, "qkvo", 12, False), (2, "qkvo", 24, 
 
 def phase_rest(torch, np, timer) -> list:
     """The rest classes on the card: each layer through the decode regime
-    (M = 1, the per-code group GEMV), the tile regime (M = 128 and a training
-    step's 2048, the tensor-core tile kernel's ANY_GS instance in bf16) and
-    K10 at M = 16, 128 and 2048 (the tensor-core K10's ANY_GS instance in
-    bf16), bf16 (timed) and f32
-    (the SIMT kernels), against the plain versions; each tensor-core case
-    bit-equal on a second call and timed beside the SIMT kernel on the same
-    weights (``kernel="simt"``), which it must beat but in the desc_act g172
-    forward (its in-kernel gather of x; recorded)."""
+    (M = 1, 4 and 16: in bf16 the tensor-core GEMV's ANY_GS instance from
+    group size 16 on, the SIMT GEMV below), the tile regime (M = 128 and a
+    training step's 2048, the tensor-core tile kernel's ANY_GS instance in
+    bf16) and K10 at M = 16 (its split-N decode regime in bf16), 128 and 2048
+    (the tensor-core K10's ANY_GS instance), bf16 (timed) and f32 (the SIMT
+    kernels), against the plain versions; each case bit-equal on a second call
+    and timed beside another kernel on the same weights. A tensor-core case
+    must beat the kernel it replaced: the SIMT kernel (``kernel="simt"``; but
+    the desc_act g172 forward at M >= 4, the GEMV's wide gather of x, and at
+    M = 128, the tile kernel's in-kernel gather: recorded), and for K10 at
+    M = 16 the tile K10 (``kernel="mma"``). Below group size 16 the decode
+    regime's SIMT GEMV is timed beside the GEMV's exact ANY_GS instance
+    (``kernel="gemv"``, also held to the plain version and bit-equal), the
+    design it keeps these group sizes from: recorded, not required."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
     rng = np.random.default_rng(7)
     gen = torch.Generator(device="cuda").manual_seed(7)
     shapes = {name: (k, n) for name, (k, n, _) in LAYER_SHAPES.items()}
-    rows = []
+    rows, slower = [], []
     for bits, name, gs, desc_act in REST_LAYERS:
         k, n = shapes[name]
         kernel = KERNEL_OF_BITS[bits]
@@ -814,12 +829,12 @@ def phase_rest(torch, np, timer) -> list:
         layer = _random_layer(qlin, rng, k, n, bits, gs, desc_act, torch.bfloat16)
         w = qlin.logical_weight(layer, torch.bfloat16)
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
-        for m, what in ((1, "forward"), (128, "forward"), (TRAIN_M, "forward"), (16, "K10"),
-                        (128, "K10"), (TRAIN_M, "K10")):
+        for m, what in ((1, "forward"), (BEAMS, "forward"), (16, "forward"), (128, "forward"),
+                        (TRAIN_M, "forward"), (16, "K10"), (128, "K10"), (TRAIN_M, "K10")):
             x = torch.randn((m, n if what == "K10" else k), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             if what == "K10":
-                key = gemm.T_KERNEL + ROUTE_SUFFIX[gemm.tile_kernel(x.dtype)]
+                route = gemm.t_route(x.dtype, m)
 
                 def run(v, kern=None):
                     return gemm.wna16_matmul_t(v, layer.qweight, layer.scales, layer.zeros,
@@ -832,7 +847,7 @@ def phase_rest(torch, np, timer) -> list:
                 def lib():
                     return torch.matmul(x, w.t())
             else:
-                key = kernel + ROUTE_SUFFIX[gemm.route(x.dtype, m, gs)]
+                route = gemm.route(x.dtype, m, gs)
 
                 def run(v, kern=None):
                     return gemm.wna16_matmul(v, layer.qweight, layer.scales, layer.zeros,
@@ -844,10 +859,10 @@ def phase_rest(torch, np, timer) -> list:
                 def lib():
                     return torch.matmul(x, w)
             base = gemm.T_KERNEL if what == "K10" else kernel
+            key = base + ROUTE_SUFFIX[route]
             keys = [base + suffix for suffix in ROUTE_SUFFIX.values()]
-            tensor_cores = key.endswith(gemm.MMA_SUFFIX)
-            check(tensor_cores == (m > 16 or what == "K10"),
-                  f"rest class {case} {what} M={m}: bf16 routes to {key}")
+            want = "mma" if m > 16 else "gemv" if what == "K10" or gs >= 16 else "simt"
+            check(route == want, f"rest class {case} {what} M={m}: bf16 routes to {key}")
             before = dict(build.launches)
             y = run(x)
             check(all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
@@ -869,22 +884,26 @@ def phase_rest(torch, np, timer) -> list:
                                       f"plain| = {err:.3e} > {tol} * {scale:.3e}")
             check(err32 <= F32_ABS_TOL * max(1.0, scale), f"rest class {case} {what} M={m} f32: "
                                                           f"{err32:.3e} > {F32_ABS_TOL}")
+            check(torch.equal(run(x), y), f"rest class {case} {what} M={m}: a second call differs")
             iters = 5 if m == TRAIN_M else 10
             ms = timer.ms(lambda: run(x), iters=iters)
-            simt = {}
-            if tensor_cores:   # bit-equal again, and the SIMT kernel on the same weights
-                check(torch.equal(run(x), y), f"rest class {case} {what} M={m}: a second call "
-                                              "differs")
-                ys = run(x, "simt")
-                torch.cuda.synchronize()
-                serr = (ys.float() - ref.float()).abs().max().item()
-                check(serr <= tol * scale, f"rest class {case} {what} M={m} SIMT: max |kernel - "
-                                           f"plain| = {serr:.3e} > {tol} * {scale:.3e}")
-                simt = dict(simt_max_abs_err=serr,
-                            simt_ms=timer.ms(lambda: run(x, "simt"), iters=iters, warmup=1))
-                check(ms < simt["simt_ms"] or (desc_act and what == "forward"),
-                      f"rest class {case} {what} M={m}: the tensor-core kernel {ms:.4f} ms is "
-                      f"not faster than the SIMT kernel's {simt['simt_ms']:.4f} ms")
+            # the kernel this one replaced on the same weights: K10's tile kernel at M <= 16,
+            # else the SIMT kernel; beside the SIMT GEMV (below gs 16) the exact ANY_GS GEMV
+            old = "mma" if what == "K10" and route == "gemv" else "gemv" if route == "simt" \
+                else "simt"
+            ys = run(x, old)
+            torch.cuda.synchronize()
+            serr = (ys.float() - ref.float()).abs().max().item()
+            check(serr <= tol * scale, f"rest class {case} {what} M={m} {old}: max |kernel - "
+                                       f"plain| = {serr:.3e} > {tol} * {scale:.3e}")
+            if old == "gemv":
+                check(torch.equal(run(x, old), ys),
+                      f"rest class {case} {what} M={m} gemv: a second call differs")
+            old_ms = timer.ms(lambda: run(x, old), iters=iters, warmup=1)
+            beside = {f"{old}_max_abs_err": serr, f"{old}_ms": old_ms}
+            if route != "simt" and not (ms < old_ms or (desc_act and what == "forward" and m > 1)):
+                slower.append(f"{case} {what} M={m}: the tensor-core kernel {ms:.4f} ms, the "
+                              f"{old} kernel {old_ms:.4f} ms")
             plain_ms = timer.ms(lambda: plain(x), iters=3, warmup=1)
             lib_ms = timer.ms(lib, iters=iters)
             b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
@@ -892,15 +911,15 @@ def phase_rest(torch, np, timer) -> list:
             rows.append(dict(kernel=key, bits=bits, case=name, what=what, K=k, N=n, M=m,
                              group_size=gs, desc_act=desc_act, max_abs_err=err,
                              max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **simt))
-            print(f"rest class {key} {case:22s} {what:7s} K={k:5d} N={n:5d} M={m:3d}  bf16 err "
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **beside))
+            print(f"rest class {key} {case:22s} {what:7s} K={k:5d} N={n:5d} M={m:4d}  bf16 err "
                   f"{err:.3e} (tol {tol * scale:.3e})  f32 err {err32:.3e} (tol "
-                  f"{F32_ABS_TOL})  kernel {ms:.4f} ms"
-                  + (f"  SIMT {simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
-                     if simt else "")
-                  + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
-                    f"{b_ms:.4f} ms ({b_by})", flush=True)
+                  f"{F32_ABS_TOL})  kernel {ms:.4f} ms  {old} {old_ms:.4f} ms (err {serr:.3e})"
+                  f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
+    # every case timed first, so that all of them are on record
+    check(not slower, "rest classes slower than the kernel they replaced: " + "; ".join(slower))
     return rows
 
 
@@ -943,18 +962,21 @@ def mma_ptxas() -> list:
 
 def gemv_ptxas() -> list:
     """ptxas' registers and spills of every tensor-core GEMV instance (bits x
-    activation type x 8 or 16 rows over GPTQ words; K6's over kb32l tiles and
-    K9's routed one, activation type x 8 or 16 rows); a spill fails the run."""
+    activation type x 8 or 16 rows over GPTQ words, with and without ANY_GS;
+    K6's over kb32l tiles and K9's routed one, activation type x 8 or 16 rows;
+    K10's decode regime, bits x activation type x 8 or 16 rows, and over kb32l
+    words); a spill fails the run."""
     out = []
     for name, key in (("w4a16_gemm", "wna16_gemv_kernel"), ("w8a16_gemm", "wna16_gemv_kernel"),
                       ("w2a16_gemm", "wna16_gemv_kernel"),
                       ("w4a16_kb32l_gemm", "kb32l_gemv_kernel"),
-                      ("w4a16_routed_gemm", "routed_gemv_kernel")):
+                      ("w4a16_routed_gemm", "routed_gemv_kernel"),
+                      ("wna16_gemm_t", "t_gemv_kernel")):
         for r in ptxas_report(name, key):
             r.update(library=name)
             out.append(r)
-    # 20 plus K1's 4 fused-prologue instances
-    check(len(out) == 24, f"{len(out)} GEMV instances in the ptxas logs, want 24")
+    # 20 plus K1's 4 fused-prologue instances, 16 ANY_GS ones (K1/K4/K5 and K9) and K10's 16
+    check(len(out) == 56, f"{len(out)} GEMV instances in the ptxas logs, want 56")
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
@@ -965,10 +987,11 @@ def gemv_ptxas() -> list:
 
 def phase_k10(torch, np, timer) -> list:
     """K10 against its plain version at the shapes of a training step; bf16
-    takes the tensor-core kernel at every M (10 and 16 too), f32 the SIMT
-    kernel; for the 4-bit rows (g128, desc_act, g32) the SIMT kernel beside
-    the tensor-core one on the same weights, both held to K10_REL_TOL and
-    timed."""
+    takes its split-N decode regime at M = 10 and 16 (bit-equal on a second
+    call, with its plan) and the tensor-core tile kernel above, f32 the SIMT
+    kernel; for the 4-bit rows (g128, desc_act, g32) the SIMT kernel, and at
+    M <= 16 the tile K10, beside it on the same weights, all held to
+    K10_REL_TOL and timed; the decode regime must beat both."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -985,11 +1008,11 @@ def phase_k10(torch, np, timer) -> list:
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
         for m in (10, 16, 17, 128, TRAIN_M):
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-            route = gemm.tile_kernel(g.dtype)
-            key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
+            route = gemm.t_route(g.dtype, m)
+            key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
             before = build.launches[key]
             dx = qlin.matmul_t(g, layer)
-            check(route == "mma" and build.launches[key] == before + 1,
+            check(route == ("gemv" if m <= 16 else "mma") and build.launches[key] == before + 1,
                   f"K10 {case} M={m}: {key} not launched")
             ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                           layer.kperm, gs, qlin.storage_bits(bits))
@@ -1008,6 +1031,23 @@ def phase_k10(torch, np, timer) -> list:
                   f"K10 {case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
             iters = 5 if m == TRAIN_M else 10
             simt = {}
+            if route == "gemv":   # bit-equal again, its plan
+                check(torch.equal(qlin.matmul_t(g, layer), dx), f"K10 {case} M={m}: a second "
+                                                                 "call differs")
+                simt["plan"] = gemm.t_gemv_plan(
+                    k, n, m, gs, bits, torch.cuda.get_device_properties(0).multi_processor_count)
+            if bits == 4 and route == "gemv":   # the tile K10 on the same weights
+                def tile_t():
+                    return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
+                                               layer.kperm, gs, 4, kernel="mma")
+                dxm = tile_t()
+                torch.cuda.synchronize()
+                merr = (dxm.float() - ref.float()).abs().max().item()
+                check(merr <= K10_REL_TOL * scale, f"K10 tile {case} M={m}: max |kernel - "
+                                                   f"plain| = {merr:.3e} > {K10_REL_TOL} * "
+                                                   f"{scale:.3e}")
+                simt.update(mma_max_abs_err=merr,
+                            mma_ms=timer.ms(tile_t, iters=iters, warmup=1))
             if bits == 4:   # the SIMT kernel on the same weights
                 def simt_t():
                     return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
@@ -1018,13 +1058,14 @@ def phase_k10(torch, np, timer) -> list:
                 check(serr <= K10_REL_TOL * scale, f"K10 SIMT {case} M={m}: max |kernel - "
                                                    f"plain| = {serr:.3e} > {K10_REL_TOL} * "
                                                    f"{scale:.3e}")
-                simt = dict(simt_max_abs_err=serr,
+                simt.update(simt_max_abs_err=serr,
                             simt_ms=timer.ms(simt_t, iters=iters, warmup=1))
             ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=iters, warmup=1)
-            if m <= 16 and bits == 4 and name == "qkvo" and gs == 128 and not desc_act:
-                check(ms < simt["simt_ms"], f"K10 {case} M={m}: the tensor-core kernel {ms:.4f} "
-                                            f"ms is not faster than the SIMT kernel's "
-                                            f"{simt['simt_ms']:.4f} ms")
+            if route == "gemv" and bits == 4:
+                check(ms < min(simt["simt_ms"], simt["mma_ms"]),
+                      f"K10 {case} M={m}: the decode regime {ms:.4f} ms is not faster than the "
+                      f"tile K10's {simt['mma_ms']:.4f} ms and the SIMT K10's "
+                      f"{simt['simt_ms']:.4f} ms")
             plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(
                 g, layer.qweight, layer.scales, layer.zeros, layer.kperm, gs,
                 qlin.storage_bits(bits)), iters=3, warmup=1)
@@ -1039,20 +1080,23 @@ def phase_k10(torch, np, timer) -> list:
             print(f"K10 {case:24s} K={k:5d} N={n:5d} M={m:4d} {route:4s}  bf16 err {err:.3e} "
                   f"(tol {K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
                   f"kernel {ms:.4f} ms ({2.0 * m * k * n / ms / 1e9:.2f} TFLOP/s)"
+                  + (f"  tile {simt['mma_ms']:.4f} ms (err {simt['mma_max_abs_err']:.3e})"
+                     if "mma_ms" in simt else "")
                   + (f"  SIMT {simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
-                     if simt else "")
+                     if "simt_ms" in simt else "")
                   + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
-                    f"{b_ms:.4f} ms ({b_by})", flush=True)
+                    f"{b_ms:.4f} ms ({b_by})" + (f"  plan {simt['plan']}" if "plan" in simt else ""),
+                  flush=True)
         del layer, w
     # K10 over K6's kb32l words (a backward through a kb32l layer)
     k, n = shapes["gate_up"]
     layer = _random_layer(qlin, rng, k, n, 4, 128, False, torch.bfloat16, layout="kb32l")
     words, s, z = qlin.gptq_tensors(layer)
     w = qlin.logical_weight(layer, torch.bfloat16)
-    for m in (64, TRAIN_M):
+    for m in (16, 64, TRAIN_M):
         g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        route = gemm.tile_kernel(g.dtype)
-        key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if route == "mma" else "")
+        route = gemm.t_route(g.dtype, m)
+        key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
         before = build.launches[key]
         dx = qlin.matmul_t(g, layer)
         check(build.launches[key] == before + 1, f"K10 kb32l M={m}: {key} not launched")
@@ -1173,6 +1217,97 @@ def phase_k9(torch, np, timer) -> list:
                   flush=True)
         if name == "gate_up":
             refuse_bad_experts(torch, gemm, sql, gen)
+        del sql, dense
+        torch.cuda.empty_cache()
+    return rows
+
+
+K9_REST_GROUP_SIZES = (12, 100)   # K9's rest classes held on the card: 16 does not divide them
+
+
+def phase_k9_rest(torch, np, timer) -> list:
+    """K9 at the rest classes (4-bit gs 12 and 100: words straddling groups, a
+    partial last group) at Mixtral-8x7B's gate/up expert shape, E = 8, P = 2
+    and 8: bf16 through the route's kernel (``gemm.routed_route``: the
+    expert-major GEMV's ANY_GS instance at gs 100, one launch of
+    ``w4a16_routed_gemm_gemv``; the SIMT routed kernel below group size 16)
+    against the plain version, the GEMV and the SIMT routed kernel each asked
+    for (``kernel=``) on the same operands, held to the plain version, the
+    GEMV bit-equal on a second call, and timed beside P ``torch.matmul`` calls
+    on pre-dequantized bf16 experts and the bound (each selected expert's
+    bytes once); f32 through the SIMT routed kernel."""
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    rng = np.random.default_rng(12)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k, n, _ = MIXTRAL_SHAPES["gate_up"]
+    rows = []
+    for gs in K9_REST_GROUP_SIZES:
+        sql = qlin.stack_experts([_random_layer(qlin, rng, k, n, 4, gs, False, torch.bfloat16)
+                                  for _ in range(8)])
+        dense = [qlin.logical_weight(sql.expert(e), torch.bfloat16) for e in range(8)]
+        per_expert = nbytes(sql.qweight[0], sql.scales[0], sql.zeros[0])
+        for p in (2, 8):
+            ids = K9_SELS[p]
+            sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
+            x = torch.randn((p, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            route = gemm.routed_route(x.dtype, p, gs)
+            check(route == ("gemv" if gs >= 16 else "simt"), f"K9 g{gs} P={p}: bf16 routes to "
+                                                               f"{route}")
+            key = gemm.ROUTED_KERNEL + ROUTE_SUFFIX[route]
+            keys = (gemm.ROUTED_KERNEL, gemm.ROUTED_KERNEL + gemm.GEMV_SUFFIX)
+            before = dict(build.launches)
+            y = qlin.matmul_routed(x, sql, sel)
+            check(all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
+                  f"K9 g{gs} P={p}: launched {dict(build.launches)}, want one {key}")
+            ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
+
+            def simt():
+                return gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs,
+                                                check=False, kernel="simt")
+
+            def gemv():
+                return gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs,
+                                                check=False, kernel="gemv")
+            ys, yg = simt(), gemv()
+            y32 = qlin.matmul_routed(x.float(), sql, sel)
+            ref32 = gemm.wna16_routed_matmul_ref(x.float(), sel, sql.qweight, sql.scales,
+                                                 sql.zeros, gs)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            serr = (ys.float() - ref.float()).abs().max().item()
+            gerr = (yg.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            err32 = (y32 - ref32).abs().max().item()
+            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(y32).all()),
+                  f"K9 g{gs} P={p}: non-finite output")
+            check(max(err, serr, gerr) <= K1_REL_TOL * scale,
+                  f"K9 g{gs} P={p} bf16: max |kernel - plain| = {err:.3e} (SIMT {serr:.3e}, GEMV "
+                  f"{gerr:.3e}) > {K1_REL_TOL} * {scale:.3e}")
+            check(err32 <= F32_ABS_TOL * max(1.0, scale),
+                  f"K9 g{gs} P={p} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
+            check(torch.equal(qlin.matmul_routed(x, sql, sel), y) and torch.equal(gemv(), yg),
+                  f"K9 g{gs} P={p}: a second call differs")
+            ms = timer.ms(lambda: qlin.matmul_routed(x, sql, sel, check=False))
+            simt_ms = timer.ms(simt)
+            gemv_ms = timer.ms(gemv)
+            plain_ms = timer.ms(lambda: gemm.wna16_routed_matmul_ref(
+                x, sel, sql.qweight, sql.scales, sql.zeros, gs), iters=3, warmup=1)
+            lib_ms = timer.ms(lambda: [torch.matmul(x[i], dense[e]) for i, e in enumerate(ids)])
+            b_ms, b_by = bound_ms(len(set(ids)) * per_expert + nbytes(x, y, sel),
+                                  2.0 * p * k * n)
+            rows.append(dict(case="gate_up", group_size=gs, K=k, N=n, P=p, sel=ids, route=route,
+                             max_abs_err=err, simt_max_abs_err=serr, gemv_max_abs_err=gerr,
+                             max_abs_ref=scale, max_abs_err_f32=err32, ms=ms, simt_ms=simt_ms,
+                             gemv_ms=gemv_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by))
+            print(f"K9 rest class gate_up g{gs} K={k:5d} N={n:5d} E=8 P={p} sel={ids}  route "
+                  f"{route}  bf16 err {err:.3e} (SIMT {serr:.3e}, GEMV {gerr:.3e}; tol "
+                  f"{K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  routed "
+                  f"{ms:.4f} ms  GEMV {gemv_ms:.4f} ms  SIMT {simt_ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  {p} x torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
         del sql, dense
         torch.cuda.empty_cache()
     return rows
@@ -1614,10 +1749,11 @@ def phase_rest_path(torch, np, work: str) -> dict:
 
     * A batch-2 greedy generate of 16 tokens: its 32-row prefill through the
       tensor-core tile kernel's ANY_GS instance (exactly 7 x 8
-      ``w4a16_gemm_mma``), its decode steps through the rest-class SIMT GEMV;
-      the prefill logits against the same model forced through the SIMT
-      kernels (``gemm.forced_kernel("simt")``) within E2E_REL_TOL, and the
-      tokens of both routes compared.
+      ``w4a16_gemm_mma``), its decode steps through the tensor-core GEMV's
+      ANY_GS instance (exactly 7 x 8 x 15 ``w4a16_gemm_gemv``, no SIMT GEMV);
+      the prefill logits and the first decode step's against the same model
+      forced through the SIMT kernels (``gemm.forced_kernel("simt")``) within
+      E2E_REL_TOL, and the tokens of both routes compared.
     * Two LoRA steps as ``phase_train`` takes them (r 16 on q/v, B = 0 at
       start, 4 x 512 tokens): the forward through ``w4a16_gemm_mma``, the
       backward through ``wna16_gemm_t_mma`` at M = 2048 (exact counts, no SIMT
@@ -1630,9 +1766,22 @@ def phase_rest_path(torch, np, work: str) -> dict:
       step through each route (device ms by family).
     * The held gradient check, on the checkpoint's first 2 layers (the cut and
       batch of ``phase_grads``, 1 x 64 tokens, every adapter tensor drawn):
-      the LoRA gradients of the tensor-core route (bf16) against the SIMT
-      route's in f32 on the same weights within GRAD_REL_TOL, and against the
-      SIMT route's in bf16, reported."""
+      the LoRA gradients of the tensor-core route (bf16; the tile K10) against
+      the SIMT route's in f32 on the same weights within GRAD_REL_TOL, and
+      against the SIMT route's in bf16, reported. At 1 x 16 tokens the
+      tensor-core route's backward is K10's decode regime
+      (``wna16_gemm_t_gemv``, no tile K10): its gradients are held against the
+      SIMT route's in bf16 (the same model, only the kernels differ) within
+      GRAD_REL_TOL; at so few tokens the bf16 model's own rounding moves every
+      route's gradients about 5% from f32, so the distances from f32 of the
+      decode regime, the SIMT route and the tile kernels (``kernel="mma"``)
+      are reported beside it.
+    * One LoRA step at 1 x 16 tokens (a decode-sized batch) at full depth: the
+      forward through the GEMV's ANY_GS instance and the backward through
+      K10's decode regime (exactly 7 x 8 ``w4a16_gemm_gemv`` and 7 x 8 - 3
+      ``wna16_gemm_t_gemv``, no tile K10), its loss within GRAD_REL_TOL of the
+      SIMT route's (the loss comes before the backward: the cut above holds
+      the decode regime's gradients)."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.models import arch
     from autogptq_tpu_torch.ops import build, gemm
@@ -1640,6 +1789,7 @@ def phase_rest_path(torch, np, work: str) -> dict:
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
 
     layers, gs = OTHER_WIDTH_LAYERS, REST_PATH_GROUP_SIZE
+    nxt = torch.tensor([[1234], [99]], device="cuda")
     cfg = dict(LLAMA2_7B, num_hidden_layers=layers)
     path = os.path.join(work, f"llama2-7b-random-g{gs}")
     write_random_checkpoint(path, cfg, bits=4, group_size=gs, seed=gs)
@@ -1648,29 +1798,36 @@ def phase_rest_path(torch, np, work: str) -> dict:
     prompts = [prompt[0], prompt[0][::-1].copy()]
     tokens = torch.from_numpy(np.stack(prompts)).long().cuda()
 
-    def run(forced):   # (batch-2 prefill logits, 16 generated tokens, launches)
+    def run(forced):   # (batch-2 prefill logits, first decode logits, 16 tokens, launches)
         with gemm.forced_kernel(forced), torch.inference_mode():
-            logits, _ = arch.forward(model.params, tokens, model.cfg, dtype=model.dtype)
+            cache = arch.KVCache.create(model.cfg, 2, PROMPT_LEN + 1, dtype=model.dtype)
+            logits, cache = arch.forward(model.params, tokens, model.cfg, cache=cache,
+                                         dtype=model.dtype)
+            dec, _ = arch.forward(model.params, nxt, model.cfg, cache=cache, dtype=model.dtype)
             build.launches.clear()
             out = model.generate(prompts, max_new_tokens=16)
-        return logits.float(), out, dict(build.launches)
+        return logits.float(), dec.float(), out, dict(build.launches)
 
-    logits, out, counts = run(None)
-    logits_simt, out_simt, counts_simt = run("simt")
-    rel = _rel_err(logits, logits_simt)
+    logits, dec, out, counts = run(None)
+    logits_simt, dec_simt, out_simt, counts_simt = run("simt")
+    rel, rel_dec = _rel_err(logits, logits_simt), _rel_err(dec, dec_simt)
     check(bool(torch.isfinite(logits).all()) and rel <= E2E_REL_TOL,
           f"g{gs} path: prefill logits against the SIMT route, relative error {rel:.3e} > "
           f"{E2E_REL_TOL}")
+    check(bool(torch.isfinite(dec).all()) and rel_dec <= E2E_REL_TOL,
+          f"g{gs} path: first decode logits against the SIMT route, relative error "
+          f"{rel_dec:.3e} > {E2E_REL_TOL}")
     check(out.shape == (2, PROMPT_LEN + 16) and bool(((out >= 0) & (out < cfg["vocab_size"])).all()),
           f"g{gs} path: output {out.shape}")
-    want = {"w4a16_gemm_mma": 7 * layers, "w4a16_gemm": 7 * layers * 15}
+    want = {"w4a16_gemm_mma": 7 * layers, "w4a16_gemm_gemv": 7 * layers * 15}
     check({k: v for k, v in counts.items() if k.startswith("w4a16")} == want,
           f"g{gs} path: K1 launches {counts}, want {want}")
     same = int((out[:, PROMPT_LEN:] == out_simt[:, PROMPT_LEN:]).sum())
     print(f"rest-class path: Llama-2-7B widths, {layers} layers, 4-bit g{gs}: batch-2 prefill "
           f"logits (the tensor-core tile kernel) against the SIMT route's: relative error "
-          f"{rel:.3e} (tol {E2E_REL_TOL}); {same} of {out[:, PROMPT_LEN:].size} greedy tokens "
-          f"equal to the SIMT route's; launches {counts} (SIMT route {counts_simt})", flush=True)
+          f"{rel:.3e}, first decode step's (the tensor-core GEMV) {rel_dec:.3e} (tol "
+          f"{E2E_REL_TOL}); {same} of {out[:, PROMPT_LEN:].size} greedy tokens equal to the "
+          f"SIMT route's; launches {counts} (SIMT route {counts_simt})", flush=True)
 
     pcfg = peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK,
                                target_modules=("attn.q_proj", "attn.v_proj"))
@@ -1733,53 +1890,103 @@ def phase_rest_path(torch, np, work: str) -> dict:
           f"f32 {max(rels32['simt']):.3e} / {float(np.median(rels32['simt'])):.3e}; step 2 loss "
           f"{step2:.6f}; launches per step {launches[None]} (SIMT route {launches['simt']})",
           flush=True)
+    # one step at 1 x 16 tokens: K1's GEMV forward and K10's decode regime backward
+    small = batch[:1, :16].contiguous()
+    small_losses, small_launches = {}, {}
+    for route in ("simt", None):
+        build.launches.clear()
+        with gemm.forced_kernel(route):
+            logits, _ = arch.forward(model.params, small, model.cfg, dtype=model.dtype)
+            loss = masked_loss(torch, logits, small)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            small_losses[route] = loss.item()
+        small_launches[route] = dict(build.launches)
+    small_rel = abs(small_losses[None] - small_losses["simt"]) / abs(small_losses["simt"])
+    want_small = {"w4a16_gemm_gemv": 7 * layers, "wna16_gemm_t_gemv": 7 * layers - 3}
+    want_small_simt = {"w4a16_gemm": 7 * layers, "wna16_gemm_t": 7 * layers - 3}
+    check(small_launches[None] == want_small and small_launches["simt"] == want_small_simt,
+          f"g{gs} path: a 1 x 16 step launched {small_launches[None]} (want {want_small}), the "
+          f"SIMT route {small_launches['simt']} (want {want_small_simt})")
+    check(np.isfinite(small_losses[None]) and small_rel <= GRAD_REL_TOL,
+          f"g{gs} path: 1 x 16 step loss {small_losses[None]} (SIMT route "
+          f"{small_losses['simt']})")
+    print(f"rest-class path, LoRA r={TRAIN_RANK} on q_proj and v_proj, batch 1 x 16: loss "
+          f"{small_losses[None]:.6f} (SIMT route {small_losses['simt']:.6f}, relative "
+          f"{small_rel:.3e}, tol {GRAD_REL_TOL}); launches {small_launches[None]} (SIMT route "
+          f"{small_launches['simt']})", flush=True)
     del model, opt, trainable, grads
     torch.cuda.empty_cache()
 
     cut = os.path.join(work, f"llama2-7b-random-g{gs}-2layers")   # the same first 2 layers
     write_random_checkpoint(cut, dict(cfg, num_hidden_layers=2), bits=4, group_size=gs, seed=gs)
     toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg["vocab_size"], (1, GRAD_LEN)))
-    cut_grads, cut_launches = {}, {}
+    lens = (GRAD_LEN, 16)   # the tile K10 and K10's decode regime
+    cut_grads, cut_launches = {n: {} for n in lens}, {n: {} for n in lens}
     for label, dtype, route in (("mma", torch.bfloat16, None), ("simt", torch.bfloat16, "simt"),
-                                ("simt f32", torch.float32, None)):
+                                ("simt f32", torch.float32, None),
+                                ("tile", torch.bfloat16, "mma")):
         cm = AutoGPTQForCausalLM.from_quantized(cut, dtype=dtype)
         peft.get_gptq_peft_model(cm, peft.GPTQLoraConfig(r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK),
                                  seed=0)
         leaves = peft.trainable_tensors(peft.split_lora_params(cm.params)[0])
         _draw_adapters(torch, np, leaves, seed=20)
-        build.launches.clear()
-        with gemm.forced_kernel(route):
-            masked_loss(torch, arch.forward(cm.params, toks.cuda(), cm.cfg, dtype=dtype)[0],
-                        toks.cuda()).backward()
-        torch.cuda.synchronize()
-        cut_launches[label] = dict(build.launches)
-        cut_grads[label] = [t.grad.float() for t in leaves]
+        for n in lens:
+            t = toks[:, :n].cuda()
+            for leaf in leaves:
+                leaf.grad = None
+            build.launches.clear()
+            with gemm.forced_kernel(route):
+                masked_loss(torch, arch.forward(cm.params, t, cm.cfg, dtype=dtype)[0],
+                            t).backward()
+            torch.cuda.synchronize()
+            cut_launches[n][label] = dict(build.launches)
+            cut_grads[n][label] = [leaf.grad.float() for leaf in leaves]
         del cm, leaves
     shutil.rmtree(cut, ignore_errors=True)
-    cut_rel = [_rel_err(a, b) for a, b in zip(cut_grads["mma"], cut_grads["simt f32"])]
-    cut_rel_bf16 = [_rel_err(a, b) for a, b in zip(cut_grads["mma"], cut_grads["simt"])]
-    check(cut_launches["mma"].get("wna16_gemm_t_mma", 0) > 0
-          and not cut_launches["mma"].get("wna16_gemm_t", 0)
-          and not cut_launches["mma"].get("w4a16_gemm", 0)
-          and not cut_launches["simt f32"].get("wna16_gemm_t_mma", 0),
-          f"g{gs} 2-layer cut: launches {cut_launches}")
-    check(all(np.isfinite(cut_rel)) and max(cut_rel) <= GRAD_REL_TOL,
-          f"g{gs} 2-layer cut: LoRA gradients of the tensor-core route against the SIMT route's "
-          f"in f32, relative error {max(cut_rel):.3e} > {GRAD_REL_TOL}")
-    print(f"rest-class path, 2-layer cut (the first 2 layers), 1 x {GRAD_LEN} tokens, LoRA with "
-          f"every adapter drawn: gradients of the tensor-core route (bf16) against the SIMT "
-          f"route's in f32: relative error max {max(cut_rel):.3e}, median "
-          f"{float(np.median(cut_rel)):.3e} (tol {GRAD_REL_TOL}); against the SIMT route's in "
-          f"bf16 max {max(cut_rel_bf16):.3e}, median {float(np.median(cut_rel_bf16)):.3e}; "
-          f"launches {cut_launches}", flush=True)
+    cut_rel, cut_rel_bf16, cut_rel_f32 = {}, {}, {}
+    for n, t_key in zip(lens, ("wna16_gemm_t_mma", "wna16_gemm_t_gemv")):
+        grads_n, launches_n = cut_grads[n], cut_launches[n]
+        cut_rel[n] = [_rel_err(a, b) for a, b in zip(grads_n["mma"], grads_n["simt f32"])]
+        cut_rel_bf16[n] = [_rel_err(a, b) for a, b in zip(grads_n["mma"], grads_n["simt"])]
+        # every bf16 route against f32: (max, median)
+        cut_rel_f32[n] = {label: [_rel_err(a, b) for a, b in zip(grads_n[label],
+                                                                  grads_n["simt f32"])]
+                          for label in ("mma", "simt", "tile")}
+        spread = ", ".join(f"{label} {max(v):.3e} / {float(np.median(v)):.3e}"
+                           for label, v in cut_rel_f32[n].items())
+        print(f"rest-class path, 2-layer cut (the first 2 layers), 1 x {n} tokens, LoRA with "
+              f"every adapter drawn: gradients of the tensor-core route (bf16, {t_key}) against "
+              f"the SIMT route's in f32: relative error max {max(cut_rel[n]):.3e}, median "
+              f"{float(np.median(cut_rel[n])):.3e}; against the SIMT route's in bf16 max "
+              f"{max(cut_rel_bf16[n]):.3e}, median {float(np.median(cut_rel_bf16[n])):.3e} (tol "
+              f"{GRAD_REL_TOL}: 1 x {GRAD_LEN} against f32, 1 x 16 against the SIMT route in "
+              f"bf16); each bf16 route against f32, max / median: {spread}; launches "
+              f"{launches_n}", flush=True)
+        others = {"wna16_gemm_t", "wna16_gemm_t_mma", "wna16_gemm_t_gemv"} - {t_key}
+        check(launches_n["mma"].get(t_key, 0) > 0
+              and not any(launches_n["mma"].get(o, 0) for o in others)
+              and not launches_n["mma"].get("w4a16_gemm", 0)
+              and not launches_n["simt f32"].get(t_key, 0)
+              and launches_n["tile"].get("wna16_gemm_t_mma", 0) > 0,
+              f"g{gs} 2-layer cut, 1 x {n} tokens: launches {launches_n}, want {t_key}")
+        held, against = (cut_rel[n], "f32") if n == GRAD_LEN else (cut_rel_bf16[n], "bf16")
+        check(all(np.isfinite(held)) and max(held) <= GRAD_REL_TOL,
+              f"g{gs} 2-layer cut, 1 x {n} tokens: LoRA gradients of the tensor-core route "
+              f"({t_key}) against the SIMT route's in {against}, relative error "
+              f"{max(held):.3e} > {GRAD_REL_TOL}")
     torch.cuda.empty_cache()
-    return dict(layers=layers, group_size=gs, prefill_rel_err=rel, tokens_equal=same,
-                counts=counts, simt_counts=counts_simt, losses=losses, step2_loss=step2,
+    return dict(layers=layers, group_size=gs, prefill_rel_err=rel, decode_rel_err=rel_dec,
+                tokens_equal=same, counts=counts, simt_counts=counts_simt,
+                small_step=dict(losses=small_losses, rel_err=small_rel,
+                                launches=small_launches),
+                losses=losses, step2_loss=step2,
                 loss_rel_err=loss_rel, grad_rel_errs=rels,
                 grad_rel_errs_f32={"mma": rels32[None], "simt": rels32["simt"]},
                 step_launches=launches,
                 profiles=profiles, cut_grad_rel_errs=cut_rel,
-                cut_grad_rel_errs_bf16=cut_rel_bf16, cut_launches=cut_launches)
+                cut_grad_rel_errs_bf16=cut_rel_bf16, cut_grad_rel_errs_each_f32=cut_rel_f32,
+                cut_launches=cut_launches)
 
 
 def rtn_objective(torch, w, h, cfg) -> float:
@@ -2493,7 +2700,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     back after): 512 greedy tokens (counts set to 0 just before and read just
     after: 160 ``w4a16_gemm_gemv_norm`` and 64 ``w4a16_gemm_gemv`` per decode
     token, no ``rms_norm`` but the final norm's, no unfused fallback), a profiled
-    33-token window, tokens equal to the default run's; beam-4 runs of 64 tokens
+    33-token window, tokens equal to the default run's; beam-4 runs of 48 tokens
     with the switch off, on, on and off (host time in turns; each repeats its
     tokens; the same counts per step as greedy; its tokens compared with the
     switch off); a bf16 batch of 24 prompts whose decode steps take the
@@ -3143,6 +3350,7 @@ def main() -> int:
     k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
     k9_rows = timed("K9", phase_k9, torch, np, timer)
+    k9_rest_rows = timed("K9 rest classes", phase_k9_rest, torch, np, timer)
     k6 = timed("K6", phase_k6, torch, np, timer)
     boundary = boundary_cost(torch, np)
     del timer
@@ -3289,12 +3497,13 @@ def main() -> int:
 
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
                 and not r["desc_act"]]
-    k10_m16 = {key: layer_sum(k10_g128, key, 16)
-               for key in ("ms", "simt_ms", "library_ms", "bound_ms")}
-    print(f"K10 at M = 16 (bf16 cotangents, 4-bit g128), one Llama-2-7B layer's 7 projections: "
-          f"the tensor-core kernel {k10_m16['ms']:.4f} ms, the SIMT kernel "
-          f"{k10_m16['simt_ms']:.4f} ms, torch.matmul {k10_m16['library_ms']:.4f} ms, bound "
-          f"{k10_m16['bound_ms']:.4f} ms", flush=True)
+    k10_m16 = {m: {key: layer_sum(k10_g128, key, m)
+                   for key in ("ms", "mma_ms", "simt_ms", "library_ms", "bound_ms")}
+               for m in (10, 16)}
+    print("K10 (bf16 cotangents, 4-bit g128), one Llama-2-7B layer's 7 projections: " + "; ".join(
+          f"M = {m}: the decode regime {v['ms']:.4f} ms, the tile K10 {v['mma_ms']:.4f} ms, the "
+          f"SIMT kernel {v['simt_ms']:.4f} ms, torch.matmul {v['library_ms']:.4f} ms, bound "
+          f"{v['bound_ms']:.4f} ms" for m, v in k10_m16.items()), flush=True)
     k9_layer = {p: {key: mixtral_layer_sum(k9_rows, key, p) for key in
                     ("ms", "selected_only_ms", "simt_ms", "bound_ms", "library_ms")}
                 for p in K9_SELS}
@@ -3372,6 +3581,16 @@ def main() -> int:
                    f"max_abs_err over every K1 case it ran", m=TRAIN_M, source=MMA_SOURCE,
                    errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "mma"]
                    + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "w4a16_gemm_mma"]),
+        gemm_entry("wna16_gemm_t_gemv", "autogptq_tpu/ops/pallas/gemm.py:811",
+                   rest_path["small_step"]["launches"][None], k10_g128,
+                   "K10's split-N decode regime: one Llama-2-7B decoder layer's 7 projections at "
+                   "M=16, 4-bit g128, bf16 cotangents (replaces the small-M regime of "
+                   "_kernel_kb32_t :811, _kernel_ki32_t :1031 and _kernel_kpair_t :1289); "
+                   "launches from the 1 x 16-token LoRA step of the 8-layer 4-bit g100 model; "
+                   "max_abs_err over every case of the decode regime",
+                   m=16, source="autogptq_tpu_torch/ops/csrc/wna16_gemv_t.cuh",
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "gemv"]
+                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_gemv"]),
         gemm_entry("w8a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["batch2_counts"],
                    width_rows(8), "K4's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
                    "projections at M=128, g128, bf16; launches from the 8-bit batch-2 run's "
@@ -3477,6 +3696,7 @@ def main() -> int:
                        wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas, other_widths=widths,
                        quantize=quantize, main_batch2=batch2_launches,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
+                       k9_rest=k9_rest_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
                        decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,

@@ -46,14 +46,14 @@ KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_g
 
 def _key(name, dtype, m, k, gs):
     """The launch-count key of library ``name`` for a product of ``m`` rows:
-    its tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``), its
-    tensor-core tile kernel's or its SIMT kernels' (``gemm.tile_kernel`` for
-    K10)."""
+    its tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``; K10's
+    decode regime, ``gemm.t_route``), its tensor-core
+    tile kernel's or its SIMT kernels'."""
     gs = k if gs == -1 else gs
     if name in KERNEL_OF_BITS.values() or name == qlin.gemm.KB32L_KERNEL:
         route = qlin.gemm.route(dtype, m, gs)
     else:
-        route = qlin.gemm.tile_kernel(dtype)
+        route = qlin.gemm.t_route(dtype, m)
     return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
 
 
@@ -1003,7 +1003,8 @@ def test_mma_tile_kernel_matches_plain(card, dtype, m, bits, k, n, gs, desc_act,
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("k, n, gs, desc_act", [s[:4] for s in MMA_SHAPES])
 def test_mma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
-    """K10's tensor-core kernel at every M (1, 4 and 16 too) against
+    """K10's tensor-core tile kernel at every M (1, 4 and 16 too, where
+    ``kernel="mma"`` names it: K10's decode regime takes those rows) against
     wna16_matmul_t_ref: the scaled weight as a hi/lo pair of the cotangent's
     type, f32 accumulation: 1% of the largest output (K10_REL_TOL)."""
     layer = _layer(m + k + bits, k, n, gs, desc_act, bits=bits)
@@ -1012,7 +1013,7 @@ def test_mma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
     g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
     before = dict(build.launches)
-    dx = qlin.gemm.wna16_matmul_t(g, *args, sbits)
+    dx = qlin.gemm.wna16_matmul_t(g, *args, sbits, kernel="mma")
     assert build.launches["wna16_gemm_t_mma"] == before.get("wna16_gemm_t_mma", 0) + 1
     assert build.launches["wna16_gemm_t"] == before.get("wna16_gemm_t", 0)
     ref = qlin.gemm.wna16_matmul_t_ref(g, *args, sbits)
@@ -1076,13 +1077,16 @@ REST_CASES = [(4, 1024, 256, 4, False), (4, 1032, 256, 12, True), (4, 4096, 512,
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 70])
 @pytest.mark.parametrize("bits, k, n, gs, desc_act", REST_CASES)
 def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
-    """K1/K4/K5 (the per-code group GEMV at M <= 16; above, the tensor-core
-    tile kernel's ANY_GS instance in bf16, the SIMT tile kernel in f32) and
-    K10 (the tensor-core ANY_GS instance in bf16 at every M, the SIMT kernel
-    in f32) at the rest classes, against the plain versions: f32 to 1e-4,
-    bf16 to 1% of the largest output, each bit-equal on a second call; in
-    bf16 the SIMT kernels on the same weights (``gemm.forced_kernel("simt")``)
-    within 1% of the largest output of the tensor-core kernels'."""
+    """K1/K4/K5 (in bf16 the tensor-core GEMV's ANY_GS instance at M <= 16
+    from group size 16 on, the SIMT GEMV below, and the tile kernel's ANY_GS
+    instance above 16 rows; the SIMT GEMV and tile kernel in f32) and K10 (in
+    bf16 its decode regime at M <= 16 and the tensor-core ANY_GS instance
+    above; the SIMT kernel in f32) at the rest classes, against the plain
+    versions: f32 to 1e-4, bf16 to 1% of the largest output, each bit-equal on
+    a second call; in bf16 the SIMT kernels on the same weights
+    (``gemm.forced_kernel("simt")``) within 1% of the largest output of the
+    tensor-core kernels', and below group size 16 at M <= 16 the GEMV's
+    ANY_GS instance, asked for (``kernel="gemv"``), likewise and bit-equal."""
     layer = _layer(m + k + bits + gs, k, n, gs, desc_act, True, dtype, bits)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
@@ -1091,12 +1095,13 @@ def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
     name = KERNEL_OF_BITS[bits]
     fwd = _key(name, dtype, m, k, gs)
     k10 = _key("wna16_gemm_t", dtype, m, k, gs)
-    assert fwd == name + ("_mma" if dtype == torch.bfloat16 and m > 16 else "")
-    assert k10 == "wna16_gemm_t" + ("_mma" if dtype == torch.bfloat16 else "")
+    tc = "" if dtype == torch.float32 else "_gemv" if m <= 16 else "_mma"
+    assert fwd == name + (tc if gs >= 16 or m > 16 else "") and k10 == "wna16_gemm_t" + tc
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
     dx = qlin.matmul_t(g, layer)
-    for key in {name, name + "_mma", name + "_gemv", "wna16_gemm_t", "wna16_gemm_t_mma"}:
+    for key in {name, name + "_mma", name + "_gemv", "wna16_gemm_t", "wna16_gemm_t_mma",
+                "wna16_gemm_t_gemv"}:
         assert build.launches[key] == before.get(key, 0) + (key in (fwd, k10)), key
     ref = qlin.matmul_plain(x, layer)
     ref_t = qlin.gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
@@ -1113,11 +1118,24 @@ def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
             ys, dxs = qlin.matmul(x, layer), qlin.matmul_t(g, layer)
         for got, simt in ((y, ys), (dx, dxs)):
             assert (got.float() - simt.float()).abs().max() <= 1e-2 * got.float().abs().max()
+        if m <= 16 and gs < 16:
+            args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, qlin._bias(layer, x),
+                    gs, qlin.storage_bits(bits))
+            yg = qlin.gemm.wna16_matmul(x, *args, kernel="gemv")
+            scale = float(ref.float().abs().max())
+            assert (yg.float() - ref.float()).abs().max() <= 1e-2 * scale
+            assert torch.equal(qlin.gemm.wna16_matmul(x, *args, kernel="gemv"), yg)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gs", [12, 100])
-def test_k9_rest_classes_match_plain(card, gs):
-    """K9's per-code group instance (4-bit, gs % 8 != 0) against its plain version."""
+def test_k9_rest_classes_match_plain(card, gs, dtype):
+    """K9 at the rest classes (4-bit, gs % 8 != 0) against its plain version:
+    f32, and bf16 below group size 16, through the SIMT routed kernel's
+    per-code group instance (f32 to 1e-5 relative), bf16 from group size 16
+    on through the routed GEMV's ANY_GS instance (one launch, 1% of the
+    largest output, bit-equal on a second call; below 16 asked for with
+    ``kernel="gemv"``)."""
     from autogptq_tpu_torch.ops import gemm
 
     rng = np.random.default_rng(gs)
@@ -1127,13 +1145,55 @@ def test_k9_rest_classes_match_plain(card, gs):
         qls.append(qlin.from_packed(qlin.PackedQuantLinear(
             qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
             bias=None, bits=4, group_size=gs, in_features=1200, out_features=512),
-            device="cuda", dtype=torch.float32))
+            device="cuda", dtype=dtype))
     sql = qlin.stack_experts(qls)
     sel = torch.tensor([3, 0, 3], dtype=torch.int32, device=card)
-    x = torch.randn((3, 1200), generator=torch.Generator(card).manual_seed(gs), device=card)
+    x = torch.randn((3, 1200), generator=torch.Generator(card).manual_seed(gs), device=card,
+                    dtype=dtype)
+    key = gemm.ROUTED_KERNEL + ("_gemv" if dtype == torch.bfloat16 and gs >= 16 else "")
+    before = dict(build.launches)
     y = gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
+    assert build.launches[key] == before.get(key, 0) + 1
     ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
-    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-4)
+    else:
+        assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+        assert torch.equal(gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales,
+                                                    sql.zeros, gs), y)
+        yg = gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales, sql.zeros, gs,
+                                      kernel="gemv")
+        assert (yg.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+        assert torch.equal(gemm.wna16_routed_matmul(x, sel, sql.qweight, sql.scales,
+                                                    sql.zeros, gs, kernel="gemv"), yg)
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [1, 4, 10, 16])
+@pytest.mark.parametrize("bits, k, n, gs, desc_act", REST_CASES + [
+    (4, 4096, 4096, 128, False), (3, 4096, 1024, 128, True)])
+def test_k10_gemv_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
+    """K10's decode regime (split N, the weight as a hi/lo pair) at every rest
+    class and g128: one launch of ``wna16_gemm_t_gemv``, within 1% of the
+    largest output of the plain version and of the tile K10 on the same
+    operands (``kernel="mma"``), bit-equal on a second call."""
+    layer = _layer(m + k + bits + gs, k, n, gs, desc_act, dtype=dtype, bits=bits)
+    args = (layer.qweight, layer.scales, layer.zeros, layer.kperm, gs, qlin.storage_bits(bits))
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + k), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    dx = qlin.gemm.wna16_matmul_t(g, *args)
+    assert build.launches["wna16_gemm_t_gemv"] == before.get("wna16_gemm_t_gemv", 0) + 1
+    assert build.launches["wna16_gemm_t_mma"] == before.get("wna16_gemm_t_mma", 0)
+    again = qlin.gemm.wna16_matmul_t(g, *args)
+    tile = qlin.gemm.wna16_matmul_t(g, *args, kernel="mma")
+    ref = qlin.gemm.wna16_matmul_t_ref(g, *args)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max()
+    assert dx.shape == (m, k) and bool(torch.isfinite(dx).all())
+    assert (dx.float() - ref.float()).abs().max() <= 1e-2 * scale
+    assert (dx.float() - tile.float()).abs().max() <= 1e-2 * scale
+    assert torch.equal(dx, again)
 
 
 # The tensor-core decode GEMV (csrc/wna16_gemv.cuh). (K, N, group size, desc_act, bias):
@@ -1197,19 +1257,22 @@ def test_gemv_counters_reset_between_shapes(card):
 
 
 def test_f32_and_rest_classes_take_the_simt_gemv(card):
-    """At M <= 16, f32 activations and group sizes 16 does not divide launch
-    the SIMT GEMV (its per-code group instance for the latter) and no
-    ``_gemv`` kernel; ``kernel="simt"`` forces it for bf16 with 16 | gs, and
-    ``gemm.forced_kernel`` does so for every call inside it."""
+    """At M <= 16, f32 activations launch the SIMT GEMV and no ``_gemv``
+    kernel, while bf16/f16 at group sizes of 16 or more that 16 does not
+    divide (24, 100) launch the tensor-core GEMV's ANY_GS instance; ``kernel="simt"`` forces the SIMT
+    GEMV for bf16 with 16 | gs, and ``gemm.forced_kernel`` does so for every
+    call inside it."""
     for bits in (2, 4, 8):
         name = KERNEL_OF_BITS[bits]
         for dtype, gs in ((torch.float32, 32), (torch.bfloat16, 24), (torch.float16, 100)):
             layer = _layer(bits + gs, 1200, 256, gs, dtype=dtype, bits=bits)
             x = torch.randn((4, 1200), device=card, dtype=dtype)
+            key = name + ("" if dtype == torch.float32 else "_gemv")
+            other = name + ("_gemv" if dtype == torch.float32 else "")
             before = dict(build.launches)
             y = qlin.matmul(x, layer)
-            assert build.launches[name] == before.get(name, 0) + 1
-            assert build.launches[name + "_gemv"] == before.get(name + "_gemv", 0)
+            assert build.launches[key] == before.get(key, 0) + 1
+            assert build.launches[other] == before.get(other, 0)
             ref = qlin.matmul_plain(x, layer)
             tol = 1e-4 * max(1.0, float(ref.abs().max())) if dtype == torch.float32 \
                 else 1e-2 * float(ref.float().abs().max())

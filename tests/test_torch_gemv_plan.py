@@ -95,13 +95,20 @@ def test_route_takes_the_gemv(dtype, m, gs):
 
 @pytest.mark.parametrize("m", [1, 4, 16, 17, 128])
 def test_route_keeps_the_simt_kernels_for_f32_and_rest_classes(m):
-    """f32 activations at any row count, and at M <= 16 the group sizes 16
-    does not divide (a word straddling groups, or 8 | gs alone) in every
-    dtype; above 16 rows those take the tensor-core tile kernel in bf16/f16."""
+    """f32 activations keep the SIMT kernels at any row count; the group sizes
+    16 does not divide (a word straddling groups, or 8 | gs alone) take, in
+    bf16/f16, the tensor-core GEMV's ANY_GS instance at M <= 16 from group
+    size 16 on and the SIMT GEMV below it, and the tensor-core tile kernel
+    above 16 rows, as 16 | gs does."""
     assert gemm.route(torch.float32, m, 128) == "simt"
     for gs in (4, 8, 24, 100, 172):
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
-            want = "mma" if m > 16 and dtype != torch.float32 else "simt"
+            if dtype == torch.float32:
+                want = "simt"
+            elif m > 16:
+                want = "mma"
+            else:
+                want = "gemv" if gs >= 16 else "simt"
             assert gemm.route(dtype, m, gs) == want
 
 

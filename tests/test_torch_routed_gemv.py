@@ -146,14 +146,18 @@ def test_routed_route_takes_the_gemv(dtype, p, gs):
 
 
 def test_routed_route_keeps_the_simt_kernel():
-    """f32 pairs, the group sizes 16 does not divide (held on the card at 12
-    and 100) and more pairs than a block's operand holds take the SIMT routed
-    kernel; ``kernel`` names either; the tile kernel is no routed kernel."""
+    """f32 pairs, group sizes below 16 (held on the card at 12) and more
+    pairs than a block's operand holds take the SIMT routed kernel; bf16/f16
+    pairs at the larger group sizes 16 does not divide (held on the card at
+    100) take the GEMV's ANY_GS instance; ``kernel`` names either; the tile
+    kernel is no routed kernel."""
     for p in (1, 2, 8, 16):
         assert gemm.routed_route(torch.float32, p, 128) == "simt"
         for gs in (8, 12, 24, 100):
             for dtype in (torch.bfloat16, torch.float16, torch.float32):
-                assert gemm.routed_route(dtype, p, gs) == "simt"
+                want = "gemv" if dtype != torch.float32 and gs >= 16 else "simt"
+                assert gemm.routed_route(dtype, p, gs) == want
+        assert gemm.routed_route(torch.float16, 17, 12) == "simt"
     assert gemm.routed_route(torch.bfloat16, 17, 128) == "simt"
     assert gemm.routed_route(torch.float32, 2, 100, "gemv") == "gemv"
     assert gemm.routed_route(torch.bfloat16, 2, 128, "simt") == "simt"

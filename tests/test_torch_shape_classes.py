@@ -103,12 +103,16 @@ def test_card_shape_check_takes_rest_classes(bits, k, n, gs, desc_act, layout):
     (torch.float32, 1, 128, "simt"), (torch.float32, 16, 100, "simt"),
     (torch.float32, 70, 12, "simt")])
 def test_tile_kernel_plan(dtype, m, gs, route):
-    """K10 takes the tensor cores for bf16/f16 at every M and group size and
-    the SIMT kernel for f32; K1/K4/K5's forward takes the same tile kernel
-    above 16 rows (at M <= 16 :func:`route` sends it to a GEMV)."""
+    """The tile kernel is the tensor cores' for bf16/f16 at every group size
+    and the SIMT kernel for f32; K1/K4/K5's forward takes it above 16 rows (at
+    M <= 16 :func:`route` sends it to a GEMV), and so does K10
+    (:func:`t_route`), whose bf16/f16 cotangents of at most 16 rows take its
+    decode regime, ``"gemv"``, at every group size."""
     assert tgemm.tile_kernel(dtype) == route
     if m > tgemm.DECODE_MAX_M:
         assert tgemm.route(dtype, m, gs) == route
+    assert tgemm.t_route(dtype, m) == (
+        "gemv" if route == "mma" and m <= tgemm.DECODE_MAX_M else route)
 
 
 def test_tile_kernel_override():
