@@ -4,7 +4,8 @@
 // Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32 (reached through
 // _matmul_kb32 / matmul_pallas), _kernel_ki32 and the 3/4-bit part of _kernel_kpair, which
 // every q/k/v/o/gate/up/down projection of a 3- or 4-bit model runs. The kernels, their
-// layout, bound and design are in wna16_gemm.cuh, wna16_mma.cuh and wna16_gemv.cuh (the
+// layout, bound and design are in wna16_gemm.cuh, wna16_mma.cuh, wna16_wgmma.cuh (the
+// wgmma/TMA tile kernel above 16 rows, w4a16_gemm_wgmma) and wna16_gemv.cuh (the
 // tensor-core decode GEMV); for Llama-2-7B a 4096x4096 projection
 // moves 8.6 MB and a 4096x11008 one 23.2 MB at group size 128.
 //
@@ -18,10 +19,12 @@
 // 73.5 MB, 0.0220 ms at 3.35 TB/s).
 
 #include "wna16_gemv.cuh"
+#include "wna16_wgmma.cuh"
 
 WNA16_DEFINE_ENTRY(w4a16_gemm, 4)
 WNA16_NORM_DEFINE_ENTRY(w4a16_gemm, 4)
 WNA16_MMA_DEFINE_ENTRY(w4a16_gemm, 4)
+WNA16_WGMMA_DEFINE_ENTRY(w4a16_gemm, 4)
 WNA16_MMA_NORM_DEFINE_ENTRY(w4a16_gemm, 4)
 WNA16_GEMV_DEFINE_ENTRY(w4a16_gemm, 4)
 WNA16_GEMV_NORM_DEFINE_ENTRY(w4a16_gemm, 4)

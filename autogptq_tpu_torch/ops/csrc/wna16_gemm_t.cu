@@ -1,19 +1,25 @@
 // K10: dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T for Hopper (sm_90a), one library with an
 // entry point per storage width: w4a16_gemm_t (4-bit codes, and 3-bit codes kept in nibbles;
 // the width of the TPU kernels it replaces), w8a16_gemm_t and w2a16_gemm_t, and
-// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words; each has two tensor-core twins for
-// bf16 and f16 cotangents, NAME_mma (wna16_mma.cuh, above 16 rows) and NAME_gemv
-// (wna16_gemv_t.cuh, the split-N decode regime at M <= 16).
+// w4a16_kb32l_gemm_t over K6's tile-contiguous kb32l words; each has tensor-core twins for
+// bf16 and f16 cotangents, NAME_wgmma (wna16_wgmma.cuh, above 16 rows over GPTQ words; launch
+// key wna16_gemm_t_wgmma), NAME_mma (wna16_mma.cuh, above 16 rows over kb32l words and shapes
+// TMA cannot address) and NAME_gemv (wna16_gemv_t.cuh, the split-N decode regime at M <= 16).
 //
 // Replaces the TPU kernels autogptq_tpu/ops/pallas/gemm.py:_kernel_kb32_t (_matmul_kb32_t),
 // _kernel_ki32_t (_matmul_ki32_t) and _kernel_kpair_t (_matmul_kpair_t). The kernels, their
-// layout, bound and design are in wna16_gemm_t.cuh, wna16_mma.cuh and wna16_gemv_t.cuh.
+// layout, bound and design are in wna16_gemm_t.cuh, wna16_mma.cuh, wna16_wgmma.cuh and
+// wna16_gemv_t.cuh.
 
 #include "wna16_gemm_t.cuh"
+#include "wna16_wgmma.cuh"
 
 WNA16_T_DEFINE_ENTRY(w4a16_gemm_t, 4)
+WNA16_T_WGMMA_DEFINE_ENTRY(w4a16_gemm_t, 4)
 WNA16_T_DEFINE_ENTRY(w8a16_gemm_t, 8)
+WNA16_T_WGMMA_DEFINE_ENTRY(w8a16_gemm_t, 8)
 WNA16_T_DEFINE_ENTRY(w2a16_gemm_t, 2)
+WNA16_T_WGMMA_DEFINE_ENTRY(w2a16_gemm_t, 2)
 
 // The same kernel over K6's tile-contiguous kb32l words (kb32l_tile.cuh).
 extern "C" int w4a16_kb32l_gemm_t(const void* g, const int64_t* kperm, const int32_t* qweight,

@@ -4,7 +4,9 @@
 //   wna16_t_mma_kernel  dx[M,K] = g[M,N] @ ((q - z) * s)[K,N]^T           K10
 // Each library instantiates them beside its SIMT kernels (wna16_gemm.cuh, wna16_gemm_t.cuh,
 // w4a16_kb32l_gemm.cu) and exports them as NAME_mma; ops/gemm.py:tile_kernel routes bf16 and
-// f16 products here at any group size above 16 rows (at M <= 16 the forward takes the
+// f16 products here above 16 rows over kb32l words, with the fused RMS-norm prologue and where
+// TMA cannot address the shape: over GPTQ words the wgmma/TMA kernels of wna16_wgmma.cuh took
+// the rest of this route (kernel="mma" names these for a timing beside them). (At M <= 16 the forward takes the
 // tensor-core decode GEMV of wna16_gemv.cuh from gs 16 on and the SIMT GEMV below, K6 its GEMV
 // over kb32l words, ops/gemm.py:route, and K10 its split-N decode regime of wna16_gemv_t.cuh,
 // ops/gemm.py:t_route; kernel="mma" still names the tile kernels there). f32 activations stay on the SIMT kernels. Each kernel has two instances per

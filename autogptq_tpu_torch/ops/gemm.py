@@ -22,12 +22,15 @@ and f16 activations at M <= 16 to the tensor-core decode GEMV
 per call, its split-K combine folded into the last block, planned by
 :func:`gemv_plan`; its ``ANY_GS`` instance where 16 does not divide a group
 size of 16 rows or more), and below 16 rows per group to the SIMT GEMV; above
-16 rows bf16 and f16 at any group size take the tensor-core tile
-kernel (``csrc/wna16_mma.cuh``, ``<name>_mma``; :func:`tile_kernel`; its
+16 rows bf16 and f16 at any group size take the warp-specialized wgmma/TMA
+tile kernel (``csrc/wna16_wgmma.cuh``, ``<name>_wgmma``; :func:`tile_kernel`,
+planned by :func:`wgmma_plan`; x gathered by kperm once per call), or the
+``mma.sync`` tile kernel (``csrc/wna16_mma.cuh``, ``<name>_mma``; its
 ``ANY_GS`` instance where 16 does not divide the group size, whose stage
-:func:`mma_smem_bytes` sizes), and f32 activations take the SIMT kernels at
-any M (launch count ``<name>``). The choice is static, by dtype and shape; a
-launch that fails raises, whichever kernel it was.
+:func:`mma_smem_bytes` sizes) where TMA cannot address the shape
+(:func:`wgmma_shape_ok`) or for the fused prologue; f32 activations take
+the SIMT kernels at any M (launch count ``<name>``). The choice is static,
+by dtype and shape; a launch that fails raises, whichever kernel it was.
 
 K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
 is one library, ``wna16_gemm_t``, with an entry point per storage width; it
@@ -37,8 +40,9 @@ replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 ``wna16_matmul_t_ref`` for CPU tensors; :func:`t_route` routes it: bf16 and
 f16 cotangents of at most 16 rows to K10's decode regime
 (``csrc/wna16_gemv_t.cuh``, split N, launch count ``wna16_gemm_t_gemv``,
-planned by :func:`t_gemv_plan`), above 16 rows to the tensor-core tile K10
-(``wna16_gemm_t_mma``), at every group size; f32 to the SIMT kernel
+planned by :func:`t_gemv_plan`), above 16 rows to the wgmma/TMA K10
+(``wna16_gemm_t_wgmma``; the mma.sync ``wna16_gemm_t_mma`` for kb32l words and
+shapes TMA cannot address), at every group size; f32 to the SIMT kernel
 (``wna16_gemm_t``).
 
 K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
@@ -70,7 +74,8 @@ the TPU kernels ``_matmul_kb32l`` and ``_kernel_kb32l_manual``.
 ``w4a16_kb32l_matmul_ref`` for CPU tensors; ``wna16_matmul_t`` takes the same
 words for K10. It routes as K1 does (:func:`route`): the tensor-core GEMV over
 the kb32l tiles at M <= 16 for bf16 and f16 (``<name>_gemv``), the cp.async
-ring (``<name>``) for f32, the tile kernels above 16 rows.
+ring (``<name>``) for f32, the mma.sync tile kernels above 16 rows (no wgmma
+kernel reads kb32l words yet).
 
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
@@ -120,6 +125,14 @@ T_GEMV_WORD_ROWS = 8    # K10's decode regime: word rows (8 * P output K rows) p
 T_GEMV_BN = 128         # its N (the reduction) per stage
 NORM_SUFFIX = "_norm"   # entry point and launch-count key of a kernel's fused RMS-norm prologue
 PRENORM_MAX_M = 32      # the fused prologue takes fewer rows than this (the JAX kernel's assert)
+WGMMA_SUFFIX = "_wgmma"  # entry point and launch-count key of a library's wgmma/TMA tile kernel
+WGMMA_BK = 64           # reduction rows per stage (csrc/wna16_wgmma.cuh: WG_BK)
+WGMMA_BN = 128          # output columns per block (WG_BN; K10: K rows)
+WGMMA_MAX_STAGES = 8    # its TMA ring (WG_MAX_STAGES)
+WGMMA_BTILES = 3        # dequantized B tile pairs (hi, lo) in rotation (WG_BTILES)
+WGMMA_MAX_SPLITS = 16   # reduction splits the plan considers
+WGMMA_SPLIT_STEPS = 4   # a block's fixed cost in tile steps: ring fill, partials, combine
+WGMMA_ENCODE_ERROR = 100000   # an entry's code above this: cuTensorMapEncodeTiled failed
 
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
@@ -203,36 +216,58 @@ def prenorm_eligible(m: int, k: int, group_size: int, bits: int,
             and (k if norm_len is None else norm_len) == k)
 
 
-def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None) -> str:
+def wgmma_shape_ok(k: int, n: int) -> bool:
+    """Whether TMA can address the operands of a ``[K/P, N]`` layer: 16-byte
+    row strides for x ``[M, K]`` (K % 8), K10's g ``[M, N]`` and the fp16
+    scales (N % 8) and the uint8 zeros (N % 16); every Llama and Mixtral
+    width passes."""
+    return k % 8 == 0 and n % 16 == 0
+
+
+def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None, k: Optional[int] = None,
+                n: Optional[int] = None, layout: str = "gptq", prenorm: bool = False) -> str:
     """The tile kernel a product in ``dtype`` takes on the card: K1/K4/K5's
     and K6's above 16 rows (:func:`route` decides below), K10's above 16 rows
-    (:func:`t_route`): ``"mma"``, the tensor-core tile kernel, for bf16 and
-    f16 at any group size (its ``ANY_GS`` instance where 16 does not divide
-    it); ``"simt"``, the SIMT kernels, for f32 (the f32 model path and
-    ``quantize``'s re-forward). ``kernel`` ("mma" or "simt") names one
-    instead, to time both on the same operands; the tensor-core kernel raises
-    for operands it does not take."""
+    (:func:`t_route`). For bf16 and f16 over GPTQ words ``"wgmma"``, the
+    warp-specialized wgmma/TMA kernel (``csrc/wna16_wgmma.cuh``), at every
+    group size; ``"mma"``, the ``mma.sync`` tile kernel
+    (``csrc/wna16_mma.cuh``), for K6's kb32l words (``layout="kb32l"``), the
+    fused RMS-norm prologue (``prenorm``) and a ``K`` or ``N`` TMA cannot
+    address (:func:`wgmma_shape_ok`; decided from the shapes, never by
+    trying); ``"simt"``, the SIMT kernels, for f32 (the f32 model path and
+    ``quantize``'s re-forward). Without ``k`` and ``n`` the shape is taken as
+    aligned. ``kernel`` ("wgmma", "mma" or "simt") names one instead, to time
+    them on the same operands; a tensor-core kernel raises for operands it
+    does not take."""
     if kernel is not None:
-        if kernel not in ("mma", "simt"):
-            raise ValueError(f"kernel must be 'mma', 'simt' or None, got {kernel!r}")
+        if kernel not in ("wgmma", "mma", "simt"):
+            raise ValueError(f"kernel must be 'wgmma', 'mma', 'simt' or None, got {kernel!r}")
         return kernel
-    return "mma" if dtype in MMA_DTYPES else "simt"
+    if dtype not in MMA_DTYPES:
+        return "simt"
+    if layout != "gptq" or prenorm or (k is not None and n is not None
+                                       and not wgmma_shape_ok(k, n)):
+        return "mma"
+    return "wgmma"
 
 
-def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None) -> str:
+def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None, k: Optional[int] = None,
+            n: Optional[int] = None, layout: str = "gptq") -> str:
     """The kernel K10 takes on the card for a cotangent of ``m`` rows in
     ``dtype``: ``"gemv"``, its split-N decode regime
     (``csrc/wna16_gemv_t.cuh``, :func:`t_gemv_plan`), for bf16 and f16 at
     ``m <= 16`` and any group size; above 16 rows :func:`tile_kernel`'s
-    choice (``"mma"`` for bf16 and f16, ``"simt"`` for f32, which takes the
-    SIMT K10 at every ``m``). ``kernel`` ("gemv", "mma" or "simt") names one
-    instead; the decode regime raises above 16 rows."""
+    choice for the layer's ``k``, ``n`` and ``layout`` (``"wgmma"`` for bf16
+    and f16 over GPTQ words TMA can address, ``"mma"`` over kb32l words or
+    other shapes, ``"simt"`` for f32, which takes the SIMT K10 at every
+    ``m``). ``kernel`` ("gemv", "wgmma", "mma" or "simt") names one instead;
+    the decode regime raises above 16 rows."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
     if dtype in MMA_DTYPES and m <= DECODE_MAX_M:
         return "gemv"
-    return tile_kernel(dtype)
+    return tile_kernel(dtype, None, k, n, layout)
 
 
 def mma_stage_groups(gs: int, rows: int) -> int:
@@ -272,6 +307,99 @@ def mma_smem_bytes(bits: int, gs: int, transpose: bool = False) -> int:
     return smem
 
 
+def _up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def wgmma_stage_bytes(bits: int, bm: int, ng: int, transpose: bool = False) -> int:
+    """Bytes of one stage of the wgmma kernels' ring for ``bits``-bit storage
+    (2, 4 or 8): the activation tile ``[bm][64]`` (x, or K10's g) in 128-byte
+    swizzled rows, the words of 64 reduction rows (K10: of its 128 K rows),
+    ``ng`` group rows of fp16 scales and uint8 zeros over 128 columns (K10:
+    64), each region 128-byte aligned, the forward's 64-byte table of group
+    rows, the whole 1024-aligned (``csrc/wna16_wgmma.cuh:WgStage``)."""
+    sw = 64 if transpose else WGMMA_BN
+    size = bm * 128 + 1024 * bits + _up(ng * sw * 2, 128) + _up(ng * sw, 128)
+    return _up(size + (0 if transpose else 64), 1024)
+
+
+def wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
+               transpose: bool = False) -> dict:
+    """The wgmma/TMA tile kernel's launch for ``m`` rows of a ``[K/P, N]``
+    layer (``transpose``: K10, ``dx [m, K] = g [m, N] @ W^T``), from shapes
+    alone; ``bits`` is the code width (3 rides in nibbles).
+
+    * ``bm``: 256 above 128 rows (two consumer warpgroups of 128 rows, so
+      each dequantized weight tile pair feeds 256 rows; 128 where two stages
+      of 256 rows do not fit, 8-bit codes at group size 1), 128 up to 128 rows
+      (two of 64), 64 up to 64 rows (the two split the 128 columns); ``bn``
+      128 output columns (K10: K rows); the reduction (K; K10: N) in
+      ``ktiles`` tiles of 64.
+    * ``stages``: as many as fit beside the B tiles in
+      :data:`MMA_SMEM_LIMIT`, at most :data:`WGMMA_MAX_STAGES`;
+      NotImplementedError below 2.
+    * ``splits`` runs of ``per`` reduction tiles, none empty, where the output
+      has fewer ``tiles`` than ``sms``: at least ``sms`` blocks or one tile per
+      split, and among those the split with the fewest tile steps on the
+      busiest SM (waves of one block per SM times ``per`` plus
+      :data:`WGMMA_SPLIT_STEPS`: 160 blocks on 132 SMs take two waves, as 256
+      do), at most :data:`WGMMA_MAX_SPLITS` unless more are needed to fill the
+      card. Their f32 partials ``[splits, m, out columns]``
+      (``workspace_bytes``) are added in split order by the block drawing the
+      last ticket.
+    * ``boxes``: each TMA box as (inner elements, rows, element bytes)."""
+    return dict(_wgmma_plan(m, k, n, group_size, bits, sms, transpose))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
+                transpose: bool) -> dict:
+    sb = storage_bits(bits)
+    p = 32 // sb
+    gs = k if group_size == -1 else group_size
+    red, cols = (n, k) if transpose else (k, n)
+    ng = mma_stage_groups(gs, WGMMA_BN if transpose else WGMMA_BK)
+    fixed = 1024 + WGMMA_BTILES * 2 * WGMMA_BN * WGMMA_BK * 2   # slack, the hi/lo B tiles
+    for bm in ((64,) if m <= 64 else (128,) if m <= 128 else (256, 128)):
+        stage = wgmma_stage_bytes(sb, bm, ng, transpose)   # the tallest block two stages fit
+        stages = min(WGMMA_MAX_STAGES, (MMA_SMEM_LIMIT - fixed) // stage)
+        if stages >= 2:
+            break
+    if stages < 2 or ng > 255:
+        raise NotImplementedError(
+            f"the wgmma {'K10' if transpose else 'tile kernel'} at group size {gs} stages {ng} "
+            f"groups: two stages of {stage} B and the B tiles exceed {MMA_SMEM_LIMIT} B")
+    ktiles = -(-red // WGMMA_BK)
+    col_blocks, row_blocks = -(-cols // WGMMA_BN), -(-m // bm)
+    if row_blocks > 65535:
+        raise NotImplementedError(f"the wgmma kernels take at most {65535 * bm} rows, got {m}")
+    tiles = col_blocks * row_blocks
+    splits = 1
+    if tiles < sms:   # the split with the fewest tile steps on the busiest SM: waves x run
+        low, best = -(-sms // tiles), None
+        for s in range(min(low, ktiles), ktiles + 1):
+            if s > WGMMA_MAX_SPLITS and best is not None:
+                break
+            per = -(-ktiles // s)
+            s = -(-ktiles // per)                  # no empty split
+            if s < low and s != ktiles:
+                continue
+            cost = -(-tiles * s // sms) * (per + WGMMA_SPLIT_STEPS)
+            if best is None or cost < best[0]:
+                best = (cost, s)
+        splits = best[1]
+    per = -(-ktiles // splits)
+    sw = 64 if transpose else WGMMA_BN
+    boxes = {"a": (WGMMA_BK, bm, 2), "scales": (sw, ng, 2), "zeros": (sw, ng, 1),
+             "words": (64, WGMMA_BN // p, 4) if transpose else (WGMMA_BN, WGMMA_BK // p, 4)}
+    return dict(bm=bm, bn=WGMMA_BN, warpgroups_n=2 if bm == 64 else 1, stages=stages,
+                stage_groups=ng, stage_bytes=stage,
+                smem_bytes=fixed + stages * stage, ktiles=ktiles, col_blocks=col_blocks,
+                row_blocks=row_blocks, tiles=tiles, splits=splits, per=per,
+                blocks=tiles * splits, boxes=boxes,
+                workspace_bytes=4 * splits * m * cols if splits > 1 else 0)
+
+
 _forced = [None]    # the kernel every wrapper call takes inside forced_kernel
 
 
@@ -294,11 +422,13 @@ def forced_kernel(kernel: Optional[str]):
 
 
 def _check_kernel(kernel: Optional[str]) -> None:
-    if kernel not in (None, "gemv", "mma", "simt"):
-        raise ValueError(f"kernel must be 'gemv', 'mma', 'simt' or None, got {kernel!r}")
+    if kernel not in (None, "gemv", "wgmma", "mma", "simt"):
+        raise ValueError(f"kernel must be 'gemv', 'wgmma', 'mma', 'simt' or None, got {kernel!r}")
 
 
-def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> str:
+def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None,
+          k: Optional[int] = None, n: Optional[int] = None, layout: str = "gptq",
+          prenorm: bool = False) -> str:
     """The kernel K1/K4/K5's forward takes on the card for ``m`` rows with
     group size ``gs`` (in rows: ``K`` for one group): at ``m <= 16``
     ``"gemv"``, the tensor-core decode GEMV, for bf16 and f16 at a group size
@@ -306,17 +436,19 @@ def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None) -> 
     ``gs``), and ``"simt"``, the SIMT GEMV, for f32 and for group sizes below
     16 (there every 16-row step spans groups, and the GEMV's exact masked MMA
     sets, one per group, were slower than the SIMT GEMV on the H100:
-    PERF.md); above 16 rows :func:`tile_kernel`'s choice (``"mma"`` for bf16
-    and f16 at any group size, ``"simt"`` for f32). ``kernel`` names one
-    instead (the tensor-core kernels raise for operands they do not take). K6
-    routes the same way (its "simt" at ``m <= 16`` is its cp.async ring); K10
-    takes :func:`t_route`."""
+    PERF.md); above 16 rows :func:`tile_kernel`'s choice for the layer's
+    ``k``, ``n``, ``layout`` and ``prenorm`` (``"wgmma"`` for bf16 and f16
+    over GPTQ words at any group size, desc_act included; ``"mma"`` for kb32l
+    words, the fused prologue and shapes TMA cannot address; ``"simt"`` for
+    f32). ``kernel`` names one instead (the tensor-core kernels raise for
+    operands they do not take). K6 routes the same way (its "simt" at
+    ``m <= 16`` is its cp.async ring); K10 takes :func:`t_route`."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
     if m <= DECODE_MAX_M:
         return "gemv" if dtype in MMA_DTYPES and gs >= MMA_K else "simt"
-    return tile_kernel(dtype)
+    return tile_kernel(dtype, None, k, n, layout, prenorm)
 
 
 STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
@@ -457,6 +589,45 @@ def _lib_gemv(name: str, norm: bool = False):
                  [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p])
 
 
+def _lib_wgmma(name: str):
+    """Library ``name``'s wgmma/TMA forward ``<name>_wgmma(x, qweight, scales,
+    zeros, bias, out, ws, counters, dtype, M, K, N, gs, bm, stages, splits,
+    stream)``, x already gathered by kperm."""
+    return _bind(name, name + WGMMA_SUFFIX, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p])
+
+
+def _launch_wgmma(name: str, entry, a, kperm, qweight, scales, zeros, bias, out, m, k, n, gs,
+                  bits, transpose: bool = False) -> None:
+    """One launch of the wgmma/TMA tile kernel on :func:`wgmma_plan`'s plan:
+    the forward (``a`` = x, ``bias``) or with ``transpose`` K10 (``a`` = g,
+    ``kperm`` undone on the store), counted under ``<name>_wgmma``. Raises for
+    a shape TMA cannot address (:func:`wgmma_shape_ok`, which :func:`route`
+    and :func:`t_route` never send here), a failed descriptor encode or
+    launch."""
+    if not wgmma_shape_ok(k, n):
+        raise NotImplementedError(f"{name}{WGMMA_SUFFIX} needs K % 8 == 0 and N % 16 == 0 for "
+                                  f"TMA, got K={k}, N={n}")
+    if a.data_ptr() % 16:          # TMA reads from a 16-byte aligned base
+        a = a.clone()
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = wgmma_plan(m, k, n, gs, bits, sms, transpose)
+    cols = k if transpose else n
+    ws, counters = build.split_scratch(
+        name + WGMMA_SUFFIX, a.device, plan["splits"] * m * cols if plan["splits"] > 1 else 0,
+        plan["tiles"])
+    lead = (_ptr(a), _ptr(kperm)) if transpose else (_ptr(a),)
+    tail = () if transpose else (_ptr(bias),)
+    code = entry(*lead, _ptr(qweight), _ptr(scales), _ptr(zeros), *tail, _ptr(out), _ptr(ws),
+                 _ptr(counters), DTYPE_CODES[a.dtype], m, k, n, gs, plan["bm"], plan["stages"],
+                 plan["splits"], _stream(a))
+    if code >= WGMMA_ENCODE_ERROR:
+        raise RuntimeError(f"{name}{WGMMA_SUFFIX}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{code - WGMMA_ENCODE_ERROR}")
+    build.check(name, code)
+    build.launches[name + WGMMA_SUFFIX] += 1
+
+
 def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int,
                        library: Optional[str] = None, group_size: int = 128) -> int:
     """How many GEMV blocks of ``bits``-bit codes (3 in nibbles) one SM holds
@@ -571,7 +742,17 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         w, eps, plus_one = prenorm
         _check_norm(w, k, x2d.device)
         suffix, extra = NORM_SUFFIX, (_ptr(w), DTYPE_CODES[w.dtype], float(eps), int(plus_one))
-    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0])
+    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n,
+                   prenorm=norm)
+    if chosen == "wgmma":
+        if norm:
+            raise NotImplementedError("the fused RMS-norm prologue runs on the 'gemv', 'mma' and "
+                                      "'simt' kernels, not 'wgmma'")
+        if kperm is not None:          # desc_act: x gathered once, as matmul_pallas does
+            x2d = x2d.index_select(1, kperm)
+        _launch_wgmma(name, _lib_wgmma(name), x2d, None, qweight, scales, zeros, bias, out, m, k,
+                      n, gs, bits)
+        return out
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
         plan = gemv_plan(k, n, m, gs, bits, sms)
@@ -670,13 +851,14 @@ def _lib_t(bits: int, route: str = "simt"):
     """K10's entry of ``bits``-bit storage on ``route``: ``<entry>`` (SIMT) and
     ``<entry>_mma`` ``(g, kperm, qweight, scales, zeros, dx, dtype, M, K, N,
     gs, stream)``, ``<entry>_gemv`` with ``ws, counters`` after ``dx`` and
-    ``nc, splits`` after ``gs``."""
-    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX}[route]
+    ``nc, splits`` after ``gs``, ``<entry>_wgmma`` with ``ws, counters`` after
+    ``dx`` and ``bm, stages, splits`` after ``gs``."""
+    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX, "wgmma": WGMMA_SUFFIX}[route]
     fn = getattr(build.load(T_KERNEL), T_ENTRIES[bits] + suffix)
     if fn.argtypes is None:
-        ptrs = 8 if route == "gemv" else 6
-        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * (7 if route == "gemv" else 5)
-                       + [ctypes.c_void_p])
+        ptrs = 8 if route in ("gemv", "wgmma") else 6
+        ints = {"gemv": 7, "wgmma": 8}.get(route, 5)
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -732,7 +914,10 @@ def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = t_route(g2d.dtype, m, _t_kernel(kernel))
+    route = t_route(g2d.dtype, m, _t_kernel(kernel), k, n, layout="kb32l")
+    if route == "wgmma":
+        raise NotImplementedError("K10 over kb32l words runs on the 'gemv', 'mma' and 'simt' "
+                                  "kernels, not 'wgmma'")
     _launch_t(route, _lib_t_kb32l(route), g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs, 4,
               scales.shape[1])
     return dx
@@ -768,7 +953,11 @@ def wna16_matmul_t(g2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tenso
     dx = torch.empty((m, k), dtype=g2d.dtype, device=g2d.device)
     if m == 0:
         return dx
-    route = t_route(g2d.dtype, m, _t_kernel(kernel))
+    route = t_route(g2d.dtype, m, _t_kernel(kernel), k, n)
+    if route == "wgmma":
+        _launch_wgmma(T_KERNEL, _lib_t(bits, route), g2d, kperm, qweight, scales, zeros, None, dx,
+                      m, k, n, gs, bits, transpose=True)
+        return dx
     _launch_t(route, _lib_t(bits, route), g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs,
               bits)
     return dx
@@ -936,7 +1125,11 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
-    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0])
+    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n,
+                   layout="kb32l")
+    if chosen == "wgmma":
+        raise NotImplementedError("K6's kb32l words run on the 'gemv', 'mma' and 'simt' kernels, "
+                                  "not 'wgmma'")
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
         plan = gemv_plan(k, n, m, gs, 4, sms)
@@ -1184,6 +1377,7 @@ __all__ = [
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k", "tile_kernel", "t_route", "mma_stage_groups", "mma_smem_bytes", "route",
+    "wgmma_shape_ok", "wgmma_stage_bytes", "wgmma_plan", "WGMMA_SUFFIX",
     "gemv_plan", "t_gemv_plan",
     "gemv_blocks_per_sm", "forced_kernel",
     "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "NORM_SUFFIX", "rms_apply", "prenorm_eligible", "ROUTED_KERNEL", "wna16_routed_matmul",

@@ -16,9 +16,10 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    At M <= 16 (bf16) the tensor-core decode GEMV runs (bit-equal on a second
    call, with its plan and weight bytes in flight per SM) and the SIMT GEMV is
    held and timed beside it on the same weights (``kernel="simt"``); at M = 128
-   and 2048 the tensor-core tile kernel beside the SIMT tile kernel; ptxas'
-   registers, spills and shared memory of every tensor-core instance (a spill
-   in a GEMV instance fails the run). K1's fused RMS-norm prologue on
+   and 2048 the wgmma/TMA tile kernel (bit-equal on a second call, with its
+   plan) beside the mma.sync tile kernel (``kernel="mma"``) and the SIMT tile
+   kernel; ptxas' registers, spills and shared memory of every tensor-core
+   instance (a spill in a GEMV or wgmma instance fails the run). K1's fused RMS-norm prologue on
    one layer's q/k/v and gate/up: each route (the tensor-core GEMV at M = 1, 4,
    16 in bf16 and f16, the SIMT GEMV in f32, the tensor-core and SIMT tile
    kernels at M = 24, a 3-bit and a ``plus_one`` case) against ``rms_apply``
@@ -47,7 +48,8 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    default device and greedy-decodes 512 tokens from a 16-token prompt at
    batch 1, with the launch counts set to 0 just before and read just after
    (exactly 224 ``w4a16_gemm_gemv`` per token, no SIMT GEMV); then a batch-2
-   left-padded run of 16 tokens. A profile of a short generate, and of the
+   left-padded run of 16 tokens (its 32-row prefill exactly 224
+   ``w4a16_gemm_wgmma``). A profile of a short generate, and of the
    same generate with every quantized matmul forced through the SIMT kernels
    (``gemm.forced_kernel``): the new route must launch one kernel per K1 call
    and take less device time per token; the SIMT route's kernels and reduces
@@ -58,7 +60,7 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    the int8 paged cache (224 GEMV launches per step in both). A profile of a
    short beam-4 generate, through both routes as for greedy. Then the same
    model with ``arch.FUSE_NORM = "1"`` (``AUTOGPTQ_TPU_FUSE_NORM``; put back
-   after): 512 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
+   after): 256 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
    ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
    norm's), a profiled 33-token window, the tokens equal to the default run's;
    beam-4 runs of 48 tokens with the switch off, on, on and off (host time in
@@ -79,27 +81,30 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    bit-equal on a second call, timed beside the SIMT GEMV. The rest classes
    (group sizes 16 does not divide, words straddling groups, a partial last
    group) at full width, one layer per storage width, through the tensor-core
-   GEMV's ANY_GS instance (M = 1, 4 and 16), the tensor-core tile kernel's
-   (M = 128 and 2048), K10's decode regime (M = 16) and the tensor-core K10's
-   ANY_GS instance (M = 128 and 2048), bf16 (each bit-equal on a second call
-   and faster than the kernel it replaced, timed beside it on the same
-   weights: the SIMT kernel, the tile K10 at M = 16; but the desc_act g172
-   forward at M >= 4) and f32 (the SIMT kernels); ptxas' registers and spills
-   of every tensor-core instance, the 12 ANY_GS ones too; K9 at 4-bit gs 12
+   GEMV's ANY_GS instance (M = 1, 4 and 16), the wgmma/TMA tile kernel
+   (M = 128 and 2048), K10's decode regime (M = 16) and the wgmma K10 (M = 128
+   and 2048), bf16 (each bit-equal on a second call and faster than the
+   kernel it replaced, timed beside it on the same weights: the mma.sync
+   kernels for the wgmma ones (the SIMT kernel beside too), the SIMT kernel
+   for the GEMV (but the desc_act g172 forward at M >= 4), the tile K10 at
+   M = 16) and f32 (the SIMT kernels); ptxas' registers and spills of every
+   tensor-core instance, the 12 ANY_GS ones too; K9 at 4-bit gs 12
    and 100 (Mixtral's gate/up shape, P = 2 and 8) through the routed GEMV's
    ANY_GS instance beside the SIMT routed kernel.
 10. The other widths generate: random 2-, 3- and 8-bit g128 checkpoints at
    full width and 8 layers, ``from_quantized``, 64 greedy tokens twice with
    equal tokens, launch counts (K5, K1, K4) set to 0 before and read after;
-   a batch-2 run whose 32-row prefill takes each width's tensor-core kernel.
+   a batch-2 run whose 32-row prefill takes each width's wgmma/TMA kernel
+   (exact counts), and its prefill again through the mma.sync kernel.
    Then the rest-class path: an 8-layer 4-bit group-size-100 checkpoint at
    full width, a batch-2 greedy generate of 16 tokens (its 32-row prefill
-   through the tensor-core tile kernel, exactly 7 x 8 launches, its decode
+   through the wgmma/TMA tile kernel, exactly 7 x 8 launches, its decode
    steps through the tensor-core GEMV, exactly 7 x 8 x 15; its prefill and
    first decode logits within 5e-2 of the SIMT route's,
    ``gemm.forced_kernel("simt")``), two LoRA steps of 4 x 512 tokens through
-   the tensor-core kernels only (step 1's loss and adapter gradients within
-   5e-2 of the SIMT route's; a profiled step through each route) and one of
+   the wgmma kernels only (step 1's loss and adapter gradients within 5e-2 of
+   the SIMT route's; a profiled step through each route and through the mma.sync
+   kernels) and one of
    1 x 16 tokens through the GEMV and K10's decode regime (exact counts, its
    loss within 5e-2 of the SIMT route's).
 11. Quantize on the card at full width: a random fp16 1-layer checkpoint,
@@ -116,15 +121,17 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    group-size-32 case, bf16 (timed) and f32; ``torch.matmul(g, W_bf16.T)`` on a
    pre-dequantized weight is the library yardstick. bf16 takes K10's split-N
    decode regime at M = 10 and 16 (bit-equal on a second call, with its
-   plan) and the tensor-core tile K10 above; the 4-bit rows also hold and
-   time the SIMT K10 and, at M <= 16, the tile K10, both slower.
+   plan) and the wgmma/TMA K10 above (bit-equal, with its plan); the 4-bit
+   rows also hold and time the SIMT K10 and the mma.sync tile K10, both
+   slower (else the run fails).
 13. Training on the main-path model (full depth and width, 4-bit g128):
    ``utils.peft.get_gptq_peft_model`` with LoRA at the example's defaults (r 16,
    alpha 32, q_proj and v_proj), 8 ``torch.optim.AdamW`` steps at lr 1e-3 on
    one random batch of 4 x 512 tokens (one row left-padded, labels -100 on the
    pads, the example's masked loss); the loss of every step, seconds per step,
    tokens/s, peak memory, K1 and K10 launches per step (counts set to 0 just
-   before each step and read just after: the tensor-core kernels only), a
+   before each step and read just after: exactly 224 ``w4a16_gemm_wgmma`` and
+   221 ``wna16_gemm_t_wgmma``), a
    profile of one more step (K1, K10, attention, other, and by kernel
    instance), ``save_adapter`` and a 16-token greedy ``generate`` with the
    adapters in place, twice with equal tokens.
@@ -170,7 +177,7 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    kb32l words at M = 64 and 2048.
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
-   model; 512 greedy tokens (counts set to 0 just before and read just after:
+   model; 256 greedy tokens (counts set to 0 just before and read just after:
    K6's GEMV 7 x 32 per token, no ring, no K1), then 32 again, equal to the
    first 32; the share of tokens equal to the main path's; a profile of 17
    tokens through both routes (the ring's beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
@@ -178,13 +185,16 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
    SIMT kernel forward in f32, K10 backward) on the card against the CPU.
 20. Estimates K2's and K7's device time per token over a 512-token run from
-   the sweeps, writes every measurement to ``build/chip_smoke.json`` and
+   the sweeps, holds the wgmma/TMA tile kernels per Llama-2-7B layer against
+   the mma.sync ones (faster at M = 128 and 2048, forward and K10; whether at most half
+   its time at M = 2048 is reported), writes every measurement to
+   ``build/chip_smoke.json`` and
    prints one JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
-line. Times are CUDA-event times of warmed calls with the 50 MB L2 cache
-flushed before each call.
+line. Times are medians of CUDA-event times of warmed calls with the 50 MB
+L2 cache flushed before each call.
 """
 
 from __future__ import annotations
@@ -199,8 +209,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
-# K1: the kernel and its plain version both dequantize and accumulate in f32
-# and round once to bf16 (2^-9 relative). Allowed: 1% of the largest output.
+# K1: the kernel and its plain version both dequantize and accumulate in f32 (the
+# wgmma/TMA kernels carry the weight as a bf16 hi/lo pair, about 16 bits) and
+# round once to bf16 (2^-9 relative). Allowed: 1% of the largest output.
 K1_REL_TOL = 1e-2
 # K2: both sides are f32 on the same bf16 inputs and differ only in summation
 # order and in exp; outputs are averages of values of order one.
@@ -217,8 +228,8 @@ K7_ABS_TOL = 1e-4
 # K1/K4/K5 with f32 activations: f32 weights and accumulation on both sides,
 # summation order only (K up to 11008 terms of order one).
 F32_ABS_TOL = 1e-4
-# K10: as K1, f32 weights and accumulation on both sides, one rounding to bf16;
-# with f32 cotangents F32_ABS_TOL.
+# K10: as K1, the weight as a bf16 hi/lo pair on the tensor cores; with f32
+# cotangents F32_ABS_TOL.
 K10_REL_TOL = 1e-2
 # Adapter gradients, card (bf16 activations, kernels) against CPU (f32, plain),
 # 2 full-width layers: relative Frobenius error of each adapter tensor's
@@ -246,6 +257,8 @@ BEAM_PROFILE_TOKENS = 17
 AUTOGPTQ_BEAM4_A100 = 91.30   # BASELINE.md: llama-7b gptq-int4, beam 4, 1x A100-40G
 SPIN_CYCLES = 1_000_000       # about 0.5 ms of GPU clock before each timed call
 NEW_TOKENS = 512
+KB32L_NEW_TOKENS = 256        # the kb32l path's and the fused norm's recorded greedy runs (512
+FUSED_NEW_TOKENS = 256        # tokens), held to the main path's first tokens
 PROFILE_TOKENS = 33
 PROMPT_LEN = 16
 # K9 against its plain version: f32 to F32_ABS_TOL, bf16 to 1% of the largest output
@@ -298,9 +311,11 @@ REPEAT_TOKENS = 32            # the kb32l path's repeat, held to its 512-token r
 MIXTRAL_REPEAT_TOKENS = 16    # the Mixtral path's repeat, likewise
 KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
 
-MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the tensor-core tile kernels
+MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the mma.sync tile kernels
+WGMMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_wgmma.cuh"  # the wgmma/TMA tile kernels
 GEMV_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_gemv.cuh"  # the tensor-core decode GEMV
-ROUTE_SUFFIX = {"gemv": "_gemv", "mma": "_mma", "simt": ""}  # launch-count key by gemm.route
+ROUTE_SUFFIX = {"gemv": "_gemv", "wgmma": "_wgmma", "mma": "_mma",
+                "simt": ""}  # launch-count key by gemm.route
 
 
 class SmokeFailure(RuntimeError):
@@ -320,10 +335,12 @@ def card_line() -> str:
 
 
 class Timer:
-    """Mean CUDA-event time of a warmed call, L2 flushed before each call.
-    A GPU-side spin between the flush and the start event keeps the card busy
-    while the host enqueues the call, so the events time the device work and
-    not the host's launch overhead."""
+    """Median CUDA-event time of a warmed call, L2 flushed before each call
+    (the median, not the mean: one stalled call, 1.9 ms among calls of
+    0.04 ms in one run, must not decide a comparison). A GPU-side spin between
+    the flush and the start event keeps the card busy while the host enqueues
+    the call, so the events time the device work and not the host's launch
+    overhead."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -334,7 +351,7 @@ class Timer:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(iters):
             self.flush.zero_()
             torch.cuda._sleep(SPIN_CYCLES)
@@ -344,8 +361,9 @@ class Timer:
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        times.sort()
+        return (times[(iters - 1) // 2] + times[iters // 2]) / 2
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -390,11 +408,12 @@ def gemv_plan_of(torch, gemm, dtype, k, n, m, gs, bits, library=None, experts=No
 
 def phase_k1(torch, np, timer) -> list:
     """K1 against its plain version at the Llama-2-7B shapes; at M <= 16 the
-    tensor-core decode GEMV and at M > 16 the tensor-core tile kernel (bf16),
-    each beside the SIMT GEMV or SIMT tile kernel on the same weights, each
-    held to K1_REL_TOL and timed; the GEMV also bit-equal on a second call,
-    with its plan."""
-    from autogptq_tpu_torch.ops import gemm
+    tensor-core decode GEMV and at M > 16 the wgmma/TMA tile kernel (bf16),
+    each beside the SIMT GEMV or SIMT tile kernel on the same weights (the
+    wgmma kernel also beside the mma.sync tile kernel), each held to
+    K1_REL_TOL and timed; the GEMV and the wgmma kernel also bit-equal on a
+    second call with one launch of their key, each with its plan."""
+    from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
 
@@ -412,7 +431,13 @@ def phase_k1(torch, np, timer) -> list:
             qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
             bias=bias, bits=4, group_size=128, in_features=k, out_features=n), device="cuda")
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        route = gemm.route(x.dtype, m, 128, k=k, n=n)
+        key = "w4a16_gemm" + ROUTE_SUFFIX[route]
+        before = dict(build.launches)
         y = qlin.matmul(x, layer)
+        check(all(build.launches[c] == before.get(c, 0) + (c == key)
+                  for c in ("w4a16_gemm" + sfx for sfx in ROUTE_SUFFIX.values())),
+              f"K1 {name} M={m}: launched {dict(build.launches)}, want one {key}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
@@ -420,16 +445,30 @@ def phase_k1(torch, np, timer) -> list:
         check(bool(torch.isfinite(y).all()), f"K1 {name} M={m}: non-finite output")
         check(err <= K1_REL_TOL * scale, f"K1 {name} M={m}: max |kernel - plain| = {err:.3e} "
                                          f"> {K1_REL_TOL} * {scale:.3e}")
-        route = gemm.route(x.dtype, m, 128)
         iters = 5 if m == TRAIN_M else 20
         simt = {}
-        if route in ("mma", "gemv"):   # the SIMT GEMV or tile kernel on the same weights
+        if route == "wgmma":   # the mma.sync tile kernel on the same weights
+            def mma():
+                return gemm.wna16_matmul(x, layer.qweight, layer.scales, layer.zeros,
+                                         layer.kperm, layer.bias, layer.group_size, 4,
+                                         kernel="mma")
+            ym = mma()
+            torch.cuda.synchronize()
+            merr = (ym.float() - ref.float()).abs().max().item()
+            check(merr <= K1_REL_TOL * scale, f"K1 mma {name} M={m}: max |kernel - plain| = "
+                                              f"{merr:.3e} > {K1_REL_TOL} * {scale:.3e}")
+            check(torch.equal(qlin.matmul(x, layer), y), f"K1 wgmma {name} M={m}: a second "
+                                                         "call differs")
+            simt.update(mma_max_abs_err=merr, mma_ms=timer.ms(mma, iters=iters),
+                        plan=gemm.wgmma_plan(m, k, n, 128, 4, torch.cuda.get_device_properties(
+                            0).multi_processor_count))
+        if route in ("wgmma", "gemv"):   # the SIMT GEMV or tile kernel on the same weights
             ys = simt_matmul(gemm, qlin, x, layer)
             torch.cuda.synchronize()
             serr = (ys.float() - ref.float()).abs().max().item()
             check(serr <= K1_REL_TOL * scale, f"K1 SIMT {name} M={m}: max |kernel - plain| = "
                                               f"{serr:.3e} > {K1_REL_TOL} * {scale:.3e}")
-            simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
+            simt.update(simt_max_abs_err=serr, simt_ms=timer.ms(
                 lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         if route == "gemv":
             check(torch.equal(qlin.matmul(x, layer), y), f"K1 GEMV {name} M={m}: a second call "
@@ -437,6 +476,9 @@ def phase_k1(torch, np, timer) -> list:
             simt["plan"] = gemv_plan_of(torch, gemm, x.dtype, k, n, m, 128, 4)
         w = qlin.logical_weight(layer, torch.bfloat16)
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
+        check(route != "wgmma" or ms < simt["mma_ms"],
+              f"K1 {name} M={m}: the wgmma kernel {ms:.4f} ms is not faster than the mma.sync "
+              f"tile kernel {simt.get('mma_ms', 0):.4f} ms")
         plain_ms = timer.ms(lambda: qlin.matmul_plain(x, layer), iters=min(iters, 10))
         lib_ms = timer.ms(lambda: torch.matmul(x, w), iters=iters)
         b_ms, b_by = bound_ms(nbytes(x, y, layer.qweight, layer.scales, layer.zeros,
@@ -449,6 +491,8 @@ def phase_k1(torch, np, timer) -> list:
               f"TFLOP/s)" + (f"  SIMT {'GEMV' if route == 'gemv' else 'tile'} "
                              f"{simt['simt_ms']:.4f} ms (err {simt['simt_max_abs_err']:.3e})"
                              if simt else "")
+              + (f"  mma.sync {simt['mma_ms']:.4f} ms (err {simt['mma_max_abs_err']:.3e})"
+                 if "mma_ms" in simt else "")
               + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
                 f"({b_by})" + (f"  plan {simt['plan']}" if "plan" in simt else ""), flush=True)
     return rows
@@ -487,7 +531,7 @@ def phase_prenorm(torch, np, timer) -> list:
             x = x.to(dtype)
             w = (1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")).to(dtype)
             pn = (w, PRENORM_EPS, plus_one)
-            route = gemm.route(dtype, m, 128)
+            route = gemm.route(dtype, m, 128, k=k, n=n, prenorm=True)
             key = NORM_KEY[route]
             check(gemm.prenorm_eligible(m, k, 128, bits), f"prenorm {case} {proj}: not eligible")
             before = dict(build.launches)
@@ -642,12 +686,12 @@ def phase_k6(torch, np, timer) -> dict:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
         before = dict(build.launches)
         y = qlin.matmul(x, layer)
-        route = gemm.route(dtype, m, 128)
+        route = gemm.route(dtype, m, 128, k=k, n=n, layout="kb32l")
         keys = [gemm.KB32L_KERNEL + suffix for suffix in ROUTE_SUFFIX.values()]
         key = gemm.KB32L_KERNEL + ROUTE_SUFFIX[route]
         check(all(build.launches[k6] == before.get(k6, 0) + (k6 == key) for k6 in keys)
-              and all(build.launches[k1] == before.get(k1, 0)
-                      for k1 in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv")),
+              and all(build.launches["w4a16_gemm" + sfx] == before.get("w4a16_gemm" + sfx, 0)
+                      for sfx in ROUTE_SUFFIX.values()),
               f"K6 {name} M={m}: launched {dict(build.launches)}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
@@ -764,6 +808,20 @@ def phase_wna16(torch, np, timer) -> list:
             check(err32 <= F32_ABS_TOL * max(1.0, scale),
                   f"{case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
             simt = {}
+            if route == "wgmma":   # bit-equal again, the mma.sync kernel on the same weights
+                check(torch.equal(qlin.matmul(x, layer), y), f"{case} M={m}: the wgmma kernel's "
+                                                             "second call differs")
+
+                def mma():
+                    return gemm.wna16_matmul(x, layer.qweight, layer.scales, layer.zeros,
+                                             layer.kperm, layer.bias, layer.group_size,
+                                             qlin.storage_bits(bits), kernel="mma")
+                ym = mma()
+                torch.cuda.synchronize()
+                merr = (ym.float() - ref.float()).abs().max().item()
+                check(merr <= K1_REL_TOL * scale, f"{case} M={m} mma.sync: max |kernel - plain| "
+                                                  f"= {merr:.3e} > {K1_REL_TOL} * {scale:.3e}")
+                simt = dict(mma_max_abs_err=merr, mma_ms=timer.ms(mma, iters=10))
             if route == "gemv":    # bit-equal again, and the SIMT GEMV on the same weights
                 check(torch.equal(qlin.matmul(x, layer), y), f"{case} M={m}: the GEMV's second "
                                                              "call differs")
@@ -785,7 +843,8 @@ def phase_wna16(torch, np, timer) -> list:
                              library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **simt))
             print(f"{key} {case:31s} K={k:5d} N={n:5d} M={m:3d}  bf16 err {err:.3e} (tol "
                   f"{K1_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  kernel "
-                  f"{ms:.4f} ms" + (f"  SIMT GEMV {simt['simt_ms']:.4f} ms" if simt else "")
+                  f"{ms:.4f} ms" + (f"  SIMT GEMV {simt['simt_ms']:.4f} ms" if "simt_ms" in simt
+                                    else f"  mma.sync {simt['mma_ms']:.4f} ms" if simt else "")
                   + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
@@ -803,15 +862,15 @@ def phase_rest(torch, np, timer) -> list:
     """The rest classes on the card: each layer through the decode regime
     (M = 1, 4 and 16: in bf16 the tensor-core GEMV's ANY_GS instance from
     group size 16 on, the SIMT GEMV below), the tile regime (M = 128 and a
-    training step's 2048, the tensor-core tile kernel's ANY_GS instance in
-    bf16) and K10 at M = 16 (its split-N decode regime in bf16), 128 and 2048
-    (the tensor-core K10's ANY_GS instance), bf16 (timed) and f32 (the SIMT
-    kernels), against the plain versions; each case bit-equal on a second call
-    and timed beside another kernel on the same weights. A tensor-core case
-    must beat the kernel it replaced: the SIMT kernel (``kernel="simt"``; but
-    the desc_act g172 forward at M >= 4, the GEMV's wide gather of x, and at
-    M = 128, the tile kernel's in-kernel gather: recorded), and for K10 at
-    M = 16 the tile K10 (``kernel="mma"``). Below group size 16 the decode
+    training step's 2048, the wgmma/TMA tile kernel in bf16) and K10 at M = 16
+    (its split-N decode regime in bf16), 128 and 2048 (the wgmma K10), bf16
+    (timed) and f32 (the SIMT kernels), against the plain versions; each case
+    bit-equal on a second call and timed beside another kernel on the same
+    weights. A tensor-core case must beat the kernel it replaced: the wgmma
+    kernels beat the mma.sync tile kernels (``kernel="mma"``, the SIMT kernel
+    timed beside too), the GEMV the SIMT kernel (``kernel="simt"``; but the
+    desc_act g172 forward at M >= 4, the GEMV's wide gather of x: recorded),
+    and for K10 at M = 16 the tile K10 (``kernel="mma"``). Below group size 16 the decode
     regime's SIMT GEMV is timed beside the GEMV's exact ANY_GS instance
     (``kernel="gemv"``, also held to the plain version and bit-equal), the
     design it keeps these group sizes from: recorded, not required."""
@@ -834,7 +893,7 @@ def phase_rest(torch, np, timer) -> list:
             x = torch.randn((m, n if what == "K10" else k), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             if what == "K10":
-                route = gemm.t_route(x.dtype, m)
+                route = gemm.t_route(x.dtype, m, k=k, n=n)
 
                 def run(v, kern=None):
                     return gemm.wna16_matmul_t(v, layer.qweight, layer.scales, layer.zeros,
@@ -847,7 +906,7 @@ def phase_rest(torch, np, timer) -> list:
                 def lib():
                     return torch.matmul(x, w.t())
             else:
-                route = gemm.route(x.dtype, m, gs)
+                route = gemm.route(x.dtype, m, gs, k=k, n=n)
 
                 def run(v, kern=None):
                     return gemm.wna16_matmul(v, layer.qweight, layer.scales, layer.zeros,
@@ -861,7 +920,7 @@ def phase_rest(torch, np, timer) -> list:
             base = gemm.T_KERNEL if what == "K10" else kernel
             key = base + ROUTE_SUFFIX[route]
             keys = [base + suffix for suffix in ROUTE_SUFFIX.values()]
-            want = "mma" if m > 16 else "gemv" if what == "K10" or gs >= 16 else "simt"
+            want = "wgmma" if m > 16 else "gemv" if what == "K10" or gs >= 16 else "simt"
             check(route == want, f"rest class {case} {what} M={m}: bf16 routes to {key}")
             before = dict(build.launches)
             y = run(x)
@@ -887,10 +946,11 @@ def phase_rest(torch, np, timer) -> list:
             check(torch.equal(run(x), y), f"rest class {case} {what} M={m}: a second call differs")
             iters = 5 if m == TRAIN_M else 10
             ms = timer.ms(lambda: run(x), iters=iters)
-            # the kernel this one replaced on the same weights: K10's tile kernel at M <= 16,
-            # else the SIMT kernel; beside the SIMT GEMV (below gs 16) the exact ANY_GS GEMV
-            old = "mma" if what == "K10" and route == "gemv" else "gemv" if route == "simt" \
-                else "simt"
+            # the kernel this one replaced on the same weights: the mma.sync tile kernel for the wgmma
+            # kernels and for K10 at M <= 16, else the SIMT kernel; beside the SIMT GEMV (below
+            # gs 16) the exact ANY_GS GEMV
+            old = ("mma" if route == "wgmma" or (what == "K10" and route == "gemv")
+                   else "gemv" if route == "simt" else "simt")
             ys = run(x, old)
             torch.cuda.synchronize()
             serr = (ys.float() - ref.float()).abs().max().item()
@@ -901,7 +961,12 @@ def phase_rest(torch, np, timer) -> list:
                       f"rest class {case} {what} M={m} gemv: a second call differs")
             old_ms = timer.ms(lambda: run(x, old), iters=iters, warmup=1)
             beside = {f"{old}_max_abs_err": serr, f"{old}_ms": old_ms}
-            if route != "simt" and not (ms < old_ms or (desc_act and what == "forward" and m > 1)):
+            if route == "wgmma":   # the SIMT kernel too, recorded
+                ys = run(x, "simt")
+                torch.cuda.synchronize()
+                beside.update(simt_max_abs_err=(ys.float() - ref.float()).abs().max().item(),
+                              simt_ms=timer.ms(lambda: run(x, "simt"), iters=iters, warmup=1))
+            if route != "simt" and not (ms < old_ms or (desc_act and route == "gemv" and m > 1)):
                 slower.append(f"{case} {what} M={m}: the tensor-core kernel {ms:.4f} ms, the "
                               f"{old} kernel {old_ms:.4f} ms")
             plain_ms = timer.ms(lambda: plain(x), iters=3, warmup=1)
@@ -915,6 +980,7 @@ def phase_rest(torch, np, timer) -> list:
             print(f"rest class {key} {case:22s} {what:7s} K={k:5d} N={n:5d} M={m:4d}  bf16 err "
                   f"{err:.3e} (tol {tol * scale:.3e})  f32 err {err32:.3e} (tol "
                   f"{F32_ABS_TOL})  kernel {ms:.4f} ms  {old} {old_ms:.4f} ms (err {serr:.3e})"
+                  + (f"  simt {beside['simt_ms']:.4f} ms" if route == "wgmma" else "") +
                   f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
         del layer, w
@@ -935,6 +1001,8 @@ def mma_ptxas() -> list:
     for name, bits in (("w4a16_gemm", 4), ("w8a16_gemm", 8), ("w2a16_gemm", 2),
                        ("w4a16_kb32l_gemm", 4), ("wna16_gemm_t", None)):
         for r in ptxas_report(name, "mma_kernel"):
+            if "wgmma" in r["function"]:   # wgmma_ptxas reports those
+                continue
             b = bits
             if b is None:   # K10's library holds the three widths: ILi<BITS>E in the name
                 b = next(x for x in (2, 4, 8) if f"ILi{x}E" in r["function"])
@@ -957,6 +1025,25 @@ def mma_ptxas() -> list:
               flush=True)
     check(sum(r["any_gs"] for r in out) == 12, "want 12 ANY_GS instances: 2 types x (3 forward "
                                                "libraries + K10's 3 widths)")
+    return out
+
+
+def wgmma_ptxas() -> list:
+    """ptxas' registers, spills and static shared memory of every wgmma/TMA
+    tile-kernel instance: the forward of the three libraries and K10's three
+    widths, each for bf16 and f16 and the block heights 64, 128 and 256 (36);
+    a spill fails the run."""
+    out = []
+    for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t"):
+        for r in ptxas_report(name, "wgmma_kernel"):
+            r.update(library=name)
+            out.append(r)
+    check(len(out) == 36, f"{len(out)} wgmma instances in the ptxas logs, want 36")
+    for r in out:
+        print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
+              f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B", flush=True)
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+              f"{r['function']} spills {r['spill_stores']}/{r['spill_loads']} B")
     return out
 
 
@@ -988,10 +1075,11 @@ def gemv_ptxas() -> list:
 def phase_k10(torch, np, timer) -> list:
     """K10 against its plain version at the shapes of a training step; bf16
     takes its split-N decode regime at M = 10 and 16 (bit-equal on a second
-    call, with its plan) and the tensor-core tile kernel above, f32 the SIMT
-    kernel; for the 4-bit rows (g128, desc_act, g32) the SIMT kernel, and at
-    M <= 16 the tile K10, beside it on the same weights, all held to
-    K10_REL_TOL and timed; the decode regime must beat both."""
+    call, with its plan) and the wgmma/TMA tile K10 above (bit-equal on a
+    second call, with its plan), f32 the SIMT kernel; for the 4-bit rows (g128,
+    desc_act, g32) the SIMT kernel and the mma.sync tile K10 beside it on the
+    same weights, all held to K10_REL_TOL and timed; the decode regime must
+    beat both."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
 
@@ -1008,12 +1096,14 @@ def phase_k10(torch, np, timer) -> list:
         case = f"{bits}-bit {name} g{gs}" + ("+desc_act" if desc_act else "")
         for m in (10, 16, 17, 128, TRAIN_M):
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-            route = gemm.t_route(g.dtype, m)
+            route = gemm.t_route(g.dtype, m, k=k, n=n)
             key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
-            before = build.launches[key]
+            before = dict(build.launches)
             dx = qlin.matmul_t(g, layer)
-            check(route == ("gemv" if m <= 16 else "mma") and build.launches[key] == before + 1,
-                  f"K10 {case} M={m}: {key} not launched")
+            check(route == ("gemv" if m <= 16 else "wgmma")
+                  and all(build.launches[c] == before.get(c, 0) + (c == key)
+                          for c in (gemm.T_KERNEL + sfx for sfx in ROUTE_SUFFIX.values())),
+                  f"K10 {case} M={m}: launched {dict(build.launches)}, want one {key}")
             ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                           layer.kperm, gs, qlin.storage_bits(bits))
             dx32 = qlin.matmul_t(g.float(), layer)
@@ -1031,12 +1121,13 @@ def phase_k10(torch, np, timer) -> list:
                   f"K10 {case} M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
             iters = 5 if m == TRAIN_M else 10
             simt = {}
-            if route == "gemv":   # bit-equal again, its plan
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            if route in ("gemv", "wgmma"):   # bit-equal again, its plan
                 check(torch.equal(qlin.matmul_t(g, layer), dx), f"K10 {case} M={m}: a second "
                                                                  "call differs")
-                simt["plan"] = gemm.t_gemv_plan(
-                    k, n, m, gs, bits, torch.cuda.get_device_properties(0).multi_processor_count)
-            if bits == 4 and route == "gemv":   # the tile K10 on the same weights
+                simt["plan"] = (gemm.t_gemv_plan(k, n, m, gs, bits, sms) if route == "gemv"
+                                else gemm.wgmma_plan(m, k, n, gs, bits, sms, transpose=True))
+            if bits == 4:   # the mma.sync tile K10 on the same weights
                 def tile_t():
                     return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros,
                                                layer.kperm, gs, 4, kernel="mma")
@@ -1061,6 +1152,9 @@ def phase_k10(torch, np, timer) -> list:
                 simt.update(simt_max_abs_err=serr,
                             simt_ms=timer.ms(simt_t, iters=iters, warmup=1))
             ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=iters, warmup=1)
+            if route == "wgmma" and bits == 4:
+                check(ms < simt["mma_ms"], f"K10 {case} M={m}: the wgmma K10 {ms:.4f} ms is not "
+                                           f"faster than the mma.sync tile K10 {simt['mma_ms']:.4f} ms")
             if route == "gemv" and bits == 4:
                 check(ms < min(simt["simt_ms"], simt["mma_ms"]),
                       f"K10 {case} M={m}: the decode regime {ms:.4f} ms is not faster than the "
@@ -1095,7 +1189,7 @@ def phase_k10(torch, np, timer) -> list:
     w = qlin.logical_weight(layer, torch.bfloat16)
     for m in (16, 64, TRAIN_M):
         g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        route = gemm.t_route(g.dtype, m)
+        route = gemm.t_route(g.dtype, m, layout="kb32l")
         key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
         before = build.launches[key]
         dx = qlin.matmul_t(g, layer)
@@ -1439,12 +1533,12 @@ def phase_train(torch, np, model, work: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check(bool(np.all(np.isfinite(losses))), f"non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    # every projection is a bf16 product of 2048 rows: the tensor-core kernels, no SIMT tile
+    # every projection is a bf16 product of 2048 rows: the wgmma/TMA kernels, exactly one per
+    # projection forward and one per backward but layer 0's q/k/v (its input needs no gradient)
+    want = {"w4a16_gemm" + gemm.WGMMA_SUFFIX: 7 * layers,
+            gemm.T_KERNEL + gemm.WGMMA_SUFFIX: 7 * layers - 3}
     for c in counts:
-        check(c.get("w4a16_gemm_mma", 0) == 7 * layers and not c.get("w4a16_gemm", 0)
-              and not c.get("w4a16_gemm_gemv", 0), f"a training step launched K1 {c}")
-        check(c.get(gemm.T_KERNEL + gemm.MMA_SUFFIX, 0) >= 7 * (layers - 1)
-              and not c.get(gemm.T_KERNEL, 0), f"a training step launched K10 {c}")
+        check(c == want, f"a training step launched {c}, want {want}")
     steady = float(np.median(seconds[1:]))
     tok_s = TRAIN_BATCH * TRAIN_LEN / steady
     print(f"train: LoRA r={TRAIN_RANK} alpha={2 * TRAIN_RANK} on q_proj and v_proj, Llama-2-7B "
@@ -1454,10 +1548,10 @@ def phase_train(torch, np, model, work: str) -> dict:
           f"{seconds[0]:.3f} s) = {tok_s:.1f} tokens/s; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches per step {counts[-1]}", flush=True)
     split = profile_train_step(torch, step)
-    check(not split or ("K1 tensor-core tile" in split["instances"]
-                        and "K10 tensor-core" in split["instances"]
-                        and "K1 SIMT tile" not in split["instances"]
-                        and "K10 SIMT" not in split["instances"]),
+    check(not split or ("K1 wgmma tile" in split["instances"]
+                        and "K10 wgmma" in split["instances"]
+                        and not {"K1 tensor-core tile", "K10 tensor-core", "K1 SIMT tile",
+                                 "K10 SIMT"} & set(split["instances"])),
           f"the profiled training step ran {split.get('instances')}")
 
     adapter_dir = os.path.join(work, "adapter")
@@ -1640,7 +1734,7 @@ def phase_grads(torch, np, ckpt_dir: str) -> dict:
                 continue
             torch.cuda.synchronize()
             counts = dict(build.launches)
-            key = gemm.T_KERNEL + (gemm.MMA_SUFFIX if dtype == torch.bfloat16 else "")
+            key = gemm.T_KERNEL + (gemm.WGMMA_SUFFIX if dtype == torch.bfloat16 else "")
             check(counts.get(key, 0) > 0, f"{kind} backward on the card ({run}) launched {counts}")
             out[kind][f"{run} backward_launches"] = counts
             if dtype != torch.bfloat16:
@@ -1680,7 +1774,7 @@ def phase_grads(torch, np, ckpt_dir: str) -> dict:
 def phase_other_widths(torch, np, work: str) -> dict:
     """2-, 3- and 8-bit checkpoints generate through K5, K1 and K4."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
-    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B, write_random_checkpoint
 
     cfg = dict(LLAMA2_7B, num_hidden_layers=OTHER_WIDTH_LAYERS)
@@ -1714,21 +1808,34 @@ def phase_other_widths(torch, np, work: str) -> dict:
         check(not any(counts.get(o + suffix, 0) for o in others for suffix in ROUTE_SUFFIX.values()),
               f"{bits}-bit run launched {counts}")
         tok_s = OTHER_WIDTH_TOKENS / gen_s
-        # two prompts: a 32-row prefill through the width's tensor-core tile kernel
+        # two prompts: a 32-row prefill through the width's wgmma/TMA tile kernel, and again
+        # through the mma.sync tile kernel (gemm.forced_kernel), held to the same tokens
+        batch = [prompt[0], prompt[0][::-1].copy()]
         build.launches.clear()
-        out2 = model.generate([prompt[0], prompt[0][::-1].copy()], max_new_tokens=4)
+        out2 = model.generate(batch, max_new_tokens=4)
         counts2 = dict(build.launches)
         check(out2.shape == (2, PROMPT_LEN + 4), f"{bits}-bit batch-2 output shape {out2.shape}")
-        check(counts2.get(kernel + "_mma", 0) == 7 * OTHER_WIDTH_LAYERS
-              and counts2.get(kernel + "_gemv", 0) == 7 * OTHER_WIDTH_LAYERS * 3
-              and not counts2.get(kernel, 0), f"{bits}-bit batch-2 launches {counts2}")
+        check(counts2 == {kernel + "_wgmma": 7 * OTHER_WIDTH_LAYERS,
+                          kernel + "_gemv": 7 * OTHER_WIDTH_LAYERS * 3,
+                          "flash_decode": 3 * OTHER_WIDTH_LAYERS},
+              f"{bits}-bit batch-2 launches {counts2}")
+        build.launches.clear()
+        with gemm.forced_kernel("mma"):
+            out3 = model.generate(batch, max_new_tokens=1)
+        counts3 = dict(build.launches)
+        check(counts3.get(kernel + "_mma", 0) == 7 * OTHER_WIDTH_LAYERS
+              and not counts3.get(kernel + "_wgmma", 0),
+              f"{bits}-bit batch-2 prefill through mma.sync launched {counts3}")
         out[bits] = dict(counts=counts, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
-                         layers=OTHER_WIDTH_LAYERS, batch2_counts=counts2)
+                         layers=OTHER_WIDTH_LAYERS, batch2_counts=counts2, mma_counts=counts3,
+                         mma_prefill_token_equal=bool(np.array_equal(out3, out2[:, :out3.shape[1]])))
         print(f"{bits}-bit g128, Llama-2-7B widths, {OTHER_WIDTH_LAYERS} of 32 layers, batch 1, "
               f"{PROMPT_LEN}-token prompt, {OTHER_WIDTH_TOKENS} new tokens greedy, twice with "
               f"equal tokens: {gen_s:.3f} s = {tok_s:.2f} tok/s at this depth (repeat "
               f"{again_s:.3f} s), launches {counts}; batch 2 (a {2 * PROMPT_LEN}-row prefill), 4 "
-              f"new tokens: launches {counts2}", flush=True)
+              f"new tokens: launches {counts2}; its prefill through the mma.sync kernel: "
+              f"launches {counts3}, first token equal {out[bits]['mma_prefill_token_equal']}",
+              flush=True)
         del model
         torch.cuda.empty_cache()
         shutil.rmtree(path, ignore_errors=True)
@@ -1748,25 +1855,26 @@ def phase_rest_path(torch, np, work: str) -> dict:
     groups), ``from_quantized`` on the card (bf16).
 
     * A batch-2 greedy generate of 16 tokens: its 32-row prefill through the
-      tensor-core tile kernel's ANY_GS instance (exactly 7 x 8
-      ``w4a16_gemm_mma``), its decode steps through the tensor-core GEMV's
+      wgmma/TMA tile kernel (exactly 7 x 8 ``w4a16_gemm_wgmma``), its decode
+      steps through the tensor-core GEMV's
       ANY_GS instance (exactly 7 x 8 x 15 ``w4a16_gemm_gemv``, no SIMT GEMV);
       the prefill logits and the first decode step's against the same model
       forced through the SIMT kernels (``gemm.forced_kernel("simt")``) within
       E2E_REL_TOL, and the tokens of both routes compared.
     * Two LoRA steps as ``phase_train`` takes them (r 16 on q/v, B = 0 at
-      start, 4 x 512 tokens): the forward through ``w4a16_gemm_mma``, the
-      backward through ``wna16_gemm_t_mma`` at M = 2048 (exact counts, no SIMT
-      tile kernel or SIMT K10); step 1's loss within GRAD_REL_TOL of the SIMT
+      start, 4 x 512 tokens): the forward through ``w4a16_gemm_wgmma``, the
+      backward through ``wna16_gemm_t_wgmma`` at M = 2048 (exact counts, no
+      other tile kernel or K10); step 1's loss within GRAD_REL_TOL of the SIMT
       route's on the same weights; its adapter gradients against the SIMT
       route's (bf16) and against the same model's in f32 (the SIMT kernels),
       reported and not held: through 8 random layers at this batch the bf16
       gradients of both routes lie far from the f32 ones, so the difference
       of the two routes measures bf16 rounding, not the kernels; a profiled
-      step through each route (device ms by family).
+      step through each route and through the mma.sync tile kernels (device
+      ms by family).
     * The held gradient check, on the checkpoint's first 2 layers (the cut and
       batch of ``phase_grads``, 1 x 64 tokens, every adapter tensor drawn):
-      the LoRA gradients of the tensor-core route (bf16; the tile K10) against
+      the LoRA gradients of the default route (bf16; the wgmma K10) against
       the SIMT route's in f32 on the same weights within GRAD_REL_TOL, and
       against the SIMT route's in bf16, reported. At 1 x 16 tokens the
       tensor-core route's backward is K10's decode regime
@@ -1819,12 +1927,12 @@ def phase_rest_path(torch, np, work: str) -> dict:
           f"{rel_dec:.3e} > {E2E_REL_TOL}")
     check(out.shape == (2, PROMPT_LEN + 16) and bool(((out >= 0) & (out < cfg["vocab_size"])).all()),
           f"g{gs} path: output {out.shape}")
-    want = {"w4a16_gemm_mma": 7 * layers, "w4a16_gemm_gemv": 7 * layers * 15}
+    want = {"w4a16_gemm_wgmma": 7 * layers, "w4a16_gemm_gemv": 7 * layers * 15}
     check({k: v for k, v in counts.items() if k.startswith("w4a16")} == want,
           f"g{gs} path: K1 launches {counts}, want {want}")
     same = int((out[:, PROMPT_LEN:] == out_simt[:, PROMPT_LEN:]).sum())
     print(f"rest-class path: Llama-2-7B widths, {layers} layers, 4-bit g{gs}: batch-2 prefill "
-          f"logits (the tensor-core tile kernel) against the SIMT route's: relative error "
+          f"logits (the wgmma/TMA tile kernel) against the SIMT route's: relative error "
           f"{rel:.3e}, first decode step's (the tensor-core GEMV) {rel_dec:.3e} (tol "
           f"{E2E_REL_TOL}); {same} of {out[:, PROMPT_LEN:].size} greedy tokens equal to the "
           f"SIMT route's; launches {counts} (SIMT route {counts_simt})", flush=True)
@@ -1867,7 +1975,7 @@ def phase_rest_path(torch, np, work: str) -> dict:
     loss_rel = abs(losses[None] - losses["simt"]) / abs(losses["simt"])
     check(np.isfinite(losses[None]) and loss_rel <= GRAD_REL_TOL,
           f"g{gs} path: step 1 loss {losses[None]} (SIMT route {losses['simt']})")
-    want_step = {"w4a16_gemm_mma": 7 * layers, "wna16_gemm_t_mma": 7 * layers - 3}
+    want_step = {"w4a16_gemm_wgmma": 7 * layers, "wna16_gemm_t_wgmma": 7 * layers - 3}
     want_simt = {"w4a16_gemm": 7 * layers, "wna16_gemm_t": 7 * layers - 3}
     check(launches[None] == want_step and launches["simt"] == want_simt,
           f"g{gs} path: a training step launched {launches[None]} (want {want_step}), the SIMT "
@@ -1877,15 +1985,15 @@ def phase_rest_path(torch, np, work: str) -> dict:
     opt.step()
     check(np.isfinite(step2), f"g{gs} path: step 2 loss {step2}")
     profiles = {}
-    for route in (None, "simt"):
+    for route in (None, "mma", "simt"):
         with gemm.forced_kernel(route):
-            profiles[route or "mma"] = profile_train_step(torch, fwd_bwd)
+            profiles[route or "wgmma"] = profile_train_step(torch, fwd_bwd)
     print(f"rest-class path, LoRA r={TRAIN_RANK} on q_proj and v_proj, batch {TRAIN_BATCH} x "
           f"{TRAIN_LEN}: step 1 loss {losses[None]:.6f} (SIMT route {losses['simt']:.6f}, "
           f"relative {loss_rel:.3e}, tol {GRAD_REL_TOL}; f32 {losses['f32']:.6f}); adapter "
           f"gradients (reported, not held; the A tensors' are 0 on every route while B = 0), "
-          f"relative error max / median over {len(rels)} tensors: tensor-core against SIMT "
-          f"route {max(rels):.3e} / {float(np.median(rels)):.3e}, tensor-core against f32 "
+          f"relative error max / median over {len(rels)} tensors: wgmma against SIMT "
+          f"route {max(rels):.3e} / {float(np.median(rels)):.3e}, wgmma against f32 "
           f"{max(rels32[None]):.3e} / {float(np.median(rels32[None])):.3e}, SIMT route against "
           f"f32 {max(rels32['simt']):.3e} / {float(np.median(rels32['simt'])):.3e}; step 2 loss "
           f"{step2:.6f}; launches per step {launches[None]} (SIMT route {launches['simt']})",
@@ -1923,7 +2031,8 @@ def phase_rest_path(torch, np, work: str) -> dict:
     toks = torch.from_numpy(np.random.default_rng(6).integers(1, cfg["vocab_size"], (1, GRAD_LEN)))
     lens = (GRAD_LEN, 16)   # the tile K10 and K10's decode regime
     cut_grads, cut_launches = {n: {} for n in lens}, {n: {} for n in lens}
-    for label, dtype, route in (("mma", torch.bfloat16, None), ("simt", torch.bfloat16, "simt"),
+    for label, dtype, route in (("default", torch.bfloat16, None),
+                                ("simt", torch.bfloat16, "simt"),
                                 ("simt f32", torch.float32, None),
                                 ("tile", torch.bfloat16, "mma")):
         cm = AutoGPTQForCausalLM.from_quantized(cut, dtype=dtype)
@@ -1945,34 +2054,35 @@ def phase_rest_path(torch, np, work: str) -> dict:
         del cm, leaves
     shutil.rmtree(cut, ignore_errors=True)
     cut_rel, cut_rel_bf16, cut_rel_f32 = {}, {}, {}
-    for n, t_key in zip(lens, ("wna16_gemm_t_mma", "wna16_gemm_t_gemv")):
+    for n, t_key in zip(lens, ("wna16_gemm_t_wgmma", "wna16_gemm_t_gemv")):
         grads_n, launches_n = cut_grads[n], cut_launches[n]
-        cut_rel[n] = [_rel_err(a, b) for a, b in zip(grads_n["mma"], grads_n["simt f32"])]
-        cut_rel_bf16[n] = [_rel_err(a, b) for a, b in zip(grads_n["mma"], grads_n["simt"])]
+        cut_rel[n] = [_rel_err(a, b) for a, b in zip(grads_n["default"], grads_n["simt f32"])]
+        cut_rel_bf16[n] = [_rel_err(a, b) for a, b in zip(grads_n["default"], grads_n["simt"])]
         # every bf16 route against f32: (max, median)
         cut_rel_f32[n] = {label: [_rel_err(a, b) for a, b in zip(grads_n[label],
                                                                   grads_n["simt f32"])]
-                          for label in ("mma", "simt", "tile")}
+                          for label in ("default", "simt", "tile")}
         spread = ", ".join(f"{label} {max(v):.3e} / {float(np.median(v)):.3e}"
                            for label, v in cut_rel_f32[n].items())
         print(f"rest-class path, 2-layer cut (the first 2 layers), 1 x {n} tokens, LoRA with "
-              f"every adapter drawn: gradients of the tensor-core route (bf16, {t_key}) against "
+              f"every adapter drawn: gradients of the default route (bf16, {t_key}) against "
               f"the SIMT route's in f32: relative error max {max(cut_rel[n]):.3e}, median "
               f"{float(np.median(cut_rel[n])):.3e}; against the SIMT route's in bf16 max "
               f"{max(cut_rel_bf16[n]):.3e}, median {float(np.median(cut_rel_bf16[n])):.3e} (tol "
               f"{GRAD_REL_TOL}: 1 x {GRAD_LEN} against f32, 1 x 16 against the SIMT route in "
               f"bf16); each bf16 route against f32, max / median: {spread}; launches "
               f"{launches_n}", flush=True)
-        others = {"wna16_gemm_t", "wna16_gemm_t_mma", "wna16_gemm_t_gemv"} - {t_key}
-        check(launches_n["mma"].get(t_key, 0) > 0
-              and not any(launches_n["mma"].get(o, 0) for o in others)
-              and not launches_n["mma"].get("w4a16_gemm", 0)
+        others = {"wna16_gemm_t", "wna16_gemm_t_mma", "wna16_gemm_t_wgmma",
+                  "wna16_gemm_t_gemv"} - {t_key}
+        check(launches_n["default"].get(t_key, 0) > 0
+              and not any(launches_n["default"].get(o, 0) for o in others)
+              and not launches_n["default"].get("w4a16_gemm", 0)
               and not launches_n["simt f32"].get(t_key, 0)
               and launches_n["tile"].get("wna16_gemm_t_mma", 0) > 0,
               f"g{gs} 2-layer cut, 1 x {n} tokens: launches {launches_n}, want {t_key}")
         held, against = (cut_rel[n], "f32") if n == GRAD_LEN else (cut_rel_bf16[n], "bf16")
         check(all(np.isfinite(held)) and max(held) <= GRAD_REL_TOL,
-              f"g{gs} 2-layer cut, 1 x {n} tokens: LoRA gradients of the tensor-core route "
+              f"g{gs} 2-layer cut, 1 x {n} tokens: LoRA gradients of the default route "
               f"({t_key}) against the SIMT route's in {against}, relative error "
               f"{max(held):.3e} > {GRAD_REL_TOL}")
     torch.cuda.empty_cache()
@@ -1982,7 +2092,7 @@ def phase_rest_path(torch, np, work: str) -> dict:
                                 launches=small_launches),
                 losses=losses, step2_loss=step2,
                 loss_rel_err=loss_rel, grad_rel_errs=rels,
-                grad_rel_errs_f32={"mma": rels32[None], "simt": rels32["simt"]},
+                grad_rel_errs_f32={"wgmma": rels32[None], "simt": rels32["simt"]},
                 step_launches=launches,
                 profiles=profiles, cut_grad_rel_errs=cut_rel,
                 cut_grad_rel_errs_bf16=cut_rel_bf16, cut_grad_rel_errs_each_f32=cut_rel_f32,
@@ -2458,12 +2568,12 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
     check(out2.shape == (2, PROMPT_LEN + 16), f"batch-2 output shape {out2.shape}")
     check(bool((out2[1, :PROMPT_LEN - 9] == 0).all()), "batch-2 row 1 is not left-padded")
     check(bool(((out2 >= 0) & (out2 < cfg["vocab_size"])).all()), "batch-2 token ids out of range")
-    # the 32-row prefill takes K1's tensor-core tile kernel, the 15 decode steps its GEMV
-    check(counts2.get("w4a16_gemm_mma", 0) == 7 * layers
-          and counts2.get("w4a16_gemm_gemv", 0) == 7 * layers * 15
-          and not counts2.get("w4a16_gemm", 0), f"batch-2 K1 launches {counts2}")
+    # the 32-row prefill takes K1's wgmma/TMA tile kernel, the 15 decode steps its GEMV
+    check({k: v for k, v in counts2.items() if k.startswith("w4a16_gemm")}
+          == {"w4a16_gemm_wgmma": 7 * layers, "w4a16_gemm_gemv": 7 * layers * 15},
+          f"batch-2 K1 launches {counts2}")
     print(f"batch 2, left-padded prompts of {PROMPT_LEN} and 9 tokens (a {2 * PROMPT_LEN}-row "
-          f"prefill: K1's tensor-core tile kernel), 16 new tokens: shape {out2.shape}, launches "
+          f"prefill: K1's wgmma/TMA tile kernel), 16 new tokens: shape {out2.shape}, launches "
           f"{counts2}", flush=True)
     routes = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS, "batch-1 generate",
                             PROFILE_TOKENS)
@@ -2518,21 +2628,21 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     torch.cuda.reset_peak_memory_stats()
     build.launches.clear()
     t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=NEW_TOKENS)
+    out = model.generate(prompt, max_new_tokens=KB32L_NEW_TOKENS)
     gen_s = time.perf_counter() - t0
     counts = dict(build.launches)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     again = model.generate(prompt, max_new_tokens=REPEAT_TOKENS)
     again_s = time.perf_counter() - t0
-    steps = NEW_TOKENS - 1
+    steps = KB32L_NEW_TOKENS - 1
     # the 16-token prefill (M = 16) and every decode step (M = 1): 7 launches per layer of
     # K6's tensor-core GEMV, none of its ring (so no split-K reduce either)
     gemv_key = gemm.KB32L_KERNEL + gemm.GEMV_SUFFIX
     want_counts = {gemv_key: 7 * layers * (steps + 1), gemm.KB32L_KERNEL: 0,
                    "flash_decode": layers * steps}
     new = out[:, PROMPT_LEN:]
-    check(out.shape == (1, PROMPT_LEN + NEW_TOKENS), f"kb32l output shape {out.shape}")
+    check(out.shape == (1, PROMPT_LEN + KB32L_NEW_TOKENS), f"kb32l output shape {out.shape}")
     check(bool(((new >= 0) & (new < vocab)).all()), "kb32l token ids out of range")
     check(np.array_equal(out[:, :PROMPT_LEN + REPEAT_TOKENS], again),
           "kb32l greedy decode does not repeat its tokens")
@@ -2543,11 +2653,13 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
                                         f"times, want {n}")
     check(not any(counts.get("w4a16_gemm" + suffix, 0) for suffix in ROUTE_SUFFIX.values()),
           f"kb32l greedy launched K1: {counts}")
-    same = float((new == main_out[:, PROMPT_LEN:]).mean())
-    agree = int(np.argmin(new[0] == main_out[0, PROMPT_LEN:])) if same < 1 else NEW_TOKENS
-    tok_s = NEW_TOKENS / gen_s
+    main_new = main_out[:, PROMPT_LEN:PROMPT_LEN + KB32L_NEW_TOKENS]
+    same = float((new == main_new).mean())
+    agree = int(np.argmin(new[0] == main_new[0])) if same < 1 else KB32L_NEW_TOKENS
+    tok_s = KB32L_NEW_TOKENS / gen_s
     print(f"kb32l path: Llama-2-7B 4-bit g128 from_quantized(layout='kb32l'), {layers} layers, "
-          f"batch 1, {PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens greedy (repeated over "
+          f"batch 1, {PROMPT_LEN}-token prompt, {KB32L_NEW_TOKENS} new tokens greedy (repeated "
+          f"over "
           f"{REPEAT_TOKENS}, equal tokens): loaded in {load_s:.1f} s (peak {load_peak / 2**30:.2f} GiB), prefill logits "
           f"vs the GPTQ layout rel err {prefill_rel:.3e} (tol {KB32L_E2E_REL_TOL}), generate "
           f"{gen_s:.3f} s = {tok_s:.2f} tok/s (repeat of {REPEAT_TOKENS}: {again_s:.3f} s), "
@@ -2555,7 +2667,7 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
           f"{(counts.get(gemv_key, 0) - 7 * layers) / steps:.0f}, K2 "
           f"{counts.get('flash_decode', 0) / steps:.0f}, K1 0; {100 * same:.1f}% of the tokens "
           f"equal to the main path's (the first {agree} in a row); launches {counts}", flush=True)
-    profile = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+    profile = compare_routes(torch, model, prompt, 1e3 * gen_s / KB32L_NEW_TOKENS,
                              "kb32l batch-1 generate", KB32L_PROFILE_TOKENS,
                              checked=(("K6 w4a16_kb32l_gemm", gemm.KB32L_KERNEL),),
                              families=KB32L_FAMILIES)
@@ -2737,8 +2849,8 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     try:
         arch.FUSE_NORM = "1"
         warm = model.generate(prompt, max_new_tokens=4)
-        out, gen_s, counts, norm_calls = run(NEW_TOKENS, True)
-        profile = profile_generate(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
+        out, gen_s, counts, norm_calls = run(FUSED_NEW_TOKENS, True)
+        profile = profile_generate(torch, model, prompt, 1e3 * gen_s / FUSED_NEW_TOKENS,
                                    "batch-1 generate, fused norm", PROFILE_TOKENS)
         model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
         beam_ab = [run(FUSED_AB_TOKENS, fused, num_beams=BEAMS) for fused in turns]
@@ -2763,23 +2875,26 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         return {fused: 5 * layers * steps, unfused: 7 * layers + 2 * layers * steps}
 
     vocab = model.cfg.vocab_size
-    check(out.shape == (1, PROMPT_LEN + NEW_TOKENS) and bool(
+    check(out.shape == (1, PROMPT_LEN + FUSED_NEW_TOKENS) and bool(
         ((out[:, PROMPT_LEN:] >= 0) & (out[:, PROMPT_LEN:] < vocab)).all()),
         f"fused greedy output {out.shape}")
     check(np.array_equal(out[:, :PROMPT_LEN + 4], warm), "fused greedy is not deterministic")
-    steps = NEW_TOKENS - 1
+    steps = FUSED_NEW_TOKENS - 1
     check(k1_counts(counts) == want(steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv"),
           f"fused greedy: K1 launches {k1_counts(counts)}, want "
           f"{want(steps, 'w4a16_gemm_gemv_norm', 'w4a16_gemm_gemv')}")
     # the prefill's 2 norms per layer and the final one, then one final norm per step
     check(norm_calls == {"rms_norm": 2 * layers + 1 + steps},
           f"fused greedy: norm calls {norm_calls}, want rms_norm {2 * layers + 1 + steps}")
-    same = int((out[0, PROMPT_LEN:] == main_out[0, PROMPT_LEN:]).sum())
-    diff = np.nonzero(out[0, PROMPT_LEN:] != main_out[0, PROMPT_LEN:])[0]
-    tok_s = NEW_TOKENS / gen_s
-    print(f"fused norm (AUTOGPTQ_TPU_FUSE_NORM=1), greedy: {NEW_TOKENS} tokens in {gen_s:.3f} s "
+    main_new = main_out[0, PROMPT_LEN:PROMPT_LEN + FUSED_NEW_TOKENS]
+    same = int((out[0, PROMPT_LEN:] == main_new).sum())
+    diff = np.nonzero(out[0, PROMPT_LEN:] != main_new)[0]
+    tok_s = FUSED_NEW_TOKENS / gen_s
+    print(f"fused norm (AUTOGPTQ_TPU_FUSE_NORM=1), greedy: {FUSED_NEW_TOKENS} tokens in "
+          f"{gen_s:.3f} s "
           f"= {tok_s:.2f} tok/s; per decode token {5 * layers} w4a16_gemm_gemv_norm, "
-          f"{2 * layers} w4a16_gemm_gemv, 1 rms_norm (the final norm); {same} of {NEW_TOKENS} "
+          f"{2 * layers} w4a16_gemm_gemv, 1 rms_norm (the final norm); {same} of "
+          f"{FUSED_NEW_TOKENS} "
           f"tokens equal to the default run's (first difference at "
           f"{int(diff[0]) if len(diff) else None}); launches {counts}", flush=True)
 
@@ -2806,7 +2921,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"{beam_same} of {FUSED_AB_TOKENS} beam tokens equal to the unfused beam's; launches "
           f"{beam_ab[1][2]}", flush=True)
     bsteps = FUSED_BATCH_TOKENS - 1
-    check(k1_counts(batch_counts) == want(bsteps, "w4a16_gemm_mma_norm", "w4a16_gemm_mma"),
+    check(k1_counts(batch_counts) == want(bsteps, "w4a16_gemm_mma_norm", "w4a16_gemm_wgmma"),
           f"fused batch {FUSED_BATCH}: K1 launches {k1_counts(batch_counts)}")
     batch_same = int((batch[:, -FUSED_BATCH_TOKENS:] == batch_ref[:, -FUSED_BATCH_TOKENS:]).sum())
     print(f"fused norm, bf16 batch of {FUSED_BATCH} prompts, {FUSED_BATCH_TOKENS} new tokens "
@@ -2862,7 +2977,8 @@ def phase_fused_cut(torch, np, cut_dir: str) -> dict:
     card = launches["card"]
     check(card.get("w4a16_gemm_norm", 0) == 5 * 2 * steps
           and not any(card.get(k, 0) for k in ("w4a16_gemm_gemv_norm", "w4a16_gemm_mma_norm",
-                                               "w4a16_gemm_gemv", "w4a16_gemm_mma")),
+                                               "w4a16_gemm_gemv", "w4a16_gemm_mma",
+                                               "w4a16_gemm_wgmma")),
           f"fused cut: card launches {card}, want {5 * 2 * steps} w4a16_gemm_norm")
     rel = ((res["card"][0] - res["cpu"][0]).norm() / res["cpu"][0].norm()).item()
     check(bool(torch.isfinite(res["card"][0]).all()) and rel <= E2E_F32_REL_TOL,
@@ -2877,13 +2993,16 @@ def phase_fused_cut(torch, np, cut_dir: str) -> dict:
     return dict(rel_err=rel, launches=launches)
 
 
-# K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...> and the tensor-core
-# wna16_mma_kernel<BITS, ...>); the profiled model is 4-bit. K10 is wna16_t_kernel<BITS, ...>
-# and the tensor-core wna16_t_mma_kernel<BITS, ...>.
+# K1, K4 and K5 are one template (wna16_{decode,prefill}_kernel<BITS, ...>, the tensor-core
+# wna16_mma_kernel<BITS, ...> and the wgmma/TMA wna16_wgmma_kernel<BITS, ...>); the profiled
+# model is 4-bit. K10 is wna16_t_kernel<BITS, ...>, the tensor-core wna16_t_mma_kernel<BITS,
+# ...> and the wgmma/TMA wna16_t_wgmma_kernel<BITS, ...> (no name is a substring of another).
 K1_KEYS = ("wna16_decode", "wna16_prefill", "splitk_reduce", "wna16_mma_kernel",
-           "wna16_gemv_kernel")
-K10_KEYS = ("wna16_t_kernel", "wna16_t_mma_kernel")
+           "wna16_wgmma_kernel", "wna16_gemv_kernel")
+K10_KEYS = ("wna16_t_kernel", "wna16_t_mma_kernel", "wna16_t_wgmma_kernel")
 KERNEL_INSTANCES = (("K1 tensor-core GEMV", "wna16_gemv_kernel"),
+                    ("K1 wgmma tile", "wna16_wgmma_kernel"),
+                    ("K10 wgmma", "wna16_t_wgmma_kernel"),
                     ("K1 tensor-core tile", "wna16_mma_kernel"),
                     ("K1 SIMT tile", "wna16_prefill_kernel"),
                     ("K1 GEMV", "wna16_decode_kernel"), ("K1 split-K reduce", "splitk_reduce"),
@@ -3342,6 +3461,7 @@ def main() -> int:
     wna_rows = timed("K4/K5/K1 classes", phase_wna16, torch, np, timer)
     rest_rows = timed("rest classes", phase_rest, torch, np, timer)
     ptxas = mma_ptxas()
+    wgmma_regs = wgmma_ptxas()
     gemv_regs = gemv_ptxas()
     prenorm_regs = prenorm_ptxas()
     k2_rows = timed("K2", phase_k2, torch, timer)
@@ -3504,6 +3624,25 @@ def main() -> int:
           f"M = {m}: the decode regime {v['ms']:.4f} ms, the tile K10 {v['mma_ms']:.4f} ms, the "
           f"SIMT kernel {v['simt_ms']:.4f} ms, torch.matmul {v['library_ms']:.4f} ms, bound "
           f"{v['bound_ms']:.4f} ms" for m, v in k10_m16.items()), flush=True)
+    # the wgmma/TMA tile kernels against the mma.sync ones on the same weights, per layer:
+    # faster at M = 128 and at a training step's M (else the run fails; each call was already
+    # held to it), the target of at most half the mma.sync kernel's time at the training step's M reported
+    tile_m = {(what, m): {key: layer_sum(rows, key, m) for key in
+                          ("ms", "mma_ms", "simt_ms", "library_ms", "bound_ms")}
+              for what, rows in (("forward", k1_rows), ("K10", k10_g128)) for m in (128, TRAIN_M)}
+    for v in tile_m.values():
+        v["half_of_mma_met"] = v["ms"] <= 0.5 * v["mma_ms"]
+    print("wgmma/TMA tile kernels, one Llama-2-7B layer's 7 projections, 4-bit g128, bf16: "
+          + "; ".join(f"{what} M = {m}: {v['ms']:.4f} ms, mma.sync {v['mma_ms']:.4f} ms "
+                      f"({v['ms'] / v['mma_ms']:.3f}x"
+                      + (f", at most half: {'met' if v['half_of_mma_met'] else 'NOT MET'}"
+                         if m == TRAIN_M else "")
+                      + f"), SIMT {v['simt_ms']:.4f} ms, torch.matmul {v['library_ms']:.4f} ms, "
+                      f"bound {v['bound_ms']:.4f} ms" for (what, m), v in tile_m.items()),
+          flush=True)
+    for (what, m), v in tile_m.items():
+        check(v["ms"] < v["mma_ms"], f"the wgmma {what} at M = {m}: {v['ms']:.4f} ms per layer "
+                                     f"against the mma.sync kernel's {v['mma_ms']:.4f} ms")
     k9_layer = {p: {key: mixtral_layer_sum(k9_rows, key, p) for key in
                     ("ms", "selected_only_ms", "simt_ms", "bound_ms", "library_ms")}
                 for p in K9_SELS}
@@ -3566,21 +3705,61 @@ def main() -> int:
                    m=TRAIN_M, ms_key="simt_ms",
                    errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "simt"]
                    + [r["simt_max_abs_err"] for r in k10_rows if "simt_ms" in r]),
-        gemm_entry("wna16_gemm_t_mma", "autogptq_tpu/ops/pallas/gemm.py:811",
+        gemm_entry("wna16_gemm_t_wgmma", "autogptq_tpu/ops/pallas/gemm.py:811",
                    train["launches_per_step"], k10_g128,
-                   f"the tensor-core K10: one Llama-2-7B decoder layer's 7 projections at M="
+                   f"the wgmma/TMA K10: one Llama-2-7B decoder layer's 7 projections at M="
                    f"{TRAIN_M} (a {TRAIN_BATCH} x {TRAIN_LEN} batch), 4-bit g128, bf16 "
-                   f"cotangents; launches from one LoRA training step at full depth; "
-                   f"max_abs_err over every tensor-core K10 case", m=TRAIN_M, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "mma"]
-                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_mma"]),
-        gemm_entry("w4a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:487", train["launches_per_step"],
-                   k1_rows, f"K1's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
-                   f"projections at M={TRAIN_M}, g128, bf16 (replaces the prefill regime of "
-                   f"_kernel_kb32 :487); launches from one LoRA training step at full depth; "
-                   f"max_abs_err over every K1 case it ran", m=TRAIN_M, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "mma"]
-                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "w4a16_gemm_mma"]),
+                   f"cotangents (replaces _kernel_kb32_t :811, _kernel_ki32_t :1031 and "
+                   f"_kernel_kpair_t :1289 above 16 rows); launches from one LoRA training step "
+                   f"at full depth; max_abs_err over every wgmma K10 case", m=TRAIN_M,
+                   source=WGMMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "wgmma"]
+                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_wgmma"]),
+        gemm_entry("w4a16_gemm_wgmma", "autogptq_tpu/ops/pallas/gemm.py:487",
+                   train["launches_per_step"], k1_rows,
+                   f"K1's wgmma/TMA tile kernel: one Llama-2-7B decoder layer's 7 projections at "
+                   f"M={TRAIN_M}, g128, bf16 (replaces the prefill regime of _kernel_kb32 :487, "
+                   f"_kernel_ki32 :414 and _kernel_kpair :255); launches from one LoRA training "
+                   f"step at full depth; max_abs_err over every K1 case it ran", m=TRAIN_M,
+                   source=WGMMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "wgmma"]
+                   + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "w4a16_gemm_wgmma"]
+                   + [r["max_abs_err"] for r in wna_rows if r["kernel"] == "w4a16_gemm_wgmma"]),
+        gemm_entry("w8a16_gemm_wgmma", "autogptq_tpu/ops/pallas/gemm.py:46",
+                   widths[8]["batch2_counts"], width_rows(8), "K4's wgmma/TMA tile kernel: one "
+                   "Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; launches from "
+                   "the 8-bit batch-2 run's 32-row prefill at 8 layers", m=128,
+                   source=WGMMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w8a16_gemm_wgmma"]),
+        gemm_entry("w2a16_gemm_wgmma", "autogptq_tpu/ops/pallas/gemm.py:1061",
+                   widths[2]["batch2_counts"], width_rows(2), "K5's wgmma/TMA tile kernel: one "
+                   "Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; launches from "
+                   "the 2-bit batch-2 run's 32-row prefill at 8 layers", m=128,
+                   source=WGMMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
+                         if r["kernel"] == "w2a16_gemm_wgmma"]),
+        gemm_entry("wna16_gemm_t_mma", "autogptq_tpu/ops/pallas/gemm.py:811",
+                   rest_path["cut_launches"][GRAD_LEN]["tile"], k10_g128,
+                   f"the mma.sync tile K10, timed beside the wgmma K10 on the same weights: one "
+                   f"Llama-2-7B decoder layer's 7 projections at M={TRAIN_M}, 4-bit g128, bf16 "
+                   f"cotangents; launches from the 1 x {GRAD_LEN} LoRA backward of the g100 "
+                   f"2-layer cut forced through it (kernel='mma'; K10 over kb32l words keeps it); "
+                   f"max_abs_err over every case it ran", m=TRAIN_M, source=MMA_SOURCE,
+                   ms_key="mma_ms",
+                   errs=[r["mma_max_abs_err"] for r in k10_rows if "mma_ms" in r]
+                   + [r["mma_max_abs_err"] for r in rest_rows if "mma_ms" in r
+                      and r["what"] == "K10"]),
+        gemm_entry("w4a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:487",
+                   rest_path["cut_launches"][GRAD_LEN]["tile"], k1_rows,
+                   f"the mma.sync tile kernel, timed beside the wgmma kernel on the same "
+                   f"weights: one Llama-2-7B decoder layer's 7 projections at M={TRAIN_M}, g128, "
+                   f"bf16; launches from the 1 x {GRAD_LEN} LoRA forward of the g100 2-layer cut "
+                   f"forced through it (kernel='mma'); max_abs_err over every K1 case it ran",
+                   m=TRAIN_M, source=MMA_SOURCE, ms_key="mma_ms",
+                   errs=[r["mma_max_abs_err"] for r in k1_rows if "mma_ms" in r]
+                   + [r["mma_max_abs_err"] for r in rest_rows if "mma_ms" in r
+                      and r["what"] == "forward"]),
         gemm_entry("wna16_gemm_t_gemv", "autogptq_tpu/ops/pallas/gemm.py:811",
                    rest_path["small_step"]["launches"][None], k10_g128,
                    "K10's split-N decode regime: one Llama-2-7B decoder layer's 7 projections at "
@@ -3591,18 +3770,20 @@ def main() -> int:
                    m=16, source="autogptq_tpu_torch/ops/csrc/wna16_gemv_t.cuh",
                    errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "gemv"]
                    + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_gemv"]),
-        gemm_entry("w8a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["batch2_counts"],
-                   width_rows(8), "K4's tensor-core tile kernel: one Llama-2-7B decoder layer's 7 "
-                   "projections at M=128, g128, bf16; launches from the 8-bit batch-2 run's "
-                   "32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
-                         if r["kernel"] == "w8a16_gemm_mma"]),
+        gemm_entry("w8a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["mma_counts"],
+                   width_rows(8), "K4's mma.sync tile kernel, timed beside the wgmma "
+                   "kernel: one Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; "
+                   "launches from the 8-bit batch-2 prefill at 8 layers forced through it "
+                   "(kernel='mma')", m=128, source=MMA_SOURCE, ms_key="mma_ms",
+                   errs=[r["mma_max_abs_err"] for r in wna_rows + rest_rows
+                         if "mma_ms" in r and r["bits"] == 8]),
         gemm_entry("w2a16_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:1061",
-                   widths[2]["batch2_counts"], width_rows(2), "K5's tensor-core tile kernel: one "
-                   "Llama-2-7B decoder layer's 7 projections at M=128, g128, bf16; launches from "
-                   "the 2-bit batch-2 run's 32-row prefill at 8 layers", m=128, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in wna_rows + rest_rows
-                         if r["kernel"] == "w2a16_gemm_mma"]),
+                   widths[2]["mma_counts"], width_rows(2), "K5's mma.sync tile kernel, "
+                   "timed beside the wgmma kernel: one Llama-2-7B decoder layer's 7 projections "
+                   "at M=128, g128, bf16; launches from the 2-bit batch-2 prefill at 8 layers "
+                   "forced through it (kernel='mma')", m=128, source=MMA_SOURCE, ms_key="mma_ms",
+                   errs=[r["mma_max_abs_err"] for r in wna_rows + rest_rows
+                         if "mma_ms" in r and r["bits"] == 2]),
         gemm_entry("w4a16_kb32l_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:635",
                    kb32l["batch2_counts"], [r for r in k6["rows"] if r["case"] in LAYER_SHAPES],
                    f"K6's tile regime, the tensor-core kernel over kb32l words: one Llama-2-7B "
@@ -3628,8 +3809,8 @@ def main() -> int:
         gemm_entry("w4a16_kb32l_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:692",
                    kb32l["counts"], k6_bf16, at + "; K6's tensor-core GEMV over the "
                    f"tile-contiguous kb32l words, bf16 (replaces _kernel_kb32l_manual :692); "
-                   f"launches from the {NEW_TOKENS}-token greedy run of the model loaded with "
-                   f"layout='kb32l'; max_abs_err over every K6 GEMV case",
+                   f"launches from the {KB32L_NEW_TOKENS}-token greedy run of the model loaded "
+                   f"with layout='kb32l'; max_abs_err over every K6 GEMV case",
                    source="autogptq_tpu_torch/ops/csrc/w4a16_kb32l_gemm.cu",
                    errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "gemv"]),
         gemm_entry("w4a16_kb32l_gemm", "autogptq_tpu/ops/pallas/gemm.py:692",
@@ -3673,7 +3854,7 @@ def main() -> int:
                       "K1's fused RMS-norm prologue (replaces _prenorm_x :332 inside _kernel_kb32 "
                       ":487 and _kernel_ki32 :349) in the tensor-core decode GEMV: one Llama-2-7B "
                       "layer's q/k/v and gate/up at M=1, g128, bf16; launches from the "
-                      f"{NEW_TOKENS}-token greedy run with AUTOGPTQ_TPU_FUSE_NORM=1"),
+                      f"{FUSED_NEW_TOKENS}-token greedy run with AUTOGPTQ_TPU_FUSE_NORM=1"),
         prenorm_entry("w4a16_gemm_mma_norm", MMA_SOURCE, fused["batch_counts"], "M=24 bf16",
                       "K1's fused RMS-norm prologue in the tensor-core tile kernel: one "
                       "Llama-2-7B layer's q/k/v and gate/up at M=24, g128, bf16; launches from "
@@ -3693,12 +3874,14 @@ def main() -> int:
         json.dump(dict(card=card, device=torch.cuda.get_device_name(0), build_s=seconds,
                        k1=k1_rows, k9=k9_rows, k6=k6, kb32l=kb32l, kb32l_cut=kb32l_cut,
                        mixtral=mixtral, mixtral_cut=mixtral_cut,
-                       wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas, other_widths=widths,
+                       wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas,
+                       wgmma_ptxas=wgmma_regs, other_widths=widths,
                        quantize=quantize, main_batch2=batch2_launches,
                        k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
                        k9_rest=k9_rest_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
                        decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
+                       tile_layer_ms={f"{what} M={m}": v for (what, m), v in tile_m.items()},
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
                        beam=beam, train=train, grads=grads,
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,

@@ -44,17 +44,21 @@ def _layer(seed, k, n, gs=128, desc_act=False, bias=False, dtype=torch.bfloat16,
 KERNEL_OF_BITS = {2: "w2a16_gemm", 3: "w4a16_gemm", 4: "w4a16_gemm", 8: "w8a16_gemm"}
 
 
-def _key(name, dtype, m, k, gs):
-    """The launch-count key of library ``name`` for a product of ``m`` rows:
-    its tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``; K10's
-    decode regime, ``gemm.t_route``), its tensor-core
-    tile kernel's or its SIMT kernels'."""
+def _key(name, dtype, m, k, gs, n, layout="gptq"):
+    """The launch-count key of library ``name`` for a product of ``m`` rows of
+    a ``[K/P, N]`` layer of ``layout`` (K6's library is kb32l's): its
+    tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``; K10's decode
+    regime, ``gemm.t_route``), its wgmma/TMA or mma.sync tile kernel's (by
+    layout and shape) or its SIMT kernels'."""
     gs = k if gs == -1 else gs
-    if name in KERNEL_OF_BITS.values() or name == qlin.gemm.KB32L_KERNEL:
-        route = qlin.gemm.route(dtype, m, gs)
+    if name == qlin.gemm.KB32L_KERNEL:
+        layout = "kb32l"
+    if name in KERNEL_OF_BITS.values() or layout == "kb32l":
+        route = qlin.gemm.route(dtype, m, gs, k=k, n=n, layout=layout)
     else:
-        route = qlin.gemm.t_route(dtype, m)
-    return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
+        route = qlin.gemm.t_route(dtype, m, k=k, n=n, layout=layout)
+    return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "wgmma": qlin.gemm.WGMMA_SUFFIX,
+                   "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
 
 
 @pytest.mark.parametrize("bits", [2, 3, 8])
@@ -72,7 +76,7 @@ def test_k4_k5_and_3bit_match_plain(card, bits, m, k, n, gs, desc_act, bias):
     layer = _layer(m + k + bits, k, n, gs, desc_act, bias, bits=bits)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=torch.bfloat16)
-    name = _key(KERNEL_OF_BITS[bits], x.dtype, m, k, gs)
+    name = _key(KERNEL_OF_BITS[bits], x.dtype, m, k, gs, n)
     before = build.launches[name]
     y = qlin.matmul(x, layer)
     assert build.launches[name] == before + 1
@@ -189,7 +193,7 @@ def test_k1_matches_plain(card, m, k, n, gs, desc_act, bias):
     layer = _layer(m + k, k, n, gs, desc_act, bias)
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=torch.bfloat16)
-    name = _key("w4a16_gemm", x.dtype, m, k, gs)
+    name = _key("w4a16_gemm", x.dtype, m, k, gs, n)
     before = build.launches[name]
     y = qlin.matmul(x, layer)
     assert build.launches[name] == before + 1
@@ -521,7 +525,7 @@ def test_k10_matches_plain(card, bits, m, k, n, gs, desc_act):
     for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
         g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
                         dtype=dtype)
-        name = _key("wna16_gemm_t", dtype, m, k, gs)
+        name = _key("wna16_gemm_t", dtype, m, k, gs, n)
         before = build.launches[name]
         dx = qlin.gemm.wna16_matmul_t(g, *args, sbits)
         assert build.launches[name] == before + 1
@@ -774,11 +778,11 @@ def test_k6_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
     layer = _layer(k + n + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
-    name = _key("w4a16_kb32l_gemm", dtype, m, k, gs)
+    name = _key("w4a16_kb32l_gemm", dtype, m, k, gs, n)
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
     assert build.launches[name] == before.get(name, 0) + 1
-    for other in ("w4a16_gemm", "w4a16_gemm_mma", "w4a16_gemm_gemv"):
+    for other in ("w4a16_gemm", "w4a16_gemm_wgmma", "w4a16_gemm_mma", "w4a16_gemm_gemv"):
         assert build.launches[other] == before.get(other, 0)
     if dtype != torch.float32 and m <= 16:    # no ring launch beside the GEMV
         assert build.launches["w4a16_kb32l_gemm"] == before.get("w4a16_kb32l_gemm", 0)
@@ -858,7 +862,7 @@ def test_k10_over_kb32l_matches_plain(card, m, k, n, gs, bits, desc_act, bias):
     for dtype, tol in ((torch.bfloat16, None), (torch.float32, 1e-4)):
         g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m), device=card,
                         dtype=dtype)
-        name = _key("wna16_gemm_t", dtype, m, k, gs)
+        name = _key("wna16_gemm_t", dtype, m, k, gs, n, layout="kb32l")
         before = build.launches[name]
         dx = qlin.matmul_t(g, layer)
         assert build.launches[name] == before + 1
@@ -980,7 +984,8 @@ MMA_DTYPES = [torch.bfloat16, torch.float16]
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
 @pytest.mark.parametrize("k, n, gs, desc_act, bias", MMA_SHAPES)
 def test_mma_tile_kernel_matches_plain(card, dtype, m, bits, k, n, gs, desc_act, bias):
-    """K1/K4/K5's tensor-core tile kernel against the plain version: f32
+    """K1/K4/K5's mma.sync tile kernel (``kernel="mma"`` names it since
+    the wgmma kernel took its route) against the plain version: f32
     accumulation of the exact (q - z) and the f32 scale fold against the f32
     product, one rounding on both sides: 1% of the largest output (K1_REL_TOL)."""
     layer = _layer(m + k + bits, k, n, gs, desc_act, bias, dtype, bits)
@@ -988,14 +993,16 @@ def test_mma_tile_kernel_matches_plain(card, dtype, m, bits, k, n, gs, desc_act,
                     dtype=dtype)
     name = KERNEL_OF_BITS[bits] + qlin.gemm.MMA_SUFFIX
     before = dict(build.launches)
-    y = qlin.matmul(x, layer)
+    with qlin.gemm.forced_kernel("mma"):
+        y = qlin.matmul(x, layer)
     assert build.launches[name] == before.get(name, 0) + 1
     assert build.launches[KERNEL_OF_BITS[bits]] == before.get(KERNEL_OF_BITS[bits], 0)
     ref = qlin.matmul_plain(x, layer)
     torch.cuda.synchronize()
     assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
     assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
-    torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
+    with qlin.gemm.forced_kernel("mma"):
+        torch.testing.assert_close(qlin.matmul(x, layer), y, rtol=0, atol=0)   # deterministic
 
 
 @pytest.mark.parametrize("dtype", MMA_DTYPES)
@@ -1048,12 +1055,12 @@ def test_mma_over_kb32l_words_matches_plain(card, dtype, m, k, n, gs, bits, desc
 
 def test_f32_stays_on_the_simt_tile_kernels(card):
     """f32 activations and cotangents at M > 16 take the SIMT kernels (f32
-    weights); bf16 takes the tensor-core kernels, also at a group size that
-    16 does not divide; their counters say so."""
+    weights); bf16 takes the tensor-core kernels (the wgmma/TMA
+    ones), also at a group size that 16 does not divide; their counters say so."""
     for bits in (2, 4, 8):
         name = KERNEL_OF_BITS[bits]
-        for dtype, gs, route in ((torch.float32, 32, ""), (torch.bfloat16, 24, "_mma"),
-                                 (torch.bfloat16, 32, "_mma")):
+        for dtype, gs, route in ((torch.float32, 32, ""), (torch.bfloat16, 24, "_wgmma"),
+                                 (torch.bfloat16, 32, "_wgmma")):
             layer = _layer(bits, 768, 256, gs, dtype=dtype, bits=bits)
             before = dict(build.launches)
             qlin.matmul(torch.randn((64, 768), device=card, dtype=dtype), layer)
@@ -1061,9 +1068,10 @@ def test_f32_stays_on_the_simt_tile_kernels(card):
             assert build.launches[name + route] == before.get(name + route, 0) + 1
             assert build.launches["wna16_gemm_t" + route] == \
                 before.get("wna16_gemm_t" + route, 0) + 1
-            other = "_mma" if route == "" else ""
-            assert build.launches[name + other] == before.get(name + other, 0)
-            assert build.launches["wna16_gemm_t" + other] == before.get("wna16_gemm_t" + other, 0)
+            for other in {"", "_mma", "_wgmma"} - {route}:
+                assert build.launches[name + other] == before.get(name + other, 0)
+                assert build.launches["wna16_gemm_t" + other] == \
+                    before.get("wna16_gemm_t" + other, 0)
 
 
 # The rest classes: group sizes that the codes per word do not divide (a word straddles
@@ -1093,15 +1101,16 @@ def test_rest_classes_match_plain(card, dtype, m, bits, k, n, gs, desc_act):
     g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
                     dtype=dtype)
     name = KERNEL_OF_BITS[bits]
-    fwd = _key(name, dtype, m, k, gs)
-    k10 = _key("wna16_gemm_t", dtype, m, k, gs)
-    tc = "" if dtype == torch.float32 else "_gemv" if m <= 16 else "_mma"
+    fwd = _key(name, dtype, m, k, gs, n)
+    k10 = _key("wna16_gemm_t", dtype, m, k, gs, n)
+    tile = "_wgmma" if qlin.gemm.wgmma_shape_ok(k, n) else "_mma"   # K = 1020: by shape
+    tc = "" if dtype == torch.float32 else "_gemv" if m <= 16 else tile
     assert fwd == name + (tc if gs >= 16 or m > 16 else "") and k10 == "wna16_gemm_t" + tc
     before = dict(build.launches)
     y = qlin.matmul(x, layer)
     dx = qlin.matmul_t(g, layer)
-    for key in {name, name + "_mma", name + "_gemv", "wna16_gemm_t", "wna16_gemm_t_mma",
-                "wna16_gemm_t_gemv"}:
+    for key in {name, name + "_mma", name + "_wgmma", name + "_gemv", "wna16_gemm_t",
+                "wna16_gemm_t_mma", "wna16_gemm_t_wgmma", "wna16_gemm_t_gemv"}:
         assert build.launches[key] == before.get(key, 0) + (key in (fwd, k10)), key
     ref = qlin.matmul_plain(x, layer)
     ref_t = qlin.gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
@@ -1290,3 +1299,96 @@ def test_f32_and_rest_classes_take_the_simt_gemv(card):
         torch.cuda.synchronize()
         assert torch.equal(ys, yf)
         assert (ys.float() - yg.float()).abs().max() <= 1e-2 * ys.float().abs().max()
+
+
+# The wgmma/TMA tile kernels (csrc/wna16_wgmma.cuh): the shapes of the mma.sync tests (N off the
+# 128-column block, K off the 64-row tile, group sizes 16, 32, 128 and one group) and the rest
+# classes: 8-bit gs 6, 4-bit gs 12 desc_act, gs 100 (a partial last group), gs 172 desc_act.
+WGMMA_SHAPES = MMA_SHAPES + [(1024, 512, 6, False, True), (1032, 256, 12, True, True),
+                             (4096, 512, 100, False, False), (11008, 512, 172, True, False)]
+WGMMA_KEYS = ("", "_mma", "_wgmma", "_gemv")
+PACK_ROWS = {2: 16, 3: 32, 4: 8, 8: 4}   # K rows a checkpoint packs together
+
+
+def _one_launch(before, name, suffix):
+    """Exactly one launch of ``name + suffix`` and none of its other kernels."""
+    for sfx in WGMMA_KEYS:
+        assert build.launches[name + sfx] == before.get(name + sfx, 0) + (sfx == suffix), sfx
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 64, 65, 129, 2048])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k, n, gs, desc_act, bias", WGMMA_SHAPES)
+def test_wgmma_forward_matches_plain(card, dtype, m, bits, k, n, gs, desc_act, bias):
+    """K1/K4/K5's wgmma/TMA kernel, the route above 16 rows, against the plain
+    version: the weight as a hi/lo pair of the activation type (about 16
+    significant bits) and f32 sums against the f32 weight and product, one
+    rounding of the output on both sides: 1% of the largest output
+    (K1_REL_TOL); one launch of its key and no other K1 kernel; bit-equal on a
+    second call (a split reduction's partials are added in a fixed order)."""
+    if k % PACK_ROWS[bits]:
+        pytest.skip(f"no {bits}-bit checkpoint holds K = {k}")
+    layer = _layer(m + k + bits + gs, k, n, gs, desc_act, bias, dtype, bits)
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    name = KERNEL_OF_BITS[bits]
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    _one_launch(before, name, "_wgmma")
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(qlin.matmul(x, layer), y)
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 64, 65, 129, 2048])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k, n, gs, desc_act, bias", WGMMA_SHAPES)
+def test_wgmma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act, bias):
+    """K10's wgmma/TMA kernel, the route above 16 rows, against
+    wna16_matmul_t_ref: the weight as a hi/lo pair of the cotangent's type (as
+    the forward's), f32 sums, dx through kperm, against the f32 weight and
+    product, one rounding of dx on both sides: 1% of the largest output
+    (K10_REL_TOL); one launch of its key and no other K10 kernel; bit-equal on
+    a second call."""
+    if k % PACK_ROWS[bits]:
+        pytest.skip(f"no {bits}-bit checkpoint holds K = {k}")
+    layer = _layer(m + k + bits + gs, k, n, gs, desc_act, dtype=dtype, bits=bits)
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    dx = qlin.matmul_t(g, layer)
+    _one_launch(before, "wna16_gemm_t", "_wgmma")
+    ref = qlin.gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros, layer.kperm,
+                                       gs, qlin.storage_bits(bits))
+    torch.cuda.synchronize()
+    assert dx.shape == (m, k) and dx.dtype == dtype and bool(torch.isfinite(dx).all())
+    assert (dx.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(qlin.matmul_t(g, layer), dx)
+
+
+@pytest.mark.parametrize("k, n, bits", [(1020, 256, 8), (1024, 520, 4), (1024, 260, 8)])
+def test_wgmma_misaligned_shapes_take_mma_by_shape(card, k, n, bits):
+    """A K or N whose rows TMA cannot address (K % 8, N % 16) goes to the
+    mma.sync kernels by the route's shape rule, forward and K10, with results
+    within 1% of the plain versions; naming the wgmma kernel for it raises
+    and launches nothing."""
+    layer = _layer(k + n, k, n, 4 if k % 32 else 32, bits=bits)
+    x = torch.randn((70, k), device=card, dtype=torch.bfloat16)
+    g = torch.randn((70, n), device=card, dtype=torch.bfloat16)
+    name = KERNEL_OF_BITS[bits]
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    dx = qlin.matmul_t(g, layer)
+    _one_launch(before, name, "_mma")
+    _one_launch(before, "wna16_gemm_t", "_mma")
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    before = dict(build.launches)
+    with qlin.gemm.forced_kernel("wgmma"), pytest.raises(NotImplementedError, match="TMA"):
+        qlin.matmul(x, layer)
+    assert dict(build.launches) == before

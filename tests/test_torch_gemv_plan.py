@@ -106,7 +106,7 @@ def test_route_keeps_the_simt_kernels_for_f32_and_rest_classes(m):
             if dtype == torch.float32:
                 want = "simt"
             elif m > 16:
-                want = "mma"
+                want = "wgmma"
             else:
                 want = "gemv" if gs >= 16 else "simt"
             assert gemm.route(dtype, m, gs) == want

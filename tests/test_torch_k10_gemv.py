@@ -166,12 +166,13 @@ def test_t_gemv_plan_refuses_a_stage_above_the_limit():
 @pytest.mark.parametrize("m", [1, 4, 10, 16, 17, 128, 2048])
 def test_k10_route_by_dtype_and_rows(m):
     """K10 takes its decode regime for bf16/f16 at M <= 16 and the tile K10
-    above, at every group size; f32 takes the SIMT K10 at every M."""
+    above (the wgmma/TMA one), at every group size; f32 takes the
+    SIMT K10 at every M."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert gemm.t_route(dtype, m) == ("gemv" if m <= 16 else "mma")
+        assert gemm.t_route(dtype, m) == ("gemv" if m <= 16 else "wgmma")
     assert gemm.t_route(torch.float32, m) == "simt"
-    # the tile kernel, the one K10 takes above 16 rows, is the tensor-core one
-    assert gemm.tile_kernel(torch.bfloat16) == "mma"
+    # the tile kernel, the one K10 takes above 16 rows, is the wgmma/TMA one
+    assert gemm.tile_kernel(torch.bfloat16) == "wgmma"
 
 
 def test_forced_kernel_reaches_k10():

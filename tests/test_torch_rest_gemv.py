@@ -219,10 +219,11 @@ def test_route_takes_the_gemv_from_group_size_16(m, gs):
 
 @pytest.mark.parametrize("gs", [6, 12, 100])
 def test_rest_routes_above_16_rows_and_pairs(gs):
-    """Above 16 rows the rest classes take the tile kernels as before, and
-    above 16 pairs K9 the SIMT routed kernel; ``kernel`` still names either
-    GEMV for a timing beside the other, below group size 16 too."""
-    assert gemm.route(torch.bfloat16, 17, gs) == "mma"
+    """Above 16 rows the rest classes take the tile kernels (the
+    wgmma/TMA one), and above 16 pairs K9 the SIMT routed kernel; ``kernel``
+    still names either GEMV for a timing beside the other, below group size 16
+    too."""
+    assert gemm.route(torch.bfloat16, 17, gs) == "wgmma"
     assert gemm.routed_route(torch.bfloat16, 17, gs) == "simt"
     assert gemm.route(torch.bfloat16, 1, gs, "simt") == "simt"
     assert gemm.route(torch.bfloat16, 1, gs, "gemv") == "gemv"

@@ -104,15 +104,17 @@ def test_card_shape_check_takes_rest_classes(bits, k, n, gs, desc_act, layout):
     (torch.float32, 70, 12, "simt")])
 def test_tile_kernel_plan(dtype, m, gs, route):
     """The tile kernel is the tensor cores' for bf16/f16 at every group size
-    and the SIMT kernel for f32; K1/K4/K5's forward takes it above 16 rows (at
-    M <= 16 :func:`route` sends it to a GEMV), and so does K10
+    (``route`` "mma" here; over GPTQ words the wgmma/TMA one,
+    ``"wgmma"``) and the SIMT kernel for f32; K1/K4/K5's forward takes it above
+    16 rows (at M <= 16 :func:`route` sends it to a GEMV), and so does K10
     (:func:`t_route`), whose bf16/f16 cotangents of at most 16 rows take its
     decode regime, ``"gemv"``, at every group size."""
-    assert tgemm.tile_kernel(dtype) == route
+    tile = "wgmma" if route == "mma" else route
+    assert tgemm.tile_kernel(dtype) == tile
     if m > tgemm.DECODE_MAX_M:
-        assert tgemm.route(dtype, m, gs) == route
+        assert tgemm.route(dtype, m, gs) == tile
     assert tgemm.t_route(dtype, m) == (
-        "gemv" if route == "mma" and m <= tgemm.DECODE_MAX_M else route)
+        "gemv" if route == "mma" and m <= tgemm.DECODE_MAX_M else tile)
 
 
 def test_tile_kernel_override():
@@ -120,5 +122,6 @@ def test_tile_kernel_override():
     both on the same weights); anything else raises."""
     assert tgemm.tile_kernel(torch.bfloat16, "simt") == "simt"
     assert tgemm.tile_kernel(torch.float32, "mma") == "mma"
+    assert tgemm.tile_kernel(torch.float32, "wgmma") == "wgmma"
     with pytest.raises(ValueError, match="kernel must be"):
-        tgemm.tile_kernel(torch.bfloat16, "wgmma")
+        tgemm.tile_kernel(torch.bfloat16, "tile")
