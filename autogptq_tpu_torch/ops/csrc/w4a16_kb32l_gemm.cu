@@ -44,14 +44,24 @@
 //    scale is folded in once there. The four warps' partial sums meet in shared memory and
 //    are added in a fixed order; splits write f32 partials that K1's splitk_reduce_kernel
 //    adds in a fixed order, with the bias and one cast. No float atomics: deterministic.
-//  * Tile regime (M > 16): K1's tile kernels with the word address of kb32l_tile.cuh: the
-//    tensor-core kernel (wna16_mma.cuh, entry w4a16_kb32l_gemm_mma) for bf16 and f16
-//    activations, the SIMT kernel (wna16_prefill_kernel) for f32 (ops/gemm.py:tile_kernel).
+//  * Tile regime (M > 16): for bf16 and f16 activations K1's wgmma/TMA tile kernel
+//    (wna16_wgmma.cuh, kb32l_wgmma_kernel, entry and launch count w4a16_kb32l_gemm_wgmma): the
+//    words reach each stage through a 3-D tensor map of the tiles, [N_pad/128][K_pad/8][128]
+//    int32 (a column tile's K tiles are contiguous), whose (128, 8, 1) box at (0, 8t, j) is the
+//    same [8][128] words GPTQ's map gives for reduction tile t of column block j, so the
+//    consumers' dequant is K1's; the scales and zeros [K_pad/gs, N_pad] by 2-D maps of row
+//    stride N_pad; x [M, K] is zero-filled past K, where the padded word rows carry zero scales.
+//    Every kb32l group size is a multiple of 32, so every unit lies in one group, and the maps
+//    are N_pad wide, so it takes every N % 4 == 0 (its epilogue stores column pairs). The
+//    mma.sync kernel over the kb32l address (wna16_mma.cuh, w4a16_kb32l_gemm_mma) stays
+//    nameable (kernel="mma") and takes the other N; the SIMT kernel (wna16_prefill_kernel)
+//    takes f32 (ops/gemm.py:kb32l_route).
 // Every entry point returns cudaGetLastError() and the Python wrapper raises when it is
 // non-zero.
 
 #include "kb32l_tile.cuh"
 #include "wna16_gemv.cuh"
+#include "wna16_wgmma.cuh"
 
 namespace {
 
@@ -440,6 +450,20 @@ extern "C" int w4a16_kb32l_gemm_mma(const void* x, const int64_t* kperm, const i
     const int nbk = (K + KB32L_KB - 1) / KB32L_KB;
     return launch_mma_dtype<4>(x, kperm, qweight, scales, zeros, bias, out, dtype, M, K, N, gs,
                                Kb32lWords{nbk}, n_pad, stream);
+}
+
+// The wgmma/TMA tile kernel over kb32l words (bf16, f16; M > 16): bm, stages and splits from
+// ops/gemm.py:wgmma_plan, the f32 partials in ws [splits, M, N] and one ticket counter per
+// output tile in counters when splits > 1; x already gathered by kperm.
+extern "C" int w4a16_kb32l_gemm_wgmma(const void* x, const int32_t* qweight, const void* scales,
+                                      const uint8_t* zeros, const void* bias, void* out,
+                                      float* ws, int* counters, int dtype, int M, int K, int N,
+                                      int n_pad, int gs, int bm, int stages, int splits,
+                                      void* stream) {
+    if (!valid_shape(M, K, N, n_pad, gs)) return (int)cudaErrorInvalidValue;
+    return wna16_wgmma<4, false, true>(x, qweight, scales, zeros, bias, nullptr, out, ws,
+                                       counters, dtype, M, K, N, gs, bm, stages, splits, stream,
+                                       n_pad);
 }
 
 extern "C" const char* w4a16_kb32l_gemm_error_string(int code) {

@@ -1,18 +1,22 @@
 // Hopper tile kernels of the wNa16 dequant-matmuls (sm_90a: wgmma, TMA, mbarriers, setmaxnreg),
 // bf16 and f16 activations, BITS in {2, 4, 8} (3-bit codes ride in nibbles), GPTQ's K-packed
 // words, every group size:
-//   wna16_wgmma_kernel    y[M,N]  = x[M,K] @ W[K,N] (+ bias)   K1, K4, K5 above 16 rows
-//   wna16_t_wgmma_kernel  dx[M,K] = g[M,N] @ W[K,N]^T           K10 above 16 rows
-// with W = (q - z) * s. Each library exports its kernel as NAME_wgmma beside the tile kernels
-// of wna16_mma.cuh (NAME_mma), which stay nameable (ops/gemm.py: kernel="mma") and remain the
-// route of K6's kb32l words, of the fused RMS-norm prologue and of shapes TMA cannot address
-// (ops/gemm.py:tile_kernel).
+//   wna16_wgmma_kernel          y[M,N]  = x[M,K] @ W[K,N] (+ bias)   K1, K4, K5 above 16 rows
+//   wna16_t_wgmma_kernel        dx[M,K] = g[M,N] @ W[K,N]^T           K10 above 16 rows
+//   kb32l_wgmma_kernel          y = x @ W over K6's kb32l words       K6 above 16 rows
+//   wna16_prenorm_wgmma_kernel  y = rms_apply(x, w) @ W, M < 32       K1's fused prologue
+// with W = (q - z) * s. Each library exports its kernels as NAME_wgmma (K1's prologue as
+// w4a16_gemm_wgmma_norm) beside the tile kernels of wna16_mma.cuh (NAME_mma, NAME_mma_norm),
+// which stay nameable (ops/gemm.py: kernel="mma") and remain the route of K10 over kb32l words
+// and of shapes TMA cannot address (ops/gemm.py:tile_kernel, t_route).
 //
 // They replace the prefill regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
-// _kernel_kb32 (:487, prefill branch :523-537), _kernel_ki32, _kernel_kpair, _kernel_k2i32,
-// _kernel_kquad and the planar _kernel, which dequantize in f32, round the scaled weight once to
-// dot_dtype (:535) and dot on the MXU with f32 accumulation; and the backward kernels
-// _kernel_kb32_t (:811), _kernel_ki32_t (:1031) and _kernel_kpair_t (:1289).
+// _kernel_kb32 (:487, prefill branch :523-537; with lin=True behind _matmul_kb32l :635, K6),
+// _kernel_ki32, _kernel_kpair, _kernel_k2i32, _kernel_kquad and the planar _kernel, which
+// dequantize in f32, round the scaled weight once to dot_dtype (:535) and dot on the MXU with
+// f32 accumulation; the prologue _prenorm_x (:332) of _kernel_kb32 and _kernel_ki32 at 17-31
+// rows; and the backward kernels _kernel_kb32_t (:811), _kernel_ki32_t (:1031) and
+// _kernel_kpair_t (:1289).
 //
 // Bound on the H100: at a training step's M = 2048 both are bound by operations, 2*M*K*N at
 // 989 TFLOP/s bf16 dense (0.838 ms per Llama-2-7B layer); at M = 128 by the same operations
@@ -68,10 +72,19 @@
 //    time, and both still stream every activation tile once per 128-column block from L2, about
 //    7 GB per Llama-2-7B layer: wider column tiles or cluster multicast of those tiles, and a
 //    persistent grid, are the next levers.
-// The host entry encodes the four tensor maps with cuTensorMapEncodeTiled, reached through the
+//  * kb32l words (K6): a 3-D map of the tiles (wg_encode_kb32l) gives each stage the same
+//    [64/P][128] words as GPTQ's 2-D map, so K6 is K1's kernel with one other TMA load.
+//  * The fused RMS-norm prologue (PRENORM, 17-31 rows: one 64-row block): rstd over each row's
+//    full K once per call by a small launch before the product's (wg_rstd_kernel, its own entry
+//    and launch count, which the product overlaps by programmatic dependent launch); the
+//    tile's norm weights by TMA into
+//    the stage; the x tile normalized in place in TMA's swizzle by the producer's three idle
+//    warps, ahead of the consumers, behind a `normed` mbarrier per stage (wg_body).
+// The host entry encodes the tensor maps with cuTensorMapEncodeTiled, reached through the
 // runtime's entry-point lookup (no -lcuda). TMA needs 16-byte aligned bases and row strides:
 // K % 8 for x, N % 8 for g and scales, N % 16 for zeros (ops/gemm.py:wgmma_shape_ok routes
-// other shapes to the kernels of wna16_mma.cuh). Every entry point returns cudaGetLastError()
+// other shapes to the kernels of wna16_mma.cuh); kb32l scales and zeros are N_pad wide, so there
+// only the epilogue's column pairs limit N (N % 4, ops/gemm.py:kb32l_route). Every entry point returns cudaGetLastError()
 // or, for a failed encode, WG_ENCODE_ERROR + the CUresult, and the Python wrapper raises.
 
 #pragma once
@@ -92,29 +105,35 @@ constexpr int WG_BTILE_BYTES = WG_BN * WG_BK * 2;   // [128 rows][64] of T, swiz
 constexpr int WG_ENCODE_ERROR = 100000;  // + CUresult: cuTensorMapEncodeTiled failed
 constexpr int WG_PRODUCER_REGS = 40;
 constexpr int WG_CONSUMER_REGS = 232;
+constexpr int WG_NW_BYTES = WG_BK * 4;  // PRENORM: a tile's norm weight (at most f32)
+constexpr int WG_NORMERS = 96;          // PRENORM: the producer warps 1-3 that normalize x
 
 __host__ __device__ constexpr int wg_up(int v, int a) { return (v + a - 1) / a * a; }
 
 // Bytes of one stage (ops/gemm.py:wgmma_stage_bytes is the same rule): the activation tile
 // [BM][64] of T, the words of 64 reduction rows (forward) or 128 output rows (K10), ng group rows
-// of fp16 scales and uint8 zeros (128 columns, K10 64), the forward's 64-byte group table;
-// 1024-aligned so that every stage's swizzled tile starts on a swizzle atom.
+// of fp16 scales and uint8 zeros (128 columns, K10 64), the forward's 64-byte group table, with
+// the fused prologue (norm) the tile's 64 norm weights (WG_NW_BYTES, 128-aligned); 1024-aligned
+// so that every stage's swizzled tile starts on a swizzle atom.
 struct WgStage {
-    int a, w, s, z, tab, bytes;
-    __host__ __device__ WgStage(int bits, int bm, int ng, bool trans) {
+    int a, w, s, z, tab, nw, bytes;
+    __host__ __device__ WgStage(int bits, int bm, int ng, bool trans, bool norm = false) {
         const int sw = trans ? 64 : 128;
         a = 0;
         w = bm * 128;
         s = w + 1024 * bits;
         z = s + wg_up(ng * sw * 2, 128);
         tab = z + wg_up(ng * sw, 128);
-        bytes = wg_up(tab + (trans ? 0 : 64), 1024);
+        nw = wg_up(tab + (trans ? 0 : 64), 128);
+        bytes = wg_up(nw + (norm ? WG_NW_BYTES : 0), 1024);
     }
 };
 
 // Dynamic shared memory of a block: alignment slack, the ring, the B tiles (hi and lo each).
-__host__ __device__ inline int wg_smem_bytes(int bits, int bm, int ng, bool trans, int stages) {
-    return 1024 + stages * WgStage(bits, bm, ng, trans).bytes + WG_BTILES * 2 * WG_BTILE_BYTES;
+__host__ __device__ inline int wg_smem_bytes(int bits, int bm, int ng, bool trans, int stages,
+                                             bool norm = false) {
+    return 1024 + stages * WgStage(bits, bm, ng, trans, norm).bytes +
+           WG_BTILES * 2 * WG_BTILE_BYTES;
 }
 
 // ---- PTX wrappers -------------------------------------------------------------------------
@@ -151,6 +170,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
         "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
         "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
         : "memory");
 }
 
@@ -421,15 +449,33 @@ struct WgParams {
     int* counters;           // split > 1: ticket per output tile, 0 between launches
     int M, K, N, gs, ng, stages, ktiles, per;
     int uniform;             // every dequant unit lies in one group: 8 | gs (K10: P | gs)
+    const float* rstd;       // PRENORM: rsqrt(mean(x^2) + eps) of each row (wg_rstd)
+    Prenorm pn;              // PRENORM: the norm weight's dtype, eps and plus_one
 };
 
 // TRANS = false: the forward (reduction K, output columns N); true: K10 (reduction N, output
 // columns K). The output tile is BM x 128: BM = 256 or 128, each consumer warpgroup BM / 2 rows
 // in MH = BM / 128 wgmma halves of 64; BM = 64, each warpgroup 64 columns (WN = 2).
-template <int BITS, typename T, int BM, bool TRANS>
+// KB32L (forward): the words are K6's kb32l tiles, read through the 3-D map of launch_wgmma
+// (a tile's stage holds the same [64/P][128] words as GPTQ's map gives). PRENORM (forward,
+// BM = 64, M < 32): the fused RMS-norm prologue of wna16_gemm.cuh on the x tiles in shared
+// memory: each stage brings its tile's 64 norm weights by TMA (tm_n), and the producer
+// warpgroup's three warps that issue no TMA (96 threads, within the producer's 40 registers:
+// every warp keeping the kernel's 168 was slower, chip_wgmma_probe.py --prenorm, PERF.md)
+// normalize each landed x tile in place
+// (16-byte chunks of TMA's swizzle: rows x 8 chunks), fence.proxy.async and arrive on the
+// stage's `normed` mbarrier, which the consumers wait for after their dequant of the tile and
+// before the barrier that the tile's wgmmas follow; the ring runs ahead, so the normalization
+// stays off the consumers' path. rstd comes from wg_rstd_kernel, the launch before this one
+// on the stream (programmatic dependent launch: this kernel starts while it runs, and only the
+// normalizing warps wait for it, with griddepcontrol.wait).
+template <int BITS, typename T, int BM, bool TRANS, bool KB32L = false, bool PRENORM = false>
 __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
                                         const CUtensorMap* tm_s, const CUtensorMap* tm_z,
-                                        const WgParams& p) {
+                                        const CUtensorMap* tm_n, const WgParams& p) {
+    static_assert(!(TRANS && (KB32L || PRENORM)), "K10 over GPTQ words only");
+    static_assert(!PRENORM || (BM == 64 && !KB32L && BITS == 4),
+                  "the prologue: 4-bit storage, GPTQ words, one 64-row block (M < 32)");
     constexpr int P = 32 / BITS;
     static_assert(BM == 64 || BM == 128 || BM == 256, "block heights 64, 128, 256");
     constexpr int WN = BM == 64 ? 2 : 1;      // consumer warpgroups along the columns
@@ -439,11 +485,13 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
     constexpr int SW = TRANS ? 64 : WG_BN;   // columns of a stage's words, scales and zeros
     extern __shared__ unsigned char wg_smem_raw[];
     __shared__ __align__(8) uint64_t full[WG_MAX_STAGES], empty[WG_MAX_STAGES];
+    __shared__ __align__(8) uint64_t normed[PRENORM ? WG_MAX_STAGES : 1];   // x tile normalized
+    __shared__ float rstd_s[PRENORM ? PN_MAX_ROWS : 1];
     __shared__ uint8_t ttab[TRANS ? WG_BN : 1];   // K10: the group row of the block's K rows
     __shared__ int last_block;
     unsigned char* const base = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
-    const WgStage L(BITS, BM, p.ng, TRANS);
+    const WgStage L(BITS, BM, p.ng, TRANS, PRENORM);
     unsigned char* const btiles = base + p.stages * L.bytes;
     const int tid = threadIdx.x;
     const int o0 = blockIdx.x * WG_BN;   // output columns (N; K10: K rows)
@@ -457,6 +505,7 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
         for (int s = 0; s < S; ++s) {
             mbar_init(smem_u32(&full[s]), 1);
             mbar_init(smem_u32(&empty[s]), WG_CONSUMERS / 32);
+            if constexpr (PRENORM) mbar_init(smem_u32(&normed[s]), WG_NORMERS);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -471,9 +520,45 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
     if (tid < 128) {
         // ---- producer warpgroup: warp 0 keeps the ring full --------------------------------
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
-        if (tid >= 32) return;
+        if (tid >= 32) {
+            if constexpr (PRENORM) {   // warps 1-3: x_n = to_T(f32(x) * rstd * w) in place
+                const int nt = tid - 32;
+                const int nrows = min(p.M - m0, PN_MAX_ROWS);
+                asm volatile("griddepcontrol.wait;\n" ::: "memory");   // wg_rstd_kernel's rstd
+                if (nt < nrows) rstd_s[nt] = p.rstd[m0 + nt];
+                asm volatile("bar.sync 2, %0;\n" ::"n"(WG_NORMERS) : "memory");
+                const int q = nt & 7;   // every chunk of this thread is column chunk q
+                for (int tl = 0; tl < ntl; ++tl) {
+                    const int s = tl % S;
+                    mbar_wait(smem_u32(&full[s]), (tl / S) & 1);
+                    unsigned char* const st = base + s * L.bytes;
+                    float w[8];            // columns past K: TMA's zero weights (times 0)
+#pragma unroll
+                    for (int e = 0; e < 8; ++e)
+                        w[e] = prenorm_weight_at(st + L.nw, p.pn.wdt, 8 * q + e, p.pn.plus_one);
+#pragma unroll 1
+                    for (int r = nt >> 3; r < nrows; r += WG_NORMERS / 8) {   // rows past M: 0
+                        uint4* const chunk =
+                            reinterpret_cast<uint4*>(st + L.a + r * 128 + (((q ^ r) & 7) << 4));
+                        uint4 raw = *chunk;
+                        uint32_t* const pair = reinterpret_cast<uint32_t*>(&raw);
+                        const float rs = rstd_s[r];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {   // prenorm_apply's f32(x) * rstd * w
+                            const float2 f = Mma<T>::unpack(pair[e]);
+                            pair[e] = Mma<T>::pack(f.x * rs * w[2 * e], f.y * rs * w[2 * e + 1]);
+                        }
+                        *chunk = raw;
+                    }
+                    fence_proxy_async();   // the wgmmas read the tile through the async proxy
+                    mbar_arrive(smem_u32(&normed[s]));
+                }
+            }
+            return;
+        }
         const int lane = tid;
-        const uint32_t tx = BM * 128 + 1024 * BITS + p.ng * SW * 3;
+        const uint32_t tx = BM * 128 + 1024 * BITS + p.ng * SW * 3 +
+                            (PRENORM ? WG_BK * prenorm_wsize(p.pn.wdt) : 0);
         for (int tl = 0; tl < ntl; ++tl) {
             const int s = tl % S;
             if (tl >= S) mbar_wait(smem_u32(&empty[s]), ((tl / S) + 1) & 1);
@@ -494,9 +579,13 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
                     tma_load_2d(smem_u32(st + L.s), tm_s, bar, r0, o0 / p.gs);
                     tma_load_2d(smem_u32(st + L.z), tm_z, bar, r0, o0 / p.gs);
                 } else {
-                    tma_load_2d(smem_u32(st + L.w), tm_w, bar, o0, r0 / P);
+                    if constexpr (KB32L)   // word rows r0/P.. of column tile o0/128
+                        tma_load_3d(smem_u32(st + L.w), tm_w, bar, 0, r0 / P, o0 / WG_BN);
+                    else
+                        tma_load_2d(smem_u32(st + L.w), tm_w, bar, o0, r0 / P);
                     tma_load_2d(smem_u32(st + L.s), tm_s, bar, o0, r0 / p.gs);
                     tma_load_2d(smem_u32(st + L.z), tm_z, bar, o0, r0 / p.gs);
+                    if constexpr (PRENORM) tma_load_2d(smem_u32(st + L.nw), tm_n, bar, r0, 0);
                 }
             }
         }
@@ -527,6 +616,10 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
         }
     };
 
+    auto normalized = [&](int tl) {   // PRENORM: the normalizing warps are done with tile tl
+        if constexpr (PRENORM) mbar_wait(smem_u32(&normed[tl % S]), (tl / S) & 1);
+    };
+
     float acc[MH][NACC];
 #pragma unroll
     for (int h = 0; h < MH; ++h)
@@ -535,6 +628,7 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
 
     mbar_wait(smem_u32(&full[0]), 0);
     dequant(0);
+    normalized(0);
     fence_proxy_async();
     consumers_sync();
     for (int tl = 0; tl < ntl; ++tl) {
@@ -559,6 +653,7 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
         if (tl + 1 < ntl) {
             mbar_wait(smem_u32(&full[(tl + 1) % S]), ((tl + 1) / S) & 1);
             dequant(tl + 1);
+            normalized(tl + 1);
             fence_proxy_async();
         }
         consumers_sync();
@@ -655,7 +750,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 wna16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
                    const WgParams p) {
-    wg_body<BITS, T, BM, false>(&tm_x, &tm_w, &tm_s, &tm_z, p);
+    wg_body<BITS, T, BM, false>(&tm_x, &tm_w, &tm_s, &tm_z, nullptr, p);
 }
 
 template <int BITS, typename T, int BM>
@@ -663,7 +758,65 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 wna16_t_wgmma_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_w,
                      const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
                      const WgParams p) {
-    wg_body<BITS, T, BM, true>(&tm_g, &tm_w, &tm_s, &tm_z, p);
+    wg_body<BITS, T, BM, true>(&tm_g, &tm_w, &tm_s, &tm_z, nullptr, p);
+}
+
+// K6's tile regime: the forward over kb32l words (4-bit storage), tm_w the 3-D map of the tiles.
+template <typename T, int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+kb32l_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
+                   const WgParams p) {
+    wg_body<4, T, BM, false, true>(&tm_x, &tm_w, &tm_s, &tm_z, nullptr, p);
+}
+
+// K1's fused RMS-norm prologue on the forward (M < 32: one 64-row block), tm_n the norm weight.
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wna16_prenorm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                           const __grid_constant__ CUtensorMap tm_w,
+                           const __grid_constant__ CUtensorMap tm_s,
+                           const __grid_constant__ CUtensorMap tm_z,
+                           const __grid_constant__ CUtensorMap tm_n, const WgParams p) {
+    wg_body<4, T, 64, false, false, true>(&tm_x, &tm_w, &tm_s, &tm_z, &tm_n, p);
+}
+
+// rstd[i] = rsqrt(mean(x[i, 0:K]^2) + eps) of row i = blockIdx.x over its full K, for the fused
+// prologue of wna16_prenorm_wgmma_kernel, the next launch on the stream. One block of 256 threads per
+// row: each thread sums the squares of its 16-byte runs (four in flight), the 8 warps' sums are
+// added in warp order, so every call gets the same rstd. It lets the next launch start at once
+// (griddepcontrol.launch_dependents); that kernel waits for this one's results only where it
+// first needs them. Once per call, it reads M x K activations from L2 once, where rstd taken in
+// every block of a split reduction (up to 256 blocks at Llama-2-7B's q/k/v) read them once per
+// block, up to 31 x K x 2 bytes each, before the block's first normalized tile.
+template <typename T>
+__global__ void __launch_bounds__(256) wg_rstd_kernel(const T* __restrict__ x, int K, float eps,
+                                                      float* __restrict__ rstd) {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    constexpr int VEC = 16 / (int)sizeof(T);
+    constexpr int U = 4;
+    __shared__ float red[8];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (int64_t)blockIdx.x * K);
+    const int runs = K / VEC;      // K % 8 == 0 and x 16-byte aligned (wna16_wgmma checks)
+    float s = 0.0f;
+    for (int c0 = tid; c0 < runs; c0 += U * 256) {
+        uint4 v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            v[u] = c0 + u * 256 < runs ? __ldg(xr + c0 + u * 256) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int u = 0; u < U; ++u) s += sumsq16<T>(v[u]);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+    if (lane == 0) red[warp] = s;
+    __syncthreads();
+    if (tid == 0) {
+        float t = 0.0f;
+        for (int w = 0; w < 8; ++w) t += red[w];
+        rstd[blockIdx.x] = rsqrtf(t / (float)K + eps);
+    }
 }
 
 // ---- host side ------------------------------------------------------------------------------
@@ -691,20 +844,41 @@ inline WgEncodeTiled wg_encoder() {
     return fn;
 }
 
-// A 2-D map of rows of `cols` elements (`row_bytes` apart), boxes of box_cols x box_rows.
-inline int wg_encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
-                     int cols, int rows, int box_cols, int box_rows, bool swizzle) {
+// A map of `rank` dimensions (innermost first: dims, the byte strides of dims 1.., the box).
+inline int wg_encode_nd(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* ptr,
+                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                        bool swizzle) {
     const WgEncodeTiled enc = wg_encoder();
     if (enc == nullptr) return WG_ENCODE_ERROR + (int)CUDA_ERROR_NOT_FOUND;
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-    const cuuint32_t estr[2] = {1, 1};
-    const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+    const cuuint32_t estr[3] = {1, 1, 1};
+    const CUresult r = enc(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box,
+                           estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : WG_ENCODE_ERROR + (int)r;
+}
+
+// A 2-D map of rows of `cols` elements (`row_bytes` apart), boxes of box_cols x box_rows.
+inline int wg_encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr,
+                     int cols, int rows, int box_cols, int box_rows, bool swizzle) {
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    return wg_encode_nd(map, type, 2, ptr, dims, strides, box, swizzle);
+}
+
+// The kb32l words [N_pad/128][K_pad/8][128] of int32 (kb32l_tile.cuh: tiles column tile first,
+// so one column tile's K tiles are contiguous) as a 3-D map, innermost first: 128 columns (4
+// bytes), K_pad/8 word rows (512 bytes apart), N_pad/128 column tiles (K_pad/8 * 512 bytes
+// apart); the box (128, 64/P, 1) is the [64/P][128] words of one reduction tile, as GPTQ's map
+// gives them (ops/gemm.py:kb32l_word_map is the same map).
+inline int wg_encode_kb32l(CUtensorMap* map, const int32_t* qweight, int k_pad, int n_pad) {
+    const cuuint64_t dims[3] = {(cuuint64_t)KB32L_BN, (cuuint64_t)(k_pad / 8),
+                                (cuuint64_t)(n_pad / KB32L_BN)};
+    const cuuint64_t strides[2] = {(cuuint64_t)KB32L_BN * 4,
+                                   (cuuint64_t)(k_pad / 8) * KB32L_BN * 4};
+    const cuuint32_t box[3] = {(cuuint32_t)KB32L_BN, (cuuint32_t)(WG_BK / 8), 1};
+    return wg_encode_nd(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, qweight, dims, strides, box, false);
 }
 
 template <typename T> constexpr CUtensorMapDataType wg_type();
@@ -713,24 +887,28 @@ template <> constexpr CUtensorMapDataType wg_type<__half>() { return CU_TENSOR_M
 
 // One launch: a = x [M, K] (forward) or g [M, N] (K10). stages and splits come from
 // ops/gemm.py:wgmma_plan; the split of the reduction into `splits` runs of `per` tiles must
-// leave none empty.
-template <int BITS, typename T, int BM, bool TRANS>
+// leave none empty. ld: the row stride of the scales and zeros (N; kb32l: N_pad, with K_pad / gs
+// group rows). PRENORM: pn names the norm weight [K] (its dtype code, eps, plus_one), and rstd
+// [M] is what wg_rstd, launched just before on the same stream, writes.
+template <int BITS, typename T, int BM, bool TRANS, bool KB32L = false, bool PRENORM = false>
 int launch_wgmma(const void* a, const int32_t* qweight, const void* scales, const uint8_t* zeros,
                  const void* bias, const int64_t* kperm, void* out, float* ws, int* counters,
-                 int M, int K, int N, int gs, int stages, int splits, cudaStream_t stream) {
+                 int M, int K, int N, int ld, int gs, int stages, int splits, cudaStream_t stream,
+                 const float* rstd, Prenorm pn) {
     constexpr int P = 32 / BITS;
     const int red = TRANS ? N : K;                 // the reduction
     const int cols_out = TRANS ? K : N;
     const int ktiles = (red + WG_BK - 1) / WG_BK;
     const int per = (ktiles + splits - 1) / splits;
     const int ng = stage_groups(gs, TRANS ? WG_BN : WG_BK);
-    const int G = (K + gs - 1) / gs;
-    const int smem = wg_smem_bytes(BITS, BM, ng, TRANS, stages);
+    const int k_pad = KB32L ? (K + KB32L_KB - 1) / KB32L_KB * KB32L_KB : K;
+    const int G = (k_pad + gs - 1) / gs;
+    const int smem = wg_smem_bytes(BITS, BM, ng, TRANS, stages, PRENORM);
     if (stages < 2 || stages > WG_MAX_STAGES || splits < 1 || (splits - 1) * per >= ktiles ||
         smem > MMA_SMEM_LIMIT || ng > 255 || (M + BM - 1) / BM > 65535 ||
-        (splits > 1 && (ws == nullptr || counters == nullptr)))
+        (splits > 1 && (ws == nullptr || counters == nullptr)) || (PRENORM && rstd == nullptr))
         return (int)cudaErrorInvalidValue;
-    CUtensorMap tm_a, tm_w, tm_s, tm_z;
+    CUtensorMap tm_a, tm_w, tm_s, tm_z, tm_n;
     int err;
     if constexpr (TRANS) {
         if ((err = wg_encode(&tm_a, wg_type<T>(), 2, a, N, M, WG_BK, BM, true))) return err;
@@ -742,55 +920,127 @@ int launch_wgmma(const void* a, const int32_t* qweight, const void* scales, cons
                              false))) return err;
     } else {
         if ((err = wg_encode(&tm_a, wg_type<T>(), 2, a, K, M, WG_BK, BM, true))) return err;
-        if ((err = wg_encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qweight, N, K / P, WG_BN,
-                             WG_BK / P, false))) return err;
-        if ((err = wg_encode(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, scales, N, G, WG_BN, ng,
+        if constexpr (KB32L) {
+            if ((err = wg_encode_kb32l(&tm_w, qweight, k_pad, ld))) return err;
+        } else {
+            if ((err = wg_encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qweight, N, K / P,
+                                 WG_BN, WG_BK / P, false))) return err;
+        }
+        if ((err = wg_encode(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, scales, ld, G, WG_BN, ng,
                              false))) return err;
-        if ((err = wg_encode(&tm_z, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, zeros, N, G, WG_BN, ng,
+        if ((err = wg_encode(&tm_z, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, zeros, ld, G, WG_BN, ng,
                              false))) return err;
+        if constexpr (PRENORM) {   // the norm weight as one row of K, a tile's 64 per box
+            const CUtensorMapDataType nt = pn.wdt == DT_F32   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                           : pn.wdt == DT_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+            if ((err = wg_encode(&tm_n, nt, prenorm_wsize(pn.wdt), pn.w, K, 1, WG_BK, 1, false)))
+                return err;
+        }
     }
-    void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const CUtensorMap,
-                   const WgParams);
-    if constexpr (TRANS)   // one kernel per library and direction: no stray instances
-        kernel = wna16_t_wgmma_kernel<BITS, T, BM>;
-    else
-        kernel = wna16_wgmma_kernel<BITS, T, BM>;
-    static const cudaError_t attr = allow_smem(kernel, MMA_SMEM_LIMIT);
-    if (attr != cudaSuccess) return (int)attr;
     const WgParams prm{bias, out,    kperm,  ws,  counters, M,
                        K,    N,      gs,     ng,  stages,   ktiles,
-                       per,  gs % (TRANS ? P : 8) == 0};
+                       per,  gs % (TRANS ? P : 8) == 0, rstd, pn};
     const dim3 grid((cols_out + WG_BN - 1) / WG_BN, (M + BM - 1) / BM, splits);
-    kernel<<<grid, WG_THREADS, smem, stream>>>(tm_a, tm_w, tm_s, tm_z, prm);
+    // one kernel per library, direction and word layout: no stray instances
+    if constexpr (PRENORM) {
+        static const cudaError_t attr = allow_smem(wna16_prenorm_wgmma_kernel<T>, MMA_SMEM_LIMIT);
+        if (attr != cudaSuccess) return (int)attr;
+        cudaLaunchAttribute pdl[1];   // may start while wg_rstd_kernel runs
+        pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+        pdl[0].val.programmaticStreamSerializationAllowed = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = grid;
+        cfg.blockDim = dim3(WG_THREADS);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        cfg.attrs = pdl;
+        cfg.numAttrs = 1;
+        const cudaError_t err2 = cudaLaunchKernelEx(&cfg, wna16_prenorm_wgmma_kernel<T>, tm_a,
+                                                    tm_w, tm_s, tm_z, tm_n, prm);
+        if (err2 != cudaSuccess) return (int)err2;
+    } else {
+        void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                       const WgParams);
+        if constexpr (TRANS)
+            kernel = wna16_t_wgmma_kernel<BITS, T, BM>;
+        else if constexpr (KB32L)
+            kernel = kb32l_wgmma_kernel<T, BM>;
+        else
+            kernel = wna16_wgmma_kernel<BITS, T, BM>;
+        static const cudaError_t attr = allow_smem(kernel, MMA_SMEM_LIMIT);
+        if (attr != cudaSuccess) return (int)attr;
+        kernel<<<grid, WG_THREADS, smem, stream>>>(tm_a, tm_w, tm_s, tm_z, prm);
+    }
     return (int)cudaGetLastError();
 }
 
-template <int BITS, bool TRANS>
+// KB32L: n_pad is the kb32l words' padded width (a multiple of 128 within 128 of N). PRENORM:
+// the fused prologue, M < 32 at bm 64 (ops/gemm.py:wgmma_plan), 32 | gs, rstd [M] from wg_rstd.
+template <int BITS, bool TRANS, bool KB32L = false, bool PRENORM = false>
 int wna16_wgmma(const void* a, const int32_t* qweight, const void* scales, const uint8_t* zeros,
                 const void* bias, const int64_t* kperm, void* out, float* ws, int* counters,
                 int dtype, int M, int K, int N, int gs, int bm, int stages, int splits,
-                void* stream) {
+                void* stream, int n_pad = 0, const float* rstd = nullptr, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
-    // the alignment TMA needs (ops/gemm.py:wgmma_shape_ok), K in whole words, a positive group
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || K % 8 != 0 || N % 16 != 0 || gs <= 0 ||
-        (bm != 64 && bm != 128 && bm != 256))
+    // the alignment TMA needs (ops/gemm.py:wgmma_shape_ok; kb32l maps are n_pad wide, and the
+    // epilogue stores column pairs), K in whole words, a positive group
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || K % 8 != 0 || N % (KB32L ? 4 : 16) != 0 ||
+        gs <= 0 || (bm != 64 && bm != 128 && bm != 256))
         return (int)cudaErrorInvalidValue;
+    if (KB32L && (gs % 32 != 0 || KB32L_KB % gs != 0 || K % gs != 0 || n_pad % KB32L_BN != 0 ||
+                  n_pad < N || n_pad - N >= KB32L_BN))
+        return (int)cudaErrorInvalidValue;
+    if (PRENORM && (!prenorm_ok(M, pn) || bm != 64 || gs % 32 != 0 || rstd == nullptr ||
+                    (reinterpret_cast<uintptr_t>(pn.w) & 15) != 0 ||
+                    (reinterpret_cast<uintptr_t>(a) & 15) != 0))
+        return (int)cudaErrorInvalidValue;
+    const int ld = KB32L ? n_pad : N;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WG_LAUNCH(TT, BM)                                                                      \
-    launch_wgmma<BITS, TT, BM, TRANS>(a, qweight, scales, zeros, bias, kperm, out, ws, counters, \
-                                      M, K, N, gs, stages, splits, st)
-    switch (dtype) {
-        case DT_F16:
-            return bm == 256 ? WG_LAUNCH(__half, 256)
-                             : bm == 128 ? WG_LAUNCH(__half, 128) : WG_LAUNCH(__half, 64);
-        case DT_BF16:
-            return bm == 256 ? WG_LAUNCH(__nv_bfloat16, 256)
-                             : bm == 128 ? WG_LAUNCH(__nv_bfloat16, 128)
-                                         : WG_LAUNCH(__nv_bfloat16, 64);
-        default:   // f32 activations take the SIMT kernels
-            return (int)cudaErrorInvalidValue;
+    launch_wgmma<BITS, TT, BM, TRANS, KB32L, PRENORM>(a, qweight, scales, zeros, bias, kperm,  \
+                                                      out, ws, counters, M, K, N, ld, gs,      \
+                                                      stages, splits, st, rstd, pn)
+    if constexpr (PRENORM) {   // one 64-row block
+        switch (dtype) {
+            case DT_F16: return WG_LAUNCH(__half, 64);
+            case DT_BF16: return WG_LAUNCH(__nv_bfloat16, 64);
+            default: return (int)cudaErrorInvalidValue;
+        }
+    } else {
+        switch (dtype) {
+            case DT_F16:
+                return bm == 256 ? WG_LAUNCH(__half, 256)
+                                 : bm == 128 ? WG_LAUNCH(__half, 128) : WG_LAUNCH(__half, 64);
+            case DT_BF16:
+                return bm == 256 ? WG_LAUNCH(__nv_bfloat16, 256)
+                                 : bm == 128 ? WG_LAUNCH(__nv_bfloat16, 128)
+                                             : WG_LAUNCH(__nv_bfloat16, 64);
+            default:   // f32 activations take the SIMT kernels
+                return (int)cudaErrorInvalidValue;
+        }
     }
 #undef WG_LAUNCH
+}
+
+// rstd [M] of x [M, K] (bf16 or f16, 16-byte aligned, K % 8 == 0) by wg_rstd_kernel: the fused
+// prologue's rows, launched just before its product on the same stream.
+inline int wg_rstd(const void* x, float* rstd, int dtype, int M, int K, float eps, void* stream) {
+    if (M <= 0 || K <= 0 || K % 8 != 0 || rstd == nullptr ||
+        (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (dtype) {
+        case DT_F16:
+            wg_rstd_kernel<__half><<<M, 256, 0, st>>>(static_cast<const __half*>(x), K, eps, rstd);
+            break;
+        case DT_BF16:
+            wg_rstd_kernel<__nv_bfloat16><<<M, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
+                                                            K, eps, rstd);
+            break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -805,6 +1055,28 @@ int wna16_wgmma(const void* a, const int32_t* qweight, const void* scales, const
         return wna16_wgmma<BITS, false>(x, qweight, scales, zeros, bias, nullptr, out, ws,      \
                                         counters, dtype, M, K, N, gs, bm, stages, splits,       \
                                         stream);                                                \
+    }
+
+// Exports `int NAME_wgmma_norm(...)`: the forward with the fused RMS-norm prologue (M < 32,
+// 4-bit storage), the arguments of NAME_wgmma with the rows' rstd after the counters and the
+// norm weight, its dtype code, eps and plus_one before the stream; and `int
+// NAME_wgmma_norm_rstd(x, rstd, dtype, M, K, eps, stream)`, that rstd, launched just before.
+#define WNA16_WGMMA_NORM_DEFINE_ENTRY(NAME, BITS)                                               \
+    extern "C" int NAME##_wgmma_norm(const void* x, const int32_t* qweight, const void* scales, \
+                                     const uint8_t* zeros, const void* bias, void* out,         \
+                                     float* ws, int* counters, const float* rstd, int dtype,    \
+                                     int M, int K, int N, int gs, int bm, int stages,           \
+                                     int splits, const void* nw, int nw_dtype, float eps,       \
+                                     int plus_one, void* stream) {                              \
+        static_assert(BITS == 4, "the fused prologue takes 4-bit storage");                    \
+        return wna16_wgmma<BITS, false, false, true>(x, qweight, scales, zeros, bias, nullptr,  \
+                                                     out, ws, counters, dtype, M, K, N, gs, bm, \
+                                                     stages, splits, stream, 0, rstd,           \
+                                                     Prenorm{nw, nw_dtype, eps, plus_one});     \
+    }                                                                                           \
+    extern "C" int NAME##_wgmma_norm_rstd(const void* x, float* rstd, int dtype, int M, int K,  \
+                                          float eps, void* stream) {                            \
+        return wg_rstd(x, rstd, dtype, M, K, eps, stream);                                      \
     }
 
 // Exports `int NAME_wgmma(...)`: K10 over GPTQ words of BITS-bit codes, dx through kperm.

@@ -28,8 +28,8 @@ planned by :func:`wgmma_plan`; x gathered by kperm once per call), or the
 ``mma.sync`` tile kernel (``csrc/wna16_mma.cuh``, ``<name>_mma``; its
 ``ANY_GS`` instance where 16 does not divide the group size, whose stage
 :func:`mma_smem_bytes` sizes) where TMA cannot address the shape
-(:func:`wgmma_shape_ok`) or for the fused prologue; f32 activations take
-the SIMT kernels at any M (launch count ``<name>``). The choice is static,
+(:func:`wgmma_shape_ok`); f32 activations take the SIMT kernels at any M
+(launch count ``<name>``). The choice is static,
 by dtype and shape; a launch that fails raises, whichever kernel it was.
 
 K10, their backward ``dx = g @ ((q - z) * s)^T`` (``csrc/wna16_gemm_t.cuh``),
@@ -62,8 +62,9 @@ TPU prologue ``_prenorm_x`` that ``_kernel_kb32`` and ``_kernel_ki32`` run for
 ``matmul_pallas(prenorm=)``: ``wna16_matmul(..., prenorm=(w, eps, plus_one))``
 multiplies ``rms_apply(x, w, eps, plus_one)`` by the weight. A call
 :func:`prenorm_eligible` admits launches the fused instance of the kernel
-:func:`route` names (launch counts ``w4a16_gemm_gemv_norm``,
-``w4a16_gemm_mma_norm``, ``w4a16_gemm_norm``); any other call applies
+:func:`route` names (launch counts ``w4a16_gemm_gemv_norm`` at M <= 16,
+``w4a16_gemm_wgmma_norm`` at 17-31 rows, ``w4a16_gemm_mma_norm`` where TMA
+cannot address the shape, ``w4a16_gemm_norm`` for f32); any other call applies
 :func:`rms_apply` and then the usual kernel, the JAX package's unfused branch;
 a CPU tensor takes :func:`rms_apply` and the plain version.
 
@@ -74,8 +75,10 @@ the TPU kernels ``_matmul_kb32l`` and ``_kernel_kb32l_manual``.
 ``w4a16_kb32l_matmul_ref`` for CPU tensors; ``wna16_matmul_t`` takes the same
 words for K10. It routes as K1 does (:func:`route`): the tensor-core GEMV over
 the kb32l tiles at M <= 16 for bf16 and f16 (``<name>_gemv``), the cp.async
-ring (``<name>``) for f32, the mma.sync tile kernels above 16 rows (no wgmma
-kernel reads kb32l words yet).
+ring (``<name>``) for f32, above 16 rows the wgmma/TMA tile kernel over a 3-D
+tensor map of the tiles (``<name>_wgmma``, :func:`kb32l_word_map`; the
+mma.sync one, ``<name>_mma``, where TMA cannot address the shape). K10 over
+kb32l words keeps the mma.sync kernel above 16 rows.
 
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
@@ -133,6 +136,8 @@ WGMMA_BTILES = 3        # dequantized B tile pairs (hi, lo) in rotation (WG_BTIL
 WGMMA_MAX_SPLITS = 16   # reduction splits the plan considers
 WGMMA_SPLIT_STEPS = 4   # a block's fixed cost in tile steps: ring fill, partials, combine
 WGMMA_ENCODE_ERROR = 100000   # an entry's code above this: cuTensorMapEncodeTiled failed
+WGMMA_NW_BYTES = WGMMA_BK * 4  # the prologue's norm weights per stage, room for f32 (WG_NW_BYTES)
+RSTD_KERNEL = "w4a16_gemm_wgmma_norm_rstd"   # entry and launch-count key of that prologue's rstd
 
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
@@ -225,28 +230,27 @@ def wgmma_shape_ok(k: int, n: int) -> bool:
 
 
 def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None, k: Optional[int] = None,
-                n: Optional[int] = None, layout: str = "gptq", prenorm: bool = False) -> str:
+                n: Optional[int] = None) -> str:
     """The tile kernel a product in ``dtype`` takes on the card: K1/K4/K5's
-    and K6's above 16 rows (:func:`route` decides below), K10's above 16 rows
-    (:func:`t_route`). For bf16 and f16 over GPTQ words ``"wgmma"``, the
-    warp-specialized wgmma/TMA kernel (``csrc/wna16_wgmma.cuh``), at every
-    group size; ``"mma"``, the ``mma.sync`` tile kernel
-    (``csrc/wna16_mma.cuh``), for K6's kb32l words (``layout="kb32l"``), the
-    fused RMS-norm prologue (``prenorm``) and a ``K`` or ``N`` TMA cannot
-    address (:func:`wgmma_shape_ok`; decided from the shapes, never by
-    trying); ``"simt"``, the SIMT kernels, for f32 (the f32 model path and
-    ``quantize``'s re-forward). Without ``k`` and ``n`` the shape is taken as
-    aligned. ``kernel`` ("wgmma", "mma" or "simt") names one instead, to time
-    them on the same operands; a tensor-core kernel raises for operands it
-    does not take."""
+    and K6's above 16 rows (:func:`route` and :func:`kb32l_route` decide
+    below), K10's above 16 rows (:func:`t_route`, which keeps kb32l words on
+    ``"mma"``). For bf16 and f16 ``"wgmma"``, the warp-specialized wgmma/TMA
+    kernel (``csrc/wna16_wgmma.cuh``), at every group size, over GPTQ words
+    and K6's kb32l words, with the fused RMS-norm prologue too; ``"mma"``,
+    the ``mma.sync`` tile kernel (``csrc/wna16_mma.cuh``), for a ``K`` or
+    ``N`` TMA cannot address (:func:`wgmma_shape_ok`; decided from the
+    shapes, never by trying); ``"simt"``, the SIMT kernels, for f32 (the f32
+    model path and ``quantize``'s re-forward). Without ``k`` and ``n`` the
+    shape is taken as aligned. ``kernel`` ("wgmma", "mma" or "simt") names
+    one instead, to time them on the same operands; a tensor-core kernel
+    raises for operands it does not take."""
     if kernel is not None:
         if kernel not in ("wgmma", "mma", "simt"):
             raise ValueError(f"kernel must be 'wgmma', 'mma', 'simt' or None, got {kernel!r}")
         return kernel
     if dtype not in MMA_DTYPES:
         return "simt"
-    if layout != "gptq" or prenorm or (k is not None and n is not None
-                                       and not wgmma_shape_ok(k, n)):
+    if k is not None and n is not None and not wgmma_shape_ok(k, n):
         return "mma"
     return "wgmma"
 
@@ -258,8 +262,9 @@ def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None, k: Optiona
     (``csrc/wna16_gemv_t.cuh``, :func:`t_gemv_plan`), for bf16 and f16 at
     ``m <= 16`` and any group size; above 16 rows :func:`tile_kernel`'s
     choice for the layer's ``k``, ``n`` and ``layout`` (``"wgmma"`` for bf16
-    and f16 over GPTQ words TMA can address, ``"mma"`` over kb32l words or
-    other shapes, ``"simt"`` for f32, which takes the SIMT K10 at every
+    and f16 over GPTQ words TMA can address, ``"mma"`` over kb32l words, whose
+    wgmma K10 is still to come, or other shapes, ``"simt"`` for f32, which
+    takes the SIMT K10 at every
     ``m``). ``kernel`` ("gemv", "wgmma", "mma" or "simt") names one instead;
     the decode regime raises above 16 rows."""
     _check_kernel(kernel)
@@ -267,7 +272,8 @@ def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None, k: Optiona
         return kernel
     if dtype in MMA_DTYPES and m <= DECODE_MAX_M:
         return "gemv"
-    return tile_kernel(dtype, None, k, n, layout)
+    chosen = tile_kernel(dtype, None, k, n)
+    return "mma" if chosen == "wgmma" and layout == "kb32l" else chosen
 
 
 def mma_stage_groups(gs: int, rows: int) -> int:
@@ -311,23 +317,31 @@ def _up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
-def wgmma_stage_bytes(bits: int, bm: int, ng: int, transpose: bool = False) -> int:
+def wgmma_stage_bytes(bits: int, bm: int, ng: int, transpose: bool = False,
+                      prenorm: bool = False) -> int:
     """Bytes of one stage of the wgmma kernels' ring for ``bits``-bit storage
     (2, 4 or 8): the activation tile ``[bm][64]`` (x, or K10's g) in 128-byte
     swizzled rows, the words of 64 reduction rows (K10: of its 128 K rows),
     ``ng`` group rows of fp16 scales and uint8 zeros over 128 columns (K10:
     64), each region 128-byte aligned, the forward's 64-byte table of group
-    rows, the whole 1024-aligned (``csrc/wna16_wgmma.cuh:WgStage``)."""
+    rows, with ``prenorm`` the tile's 64 norm weights (:data:`WGMMA_NW_BYTES`,
+    room for f32, 128-aligned), the whole 1024-aligned
+    (``csrc/wna16_wgmma.cuh:WgStage``)."""
     sw = 64 if transpose else WGMMA_BN
     size = bm * 128 + 1024 * bits + _up(ng * sw * 2, 128) + _up(ng * sw, 128)
-    return _up(size + (0 if transpose else 64), 1024)
+    size = _up(size + (0 if transpose else 64), 128)
+    return _up(size + (WGMMA_NW_BYTES if prenorm else 0), 1024)
 
 
 def wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
-               transpose: bool = False) -> dict:
+               transpose: bool = False, layout: str = "gptq", prenorm: bool = False) -> dict:
     """The wgmma/TMA tile kernel's launch for ``m`` rows of a ``[K/P, N]``
     layer (``transpose``: K10, ``dx [m, K] = g [m, N] @ W^T``), from shapes
-    alone; ``bits`` is the code width (3 rides in nibbles).
+    alone; ``bits`` is the code width (3 rides in nibbles). ``layout="kb32l"``
+    (K6's forward) reads the words through :func:`kb32l_word_map`, whose box
+    holds the same words as GPTQ's, so only ``words_map`` is added; ``prenorm``
+    (K1's fused prologue, ``m`` < 32) adds the norm weights' slot to each
+    stage and their box.
 
     * ``bm``: 256 above 128 rows (two consumer warpgroups of 128 rows, so
       each dequantized weight tile pair feeds 256 rows; 128 where two stages
@@ -347,13 +361,24 @@ def wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
       card. Their f32 partials ``[splits, m, out columns]``
       (``workspace_bytes``) are added in split order by the block drawing the
       last ticket.
-    * ``boxes``: each TMA box as (inner elements, rows, element bytes)."""
-    return dict(_wgmma_plan(m, k, n, group_size, bits, sms, transpose))
+    * ``boxes``: each TMA box as (inner elements, rows, element bytes), the
+      norm weights' (``prenorm``) at the most bytes (f32) an element takes."""
+    if layout not in ("gptq", "kb32l") or (layout == "kb32l" and transpose):
+        raise ValueError(f"the wgmma kernels read GPTQ words, and kb32l words in the forward; "
+                         f"got layout={layout!r}, transpose={transpose}")
+    if prenorm and (transpose or layout != "gptq" or m >= PRENORM_MAX_M):
+        raise ValueError(f"the fused prologue is a forward over GPTQ words at fewer than "
+                         f"{PRENORM_MAX_M} rows, got m={m}, transpose={transpose}, "
+                         f"layout={layout!r}")
+    plan = dict(_wgmma_plan(m, k, n, group_size, bits, sms, transpose, prenorm))
+    if layout == "kb32l":
+        plan["words_map"] = kb32l_word_map(k, n)
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
 def _wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
-                transpose: bool) -> dict:
+                transpose: bool, prenorm: bool = False) -> dict:
     sb = storage_bits(bits)
     p = 32 // sb
     gs = k if group_size == -1 else group_size
@@ -361,7 +386,7 @@ def _wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
     ng = mma_stage_groups(gs, WGMMA_BN if transpose else WGMMA_BK)
     fixed = 1024 + WGMMA_BTILES * 2 * WGMMA_BN * WGMMA_BK * 2   # slack, the hi/lo B tiles
     for bm in ((64,) if m <= 64 else (128,) if m <= 128 else (256, 128)):
-        stage = wgmma_stage_bytes(sb, bm, ng, transpose)   # the tallest block two stages fit
+        stage = wgmma_stage_bytes(sb, bm, ng, transpose, prenorm)   # the tallest two stages fit
         stages = min(WGMMA_MAX_STAGES, (MMA_SMEM_LIMIT - fixed) // stage)
         if stages >= 2:
             break
@@ -392,6 +417,8 @@ def _wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
     sw = 64 if transpose else WGMMA_BN
     boxes = {"a": (WGMMA_BK, bm, 2), "scales": (sw, ng, 2), "zeros": (sw, ng, 1),
              "words": (64, WGMMA_BN // p, 4) if transpose else (WGMMA_BN, WGMMA_BK // p, 4)}
+    if prenorm:
+        boxes["norm"] = (WGMMA_BK, 1, WGMMA_NW_BYTES // WGMMA_BK)
     return dict(bm=bm, bn=WGMMA_BN, warpgroups_n=2 if bm == 64 else 1, stages=stages,
                 stage_groups=ng, stage_bytes=stage,
                 smem_bytes=fixed + stages * stage, ktiles=ktiles, col_blocks=col_blocks,
@@ -427,8 +454,7 @@ def _check_kernel(kernel: Optional[str]) -> None:
 
 
 def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None,
-          k: Optional[int] = None, n: Optional[int] = None, layout: str = "gptq",
-          prenorm: bool = False) -> str:
+          k: Optional[int] = None, n: Optional[int] = None) -> str:
     """The kernel K1/K4/K5's forward takes on the card for ``m`` rows with
     group size ``gs`` (in rows: ``K`` for one group): at ``m <= 16``
     ``"gemv"``, the tensor-core decode GEMV, for bf16 and f16 at a group size
@@ -437,18 +463,30 @@ def route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None,
     16 (there every 16-row step spans groups, and the GEMV's exact masked MMA
     sets, one per group, were slower than the SIMT GEMV on the H100:
     PERF.md); above 16 rows :func:`tile_kernel`'s choice for the layer's
-    ``k``, ``n``, ``layout`` and ``prenorm`` (``"wgmma"`` for bf16 and f16
-    over GPTQ words at any group size, desc_act included; ``"mma"`` for kb32l
-    words, the fused prologue and shapes TMA cannot address; ``"simt"`` for
-    f32). ``kernel`` names one instead (the tensor-core kernels raise for
-    operands they do not take). K6 routes the same way (its "simt" at
-    ``m <= 16`` is its cp.async ring); K10 takes :func:`t_route`."""
+    ``k`` and ``n`` (``"wgmma"`` for bf16 and f16 at any group size, desc_act
+    and the fused prologue included; ``"mma"`` for shapes TMA cannot address;
+    ``"simt"`` for f32). ``kernel`` names one instead (the tensor-core
+    kernels raise for operands they do not take). K6 takes
+    :func:`kb32l_route` (its "simt" at ``m <= 16`` is its cp.async ring); K10
+    :func:`t_route`."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
     if m <= DECODE_MAX_M:
         return "gemv" if dtype in MMA_DTYPES and gs >= MMA_K else "simt"
-    return tile_kernel(dtype, None, k, n, layout, prenorm)
+    return tile_kernel(dtype, None, k, n)
+
+
+def kb32l_route(dtype: torch.dtype, m: int, gs: int, kernel: Optional[str] = None,
+                k: Optional[int] = None, n: Optional[int] = None) -> str:
+    """:func:`route` for K6's forward over kb32l words of ``n`` columns: TMA
+    reads the words, scales and zeros at the padded width (a multiple of
+    128), so only K % 8 and the epilogue's column pairs (N % 4, as K1's words
+    need) keep a shape off the wgmma kernel."""
+    chosen = route(dtype, m, gs, kernel, k, None if n is None else -(-n // KB32L_BN) * KB32L_BN)
+    if kernel is None and chosen == "wgmma" and n is not None and n % 4:
+        return "mma"
+    return chosen
 
 
 STORAGE_BITS = {2: 2, 3: 4, 4: 4, 8: 8}     # bits per weight of the runtime words
@@ -597,35 +635,98 @@ def _lib_wgmma(name: str):
                  + [ctypes.c_void_p])
 
 
+def _lib_wgmma_norm():
+    """K1's wgmma/TMA forward with the fused prologue ``w4a16_gemm_wgmma_norm``:
+    the arguments of :func:`_lib_wgmma`'s entry with the rows' rstd after the
+    counters and :data:`NORM_ARGTYPES` before the stream."""
+    name = KERNEL_NAMES[4]
+    return _bind(name, name + WGMMA_SUFFIX + NORM_SUFFIX, [ctypes.c_void_p] * 9
+                 + [ctypes.c_int] * 8 + NORM_ARGTYPES + [ctypes.c_void_p])
+
+
+def _lib_wgmma_rstd():
+    """The rows' rstd of that prologue, ``w4a16_gemm_wgmma_norm_rstd(x, rstd,
+    dtype, M, K, eps, stream)``."""
+    name = KERNEL_NAMES[4]
+    return _bind(name, RSTD_KERNEL, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def prenorm_rstd(x2d: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """``rsqrt(mean(f32(x)^2) + eps)`` of each row of ``x2d [M, K]`` over its
+    full K, f32 ``[M]`` (into ``out`` where given): what the wgmma prologue
+    scales each row by (:func:`rms_apply`'s rstd). A CPU tensor takes the
+    plain version; a bf16 or f16 CUDA tensor launches ``wg_rstd_kernel``
+    (key ``w4a16_gemm_wgmma_norm_rstd``), anything else raises."""
+    if x2d.device.type == "cpu":
+        r = torch.rsqrt(x2d.float().pow(2).mean(-1) + eps)
+        return r if out is None else out.copy_(r)
+    m, k = x2d.shape
+    if (x2d.device.type != "cuda" or x2d.dtype not in MMA_DTYPES or not x2d.is_contiguous()
+            or k % 8 or x2d.data_ptr() % 16):
+        raise ValueError(f"{RSTD_KERNEL} takes a contiguous, 16-byte aligned bf16/f16 [M, K] "
+                         f"CUDA tensor with K % 8 == 0, got {tuple(x2d.shape)} {x2d.dtype} on "
+                         f"{x2d.device}")
+    if out is None:
+        out = torch.empty(m, dtype=torch.float32, device=x2d.device)
+    if m:
+        build.check(KERNEL_NAMES[4], _lib_wgmma_rstd()(_ptr(x2d), _ptr(out),
+                                                       DTYPE_CODES[x2d.dtype], m, k,
+                                                       float(eps), _stream(x2d)))
+        build.launches[RSTD_KERNEL] += 1
+    return out
+
+
+def _lib_kb32l_wgmma():
+    """K6's wgmma/TMA forward ``w4a16_kb32l_gemm_wgmma(x, qweight, scales, zeros,
+    bias, out, ws, counters, dtype, M, K, N, n_pad, gs, bm, stages, splits,
+    stream)``, x already gathered by kperm."""
+    return _bind(KB32L_KERNEL, KB32L_KERNEL + WGMMA_SUFFIX, [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
 def _launch_wgmma(name: str, entry, a, kperm, qweight, scales, zeros, bias, out, m, k, n, gs,
-                  bits, transpose: bool = False) -> None:
+                  bits, transpose: bool = False, layout: str = "gptq",
+                  norm: tuple = ()) -> None:
     """One launch of the wgmma/TMA tile kernel on :func:`wgmma_plan`'s plan:
     the forward (``a`` = x, ``bias``) or with ``transpose`` K10 (``a`` = g,
-    ``kperm`` undone on the store), counted under ``<name>_wgmma``. Raises for
-    a shape TMA cannot address (:func:`wgmma_shape_ok`, which :func:`route`
-    and :func:`t_route` never send here), a failed descriptor encode or
-    launch."""
-    if not wgmma_shape_ok(k, n):
-        raise NotImplementedError(f"{name}{WGMMA_SUFFIX} needs K % 8 == 0 and N % 16 == 0 for "
-                                  f"TMA, got K={k}, N={n}")
+    ``kperm`` undone on the store), counted under ``<name>_wgmma``; K6's
+    forward over kb32l words with ``layout="kb32l"`` (``n_pad``, the scales'
+    width, before ``gs``), the fused prologue with ``norm`` (the
+    :data:`NORM_ARGTYPES` values, counted under ``<name>_wgmma_norm``, after
+    :func:`prenorm_rstd` of the rows into the workspace, counted under its
+    own key). Raises for a shape TMA cannot address (:func:`wgmma_shape_ok`,
+    which :func:`route`, :func:`kb32l_route` and :func:`t_route` never send
+    here), a failed descriptor encode or launch."""
+    ok = (wgmma_shape_ok(k, scales.shape[1]) and n % 4 == 0 if layout == "kb32l"
+          else wgmma_shape_ok(k, n))
+    if not ok:
+        raise NotImplementedError(f"{name}{WGMMA_SUFFIX} needs K % 8 == 0 and N % 16 == 0 "
+                                  f"(kb32l: N % 4 == 0) for TMA, got K={k}, N={n}")
     if a.data_ptr() % 16:          # TMA reads from a 16-byte aligned base
         a = a.clone()
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    plan = wgmma_plan(m, k, n, gs, bits, sms, transpose)
+    plan = wgmma_plan(m, k, n, gs, bits, sms, transpose, layout, bool(norm))
     cols = k if transpose else n
-    ws, counters = build.split_scratch(
-        name + WGMMA_SUFFIX, a.device, plan["splits"] * m * cols if plan["splits"] > 1 else 0,
-        plan["tiles"])
+    key = name + WGMMA_SUFFIX + (NORM_SUFFIX if norm else "")
+    partials = plan["splits"] * m * cols if plan["splits"] > 1 else 0
+    ws, counters = build.split_scratch(   # the prologue's rstd after the partials
+        key, a.device, partials + (PRENORM_MAX_M if norm else 0), plan["tiles"])
     lead = (_ptr(a), _ptr(kperm)) if transpose else (_ptr(a),)
     tail = () if transpose else (_ptr(bias),)
+    n_pad = (scales.shape[1],) if layout == "kb32l" else ()
+    rstd = ()
+    if norm:
+        rstd = (_ptr(prenorm_rstd(a, norm[2], ws[partials:partials + m])),)
     code = entry(*lead, _ptr(qweight), _ptr(scales), _ptr(zeros), *tail, _ptr(out), _ptr(ws),
-                 _ptr(counters), DTYPE_CODES[a.dtype], m, k, n, gs, plan["bm"], plan["stages"],
-                 plan["splits"], _stream(a))
+                 _ptr(counters), *rstd, DTYPE_CODES[a.dtype], m, k, n, *n_pad, gs, plan["bm"],
+                 plan["stages"], plan["splits"], *norm, _stream(a))
     if code >= WGMMA_ENCODE_ERROR:
-        raise RuntimeError(f"{name}{WGMMA_SUFFIX}: cuTensorMapEncodeTiled failed with CUresult "
+        raise RuntimeError(f"{key}: cuTensorMapEncodeTiled failed with CUresult "
                            f"{code - WGMMA_ENCODE_ERROR}")
     build.check(name, code)
-    build.launches[name + WGMMA_SUFFIX] += 1
+    build.launches[key] += 1
 
 
 def gemv_blocks_per_sm(dtype: torch.dtype, m: int, bits: int, kc: int,
@@ -715,7 +816,7 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     ``prenorm=(w, eps, plus_one)`` multiplies ``rms_apply(x2d, w, eps,
     plus_one)`` instead (the JAX ``matmul_pallas(prenorm=)``): on the card a
     call :func:`prenorm_eligible` admits launches that kernel's fused
-    instance (key ``<name>[_gemv|_mma]_norm``), any other applies
+    instance (key ``<name>[_gemv|_wgmma|_mma]_norm``), any other applies
     :func:`rms_apply` first; on the CPU :func:`rms_apply` and the plain
     version."""
     if bits not in KERNEL_NAMES:
@@ -738,20 +839,18 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     if m == 0:
         return out
     norm, suffix, extra = prenorm is not None, "", ()
+    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n)
     if norm:
         w, eps, plus_one = prenorm
         _check_norm(w, k, x2d.device)
+        if chosen == "wgmma" and w.data_ptr() % 16:   # TMA reads from a 16-byte aligned base
+            w = w.clone()
         suffix, extra = NORM_SUFFIX, (_ptr(w), DTYPE_CODES[w.dtype], float(eps), int(plus_one))
-    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n,
-                   prenorm=norm)
     if chosen == "wgmma":
-        if norm:
-            raise NotImplementedError("the fused RMS-norm prologue runs on the 'gemv', 'mma' and "
-                                      "'simt' kernels, not 'wgmma'")
         if kperm is not None:          # desc_act: x gathered once, as matmul_pallas does
             x2d = x2d.index_select(1, kperm)
-        _launch_wgmma(name, _lib_wgmma(name), x2d, None, qweight, scales, zeros, bias, out, m, k,
-                      n, gs, bits)
+        _launch_wgmma(name, _lib_wgmma_norm() if norm else _lib_wgmma(name), x2d, None, qweight,
+                      scales, zeros, bias, out, m, k, n, gs, bits, norm=extra)
         return out
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
@@ -973,6 +1072,21 @@ def kb32l_delinearize(qweight: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return words.reshape(nbk * qweight.shape[1], nbn * KB32L_BN)[:k // 8, :n]
 
 
+def kb32l_word_map(k: int, n: int) -> dict:
+    """The 3-D TMA map K6's wgmma forward reads the kb32l words through
+    (``csrc/wna16_wgmma.cuh:wg_encode_kb32l``): the tiles as one row-major
+    int32 tensor ``[N_pad/128][K_pad/8][128]`` (:func:`kb32l_delinearize`'s
+    reading), ``dims`` innermost first (128 columns, ``K_pad/8`` word rows,
+    ``N_pad/128`` column tiles), the byte ``strides`` of dims 1 and 2, the
+    ``box`` (128, 8, 1). The box at ``(0, 8t, j)``, reduction tile t of
+    column block j, holds the ``[8][128]`` words of K rows ``64t..64t+63`` and
+    columns ``128j..``, as GPTQ's map gives them."""
+    nbk, nbn = -(-k // KB32L_KB), -(-n // KB32L_BN)
+    rows = nbk * KB32L_KB // 8
+    return dict(dims=(KB32L_BN, rows, nbn), strides=(KB32L_BN * 4, rows * KB32L_BN * 4),
+                box=(KB32L_BN, WGMMA_BK // 8, 1))
+
+
 def kb32l_as_gptq(qweight, scales, zeros, k: int, n: int, gs: int):
     """GPTQ words ``[K/8, N]``, scales and zeros ``[G, N]`` of kb32l operands
     (views where the padding allows)."""
@@ -1113,8 +1227,8 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     (4-bit storage: 3- and 4-bit layers). A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel :func:`route` names (``kernel``,
     or the one :func:`forced_kernel` sets, passed on to it: the tensor-core
-    GEMV or tile kernel, or the ring at ``m <= 16`` and the SIMT tile kernel
-    above), or raises."""
+    GEMV, the wgmma/TMA or mma.sync tile kernel, or the ring at ``m <= 16``
+    and the SIMT tile kernel above), or raises."""
     if x2d.device.type == "cpu":
         return w4a16_kb32l_matmul_ref(x2d, qweight, scales, zeros, kperm, bias, group_size, n)
     if x2d.device.type != "cuda":
@@ -1125,11 +1239,13 @@ def w4a16_kb32l_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.T
     out = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     if m == 0:
         return out
-    chosen = route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n,
-                   layout="kb32l")
+    chosen = kb32l_route(x2d.dtype, m, gs, kernel if kernel is not None else _forced[0], k, n)
     if chosen == "wgmma":
-        raise NotImplementedError("K6's kb32l words run on the 'gemv', 'mma' and 'simt' kernels, "
-                                  "not 'wgmma'")
+        if kperm is not None:          # desc_act: x gathered once, as K1's wgmma route does
+            x2d = x2d.index_select(1, kperm)
+        _launch_wgmma(KB32L_KERNEL, _lib_kb32l_wgmma(), x2d, None, qweight, scales, zeros, bias,
+                      out, m, k, n, gs, 4, layout="kb32l")
+        return out
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
         plan = gemv_plan(k, n, m, gs, 4, sms)
@@ -1377,12 +1493,12 @@ __all__ = [
     "w4a16_matmul", "w4a16_matmul_ref", "w8a16_matmul", "w8a16_matmul_ref",
     "w2a16_matmul", "w2a16_matmul_ref", "dequantize_codes", "unpack_words",
     "split_k", "tile_kernel", "t_route", "mma_stage_groups", "mma_smem_bytes", "route",
-    "wgmma_shape_ok", "wgmma_stage_bytes", "wgmma_plan", "WGMMA_SUFFIX",
+    "kb32l_route", "prenorm_rstd", "RSTD_KERNEL", "wgmma_shape_ok", "wgmma_stage_bytes", "wgmma_plan", "WGMMA_SUFFIX",
     "gemv_plan", "t_gemv_plan",
     "gemv_blocks_per_sm", "forced_kernel",
     "storage_bits", "MMA_SUFFIX", "GEMV_SUFFIX", "NORM_SUFFIX", "rms_apply", "prenorm_eligible", "ROUTED_KERNEL", "wna16_routed_matmul",
     "wna16_routed_matmul_ref", "routed_route", "routed_plan", "routed_slices",
     "check_routed_errors", "KB32L_KERNEL", "KB32L_KB", "KB32L_BN", "KB32L_NBUF",
-    "kb32l_delinearize", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
+    "kb32l_delinearize", "kb32l_word_map", "kb32l_as_gptq", "kb32l_shape_ok", "kb32l_plan", "kb32l_blocks_per_sm",
     "w4a16_kb32l_matmul", "w4a16_kb32l_matmul_ref",
 ]

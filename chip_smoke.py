@@ -21,12 +21,15 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    kernel; ptxas' registers, spills and shared memory of every tensor-core
    instance (a spill in a GEMV or wgmma instance fails the run). K1's fused RMS-norm prologue on
    one layer's q/k/v and gate/up: each route (the tensor-core GEMV at M = 1, 4,
-   16 in bf16 and f16, the SIMT GEMV in f32, the tensor-core and SIMT tile
-   kernels at M = 24, a 3-bit and a ``plus_one`` case) against ``rms_apply``
-   and the plain matmul, one launch of its own key, bit-equal on a second call,
-   timed beside the same kernel alone, the unfused pair, the plain version and
-   ``F.rms_norm`` + ``torch.matmul``; ptxas' registers and spills of its 24
-   instances.
+   16 in bf16 and f16, the SIMT GEMV in f32, the wgmma/TMA tile kernel at M =
+   17, 24 and 31 in bf16 and 24 in f16, the SIMT tile kernel at M = 24, a 3-bit
+   and a ``plus_one`` case) against ``rms_apply`` and the plain matmul, one
+   launch of its own key, bit-equal on a second call, timed beside the same
+   kernel alone, the unfused pair, the plain version and ``F.rms_norm`` +
+   ``torch.matmul``; the wgmma cases also launch the rows' rstd kernel first
+   (held alone to its plain version) and run the mma.sync tile kernel's
+   prologue (``kernel="mma"``, held to the same tolerance), both timed at M =
+   24 bf16; ptxas' registers and spills of its 28 instances.
 4. K2 (split-KV flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2
    with a left-padded row, and GQA at 528 slots, a window sweep (17, 64, 272
    and 528 live slots, MHA and GQA) and Mixtral-8x7B's decode shape (8 KV
@@ -65,8 +68,11 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    norm's), a profiled 33-token window, the tokens equal to the default run's;
    beam-4 runs of 48 tokens with the switch off, on, on and off (host time in
    turns; each repeats its tokens; the fused tokens against the unfused ones);
-   a bf16 batch of 24 prompts whose decode steps take the tile kernel's
-   prologue.
+   a bf16 batch of 24 prompts whose decode steps take the wgmma/TMA tile
+   kernel's prologue (exactly 1120 ``w4a16_gemm_wgmma_norm`` and 1120
+   ``w4a16_gemm_wgmma_norm_rstd``, no ``w4a16_gemm_mma_norm``), and a 2-token
+   run of that batch forced through
+   the mma.sync kernels (``gemm.forced_kernel("mma")``).
 8. The port on the card against the port on the CPU: a 2-layer, full-width
    cut of the same checkpoint, prefill and one decode step, and one paged
    beam-4 decode step, bf16 kernels (the tensor-core GEMV) and f32 kernels
@@ -169,25 +175,34 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    words) against its plain version at the Llama-2-7B projection shapes, M in
    {1, 4, 16} (decode: the tensor-core GEMV over the kb32l tiles, bit-equal on a
    second call, beside its cp.async ring on the same words) and {128, 2048}
-   (tile), 4-bit g128 bf16, plus 3-bit, desc_act, bias, N = 1312 and f32 (the
-   ring) and f16 at M = 1; timed beside K1 on the same weights in the GPTQ
-   layout (its tensor-core GEMV and, at M <= 16, its SIMT GEMV), the plain
-   version and ``torch.matmul``; both decode plans (blocks, blocks per SM,
-   weight bytes in flight per SM) and ptxas' registers and spills. K10 over
-   kb32l words at M = 64 and 2048.
+   (tile: the wgmma/TMA kernel over the kb32l tiles' 3-D map, bit-equal on a
+   second call, beside the mma.sync kernel, ``kernel="mma"``, and at M = 128
+   the SIMT tile kernel on the same words), 4-bit g128 bf16 and at M = 128 and 2048
+   f16 (checked, not timed), plus 3-bit, desc_act, bias, N = 1312 and f32 (the
+   ring) and f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout (its tensor-core
+   GEMV or wgmma kernel and, at M <= 16, its SIMT GEMV), the plain version and
+   ``torch.matmul``; both decode plans (blocks, blocks per SM, weight bytes in
+   flight per SM) and ptxas' registers and spills. K10 over kb32l words at M =
+   16, 64 and 2048.
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
    model; 256 greedy tokens (counts set to 0 just before and read just after:
    K6's GEMV 7 x 32 per token, no ring, no K1), then 32 again, equal to the
    first 32; the share of tokens equal to the main path's; a profile of 17
-   tokens through both routes (the ring's beside); a batch-2 generate whose 32-row prefill runs K6's tile regime. On
+   tokens through both routes (the ring's beside); a batch-2 generate whose
+   32-row prefill runs K6's tile regime (exactly 224 ``w4a16_kb32l_gemm_wgmma``,
+   no ``w4a16_kb32l_gemm_mma``), and its prefill again through the mma.sync
+   kernel (``gemm.forced_kernel("mma")``). On
    the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
    SIMT kernel forward in f32, K10 backward) on the card against the CPU.
 20. Estimates K2's and K7's device time per token over a 512-token run from
    the sweeps, holds the wgmma/TMA tile kernels per Llama-2-7B layer against
    the mma.sync ones (faster at M = 128 and 2048, forward and K10; whether at most half
-   its time at M = 2048 is reported), writes every measurement to
+   its time at M = 2048 is reported), reports K6's wgmma kernel per layer
+   against K1's on the same weights (within 10% or NOT MET) and K1's wgmma
+   prologue at M = 24 against the same kernel alone (within 10% or NOT MET)
+   and the unfused pair, writes every measurement to
    ``build/chip_smoke.json`` and
    prints one JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
@@ -303,13 +318,17 @@ LAYER_SHAPES = {          # Llama-2-7B projection: (K, N, calls per decoder laye
 PRENORM_SHAPES = {"qkv": (4096, 4096, 3), "gate_up": (4096, 11008, 2)}
 PRENORM_EPS = 1e-5
 PRENORM_F32_REL_TOL = 1e-5
-NORM_KEY = {"gemv": "w4a16_gemm_gemv_norm", "mma": "w4a16_gemm_mma_norm", "simt": "w4a16_gemm_norm"}
+NORM_KEY = {"gemv": "w4a16_gemm_gemv_norm", "wgmma": "w4a16_gemm_wgmma_norm",
+            "mma": "w4a16_gemm_mma_norm", "simt": "w4a16_gemm_norm"}
 FUSED_AB_TOKENS = 48          # beam-4 runs off, on, on, off: host time in turns
-FUSED_BATCH, FUSED_BATCH_TOKENS = 24, 8   # a bf16 batch whose decode steps take the mma prologue
+FUSED_BATCH, FUSED_BATCH_TOKENS = 24, 8   # a bf16 batch whose decode steps take the wgmma prologue
 FUSED_CUT_TOKENS = 4          # f32 cut with the switch on: greedy tokens at batch 1 and 24
 REPEAT_TOKENS = 32            # the kb32l path's repeat, held to its 512-token run's first tokens
 MIXTRAL_REPEAT_TOKENS = 16    # the Mixtral path's repeat, likewise
 KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
+WITHIN = 0.10                 # K6's and the wgmma prologue's targets: within 10% of K1's / alone
+PRENORM_TIMED_CASE = "M=24 bf16"   # the wgmma prologue case timed beside mma.sync's and rstd's
+RSTD_REL_TOL = 1e-5           # the prologue's rstd against its plain version: f32 sum order
 
 MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the mma.sync tile kernels
 WGMMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_wgmma.cuh"  # the wgmma/TMA tile kernels
@@ -501,12 +520,18 @@ def phase_prenorm(torch, np, timer) -> list:
     """K1's fused RMS-norm prologue against its plain version (``rms_apply``,
     then the plain matmul with f32 weights) on one Llama-2-7B layer's q/k/v and
     gate/up, g128: each route once (the tensor-core GEMV at M = 1, 4, 16 in bf16
-    and f16, the SIMT GEMV at M = 1 in f32, the tensor-core tile kernel at M = 24
-    in bf16, the SIMT tile kernel at M = 24 in f32, a 3-bit and a ``plus_one``
-    case), one launch of its own key, bit-equal on a second call; timed beside
-    the same kernel without the prologue, the unfused pair (``rms_apply`` + the
-    kernel), the plain version and the library (``F.rms_norm`` + ``torch.matmul``
-    on a pre-dequantized weight of the activation type)."""
+    and f16, the SIMT GEMV at M = 1 in f32, the wgmma/TMA tile kernel at M = 17,
+    24 and 31 in bf16 and 24 in f16, the SIMT tile kernel at M = 24 in f32, a
+    3-bit and a ``plus_one`` case), one launch of its own key, bit-equal on a
+    second call; timed beside the same kernel without the prologue, the unfused
+    pair (``rms_apply`` + the kernel), the plain version and the library
+    (``F.rms_norm`` + ``torch.matmul`` on a pre-dequantized weight of the
+    activation type); the wgmma cases launch the rows' rstd first
+    (``w4a16_gemm_wgmma_norm_rstd``, also called alone and held to its plain
+    version, ``rsqrt(mean(x^2) + eps)`` in torch, to ``RSTD_REL_TOL``) and run
+    the mma.sync tile kernel's prologue on the same operands
+    (``kernel="mma"``: ``w4a16_gemm_mma_norm``), held to the same tolerance;
+    at M = 24 bf16 both are timed too."""
     import torch.nn.functional as F
 
     from autogptq_tpu_torch.ops import build, gemm
@@ -521,6 +546,8 @@ def phase_prenorm(torch, np, timer) -> list:
     cases = [(f"M={m} {tag}", m, 4, dt, False) for m in (1, BEAMS, 16)
              for tag, dt in (("bf16", bf16), ("f16", f16))]
     cases += [("M=1 f32", 1, 4, f32, False), ("M=24 bf16", 24, 4, bf16, False),
+              ("M=17 bf16", 17, 4, bf16, False), ("M=31 bf16", 31, 4, bf16, False),
+              ("M=24 f16", 24, 4, f16, False),
               ("M=24 f32", 24, 4, f32, False), ("M=1 bf16 3-bit", 1, 3, bf16, False),
               (f"M={BEAMS} bf16 plus_one", BEAMS, 4, bf16, True)]
     rows = []
@@ -531,15 +558,16 @@ def phase_prenorm(torch, np, timer) -> list:
             x = x.to(dtype)
             w = (1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")).to(dtype)
             pn = (w, PRENORM_EPS, plus_one)
-            route = gemm.route(dtype, m, 128, k=k, n=n, prenorm=True)
+            route = gemm.route(dtype, m, 128, k=k, n=n)
             key = NORM_KEY[route]
             check(gemm.prenorm_eligible(m, k, 128, bits), f"prenorm {case} {proj}: not eligible")
             before = dict(build.launches)
             y = qlin.matmul(x, layer, prenorm=pn)
             launched = {kk: v - before.get(kk, 0) for kk, v in build.launches.items()
                         if v != before.get(kk, 0)}
-            check(launched == {key: 1}, f"prenorm {case} {proj}: launched {launched}, want "
-                                        f"{{{key!r}: 1}}")
+            want_launched = {key: 1, **({gemm.RSTD_KERNEL: 1} if route == "wgmma" else {})}
+            check(launched == want_launched, f"prenorm {case} {proj}: launched {launched}, want "
+                                             f"{want_launched}")
             xn = gemm.rms_apply(x, *pn)
             ref = qlin.matmul_plain(xn, layer)
             torch.cuda.synchronize()
@@ -552,6 +580,36 @@ def phase_prenorm(torch, np, timer) -> list:
                               f"{tol:.3e}")
             check(torch.equal(qlin.matmul(x, layer, prenorm=pn), y),
                   f"prenorm {case} {proj}: a second call differs")
+            mma = {}
+            if route == "wgmma":   # the rows' rstd alone, the mma.sync prologue on the operands
+                def mma_norm():
+                    with gemm.forced_kernel("mma"):
+                        return qlin.matmul(x, layer, prenorm=pn)
+
+                def rstd_plain():
+                    return torch.rsqrt(x.float().pow(2).mean(-1) + PRENORM_EPS)
+
+                before = build.launches[NORM_KEY["mma"]]
+                ym = mma_norm()
+                check(build.launches[NORM_KEY["mma"]] == before + 1,
+                      f"prenorm {case} {proj}: kernel='mma' launched no {NORM_KEY['mma']}")
+                r_ref = rstd_plain()
+                r = gemm.prenorm_rstd(x, PRENORM_EPS)
+                torch.cuda.synchronize()
+                merr = (ym.float() - ref.float()).abs().max().item()
+                check(merr <= tol, f"prenorm {case} {proj} mma.sync: max |kernel - plain| = "
+                                   f"{merr:.3e} > {tol:.3e}")
+                rerr = (r - r_ref).abs().max().item()
+                check(rerr <= RSTD_REL_TOL * r_ref.abs().max().item()
+                      and torch.equal(gemm.prenorm_rstd(x, PRENORM_EPS), r),
+                      f"prenorm {case} {proj} rstd: max |kernel - plain| = {rerr:.3e}")
+                mma = dict(mma_max_abs_err=merr, rstd_max_abs_err=rerr)
+                if case == PRENORM_TIMED_CASE:
+                    r_b_ms, r_b_by = bound_ms(nbytes(x, r), 2.0 * m * k)
+                    mma.update(mma_ms=timer.ms(mma_norm),
+                               rstd_ms=timer.ms(lambda: gemm.prenorm_rstd(x, PRENORM_EPS)),
+                               rstd_plain_ms=timer.ms(rstd_plain), rstd_bound_ms=r_b_ms,
+                               rstd_bound_by=r_b_by)
             wl = qlin.logical_weight(layer, dtype)
             wlib = (1.0 + w.float()).to(dtype) if plus_one else w
             ms = timer.ms(lambda: qlin.matmul(x, layer, prenorm=pn))
@@ -566,9 +624,14 @@ def phase_prenorm(torch, np, timer) -> list:
                              plus_one=plus_one, route=route, key=key, max_abs_err=err,
                              max_abs_ref=scale, tol=tol, ms=ms, kernel_ms=kernel_ms,
                              unfused_ms=unfused_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by))
-            print(f"prenorm {case:20s} {proj:7s} K={k:5d} N={n:5d} {route:4s} err {err:.3e} "
+                             bound_ms=b_ms, bound_by=b_by, **mma))
+            print(f"prenorm {case:20s} {proj:7s} K={k:5d} N={n:5d} {route:5s} err {err:.3e} "
                   f"(tol {tol:.3e})  fused {ms:.4f} ms  kernel alone {kernel_ms:.4f} ms  "
+                  + (f"mma.sync prologue err {mma['mma_max_abs_err']:.3e}  rstd err "
+                     f"{mma['rstd_max_abs_err']:.3e}  " if mma else "")
+                  + (f"mma.sync prologue {mma['mma_ms']:.4f} ms  rstd alone {mma['rstd_ms']:.4f} "
+                     f"ms (plain {mma['rstd_plain_ms']:.4f} ms, bound {mma['rstd_bound_ms']:.4f} "
+                     f"ms)  " if "mma_ms" in mma else "") +
                   f"unfused (rms_apply + kernel) {unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"F.rms_norm + torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
@@ -591,22 +654,25 @@ def template_flags(function: str) -> list:
 def prenorm_ptxas() -> list:
     """ptxas' registers and spills of every fused-prologue instance (the PRENORM
     template flag: the last bool template argument, the first of the tensor-core
-    tile kernel's PRENORM and ANY_GS) in K1's library: 4 tensor-core GEMVs, 2
-    tensor-core tile kernels, 15 SIMT GEMVs and 3 SIMT tile kernels; a spill in a
-    GEMV instance fails the run."""
+    tile kernel's PRENORM and ANY_GS; the wgmma/TMA kernel's own entry and its
+    rstd kernel) in K1's library: 4 tensor-core GEMVs, 2 wgmma/TMA tile kernels
+    and 2 of their rstd kernels, 2 mma.sync tile kernels, 15 SIMT GEMVs and 3
+    SIMT tile kernels; a spill in a GEMV, wgmma or rstd instance fails the
+    run."""
     out = [dict(r, library="w4a16_gemm") for r in ptxas_report("w4a16_gemm", "")
-           if template_flags(r["function"])
-           and template_flags(r["function"])[0 if "wna16_mma_kernel" in r["function"] else -1]]
+           if "prenorm_wgmma_kernel" in r["function"] or "wg_rstd_kernel" in r["function"] or (
+               template_flags(r["function"]) and template_flags(r["function"])[
+                   0 if "wna16_mma_kernel" in r["function"] else -1])]
     kinds = {kind: [r for r in out if kind in r["function"]] for kind in
-             ("wna16_gemv_kernel", "wna16_mma_kernel", "wna16_decode_kernel",
-              "wna16_prefill_kernel")}
-    check([len(v) for v in kinds.values()] == [4, 2, 15, 3] and len(out) == 24,
+             ("wna16_gemv_kernel", "prenorm_wgmma_kernel", "wg_rstd_kernel", "wna16_mma_kernel",
+              "wna16_decode_kernel", "wna16_prefill_kernel")}
+    check([len(v) for v in kinds.values()] == [4, 2, 2, 2, 15, 3] and len(out) == 28,
           f"fused-prologue instances in the ptxas log: { {k: len(v) for k, v in kinds.items()} }"
-          f", {len(out)} in all; want 4, 2, 15, 3")
+          f", {len(out)} in all; want 4, 2, 2, 2, 15, 3")
     for r in out:
         print(f"ptxas prenorm {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B", flush=True)
-    for r in kinds["wna16_gemv_kernel"]:
+    for r in kinds["wna16_gemv_kernel"] + kinds["prenorm_wgmma_kernel"] + kinds["wg_rstd_kernel"]:
         check(r["spill_stores"] == 0 and r["spill_loads"] == 0,
               f"{r['function']} spills {r['spill_stores']}/{r['spill_loads']} B")
     return out
@@ -655,7 +721,11 @@ def phase_k6(torch, np, timer) -> dict:
     the GPTQ layout, the plain version and torch.matmul; at M <= 16 (bf16,
     f16) its tensor-core GEMV over the kb32l tiles beside its cp.async ring
     (``kernel="simt"``) on the same words, bit-equal on a second call, with
-    both plans; f32 takes the ring."""
+    both plans; f32 takes the ring. At M = 128 and 2048 (bf16, f16) the
+    wgmma/TMA kernel over the kb32l tiles' 3-D map, bit-equal on a second call,
+    beside the mma.sync kernel (``kernel="mma"``, held to the same tolerance);
+    in bf16 both timed, with the wgmma plan and, at M = 128, the SIMT tile
+    kernel on the same words (f16 there is checked, not timed)."""
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
@@ -667,6 +737,8 @@ def phase_k6(torch, np, timer) -> dict:
     # (case, K, N, M, bits, desc_act, bias, dtype)
     cases = [(name, k, n, m, 4, False, False, bf16)
              for m in (1, BEAMS, 16, 128, TRAIN_M) for name, (k, n, _) in LAYER_SHAPES.items()]
+    cases += [(f"{name} f16", k, n, m, 4, False, False, f16)
+              for m in (128, TRAIN_M) for name, (k, n, _) in LAYER_SHAPES.items()]
     cases += [("qkvo 3-bit", 4096, 4096, 1, 3, False, False, bf16),
               ("down+desc_act", 11008, 4096, 1, 4, True, False, bf16),
               ("gate_up+bias", 4096, 11008, 1, 4, False, True, bf16),
@@ -686,7 +758,7 @@ def phase_k6(torch, np, timer) -> dict:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
         before = dict(build.launches)
         y = qlin.matmul(x, layer)
-        route = gemm.route(dtype, m, 128, k=k, n=n, layout="kb32l")
+        route = gemm.kb32l_route(dtype, m, 128, k=k, n=n)
         keys = [gemm.KB32L_KERNEL + suffix for suffix in ROUTE_SUFFIX.values()]
         key = gemm.KB32L_KERNEL + ROUTE_SUFFIX[route]
         check(all(build.launches[k6] == before.get(k6, 0) + (k6 == key) for k6 in keys)
@@ -701,16 +773,44 @@ def phase_k6(torch, np, timer) -> dict:
         check(y.shape == (m, n) and bool(torch.isfinite(y).all()), f"K6 {name} M={m}: bad output")
         check(err <= tol, f"K6 {name} M={m} {dtype}: max |kernel - plain| = {err:.3e} > {tol:.3e}")
         check(torch.equal(qlin.matmul(x, layer), y), f"K6 {name} M={m}: not deterministic")
-        w = qlin.logical_weight(layer, dtype)
         iters = 5 if m == TRAIN_M else 20
+        timed = not (dtype == f16 and route == "wgmma")
         simt = {}
-        if route in ("mma", "gemv"):   # K6's ring or SIMT tile kernel on the same words
+        if route == "wgmma":   # the mma.sync kernel on the same words
+            def mma():
+                with gemm.forced_kernel("mma"):
+                    return qlin.matmul(x, layer)
+
+            before = build.launches[gemm.KB32L_KERNEL + gemm.MMA_SUFFIX]
+            ym = mma()
+            check(build.launches[gemm.KB32L_KERNEL + gemm.MMA_SUFFIX] == before + 1,
+                  f"K6 {name} M={m}: kernel='mma' launched no {gemm.KB32L_KERNEL}_mma")
+            torch.cuda.synchronize()
+            merr = (ym.float() - ref.float()).abs().max().item()
+            check(merr <= tol, f"K6 mma.sync {name} M={m}: max |kernel - plain| = {merr:.3e} > "
+                               f"{tol:.3e}")
+            simt.update(mma_max_abs_err=merr)
+        if not timed:
+            rows.append(dict(case=name, K=k, N=n, M=m, bits=bits, desc_act=desc_act,
+                             bias=with_bias, dtype=str(dtype), route=route, max_abs_err=err,
+                             max_abs_ref=scale, tol=tol, **simt))
+            print(f"K6 {name:14s} K={k:5d} N={n:5d} M={m:4d} {str(dtype)[6:]:8s} {route:4s} err "
+                  f"{err:.3e} (tol {tol:.3e})  mma.sync err {simt['mma_max_abs_err']:.3e}  "
+                  f"(checked, not timed)", flush=True)
+            del layer, gptq
+            continue
+        w = qlin.logical_weight(layer, dtype)
+        if route == "wgmma":
+            simt.update(mma_ms=timer.ms(mma, iters=iters),
+                        wgmma_plan=gemm.wgmma_plan(m, k, n, 128, bits, sms, layout="kb32l"))
+        # the ring, or the SIMT tile kernel at M = 128 (at 2048 it took 47.88 ms a layer: dropped)
+        if route == "gemv" or (route == "wgmma" and dtype == bf16 and m != TRAIN_M):
             ys = simt_matmul(gemm, qlin, x, layer)
             torch.cuda.synchronize()
             serr = (ys.float() - ref.float()).abs().max().item()
             check(serr <= tol, f"K6 {'ring' if route == 'gemv' else 'SIMT'} {name} M={m}: max "
                                f"|kernel - plain| = {serr:.3e} > {tol:.3e}")
-            simt = dict(simt_max_abs_err=serr, simt_ms=timer.ms(
+            simt.update(simt_max_abs_err=serr, simt_ms=timer.ms(
                 lambda: simt_matmul(gemm, qlin, x, layer), iters=iters))
         ms = timer.ms(lambda: qlin.matmul(x, layer), iters=iters)
         k1_ms = timer.ms(lambda: qlin.matmul(x, gptq), iters=iters)
@@ -740,11 +840,14 @@ def phase_k6(torch, np, timer) -> dict:
               f"{err:.3e} (tol {tol:.3e})  kernel {ms:.4f} ms"
               + (f"  {'ring' if route == 'gemv' else 'SIMT tile'} {simt['simt_ms']:.4f} ms"
                  if "simt_ms" in simt else "")
+              + (f"  mma.sync {simt['mma_ms']:.4f} ms (err {simt['mma_max_abs_err']:.3e})"
+                 if "mma_ms" in simt else "")
               + f"  K1 {k1_ms:.4f} ms"
               + (f" (SIMT GEMV {simt['k1_simt_ms']:.4f} ms)" if "k1_simt_ms" in simt else "")
               + f"  plain {plain_ms:.4f} ms  "
               f"torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
               + (f"GEMV plan {simt['gemv_plan']}  ring " if "gemv_plan" in simt else "")
+              + (f"wgmma plan {simt['wgmma_plan']}  ring " if "wgmma_plan" in simt else "")
               + f"plan {plan}", flush=True)
         del layer, gptq, w
     ptxas = ptxas_report(gemm.KB32L_KERNEL, "kb32l")
@@ -1031,14 +1134,19 @@ def mma_ptxas() -> list:
 def wgmma_ptxas() -> list:
     """ptxas' registers, spills and static shared memory of every wgmma/TMA
     tile-kernel instance: the forward of the three libraries and K10's three
-    widths, each for bf16 and f16 and the block heights 64, 128 and 256 (36);
-    a spill fails the run."""
+    widths, each for bf16 and f16 and the block heights 64, 128 and 256 (36),
+    K6's forward over kb32l words (6) and K1's fused prologue (bf16 and f16 at
+    block height 64: 2); a spill fails the run."""
     out = []
-    for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t"):
+    for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_kb32l_gemm"):
         for r in ptxas_report(name, "wgmma_kernel"):
             r.update(library=name)
             out.append(r)
-    check(len(out) == 36, f"{len(out)} wgmma instances in the ptxas logs, want 36")
+    kb32l = [r for r in out if "kb32l_wgmma_kernel" in r["function"]]
+    norm = [r for r in out if "prenorm_wgmma_kernel" in r["function"]]
+    check(len(out) == 44 and len(kb32l) == 6 and len(norm) == 2,
+          f"{len(out)} wgmma instances in the ptxas logs ({len(kb32l)} over kb32l words, "
+          f"{len(norm)} with the prologue), want 44 (6, 2)")
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B", flush=True)
@@ -2597,8 +2705,10 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
 
 def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     """The main path's checkpoint loaded into the kb32l layout (K6): prefill
-    logits against the GPTQ-layout model, 512 greedy tokens twice with the
-    launch counts, a profile, and a batch-2 generate (K6's tile regime)."""
+    logits against the GPTQ-layout model, 256 greedy tokens, 32 again, with
+    the launch counts, a profile, a batch-2 generate (K6's tile regime: the
+    wgmma/TMA kernel) and its prefill again through the mma.sync kernel
+    (``gemm.forced_kernel("mma")``, 1 new token)."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
@@ -2678,21 +2788,33 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     counts2 = dict(build.launches)
     check(out2.shape == (2, PROMPT_LEN + 16), f"kb32l batch-2 output shape {out2.shape}")
     check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
-    check(counts2.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
+    check(counts2.get(gemm.KB32L_KERNEL + gemm.WGMMA_SUFFIX, 0) == 7 * layers
+          and not counts2.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0)
           and counts2.get(gemv_key, 0) == 7 * layers * 15
           and not counts2.get(gemm.KB32L_KERNEL, 0)
           and not any(counts2.get("w4a16_gemm" + suffix, 0) for suffix in ROUTE_SUFFIX.values()),
           f"kb32l batch-2 launches {counts2}")
     print(f"kb32l batch 2, two {PROMPT_LEN}-token prompts (a {2 * PROMPT_LEN}-row prefill: K6's "
-          f"tile regime, the tensor-core kernel; 2-row decode steps: its GEMV), 16 new tokens: "
+          f"tile regime, the wgmma/TMA kernel; 2-row decode steps: its GEMV), 16 new tokens: "
           f"shape {out2.shape}, launches "
           f"{counts2}", flush=True)
+    build.launches.clear()
+    with gemm.forced_kernel("mma"):
+        out_mma = model.generate(prompts, max_new_tokens=1)
+    mma_counts = dict(build.launches)
+    check(mma_counts.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
+          and not mma_counts.get(gemm.KB32L_KERNEL + gemm.WGMMA_SUFFIX, 0)
+          and out_mma.shape == (2, PROMPT_LEN + 1),
+          f"kb32l batch-2 prefill forced through the mma.sync kernel: launches {mma_counts}")
+    print(f"kb32l batch-2 prefill forced through the mma.sync kernel (kernel='mma'): first token "
+          f"{'equal to' if np.array_equal(out_mma, out2[:, :PROMPT_LEN + 1]) else 'unlike'} the "
+          f"wgmma route's, launches {mma_counts}", flush=True)
     del model
     torch.cuda.empty_cache()
     return dict(load_s=load_s, load_peak_bytes=load_peak, prefill_rel_err=prefill_rel,
                 gen_s=gen_s, repeat_s=again_s, tok_s=tok_s, peak_bytes=peak, counts=counts,
                 share_equal_to_main=same, leading_equal_tokens=agree, profile=profile,
-                batch2_counts=counts2)
+                batch2_counts=counts2, mma_counts=mma_counts)
 
 
 def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
@@ -2816,7 +2938,9 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     with the switch off, on, on and off (host time in turns; each repeats its
     tokens; the same counts per step as greedy; its tokens compared with the
     switch off); a bf16 batch of 24 prompts whose decode steps take the
-    tensor-core tile kernel's prologue (``w4a16_gemm_mma_norm``)."""
+    wgmma/TMA tile kernel's prologue (``w4a16_gemm_wgmma_norm`` and as many
+    ``w4a16_gemm_wgmma_norm_rstd``), and 2 tokens of it forced through the
+    mma.sync kernels (``w4a16_gemm_mma_norm``)."""
     import collections
 
     from autogptq_tpu_torch.models import arch
@@ -2862,6 +2986,10 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         build.launches.clear()
         batch = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
         batch_counts = dict(build.launches)
+        build.launches.clear()
+        with gemm.forced_kernel("mma"):
+            batch_mma = model.generate(prompts, max_new_tokens=2)
+        mma_counts = dict(build.launches)
         arch.FUSE_NORM = "0"
         batch_ref = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
     finally:
@@ -2872,7 +3000,8 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         return {k: v for k, v in c.items() if k.startswith("w4a16_gemm")}
 
     def want(steps, fused, unfused):   # K1 launches of a run of `steps` one-token steps
-        return {fused: 5 * layers * steps, unfused: 7 * layers + 2 * layers * steps}
+        rstd = {gemm.RSTD_KERNEL: 5 * layers * steps} if fused == NORM_KEY["wgmma"] else {}
+        return {fused: 5 * layers * steps, unfused: 7 * layers + 2 * layers * steps, **rstd}
 
     vocab = model.cfg.vocab_size
     check(out.shape == (1, PROMPT_LEN + FUSED_NEW_TOKENS) and bool(
@@ -2921,20 +3050,25 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"{beam_same} of {FUSED_AB_TOKENS} beam tokens equal to the unfused beam's; launches "
           f"{beam_ab[1][2]}", flush=True)
     bsteps = FUSED_BATCH_TOKENS - 1
-    check(k1_counts(batch_counts) == want(bsteps, "w4a16_gemm_mma_norm", "w4a16_gemm_wgmma"),
+    check(k1_counts(batch_counts) == want(bsteps, "w4a16_gemm_wgmma_norm", "w4a16_gemm_wgmma"),
           f"fused batch {FUSED_BATCH}: K1 launches {k1_counts(batch_counts)}")
+    check(k1_counts(mma_counts) == want(1, "w4a16_gemm_mma_norm", "w4a16_gemm_mma")
+          and batch_mma.shape == (FUSED_BATCH, batch.shape[1] - FUSED_BATCH_TOKENS + 2),
+          f"fused batch {FUSED_BATCH} forced through the mma.sync kernels: K1 launches "
+          f"{k1_counts(mma_counts)}")
     batch_same = int((batch[:, -FUSED_BATCH_TOKENS:] == batch_ref[:, -FUSED_BATCH_TOKENS:]).sum())
     print(f"fused norm, bf16 batch of {FUSED_BATCH} prompts, {FUSED_BATCH_TOKENS} new tokens "
-          f"(decode steps of {FUSED_BATCH} rows: the tensor-core tile kernel's prologue): "
+          f"(decode steps of {FUSED_BATCH} rows: the wgmma/TMA tile kernel's prologue): "
           f"{batch_same} of {batch_ref[:, -FUSED_BATCH_TOKENS:].size} tokens equal to the "
-          f"unfused run's; launches {batch_counts}", flush=True)
+          f"unfused run's; launches {batch_counts}; 2 tokens forced through the mma.sync "
+          f"kernels: launches {mma_counts}", flush=True)
     return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls,
                 tokens_equal=same, first_difference=int(diff[0]) if len(diff) else None,
                 profile=profile, beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
                 beam_tok_s_off=BEAMS * FUSED_AB_TOKENS / boff_s,
                 beam_tok_s_on=BEAMS * FUSED_AB_TOKENS / bon_s, beam_tokens_equal=beam_same,
                 beam_profile=beam_profile, batch_counts=batch_counts,
-                batch_tokens_equal=batch_same)
+                batch_tokens_equal=batch_same, mma_batch_counts=mma_counts)
 
 
 def phase_fused_cut(torch, np, cut_dir: str) -> dict:
@@ -3014,7 +3148,8 @@ FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
             ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
             ("K8b move_pages", ("move_pages",)))
 # K6 is kb32l_gemv_kernel<T, MT> (bf16/f16 at M <= 16), kb32l_decode_kernel<T, MT> with K1's
-# splitk_reduce_kernel<T> (the ring) and, above 16 rows, wna16_mma_kernel<4, T, Kb32lWords> or
+# splitk_reduce_kernel<T> (the ring) and, above 16 rows, kb32l_wgmma_kernel<T, BM> (or, by
+# kernel="mma", wna16_mma_kernel<4, T, Kb32lWords>) or
 # wna16_prefill_kernel<4, T, Kb32lWords>: in a model loaded with layout="kb32l" K1 never
 # launches (the kb32l path checks it), so K1's names count as K6 there.
 KB32L_FAMILIES = (("K6 w4a16_kb32l_gemm", ("kb32l", "Kb32l") + K1_KEYS),
@@ -3433,7 +3568,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import build, gemm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3581,12 +3716,26 @@ def main() -> int:
                     library_ms=layer_sum(rows, "library_ms", m), at=at)
 
     prenorm_m = {case: {key: prenorm_layer(prenorm_rows, case, key) for key in
-                        ("ms", "kernel_ms", "unfused_ms", "plain_ms", "library_ms", "bound_ms")}
+                        ("ms", "kernel_ms", "unfused_ms", "plain_ms", "library_ms", "bound_ms",
+                         "mma_ms", "rstd_ms", "rstd_plain_ms", "rstd_bound_ms")
+                        if all(key in r for r in prenorm_rows if r["case"] == case)}
                  for case in dict.fromkeys(r["case"] for r in prenorm_rows)}
+    wgmma_cases = {r["case"] for r in prenorm_rows if r["route"] == "wgmma"}
+    for case, v in prenorm_m.items():
+        if case in wgmma_cases:   # the wgmma prologue's targets
+            v["within_10pct_of_alone"] = v["ms"] <= (1 + WITHIN) * v["kernel_ms"]
+            v["below_unfused_pair"] = v["ms"] < v["unfused_ms"]
     print("K1's fused RMS-norm prologue, one Llama-2-7B layer's q/k/v and gate/up, g128: " + "; ".join(
         f"{case}: fused {v['ms']:.4f} ms, the same kernel alone {v['kernel_ms']:.4f} ms "
-        f"({1e3 * (v['ms'] - v['kernel_ms']):+.1f} us), unfused pair {v['unfused_ms']:.4f} ms, "
-        f"plain {v['plain_ms']:.4f} ms, F.rms_norm + torch.matmul {v['library_ms']:.4f} ms, "
+        f"({1e3 * (v['ms'] - v['kernel_ms']):+.1f} us"
+        + (f", within 10%: {'met' if v['within_10pct_of_alone'] else 'NOT MET'}"
+           if "within_10pct_of_alone" in v else "")
+        + f"), unfused pair {v['unfused_ms']:.4f} ms"
+        + (f" (below it: {'met' if v['below_unfused_pair'] else 'NOT MET'})"
+           if "below_unfused_pair" in v else "")
+        + (f", the mma.sync prologue {v['mma_ms']:.4f} ms, its rstd alone {v['rstd_ms']:.4f} ms"
+           if "mma_ms" in v else "")
+        + f", plain {v['plain_ms']:.4f} ms, F.rms_norm + torch.matmul {v['library_ms']:.4f} ms, "
         f"bound {v['bound_ms']:.4f} ms" for case, v in prenorm_m.items()), flush=True)
     main_prof, fused_prof = main_routes.get("gemv") or {}, fused["profile"] or {}
     beam_prof = beam["profiles"].get("gemv") or {}
@@ -3602,14 +3751,14 @@ def main() -> int:
           f"ms/step (default {beam_prof.get('device_ms_per_token', float('nan')):.3f})",
           flush=True)
 
-    def prenorm_entry(name, source, counted, case, at):
+    def prenorm_entry(name, source, counted, case, at, ms_key="ms", errs=None):
         rows = [r for r in prenorm_rows if r["case"] == case]
         return dict(name=name, route="cuda", source=source,
                     replaces="autogptq_tpu/ops/pallas/gemm.py:332", launches=counted.get(name, 0),
-                    max_abs_err=max(r["max_abs_err"] for r in prenorm_rows
-                                    if NORM_KEY[r["route"]] == name),
-                    **{key: prenorm_m[case][key] for key in
-                       ("ms", "plain_ms", "bound_ms", "library_ms")},
+                    max_abs_err=max(errs or [r["max_abs_err"] for r in prenorm_rows
+                                             if NORM_KEY[r["route"]] == name]),
+                    ms=prenorm_m[case][ms_key],
+                    **{key: prenorm_m[case][key] for key in ("plain_ms", "bound_ms", "library_ms")},
                     bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                               else "operations"),
                     at=at + "; library: F.rms_norm + torch.matmul on a pre-dequantized weight of "
@@ -3643,6 +3792,22 @@ def main() -> int:
     for (what, m), v in tile_m.items():
         check(v["ms"] < v["mma_ms"], f"the wgmma {what} at M = {m}: {v['ms']:.4f} ms per layer "
                                      f"against the mma.sync kernel's {v['mma_ms']:.4f} ms")
+    # K6's tile regime on the wgmma/TMA kernel against K1's on the same weights, per layer
+    k6_tile = {m: {key: layer_sum(k6_bf16, key, m) for key in
+                   ("ms", "k1_ms", "mma_ms", "library_ms", "bound_ms")
+                   + (("simt_ms",) if m != TRAIN_M else ())}
+               for m in (128, TRAIN_M)}
+    for v in k6_tile.values():
+        v["within_10pct_of_k1"] = v["ms"] <= (1 + WITHIN) * v["k1_ms"]
+    print("K6's tile regime, one Llama-2-7B layer's 7 projections over kb32l words, 4-bit g128, "
+          "bf16: " + "; ".join(
+              f"M = {m}: the wgmma/TMA kernel {v['ms']:.4f} ms, K1's wgmma kernel on the same "
+              f"weights {v['k1_ms']:.4f} ms ({v['ms'] / v['k1_ms']:.3f}x, within 10%: "
+              f"{'met' if v['within_10pct_of_k1'] else 'NOT MET'}), the mma.sync kernel "
+              f"{v['mma_ms']:.4f} ms, " + (f"SIMT {v['simt_ms']:.4f} ms, " if "simt_ms" in v
+                                           else "") + f"torch.matmul "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
+              for m, v in k6_tile.items()), flush=True)
     k9_layer = {p: {key: mixtral_layer_sum(k9_rows, key, p) for key in
                     ("ms", "selected_only_ms", "simt_ms", "bound_ms", "library_ms")}
                 for p in K9_SELS}
@@ -3784,13 +3949,22 @@ def main() -> int:
                    "forced through it (kernel='mma')", m=128, source=MMA_SOURCE, ms_key="mma_ms",
                    errs=[r["mma_max_abs_err"] for r in wna_rows + rest_rows
                          if "mma_ms" in r and r["bits"] == 2]),
+        gemm_entry("w4a16_kb32l_gemm_wgmma", "autogptq_tpu/ops/pallas/gemm.py:635",
+                   kb32l["batch2_counts"], k6_bf16,
+                   f"K6's tile regime, the wgmma/TMA kernel over the kb32l tiles' 3-D map: one "
+                   f"Llama-2-7B decoder layer's 7 projections at M={TRAIN_M}, g128, bf16 "
+                   f"(replaces _matmul_kb32l :635, _kernel_kb32 with lin=True, above 16 rows); "
+                   f"launches from the kb32l batch-2 run's 32-row prefill; max_abs_err over "
+                   f"every K6 case it ran", m=TRAIN_M, source=WGMMA_SOURCE,
+                   errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "wgmma"]),
         gemm_entry("w4a16_kb32l_gemm_mma", "autogptq_tpu/ops/pallas/gemm.py:635",
-                   kb32l["batch2_counts"], [r for r in k6["rows"] if r["case"] in LAYER_SHAPES],
-                   f"K6's tile regime, the tensor-core kernel over kb32l words: one Llama-2-7B "
-                   f"decoder layer's 7 projections at M={TRAIN_M}, g128, bf16 (replaces "
-                   f"_matmul_kb32l :635, _kernel_kb32 with lin=True); launches from the kb32l "
-                   f"batch-2 run's 32-row prefill", m=TRAIN_M, source=MMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k6["rows"] if r["route"] == "mma"]),
+                   kb32l["mma_counts"], k6_bf16,
+                   f"K6's mma.sync tile kernel over kb32l words, timed beside the wgmma kernel on "
+                   f"the same words: one Llama-2-7B decoder layer's 7 projections at M={TRAIN_M}, "
+                   f"g128, bf16; launches from the kb32l batch-2 prefill forced through it "
+                   f"(kernel='mma'); max_abs_err over every K6 case it ran", m=TRAIN_M,
+                   source=MMA_SOURCE, ms_key="mma_ms",
+                   errs=[r["mma_max_abs_err"] for r in k6["rows"] if "mma_max_abs_err" in r]),
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
@@ -3855,10 +4029,34 @@ def main() -> int:
                       ":487 and _kernel_ki32 :349) in the tensor-core decode GEMV: one Llama-2-7B "
                       "layer's q/k/v and gate/up at M=1, g128, bf16; launches from the "
                       f"{FUSED_NEW_TOKENS}-token greedy run with AUTOGPTQ_TPU_FUSE_NORM=1"),
-        prenorm_entry("w4a16_gemm_mma_norm", MMA_SOURCE, fused["batch_counts"], "M=24 bf16",
-                      "K1's fused RMS-norm prologue in the tensor-core tile kernel: one "
-                      "Llama-2-7B layer's q/k/v and gate/up at M=24, g128, bf16; launches from "
-                      f"the bf16 batch-{FUSED_BATCH} greedy run with the switch on"),
+        prenorm_entry("w4a16_gemm_wgmma_norm", WGMMA_SOURCE, fused["batch_counts"], "M=24 bf16",
+                      "K1's fused RMS-norm prologue in the wgmma/TMA tile kernel (17-31 rows): "
+                      "one Llama-2-7B layer's q/k/v and gate/up at M=24, g128, bf16; launches "
+                      f"from the bf16 batch-{FUSED_BATCH} greedy run with the switch on"),
+        prenorm_entry("w4a16_gemm_mma_norm", MMA_SOURCE, fused["mma_batch_counts"], "M=24 bf16",
+                      "K1's fused RMS-norm prologue in the mma.sync tile kernel, timed beside the "
+                      "wgmma one on the same operands: one Llama-2-7B layer's q/k/v and gate/up "
+                      f"at M=24, g128, bf16; launches from 2 tokens of the bf16 batch-"
+                      f"{FUSED_BATCH} run forced through it (kernel='mma')", ms_key="mma_ms",
+                      errs=[r["mma_max_abs_err"] for r in prenorm_rows
+                            if "mma_max_abs_err" in r]),
+        dict(name=gemm.RSTD_KERNEL, route="cuda", source=WGMMA_SOURCE,
+             replaces="autogptq_tpu/ops/pallas/gemm.py:332",
+             launches=fused["batch_counts"].get(gemm.RSTD_KERNEL, 0),
+             max_abs_err=max(r["rstd_max_abs_err"] for r in prenorm_rows
+                             if "rstd_max_abs_err" in r),
+             ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_ms"],
+             plain_ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_plain_ms"],
+             bound_ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_bound_ms"],
+             bound_by=("bytes" if all(r["rstd_bound_by"] == "bytes" for r in prenorm_rows
+                                      if "rstd_bound_by" in r) else "operations"),
+             library_ms=None,
+             at=f"the rows' rstd of the wgmma prologue (wg_rstd_kernel; the rsqrt(mean(x^2) + "
+                f"eps) of _prenorm_x :332), launched just before each w4a16_gemm_wgmma_norm: "
+                f"one Llama-2-7B layer's q/k/v and gate/up at M=24, bf16 (5 calls); plain: "
+                f"torch.rsqrt(x.float().pow(2).mean(-1) + eps) on the card; no single PyTorch "
+                f"call computes it; launches from the bf16 batch-{FUSED_BATCH} greedy run with "
+                f"the switch on; max_abs_err over every wgmma prologue case"),
         prenorm_entry("w4a16_gemm_norm", "autogptq_tpu_torch/ops/csrc/wna16_gemm.cuh",
                       fused_cut["launches"]["card"], "M=1 f32",
                       "K1's fused RMS-norm prologue in the SIMT GEMV (f32 activations; the SIMT "
@@ -3881,6 +4079,7 @@ def main() -> int:
                        k9_rest=k9_rest_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
                        decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
+                       k6_tile_layer_ms=k6_tile,
                        tile_layer_ms={f"{what} M={m}": v for (what, m), v in tile_m.items()},
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
                        beam=beam, train=train, grads=grads,

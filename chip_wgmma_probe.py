@@ -24,6 +24,35 @@ kernels carry the weight as a bf16 hi/lo pair), with the forward through PR
 7's kernel (its exact q - z and f32 scale fold) and K10 as shipped, and with
 both through the mma.sync kernels; it prints each run's losses. The card's name and power limit come
 first; everything also goes to ``build/chip_wgmma_probe.json``.
+
+``python3 chip_wgmma_probe.py --prenorm`` (about two minutes) probes K1's fused
+RMS-norm prologue on the wgmma/TMA forward instead (``w4a16_gemm_wgmma_norm``),
+with variants of the same header in K1's library under
+``build/chip_wgmma_probe/``:
+
+* ``as is``: as shipped (the rows' rstd launched before the product, which
+  starts beside it by programmatic dependent launch, the x tiles normalized
+  by the producer's three idle warps);
+* ``no PDL``: the product launched in plain stream order after the rstd
+  kernel, no ``griddepcontrol`` (results checked like ``as is``): what
+  programmatic dependent launch saves;
+* ``no normalize``: those warps leave the x tiles as they are (wrong results,
+  timed only): what normalizing costs;
+* ``no rstd launch``: no rstd launch (``gemm.prenorm_rstd`` launches nothing
+  while it is timed) and no wait for it (wrong results, timed only): what the
+  second launch costs;
+* ``no normed wait``: the consumers do not wait for the normalized tile (wrong
+  results, timed only): what that wait costs;
+* ``no setmaxnreg``: every warp keeps the kernel's registers (the shipped
+  instance, like the others, gives the producer warpgroup's up to 40, which
+  its normalizing warps run within, and lets the consumers take 232); ptxas'
+  registers and spills of each variant's prologue instances are printed.
+
+It times each at one Llama-2-7B layer's q/k/v and gate/up (4-bit g128, bf16,
+M = 17, 24 and 31) beside the same kernel alone on the normalized x, the
+unfused pair (``rms_apply`` + that kernel) and the mma.sync prologue, holds the
+``as is`` instance against ``rms_apply`` + the plain matmul, and writes
+``build/chip_wgmma_probe_prenorm.json``.
 """
 
 from __future__ import annotations
@@ -59,19 +88,47 @@ def variants(src: str) -> dict:
     }
 
 
-def build_variants(build) -> tuple[dict, float]:
-    """Compile each variant's K1 and K10 libraries, all at once; their CDLLs and the seconds."""
+def prenorm_variants(src: str) -> dict:
+    """The header texts of the fused prologue's probed variants."""
+    def sub(text, pairs):
+        for old, new in pairs:
+            assert old in text, old
+            text = text.replace(old, new)
+        return text
+
+    return {
+        "as is": src,
+        "no PDL": sub(src, [("cfg.numAttrs = 1;", "cfg.numAttrs = 0;"),
+                            ('asm volatile("griddepcontrol.wait;\\n" ::: "memory");', ""),
+                            ('asm volatile("griddepcontrol.launch_dependents;\\n" ::: "memory");',
+                             "")]),
+        "no normalize": sub(src, [("for (int r = nt >> 3; r < nrows;", "for (int r = nrows; r < nrows;")]),
+        "no rstd launch": sub(src, [
+            ('asm volatile("griddepcontrol.wait;\\n" ::: "memory");', "")]),
+        "no normed wait": sub(src, [("if constexpr (PRENORM) mbar_wait(smem_u32(&normed[tl % S])",
+                                     "if constexpr (false) mbar_wait(smem_u32(&normed[tl % S])")]),
+        "no setmaxnreg": sub(src, [
+            ("        asm volatile(\"setmaxnreg.dec", "        if constexpr (!PRENORM)\n"
+             "            asm volatile(\"setmaxnreg.dec"),
+            ("    asm volatile(\"setmaxnreg.inc", "    if constexpr (!PRENORM)\n"
+             "        asm volatile(\"setmaxnreg.inc")]),
+    }
+
+
+def build_variants(build, texts=variants, libs_built=LIBS) -> tuple[dict, float]:
+    """Compile each variant's libraries (K1 and K10 by default), all at once; their CDLLs and
+    the seconds."""
     out_dir = os.path.join(ROOT, "build", "chip_wgmma_probe")
     shutil.rmtree(out_dir, ignore_errors=True)
     src = (build.CSRC / "wna16_wgmma.cuh").read_text()
     procs = {}
     t0 = time.perf_counter()
-    for i, (name, text) in enumerate(variants(src).items()):
+    for i, (name, text) in enumerate(texts(src).items()):
         d = os.path.join(out_dir, f"v{i}")
         shutil.copytree(build.CSRC, d)
         with open(os.path.join(d, "wna16_wgmma.cuh"), "w") as f:
             f.write(text)
-        for lib in LIBS:
+        for lib in libs_built:
             so = os.path.join(d, f"lib{lib}.so")
             cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{lib}.cu")]
             procs[(name, lib)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -82,6 +139,13 @@ def build_variants(build) -> tuple[dict, float]:
         if proc.returncode != 0:
             raise RuntimeError(f"{name} {lib}: nvcc failed\n{log}")
         libs[(name, lib)] = ctypes.CDLL(so)
+        if texts is prenorm_variants:   # the prologue instances' registers and spills
+            lines = log.splitlines()
+            for i, line in enumerate(lines):
+                if "Compiling entry function" in line and "prenorm_wgmma_kernel" in line:
+                    print(f"{name}: {line.split()[-1][:70]} " + " | ".join(
+                        t.strip() for t in lines[i + 1:i + 4] if "spill" in t or "Used" in t),
+                          flush=True)
     return libs, time.perf_counter() - t0
 
 
@@ -139,6 +203,73 @@ def train(torch, np, use, gemm) -> dict:
     return out
 
 
+def probe_prenorm(torch, np, card) -> int:
+    """The fused prologue's variants at M = 17, 24 and 31 (see the module note)."""
+    import torch.nn.functional as F
+
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+    from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors
+    from chip_smoke import PRENORM_EPS, PRENORM_SHAPES, Timer
+
+    lib = "w4a16_gemm"
+    rstd = gemm.prenorm_rstd
+    libs, secs = build_variants(build, prenorm_variants, (lib,))
+    names = tuple(dict.fromkeys(variant for variant, _ in libs))
+    shipped = build.load(lib)
+    print(f"variants built in {secs:.1f} s", flush=True)
+    timer = Timer(torch)
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    layers = {}
+    for name, (k, n, _) in PRENORM_SHAPES.items():
+        t = random_quant_tensors(rng, k, n, 4, 128, False)
+        layers[name] = qlin.from_packed(qlin.PackedQuantLinear(
+            qweight=t["qweight"], qzeros=t["qzeros"], scales=t["scales"], g_idx=t["g_idx"],
+            bias=None, bits=4, group_size=128, in_features=k, out_features=n), device="cuda")
+    rows = []
+    for m in (17, 24, 31):
+        per = {}
+        for name, (k, n, calls) in PRENORM_SHAPES.items():
+            L = layers[name]
+            x = (4.0 * torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
+            w = (1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda")).bfloat16()
+            pn = (w, PRENORM_EPS, False)
+            xn = gemm.rms_apply(x, *pn)
+            res = {}
+            for variant in names:
+                build._libs[lib] = libs[(variant, lib)]
+                if variant == "no rstd launch":
+                    gemm.prenorm_rstd = lambda a, eps, out=None: out
+                res[f"fused {variant}"] = timer.ms(lambda: qlin.matmul(x, L, prenorm=pn))
+                gemm.prenorm_rstd = rstd
+                if variant in ("as is", "no PDL"):
+                    ref = qlin.matmul_plain(xn, L).float()
+                    err = (qlin.matmul(x, L, prenorm=pn).float() - ref).abs().max().item()
+                    if err > 1e-2 * ref.abs().max().item():
+                        raise RuntimeError(f"{variant} {name} M={m}: error {err:.3e}")
+            build._libs[lib] = shipped
+            res["alone"] = timer.ms(lambda: qlin.matmul(xn, L))
+            res["unfused pair"] = timer.ms(lambda: qlin.matmul(gemm.rms_apply(x, *pn), L))
+            with gemm.forced_kernel("mma"):
+                res["mma.sync prologue"] = timer.ms(lambda: qlin.matmul(x, L, prenorm=pn))
+            wl = qlin.logical_weight(L, torch.bfloat16)
+            res["F.rms_norm + torch.matmul"] = timer.ms(
+                lambda: torch.matmul(F.rms_norm(x, (k,), w, PRENORM_EPS), wl))
+            print(f"prenorm M={m} {name:8s} " + "  ".join(f"{key} {val:.4f}"
+                                                         for key, val in res.items()), flush=True)
+            rows.append(dict(M=m, shape=name, **res))
+            for key, val in res.items():
+                per[key] = per.get(key, 0.0) + calls * val
+        print(f"prenorm M={m} per layer (q/k/v + gate/up): " + "  ".join(
+            f"{key} {val:.4f}" for key, val in per.items()), flush=True)
+        rows.append(dict(M=m, shape="layer", **per))
+    with open(os.path.join(ROOT, "build", "chip_wgmma_probe_prenorm.json"), "w") as f:
+        json.dump(dict(card=card, rows=rows), f, indent=1)
+    print(card)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -147,6 +278,12 @@ def main() -> int:
         print("chip_wgmma_probe.py needs a CUDA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if "--prenorm" in sys.argv[1:]:
+        from chip_smoke import card_line
+
+        card = card_line()
+        print(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+        return probe_prenorm(torch, np, card)
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
     from autogptq_tpu_torch.utils.random_checkpoint import random_quant_tensors

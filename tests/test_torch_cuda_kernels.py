@@ -53,10 +53,12 @@ def _key(name, dtype, m, k, gs, n, layout="gptq"):
     gs = k if gs == -1 else gs
     if name == qlin.gemm.KB32L_KERNEL:
         layout = "kb32l"
-    if name in KERNEL_OF_BITS.values() or layout == "kb32l":
-        route = qlin.gemm.route(dtype, m, gs, k=k, n=n, layout=layout)
-    else:
+    if name == qlin.gemm.T_KERNEL:   # K10, also over kb32l words (still "mma" there)
         route = qlin.gemm.t_route(dtype, m, k=k, n=n, layout=layout)
+    elif layout == "kb32l":
+        route = qlin.gemm.kb32l_route(dtype, m, gs, k=k, n=n)
+    else:
+        route = qlin.gemm.route(dtype, m, gs, k=k, n=n)
     return name + {"gemv": qlin.gemm.GEMV_SUFFIX, "wgmma": qlin.gemm.WGMMA_SUFFIX,
                    "mma": qlin.gemm.MMA_SUFFIX, "simt": ""}[route]
 
@@ -1034,15 +1036,18 @@ def test_mma_k10_matches_plain(card, dtype, m, bits, k, n, gs, desc_act):
 @pytest.mark.parametrize("k, n, gs, bits, desc_act, bias", [K6_SHAPES[0], K6_SHAPES[3],
                                                             K6_SHAPES[4]])
 def test_mma_over_kb32l_words_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
-    """K6's tile regime and K10 over kb32l words take the tensor-core kernels
-    (Kb32lWords address, scales and zeros of the padded width)."""
+    """K6's mma.sync tile kernel (``kernel="mma"`` names it since the wgmma
+    kernel took K6's route) and K10 over kb32l words (its route) take the
+    tensor-core kernels (Kb32lWords address, scales and zeros of the padded
+    width)."""
     layer = _layer(m + k + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
     x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
                     dtype=dtype)
     g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + 1), device=card,
                     dtype=dtype)
     before = dict(build.launches)
-    y = qlin.matmul(x, layer)
+    with qlin.gemm.forced_kernel("mma"):
+        y = qlin.matmul(x, layer)
     dx = qlin.matmul_t(g, layer)
     assert build.launches["w4a16_kb32l_gemm_mma"] == before.get("w4a16_kb32l_gemm_mma", 0) + 1
     assert build.launches["wna16_gemm_t_mma"] == before.get("wna16_gemm_t_mma", 0) + 1
@@ -1392,3 +1397,86 @@ def test_wgmma_misaligned_shapes_take_mma_by_shape(card, k, n, bits):
     with qlin.gemm.forced_kernel("wgmma"), pytest.raises(NotImplementedError, match="TMA"):
         qlin.matmul(x, layer)
     assert dict(build.launches) == before
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 64, 128, 2048])
+@pytest.mark.parametrize("k, n, gs, bits, desc_act, bias",
+                         K6_SHAPES + [(4096, 4104, 128, 4, False, True)])
+def test_kb32l_wgmma_matches_plain(card, dtype, m, k, n, gs, bits, desc_act, bias):
+    """K6's tile regime on the wgmma/TMA kernel (the words through the 3-D map
+    of the kb32l tiles, the scales and zeros of the padded width, x gathered
+    by kperm; K 1312 is not a whole number of 256-row tiles, N 1312 not of
+    128 columns, N 4104 not of 16) against the plain version: 1% of the largest output
+    (K1_REL_TOL), one launch of ``w4a16_kb32l_gemm_wgmma`` and no other K6 or
+    K1 kernel, bit-equal on a second call."""
+    layer = _layer(m + k + n + bits, k, n, gs, desc_act, bias, dtype, bits, layout="kb32l")
+    x = torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                    dtype=dtype)
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer)
+    _one_launch(before, "w4a16_kb32l_gemm", "_wgmma")
+    _one_launch(before, "w4a16_gemm", None)
+    ref = qlin.matmul_plain(x, layer)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.dtype == dtype and bool(torch.isfinite(y).all())
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(qlin.matmul(x, layer), y)
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m, k", [(17, 4096), (24, 11008), (31, 1056), (1, 64)])
+def test_prenorm_rstd_matches_plain(card, dtype, m, k):
+    """The wgmma prologue's rstd (``wg_rstd_kernel``) against its plain
+    version on the CPU: 1e-5 relative (f32 sums in another order), one launch
+    of its key, bit-equal on a second call."""
+    x = 4.0 * torch.randn((m, k), generator=torch.Generator(card).manual_seed(m), device=card,
+                          dtype=dtype)
+    key = qlin.gemm.RSTD_KERNEL
+    before = build.launches[key]
+    got = qlin.gemm.prenorm_rstd(x, 1e-5)
+    assert build.launches[key] == before + 1
+    want = qlin.gemm.prenorm_rstd(x.cpu(), 1e-5)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert torch.equal(qlin.gemm.prenorm_rstd(x, 1e-5), got)
+
+
+# (M, dtype, bits, plus_one, norm weight dtype, K, N): the fused prologue's rows above the
+# GEMV's (17-31), 3-bit codes, gemma's 1 + w, an f32 norm weight, K off the 64-row tile
+PRENORM_CASES = [(17, torch.bfloat16, 4, False, None, 4096, 4096),
+                 (24, torch.bfloat16, 4, False, None, 4096, 11008),
+                 (31, torch.bfloat16, 4, False, None, 4096, 4096),
+                 (24, torch.float16, 4, False, None, 4096, 4096),
+                 (24, torch.bfloat16, 3, False, None, 4096, 4096),
+                 (20, torch.bfloat16, 4, True, None, 4096, 4096),
+                 (31, torch.float16, 4, False, torch.float32, 1056, 544)]
+
+
+@pytest.mark.parametrize("m, dtype, bits, plus_one, wdt, k, n", PRENORM_CASES)
+def test_prenorm_wgmma_matches_plain(card, m, dtype, bits, plus_one, wdt, k, n):
+    """K1's fused RMS-norm prologue on the wgmma/TMA kernel (17-31 rows)
+    against ``rms_apply`` and the plain matmul: 1% of the largest output
+    (K1_REL_TOL), one launch of ``w4a16_gemm_wgmma_norm`` and no other K1
+    kernel, bit-equal on a second call; a norm weight off 16-byte alignment
+    gives the same result."""
+    layer = _layer(m + k + bits, k, n, 32 if k % 128 else 128, dtype=dtype, bits=bits)
+    gen = torch.Generator(card).manual_seed(m)
+    x = 4.0 * torch.randn((m, k), generator=gen, device=card, dtype=dtype)
+    w = (1.0 + 0.1 * torch.randn((k,), generator=gen, device=card)).to(wdt or dtype)
+    pn = (w, 1e-5, plus_one)
+    assert qlin.gemm.route(dtype, m, layer.group_size, k=k, n=n) == "wgmma"
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer, prenorm=pn)
+    assert build.launches["w4a16_gemm_wgmma_norm"] == before.get("w4a16_gemm_wgmma_norm", 0) + 1
+    rstd = qlin.gemm.RSTD_KERNEL
+    assert build.launches[rstd] == before.get(rstd, 0) + 1
+    for sfx in WGMMA_KEYS + ("_mma_norm", "_gemv_norm", "_norm"):
+        assert build.launches["w4a16_gemm" + sfx] == before.get("w4a16_gemm" + sfx, 0)
+    ref = qlin.matmul_plain(qlin.gemm.rms_apply(x, *pn), layer)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and bool(torch.isfinite(y).all())
+    assert (y.float() - ref.float()).abs().max() <= 1e-2 * ref.float().abs().max()
+    assert torch.equal(qlin.matmul(x, layer, prenorm=pn), y)
+    shifted = torch.empty(k + 1, device=card, dtype=w.dtype)[1:]   # 2 or 4 bytes off
+    shifted.copy_(w)
+    assert torch.equal(qlin.matmul(x, layer, prenorm=(shifted, 1e-5, plus_one)), y)

@@ -288,8 +288,9 @@ def test_fused_route_matches_its_plain_version_on_the_card(card, m, dtype, bits,
     x, w = _inputs(m, k, seed=m)
     tx = torch.from_numpy(x).to(card, dtype)
     pn = (torch.from_numpy(w).to(card, dtype), 1e-5, plus_one)
-    key = {"gemv": "w4a16_gemm_gemv_norm", "mma": "w4a16_gemm_mma_norm",
-           "simt": "w4a16_gemm_norm"}[gemm.route(dtype, m, 128, k=k, n=n, prenorm=True)]
+    key = {"gemv": "w4a16_gemm_gemv_norm", "wgmma": "w4a16_gemm_wgmma_norm",
+           "mma": "w4a16_gemm_mma_norm",
+           "simt": "w4a16_gemm_norm"}[gemm.route(dtype, m, 128, k=k, n=n)]
     before = build.launches[key]
     y = qlin.matmul(tx, layer, prenorm=pn)
     assert build.launches[key] == before + 1
