@@ -146,7 +146,8 @@ class KVCache:
     def create(cls, cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda", quantized: bool = False) -> "KVCache":
         if quantized:
-            raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1, item 7)")
+            raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1, "
+                                      "'The contiguous int8 KV cache')")
         kshape, vshape = cache_shapes(cfg, batch, max_len)
         return cls(k=torch.zeros(kshape, dtype=dtype, device=device),
                    v=torch.zeros(vshape, dtype=dtype, device=device))

@@ -14,7 +14,8 @@
 // operand), exported as w4a16_gemm_norm (the SIMT GEMV and tile kernel), w4a16_gemm_mma_norm,
 // w4a16_gemm_wgmma_norm (the wgmma/TMA tile kernel's, the route of the 17-31 rows the prologue
 // takes above the GEMV; its rows' rstd comes from w4a16_gemm_wgmma_norm_rstd, launched just
-// before it) and w4a16_gemm_gemv_norm. Only 3- and 4-bit layers are eligible
+// before it) and w4a16_gemm_gemv_norm (whose entry launches that rstd kernel just before the
+// GEMV). Only 3- and 4-bit layers are eligible
 // (ops/gemm.py:prenorm_eligible), so only this library holds them. The prologue itself is
 // described in wna16_gemm.cuh (its wgmma form in wna16_wgmma.cuh); it reads M x K activations
 // per block from L2 on top of the weight stream that bounds the product (five Llama-2-7B

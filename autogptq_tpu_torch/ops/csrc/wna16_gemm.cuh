@@ -108,7 +108,9 @@ __device__ __forceinline__ float code_minus_zero(uint32_t w, int j, float zb) {
 // a launch, and every call, gets the same rstd); the norm weight is staged beside x (the GEMV
 // and the tensor-core tile kernel copy it with x's cp.async; the SIMT kernels read it where
 // they stage x). It adds M * K activation bytes per block, read from L2, to the weight stream
-// of the product.
+// of the product. The tensor-core GEMV (wna16_gemv.cuh) takes the rows' rstd from a launch just
+// before it instead (Prenorm::rstd, from wg_rstd_kernel of wna16_wgmma.cuh), which it overlaps
+// by programmatic dependent launch.
 
 constexpr int PN_MAX_ROWS = 32;   // rows of x a prologue takes (the fused route's M < 32)
 
@@ -117,6 +119,7 @@ struct Prenorm {
     int wdt;
     float eps;
     int plus_one;    // the norm scales by 1 + w
+    const float* rstd = nullptr;   // the GEMV: rstd [M] of the launch just before it
 };
 
 // Element i of a norm weight of type wdt at base (global or shared memory), as the norm scales.

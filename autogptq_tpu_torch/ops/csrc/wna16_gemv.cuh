@@ -241,16 +241,47 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
                  : "r"(smem_u32(p)));
 }
 
+// PRENORM: the chunk's staged norm weight [kc] of type pn.wdt turned into the f32 values the
+// norm scales by (1 + w under plus_one) in place, in the kc * 4 bytes staged for it, so that
+// each element is converted once per block and not once per row of x. Rounds of GV_THREADS * 8
+// elements from the last: a round's f32 writes overwrite only raw elements of its own round,
+// read before its barrier, or of later ones, already done. Ends with a barrier.
+__device__ __forceinline__ void gv_norm_weights_f32(unsigned char* nws, const Prenorm& pn,
+                                                    int kc) {
+    constexpr int R = 8, ROUND = GV_THREADS * R;
+    float* const wf = reinterpret_cast<float*>(nws);
+    for (int base = (kc - 1) / ROUND * ROUND; base >= 0; base -= ROUND) {
+        float w[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int i = base + r * GV_THREADS + (int)threadIdx.x;
+            w[r] = i < kc ? prenorm_weight_at(nws, pn.wdt, i, pn.plus_one) : 0.0f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int i = base + r * GV_THREADS + (int)threadIdx.x;
+            if (i < kc) wf[i] = w[r];
+        }
+        __syncthreads();
+    }
+}
+
 // One block of the GEMV. Words addresses word row kw of column n (words(kw, n), in words from
 // qweight); scales and zeros are [G, ldsz]. M is the number of rows of x and out; the x stage
 // holds xrows <= MT of them. ROUTED: the operands are a stack of E experts ([E, K/P, N] words,
 // [E, G, N] scales and zeros); slice z (blockIdx.z) serves the z-th distinct expert of
 // sel[0..M) and takes the rows p with sel[p] equal to it (M <= 16: a warp's ballot).
-// PRENORM (not with ROUTED): the fused RMS-norm prologue of wna16_gemm.cuh. The block reduces
-// x[m, 0:K]^2 of its M rows from L2 while its first weight stages fly, then normalizes its
-// staged K chunk as it puts it in slot order, each element rounded once to T; the chunk's norm
-// weight is copied with x into kc * 4 bytes after the x stage (gathered x reads it from global
-// memory by column).
+// PRENORM (not with ROUTED): the fused RMS-norm prologue of wna16_gemm.cuh. The block takes the
+// rstd of its M rows while its first weight stages fly, then normalizes its staged K chunk as
+// it puts it in slot order, each element rounded once to T; the chunk's norm weight is copied
+// with x into kc * 4 bytes after the x stage and turned into f32 there once (gathered x reads it
+// from global memory by column).
+// rstd (pn.rstd) comes from wg_rstd_kernel (wna16_wgmma.cuh), which the entry launches once per
+// call just before this one, so that no block reads all M rows of x from L2 for it (M * K * 2
+// bytes each, 128 KB at M = 16, K = 4096): launched by programmatic dependent launch, the block
+// copies x and fills its weight ring while that kernel runs, and only then waits for it
+// (griddepcontrol.wait) and reads M floats.
 // ANY_GS (not with PRENORM): any group size, the instance of the group sizes 16 does not
 // divide. A 16-row step that spans groups runs one MMA set per group it touches: each takes
 // q - z with that group's zero for the step's slots whose K row (perm_slot) lies in the group
@@ -278,7 +309,6 @@ __device__ __forceinline__ void gemv_block(
     __shared__ int last_block;
     __shared__ int pair_of[ROUTED ? MT : 1]; // ROUTED: the row of x and out of each block row
     __shared__ float rstd[PRENORM ? MT : 1];  // PRENORM: 1 / rms of each row of x
-    __shared__ float red[PRENORM ? MT * GV_WARPS : 1];
     // ANY_GS: [r][t] the slots of quad thread t whose K row within a step is r or more (pair
     // e = 0 in .x, e = 1 in .y), r = 0..16: the mask of rows [lo, hi) is ge[lo] & ~ge[hi]
     __shared__ uint2 ge_mask[ANY_GS ? 17 * 4 : 1];
@@ -423,20 +453,35 @@ __device__ __forceinline__ void gemv_block(
         if (s < ntiles) fetch(s, smem + s * sbytes);
         cp_async_commit();   // one group per stage, empty past the end: wait counts alike
     }
-    if constexpr (PRENORM) prenorm_rstd<T, MT>(x, K, rows, pn.eps, rstd, red);
-    // x_n of row m, K rows kb.. of a step (past K: left as staged, zero)
+    if constexpr (PRENORM) {                     // the launch before this one wrote it
+        asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        if (tid < rows) rstd[tid] = pn.rstd[tid];
+        __syncthreads();
+    }
+    // x_n of row m, K rows kb.. of a step (past K: left as staged, zero), the chunk's norm
+    // weight already in f32 (gv_norm_weights_f32)
     auto normalize = [&](int m, int kb, T (&v)[16]) {
         if constexpr (PRENORM) {
+            const float4* w4 = reinterpret_cast<const float4*>(nws) + (kb - k0) / 4;
+            float w[16];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const float4 t = w4[q];
+                w[4 * q] = t.x;
+                w[4 * q + 1] = t.y;
+                w[4 * q + 2] = t.z;
+                w[4 * q + 3] = t.w;
+            }
+            const float r = rstd[m];
 #pragma unroll
             for (int i = 0; i < 16; ++i)
-                if (kb + i < K)
-                    v[i] = prenorm_apply(v[i], rstd[m],
-                                         prenorm_weight_at(nws, pn.wdt, kb + i - k0, pn.plus_one));
+                if (kb + i < K) v[i] = prenorm_apply(v[i], r, w[i]);
         }
     };
     if (!gather) {
         cp_async_wait<GV_STAGES - 1>();          // x has landed; the weight stages may still fly
         __syncthreads();
+        if constexpr (PRENORM) gv_norm_weights_f32(nws, pn, kc);
         for (int it = tid; it < rows * nsteps; it += GV_THREADS) {
             const int m = it / nsteps, step = it - m * nsteps;
             const uint4* src = reinterpret_cast<const uint4*>(xs + m * ldx + 16 * step);
@@ -820,11 +865,27 @@ cudaError_t launch_gemv(const void* x, const int64_t* kperm, const int32_t* qwei
                                                GV_SMEM_LIMIT);
     if (attr != cudaSuccess) return attr;
     const dim3 grid((N + GV_BN - 1) / GV_BN, splits);
-    wna16_gemv_kernel<BITS, T, MT, PRENORM, ANY_GS>
-        <<<grid, GV_THREADS, gv_block_smem<BITS, PRENORM>(MT, kc, gs), stream>>>(
-            static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
-            static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits,
-            gv_gather(x, kperm, K, PRENORM ? pn.w : nullptr), pn);
+    const int smem = gv_block_smem<BITS, PRENORM>(MT, kc, gs);
+    const int gather = gv_gather(x, kperm, K, PRENORM ? pn.w : nullptr);
+    if constexpr (PRENORM) {                     // may start while wg_rstd_kernel runs
+        cudaLaunchAttribute pdl[1];
+        pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+        pdl[0].val.programmaticStreamSerializationAllowed = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = grid;
+        cfg.blockDim = dim3(GV_THREADS);
+        cfg.dynamicSmemBytes = smem;
+        cfg.stream = stream;
+        cfg.attrs = pdl;
+        cfg.numAttrs = 1;
+        return cudaLaunchKernelEx(&cfg, wna16_gemv_kernel<BITS, T, MT, PRENORM, ANY_GS>,
+                                  static_cast<const T*>(x), kperm, qweight, scales, zeros,
+                                  static_cast<const T*>(bias), static_cast<T*>(out), ws, counters,
+                                  M, K, N, gs, kc, splits, gather, pn);
+    }
+    wna16_gemv_kernel<BITS, T, MT, PRENORM, ANY_GS><<<grid, GV_THREADS, smem, stream>>>(
+        static_cast<const T*>(x), kperm, qweight, scales, zeros, static_cast<const T*>(bias),
+        static_cast<T*>(out), ws, counters, M, K, N, gs, kc, splits, gather, pn);
     return cudaGetLastError();
 }
 
@@ -875,7 +936,7 @@ int wna16_gemm_gemv(const void* x, const int64_t* kperm, const int32_t* qweight,
     if (M <= 0 || M > 16 || K <= 0 || N <= 0 || K % P != 0 || N % 4 != 0 ||
         !gv_plan_ok(K, gs, kc, splits, ws, counters) ||
         gv_block_smem<BITS, PRENORM>(M <= 8 ? 8 : 16, kc, gs) > GV_SMEM_LIMIT ||
-        (PRENORM && (!prenorm_ok(M, pn) || gs % 16 != 0)))
+        (PRENORM && (!prenorm_ok(M, pn) || gs % 16 != 0 || pn.rstd == nullptr)))
         return (int)cudaErrorInvalidValue;
     if constexpr (!PRENORM) {
         if (gs % 16 != 0)
@@ -932,16 +993,20 @@ int wna16_gemv_occupancy(int dtype, int M, int kc, int gs, int* blocks) {
     }
 
 // Exports `int NAME_gemv_norm(...)`: the tensor-core decode GEMV with the fused RMS-norm
-// prologue, the arguments of NAME_gemv and the norm weight, its dtype code, eps and plus_one
-// before the stream.
+// prologue, the arguments of NAME_gemv with room for the rows' rstd [M] after the counters and
+// the norm weight, its dtype code, eps and plus_one before the stream. It launches
+// wg_rstd_kernel into that room (NAME_wgmma_norm_rstd's kernel; x 16-byte aligned), then the
+// GEMV, which waits for it.
 #define WNA16_GEMV_NORM_DEFINE_ENTRY(NAME, BITS)                                                \
     extern "C" int NAME##_gemv_norm(const void* x, const int64_t* kperm,                        \
                                     const int32_t* qweight, const void* scales,                 \
                                     const uint8_t* zeros, const void* bias, void* out,          \
-                                    float* ws, int* counters, int dtype, int M, int K, int N,   \
-                                    int gs, int kc, int splits, const void* nw, int nw_dtype,   \
-                                    float eps, int plus_one, void* stream) {                    \
+                                    float* ws, int* counters, float* rstd, int dtype, int M,    \
+                                    int K, int N, int gs, int kc, int splits, const void* nw,   \
+                                    int nw_dtype, float eps, int plus_one, void* stream) {      \
+        const int code = wg_rstd(x, rstd, dtype, M, K, eps, stream);                            \
+        if (code != 0) return code;                                                             \
         return wna16_gemm_gemv<BITS, true>(x, kperm, qweight, scales, zeros, bias, out, ws,     \
                                            counters, dtype, M, K, N, gs, kc, splits, stream,    \
-                                           Prenorm{nw, nw_dtype, eps, plus_one});               \
+                                           Prenorm{nw, nw_dtype, eps, plus_one, rstd});         \
     }

@@ -4,11 +4,13 @@
 //   wna16_wgmma_kernel          y[M,N]  = x[M,K] @ W[K,N] (+ bias)   K1, K4, K5 above 16 rows
 //   wna16_t_wgmma_kernel        dx[M,K] = g[M,N] @ W[K,N]^T           K10 above 16 rows
 //   kb32l_wgmma_kernel          y = x @ W over K6's kb32l words       K6 above 16 rows
+//   kb32l_t_wgmma_kernel        dx = g @ W^T over kb32l words         K10 over them above 16 rows
 //   wna16_prenorm_wgmma_kernel  y = rms_apply(x, w) @ W, M < 32       K1's fused prologue
 // with W = (q - z) * s. Each library exports its kernels as NAME_wgmma (K1's prologue as
-// w4a16_gemm_wgmma_norm) beside the tile kernels of wna16_mma.cuh (NAME_mma, NAME_mma_norm),
-// which stay nameable (ops/gemm.py: kernel="mma") and remain the route of K10 over kb32l words
-// and of shapes TMA cannot address (ops/gemm.py:tile_kernel, t_route).
+// w4a16_gemm_wgmma_norm, K10 over kb32l words as w4a16_kb32l_gemm_t_wgmma) beside the tile
+// kernels of wna16_mma.cuh (NAME_mma, NAME_mma_norm), which stay nameable (ops/gemm.py:
+// kernel="mma") and remain the route of shapes TMA cannot address (ops/gemm.py:tile_kernel,
+// t_route).
 //
 // They replace the prefill regime of the TPU kernels autogptq_tpu/ops/pallas/gemm.py:
 // _kernel_kb32 (:487, prefill branch :523-537; with lin=True behind _matmul_kb32l :635, K6),
@@ -73,7 +75,9 @@
 //    7 GB per Llama-2-7B layer: wider column tiles or cluster multicast of those tiles, and a
 //    persistent grid, are the next levers.
 //  * kb32l words (K6): a 3-D map of the tiles (wg_encode_kb32l) gives each stage the same
-//    [64/P][128] words as GPTQ's 2-D map, so K6 is K1's kernel with one other TMA load.
+//    [64/P][128] words as GPTQ's 2-D map, so K6 is K1's kernel with one other TMA load; K10
+//    over them reads the same map with K10's box (64 columns by the 16 word rows of its 128 K
+//    rows: the [128/P][64] words GPTQ's K10 map gives), its scales and zeros N_pad wide.
 //  * The fused RMS-norm prologue (PRENORM, 17-31 rows: one 64-row block): rstd over each row's
 //    full K once per call by a small launch before the product's (wg_rstd_kernel, its own entry
 //    and launch count, which the product overlaps by programmatic dependent launch); the
@@ -84,7 +88,8 @@
 // runtime's entry-point lookup (no -lcuda). TMA needs 16-byte aligned bases and row strides:
 // K % 8 for x, N % 8 for g and scales, N % 16 for zeros (ops/gemm.py:wgmma_shape_ok routes
 // other shapes to the kernels of wna16_mma.cuh); kb32l scales and zeros are N_pad wide, so there
-// only the epilogue's column pairs limit N (N % 4, ops/gemm.py:kb32l_route). Every entry point returns cudaGetLastError()
+// only the epilogue's column pairs limit N in the forward (N % 4, ops/gemm.py:kb32l_route) and
+// g's rows in K10 (N % 8, ops/gemm.py:t_route). Every entry point returns cudaGetLastError()
 // or, for a failed encode, WG_ENCODE_ERROR + the CUresult, and the Python wrapper raises.
 
 #pragma once
@@ -456,8 +461,9 @@ struct WgParams {
 // TRANS = false: the forward (reduction K, output columns N); true: K10 (reduction N, output
 // columns K). The output tile is BM x 128: BM = 256 or 128, each consumer warpgroup BM / 2 rows
 // in MH = BM / 128 wgmma halves of 64; BM = 64, each warpgroup 64 columns (WN = 2).
-// KB32L (forward): the words are K6's kb32l tiles, read through the 3-D map of launch_wgmma
-// (a tile's stage holds the same [64/P][128] words as GPTQ's map gives). PRENORM (forward,
+// KB32L: the words are K6's kb32l tiles, read through the 3-D map of launch_wgmma (a stage
+// holds the same words as GPTQ's map gives: [64/P][128] in the forward, [128/P][64] in K10,
+// at (64 (t % 2), 16 blockIdx.x, t / 2) for reduction tile t). PRENORM (forward,
 // BM = 64, M < 32): the fused RMS-norm prologue of wna16_gemm.cuh on the x tiles in shared
 // memory: each stage brings its tile's 64 norm weights by TMA (tm_n), and the producer
 // warpgroup's three warps that issue no TMA (96 threads, within the producer's 40 registers:
@@ -473,7 +479,8 @@ template <int BITS, typename T, int BM, bool TRANS, bool KB32L = false, bool PRE
 __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
                                         const CUtensorMap* tm_s, const CUtensorMap* tm_z,
                                         const CUtensorMap* tm_n, const WgParams& p) {
-    static_assert(!(TRANS && (KB32L || PRENORM)), "K10 over GPTQ words only");
+    static_assert(!(TRANS && PRENORM), "the prologue is the forward's");
+    static_assert(!KB32L || BITS == 4, "kb32l words hold 4-bit storage");
     static_assert(!PRENORM || (BM == 64 && !KB32L && BITS == 4),
                   "the prologue: 4-bit storage, GPTQ words, one 64-row block (M < 32)");
     constexpr int P = 32 / BITS;
@@ -575,7 +582,11 @@ __device__ __forceinline__ void wg_body(const CUtensorMap* tm_a, const CUtensorM
                 mbar_expect_tx(bar, tx);
                 tma_load_2d(smem_u32(st + L.a), tm_a, bar, r0, m0);
                 if constexpr (TRANS) {
-                    tma_load_2d(smem_u32(st + L.w), tm_w, bar, r0, o0 / P);
+                    if constexpr (KB32L)   // columns r0 % 128.. of word rows o0/P.. of tile r0/128
+                        tma_load_3d(smem_u32(st + L.w), tm_w, bar, r0 % KB32L_BN, o0 / P,
+                                    r0 / KB32L_BN);
+                    else
+                        tma_load_2d(smem_u32(st + L.w), tm_w, bar, r0, o0 / P);
                     tma_load_2d(smem_u32(st + L.s), tm_s, bar, r0, o0 / p.gs);
                     tma_load_2d(smem_u32(st + L.z), tm_z, bar, r0, o0 / p.gs);
                 } else {
@@ -770,6 +781,15 @@ kb32l_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_consta
     wg_body<4, T, BM, false, true>(&tm_x, &tm_w, &tm_s, &tm_z, nullptr, p);
 }
 
+// K10 over kb32l words (4-bit storage), tm_w the 3-D map of the tiles with K10's box.
+template <typename T, int BM>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+kb32l_t_wgmma_kernel(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_w,
+                     const __grid_constant__ CUtensorMap tm_s, const __grid_constant__ CUtensorMap tm_z,
+                     const WgParams p) {
+    wg_body<4, T, BM, true, true>(&tm_g, &tm_w, &tm_s, &tm_z, nullptr, p);
+}
+
 // K1's fused RMS-norm prologue on the forward (M < 32: one 64-row block), tm_n the norm weight.
 template <typename T>
 __global__ void __launch_bounds__(WG_THREADS, 1)
@@ -870,14 +890,16 @@ inline int wg_encode(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
 // The kb32l words [N_pad/128][K_pad/8][128] of int32 (kb32l_tile.cuh: tiles column tile first,
 // so one column tile's K tiles are contiguous) as a 3-D map, innermost first: 128 columns (4
 // bytes), K_pad/8 word rows (512 bytes apart), N_pad/128 column tiles (K_pad/8 * 512 bytes
-// apart); the box (128, 64/P, 1) is the [64/P][128] words of one reduction tile, as GPTQ's map
-// gives them (ops/gemm.py:kb32l_word_map is the same map).
-inline int wg_encode_kb32l(CUtensorMap* map, const int32_t* qweight, int k_pad, int n_pad) {
+// apart); the box (box_cols, box_rows, 1): the forward's (128, 64/P, 1) is the [64/P][128] words
+// of one reduction tile, K10's (64, 128/P, 1) the [128/P][64] words of its 128 K rows by one
+// reduction tile, as GPTQ's maps give them (ops/gemm.py:kb32l_word_map is the same map).
+inline int wg_encode_kb32l(CUtensorMap* map, const int32_t* qweight, int k_pad, int n_pad,
+                           int box_cols, int box_rows) {
     const cuuint64_t dims[3] = {(cuuint64_t)KB32L_BN, (cuuint64_t)(k_pad / 8),
                                 (cuuint64_t)(n_pad / KB32L_BN)};
     const cuuint64_t strides[2] = {(cuuint64_t)KB32L_BN * 4,
                                    (cuuint64_t)(k_pad / 8) * KB32L_BN * 4};
-    const cuuint32_t box[3] = {(cuuint32_t)KB32L_BN, (cuuint32_t)(WG_BK / 8), 1};
+    const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
     return wg_encode_nd(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, qweight, dims, strides, box, false);
 }
 
@@ -912,16 +934,20 @@ int launch_wgmma(const void* a, const int32_t* qweight, const void* scales, cons
     int err;
     if constexpr (TRANS) {
         if ((err = wg_encode(&tm_a, wg_type<T>(), 2, a, N, M, WG_BK, BM, true))) return err;
-        if ((err = wg_encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qweight, N, K / P, 64,
-                             WG_BN / P, false))) return err;
-        if ((err = wg_encode(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, scales, N, G, 64, ng,
+        if constexpr (KB32L) {
+            if ((err = wg_encode_kb32l(&tm_w, qweight, k_pad, ld, 64, WG_BN / P))) return err;
+        } else {
+            if ((err = wg_encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qweight, N, K / P, 64,
+                                 WG_BN / P, false))) return err;
+        }
+        if ((err = wg_encode(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, scales, ld, G, 64, ng,
                              false))) return err;
-        if ((err = wg_encode(&tm_z, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, zeros, N, G, 64, ng,
+        if ((err = wg_encode(&tm_z, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, zeros, ld, G, 64, ng,
                              false))) return err;
     } else {
         if ((err = wg_encode(&tm_a, wg_type<T>(), 2, a, K, M, WG_BK, BM, true))) return err;
         if constexpr (KB32L) {
-            if ((err = wg_encode_kb32l(&tm_w, qweight, k_pad, ld))) return err;
+            if ((err = wg_encode_kb32l(&tm_w, qweight, k_pad, ld, WG_BN, WG_BK / P))) return err;
         } else {
             if ((err = wg_encode(&tm_w, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qweight, N, K / P,
                                  WG_BN, WG_BK / P, false))) return err;
@@ -962,7 +988,9 @@ int launch_wgmma(const void* a, const int32_t* qweight, const void* scales, cons
     } else {
         void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const CUtensorMap,
                        const WgParams);
-        if constexpr (TRANS)
+        if constexpr (TRANS && KB32L)
+            kernel = kb32l_t_wgmma_kernel<T, BM>;
+        else if constexpr (TRANS)
             kernel = wna16_t_wgmma_kernel<BITS, T, BM>;
         else if constexpr (KB32L)
             kernel = kb32l_wgmma_kernel<T, BM>;
@@ -975,7 +1003,8 @@ int launch_wgmma(const void* a, const int32_t* qweight, const void* scales, cons
     return (int)cudaGetLastError();
 }
 
-// KB32L: n_pad is the kb32l words' padded width (a multiple of 128 within 128 of N). PRENORM:
+// KB32L: n_pad is the kb32l words' padded width (a multiple of 128 within 128 of N), the
+// forward's or K10's. PRENORM:
 // the fused prologue, M < 32 at bm 64 (ops/gemm.py:wgmma_plan), 32 | gs, rstd [M] from wg_rstd.
 template <int BITS, bool TRANS, bool KB32L = false, bool PRENORM = false>
 int wna16_wgmma(const void* a, const int32_t* qweight, const void* scales, const uint8_t* zeros,
@@ -983,9 +1012,11 @@ int wna16_wgmma(const void* a, const int32_t* qweight, const void* scales, const
                 int dtype, int M, int K, int N, int gs, int bm, int stages, int splits,
                 void* stream, int n_pad = 0, const float* rstd = nullptr, Prenorm pn = Prenorm{}) {
     constexpr int P = 32 / BITS;
-    // the alignment TMA needs (ops/gemm.py:wgmma_shape_ok; kb32l maps are n_pad wide, and the
-    // epilogue stores column pairs), K in whole words, a positive group
-    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || K % 8 != 0 || N % (KB32L ? 4 : 16) != 0 ||
+    // the alignment TMA needs (ops/gemm.py:wgmma_shape_ok; kb32l maps are n_pad wide, the
+    // forward's epilogue stores column pairs and K10's g rows are 16-byte strides), K in whole
+    // words, a positive group
+    if (M <= 0 || K <= 0 || N <= 0 || K % P != 0 || K % 8 != 0 ||
+        N % (KB32L ? (TRANS ? 8 : 4) : 16) != 0 ||
         gs <= 0 || (bm != 64 && bm != 128 && bm != 256))
         return (int)cudaErrorInvalidValue;
     if (KB32L && (gs % 32 != 0 || KB32L_KB % gs != 0 || K % gs != 0 || n_pad % KB32L_BN != 0 ||
@@ -1079,7 +1110,8 @@ inline int wg_rstd(const void* x, float* rstd, int dtype, int M, int K, float ep
         return wg_rstd(x, rstd, dtype, M, K, eps, stream);                                      \
     }
 
-// Exports `int NAME_wgmma(...)`: K10 over GPTQ words of BITS-bit codes, dx through kperm.
+// Exports `int NAME_wgmma(...)`: K10 over GPTQ words of BITS-bit codes, dx through kperm (K10
+// over kb32l words: w4a16_kb32l_gemm_t_wgmma in wna16_gemm_t.cu).
 #define WNA16_T_WGMMA_DEFINE_ENTRY(NAME, BITS)                                                  \
     extern "C" int NAME##_wgmma(const void* g, const int64_t* kperm, const int32_t* qweight,    \
                                 const void* scales, const uint8_t* zeros, void* dx, float* ws,  \

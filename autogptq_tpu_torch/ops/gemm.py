@@ -41,9 +41,9 @@ replaces the TPU kernels ``_kernel_kb32_t``, ``_kernel_ki32_t`` and
 f16 cotangents of at most 16 rows to K10's decode regime
 (``csrc/wna16_gemv_t.cuh``, split N, launch count ``wna16_gemm_t_gemv``,
 planned by :func:`t_gemv_plan`), above 16 rows to the wgmma/TMA K10
-(``wna16_gemm_t_wgmma``; the mma.sync ``wna16_gemm_t_mma`` for kb32l words and
-shapes TMA cannot address), at every group size; f32 to the SIMT kernel
-(``wna16_gemm_t``).
+(``wna16_gemm_t_wgmma``; over kb32l words ``w4a16_kb32l_gemm_t_wgmma``; the
+mma.sync ``wna16_gemm_t_mma`` for shapes TMA cannot address), at every group
+size; f32 to the SIMT kernel (``wna16_gemm_t``).
 
 K9, the routed-expert product of MoE decode ``y[p] = x[p] @ W[sel[p]]``
 (``csrc/w4a16_routed_gemm.cu``), replaces the TPU kernel
@@ -64,7 +64,10 @@ multiplies ``rms_apply(x, w, eps, plus_one)`` by the weight. A call
 :func:`prenorm_eligible` admits launches the fused instance of the kernel
 :func:`route` names (launch counts ``w4a16_gemm_gemv_norm`` at M <= 16,
 ``w4a16_gemm_wgmma_norm`` at 17-31 rows, ``w4a16_gemm_mma_norm`` where TMA
-cannot address the shape, ``w4a16_gemm_norm`` for f32); any other call applies
+cannot address the shape, ``w4a16_gemm_norm`` for f32; the wgmma one and the
+GEMV after one launch of the rows' rstd, ``w4a16_gemm_wgmma_norm_rstd``: by
+:func:`prenorm_rstd` before the wgmma kernel, by the GEMV's own entry before
+the GEMV); any other call applies
 :func:`rms_apply` and then the usual kernel, the JAX package's unfused branch;
 a CPU tensor takes :func:`rms_apply` and the plain version.
 
@@ -78,7 +81,8 @@ the kb32l tiles at M <= 16 for bf16 and f16 (``<name>_gemv``), the cp.async
 ring (``<name>``) for f32, above 16 rows the wgmma/TMA tile kernel over a 3-D
 tensor map of the tiles (``<name>_wgmma``, :func:`kb32l_word_map`; the
 mma.sync one, ``<name>_mma``, where TMA cannot address the shape). K10 over
-kb32l words keeps the mma.sync kernel above 16 rows.
+kb32l words takes the wgmma/TMA K10 over the same map with K10's box above 16
+rows (``w4a16_kb32l_gemm_t_wgmma``, :func:`t_route`).
 
 Weight layout (see ``quantlinear.from_packed``), with ``P = 32 / bits`` codes
 per word: ``qweight`` int32 [K/P, N] GPTQ words of the group-sorted rows,
@@ -142,6 +146,7 @@ RSTD_KERNEL = "w4a16_gemm_wgmma_norm_rstd"   # entry and launch-count key of tha
 
 KB32L_KERNEL = "w4a16_kb32l_gemm"   # K6's library and launch-count key
 KB32L_T_ENTRY = "w4a16_kb32l_gemm_t"  # K10's entry over kb32l words (library T_KERNEL)
+KB32L_T_WGMMA = KB32L_T_ENTRY + WGMMA_SUFFIX   # its wgmma/TMA entry and launch-count key
 KB32L_KB = 256          # K rows per tile (csrc/kb32l_tile.cuh)
 KB32L_BN = 128          # columns per tile
 KB32L_NBUF = 4          # K6's ring of shared-memory stages (f32 activations)
@@ -233,10 +238,10 @@ def tile_kernel(dtype: torch.dtype, kernel: Optional[str] = None, k: Optional[in
                 n: Optional[int] = None) -> str:
     """The tile kernel a product in ``dtype`` takes on the card: K1/K4/K5's
     and K6's above 16 rows (:func:`route` and :func:`kb32l_route` decide
-    below), K10's above 16 rows (:func:`t_route`, which keeps kb32l words on
-    ``"mma"``). For bf16 and f16 ``"wgmma"``, the warp-specialized wgmma/TMA
-    kernel (``csrc/wna16_wgmma.cuh``), at every group size, over GPTQ words
-    and K6's kb32l words, with the fused RMS-norm prologue too; ``"mma"``,
+    below), K10's above 16 rows (:func:`t_route`). For bf16 and f16
+    ``"wgmma"``, the warp-specialized wgmma/TMA kernel
+    (``csrc/wna16_wgmma.cuh``), at every group size, over GPTQ words and
+    kb32l words, with the fused RMS-norm prologue too; ``"mma"``,
     the ``mma.sync`` tile kernel (``csrc/wna16_mma.cuh``), for a ``K`` or
     ``N`` TMA cannot address (:func:`wgmma_shape_ok`; decided from the
     shapes, never by trying); ``"simt"``, the SIMT kernels, for f32 (the f32
@@ -262,18 +267,25 @@ def t_route(dtype: torch.dtype, m: int, kernel: Optional[str] = None, k: Optiona
     (``csrc/wna16_gemv_t.cuh``, :func:`t_gemv_plan`), for bf16 and f16 at
     ``m <= 16`` and any group size; above 16 rows :func:`tile_kernel`'s
     choice for the layer's ``k``, ``n`` and ``layout`` (``"wgmma"`` for bf16
-    and f16 over GPTQ words TMA can address, ``"mma"`` over kb32l words, whose
-    wgmma K10 is still to come, or other shapes, ``"simt"`` for f32, which
-    takes the SIMT K10 at every
-    ``m``). ``kernel`` ("gemv", "wgmma", "mma" or "simt") names one instead;
-    the decode regime raises above 16 rows."""
+    and f16 where TMA can address the operands, ``"mma"`` for other shapes,
+    ``"simt"`` for f32, which takes the SIMT K10 at every ``m``). Over GPTQ
+    words TMA needs :func:`wgmma_shape_ok`; over kb32l words the scales and
+    zeros are N_pad wide and the words a 3-D map of whole tiles
+    (:func:`kb32l_word_map`), so only K % 8 (the pairs of dx's columns the
+    epilogue stores; kb32l's group sizes make it hold) and N % 8 (16-byte rows
+    of g ``[M, N]``) are left. ``kernel`` ("gemv", "wgmma", "mma" or "simt")
+    names one instead; the decode regime raises above 16 rows."""
     _check_kernel(kernel)
     if kernel is not None:
         return kernel
     if dtype in MMA_DTYPES and m <= DECODE_MAX_M:
         return "gemv"
-    chosen = tile_kernel(dtype, None, k, n)
-    return "mma" if chosen == "wgmma" and layout == "kb32l" else chosen
+    if layout == "kb32l":
+        chosen = tile_kernel(dtype)
+        if chosen == "wgmma" and k is not None and n is not None and (k % 8 or n % 8):
+            return "mma"
+        return chosen
+    return tile_kernel(dtype, None, k, n)
 
 
 def mma_stage_groups(gs: int, rows: int) -> int:
@@ -338,8 +350,9 @@ def wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
     """The wgmma/TMA tile kernel's launch for ``m`` rows of a ``[K/P, N]``
     layer (``transpose``: K10, ``dx [m, K] = g [m, N] @ W^T``), from shapes
     alone; ``bits`` is the code width (3 rides in nibbles). ``layout="kb32l"``
-    (K6's forward) reads the words through :func:`kb32l_word_map`, whose box
-    holds the same words as GPTQ's, so only ``words_map`` is added; ``prenorm``
+    (K6's forward, or K10 over kb32l words with ``transpose``) reads the words
+    through :func:`kb32l_word_map`, whose box holds the same words as GPTQ's,
+    so only ``words_map`` is added; ``prenorm``
     (K1's fused prologue, ``m`` < 32) adds the norm weights' slot to each
     stage and their box.
 
@@ -363,16 +376,15 @@ def wgmma_plan(m: int, k: int, n: int, group_size: int, bits: int, sms: int,
       last ticket.
     * ``boxes``: each TMA box as (inner elements, rows, element bytes), the
       norm weights' (``prenorm``) at the most bytes (f32) an element takes."""
-    if layout not in ("gptq", "kb32l") or (layout == "kb32l" and transpose):
-        raise ValueError(f"the wgmma kernels read GPTQ words, and kb32l words in the forward; "
-                         f"got layout={layout!r}, transpose={transpose}")
+    if layout not in ("gptq", "kb32l"):
+        raise ValueError(f"the wgmma kernels read GPTQ or kb32l words, got layout={layout!r}")
     if prenorm and (transpose or layout != "gptq" or m >= PRENORM_MAX_M):
         raise ValueError(f"the fused prologue is a forward over GPTQ words at fewer than "
                          f"{PRENORM_MAX_M} rows, got m={m}, transpose={transpose}, "
                          f"layout={layout!r}")
     plan = dict(_wgmma_plan(m, k, n, group_size, bits, sms, transpose, prenorm))
     if layout == "kb32l":
-        plan["words_map"] = kb32l_word_map(k, n)
+        plan["words_map"] = kb32l_word_map(k, n, transpose)
     return plan
 
 
@@ -621,10 +633,14 @@ def _lib_mma(name: str, norm: bool = False):
 def _lib_gemv(name: str, norm: bool = False):
     """Library ``name``'s tensor-core decode GEMV ``<name>_gemv(x, kperm,
     qweight, scales, zeros, bias, out, ws, counters, dtype, M, K, N, gs, kc,
-    splits, stream)``; ``norm``: ``<name>_gemv_norm``."""
-    tail = NORM_ARGTYPES if norm else []
-    return _bind(name, name + GEMV_SUFFIX + (NORM_SUFFIX if norm else ""),
-                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + tail + [ctypes.c_void_p])
+    splits, stream)``; ``norm``: ``<name>_gemv_norm``, with room for the rows'
+    rstd after the counters (it launches the rstd kernel into it, then the
+    GEMV) and :data:`NORM_ARGTYPES` before the stream."""
+    if norm:
+        return _bind(name, name + GEMV_SUFFIX + NORM_SUFFIX, [ctypes.c_void_p] * 10
+                     + [ctypes.c_int] * 7 + NORM_ARGTYPES + [ctypes.c_void_p])
+    return _bind(name, name + GEMV_SUFFIX, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
 
 
 def _lib_wgmma(name: str):
@@ -655,8 +671,9 @@ def _lib_wgmma_rstd():
 def prenorm_rstd(x2d: torch.Tensor, eps: float, out: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """``rsqrt(mean(f32(x)^2) + eps)`` of each row of ``x2d [M, K]`` over its
-    full K, f32 ``[M]`` (into ``out`` where given): what the wgmma prologue
-    scales each row by (:func:`rms_apply`'s rstd). A CPU tensor takes the
+    full K, f32 ``[M]`` (into ``out`` where given): what the wgmma and GEMV
+    prologues scale each row by (:func:`rms_apply`'s rstd; the GEMV's entry
+    launches the same kernel itself). A CPU tensor takes the
     plain version; a bf16 or f16 CUDA tensor launches ``wg_rstd_kernel``
     (key ``w4a16_gemm_wgmma_norm_rstd``), anything else raises."""
     if x2d.device.type == "cpu":
@@ -688,28 +705,31 @@ def _lib_kb32l_wgmma():
 
 def _launch_wgmma(name: str, entry, a, kperm, qweight, scales, zeros, bias, out, m, k, n, gs,
                   bits, transpose: bool = False, layout: str = "gptq",
-                  norm: tuple = ()) -> None:
+                  norm: tuple = (), key: Optional[str] = None) -> None:
     """One launch of the wgmma/TMA tile kernel on :func:`wgmma_plan`'s plan:
     the forward (``a`` = x, ``bias``) or with ``transpose`` K10 (``a`` = g,
-    ``kperm`` undone on the store), counted under ``<name>_wgmma``; K6's
-    forward over kb32l words with ``layout="kb32l"`` (``n_pad``, the scales'
-    width, before ``gs``), the fused prologue with ``norm`` (the
-    :data:`NORM_ARGTYPES` values, counted under ``<name>_wgmma_norm``, after
-    :func:`prenorm_rstd` of the rows into the workspace, counted under its
-    own key). Raises for a shape TMA cannot address (:func:`wgmma_shape_ok`,
-    which :func:`route`, :func:`kb32l_route` and :func:`t_route` never send
-    here), a failed descriptor encode or launch."""
-    ok = (wgmma_shape_ok(k, scales.shape[1]) and n % 4 == 0 if layout == "kb32l"
+    ``kperm`` undone on the store), counted under ``key`` (by default
+    ``<name>_wgmma``); over kb32l words with ``layout="kb32l"`` (K6's
+    forward, or K10 with ``transpose``; ``n_pad``, the scales' width, before
+    ``gs``), the fused prologue with ``norm`` (the :data:`NORM_ARGTYPES`
+    values, counted under ``<name>_wgmma_norm``, after :func:`prenorm_rstd` of
+    the rows into the workspace, counted under its own key). Raises for a
+    shape TMA cannot address (:func:`wgmma_shape_ok`; over kb32l words K % 8
+    and N % 4, K10's N % 8; :func:`route`, :func:`kb32l_route` and
+    :func:`t_route` never send one here), a failed descriptor encode or
+    launch."""
+    ok = (k % 8 == 0 and n % (8 if transpose else 4) == 0 if layout == "kb32l"
           else wgmma_shape_ok(k, n))
     if not ok:
         raise NotImplementedError(f"{name}{WGMMA_SUFFIX} needs K % 8 == 0 and N % 16 == 0 "
-                                  f"(kb32l: N % 4 == 0) for TMA, got K={k}, N={n}")
+                                  f"(kb32l: N % 4 == 0, K10 N % 8 == 0) for TMA, got K={k}, "
+                                  f"N={n}")
     if a.data_ptr() % 16:          # TMA reads from a 16-byte aligned base
         a = a.clone()
     sms = torch.cuda.get_device_properties(a.device).multi_processor_count
     plan = wgmma_plan(m, k, n, gs, bits, sms, transpose, layout, bool(norm))
     cols = k if transpose else n
-    key = name + WGMMA_SUFFIX + (NORM_SUFFIX if norm else "")
+    key = key or name + WGMMA_SUFFIX + (NORM_SUFFIX if norm else "")
     partials = plan["splits"] * m * cols if plan["splits"] > 1 else 0
     ws, counters = build.split_scratch(   # the prologue's rstd after the partials
         key, a.device, partials + (PRENORM_MAX_M if norm else 0), plan["tiles"])
@@ -855,13 +875,22 @@ def wna16_matmul(x2d: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     if chosen == "gemv":
         sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
         plan = gemv_plan(k, n, m, gs, bits, sms)
+        partials = plan["splits"] * m * n
         ws, counters = build.split_scratch(name + GEMV_SUFFIX, x2d.device,
-                                           plan["splits"] * m * n, plan["col_blocks"])
+                                           partials + (PRENORM_MAX_M if norm else 0),
+                                           plan["col_blocks"])
+        rstd = ()
+        if norm:   # room for the rows' rstd after the partials, written by the entry's launch
+            if x2d.data_ptr() % 16:    # the rstd kernel reads 16-byte runs
+                x2d = x2d.clone()
+            rstd = (ctypes.c_void_p(ws.data_ptr() + 4 * partials),)
         code = _lib_gemv(name, norm)(_ptr(x2d), _ptr(kperm), _ptr(qweight), _ptr(scales),
                                      _ptr(zeros), _ptr(bias), _ptr(out), _ptr(ws),
-                                     _ptr(counters), DTYPE_CODES[x2d.dtype], m, k, n, gs,
+                                     _ptr(counters), *rstd, DTYPE_CODES[x2d.dtype], m, k, n, gs,
                                      plan["kc"], plan["splits"], *extra, _stream(x2d))
         build.check(name, code)
+        if norm:                   # the entry launches wg_rstd_kernel, then the GEMV
+            build.launches[RSTD_KERNEL] += 1
         build.launches[name + GEMV_SUFFIX + suffix] += 1
         return out
     if chosen == "mma":
@@ -965,12 +994,12 @@ def _lib_t(bits: int, route: str = "simt"):
 def _lib_t_kb32l(route: str = "simt"):
     """K10's entry over kb32l words: as :func:`_lib_t`'s with ``n_pad`` before
     ``gs``."""
-    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX}[route]
+    suffix = {"simt": "", "mma": MMA_SUFFIX, "gemv": GEMV_SUFFIX, "wgmma": WGMMA_SUFFIX}[route]
     fn = getattr(build.load(T_KERNEL), KB32L_T_ENTRY + suffix)
     if fn.argtypes is None:
-        ptrs = 8 if route == "gemv" else 6
-        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * (8 if route == "gemv" else 6)
-                       + [ctypes.c_void_p])
+        ptrs = 8 if route in ("gemv", "wgmma") else 6
+        ints = {"gemv": 8, "wgmma": 9}.get(route, 6)
+        fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -1015,8 +1044,9 @@ def _kb32l_matmul_t(g2d, qweight, scales, zeros, kperm, group_size, k,
         return dx
     route = t_route(g2d.dtype, m, _t_kernel(kernel), k, n, layout="kb32l")
     if route == "wgmma":
-        raise NotImplementedError("K10 over kb32l words runs on the 'gemv', 'mma' and 'simt' "
-                                  "kernels, not 'wgmma'")
+        _launch_wgmma(T_KERNEL, _lib_t_kb32l(route), g2d, kperm, qweight, scales, zeros, None,
+                      dx, m, k, n, gs, 4, transpose=True, layout="kb32l", key=KB32L_T_WGMMA)
+        return dx
     _launch_t(route, _lib_t_kb32l(route), g2d, qweight, scales, zeros, kperm, dx, m, k, n, gs, 4,
               scales.shape[1])
     return dx
@@ -1072,19 +1102,22 @@ def kb32l_delinearize(qweight: torch.Tensor, k: int, n: int) -> torch.Tensor:
     return words.reshape(nbk * qweight.shape[1], nbn * KB32L_BN)[:k // 8, :n]
 
 
-def kb32l_word_map(k: int, n: int) -> dict:
-    """The 3-D TMA map K6's wgmma forward reads the kb32l words through
+def kb32l_word_map(k: int, n: int, transpose: bool = False) -> dict:
+    """The 3-D TMA map the wgmma kernels read kb32l words through
     (``csrc/wna16_wgmma.cuh:wg_encode_kb32l``): the tiles as one row-major
     int32 tensor ``[N_pad/128][K_pad/8][128]`` (:func:`kb32l_delinearize`'s
     reading), ``dims`` innermost first (128 columns, ``K_pad/8`` word rows,
     ``N_pad/128`` column tiles), the byte ``strides`` of dims 1 and 2, the
-    ``box`` (128, 8, 1). The box at ``(0, 8t, j)``, reduction tile t of
-    column block j, holds the ``[8][128]`` words of K rows ``64t..64t+63`` and
-    columns ``128j..``, as GPTQ's map gives them."""
+    ``box``. K6's forward: (128, 8, 1); the box at ``(0, 8t, j)``, reduction
+    tile t of column block j, holds the ``[8][128]`` words of K rows
+    ``64t..64t+63`` and columns ``128j..``. With ``transpose`` K10's: (64,
+    16, 1); the box at ``(64 (t % 2), 16 i, t // 2)``, reduction tile t (N
+    columns ``64t..64t+63``) of output block i (K rows ``128i..128i+127``),
+    holds those ``[16][64]`` words. Each as GPTQ's map gives them."""
     nbk, nbn = -(-k // KB32L_KB), -(-n // KB32L_BN)
     rows = nbk * KB32L_KB // 8
-    return dict(dims=(KB32L_BN, rows, nbn), strides=(KB32L_BN * 4, rows * KB32L_BN * 4),
-                box=(KB32L_BN, WGMMA_BK // 8, 1))
+    box = (64, WGMMA_BN // 8, 1) if transpose else (KB32L_BN, WGMMA_BK // 8, 1)
+    return dict(dims=(KB32L_BN, rows, nbn), strides=(KB32L_BN * 4, rows * KB32L_BN * 4), box=box)
 
 
 def kb32l_as_gptq(qweight, scales, zeros, k: int, n: int, gs: int):

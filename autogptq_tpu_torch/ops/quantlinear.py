@@ -350,9 +350,9 @@ def stack_experts(qls: list[QuantLinear]) -> StackedQuantLinear:
     and so do kb32l layers: K9 reads GPTQ words, and no JAX load path stacks
     kb32l."""
     if any(q.layout != "gptq" for q in qls):
-        raise NotImplementedError("stacked experts in the kb32l layout are not ported (K9 reads "
-                                  "GPTQ words; ROADMAP Queue 2, K6): load MoE checkpoints "
-                                  "without layout='kb32l'")
+        raise NotImplementedError("stacked experts in the kb32l layout are not ported and not "
+                                  "queued (K9 reads GPTQ words, and the JAX package stacks no "
+                                  "kb32l layers): load MoE checkpoints without layout='kb32l'")
     if any(q.kperm is not None for q in qls):
         raise ValueError("stacked experts require trivial g_idx (no desc_act)")
     first = qls[0]

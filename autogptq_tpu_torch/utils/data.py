@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``utils/data.py``: left-padded collation and
 a synthetic calibration set made from a seed. The tokenizer-backed
 ``make_data_block`` / ``get_dataloader`` are not ported yet (ROADMAP Queue 1,
-item 9).
+'Utilities, evaluation and the package surface').
 """
 
 from __future__ import annotations

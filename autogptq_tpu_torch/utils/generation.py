@@ -274,7 +274,8 @@ def _generate_beam(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
     max_new_tokens]``."""
     if kv_quant:
         raise NotImplementedError("the contiguous int8 KV cache is not ported yet (ROADMAP "
-                                  "Queue 1, item 7); the paged beam path takes kv_quant=True")
+                                  "Queue 1, 'The contiguous int8 KV cache'); the paged beam "
+                                  "path takes kv_quant=True")
     b, t = tokens.shape
     k = num_beams
     dev = tokens.device
@@ -547,7 +548,8 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
                              "or beam search (num_beams > 1)")
         if kv_quant:
             raise NotImplementedError("the contiguous int8 KV cache is not ported yet (ROADMAP "
-                                      "Queue 1, item 7); beam search takes kv_quant=True")
+                                      "Queue 1, 'The contiguous int8 KV cache'); beam search "
+                                      "takes kv_quant=True")
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be at least 1")
     ids, mask = _prep_inputs(input_ids, pad_token_id)

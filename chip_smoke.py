@@ -27,9 +27,12 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    launch of its own key, bit-equal on a second call, timed beside the same
    kernel alone, the unfused pair, the plain version and ``F.rms_norm`` +
    ``torch.matmul``; the wgmma cases also launch the rows' rstd kernel first
-   (held alone to its plain version) and run the mma.sync tile kernel's
-   prologue (``kernel="mma"``, held to the same tolerance), both timed at M =
-   24 bf16; ptxas' registers and spills of its 28 instances.
+   and run the mma.sync tile kernel's prologue (``kernel="mma"``, held to the
+   same tolerance), timed at M = 24 bf16; the GEMV's entry launches the same
+   rstd kernel before the GEMV, which it overlaps by programmatic dependent
+   launch (bf16 at M = 1, 4, 8, 9 and 16 too); the rstd kernel alone held to
+   its plain version in every bf16 and f16 case and timed at M = 1, 16 and
+   24; ptxas' registers and spills of its 28 instances.
 4. K2 (split-KV flash-decode) against ``flash_decode_ref``: B=1 MHA, B=2
    with a left-padded row, and GQA at 528 slots, a window sweep (17, 64, 272
    and 528 live slots, MHA and GQA) and Mixtral-8x7B's decode shape (8 KV
@@ -63,16 +66,23 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    the int8 paged cache (224 GEMV launches per step in both). A profile of a
    short beam-4 generate, through both routes as for greedy. Then the same
    model with ``arch.FUSE_NORM = "1"`` (``AUTOGPTQ_TPU_FUSE_NORM``; put back
-   after): 256 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm`` and 64
-   ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
+   after): 256 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm``, 160 rstd
+   launches and 64 ``w4a16_gemm_gemv`` per decode token, one ``rms_norm`` per token: the final
    norm's), a profiled 33-token window, the tokens equal to the default run's;
    beam-4 runs of 48 tokens with the switch off, on, on and off (host time in
    turns; each repeats its tokens; the fused tokens against the unfused ones);
    a bf16 batch of 24 prompts whose decode steps take the wgmma/TMA tile
    kernel's prologue (exactly 1120 ``w4a16_gemm_wgmma_norm`` and 1120
-   ``w4a16_gemm_wgmma_norm_rstd``, no ``w4a16_gemm_mma_norm``), and a 2-token
+   ``w4a16_gemm_wgmma_norm_rstd``, no ``w4a16_gemm_mma_norm``), a 2-token
    run of that batch forced through
-   the mma.sync kernels (``gemm.forced_kernel("mma")``).
+   the mma.sync kernels (``gemm.forced_kernel("mma")``), and a bf16 batch of 16
+   (8 tokens) whose decode steps take the fused GEMV at M = 16 (exactly 160
+   ``w4a16_gemm_gemv_norm`` and 160 rstd launches per step), its tokens
+   counted against the same batch's with the switch off, and one decode step
+   of 16 rows after the same prefill with the switch on and off, logits
+   within ``FUSED_STEP_REL_TOL`` while two planted faults of the rstd stray
+   beyond it; the two profile readers held to the same kernels on one
+   window.
 8. The port on the card against the port on the CPU: a 2-layer, full-width
    cut of the same checkpoint, prefill and one decode step, and one paged
    beam-4 decode step, bf16 kernels (the tensor-core GEMV) and f32 kernels
@@ -157,8 +167,9 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    kernel; P ``torch.matmul`` calls on pre-dequantized bf16 experts are the
    library yardstick; a pair naming expert -1 or E writes nothing, sets the flag
    and ``check=True`` raises, through both kernels.
-16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint (all 32
-   layers, about 24.6 GB) under ``build/chip_smoke/``, ``from_quantized`` on the
+16. The Mixtral path: writes a random 4-bit g128 Mixtral-8x7B checkpoint at full
+   width cut to 8 of its 32 layers (for time: every kernel and check of the path
+   runs at any depth) under ``build/chip_smoke/``, ``from_quantized`` on the
    default device, ``params.stack_moe_experts``, deletes the checkpoint; greedy
    decode of 128 tokens from a 16-token prompt, then 16 again (equal to the
    first 16; launch counts set to 0 just before the first and read just after: K9's GEMV 96, no
@@ -182,8 +193,13 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    ring) and f16 at M = 1; timed beside K1 on the same weights in the GPTQ layout (its tensor-core
    GEMV or wgmma kernel and, at M <= 16, its SIMT GEMV), the plain version and
    ``torch.matmul``; both decode plans (blocks, blocks per SM, weight bytes in
-   flight per SM) and ptxas' registers and spills. K10 over kb32l words at M =
-   16, 64 and 2048.
+   flight per SM) and ptxas' registers and spills. K10 over kb32l words (one
+   gate/up call) at M = 16 (its decode regime), 64, 128 and 2048 (the wgmma/TMA
+   K10 over the tiles' 3-D map, bit-equal on a second call, one launch of
+   ``w4a16_kb32l_gemm_t_wgmma``), timed beside K1's wgmma K10 on the same
+   weights in GPTQ words (in turns; within 10% or NOT MET) and at M = 64 and
+   128 beside the mma.sync K10 on the same words (slower, else the run
+   fails).
 19. The kb32l path: the main path's checkpoint loaded again with
    ``from_quantized(layout="kb32l")``; prefill logits against the GPTQ-layout
    model; 256 greedy tokens (counts set to 0 just before and read just after:
@@ -192,7 +208,9 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    tokens through both routes (the ring's beside); a batch-2 generate whose
    32-row prefill runs K6's tile regime (exactly 224 ``w4a16_kb32l_gemm_wgmma``,
    no ``w4a16_kb32l_gemm_mma``), and its prefill again through the mma.sync
-   kernel (``gemm.forced_kernel("mma")``). On
+   kernel (``gemm.forced_kernel("mma")``); one LoRA step (r 16 on q/v, 4 x 512
+   tokens): a finite loss, exactly 7 x 32 ``w4a16_kb32l_gemm_wgmma`` and
+   7 x 32 - 3 ``w4a16_kb32l_gemm_t_wgmma``, no other K10 kernel. On
    the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
    SIMT kernel forward in f32, K10 backward) on the card against the CPU.
@@ -200,9 +218,13 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    the sweeps, holds the wgmma/TMA tile kernels per Llama-2-7B layer against
    the mma.sync ones (faster at M = 128 and 2048, forward and K10; whether at most half
    its time at M = 2048 is reported), reports K6's wgmma kernel per layer
-   against K1's on the same weights (within 10% or NOT MET) and K1's wgmma
-   prologue at M = 24 against the same kernel alone (within 10% or NOT MET)
-   and the unfused pair, writes every measurement to
+   against K1's on the same weights (within 10% or NOT MET), K10 over kb32l
+   words per gate/up call against K1's wgmma K10 (within 10% or NOT MET), K1's
+   wgmma prologue at M = 24 against the same kernel alone (within 10% or NOT
+   MET) and the unfused pair, the fused GEMV at M = 1 to 16
+   and at M = 16 against the GEMV alone (within 25% or NOT MET) and
+   ``F.rms_norm`` + ``torch.matmul`` (below it or NOT MET), writes every
+   measurement to
    ``build/chip_smoke.json`` and
    prints one JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
@@ -220,6 +242,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -293,7 +316,7 @@ KB32L_E2E_REL_TOL = 5e-2
 # dx through a Mixtral layer's routed moe_mlp, f32 on both sides (K9 + K10 against plain).
 KB32L_CUT_F32_REL_TOL = 1e-4
 ROUTED_GRAD_F32_REL_TOL = 1e-4
-MIXTRAL_LAYERS = 32           # depth of the Mixtral-8x7B path (full)
+MIXTRAL_LAYERS = 8            # depth of the Mixtral-8x7B path (of 32: cut for time)
 MIXTRAL_NEW_TOKENS = 128
 MIXTRAL_BEAM_TOKENS = 64
 MIXTRAL_PROFILE_TOKENS = 17
@@ -327,7 +350,17 @@ REPEAT_TOKENS = 32            # the kb32l path's repeat, held to its 512-token r
 MIXTRAL_REPEAT_TOKENS = 16    # the Mixtral path's repeat, likewise
 KB32L_PROFILE_TOKENS = 17     # the kb32l path's profiled window through both routes
 WITHIN = 0.10                 # K6's and the wgmma prologue's targets: within 10% of K1's / alone
-PRENORM_TIMED_CASE = "M=24 bf16"   # the wgmma prologue case timed beside mma.sync's and rstd's
+PRENORM_TIMED_CASE = "M=24 bf16"   # the wgmma prologue case timed beside mma.sync's
+RSTD_TIMED_CASES = ("M=1 bf16", "M=16 bf16", PRENORM_TIMED_CASE)   # the rstd kernel timed alone
+GEMV_NORM_M = (1, BEAMS, 8, 9, 16)   # the fused GEMV's rows timed beside the GEMV alone
+GEMV_NORM_WITHIN = 0.25       # the fused GEMV at M = 16: within 25% of the GEMV alone (target)
+FUSED_BATCH16, FUSED_BATCH16_TOKENS = 16, 8   # a bf16 batch whose decode steps take the rstd launch
+# Its decode step's logits, switch on against off, bf16, 32 layers, relative Frobenius error:
+# the two differ in the rows' rstd (the rstd kernel's f32 sum against torch's, in another
+# order), which moves single bf16 roundings of x_n. Set from the readings, a few times the
+# largest of the sound runs (1.119e-3 on the H100); two planted faults, each row normalized by
+# its neighbour's rstd or by the previous fused call's, are held above it in every run.
+FUSED_STEP_REL_TOL = 5e-3
 RSTD_REL_TOL = 1e-5           # the prologue's rstd against its plain version: f32 sum order
 
 MMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_mma.cuh"   # the mma.sync tile kernels
@@ -526,12 +559,15 @@ def phase_prenorm(torch, np, timer) -> list:
     second call; timed beside the same kernel without the prologue, the unfused
     pair (``rms_apply`` + the kernel), the plain version and the library
     (``F.rms_norm`` + ``torch.matmul`` on a pre-dequantized weight of the
-    activation type); the wgmma cases launch the rows' rstd first
-    (``w4a16_gemm_wgmma_norm_rstd``, also called alone and held to its plain
-    version, ``rsqrt(mean(x^2) + eps)`` in torch, to ``RSTD_REL_TOL``) and run
-    the mma.sync tile kernel's prologue on the same operands
-    (``kernel="mma"``: ``w4a16_gemm_mma_norm``), held to the same tolerance;
-    at M = 24 bf16 both are timed too."""
+    activation type); the wgmma and GEMV cases launch the rows' rstd first
+    (``w4a16_gemm_wgmma_norm_rstd``: by ``gemm.prenorm_rstd`` before the wgmma
+    kernel, by the GEMV's entry before the GEMV), one launch of its key; in
+    every bf16 and f16 case it is also called alone and held to its plain
+    version, ``rsqrt(mean(x^2) + eps)`` in torch, to ``RSTD_REL_TOL``, and
+    timed in ``RSTD_TIMED_CASES``; the wgmma cases run the mma.sync tile
+    kernel's prologue on the same operands (``kernel="mma"``:
+    ``w4a16_gemm_mma_norm``), held to the same tolerance and timed at M = 24
+    bf16."""
     import torch.nn.functional as F
 
     from autogptq_tpu_torch.ops import build, gemm
@@ -545,6 +581,7 @@ def phase_prenorm(torch, np, timer) -> list:
     # (case, M, bits, dtype, plus_one)
     cases = [(f"M={m} {tag}", m, 4, dt, False) for m in (1, BEAMS, 16)
              for tag, dt in (("bf16", bf16), ("f16", f16))]
+    cases += [(f"M={m} bf16", m, 4, bf16, False) for m in GEMV_NORM_M if m not in (1, BEAMS, 16)]
     cases += [("M=1 f32", 1, 4, f32, False), ("M=24 bf16", 24, 4, bf16, False),
               ("M=17 bf16", 17, 4, bf16, False), ("M=31 bf16", 31, 4, bf16, False),
               ("M=24 f16", 24, 4, f16, False),
@@ -565,7 +602,8 @@ def phase_prenorm(torch, np, timer) -> list:
             y = qlin.matmul(x, layer, prenorm=pn)
             launched = {kk: v - before.get(kk, 0) for kk, v in build.launches.items()
                         if v != before.get(kk, 0)}
-            want_launched = {key: 1, **({gemm.RSTD_KERNEL: 1} if route == "wgmma" else {})}
+            want_launched = {key: 1, **({gemm.RSTD_KERNEL: 1} if route in ("wgmma", "gemv")
+                                        else {})}
             check(launched == want_launched, f"prenorm {case} {proj}: launched {launched}, want "
                                              f"{want_launched}")
             xn = gemm.rms_apply(x, *pn)
@@ -581,35 +619,39 @@ def phase_prenorm(torch, np, timer) -> list:
             check(torch.equal(qlin.matmul(x, layer, prenorm=pn), y),
                   f"prenorm {case} {proj}: a second call differs")
             mma = {}
-            if route == "wgmma":   # the rows' rstd alone, the mma.sync prologue on the operands
+            if dtype != f32:   # the rows' rstd alone, as the GEMV and wgmma prologues take it
+                def rstd_plain():
+                    return torch.rsqrt(x.float().pow(2).mean(-1) + PRENORM_EPS)
+
+                r_ref = rstd_plain()
+                r = gemm.prenorm_rstd(x, PRENORM_EPS)
+                torch.cuda.synchronize()
+                rerr = (r - r_ref).abs().max().item()
+                check(rerr <= RSTD_REL_TOL * r_ref.abs().max().item()
+                      and torch.equal(gemm.prenorm_rstd(x, PRENORM_EPS), r),
+                      f"prenorm {case} {proj} rstd: max |kernel - plain| = {rerr:.3e}")
+                mma = dict(rstd_max_abs_err=rerr)
+                if case in RSTD_TIMED_CASES:
+                    r_b_ms, r_b_by = bound_ms(nbytes(x, r), 2.0 * m * k)
+                    mma.update(rstd_ms=timer.ms(lambda: gemm.prenorm_rstd(x, PRENORM_EPS)),
+                               rstd_plain_ms=timer.ms(rstd_plain), rstd_bound_ms=r_b_ms,
+                               rstd_bound_by=r_b_by)
+            if route == "wgmma":   # the mma.sync prologue on the same operands
                 def mma_norm():
                     with gemm.forced_kernel("mma"):
                         return qlin.matmul(x, layer, prenorm=pn)
-
-                def rstd_plain():
-                    return torch.rsqrt(x.float().pow(2).mean(-1) + PRENORM_EPS)
 
                 before = build.launches[NORM_KEY["mma"]]
                 ym = mma_norm()
                 check(build.launches[NORM_KEY["mma"]] == before + 1,
                       f"prenorm {case} {proj}: kernel='mma' launched no {NORM_KEY['mma']}")
-                r_ref = rstd_plain()
-                r = gemm.prenorm_rstd(x, PRENORM_EPS)
                 torch.cuda.synchronize()
                 merr = (ym.float() - ref.float()).abs().max().item()
                 check(merr <= tol, f"prenorm {case} {proj} mma.sync: max |kernel - plain| = "
                                    f"{merr:.3e} > {tol:.3e}")
-                rerr = (r - r_ref).abs().max().item()
-                check(rerr <= RSTD_REL_TOL * r_ref.abs().max().item()
-                      and torch.equal(gemm.prenorm_rstd(x, PRENORM_EPS), r),
-                      f"prenorm {case} {proj} rstd: max |kernel - plain| = {rerr:.3e}")
-                mma = dict(mma_max_abs_err=merr, rstd_max_abs_err=rerr)
+                mma.update(mma_max_abs_err=merr)
                 if case == PRENORM_TIMED_CASE:
-                    r_b_ms, r_b_by = bound_ms(nbytes(x, r), 2.0 * m * k)
-                    mma.update(mma_ms=timer.ms(mma_norm),
-                               rstd_ms=timer.ms(lambda: gemm.prenorm_rstd(x, PRENORM_EPS)),
-                               rstd_plain_ms=timer.ms(rstd_plain), rstd_bound_ms=r_b_ms,
-                               rstd_bound_by=r_b_by)
+                    mma.update(mma_ms=timer.ms(mma_norm))
             wl = qlin.logical_weight(layer, dtype)
             wlib = (1.0 + w.float()).to(dtype) if plus_one else w
             ms = timer.ms(lambda: qlin.matmul(x, layer, prenorm=pn))
@@ -627,11 +669,13 @@ def phase_prenorm(torch, np, timer) -> list:
                              bound_ms=b_ms, bound_by=b_by, **mma))
             print(f"prenorm {case:20s} {proj:7s} K={k:5d} N={n:5d} {route:5s} err {err:.3e} "
                   f"(tol {tol:.3e})  fused {ms:.4f} ms  kernel alone {kernel_ms:.4f} ms  "
-                  + (f"mma.sync prologue err {mma['mma_max_abs_err']:.3e}  rstd err "
-                     f"{mma['rstd_max_abs_err']:.3e}  " if mma else "")
-                  + (f"mma.sync prologue {mma['mma_ms']:.4f} ms  rstd alone {mma['rstd_ms']:.4f} "
-                     f"ms (plain {mma['rstd_plain_ms']:.4f} ms, bound {mma['rstd_bound_ms']:.4f} "
-                     f"ms)  " if "mma_ms" in mma else "") +
+                  + (f"mma.sync prologue err {mma['mma_max_abs_err']:.3e}  "
+                     if "mma_max_abs_err" in mma else "")
+                  + (f"rstd err {mma['rstd_max_abs_err']:.3e}  " if mma else "")
+                  + (f"mma.sync prologue {mma['mma_ms']:.4f} ms  " if "mma_ms" in mma else "")
+                  + (f"rstd alone {mma['rstd_ms']:.4f} ms (plain {mma['rstd_plain_ms']:.4f} ms, "
+                     f"bound {mma['rstd_bound_ms']:.4f} ms)  " if "rstd_ms" in mma else "")
+                  +
                   f"unfused (rms_apply + kernel) {unfused_ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"F.rms_norm + torch.matmul {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
@@ -1135,18 +1179,20 @@ def wgmma_ptxas() -> list:
     """ptxas' registers, spills and static shared memory of every wgmma/TMA
     tile-kernel instance: the forward of the three libraries and K10's three
     widths, each for bf16 and f16 and the block heights 64, 128 and 256 (36),
-    K6's forward over kb32l words (6) and K1's fused prologue (bf16 and f16 at
-    block height 64: 2); a spill fails the run."""
+    K6's forward and K10 over kb32l words (6 each) and K1's fused prologue
+    (bf16 and f16 at block height 64: 2); a spill fails the run."""
     out = []
     for name in ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_kb32l_gemm"):
         for r in ptxas_report(name, "wgmma_kernel"):
             r.update(library=name)
             out.append(r)
     kb32l = [r for r in out if "kb32l_wgmma_kernel" in r["function"]]
+    kb32l_t = [r for r in out if "kb32l_t_wgmma_kernel" in r["function"]]
     norm = [r for r in out if "prenorm_wgmma_kernel" in r["function"]]
-    check(len(out) == 44 and len(kb32l) == 6 and len(norm) == 2,
-          f"{len(out)} wgmma instances in the ptxas logs ({len(kb32l)} over kb32l words, "
-          f"{len(norm)} with the prologue), want 44 (6, 2)")
+    check(len(out) == 50 and len(kb32l) == 6 and len(kb32l_t) == 6 and len(norm) == 2,
+          f"{len(out)} wgmma instances in the ptxas logs ({len(kb32l)} forward and "
+          f"{len(kb32l_t)} K10 over kb32l words, {len(norm)} with the prologue), want 50 (6, 6, "
+          f"2)")
     for r in out:
         print(f"ptxas {r['library']}: {r['function'][:90]}: {r['registers']} registers, spill "
               f"{r['spill_stores']}/{r['spill_loads']} B, static smem {r['smem']} B", flush=True)
@@ -1290,18 +1336,25 @@ def phase_k10(torch, np, timer) -> list:
                     f"{b_ms:.4f} ms ({b_by})" + (f"  plan {simt['plan']}" if "plan" in simt else ""),
                   flush=True)
         del layer, w
-    # K10 over K6's kb32l words (a backward through a kb32l layer)
+    # K10 over K6's kb32l words (a backward through a kb32l layer): its decode regime at M = 16,
+    # above the wgmma/TMA K10 over the tiles' 3-D map, timed beside the mma.sync K10 on the
+    # same words at M = 64 and 128 and beside K1's wgmma K10 on the same weights in GPTQ words
+    # (gemm.kb32l_as_gptq) at every M above 16
     k, n = shapes["gate_up"]
     layer = _random_layer(qlin, rng, k, n, 4, 128, False, torch.bfloat16, layout="kb32l")
-    words, s, z = qlin.gptq_tensors(layer)
+    words, s, z = (t.contiguous() for t in qlin.gptq_tensors(layer))
     w = qlin.logical_weight(layer, torch.bfloat16)
-    for m in (16, 64, TRAIN_M):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (16, 64, 128, TRAIN_M):
         g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
-        route = gemm.t_route(g.dtype, m, layout="kb32l")
-        key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
-        before = build.launches[key]
+        route = gemm.t_route(g.dtype, m, k=k, n=n, layout="kb32l")
+        key = gemm.KB32L_T_WGMMA if route == "wgmma" else gemm.T_KERNEL + ROUTE_SUFFIX[route]
+        keys = [gemm.KB32L_T_WGMMA] + [gemm.T_KERNEL + sfx for sfx in ROUTE_SUFFIX.values()]
+        before = dict(build.launches)
         dx = qlin.matmul_t(g, layer)
-        check(build.launches[key] == before + 1, f"K10 kb32l M={m}: {key} not launched")
+        check(route == ("gemv" if m <= 16 else "wgmma")
+              and all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
+              f"K10 kb32l M={m}: launched {dict(build.launches)}, want one {key}")
         ref = gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4)
         dx32 = qlin.matmul_t(g.float(), layer)
         ref32 = gemm.wna16_matmul_t_ref(g.float(), words, s, z, None, 128, 4)
@@ -1314,21 +1367,62 @@ def phase_k10(torch, np, timer) -> list:
                                           f"{err:.3e} > {K10_REL_TOL} * {scale:.3e}")
         check(err32 <= F32_ABS_TOL * max(1.0, scale),
               f"K10 kb32l M={m} f32: max |kernel - plain| = {err32:.3e} > {F32_ABS_TOL}")
-        ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=5, warmup=1)
+        check(torch.equal(qlin.matmul_t(g, layer), dx), f"K10 kb32l M={m}: a second call differs")
+        extra = {}
+        if route == "wgmma":
+            extra["plan"] = gemm.wgmma_plan(m, k, n, 128, 4, sms, transpose=True, layout="kb32l")
+
+            def gptq_t():   # K1's wgmma K10 on the same weights in GPTQ words
+                return gemm.wna16_matmul_t(g, words, s, z, None, 128, 4)
+
+            def mma_t():    # the mma.sync K10 on the same kb32l words
+                return gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros, None,
+                                           128, 4, k=k, kernel="mma")
+
+            checked = (("k1", gptq_t),) + ((("mma", mma_t),) if m <= 128 else ())
+            for label, fn in checked:
+                other = fn()
+                torch.cuda.synchronize()
+                oerr = (other.float() - ref.float()).abs().max().item()
+                check(oerr <= K10_REL_TOL * scale, f"K10 kb32l M={m} {label}: max |kernel - "
+                                                   f"plain| = {oerr:.3e} > {K10_REL_TOL} * "
+                                                   f"{scale:.3e}")
+                extra[f"{label}_max_abs_err"] = oerr
+            # in turns: the kb32l kernel, K1's, K1's, the kb32l kernel (the mean of each pair)
+            t = {"ms": [], "k1_ms": []}
+            for label in ("ms", "k1_ms", "k1_ms", "ms"):
+                fn = (lambda: qlin.matmul_t(g, layer)) if label == "ms" else gptq_t
+                t[label].append(timer.ms(fn, iters=5 if m == TRAIN_M else 10, warmup=1))
+            extra.update(k1_ms=sum(t["k1_ms"]) / 2)
+            ms = sum(t["ms"]) / 2
+            if m <= 128:
+                extra["mma_ms"] = timer.ms(mma_t, iters=10, warmup=1)
+                check(ms < extra["mma_ms"], f"K10 kb32l M={m}: the wgmma K10 {ms:.4f} ms is not "
+                                            f"faster than the mma.sync K10's {extra['mma_ms']:.4f} ms")
+            extra["within_10pct_of_k1"] = ms <= (1 + WITHIN) * extra["k1_ms"]
+        else:
+            ms = timer.ms(lambda: qlin.matmul_t(g, layer), iters=10, warmup=1)
         plain_ms = timer.ms(lambda: gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4),
                             iters=3, warmup=1)
         lib_ms = timer.ms(lambda: torch.matmul(g, w.t()), iters=5, warmup=1)
         b_ms, b_by = bound_ms(nbytes(g, dx, layer.qweight, layer.scales, layer.zeros),
                               2.0 * m * k * n)
         rows.append(dict(bits=4, case="gate_up kb32l", K=k, N=n, M=m, group_size=128,
-                         desc_act=False, layout="kb32l", route=route, max_abs_err=err,
-                         max_abs_ref=scale,
+                         desc_act=False, layout="kb32l", route=route, kernel=key,
+                         max_abs_err=err, max_abs_ref=scale,
                          max_abs_err_f32=err32, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, tflops=2.0 * m * k * n / ms / 1e9))
-        print(f"K10 4-bit gate_up g128 kb32l    K={k:5d} N={n:5d} M={m:4d}  bf16 err {err:.3e} "
-              f"(tol {K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol {F32_ABS_TOL})  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+                         bound_ms=b_ms, bound_by=b_by, tflops=2.0 * m * k * n / ms / 1e9, **extra))
+        print(f"K10 4-bit gate_up g128 kb32l    K={k:5d} N={n:5d} M={m:4d} {route:5s} bf16 err "
+              f"{err:.3e} (tol {K10_REL_TOL * scale:.3e})  f32 err {err32:.3e} (tol "
+              f"{F32_ABS_TOL})  kernel {ms:.4f} ms"
+              + (f"  K1's wgmma K10 on the GPTQ words {extra['k1_ms']:.4f} ms ("
+                 f"{ms / extra['k1_ms']:.3f}x, within 10%: "
+                 f"{'met' if extra['within_10pct_of_k1'] else 'NOT MET'})" if "k1_ms" in extra
+                 else "")
+              + (f"  the mma.sync K10 {extra['mma_ms']:.4f} ms" if "mma_ms" in extra else "")
+              + f"  plain {plain_ms:.4f} ms  torch.matmul {lib_ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})" + (f"  plan {extra['plan']}" if "plan" in extra else ""),
+              flush=True)
     return rows
 
 
@@ -1699,15 +1793,23 @@ def phase_train(torch, np, model, work: str) -> dict:
 PROFILER_WARMUP_LAUNCHES = 512
 PROFILER_WINDOW = "chip_smoke.profiled"
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+PROFILE_READERS_US = 1.0   # one kernel's time through either reader: prof.events()' rounding
 
 
-def profiled(torch, fn) -> dict:
+def profiled(torch, fn, tree: bool = False, both: bool = False) -> dict:
     """``fn()`` under torch.profiler, after :data:`PROFILER_WARMUP_LAUNCHES`
-    tiny kernels and a synchronize. Returns its result, the profiler's events,
-    the CUDA kernel events that start inside ``fn``'s range, the host clock of
-    ``fn`` in microseconds, and the kernel launches the profiler recorded with
-    no kernel, inside that range and before it."""
-    from torch.autograd import DeviceType
+    tiny kernels and a synchronize. Returns its result, the CUDA kernel events
+    that start inside ``fn``'s range (each with ``name`` and ``time_range``),
+    the host clock of ``fn`` in microseconds, and the kernel launches the
+    profiler recorded with no kernel, inside that range and before it; with
+    ``tree`` also the profiler's events (``prof.events()``, whose CPU events
+    carry their children). Without ``tree`` the kineto results are read as
+    they are: building ``prof.events()`` costs about 50 us of host time per
+    event, 20 s or more for a generate of 33 tokens (2000 kernels per token and
+    their CPU events), and none of its fields is read. With ``both``, the
+    window read both ways (``readers``: kernels, their summed microseconds and
+    the two lost-launch counts of each), which :func:`profile_readers` holds
+    equal."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -1721,18 +1823,82 @@ def profiled(torch, fn) -> dict:
             result = fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    window = next(e.time_range for e in events
-                  if e.name == PROFILER_WINDOW and e.device_type == DeviceType.CPU)
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    recorded = {e.id for e in device}
-    lost = [e.time_range.start for e in events if e.device_type == DeviceType.CPU
-            and e.name in LAUNCH_CALLS and e.id not in recorded]
-    return dict(result=result, events=events, wall_us=wall_us,
-                kernels=[e for e in device if window.start <= e.time_range.start <= window.end],
+    events, rows = _profile_rows(prof, tree)
+    run = dict(result=result, events=events, wall_us=wall_us, **_profile_window(rows))
+    if both:
+        run["readers"] = {reader: _profile_window(_profile_rows(prof, reader == "tree")[1])
+                          for reader in ("tree", "kineto")}
+    return run
+
+
+def _profile_rows(prof, tree: bool) -> tuple:
+    """(``prof.events()`` or None, a (name, span in us, device type,
+    correlation id, user annotation) row per event), from the profiler's event
+    tree or straight from its kineto results."""
+    from torch.autograd.profiler_util import Interval
+
+    if tree:
+        events = prof.events()
+        return events, [(e.name, e.time_range, e.device_type, e.id,
+                         getattr(e, "is_user_annotation", False)) for e in events]
+    return None, [(e.name(), Interval(e.start_ns() / 1e3, e.end_ns() / 1e3), e.device_type(),
+                   e.correlation_id(), e.is_user_annotation())
+                  for e in prof.profiler.kineto_results.events()
+                  if not getattr(e, "is_hidden_event", lambda: False)()]   # as prof.events() skips
+
+
+def _profile_window(rows: list) -> dict:
+    """The kernels that start inside :data:`PROFILER_WINDOW`'s range and the
+    launches with no kernel record inside it and before it."""
+    from torch.autograd import DeviceType
+
+    window = next(span for name, span, dev, _, _ in rows
+                  if name == PROFILER_WINDOW and dev == DeviceType.CPU)
+    device = [r for r in rows if r[2] == DeviceType.CUDA and not r[4]]
+    recorded = {r[3] for r in device}
+    lost = [span.start for name, span, dev, cid, _ in rows if dev == DeviceType.CPU
+            and name in LAUNCH_CALLS and cid not in recorded]
+    return dict(kernels=[types.SimpleNamespace(name=name, time_range=span, cid=cid)
+                         for name, span, _, cid, _ in device
+                         if window.start <= span.start <= window.end],
                 lost_inside=sum(window.start <= t <= window.end for t in lost),
                 lost_before=sum(t < window.start for t in lost))
+
+
+def profile_readers(torch, fn) -> dict:
+    """One profiled window of ``fn`` read through ``prof.events()`` and
+    straight from the kineto results: the same kernels (correlation id and
+    name), the same lost-launch counts, and each kernel's time within
+    ``PROFILE_READERS_US`` of the other reader's, or the run fails. Reports
+    the summed kernel time of each and the largest difference of one
+    kernel."""
+    import collections
+
+    run = profiled(torch, fn, both=True)
+    seen, spans = {}, {}
+    for reader, w in run["readers"].items():
+        spans[reader], occ = {}, collections.Counter()
+        for k in sorted(w["kernels"], key=lambda k: k.time_range.start):
+            spans[reader][k.cid, k.name, occ[k.cid, k.name]] = k.time_range.elapsed_us()
+            occ[k.cid, k.name] += 1
+        seen[reader] = dict(kernels=len(w["kernels"]), kernel_us=sum(spans[reader].values()),
+                            lost_inside=w["lost_inside"], lost_before=w["lost_before"])
+    a, b = seen["tree"], seen["kineto"]
+    same_set = spans["tree"].keys() == spans["kineto"].keys() and a["kernels"] == len(
+        spans["tree"]) == b["kernels"] > 0
+    diffs = ([abs(spans["tree"][key] - spans["kineto"][key]) for key in spans["tree"]]
+             if same_set else [float("inf")])
+    whole = sum(float(v).is_integer() for v in spans["tree"].values())
+    check(same_set and max(diffs) <= PROFILE_READERS_US
+          and (a["lost_inside"], a["lost_before"]) == (b["lost_inside"], b["lost_before"]),
+          f"profile readers disagree on one window: prof.events() {a}, kineto {b}, same kernels "
+          f"{same_set}, largest difference of one kernel {max(diffs):.4f} us")
+    print(f"profile readers on one window (a 4-token generate): prof.events() {a}; the kineto "
+          f"results read directly {b}; the same {a['kernels']} kernels by correlation id and "
+          f"name; largest difference of one kernel's time {max(diffs):.4f} us, "
+          f"{sum(d > 0 for d in diffs)} differ; {whole} of prof.events()' kernel times are whole "
+          f"microseconds", flush=True)
+    return dict(seen, max_kernel_diff_us=max(diffs), kernels_differing=sum(d > 0 for d in diffs))
 
 
 def profile_train_step(torch, step) -> dict:
@@ -1743,7 +1909,7 @@ def profile_train_step(torch, step) -> dict:
     their backward nodes (matched on sequence number); the rest is other."""
     from torch.autograd import DeviceType
 
-    run = profiled(torch, step)
+    run = profiled(torch, step, tree=True)
     loss, events, wall_ms = run["result"], run["events"], run["wall_us"] / 1e3
 
     def family(name):
@@ -2708,7 +2874,11 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     logits against the GPTQ-layout model, 256 greedy tokens, 32 again, with
     the launch counts, a profile, a batch-2 generate (K6's tile regime: the
     wgmma/TMA kernel) and its prefill again through the mma.sync kernel
-    (``gemm.forced_kernel("mma")``, 1 new token)."""
+    (``gemm.forced_kernel("mma")``, 1 new token); then one LoRA step on the
+    model (r 16 on q_proj and v_proj, one 4 x 512-token batch, AdamW): a
+    finite loss, exactly 7 x 32 ``w4a16_kb32l_gemm_wgmma`` and 7 x 32 - 3
+    ``w4a16_kb32l_gemm_t_wgmma`` (K10 over the kb32l words above 16 rows),
+    no other K10 kernel and no K1."""
     from autogptq_tpu_torch import AutoGPTQForCausalLM
     from autogptq_tpu_torch.ops import build, gemm
     from autogptq_tpu_torch.ops import quantlinear as qlin
@@ -2809,12 +2979,55 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
     print(f"kb32l batch-2 prefill forced through the mma.sync kernel (kernel='mma'): first token "
           f"{'equal to' if np.array_equal(out_mma, out2[:, :PROMPT_LEN + 1]) else 'unlike'} the "
           f"wgmma route's, launches {mma_counts}", flush=True)
+    train = kb32l_train_step(torch, np, model)
     del model
     torch.cuda.empty_cache()
     return dict(load_s=load_s, load_peak_bytes=load_peak, prefill_rel_err=prefill_rel,
                 gen_s=gen_s, repeat_s=again_s, tok_s=tok_s, peak_bytes=peak, counts=counts,
                 share_equal_to_main=same, leading_equal_tokens=agree, profile=profile,
-                batch2_counts=counts2, mma_counts=mma_counts)
+                batch2_counts=counts2, mma_counts=mma_counts, train=train)
+
+
+def kb32l_train_step(torch, np, model) -> dict:
+    """One LoRA step (the train phase's adapters, batch and loss) on a model
+    loaded with ``layout="kb32l"``, the launch counts set to 0 just before and
+    read just after: K6's wgmma forward once per projection, the wgmma K10
+    over the kb32l words once per projection but layer 0's q/k/v (its input
+    needs no gradient), nothing else of K6, K10 or K1."""
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.utils import peft
+
+    cfg, layers = model.cfg, model.cfg.num_layers
+    peft.get_gptq_peft_model(model, peft.GPTQLoraConfig(
+        r=TRAIN_RANK, lora_alpha=2 * TRAIN_RANK, target_modules=("attn.q_proj", "attn.v_proj")),
+        seed=0)
+    trainable = peft.trainable_tensors(peft.split_lora_params(model.params)[0])
+    opt = torch.optim.AdamW(trainable, lr=TRAIN_LR)
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN))).cuda()
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    logits, _ = arch.forward(model.params, tokens, cfg, dtype=model.dtype)
+    loss = masked_loss(torch, logits, tokens)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    loss = loss.item()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = {k: v for k, v in build.launches.items() if v}
+    want = {gemm.KB32L_KERNEL + gemm.WGMMA_SUFFIX: 7 * layers, gemm.KB32L_T_WGMMA: 7 * layers - 3}
+    quant = {k: v for k, v in counts.items()
+             if k.startswith((gemm.KB32L_KERNEL, gemm.T_KERNEL, "w4a16_gemm"))}
+    check(bool(np.isfinite(loss)), f"kb32l LoRA step: non-finite loss {loss}")
+    check(quant == want, f"kb32l LoRA step launched {quant}, want {want} (no "
+                         f"{gemm.T_KERNEL}{gemm.MMA_SUFFIX}, no K1)")
+    print(f"kb32l LoRA step: r={TRAIN_RANK} on q_proj and v_proj, {layers} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_LEN} tokens, AdamW: loss {loss:.6f}, {step_s:.3f} s (the "
+          f"first step); launches {counts}", flush=True)
+    return dict(loss=loss, s=step_s, counts=counts)
 
 
 def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
@@ -2931,16 +3144,26 @@ def phase_beam(torch, np, model) -> dict:
 
 def phase_fused_norm(torch, np, model, main_out) -> dict:
     """The main path's model with the switch on (``arch.FUSE_NORM = "1"``, put
-    back after): 512 greedy tokens (counts set to 0 just before and read just
-    after: 160 ``w4a16_gemm_gemv_norm`` and 64 ``w4a16_gemm_gemv`` per decode
-    token, no ``rms_norm`` but the final norm's, no unfused fallback), a profiled
+    back after): ``FUSED_NEW_TOKENS`` greedy tokens (counts set to 0 just before and read just
+    after: 160 ``w4a16_gemm_gemv_norm``, as many rstd launches and 64
+    ``w4a16_gemm_gemv`` per decode token, no ``rms_norm`` but the final norm's, no unfused fallback), a profiled
     33-token window, tokens equal to the default run's; beam-4 runs of 48 tokens
     with the switch off, on, on and off (host time in turns; each repeats its
     tokens; the same counts per step as greedy; its tokens compared with the
     switch off); a bf16 batch of 24 prompts whose decode steps take the
     wgmma/TMA tile kernel's prologue (``w4a16_gemm_wgmma_norm`` and as many
     ``w4a16_gemm_wgmma_norm_rstd``), and 2 tokens of it forced through the
-    mma.sync kernels (``w4a16_gemm_mma_norm``)."""
+    mma.sync kernels (``w4a16_gemm_mma_norm``); a bf16 batch of 16 of those
+    prompts, 8 greedy tokens, whose decode steps take the fused GEMV at M = 16
+    (160 ``w4a16_gemm_gemv_norm`` per step, with as many rstd launches), its
+    tokens against the same batch's with
+    the switch off (counted: where a random model's logits nearly tie, the
+    rstd's other sum order moves a token), and one decode step of 16
+    equal-length prompts with the switch on and off after the same prefill:
+    logits within ``FUSED_STEP_REL_TOL``, 160 ``w4a16_gemm_gemv_norm`` in the
+    fused step, planted faults beyond it (:func:`fused_decode_step`); then
+    one 4-token generate profiled and read both ways
+    (:func:`profile_readers`)."""
     import collections
 
     from autogptq_tpu_torch.models import arch
@@ -2992,6 +3215,20 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         mma_counts = dict(build.launches)
         arch.FUSE_NORM = "0"
         batch_ref = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
+        arch.FUSE_NORM = "1"
+        build.launches.clear()
+        t0 = time.perf_counter()
+        batch16 = model.generate(prompts[:FUSED_BATCH16], max_new_tokens=FUSED_BATCH16_TOKENS)
+        batch16_s = time.perf_counter() - t0
+        batch16_counts = dict(build.launches)
+        arch.FUSE_NORM = "0"
+        t0 = time.perf_counter()
+        batch16_ref = model.generate(prompts[:FUSED_BATCH16],
+                                     max_new_tokens=FUSED_BATCH16_TOKENS)
+        batch16_ref_s = time.perf_counter() - t0
+        step16 = fused_decode_step(torch, np, model)
+        arch.FUSE_NORM = "1"
+        readers = profile_readers(torch, lambda: model.generate(prompt, max_new_tokens=4))
     finally:
         arch.FUSE_NORM = "0"
         arch.rms_norm, gemm.rms_apply = rms_norm, rms_apply
@@ -3000,7 +3237,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         return {k: v for k, v in c.items() if k.startswith("w4a16_gemm")}
 
     def want(steps, fused, unfused):   # K1 launches of a run of `steps` one-token steps
-        rstd = {gemm.RSTD_KERNEL: 5 * layers * steps} if fused == NORM_KEY["wgmma"] else {}
+        rstd = {gemm.RSTD_KERNEL: 5 * layers * steps} if fused != NORM_KEY["mma"] else {}
         return {fused: 5 * layers * steps, unfused: 7 * layers + 2 * layers * steps, **rstd}
 
     vocab = model.cfg.vocab_size
@@ -3021,7 +3258,8 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     tok_s = FUSED_NEW_TOKENS / gen_s
     print(f"fused norm (AUTOGPTQ_TPU_FUSE_NORM=1), greedy: {FUSED_NEW_TOKENS} tokens in "
           f"{gen_s:.3f} s "
-          f"= {tok_s:.2f} tok/s; per decode token {5 * layers} w4a16_gemm_gemv_norm, "
+          f"= {tok_s:.2f} tok/s; per decode token {5 * layers} w4a16_gemm_gemv_norm and as many "
+          f"rstd launches, "
           f"{2 * layers} w4a16_gemm_gemv, 1 rms_norm (the final norm); {same} of "
           f"{FUSED_NEW_TOKENS} "
           f"tokens equal to the default run's (first difference at "
@@ -3046,7 +3284,8 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"its tokens): beam {BEAMS} "
           f"{BEAMS * FUSED_AB_TOKENS / boff_s:.2f} beam-tok/s off, "
           f"{BEAMS * FUSED_AB_TOKENS / bon_s:.2f} on ({[round(r[1], 3) for r in beam_ab]} s), "
-          f"per step {5 * layers} w4a16_gemm_gemv_norm, {2 * layers} w4a16_gemm_gemv, 1 rms_norm; "
+          f"per step {5 * layers} w4a16_gemm_gemv_norm and as many rstd launches, {2 * layers} "
+          f"w4a16_gemm_gemv, 1 rms_norm; "
           f"{beam_same} of {FUSED_AB_TOKENS} beam tokens equal to the unfused beam's; launches "
           f"{beam_ab[1][2]}", flush=True)
     bsteps = FUSED_BATCH_TOKENS - 1
@@ -3062,13 +3301,156 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"{batch_same} of {batch_ref[:, -FUSED_BATCH_TOKENS:].size} tokens equal to the "
           f"unfused run's; launches {batch_counts}; 2 tokens forced through the mma.sync "
           f"kernels: launches {mma_counts}", flush=True)
+    b16_steps = FUSED_BATCH16_TOKENS - 1
+    # the prefill's 16 x 16 rows on the wgmma kernel, unfused; each decode step's 16 rows on
+    # the GEMV: q/k/v and gate/up fused, o and down not
+    want16 = {"w4a16_gemm_wgmma": 7 * layers, "w4a16_gemm_gemv": 2 * layers * b16_steps,
+              **{k: v for k, v in want(b16_steps, NORM_KEY["gemv"], "w4a16_gemm_gemv").items()
+                 if k != "w4a16_gemm_gemv"}}
+    check(k1_counts(batch16_counts) == want16,
+          f"fused batch {FUSED_BATCH16}: K1 launches {k1_counts(batch16_counts)}, want {want16}")
+    check(batch16.shape == batch16_ref.shape, f"fused batch {FUSED_BATCH16}: output "
+                                              f"{batch16.shape}, unfused {batch16_ref.shape}")
+    new16, ref16 = batch16[:, -FUSED_BATCH16_TOKENS:], batch16_ref[:, -FUSED_BATCH16_TOKENS:]
+    differ = np.argwhere(new16 != ref16)
+    first = differ[np.argmin(differ[:, 1])].tolist() if len(differ) else None
+    batch16_same = int((new16 == ref16).sum())
+    print(f"fused norm, bf16 batch of {FUSED_BATCH16} prompts, {FUSED_BATCH16_TOKENS} new tokens "
+          f"(decode steps of {FUSED_BATCH16} rows: the fused GEMV, rstd "
+          f"by one launch before it"
+          f"): {batch16_same} of {new16.size} tokens equal to the unfused run's (first difference "
+          f"at [row, token] {first}); {FUSED_BATCH16 * FUSED_BATCH16_TOKENS / batch16_s:.2f}"
+          f" tok/s ({FUSED_BATCH16 * FUSED_BATCH16_TOKENS / batch16_ref_s:.2f} unfused, prefill "
+          f"included); launches {batch16_counts}", flush=True)
     return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls,
                 tokens_equal=same, first_difference=int(diff[0]) if len(diff) else None,
                 profile=profile, beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
                 beam_tok_s_off=BEAMS * FUSED_AB_TOKENS / boff_s,
                 beam_tok_s_on=BEAMS * FUSED_AB_TOKENS / bon_s, beam_tokens_equal=beam_same,
                 beam_profile=beam_profile, batch_counts=batch_counts,
-                batch_tokens_equal=batch_same, mma_batch_counts=mma_counts)
+                batch_tokens_equal=batch_same, mma_batch_counts=mma_counts,
+                batch16_counts=batch16_counts, batch16_tokens_equal=batch16_same,
+                batch16_first_difference=first, step16=step16, batch16_s=batch16_s,
+                batch16_ref_s=batch16_ref_s, profile_readers=readers)
+
+
+def fused_decode_step(torch, np, model) -> dict:
+    """One decode step of ``FUSED_BATCH16`` equal-length prompts after the
+    same prefill, with the switch on and off: the fused step's K1 launches
+    (160 ``w4a16_gemm_gemv_norm`` and as many rstd launches, 64 unfused GEMVs)
+    and its logits against the unfused step's within ``FUSED_STEP_REL_TOL``.
+    Two witnesses of what parts them: the rstd kernel on the inputs of the
+    fused step's 160 prologues against torch's rstd, with the share of x_n
+    elements whose bf16 rounding the difference moves; and two planted
+    faults, the fused projections' x normalized (in torch, unfused) by the
+    neighbouring row's rstd and by the previous fused call's, whose logits
+    must each stray beyond the tolerance. Sets
+    ``arch.FUSE_NORM``; the caller restores it."""
+    from autogptq_tpu_torch.models import arch
+    from autogptq_tpu_torch.models.arch import KVCache, forward
+    from autogptq_tpu_torch.ops import build, gemm
+    from autogptq_tpu_torch.ops import quantlinear as qlin
+
+    layers = model.cfg.num_layers
+    rng = np.random.default_rng(16)
+    tokens = torch.from_numpy(rng.integers(1, 32000, size=(FUSED_BATCH16, PROMPT_LEN))).cuda()
+    nxt = torch.from_numpy(rng.integers(1, 32000, size=(FUSED_BATCH16, 1))).cuda()
+    matmul = qlin.matmul
+    seen = []   # (x, norm weight, eps) of every fused projection of the sound fused step
+
+    def recorded(x, layer, prenorm=None, **kw):
+        if prenorm is not None:
+            seen.append((x.detach().clone(), prenorm[0], prenorm[1]))
+        return matmul(x, layer, prenorm=prenorm, **kw)
+
+    def planted(fault):   # the fused projections' prologue, unfused in torch, with a fault
+        last = []
+
+        def hooked(x, layer, prenorm=None, **kw):
+            if prenorm is None:
+                return matmul(x, layer, **kw)
+            w, eps, _ = prenorm
+            xf = x.float().reshape(-1, x.shape[-1])
+            r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+            if fault == "neighbour":     # each row takes the next row's rstd
+                used = r.roll(1, 0)
+            else:                        # stale: the rows' rstd of the previous fused call
+                used = last[-1] if last else r
+                last.append(r)
+            return matmul((xf * used * w.float()).to(x.dtype).reshape(x.shape), layer, **kw)
+        return hooked
+
+    logits, launched = {}, {}
+    with torch.inference_mode():
+        for run, fused, hook in (("fused", True, recorded), ("unfused", False, None),
+                                 ("neighbour", True, planted("neighbour")),
+                                 ("stale", True, planted("stale"))):
+            arch.FUSE_NORM = "0"
+            cache = KVCache.create(model.cfg, FUSED_BATCH16, PROMPT_LEN + 1, dtype=model.dtype,
+                                   device="cuda")
+            _, cache = forward(model.params, tokens, model.cfg, cache=cache, dtype=model.dtype)
+            arch.FUSE_NORM = "1" if fused else "0"
+            build.launches.clear()
+            qlin.matmul = hook or matmul
+            try:
+                out, _ = forward(model.params, nxt, model.cfg, cache=cache, dtype=model.dtype)
+            finally:
+                qlin.matmul = matmul
+            logits[run] = out.float()
+            launched[run] = {k: v for k, v in build.launches.items() if k.startswith("w4a16_gemm")}
+            del cache
+
+    def rel(run):
+        return ((logits[run] - logits["unfused"]).norm() / logits["unfused"].norm()).item()
+
+    def held(run):   # what the check below accepts
+        return bool(torch.isfinite(logits[run]).all()) and rel(run) <= FUSED_STEP_REL_TOL
+
+    step_rel, fault_rel, stale_rel = rel("fused"), rel("neighbour"), rel("stale")
+    want = {"w4a16_gemm_gemv_norm": 5 * layers, "w4a16_gemm_gemv": 2 * layers,
+            gemm.RSTD_KERNEL: 5 * layers}
+    check(launched["fused"] == want, f"fused decode step of {FUSED_BATCH16} rows: K1 launches "
+                                     f"{launched['fused']}, want {want}")
+    check(held("fused"),
+          f"fused decode step of {FUSED_BATCH16} rows: logits against the unfused step's, "
+          f"relative error {step_rel:.3e} > {FUSED_STEP_REL_TOL}")
+    for fault, what in (("neighbour", "the neighbouring row's rstd"),
+                        ("stale", "the previous fused call's rstd")):
+        check(not held(fault),
+              f"fused decode step of {FUSED_BATCH16} rows: a planted fault ({what}) moves the "
+              f"logits by only {rel(fault):.3e}, within {FUSED_STEP_REL_TOL}")
+    check(len(seen) == 5 * layers, f"fused decode step: {len(seen)} prologues recorded")
+    rstd_rel = moved = elements = rows_differ = 0
+    for x, w, eps in seen:   # comparison launches, after the counted step
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        r_kernel = gemm.prenorm_rstd(x2, eps)
+        r_torch = torch.rsqrt(x2.float().pow(2).mean(-1) + eps)
+        rstd_rel = max(rstd_rel, ((r_kernel - r_torch).abs() / r_torch).max().item())
+        rows_differ += int((r_kernel != r_torch).sum())
+        xf, wf = x2.float(), w.float()
+        moved += int(((xf * r_kernel[:, None] * wf).to(x.dtype)
+                      != (xf * r_torch[:, None] * wf).to(x.dtype)).sum())
+        elements += x2.numel()
+    check(rstd_rel <= RSTD_REL_TOL, f"fused decode step: the rstd kernel against torch's, "
+                                    f"relative {rstd_rel:.3e} > {RSTD_REL_TOL}")
+    same = float((logits["fused"].argmax(-1) == logits["unfused"].argmax(-1)).float().mean())
+    print(f"fused norm, one decode step of {FUSED_BATCH16} rows (equal {PROMPT_LEN}-token "
+          f"prompts, the same prefill): logits against the unfused step's relative error "
+          f"{step_rel:.3e} (tol {FUSED_STEP_REL_TOL}), {100 * same:.1f}% of the argmax tokens "
+          f"equal; launches {launched['fused']}; planted faults, unfused in torch: each row "
+          f"normalized by its neighbour's rstd, relative error {fault_rel:.3e} (finite "
+          f"{bool(torch.isfinite(logits['neighbour']).all())}: "
+          f"{'held' if held('neighbour') else 'refused'}); by the previous fused call's rstd, "
+          f"{stale_rel:.3e} (finite {bool(torch.isfinite(logits['stale']).all())}: "
+          f"{'held' if held('stale') else 'refused'}); the rstd kernel "
+          f"on the step's {len(seen)} prologue inputs against torch's: {rows_differ} of "
+          f"{len(seen) * FUSED_BATCH16} rows differ, largest relative difference "
+          f"{rstd_rel:.3e}, moving the bf16 rounding of {moved} of {elements} x_n elements "
+          f"({moved / elements:.2e})", flush=True)
+    return dict(rel_err=step_rel, argmax_equal=same, launches=launched["fused"],
+                fault_rel_err=fault_rel, stale_rel_err=stale_rel,
+                rstd_rel_diff=rstd_rel, rstd_rows_differ=rows_differ,
+                xn_rounding_moved=moved, xn_elements=elements)
 
 
 def phase_fused_cut(torch, np, cut_dir: str) -> dict:
@@ -3737,6 +4119,20 @@ def main() -> int:
            if "mma_ms" in v else "")
         + f", plain {v['plain_ms']:.4f} ms, F.rms_norm + torch.matmul {v['library_ms']:.4f} ms, "
         f"bound {v['bound_ms']:.4f} ms" for case, v in prenorm_m.items()), flush=True)
+    gemv_norm = {m: prenorm_m[f"M={m} bf16"] for m in GEMV_NORM_M}
+    for m, v in gemv_norm.items():
+        v["below_library"] = v["ms"] < v["library_ms"]
+        v["within_25pct_of_alone"] = v["ms"] <= (1 + GEMV_NORM_WITHIN) * v["kernel_ms"]
+    print("K1's fused decode GEMV (the rows' rstd from one launch before it), one Llama-2-7B "
+          "layer's q/k/v and gate/up, g128, bf16: "
+          + "; ".join(
+              f"M = {m}: fused {v['ms']:.4f} ms ("
+              + (f"the rstd alone {v['rstd_ms']:.4f} ms; " if "rstd_ms" in v else "") + "the GEMV "
+              f"alone {v['kernel_ms']:.4f} ms, {v['ms'] / v['kernel_ms'] - 1:+.1%}"
+              + (f", within 25%: {'met' if v['within_25pct_of_alone'] else 'NOT MET'}, below "
+                 f"F.rms_norm + torch.matmul ({v['library_ms']:.4f} ms): "
+                 f"{'met' if v['below_library'] else 'NOT MET'}" if m == 16 else "") + ")"
+              for m, v in gemv_norm.items()), flush=True)
     main_prof, fused_prof = main_routes.get("gemv") or {}, fused["profile"] or {}
     beam_prof = beam["profiles"].get("gemv") or {}
     print(f"fused norm against the default, same run: greedy {fused['tok_s']:.2f} tok/s (default "
@@ -3765,7 +4161,17 @@ def main() -> int:
                     "the activation type; max_abs_err over every case of this kernel")
 
     k10_g128 = [r for r in k10_rows if r["bits"] == 4 and r["group_size"] == 128
-                and not r["desc_act"]]
+                and not r["desc_act"] and r.get("layout") != "kb32l"]
+    kb32l_t = {r["M"]: r for r in k10_rows if r.get("layout") == "kb32l"}
+    print("K10 over kb32l words, one Llama-2-7B gate/up call (K 4096, N 11008), 4-bit g128, bf16: "
+          + "; ".join(f"M = {m}: {r['kernel']} {r['ms']:.4f} ms"
+                      + (f", K1's wgmma K10 on the same weights {r['k1_ms']:.4f} ms "
+                         f"({r['ms'] / r['k1_ms']:.3f}x, within 10%: "
+                         f"{'met' if r['within_10pct_of_k1'] else 'NOT MET'})" if "k1_ms" in r
+                         else "")
+                      + (f", the mma.sync K10 {r['mma_ms']:.4f} ms" if "mma_ms" in r else "")
+                      + f", torch.matmul {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+                      for m, r in kb32l_t.items()), flush=True)
     k10_m16 = {m: {key: layer_sum(k10_g128, key, m)
                    for key in ("ms", "mma_ms", "simt_ms", "library_ms", "bound_ms")}
                for m in (10, 16)}
@@ -3878,7 +4284,8 @@ def main() -> int:
                    f"_kernel_kpair_t :1289 above 16 rows); launches from one LoRA training step "
                    f"at full depth; max_abs_err over every wgmma K10 case", m=TRAIN_M,
                    source=WGMMA_SOURCE,
-                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "wgmma"]
+                   errs=[r["max_abs_err"] for r in k10_rows if r["route"] == "wgmma"
+                         and r.get("layout") != "kb32l"]
                    + [r["max_abs_err"] for r in rest_rows if r["kernel"] == "wna16_gemm_t_wgmma"]),
         gemm_entry("w4a16_gemm_wgmma", "autogptq_tpu/ops/pallas/gemm.py:487",
                    train["launches_per_step"], k1_rows,
@@ -3909,8 +4316,8 @@ def main() -> int:
                    f"the mma.sync tile K10, timed beside the wgmma K10 on the same weights: one "
                    f"Llama-2-7B decoder layer's 7 projections at M={TRAIN_M}, 4-bit g128, bf16 "
                    f"cotangents; launches from the 1 x {GRAD_LEN} LoRA backward of the g100 "
-                   f"2-layer cut forced through it (kernel='mma'; K10 over kb32l words keeps it); "
-                   f"max_abs_err over every case it ran", m=TRAIN_M, source=MMA_SOURCE,
+                   f"2-layer cut forced through it (kernel='mma'); max_abs_err over every case "
+                   f"it ran", m=TRAIN_M, source=MMA_SOURCE,
                    ms_key="mma_ms",
                    errs=[r["mma_max_abs_err"] for r in k10_rows if "mma_ms" in r]
                    + [r["mma_max_abs_err"] for r in rest_rows if "mma_ms" in r
@@ -3965,6 +4372,18 @@ def main() -> int:
                    f"(kernel='mma'); max_abs_err over every K6 case it ran", m=TRAIN_M,
                    source=MMA_SOURCE, ms_key="mma_ms",
                    errs=[r["mma_max_abs_err"] for r in k6["rows"] if "mma_max_abs_err" in r]),
+        dict(name=gemm.KB32L_T_WGMMA, route="cuda", source=WGMMA_SOURCE,
+             replaces="autogptq_tpu/ops/pallas/gemm.py:811",
+             launches=kb32l["train"]["counts"].get(gemm.KB32L_T_WGMMA, 0),
+             max_abs_err=max(r["max_abs_err"] for r in kb32l_t.values() if r["route"] == "wgmma"),
+             **{key: kb32l_t[TRAIN_M][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms")},
+             at=f"K10 over kb32l words on the wgmma/TMA K10 (the tiles' 3-D map with K10's box): "
+                f"one Llama-2-7B gate/up call at M={TRAIN_M}, 4-bit g128, bf16 cotangents "
+                f"(replaces _kernel_kb32_t :811 for a kb32l layer's backward above 16 rows; "
+                f"JAX's kb32l backward is XLA); launches from one LoRA step of the {TRAIN_BATCH} "
+                f"x {TRAIN_LEN} batch on the model loaded with layout='kb32l'; max_abs_err over "
+                f"every case it ran"),
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
@@ -4042,21 +4461,26 @@ def main() -> int:
                             if "mma_max_abs_err" in r]),
         dict(name=gemm.RSTD_KERNEL, route="cuda", source=WGMMA_SOURCE,
              replaces="autogptq_tpu/ops/pallas/gemm.py:332",
-             launches=fused["batch_counts"].get(gemm.RSTD_KERNEL, 0),
+             launches=sum(c.get(gemm.RSTD_KERNEL, 0) for c in (
+                 fused["counts"], fused["batch_counts"], fused["batch16_counts"])),
              max_abs_err=max(r["rstd_max_abs_err"] for r in prenorm_rows
                              if "rstd_max_abs_err" in r),
-             ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_ms"],
-             plain_ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_plain_ms"],
-             bound_ms=prenorm_m[PRENORM_TIMED_CASE]["rstd_bound_ms"],
+             ms=prenorm_m["M=16 bf16"]["rstd_ms"],
+             plain_ms=prenorm_m["M=16 bf16"]["rstd_plain_ms"],
+             bound_ms=prenorm_m["M=16 bf16"]["rstd_bound_ms"],
              bound_by=("bytes" if all(r["rstd_bound_by"] == "bytes" for r in prenorm_rows
                                       if "rstd_bound_by" in r) else "operations"),
              library_ms=None,
-             at=f"the rows' rstd of the wgmma prologue (wg_rstd_kernel; the rsqrt(mean(x^2) + "
-                f"eps) of _prenorm_x :332), launched just before each w4a16_gemm_wgmma_norm: "
-                f"one Llama-2-7B layer's q/k/v and gate/up at M=24, bf16 (5 calls); plain: "
+             **{f"ms_{case.split()[0]}": prenorm_m[case]["rstd_ms"] for case in RSTD_TIMED_CASES},
+             at=f"the rows' rstd of the fused prologue (wg_rstd_kernel; the rsqrt(mean(x^2) + "
+                f"eps) of _prenorm_x :332), launched just before each w4a16_gemm_wgmma_norm and, "
+                f"by w4a16_gemm_gemv_norm's entry, each fused GEMV that takes it: one "
+                f"Llama-2-7B layer's q/k/v and gate/up at M=16, bf16 (5 calls; ms_M=1, ms_M=16 "
+                f"and ms_M=24 the same at those rows); plain: "
                 f"torch.rsqrt(x.float().pow(2).mean(-1) + eps) on the card; no single PyTorch "
-                f"call computes it; launches from the bf16 batch-{FUSED_BATCH} greedy run with "
-                f"the switch on; max_abs_err over every wgmma prologue case"),
+                f"call computes it; launches from the {FUSED_NEW_TOKENS}-token fused greedy run, "
+                f"the bf16 batch-{FUSED_BATCH} and batch-{FUSED_BATCH16} greedy runs with the "
+                f"switch on; max_abs_err over every bf16 and f16 prologue case"),
         prenorm_entry("w4a16_gemm_norm", "autogptq_tpu_torch/ops/csrc/wna16_gemm.cuh",
                       fused_cut["launches"]["card"], "M=1 f32",
                       "K1's fused RMS-norm prologue in the SIMT GEMV (f32 activations; the SIMT "
@@ -4079,7 +4503,8 @@ def main() -> int:
                        k9_rest=k9_rest_rows,
                        attention_ptxas=attn_ptxas, attention_full_run=full_run,
                        decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
-                       k6_tile_layer_ms=k6_tile,
+                       k6_tile_layer_ms=k6_tile, kb32l_t_call_ms=kb32l_t,
+                       gemv_norm_layer_ms=gemv_norm,
                        tile_layer_ms={f"{what} M={m}": v for (what, m), v in tile_m.items()},
                        main_path=launches, main_routes=main_routes, gemv_ptxas=gemv_regs,
                        beam=beam, train=train, grads=grads,

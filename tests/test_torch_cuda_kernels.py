@@ -49,12 +49,15 @@ def _key(name, dtype, m, k, gs, n, layout="gptq"):
     a ``[K/P, N]`` layer of ``layout`` (K6's library is kb32l's): its
     tensor-core GEMV's (K1/K4/K5 and K6 forward, ``gemm.route``; K10's decode
     regime, ``gemm.t_route``), its wgmma/TMA or mma.sync tile kernel's (by
-    layout and shape) or its SIMT kernels'."""
+    layout and shape; K10's wgmma one over kb32l words has a key of its own)
+    or its SIMT kernels'."""
     gs = k if gs == -1 else gs
     if name == qlin.gemm.KB32L_KERNEL:
         layout = "kb32l"
-    if name == qlin.gemm.T_KERNEL:   # K10, also over kb32l words (still "mma" there)
+    if name == qlin.gemm.T_KERNEL:   # K10, also over kb32l words
         route = qlin.gemm.t_route(dtype, m, k=k, n=n, layout=layout)
+        if route == "wgmma" and layout == "kb32l":
+            return qlin.gemm.KB32L_T_WGMMA
     elif layout == "kb32l":
         route = qlin.gemm.kb32l_route(dtype, m, gs, k=k, n=n)
     else:
@@ -880,6 +883,7 @@ def test_k10_over_kb32l_matches_plain(card, m, k, n, gs, bits, desc_act, bias):
     assert build.launches["wna16_gemm_t"] == before + 1 and x.grad is not None
 
 
+
 @pytest.mark.parametrize("p", [2, 8])
 def test_routed_gradient_card_matches_cpu(card, p):
     """dx through quantlinear.matmul_routed on the card (K9 forward, K10 per
@@ -1480,3 +1484,76 @@ def test_prenorm_wgmma_matches_plain(card, m, dtype, bits, plus_one, wdt, k, n):
     shifted = torch.empty(k + 1, device=card, dtype=w.dtype)[1:]   # 2 or 4 bytes off
     shifted.copy_(w)
     assert torch.equal(qlin.matmul(x, layer, prenorm=(shifted, 1e-5, plus_one)), y)
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [17, 64, 128, 2048])
+@pytest.mark.parametrize("k, n, gs, bits, desc_act", [s[:5] for s in K6_SHAPES]
+                         + [(4096, 4104, 128, 4, False)])
+def test_kb32l_t_wgmma_matches_plain(card, dtype, m, k, n, gs, bits, desc_act):
+    """K10 over kb32l words on the wgmma/TMA K10 (the words through the 3-D
+    map of the tiles with K10's box, the scales and zeros of the padded width,
+    dx through kperm; K 1312 is not a whole number of 256-row tiles, N 1312
+    not of 128 columns, N 4104 not of 16) against the plain version on
+    ``kb32l_as_gptq``'s words: 1% of the largest output, one
+    launch of ``w4a16_kb32l_gemm_t_wgmma`` and no other K10 kernel, bit-equal
+    on a second call; the mma.sync K10 on the same words
+    (``kernel="mma"``) within 1% of it; a backward through a kb32l layer
+    above 16 rows launches it."""
+    layer = _layer(m + k + n + bits, k, n, gs, desc_act, False, dtype, bits, layout="kb32l")
+    g = torch.randn((m, n), generator=torch.Generator(card).manual_seed(m + n), device=card,
+                    dtype=dtype)
+    key = qlin.gemm.KB32L_T_WGMMA
+    assert qlin.gemm.t_route(dtype, m, k=k, n=n, layout="kb32l") == "wgmma"
+    assert _key("wna16_gemm_t", dtype, m, k, gs, n, layout="kb32l") == key
+    before = dict(build.launches)
+    dx = qlin.matmul_t(g, layer)
+    assert build.launches[key] == before.get(key, 0) + 1
+    for sfx in WGMMA_KEYS:
+        assert build.launches["wna16_gemm_t" + sfx] == before.get("wna16_gemm_t" + sfx, 0), sfx
+    again = qlin.matmul_t(g, layer)
+    mma = qlin.gemm.wna16_matmul_t(g, layer.qweight, layer.scales, layer.zeros, layer.kperm,
+                                   gs, 4, k=k, kernel="mma")
+    ref = qlin.gemm.wna16_matmul_t_ref(g, *qlin.gptq_tensors(layer), layer.kperm, gs, 4)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max()
+    assert dx.shape == (m, k) and dx.dtype == dtype and bool(torch.isfinite(dx).all())
+    assert (dx.float() - ref.float()).abs().max() <= 1e-2 * scale
+    assert (dx.float() - mma.float()).abs().max() <= 1e-2 * scale
+    assert torch.equal(again, dx)
+    x = torch.randn((m, k), device=card, dtype=dtype, requires_grad=True)
+    before = build.launches[key]
+    qlin.matmul(x, layer).float().sum().backward()
+    assert build.launches[key] == before + 1 and x.grad is not None
+
+
+@pytest.mark.parametrize("dtype", MMA_DTYPES)
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+def test_prenorm_gemv_rstd_launch_matches_plain(card, dtype, m):
+    """K1's fused decode GEMV, which takes the rows' rstd from one
+    ``wg_rstd_kernel`` launch its entry makes just before the GEMV (overlapped
+    by programmatic dependent launch), against ``rms_apply`` and the plain
+    matmul: 1% of the largest output, exactly one ``w4a16_gemm_gemv_norm``
+    and one rstd launch per call, no unfused GEMV, bit-equal on a second
+    call; and from an x whose base is not 16-byte aligned (copied for the
+    rstd kernel) the same output."""
+    k, n = 4096, 11008
+    layer = _layer(m + k, k, n, 128, dtype=dtype)
+    gen = torch.Generator(card).manual_seed(m)
+    x = 4.0 * torch.randn((m, k), generator=gen, device=card, dtype=dtype)
+    pn = ((1.0 + 0.1 * torch.randn((k,), generator=gen, device=card)).to(dtype), 1e-5, False)
+    rstd, key = qlin.gemm.RSTD_KERNEL, "w4a16_gemm_gemv_norm"
+    ref = qlin.matmul_plain(qlin.gemm.rms_apply(x, *pn), layer).float()
+    before = dict(build.launches)
+    y = qlin.matmul(x, layer, prenorm=pn)
+    assert build.launches[key] == before.get(key, 0) + 1
+    assert build.launches[rstd] == before.get(rstd, 0) + 1
+    assert build.launches["w4a16_gemm_gemv"] == before.get("w4a16_gemm_gemv", 0)
+    again = qlin.matmul(x, layer, prenorm=pn)
+    shifted = torch.empty(m * k + 1, device=card, dtype=dtype)[1:].view(m, k)
+    shifted.copy_(x)
+    moved = qlin.matmul(shifted, layer, prenorm=pn)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and bool(torch.isfinite(y).all())
+    assert (y.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+    assert torch.equal(again, y) and torch.equal(moved, y)

@@ -8,8 +8,8 @@ the card (``tests/test_torch_cuda_kernels.py``); here, what they are built on:
   sizes 2 to -1, TMA boxes of at most 256 per dimension with whole 16-byte
   inner rows;
 * the static routes: bf16/f16 above 16 rows to ``"wgmma"`` over GPTQ words
-  (the fused RMS-norm prologue's calls too) and over K6's kb32l words; K10
-  over kb32l words and shapes TMA cannot address to the mma.sync kernel,
+  (the fused RMS-norm prologue's calls too) and over K6's kb32l words, K10
+  over kb32l words too; shapes TMA cannot address to the mma.sync kernel,
   ``"mma"``, f32 to ``"simt"``; ``kernel=`` names each;
 * each kernel's arithmetic emulated in plain torch (the weight
   ``s * (q - z)`` in f32 carried as the pair hi = round(w), lo = round(w -
@@ -126,8 +126,8 @@ def test_routes_send_words_above_16_rows_to_wgmma(dtype, m):
     """bf16 and f16 above 16 rows over GPTQ words take the wgmma kernels at
     every group size (desc_act too: the wrapper gathers x; the fused RMS-norm
     prologue's calls route alike), and so does K6's forward over kb32l words
-    (``kb32l_route``); K10 over kb32l
-    words keeps the mma.sync tile kernel; f32 the SIMT kernels; a K or N TMA
+    (``kb32l_route``) and K10 over kb32l words (``t_route``,
+    ``w4a16_kb32l_gemm_t_wgmma``); f32 the SIMT kernels; a K or N TMA
     cannot address goes to the mma.sync kernel by shape."""
     for gs in (16, 32, 128, 100, 12, 6, 4096):
         assert gemm.route(dtype, m, gs, k=4096, n=11008) == "wgmma"
@@ -135,7 +135,7 @@ def test_routes_send_words_above_16_rows_to_wgmma(dtype, m):
         assert gemm.kb32l_route(dtype, m, gs, k=4096, n=4096) == "wgmma"
         assert gemm.route(torch.float32, m, gs, k=4096, n=4096) == "simt"
     assert gemm.t_route(dtype, m, k=11008, n=4096) == "wgmma"
-    assert gemm.t_route(dtype, m, k=4096, n=4096, layout="kb32l") == "mma"
+    assert gemm.t_route(dtype, m, k=4096, n=4096, layout="kb32l") == "wgmma"
     assert gemm.t_route(torch.float32, m, k=4096, n=4096) == "simt"
     # TMA's 16-byte rows: K % 8 for x, N % 8 for g and scales, N % 16 for zeros
     for k, n in ((4100, 4096), (4096, 4104), (4096, 4100), (20, 16)):

@@ -15,7 +15,7 @@ the card (``tests/test_torch_cuda_kernels.py``: ``test_kb32l_wgmma_matches_plain
   227 KB a block may take;
 * the routes: bf16/f16 above 16 rows over kb32l words (``gemm.kb32l_route``:
   any N % 4, the maps being N_pad wide) and with the prologue to
-  ``"wgmma"``, K10 over kb32l words to ``"mma"``, other shapes to ``"mma"``,
+  ``"wgmma"``, K10 over kb32l words too, other shapes to ``"mma"``,
   f32 to ``"simt"``, the GEMVs at 16 rows and fewer;
 * the prologue's rstd (``gemm.prenorm_rstd``, the plain version of
   ``wg_rstd_kernel``) against the JAX package's ``rms_apply``;
@@ -141,15 +141,15 @@ def test_plans_fit_the_block(k, n, m):
 def test_routes(dtype, m):
     """kb32l words above 16 rows take the wgmma kernel wherever K % 8 and N %
     4 hold (its maps are N_pad wide: N = 1312 and 4104 too), the mma.sync
-    kernel for other N; K10 over them stays on "mma"; the prologue's calls
-    route as the unfused product does."""
+    kernel for other N; K10 over them takes the wgmma K10 (N % 8); the
+    prologue's calls route as the unfused product does."""
     for gs in (32, 64, 128, 256):
         for n in (1312, 4104, 4100):
             assert gemm.kb32l_route(dtype, m, gs, k=4096, n=n) == "wgmma"
             assert gemm.kb32l_route(dtype, 16, gs, k=4096, n=n) == "gemv"
             assert gemm.kb32l_route(torch.float32, m, gs, k=4096, n=n) == "simt"
         assert gemm.kb32l_route(dtype, m, gs, k=4096, n=4102) == "mma"   # N % 4
-        assert gemm.t_route(dtype, m, k=4096, n=1312, layout="kb32l") == "mma"
+        assert gemm.t_route(dtype, m, k=4096, n=1312, layout="kb32l") == "wgmma"
         assert gemm.t_route(dtype, m, k=4096, n=1312) == "wgmma"
         if m < gemm.PRENORM_MAX_M:
             assert gemm.prenorm_eligible(m, 4096, gs, 4)
