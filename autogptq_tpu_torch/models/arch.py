@@ -11,7 +11,10 @@ in place (the port mutates where JAX returns a new array). Decode steps
 (``t == 1`` with a cache) attend through K2 (``ops/flash_decode.py``) over the
 slots ``[lo, hi)`` of the layer; prefill attention is plain tensor code that
 mirrors the JAX einsum path, and so is every step of a block that holds an
-adaption prompt (``attn.adaption``, ``utils/peft.py``). Adapter nodes in
+adaption prompt (``attn.adaption``, ``utils/peft.py``). After
+:meth:`KVCache.start_decode` a decode step keeps its write cursor and K2's
+bounds on the card, so that it reads no host value and a CUDA graph of it
+(``utils/generation.py``) can be replayed. Adapter nodes in
 place of a linear (LoRA, AdaLoRA) are dispatched by :func:`apply_linear`. The
 cache-less forward runs under autograd: training calls :func:`forward` and
 ``loss.backward()``. What the llama path does not need is refused:
@@ -136,11 +139,22 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
 @dataclass
 class KVCache:
     """Stacked KV cache, updated in place; ``length`` is the write cursor
-    shared by every row (left padding keeps the rows aligned)."""
+    shared by every row (left padding keeps the rows aligned).
+
+    :meth:`start_decode` moves the cursor to the card for the decode steps:
+    ``cursor`` (int64 ``[1]``) then stands for ``length``, which such steps
+    neither read nor advance; K2's bounds persist beside it, ``lo`` fixed for
+    the call and ``hi`` written by each step. A one-token :func:`forward`
+    then reads no host value and advances ``cursor`` in place, so a CUDA
+    graph of the step advances it on every replay. Prefill, calibration and
+    training use ``length``."""
 
     k: torch.Tensor       # [L, B, S, Hkv, D]
     v: torch.Tensor
     length: int = 0
+    cursor: Optional[torch.Tensor] = None   # int64 [1]: the decode steps' write slot
+    lo: Optional[torch.Tensor] = None       # int32 [B]: each row's first valid slot
+    hi: Optional[torch.Tensor] = None       # int32 [B]: cursor + 1, K2's end of the window
 
     @classmethod
     def create(cls, cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -151,6 +165,17 @@ class KVCache:
         kshape, vshape = cache_shapes(cfg, batch, max_len)
         return cls(k=torch.zeros(kshape, dtype=dtype, device=device),
                    v=torch.zeros(vshape, dtype=dtype, device=device))
+
+    def start_decode(self, attn_mask: torch.Tensor) -> None:
+        """Put the cursor on the card at ``length``, and K2's ``lo`` from
+        ``attn_mask [B, S]``: the first valid slot of each row's run, the
+        cursor's slot for a row with none."""
+        b, dev = self.k.shape[1], self.k.device
+        self.cursor = torch.full((1,), self.length, dtype=torch.int64, device=dev)
+        valid = attn_mask[:, :self.length].bool()
+        self.lo = torch.where(valid.any(dim=1), valid.to(torch.int32).argmax(dim=1),
+                              self.length).to(torch.int32)
+        self.hi = torch.empty(b, dtype=torch.int32, device=dev)
 
 
 def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache],
@@ -175,6 +200,16 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     q, k = apply_rope(q, k, positions, cfg)
     scale = d ** -0.5
 
+    if cache is not None and cache.cursor is not None and t == 1:
+        # a decode step at the device cursor (KVCache.start_decode): one copy per tensor
+        if "adaption" in bp:
+            raise ValueError("an adaption-prompt block attends up to the host cursor: decode it "
+                             "without KVCache.start_decode")
+        cache.k[layer_idx].index_copy_(1, cache.cursor, k.to(cache.k.dtype))
+        cache.v[layer_idx].index_copy_(1, cache.cursor, v.to(cache.v.dtype))
+        of = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, *decode_bounds,
+                          layer=layer_idx, sm_scale=scale)
+        return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
     if cache is not None:
         start = cache.length
         if start + t > cache.k.shape[2]:
@@ -285,7 +320,7 @@ def moe_mlp(bp: dict, x: torch.Tensor, cfg: ArchConfig,
         st = bp["experts_stacked"]
         if capture is None and b * t * k <= e and _routed_ok(st):
             sel_flat = sel.reshape(-1).to(torch.int32)
-            xt = x.reshape(b * t, hdim).repeat_interleave(k, dim=0)
+            xt = x.reshape(b * t, 1, hdim).expand(b * t, k, hdim).reshape(b * t * k, hdim)
             gate = qlin.matmul_routed(xt, st["gate_proj"], sel_flat, check=False)
             up = qlin.matmul_routed(xt, st["up_proj"], sel_flat, check=False)
             y = qlin.matmul_routed(F.silu(gate) * up, st["down_proj"], sel_flat, check=False)
@@ -366,15 +401,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     cursor advances by T. ``attn_mask`` [B, S] marks valid key slots (0 for
     left padding). A decode step (T == 1 with a cache) attends through K2 and
     needs each row's valid slots to be one contiguous run, which
-    ``mask_contig=True`` promises (generation builds its masks that way).
-    ``logits_last_only`` unembeds only the last position, the newest token of
-    every row under left padding."""
+    ``mask_contig=True`` promises (generation builds its masks that way);
+    after :meth:`KVCache.start_decode` it writes at ``cache.cursor`` on the
+    card, takes K2's window from ``cache.lo`` and ``cache.hi`` (written here
+    as ``cursor + 1``) and advances ``cursor`` in place, reading nothing on
+    the host. ``logits_last_only`` unembeds only the last position, the
+    newest token of every row under left padding."""
     b, t = tokens.shape
     dtype = dtype or params["embed_tokens"].dtype
-    start = cache.length if cache is not None else 0
+    device_step = cache is not None and cache.cursor is not None and t == 1
+    start = cache.length if cache is not None and not device_step else 0
     if positions is None:
         if attn_mask is not None and cache is None:
             positions = (torch.cumsum(attn_mask, dim=-1) - 1).clamp_min(0)
+        elif device_step:
+            positions = cache.cursor.view(1, 1).expand(b, t)
         else:
             positions = (torch.arange(t, device=tokens.device) + start)[None].expand(b, t)
 
@@ -383,18 +424,24 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         if attn_mask is not None and not mask_contig:
             raise ValueError("a decode step needs a contiguous left-pad attn_mask "
                              "(mask_contig=True)")
-        if attn_mask is None:
-            lo = torch.zeros(b, dtype=torch.int32, device=tokens.device)
-        else:   # first valid slot of each row's contiguous run
-            lo = attn_mask.to(torch.int32).argmax(dim=1).to(torch.int32)
-        hi = torch.full((b,), start + 1, dtype=torch.int32, device=tokens.device)
-        decode_bounds = (lo, hi)
+        if device_step:
+            cache.hi.copy_(cache.cursor + 1)
+            decode_bounds = (cache.lo, cache.hi)
+        else:
+            if attn_mask is None:
+                lo = torch.zeros(b, dtype=torch.int32, device=tokens.device)
+            else:   # first valid slot of each row's contiguous run
+                lo = attn_mask.to(torch.int32).argmax(dim=1).to(torch.int32)
+            hi = torch.full((b,), start + 1, dtype=torch.int32, device=tokens.device)
+            decode_bounds = (lo, hi)
 
     x = embed(params, tokens, dtype)
     for i, bp in enumerate(params["layers"]):
         x = block_forward(bp, x, i, cache, positions, cfg, attn_mask, decode_bounds)
     logits = unembed(params, x[:, -1:] if logits_last_only else x, cfg)
-    if cache is not None:
+    if device_step:
+        cache.cursor.add_(1)
+    elif cache is not None:
         cache.length = start + t
     return logits, cache
 

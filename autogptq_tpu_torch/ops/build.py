@@ -9,8 +9,12 @@ stream and return ``cudaGetLastError()``; the Python wrappers raise when the
 code is not 0. Nothing is compiled when this module is imported, and a build
 or launch failure raises: there is no fallback to the plain versions.
 
-``launches`` counts, per kernel, the wrapper calls that launched it (keyed by
-the wrapper's kernel name, not the library's).
+``launches`` counts, per kernel, the launches that ran (keyed by the
+wrapper's kernel name, not the library's): each wrapper adds one where it
+launches its kernel, and :class:`StepGraph` adds a captured step's launches
+on every replay of its CUDA graph, which repeats no Python call. ``replayed``
+holds the share of ``launches`` that came from replays, ``graphs`` the
+captures, the replays and their host seconds.
 
 A kernel that refuses bad ids on the card (K8a/K8b's page ids, K9's expert
 ids) writes nothing for them and ORs a bit into an int32 flag on the device
@@ -45,6 +49,8 @@ KERNELS = ("w4a16_gemm", "w8a16_gemm", "w2a16_gemm", "wna16_gemm_t", "w4a16_rout
            "w4a16_kb32l_gemm", "flash_decode", "paged_attn", "page_ops")
 
 launches: collections.Counter = collections.Counter()
+replayed: collections.Counter = collections.Counter()  # of launches: run by graph replays
+graphs: collections.Counter = collections.Counter()    # captures, replays, warmup_s, capture_s
 _flags: dict = {}       # (library, device) -> int32 [1] error flag on the card
 _scratch: dict = {}     # (library, device) -> (f32 partials, int32 ticket counters)
 
@@ -130,8 +136,20 @@ def error_flag(name: str, device):
     key = (name, _cuda_key(device))
     flag = _flags.get(key)
     if flag is None:
+        _refuse_under_capture(f"{name}'s error flag")
         flag = _flags[key] = torch.zeros(1, dtype=torch.int32, device=key[1])
     return flag
+
+
+def _refuse_under_capture(what: str) -> None:
+    """A persistent buffer made while a CUDA graph is being captured would
+    come from the graph's private pool and be zeroed only on a replay: the
+    warm-up step of :class:`StepGraph` makes them all, so this raises."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would be allocated while a CUDA graph is being captured; "
+                           "run the step eagerly once first")
 
 
 def split_scratch(name: str, device, floats: int, rows: int):
@@ -143,6 +161,8 @@ def split_scratch(name: str, device, floats: int, rows: int):
 
     key = (name, _cuda_key(device))
     ws, counters = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < floats or counters.numel() < rows:
+        _refuse_under_capture(f"{name}'s split workspace")
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 2 * (0 if ws is None else ws.numel())),
                          dtype=torch.float32, device=key[1])
@@ -167,6 +187,96 @@ def take_error_bits(name: str, device) -> int:
     return bits
 
 
+class _CudaGraph:
+    """A ``torch.cuda.CUDAGraph`` behind the three calls :class:`StepGraph`
+    makes of it."""
+
+    def __init__(self, device):
+        import torch
+
+        self.device = _cuda_key(device)
+        self.graph = torch.cuda.CUDAGraph()
+
+    def warm_up(self, fn):
+        """``fn()`` eagerly on a side stream that waits for the current one
+        and that the current one then waits for."""
+        import torch
+
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = fn()
+        here.wait_stream(side)
+        return out
+
+    def capture(self, fn):
+        """``fn()`` captured, not run; returns its output, which every replay
+        overwrites. Any operation that the capture cannot record (a host
+        read, a synchronisation) raises."""
+        import torch
+
+        with torch.cuda.graph(self.graph):
+            return fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class StepGraph:
+    """A decode step run through one CUDA graph: the first call runs ``fn``
+    eagerly on a side stream (the warm-up, which makes every persistent
+    buffer the kernels use and sets their attributes), the second captures
+    ``fn`` once and replays the graph, every later call replays it. ``fn``
+    takes no arguments, reads only tensors allocated before the capture and
+    updates them in place; its output is a tensor that each replay
+    overwrites. A failed capture raises: nothing falls back to eager calls.
+
+    Launch accounting: the wrappers count their launches while ``fn`` is
+    captured, though nothing runs then, so the capture's increase of
+    :data:`launches` is taken back and added on every replay (and to
+    :data:`replayed`). The graph holds the workspaces and error flags it
+    writes, so that none is freed while it lives. ``graph`` stands in for
+    the CUDA graph (``warm_up(fn)``, ``capture(fn)``, ``replay()``); the
+    tests pass a stub on the CPU."""
+
+    def __init__(self, fn, device=None, graph=None):
+        self.fn = fn
+        self.graph = _CudaGraph(device) if graph is None else graph
+        self.calls = 0
+        self.out = None
+        self.delta: collections.Counter = collections.Counter()
+        self._held = ()
+
+    def __call__(self):
+        self.calls += 1
+        if self.calls == 1:
+            t0 = time.perf_counter()
+            out = self.graph.warm_up(self.fn)
+            graphs["warmup_s"] += time.perf_counter() - t0
+            return out
+        if self.calls == 2:
+            self._capture()
+        self.graph.replay()
+        launches.update(self.delta)
+        replayed.update(self.delta)
+        graphs["replays"] += 1
+        return self.out
+
+    def _capture(self) -> None:
+        before = dict(launches)
+        t0 = time.perf_counter()
+        try:
+            self.out = self.graph.capture(self.fn)
+        finally:
+            self.delta = launches - collections.Counter(before)
+            launches.clear()
+            launches.update(before)
+        self._held = (tuple(_scratch.values()), tuple(_flags.values()))
+        graphs["captures"] += 1
+        graphs["capture_s"] += time.perf_counter() - t0
+
+
 def check(name: str, code: int) -> None:
     """Raise if a C entry point of kernel ``name`` returned a CUDA error."""
     if code != 0:
@@ -174,5 +284,5 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {code}: {msg}")
 
 
-__all__ = ["BUILD_DIR", "KERNELS", "build", "check", "error_flag", "launches", "library_path",
-           "load", "split_scratch", "take_error_bits"]
+__all__ = ["BUILD_DIR", "KERNELS", "StepGraph", "build", "check", "error_flag", "graphs",
+           "launches", "library_path", "load", "replayed", "split_scratch", "take_error_bits"]

@@ -3,8 +3,8 @@ preallocated KV cache, and beam search over a paged KV cache.
 
 Counterpart of the JAX package's ``utils/generation.py`` (``_prep_inputs``,
 ``_generate_greedy``, ``_generate_beam``, ``_generate_beam_paged``,
-``generate``). Decode loops are Python loops of eager steps; every token
-stays on the device until the loop ends. The JAX package's growing attention
+``generate``). Decode loops are Python loops of steps; every token stays on
+the device until the loop ends. The JAX package's growing attention
 windows (``_window_phases``, ``_page_phases``) have no counterpart: K2 reads
 only the live slots ``[lo, hi)`` of each row and K7 only each row's live
 pages, so ``phased`` is accepted and ignored.
@@ -13,11 +13,30 @@ Beam search follows HF ``BeamSearchScorer`` as the JAX package does. Its
 top-k selections go through ``arch.top_k``, a stable sort, so that equal
 scores (the done pool holds many ``NEG_INF``) resolve to the lower index as
 ``jax.lax.top_k`` does; ``torch.topk`` promises no order for ties.
+
+:data:`JIT_GENERATE` (``AUTOGPTQ_TPU_JIT_GENERATE``, default on, as in the
+JAX package, where it jits each ``generate``) is the counterpart of that
+whole-program jit: a greedy or paged-beam ``generate`` on the card runs its
+decode step (:class:`GreedyStep`, :class:`PagedBeamStep`: the forward of one
+token from the embedding to the f32 logits, with the write cursor, positions,
+validity, K2's bounds and the page tables in buffers that persist for the
+call and are updated in place) eagerly once, captures it into one CUDA graph
+and replays that for every later step (``build.StepGraph``). Sampling, the
+EOS bookkeeping and the beams' choices (``_Beams.advance``, which bakes the
+step into Python floats, and ``_paged_reorder`` with its K8b launch) stay
+eager between replays. A graph lives for one call: ``build.split_scratch``
+grows its workspaces by replacing them. With the switch off, and on the CPU,
+the same step objects run eagerly, one dispatch per operation. Not captured,
+and eager whatever the switch: the prefill, training, the contiguous beam
+path (``_generate_beam``, taken by adaption-prompt models) and the greedy
+decode of an adaption-prompt model, whose dense attention reads the host
+cursor.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -26,6 +45,7 @@ import torch
 
 from ..models import arch
 from ..models.arch import KVCache
+from ..ops import build
 from ..ops.gemm import check_routed_errors
 from ..ops.paged_attn import (check_page_errors, copy_pages_pair, paged_attention_mh,
                                write_token_pages_kernel)
@@ -33,6 +53,10 @@ from ..ops.paged_attn import (check_page_errors, copy_pages_pair, paged_attentio
 NEG_INF = -1e30
 PAGE_SIZE = 16
 _top_k = arch.top_k
+
+# Decode steps on the card through one CUDA graph per generate call (the JAX package's switch,
+# utils/generation.py:31). Read at every call.
+JIT_GENERATE = os.environ.get("AUTOGPTQ_TPU_JIT_GENERATE", "1") != "0"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -68,13 +92,58 @@ def _sample(logits: torch.Tensor, step: int, temperature: float, min_new_tokens:
     return logits.argmax(dim=-1).to(torch.int32)
 
 
+def _stepper(step, device, capturable: bool = True):
+    """``step`` as the decode loop calls it: through a CUDA graph
+    (``build.StepGraph``) on the card with :data:`JIT_GENERATE` on, else
+    itself, eagerly."""
+    if JIT_GENERATE and capturable and device.type == "cuda":
+        return build.StepGraph(step, device)
+    return step
+
+
+def _has_adaption(params: dict) -> bool:
+    return any("adaption" in b.get("attn", {}) for b in params["layers"])
+
+
+class GreedyStep:
+    """One greedy decode step over buffers that persist for the call: the
+    token ``tok [B, 1]``, which the loop fills before each call, the
+    positions ``pos [B, 1]``, the cache (moved to the device cursor by
+    :meth:`KVCache.start_decode` unless the model has an adaption prompt)
+    and ``validity [B, S]``. A call marks the cursor's slot valid, runs
+    :func:`arch.forward` of the token and advances the positions, all in
+    place; it returns the logits ``[B, V]`` f32."""
+
+    def __init__(self, params: dict, cfg, cache: KVCache, validity: torch.Tensor,
+                 pos: torch.Tensor, dtype: torch.dtype):
+        self.params, self.cfg, self.cache, self.validity, self.dtype = (params, cfg, cache,
+                                                                       validity, dtype)
+        self.pos = pos.clone()
+        self.tok = torch.zeros(pos.shape, dtype=torch.int32, device=pos.device)
+        self.device_cursor = not _has_adaption(params)
+        if self.device_cursor:
+            cache.start_decode(validity)
+
+    def __call__(self) -> torch.Tensor:
+        if self.device_cursor:
+            self.validity.index_fill_(1, self.cache.cursor, 1)
+        else:
+            self.validity[:, self.cache.length] = 1
+        logits, _ = arch.forward(self.params, self.tok, self.cfg, cache=self.cache,
+                                 positions=self.pos, attn_mask=self.validity, dtype=self.dtype,
+                                 mask_contig=True)
+        self.pos.add_(1)
+        return logits[:, -1]
+
+
 @torch.inference_mode()
 def _generate_greedy(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
                      max_new_tokens: int, min_new_tokens: int, eos_token_id: Optional[int],
                      temperature: float, dtype: torch.dtype,
                      generator: Optional[torch.Generator], pad_token_id: int = 0) -> torch.Tensor:
-    """Prefill the prompt, then decode one token per step; returns the new
-    tokens ``[B, max_new_tokens]`` int32."""
+    """Prefill the prompt, then decode one token per step (:class:`GreedyStep`,
+    through a CUDA graph on the card with :data:`JIT_GENERATE` on); returns
+    the new tokens ``[B, max_new_tokens]`` int32."""
     b, t = tokens.shape
     dev = tokens.device
     total = t + max_new_tokens
@@ -86,24 +155,21 @@ def _generate_greedy(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg
     logits, cache = arch.forward(params, tokens, cfg, cache=cache, positions=positions,
                                  attn_mask=validity, dtype=dtype, logits_last_only=True)
     tok = _sample(logits[:, -1], 0, temperature, min_new_tokens, eos_token_id, generator)
-    pos = positions[:, -1] + 1
     out = torch.empty((b, max_new_tokens), dtype=torch.int32, device=dev)
     out[:, 0] = tok
     finished = (tok == eos_token_id) if eos_token_id is not None else None
 
-    for step in range(1, max_new_tokens):
-        validity[:, cache.length] = 1
-        logits, cache = arch.forward(params, tok[:, None], cfg, cache=cache,
-                                     positions=pos[:, None], attn_mask=validity, dtype=dtype,
-                                     mask_contig=True)
-        raw = _sample(logits[:, -1], step, temperature, min_new_tokens, eos_token_id, generator)
+    step = GreedyStep(params, cfg, cache, validity, positions[:, -1:] + 1, dtype)
+    run = _stepper(step, dev, step.device_cursor)
+    for i in range(1, max_new_tokens):
+        step.tok.copy_(tok[:, None])
+        raw = _sample(run(), i, temperature, min_new_tokens, eos_token_id, generator)
         tok = raw
         if finished is not None:
             # HF protocol: the EOS token is kept, later positions get pad_token_id
             tok = torch.where(finished, torch.full_like(raw, pad_token_id), raw)
             finished = finished | (raw == eos_token_id)
-        out[:, step] = tok
-        pos = pos + 1
+        out[:, i] = tok
     return out
 
 
@@ -477,11 +543,31 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
     return arch.unembed(params, x, cfg)[:, -1]
 
 
+class PagedBeamStep:
+    """One paged beam decode step over buffers that persist for the call:
+    the beams' tokens ``cur_tok [B * k]``, which the loop fills before each
+    call, the incoming token's slot ``pos [B * k]`` and the cache, whose
+    ``tables`` :func:`_paged_reorder` updates in place. A call runs
+    :func:`paged_decode_step` and advances ``pos``; it returns the logits
+    ``[B * k, V]`` f32."""
+
+    def __init__(self, params: dict, cfg, cache: PagedBeamCache, dtype: torch.dtype):
+        self.params, self.cfg, self.cache, self.dtype = params, cfg, cache, dtype
+        self.pos = cache.plen.clone()
+        self.cur_tok = torch.zeros_like(self.pos)
+
+    def __call__(self) -> torch.Tensor:
+        logits = paged_decode_step(self.params, self.cfg, self.cache, self.cur_tok, self.pos,
+                                   self.dtype)
+        self.pos.add_(1)
+        return logits
+
+
 def _paged_reorder(cache: PagedBeamCache, parent: torch.Tensor, next_pos: torch.Tensor) -> None:
     """Reorder without moving the history: each beam takes its parent's page
     table, copies the parent's page that the next token lands in into its
     own page (copy-on-share; one page per beam), and owns every ordinal from
-    there on."""
+    there on. ``cache.tables`` is written in place."""
     tables = cache.tables[parent]
     nc = next_pos // cache.page_size                    # next write ordinal [B * k]
     rows = torch.arange(tables.shape[0], device=tables.device)
@@ -490,7 +576,7 @@ def _paged_reorder(cache: PagedBeamCache, parent: torch.Tensor, next_pos: torch.
     cache.copy_pages(psrc.to(torch.int32), pdst.to(torch.int32))
     ar = torch.arange(tables.shape[1], device=tables.device)[None, :]
     own_from = (ar >= nc[:, None]) & cache.own_ok
-    cache.tables = torch.where(own_from, cache.own, tables).to(torch.int32).contiguous()
+    cache.tables.copy_(torch.where(own_from, cache.own, tables))   # in place: K7 reads its address
 
 
 @torch.inference_mode()
@@ -505,17 +591,20 @@ def _generate_beam_paged(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
     page per beam instead of the whole cache. Completed pages are never
     written again and are shared by sibling beams. Attention is K7, token
     writes K8a, page copies K8b; their page ids are checked once, at the
-    end. Returns ``[B, num_return_sequences, max_new_tokens]``."""
+    end. The decode step is :class:`PagedBeamStep`, through a CUDA graph on
+    the card with :data:`JIT_GENERATE` on. Returns ``[B,
+    num_return_sequences, max_new_tokens]``."""
     logits_b, cache = beam_paged_prefill(params, tokens, mask, cfg, num_beams, max_new_tokens,
                                          dtype, kv_quant)
     beams = _Beams(num_beams, eos_token_id, float(length_penalty), early_stopping,
                    max_new_tokens, min_new_tokens)
     beams.start(logits_b)
-    for step in range(1, max_new_tokens):
-        pos = cache.plen + (step - 1)       # slot of the incoming token, per beam
-        logits = paged_decode_step(params, cfg, cache, beams.cur_tok, pos, dtype)
-        parent = beams.advance(logits, step)
-        _paged_reorder(cache, parent, pos + 1)
+    step = PagedBeamStep(params, cfg, cache, dtype)
+    run = _stepper(step, cache.k_pool.device)
+    for i in range(1, max_new_tokens):
+        step.cur_tok.copy_(beams.cur_tok)
+        parent = beams.advance(run(), i)
+        _paged_reorder(cache, parent, step.pos)     # the step advanced pos to the next slot
     check_page_errors(cache.k_pool.device)
     return beams.finish(num_return_sequences)
 
@@ -559,8 +648,7 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     if num_beams > 1:
         # the paged decode step has no adaption-prompt branch: such models
         # take the contiguous cache, as in the JAX package
-        adaption = any("adaption" in b.get("attn", {}) for b in model.params["layers"])
-        beam = _generate_beam if adaption else _generate_beam_paged
+        beam = _generate_beam if _has_adaption(model.params) else _generate_beam_paged
         new = beam(
             model.params, tokens, mask_t, model.cfg, max_new_tokens, min_new_tokens,
             eos_token_id, num_beams, model.dtype, kv_quant=kv_quant,
@@ -593,4 +681,5 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     return np.concatenate([ids, new], axis=1)
 
 
-__all__ = ["PagedBeamCache", "beam_paged_prefill", "generate", "paged_decode_step"]
+__all__ = ["GreedyStep", "JIT_GENERATE", "PagedBeamCache", "PagedBeamStep", "beam_paged_prefill",
+           "generate", "paged_decode_step"]

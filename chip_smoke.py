@@ -229,6 +229,17 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    prints one JSON line of kernel measurements, the card's line, and last
    ``{"ok": true, "device": {...}}``.
 
+Every ``generate`` of a greedy or paged-beam path runs its decode steps from
+one CUDA graph per call (``AUTOGPTQ_TPU_JIT_GENERATE``, default on): the
+launch counts include the kernels each replay ran (``build.replayed`` says how
+many), so every exact count above holds as in the per-op loop, and a kernel
+entry's ``replayed`` gives the share of its ``launches`` that replays ran. The
+profiles by kernel family run the per-op loop (``JIT_GENERATE`` off). The main
+path, beam 4, Mixtral and the fused-norm greedy run each add a turn of the
+per-op loop (64 tokens) beside their graph run, with the same tokens, and a
+profiled replay window: rate, host ms per token, capture and warm-up seconds,
+replayed launches and the device's busy share of each.
+
 Any failed check raises, so the script exits non-zero and prints no result
 line. Times are medians of CUDA-event times of warmed calls with the 50 MB
 L2 cache flushed before each call.
@@ -236,6 +247,7 @@ L2 cache flushed before each call.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -298,6 +310,7 @@ NEW_TOKENS = 512
 KB32L_NEW_TOKENS = 256        # the kb32l path's and the fused norm's recorded greedy runs (512
 FUSED_NEW_TOKENS = 256        # tokens), held to the main path's first tokens
 PROFILE_TOKENS = 33
+GRAPH_EAGER_TOKENS = 64       # the per-op loop's turn beside each CUDA graph run
 PROMPT_LEN = 16
 # K9 against its plain version: f32 to F32_ABS_TOL, bf16 to 1% of the largest output
 # (one rounding on both sides). Mixtral card against CPU, both f32 (a bf16 router can rank
@@ -368,6 +381,50 @@ WGMMA_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_wgmma.cuh"  # the wgmma/TMA ti
 GEMV_SOURCE = "autogptq_tpu_torch/ops/csrc/wna16_gemv.cuh"  # the tensor-core decode GEMV
 ROUTE_SUFFIX = {"gemv": "_gemv", "wgmma": "_wgmma", "mma": "_mma",
                 "simt": ""}  # launch-count key by gemm.route
+
+
+class Counts(dict):
+    """A snapshot of ``build.launches`` (every launch that ran, a CUDA graph's
+    replays included) with the share of them that graph replays ran
+    (``replayed``) and the captures, replays and their host seconds
+    (``graphs``)."""
+
+    replayed: dict = {}
+    graphs: dict = {}
+
+
+def clear_counts(build) -> None:
+    """Set the launch, replay and graph counts to 0."""
+    build.launches.clear()
+    build.replayed.clear()
+    build.graphs.clear()
+
+
+def snapshot(build) -> Counts:
+    counts = Counts(build.launches)
+    counts.replayed, counts.graphs = dict(build.replayed), dict(build.graphs)
+    return counts
+
+
+@contextlib.contextmanager
+def jit_generate(on: bool):
+    """``generation.JIT_GENERATE`` set to ``on`` inside, put back after."""
+    from autogptq_tpu_torch.utils import generation
+
+    old, generation.JIT_GENERATE = generation.JIT_GENERATE, on
+    try:
+        yield
+    finally:
+        generation.JIT_GENERATE = old
+
+
+def python_steps(steps: int) -> int:
+    """How many of a generate's ``steps`` one-token decode steps run their
+    Python: all of them eagerly, two with the CUDA graph (the warm-up and the
+    capture; the replays run none)."""
+    from autogptq_tpu_torch.utils import generation
+
+    return min(steps, 2) if generation.JIT_GENERATE else steps
 
 
 class SmokeFailure(RuntimeError):
@@ -485,11 +542,11 @@ def phase_k1(torch, np, timer) -> list:
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
         route = gemm.route(x.dtype, m, 128, k=k, n=n)
         key = "w4a16_gemm" + ROUTE_SUFFIX[route]
-        before = dict(build.launches)
+        before = snapshot(build)
         y = qlin.matmul(x, layer)
         check(all(build.launches[c] == before.get(c, 0) + (c == key)
                   for c in ("w4a16_gemm" + sfx for sfx in ROUTE_SUFFIX.values())),
-              f"K1 {name} M={m}: launched {dict(build.launches)}, want one {key}")
+              f"K1 {name} M={m}: launched {snapshot(build)}, want one {key}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
@@ -598,7 +655,7 @@ def phase_prenorm(torch, np, timer) -> list:
             route = gemm.route(dtype, m, 128, k=k, n=n)
             key = NORM_KEY[route]
             check(gemm.prenorm_eligible(m, k, 128, bits), f"prenorm {case} {proj}: not eligible")
-            before = dict(build.launches)
+            before = snapshot(build)
             y = qlin.matmul(x, layer, prenorm=pn)
             launched = {kk: v - before.get(kk, 0) for kk, v in build.launches.items()
                         if v != before.get(kk, 0)}
@@ -800,7 +857,7 @@ def phase_k6(torch, np, timer) -> dict:
         layer = qlin.from_packed(packed, device="cuda", dtype=dtype, layout="kb32l")
         gptq = qlin.from_packed(packed, device="cuda", dtype=dtype)
         x = torch.randn((m, k), generator=gen, device="cuda", dtype=dtype)
-        before = dict(build.launches)
+        before = snapshot(build)
         y = qlin.matmul(x, layer)
         route = gemm.kb32l_route(dtype, m, 128, k=k, n=n)
         keys = [gemm.KB32L_KERNEL + suffix for suffix in ROUTE_SUFFIX.values()]
@@ -808,7 +865,7 @@ def phase_k6(torch, np, timer) -> dict:
         check(all(build.launches[k6] == before.get(k6, 0) + (k6 == key) for k6 in keys)
               and all(build.launches["w4a16_gemm" + sfx] == before.get("w4a16_gemm" + sfx, 0)
                       for sfx in ROUTE_SUFFIX.values()),
-              f"K6 {name} M={m}: launched {dict(build.launches)}")
+              f"K6 {name} M={m}: launched {snapshot(build)}")
         ref = qlin.matmul_plain(x, layer)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
@@ -936,11 +993,11 @@ def phase_wna16(torch, np, timer) -> list:
             x = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             route = gemm.route(x.dtype, m, k if gs == -1 else gs)
             key = kernel + ROUTE_SUFFIX[route]
-            before = dict(build.launches)
+            before = snapshot(build)
             y = qlin.matmul(x, layer)
             check(build.launches[key] == before.get(key, 0) + 1
                   and (key == kernel or build.launches[kernel] == before.get(kernel, 0)),
-                  f"{case} M={m}: launched {dict(build.launches)}, want one {key}")
+                  f"{case} M={m}: launched {snapshot(build)}, want one {key}")
             ref = qlin.matmul_plain(x, layer)
             y32 = qlin.matmul(x.float(), layer)
             ref32 = qlin.matmul_plain(x.float(), layer)
@@ -1069,15 +1126,15 @@ def phase_rest(torch, np, timer) -> list:
             keys = [base + suffix for suffix in ROUTE_SUFFIX.values()]
             want = "wgmma" if m > 16 else "gemv" if what == "K10" or gs >= 16 else "simt"
             check(route == want, f"rest class {case} {what} M={m}: bf16 routes to {key}")
-            before = dict(build.launches)
+            before = snapshot(build)
             y = run(x)
             check(all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
-                  f"rest class {case} {what} M={m}: launched {dict(build.launches)}, want one {key}")
+                  f"rest class {case} {what} M={m}: launched {snapshot(build)}, want one {key}")
             ref = plain(x)
-            before = dict(build.launches)
+            before = snapshot(build)
             y32, ref32 = run(x.float()), plain(x.float())
             check(all(build.launches[c] == before.get(c, 0) + (c == base) for c in keys),
-                  f"rest class {case} {what} M={m} f32: launched {dict(build.launches)}, want "
+                  f"rest class {case} {what} M={m} f32: launched {snapshot(build)}, want "
                   f"one {base}")
             torch.cuda.synchronize()
             err = (y.float() - ref.float()).abs().max().item()
@@ -1252,12 +1309,12 @@ def phase_k10(torch, np, timer) -> list:
             g = torch.randn((m, n), generator=gen, device="cuda", dtype=torch.bfloat16)
             route = gemm.t_route(g.dtype, m, k=k, n=n)
             key = gemm.T_KERNEL + ROUTE_SUFFIX[route]
-            before = dict(build.launches)
+            before = snapshot(build)
             dx = qlin.matmul_t(g, layer)
             check(route == ("gemv" if m <= 16 else "wgmma")
                   and all(build.launches[c] == before.get(c, 0) + (c == key)
                           for c in (gemm.T_KERNEL + sfx for sfx in ROUTE_SUFFIX.values())),
-                  f"K10 {case} M={m}: launched {dict(build.launches)}, want one {key}")
+                  f"K10 {case} M={m}: launched {snapshot(build)}, want one {key}")
             ref = gemm.wna16_matmul_t_ref(g, layer.qweight, layer.scales, layer.zeros,
                                           layer.kperm, gs, qlin.storage_bits(bits))
             dx32 = qlin.matmul_t(g.float(), layer)
@@ -1350,11 +1407,11 @@ def phase_k10(torch, np, timer) -> list:
         route = gemm.t_route(g.dtype, m, k=k, n=n, layout="kb32l")
         key = gemm.KB32L_T_WGMMA if route == "wgmma" else gemm.T_KERNEL + ROUTE_SUFFIX[route]
         keys = [gemm.KB32L_T_WGMMA] + [gemm.T_KERNEL + sfx for sfx in ROUTE_SUFFIX.values()]
-        before = dict(build.launches)
+        before = snapshot(build)
         dx = qlin.matmul_t(g, layer)
         check(route == ("gemv" if m <= 16 else "wgmma")
               and all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
-              f"K10 kb32l M={m}: launched {dict(build.launches)}, want one {key}")
+              f"K10 kb32l M={m}: launched {snapshot(build)}, want one {key}")
         ref = gemm.wna16_matmul_t_ref(g, words, s, z, None, 128, 4)
         dx32 = qlin.matmul_t(g.float(), layer)
         ref32 = gemm.wna16_matmul_t_ref(g.float(), words, s, z, None, 128, 4)
@@ -1448,11 +1505,11 @@ def phase_k9(torch, np, timer) -> list:
             sel = torch.tensor(ids, dtype=torch.int32, device="cuda")
             x = torch.randn((p, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             key = gemm.ROUTED_KERNEL + gemm.GEMV_SUFFIX
-            before = dict(build.launches)
+            before = snapshot(build)
             y = qlin.matmul_routed(x, sql, sel)
             check(build.launches[key] == before.get(key, 0) + 1
                   and build.launches[gemm.ROUTED_KERNEL] == before.get(gemm.ROUTED_KERNEL, 0),
-                  f"K9 {name} P={p}: launched {dict(build.launches)}")
+                  f"K9 {name} P={p}: launched {snapshot(build)}")
             ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, 128)
 
             def simt():
@@ -1553,10 +1610,10 @@ def phase_k9_rest(torch, np, timer) -> list:
                                                                f"{route}")
             key = gemm.ROUTED_KERNEL + ROUTE_SUFFIX[route]
             keys = (gemm.ROUTED_KERNEL, gemm.ROUTED_KERNEL + gemm.GEMV_SUFFIX)
-            before = dict(build.launches)
+            before = snapshot(build)
             y = qlin.matmul_routed(x, sql, sel)
             check(all(build.launches[c] == before.get(c, 0) + (c == key) for c in keys),
-                  f"K9 g{gs} P={p}: launched {dict(build.launches)}, want one {key}")
+                  f"K9 g{gs} P={p}: launched {snapshot(build)}, want one {key}")
             ref = gemm.wna16_routed_matmul_ref(x, sel, sql.qweight, sql.scales, sql.zeros, gs)
 
             def simt():
@@ -1724,12 +1781,12 @@ def phase_train(torch, np, model, work: str) -> dict:
     losses, seconds, counts = [], [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
-        build.launches.clear()
+        clear_counts(build)
         t0 = time.perf_counter()
         losses.append(step())
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        counts.append(dict(build.launches))
+        counts.append(snapshot(build))
         print(f"train step {i + 1}: loss {losses[-1]:.6f}, {seconds[-1]:.3f} s, launches "
               f"{counts[-1]}", flush=True)
     peak = torch.cuda.max_memory_allocated()
@@ -1766,9 +1823,9 @@ def phase_train(torch, np, model, work: str) -> dict:
     check(len(names) == 4 * layers and a0.shape == (TRAIN_RANK, cfg.hidden_size),
           f"save_adapter wrote {len(names)} tensors, lora_A {a0.shape}")
     prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
-    build.launches.clear()
+    clear_counts(build)
     first = model.generate(prompt, max_new_tokens=TRAIN_NEW_TOKENS)
-    gen_counts = dict(build.launches)
+    gen_counts = snapshot(build)
     again = model.generate(prompt, max_new_tokens=TRAIN_NEW_TOKENS)
     check(first.shape == (1, PROMPT_LEN + TRAIN_NEW_TOKENS), f"generate shape {first.shape}")
     check(np.array_equal(first, again), "generate with adapters does not repeat its tokens")
@@ -2001,13 +2058,13 @@ def phase_grads(torch, np, ckpt_dir: str) -> dict:
             _draw_adapters(torch, np, leaves, seed=20 + i)
             loss = masked_loss(torch, arch.forward(model.params, toks, model.cfg, dtype=dtype)[0],
                                toks)
-            build.launches.clear()
+            clear_counts(build)
             loss.backward()
             grads[kind][run] = [t.grad.float().cpu() for t in leaves]
             if device == "cpu":
                 continue
             torch.cuda.synchronize()
-            counts = dict(build.launches)
+            counts = snapshot(build)
             key = gemm.T_KERNEL + (gemm.WGMMA_SUFFIX if dtype == torch.bfloat16 else "")
             check(counts.get(key, 0) > 0, f"{kind} backward on the card ({run}) launched {counts}")
             out[kind][f"{run} backward_launches"] = counts
@@ -2060,11 +2117,11 @@ def phase_other_widths(torch, np, work: str) -> dict:
         model = AutoGPTQForCausalLM.from_quantized(path)
         model.generate(prompt, max_new_tokens=4)
         torch.cuda.synchronize()
-        build.launches.clear()
+        clear_counts(build)
         t0 = time.perf_counter()
         first = model.generate(prompt, max_new_tokens=OTHER_WIDTH_TOKENS)
         gen_s = time.perf_counter() - t0
-        counts = dict(build.launches)
+        counts = snapshot(build)
         t0 = time.perf_counter()
         again = model.generate(prompt, max_new_tokens=OTHER_WIDTH_TOKENS)
         again_s = time.perf_counter() - t0
@@ -2085,18 +2142,18 @@ def phase_other_widths(torch, np, work: str) -> dict:
         # two prompts: a 32-row prefill through the width's wgmma/TMA tile kernel, and again
         # through the mma.sync tile kernel (gemm.forced_kernel), held to the same tokens
         batch = [prompt[0], prompt[0][::-1].copy()]
-        build.launches.clear()
+        clear_counts(build)
         out2 = model.generate(batch, max_new_tokens=4)
-        counts2 = dict(build.launches)
+        counts2 = snapshot(build)
         check(out2.shape == (2, PROMPT_LEN + 4), f"{bits}-bit batch-2 output shape {out2.shape}")
         check(counts2 == {kernel + "_wgmma": 7 * OTHER_WIDTH_LAYERS,
                           kernel + "_gemv": 7 * OTHER_WIDTH_LAYERS * 3,
                           "flash_decode": 3 * OTHER_WIDTH_LAYERS},
               f"{bits}-bit batch-2 launches {counts2}")
-        build.launches.clear()
+        clear_counts(build)
         with gemm.forced_kernel("mma"):
             out3 = model.generate(batch, max_new_tokens=1)
-        counts3 = dict(build.launches)
+        counts3 = snapshot(build)
         check(counts3.get(kernel + "_mma", 0) == 7 * OTHER_WIDTH_LAYERS
               and not counts3.get(kernel + "_wgmma", 0),
               f"{bits}-bit batch-2 prefill through mma.sync launched {counts3}")
@@ -2186,9 +2243,9 @@ def phase_rest_path(torch, np, work: str) -> dict:
             logits, cache = arch.forward(model.params, tokens, model.cfg, cache=cache,
                                          dtype=model.dtype)
             dec, _ = arch.forward(model.params, nxt, model.cfg, cache=cache, dtype=model.dtype)
-            build.launches.clear()
+            clear_counts(build)
             out = model.generate(prompts, max_new_tokens=16)
-        return logits.float(), dec.float(), out, dict(build.launches)
+        return logits.float(), dec.float(), out, snapshot(build)
 
     logits, dec, out, counts = run(None)
     logits_simt, dec_simt, out_simt, counts_simt = run("simt")
@@ -2236,11 +2293,11 @@ def phase_rest_path(torch, np, work: str) -> dict:
     losses, launches, grads = {}, {}, {}
     for route, m, leaves in (("simt", model, trainable), ("f32", m32, t32),
                              (None, model, trainable)):
-        build.launches.clear()
+        clear_counts(build)
         with gemm.forced_kernel(route if route != "f32" else None):
             losses[route] = fwd_bwd(m)
         torch.cuda.synchronize()
-        launches[route] = dict(build.launches)
+        launches[route] = snapshot(build)
         grads[route] = [t.grad.float().clone() for t in leaves]
     del m32, t32
     rels = [_rel_err(a, b) for a, b in zip(grads[None], grads["simt"])]
@@ -2276,14 +2333,14 @@ def phase_rest_path(torch, np, work: str) -> dict:
     small = batch[:1, :16].contiguous()
     small_losses, small_launches = {}, {}
     for route in ("simt", None):
-        build.launches.clear()
+        clear_counts(build)
         with gemm.forced_kernel(route):
             logits, _ = arch.forward(model.params, small, model.cfg, dtype=model.dtype)
             loss = masked_loss(torch, logits, small)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             small_losses[route] = loss.item()
-        small_launches[route] = dict(build.launches)
+        small_launches[route] = snapshot(build)
     small_rel = abs(small_losses[None] - small_losses["simt"]) / abs(small_losses["simt"])
     want_small = {"w4a16_gemm_gemv": 7 * layers, "wna16_gemm_t_gemv": 7 * layers - 3}
     want_small_simt = {"w4a16_gemm": 7 * layers, "wna16_gemm_t": 7 * layers - 3}
@@ -2318,12 +2375,12 @@ def phase_rest_path(torch, np, work: str) -> dict:
             t = toks[:, :n].cuda()
             for leaf in leaves:
                 leaf.grad = None
-            build.launches.clear()
+            clear_counts(build)
             with gemm.forced_kernel(route):
                 masked_loss(torch, arch.forward(cm.params, t, cm.cfg, dtype=dtype)[0],
                             t).backward()
             torch.cuda.synchronize()
-            cut_launches[n][label] = dict(build.launches)
+            cut_launches[n][label] = snapshot(build)
             cut_grads[n][label] = [leaf.grad.float() for leaf in leaves]
         del cm, leaves
     shutil.rmtree(cut, ignore_errors=True)
@@ -2435,10 +2492,10 @@ def phase_quantize(torch, np, work: str) -> dict:
             qc = BaseQuantizeConfig(group_size=128, sym=True, **dict(dict(desc_act=False), **kw))
             model = AutoGPTQForCausalLM.from_pretrained(fp_dir, qc, dtype=torch.float16)
             del solves[:]
-            build.launches.clear()
+            clear_counts(build)
             torch.cuda.reset_peak_memory_stats()
             model.quantize(examples, batch_size=CALIB_BATCH)
-            counts = dict(build.launches)
+            counts = snapshot(build)
             peak = torch.cuda.max_memory_allocated()
             stats = model.quantize_stats
             losses = list(stats["losses"].values())
@@ -2810,11 +2867,11 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     out = model.generate(prompt, max_new_tokens=NEW_TOKENS)
     gen_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
 
     layers = cfg["num_hidden_layers"]
@@ -2836,9 +2893,9 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
           f"peak device memory {peak / 2**30:.2f} GiB, launches {counts}", flush=True)
 
     prompts = [np.arange(PROMPT_LEN) % 1000 + 1, np.arange(9) + 100]
-    build.launches.clear()
+    clear_counts(build)
     out2 = model.generate(prompts, max_new_tokens=16)
-    counts2 = dict(build.launches)
+    counts2 = snapshot(build)
     check(out2.shape == (2, PROMPT_LEN + 16), f"batch-2 output shape {out2.shape}")
     check(bool((out2[1, :PROMPT_LEN - 9] == 0).all()), "batch-2 row 1 is not left-padded")
     check(bool(((out2 >= 0) & (out2 < cfg["vocab_size"])).all()), "batch-2 token ids out of range")
@@ -2866,6 +2923,9 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
           f"recorded {routes['simt'].get('kernels_per_token', float('nan')):.1f} and "
           f"{routes['gemv'].get('kernels_per_token', float('nan')):.1f}", flush=True)
     routes.update(folded_per_token=folded, tok_s=tok_s)
+    routes["graph"] = graph_turns(torch, np, model, "main path, batch-1 greedy", prompt,
+                                  dict(out=out, s=gen_s, tokens=NEW_TOKENS, counts=counts),
+                                  routes.get("gemv"), PROFILE_TOKENS)
     return counts, model, out, counts2, routes
 
 
@@ -2906,11 +2966,11 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     out = model.generate(prompt, max_new_tokens=KB32L_NEW_TOKENS)
     gen_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     again = model.generate(prompt, max_new_tokens=REPEAT_TOKENS)
@@ -2953,9 +3013,9 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
                              families=KB32L_FAMILIES)
 
     prompts = [np.arange(PROMPT_LEN) % 1000 + 1, np.arange(PROMPT_LEN) + 100]
-    build.launches.clear()
+    clear_counts(build)
     out2 = model.generate(prompts, max_new_tokens=16)
-    counts2 = dict(build.launches)
+    counts2 = snapshot(build)
     check(out2.shape == (2, PROMPT_LEN + 16), f"kb32l batch-2 output shape {out2.shape}")
     check(bool(((out2 >= 0) & (out2 < vocab)).all()), "kb32l batch-2 token ids out of range")
     check(counts2.get(gemm.KB32L_KERNEL + gemm.WGMMA_SUFFIX, 0) == 7 * layers
@@ -2968,10 +3028,10 @@ def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
           f"tile regime, the wgmma/TMA kernel; 2-row decode steps: its GEMV), 16 new tokens: "
           f"shape {out2.shape}, launches "
           f"{counts2}", flush=True)
-    build.launches.clear()
+    clear_counts(build)
     with gemm.forced_kernel("mma"):
         out_mma = model.generate(prompts, max_new_tokens=1)
-    mma_counts = dict(build.launches)
+    mma_counts = snapshot(build)
     check(mma_counts.get(gemm.KB32L_KERNEL + gemm.MMA_SUFFIX, 0) == 7 * layers
           and not mma_counts.get(gemm.KB32L_KERNEL + gemm.WGMMA_SUFFIX, 0)
           and out_mma.shape == (2, PROMPT_LEN + 1),
@@ -3007,7 +3067,7 @@ def kb32l_train_step(torch, np, model) -> dict:
     rng = np.random.default_rng(4)
     tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (TRAIN_BATCH, TRAIN_LEN))).cuda()
     torch.cuda.synchronize()
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     logits, _ = arch.forward(model.params, tokens, cfg, dtype=model.dtype)
     loss = masked_loss(torch, logits, tokens)
@@ -3043,7 +3103,7 @@ def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
     for device in ("cuda", "cpu"):
         model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=torch.float32,
                                                    layout="kb32l")
-        build.launches.clear()
+        clear_counts(build)
         with torch.inference_mode():
             cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=torch.float32,
                                    device=device)
@@ -3051,12 +3111,12 @@ def phase_kb32l_cut(torch, np, ckpt_dir: str) -> dict:
             dec, _ = forward(model.params, nxt.to(device), model.cfg, cache=cache)
         if device == "cuda":
             torch.cuda.synchronize()
-            card_launches = dict(build.launches)
+            card_launches = snapshot(build)
             # f32 takes K6's ring in both forwards (prefill M = 16, decode M = 1)
             check(build.launches[gemm.KB32L_KERNEL] == 2 * 7 * 2 and
                   not build.launches[gemm.KB32L_KERNEL + gemm.GEMV_SUFFIX] and
                   not any(build.launches["w4a16_gemm" + suffix] for suffix in ROUTE_SUFFIX.values()),
-                  f"kb32l cut launched {dict(build.launches)}")
+                  f"kb32l cut launched {snapshot(build)}")
         results[device] = (pre.float().cpu(), dec.float().cpu())
         del model, cache
     rows = {}
@@ -3085,11 +3145,11 @@ def phase_beam(torch, np, model) -> dict:
     model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     out = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
     gen_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
 
     steps = NEW_TOKENS - 1
@@ -3115,12 +3175,12 @@ def phase_beam(torch, np, model) -> dict:
           f"card's number, BASELINE.md); peak device memory {peak / 2**30:.2f} GiB, "
           f"launches {counts}", flush=True)
 
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     outq = model.generate(prompt, max_new_tokens=QUANT_NEW_TOKENS, num_beams=BEAMS,
                           kv_quant=True)
     q_s = time.perf_counter() - t0
-    counts_q = dict(build.launches)
+    counts_q = snapshot(build)
     qsteps = QUANT_NEW_TOKENS - 1
     need_q = {"paged_attention_mh": layers * qsteps, "write_token_pages": 2 * layers * qsteps,
               "copy_pages_pair": 2 * qsteps}
@@ -3137,7 +3197,10 @@ def phase_beam(torch, np, model) -> dict:
           f"launches {counts_q}", flush=True)
     routes = compare_routes(torch, model, prompt, 1e3 * gen_s / NEW_TOKENS,
                             f"beam-{BEAMS} generate", BEAM_PROFILE_TOKENS, num_beams=BEAMS)
-    return dict(counts=counts, gen_s=gen_s, seq_tok_s=seq_tok_s,
+    graph = graph_turns(torch, np, model, f"beam {BEAMS}", prompt,
+                        dict(out=out, s=gen_s, tokens=NEW_TOKENS, counts=counts),
+                        routes.get("gemv"), BEAM_PROFILE_TOKENS, num_beams=BEAMS)
+    return dict(counts=counts, gen_s=gen_s, seq_tok_s=seq_tok_s, graph=graph,
                 beam_tok_s=BEAMS * seq_tok_s, peak_bytes=peak, int8_new_tokens=QUANT_NEW_TOKENS,
                 int8_gen_s=q_s, int8_counts=counts_q, profiles=routes)
 
@@ -3185,11 +3248,11 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
 
     def run(tokens, fused, **kw):   # (tokens, seconds, launches, norm calls)
         arch.FUSE_NORM = "1" if fused else "0"
-        build.launches.clear()
+        clear_counts(build)
         norms.clear()
         t0 = time.perf_counter()
         out = model.generate(prompt, max_new_tokens=tokens, **kw)
-        return out, time.perf_counter() - t0, dict(build.launches), dict(norms)
+        return out, time.perf_counter() - t0, snapshot(build), dict(norms)
 
     turns = (False, True, True, False)
     arch.rms_norm, gemm.rms_apply = counted("rms_norm", rms_norm), counted("rms_apply", rms_apply)
@@ -3199,6 +3262,9 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         out, gen_s, counts, norm_calls = run(FUSED_NEW_TOKENS, True)
         profile = profile_generate(torch, model, prompt, 1e3 * gen_s / FUSED_NEW_TOKENS,
                                    "batch-1 generate, fused norm", PROFILE_TOKENS)
+        graph = graph_turns(torch, np, model, "fused norm, batch-1 greedy", prompt,
+                            dict(out=out, s=gen_s, tokens=FUSED_NEW_TOKENS, counts=counts),
+                            profile, PROFILE_TOKENS)
         model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
         beam_ab = [run(FUSED_AB_TOKENS, fused, num_beams=BEAMS) for fused in turns]
         arch.FUSE_NORM = "1"
@@ -3206,21 +3272,21 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
                                         1e3 * (beam_ab[1][1] + beam_ab[2][1]) / 2 / FUSED_AB_TOKENS,
                                         f"beam-{BEAMS} generate, fused norm",
                                         BEAM_PROFILE_TOKENS, num_beams=BEAMS)
-        build.launches.clear()
+        clear_counts(build)
         batch = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
-        batch_counts = dict(build.launches)
-        build.launches.clear()
+        batch_counts = snapshot(build)
+        clear_counts(build)
         with gemm.forced_kernel("mma"):
             batch_mma = model.generate(prompts, max_new_tokens=2)
-        mma_counts = dict(build.launches)
+        mma_counts = snapshot(build)
         arch.FUSE_NORM = "0"
         batch_ref = model.generate(prompts, max_new_tokens=FUSED_BATCH_TOKENS)
         arch.FUSE_NORM = "1"
-        build.launches.clear()
+        clear_counts(build)
         t0 = time.perf_counter()
         batch16 = model.generate(prompts[:FUSED_BATCH16], max_new_tokens=FUSED_BATCH16_TOKENS)
         batch16_s = time.perf_counter() - t0
-        batch16_counts = dict(build.launches)
+        batch16_counts = snapshot(build)
         arch.FUSE_NORM = "0"
         t0 = time.perf_counter()
         batch16_ref = model.generate(prompts[:FUSED_BATCH16],
@@ -3228,7 +3294,8 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
         batch16_ref_s = time.perf_counter() - t0
         step16 = fused_decode_step(torch, np, model)
         arch.FUSE_NORM = "1"
-        readers = profile_readers(torch, lambda: model.generate(prompt, max_new_tokens=4))
+        with jit_generate(False):
+            readers = profile_readers(torch, lambda: model.generate(prompt, max_new_tokens=4))
     finally:
         arch.FUSE_NORM = "0"
         arch.rms_norm, gemm.rms_apply = rms_norm, rms_apply
@@ -3250,8 +3317,10 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"fused greedy: K1 launches {k1_counts(counts)}, want "
           f"{want(steps, 'w4a16_gemm_gemv_norm', 'w4a16_gemm_gemv')}")
     # the prefill's 2 norms per layer and the final one, then one final norm per step
-    check(norm_calls == {"rms_norm": 2 * layers + 1 + steps},
-          f"fused greedy: norm calls {norm_calls}, want rms_norm {2 * layers + 1 + steps}")
+    # the Python of a decode step runs in the warm-up and the capture only: replays run none
+    check(norm_calls == {"rms_norm": 2 * layers + 1 + python_steps(steps)},
+          f"fused greedy: norm calls {norm_calls}, want rms_norm "
+          f"{2 * layers + 1 + python_steps(steps)}")
     main_new = main_out[0, PROMPT_LEN:PROMPT_LEN + FUSED_NEW_TOKENS]
     same = int((out[0, PROMPT_LEN:] == main_new).sum())
     diff = np.nonzero(out[0, PROMPT_LEN:] != main_new)[0]
@@ -3276,7 +3345,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
     check(k1_counts(runs[1][2]) == want(ab_steps, "w4a16_gemm_gemv_norm", "w4a16_gemm_gemv")
           and k1_counts(runs[0][2]) == {"w4a16_gemm_gemv": 7 * layers * FUSED_AB_TOKENS},
           f"fused-norm turns, beam {BEAMS}: K1 launches {runs[1][2]} / {runs[0][2]}")
-    check(runs[1][3] == {"rms_norm": 2 * layers + 1 + ab_steps},
+    check(runs[1][3] == {"rms_norm": 2 * layers + 1 + python_steps(ab_steps)},
           f"fused-norm turns, beam {BEAMS}: norm calls {runs[1][3]}")
     boff_s, bon_s = (beam_ab[0][1] + beam_ab[3][1]) / 2, (beam_ab[1][1] + beam_ab[2][1]) / 2
     beam_same = int((beam_ab[1][0][0, PROMPT_LEN:] == beam_ab[0][0][0, PROMPT_LEN:]).sum())
@@ -3322,7 +3391,7 @@ def phase_fused_norm(torch, np, model, main_out) -> dict:
           f"at [row, token] {first}); {FUSED_BATCH16 * FUSED_BATCH16_TOKENS / batch16_s:.2f}"
           f" tok/s ({FUSED_BATCH16 * FUSED_BATCH16_TOKENS / batch16_ref_s:.2f} unfused, prefill "
           f"included); launches {batch16_counts}", flush=True)
-    return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls,
+    return dict(counts=counts, gen_s=gen_s, tok_s=tok_s, norm_calls=norm_calls, graph=graph,
                 tokens_equal=same, first_difference=int(diff[0]) if len(diff) else None,
                 profile=profile, beam_turns_s=[r[1] for r in beam_ab], beam_counts=beam_ab[1][2],
                 beam_tok_s_off=BEAMS * FUSED_AB_TOKENS / boff_s,
@@ -3390,7 +3459,7 @@ def fused_decode_step(torch, np, model) -> dict:
                                    device="cuda")
             _, cache = forward(model.params, tokens, model.cfg, cache=cache, dtype=model.dtype)
             arch.FUSE_NORM = "1" if fused else "0"
-            build.launches.clear()
+            clear_counts(build)
             qlin.matmul = hook or matmul
             try:
                 out, _ = forward(model.params, nxt, model.cfg, cache=cache, dtype=model.dtype)
@@ -3474,7 +3543,7 @@ def phase_fused_cut(torch, np, cut_dir: str) -> dict:
         for run, device in (("card", "cuda"), ("cpu", "cpu")):
             model = AutoGPTQForCausalLM.from_quantized(cut_dir, device=device,
                                                        dtype=torch.float32)
-            build.launches.clear()
+            clear_counts(build)
             with torch.inference_mode():
                 cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=torch.float32,
                                        device=device)
@@ -3484,7 +3553,7 @@ def phase_fused_cut(torch, np, cut_dir: str) -> dict:
                                  cache=cache)
             one = model.generate(tokens, max_new_tokens=FUSED_CUT_TOKENS)
             many = model.generate(prompts, max_new_tokens=FUSED_CUT_TOKENS)
-            launches[run] = dict(build.launches)
+            launches[run] = snapshot(build)
             res[run] = (dec.float().cpu(), one, many)
             del model, cache
     finally:
@@ -3542,17 +3611,21 @@ REDUCE_KERNELS = ("splitk_reduce", "routed_reduce")   # the SIMT kernels' split-
 
 
 def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label: str,
-                     tokens: int, families=FAMILIES, **gen_kwargs) -> None:
+                     tokens: int, families=FAMILIES, graphs: bool = False, **gen_kwargs) -> None:
     """Device time by kernel family over a short generate, from
-    torch.profiler's CUDA kernel events. The profiler slows the host, so the
-    busy share is also given against the unprofiled 512-token run's wall time
-    per token (an estimate: that run's windows are longer)."""
+    torch.profiler's CUDA kernel events: the per-op loop (``JIT_GENERATE``
+    off), or with ``graphs`` the decode step replayed from its CUDA graph. The
+    profiler slows the host, so the busy share is also given against the
+    unprofiled 512-token run's wall time per token (an estimate: that run's
+    windows are longer)."""
     from autogptq_tpu_torch.ops import build
 
-    model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
-    torch.cuda.synchronize()
-    build.launches.clear()
-    run = profiled(torch, lambda: model.generate(prompt, max_new_tokens=tokens, **gen_kwargs))
+    with jit_generate(graphs):
+        model.generate(prompt, max_new_tokens=tokens, **gen_kwargs)
+        torch.cuda.synchronize()
+        clear_counts(build)
+        run = profiled(torch, lambda: model.generate(prompt, max_new_tokens=tokens,
+                                                     **gen_kwargs))
     wall_us = run["wall_us"]
     sums = dict.fromkeys([name for name, _ in families] + ["other"], 0.0)
     counts = dict.fromkeys(sums, 0)
@@ -3582,7 +3655,7 @@ def profile_generate(torch, model, prompt, unprofiled_ms_per_token: float, label
           f"warm-up", flush=True)
     return dict(device_ms_per_token=device_ms, kernels_per_token=kernels / tokens,
                 kernels=kernels, splitk_reduces=reduces, tokens=tokens, family_kernels=counts,
-                launches=dict(build.launches), lost_inside=run["lost_inside"],
+                launches=snapshot(build), lost_inside=run["lost_inside"],
                 lost_before=run["lost_before"],
                 wall_ms_per_token=wall_us / tokens / 1e3,
                 **{f"{k} ms_per_token": v / tokens / 1e3 for k, v in sums.items()})
@@ -3635,6 +3708,82 @@ def compare_routes(torch, model, prompt, unprofiled_ms_per_token: float, label: 
     return dict(gemv=new, simt=old)
 
 
+def graph_turns(torch, np, model, label: str, prompt, graph: dict, eager_profile: dict,
+                profile_tokens: int, families=FAMILIES, **gen_kwargs) -> dict:
+    """The reported run ``graph`` (``out``, ``s``, ``tokens``, ``counts``: a
+    generate whose decode step ran from its CUDA graph) beside a turn with
+    ``JIT_GENERATE`` off (the per-op loop) of at most ``GRAPH_EAGER_TOKENS``
+    tokens, counts set to 0 just before each. The tokens must be identical:
+    greedy, the graph run's first ones; beam search, whose result depends on
+    the length, a graph run of the eager turn's length. The graph run must
+    have captured once and replayed every step after the warm-up. Each turn's
+    rate, host ms per token (prefill included, and per decode token: a
+    1-token generate, the prefill alone, taken off) and device busy share; the
+    graph run's capture and warm-up seconds and its replayed launches. The
+    busy share of the graph run comes from a profiled replay window where
+    its kernel records are at least the eager profile's (``eager_profile``,
+    the same generate through the per-op loop), else from the eager profile's
+    device ms, and the line says which."""
+    from autogptq_tpu_torch.ops import build
+
+    tokens, beams = graph["tokens"], gen_kwargs.get("num_beams", 1)
+    n = min(tokens, GRAPH_EAGER_TOKENS)
+    with jit_generate(False):
+        t0 = time.perf_counter()
+        model.generate(prompt, max_new_tokens=1, **gen_kwargs)
+        prefill_s = time.perf_counter() - t0
+        clear_counts(build)
+        t0 = time.perf_counter()
+        eager = model.generate(prompt, max_new_tokens=n, **gen_kwargs)
+        eager_s = time.perf_counter() - t0
+        eager_counts = snapshot(build)
+    same = graph["out"][:, :prompt.shape[1] + n]
+    if beams > 1 and n < tokens:
+        with jit_generate(True):
+            same = model.generate(prompt, max_new_tokens=n, **gen_kwargs)
+    check(np.array_equal(same, eager), f"{label}: the CUDA graph's tokens differ from the "
+                                       f"per-op loop's over {n} tokens")
+    counts = graph["counts"]
+    check(counts.graphs.get("captures") == 1 and counts.graphs.get("replays") == tokens - 2
+          and not eager_counts.graphs and not eager_counts.replayed,
+          f"{label}: graphs {counts.graphs} over {tokens} tokens, eager turn {eager_counts.graphs}")
+    ms, eager_ms = 1e3 * graph["s"] / tokens, 1e3 * eager_s / n
+    step_ms = 1e3 * (graph["s"] - prefill_s) / (tokens - 1)
+    eager_step_ms = 1e3 * (eager_s - prefill_s) / (n - 1)
+    replayed, launched = sum(counts.replayed.values()), sum(counts.values())
+    replay_profile = profile_generate(torch, model, prompt, ms, label + ", CUDA graph",
+                                      profile_tokens, families=families, graphs=True,
+                                      **gen_kwargs)
+    device_ms = (eager_profile or {}).get("device_ms_per_token", float("nan"))
+    if replay_profile and replay_profile["kernels"] >= (eager_profile or {}).get("kernels", 0):
+        busy_from, graph_device_ms = "the profiled replay window", replay_profile[
+            "device_ms_per_token"]
+    else:
+        busy_from, graph_device_ms = "the per-op loop's profiled device ms", device_ms
+    busy, eager_busy = graph_device_ms / ms, device_ms / eager_ms
+    unit = "beam-tok/s" if beams > 1 else "tok/s"
+    print(f"{label}, CUDA graph against the per-op loop: graph {beams * tokens / graph['s']:.2f} "
+          f"{unit} over {tokens} tokens ({ms:.3f} host ms per token, prefill included, "
+          f"{step_ms:.3f} per decode step with the 1-token generate's {prefill_s:.3f} s taken "
+          f"off; capture "
+          f"{counts.graphs.get('capture_s', 0.0):.3f} s, warm-up step "
+          f"{counts.graphs.get('warmup_s', 0.0):.3f} s; {replayed} of {launched} counted "
+          f"launches replayed; device busy about {100 * busy:.1f}%, device "
+          f"{graph_device_ms:.3f} ms per token from {busy_from}); per-op loop (JIT_GENERATE "
+          f"off) {beams * n / eager_s:.2f} {unit} over {n} tokens ({eager_ms:.3f} host ms per "
+          f"token, {eager_step_ms:.3f} per decode step; device busy about "
+          f"{100 * eager_busy:.1f}% from its profile's "
+          f"{device_ms:.3f} ms per token); tokens identical over {n}", flush=True)
+    return dict(tokens=tokens, rate=beams * tokens / graph["s"], host_ms_per_token=ms,
+                prefill_s=prefill_s, step_ms=step_ms, eager_step_ms=eager_step_ms,
+                capture_s=counts.graphs.get("capture_s", 0.0),
+                warmup_s=counts.graphs.get("warmup_s", 0.0), replayed=replayed,
+                launches=launched, busy=busy, busy_from=busy_from,
+                device_ms_per_token=graph_device_ms, replay_profile=replay_profile,
+                eager_tokens=n, eager_rate=beams * n / eager_s, eager_host_ms_per_token=eager_ms,
+                eager_busy=eager_busy, eager_counts=eager_counts)
+
+
 def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
     """A 2-layer full-width cut: prefill, one decode step and one paged
     beam-4 step on the card in bf16 (K1 through the tensor-core GEMV and tile
@@ -3656,7 +3805,7 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
             ("cpu", "cpu", torch.float32))
     for run, device, dtype in runs:
         model = AutoGPTQForCausalLM.from_quantized(ckpt_dir, device=device, dtype=dtype)
-        build.launches.clear()
+        clear_counts(build)
         with torch.inference_mode():
             cache = KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=dtype, device=device)
             pre, cache = forward(model.params, tokens.to(device), model.cfg, cache=cache)
@@ -3668,7 +3817,7 @@ def phase_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
             step = paged_decode_step(model.params, model.cfg, pcache, beam_tok, pcache.plen,
                                      dtype)
             check_page_errors(device)
-        launches[run] = dict(build.launches)
+        launches[run] = snapshot(build)
         results[run] = (pre.float().cpu(), dec.float().cpu(), step.float().cpu())
         del model, cache, pcache
     # 2 layers x 7 projections in four forwards of at most 16 rows (the 16-token prefill,
@@ -3726,11 +3875,11 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     out = model.generate(prompt, max_new_tokens=new_tokens)
     gen_s = time.perf_counter() - t0
-    counts = dict(build.launches)
+    counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     again = model.generate(prompt, max_new_tokens=MIXTRAL_REPEAT_TOKENS)
@@ -3767,12 +3916,15 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
                              "Mixtral batch-1 generate", MIXTRAL_PROFILE_TOKENS,
                              checked=(("K1 w4a16_gemm", "w4a16_gemm"),
                                       ("K9 w4a16_routed_gemm", "w4a16_routed_gemm")))
+    graph = graph_turns(torch, np, model, "Mixtral batch-1 greedy", prompt,
+                        dict(out=out, s=gen_s, tokens=new_tokens, counts=counts),
+                        profile.get("gemv"), MIXTRAL_PROFILE_TOKENS)
 
-    build.launches.clear()
+    clear_counts(build)
     t0 = time.perf_counter()
     outb = model.generate(prompt, max_new_tokens=MIXTRAL_BEAM_TOKENS, num_beams=BEAMS)
     beam_s = time.perf_counter() - t0
-    beam_counts = dict(build.launches)
+    beam_counts = snapshot(build)
     bsteps = MIXTRAL_BEAM_TOKENS - 1
     need = {"w4a16_routed_gemm_gemv": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps,
             "write_token_pages": layers * bsteps, "copy_pages_pair": bsteps}
@@ -3792,6 +3944,7 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     return dict(layers=layers, write_s=write_s, load_s=load_s, load_peak_bytes=load_peak,
                 resident_bytes=resident, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
                 peak_bytes=peak, counts=counts, tokens=new[0].tolist(), profile=profile,
+                graph=graph,
                 beam_s=beam_s, beam_counts=beam_counts)
 
 
@@ -3837,7 +3990,7 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                 cache = arch.KVCache.create(model.cfg, 1, PROMPT_LEN + 1, dtype=dtype,
                                             device=device)
                 pre, cache = arch.forward(model.params, tokens.to(device), model.cfg, cache=cache)
-                build.launches.clear()
+                clear_counts(build)
                 dec, _ = arch.forward(model.params, nxt.to(device), model.cfg, cache=cache)
                 if device == "cuda":   # f32: the SIMT routed kernel; bf16: the routed GEMV
                     torch.cuda.synchronize()
@@ -3845,7 +3998,7 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                     if dtype == torch.bfloat16:
                         key, other = other, key
                     check(build.launches[key] == 3 * 2 and not build.launches[other],
-                          f"{run}: the decode step launched {dict(build.launches)}")
+                          f"{run}: the decode step launched {snapshot(build)}")
         finally:
             arch.top_k = real_top_k
         results[run] = (pre.float().cpu(), dec.float().cpu())
@@ -3891,10 +4044,10 @@ def routed_grad(torch, arch, build, model, x, cot) -> tuple:
 
     dev = model.device
     xt = torch.from_numpy(x).to(dev).requires_grad_()
-    build.launches.clear()
+    clear_counts(build)
     y = arch.moe_mlp(model.params["layers"][0]["mlp"], xt, model.cfg)
     (dx,) = torch.autograd.grad((y * torch.from_numpy(cot).to(dev)).sum(), xt)
-    counts = dict(build.launches)
+    counts = snapshot(build)
     if dev.type == "cuda":
         torch.cuda.synchronize()
         check(counts.get(gemm.ROUTED_KERNEL, 0) == 3 and counts.get(gemm.T_KERNEL, 0) >= 3,
@@ -3912,9 +4065,9 @@ def moe_layer_check(torch, arch, params_lib, build, model) -> dict:
     for what, shape in (("routed P=2", (1, 1)), ("routed P=8", (4, 1)), ("dense", (1, 16))):
         x = torch.randn(shape + (model.cfg.hidden_size,), generator=gen, device="cuda")
         with torch.inference_mode():
-            build.launches.clear()
+            clear_counts(build)
             got = arch.moe_mlp(stacked, x, model.cfg)
-            counts = dict(build.launches)
+            counts = snapshot(build)
             want = arch.moe_mlp(bp, x, model.cfg)
         torch.cuda.synchronize()
         routed = what.startswith("routed")
@@ -4075,9 +4228,12 @@ def main() -> int:
         f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
         for m, v in decode_m.items() if not isinstance(m, int)), flush=True)
 
+    def replayed(counted, name):   # of a run's launches of `name`: those its graph replays ran
+        return getattr(counted, "replayed", {}).get(name, 0)
+
     def entry(name, source, replaces, counted, rows, main_row, at):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=counted.get(name, 0),
+                    launches=counted.get(name, 0), replayed=replayed(counted, name),
                     max_abs_err=max(r["max_abs_err"] for r in rows), ms=main_row["ms"],
                     plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
                     bound_by=main_row["bound_by"], library_ms=main_row["library_ms"], at=at)
@@ -4090,7 +4246,8 @@ def main() -> int:
         errs = errs or [r["max_abs_err"] for r in (err_rows or rows)]
         return dict(name=name, route="cuda",
                     source=source or f"autogptq_tpu_torch/ops/csrc/{name}.cu",
-                    replaces=replaces, launches=counted.get(name, 0), max_abs_err=max(errs),
+                    replaces=replaces, launches=counted.get(name, 0),
+                    replayed=replayed(counted, name), max_abs_err=max(errs),
                     ms=layer_sum(rows, ms_key, m), plain_ms=layer_sum(rows, "plain_ms", m),
                     bound_ms=layer_sum(rows, "bound_ms", m),
                     bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in main_rows)
@@ -4133,6 +4290,16 @@ def main() -> int:
                  f"F.rms_norm + torch.matmul ({v['library_ms']:.4f} ms): "
                  f"{'met' if v['below_library'] else 'NOT MET'}" if m == 16 else "") + ")"
               for m, v in gemv_norm.items()), flush=True)
+    turns = {"main path": main_routes["graph"], f"beam {BEAMS}": beam["graph"],
+             "Mixtral": mixtral["graph"], "fused norm": fused["graph"]}
+    print("CUDA graph runs against the per-op loop (rate, host ms per token, device busy): "
+          + "; ".join(f"{k} {v['rate']:.2f} against {v['eager_rate']:.2f}, "
+                      f"{v['host_ms_per_token']:.3f} against {v['eager_host_ms_per_token']:.3f} "
+                      f"ms ({v['step_ms']:.3f} against {v['eager_step_ms']:.3f} per decode step), "
+                      f"about {100 * v['busy']:.1f}% against {100 * v['eager_busy']:.1f}% "
+                      f"(capture {v['capture_s']:.3f} s, warm-up {v['warmup_s']:.3f} s, "
+                      f"{v['replayed']} of {v['launches']} launches replayed)"
+                      for k, v in turns.items()), flush=True)
     main_prof, fused_prof = main_routes.get("gemv") or {}, fused["profile"] or {}
     beam_prof = beam["profiles"].get("gemv") or {}
     print(f"fused norm against the default, same run: greedy {fused['tok_s']:.2f} tok/s (default "
@@ -4151,6 +4318,7 @@ def main() -> int:
         rows = [r for r in prenorm_rows if r["case"] == case]
         return dict(name=name, route="cuda", source=source,
                     replaces="autogptq_tpu/ops/pallas/gemm.py:332", launches=counted.get(name, 0),
+                    replayed=replayed(counted, name),
                     max_abs_err=max(errs or [r["max_abs_err"] for r in prenorm_rows
                                              if NORM_KEY[r["route"]] == name]),
                     ms=prenorm_m[case][ms_key],
@@ -4375,6 +4543,7 @@ def main() -> int:
         dict(name=gemm.KB32L_T_WGMMA, route="cuda", source=WGMMA_SOURCE,
              replaces="autogptq_tpu/ops/pallas/gemm.py:811",
              launches=kb32l["train"]["counts"].get(gemm.KB32L_T_WGMMA, 0),
+             replayed=replayed(kb32l["train"]["counts"], gemm.KB32L_T_WGMMA),
              max_abs_err=max(r["max_abs_err"] for r in kb32l_t.values() if r["route"] == "wgmma"),
              **{key: kb32l_t[TRAIN_M][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                        "library_ms")},
@@ -4418,6 +4587,7 @@ def main() -> int:
              source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:894",
              launches=mixtral["counts"].get("w4a16_routed_gemm_gemv", 0),
+             replayed=replayed(mixtral["counts"], "w4a16_routed_gemm_gemv"),
              max_abs_err=max(r["max_abs_err"] for r in k9_rows),
              **{key: mixtral_layer_sum(k9_rows, key) for key in
                 ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4432,6 +4602,7 @@ def main() -> int:
              source="autogptq_tpu_torch/ops/csrc/w4a16_routed_gemm.cu",
              replaces="autogptq_tpu/ops/pallas/gemm.py:894",
              launches=mixtral_cut["routed_grad"]["launches"].get("w4a16_routed_gemm", 0),
+             replayed=replayed(mixtral_cut["routed_grad"]["launches"], "w4a16_routed_gemm"),
              max_abs_err=max(r["simt_max_abs_err"] for r in k9_rows),
              ms=mixtral_layer_sum(k9_rows, "simt_ms"),
              **{key: mixtral_layer_sum(k9_rows, key) for key in
@@ -4462,6 +4633,8 @@ def main() -> int:
         dict(name=gemm.RSTD_KERNEL, route="cuda", source=WGMMA_SOURCE,
              replaces="autogptq_tpu/ops/pallas/gemm.py:332",
              launches=sum(c.get(gemm.RSTD_KERNEL, 0) for c in (
+                 fused["counts"], fused["batch_counts"], fused["batch16_counts"])),
+             replayed=sum(replayed(c, gemm.RSTD_KERNEL) for c in (
                  fused["counts"], fused["batch_counts"], fused["batch16_counts"])),
              max_abs_err=max(r["rstd_max_abs_err"] for r in prenorm_rows
                              if "rstd_max_abs_err" in r),
@@ -4511,7 +4684,7 @@ def main() -> int:
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        prenorm=prenorm_rows, prenorm_layer_ms=prenorm_m,
                        prenorm_ptxas=prenorm_regs, fused=fused, fused_cut=fused_cut,
-                       rest_path=rest_path,
+                       rest_path=rest_path, graph_turns=turns,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
