@@ -14,7 +14,8 @@ mirrors the JAX einsum path, and so is every step of a block that holds an
 adaption prompt (``attn.adaption``, ``utils/peft.py``). After
 :meth:`KVCache.start_decode` a decode step keeps its write cursor and K2's
 bounds on the card, so that it reads no host value and a CUDA graph of it
-(``utils/generation.py``) can be replayed. Adapter nodes in
+(``utils/generation.py``) can be replayed; its RoPE and K/V write are one K8a
+launch per layer (``ops/paged_attn.rope_write_kv``). Adapter nodes in
 place of a linear (LoRA, AdaLoRA) are dispatched by :func:`apply_linear`. The
 cache-less forward runs under autograd: training calls :func:`forward` and
 ``loss.backward()``. What the llama path does not need is refused:
@@ -43,6 +44,7 @@ from torch.profiler import record_function
 
 from ..ops import quantlinear as qlin
 from ..ops.flash_decode import flash_decode
+from ..ops.paged_attn import rope_inv_freq, rope_rows, rope_write_kv
 
 NEG_INF = -1e30
 
@@ -111,24 +113,11 @@ def _prenorm_linear(node, x: torch.Tensor, norm: dict, cfg: ArchConfig) -> torch
     return apply_linear(node, rms_norm(x, norm["weight"], cfg.norm_eps))
 
 
-def _rope_freqs(cfg: ArchConfig, positions: torch.Tensor, rotary_dim: int):
-    exponents = torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=positions.device)
-    inv_freq = 1.0 / (cfg.rope_theta ** (exponents / rotary_dim))
-    angles = positions.float()[..., None] * inv_freq
-    return torch.cos(angles), torch.sin(angles)
-
-
 def apply_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    """Llama (rotate-halves) RoPE. q/k: [B, T, H, D]; positions: [B, T]."""
-    cos, sin = _rope_freqs(cfg, positions, q.shape[-1])
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-
-    def rot(x):
-        x1, x2 = x.chunk(2, dim=-1)
-        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
-
-    return rot(q), rot(k)
+    """Llama (rotate-halves) RoPE. q/k: [B, T, H, D]; positions: [B, T]. A
+    decode step at the device cursor turns q and k inside K8a instead
+    (``ops/paged_attn.rope_write_kv``)."""
+    return rope_rows(positions, rope_inv_freq(cfg.rope_theta, q.shape[-1], positions.device), q, k)
 
 
 def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
@@ -144,10 +133,11 @@ class KVCache:
     :meth:`start_decode` moves the cursor to the card for the decode steps:
     ``cursor`` (int64 ``[1]``) then stands for ``length``, which such steps
     neither read nor advance; K2's bounds persist beside it, ``lo`` fixed for
-    the call and ``hi`` written by each step. A one-token :func:`forward`
-    then reads no host value and advances ``cursor`` in place, so a CUDA
-    graph of the step advances it on every replay. Prefill, calibration and
-    training use ``length``."""
+    the call and ``hi`` written by each step, and RoPE's ``inv_freq`` with
+    them. A one-token :func:`forward` then reads no host value, turns q and k
+    and writes K/V at ``cursor`` in one K8a launch per layer, and advances
+    ``cursor`` in place, so a CUDA graph of the step advances it on every
+    replay. Prefill, calibration and training use ``length``."""
 
     k: torch.Tensor       # [L, B, S, Hkv, D]
     v: torch.Tensor
@@ -155,6 +145,7 @@ class KVCache:
     cursor: Optional[torch.Tensor] = None   # int64 [1]: the decode steps' write slot
     lo: Optional[torch.Tensor] = None       # int32 [B]: each row's first valid slot
     hi: Optional[torch.Tensor] = None       # int32 [B]: cursor + 1, K2's end of the window
+    inv_freq: Optional[torch.Tensor] = None  # f32 [D / 2]: RoPE's, for K8a
 
     @classmethod
     def create(cls, cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -166,11 +157,12 @@ class KVCache:
         return cls(k=torch.zeros(kshape, dtype=dtype, device=device),
                    v=torch.zeros(vshape, dtype=dtype, device=device))
 
-    def start_decode(self, attn_mask: torch.Tensor) -> None:
+    def start_decode(self, attn_mask: torch.Tensor, cfg: ArchConfig) -> None:
         """Put the cursor on the card at ``length``, and K2's ``lo`` from
         ``attn_mask [B, S]``: the first valid slot of each row's run, the
-        cursor's slot for a row with none."""
+        cursor's slot for a row with none; ``inv_freq`` from ``cfg``."""
         b, dev = self.k.shape[1], self.k.device
+        self.inv_freq = rope_inv_freq(cfg.rope_theta, cfg.head_dim, dev)
         self.cursor = torch.full((1,), self.length, dtype=torch.int64, device=dev)
         valid = attn_mask[:, :self.length].bool()
         self.lo = torch.where(valid.any(dim=1), valid.to(torch.int32).argmax(dim=1),
@@ -197,19 +189,20 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     q = lin(bp["q_proj"], x).view(b, t, h, d)
     k = lin(bp["k_proj"], x).view(b, t, hkv, d)
     v = lin(bp["v_proj"], x).view(b, t, hkv, d)
-    q, k = apply_rope(q, k, positions, cfg)
     scale = d ** -0.5
 
     if cache is not None and cache.cursor is not None and t == 1:
-        # a decode step at the device cursor (KVCache.start_decode): one copy per tensor
+        # a decode step at the device cursor (KVCache.start_decode): RoPE and the K/V write in
+        # one K8a launch, whose target check generate reads once (check_page_errors)
         if "adaption" in bp:
             raise ValueError("an adaption-prompt block attends up to the host cursor: decode it "
                              "without KVCache.start_decode")
-        cache.k[layer_idx].index_copy_(1, cache.cursor, k.to(cache.k.dtype))
-        cache.v[layer_idx].index_copy_(1, cache.cursor, v.to(cache.v.dtype))
-        of = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, *decode_bounds,
-                          layer=layer_idx, sm_scale=scale)
+        qr = rope_write_kv(q.view(b, h, d), k.view(b, hkv, d), v.view(b, hkv, d),
+                           positions.reshape(b), cache.inv_freq, cache.k, cache.v, layer_idx,
+                           cursor=cache.cursor, check=False)
+        of = flash_decode(qr, cache.k, cache.v, *decode_bounds, layer=layer_idx, sm_scale=scale)
         return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
+    q, k = apply_rope(q, k, positions, cfg)
     if cache is not None:
         start = cache.length
         if start + t > cache.k.shape[2]:

@@ -1,4 +1,4 @@
-"""K7 and K8: decode attention over a paged KV cache, and the page-pool updates.
+"""K7 and K8: decode attention over a paged KV cache, and the KV cache updates.
 
 Counterpart of the JAX package's ``ops/pallas/paged_attn.py``, with its layouts:
 
@@ -16,14 +16,25 @@ Three kernels, each with its plain version in this module:
   ``paged_attention_mh_ref``) replaces ``paged_attn.py:paged_attention_mh``;
   it is split-KV attention in one launch, its chunks whole pages
   (:func:`split_plan`), combined as ``flash_decode.merge_partials`` does;
-* K8a ``write_token_pages_kernel`` (``csrc/page_ops.cu``; plain:
-  ``write_token_pages``) replaces ``paged_attn.py:write_token_pages_kernel``;
+* K8a ``kv_write`` (``csrc/page_ops.cu``) replaces
+  ``paged_attn.py:write_token_pages_kernel``, and takes in the RoPE that XLA
+  fuses around that write under the JAX package's jit: :func:`rope_write_kv`
+  (plain: :func:`rope_write_kv_ref`, ``arch.apply_rope``'s rotation then
+  ``write_token_pages`` or ``index_copy_``, with :func:`quant_rows` for an
+  int8 pool) turns q and k by their positions and writes K and V into the
+  paged pools through the page tables or into the contiguous cache at the
+  device cursor, one launch per layer and decode step;
+  :func:`write_token_pages_kernel` (plain: ``write_token_pages``) is the same
+  kernel with the rotation off;
 * K8b ``copy_pages_pair`` (``csrc/page_ops.cu``; plain: ``copy_pages``)
-  replaces ``paged_attn.py:copy_pages_pair``.
+  replaces ``paged_attn.py:copy_pages_pair``: one thread-block cluster per
+  (layer, pool) holds every copied page in shared memory between its loads
+  and its stores (:func:`copy_plan`), a gather and a scatter kernel kept
+  for the shapes no cluster holds.
 
 A wrapper runs the plain version for CPU tensors and launches its kernel, or
 raises, for CUDA tensors. The JAX functions return new arrays; the port's
-writes and copies update the pools in place and return them as well. Unlike
+writes and copies update the caches in place and return them as well. Unlike
 the JAX package, the kernels also take int8 pools and 4-D scale pools, so no
 plain version runs on the card.
 """
@@ -122,7 +133,8 @@ def paged_attention_mh_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     return o.reshape(b, h, d)
 
 
-WRITE_TARGET_MSG = "write targets must lie in the pool: page_of in [0, P) and off in [0, ps)"
+WRITE_TARGET_MSG = ("write targets must lie in the cache: page_of in [0, P) and off in [0, ps), a "
+                    "position inside the page table, the cursor in [0, S)")
 COPY_ID_MSG = "page ids must lie in [0, P)"
 COPY_DUP_MSG = "dst page ids must be unique"
 _ERR_MESSAGES = ((1, WRITE_TARGET_MSG), (2, COPY_ID_MSG), (4, COPY_DUP_MSG))   # page_ops.cu ERR_*
@@ -161,6 +173,90 @@ def copy_pages(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torc
     pages = pool[:, src.long()].clone()
     pool[:, dst.long()] = pages
     return pool
+
+
+def rope_inv_freq(theta: float, d: int, device) -> torch.Tensor:
+    """RoPE's inverse frequencies ``[d / 2]`` f32, ``1 / theta ** (2i / d)``
+    as the JAX package computes them (``arch.apply_rope`` and K8a take them
+    from here)."""
+    exponents = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exponents / d))
+
+
+def rope_rows(pos: torch.Tensor, inv_freq: torch.Tensor, *xs: torch.Tensor) -> tuple:
+    """Rotate-halves RoPE: each ``x [..., n, D]`` turned by the angles
+    ``pos[...] * inv_freq`` in f32 and rounded once to ``x``'s dtype (the
+    plain rotation of ``arch.apply_rope`` and of the fused K8a)."""
+    angles = pos.float()[..., None] * inv_freq
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+    def rot(x):
+        x1, x2 = x.chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+    return tuple(rot(x) for x in xs)
+
+
+def quant_rows(x: torch.Tensor):
+    """Per-(slot, head) int8 over the last axis: ``(codes, scale [..., 1])``
+    with value = code * scale / 127.5 (the JAX package's paged int8 scheme)."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    q = torch.round(xf * (127.5 / s))
+    return q.clamp(-127, 127).to(torch.int8), s
+
+
+def rope_write_kv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                      inv_freq: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      layer: int, tables: Optional[torch.Tensor] = None,
+                      cursor: Optional[torch.Tensor] = None,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the fused K8a: q and k turned by :func:`rope_rows`,
+    then K and V written into the paged pools through ``tables`` (page
+    ``tables[b, pos[b] // ps]``, slot ``pos[b] % ps``; int8 pools take
+    :func:`quant_rows`' codes and scales) or into the contiguous cache at
+    ``cursor``. Returns q turned, ``[B, H, D]``. A target outside the cache
+    raises ValueError before anything is written."""
+    qr, kr = rope_rows(pos, inv_freq, q, k)
+    if cursor is not None:
+        if not 0 <= int(cursor[0]) < k_cache.shape[2]:
+            raise ValueError(WRITE_TARGET_MSG)
+        k_cache[layer].index_copy_(1, cursor, kr[:, None].to(k_cache.dtype))
+        v_cache[layer].index_copy_(1, cursor, v[:, None].to(v_cache.dtype))
+        return qr
+    ps = k_cache.shape[3]
+    p = pos.long()
+    if _outside(p, tables.shape[1] * ps):
+        raise ValueError(WRITE_TARGET_MSG)
+    page_of = tables[torch.arange(p.shape[0], device=p.device), p // ps]
+    off = (p % ps).to(torch.int32)
+    if _outside(page_of, k_cache.shape[1]):
+        raise ValueError(WRITE_TARGET_MSG)
+    if k_scale is not None:
+        (kq, ks), (vq, vs) = quant_rows(kr), quant_rows(v)
+        for pool, rows in ((k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs)):
+            write_token_pages(pool, layer, page_of, off, rows)
+    else:
+        write_token_pages(k_cache, layer, page_of, off, kr)
+        write_token_pages(v_cache, layer, page_of, off, v)
+    return qr
+
+
+COPY_SLICE_MAX = 64 << 10   # csrc/page_ops.cu SLICE_MAX: bytes of a page slice in one block
+COPY_MAX_CLUSTER = 16       # MAX_CLUSTER: the non-portable cluster size
+
+
+def copy_plan(n: int, page_bytes: int) -> int:
+    """K8b's slices per page, from shapes alone: a (layer, pool) is one
+    cluster of ``n * slices`` blocks, each holding a slice of at most
+    ``COPY_SLICE_MAX`` bytes (a multiple of 16, TMA's bulk unit). 0 where no
+    cluster holds the shape (more than ``COPY_MAX_CLUSTER`` blocks): the
+    gather and scatter kernels take it."""
+    slices = max(1, -(-page_bytes // COPY_SLICE_MAX))
+    if n * slices > COPY_MAX_CLUSTER or page_bytes % (16 * slices):
+        return 0
+    return slices
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -276,26 +372,138 @@ def paged_attention_mh(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
 
 def check_page_errors(device) -> None:
     """Raise ValueError if a K8a or K8b launch on ``device`` since the last
-    check was given a bad id (a write target outside the pool, a page id
-    outside it, a repeated ``dst``); such a launch wrote nothing. Reading the
-    flag waits for the card, so the beam path checks once per generate. On
-    the CPU the plain versions raise at once and this does nothing."""
+    check was given a bad id (a write target outside the cache, a page id
+    outside the pool, a repeated ``dst``); such a launch wrote nothing.
+    Reading the flag waits for the card, so the decode paths check once per
+    generate. On the CPU the plain versions raise at once and this does
+    nothing."""
     bits = build.take_error_bits(PAGE_OPS, device)
     if bits:
         raise ValueError("; ".join(msg for bit, msg in _ERR_MESSAGES if bits & bit))
 
 
+_PAGE_ARGTYPES = {
+    "kv_write": ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 13 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2),
+    "copy_pages_cluster": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2),
+    "copy_pages": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2),
+}
+MODE_ROWS, MODE_TABLES, MODE_CURSOR = 0, 1, 2   # page_ops.cu MODE_*
+
+
 def _page_fn(name: str):
     fn = getattr(build.load(PAGE_OPS), name)
     if fn.argtypes is None:
-        if name == "write_token_rows":
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        else:   # copy_pages
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _PAGE_ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kv_write(mode: int, k_dst: torch.Tensor, v_dst: torch.Tensor, layer: int, k, v, *, q=None,
+              pos=None, inv_freq=None, page_of=None, off=None, tables=None, cursor=None,
+              k_scale=None, v_scale=None, n_slots: int, w: int = 0):
+    """One launch of ``kv_write`` over caches whose dims 0, 2, 3 are (layer,
+    head, slot) and dim 1 the page or row; returns q turned, or None."""
+    null = ctypes.c_void_p(0)
+
+    def ptr(t):
+        return null if t is None else _ptr(t)
+
+    rope = inv_freq is not None
+    q_out = torch.empty_like(q) if q is not None else None
+    b, hkv = k.shape[:2]
+    d = k_dst.shape[4] if k_dst.dim() == 5 else 1
+    strides = [k_dst.stride(i) for i in range(4)]
+    code = _page_fn("kv_write")(
+        ptr(q), _ptr(k), _ptr(v), ptr(q_out), _ptr(k_dst), _ptr(v_dst), ptr(k_scale), ptr(v_scale),
+        ptr(pos), int(pos is not None and pos.dtype == torch.int64),
+        pos.stride(0) if pos is not None else 0, ptr(inv_freq), ptr(page_of), ptr(off), ptr(tables),
+        ptr(cursor), mode, int(rope), int(k_scale is not None),
+        FLOAT_CODES.get(k.dtype, 0) if rope else 0, k_dst.element_size(), b,
+        q.shape[1] if q is not None else 0, hkv, d, k_dst.shape[1], n_slots, w, layer, *strides,
+        _ptr(build.error_flag(PAGE_OPS, k_dst.device)), _stream(k_dst))
+    build.check(PAGE_OPS, code)
+    return q_out
+
+
+def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+                  inv_freq: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  layer: int, *, tables: Optional[torch.Tensor] = None,
+                  cursor: Optional[torch.Tensor] = None, k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None, check: bool = True) -> torch.Tensor:
+    """One decode token's RoPE and K/V write for one layer: q ``[B, H, D]``
+    and k ``[B, Hkv, D]`` turned by ``pos [B]`` (int32 or int64, any stride)
+    and ``inv_freq [D / 2]`` (:func:`rope_inv_freq`), K and v ``[B, Hkv, D]``
+    written in place either into the paged pools ``[L, P, Hkv, ps, D]``
+    through ``tables [B, W]`` at the slot ``pos`` (int8 pools with their f32
+    scale pools, quantized by :func:`quant_rows`) or into the contiguous cache
+    ``[L, B, S, Hkv, D]`` at ``cursor`` (int64 ``[1]``). Returns q turned,
+    ``[B, H, D]`` contiguous. A CPU tensor takes :func:`rope_write_kv_ref`; a
+    CUDA tensor launches K8a (one launch) or raises. A target outside the
+    cache raises ValueError and nothing is written: on the card K8a flags it,
+    read as ``check`` says (see :func:`write_token_pages_kernel`)."""
+    if (tables is None) == (cursor is None):
+        raise ValueError("give tables= (paged pools) or cursor= (the contiguous cache)")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or q.shape[::2] != k.shape[::2]:
+        raise ValueError(f"q must be [B, H, D] and k, v [B, Hkv, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hkv, d = k.shape
+    if q.shape[1] % hkv or d % 2:
+        raise ValueError(f"Hkv must divide H and D be even, got H={q.shape[1]}, Hkv={hkv}, D={d}")
+    head_dim = 2 if tables is not None else 3   # [L, P, Hkv, ps, D] or [L, B, S, Hkv, D]
+    if k_cache.dim() != 5 or v_cache.shape != k_cache.shape or \
+            (k_cache.shape[head_dim], k_cache.shape[4]) != (hkv, d):
+        raise ValueError(f"caches must be [L, P, Hkv, ps, D] pools or an [L, B, S, Hkv, D] cache "
+                         f"with Hkv={hkv}, D={d}; got {tuple(k_cache.shape)} and "
+                         f"{tuple(v_cache.shape)}")
+    if tables is not None:
+        _layer_pools(k_cache, v_cache, k_scale, v_scale, layer)
+        if tables.dim() != 2 or tables.shape[0] != b or tables.dtype != torch.int32:
+            raise ValueError(f"tables must be int32 [{b}, W], got {tuple(tables.shape)} "
+                             f"{tables.dtype}")
+    else:
+        if k_scale is not None or k_cache.dtype == torch.int8:
+            raise ValueError("the contiguous cache takes no int8 rows")
+        if k_cache.shape[1] != b or tuple(cursor.shape) != (1,) or cursor.dtype != torch.int64:
+            raise ValueError(f"a [L, {b}, S, Hkv, D] cache and an int64 [1] cursor, got "
+                             f"{tuple(k_cache.shape)} and {tuple(cursor.shape)} {cursor.dtype}")
+        if not 0 <= layer < k_cache.shape[0]:
+            raise ValueError(f"layer {layer} out of range for {k_cache.shape[0]}-layer caches")
+    if pos.dim() != 1 or pos.shape[0] != b or pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"pos must be int32 or int64 [{b}], got {tuple(pos.shape)} {pos.dtype}")
+    if tuple(inv_freq.shape) != (d // 2,) or inv_freq.dtype != torch.float32:
+        raise ValueError(f"inv_freq must be f32 [{d // 2}], got {tuple(inv_freq.shape)} "
+                         f"{inv_freq.dtype}")
+    if q.device.type == "cpu":
+        return rope_write_kv_ref(q, k, v, pos, inv_freq, k_cache, v_cache, layer, tables, cursor,
+                                 k_scale, v_scale)
+    _require_cuda("K8a", q)
+    if q.dtype not in FLOAT_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must be one of f32, f16, bf16, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k_cache.dtype != q.dtype and k_cache.dtype != torch.int8:
+        raise ValueError(f"caches must have q's dtype {q.dtype} (or int8 pools), got "
+                         f"{k_cache.dtype}")
+    if d > 256:
+        raise NotImplementedError(f"K8a turns head dims up to 256, got {d}")
+    _check_on(q.device, q=q, k=k, v=v, inv_freq=inv_freq, k_cache=k_cache, v_cache=v_cache,
+              k_scale=k_scale, v_scale=v_scale, tables=tables, cursor=cursor)
+    if pos.device != q.device:
+        raise ValueError(f"pos must be on {q.device}")
+    if tables is not None:   # the kernel's (layer, page, head, slot) strides: the pools' own
+        q_out = _kv_write(MODE_TABLES, k_cache, v_cache, layer, k, v, q=q, pos=pos,
+                          inv_freq=inv_freq, tables=tables, k_scale=k_scale, v_scale=v_scale,
+                          n_slots=k_cache.shape[3], w=tables.shape[1])
+    else:   # [L, B, S, Hkv, D]: (layer, row, head, slot) strides
+        q_out = _kv_write(MODE_CURSOR, k_cache.transpose(2, 3), v_cache.transpose(2, 3), layer, k,
+                          v, q=q, pos=pos, inv_freq=inv_freq, cursor=cursor,
+                          n_slots=k_cache.shape[2])
+    build.launches["rope_write_kv"] += 1
+    if check:
+        check_page_errors(q.device)
+    return q_out
 
 
 def write_token_pages_kernel(k_pool: torch.Tensor, v_pool: torch.Tensor, layer: int,
@@ -305,11 +513,11 @@ def write_token_pages_kernel(k_pool: torch.Tensor, v_pool: torch.Tensor, layer: 
     layer, in place; returns ``(k_pool, v_pool)``. Pools are 5-D K/V pools
     (rows ``[B, Hkv, D]``) or 4-D scale pools (rows ``[B, Hkv]``), of any
     dtype; rows are cast to it. A CPU tensor takes the plain version; a CUDA
-    tensor launches K8a (one launch for both pools) or raises. A target
-    outside the pool raises ValueError and nothing is written: on the card
-    K8a flags it, ``check=True`` reads the flag at once (a wait for the
-    card), and with ``check=False`` the caller reads it later through
-    :func:`check_page_errors`."""
+    tensor launches K8a with the rotation off (one launch for both pools) or
+    raises. A target outside the pool raises ValueError and nothing is
+    written: on the card K8a flags it, ``check=True`` reads the flag at once
+    (a wait for the card), and with ``check=False`` the caller reads it later
+    through :func:`check_page_errors`."""
     _check_pool_pair(k_pool, v_pool)
     if not 0 <= layer < k_pool.shape[0]:
         raise ValueError(f"layer {layer} out of range for {k_pool.shape[0]}-layer pools")
@@ -330,13 +538,8 @@ def write_token_pages_kernel(k_pool: torch.Tensor, v_pool: torch.Tensor, layer: 
     vrows = vrows.to(v_pool.dtype).contiguous()
     _check_on(k_pool.device, k_pool=k_pool, v_pool=v_pool, krows=krows, vrows=vrows,
               page_of=page_of, off=off)
-    row_bytes = (k_pool.shape[4] if k_pool.dim() == 5 else 1) * k_pool.element_size()
-    unit = _unit(row_bytes, k_pool, v_pool, krows, vrows)
-    code = _page_fn("write_token_rows")(
-        _ptr(k_pool), _ptr(v_pool), _ptr(krows), _ptr(vrows), _ptr(page_of), _ptr(off),
-        b, k_pool.shape[1], hkv, k_pool.shape[3], row_bytes, layer, unit,
-        _ptr(build.error_flag(PAGE_OPS, k_pool.device)), _stream(k_pool))
-    build.check(PAGE_OPS, code)
+    _kv_write(MODE_ROWS, k_pool, v_pool, layer, krows, vrows, page_of=page_of, off=off,
+              n_slots=k_pool.shape[3])
     build.launches["write_token_pages"] += 1
     if check:
         check_page_errors(k_pool.device)
@@ -348,10 +551,12 @@ def copy_pages_pair(k_pool: torch.Tensor, v_pool: torch.Tensor, src: torch.Tenso
     """``pool[:, dst[i]] = pool[:, src[i]]`` for both pools, every read before
     any write, so a ``src`` may name another copy's ``dst``. Pools are 5-D
     K/V pools or 4-D scale pools, in place; returns ``(k_pool, v_pool)``. A
-    CPU tensor takes the plain version; a CUDA tensor launches K8b (a gather
-    of every ``src`` page into scratch, then a scatter to ``dst``) or
-    raises. A page id outside the pool or a repeated ``dst`` raises
-    ValueError and nothing is copied; ``check`` is as for
+    CPU tensor takes the plain version; a CUDA tensor launches K8b or raises:
+    one launch of a cluster per (layer, pool) where :func:`copy_plan` finds
+    one (launch key ``copy_pages_pair``; the pools 16-byte aligned), else a
+    gather of every ``src`` page into scratch and a scatter to ``dst`` (key
+    ``copy_pages_pair_gather``). A page id outside the pool or a repeated
+    ``dst`` raises ValueError and nothing is copied; ``check`` is as for
     :func:`write_token_pages_kernel`."""
     _check_pool_pair(k_pool, v_pool)
     if src.dim() != 1 or src.shape != dst.shape or src.dtype != torch.int32 \
@@ -365,15 +570,25 @@ def copy_pages_pair(k_pool: torch.Tensor, v_pool: torch.Tensor, src: torch.Tenso
     n_layers, n_pages = k_pool.shape[:2]
     n = src.shape[0]
     page_bytes = k_pool[0, 0].numel() * k_pool.element_size()
-    k_scr = torch.empty((n_layers, n, page_bytes), dtype=torch.uint8, device=k_pool.device)
-    v_scr = torch.empty_like(k_scr)
-    unit = _unit(page_bytes, k_pool, v_pool, k_scr, v_scr)
-    code = _page_fn("copy_pages")(
-        _ptr(k_pool), _ptr(v_pool), _ptr(k_scr), _ptr(v_scr), _ptr(src), _ptr(dst), n_layers,
-        n_pages, n, page_bytes, unit, _ptr(build.error_flag(PAGE_OPS, k_pool.device)),
-        _stream(k_pool))
+    err = _ptr(build.error_flag(PAGE_OPS, k_pool.device))
+    slices = copy_plan(n, page_bytes)
+    if slices:
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            raise ValueError("K8b's pools must be 16-byte aligned")
+        code = _page_fn("copy_pages_cluster")(
+            _ptr(k_pool), _ptr(v_pool), _ptr(src), _ptr(dst), n_layers, n_pages, n, page_bytes,
+            slices, err, _stream(k_pool))
+        key = "copy_pages_pair"
+    else:
+        k_scr = torch.empty((n_layers, n, page_bytes), dtype=torch.uint8, device=k_pool.device)
+        v_scr = torch.empty_like(k_scr)
+        unit = _unit(page_bytes, k_pool, v_pool, k_scr, v_scr)
+        code = _page_fn("copy_pages")(
+            _ptr(k_pool), _ptr(v_pool), _ptr(k_scr), _ptr(v_scr), _ptr(src), _ptr(dst), n_layers,
+            n_pages, n, page_bytes, unit, err, _stream(k_pool))
+        key = "copy_pages_pair_gather"
     build.check(PAGE_OPS, code)
-    build.launches["copy_pages_pair"] += 1
+    build.launches[key] += 1
     if check:
         check_page_errors(k_pool.device)
     return k_pool, v_pool
@@ -383,8 +598,14 @@ __all__ = [
     "check_page_errors",
     "copy_pages",
     "copy_pages_pair",
+    "copy_plan",
     "paged_attention_mh",
     "paged_attention_mh_ref",
+    "quant_rows",
+    "rope_inv_freq",
+    "rope_rows",
+    "rope_write_kv",
+    "rope_write_kv_ref",
     "split_plan",
     "write_token_pages",
     "write_token_pages_kernel",

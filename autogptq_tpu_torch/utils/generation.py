@@ -17,20 +17,23 @@ scores (the done pool holds many ``NEG_INF``) resolve to the lower index as
 :data:`JIT_GENERATE` (``AUTOGPTQ_TPU_JIT_GENERATE``, default on, as in the
 JAX package, where it jits each ``generate``) is the counterpart of that
 whole-program jit: a greedy or paged-beam ``generate`` on the card runs its
-decode step (:class:`GreedyStep`, :class:`PagedBeamStep`: the forward of one
-token from the embedding to the f32 logits, with the write cursor, positions,
-validity, K2's bounds and the page tables in buffers that persist for the
-call and are updated in place) eagerly once, captures it into one CUDA graph
-and replays that for every later step (``build.StepGraph``). Sampling, the
-EOS bookkeeping and the beams' choices (``_Beams.advance``, which bakes the
-step into Python floats, and ``_paged_reorder`` with its K8b launch) stay
-eager between replays. A graph lives for one call: ``build.split_scratch``
-grows its workspaces by replacing them. With the switch off, and on the CPU,
-the same step objects run eagerly, one dispatch per operation. Not captured,
-and eager whatever the switch: the prefill, training, the contiguous beam
-path (``_generate_beam``, taken by adaption-prompt models) and the greedy
-decode of an adaption-prompt model, whose dense attention reads the host
-cursor.
+decode step eagerly once, captures it into one CUDA graph and replays that
+for every later step (``build.StepGraph``). :class:`GreedyStep` is the
+forward of one token from the embedding to the f32 logits, with the write
+cursor, positions, validity and K2's bounds in buffers that persist for the
+call and are updated in place; sampling and the EOS bookkeeping stay eager
+between replays. :class:`PagedBeamStep` is the whole beam step of the JAX
+package's ``step_fn``: the forward, the beams' choice (``_Beams.advance``,
+which reads the step from a device counter and updates the beams' state in
+place) and the reorder (``_paged_reorder``: the table update and K8b), so
+the host loop only replays. In both, each layer's RoPE and K/V write are one
+K8a launch (``ops/paged_attn.rope_write_kv``). A graph lives for one call:
+``build.split_scratch`` grows its workspaces by replacing them. With the
+switch off, and on the CPU, the same step objects run eagerly, one dispatch
+per operation. Not captured, and eager whatever the switch: the prefill,
+training, the contiguous beam path (``_generate_beam``, taken by
+adaption-prompt models) and the greedy decode of an adaption-prompt model,
+whose dense attention reads the host cursor.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ from ..models.arch import KVCache
 from ..ops import build
 from ..ops.gemm import check_routed_errors
 from ..ops.paged_attn import (check_page_errors, copy_pages_pair, paged_attention_mh,
-                               write_token_pages_kernel)
+                               quant_rows, rope_inv_freq, rope_write_kv)
 
 NEG_INF = -1e30
 PAGE_SIZE = 16
@@ -122,7 +125,7 @@ class GreedyStep:
         self.tok = torch.zeros(pos.shape, dtype=torch.int32, device=pos.device)
         self.device_cursor = not _has_adaption(params)
         if self.device_cursor:
-            cache.start_decode(validity)
+            cache.start_decode(validity, cfg)
 
     def __call__(self) -> torch.Tensor:
         if self.device_cursor:
@@ -192,18 +195,20 @@ def _flat_top2k(cand: torch.Tensor):
     return v2, torch.gather(i1f, 1, sel)
 
 
-def _beam_row_done(done_scores, best_raw, gen_len: float, p: float, early_stopping,
+def _beam_row_done(done_scores, best_raw, len_norm, p: float, early_stopping,
                    max_new_tokens: int) -> torch.Tensor:
     """HF ``BeamHypotheses.is_done``, vectorized over rows: the pool is full
     and (``early_stopping`` is True, or no candidate can still beat the worst
-    kept hypothesis at the best attainable normalization)."""
+    kept hypothesis at the best attainable normalization). ``len_norm`` is
+    the current generated length to the power ``p`` (a float, or an f32
+    tensor ``[1]``)."""
     pool_full = done_scores[:, -1] > NEG_INF / 2
     if early_stopping is True:
         return pool_full
     if early_stopping == "never" and p > 0.0:
         div = float(max_new_tokens) ** p
     else:   # False, or 'never' with p <= 0: the best length is the current one
-        div = gen_len ** p
+        div = len_norm
     return pool_full & (done_scores[:, -1] >= best_raw / div)
 
 
@@ -232,23 +237,24 @@ def _beam_pool_seed(lp0, k: int, eos: Optional[int], p: float, early_stopping,
     return done_scores, done_tokens, frozen, s2k, tok2k
 
 
-def _beam_pool_update(step: int, out, s2k, tok2k, beam2k, done_scores, done_tokens, frozen,
-                      k: int, eos: int, p: float, early_stopping, max_new_tokens: int):
+def _beam_pool_update(step: torch.Tensor, len_norm: torch.Tensor, out, s2k, tok2k, beam2k,
+                      done_scores, done_tokens, frozen, k: int, eos: int, p: float,
+                      early_stopping, max_new_tokens: int):
     """Per-step HF ``BeamSearchScorer.process`` + ``is_done``, vectorized over
-    rows: generated length ``step + 1``; EOS candidates enter the pool only
-    when ranked within the top ``k``; ``is_done`` compares against the best
-    raw candidate, EOS ones included. Returns (s2k with EOS masked, pool
-    scores, pool tokens, frozen)."""
+    rows: generated length ``step + 1`` (``step`` int64 ``[1]`` on the
+    device, ``len_norm`` that length to the power ``p``, f32 ``[1]``); EOS
+    candidates enter the pool only when ranked within the top ``k``;
+    ``is_done`` compares against the best raw candidate, EOS ones included.
+    Returns (s2k with EOS masked, pool scores, pool tokens, frozen)."""
     k2 = 2 * k
     is_eos = tok2k == eos
     rank_ok = torch.arange(k2, device=s2k.device)[None, :] < k
-    gen_len = step + 1.0
-    cand_norm = torch.where(is_eos & rank_ok & ~frozen[:, None], s2k / (gen_len ** p), NEG_INF)
+    cand_norm = torch.where(is_eos & rank_ok & ~frozen[:, None], s2k / len_norm, NEG_INF)
     cand_tok = _take_rows(out, beam2k)
-    cand_tok[:, :, step] = eos
+    cand_tok.index_fill_(2, step, eos)
     done_scores, di = _top_k(torch.cat([done_scores, cand_norm], dim=1), k)
     done_tokens = _take_rows(torch.cat([done_tokens, cand_tok], dim=1), di)
-    frozen = frozen | _beam_row_done(done_scores, s2k.amax(dim=1), gen_len, p, early_stopping,
+    frozen = frozen | _beam_row_done(done_scores, s2k.amax(dim=1), len_norm, p, early_stopping,
                                      max_new_tokens)
     s2k = torch.where(is_eos, NEG_INF, s2k)
     return s2k, done_scores, done_tokens, frozen
@@ -256,7 +262,10 @@ def _beam_pool_update(step: int, out, s2k, tok2k, beam2k, done_scores, done_toke
 
 @dataclass
 class _Beams:
-    """Beam-search bookkeeping shared by the contiguous and the paged path."""
+    """Beam-search bookkeeping shared by the contiguous and the paged path.
+    After :meth:`start` the state lives in tensors that :meth:`advance`
+    updates in place, the step in a device counter: a CUDA graph of the
+    paged step replays the advance (:class:`PagedBeamStep`)."""
 
     k: int
     eos: Optional[int]
@@ -270,19 +279,27 @@ class _Beams:
     done_tokens: torch.Tensor = None   # [B, k, M] int32
     frozen: torch.Tensor = None        # [B] bool: row is done
     cur_tok: torch.Tensor = None       # [B * k] int32: the token each beam feeds next
+    step: torch.Tensor = None          # int64 [1]: the step advance() takes next
+    len_norm: torch.Tensor = None      # f32 [M]: (j + 1) ** p, the length norm of step j
 
-    def _logprobs(self, logits: torch.Tensor, step: int) -> torch.Tensor:
+    def _logprobs(self, logits: torch.Tensor, early) -> torch.Tensor:
+        """Log-probabilities, EOS masked where ``early`` (True, or a bool
+        tensor ``[1]``: the step is below ``min_new_tokens``)."""
         lp = torch.log_softmax(logits.float(), dim=-1)
-        if self.eos is not None and self.min_new_tokens > 0 and step < self.min_new_tokens:
-            lp = lp.clone()
-            lp[:, self.eos] = NEG_INF
+        if self.eos is not None and self.min_new_tokens > 0:
+            lp[:, self.eos] = NEG_INF if early is True else torch.where(early, NEG_INF,
+                                                                        lp[:, self.eos])
         return lp
 
     def start(self, logits_b: torch.Tensor) -> None:
         """Step 0 from the prefill's last logits ``[B, V]``: the k beams of a
         row are identical until this step decides them."""
         b, dev = logits_b.shape[0], logits_b.device
-        lp0 = self._logprobs(logits_b, 0)
+        self.step = torch.ones(1, dtype=torch.int64, device=dev)
+        # each step's norm rounded from the double power, as a Python float divisor was
+        self.len_norm = torch.tensor([float(j + 1) ** self.p for j in range(self.max_new_tokens)],
+                                     dtype=torch.float32, device=dev)
+        lp0 = self._logprobs(logits_b, True)
         self.done_scores, self.done_tokens, self.frozen, s2k, tok2k = _beam_pool_seed(
             lp0, self.k, self.eos, self.p, self.early_stopping, self.max_new_tokens)
         self.scores, sel = _top_k(s2k, self.k)
@@ -291,27 +308,35 @@ class _Beams:
         self.out[:, :, 0] = top_tok
         self.cur_tok = top_tok.reshape(-1)
 
-    def advance(self, logits: torch.Tensor, step: int) -> torch.Tensor:
-        """One step from the beams' logits ``[B * k, V]``: picks the new
-        beams and returns, for each, the flat index of its parent beam
-        ``[B * k]``."""
+    def advance(self, logits: torch.Tensor) -> torch.Tensor:
+        """One step from the beams' logits ``[B * k, V]`` at the step
+        :attr:`step` holds: picks the new beams, updates the state and the
+        step in place, reads nothing on the host, and returns, for each beam,
+        the flat index of its parent beam ``[B * k]``."""
         b = self.scores.shape[0]
-        k = self.k
-        lp = self._logprobs(logits, step).reshape(b, k, -1)
+        k, step = self.k, self.step
+        lp = self._logprobs(logits, step < self.min_new_tokens).reshape(b, k, -1)
         vocab = lp.shape[2]
         s2k, flat_idx = _flat_top2k(self.scores[:, :, None] + lp)
         beam2k = flat_idx // vocab
         tok2k = (flat_idx % vocab).to(torch.int32)
         if self.eos is not None:
-            s2k, self.done_scores, self.done_tokens, self.frozen = _beam_pool_update(
-                step, self.out, s2k, tok2k, beam2k, self.done_scores, self.done_tokens,
-                self.frozen, k, self.eos, self.p, self.early_stopping, self.max_new_tokens)
-        self.scores, sel = _top_k(s2k, k)
+            s2k, done_scores, done_tokens, frozen = _beam_pool_update(
+                step, self.len_norm.index_select(0, step), self.out, s2k, tok2k, beam2k,
+                self.done_scores, self.done_tokens, self.frozen, k, self.eos, self.p,
+                self.early_stopping, self.max_new_tokens)
+            self.done_scores.copy_(done_scores)
+            self.done_tokens.copy_(done_tokens)
+            self.frozen.copy_(frozen)
+        scores, sel = _top_k(s2k, k)
         beam_idx = torch.gather(beam2k, 1, sel)
         tok_idx = torch.gather(tok2k, 1, sel)
-        self.out = _take_rows(self.out, beam_idx)
-        self.out[:, :, step] = tok_idx
-        self.cur_tok = tok_idx.reshape(-1)
+        out = _take_rows(self.out, beam_idx)
+        out.scatter_(2, step.view(1, 1, 1).expand(b, k, 1), tok_idx[:, :, None])
+        self.scores.copy_(scores)
+        self.out.copy_(out)
+        self.cur_tok.copy_(tok_idx.reshape(-1))
+        step.add_(1)
         return (torch.arange(b, device=beam_idx.device)[:, None] * k + beam_idx).reshape(-1)
 
     def finish(self, num_return_sequences: int) -> torch.Tensor:
@@ -362,26 +387,17 @@ def _generate_beam(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
     beams = _Beams(k, eos_token_id, float(length_penalty), early_stopping, max_new_tokens,
                    min_new_tokens)
     beams.start(logits[:, -1])
-    for step in range(1, max_new_tokens):
+    for _ in range(1, max_new_tokens):
         validity[:, cache.length] = 1
         logits, cache = arch.forward(params, beams.cur_tok[:, None], cfg, cache=cache,
                                      positions=cur_pos[:, None], attn_mask=validity,
                                      dtype=dtype, mask_contig=True)
-        parent = beams.advance(logits[:, -1], step)
+        parent = beams.advance(logits[:, -1])
         cache.k = cache.k.index_select(1, parent)
         cache.v = cache.v.index_select(1, parent)
         validity = validity[parent]
         cur_pos = cur_pos[parent] + 1
     return beams.finish(num_return_sequences)
-
-
-def _quant(x: torch.Tensor):
-    """Per-(slot, head) int8 over the last axis: ``(codes, scale [..., 1])``
-    with value = code * scale / 127.5 (the JAX package's paged int8 scheme)."""
-    xf = x.float()
-    s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
-    q = torch.round(xf * (127.5 / s))
-    return q.clamp(-127, 127).to(torch.int8), s
 
 
 @dataclass
@@ -461,7 +477,7 @@ def beam_paged_prefill(params: dict, tokens: torch.Tensor, mask: torch.Tensor, c
         k_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         v_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         for pool, scale, a in ((k_pool, k_scale, cache_b.k), (v_pool, v_scale, cache_b.v)):
-            q, s = _quant(to_pages(a))
+            q, s = quant_rows(to_pages(a))
             pool[:, 1:g0] = q
             scale[:, 1:g0] = s[..., 0]
     else:
@@ -492,19 +508,21 @@ def beam_paged_prefill(params: dict, tokens: torch.Tensor, mask: torch.Tensor, c
 
 
 def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.Tensor,
-                      pos: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """One decode token per beam over the paged cache: every layer writes the
-    token's K/V into the beam's own current page (K8a) and attends over the
-    beam's live pages (K7). ``pos`` ``[B * k]`` is the slot of the incoming
-    token. Returns the logits ``[B * k, V]`` f32. On the card the caller reads
-    K8a's target check with :func:`check_page_errors`."""
+                      pos: torch.Tensor, dtype: torch.dtype,
+                      inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode token per beam over the paged cache: every layer turns q
+    and k and writes K/V into the beam's own current page in one K8a launch
+    (``rope_write_kv``, which finds the page in ``cache.tables``) and attends
+    over the beam's live pages (K7). ``pos`` ``[B * k]`` is the slot (and the
+    position) of the incoming token; ``inv_freq`` RoPE's
+    (``rope_inv_freq``, made here when not given). Returns the logits ``[B *
+    k, V]`` f32. On the card the caller reads K8a's target check with
+    :func:`check_page_errors`."""
     bk = cur_tok.shape[0]
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ps = cache.page_size
     scale = d ** -0.5
-    rows = torch.arange(bk, device=cur_tok.device)
-    page_of = cache.tables[rows, pos // ps].contiguous()
-    off = (pos % ps).to(torch.int32)
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(cfg.rope_theta, d, cur_tok.device)
     lengths = (pos + 1).to(torch.int32)
     x = arch.embed(params, cur_tok[:, None], dtype)
     # Fused norm+matmul (arch.FUSE_NORM), the JAX _fwd_step's branch: q/k/v take the input
@@ -517,23 +535,13 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
             hn, lin = x, functools.partial(arch._prenorm_linear, norm=bp["input_norm"], cfg=cfg)
         else:
             hn, lin = arch.rms_norm(x, bp["input_norm"]["weight"], cfg.norm_eps), arch.apply_linear
-        q = lin(ap["q_proj"], hn).view(bk, 1, h, d)
-        kk = lin(ap["k_proj"], hn).view(bk, 1, hkv, d)
-        vv = lin(ap["v_proj"], hn).view(bk, 1, hkv, d)
-        q, kk = arch.apply_rope(q, kk, pos[:, None], cfg)
-        if cache.k_scale is not None:
-            kq, ks = _quant(kk[:, 0])
-            vq, vs = _quant(vv[:, 0])
-            write_token_pages_kernel(cache.k_pool, cache.v_pool, idx, page_of, off, kq, vq,
-                                     check=False)
-            write_token_pages_kernel(cache.k_scale, cache.v_scale, idx, page_of, off,
-                                     ks[..., 0], vs[..., 0], check=False)
-        else:
-            write_token_pages_kernel(cache.k_pool, cache.v_pool, idx, page_of, off,
-                                     kk[:, 0], vv[:, 0], check=False)
-        of = paged_attention_mh(q[:, 0].contiguous(), cache.k_pool, cache.v_pool, lengths,
-                                cache.tables, cache.k_scale, cache.v_scale, sm_scale=scale,
-                                layer=idx)
+        q = rope_write_kv(lin(ap["q_proj"], hn).view(bk, h, d),
+                          lin(ap["k_proj"], hn).view(bk, hkv, d),
+                          lin(ap["v_proj"], hn).view(bk, hkv, d), pos, inv_freq, cache.k_pool,
+                          cache.v_pool, idx, tables=cache.tables, k_scale=cache.k_scale,
+                          v_scale=cache.v_scale, check=False)
+        of = paged_attention_mh(q, cache.k_pool, cache.v_pool, lengths, cache.tables,
+                                cache.k_scale, cache.v_scale, sm_scale=scale, layer=idx)
         x = x + arch.apply_linear(ap["o_proj"], of.reshape(bk, 1, h * d).to(x.dtype))
         if fuse_norm:
             x = x + arch.mlp(bp["mlp"], x, cfg, prenorm=bp["post_norm"])
@@ -544,22 +552,26 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
 
 
 class PagedBeamStep:
-    """One paged beam decode step over buffers that persist for the call:
-    the beams' tokens ``cur_tok [B * k]``, which the loop fills before each
-    call, the incoming token's slot ``pos [B * k]`` and the cache, whose
-    ``tables`` :func:`_paged_reorder` updates in place. A call runs
-    :func:`paged_decode_step` and advances ``pos``; it returns the logits
-    ``[B * k, V]`` f32."""
+    """One whole paged beam step, the JAX package's ``step_fn``, over buffers
+    that persist for the call: :func:`paged_decode_step` of the beams'
+    tokens (``beams.cur_tok``) at the incoming token's slot ``pos [B * k]``,
+    ``beams.advance`` (the step from its device counter, the state updated in
+    place) and :func:`_paged_reorder` (the tables in place, K8b). Reads
+    nothing on the host; returns the logits ``[B * k, V]`` f32 that the
+    beams chose from."""
 
-    def __init__(self, params: dict, cfg, cache: PagedBeamCache, dtype: torch.dtype):
-        self.params, self.cfg, self.cache, self.dtype = params, cfg, cache, dtype
+    def __init__(self, params: dict, cfg, cache: PagedBeamCache, dtype: torch.dtype,
+                 beams: _Beams):
+        self.params, self.cfg, self.cache, self.dtype, self.beams = (params, cfg, cache, dtype,
+                                                                     beams)
         self.pos = cache.plen.clone()
-        self.cur_tok = torch.zeros_like(self.pos)
+        self.inv_freq = rope_inv_freq(cfg.rope_theta, cfg.head_dim, self.pos.device)
 
     def __call__(self) -> torch.Tensor:
-        logits = paged_decode_step(self.params, self.cfg, self.cache, self.cur_tok, self.pos,
-                                   self.dtype)
+        logits = paged_decode_step(self.params, self.cfg, self.cache, self.beams.cur_tok,
+                                   self.pos, self.dtype, self.inv_freq)
         self.pos.add_(1)
+        _paged_reorder(self.cache, self.beams.advance(logits), self.pos)   # pos: the next slot
         return logits
 
 
@@ -592,19 +604,17 @@ def _generate_beam_paged(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
     written again and are shared by sibling beams. Attention is K7, token
     writes K8a, page copies K8b; their page ids are checked once, at the
     end. The decode step is :class:`PagedBeamStep`, through a CUDA graph on
-    the card with :data:`JIT_GENERATE` on. Returns ``[B,
+    the card with :data:`JIT_GENERATE` on, with the beams' choice and the
+    reorder inside it: the host loop only replays. Returns ``[B,
     num_return_sequences, max_new_tokens]``."""
     logits_b, cache = beam_paged_prefill(params, tokens, mask, cfg, num_beams, max_new_tokens,
                                          dtype, kv_quant)
     beams = _Beams(num_beams, eos_token_id, float(length_penalty), early_stopping,
                    max_new_tokens, min_new_tokens)
     beams.start(logits_b)
-    step = PagedBeamStep(params, cfg, cache, dtype)
-    run = _stepper(step, cache.k_pool.device)
-    for i in range(1, max_new_tokens):
-        step.cur_tok.copy_(beams.cur_tok)
-        parent = beams.advance(run(), i)
-        _paged_reorder(cache, parent, step.pos)     # the step advanced pos to the next slot
+    run = _stepper(PagedBeamStep(params, cfg, cache, dtype, beams), cache.k_pool.device)
+    for _ in range(1, max_new_tokens):
+        run()
     check_page_errors(cache.k_pool.device)
     return beams.finish(num_return_sequences)
 
@@ -678,6 +688,7 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
         float(temperature or 0.0), model.dtype, generator, pad_token_id=pad_token_id,
     ).cpu().numpy()
     check_routed_errors(dev)
+    check_page_errors(dev)
     return np.concatenate([ids, new], axis=1)
 
 

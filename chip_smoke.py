@@ -42,18 +42,31 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 5. K7 (split-KV paged attention) against ``paged_attention_mh_ref`` at the
    beam-4 Llama-2-7B shape (bf16 and int8 pools), GQA, unequal lengths and a
    length sweep (bf16 and int8), as K2; ptxas' registers and spills of every
-   K2 and K7 instance (a spill fails the run); K8a
-   (page row write) and K8b (page copy, a src naming another copy's dst)
-   bit-equal against ``write_token_pages`` / ``copy_pages`` on bf16, int8
-   and 4-D scale pools, and refusing an id outside the pool without writing.
-   Library yardsticks: ``scaled_dot_product_attention`` over the same live
-   K/V laid out contiguously, ``index_put_``, and ``index_select`` +
-   ``index_copy_``.
+   K2 and K7 instance (a spill fails the run). K8a's fused RoPE + K/V write
+   (``rope_write_kv``) against its plain version (``rope_write_kv_ref``: the
+   rotation of ``arch.apply_rope``, then ``write_token_pages`` or
+   ``index_copy_``, ``quant_rows`` for int8) at the steps' shapes: the beam-4
+   pools in bf16 and in int8 with their scales, the greedy contiguous cache at
+   the cursor, Mixtral's GQA shape over its cache and its beam-4 pools; the
+   elements that differ are counted and printed, at most one ulp of the cache's
+   dtype and one int8 code allowed; one launch each. K8a with the rotation off
+   (``write_token_pages_kernel``, a page row write) and K8b (one cluster per
+   (layer, pool); a src naming another copy's dst, a swap cycle, self-copies)
+   bit-equal against ``write_token_pages`` / ``copy_pages`` on bf16, int8 and
+   4-D scale pools, K8b timed beside its gather and scatter kernels on the
+   same copies, and refusing an id outside the pool (a position past the
+   table too) without writing. Library yardsticks:
+   ``scaled_dot_product_attention`` over the same live K/V laid out
+   contiguously, ``index_put_`` (the fused write has no one call: the write
+   alone is timed beside it), and ``index_select`` + ``index_copy_``.
 6. The main path: writes a random 4-bit g128 Llama-2-7B checkpoint (all 32
    layers), loads it with ``AutoGPTQForCausalLM.from_quantized`` on the
    default device and greedy-decodes 512 tokens from a 16-token prompt at
    batch 1, with the launch counts set to 0 just before and read just after
-   (exactly 224 ``w4a16_gemm_gemv`` per token, no SIMT GEMV); then a batch-2
+   (exactly 224 ``w4a16_gemm_gemv`` per token, no SIMT GEMV; exactly one
+   fused RoPE + K/V write, ``rope_write_kv``, per layer and decode step, and
+   no Python call of ``arch.apply_rope`` but the prefill's nor of
+   ``Tensor.index_copy_``); then a batch-2
    left-padded run of 16 tokens (its 32-row prefill exactly 224
    ``w4a16_gemm_wgmma``). A profile of a short generate, and of the
    same generate with every quantized matmul forced through the SIMT kernels
@@ -63,7 +76,13 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
 7. The beam path on the same model: ``generate(num_beams=4)`` of 512 tokens
    over the paged bf16 cache (counts set to 0 just before, read just after;
    its tokens repeat in the 64-token runs below), then a 64-token run over
-   the int8 paged cache (224 GEMV launches per step in both). A profile of a
+   the int8 paged cache (224 GEMV launches per step in both; exactly one
+   ``rope_write_kv`` per layer and step, the int8 quantization inside it; one
+   K8b ``copy_pages_pair`` per step and one at setup, two with int8 pools,
+   every one of the steps' after the warm-up replayed from the step's CUDA
+   graph, which holds the beams' advance and reorder; no Python call of
+   ``arch.apply_rope`` but the prefill's nor of ``Tensor.index_copy_``), and
+   its graph turn against the per-op loop (identical tokens). A profile of a
    short beam-4 generate, through both routes as for greedy. Then the same
    model with ``arch.FUSE_NORM = "1"`` (``AUTOGPTQ_TPU_FUSE_NORM``; put back
    after): 256 greedy tokens (exactly 160 ``w4a16_gemm_gemv_norm``, 160 rstd
@@ -176,7 +195,7 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    SIMT routed kernel, K2 32, K1's GEMV 128 per decode token), a profile by
    kernel family through both routes (no reduce, at most one K1 and one K9
    kernel per call on the new one), and 64 tokens of beam 4 over the paged bf16
-   cache (K9's GEMV at P = 8, K7, K8a, K8b).
+   cache (K9's GEMV at P = 8, K7, the fused K8a, K8b; exact counts).
 17. Mixtral card against CPU on a 2-layer full-width cut, f32 on both sides
    (logits of a prefill and of a routed decode step), the share of the
    CPU's routing choices that an f32 and a bf16 card run make, and one
@@ -235,10 +254,11 @@ launch counts include the kernels each replay ran (``build.replayed`` says how
 many), so every exact count above holds as in the per-op loop, and a kernel
 entry's ``replayed`` gives the share of its ``launches`` that replays ran. The
 profiles by kernel family run the per-op loop (``JIT_GENERATE`` off). The main
-path, beam 4, Mixtral and the fused-norm greedy run each add a turn of the
-per-op loop (64 tokens) beside their graph run, with the same tokens, and a
-profiled replay window: rate, host ms per token, capture and warm-up seconds,
-replayed launches and the device's busy share of each.
+path, beam 4 (over bf16 and over int8 pools), Mixtral and the fused-norm
+greedy run each add a turn of the per-op loop (64 tokens) beside their graph
+run, with the same tokens, and a profiled replay window: rate, host ms per
+token, capture and warm-up seconds, replayed launches and the device's busy
+share of each.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. Times are medians of CUDA-event times of warmed calls with the 50 MB
@@ -259,6 +279,7 @@ import types
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 # K1: the kernel and its plain version both dequantize and accumulate in f32 (the
 # wgmma/TMA kernels carry the weight as a bf16 hi/lo pair, about 16 bits) and
 # round once to bf16 (2^-9 relative). Allowed: 1% of the largest output.
@@ -418,6 +439,34 @@ def jit_generate(on: bool):
         generation.JIT_GENERATE = old
 
 
+@contextlib.contextmanager
+def python_calls():
+    """Counts the Python calls of ``arch.apply_rope`` and of
+    ``Tensor.index_copy_`` inside: the prefill's, the eager warm-up step's
+    and the capture's (a CUDA graph's replays make none)."""
+    import collections
+
+    import torch
+    from autogptq_tpu_torch.models import arch
+
+    calls = collections.Counter()
+    real_rope, real_copy = arch.apply_rope, torch.Tensor.index_copy_
+
+    def rope(*a, **kw):
+        calls["apply_rope"] += 1
+        return real_rope(*a, **kw)
+
+    def index_copy_(self, *a, **kw):
+        calls["index_copy_"] += 1
+        return real_copy(self, *a, **kw)
+
+    arch.apply_rope, torch.Tensor.index_copy_ = rope, index_copy_
+    try:
+        yield calls
+    finally:
+        arch.apply_rope, torch.Tensor.index_copy_ = real_rope, real_copy
+
+
 def python_steps(steps: int) -> int:
     """How many of a generate's ``steps`` one-token decode steps run their
     Python: all of them eagerly, two with the CUDA graph (the warm-up and the
@@ -475,9 +524,9 @@ class Timer:
         return (times[(iters - 1) // 2] + times[iters // 2]) / 2
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOP_PER_S
+    t_ops = flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2148,7 +2197,8 @@ def phase_other_widths(torch, np, work: str) -> dict:
         check(out2.shape == (2, PROMPT_LEN + 4), f"{bits}-bit batch-2 output shape {out2.shape}")
         check(counts2 == {kernel + "_wgmma": 7 * OTHER_WIDTH_LAYERS,
                           kernel + "_gemv": 7 * OTHER_WIDTH_LAYERS * 3,
-                          "flash_decode": 3 * OTHER_WIDTH_LAYERS},
+                          "flash_decode": 3 * OTHER_WIDTH_LAYERS,
+                          "rope_write_kv": 3 * OTHER_WIDTH_LAYERS},
               f"{bits}-bit batch-2 launches {counts2}")
         clear_counts(build)
         with gemm.forced_kernel("mma"):
@@ -2725,6 +2775,22 @@ def attention_ptxas() -> list:
     return rows
 
 
+def page_ops_ptxas() -> list:
+    """ptxas' registers, spills and shared memory of K8a's and K8b's
+    instances, reported (K8a is launch-bound: a spill is not held)."""
+    rows = []
+    for lib, key in (("K8a", "kv_write_kernel"), ("K8b", "copy_pages_cluster_kernel"),
+                     ("K8b gather/scatter", "move_pages_kernel")):
+        mine = ptxas_report("page_ops", key)
+        check(len(mine) > 0, f"no {lib} entry in page_ops' ptxas log")
+        print(f"{lib} ptxas: {len(mine)} instances, {min(r['registers'] for r in mine)}-"
+              f"{max(r['registers'] for r in mine)} registers, spill bytes "
+              f"{max(r['spill_stores'] or 0 for r in mine)}/"
+              f"{max(r['spill_loads'] or 0 for r in mine)} at most", flush=True)
+        rows += mine
+    return rows
+
+
 def decode_ms_per_token(np, rows, prefix, layers) -> float:
     """A kernel's device ms per token over a run of NEW_TOKENS from a
     PROMPT_LEN prompt: the sweep rows' times (``prefix``), interpolated
@@ -2736,11 +2802,138 @@ def decode_ms_per_token(np, rows, prefix, layers) -> float:
     return float(np.interp(windows, [p[0] for p in pts], [p[1] for p in pts]).mean() * layers)
 
 
+MANTISSA_BITS = {"torch.bfloat16": 7, "torch.float16": 10, "torch.float32": 23}
+# K8a's fused cases: (name, cache layout, activations, int8 pools, B, H, Hkv, layers, slots of
+# a row: the paged table's reach or the contiguous cache's S, the position written). The beam-4
+# pools and the greedy cache of the Llama-2-7B main path at its last step (16 + 511), Mixtral's
+# GQA cache and beam-4 pools at its depth and lengths.
+K8A_CASES = (
+    ("beam4 bf16", "paged", "bfloat16", False, BEAMS, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
+    ("beam4 int8", "paged", "bfloat16", True, BEAMS, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
+    ("greedy bf16", "cursor", "bfloat16", False, 1, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
+    ("Mixtral GQA", "cursor", "bfloat16", False, 1, 32, 8, MIXTRAL_LAYERS,
+     PROMPT_LEN + MIXTRAL_NEW_TOKENS, 143),
+    ("Mixtral beam4", "paged", "bfloat16", False, BEAMS, 32, 8, MIXTRAL_LAYERS,
+     PROMPT_LEN + MIXTRAL_BEAM_TOKENS, 79),
+)
+K8A_MAIN = "greedy bf16"     # the main path's shape: the kernel entry's times
+
+
+def ulp_off(torch, got, want, dtype) -> tuple:
+    """(elements that differ, elements more than one ulp of ``dtype`` apart)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 1 - MANTISSA_BITS[str(dtype)])
+    return int((g != w).sum()), int(((g - w).abs() > ulp).sum())
+
+
+def k8a_fused_case(torch, pam, gen, timer, case) -> dict:
+    """One of K8A_CASES: the kernel against ``rope_write_kv_ref`` on clones of
+    the same inputs, then timed beside it and beside the write alone."""
+    from autogptq_tpu_torch.ops import build
+
+    name, layout, act, quant, b, h, hkv, layers, reach, p = case
+    d, dtype = 128, getattr(torch, act)
+    q, k, v = (torch.randn((b, n, d), generator=gen, device="cuda").to(dtype)
+               for n in (h, hkv, hkv))
+    inv = pam.rope_inv_freq(10000.0, d, "cuda")
+    kw = {}
+    if layout == "paged":   # beam_paged_prefill's tables: a shared prompt page, then own pages
+        w = -(-reach // PAGE)
+        n_pages = 2 + b * w
+        ordinal = torch.arange(w, device="cuda")[None]
+        tables = torch.where(ordinal == 0, 1, 2 + torch.arange(b, device="cuda")[:, None] * w
+                             + ordinal).to(torch.int32)
+        pos = torch.full((b,), p, dtype=torch.int32, device="cuda")
+        shape = (layers, n_pages, hkv, PAGE, d)
+        if quant:
+            kc = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            kw = dict(k_scale=torch.rand(shape[:-1], generator=gen, device="cuda") + 0.1)
+            kw["v_scale"] = kw["k_scale"].clone()
+        else:
+            kc = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        kw["tables"] = tables
+        page_of = tables[torch.arange(b, device="cuda"), pos.long() // PAGE]
+        idx = (torch.full((b, 1), layers - 1, device="cuda"), page_of.long()[:, None],
+               torch.arange(hkv, device="cuda")[None], (pos.long() % PAGE)[:, None])
+    else:
+        kc = torch.randn((layers, b, reach, hkv, d), generator=gen, device="cuda").to(dtype)
+        pos = torch.full((b,), p, dtype=torch.int64, device="cuda")
+        kw["cursor"] = torch.tensor([p], device="cuda")
+    vc = kc.clone()
+    layer = layers - 1
+    want = {key: t.clone() for key, t in dict(k=kc, v=vc, **kw).items()}
+    want_q = pam.rope_write_kv_ref(q, k, v, pos, inv, want["k"], want["v"], layer,
+                                   kw.get("tables"), kw.get("cursor"), want.get("k_scale"),
+                                   want.get("v_scale"))
+    before = build.launches["rope_write_kv"]
+    got_q = pam.rope_write_kv(q, k, v, pos, inv, kc, vc, layer, **kw)
+    torch.cuda.synchronize()
+    check(build.launches["rope_write_kv"] == before + 1,
+          f"K8a {name}: not one launch")
+    diff = {"q": ulp_off(torch, got_q, want_q, dtype)}
+    code_err = 0
+    if quant:
+        for key, got in (("k", kc), ("v", vc)):
+            delta = (got.int() - want[key].int()).abs()
+            diff[key] = (int((delta > 0).sum()), int((delta > 1).sum()))
+            code_err = max(code_err, int(delta.max()))
+        for key in ("k_scale", "v_scale"):
+            diff[key] = ulp_off(torch, kw[key], want[key], dtype)
+    else:
+        diff["k"] = ulp_off(torch, kc, want["k"], dtype)
+        diff["v"] = ulp_off(torch, vc, want["v"], dtype)
+    check(all(over == 0 for _, over in diff.values()) and code_err <= 1,
+          f"K8a {name}: beyond one ulp or one int8 code of its plain version: {diff}")
+    max_abs = max(float((got_q.float() - want_q.float()).abs().max()),
+                  float((kc.float() - want["k"].float()).abs().max()) if not quant else 0.0)
+    del want, want_q
+    call = (lambda: pam.rope_write_kv(q, k, v, pos, inv, kc, vc, layer, check=False, **kw))
+    ms = timer.ms(call)
+    plain_ms = timer.ms(lambda: pam.rope_write_kv_ref(q, k, v, pos, inv, kc, vc, layer,
+                                                      kw.get("tables"), kw.get("cursor"),
+                                                      kw.get("k_scale"), kw.get("v_scale")))
+    if layout == "paged":    # the write alone, one call per pool
+        rows = (k.to(kc.dtype), v.to(vc.dtype))
+        write_ms = timer.ms(lambda: (kc.index_put_(idx, rows[0]), vc.index_put_(idx, rows[1])))
+    else:
+        cur = kw["cursor"]
+        write_ms = timer.ms(lambda: (kc[layer].index_copy_(1, cur, k[:, None]),
+                                     vc[layer].index_copy_(1, cur, v[:, None])))
+    es = k.element_size()
+    rows_out = 2 * b * hkv * (d * kc.element_size() + (4 if quant else 0))   # K, V (, scales)
+    moved = (b * (h + 2 * hkv) * d * es + b * h * d * es + rows_out + b * pos.element_size()
+             + d // 2 * 4 + (b * 4 if layout == "paged" else 8))
+    b_ms, b_by = bound_ms(moved, 6 * b * (h + hkv) * d // 2, F32_FLOP_PER_S)
+    print(f"K8a fused {name:13s} q {list(q.shape)}, k/v {list(k.shape)} {act} into "
+          f"{list(kc.shape)} {kc.dtype} ({layout}, position {p}): elements differing from "
+          f"rope_write_kv_ref (differ / beyond one ulp or one code): "
+          + ", ".join(f"{key} {a} / {o}" for key, (a, o) in diff.items())
+          + f"; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  the write alone "
+          f"({'index_put_' if layout == 'paged' else 'index_copy_'} x 2) {write_ms:.4f} ms  "
+          f"bound {b_ms:.5f} ms ({b_by})", flush=True)
+    return dict(case=name, layout=layout, q=list(q.shape), kv=list(k.shape), cache=list(kc.shape),
+                cache_dtype=str(kc.dtype), position=p, differing=diff, max_code_err=code_err,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=None,
+                write_only_ms=write_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+# K8b's copies at the beam-4 pool shape: src[1] is dst[0] and src[2] is dst[1] (every read must
+# see the pool before any copy), src[3] == dst[3] copies a page onto itself; then a swap cycle
+K8B_COPIES = (([2, 35, 68, 101], [35, 68, 120, 101]), ([2, 35, 68, 101], [35, 2, 68, 120]))
+
+
 def phase_k8(torch, timer) -> tuple:
-    """K8a and K8b at the beam-4 Llama-2-7B pool shape, all 32 layers."""
+    """K8a fused (K8A_CASES), then K8a with the rotation off and K8b at the
+    beam-4 Llama-2-7B pool shape, all 32 layers."""
+    from autogptq_tpu_torch.ops import build
     from autogptq_tpu_torch.ops import paged_attn as pam
 
     gen = torch.Generator(device="cuda").manual_seed(8)
+    fused_rows = []
+    for case in K8A_CASES:
+        fused_rows.append(k8a_fused_case(torch, pam, gen, timer, case))
+        torch.cuda.empty_cache()
     layers, hkv, d, b = 32, 32, 128, BEAMS
     n_pages = 2 + BEAMS * 33
     cases = [("bf16 K/V", torch.bfloat16, 5), ("int8 K/V", torch.int8, 5),
@@ -2780,47 +2973,63 @@ def phase_k8(torch, timer) -> tuple:
         write_rows.append(dict(case=name, rows=list(rk.shape), pool=list(kp.shape),
                                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=b_ms, bound_by=b_by))
-        print(f"K8a {name:14s} rows {list(rk.shape)} into {list(kp.shape)} {dtype}: bit-equal  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  index_put_ {lib_ms:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"K8a rotation off {name:14s} rows {list(rk.shape)} into {list(kp.shape)} {dtype}: "
+              f"bit-equal  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  index_put_ {lib_ms:.4f} ms"
+              f"  bound {b_ms:.5f} ms ({b_by})", flush=True)
 
-        # src[1] is dst[0] and src[2] is dst[1]: every read must see the pool
-        # before any copy; src[3] == dst[3] copies a page onto itself
-        src = torch.tensor([2, 35, 68, 101], dtype=torch.int32, device="cuda")
-        dst = torch.tensor([35, 68, 120, 101], dtype=torch.int32, device="cuda")
-        want_k = pam.copy_pages(kp.clone(), src, dst)
-        want_v = pam.copy_pages(vp.clone(), src, dst)
-        pam.copy_pages_pair(kp, vp, src, dst)
-        torch.cuda.synchronize()
-        check(torch.equal(kp, want_k) and torch.equal(vp, want_v),
-              f"K8b {name}: pools differ from copy_pages")
-        del want_k, want_v
+        page_bytes = kp[0, 0].numel() * kp.element_size()
+        for src_l, dst_l in K8B_COPIES:
+            src = torch.tensor(src_l, dtype=torch.int32, device="cuda")
+            dst = torch.tensor(dst_l, dtype=torch.int32, device="cuda")
+            want_k = pam.copy_pages(kp.clone(), src, dst)
+            want_v = pam.copy_pages(vp.clone(), src, dst)
+            before = build.launches["copy_pages_pair"]
+            pam.copy_pages_pair(kp, vp, src, dst)
+            torch.cuda.synchronize()
+            check(build.launches["copy_pages_pair"] == before + 1,
+                  f"K8b {name}: not one launch of its cluster kernel")
+            check(torch.equal(kp, want_k) and torch.equal(vp, want_v),
+                  f"K8b {name} {src_l} -> {dst_l}: pools differ from copy_pages")
+            del want_k, want_v
+        src = torch.tensor(K8B_COPIES[0][0], dtype=torch.int32, device="cuda")
+        dst = torch.tensor(K8B_COPIES[0][1], dtype=torch.int32, device="cuda")
         si, di = src.long(), dst.long()
         ms = timer.ms(lambda: pam.copy_pages_pair(kp, vp, src, dst, check=False))
         wrapper_ms = timer.ms(lambda: pam.copy_pages_pair(kp, vp, src, dst))
+        real_plan = pam.copy_plan
+        pam.copy_plan = lambda n, nbytes_: 0       # the two-kernel path on the same copies
+        try:
+            two_ms = timer.ms(lambda: pam.copy_pages_pair(kp, vp, src, dst, check=False))
+        finally:
+            pam.copy_plan = real_plan
         plain_ms = timer.ms(lambda: (pam.copy_pages(kp, src, dst), pam.copy_pages(vp, src, dst)))
         lib_ms = timer.ms(lambda: (kp.index_copy_(1, di, kp.index_select(1, si)),
                                    vp.index_copy_(1, di, vp.index_select(1, si))))
-        page_bytes = kp[0, 0].numel() * kp.element_size()
-        b_ms, b_by = bound_ms(2 * 2 * layers * src.numel() * page_bytes + nbytes(src, dst), 0.0)
-        copy_rows.append(dict(case=name, pages=src.numel(), pool=list(kp.shape),
-                              max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+        moving = sum(a != c for a, c in zip(*K8B_COPIES[0]))      # self-copies move nothing
+        b_ms, b_by = bound_ms(2 * 2 * layers * moving * page_bytes + nbytes(src, dst), 0.0)
+        slices = pam.copy_plan(src.numel(), page_bytes)
+        copy_rows.append(dict(case=name, pages=src.numel(), moving=moving, pool=list(kp.shape),
+                              slices=slices, cluster=src.numel() * slices, max_abs_err=0.0, ms=ms,
+                              wrapper_ms=wrapper_ms, two_kernel_ms=two_ms, plain_ms=plain_ms,
                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"K8b {name:14s} {src.numel()} pages x {layers} layers x 2 pools of "
-              f"{list(kp.shape)} {dtype}, src aliasing dst: bit-equal  kernel {ms:.4f} ms "
-              f"(check=True, waiting for the id flag: {wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms  "
-              f"index_select+index_copy_ {lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+        print(f"K8b {name:14s} {src.numel()} pages ({moving} moving) x {layers} layers x 2 pools "
+              f"of {list(kp.shape)} {dtype}, clusters of {src.numel() * slices} blocks "
+              f"({slices} slice(s) of {page_bytes // slices} bytes); src aliasing dst, a swap "
+              f"cycle and self-copies: bit-equal  kernel {ms:.4f} ms (check=True, waiting for "
+              f"the id flag: {wrapper_ms:.4f} ms)  the gather and scatter kernels {two_ms:.4f} ms  "
+              f"plain {plain_ms:.4f} ms  index_select+index_copy_ {lib_ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
         if dtype == torch.bfloat16:
             refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst)
         del kp, vp
         torch.cuda.empty_cache()
-    return write_rows, copy_rows
+    return fused_rows, write_rows, copy_rows
 
 
 def refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst) -> None:
-    """K8a with a page id past the pool and K8b with a negative src and with a
-    repeated dst raise ValueError and leave both pools as they were."""
+    """K8a with a page id past the pool, fused with a position past the table,
+    and K8b with a negative src and with a repeated dst raise ValueError and
+    leave both pools as they were."""
     n_pages = kp.shape[1]
     bad_page = page_of.clone()
     bad_page[2] = n_pages
@@ -2829,8 +3038,14 @@ def refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst) ->
     dup_dst = dst.clone()
     dup_dst[3] = dst[0]
     want_k, want_v = kp.clone(), vp.clone()
+    b, hkv, d = rk.shape
+    tables = torch.arange(b * 2, dtype=torch.int32, device="cuda").reshape(b, 2)
+    past = torch.full((b,), 2 * PAGE, dtype=torch.int32, device="cuda")
+    inv = pam.rope_inv_freq(10000.0, d, "cuda")
     calls = (("K8a page id past the pool", lambda: pam.write_token_pages_kernel(
                  kp, vp, layer, bad_page, off, rk, rv)),
+             ("K8a fused: a position past the table", lambda: pam.rope_write_kv(
+                 rk, rk, rv, past, inv, kp, vp, layer, tables=tables)),
              ("K8b negative src", lambda: pam.copy_pages_pair(kp, vp, bad_src, dst)),
              ("K8b repeated dst", lambda: pam.copy_pages_pair(kp, vp, src, dup_dst)))
     for what, call in calls:
@@ -2841,8 +3056,9 @@ def refuse_bad_ids(torch, pam, kp, vp, layer, page_of, off, rk, rv, src, dst) ->
         else:
             raise SmokeFailure(f"{what}: no ValueError")
         check(torch.equal(kp, want_k) and torch.equal(vp, want_v), f"{what}: pools changed")
-    print("K8a/K8b bad ids: a page id past the pool, a negative src and a repeated dst each "
-          "raise ValueError and leave the pools unchanged", flush=True)
+    print("K8a/K8b bad ids: a page id past the pool, a position past the table (fused), a "
+          "negative src and a repeated dst each raise ValueError and leave the pools unchanged",
+          flush=True)
 
 
 def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
@@ -2867,11 +3083,12 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    clear_counts(build)
-    t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=NEW_TOKENS)
-    gen_s = time.perf_counter() - t0
-    counts = snapshot(build)
+    with python_calls() as calls:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=NEW_TOKENS)
+        gen_s = time.perf_counter() - t0
+        counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
 
     layers = cfg["num_hidden_layers"]
@@ -2886,6 +3103,7 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
           f"SIMT GEMV {counts.get('w4a16_gemm', 0)}, want 0")
     check(counts.get("flash_decode", 0) >= need_k2,
           f"K2 launched {counts.get('flash_decode', 0)} times, need >= {need_k2}")
+    check_fused_writes(counts, calls, layers, NEW_TOKENS - 1, "main path", pools=0)
     tok_s = NEW_TOKENS / gen_s
     print(f"main path: Llama-2-7B 4-bit g128, {layers} layers (full depth), batch 1, "
           f"{PROMPT_LEN}-token prompt, {NEW_TOKENS} new tokens greedy: checkpoint written in "
@@ -2927,6 +3145,36 @@ def phase_main_path(torch, np, ckpt_dir: str) -> tuple:
                                   dict(out=out, s=gen_s, tokens=NEW_TOKENS, counts=counts),
                                   routes.get("gemv"), PROFILE_TOKENS)
     return counts, model, out, counts2, routes
+
+
+def check_fused_writes(counts, calls, layers: int, steps: int, label: str, pools: int = 1) -> None:
+    """A generate of ``steps`` one-token decode steps made exactly one fused
+    RoPE + K/V write per layer and step and none with the rotation off, all
+    but the eager warm-up step's replayed from the step's CUDA graph; no
+    Python call of ``arch.apply_rope`` but the prefill's one per layer and
+    none of ``Tensor.index_copy_``. A paged beam run (``pools`` 1, or 2 with
+    int8 pools) also made ``pools`` K8b launches per step and at setup, every
+    step's but the warm-up's replayed, none through the gather and scatter."""
+    want = {"rope_write_kv": layers * steps}
+    if pools:
+        want["copy_pages_pair"] = pools * (steps + 1)
+    got = {key: counts.get(key, 0) for key in want}
+    rep = {key: counts.replayed.get(key, 0) for key in want}
+    want_rep = {"rope_write_kv": layers * (steps - 1), "copy_pages_pair": pools * (steps - 1)}
+    check(got == want and not counts.get("write_token_pages")
+          and not counts.get("copy_pages_pair_gather"),
+          f"{label}: K8a/K8b launches {got}, want {want}, and no rotation-off or gather launch "
+          f"({counts})")
+    check(all(rep[key] == want_rep[key] for key in want) or not counts.graphs,
+          f"{label}: replayed {rep} of {got}, want {want_rep}")
+    check(calls["apply_rope"] == layers and calls["index_copy_"] == 0,
+          f"{label}: Python calls {dict(calls)}, want {layers} apply_rope (the prefill's) and no "
+          f"index_copy_")
+    print(f"{label}: fused RoPE + K/V writes {got['rope_write_kv']} ({rep['rope_write_kv']} "
+          f"replayed) = one per layer and decode step"
+          + (f", K8b {got['copy_pages_pair']} ({rep['copy_pages_pair']} replayed)" if pools else "")
+          + f"; Python calls of apply_rope {calls['apply_rope']} (the prefill's), of index_copy_ "
+          f"{calls['index_copy_']}", flush=True)
 
 
 def phase_kb32l_path(torch, np, ckpt_dir: str, gptq_model, main_out) -> dict:
@@ -3145,16 +3393,17 @@ def phase_beam(torch, np, model) -> dict:
     model.generate(prompt, max_new_tokens=4, num_beams=BEAMS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    clear_counts(build)
-    t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
-    gen_s = time.perf_counter() - t0
-    counts = snapshot(build)
+    with python_calls() as calls:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=NEW_TOKENS, num_beams=BEAMS)
+        gen_s = time.perf_counter() - t0
+        counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
 
     steps = NEW_TOKENS - 1
-    need = {"paged_attention_mh": layers * steps, "write_token_pages": layers * steps,
-            "copy_pages_pair": steps}
+    need = {"paged_attention_mh": layers * steps}
+    check_fused_writes(counts, calls, layers, steps, f"beam {BEAMS}")
     # the 16-row prefill and every 4-row beam step: K1's tensor-core GEMV, no SIMT GEMV
     check(counts.get("w4a16_gemm_gemv", 0) == 7 * layers * NEW_TOKENS
           and not counts.get("w4a16_gemm", 0), f"beam: K1 launches {counts}, want "
@@ -3175,15 +3424,16 @@ def phase_beam(torch, np, model) -> dict:
           f"card's number, BASELINE.md); peak device memory {peak / 2**30:.2f} GiB, "
           f"launches {counts}", flush=True)
 
-    clear_counts(build)
-    t0 = time.perf_counter()
-    outq = model.generate(prompt, max_new_tokens=QUANT_NEW_TOKENS, num_beams=BEAMS,
-                          kv_quant=True)
-    q_s = time.perf_counter() - t0
-    counts_q = snapshot(build)
+    with python_calls() as calls_q:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        outq = model.generate(prompt, max_new_tokens=QUANT_NEW_TOKENS, num_beams=BEAMS,
+                              kv_quant=True)
+        q_s = time.perf_counter() - t0
+        counts_q = snapshot(build)
     qsteps = QUANT_NEW_TOKENS - 1
-    need_q = {"paged_attention_mh": layers * qsteps, "write_token_pages": 2 * layers * qsteps,
-              "copy_pages_pair": 2 * qsteps}
+    need_q = {"paged_attention_mh": layers * qsteps}
+    check_fused_writes(counts_q, calls_q, layers, qsteps, f"beam {BEAMS}, int8 pools", pools=2)
     check(counts_q.get("w4a16_gemm_gemv", 0) == 7 * layers * QUANT_NEW_TOKENS
           and not counts_q.get("w4a16_gemm", 0), f"int8 beam: K1 launches {counts_q}")
     check(outq.shape == (1, PROMPT_LEN + QUANT_NEW_TOKENS), f"int8 beam output shape {outq.shape}")
@@ -3200,7 +3450,10 @@ def phase_beam(torch, np, model) -> dict:
     graph = graph_turns(torch, np, model, f"beam {BEAMS}", prompt,
                         dict(out=out, s=gen_s, tokens=NEW_TOKENS, counts=counts),
                         routes.get("gemv"), BEAM_PROFILE_TOKENS, num_beams=BEAMS)
-    return dict(counts=counts, gen_s=gen_s, seq_tok_s=seq_tok_s, graph=graph,
+    graph_q = graph_turns(torch, np, model, f"beam {BEAMS}, int8 pools", prompt,
+                          dict(out=outq, s=q_s, tokens=QUANT_NEW_TOKENS, counts=counts_q), None,
+                          BEAM_PROFILE_TOKENS, num_beams=BEAMS, kv_quant=True)
+    return dict(counts=counts, gen_s=gen_s, seq_tok_s=seq_tok_s, graph=graph, int8_graph=graph_q,
                 beam_tok_s=BEAMS * seq_tok_s, peak_bytes=peak, int8_new_tokens=QUANT_NEW_TOKENS,
                 int8_gen_s=q_s, int8_counts=counts_q, profiles=routes)
 
@@ -3596,8 +3849,8 @@ KERNEL_INSTANCES = (("K1 tensor-core GEMV", "wna16_gemv_kernel"),
 FAMILIES = (("K1 w4a16_gemm", K1_KEYS),
             ("K9 w4a16_routed_gemm", ("routed_gemv", "routed_decode", "routed_reduce")),
             ("K2 flash_decode", ("flash_decode",)),
-            ("K7 paged_attention", ("paged_attention",)), ("K8a write_rows", ("write_rows",)),
-            ("K8b move_pages", ("move_pages",)))
+            ("K7 paged_attention", ("paged_attention",)), ("K8a kv_write", ("kv_write",)),
+            ("K8b copy_pages", ("copy_pages_cluster", "move_pages")))
 # K6 is kb32l_gemv_kernel<T, MT> (bf16/f16 at M <= 16), kb32l_decode_kernel<T, MT> with K1's
 # splitk_reduce_kernel<T> (the ring) and, above 16 rows, kb32l_wgmma_kernel<T, BM> (or, by
 # kernel="mma", wna16_mma_kernel<4, T, Kb32lWords>) or
@@ -3875,12 +4128,14 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    clear_counts(build)
-    t0 = time.perf_counter()
-    out = model.generate(prompt, max_new_tokens=new_tokens)
-    gen_s = time.perf_counter() - t0
-    counts = snapshot(build)
+    with python_calls() as calls:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=new_tokens)
+        gen_s = time.perf_counter() - t0
+        counts = snapshot(build)
     peak = torch.cuda.max_memory_allocated()
+    check_fused_writes(counts, calls, layers, new_tokens - 1, "Mixtral greedy", pools=0)
     t0 = time.perf_counter()
     again = model.generate(prompt, max_new_tokens=MIXTRAL_REPEAT_TOKENS)
     again_s = time.perf_counter() - t0
@@ -3920,14 +4175,15 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
                         dict(out=out, s=gen_s, tokens=new_tokens, counts=counts),
                         profile.get("gemv"), MIXTRAL_PROFILE_TOKENS)
 
-    clear_counts(build)
-    t0 = time.perf_counter()
-    outb = model.generate(prompt, max_new_tokens=MIXTRAL_BEAM_TOKENS, num_beams=BEAMS)
-    beam_s = time.perf_counter() - t0
-    beam_counts = snapshot(build)
+    with python_calls() as calls_b:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        outb = model.generate(prompt, max_new_tokens=MIXTRAL_BEAM_TOKENS, num_beams=BEAMS)
+        beam_s = time.perf_counter() - t0
+        beam_counts = snapshot(build)
     bsteps = MIXTRAL_BEAM_TOKENS - 1
-    need = {"w4a16_routed_gemm_gemv": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps,
-            "write_token_pages": layers * bsteps, "copy_pages_pair": bsteps}
+    need = {"w4a16_routed_gemm_gemv": 3 * layers * bsteps, "paged_attention_mh": layers * bsteps}
+    check_fused_writes(beam_counts, calls_b, layers, bsteps, f"Mixtral beam {BEAMS}")
     check(outb.shape == (1, PROMPT_LEN + MIXTRAL_BEAM_TOKENS), f"Mixtral beam shape {outb.shape}")
     check(bool(((outb[:, PROMPT_LEN:] >= 0) & (outb[:, PROMPT_LEN:] < cfg["vocab_size"])).all()),
           "Mixtral beam token ids out of range")
@@ -4137,7 +4393,8 @@ def main() -> int:
     k2_rows = timed("K2", phase_k2, torch, timer)
     k7_rows = timed("K7", phase_k7, torch, timer)
     attn_ptxas = attention_ptxas()
-    k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
+    page_regs = page_ops_ptxas()
+    k8a_fused_rows, k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
     k9_rows = timed("K9", phase_k9, torch, np, timer)
     k9_rest_rows = timed("K9 rest classes", phase_k9_rest, torch, np, timer)
@@ -4178,7 +4435,8 @@ def main() -> int:
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
           flush=True)
 
-    k2_main, k7_main, k8a_main, k8b_main = k2_rows[0], k7_rows[0], k8a_rows[0], k8b_rows[0]
+    k2_main, k7_main, k8b_main = k2_rows[0], k7_rows[0], k8b_rows[0]
+    k8a_main = next(r for r in k8a_fused_rows if r["case"] == K8A_MAIN)
     beam_launches = beam["counts"]
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B
 
@@ -4560,14 +4818,27 @@ def main() -> int:
               "autogptq_tpu/ops/pallas/paged_attn.py:45", beam_launches, k7_rows, k7_main,
               "one layer, beam 4: B=4, H=Hkv=32, D=128, page 16, 528 live slots per row, "
               "bf16 pools; launches from the 512-token beam-4 run"),
-        entry("write_token_pages", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
-              "autogptq_tpu/ops/pallas/paged_attn.py:252", beam_launches, k8a_rows, k8a_main,
-              "one layer, both pools, rows [4, 32, 128] bf16; launches from the 512-token "
-              "beam-4 run"),
-        entry("copy_pages_pair", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
-              "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows, k8b_main,
-              "4 pages x 32 layers x 2 bf16 pools (one beam-4 step), check=False as on the "
-              "beam path; launches from the 512-token beam-4 run"),
+        dict(entry("rope_write_kv", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
+                   "autogptq_tpu/ops/pallas/paged_attn.py:252", launches, k8a_fused_rows,
+                   k8a_main, "K8a's kv_write_kernel with the rotation on: one Llama-2-7B "
+                   "layer's RoPE of q and k and K/V write at the device cursor, q [1, 32, 128], "
+                   "k/v [1, 32, 128] bf16 into the [32, 1, 528, 32, 128] cache at slot 527 (the "
+                   "greedy main path's last step); no one PyTorch call turns and writes "
+                   "(write_only_ms: the write alone by two index_copy_); max_abs_err over the "
+                   "bf16 q and K of every fused case (int8 codes within one, counted in "
+                   "k8a_fused); launches from the 512-token greedy run, one per layer and "
+                   "decode step"),
+             beam_launches=beam_launches.get("rope_write_kv", 0),
+             beam_replayed=replayed(beam_launches, "rope_write_kv"),
+             write_only_ms=k8a_main["write_only_ms"]),
+        dict(entry("copy_pages_pair", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
+                   "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows,
+                   k8b_main, "K8b's copy_pages_cluster_kernel: 4 pages (3 moving, one "
+                   "self-copy) x 32 layers x 2 bf16 pools (one beam-4 step), one cluster of 8 "
+                   "blocks per (layer, pool), check=False as on the beam path; bound from the "
+                   "moving pages' bytes; two_kernel_ms: the gather and scatter kernels on the same "
+                   "copies; launches from the 512-token beam-4 run"),
+             two_kernel_ms=k8b_main["two_kernel_ms"]),
         gemm_entry("w4a16_kb32l_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:692",
                    kb32l["counts"], k6_bf16, at + "; K6's tensor-core GEMV over the "
                    f"tile-contiguous kb32l words, bf16 (replaces _kernel_kb32l_manual :692); "
@@ -4672,9 +4943,11 @@ def main() -> int:
                        wna16=wna_rows, rest=rest_rows, mma_ptxas=ptxas,
                        wgmma_ptxas=wgmma_regs, other_widths=widths,
                        quantize=quantize, main_batch2=batch2_launches,
-                       k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8b=k8b_rows, k10=k10_rows,
+                       k2=k2_rows, k7=k7_rows, k8a=k8a_rows, k8a_fused=k8a_fused_rows,
+                       k8b=k8b_rows, k10=k10_rows,
                        k9_rest=k9_rest_rows,
-                       attention_ptxas=attn_ptxas, attention_full_run=full_run,
+                       attention_ptxas=attn_ptxas, page_ops_ptxas=page_regs,
+                       attention_full_run=full_run,
                        decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
                        k6_tile_layer_ms=k6_tile, kb32l_t_call_ms=kb32l_t,
                        gemv_norm_layer_ms=gemv_norm,

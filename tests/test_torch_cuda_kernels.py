@@ -1,7 +1,9 @@
 """K1 (w4a16 GEMM, also 3-bit codes in nibbles), K4 (w8a16), K5 (w2a16), K6
 (w4a16 over the tile-contiguous kb32l words), K10 (their backward,
 wna16_gemm_t, also over kb32l words), K2 (flash-decode), K7 (paged
-attention), K8a (page row write), K8b (page copy) and K9 (routed experts) on
+attention), K8a (page row write, and the fused RoPE + K/V write over paged
+pools, int8 ones too, and the contiguous cache), K8b (page copy: its cluster
+and its gather-and-scatter shapes) and K9 (routed experts) on
 the card against their plain PyTorch versions, a tiny model quantized on the
 card, and gradients through the quantized and the routed matmul on the card
 against the CPU's.
@@ -480,6 +482,116 @@ def test_k8_bad_ids_raise_and_write_nothing(card, op, page, slot, match):
                 pam.check_page_errors(card)
         assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
     pam.check_page_errors(card)     # the flag was cleared
+
+
+MANTISSA = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+
+
+def _ulp_off(got, want, dtype=None):
+    """How many elements of ``got`` lie more than one ulp of ``dtype`` (its
+    own by default) from ``want``."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 1 - MANTISSA[dtype or got.dtype])
+    return int(((g - w).abs() > ulp).sum())
+
+
+@pytest.mark.parametrize("layout, dtype, quant, h, hkv, d", [
+    ("paged", torch.bfloat16, False, 32, 32, 128), ("paged", torch.bfloat16, True, 32, 32, 128),
+    ("paged", torch.float16, False, 32, 8, 128), ("paged", torch.float32, True, 32, 8, 64),
+    ("cursor", torch.bfloat16, False, 32, 8, 128), ("cursor", torch.float32, False, 32, 32, 128),
+    ("cursor", torch.float16, False, 8, 8, 64)])
+def test_k8a_fused_matches_plain(card, layout, dtype, quant, h, hkv, d):
+    """The fused RoPE + K/V write against ``rope_write_kv_ref`` on the card:
+    q and the caches within one ulp of the activations' dtype (the kernel's
+    sincosf against torch's sin and cos), int8 codes within one, one launch."""
+    gen = torch.Generator(card).manual_seed(d + h)
+    b, layer = 4, 1
+    q, k, v = (torch.randn((b, n, d), generator=gen, device=card).to(dtype) for n in (h, hkv, hkv))
+    inv = pam.rope_inv_freq(10000.0, d, card)
+    kw = {}
+    if layout == "paged":
+        w, ps = 40, 16
+        tables = (1 + torch.arange(b, device=card)[:, None] * w
+                  + torch.arange(w, device=card)[None]).to(torch.int32)
+        pos = torch.tensor([0, 599, 257, 16], dtype=torch.int32, device=card)
+        shape = (2, b * w + 1, hkv, ps, d)
+        if quant:
+            kc = torch.randint(-127, 128, shape, generator=gen, device=card, dtype=torch.int8)
+            kw = dict(k_scale=torch.rand(shape[:-1], generator=gen, device=card) + 0.1)
+            kw["v_scale"] = kw["k_scale"].clone()
+        else:
+            kc = torch.randn(shape, generator=gen, device=card).to(dtype)
+        kw["tables"] = tables
+    else:
+        kc = torch.randn((2, b, 640, hkv, d), generator=gen, device=card).to(dtype)
+        pos = torch.tensor([599, 580, 17, 0], dtype=torch.int64, device=card)
+        kw["cursor"] = torch.tensor([599], device=card)
+    vc = kc.clone()
+    want = {name: t.clone() for name, t in dict(k=kc, v=vc, **kw).items()}
+    want_q = pam.rope_write_kv_ref(q, k, v, pos, inv, want["k"], want["v"], layer,
+                                   kw.get("tables"), kw.get("cursor"), want.get("k_scale"),
+                                   want.get("v_scale"))
+    before = build.launches["rope_write_kv"]
+    got_q = pam.rope_write_kv(q, k, v, pos, inv, kc, vc, layer, **kw)
+    torch.cuda.synchronize()
+    assert build.launches["rope_write_kv"] == before + 1
+    assert got_q.shape == (b, h, d) and got_q.dtype == dtype
+    assert _ulp_off(got_q, want_q) == 0
+    if quant:
+        for got, ref in ((kc, want["k"]), (vc, want["v"])):
+            assert int((got.int() - ref.int()).abs().max()) <= 1
+        for name in ("k_scale", "v_scale"):
+            assert _ulp_off(kw[name], want[name], dtype) == 0
+    else:
+        assert _ulp_off(kc, want["k"]) == 0 and torch.equal(vc, want["v"])
+
+
+@pytest.mark.parametrize("layout", ["paged", "cursor"])
+def test_k8a_fused_bad_targets_write_nothing(card, layout):
+    b, h, hkv, d = 3, 8, 4, 64
+    q, k, v = (torch.randn((b, n, d), device=card) for n in (h, hkv, hkv))
+    inv = pam.rope_inv_freq(10000.0, d, card)
+    if layout == "paged":
+        kc = torch.randn((2, 13, hkv, 16, d), device=card)
+        tables = torch.arange(1, 13, dtype=torch.int32, device=card).reshape(3, 4)
+        pos = torch.tensor([0, 64, 5], dtype=torch.int32, device=card)   # past the table
+        kw = dict(tables=tables)
+    else:
+        kc = torch.randn((2, b, 32, hkv, d), device=card)
+        pos = torch.zeros(b, dtype=torch.int64, device=card)
+        kw = dict(cursor=torch.tensor([32], device=card))
+    vc = kc.clone()
+    want = kc.clone()
+    with pytest.raises(ValueError, match="write targets"):
+        pam.rope_write_kv(q, k, v, pos, inv, kc, vc, 1, **kw)
+    assert torch.equal(kc, want) and torch.equal(vc, want)
+    pam.check_page_errors(card)
+
+
+@pytest.mark.parametrize("hkv, d, dtype, src, dst, key", [
+    # 128 KiB pages in two slices: a swap cycle, a self-copy, a src read twice
+    (32, 128, torch.bfloat16, [2, 5, 7, 2], [5, 2, 7, 9], "copy_pages_pair"),
+    (32, 128, torch.int8, [3, 4, 6, 1], [4, 6, 3, 1], "copy_pages_pair"),
+    (32, None, torch.float32, [2, 5, 7, 2], [5, 2, 7, 9], "copy_pages_pair"),
+    # 12 pages x 2 slices: more than a cluster holds, the gather and scatter kernels
+    (32, 128, torch.bfloat16, list(range(1, 13)), list(range(2, 14)), "copy_pages_pair_gather"),
+])
+def test_k8b_cluster_and_gather_paths(card, hkv, d, dtype, src, dst, key):
+    rank = 5 if d else 4
+    kp = _pools(card, dtype, rank, 9, n_layers=2, n_pages=16, hkv=hkv, d=d or 1)
+    vp = _pools(card, dtype, rank, 10, n_layers=2, n_pages=16, hkv=hkv, d=d or 1)
+    src = torch.tensor(src, dtype=torch.int32, device=card)
+    dst = torch.tensor(dst, dtype=torch.int32, device=card)
+    page_bytes = kp[0, 0].numel() * kp.element_size()
+    assert bool(pam.copy_plan(src.numel(), page_bytes)) == (key == "copy_pages_pair")
+    want_k = pam.copy_pages(kp.clone(), src, dst)
+    want_v = pam.copy_pages(vp.clone(), src, dst)
+    before = build.launches[key]
+    pam.copy_pages_pair(kp, vp, src, dst)
+    assert build.launches[key] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(kp, want_k) and torch.equal(vp, want_v)
 
 
 @pytest.mark.parametrize("kv_quant", [False, True])

@@ -10,15 +10,23 @@ from one checkpoint): greedy tokens of a left-padded batch with EOS and
 ``min_new_tokens``, paged beam-4 tokens across a page boundary, Mixtral's
 greedy tokens, each also against the port with ``JIT_GENERATE`` off; a
 decode step whose ``KVCache.length`` raises on read gives the host cursor's
-logits; the replay accounting of ``build.StepGraph`` through a stub graph.
+logits, and a paged beam step whose advance and reorder read no host value
+(a tensor's ``item``, ``bool``, ``int`` ... raise there) gives JAX's tokens;
+the replay accounting of ``build.StepGraph`` through a stub graph. The whole
+paged beam step (forward, ``_Beams.advance``, ``_paged_reorder``) through a
+stub graph whose capture records the step and whose replays run it, as a
+CUDA graph's do, so that the host loop does nothing between replays: tokens
+equal to JAX's ``_generate_beam_paged`` in every case of
+``tests/test_torch_beam.py`` (its checkpoint: hidden size 128, desc_act).
 
 Marked ``cuda`` (skipped without a card; on the card
 ``python -m pytest tests/test_torch_decode_graph.py -m cuda -q``): on a
 2-layer full-width Llama-2-7B cut in bf16, the replayed greedy and paged beam
 steps give the eager steps' logits bit for bit, also with the fused norm
 (``AUTOGPTQ_TPU_FUSE_NORM=1``, whose GEMV the capture records with its
-programmatic dependent launch); a host read planted in the step makes the
-capture raise, and ``generate`` raises with it. The JAX package is imported
+programmatic dependent launch), and the paged beam step over int8 pools; a
+host read planted in the step makes the capture raise, and ``generate``
+raises with it. The JAX package is imported
 inside the CPU tests' fixtures, so the card's run needs none of it."""
 
 import collections
@@ -44,6 +52,17 @@ MIXTRAL_TINY = dict(TINY, model_type="mixtral", hidden_size=128, intermediate_si
                     num_local_experts=8, num_experts_per_tok=2, rope_theta=1e6,
                     sliding_window=None)
 NEW = 9
+# test_torch_beam.py's checkpoint (test_torch_llama.py's TINY, desc_act, g32, seed 3), its EOS
+# and its cases
+BEAM_TINY = dict(TINY, hidden_size=128, intermediate_size=256)
+BEAM_EOS = 12
+BEAM_CASES = [
+    dict(num_beams=4, eos_token_id=7),
+    dict(num_beams=4, eos_token_id=BEAM_EOS),
+    dict(num_beams=3, eos_token_id=BEAM_EOS, length_penalty=1.3),
+    dict(num_beams=4, eos_token_id=BEAM_EOS, early_stopping=True, num_return_sequences=3),
+    dict(num_beams=2, eos_token_id=BEAM_EOS, min_new_tokens=4),
+]
 
 
 def _load_both(path, stack=False):
@@ -71,6 +90,13 @@ def mixtral(tmp_path_factory):
     path = write_random_checkpoint(str(tmp_path_factory.mktemp("tiny_graph_moe")),
                                    MIXTRAL_TINY, bits=4, group_size=32, seed=3)
     return _load_both(path, stack=True)
+
+
+@pytest.fixture(scope="module")
+def beam_models(tmp_path_factory):
+    path = write_random_checkpoint(str(tmp_path_factory.mktemp("tiny_graph_beam")), BEAM_TINY,
+                                   bits=4, group_size=32, desc_act=True, seed=3)
+    return _load_both(path)
 
 
 def _prompts(lengths, seed=0):
@@ -149,8 +175,65 @@ class _NoHostCursor(arch.KVCache):
         raise AssertionError("a decode step wrote KVCache.length")
 
 
-@pytest.mark.parametrize("which", ["llama", "mixtral"])
-def test_decode_step_reads_no_host_cursor(which, request):
+_HOST_READS = ("item", "tolist", "numpy", "__bool__", "__int__", "__float__", "__index__")
+
+
+class _NoHostReads:
+    """While :attr:`on`, a tensor's host reads raise (patched onto
+    ``torch.Tensor`` by :meth:`install`)."""
+
+    on = False
+
+    @classmethod
+    def install(cls, monkeypatch):
+        for name in _HOST_READS:
+            real = getattr(torch.Tensor, name)
+
+            def guarded(self, *a, _real=real, _name=name, **kw):
+                if cls.on:
+                    raise AssertionError(f"a host read (Tensor.{_name}) in the beam step")
+                return _real(self, *a, **kw)
+
+            monkeypatch.setattr(torch.Tensor, name, guarded)
+
+    @classmethod
+    def around(cls, fn, on=True):
+        def wrapped(*a, **kw):
+            was, cls.on = cls.on, on
+            try:
+                return fn(*a, **kw)
+            finally:
+                cls.on = was
+        return wrapped
+
+
+def _beam_step_reads_no_host_value(port, ref, monkeypatch):
+    """The paged beam step's advance and reorder under the guard (K8b's plain
+    version checks its ids on the host, as the kernel does on the card, so
+    it runs unguarded): JAX's tokens, and the step counter advanced."""
+    _NoHostReads.install(monkeypatch)
+    monkeypatch.setattr(generation._Beams, "advance",
+                        _NoHostReads.around(generation._Beams.advance))
+    monkeypatch.setattr(generation, "_paged_reorder",
+                        _NoHostReads.around(generation._paged_reorder))
+    monkeypatch.setattr(generation.PagedBeamCache, "copy_pages",
+                        _NoHostReads.around(generation.PagedBeamCache.copy_pages, on=False))
+    steps = []
+    real_start = generation._Beams.start
+    monkeypatch.setattr(generation._Beams, "start",
+                        lambda self, lb: steps.append(self) or real_start(self, lb))
+    prompts = _prompts((6, 13), seed=4)
+    kw = dict(max_new_tokens=NEW, num_beams=3, eos_token_id=int(prompts[1][2]), min_new_tokens=2,
+              length_penalty=0.8)
+    got = port.generate(prompts, **kw)
+    np.testing.assert_array_equal(got, ref.generate(prompts, **kw))
+    assert int(steps[0].step) == NEW
+
+
+@pytest.mark.parametrize("which", ["llama", "mixtral", "llama-beam"])
+def test_decode_step_reads_no_host_cursor(which, request, monkeypatch):
+    if which == "llama-beam":
+        return _beam_step_reads_no_host_value(*request.getfixturevalue("llama"), monkeypatch)
     port, _ = request.getfixturevalue(which)
     cfg, params = port.cfg, port.params
     ids, mask = generation._prep_inputs(_prompts((6, 4), seed=3))
@@ -200,6 +283,40 @@ class _StubGraph:
 
     def replay(self):
         self.replays += 1
+
+
+class _ReplayingStub(_StubGraph):
+    """A stub whose capture records the step without running it and whose
+    replays run it, as a CUDA graph's do; the capture's output is a tensor
+    that every replay overwrites."""
+
+    def capture(self, fn):
+        self.fn, self.out = fn, torch.empty(0)
+        return self.out
+
+    def replay(self):
+        super().replay()
+        out = self.fn()
+        self.out.resize_(out.shape).copy_(out)
+
+
+@pytest.mark.parametrize("kw", BEAM_CASES, ids=[str(i) for i in range(len(BEAM_CASES))])
+def test_whole_beam_step_replays_to_jax_tokens(beam_models, kw, monkeypatch):
+    from autogptq_tpu.utils import generation as jgen
+
+    port, ref = beam_models
+    graphs = []
+
+    def stepper(step, device, capturable=True):
+        graphs.append(_ReplayingStub())
+        return build.StepGraph(step, graph=graphs[-1])
+
+    prompts = _prompts((5, 9, 17))
+    monkeypatch.setattr(generation, "_stepper", stepper)
+    got = port.generate(prompts, max_new_tokens=12, **kw)
+    assert len(graphs) == 1 and graphs[0].replays == 12 - 2
+    monkeypatch.setattr(jgen, "BEAM_PAGED", "always")      # JAX's _generate_beam_paged
+    np.testing.assert_array_equal(got, ref.generate(prompts, max_new_tokens=12, **kw))
 
 
 def test_replay_accounting_gives_the_eager_counts(monkeypatch):
@@ -285,26 +402,21 @@ def _step_logits(model, monkeypatch, graphs: bool, fused: bool, **kw):
     """The logits of every decode step of a generate (from the loop's
     sampling or the beams' choice) and its tokens."""
     seen = []
-    if kw.get("num_beams", 1) > 1:
-        real = generation._Beams.advance
+    real = generation._stepper
 
-        def advance(self, logits, step):
-            seen.append(logits.clone())
-            return real(self, logits, step)
+    def stepper(step, device, capturable=True):   # each step's (or replay's) output
+        run = real(step, device, capturable)
 
-        target, name, fn = generation._Beams, "advance", advance
-    else:
-        real = generation._sample
+        def recorded():
+            out = run()
+            seen.append(out.clone())
+            return out
 
-        def sample(logits, step, *args):
-            if step:
-                seen.append(logits.clone())
-            return real(logits, step, *args)
+        return recorded
 
-        target, name, fn = generation, "_sample", sample
     prompt = (np.arange(16) % 1000)[None].astype(np.int32)
     with monkeypatch.context() as m:
-        m.setattr(target, name, fn)
+        m.setattr(generation, "_stepper", stepper)
         m.setattr(generation, "JIT_GENERATE", graphs)
         m.setattr(arch, "FUSE_NORM", "1" if fused else "0")
         build.launches.clear()
@@ -326,6 +438,25 @@ def test_replayed_step_is_the_eager_step(card_model, monkeypatch, beams, fused):
     assert counts == ref_counts
     if fused:
         assert counts["w4a16_gemm_gemv_norm"] == 5 * 2 * 11
+    # one fused RoPE + K/V write per layer and step; one K8b per beam step and one at setup
+    assert counts["rope_write_kv"] == 2 * 11 and "write_token_pages" not in counts
+    if beams > 1:
+        assert counts["copy_pages_pair"] == 12 and "copy_pages_pair_gather" not in counts
+    assert len(logits) == len(ref_logits) == 11
+    for a, b in zip(logits, ref_logits):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_replayed_int8_beam_step_is_the_eager_step(card_model, monkeypatch):
+    out, logits, counts, graphs = _step_logits(card_model, monkeypatch, True, False, num_beams=4,
+                                               kv_quant=True)
+    ref, ref_logits, ref_counts, _ = _step_logits(card_model, monkeypatch, False, False,
+                                                  num_beams=4, kv_quant=True)
+    assert graphs["captures"] == 1 and graphs["replays"] == 12 - 2
+    np.testing.assert_array_equal(out, ref)
+    assert counts == ref_counts
+    assert counts["rope_write_kv"] == 2 * 11 and counts["copy_pages_pair"] == 2 * 12
     assert len(logits) == len(ref_logits) == 11
     for a, b in zip(logits, ref_logits):
         assert torch.equal(a, b)
