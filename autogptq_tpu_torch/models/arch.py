@@ -7,11 +7,16 @@ and ``mlp``), the same tree the JAX package builds. Linear layers are
 :class:`DenseLinear` or :class:`~autogptq_tpu_torch.ops.quantlinear.QuantLinear`.
 
 The KV cache is the JAX package's stacked ``[L, B, S, Hkv, D]`` pair, written
-in place (the port mutates where JAX returns a new array). Decode steps
-(``t == 1`` with a cache) attend through K2 (``ops/flash_decode.py``) over the
-slots ``[lo, hi)`` of the layer; prefill attention is plain tensor code that
-mirrors the JAX einsum path, and so is every step of a block that holds an
-adaption prompt (``attn.adaption``, ``utils/peft.py``). After
+in place (the port mutates where JAX returns a new array), bf16/f16/f32 or int8
+with f32 scales ``[L, B, S, Hkv, 1]`` (``KVCache.create(quantized=True)``,
+rows quantized by :func:`kv_quantize`, the JAX ``_kv_quantize``). Decode steps
+(``t == 1`` with a float cache) attend through K2 (``ops/flash_decode.py``)
+over the slots ``[lo, hi)`` of the layer; prefill attention is plain tensor
+code that mirrors the JAX einsum path, and so is every step over an int8
+cache (the JAX package never takes its flash decode there, its
+``models/arch.py:767``: a static dispatch, its scales folded into the dots)
+and every step of a block that holds an adaption prompt (``attn.adaption``,
+``utils/peft.py``). After
 :meth:`KVCache.start_decode` a decode step keeps its write cursor and K2's
 bounds on the card, so that it reads no host value and a CUDA graph of it
 (``utils/generation.py``) can be replayed; its RoPE and K/V write are one K8a
@@ -21,8 +26,7 @@ cache-less forward runs under autograd: training calls :func:`forward` and
 ``loss.backward()``. What the llama path does not need is refused:
 alibi, MLA and softcaps belong to other families, which
 ``registry.get_family`` rejects; rope scaling and sliding windows are rejected
-when the llama configuration is built; an int8 cache when the cache is
-created.
+when the llama configuration is built.
 
 :data:`FUSE_NORM` (``AUTOGPTQ_TPU_FUSE_NORM``, default ``"0"`` as in the JAX
 package) fuses each decode step's RMS norms into the quantized q/k/v and
@@ -44,7 +48,7 @@ from torch.profiler import record_function
 
 from ..ops import quantlinear as qlin
 from ..ops.flash_decode import flash_decode
-from ..ops.paged_attn import rope_inv_freq, rope_rows, rope_write_kv
+from ..ops.paged_attn import kv_quantize, rope_inv_freq, rope_rows, rope_write_kv
 
 NEG_INF = -1e30
 
@@ -128,7 +132,9 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int):
 @dataclass
 class KVCache:
     """Stacked KV cache, updated in place; ``length`` is the write cursor
-    shared by every row (left padding keeps the rows aligned).
+    shared by every row (left padding keeps the rows aligned). An int8 cache
+    (``quantized=True``) holds :func:`kv_quantize`'s codes in ``k`` / ``v``
+    and their f32 scales in ``k_scale`` / ``v_scale`` ``[L, B, S, Hkv, 1]``.
 
     :meth:`start_decode` moves the cursor to the card for the decode steps:
     ``cursor`` (int64 ``[1]``) then stands for ``length``, which such steps
@@ -146,14 +152,20 @@ class KVCache:
     lo: Optional[torch.Tensor] = None       # int32 [B]: each row's first valid slot
     hi: Optional[torch.Tensor] = None       # int32 [B]: cursor + 1, K2's end of the window
     inv_freq: Optional[torch.Tensor] = None  # f32 [D / 2]: RoPE's, for K8a
+    k_scale: Optional[torch.Tensor] = None   # f32 [L, B, S, Hkv, 1] (an int8 cache)
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda", quantized: bool = False) -> "KVCache":
-        if quantized:
-            raise NotImplementedError("the int8 KV cache is not ported yet (ROADMAP Queue 1, "
-                                      "'The contiguous int8 KV cache')")
         kshape, vshape = cache_shapes(cfg, batch, max_len)
+        if quantized:
+            return cls(k=torch.zeros(kshape, dtype=torch.int8, device=device),
+                       v=torch.zeros(vshape, dtype=torch.int8, device=device),
+                       k_scale=torch.zeros(kshape[:-1] + (1,), dtype=torch.float32,
+                                           device=device),
+                       v_scale=torch.zeros(vshape[:-1] + (1,), dtype=torch.float32,
+                                           device=device))
         return cls(k=torch.zeros(kshape, dtype=dtype, device=device),
                    v=torch.zeros(vshape, dtype=dtype, device=device))
 
@@ -190,52 +202,79 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     k = lin(bp["k_proj"], x).view(b, t, hkv, d)
     v = lin(bp["v_proj"], x).view(b, t, hkv, d)
     scale = d ** -0.5
+    kv_int8 = cache is not None and cache.k.dtype == torch.int8
+    key_sc = val_sc = None
 
     if cache is not None and cache.cursor is not None and t == 1:
         # a decode step at the device cursor (KVCache.start_decode): RoPE and the K/V write in
-        # one K8a launch, whose target check generate reads once (check_page_errors)
+        # one K8a launch (int8 rows quantized inside it), whose target check generate reads once
+        # (check_page_errors)
         if "adaption" in bp:
             raise ValueError("an adaption-prompt block attends up to the host cursor: decode it "
                              "without KVCache.start_decode")
         qr = rope_write_kv(q.view(b, h, d), k.view(b, hkv, d), v.view(b, hkv, d),
                            positions.reshape(b), cache.inv_freq, cache.k, cache.v, layer_idx,
-                           cursor=cache.cursor, check=False)
-        of = flash_decode(qr, cache.k, cache.v, *decode_bounds, layer=layer_idx, sm_scale=scale)
-        return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
-    q, k = apply_rope(q, k, positions, cfg)
-    if cache is not None:
-        start = cache.length
-        if start + t > cache.k.shape[2]:
-            raise ValueError(f"KV cache of {cache.k.shape[2]} slots cannot take "
-                             f"{t} tokens at slot {start}")
-        cache.k[layer_idx, :, start:start + t] = k.to(cache.k.dtype)
-        cache.v[layer_idx, :, start:start + t] = v.to(cache.v.dtype)
-        if decode_bounds is not None and "adaption" not in bp:
-            lo, hi = decode_bounds
-            of = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, lo, hi,
-                              layer=layer_idx, sm_scale=scale)
+                           cursor=cache.cursor, k_scale=cache.k_scale, v_scale=cache.v_scale,
+                           check=False)
+        if not kv_int8:
+            of = flash_decode(qr, cache.k, cache.v, *decode_bounds, layer=layer_idx,
+                              sm_scale=scale)
             return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
-        keys = cache.k[layer_idx, :, :start + t]
-        values = cache.v[layer_idx, :, :start + t]
-        s = start + t
-        q_slot = start + torch.arange(t, device=x.device)
+        # an int8 cache takes the einsum below over all S slots, as the JAX package does
+        # (never its flash decode): causality from the device cursor, the rows' validity from
+        # attn_mask, so no host value is read
+        q = qr.view(b, 1, h, d)
+        keys, values = cache.k[layer_idx], cache.v[layer_idx]
+        key_sc, val_sc = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+        s = keys.shape[1]
+        mask = (torch.arange(s, device=x.device) <= cache.cursor)[None, None]         # [1, 1, S]
     else:
-        keys, values = k, v
-        s = t
-        q_slot = torch.arange(t, device=x.device)
+        q, k = apply_rope(q, k, positions, cfg)
+        if cache is not None:
+            start = cache.length
+            if start + t > cache.k.shape[2]:
+                raise ValueError(f"KV cache of {cache.k.shape[2]} slots cannot take "
+                                 f"{t} tokens at slot {start}")
+            if kv_int8:
+                (kq, ks), (vq, vs) = kv_quantize(k), kv_quantize(v)
+                for c, rows in ((cache.k, kq), (cache.v, vq), (cache.k_scale, ks),
+                                (cache.v_scale, vs)):
+                    c[layer_idx, :, start:start + t] = rows
+            else:
+                cache.k[layer_idx, :, start:start + t] = k.to(cache.k.dtype)
+                cache.v[layer_idx, :, start:start + t] = v.to(cache.v.dtype)
+            if decode_bounds is not None and "adaption" not in bp and not kv_int8:
+                lo, hi = decode_bounds
+                of = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, lo, hi,
+                                  layer=layer_idx, sm_scale=scale)
+                return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
+            s = start + t
+            keys = cache.k[layer_idx, :, :s]
+            values = cache.v[layer_idx, :, :s]
+            if kv_int8:
+                key_sc, val_sc = cache.k_scale[layer_idx, :, :s], cache.v_scale[layer_idx, :, :s]
+            q_slot = start + torch.arange(t, device=x.device)
+        else:
+            keys, values = k, v
+            s = t
+            q_slot = torch.arange(t, device=x.device)
+        # causality in cache-slot space (uniform across rows under left padding)
+        mask = (torch.arange(s, device=x.device)[None, :] <= q_slot[:, None])[None]   # [1, T, S]
 
     # the "attention" range lets a profile attribute these kernels, and through
     # their sequence numbers those of their backward
     with record_function("attention"):
-        # causality in cache-slot space (uniform across rows under left padding)
-        mask = (torch.arange(s, device=x.device)[None, :] <= q_slot[:, None])[None]   # [1, T, S]
         if attn_mask is not None:
             mask = mask & attn_mask[:, None, :s].bool()                               # [B, T, S]
         rep = h // hkv
         qh = q.reshape(b, t, hkv, rep, d)
         logits = torch.einsum("bthrd,bshd->bhrts", qh.float(), keys.float()) * scale
+        if key_sc is not None:   # int8 cache: the per-(slot, head) scale after the QK dot
+            logits = logits * key_sc[..., 0].transpose(1, 2)[:, :, None, None, :]
         logits = torch.where(mask[:, None, None], logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
+        if val_sc is not None:   # and its V scale on the probabilities before the PV dot
+            probs = probs * val_sc[..., 0].transpose(1, 2)[:, :, None, None, :]
         out = torch.einsum("bhrts,bshd->bthrd", probs, values.float())
         if "adaption" in bp:
             # adaption prompt (LLaMA-Adapter): the prompt rows through the frozen
@@ -444,6 +483,7 @@ __all__ = [
     "DenseLinear",
     "KVCache",
     "cache_shapes",
+    "kv_quantize",
     "apply_linear",
     "rms_norm",
     "FUSE_NORM",

@@ -17,7 +17,8 @@ Counterpart of the JAX package's ``models/base.py``:
 
 Not ported yet, each raising ``NotImplementedError``: resuming ``quantize``
 from a ``checkpoint_dir``, quantizing the ``lm_head``, ``push_to_hub``, and
-the AWQ and Marlin checkpoint formats (ROADMAP Queue 1, item 6).
+the AWQ and Marlin checkpoint formats (ROADMAP Queue 1,
+'The rest of quantization, and checkpoint I/O').
 """
 
 from __future__ import annotations
@@ -169,7 +170,8 @@ class GPTQModel:
         if qc.checkpoint_format != "gptq":
             raise NotImplementedError(
                 f"checkpoint format {qc.checkpoint_format!r} is not ported yet (AWQ and "
-                "Marlin conversions: ROADMAP Queue 1, item 6); only 'gptq' checkpoints load")
+                "Marlin conversions: ROADMAP Queue 1, 'The rest of quantization, and checkpoint "
+                "I/O'); only 'gptq' checkpoints load")
         qc.model_name_or_path = model_dir
         tensors = hf_io.open_tensors(model_dir, qc.model_file_base_name)
         params = params_lib.build_quantized_params(
@@ -198,15 +200,17 @@ class GPTQModel:
         qc = self.quantize_config
         if checkpoint_dir is not None:
             raise NotImplementedError("resuming quantize() from a checkpoint_dir is not ported "
-                                      "yet (ROADMAP Queue 1, item 6)")
+                                      "yet (ROADMAP Queue 1, 'The rest of quantization, and "
+                                      "checkpoint I/O')")
         if qc.lm_head:
             raise NotImplementedError("quantizing the lm_head (quantize_config.lm_head) is not "
-                                      "ported yet (ROADMAP Queue 1, item 6)")
+                                      "ported yet (ROADMAP Queue 1, 'The rest of quantization, "
+                                      "and checkpoint I/O')")
         if qc.quant_method != "gptq" or qc.checkpoint_format != "gptq":
             raise NotImplementedError(
                 f"quant method {qc.quant_method!r} / checkpoint format "
                 f"{qc.checkpoint_format!r}: only GPTQ checkpoints are produced (AWQ and "
-                "Marlin: ROADMAP Queue 1, item 6)")
+                "Marlin: ROADMAP Queue 1, 'The rest of quantization, and checkpoint I/O')")
         cfg, spec, dev = self.cfg, self.spec, self.device
         if dev.type == "cuda":     # refuse a shape no kernel takes before any solve
             for k, n in {tuple(params_lib.get_in(self.params["layers"][0], p).kernel.shape)
@@ -348,7 +352,8 @@ class GPTQModel:
                 json.dump(hf_config, f, indent=2)
 
     def push_to_hub(self, *args, **kwargs) -> None:
-        raise NotImplementedError("push_to_hub is not ported (ROADMAP Queue 1, item 6); "
+        raise NotImplementedError("push_to_hub is not ported (ROADMAP Queue 1, 'The rest of "
+                                  "quantization, and checkpoint I/O'); "
                                   "save_quantized writes a local directory")
 
     # ------------------------------------------------------------------

@@ -119,7 +119,7 @@ def build_quantized_params(tensors, spec: FamilySpec, cfg: ArchConfig, bits: int
     quant_paths = {p for sub in spec.quant_layers for p in sub}
     if spec.lm_head is not None and f"{spec.lm_head}.qweight" in tensors:
         raise NotImplementedError("a quantized lm_head is not ported yet (ROADMAP Queue 1, "
-                                  "item 6)")
+                                  "'The rest of quantization, and checkpoint I/O')")
     params = _top_level(tensors, spec, device, dtype)
 
     for i in range(cfg.num_layers):

@@ -42,7 +42,7 @@ def get_family(model_type: str, hf_config: dict | None = None) -> FamilySpec:
     if model_type not in REGISTRY:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported to PyTorch yet (ROADMAP Queue 1, "
-            f"item 5). Ported: {sorted(REGISTRY)}")
+            f"'Other families'). Ported: {sorted(REGISTRY)}")
     entry = REGISTRY[model_type]
     if isinstance(entry, FamilySpec):
         return entry

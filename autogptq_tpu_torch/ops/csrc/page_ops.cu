@@ -7,8 +7,12 @@
 // does this kernel: kv_write_kernel<T, ROPE=true> takes the q/k/v projections of one layer, turns
 // q and k by their positions (rotate-halves RoPE, angles pos * inv_freq in f32, sincosf, the
 // rotation in f32 rounded once to T), returns q rotated and writes the rotated K and the V rows,
-// and for an int8 cache quantizes each (slot, head) row in the same launch (code = rint(x *
-// (127.5 / max|x|)), the f32 scale beside it: the JAX package's paged scheme). One launch per
+// and for an int8 cache quantizes each (slot, head) row in the same launch, the f32 scale beside
+// it, in one of the JAX package's two schemes, which round differently and are never mixed:
+//   QUANT_PAGED   the paged pools' (utils/generation.py:613-617): s = max|x|, floored at 1e-8,
+//                 code = rint(x * (127.5 / s)) clipped to [-127, 127];
+//   QUANT_CONTIG  the contiguous cache's (models/arch.py:_kv_quantize): s = max|x| / 127,
+//                 code = rint(x / max(s, 1e-10)), s stored unfloored. One launch per
 // layer and decode step in place of about two dozen eager ops (the angles, the rotation's
 // multiplies, adds and concatenations, the casts, the copies or the quantization). The
 // destination is a strided 5-D cache whose rows are D contiguous elements:
@@ -66,6 +70,7 @@ constexpr int ERR_COPY_ID = 2;                      // K8b: a src or dst outside
 constexpr int ERR_COPY_DUP = 4;                     // K8b: a dst named twice
 constexpr int MODE_ROWS = 0, MODE_TABLES = 1, MODE_CURSOR = 2;
 constexpr int DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2;  // ops/paged_attn.py FLOAT_CODES
+constexpr int QUANT_NONE = 0, QUANT_PAGED = 1, QUANT_CONTIG = 2;   // ops/paged_attn.py QUANT_*
 
 struct KvArgs {
     const void* q;              // [B, H, D] (ROPE; may be null)
@@ -131,7 +136,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // ROPE: T is the activations' type and the float caches' (int8 ones with QUANT); q and k turn,
 // v is copied (or quantized). !ROPE: T is an unsigned type of the caches' element size and the
 // rows are copied as they are.
-template <typename T, bool ROPE, bool QUANT>
+template <typename T, bool ROPE, int QUANT>
 __global__ void __launch_bounds__(THREADS) kv_write_kernel(const KvArgs a) {
     bool bad = false;
     for (int t = threadIdx.x; t < a.B; t += THREADS) bad |= !target(a, t).ok;
@@ -180,7 +185,7 @@ __global__ void __launch_bounds__(THREADS) kv_write_kernel(const KvArgs a) {
                 x2 = r2;
             }
             const T t1 = from_f<T>(x1), t2 = from_f<T>(x2);   // rounded once
-            if (QUANT && !is_q) {
+            if (QUANT != QUANT_NONE && !is_q) {
                 y1[u] = to_f(t1);
                 y2[u] = to_f(t2);
                 amax = fmaxf(amax, fmaxf(fabsf(y1[u]), fabsf(y2[u])));
@@ -189,26 +194,41 @@ __global__ void __launch_bounds__(THREADS) kv_write_kernel(const KvArgs a) {
                 out[i + half] = t2;
             }
         }
-        if constexpr (QUANT) {
+        if constexpr (QUANT != QUANT_NONE) {
             if (is_q) return;                       // whole warps
 #pragma unroll
             for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-            const float s = fmaxf(amax, 1e-8f);
-            const float mul = __fmul_rn(__frcp_rn(s), 127.5f);   // torch's 127.5 / s
             int8_t* codes = static_cast<int8_t*>(is_v ? a.v_dst : a.k_dst) + dst_off;
+            float s;
+            if constexpr (QUANT == QUANT_PAGED) {
+                s = fmaxf(amax, 1e-8f);
+                const float mul = __fmul_rn(__frcp_rn(s), 127.5f);   // torch's 127.5 / s
 #pragma unroll
-            for (int u = 0; u < MAX_PAIRS; ++u) {
-                const int i = lane + 32 * u;
-                if (i >= half) continue;
-                codes[i] = (int8_t)fminf(fmaxf(rintf(__fmul_rn(y1[u], mul)), -127.f), 127.f);
-                codes[i + half] = (int8_t)fminf(fmaxf(rintf(__fmul_rn(y2[u], mul)), -127.f), 127.f);
+                for (int u = 0; u < MAX_PAIRS; ++u) {
+                    const int i = lane + 32 * u;
+                    if (i >= half) continue;
+                    codes[i] = (int8_t)fminf(fmaxf(rintf(__fmul_rn(y1[u], mul)), -127.f), 127.f);
+                    codes[i + half] =
+                        (int8_t)fminf(fmaxf(rintf(__fmul_rn(y2[u], mul)), -127.f), 127.f);
+                }
+            } else {   // _kv_quantize's divisions, correctly rounded; |x| / s <= 127 needs no clip
+                s = __fdiv_rn(amax, 127.0f);
+                const float den = fmaxf(s, 1e-10f);
+#pragma unroll
+                for (int u = 0; u < MAX_PAIRS; ++u) {
+                    const int i = lane + 32 * u;
+                    if (i >= half) continue;
+                    codes[i] = (int8_t)rintf(__fdiv_rn(y1[u], den));
+                    codes[i + half] = (int8_t)rintf(__fdiv_rn(y2[u], den));
+                }
             }
+            // the scale caches have the code caches' shape with D = 1
             if (lane == 0) (is_v ? a.v_scale : a.k_scale)[dst_off / a.D] = s;
         }
     }
 }
 
-template <typename T, bool ROPE, bool QUANT>
+template <typename T, bool ROPE, int QUANT>
 cudaError_t launch_kv_write(const KvArgs& a, cudaStream_t st) {
     const int per_b = (ROPE && a.q != nullptr ? a.H : 0) + 2 * a.Hkv;
     const long long blocks = ((long long)a.B * per_b + WARPS - 1) / WARPS;
@@ -390,9 +410,10 @@ cudaError_t cluster_attributes() {
 
 }  // namespace
 
-// K8a: the fused RoPE + K/V write (rope = 1; dtype the activations' FLOAT code, quant = 1 for
-// int8 caches with their scale pools) or the plain row write (rope = 0, elem_bytes the caches'
-// element size). Strides in elements of the caches.
+// K8a: the fused RoPE + K/V write (rope = 1; dtype the activations' FLOAT code; quant for int8
+// caches with their scale caches: QUANT_PAGED for page pools, QUANT_CONTIG for the contiguous
+// cache) or the plain row write (rope = 0, elem_bytes the caches' element size). Strides in
+// elements of the caches.
 extern "C" int kv_write(const void* q, const void* k, const void* v, void* q_out, void* k_dst,
                         void* v_dst, float* k_scale, float* v_scale, const void* pos, int pos64,
                         long long pos_stride, const float* inv_freq, const int32_t* page_of,
@@ -405,8 +426,9 @@ extern "C" int kv_write(const void* q, const void* k, const void* v, void* q_out
         mode < MODE_ROWS || mode > MODE_CURSOR || (mode == MODE_TABLES && (W <= 0 || !tables)) ||
         (mode == MODE_CURSOR && !cursor) || (mode == MODE_ROWS && (!page_of || !off)))
         return (int)cudaErrorInvalidValue;
-    if (rope && (D % 2 || D / 2 > 32 * MAX_PAIRS || !inv_freq || !pos || (q && (!q_out || H <= 0)) ||
-                 (quant && (!k_scale || !v_scale))))
+    if (quant < QUANT_NONE || quant > QUANT_CONTIG || (quant && !rope) ||
+        (rope && (D % 2 || D / 2 > 32 * MAX_PAIRS || !inv_freq || !pos ||
+                  (q && (!q_out || H <= 0)) || (quant && (!k_scale || !v_scale)))))
         return (int)cudaErrorInvalidValue;
     if (mode == MODE_TABLES && !pos) return (int)cudaErrorInvalidValue;
     if (B == 0) return (int)cudaSuccess;
@@ -417,21 +439,27 @@ extern "C" int kv_write(const void* q, const void* k, const void* v, void* q_out
                    W,       layer};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (rope) {
-        switch (dtype * 2 + (quant ? 1 : 0)) {
-            case DT_F32 * 2: return (int)launch_kv_write<float, true, false>(a, st);
-            case DT_F32 * 2 + 1: return (int)launch_kv_write<float, true, true>(a, st);
-            case DT_F16 * 2: return (int)launch_kv_write<__half, true, false>(a, st);
-            case DT_F16 * 2 + 1: return (int)launch_kv_write<__half, true, true>(a, st);
-            case DT_BF16 * 2: return (int)launch_kv_write<__nv_bfloat16, true, false>(a, st);
-            case DT_BF16 * 2 + 1: return (int)launch_kv_write<__nv_bfloat16, true, true>(a, st);
+        switch (dtype * 3 + quant) {
+            case DT_F32 * 3 + QUANT_NONE: return (int)launch_kv_write<float, true, QUANT_NONE>(a, st);
+            case DT_F32 * 3 + QUANT_PAGED: return (int)launch_kv_write<float, true, QUANT_PAGED>(a, st);
+            case DT_F32 * 3 + QUANT_CONTIG: return (int)launch_kv_write<float, true, QUANT_CONTIG>(a, st);
+            case DT_F16 * 3 + QUANT_NONE: return (int)launch_kv_write<__half, true, QUANT_NONE>(a, st);
+            case DT_F16 * 3 + QUANT_PAGED: return (int)launch_kv_write<__half, true, QUANT_PAGED>(a, st);
+            case DT_F16 * 3 + QUANT_CONTIG: return (int)launch_kv_write<__half, true, QUANT_CONTIG>(a, st);
+            case DT_BF16 * 3 + QUANT_NONE:
+                return (int)launch_kv_write<__nv_bfloat16, true, QUANT_NONE>(a, st);
+            case DT_BF16 * 3 + QUANT_PAGED:
+                return (int)launch_kv_write<__nv_bfloat16, true, QUANT_PAGED>(a, st);
+            case DT_BF16 * 3 + QUANT_CONTIG:
+                return (int)launch_kv_write<__nv_bfloat16, true, QUANT_CONTIG>(a, st);
             default: return (int)cudaErrorInvalidValue;
         }
     }
     switch (elem_bytes) {
-        case 1: return (int)launch_kv_write<uint8_t, false, false>(a, st);
-        case 2: return (int)launch_kv_write<uint16_t, false, false>(a, st);
-        case 4: return (int)launch_kv_write<uint32_t, false, false>(a, st);
-        case 8: return (int)launch_kv_write<uint64_t, false, false>(a, st);
+        case 1: return (int)launch_kv_write<uint8_t, false, QUANT_NONE>(a, st);
+        case 2: return (int)launch_kv_write<uint16_t, false, QUANT_NONE>(a, st);
+        case 4: return (int)launch_kv_write<uint32_t, false, QUANT_NONE>(a, st);
+        case 8: return (int)launch_kv_write<uint64_t, false, QUANT_NONE>(a, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -21,9 +21,10 @@ Three kernels, each with its plain version in this module:
   fuses around that write under the JAX package's jit: :func:`rope_write_kv`
   (plain: :func:`rope_write_kv_ref`, ``arch.apply_rope``'s rotation then
   ``write_token_pages`` or ``index_copy_``, with :func:`quant_rows` for an
-  int8 pool) turns q and k by their positions and writes K and V into the
-  paged pools through the page tables or into the contiguous cache at the
-  device cursor, one launch per layer and decode step;
+  int8 pool, :func:`kv_quantize` for an int8 contiguous cache) turns q and k
+  by their positions and writes K and V into the paged pools through the page
+  tables or into the contiguous cache at the device cursor, one launch per
+  layer and decode step;
   :func:`write_token_pages_kernel` (plain: ``write_token_pages``) is the same
   kernel with the rotation off;
 * K8b ``copy_pages_pair`` (``csrc/page_ops.cu``; plain: ``copy_pages``)
@@ -199,11 +200,27 @@ def rope_rows(pos: torch.Tensor, inv_freq: torch.Tensor, *xs: torch.Tensor) -> t
 
 def quant_rows(x: torch.Tensor):
     """Per-(slot, head) int8 over the last axis: ``(codes, scale [..., 1])``
-    with value = code * scale / 127.5 (the JAX package's paged int8 scheme)."""
+    with value = code * scale / 127.5 (the JAX package's paged int8 scheme).
+    The contiguous cache takes :func:`kv_quantize`'s scheme instead; the two
+    round differently and are never mixed."""
     xf = x.float()
     s = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
     q = torch.round(xf * (127.5 / s))
     return q.clamp(-127, 127).to(torch.int8), s
+
+
+def kv_quantize(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 over the last axis, the contiguous
+    cache's scheme (the JAX package's ``models/arch.py:_kv_quantize``, bit for
+    bit): ``scale = max|x| / 127`` in f32, ``code = round(x / max(scale,
+    1e-10))`` half to even; returns ``(codes, scale [..., 1])`` with value =
+    code * scale, the scale unfloored (0 for an all-zero row)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # a tensor divisor: on the card torch divides by a Python scalar through its reciprocal,
+    # which rounds otherwise than the division the JAX package and K8a make
+    scale = amax / torch.full_like(amax, 127.0)
+    return torch.round(xf / scale.clamp_min(1e-10)).to(torch.int8), scale
 
 
 def rope_write_kv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
@@ -216,14 +233,19 @@ def rope_write_kv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: to
     then K and V written into the paged pools through ``tables`` (page
     ``tables[b, pos[b] // ps]``, slot ``pos[b] % ps``; int8 pools take
     :func:`quant_rows`' codes and scales) or into the contiguous cache at
-    ``cursor``. Returns q turned, ``[B, H, D]``. A target outside the cache
+    ``cursor`` (an int8 cache :func:`kv_quantize`'s, its scales ``[L, B, S,
+    Hkv, 1]``). Returns q turned, ``[B, H, D]``. A target outside the cache
     raises ValueError before anything is written."""
     qr, kr = rope_rows(pos, inv_freq, q, k)
     if cursor is not None:
         if not 0 <= int(cursor[0]) < k_cache.shape[2]:
             raise ValueError(WRITE_TARGET_MSG)
-        k_cache[layer].index_copy_(1, cursor, kr[:, None].to(k_cache.dtype))
-        v_cache[layer].index_copy_(1, cursor, v[:, None].to(v_cache.dtype))
+        rows = ((k_cache, kr), (v_cache, v))
+        if k_scale is not None:
+            (kq, ks), (vq, vs) = kv_quantize(kr), kv_quantize(v)
+            rows = ((k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs))
+        for cache, r in rows:
+            cache[layer].index_copy_(1, cursor, r[:, None].to(cache.dtype))
         return qr
     ps = k_cache.shape[3]
     p = pos.long()
@@ -391,6 +413,7 @@ _PAGE_ARGTYPES = {
                    + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2),
 }
 MODE_ROWS, MODE_TABLES, MODE_CURSOR = 0, 1, 2   # page_ops.cu MODE_*
+QUANT_NONE, QUANT_PAGED, QUANT_CONTIG = 0, 1, 2  # page_ops.cu QUANT_*: -, quant_rows, kv_quantize
 
 
 def _page_fn(name: str):
@@ -403,7 +426,7 @@ def _page_fn(name: str):
 
 def _kv_write(mode: int, k_dst: torch.Tensor, v_dst: torch.Tensor, layer: int, k, v, *, q=None,
               pos=None, inv_freq=None, page_of=None, off=None, tables=None, cursor=None,
-              k_scale=None, v_scale=None, n_slots: int, w: int = 0):
+              k_scale=None, v_scale=None, quant: int = QUANT_NONE, n_slots: int, w: int = 0):
     """One launch of ``kv_write`` over caches whose dims 0, 2, 3 are (layer,
     head, slot) and dim 1 the page or row; returns q turned, or None."""
     null = ctypes.c_void_p(0)
@@ -420,7 +443,7 @@ def _kv_write(mode: int, k_dst: torch.Tensor, v_dst: torch.Tensor, layer: int, k
         ptr(q), _ptr(k), _ptr(v), ptr(q_out), _ptr(k_dst), _ptr(v_dst), ptr(k_scale), ptr(v_scale),
         ptr(pos), int(pos is not None and pos.dtype == torch.int64),
         pos.stride(0) if pos is not None else 0, ptr(inv_freq), ptr(page_of), ptr(off), ptr(tables),
-        ptr(cursor), mode, int(rope), int(k_scale is not None),
+        ptr(cursor), mode, int(rope), quant,
         FLOAT_CODES.get(k.dtype, 0) if rope else 0, k_dst.element_size(), b,
         q.shape[1] if q is not None else 0, hkv, d, k_dst.shape[1], n_slots, w, layer, *strides,
         _ptr(build.error_flag(PAGE_OPS, k_dst.device)), _stream(k_dst))
@@ -438,8 +461,10 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
     and ``inv_freq [D / 2]`` (:func:`rope_inv_freq`), K and v ``[B, Hkv, D]``
     written in place either into the paged pools ``[L, P, Hkv, ps, D]``
     through ``tables [B, W]`` at the slot ``pos`` (int8 pools with their f32
-    scale pools, quantized by :func:`quant_rows`) or into the contiguous cache
-    ``[L, B, S, Hkv, D]`` at ``cursor`` (int64 ``[1]``). Returns q turned,
+    scale pools ``[L, P, Hkv, ps]``, quantized by :func:`quant_rows`) or into
+    the contiguous cache ``[L, B, S, Hkv, D]`` at ``cursor`` (int64 ``[1]``;
+    an int8 cache with its f32 scales ``[L, B, S, Hkv, 1]``, quantized by
+    :func:`kv_quantize`). Returns q turned,
     ``[B, H, D]`` contiguous. A CPU tensor takes :func:`rope_write_kv_ref`; a
     CUDA tensor launches K8a (one launch) or raises. A target outside the
     cache raises ValueError and nothing is written: on the card K8a flags it,
@@ -464,8 +489,16 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
             raise ValueError(f"tables must be int32 [{b}, W], got {tuple(tables.shape)} "
                              f"{tables.dtype}")
     else:
-        if k_scale is not None or k_cache.dtype == torch.int8:
-            raise ValueError("the contiguous cache takes no int8 rows")
+        if (k_scale is None) != (v_scale is None) or \
+                (k_cache.dtype == torch.int8) != (k_scale is not None):
+            raise ValueError("an int8 contiguous cache needs k_scale/v_scale, and only an int8 "
+                             "cache takes them")
+        if k_scale is not None:
+            want = tuple(k_cache.shape[:4]) + (1,)
+            for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+                if tuple(sc.shape) != want or sc.dtype != torch.float32:
+                    raise ValueError(f"{name} must be f32 {want}, got {tuple(sc.shape)} "
+                                     f"{sc.dtype}")
         if k_cache.shape[1] != b or tuple(cursor.shape) != (1,) or cursor.dtype != torch.int64:
             raise ValueError(f"a [L, {b}, S, Hkv, D] cache and an int64 [1] cursor, got "
                              f"{tuple(k_cache.shape)} and {tuple(cursor.shape)} {cursor.dtype}")
@@ -484,7 +517,7 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
         raise ValueError(f"q, k and v must be one of f32, f16, bf16, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if k_cache.dtype != q.dtype and k_cache.dtype != torch.int8:
-        raise ValueError(f"caches must have q's dtype {q.dtype} (or int8 pools), got "
+        raise ValueError(f"caches must have q's dtype {q.dtype} (or int8), got "
                          f"{k_cache.dtype}")
     if d > 256:
         raise NotImplementedError(f"K8a turns head dims up to 256, got {d}")
@@ -495,10 +528,13 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
     if tables is not None:   # the kernel's (layer, page, head, slot) strides: the pools' own
         q_out = _kv_write(MODE_TABLES, k_cache, v_cache, layer, k, v, q=q, pos=pos,
                           inv_freq=inv_freq, tables=tables, k_scale=k_scale, v_scale=v_scale,
+                          quant=QUANT_PAGED if k_scale is not None else QUANT_NONE,
                           n_slots=k_cache.shape[3], w=tables.shape[1])
-    else:   # [L, B, S, Hkv, D]: (layer, row, head, slot) strides
+    else:   # [L, B, S, Hkv, D]: (layer, row, head, slot) strides; the scales index as D = 1
         q_out = _kv_write(MODE_CURSOR, k_cache.transpose(2, 3), v_cache.transpose(2, 3), layer, k,
-                          v, q=q, pos=pos, inv_freq=inv_freq, cursor=cursor,
+                          v, q=q, pos=pos, inv_freq=inv_freq, cursor=cursor, k_scale=k_scale,
+                          v_scale=v_scale,
+                          quant=QUANT_CONTIG if k_scale is not None else QUANT_NONE,
                           n_slots=k_cache.shape[2])
     build.launches["rope_write_kv"] += 1
     if check:
@@ -599,6 +635,7 @@ __all__ = [
     "copy_pages",
     "copy_pages_pair",
     "copy_plan",
+    "kv_quantize",
     "paged_attention_mh",
     "paged_attention_mh_ref",
     "quant_rows",

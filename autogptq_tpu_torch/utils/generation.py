@@ -27,13 +27,16 @@ package's ``step_fn``: the forward, the beams' choice (``_Beams.advance``,
 which reads the step from a device counter and updates the beams' state in
 place) and the reorder (``_paged_reorder``: the table update and K8b), so
 the host loop only replays. In both, each layer's RoPE and K/V write are one
-K8a launch (``ops/paged_attn.rope_write_kv``). A graph lives for one call:
+K8a launch (``ops/paged_attn.rope_write_kv``), which quantizes the rows of an
+int8 cache (``kv_quant``: the contiguous cache's scheme for greedy, the
+paged pools' for the paged beam). A graph lives for one call:
 ``build.split_scratch`` grows its workspaces by replacing them. With the
 switch off, and on the CPU, the same step objects run eagerly, one dispatch
 per operation. Not captured, and eager whatever the switch: the prefill,
 training, the contiguous beam path (``_generate_beam``, taken by
-adaption-prompt models) and the greedy decode of an adaption-prompt model,
-whose dense attention reads the host cursor.
+adaption-prompt models and by int8 beams of a configuration the paged engine
+refuses, :func:`_beam_paged_ok`) and the greedy decode of an adaption-prompt
+model, whose dense attention reads the host cursor.
 """
 
 from __future__ import annotations
@@ -143,14 +146,16 @@ class GreedyStep:
 def _generate_greedy(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
                      max_new_tokens: int, min_new_tokens: int, eos_token_id: Optional[int],
                      temperature: float, dtype: torch.dtype,
-                     generator: Optional[torch.Generator], pad_token_id: int = 0) -> torch.Tensor:
+                     generator: Optional[torch.Generator], pad_token_id: int = 0,
+                     kv_quant: bool = False) -> torch.Tensor:
     """Prefill the prompt, then decode one token per step (:class:`GreedyStep`,
-    through a CUDA graph on the card with :data:`JIT_GENERATE` on); returns
-    the new tokens ``[B, max_new_tokens]`` int32."""
+    through a CUDA graph on the card with :data:`JIT_GENERATE` on) over the
+    contiguous cache, int8 with ``kv_quant``; returns the new tokens ``[B,
+    max_new_tokens]`` int32."""
     b, t = tokens.shape
     dev = tokens.device
     total = t + max_new_tokens
-    cache = KVCache.create(cfg, b, total, dtype=dtype, device=dev)
+    cache = KVCache.create(cfg, b, total, dtype=dtype, device=dev, quantized=kv_quant)
     validity = torch.zeros((b, total), dtype=torch.int32, device=dev)
     validity[:, :t] = mask
 
@@ -358,28 +363,29 @@ def _generate_beam(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
                    length_penalty: float = 1.0, early_stopping=False,
                    num_return_sequences: int = 1) -> torch.Tensor:
     """Beam search over the contiguous KV cache: after every step the whole
-    cache is reordered to the chosen parents (``index_select``); decode
-    attention is K2. ``generate`` takes the paged path, and this one for a
-    model with an adaption prompt; it is also the paged path's oracle in the
-    tests. Returns ``[B, num_return_sequences,
-    max_new_tokens]``."""
-    if kv_quant:
-        raise NotImplementedError("the contiguous int8 KV cache is not ported yet (ROADMAP "
-                                  "Queue 1, 'The contiguous int8 KV cache'); the paged beam "
-                                  "path takes kv_quant=True")
+    cache, an int8 one's scales with it, is reordered to the chosen parents
+    (``index_select``); decode attention is K2 (the einsum over an int8
+    cache). ``generate`` takes the paged path, and this one for a model with
+    an adaption prompt and for an int8 beam that :func:`_beam_paged_ok`
+    refuses; it is also the paged path's oracle in the tests. Returns ``[B,
+    num_return_sequences, max_new_tokens]``."""
     b, t = tokens.shape
     k = num_beams
     dev = tokens.device
     total = t + max_new_tokens
-    cache_b = KVCache.create(cfg, b, total, dtype=dtype, device=dev)
+    cache_b = KVCache.create(cfg, b, total, dtype=dtype, device=dev, quantized=kv_quant)
     validity_b = torch.zeros((b, total), dtype=torch.int32, device=dev)
     validity_b[:, :t] = mask
     positions_b = (torch.cumsum(mask, dim=-1) - 1).clamp_min(0)
     logits, cache_b = arch.forward(params, tokens, cfg, cache=cache_b, positions=positions_b,
                                    attn_mask=validity_b, dtype=dtype, logits_last_only=True,
                                    mask_contig=True)
-    cache = KVCache(k=cache_b.k.repeat_interleave(k, dim=1),
-                    v=cache_b.v.repeat_interleave(k, dim=1), length=cache_b.length)
+
+    def beams_of(a):
+        return None if a is None else a.repeat_interleave(k, dim=1)
+
+    cache = KVCache(k=beams_of(cache_b.k), v=beams_of(cache_b.v), length=cache_b.length,
+                    k_scale=beams_of(cache_b.k_scale), v_scale=beams_of(cache_b.v_scale))
     validity = validity_b.repeat_interleave(k, dim=0)
     cur_pos = positions_b[:, -1].repeat_interleave(k, dim=0) + 1
     del cache_b
@@ -395,6 +401,9 @@ def _generate_beam(params: dict, tokens: torch.Tensor, mask: torch.Tensor, cfg,
         parent = beams.advance(logits[:, -1])
         cache.k = cache.k.index_select(1, parent)
         cache.v = cache.v.index_select(1, parent)
+        if kv_quant:
+            cache.k_scale = cache.k_scale.index_select(1, parent)
+            cache.v_scale = cache.v_scale.index_select(1, parent)
         validity = validity[parent]
         cur_pos = cur_pos[parent] + 1
     return beams.finish(num_return_sequences)
@@ -509,15 +518,19 @@ def beam_paged_prefill(params: dict, tokens: torch.Tensor, mask: torch.Tensor, c
 
 def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.Tensor,
                       pos: torch.Tensor, dtype: torch.dtype,
-                      inv_freq: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      inv_freq: Optional[torch.Tensor] = None,
+                      fuse_norm: Optional[bool] = None) -> torch.Tensor:
     """One decode token per beam over the paged cache: every layer turns q
     and k and writes K/V into the beam's own current page in one K8a launch
     (``rope_write_kv``, which finds the page in ``cache.tables``) and attends
     over the beam's live pages (K7). ``pos`` ``[B * k]`` is the slot (and the
     position) of the incoming token; ``inv_freq`` RoPE's
-    (``rope_inv_freq``, made here when not given). Returns the logits ``[B *
-    k, V]`` f32. On the card the caller reads K8a's target check with
-    :func:`check_page_errors`."""
+    (``rope_inv_freq``, made here when not given). ``cache`` is anything with
+    the pools, scale pools and ``tables`` of :class:`PagedBeamCache` (the
+    paged serving engine passes its own). ``fuse_norm`` None follows
+    :data:`arch.FUSE_NORM`; the serving engine passes False, as the JAX
+    engine never fuses. Returns the logits ``[B * k, V]`` f32. On the card
+    the caller reads K8a's target check with :func:`check_page_errors`."""
     bk = cur_tok.shape[0]
     h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = d ** -0.5
@@ -528,7 +541,9 @@ def paged_decode_step(params: dict, cfg, cache: PagedBeamCache, cur_tok: torch.T
     # Fused norm+matmul (arch.FUSE_NORM), the JAX _fwd_step's branch: q/k/v take the input
     # norm and gate/up the post-attention norm as a prenorm; a MoE block stays unfused, as
     # arch.block_forward keeps it.
-    fuse_norm = arch.FUSE_NORM != "0" and cfg.moe_num_experts == 0
+    if fuse_norm is None:
+        fuse_norm = arch.FUSE_NORM != "0"
+    fuse_norm = fuse_norm and cfg.moe_num_experts == 0
     for idx, bp in enumerate(params["layers"]):
         ap = bp["attn"]
         if fuse_norm:
@@ -619,6 +634,19 @@ def _generate_beam_paged(params: dict, tokens: torch.Tensor, mask: torch.Tensor,
     return beams.finish(num_return_sequences)
 
 
+def _beam_paged_ok(model) -> bool:
+    """The JAX package's route of a beam to the paged cache
+    (``utils/generation.py:_beam_paged_ok``): a configuration the paged engine
+    takes (``serving_paged.paged_cfg_ok``: not MoE) and no adaption prompt.
+    :func:`generate` asks it for an int8 beam, whose two routes quantize by
+    different schemes and so give different tokens; a float beam takes the
+    paged cache for every family, since both routes give the same tokens
+    there."""
+    from ..serving_paged import paged_cfg_ok
+
+    return paged_cfg_ok(model.cfg) and not _has_adaption(model.params)
+
+
 def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0.0,
              num_beams: int = 1, eos_token_id: Optional[int] = None, min_new_tokens: int = 0,
              seed: int = 0, pad_token_id: int = 0, kv_quant: bool = False,
@@ -628,9 +656,11 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     ``[B * num_return_sequences, T + max_new_tokens]`` int32 (prompt, left
     padded, then the new tokens). ``num_return_sequences`` R > 1 returns the
     top R beams under beam search, or R independent samples per prompt under
-    sampling. ``kv_quant`` (an int8 KV cache) is ported for beam search over
-    the paged cache only. ``phased`` is accepted for the JAX signature and has
-    no effect."""
+    sampling. ``kv_quant`` takes an int8 KV cache: the contiguous cache's
+    scheme for greedy and sampled decoding and for beams on the contiguous
+    route, the paged pools' for beams on the paged route, as in the JAX
+    package. ``phased`` is accepted for the JAX signature and has no
+    effect."""
     if num_beams > 1:
         if num_return_sequences > num_beams:
             raise ValueError("num_return_sequences must be <= num_beams")
@@ -645,10 +675,6 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
         if num_return_sequences > 1 and not temperature:
             raise ValueError("num_return_sequences > 1 requires sampling (temperature > 0) "
                              "or beam search (num_beams > 1)")
-        if kv_quant:
-            raise NotImplementedError("the contiguous int8 KV cache is not ported yet (ROADMAP "
-                                      "Queue 1, 'The contiguous int8 KV cache'); beam search "
-                                      "takes kv_quant=True")
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be at least 1")
     ids, mask = _prep_inputs(input_ids, pad_token_id)
@@ -656,9 +682,12 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     tokens = torch.from_numpy(ids).to(dev)
     mask_t = torch.from_numpy(mask).to(dev)
     if num_beams > 1:
-        # the paged decode step has no adaption-prompt branch: such models
-        # take the contiguous cache, as in the JAX package
-        beam = _generate_beam if _has_adaption(model.params) else _generate_beam_paged
+        # the paged decode step has no adaption-prompt branch: such models take the contiguous
+        # cache, as in the JAX package. An int8 beam routes as the JAX package routes it
+        # (_beam_paged_ok), since the two routes quantize differently; a float beam takes the
+        # paged cache for every other model, Mixtral's too, the routes' tokens being the same
+        contiguous = _has_adaption(model.params) or (kv_quant and not _beam_paged_ok(model))
+        beam = _generate_beam if contiguous else _generate_beam_paged
         new = beam(
             model.params, tokens, mask_t, model.cfg, max_new_tokens, min_new_tokens,
             eos_token_id, num_beams, model.dtype, kv_quant=kv_quant,
@@ -686,6 +715,7 @@ def generate(model, input_ids, max_new_tokens: int = 128, temperature: float = 0
     new = _generate_greedy(
         model.params, tokens, mask_t, model.cfg, max_new_tokens, min_new_tokens, eos_token_id,
         float(temperature or 0.0), model.dtype, generator, pad_token_id=pad_token_id,
+        kv_quant=kv_quant,
     ).cpu().numpy()
     check_routed_errors(dev)
     check_page_errors(dev)

@@ -233,7 +233,29 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    the 2-layer cut, kb32l in f32 (the ring) on the card against the CPU. On
    the 2-layer Mixtral cut, ``dx`` through a layer's routed ``moe_mlp`` (K9's
    SIMT kernel forward in f32, K10 backward) on the card against the CPU.
-20. Estimates K2's and K7's device time per token over a 512-token run from
+20. The contiguous int8 KV cache (PR 20): the main path's model with
+   ``kv_quant=True``, batch 1, the 16-token prompt, 64 greedy tokens through
+   the decode step's graph: exactly 224 K1 GEMVs and 32 ``rope_write_kv``
+   (K8a's contiguous int8 mode) per decode token, no ``flash_decode`` (the
+   int8 cache takes the einsum, as the JAX package's does), its tokens equal
+   to the per-op loop's, the count equal to the bf16 cache's run; K8a's
+   contiguous int8 mode at that cache's shape bit-equal to its plain version
+   (codes and scales). Mixtral's int8 beam 4 over 16 tokens takes the
+   contiguous route (exact K9 and K1 counts, no K8a, K7, K8b or K2).
+21. The paged serving engine (PR 20, ``serving_paged.py``): the main path's
+   model, 8 slots, page 16, 48 pages per sequence, 160 pages, the prefix cache
+   on; a trace of 24 requests drawn from a seed (prompts 16-480 tokens, 8
+   sharing a 256-token prefix, 4 sampled at temperature 0.8, top-p 0.95,
+   top-k 50; 32-192 new tokens) after ``warmup()``: no capture in the run,
+   exactly 224 K1 GEMVs at M = 8, 32 ``rope_write_kv`` and 32
+   ``paged_attention_mh`` per replayed step, at least one preemption and one
+   prefix hit; the same streams and stats through the per-op loop; each
+   sampled request alone on a fresh engine, the same stream; a profiled window
+   of 16 steps (host against device ms per step); a shorter trace with
+   ``decode_block = 4``, graph against per-op loop likewise; on the 2-layer
+   f32 cut the engine's decode-step logits on the card within 1e-3 relative of
+   the CPU engine's on one trace.
+22. Estimates K2's and K7's device time per token over a 512-token run from
    the sweeps, holds the wgmma/TMA tile kernels per Llama-2-7B layer against
    the mma.sync ones (faster at M = 128 and 2048, forward and K10; whether at most half
    its time at M = 2048 is reported), reports K6's wgmma kernel per layer
@@ -268,6 +290,7 @@ L2 cache flushed before each call.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -354,6 +377,21 @@ MIXTRAL_LAYERS = 8            # depth of the Mixtral-8x7B path (of 32: cut for t
 MIXTRAL_NEW_TOKENS = 128
 MIXTRAL_BEAM_TOKENS = 64
 MIXTRAL_PROFILE_TOKENS = 17
+MIXTRAL_INT8_BEAM_TOKENS = 16   # Mixtral's int8 beam 4: the contiguous route (as the JAX package's)
+MIXTRAL_CUT_BEAM_TOKENS = 8     # the int8 beam on the 2-layer cut, card f32 against the CPU
+INT8_NEW_TOKENS = 64          # the int8 greedy path: batch 1, the 16-token prompt, kv_quant=True
+# The paged serving engine (serving_paged.py) on the main path's model: 8 slots of at most
+# 48 pages of 16 tokens; a pool below the trace's peak demand, so that it preempts
+SERVE_SLOTS, SERVE_PAGE, SERVE_PAGES_PER_SEQ, SERVE_TOTAL_PAGES = 8, 16, 48, 160
+SERVE_REQUESTS, SERVE_SEED = 24, 20
+SERVE_PROMPT = (16, 480)      # prompt lengths drawn from this range
+SERVE_NEW = (32, 192)         # max_new_tokens drawn from this range
+SERVE_PREFIX, SERVE_SHARING = 256, 8     # 8 requests share a 256-token prefix
+SERVE_SAMPLED = 4             # sampled at SERVE_SAMPLING; the rest greedy
+SERVE_SAMPLING = dict(temperature=0.8, top_p=0.95, top_k=50)
+SERVE_BLOCK, SERVE_BLOCK_REQUESTS, SERVE_BLOCK_NEW = 4, 8, (32, 64)   # the decode_block run
+SERVE_PROFILE_STEPS = 16      # engine steps in the profiled window
+SERVE_CUT_REL_TOL = 1e-3      # the f32 2-layer cut's decode-step logits, card against CPU
 K9_SELS = {1: [3], 2: [1, 6], 8: [0, 7, 7, 2, 0, 5, 1, 7]}   # P = 8: beam 4, repeats
 MIXTRAL_SHAPES = {        # Mixtral-8x7B expert projection: (K, N, K9 calls per layer)
     "gate_up": (4096, 14336, 2),
@@ -565,7 +603,8 @@ def gemv_plan_of(torch, gemm, dtype, k, n, m, gs, bits, library=None, experts=No
 
 
 def phase_k1(torch, np, timer) -> list:
-    """K1 against its plain version at the Llama-2-7B shapes; at M <= 16 the
+    """K1 against its plain version at the Llama-2-7B shapes (M = SERVE_SLOTS is
+    the paged serving engine's decode step); at M <= 16 the
     tensor-core decode GEMV and at M > 16 the wgmma/TMA tile kernel (bf16),
     each beside the SIMT GEMV or SIMT tile kernel on the same weights (the
     wgmma kernel also beside the mma.sync tile kernel), each held to
@@ -581,6 +620,7 @@ def phase_k1(torch, np, timer) -> list:
              for m in (1, BEAMS, 16, 128, TRAIN_M) for name, (k, n, _) in LAYER_SHAPES.items()]
     cases += [("qkvo+desc_act", 4096, 4096, 1, True, False),
               ("gate_up+bias", 4096, 11008, 16, False, True)]
+    cases += [(name, k, n, SERVE_SLOTS, False, False) for name, (k, n, _) in LAYER_SHAPES.items()]
     rows = []
     for name, k, n, m, desc_act, with_bias in cases:
         t = random_quant_tensors(rng, k, n, 4, 128, desc_act)
@@ -2676,28 +2716,42 @@ def _live_kv(pool, scales, tables, layer, lengths, ps, rep, dtype):
 
 
 K7_LENGTHS = (17, 64, 272, 528)   # live slots per row swept, as K2_WINDOWS
+# The paged serving engine's K7 call: its lengths + 1 over SERVE_SLOTS rows, each row's own
+# pages up to its length and the null page past them; the length-1 row is an idle slot (length
+# 0), whose table names only the null page; 768 = SERVE_PAGES_PER_SEQ * SERVE_PAGE, the cap
+ENGINE_K7_LENGTHS = (670, 1, 301, 528, 65, 17, 145, 768)
 
 
 def phase_k7(torch, timer) -> list:
     """K7 against its plain version at the beam-4 Llama-2-7B shape (bf16 and
-    int8 pools, GQA, unequal lengths) and over the length sweep (bf16 and
-    int8); each case twice with bit-equal results, timed beside SDPA."""
+    int8 pools, GQA, unequal lengths), over the length sweep (bf16 and int8),
+    and at the paged serving engine's shape (SERVE_SLOTS rows, tables
+    SERVE_PAGES_PER_SEQ wide, ENGINE_K7_LENGTHS, bf16); each case twice with
+    bit-equal results, timed beside SDPA."""
     import torch.nn.functional as F
 
     from autogptq_tpu_torch.ops import paged_attn as pam
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    b, h, d, ps, width, layers, layer = BEAMS, 32, 128, PAGE, 40, 2, 1
-    n_pages = 2 + BEAMS * 33           # null page, one prompt page, 33 own pages per beam
+    h, d, ps, layers, layer = 32, 128, PAGE, 2, 1
     full = 33 * ps                     # 528 live slots: 16 prompt + 512 new
-    cases = [("beam4 bf16", 32, torch.bfloat16, [full] * b),
-             ("beam4 int8", 32, torch.int8, [full] * b),
-             ("GQA 32/8", 8, torch.bfloat16, [full] * b),
+    cases = [("beam4 bf16", 32, torch.bfloat16, [full] * BEAMS),
+             ("beam4 int8", 32, torch.int8, [full] * BEAMS),
+             ("GQA 32/8", 8, torch.bfloat16, [full] * BEAMS),
              ("unequal lengths", 32, torch.bfloat16, [full, 300, 77, 1])]
-    cases += [(f"beam4 {tag} length {n}", 32, dt, [n] * b)
+    cases += [(f"beam4 {tag} length {n}", 32, dt, [n] * BEAMS)
               for tag, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)) for n in K7_LENGTHS]
+    cases += [("engine 8 slots", 32, torch.bfloat16, list(ENGINE_K7_LENGTHS))]
     rows = []
     for name, hkv, kv_dtype, lens in cases:
+        engine = name.startswith("engine")
+        b = len(lens)
+        if engine:   # null page, then each row's own pages up to its length (none when idle)
+            width = SERVE_PAGES_PER_SEQ
+            own = [0 if n == 1 else -(-n // ps) for n in lens]
+            n_pages = 1 + sum(own)
+        else:        # null page, one prompt page, 33 own pages per beam
+            width, n_pages = 40, 2 + BEAMS * 33
         rep = h // hkv
         q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
         shape = (layers, n_pages, hkv, ps, d)
@@ -2712,10 +2766,17 @@ def phase_k7(torch, timer) -> list:
             vp = torch.randn(shape, generator=gen, device="cuda", dtype=kv_dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         # each row's live pages are distinct pages of the pool; dead entries name the null page
-        live_pages = -(-full // ps)
-        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * live_pages] + 1
         tables = torch.zeros((b, width), dtype=torch.int32, device="cuda")
-        tables[:, :live_pages] = perm.reshape(b, live_pages).to(torch.int32)
+        if engine:
+            perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+            start = 0
+            for row, n in enumerate(own):
+                tables[row, :n] = perm[start:start + n]
+                start += n
+        else:
+            live_pages = -(-full // ps)
+            perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * live_pages] + 1
+            tables[:, :live_pages] = perm.reshape(b, live_pages).to(torch.int32)
         scale = d ** -0.5
         args = (q, kp, vp, lengths, tables, ks, vs)
         o = pam.paged_attention_mh(*args, sm_scale=scale, layer=layer)
@@ -2805,16 +2866,24 @@ def decode_ms_per_token(np, rows, prefix, layers) -> float:
 MANTISSA_BITS = {"torch.bfloat16": 7, "torch.float16": 10, "torch.float32": 23}
 # K8a's fused cases: (name, cache layout, activations, int8 pools, B, H, Hkv, layers, slots of
 # a row: the paged table's reach or the contiguous cache's S, the position written). The beam-4
-# pools and the greedy cache of the Llama-2-7B main path at its last step (16 + 511), Mixtral's
-# GQA cache and beam-4 pools at its depth and lengths.
+# pools and the greedy cache of the Llama-2-7B main path at its last step (16 + 511), the int8
+# greedy path's contiguous int8 cache at its last step (kv_quantize's scheme: codes and scales
+# bit-equal, no code's tolerance), Mixtral's GQA cache and beam-4 pools at its depth and
+# lengths; the paged serving engine's call (layout "engine": SERVE_SLOTS rows, each written at
+# its own position through its own pages of a table SERVE_PAGES_PER_SEQ wide, the position-0 row
+# an idle slot whose table names only the null page, as the engine's step writes it).
 K8A_CASES = (
     ("beam4 bf16", "paged", "bfloat16", False, BEAMS, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
     ("beam4 int8", "paged", "bfloat16", True, BEAMS, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
     ("greedy bf16", "cursor", "bfloat16", False, 1, 32, 32, 32, PROMPT_LEN + NEW_TOKENS, 527),
+    ("greedy int8", "cursor", "bfloat16", True, 1, 32, 32, 32, PROMPT_LEN + INT8_NEW_TOKENS,
+     PROMPT_LEN + INT8_NEW_TOKENS - 1),
     ("Mixtral GQA", "cursor", "bfloat16", False, 1, 32, 8, MIXTRAL_LAYERS,
      PROMPT_LEN + MIXTRAL_NEW_TOKENS, 143),
     ("Mixtral beam4", "paged", "bfloat16", False, BEAMS, 32, 8, MIXTRAL_LAYERS,
      PROMPT_LEN + MIXTRAL_BEAM_TOKENS, 79),
+    ("engine 8 slots", "engine", "bfloat16", False, SERVE_SLOTS, 32, 32, 32,
+     SERVE_PAGES_PER_SEQ * PAGE, tuple(n - 1 for n in ENGINE_K7_LENGTHS)),
 )
 K8A_MAIN = "greedy bf16"     # the main path's shape: the kernel entry's times
 
@@ -2845,6 +2914,17 @@ def k8a_fused_case(torch, pam, gen, timer, case) -> dict:
         tables = torch.where(ordinal == 0, 1, 2 + torch.arange(b, device="cuda")[:, None] * w
                              + ordinal).to(torch.int32)
         pos = torch.full((b,), p, dtype=torch.int32, device="cuda")
+    elif layout == "engine":   # the null page, then each row's own pages up to its position
+        own = [0 if x == 0 else x // PAGE + 1 for x in p]
+        n_pages = 1 + sum(own)
+        perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+        tables = torch.zeros((b, reach // PAGE), dtype=torch.int32, device="cuda")
+        start = 0
+        for row, n in enumerate(own):
+            tables[row, :n] = perm[start:start + n]
+            start += n
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
+    if layout in ("paged", "engine"):
         shape = (layers, n_pages, hkv, PAGE, d)
         if quant:
             kc = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
@@ -2857,7 +2937,13 @@ def k8a_fused_case(torch, pam, gen, timer, case) -> dict:
         idx = (torch.full((b, 1), layers - 1, device="cuda"), page_of.long()[:, None],
                torch.arange(hkv, device="cuda")[None], (pos.long() % PAGE)[:, None])
     else:
-        kc = torch.randn((layers, b, reach, hkv, d), generator=gen, device="cuda").to(dtype)
+        shape = (layers, b, reach, hkv, d)
+        if quant:
+            kc = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+            kw = dict(k_scale=torch.rand(shape[:-1] + (1,), generator=gen, device="cuda") + 0.1)
+            kw["v_scale"] = kw["k_scale"].clone()
+        else:
+            kc = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         pos = torch.full((b,), p, dtype=torch.int64, device="cuda")
         kw["cursor"] = torch.tensor([p], device="cuda")
     vc = kc.clone()
@@ -2885,6 +2971,9 @@ def k8a_fused_case(torch, pam, gen, timer, case) -> dict:
         diff["v"] = ulp_off(torch, vc, want["v"], dtype)
     check(all(over == 0 for _, over in diff.values()) and code_err <= 1,
           f"K8a {name}: beyond one ulp or one int8 code of its plain version: {diff}")
+    if quant and layout == "cursor":   # the contiguous scheme: correctly rounded divisions
+        check(all(diff[key][0] == 0 for key in ("k", "v", "k_scale", "v_scale")),
+              f"K8a {name}: the contiguous int8 mode is not bit-equal to kv_quantize: {diff}")
     max_abs = max(float((got_q.float() - want_q.float()).abs().max()),
                   float((kc.float() - want["k"].float()).abs().max()) if not quant else 0.0)
     del want, want_q
@@ -2893,24 +2982,24 @@ def k8a_fused_case(torch, pam, gen, timer, case) -> dict:
     plain_ms = timer.ms(lambda: pam.rope_write_kv_ref(q, k, v, pos, inv, kc, vc, layer,
                                                       kw.get("tables"), kw.get("cursor"),
                                                       kw.get("k_scale"), kw.get("v_scale")))
-    if layout == "paged":    # the write alone, one call per pool
-        rows = (k.to(kc.dtype), v.to(vc.dtype))
+    rows = (k.to(kc.dtype), v.to(vc.dtype))   # the write alone, one call per cache
+    if layout != "cursor":
         write_ms = timer.ms(lambda: (kc.index_put_(idx, rows[0]), vc.index_put_(idx, rows[1])))
     else:
         cur = kw["cursor"]
-        write_ms = timer.ms(lambda: (kc[layer].index_copy_(1, cur, k[:, None]),
-                                     vc[layer].index_copy_(1, cur, v[:, None])))
+        write_ms = timer.ms(lambda: (kc[layer].index_copy_(1, cur, rows[0][:, None]),
+                                     vc[layer].index_copy_(1, cur, rows[1][:, None])))
     es = k.element_size()
     rows_out = 2 * b * hkv * (d * kc.element_size() + (4 if quant else 0))   # K, V (, scales)
     moved = (b * (h + 2 * hkv) * d * es + b * h * d * es + rows_out + b * pos.element_size()
-             + d // 2 * 4 + (b * 4 if layout == "paged" else 8))
+             + d // 2 * 4 + (8 if layout == "cursor" else b * 4))
     b_ms, b_by = bound_ms(moved, 6 * b * (h + hkv) * d // 2, F32_FLOP_PER_S)
     print(f"K8a fused {name:13s} q {list(q.shape)}, k/v {list(k.shape)} {act} into "
           f"{list(kc.shape)} {kc.dtype} ({layout}, position {p}): elements differing from "
           f"rope_write_kv_ref (differ / beyond one ulp or one code): "
           + ", ".join(f"{key} {a} / {o}" for key, (a, o) in diff.items())
           + f"; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  the write alone "
-          f"({'index_put_' if layout == 'paged' else 'index_copy_'} x 2) {write_ms:.4f} ms  "
+          f"({'index_copy_' if layout == 'cursor' else 'index_put_'} x 2) {write_ms:.4f} ms  "
           f"bound {b_ms:.5f} ms ({b_by})", flush=True)
     return dict(case=name, layout=layout, q=list(q.shape), kv=list(k.shape), cache=list(kc.shape),
                 cache_dtype=str(kc.dtype), position=p, differing=diff, max_code_err=code_err,
@@ -4195,13 +4284,45 @@ def phase_mixtral(torch, np, ckpt_dir: str) -> dict:
     print(f"Mixtral beam {BEAMS} (8 pairs per step, K9's GEMV at P = 8), paged bf16 cache, "
           f"{MIXTRAL_BEAM_TOKENS} new tokens: {beam_s:.3f} s = "
           f"{MIXTRAL_BEAM_TOKENS / beam_s:.2f} seq-tok/s, launches {beam_counts}", flush=True)
+
+    # the int8 beam takes the contiguous cache, as the JAX package routes a MoE model
+    # (generation._beam_paged_ok): RoPE by apply_rope and the quantized write at the host cursor
+    # in every step, no K8a, K7 or K8b, and no K2 (the int8 cache takes the einsum); the 16-row
+    # prefill on the dense path, every decode step's 8 pairs on K9's GEMV
+    with python_calls() as calls_q:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        outq = model.generate(prompt, max_new_tokens=MIXTRAL_INT8_BEAM_TOKENS, num_beams=BEAMS,
+                              kv_quant=True)
+        int8_s = time.perf_counter() - t0
+        int8_counts = snapshot(build)
+    qsteps = MIXTRAL_INT8_BEAM_TOKENS - 1
+    want = {"w4a16_routed_gemm_gemv": 3 * layers * qsteps, "w4a16_routed_gemm": 0,
+            "w4a16_gemm_gemv": (4 + 24) * layers + 4 * layers * qsteps, "w4a16_gemm": 0,
+            "flash_decode": 0, "rope_write_kv": 0, "paged_attention_mh": 0, "copy_pages_pair": 0,
+            "copy_pages_pair_gather": 0}
+    got = {name: int8_counts.get(name, 0) for name in want}
+    check(got == want and not int8_counts.graphs
+          and calls_q["apply_rope"] == layers * MIXTRAL_INT8_BEAM_TOKENS,
+          f"Mixtral int8 beam: launches {got}, want {want}, no graph ({int8_counts.graphs}), "
+          f"{layers * MIXTRAL_INT8_BEAM_TOKENS} apply_rope calls ({dict(calls_q)})")
+    newq = outq[:, PROMPT_LEN:]
+    check(outq.shape == (1, PROMPT_LEN + MIXTRAL_INT8_BEAM_TOKENS)
+          and bool(((newq >= 0) & (newq < cfg["vocab_size"])).all()),
+          f"Mixtral int8 beam: output {outq.shape} or token ids out of range")
+    print(f"Mixtral beam {BEAMS} over the contiguous int8 cache (kv_quant=True, the JAX "
+          f"package's route for MoE): {MIXTRAL_INT8_BEAM_TOKENS} new tokens, {int8_s:.3f} s = "
+          f"{MIXTRAL_INT8_BEAM_TOKENS / int8_s:.2f} seq-tok/s; per decode step "
+          f"{int8_counts.get('w4a16_routed_gemm_gemv', 0) / qsteps:.0f} K9 GEMVs; launches "
+          f"{int8_counts}", flush=True)
     del model
     torch.cuda.empty_cache()
     return dict(layers=layers, write_s=write_s, load_s=load_s, load_peak_bytes=load_peak,
                 resident_bytes=resident, gen_s=gen_s, repeat_s=again_s, tok_s=tok_s,
                 peak_bytes=peak, counts=counts, tokens=new[0].tolist(), profile=profile,
                 graph=graph,
-                beam_s=beam_s, beam_counts=beam_counts)
+                beam_s=beam_s, beam_counts=beam_counts, int8_beam_s=int8_s,
+                int8_beam_counts=int8_counts, int8_beam_tokens=MIXTRAL_INT8_BEAM_TOKENS)
 
 
 def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
@@ -4219,7 +4340,7 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                             group_size=128, seed=0)
     tokens = torch.from_numpy((np.arange(PROMPT_LEN) * 37 % 32000)[None].astype(np.int64))
     nxt = torch.tensor([[1234]])
-    results, routes, moe, dxs = {}, {}, {}, {}
+    results, routes, moe, dxs, beams = {}, {}, {}, {}, {}
     real_top_k = arch.top_k
     grad_rng = np.random.default_rng(14)
     grad_x = grad_rng.standard_normal((4, 1, MIXTRAL_8X7B["hidden_size"])).astype(np.float32)
@@ -4259,7 +4380,10 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
             arch.top_k = real_top_k
         results[run] = (pre.float().cpu(), dec.float().cpu())
         routes[run] = torch.cat(chosen)
-        del model, cache
+        del cache
+        if dtype == torch.float32:
+            beams[run] = int8_beam(torch, arch, build, model, tokens.numpy().astype(np.int32))
+        del model
         torch.cuda.empty_cache()
     rows = {}
     for i, name in enumerate(("prefill", "routed decode step")):
@@ -4273,6 +4397,20 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
                                               f"error {rel:.3e} > {MIXTRAL_E2E_F32_REL_TOL}")
     shared = {run: (routes[run] == routes["cpu"]).all(dim=-1).float().mean().item()
               for run in ("card f32", "card bf16")}
+    (card_toks, card_steps, card_counts), (cpu_toks, cpu_steps, _) = beams["card f32"], \
+        beams["cpu"]
+    beam_rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(card_steps, cpu_steps))
+    check(np.array_equal(card_toks, cpu_toks) and len(card_steps) == len(cpu_steps),
+          f"Mixtral int8 beam {BEAMS} on the 2-layer cut: card f32 tokens {card_toks.tolist()} "
+          f"against the CPU's {cpu_toks.tolist()}")
+    check(beam_rel <= MIXTRAL_E2E_F32_REL_TOL, f"Mixtral int8 beam {BEAMS} on the 2-layer cut: "
+                                               f"a step's logits card f32 vs CPU relative error "
+                                               f"{beam_rel:.3e} > {MIXTRAL_E2E_F32_REL_TOL}")
+    print(f"Mixtral int8 beam {BEAMS} (kv_quant=True, the contiguous route), 2 full-width layers, "
+          f"{MIXTRAL_CUT_BEAM_TOKENS} new tokens, card f32 (K9's SIMT routed kernel, launches "
+          f"{card_counts}) against the CPU f32: tokens equal, the {len(cpu_steps)} forwards' "
+          f"last-position logits {beam_rel:.3e} relative apart at most (tol "
+          f"{MIXTRAL_E2E_F32_REL_TOL})", flush=True)
     card_dx, cpu_dx = dxs["card f32"][0], dxs["cpu"][0]
     grad_rel = ((card_dx - cpu_dx).norm() / cpu_dx.norm()).item()
     check(bool(torch.isfinite(card_dx).all()) and grad_rel <= ROUTED_GRAD_F32_REL_TOL,
@@ -4290,7 +4428,37 @@ def phase_mixtral_cpu_vs_card(torch, np, ckpt_dir: str) -> dict:
           f"(logits rel err "
           + ", ".join(f"{k} {v['bf16_rel_err']:.3e}" for k, v in rows.items()) + ")", flush=True)
     return dict(rows=rows, routes_shared=shared, routes=int(routes["cpu"].shape[0]),
-                moe_mlp=moe, routed_grad=dict(rel_err=grad_rel, launches=dxs["card f32"][1]))
+                moe_mlp=moe, routed_grad=dict(rel_err=grad_rel, launches=dxs["card f32"][1]),
+                int8_beam=dict(tokens=MIXTRAL_CUT_BEAM_TOKENS, max_rel=beam_rel,
+                               forwards=len(cpu_steps), launches=card_counts))
+
+
+def int8_beam(torch, arch, build, model, prompt) -> tuple:
+    """``generate(num_beams=BEAMS, kv_quant=True)`` over MIXTRAL_CUT_BEAM_TOKENS
+    on the model's device, each ``arch.forward``'s last-position logits
+    recorded: (tokens, the logits on the host, launches); on the card the
+    routed decode must launch K9 and none of K8a, K7, K8b or K2."""
+    steps, real = [], arch.forward
+
+    def recorded(*args, **kw):
+        logits, cache = real(*args, **kw)
+        steps.append(logits[:, -1].float().cpu())
+        return logits, cache
+
+    arch.forward = recorded
+    try:
+        clear_counts(build)
+        out = model.generate(prompt, max_new_tokens=MIXTRAL_CUT_BEAM_TOKENS, num_beams=BEAMS,
+                             kv_quant=True)
+        counts = snapshot(build)
+    finally:
+        arch.forward = real
+    if model.device.type == "cuda":
+        check(counts.get("w4a16_routed_gemm", 0) == 3 * 2 * (MIXTRAL_CUT_BEAM_TOKENS - 1)
+              and not any(counts.get(key, 0) for key in ("rope_write_kv", "paged_attention_mh",
+                                                        "copy_pages_pair", "flash_decode")),
+              f"Mixtral int8 beam on the 2-layer cut: launches {counts}")
+    return out, steps, counts
 
 
 def routed_grad(torch, arch, build, model, x, cot) -> tuple:
@@ -4338,6 +4506,306 @@ def moe_layer_check(torch, arch, params_lib, build, model) -> dict:
           + ", ".join(f"{k} (launches {v['launches']}) max abs err {v['max_abs_err']:.3e}"
                       for k, v in out.items()) + f" (tol {MOE_F32_ABS_TOL})", flush=True)
     return out
+
+
+def phase_int8_greedy(torch, np, model, main_out) -> dict:
+    """The main path's model over the contiguous int8 KV cache
+    (``kv_quant=True``): batch 1, the 16-token prompt, 64 new tokens greedy,
+    the decode step replayed from its CUDA graph. Per decode token exactly 224
+    K1 GEMVs and one fused RoPE + int8 K/V write per layer (K8a's contiguous
+    int8 mode), and no K2: the int8 cache takes the einsum over the cache, as
+    the JAX package's does. Its tokens against the per-op loop's
+    (``graph_turns``), and how many agree with the bf16 cache's run."""
+    from autogptq_tpu_torch.ops import build
+
+    layers = model.cfg.num_layers
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    model.generate(prompt, max_new_tokens=4, kv_quant=True)
+    with python_calls() as calls:
+        clear_counts(build)
+        t0 = time.perf_counter()
+        out = model.generate(prompt, max_new_tokens=INT8_NEW_TOKENS, kv_quant=True)
+        gen_s = time.perf_counter() - t0
+        counts = snapshot(build)
+    steps = INT8_NEW_TOKENS - 1
+    check_fused_writes(counts, calls, layers, steps, "int8 greedy", pools=0)
+    check(counts.get("w4a16_gemm_gemv", 0) == 7 * layers * INT8_NEW_TOKENS
+          and not counts.get("w4a16_gemm", 0) and not counts.get("flash_decode", 0),
+          f"int8 greedy: launches {counts}, want {7 * layers * INT8_NEW_TOKENS} w4a16_gemm_gemv "
+          f"(224 per token), no SIMT GEMV and no flash_decode")
+    new = out[:, PROMPT_LEN:]
+    check(out.shape == (1, PROMPT_LEN + INT8_NEW_TOKENS), f"int8 greedy output shape {out.shape}")
+    check(bool(((new >= 0) & (new < model.cfg.vocab_size)).all()), "int8 greedy token ids "
+                                                                    "out of range")
+    agree = int((new[0] == main_out[0, PROMPT_LEN:PROMPT_LEN + INT8_NEW_TOKENS]).sum())
+    lead = int(np.argmin(np.append(new[0] == main_out[0, PROMPT_LEN:PROMPT_LEN + INT8_NEW_TOKENS],
+                                   False)))
+    tok_s = INT8_NEW_TOKENS / gen_s
+    print(f"int8 greedy: Llama-2-7B 4-bit g128, {layers} layers, batch 1, {PROMPT_LEN}-token "
+          f"prompt, {INT8_NEW_TOKENS} new tokens over the contiguous int8 KV cache "
+          f"(kv_quantize's scheme): generate {gen_s:.3f} s = {tok_s:.2f} tok/s; per decode token "
+          f"{counts.get('w4a16_gemm_gemv', 0) / INT8_NEW_TOKENS:.0f} K1 GEMVs, "
+          f"{counts.get('rope_write_kv', 0) / steps:.0f} rope_write_kv, 0 flash_decode; "
+          f"{agree} of {INT8_NEW_TOKENS} tokens equal to the bf16 cache's run (the first {lead} "
+          f"in a row); launches {counts}", flush=True)
+    eager_profile = profile_generate(torch, model, prompt, 1e3 * gen_s / INT8_NEW_TOKENS,
+                                     "int8 greedy", PROFILE_TOKENS, kv_quant=True)
+    graph = graph_turns(torch, np, model, "int8 greedy", prompt,
+                        dict(out=out, s=gen_s, tokens=INT8_NEW_TOKENS, counts=counts),
+                        eager_profile, PROFILE_TOKENS, kv_quant=True)
+    return dict(tokens=INT8_NEW_TOKENS, gen_s=gen_s, tok_s=tok_s, counts=counts,
+                agree_with_bf16=agree, leading_agree=lead, profile=eager_profile, graph=graph)
+
+
+def serving_trace(np, vocab: int, seed: int, n: int, new=SERVE_NEW):
+    """The serving trace: ``n`` requests drawn from ``seed``. Every third
+    request (up to ``SERVE_SHARING``) is a shared ``SERVE_PREFIX``-token prefix
+    and a suffix of its own, up to ``SERVE_PROMPT[1]`` tokens in all; every
+    sixth from the second (up to ``SERVE_SAMPLED``) is sampled
+    (``SERVE_SAMPLING``, a seed of its own) from a ``SERVE_PROMPT[0]``-token
+    prompt, which no prefix-cache lookup can hit (a lookup stops a token short
+    of the prompt), so its prefill is the same whatever ran before; the rest
+    are greedy with prompts of ``SERVE_PROMPT`` tokens; ``max_new_tokens`` is
+    drawn from ``new``. No EOS: the schedule does not depend on the tokens."""
+    from autogptq_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, SERVE_PREFIX).astype(np.int32)
+    lo, hi = SERVE_PROMPT
+    reqs, shared, sampled = [], 0, 0
+    for i in range(n):
+        max_new = int(rng.integers(new[0], new[1] + 1))
+        if i % 3 == 0 and shared < SERVE_SHARING:
+            shared += 1
+            tail = rng.integers(1, vocab, int(rng.integers(8, hi - SERVE_PREFIX + 1)))
+            reqs.append(Request(i, np.concatenate([prefix, tail.astype(np.int32)]), max_new))
+        elif i % 6 == 1 and sampled < SERVE_SAMPLED:
+            sampled += 1
+            reqs.append(Request(i, rng.integers(1, vocab, lo).astype(np.int32), max_new,
+                                seed=1000 + i, **SERVE_SAMPLING))
+        else:
+            reqs.append(Request(i, rng.integers(1, vocab, int(rng.integers(lo, hi + 1)))
+                                .astype(np.int32), max_new))
+    return reqs
+
+
+def serving_engine(model, **kw):
+    from autogptq_tpu_torch.serving_paged import PagedContinuousBatchEngine
+
+    kw = dict(dict(max_slots=SERVE_SLOTS, total_pages=SERVE_TOTAL_PAGES, page_size=SERVE_PAGE,
+                   pages_per_seq=SERVE_PAGES_PER_SEQ, enable_prefix_cache=True), **kw)
+    return PagedContinuousBatchEngine(model, **kw)
+
+
+def served(torch, build, engine, reqs, warm: bool) -> tuple:
+    """``engine.run(reqs)`` with the counts set to 0 just before and read
+    just after (after ``warmup()`` when ``warm``): (outputs, counts,
+    seconds)."""
+    if warm:
+        engine.warmup()
+    torch.cuda.synchronize()
+    clear_counts(build)
+    t0 = time.perf_counter()
+    out = engine.run(list(reqs))
+    seconds = time.perf_counter() - t0
+    return out, snapshot(build), seconds
+
+
+def check_engine_launches(counts, steps: int, layers: int, label: str) -> None:
+    """Every decode step of a warmed engine replayed from its graph with
+    exactly 224 K1 GEMVs (7 per layer at M = max_slots), one fused RoPE + K/V
+    write (K8a through the tables) and one K7 per layer, and nothing
+    captured; no other path launches these three (every prefill has at least
+    32 rows: the wgmma tile kernel)."""
+    want = {"w4a16_gemm_gemv": 7 * layers * steps, "rope_write_kv": layers * steps,
+            "paged_attention_mh": layers * steps}
+    got = {k: counts.get(k, 0) for k in want}
+    rep = {k: counts.replayed.get(k, 0) for k in want}
+    check(got == want == rep and not counts.get("w4a16_gemm", 0)
+          and not counts.graphs.get("captures", 0),
+          f"{label}: launches {got}, replayed {rep}, want {want} for {steps} steps, all replayed, "
+          f"no SIMT GEMV and no capture after warmup(); graphs {counts.graphs}")
+
+
+def phase_serving(torch, np, model) -> dict:
+    """The paged continuous-batching engine (``serving_paged.py``) on the main
+    path's model, 32 layers at full width, bf16: the trace of
+    ``serving_trace`` (24 requests) with the prefix cache on, through the
+    decode step's CUDA graphs after ``warmup()``, then again through the
+    per-op loop (``JIT_GENERATE`` off), the streams identical; each sampled
+    request again alone on a fresh engine, its stream identical; exact launch
+    counts per replayed step; preemptions and prefix hits; a profiled window
+    of engine steps for host against device ms per step. Then a shorter trace
+    with ``decode_block = 4``, graph against per-op loop likewise."""
+    from autogptq_tpu_torch.ops import build
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    reqs = serving_trace(np, vocab, SERVE_SEED, SERVE_REQUESTS)
+    engine = serving_engine(model)
+    captures = build.graphs.get("captures", 0)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    captures = build.graphs.get("captures", 0) - captures
+    out, counts, run_s = served(torch, build, engine, reqs, warm=False)
+    st = engine.stats
+    check_engine_launches(counts, st.steps, layers, "paged serving")
+    check(set(out) == {r.req_id for r in reqs} and all(
+        len(out[r.req_id]) == r.max_new_tokens and ((out[r.req_id] >= 0)
+                                                     & (out[r.req_id] < vocab)).all()
+        for r in reqs), "paged serving: an output of the wrong length or out of range")
+    check(st.preemptions >= 1 and st.prefix_hit_tokens > 0,
+          f"paged serving: preemptions {st.preemptions}, prefix hit tokens "
+          f"{st.prefix_hit_tokens}; want at least one of each")
+    check(engine.pages_in_use() == engine.pages_cached(), "paged serving: pages left in use")
+    snap = st.snapshot()
+    host_ms = 1e3 * st.step_time_s / st.steps
+    print(f"paged serving: Llama-2-7B 4-bit g128, {layers} layers, bf16, {SERVE_SLOTS} slots, "
+          f"page {SERVE_PAGE}, {SERVE_PAGES_PER_SEQ} pages per sequence, {SERVE_TOTAL_PAGES} "
+          f"pages, prefix cache on; {len(reqs)} requests (prompts {SERVE_PROMPT[0]}-"
+          f"{SERVE_PROMPT[1]} tokens, {SERVE_SHARING} sharing a {SERVE_PREFIX}-token prefix, "
+          f"{SERVE_SAMPLED} sampled, max_new_tokens {SERVE_NEW[0]}-{SERVE_NEW[1]}): warmup "
+          f"{warm_s:.1f} s ({captures} captures), run {run_s:.3f} s, "
+          f"decode {snap['decode_tok_s']} tok/s, {host_ms:.3f} host ms per engine step; "
+          f"pages high water {st.pages_high_water}; stats {snap}; per replayed step "
+          f"{counts.get('w4a16_gemm_gemv', 0) / st.steps:.0f} K1 GEMVs at M = {SERVE_SLOTS}, "
+          f"{counts.get('rope_write_kv', 0) / st.steps:.0f} rope_write_kv, "
+          f"{counts.get('paged_attention_mh', 0) / st.steps:.0f} paged_attention_mh; "
+          f"launches {counts}", flush=True)
+
+    with jit_generate(False):
+        eager_engine = serving_engine(model)
+        t0 = time.perf_counter()
+        eager = eager_engine.run(list(reqs))
+        eager_s = time.perf_counter() - t0
+    check(all(np.array_equal(eager[r], out[r]) for r in out),
+          "paged serving: the per-op loop's streams differ from the CUDA graphs': requests "
+          + str([r for r in out if not np.array_equal(eager[r], out[r])]))
+    check(dataclasses.asdict(eager_engine.stats) | {"step_time_s": 0}
+          == dataclasses.asdict(st) | {"step_time_s": 0}, "paged serving: the per-op loop's "
+          "stats differ from the graphs'")
+    eager_host_ms = 1e3 * eager_engine.stats.step_time_s / eager_engine.stats.steps
+    del eager_engine
+    alone_engine = serving_engine(model)
+    sampled = [r for r in reqs if r.temperature > 0]
+    for r in sampled:
+        alone = alone_engine.run([r])
+        check(np.array_equal(alone[r.req_id], out[r.req_id]),
+              f"paged serving: sampled request {r.req_id} alone gives another stream")
+    del alone_engine
+    print(f"paged serving, per-op loop (JIT_GENERATE off): the same {len(reqs)} streams and "
+          f"stats, {eager_s:.3f} s, {eager_host_ms:.3f} host ms per engine step (graphs "
+          f"{host_ms:.3f}); each of the {len(sampled)} sampled requests alone on a fresh engine: "
+          f"the same stream", flush=True)
+
+    # a window of steps with every slot decoding and none admitted or retired, run twice on the
+    # same engine and the same requests (greedy, no prefix cache: the same work and streams):
+    # timed without the profiler for host ms per step, then profiled for device ms per step
+    window = serving_engine(model, total_pages=SERVE_SLOTS * 8 + 1, enable_prefix_cache=False)
+    window.warmup(sampling=False)
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    prompts = [rng.integers(1, vocab, 64).astype(np.int32) for _ in range(SERVE_SLOTS)]
+    from autogptq_tpu_torch.serving import Request
+
+    def wave(first_id, steps):
+        for i, p in enumerate(prompts):
+            window.submit(Request(first_id + i, p, 64))
+        window.step()                  # admits and prefills every request
+        measured = steps()
+        streams = window.run([])       # to the end of every request
+        return measured, [streams[first_id + i] for i in range(SERVE_SLOTS)]
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            window.step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / SERVE_PROFILE_STEPS
+
+    host_ms_window, first = wave(0, timed)
+    run, second = wave(SERVE_SLOTS, lambda: profiled(
+        torch, lambda: [window.step() for _ in range(SERVE_PROFILE_STEPS)]))
+    check(all(np.array_equal(a, b) for a, b in zip(first, second)),
+          "paged serving window: the same requests gave other streams the second time")
+    device_ms = sum(k.time_range.elapsed_us() for k in run["kernels"]) / 1e3 / SERVE_PROFILE_STEPS
+    wall_ms = run["wall_us"] / 1e3 / SERVE_PROFILE_STEPS
+    print(f"paged serving, a window of {SERVE_PROFILE_STEPS} engine steps (8 slots decoding, "
+          f"no admission, 64-token prompts), run twice on the same "
+          f"requests with the same streams: host {host_ms_window:.3f} ms per step unprofiled, "
+          f"device {device_ms:.3f} ms per step in {len(run['kernels'])} kernels profiled (busy "
+          f"{100 * device_ms / host_ms_window:.1f}%, idle {host_ms_window - device_ms:.3f} ms per "
+          f"step); host {wall_ms:.3f} ms per step under the profiler; launches with no kernel "
+          f"record: {run['lost_inside']} inside, {run['lost_before']} before", flush=True)
+    del window
+
+    block_reqs = serving_trace(np, vocab, SERVE_SEED + 2, SERVE_BLOCK_REQUESTS,
+                               new=SERVE_BLOCK_NEW)
+    block_engine = serving_engine(model, decode_block=SERVE_BLOCK)
+    block_out, block_counts, block_s = served(torch, build, block_engine, block_reqs, warm=True)
+    bst = block_engine.stats
+    check_engine_launches(block_counts, bst.steps, layers, f"paged serving, decode_block "
+                                                          f"{SERVE_BLOCK}")
+    with jit_generate(False):
+        block_eager = serving_engine(model, decode_block=SERVE_BLOCK).run(list(block_reqs))
+    check(all(np.array_equal(block_eager[r], block_out[r]) for r in block_out),
+          f"paged serving, decode_block {SERVE_BLOCK}: the per-op loop's streams differ")
+    print(f"paged serving, decode_block {SERVE_BLOCK}: {len(block_reqs)} requests "
+          f"(max_new_tokens {SERVE_BLOCK_NEW[0]}-{SERVE_BLOCK_NEW[1]}), run {block_s:.3f} s, "
+          f"decode {bst.decode_tok_s():.2f} tok/s, stats {bst.snapshot()}; streams equal to the "
+          f"per-op loop's; launches {block_counts}", flush=True)
+    del engine, block_engine
+    torch.cuda.empty_cache()
+    return dict(stats=snap, counts=counts, warmup_s=warm_s, warmup_captures=captures, run_s=run_s,
+                host_ms_per_step=host_ms,
+                eager_s=eager_s, eager_host_ms_per_step=eager_host_ms,
+                profile=dict(steps=SERVE_PROFILE_STEPS, host_ms_per_step=host_ms_window,
+                             profiled_wall_ms_per_step=wall_ms, device_ms_per_step=device_ms,
+                             kernels=len(run["kernels"]), lost_inside=run["lost_inside"]),
+                block=dict(stats=bst.snapshot(), counts=block_counts, run_s=block_s))
+
+
+def phase_serving_cut(torch, np, cut_dir: str) -> dict:
+    """The paged engine on the 2-layer full-width cut in f32, card against
+    CPU on one trace (three requests, one a prefix-cache hit): every decode
+    step's logits of the active slots within SERVE_CUT_REL_TOL relative."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    base = rng.integers(1, 32000, 40).astype(np.int32)
+    other = np.concatenate([base[:32], rng.integers(1, 32000, 8).astype(np.int32)])
+    reqs = [Request(0, base, 3), Request(1, other, 3),
+            Request(2, rng.integers(1, 32000, 24).astype(np.int32), 3)]
+    rows = {}
+    for device in ("cuda", "cpu"):
+        model = AutoGPTQForCausalLM.from_quantized(cut_dir, device=device, dtype=torch.float32)
+        engine = serving_engine(model, total_pages=32, pages_per_seq=8)
+        steps, real = [], engine._decode
+
+        def recorded(sampling, nblk, real=real, engine=engine, steps=steps):
+            toks, logits = real(sampling, nblk)
+            active = [i for i, st in enumerate(engine.slots) if st.req is not None]
+            steps.append(logits[active].float().cpu())
+            return toks, logits
+
+        engine._decode = recorded
+        rows[device] = (engine.run(reqs), steps, engine.stats.prefix_hit_tokens)
+        del model, engine
+        torch.cuda.empty_cache()
+    (card_out, card_steps, hits), (cpu_out, cpu_steps, _) = rows["cuda"], rows["cpu"]
+    check(len(card_steps) == len(cpu_steps) and hits > 0, f"serving cut: {len(card_steps)} card "
+                                                           f"steps, {len(cpu_steps)} CPU, {hits} "
+                                                           f"prefix hit tokens")
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(card_steps, cpu_steps))
+    same = sum(np.array_equal(card_out[r], cpu_out[r]) for r in cpu_out)
+    check(rel <= SERVE_CUT_REL_TOL, f"serving cut: decode-step logits {rel:.3e} relative apart, "
+                                    f"tolerance {SERVE_CUT_REL_TOL}")
+    print(f"paged serving on the 2-layer full-width cut, f32, card against CPU: {len(card_steps)} "
+          f"decode steps of {len(reqs)} requests ({hits} prefix-hit tokens), logits {rel:.3e} "
+          f"relative apart at most (tolerance {SERVE_CUT_REL_TOL}); {same} of {len(reqs)} "
+          f"streams equal", flush=True)
+    return dict(steps=len(card_steps), max_rel=rel, streams_equal=same, prefix_hit_tokens=hits)
 
 
 def layer_sum(rows: list, key: str, m: int = 1) -> float:
@@ -4411,6 +4879,8 @@ def main() -> int:
             "main path", phase_main_path, torch, np, ckpt)
         kb32l = timed("kb32l path", phase_kb32l_path, torch, np, ckpt, model, main_out)
         beam = timed("beam", phase_beam, torch, np, model)
+        int8 = timed("int8 greedy", phase_int8_greedy, torch, np, model, main_out)
+        serving = timed("paged serving", phase_serving, torch, np, model)
         fused = timed("fused norm", phase_fused_norm, torch, np, model, main_out)
         train = timed("train", phase_train, torch, np, model, work)
         del model
@@ -4418,6 +4888,7 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
         cut_dir = os.path.join(work, "llama2-7b-random-g128-2layers")
         cpu_vs_card = timed("card vs CPU", phase_cpu_vs_card, torch, np, cut_dir)
+        serving_cut = timed("paged serving card vs CPU", phase_serving_cut, torch, np, cut_dir)
         fused_cut = timed("fused norm card vs CPU", phase_fused_cut, torch, np, cut_dir)
         kb32l_cut = timed("kb32l card vs CPU", phase_kb32l_cut, torch, np, cut_dir)
         grads = timed("gradients", phase_grads, torch, np, cut_dir)
@@ -4437,6 +4908,7 @@ def main() -> int:
 
     k2_main, k7_main, k8b_main = k2_rows[0], k7_rows[0], k8b_rows[0]
     k8a_main = next(r for r in k8a_fused_rows if r["case"] == K8A_MAIN)
+    k8a_int8 = next(r for r in k8a_fused_rows if r["case"] == "greedy int8")
     beam_launches = beam["counts"]
     from autogptq_tpu_torch.utils.random_checkpoint import LLAMA2_7B
 
@@ -4485,6 +4957,13 @@ def main() -> int:
         f"{m}: the GEMV {v['gemv_ms']:.4f} ms, the SIMT GEMV {v['simt_ms']:.4f} ms, torch.matmul "
         f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms"
         for m, v in decode_m.items() if not isinstance(m, int)), flush=True)
+    engine_k1 = {key: layer_sum(k1_rows, key, SERVE_SLOTS)
+                 for key in ("ms", "simt_ms", "library_ms", "bound_ms")}
+    print(f"one Llama-2-7B layer's 7 projections at M = {SERVE_SLOTS} (the paged serving engine's "
+          f"decode step), K1's GEMV {engine_k1['ms']:.4f} ms (x {layers} layers: "
+          f"{layers * engine_k1['ms']:.3f} ms per engine step), the SIMT GEMV "
+          f"{engine_k1['simt_ms']:.4f} ms, torch.matmul {engine_k1['library_ms']:.4f} ms, bound "
+          f"{engine_k1['bound_ms']:.4f} ms", flush=True)
 
     def replayed(counted, name):   # of a run's launches of `name`: those its graph replays ran
         return getattr(counted, "replayed", {}).get(name, 0)
@@ -4656,13 +5135,19 @@ def main() -> int:
                "run f32 activations, and at M <= 16 the group sizes 16 does not divide); "
                "launches from ")
     kernels = [
-        gemm_entry("w4a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:487", launches, k1_rows,
-                   at + f"; K1's tensor-core decode GEMV, bf16 (replaces the decode regime of "
-                   f"_kernel_kb32 :487, _kernel_ki32 :414 and _kernel_kpair :255); launches from "
-                   f"the {NEW_TOKENS}-token greedy run; max_abs_err over every K1 GEMV case",
-                   source=GEMV_SOURCE,
-                   errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "gemv"]
-                   + [r["max_abs_err"] for r in wna_rows if r["kernel"] == "w4a16_gemm_gemv"]),
+        dict(gemm_entry("w4a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:487", launches,
+                        k1_rows,
+                        at + f"; K1's tensor-core decode GEMV, bf16 (replaces the decode regime "
+                        f"of _kernel_kb32 :487, _kernel_ki32 :414 and _kernel_kpair :255); "
+                        f"launches from the {NEW_TOKENS}-token greedy run (int8_launches: the "
+                        f"int8 greedy run, 224 per token; serving_launches: the paged serving "
+                        f"engine's run, 224 per step at M = {SERVE_SLOTS}); max_abs_err over "
+                        f"every K1 GEMV case", source=GEMV_SOURCE,
+                        errs=[r["max_abs_err"] for r in k1_rows if r["route"] == "gemv"]
+                        + [r["max_abs_err"] for r in wna_rows
+                           if r["kernel"] == "w4a16_gemm_gemv"]),
+             int8_launches=int8["counts"].get("w4a16_gemm_gemv", 0),
+             serving_launches=serving["counts"].get("w4a16_gemm_gemv", 0)),
         gemm_entry("w8a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
                    width_rows(8), at + "; K4's tensor-core decode GEMV, bf16 (replaces the "
                    "decode regime of the planar _kernel :46); launches from the 64-token 8-bit "
@@ -4814,10 +5299,12 @@ def main() -> int:
         entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
               "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
               "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
-        entry("paged_attention_mh", "autogptq_tpu_torch/ops/csrc/paged_attn.cu",
-              "autogptq_tpu/ops/pallas/paged_attn.py:45", beam_launches, k7_rows, k7_main,
-              "one layer, beam 4: B=4, H=Hkv=32, D=128, page 16, 528 live slots per row, "
-              "bf16 pools; launches from the 512-token beam-4 run"),
+        dict(entry("paged_attention_mh", "autogptq_tpu_torch/ops/csrc/paged_attn.cu",
+                   "autogptq_tpu/ops/pallas/paged_attn.py:45", beam_launches, k7_rows, k7_main,
+                   "one layer, beam 4: B=4, H=Hkv=32, D=128, page 16, 528 live slots per row, "
+                   "bf16 pools; launches from the 512-token beam-4 run (serving_launches: the "
+                   "paged serving engine's run, 32 per step)"),
+             serving_launches=serving["counts"].get("paged_attention_mh", 0)),
         dict(entry("rope_write_kv", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
                    "autogptq_tpu/ops/pallas/paged_attn.py:252", launches, k8a_fused_rows,
                    k8a_main, "K8a's kv_write_kernel with the rotation on: one Llama-2-7B "
@@ -4830,6 +5317,10 @@ def main() -> int:
                    "decode step"),
              beam_launches=beam_launches.get("rope_write_kv", 0),
              beam_replayed=replayed(beam_launches, "rope_write_kv"),
+             int8_launches=int8["counts"].get("rope_write_kv", 0),
+             serving_launches=serving["counts"].get("rope_write_kv", 0),
+             int8_ms=k8a_int8["ms"], int8_plain_ms=k8a_int8["plain_ms"],
+             int8_bound_ms=k8a_int8["bound_ms"],
              write_only_ms=k8a_main["write_only_ms"]),
         dict(entry("copy_pages_pair", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
                    "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows,
@@ -4948,7 +5439,8 @@ def main() -> int:
                        k9_rest=k9_rest_rows,
                        attention_ptxas=attn_ptxas, page_ops_ptxas=page_regs,
                        attention_full_run=full_run,
-                       decode_layer_ms=decode_m, k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
+                       decode_layer_ms=decode_m, engine_k1_layer_ms=engine_k1,
+                       k9_layer_ms=k9_layer, k10_m16_layer_ms=k10_m16,
                        k6_tile_layer_ms=k6_tile, kb32l_t_call_ms=kb32l_t,
                        gemv_norm_layer_ms=gemv_norm,
                        tile_layer_ms={f"{what} M={m}": v for (what, m), v in tile_m.items()},
@@ -4957,7 +5449,8 @@ def main() -> int:
                        cpu_vs_card=cpu_vs_card, phase_s=phase_s, boundary_us=boundary,
                        prenorm=prenorm_rows, prenorm_layer_ms=prenorm_m,
                        prenorm_ptxas=prenorm_regs, fused=fused, fused_cut=fused_cut,
-                       rest_path=rest_path, graph_turns=turns,
+                       rest_path=rest_path, graph_turns=turns, int8_greedy=int8,
+                       serving=serving, serving_cut=serving_cut,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -128,8 +128,10 @@ def test_paged_step_matches_the_forward(models):
     torch.testing.assert_close(logits_b, want[:, -2], rtol=1e-4, atol=1e-4)
 
 
-def test_beam_argument_errors(models):
-    port, _ = models
+def test_beam_argument_errors(models, monkeypatch):
+    from autogptq_tpu.utils import generation as jgen
+
+    port, ref = models
     p = _prompts((5,))
     with pytest.raises(ValueError, match="num_return_sequences"):
         port.generate(p, max_new_tokens=2, num_beams=2, num_return_sequences=3)
@@ -139,9 +141,15 @@ def test_beam_argument_errors(models):
         port.generate(p, max_new_tokens=2, num_beams=2, temperature=0.7)
     with pytest.raises(ValueError, match="requires sampling"):
         port.generate(p, max_new_tokens=2, num_return_sequences=2)
-    with pytest.raises(NotImplementedError, match="int8"):
-        port.generate(p, max_new_tokens=2, kv_quant=True)
+    # the contiguous int8 cache, greedy and beam, once refused here: JAX's tokens
+    np.testing.assert_array_equal(port.generate(p, max_new_tokens=2, kv_quant=True),
+                                  ref.generate(p, max_new_tokens=2, kv_quant=True))
     ids, mask = generation._prep_inputs(p)
-    with pytest.raises(NotImplementedError, match="contiguous int8"):
-        generation._generate_beam(port.params, torch.from_numpy(ids), torch.from_numpy(mask),
-                                  port.cfg, 2, 0, None, 2, torch.float32, kv_quant=True)
+    with torch.inference_mode():
+        got = generation._generate_beam(port.params, torch.from_numpy(ids),
+                                         torch.from_numpy(mask), port.cfg, 2, 0, None, 2,
+                                         torch.float32, kv_quant=True)
+    monkeypatch.setattr(jgen, "BEAM_PAGED", "never")      # JAX's _generate_beam
+    np.testing.assert_array_equal(got[:, 0].numpy(),
+                                  ref.generate(p, max_new_tokens=2, num_beams=2,
+                                               kv_quant=True)[:, 5:])
