@@ -20,7 +20,14 @@ and every step of a block that holds an adaption prompt (``attn.adaption``,
 :meth:`KVCache.start_decode` a decode step keeps its write cursor and K2's
 bounds on the card, so that it reads no host value and a CUDA graph of it
 (``utils/generation.py``) can be replayed; its RoPE and K/V write are one K8a
-launch per layer (``ops/paged_attn.rope_write_kv``). Adapter nodes in
+launch per layer (``ops/paged_attn.rope_write_kv``). The slot engine
+(``serving.ContinuousBatchEngine``) and speculative decoding give the cache
+one cursor per row instead (``KVCache.cursors``, the JAX package's vector
+``length``, its ``models/arch.py:707-745``): row ``b`` writes its ``T``
+tokens at ``cursors[b] + [0, T)`` through K8a's per-row mode, a slot past the
+written window dropped, and a one-token step of a float cache attends
+through K2 over ``[0, cursors + 1)``, every other step (int8, ``T > 1``, an
+adaption prompt) through the einsum with the per-row causal mask. Adapter nodes in
 place of a linear (LoRA, AdaLoRA) are dispatched by :func:`apply_linear`. The
 cache-less forward runs under autograd: training calls :func:`forward` and
 ``loss.backward()``. What the llama path does not need is refused:
@@ -149,6 +156,11 @@ class KVCache:
     v: torch.Tensor
     length: int = 0
     cursor: Optional[torch.Tensor] = None   # int64 [1]: the decode steps' write slot
+    # int64 [B]: one write cursor per row (the slot engine, speculative decoding); with it set, a
+    # forward of T tokens writes row b at cursors[b] + [0, T) (K8a, turning q and k by inv_freq)
+    # and advances cursors by T in place, and neither length nor cursor is read
+    cursors: Optional[torch.Tensor] = None
+    win: Optional[int] = None               # per-row steps write and attend only slots [0, win)
     lo: Optional[torch.Tensor] = None       # int32 [B]: each row's first valid slot
     hi: Optional[torch.Tensor] = None       # int32 [B]: cursor + 1, K2's end of the window
     inv_freq: Optional[torch.Tensor] = None  # f32 [D / 2]: RoPE's, for K8a
@@ -181,6 +193,16 @@ class KVCache:
                               self.length).to(torch.int32)
         self.hi = torch.empty(b, dtype=torch.int32, device=dev)
 
+    def window(self) -> tuple:
+        """``(k, v, k_scale, v_scale)`` as the per-row steps write and attend
+        them: views of the first ``win`` slots (all of them when ``win`` is
+        None), so that a cursor past ``win`` writes nothing, as the JAX
+        engine's window-bucketed steps drop it."""
+        if self.win is None:
+            return self.k, self.v, self.k_scale, self.v_scale
+        return tuple(None if a is None else a[:, :, :self.win]
+                     for a in (self.k, self.v, self.k_scale, self.v_scale))
+
 
 def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache],
               positions: torch.Tensor, cfg: ArchConfig,
@@ -205,7 +227,28 @@ def attention(bp: dict, x: torch.Tensor, layer_idx: int, cache: Optional[KVCache
     kv_int8 = cache is not None and cache.k.dtype == torch.int8
     key_sc = val_sc = None
 
-    if cache is not None and cache.cursor is not None and t == 1:
+    if cache is not None and cache.cursors is not None:
+        # per-row cursors: RoPE and the K/V write of row b's T tokens at cursors[b] + [0, T) in
+        # one K8a launch (a slot past the window dropped; int8 rows quantized inside it)
+        kc, vc, ksc, vsc = cache.window()
+        qr = rope_write_kv(q.reshape(b * t, h, d), k.reshape(b * t, hkv, d),
+                           v.reshape(b * t, hkv, d), positions.reshape(b * t), cache.inv_freq,
+                           kc, vc, layer_idx, cursors=cache.cursors, k_scale=ksc, v_scale=vsc,
+                           check=False)
+        if decode_bounds is not None and not kv_int8 and "adaption" not in bp:
+            of = flash_decode(qr, cache.k, cache.v, *decode_bounds, layer=layer_idx,
+                              sm_scale=scale)
+            return apply_linear(bp["o_proj"], of.reshape(b, 1, h * d).to(x.dtype))
+        # int8, the verify window (T > 1) and an adaption prompt: the einsum over the window
+        # with the JAX mask kv_slot <= cursors[b] + t
+        q = qr.view(b, t, h, d)
+        keys, values = kc[layer_idx], vc[layer_idx]
+        if kv_int8:
+            key_sc, val_sc = ksc[layer_idx], vsc[layer_idx]
+        s = keys.shape[1]
+        q_slot = cache.cursors[:, None] + torch.arange(t, device=x.device)[None, :]   # [B, T]
+        mask = torch.arange(s, device=x.device)[None, None, :] <= q_slot[:, :, None]  # [B, T, S]
+    elif cache is not None and cache.cursor is not None and t == 1:
         # a decode step at the device cursor (KVCache.start_decode): RoPE and the K/V write in
         # one K8a launch (int8 rows quantized inside it), whose target check generate reads once
         # (check_page_errors)
@@ -437,22 +480,36 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     after :meth:`KVCache.start_decode` it writes at ``cache.cursor`` on the
     card, takes K2's window from ``cache.lo`` and ``cache.hi`` (written here
     as ``cursor + 1``) and advances ``cursor`` in place, reading nothing on
-    the host. ``logits_last_only`` unembeds only the last position, the
-    newest token of every row under left padding."""
+    the host. With ``cache.cursors`` (one per row) row ``b`` writes at
+    ``cursors[b]``, its positions are ``cursors[b] + [0, T)`` unless given,
+    and ``cursors`` advances by T in place. ``logits_last_only`` unembeds
+    only the last position, the newest token of every row under left
+    padding."""
     b, t = tokens.shape
     dtype = dtype or params["embed_tokens"].dtype
-    device_step = cache is not None and cache.cursor is not None and t == 1
-    start = cache.length if cache is not None and not device_step else 0
+    row_step = cache is not None and cache.cursors is not None
+    device_step = not row_step and cache is not None and cache.cursor is not None and t == 1
+    start = cache.length if cache is not None and not (device_step or row_step) else 0
+    if row_step and attn_mask is not None:
+        raise ValueError("per-row cursors take no attn_mask: each row's valid slots are "
+                         "[0, cursors + T)")
     if positions is None:
         if attn_mask is not None and cache is None:
             positions = (torch.cumsum(attn_mask, dim=-1) - 1).clamp_min(0)
+        elif row_step:
+            positions = cache.cursors[:, None] + torch.arange(t, device=tokens.device)[None, :]
         elif device_step:
             positions = cache.cursor.view(1, 1).expand(b, t)
         else:
             positions = (torch.arange(t, device=tokens.device) + start)[None].expand(b, t)
 
     decode_bounds = None
-    if cache is not None and t == 1:
+    if row_step:
+        if t == 1:   # K2 over [lo, cursors + 1): lo 0 unless the caller keeps its own
+            lo = (cache.lo if cache.lo is not None
+                  else torch.zeros(b, dtype=torch.int32, device=tokens.device))
+            decode_bounds = (lo, (cache.cursors + 1).to(torch.int32))
+    elif cache is not None and t == 1:
         if attn_mask is not None and not mask_contig:
             raise ValueError("a decode step needs a contiguous left-pad attn_mask "
                              "(mask_contig=True)")
@@ -471,7 +528,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     for i, bp in enumerate(params["layers"]):
         x = block_forward(bp, x, i, cache, positions, cfg, attn_mask, decode_bounds)
     logits = unembed(params, x[:, -1:] if logits_last_only else x, cfg)
-    if device_step:
+    if row_step:
+        cache.cursors.add_(t)
+    elif device_step:
         cache.cursor.add_(1)
     elif cache is not None:
         cache.length = start + t

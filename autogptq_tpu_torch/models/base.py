@@ -376,11 +376,29 @@ class GPTQModel:
                  min_new_tokens: int = 0, seed: int = 0, pad_token_id: int = 0,
                  kv_quant: bool = False, length_penalty: float = 1.0,
                  early_stopping=False, num_return_sequences: int = 1,
+                 draft_model: Optional["GPTQModel"] = None, speculative_gamma: int = 4,
                  phased: bool = True) -> np.ndarray:
         """Returns ``[B * num_return_sequences, T_in + max_new_tokens]`` token
-        ids (see :func:`autogptq_tpu_torch.utils.generation.generate`)."""
+        ids (see :func:`autogptq_tpu_torch.utils.generation.generate`).
+
+        ``draft_model`` enables speculative decoding (greedy, batch 1,
+        :func:`autogptq_tpu_torch.utils.speculative.generate_speculative`):
+        token-identical to plain greedy, faster when the draft agrees."""
         from ..utils import generation
 
+        if draft_model is not None:
+            if num_beams > 1 or (temperature and temperature > 0):
+                raise ValueError("speculative decoding is greedy-only")
+            if min_new_tokens or kv_quant or num_return_sequences > 1:
+                raise ValueError(
+                    "speculative decoding does not support min_new_tokens, "
+                    "kv_quant, or num_return_sequences"
+                )
+            from ..utils.speculative import generate_speculative
+
+            return generate_speculative(
+                self, draft_model, input_ids, max_new_tokens=max_new_tokens,
+                gamma=speculative_gamma, eos_token_id=eos_token_id)
         return generation.generate(
             self, input_ids, max_new_tokens=max_new_tokens, temperature=temperature,
             num_beams=num_beams, eos_token_id=eos_token_id, min_new_tokens=min_new_tokens,

@@ -20,6 +20,10 @@
 //                slot = pos[b] % ps, read by the kernel (the paged beam step);
 //   MODE_CURSOR  the contiguous cache [L, B, S, Hkv, D]: page = b, slot = cursor[0], the device
 //                cursor of the captured greedy step;
+//   MODE_ROW_CURSOR  the slot engine's contiguous cache [L, Bc, S, Hkv, D], one cursor per cache
+//                row: the B = Bc * T input rows are T tokens per cache row, input row b going to
+//                page = b / T, slot = cursor[b / T] + b % T (T = 1: the engine's decode step;
+//                T = gamma + 1: the speculative verify window, positions [Bc * T] for RoPE);
 //   MODE_ROWS    explicit page_of[b], off[b] (write_token_pages_kernel, rotation off: ROPE =
 //                false copies rows of any element type, 4-D scale pools included as D = 1).
 // One warp per (sequence, row): q heads, then K heads, then V heads; a lane holds D / 64 pairs
@@ -41,10 +45,15 @@
 // on one stream; twice the bytes) keep the shape: ops/paged_attn.copy_plan decides from shapes.
 //
 // Bad ids. A target outside the cache (K8a: a page or slot outside it, a position past the
-// table, a cursor past S), a page id outside [0, P) or a repeated dst (K8b) makes the launch
-// write nothing to the caches: K8a's blocks check all B targets before writing, K8b's clusters
-// all n pairs; a bad one ORs a bit into the device-side flag *err (ERR_* below) and the launch
-// returns. The host reads the flag when it chooses (ops/paged_attn.py:check_page_errors).
+// table, a cursor past S, a negative per-row cursor), a page id outside [0, P) or a repeated dst
+// (K8b) makes the launch write nothing to the caches: K8a's blocks check all B targets before
+// writing, K8b's clusters all n pairs; a bad one ORs a bit into the device-side flag *err
+// (ERR_* below) and the launch returns. The host reads the flag when it chooses
+// (ops/paged_attn.py:check_page_errors). Dropped, not bad: in MODE_ROW_CURSOR a slot at or past
+// n_slots (the S of the view written; the engine passes a view narrowed to its attention window)
+// is not written and raises no flag, as the JAX package's scatter with mode="drop" discards it
+// (models/arch.py:724-738: a slot parked at S - 1 outside the window); every other row of the
+// launch is written and q is turned for every row.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -68,7 +77,7 @@ constexpr int BULK_PIECE = 16 << 10;                // bytes per cp.async.bulk i
 constexpr int ERR_WRITE_TARGET = 1;                 // K8a: a target outside the cache
 constexpr int ERR_COPY_ID = 2;                      // K8b: a src or dst outside [0, P)
 constexpr int ERR_COPY_DUP = 4;                     // K8b: a dst named twice
-constexpr int MODE_ROWS = 0, MODE_TABLES = 1, MODE_CURSOR = 2;
+constexpr int MODE_ROWS = 0, MODE_TABLES = 1, MODE_CURSOR = 2, MODE_ROW_CURSOR = 3;
 constexpr int DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2;  // ops/paged_attn.py FLOAT_CODES
 constexpr int QUANT_NONE = 0, QUANT_PAGED = 1, QUANT_CONTIG = 2;   // ops/paged_attn.py QUANT_*
 
@@ -86,10 +95,10 @@ struct KvArgs {
     const int32_t* page_of;     // MODE_ROWS
     const int32_t* off;
     const int32_t* tables;      // MODE_TABLES: [B, W]
-    const int64_t* cursor;      // MODE_CURSOR: [1]
+    const int64_t* cursor;      // MODE_CURSOR: [1]; MODE_ROW_CURSOR: [B / T]
     int* err;
     long long s_layer, s_page, s_head, s_slot, pos_stride;
-    int mode, pos64, B, H, Hkv, D, n_pages, n_slots, W, layer;
+    int mode, pos64, B, H, Hkv, D, n_pages, n_slots, W, layer, T;
 };
 
 __device__ __forceinline__ long long position(const KvArgs& a, int b) {
@@ -99,18 +108,27 @@ __device__ __forceinline__ long long position(const KvArgs& a, int b) {
 
 struct Target {
     long long page, slot;
-    bool ok;   // inside the cache
+    bool ok;     // a valid target (a dropped one included)
+    bool drop;   // MODE_ROW_CURSOR: at or past n_slots, not written
 };
 
 // Row b's page and slot.
 __device__ __forceinline__ Target target(const KvArgs& a, int b) {
-    Target t{b, 0, true};
+    Target t{b, 0, true, false};
+    if (a.mode == MODE_ROW_CURSOR) {
+        t.page = b / a.T;
+        const long long c = a.cursor[t.page];
+        t.slot = c + b % a.T;
+        t.ok = c >= 0 && t.page < a.n_pages;
+        t.drop = t.slot >= a.n_slots;
+        return t;
+    }
     if (a.mode == MODE_ROWS) {
         t.page = a.page_of[b];
         t.slot = a.off[b];
     } else if (a.mode == MODE_TABLES) {
         const long long p = position(a, b);
-        if (p < 0 || p / a.n_slots >= a.W) return Target{0, 0, false};
+        if (p < 0 || p / a.n_slots >= a.W) return Target{0, 0, false, false};
         t.page = a.tables[(long long)b * a.W + p / a.n_slots];
         t.slot = p % a.n_slots;
     } else {
@@ -158,6 +176,7 @@ __global__ void __launch_bounds__(THREADS) kv_write_kernel(const KvArgs a) {
     long long dst_off = 0;
     if (!is_q) {
         const Target t = target(a, b);
+        if (t.drop) return;                         // whole warps: nothing of this row is written
         dst_off = a.layer * a.s_layer + t.page * a.s_page + h * a.s_head + t.slot * a.s_slot;
     }
     if constexpr (!ROPE) {
@@ -419,12 +438,13 @@ extern "C" int kv_write(const void* q, const void* k, const void* v, void* q_out
                         long long pos_stride, const float* inv_freq, const int32_t* page_of,
                         const int32_t* off, const int32_t* tables, const int64_t* cursor,
                         int mode, int rope, int quant, int dtype, int elem_bytes, int B, int H,
-                        int Hkv, int D, int n_pages, int n_slots, int W, int layer,
+                        int Hkv, int D, int n_pages, int n_slots, int W, int layer, int T,
                         long long s_layer, long long s_page, long long s_head, long long s_slot,
                         int* err, void* stream) {
     if (B < 0 || Hkv <= 0 || D <= 0 || n_pages <= 0 || n_slots <= 0 || layer < 0 || err == nullptr ||
-        mode < MODE_ROWS || mode > MODE_CURSOR || (mode == MODE_TABLES && (W <= 0 || !tables)) ||
-        (mode == MODE_CURSOR && !cursor) || (mode == MODE_ROWS && (!page_of || !off)))
+        mode < MODE_ROWS || mode > MODE_ROW_CURSOR || (mode == MODE_TABLES && (W <= 0 || !tables)) ||
+        (mode == MODE_CURSOR && !cursor) || (mode == MODE_ROWS && (!page_of || !off)) ||
+        (mode == MODE_ROW_CURSOR && (!cursor || T <= 0 || B % T || B / T > n_pages)))
         return (int)cudaErrorInvalidValue;
     if (quant < QUANT_NONE || quant > QUANT_CONTIG || (quant && !rope) ||
         (rope && (D % 2 || D / 2 > 32 * MAX_PAIRS || !inv_freq || !pos ||
@@ -436,7 +456,7 @@ extern "C" int kv_write(const void* q, const void* k, const void* v, void* q_out
                    v_scale, pos,    inv_freq, page_of, off,   tables,     cursor,
                    err,     s_layer, s_page, s_head,  s_slot, pos_stride, mode,
                    pos64,   B,       H,      Hkv,     D,      n_pages,    n_slots,
-                   W,       layer};
+                   W,       layer,   T};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (rope) {
         switch (dtype * 3 + quant) {

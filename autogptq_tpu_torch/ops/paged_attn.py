@@ -135,7 +135,7 @@ def paged_attention_mh_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
 
 
 WRITE_TARGET_MSG = ("write targets must lie in the cache: page_of in [0, P) and off in [0, ps), a "
-                    "position inside the page table, the cursor in [0, S)")
+                    "position inside the page table, the cursor in [0, S), per-row cursors >= 0")
 COPY_ID_MSG = "page ids must lie in [0, P)"
 COPY_DUP_MSG = "dst page ids must be unique"
 _ERR_MESSAGES = ((1, WRITE_TARGET_MSG), (2, COPY_ID_MSG), (4, COPY_DUP_MSG))   # page_ops.cu ERR_*
@@ -228,15 +228,36 @@ def rope_write_kv_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: to
                       layer: int, tables: Optional[torch.Tensor] = None,
                       cursor: Optional[torch.Tensor] = None,
                       k_scale: Optional[torch.Tensor] = None,
-                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      v_scale: Optional[torch.Tensor] = None,
+                      cursors: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of the fused K8a: q and k turned by :func:`rope_rows`,
     then K and V written into the paged pools through ``tables`` (page
     ``tables[b, pos[b] // ps]``, slot ``pos[b] % ps``; int8 pools take
-    :func:`quant_rows`' codes and scales) or into the contiguous cache at
+    :func:`quant_rows`' codes and scales), into the contiguous cache at
     ``cursor`` (an int8 cache :func:`kv_quantize`'s, its scales ``[L, B, S,
-    Hkv, 1]``). Returns q turned, ``[B, H, D]``. A target outside the cache
-    raises ValueError before anything is written."""
+    Hkv, 1]``) or at one cursor per cache row, ``cursors [Bc]``: input row
+    ``b`` of ``Bc * T`` to cache row ``b // T``, slot ``cursors[b // T] + b %
+    T``, a slot at or past S dropped (the JAX package's scatter with
+    ``mode="drop"``). Returns q turned, ``[B, H, D]``. A target outside the
+    cache (a negative per-row cursor) raises ValueError before anything is
+    written."""
     qr, kr = rope_rows(pos, inv_freq, q, k)
+    if cursors is not None:
+        if cursors.numel() and int(cursors.min()) < 0:
+            raise ValueError(WRITE_TARGET_MSG)
+        bc, s = k_cache.shape[1], k_cache.shape[2]
+        t = pos.shape[0] // bc
+        flat = torch.arange(bc * t, device=pos.device)
+        row = flat // t
+        slot = cursors[row] + flat % t
+        keep = slot < s
+        rows = ((k_cache, kr), (v_cache, v))
+        if k_scale is not None:
+            (kq, ks), (vq, vs) = kv_quantize(kr), kv_quantize(v)
+            rows = ((k_cache, kq), (v_cache, vq), (k_scale, ks), (v_scale, vs))
+        for cache, r in rows:
+            cache[layer, row[keep], slot[keep]] = r[keep].to(cache.dtype)
+        return qr
     if cursor is not None:
         if not 0 <= int(cursor[0]) < k_cache.shape[2]:
             raise ValueError(WRITE_TARGET_MSG)
@@ -406,13 +427,13 @@ def check_page_errors(device) -> None:
 
 _PAGE_ARGTYPES = {
     "kv_write": ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                 + [ctypes.c_int] * 13 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2),
+                 + [ctypes.c_int] * 14 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2),
     "copy_pages_cluster": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                            + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2),
     "copy_pages": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2),
 }
-MODE_ROWS, MODE_TABLES, MODE_CURSOR = 0, 1, 2   # page_ops.cu MODE_*
+MODE_ROWS, MODE_TABLES, MODE_CURSOR, MODE_ROW_CURSOR = 0, 1, 2, 3   # page_ops.cu MODE_*
 QUANT_NONE, QUANT_PAGED, QUANT_CONTIG = 0, 1, 2  # page_ops.cu QUANT_*: -, quant_rows, kv_quantize
 
 
@@ -426,7 +447,8 @@ def _page_fn(name: str):
 
 def _kv_write(mode: int, k_dst: torch.Tensor, v_dst: torch.Tensor, layer: int, k, v, *, q=None,
               pos=None, inv_freq=None, page_of=None, off=None, tables=None, cursor=None,
-              k_scale=None, v_scale=None, quant: int = QUANT_NONE, n_slots: int, w: int = 0):
+              k_scale=None, v_scale=None, quant: int = QUANT_NONE, n_slots: int, w: int = 0,
+              t: int = 1):
     """One launch of ``kv_write`` over caches whose dims 0, 2, 3 are (layer,
     head, slot) and dim 1 the page or row; returns q turned, or None."""
     null = ctypes.c_void_p(0)
@@ -445,7 +467,7 @@ def _kv_write(mode: int, k_dst: torch.Tensor, v_dst: torch.Tensor, layer: int, k
         pos.stride(0) if pos is not None else 0, ptr(inv_freq), ptr(page_of), ptr(off), ptr(tables),
         ptr(cursor), mode, int(rope), quant,
         FLOAT_CODES.get(k.dtype, 0) if rope else 0, k_dst.element_size(), b,
-        q.shape[1] if q is not None else 0, hkv, d, k_dst.shape[1], n_slots, w, layer, *strides,
+        q.shape[1] if q is not None else 0, hkv, d, k_dst.shape[1], n_slots, w, layer, t, *strides,
         _ptr(build.error_flag(PAGE_OPS, k_dst.device)), _stream(k_dst))
     build.check(PAGE_OPS, code)
     return q_out
@@ -455,7 +477,8 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
                   inv_freq: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   layer: int, *, tables: Optional[torch.Tensor] = None,
                   cursor: Optional[torch.Tensor] = None, k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None, check: bool = True) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None, check: bool = True,
+                  cursors: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode token's RoPE and K/V write for one layer: q ``[B, H, D]``
     and k ``[B, Hkv, D]`` turned by ``pos [B]`` (int32 or int64, any stride)
     and ``inv_freq [D / 2]`` (:func:`rope_inv_freq`), K and v ``[B, Hkv, D]``
@@ -464,13 +487,19 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
     scale pools ``[L, P, Hkv, ps]``, quantized by :func:`quant_rows`) or into
     the contiguous cache ``[L, B, S, Hkv, D]`` at ``cursor`` (int64 ``[1]``;
     an int8 cache with its f32 scales ``[L, B, S, Hkv, 1]``, quantized by
-    :func:`kv_quantize`). Returns q turned,
+    :func:`kv_quantize`) or at one cursor per cache row, ``cursors`` (int64
+    ``[Bc]``, the slot engine's): ``B = Bc * T`` rows, ``T`` tokens of each
+    cache row at slots ``cursors + [0, T)``, the cache ``[L, Bc, S, Hkv, D]``
+    any view whose rows are ``D`` contiguous elements (a window ``[:, :, :W]``
+    of it), a slot at or past its ``S`` dropped: not written, no error, the
+    other rows written. Returns q turned,
     ``[B, H, D]`` contiguous. A CPU tensor takes :func:`rope_write_kv_ref`; a
     CUDA tensor launches K8a (one launch) or raises. A target outside the
     cache raises ValueError and nothing is written: on the card K8a flags it,
     read as ``check`` says (see :func:`write_token_pages_kernel`)."""
-    if (tables is None) == (cursor is None):
-        raise ValueError("give tables= (paged pools) or cursor= (the contiguous cache)")
+    if sum(x is not None for x in (tables, cursor, cursors)) != 1:
+        raise ValueError("give tables= (paged pools), cursors= (the contiguous cache's per-row "
+                         "cursors) or cursor= (its shared one)")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or q.shape[::2] != k.shape[::2]:
         raise ValueError(f"q must be [B, H, D] and k, v [B, Hkv, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -499,7 +528,15 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
                 if tuple(sc.shape) != want or sc.dtype != torch.float32:
                     raise ValueError(f"{name} must be f32 {want}, got {tuple(sc.shape)} "
                                      f"{sc.dtype}")
-        if k_cache.shape[1] != b or tuple(cursor.shape) != (1,) or cursor.dtype != torch.int64:
+        if cursors is not None:
+            bc = k_cache.shape[1]
+            if tuple(cursors.shape) != (bc,) or cursors.dtype != torch.int64 or b % bc or \
+                    k_cache.stride(4) != 1 or v_cache.stride(4) != 1:
+                raise ValueError(f"per-row cursors: int64 [Bc] for an [L, Bc, S, Hkv, D] cache "
+                                 f"with unit-stride rows and Bc dividing the {b} rows, got "
+                                 f"{tuple(cursors.shape)} {cursors.dtype} and "
+                                 f"{tuple(k_cache.shape)}")
+        elif k_cache.shape[1] != b or tuple(cursor.shape) != (1,) or cursor.dtype != torch.int64:
             raise ValueError(f"a [L, {b}, S, Hkv, D] cache and an int64 [1] cursor, got "
                              f"{tuple(k_cache.shape)} and {tuple(cursor.shape)} {cursor.dtype}")
         if not 0 <= layer < k_cache.shape[0]:
@@ -511,7 +548,7 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
                          f"{inv_freq.dtype}")
     if q.device.type == "cpu":
         return rope_write_kv_ref(q, k, v, pos, inv_freq, k_cache, v_cache, layer, tables, cursor,
-                                 k_scale, v_scale)
+                                 k_scale, v_scale, cursors)
     _require_cuda("K8a", q)
     if q.dtype not in FLOAT_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must be one of f32, f16, bf16, got {q.dtype}, {k.dtype}, "
@@ -521,8 +558,21 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
                          f"{k_cache.dtype}")
     if d > 256:
         raise NotImplementedError(f"K8a turns head dims up to 256, got {d}")
-    _check_on(q.device, q=q, k=k, v=v, inv_freq=inv_freq, k_cache=k_cache, v_cache=v_cache,
-              k_scale=k_scale, v_scale=v_scale, tables=tables, cursor=cursor)
+    if cursors is None:
+        _check_on(q.device, q=q, k=k, v=v, inv_freq=inv_freq, k_cache=k_cache, v_cache=v_cache,
+                  k_scale=k_scale, v_scale=v_scale, tables=tables, cursor=cursor)
+    else:   # a window of the cache: one set of strides for K and V, the scales' those over D
+        _check_on(q.device, q=q, k=k, v=v, inv_freq=inv_freq, cursors=cursors)
+        st = k_cache.stride()
+        sc = None if k_scale is None else tuple(x // d for x in st[:4]) + (1,)
+        if v_cache.stride() != st or any(x % d for x in st[:4]) or (sc is not None and (
+                k_scale.stride() != sc or v_scale.stride() != sc)):
+            raise ValueError("per-row cursors take K and V caches of one layout (a window of "
+                             "contiguous caches) and scales laid out as the caches over D")
+        for name, x in (("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale),
+                        ("v_scale", v_scale)):
+            if x is not None and x.device != q.device:
+                raise ValueError(f"{name} must be on {q.device}")
     if pos.device != q.device:
         raise ValueError(f"pos must be on {q.device}")
     if tables is not None:   # the kernel's (layer, page, head, slot) strides: the pools' own
@@ -531,11 +581,12 @@ def rope_write_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.
                           quant=QUANT_PAGED if k_scale is not None else QUANT_NONE,
                           n_slots=k_cache.shape[3], w=tables.shape[1])
     else:   # [L, B, S, Hkv, D]: (layer, row, head, slot) strides; the scales index as D = 1
-        q_out = _kv_write(MODE_CURSOR, k_cache.transpose(2, 3), v_cache.transpose(2, 3), layer, k,
-                          v, q=q, pos=pos, inv_freq=inv_freq, cursor=cursor, k_scale=k_scale,
-                          v_scale=v_scale,
+        rows = cursors is not None
+        q_out = _kv_write(MODE_ROW_CURSOR if rows else MODE_CURSOR, k_cache.transpose(2, 3),
+                          v_cache.transpose(2, 3), layer, k, v, q=q, pos=pos, inv_freq=inv_freq,
+                          cursor=cursors if rows else cursor, k_scale=k_scale, v_scale=v_scale,
                           quant=QUANT_CONTIG if k_scale is not None else QUANT_NONE,
-                          n_slots=k_cache.shape[2])
+                          n_slots=k_cache.shape[2], t=b // k_cache.shape[1] if rows else 1)
     build.launches["rope_write_kv"] += 1
     if check:
         check_page_errors(q.device)

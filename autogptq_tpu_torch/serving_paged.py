@@ -58,7 +58,8 @@ from .models import arch
 from .models.arch import KVCache
 from .models.base import resolve_device
 from .ops.paged_attn import check_page_errors, rope_inv_freq
-from .serving import EngineStats, Request, _bucket, _greedy_tokens, _sample_tokens
+from .serving import (EngineStats, Request, StepInputs, _bucket, _greedy_tokens, _sample_tokens,
+                      first_token, prefill_bucket)
 from .utils import generation
 
 
@@ -80,13 +81,6 @@ def _check_cfg(cfg) -> None:
 class _PagedSlot:
     req: Optional[Request] = None
     generated: list = dataclasses.field(default_factory=list)
-
-
-# The persistent step inputs, one int32 buffer: the tables (S x pages_per_seq), then one run of S
-# values per field, read as the field's dtype.
-_FIELDS = (("lengths", torch.int32), ("cur", torch.int32), ("eos", torch.int32),
-           ("min_left", torch.int32), ("temps", torch.float32), ("top_ps", torch.float32),
-           ("top_ks", torch.int32), ("seeds", torch.int32), ("steps", torch.int32))
 
 
 class PagedStep:
@@ -139,8 +133,8 @@ class PagedContinuousBatchEngine:
             raise NotImplementedError("paged serving requires unfused q/k/v projections")
         if any("adaption" in b.get("attn", {}) for b in model.params["layers"]):
             raise NotImplementedError("paged serving does not apply adaption-prompt adapters; "
-                                      "the contiguous engine that does is not ported yet "
-                                      "(ROADMAP Queue 1, 'Serving')")
+                                      "use the contiguous engine, "
+                                      "serving.ContinuousBatchEngine")
         self.device = resolve_device(getattr(model, "device", "cuda"))
         on_card = self.device.type == "cuda"
         for name, flag in (("use_kernel", use_kernel), ("write_kernel", write_kernel)):
@@ -190,17 +184,9 @@ class PagedContinuousBatchEngine:
         self._cached = OrderedDict()            # LRU of refcount-0 pages
         self._hash_memo: dict[int, list] = {}   # req_id -> chain hashes
 
-        # the step's persistent inputs: one int32 buffer on the device and its host staging
-        s = max_slots
-        n = s * pages_per_seq + s * len(_FIELDS)
-        self._host = torch.zeros(n, dtype=torch.int32, pin_memory=on_card)
-        self._host_np = self._host.numpy()
-        self._buf = torch.zeros(n, dtype=torch.int32, device=self.device)
-        views = {"tables": self._buf[:s * pages_per_seq].view(s, pages_per_seq)}
-        for i, (name, dt) in enumerate(_FIELDS):
-            part = self._buf[s * pages_per_seq + i * s:s * pages_per_seq + (i + 1) * s]
-            views[name] = part if dt == torch.int32 else part.view(dt)
-        self._dev = SimpleNamespace(**views)
+        # the step's persistent inputs: the tables, then the per-slot fields
+        self._inputs = StepInputs(max_slots, self.device, (max_slots, pages_per_seq))
+        self._dev = self._inputs.dev
         self._pools = SimpleNamespace(k_pool=self.k_pages, v_pool=self.v_pages, k_scale=None,
                                       v_scale=None, tables=self._dev.tables)
         self._inv_freq = rope_inv_freq(cfg.rope_theta, cfg.head_dim, self.device)
@@ -287,17 +273,8 @@ class PagedContinuousBatchEngine:
         """A right-padded prompt through ``arch.forward`` into a one-row cache
         of ``bucket`` slots: ``(K [L, bucket, Hkv, D], V, the last prompt
         position's logits [V])``."""
-        p = len(prompt)
-        tokens = torch.zeros((1, bucket), dtype=torch.int32)
-        mask = torch.zeros((1, bucket), dtype=torch.int32)
-        tokens[0, :p] = torch.as_tensor(np.asarray(prompt, np.int32))
-        mask[0, :p] = 1
-        tokens, mask = tokens.to(self.device), mask.to(self.device)
-        cache = KVCache.create(self.cfg, 1, bucket, dtype=self.dtype, device=self.device)
-        logits, cache = arch.forward(self.model.params, tokens, self.cfg, cache=cache,
-                                     attn_mask=mask, dtype=self.dtype,
-                                     positions=(torch.cumsum(mask, -1) - 1).clamp_min(0))
-        return cache.k[:, 0], cache.v[:, 0], logits[0, max(p, 1) - 1]
+        cache, lrow = prefill_bucket(self.model, prompt, bucket, self.device)
+        return cache.k[:, 0], cache.v[:, 0], lrow
 
     def _gather_prefix(self, pids: torch.Tensor):
         """The pages ``pids`` (null-padded) as contiguous ``[L, n * ps, Hkv,
@@ -347,18 +324,6 @@ class PagedContinuousBatchEngine:
             if span != rows:
                 x = torch.cat([x, x.new_zeros((n_layers, span - rows, hkv, d))], dim=1)
             pool[:, ids] = x.reshape(n_layers, npages, pg, hkv, d).permute(0, 1, 3, 2, 4)
-
-    def _first_token(self, lrow: torch.Tensor, req: Request) -> int:
-        def col(x, dt):
-            return torch.tensor([x], dtype=dt, device=self.device)
-
-        tok = _sample_tokens(lrow.reshape(1, -1), col(req.temperature, torch.float32),
-                             col(req.top_p, torch.float32), col(req.top_k, torch.int32),
-                             col(req.seed, torch.int32), col(0, torch.int32),
-                             col(-1 if req.eos_token_id is None else req.eos_token_id,
-                                 torch.int32),
-                             col(req.min_new_tokens, torch.int32))
-        return int(tok[0])
 
     def _admit(self) -> None:
         if self._drain and all(st.req is None for st in self.slots):
@@ -437,7 +402,7 @@ class PagedContinuousBatchEngine:
                         self._pid_hash[pid] = h
                         self._ref[pid] = self._ref.get(pid, 0) + 1
 
-            tok = self._first_token(lrow, req)
+            tok = first_token(req, lrow)
             self.lengths[slot] = p
             self.cur_tokens[slot] = tok
             self._temps[slot] = req.temperature
@@ -455,14 +420,8 @@ class PagedContinuousBatchEngine:
 
     def _stage(self, min_left: np.ndarray, steps: np.ndarray) -> None:
         """The host mirrors into the step's device buffer, one copy."""
-        s, w = self.max_slots, self.pages_per_seq
-        host = self._host_np
-        host[:s * w] = self.tables.reshape(-1)
-        parts = (self.lengths, self.cur_tokens, self._eos, min_left, self._temps, self._top_ps,
-                 self._top_ks, self._seeds, steps)
-        for i, part in enumerate(parts):
-            host[s * w + i * s:s * w + (i + 1) * s] = np.ascontiguousarray(part).view(np.int32)
-        self._buf.copy_(self._host, non_blocking=True)
+        self._inputs.stage((self.lengths, self.cur_tokens, self._eos, min_left, self._temps,
+                            self._top_ps, self._top_ks, self._seeds, steps), tables=self.tables)
 
     def _decode(self, sampling: bool, nblk: int):
         """The (sampling, nblk) step over the staged buffers, through its

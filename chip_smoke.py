@@ -255,7 +255,30 @@ one card). It imports nothing of JAX or of the ``autogptq_tpu`` package.
    ``decode_block = 4``, graph against per-op loop likewise; on the 2-layer
    f32 cut the engine's decode-step logits on the card within 1e-3 relative of
    the CPU engine's on one trace.
-22. Estimates K2's and K7's device time per token over a 512-token run from
+22. The slot engine (``serving.ContinuousBatchEngine``) on per-slot
+   cursors: K8a's per-row mode at its shapes (8 rows of a 768-slot cache, bf16
+   and int8, T = 1 over the whole cache and T = 5 on a 512-slot window; an idle
+   row, a row parked on the last slot and one past it, dropped) bit-equal to
+   its plain version, timed beside it and beside two ``index_put_``; K2 at the
+   engine's per-row bounds (an idle row's hi = 1, a parked row's S, one past
+   S). The main path's model, 8 slots of 768 positions, chunks of 256, the
+   paged phase's 24 requests after ``warmup()``: no capture in the run,
+   exactly 224 K1 GEMVs at M = 8, 32 ``rope_write_kv`` and 32 ``flash_decode``
+   per replayed step, the same streams and stats through the per-op loop, a
+   16-step window run twice on the same requests (host ms unprofiled, device
+   ms profiled); a ``decode_block = 4`` trace and a ``kv_quant`` trace (no
+   ``flash_decode``: the einsum), each against its per-op loop. Speculative
+   ``generate`` (gamma 4, 128 tokens from the 16-token prompt) with the model
+   as its draft and with its first 2 layers: tokens per target forward, tok/s,
+   and the tokens equal to plain greedy's counted (bf16: the verify window's
+   K1 at M = 5 and its einsum round otherwise than the step's K1 at M = 1 and
+   K2); speculative serving of the trace's greedy requests with the model as
+   its draft, streams counted against the plain engine's. On the f32 2-layer
+   cut: the engine on the card against the CPU engine, every decode step's
+   logits within 1e-3 relative; speculative ``generate`` (the cut and its
+   first layer as drafts) equal to plain greedy and speculative serving's
+   streams equal to the plain engine's, on the card.
+23. Estimates K2's and K7's device time per token over a 512-token run from
    the sweeps, holds the wgmma/TMA tile kernels per Llama-2-7B layer against
    the mma.sync ones (faster at M = 128 and 2048, forward and K10; whether at most half
    its time at M = 2048 is reported), reports K6's wgmma kernel per layer
@@ -392,6 +415,19 @@ SERVE_SAMPLING = dict(temperature=0.8, top_p=0.95, top_k=50)
 SERVE_BLOCK, SERVE_BLOCK_REQUESTS, SERVE_BLOCK_NEW = 4, 8, (32, 64)   # the decode_block run
 SERVE_PROFILE_STEPS = 16      # engine steps in the profiled window
 SERVE_CUT_REL_TOL = 1e-3      # the f32 2-layer cut's decode-step logits, card against CPU
+# The slot engine (serving.ContinuousBatchEngine) on the main path's model: 8 slots of 768
+# positions (the paged phase's longest request, 480 + 192 tokens, fits), prompts above 256
+# tokens prefilled in chunks of 256. K8a's and K2's per-row cases: live rows, an idle row at 0,
+# a row parked on the last slot and one past it; the verify window's on a view of VERIFY_WIN
+# slots (the speculative step's window), one row's window ending on its last slot
+SLOT_SEQ, SLOT_CHUNK = 768, 256
+SLOT_CURSORS = (670, 0, 301, 528, SLOT_SEQ - 1, 17, 145, SLOT_SEQ + 3)
+SPEC_GAMMA, SPEC_NEW_TOKENS, SPEC_DRAFT_LAYERS = 4, 128, 2
+VERIFY_WIN = 512
+VERIFY_CURSORS = (300, 0, 120, VERIFY_WIN - SPEC_GAMMA - 1, VERIFY_WIN - 1, 17, 145,
+                  VERIFY_WIN + 3)
+SLOT_CUT_REL_TOL = 1e-3       # the f32 2-layer cut's decode-step logits, card against CPU
+SPEC_CUT_TOKENS = 24          # speculative generate on the f32 cut, held to plain greedy
 K9_SELS = {1: [3], 2: [1, 6], 8: [0, 7, 7, 2, 0, 5, 1, 7]}   # P = 8: beam 4, repeats
 MIXTRAL_SHAPES = {        # Mixtral-8x7B expert projection: (K, N, K9 calls per layer)
     "gate_up": (4096, 14336, 2),
@@ -4808,6 +4844,458 @@ def phase_serving_cut(torch, np, cut_dir: str) -> dict:
     return dict(steps=len(card_steps), max_rel=rel, streams_equal=same, prefix_hit_tokens=hits)
 
 
+def phase_k8a_rows(torch, timer) -> list:
+    """K8a's per-row cursor mode at the slot engine's shapes: SERVE_SLOTS rows of a [2, 8, 768,
+    32, 128] cache, bf16 and int8 with its scales; T = 1 (the decode step, over the whole cache,
+    the rows at SLOT_CURSORS: an idle row at 0, one parked at S - 1 and one past S, dropped) and
+    T = SPEC_GAMMA + 1 (the speculative verify window on a view narrowed to VERIFY_WIN slots, the
+    rows at VERIFY_CURSORS: one whose window ends on the view's last slot, one parked there,
+    whose later tokens fall past it, and one past it). Against rope_write_kv_ref on clones of
+    the same inputs: q, K, V, codes and scales bit-equal; one launch; timed beside its plain
+    version and beside two index_put_ of the same rows (the write alone)."""
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.ops import paged_attn as pam
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, h, hkv, d, layers, layer = SERVE_SLOTS, 32, 32, 128, 2, 1
+    inv = pam.rope_inv_freq(10000.0, d, "cuda")
+    rows = []
+    for name, quant, t, win, at in (("step bf16", False, 1, None, SLOT_CURSORS),
+                                    ("step int8", True, 1, None, SLOT_CURSORS),
+                                    ("verify bf16", False, SPEC_GAMMA + 1, VERIFY_WIN,
+                                     VERIFY_CURSORS),
+                                    ("verify int8", True, SPEC_GAMMA + 1, VERIFY_WIN,
+                                     VERIFY_CURSORS)):
+        cursors = torch.tensor(at, device="cuda")
+        q, k, v = (torch.randn((b * t, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for n in (h, hkv, hkv))
+        pos = (cursors[:, None] + torch.arange(t, device="cuda")[None]).reshape(-1)
+        shape = (layers, b, SLOT_SEQ, hkv, d)
+        if quant:
+            full = {"k": torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                       dtype=torch.int8),
+                    "k_scale": torch.rand(shape[:-1] + (1,), generator=gen, device="cuda") + 0.1}
+            full["v"], full["v_scale"] = full["k"].clone(), full["k_scale"].clone()
+        else:
+            full = {"k": torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)}
+            full["v"] = full["k"].clone()
+        want = {key: x.clone() for key, x in full.items()}
+
+        def view(caches):
+            return {key: (x if win is None else x[:, :, :win]) for key, x in caches.items()}
+
+        gv, wv = view(full), view(want)
+        kw = dict(cursors=cursors, k_scale=gv.get("k_scale"), v_scale=gv.get("v_scale"))
+        want_q = pam.rope_write_kv_ref(q, k, v, pos, inv, wv["k"], wv["v"], layer,
+                                       k_scale=wv.get("k_scale"), v_scale=wv.get("v_scale"),
+                                       cursors=cursors)
+        before = build.launches["rope_write_kv"]
+        got_q = pam.rope_write_kv(q, k, v, pos, inv, gv["k"], gv["v"], layer, **kw)
+        torch.cuda.synchronize()
+        check(build.launches["rope_write_kv"] == before + 1, f"K8a per row {name}: not one launch")
+        diff = {key: int((full[key] != want[key]).sum()) for key in full}
+        diff["q"] = int((got_q != want_q).sum())
+        check(not any(diff.values()), f"K8a per row {name}: elements differing from its plain "
+                                      f"version: {diff}")
+        s_view = win or SLOT_SEQ
+        kept = pos < s_view
+        check(int(kept.sum()) < b * t and bool(kept.any()), f"K8a per row {name}: no row dropped")
+        max_abs = float((got_q.float() - want_q.float()).abs().max())
+        del want, wv, want_q
+        ms = timer.ms(lambda: pam.rope_write_kv(q, k, v, pos, inv, gv["k"], gv["v"], layer,
+                                                check=False, **kw))
+        plain_ms = timer.ms(lambda: pam.rope_write_kv_ref(q, k, v, pos, inv, gv["k"], gv["v"],
+                                                          layer, **kw))
+        row = torch.arange(b * t, device="cuda") // t
+        idx = (torch.full((int(kept.sum()),), layer, device="cuda"), row[kept], pos[kept])
+        kr, vr = k[kept].to(gv["k"].dtype), v[kept].to(gv["v"].dtype)
+        lib_ms = timer.ms(lambda: (gv["k"].index_put_(idx, kr), gv["v"].index_put_(idx, vr)))
+        n_kept = int(kept.sum())
+        es, ce = 2, full["k"].element_size()
+        moved = (2 * b * t * h * d * es + 2 * b * t * hkv * d * es
+                 + 2 * n_kept * hkv * (d * ce + (4 if quant else 0))
+                 + b * t * 8 + b * 8 + d // 2 * 4)
+        b_ms, b_by = bound_ms(moved, 6 * b * t * (h + hkv) * d // 2, F32_FLOP_PER_S)
+        rows.append(dict(case=name, T=t, cursors=list(at), window=s_view, rows_written=n_kept,
+                         cache=list(shape), cache_dtype=str(full["k"].dtype), differing=diff,
+                         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"K8a per row {name:12s} q [{b * t}, {h}, {d}] bf16, T = {t}, cursors {list(at)} "
+              f"into {list(shape)} {full['k'].dtype} (window {s_view}): {n_kept} of {b * t} "
+              f"rows written, the rest dropped; elements differing from rope_write_kv_ref "
+              f"{diff}; kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  index_put_ x 2 "
+              f"{lib_ms:.4f} ms  bound {b_ms:.5f} ms ({b_by})", flush=True)
+        del full, gv
+    return rows
+
+
+def phase_k2_rows(torch, timer) -> list:
+    """K2 at the slot engine's per-row bounds: SERVE_SLOTS rows of a [2, 8, 768, 32, 128] bf16
+    cache, lo = 0, hi = SLOT_CURSORS + 1 (an idle row's hi = 1, a parked row's S, a row past S
+    clamped to S); twice bit-equal, within K2_ABS_TOL of its plain version, timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from autogptq_tpu_torch.ops import flash_decode as fdm
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, h, hkv, d, s, layer = SERVE_SLOTS, 32, 32, 128, SLOT_SEQ, 1
+    q = torch.randn((b, h, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    kc = torch.randn((2, b, s, hkv, d), generator=gen, device="cuda", dtype=torch.bfloat16)
+    vc = torch.randn(kc.shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    lo = torch.zeros(b, dtype=torch.int32, device="cuda")
+    hi = (torch.tensor(SLOT_CURSORS, device="cuda") + 1).to(torch.int32)
+    scale = d ** -0.5
+    o = fdm.flash_decode(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
+    again = fdm.flash_decode(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
+    ref = fdm.flash_decode_ref(q, kc, vc, lo, hi, layer=layer, sm_scale=scale)
+    torch.cuda.synchronize()
+    err = (o - ref).abs().max().item()
+    check(bool(torch.isfinite(o).all()), "K2 engine rows: non-finite output")
+    check(err <= K2_ABS_TOL, f"K2 engine rows: max |kernel - plain| = {err:.3e} > {K2_ABS_TOL}")
+    check(torch.equal(o, again), "K2 engine rows: two calls on the same inputs differ")
+    kl, vl = kc[layer].permute(0, 2, 1, 3), vc[layer].permute(0, 2, 1, 3)
+    p = torch.arange(s, device="cuda")
+    mask = ((p[None] >= lo[:, None]) & (p[None] < hi[:, None]))[:, None, None, :]
+    ms = timer.ms(lambda: fdm.flash_decode(q, kc, vc, lo, hi, layer=layer, sm_scale=scale))
+    plain_ms = timer.ms(lambda: fdm.flash_decode_ref(q, kc, vc, lo, hi, layer=layer,
+                                                     sm_scale=scale))
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kl, vl,
+                                                             attn_mask=mask, scale=scale))
+    live = sum(min(int(x), s) for x in hi.tolist())
+    b_ms, b_by = bound_ms(2 * live * hkv * d * 2 + nbytes(q, o, lo, hi), 4.0 * live * h * d)
+    chunk, n_split = fdm.split_plan(b, hkv, s)
+    print(f"K2 engine rows B={b} H=Hkv={h} S={s}: hi {hi.tolist()} ({live} live slots), plan "
+          f"{n_split} x {chunk} slots; err {err:.3e} (tol {K2_ABS_TOL}), repeat bit-equal; "
+          f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {b_ms:.4f} "
+          f"ms ({b_by})", flush=True)
+    return [dict(case="engine rows", B=b, H=h, Hkv=hkv, S=s, D=d, hi=hi.tolist(),
+                 live_slots=live, chunk=chunk, n_split=n_split, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)]
+
+
+def slot_engine(model, **kw):
+    from autogptq_tpu_torch.serving import ContinuousBatchEngine
+
+    kw = dict(dict(max_slots=SERVE_SLOTS, max_seq_len=SLOT_SEQ, prefill_chunk=SLOT_CHUNK), **kw)
+    return ContinuousBatchEngine(model, **kw)
+
+
+def check_slot_launches(counts, steps: int, layers: int, label: str, int8: bool = False) -> None:
+    """Every decode step of a warmed slot engine replayed from its graph with exactly 224 K1
+    GEMVs (M = SERVE_SLOTS), one K8a per-row write and one K2 per layer (none over an int8
+    cache: the einsum), and nothing captured; no other path launches them (the prefills and
+    chunks run at 32 rows or more, the wgmma tile kernel, and write through the host cursor)."""
+    want = {"w4a16_gemm_gemv": 7 * layers * steps, "rope_write_kv": layers * steps,
+            "flash_decode": 0 if int8 else layers * steps}
+    got = {key: counts.get(key, 0) for key in want}
+    rep = {key: counts.replayed.get(key, 0) for key in want}
+    check(got == want == rep and not counts.get("w4a16_gemm", 0)
+          and not counts.graphs.get("captures", 0),
+          f"{label}: launches {got}, replayed {rep}, want {want} for {steps} steps, all "
+          f"replayed, no SIMT GEMV and no capture after warmup(); graphs {counts.graphs}")
+
+
+def same_streams(np, a: dict, b: dict) -> list:
+    """The request ids whose streams differ."""
+    return sorted(r for r in set(a) | set(b) if r not in a or r not in b
+                  or not np.array_equal(a[r], b[r]))
+
+
+def phase_slot_serving(torch, np, model) -> dict:
+    """The slot engine (``serving.ContinuousBatchEngine``) on the main path's model, 32 layers
+    at full width, bf16, SERVE_SLOTS slots of SLOT_SEQ positions, chunks of SLOT_CHUNK: the
+    trace of ``serving_trace`` (24 requests; the prompts above SLOT_CHUNK tokens prefilled in
+    chunks, interleaved with decode) after ``warmup()``, through the decode step's CUDA graphs,
+    then through the per-op loop (``JIT_GENERATE`` off), streams and stats identical; exact
+    launches per replayed step; a window of 16 engine steps (8 slots decoding) run twice on
+    the same requests, unprofiled for host ms and profiled for device ms. Then a shorter trace
+    with ``decode_block = SERVE_BLOCK`` and the same trace over an int8 cache (``kv_quant``),
+    each against its per-op loop."""
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.serving import Request
+
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    reqs = serving_trace(np, vocab, SERVE_SEED, SERVE_REQUESTS)
+    chunked = sum(len(r.prompt) > SLOT_CHUNK for r in reqs)
+    engine = slot_engine(model)
+    captures = build.graphs.get("captures", 0)
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    captures = build.graphs.get("captures", 0) - captures
+    out, counts, run_s = served(torch, build, engine, reqs, warm=False)
+    st = engine.stats
+    check_slot_launches(counts, st.steps, layers, "slot serving")
+    check(set(out) == {r.req_id for r in reqs} and all(
+        len(out[r.req_id]) == r.max_new_tokens and ((out[r.req_id] >= 0)
+                                                     & (out[r.req_id] < vocab)).all()
+        for r in reqs), "slot serving: an output of the wrong length or out of range")
+    snap = st.snapshot()
+    host_ms = 1e3 * st.step_time_s / st.steps
+    print(f"slot serving: Llama-2-7B 4-bit g128, {layers} layers, bf16, {SERVE_SLOTS} slots of "
+          f"{SLOT_SEQ} positions, prefill_chunk {SLOT_CHUNK}; the {len(reqs)} requests of the "
+          f"paged phase ({chunked} prefilled in chunks): warmup {warm_s:.1f} s ({captures} "
+          f"captures), run {run_s:.3f} s, decode {snap['decode_tok_s']} tok/s, {host_ms:.3f} host "
+          f"ms per engine step; stats {snap}; per replayed step "
+          f"{counts.get('w4a16_gemm_gemv', 0) / st.steps:.0f} K1 GEMVs at M = {SERVE_SLOTS}, "
+          f"{counts.get('rope_write_kv', 0) / st.steps:.0f} rope_write_kv (per-row), "
+          f"{counts.get('flash_decode', 0) / st.steps:.0f} flash_decode; launches {counts}",
+          flush=True)
+
+    with jit_generate(False):
+        eager_engine = slot_engine(model)
+        t0 = time.perf_counter()
+        eager = eager_engine.run(list(reqs))
+        eager_s = time.perf_counter() - t0
+    differ = same_streams(np, eager, out)
+    check(not differ, f"slot serving: the per-op loop's streams differ from the CUDA graphs': "
+                      f"requests {differ}")
+    check(dataclasses.asdict(eager_engine.stats) | {"step_time_s": 0}
+          == dataclasses.asdict(st) | {"step_time_s": 0}, "slot serving: the per-op loop's "
+          "stats differ from the graphs'")
+    eager_host_ms = 1e3 * eager_engine.stats.step_time_s / eager_engine.stats.steps
+    del eager_engine
+    print(f"slot serving, per-op loop (JIT_GENERATE off): the same {len(reqs)} streams and stats, "
+          f"{eager_s:.3f} s, {eager_host_ms:.3f} host ms per engine step (graphs "
+          f"{host_ms:.3f})", flush=True)
+
+    window = slot_engine(model)
+    window.warmup(sampling=False)
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    prompts = [rng.integers(1, vocab, 64).astype(np.int32) for _ in range(SERVE_SLOTS)]
+
+    def wave(first_id, steps):
+        for i, p in enumerate(prompts):
+            window.submit(Request(first_id + i, p, 64))
+        window.step()                  # admits and prefills every request
+        measured = steps()
+        streams = window.run([])
+        return measured, [streams[first_id + i] for i in range(SERVE_SLOTS)]
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            window.step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / SERVE_PROFILE_STEPS
+
+    host_ms_window, first = wave(0, timed)
+    run, second = wave(SERVE_SLOTS, lambda: profiled(
+        torch, lambda: [window.step() for _ in range(SERVE_PROFILE_STEPS)]))
+    check(all(np.array_equal(a, b) for a, b in zip(first, second)),
+          "slot serving window: the same requests gave other streams the second time")
+    device_ms = sum(k.time_range.elapsed_us() for k in run["kernels"]) / 1e3 / SERVE_PROFILE_STEPS
+    wall_ms = run["wall_us"] / 1e3 / SERVE_PROFILE_STEPS
+    print(f"slot serving, a window of {SERVE_PROFILE_STEPS} engine steps ({SERVE_SLOTS} slots "
+          f"decoding, no admission, 64-token prompts), run twice on the same requests with the "
+          f"same streams: host {host_ms_window:.3f} ms per step unprofiled, device "
+          f"{device_ms:.3f} ms per step in {len(run['kernels'])} kernels profiled (busy "
+          f"{100 * device_ms / host_ms_window:.1f}%, idle {host_ms_window - device_ms:.3f} ms per "
+          f"step); host {wall_ms:.3f} ms per step under the profiler; launches with no kernel "
+          f"record: {run['lost_inside']} inside, {run['lost_before']} before", flush=True)
+    del window
+
+    block_reqs = serving_trace(np, vocab, SERVE_SEED + 2, SERVE_BLOCK_REQUESTS,
+                               new=SERVE_BLOCK_NEW)
+    variants = {}
+    for label, kw in ((f"decode_block {SERVE_BLOCK}", dict(decode_block=SERVE_BLOCK)),
+                      ("kv_quant", dict(kv_quant=True))):
+        eng = slot_engine(model, **kw)
+        v_out, v_counts, v_s = served(torch, build, eng, block_reqs, warm=True)
+        vst = eng.stats
+        check_slot_launches(v_counts, vst.steps, layers, f"slot serving, {label}",
+                            int8=kw.get("kv_quant", False))
+        del eng
+        with jit_generate(False):
+            v_eager = slot_engine(model, **kw).run(list(block_reqs))
+        differ = same_streams(np, v_eager, v_out)
+        check(not differ, f"slot serving, {label}: the per-op loop's streams differ: {differ}")
+        print(f"slot serving, {label}: {len(block_reqs)} requests (max_new_tokens "
+              f"{SERVE_BLOCK_NEW[0]}-{SERVE_BLOCK_NEW[1]}), run {v_s:.3f} s, decode "
+              f"{vst.decode_tok_s():.2f} tok/s, {1e3 * vst.step_time_s / vst.steps:.3f} host ms "
+              f"per decode step, stats {vst.snapshot()}; streams equal to the per-op loop's; "
+              f"launches {v_counts}", flush=True)
+        variants[label] = dict(stats=vst.snapshot(), counts=v_counts, run_s=v_s,
+                               host_ms_per_step=1e3 * vst.step_time_s / vst.steps, out=v_out)
+    torch.cuda.empty_cache()
+    return dict(stats=snap, counts=counts, warmup_s=warm_s, warmup_captures=captures,
+                run_s=run_s, host_ms_per_step=host_ms, eager_s=eager_s,
+                eager_host_ms_per_step=eager_host_ms, out=out, reqs=reqs,
+                profile=dict(steps=SERVE_PROFILE_STEPS, host_ms_per_step=host_ms_window,
+                             profiled_wall_ms_per_step=wall_ms, device_ms_per_step=device_ms,
+                             kernels=len(run["kernels"]), lost_inside=run["lost_inside"]),
+                variants={k: {key: val for key, val in v.items() if key != "out"}
+                          for k, v in variants.items()})
+
+
+def layer_cut(model, n: int):
+    """The first ``n`` decoder layers of ``model`` as a model of their own (the same tensors):
+    a draft that shares the target's vocabulary and embeddings."""
+    return types.SimpleNamespace(params=dict(model.params, layers=model.params["layers"][:n]),
+                                 cfg=dataclasses.replace(model.cfg, num_layers=n),
+                                 dtype=model.dtype, device=model.device)
+
+
+def first_difference(np, a, b) -> int:
+    """The index of the first token where ``a`` and ``b`` differ, or their length."""
+    a, b = np.asarray(a).reshape(-1), np.asarray(b).reshape(-1)
+    ne = np.nonzero(a != b)[0]
+    return int(ne[0]) if len(ne) else len(a)
+
+
+def phase_speculative(torch, np, model, slot) -> dict:
+    """Speculative decoding on the main path's model, bf16, 32 layers: ``generate(draft_model=,
+    speculative_gamma=SPEC_GAMMA)`` of SPEC_NEW_TOKENS tokens from the main path's 16-token
+    prompt with the model itself as its draft and with its first SPEC_DRAFT_LAYERS layers,
+    beside plain greedy (its CUDA graph); tokens per target forward and tok/s; the tokens equal
+    to plain greedy's counted (the verify window runs K1 at M = 5 and the einsum, plain greedy
+    K1 at M = 1 and K2: other roundings of bf16, which can part the two at a near tie; the f32
+    cut holds them equal). Then speculative serving: the slot phase's greedy requests through
+    the slot engine with the model as its draft, streams counted against the plain engine's
+    (the same roundings), every speculative step eager."""
+    from autogptq_tpu_torch.ops import build
+    from autogptq_tpu_torch.utils.speculative import generate_speculative
+
+    prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = model.generate(prompt, max_new_tokens=SPEC_NEW_TOKENS)
+    plain_s = time.perf_counter() - t0
+    runs = {}
+    for label, draft in (("draft = the model", model),
+                         (f"draft = its first {SPEC_DRAFT_LAYERS} layers",
+                          layer_cut(model, SPEC_DRAFT_LAYERS))):
+        stats = {}
+        generate_speculative(model, draft, prompt, max_new_tokens=8, gamma=SPEC_GAMMA)  # warm
+        torch.cuda.synchronize()
+        clear_counts(build)
+        t0 = time.perf_counter()
+        got = generate_speculative(model, draft, prompt, max_new_tokens=SPEC_NEW_TOKENS,
+                                   gamma=SPEC_GAMMA, stats=stats)
+        spec_s = time.perf_counter() - t0
+        counts = snapshot(build)
+        new = got[0, PROMPT_LEN:]
+        check(got.shape == plain.shape and bool(((new >= 0) & (new < model.cfg.vocab_size)).all()),
+              f"speculative, {label}: output {got.shape} or ids out of range")
+        check(counts.get("rope_write_kv", 0) > 0 and counts.get("flash_decode", 0) > 0,
+              f"speculative, {label}: the draft's steps launched no K8a or K2: {counts}")
+        equal = int((new == plain[0, PROMPT_LEN:]).sum())
+        first = first_difference(np, new, plain[0, PROMPT_LEN:])
+        runs[label] = dict(tok_s=SPEC_NEW_TOKENS / spec_s, seconds=spec_s, tokens_equal=equal,
+                           first_difference=first, counts=counts, **stats)
+        print(f"speculative generate, {label}, gamma {SPEC_GAMMA}, {SPEC_NEW_TOKENS} tokens from "
+              f"the {PROMPT_LEN}-token prompt: {SPEC_NEW_TOKENS / spec_s:.2f} tok/s ({spec_s:.3f} "
+              f"s; plain greedy {SPEC_NEW_TOKENS / plain_s:.2f} tok/s), "
+              f"{stats['target_forwards']} target forwards, {stats['accepted_drafts']} drafts "
+              f"accepted, {stats['tokens_per_target_forward']:.2f} tokens per target forward; "
+              f"tokens equal to plain greedy's {equal} of {SPEC_NEW_TOKENS} (first difference at "
+              f"{first}); launches {counts}", flush=True)
+
+    greedy = [r for r in slot["reqs"] if r.temperature == 0]
+    engine = slot_engine(model, draft_model=model, spec_gamma=SPEC_GAMMA)
+    engine.warmup(sampling=False)
+    torch.cuda.synchronize()
+    clear_counts(build)
+    t0 = time.perf_counter()
+    out = engine.run(list(greedy))
+    serve_s = time.perf_counter() - t0
+    counts = snapshot(build)
+    st = engine.stats
+    check(engine.spec_steps > 0 and set(out) == {r.req_id for r in greedy} and all(
+        len(out[r.req_id]) == r.max_new_tokens for r in greedy),
+        f"speculative serving: {engine.spec_steps} speculative steps, outputs of the wrong length")
+    plain_out = slot["out"]
+    equal_streams = sum(np.array_equal(out[r.req_id], plain_out[r.req_id]) for r in greedy)
+    tokens = sum(r.max_new_tokens for r in greedy)
+    equal_tokens = sum(int((out[r.req_id] == plain_out[r.req_id]).sum()) for r in greedy)
+    print(f"speculative serving, draft = the model, gamma {SPEC_GAMMA}: the {len(greedy)} greedy "
+          f"requests of the slot phase's trace, run {serve_s:.3f} s, {st.tokens_generated} "
+          f"tokens in {st.steps} engine steps ({engine.spec_steps} speculative, "
+          f"{st.tokens_generated / max(st.steps, 1):.2f} tokens per step), decode "
+          f"{st.decode_tok_s():.2f} tok/s; streams equal to the plain engine's {equal_streams} of "
+          f"{len(greedy)}, tokens {equal_tokens} of {tokens}; launches {counts}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return dict(generate=runs, plain_tok_s=SPEC_NEW_TOKENS / plain_s,
+                serving=dict(requests=len(greedy), seconds=serve_s, stats=st.snapshot(),
+                             spec_steps=st.steps, streams_equal=equal_streams,
+                             tokens_equal=equal_tokens, tokens=tokens, counts=counts))
+
+
+def phase_slot_cut(torch, np, cut_dir: str) -> dict:
+    """The 2-layer full-width cut in f32. On the card (f32: the SIMT kernels, K2, K8a) the slot
+    engine against the CPU engine on one trace (a chunked prompt among them): every decode
+    step's logits of the active slots within SLOT_CUT_REL_TOL relative, streams counted. On the
+    card alone, where f32 leaves no near tie: speculative ``generate`` with the cut as its own
+    draft and with its first layer, tokens equal to plain greedy's; speculative serving with the
+    cut as its draft, streams equal to the plain engine's."""
+    from autogptq_tpu_torch import AutoGPTQForCausalLM
+    from autogptq_tpu_torch.serving import Request
+    from autogptq_tpu_torch.utils.speculative import generate_speculative
+
+    rng = np.random.default_rng(SERVE_SEED + 5)
+    reqs = [Request(0, rng.integers(1, 32000, 40).astype(np.int32), 3),
+            Request(1, rng.integers(1, 32000, 9).astype(np.int32), 4),
+            Request(2, rng.integers(1, 32000, 24).astype(np.int32), 3)]
+    rows = {}
+    for device in ("cuda", "cpu"):
+        model = AutoGPTQForCausalLM.from_quantized(cut_dir, device=device, dtype=torch.float32)
+        engine = slot_engine(model, max_seq_len=64, prefill_chunk=16, max_slots=2)
+        steps, real = [], engine._decode
+
+        def recorded(sampling, nblk, win, real=real, engine=engine, steps=steps):
+            toks, logits = real(sampling, nblk, win)
+            active = [i for i, st in enumerate(engine.slots)
+                      if st.req is not None and not st.prefilling]
+            steps.append(logits[active].float().cpu())
+            return toks, logits
+
+        engine._decode = recorded
+        rows[device] = (engine.run(reqs), steps)
+        if device == "cuda":
+            prompt = (np.arange(PROMPT_LEN) % 1000)[None].astype(np.int32)
+            plain = model.generate(prompt, max_new_tokens=SPEC_CUT_TOKENS)
+            spec = {}
+            for label, draft in (("itself", model), ("its first layer", layer_cut(model, 1))):
+                stats = {}
+                got = generate_speculative(model, draft, prompt, max_new_tokens=SPEC_CUT_TOKENS,
+                                           gamma=SPEC_GAMMA, stats=stats)
+                check(np.array_equal(got, plain), f"speculative generate on the f32 cut, draft "
+                      f"= {label}: tokens differ from plain greedy's at "
+                      f"{first_difference(np, got, plain) - PROMPT_LEN}")
+                spec[label] = stats
+            longer = [Request(r.req_id, r.prompt, SPEC_CUT_TOKENS // 2) for r in reqs]
+            plain_srv = slot_engine(model, max_seq_len=128, prefill_chunk=16).run(list(longer))
+            spec_eng = slot_engine(model, max_seq_len=128, prefill_chunk=16, draft_model=model,
+                                   spec_gamma=SPEC_GAMMA)
+            spec_srv = spec_eng.run(list(longer))
+            differ = same_streams(np, spec_srv, plain_srv)
+            check(not differ and spec_eng.spec_steps > 0,
+                  f"speculative serving on the f32 cut: streams differ from the plain engine's: "
+                  f"{differ} ({spec_eng.spec_steps} speculative steps)")
+        del model, engine
+        torch.cuda.empty_cache()
+    (card_out, card_steps), (cpu_out, cpu_steps) = rows["cuda"], rows["cpu"]
+    check(len(card_steps) == len(cpu_steps), f"slot cut: {len(card_steps)} card steps, "
+                                             f"{len(cpu_steps)} CPU")
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(card_steps, cpu_steps))
+    same = sum(np.array_equal(card_out[r], cpu_out[r]) for r in cpu_out)
+    check(rel <= SLOT_CUT_REL_TOL, f"slot cut: decode-step logits {rel:.3e} relative apart, "
+                                   f"tolerance {SLOT_CUT_REL_TOL}")
+    print(f"slot engine on the 2-layer full-width cut, f32, card against CPU: {len(card_steps)} "
+          f"decode steps of {len(reqs)} requests (one prefilled in chunks of 16), logits "
+          f"{rel:.3e} relative apart at most (tolerance {SLOT_CUT_REL_TOL}); {same} of "
+          f"{len(reqs)} streams equal; on the card, speculative generate of {SPEC_CUT_TOKENS} "
+          f"tokens equal to plain greedy's with the cut as its draft "
+          f"({spec['itself']['tokens_per_target_forward']:.2f} tokens per target forward) and "
+          f"with its first layer ({spec['its first layer']['tokens_per_target_forward']:.2f}); "
+          f"speculative serving's {len(reqs)} streams of {SPEC_CUT_TOKENS // 2} tokens equal to "
+          f"the plain engine's ({spec_eng.spec_steps} speculative steps)", flush=True)
+    return dict(steps=len(card_steps), max_rel=rel, streams_equal=same, speculative=spec,
+                spec_serving_steps=spec_eng.spec_steps)
+
+
 def layer_sum(rows: list, key: str, m: int = 1) -> float:
     by = {r["case"]: r for r in rows if r["M"] == m}
     return sum(by[name][key] * calls for name, (_, _, calls) in LAYER_SHAPES.items())
@@ -4863,6 +5351,8 @@ def main() -> int:
     attn_ptxas = attention_ptxas()
     page_regs = page_ops_ptxas()
     k8a_fused_rows, k8a_rows, k8b_rows = timed("K8", phase_k8, torch, timer)
+    k8a_row_rows = timed("K8a per row", phase_k8a_rows, torch, timer)
+    k2_engine_rows = timed("K2 engine rows", phase_k2_rows, torch, timer)
     k10_rows = timed("K10", phase_k10, torch, np, timer)
     k9_rows = timed("K9", phase_k9, torch, np, timer)
     k9_rest_rows = timed("K9 rest classes", phase_k9_rest, torch, np, timer)
@@ -4881,6 +5371,8 @@ def main() -> int:
         beam = timed("beam", phase_beam, torch, np, model)
         int8 = timed("int8 greedy", phase_int8_greedy, torch, np, model, main_out)
         serving = timed("paged serving", phase_serving, torch, np, model)
+        slot = timed("slot serving", phase_slot_serving, torch, np, model)
+        spec = timed("speculative", phase_speculative, torch, np, model, slot)
         fused = timed("fused norm", phase_fused_norm, torch, np, model, main_out)
         train = timed("train", phase_train, torch, np, model, work)
         del model
@@ -4889,6 +5381,7 @@ def main() -> int:
         cut_dir = os.path.join(work, "llama2-7b-random-g128-2layers")
         cpu_vs_card = timed("card vs CPU", phase_cpu_vs_card, torch, np, cut_dir)
         serving_cut = timed("paged serving card vs CPU", phase_serving_cut, torch, np, cut_dir)
+        slot_cut = timed("slot serving card vs CPU", phase_slot_cut, torch, np, cut_dir)
         fused_cut = timed("fused norm card vs CPU", phase_fused_cut, torch, np, cut_dir)
         kb32l_cut = timed("kb32l card vs CPU", phase_kb32l_cut, torch, np, cut_dir)
         grads = timed("gradients", phase_grads, torch, np, cut_dir)
@@ -5147,7 +5640,8 @@ def main() -> int:
                         + [r["max_abs_err"] for r in wna_rows
                            if r["kernel"] == "w4a16_gemm_gemv"]),
              int8_launches=int8["counts"].get("w4a16_gemm_gemv", 0),
-             serving_launches=serving["counts"].get("w4a16_gemm_gemv", 0)),
+             serving_launches=serving["counts"].get("w4a16_gemm_gemv", 0),
+             slot_serving_launches=slot["counts"].get("w4a16_gemm_gemv", 0)),
         gemm_entry("w8a16_gemm_gemv", "autogptq_tpu/ops/pallas/gemm.py:46", widths[8]["counts"],
                    width_rows(8), at + "; K4's tensor-core decode GEMV, bf16 (replaces the "
                    "decode regime of the planar _kernel :46); launches from the 64-token 8-bit "
@@ -5296,9 +5790,17 @@ def main() -> int:
                 f"JAX's kb32l backward is XLA); launches from one LoRA step of the {TRAIN_BATCH} "
                 f"x {TRAIN_LEN} batch on the model loaded with layout='kb32l'; max_abs_err over "
                 f"every case it ran"),
-        entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
-              "autogptq_tpu/ops/pallas/flash_decode.py:62", launches, k2_rows, k2_main,
-              "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache"),
+        dict(entry("flash_decode", "autogptq_tpu_torch/ops/csrc/flash_decode.cu",
+                   "autogptq_tpu/ops/pallas/flash_decode.py:62", launches,
+                   k2_rows + k2_engine_rows, k2_main,
+                   "one layer, B=1, H=Hkv=32, D=128, 528 live slots, bf16 cache; "
+                   "slot_serving_launches: the slot engine's run, 32 per step; engine_rows: "
+                   f"one layer at the slot engine's per-row bounds (B={SERVE_SLOTS}, "
+                   f"S={SLOT_SEQ})"),
+             slot_serving_launches=slot["counts"].get("flash_decode", 0),
+             engine_rows={key: k2_engine_rows[0][key] for key in
+                          ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                           "max_abs_err")}),
         dict(entry("paged_attention_mh", "autogptq_tpu_torch/ops/csrc/paged_attn.cu",
                    "autogptq_tpu/ops/pallas/paged_attn.py:45", beam_launches, k7_rows, k7_main,
                    "one layer, beam 4: B=4, H=Hkv=32, D=128, page 16, 528 live slots per row, "
@@ -5319,9 +5821,14 @@ def main() -> int:
              beam_replayed=replayed(beam_launches, "rope_write_kv"),
              int8_launches=int8["counts"].get("rope_write_kv", 0),
              serving_launches=serving["counts"].get("rope_write_kv", 0),
+             slot_serving_launches=slot["counts"].get("rope_write_kv", 0),
+             slot_serving_replayed=replayed(slot["counts"], "rope_write_kv"),
              int8_ms=k8a_int8["ms"], int8_plain_ms=k8a_int8["plain_ms"],
              int8_bound_ms=k8a_int8["bound_ms"],
-             write_only_ms=k8a_main["write_only_ms"]),
+             write_only_ms=k8a_main["write_only_ms"],
+             per_row={r["case"]: {key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by", "max_abs_err")}
+                      for r in k8a_row_rows}),
         dict(entry("copy_pages_pair", "autogptq_tpu_torch/ops/csrc/page_ops.cu",
                    "autogptq_tpu/ops/pallas/paged_attn.py:316", beam_launches, k8b_rows,
                    k8b_main, "K8b's copy_pages_cluster_kernel: 4 pages (3 moving, one "
@@ -5451,6 +5958,9 @@ def main() -> int:
                        prenorm_ptxas=prenorm_regs, fused=fused, fused_cut=fused_cut,
                        rest_path=rest_path, graph_turns=turns, int8_greedy=int8,
                        serving=serving, serving_cut=serving_cut,
+                       k8a_rows=k8a_row_rows, k2_engine_rows=k2_engine_rows,
+                       slot_serving={k: v for k, v in slot.items() if k not in ("out", "reqs")},
+                       speculative=spec, slot_cut=slot_cut,
                        kernels=kernels, elapsed_s=elapsed), f, indent=1)
     print(f"elapsed {elapsed:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

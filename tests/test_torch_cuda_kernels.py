@@ -569,6 +569,62 @@ def test_k8a_fused_bad_targets_write_nothing(card, layout):
     pam.check_page_errors(card)
 
 
+@pytest.mark.parametrize("t, dtype, quant, win", [
+    (1, torch.bfloat16, False, None), (5, torch.bfloat16, False, 24), (1, torch.bfloat16, True, 24),
+    (5, torch.float32, True, None), (4, torch.float16, False, None)])
+def test_k8a_per_row_matches_plain_and_drops(card, t, dtype, quant, win):
+    """K8a's per-row cursor mode (the slot engine's step, T = 1, and the
+    verify window, T > 1) on a window view of the cache or the whole of it:
+    rows parked at the last slot, at it and past it (dropped) beside live
+    ones, one launch, against ``rope_write_kv_ref(cursors=)`` within one ulp
+    (int8 codes within one); a negative cursor flags and writes nothing."""
+    gen = torch.Generator(card).manual_seed(t + 7 * quant)
+    h, hkv, d, s, layer = 32, 8, 128, 40, 1
+    top = win or s
+    cursors = torch.tensor([3, 0, top - 1, top, top + 7, 10], device=card)
+    b = cursors.shape[0]
+    q, k, v = (torch.randn((b * t, n, d), generator=gen, device=card).to(dtype)
+               for n in (h, hkv, hkv))
+    pos = (cursors[:, None] + torch.arange(t, device=card)[None]).reshape(-1)
+    inv = pam.rope_inv_freq(10000.0, d, card)
+    shape = (2, b, s, hkv, d)
+    if quant:
+        full = {"k": torch.randint(-127, 128, shape, generator=gen, device=card,
+                                   dtype=torch.int8),
+                "k_scale": torch.rand(shape[:-1] + (1,), generator=gen, device=card) + 0.1}
+        full["v"], full["v_scale"] = full["k"].clone(), full["k_scale"].clone()
+    else:
+        full = {"k": torch.randn(shape, generator=gen, device=card).to(dtype)}
+        full["v"] = full["k"].clone()
+    want = {name: x.clone() for name, x in full.items()}
+
+    def views(d_):
+        return {n: (x if win is None else x[:, :, :win]) for n, x in d_.items()}
+
+    got_v, want_v = views(full), views(want)
+    want_q = pam.rope_write_kv_ref(q, k, v, pos, inv, want_v["k"], want_v["v"], layer,
+                                   k_scale=want_v.get("k_scale"), v_scale=want_v.get("v_scale"),
+                                   cursors=cursors)
+    before = build.launches["rope_write_kv"]
+    got_q = pam.rope_write_kv(q, k, v, pos, inv, got_v["k"], got_v["v"], layer, cursors=cursors,
+                              k_scale=got_v.get("k_scale"), v_scale=got_v.get("v_scale"))
+    torch.cuda.synchronize()
+    assert build.launches["rope_write_kv"] == before + 1
+    assert _ulp_off(got_q, want_q) == 0
+    for name in full:
+        g, w = full[name], want[name]
+        if g.dtype == torch.int8:
+            assert int((g.int() - w.int()).abs().max()) <= 1
+        else:
+            assert _ulp_off(g, w, dtype if name.endswith("scale") else None) == 0
+    before = {name: x.clone() for name, x in full.items()}
+    with pytest.raises(ValueError, match="write targets"):
+        pam.rope_write_kv(q, k, v, pos, inv, got_v["k"], got_v["v"], layer,
+                          cursors=cursors - 4, k_scale=got_v.get("k_scale"),
+                          v_scale=got_v.get("v_scale"))
+    assert all(torch.equal(full[n], before[n]) for n in full)
+
+
 @pytest.mark.parametrize("hkv, d, dtype, src, dst, key", [
     # 128 KiB pages in two slices: a swap cycle, a self-copy, a src read twice
     (32, 128, torch.bfloat16, [2, 5, 7, 2], [5, 2, 7, 9], "copy_pages_pair"),

@@ -164,7 +164,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "autogptq_tpu_torch.utils.random_checkpoint, autogptq_tpu_torch.ops.gemm, "
         "autogptq_tpu_torch.ops.flash_decode, autogptq_tpu_torch.ops.paged_attn, "
         "autogptq_tpu_torch.ops.build, autogptq_tpu_torch.serving, "
-        "autogptq_tpu_torch.serving_paged\n"
+        "autogptq_tpu_torch.serving_paged, autogptq_tpu_torch.utils.speculative\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'autogptq_tpu'))\n"
         "assert not bad, bad\n"
